@@ -1,0 +1,282 @@
+"""The ImmunoStruct trunk (counterpart of ``immunostruct_tpu/models/trunk.py``).
+
+One parameterized model covers the zoo; ``ModelSpec`` says which pieces a
+registry name uses:
+
+  structure branch : EGNN stack -> node attention (single-head or MHA) -> pool
+  sequence branch  : VAE encoder -> reparameterize -> z
+  property branch  : 2 -> 32 -> dropout -> property_embedding_dim MLP
+  fusion           : concat -> optional "combined attention" -> classifier
+
+``ImmunoStructModel``'s ``state_dict`` names map one to one onto the JAX
+package's parameter treepaths (``['gcn'][0]['edge_mlp'][0]['w']`` is
+``gcn.0.edge_mlp.0.w``), so JAX checkpoints load with
+``utils/checkpoint.py``.
+
+The VAE noise ``eps`` is drawn even when ``deterministic=True``, as in the
+JAX package and the reference. The forward takes it as an ``eps`` tensor,
+or else draws it from the ``generator`` it is given; dropout (when not
+deterministic) draws from the same generator. The comparative twin forward
+is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from immunostruct_tpu_torch.ops.attention import (
+    MultiHeadAttention, SelfAttention, mha_apply, self_attention_apply,
+)
+from immunostruct_tpu_torch.ops.egnn import egnn_stack, egnn_stack_apply
+from immunostruct_tpu_torch.ops.nnp import Linear, draw, dropout, linear_apply
+from immunostruct_tpu_torch.ops.pooling import max_pool, mean_pool
+from immunostruct_tpu_torch.structs import GraphBatch
+
+NUM_AMINO_ACIDS = 20
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    """Static architecture description (same fields as the JAX package)."""
+
+    name: str = "HybridModelv2"
+    # branches
+    use_structure: bool = True
+    use_sequence: bool = True          # VAE branch
+    use_property: bool = True          # property-embedding MLP (2->32->8)
+    raw_property_concat: bool = False  # SequenceFpModel: append raw 2 props to z
+    # structure branch
+    gcn_layers: int = 5                # hidden convs; +1 input conv
+    gat_hidden_channels: int = 64
+    node_attention: str = "self"       # 'self' | 'mha'
+    self_attention_heads: int = 1
+    mean_max_pool: bool = False        # StructureModelv2: mean (+) max readout
+    # sequence branch
+    vae_hidden_dim: int = 512
+    vae_latent_dim: int = 32
+    property_embedding_dim: int = 8
+    # fusion
+    combined_attention_dim: int = 0    # 0 = no fusion attention (v1 models)
+    combined_attention_heads: int = 8
+    # heads
+    ssl: bool = False                  # split trunk + classifier/node heads
+    mlp_features: int = 32
+    comparative: bool = False
+    use_wt_for_downstream: bool = True
+    dropout_rate: float = 0.1
+
+    @property
+    def embedding_dim(self) -> int:
+        """Width of the fused per-item embedding entering the classifier."""
+        dim = 0
+        if self.use_structure:
+            dim += self.gat_hidden_channels * (2 if self.mean_max_pool else 1)
+        if self.use_sequence:
+            dim += self.vae_latent_dim
+            if self.use_property:
+                dim += self.property_embedding_dim
+            if self.raw_property_concat:
+                dim += 2
+        return dim
+
+    @property
+    def classifier_input_dim(self) -> int:
+        if self.comparative and self.use_wt_for_downstream:
+            return self.embedding_dim * 2
+        return self.embedding_dim
+
+
+class ModelOutput(NamedTuple):
+    recon: Optional[torch.Tensor]       # sequence reconstruction (or None)
+    mu: Optional[torch.Tensor]
+    logvar: Optional[torch.Tensor]
+    logits: torch.Tensor                # [B, 1] f32
+    node_logits: Optional[torch.Tensor]  # SSL amino-acid prediction [B, 20]
+    embedding: Optional[torch.Tensor]   # fused per-item embedding
+    attention: Optional[torch.Tensor]   # node attention weights
+
+
+class _VAE(nn.Module):
+    def __init__(self, input_dim: int, hidden: int, latent: int,
+                 dec_in: int, **kw):
+        super().__init__()
+        self.fc1 = Linear(input_dim, hidden, **kw)
+        self.fc21 = Linear(hidden, latent, **kw)
+        self.fc22 = Linear(hidden, latent, **kw)
+        self.fc3 = Linear(dec_in, hidden, **kw)
+        self.fc4 = Linear(hidden, input_dim, **kw)
+
+
+class _Classifier(nn.Module):
+    """Linear(D, 32) -> ReLU -> Dropout -> Linear(32, 1); SSL models split
+    off ``classifier_head`` and ``node_predictor_head`` instead of ``out``."""
+
+    def __init__(self, spec: ModelSpec, **kw):
+        super().__init__()
+        self.trunk = Linear(spec.classifier_input_dim, spec.mlp_features, **kw)
+        if spec.ssl:
+            self.classifier_head = Linear(spec.mlp_features, 1, **kw)
+            self.node_predictor_head = Linear(spec.mlp_features,
+                                              NUM_AMINO_ACIDS, **kw)
+        else:
+            self.out = Linear(spec.mlp_features, 1, **kw)
+
+
+class ImmunoStructModel(nn.Module):
+    """Parameters of one zoo model; ``model_apply`` runs it."""
+
+    def __init__(self, spec: ModelSpec, vae_input_dim: int, *,
+                 generator: torch.Generator, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.spec = spec
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        if spec.use_structure:
+            self.gcn = egnn_stack(spec.gcn_layers, NUM_AMINO_ACIDS,
+                                  spec.gat_hidden_channels, edge_feat_size=1,
+                                  **kw)
+            if spec.node_attention == "self":
+                self.node_attn = SelfAttention(spec.gat_hidden_channels, **kw)
+            else:
+                self.node_attn = MultiHeadAttention(
+                    spec.gat_hidden_channels, spec.self_attention_heads, **kw)
+        if spec.use_sequence:
+            dec_in = spec.vae_latent_dim
+            if spec.use_property:
+                dec_in += spec.property_embedding_dim
+            if spec.raw_property_concat:
+                dec_in += 2
+            self.vae = _VAE(vae_input_dim, spec.vae_hidden_dim,
+                            spec.vae_latent_dim, dec_in, **kw)
+        if spec.use_property and spec.use_sequence:
+            self.property_embedding = nn.ModuleList([
+                Linear(2, 32, **kw),
+                Linear(32, spec.property_embedding_dim, **kw)])
+        if spec.combined_attention_dim > 0:
+            self.combined_attention = MultiHeadAttention(
+                spec.combined_attention_dim, spec.combined_attention_heads,
+                input_dim=1, **kw)
+        self.classifier = _Classifier(spec, **kw)
+
+
+def _structure_branch(model: ImmunoStructModel, graph: GraphBatch,
+                      aggregation: str, compute_dtype):
+    spec = model.spec
+    h = graph.node_feat[..., :NUM_AMINO_ACIDS].to(compute_dtype)
+    x = graph.coords.to(compute_dtype)
+    h, _ = egnn_stack_apply(model.gcn, h, x, graph.edge_src, graph.edge_dst,
+                            graph.edge_feat, graph.edge_mask,
+                            aggregation=aggregation)
+    if spec.node_attention == "self":
+        attn_out, attn_w = self_attention_apply(model.node_attn, h)
+    else:
+        attn_out, attn_w = mha_apply(model.node_attn, h,
+                                     n_head=spec.self_attention_heads)
+    if spec.mean_max_pool:
+        pooled = torch.cat([mean_pool(attn_out), max_pool(attn_out)], dim=-1)
+    else:
+        pooled = mean_pool(attn_out)
+    return pooled, attn_w
+
+
+def _vae_encode(vae: _VAE, seq_flat):
+    h1 = torch.relu(linear_apply(vae.fc1, seq_flat))
+    return linear_apply(vae.fc21, h1), linear_apply(vae.fc22, h1)
+
+
+def _vae_decode(vae: _VAE, z):
+    h3 = torch.relu(linear_apply(vae.fc3, z)).to(z.dtype)
+    return linear_apply(vae.fc4, h3)
+
+
+def _reparameterize(mu, logvar, eps, generator):
+    std = torch.exp(0.5 * logvar)
+    if eps is None:
+        eps = draw(torch.randn, std.shape, generator, std.device, std.dtype)
+    return mu + eps.to(std.dtype) * std
+
+
+def _property_branch(layers, props, deterministic, rate, generator):
+    h = torch.relu(linear_apply(layers[0], props))
+    h = dropout(h, rate, deterministic, generator)
+    return torch.relu(linear_apply(layers[1], h))
+
+
+def forward_item(model: ImmunoStructModel, graph: Optional[GraphBatch],
+                 seq_onehot: Optional[torch.Tensor],
+                 props: Optional[torch.Tensor], *,
+                 generator: Optional[torch.Generator] = None,
+                 deterministic: bool = False, aggregation: str = "auto",
+                 compute_dtype=torch.float32,
+                 eps: Optional[torch.Tensor] = None):
+    """Single-branch forward. Returns (embedding, recon, mu, logvar,
+    attention weights); ``embedding`` is [pool | z_vae]."""
+    spec = model.spec
+    pooled, attn_w, recon, mu, logvar = None, None, None, None, None
+    pieces = []
+    if spec.use_structure:
+        pooled, attn_w = _structure_branch(model, graph, aggregation,
+                                           compute_dtype)
+        pieces.append(pooled)
+    if spec.use_sequence:
+        b = seq_onehot.shape[0]
+        seq_flat = seq_onehot.reshape(b, -1).to(compute_dtype)
+        mu, logvar = _vae_encode(model.vae, seq_flat)
+        z = _reparameterize(mu, logvar, eps, generator)
+        if spec.use_property:
+            prop_emb = _property_branch(model.property_embedding,
+                                        props.to(compute_dtype),
+                                        deterministic, spec.dropout_rate,
+                                        generator)
+            z = torch.cat([z, prop_emb], dim=-1)
+        if spec.raw_property_concat:
+            z = torch.cat([z, props.to(z.dtype)], dim=-1)
+        recon = _vae_decode(model.vae, z)
+        pieces.append(z)
+    embedding = torch.cat(pieces, dim=-1) if len(pieces) > 1 else pieces[0]
+    return embedding, recon, mu, logvar, attn_w
+
+
+def _classify(model: ImmunoStructModel, combined: torch.Tensor,
+              deterministic: bool, generator: Optional[torch.Generator]):
+    """Optional fusion attention + classifier MLP."""
+    spec = model.spec
+    if spec.combined_attention_dim > 0:
+        # the fused D-wide vector as a length-D sequence of scalars
+        c, _ = mha_apply(model.combined_attention, combined[..., None],
+                         n_head=spec.combined_attention_heads)
+        combined = c.mean(dim=2)
+    cls = model.classifier
+    h = torch.relu(linear_apply(cls.trunk, combined))
+    h = dropout(h, spec.dropout_rate, deterministic, generator)
+    if spec.ssl:
+        return (linear_apply(cls.classifier_head, h),
+                linear_apply(cls.node_predictor_head, h))
+    return linear_apply(cls.out, h), None
+
+
+def model_apply(model: ImmunoStructModel, graph: Optional[GraphBatch],
+                seq_onehot: Optional[torch.Tensor],
+                props: Optional[torch.Tensor], *,
+                generator: Optional[torch.Generator] = None,
+                deterministic: bool = False, aggregation: str = "auto",
+                compute_dtype=torch.float32,
+                eps: Optional[torch.Tensor] = None) -> ModelOutput:
+    """Plain (non-comparative) forward. For comparative specs the item
+    embedding is duplicated to fill the 2x-wide classifier, as in the JAX
+    package's pretraining path."""
+    embedding, recon, mu, logvar, attn_w = forward_item(
+        model, graph, seq_onehot, props, generator=generator,
+        deterministic=deterministic, aggregation=aggregation,
+        compute_dtype=compute_dtype, eps=eps)
+    combined = embedding
+    if model.spec.comparative and model.spec.use_wt_for_downstream:
+        combined = torch.cat([embedding, embedding], dim=-1)
+    logits, node_logits = _classify(model, combined, deterministic, generator)
+    return ModelOutput(recon=recon, mu=mu, logvar=logvar,
+                       logits=logits.float(), node_logits=node_logits,
+                       embedding=embedding, attention=attn_w)

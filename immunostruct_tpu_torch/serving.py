@@ -1,0 +1,319 @@
+"""Batch scoring of ``.npz`` requests (counterpart of ``immunostruct_tpu/serving.py``).
+
+The JAX package serves an exported StableHLO artifact; PyTorch has no such
+artifact here, so this server takes what the JAX export CLI takes instead
+(``--checkpoint``, ``--model``, ``--compute-dtype``, ``--aggregation``) and
+runs the model directly: ``probs = sigmoid(model_apply(..., deterministic=True).logits)``.
+
+Transports (stdlib only):
+
+1. A filesystem request queue (``--watch-dir``): responses are written next
+   to each request as ``<name>.probs.npy``.
+2. An HTTP endpoint (``--http PORT``): ``POST /score`` with the request
+   ``.npz`` bytes as the body returns ``{"probs": [...], "ms": t}``;
+   ``GET /healthz`` answers liveness; a malformed request gets a 400; a
+   failed forward gets a 500, after which ``/healthz`` answers 503.
+3. ``--oneshot req.npz`` scores one file.
+
+Request npz keys (the JAX package's format):
+  node_feat [B,N,20] coords [B,N,3] edge_src/edge_dst [B,E] edge_feat
+  [B,E,1] edge_mask [B,E]->bool node_mask [B,N]->bool, num_nodes,
+  seq [B,L,21], props [B,2]
+(produce one with ``--write-example``).
+
+The VAE noise of every request comes from a ``torch.Generator`` seeded
+afresh with ``--seed``, so the same request always gets the same scores,
+whatever came before it (the JAX export folds in one fixed key for the same
+purpose).
+
+Usage:
+  python -m immunostruct_tpu_torch.cli.serve --http 8788                 # seeded weights
+  python -m immunostruct_tpu_torch.cli.serve --checkpoint ft.ckpt --oneshot req.npz
+  python -m immunostruct_tpu_torch.cli.serve --checkpoint ft.ckpt --watch-dir q/
+"""
+
+from __future__ import annotations
+
+import argparse
+import io
+import json
+import os
+import time
+from http.server import BaseHTTPRequestHandler, HTTPServer
+
+import numpy as np
+import torch
+
+from immunostruct_tpu_torch.data.synthetic import write_example
+from immunostruct_tpu_torch.models.trunk import NUM_AMINO_ACIDS, model_apply
+from immunostruct_tpu_torch.models.zoo import build_model
+from immunostruct_tpu_torch.structs import GraphBatch
+from immunostruct_tpu_torch.utils.checkpoint import load_jax_checkpoint
+
+__all__ = ["BadRequest", "Scorer", "request_to_args", "write_example",
+           "serve_one", "make_http_server", "main"]
+
+
+class BadRequest(ValueError):
+    """The request is not an ``.npz`` of the expected arrays and shapes."""
+
+
+def _read_request(source, model=None) -> dict:
+    """The request's arrays, checked against each other and, given
+    ``model``, against its input widths. Raises ``BadRequest``."""
+    try:
+        with np.load(source, allow_pickle=False) as z:
+            arrays = {k: z[k] for k in z.files}
+    except Exception as e:  # noqa: BLE001 - any unreadable body
+        raise BadRequest(f"not a readable .npz: {type(e).__name__}: {e}") from e
+    missing = sorted({"node_feat", "coords", "edge_src", "edge_dst",
+                      "edge_feat", "edge_mask", "node_mask", "num_nodes",
+                      "seq", "props"} - set(arrays))
+    if missing:
+        raise BadRequest(f"missing arrays {missing}")
+    if arrays["node_feat"].ndim != 3:
+        raise BadRequest(f"node_feat has shape {arrays['node_feat'].shape}, "
+                         f"expected [B, N, F]")
+    b, n, _ = arrays["node_feat"].shape
+    e = arrays["edge_src"].shape[-1] if arrays["edge_src"].ndim == 2 else -1
+    seq = arrays["seq"]
+    want = {"coords": (b, n, 3), "edge_src": (b, e), "edge_dst": (b, e),
+            "edge_feat": (b, e, 1), "edge_mask": (b, e),
+            "node_mask": (b, n), "num_nodes": (b,),
+            "seq": (b,) + seq.shape[1:2] + (21,), "props": (b, 2)}
+    for name, shape in want.items():
+        if arrays[name].shape != shape:
+            raise BadRequest(f"{name} has shape {arrays[name].shape}, "
+                             f"expected {shape}")
+    if model is not None:
+        if (model.spec.use_structure
+                and arrays["node_feat"].shape[2] < NUM_AMINO_ACIDS):
+            raise BadRequest(f"node_feat has {arrays['node_feat'].shape[2]} "
+                             f"features, the model reads {NUM_AMINO_ACIDS}")
+        if (model.spec.use_sequence
+                and seq.shape[1] * 21 != model.vae.fc1.w.shape[0]):
+            raise BadRequest(f"seq has length {seq.shape[1]}, the model "
+                             f"takes {model.vae.fc1.w.shape[0] // 21}")
+    return arrays
+
+
+def request_to_args(source, device, model=None):
+    """Parse a request ``.npz`` (path or file-like) into (graph, seq, props)
+    on ``device``. A malformed request raises ``BadRequest`` before anything
+    reaches the device."""
+    arrays = _read_request(source, model)
+    graph = GraphBatch.from_numpy(arrays, device)
+    seq = torch.as_tensor(arrays["seq"]).to(device=device,
+                                            dtype=torch.float32)
+    props = torch.as_tensor(arrays["props"]).to(device=device,
+                                                dtype=torch.float32)
+    return graph, seq, props
+
+
+class Scorer:
+    """The deterministic inference function ``probs = f(graph, seq, props)``."""
+
+    def __init__(self, model, *, device, compute_dtype=torch.bfloat16,
+                 aggregation: str = "auto", seed: int = 0):
+        self.model = model.eval()
+        self.device = torch.device(device)
+        self.compute_dtype = compute_dtype
+        self.aggregation = aggregation
+        self.seed = seed
+        self.failure = None     # the first failed forward, as text
+
+    def generator(self) -> torch.Generator:
+        """The VAE noise source of one request: seeded afresh each time."""
+        return torch.Generator(device=self.device).manual_seed(self.seed)
+
+    def __call__(self, graph, seq, props) -> np.ndarray:
+        with torch.inference_mode():
+            out = model_apply(self.model, graph, seq, props,
+                              generator=self.generator(), deterministic=True,
+                              aggregation=self.aggregation,
+                              compute_dtype=self.compute_dtype)
+            probs = torch.sigmoid(out.logits.reshape(-1))
+        return probs.cpu().numpy()
+
+    def score_request(self, source):
+        """Score a request path or file-like; returns (probs, ms), where ms
+        is the wall time from parsed request to probabilities on the host."""
+        args = request_to_args(source, self.device, self.model)
+        t0 = time.perf_counter()
+        try:
+            probs = self(*args)
+        except Exception as e:
+            self.failure = f"{type(e).__name__}: {e}"
+            raise
+        return probs, (time.perf_counter() - t0) * 1e3
+
+
+def serve_one(scorer: Scorer, req_path: str) -> str:
+    probs, ms = scorer.score_request(req_path)
+    out_path = req_path[: -len(".npz")] + ".probs.npy"
+    np.save(out_path, probs)
+    print(f"{os.path.basename(req_path)}: {probs.shape[0]} probs in "
+          f"{ms:.1f} ms -> {out_path}")
+    return out_path
+
+
+def make_http_server(scorer: Scorer, host: str = "127.0.0.1",
+                     port: int = 0) -> HTTPServer:
+    """HTTP scoring endpoint. Returns the ``HTTPServer`` (not started);
+    callers read the bound port from ``server_address`` and drive
+    ``serve_forever``/``shutdown``. Single-threaded: one card, one request
+    at a time."""
+
+    class Handler(BaseHTTPRequestHandler):
+        def _reply(self, code: int, payload: dict) -> None:
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):  # noqa: N802 (http.server API)
+            if self.path == "/healthz" and scorer.failure is None:
+                self._reply(200, {"status": "ok"})
+            elif self.path == "/healthz":
+                self._reply(503, {"status": "failed",
+                                  "error": scorer.failure})
+            else:
+                self._reply(404, {"error": f"unknown path {self.path}"})
+
+        def do_POST(self):  # noqa: N802
+            if self.path != "/score":
+                self._reply(404, {"error": f"unknown path {self.path}"})
+                return
+            try:
+                n = int(self.headers.get("Content-Length", "0"))
+            except ValueError:
+                self._reply(400, {"error": "Content-Length is not a number"})
+                return
+            try:
+                probs, ms = scorer.score_request(io.BytesIO(self.rfile.read(n)))
+            except BadRequest as e:
+                self._reply(400, {"error": str(e)})
+                return
+            except Exception as e:  # noqa: BLE001 - the forward failed
+                self._reply(500, {"error": f"{type(e).__name__}: {e}"})
+                return
+            try:
+                self._reply(200, {"probs": probs.tolist(), "ms": ms})
+            except (BrokenPipeError, ConnectionResetError):
+                pass  # the client went away; nothing to send it
+
+        def log_message(self, fmt, *a):  # responses carry the information
+            pass
+
+    return HTTPServer((host, port), Handler)
+
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def build_scorer(args) -> Scorer:
+    """Model and Scorer from parsed command-line arguments."""
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda but torch finds no CUDA device; "
+                           "pass --device cpu to serve on the CPU")
+    gen = torch.Generator().manual_seed(args.seed)
+    _, model = build_model(args.model, args.seq_len * 21, gen, device=device)
+    if args.checkpoint:
+        load_jax_checkpoint(args.checkpoint, model)
+    else:
+        print(f"WARNING: no --checkpoint; serving {args.model} with random "
+              f"weights drawn from seed {args.seed}")
+    return Scorer(model, device=device,
+                  compute_dtype=_DTYPES[args.compute_dtype],
+                  aggregation=args.aggregation, seed=args.seed)
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--checkpoint", type=str, default=None,
+                    help="JAX package checkpoint (npz); without it the "
+                         "weights are drawn from --seed")
+    ap.add_argument("--model", type=str, default="HybridModelv2")
+    ap.add_argument("--compute-dtype", default="bfloat16",
+                    choices=sorted(_DTYPES))
+    ap.add_argument("--aggregation", default="auto",
+                    choices=["auto", "mega", "scatter"],
+                    help="EGNN aggregation: 'mega' (the Hopper kernel), "
+                         "'scatter' (plain PyTorch), 'auto' ('mega' on "
+                         "CUDA, 'scatter' on CPU)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; 'cuda' (default) fails when no CUDA "
+                         "device is present")
+    ap.add_argument("--seed", type=int, default=1,
+                    help="seeds the random weights (without --checkpoint) "
+                         "and the VAE noise generator")
+    ap.add_argument("--seq-len", type=int, default=284,
+                    help="sequence length L of requests (VAE input L*21)")
+    ap.add_argument("--watch-dir", type=str)
+    ap.add_argument("--oneshot", type=str)
+    ap.add_argument("--write-example", type=str,
+                    help="write an example request (B=8, N=32, E=128, "
+                         "L=--seq-len) to this path")
+    ap.add_argument("--poll-secs", type=float, default=0.2)
+    ap.add_argument("--http", type=int, default=None, metavar="PORT",
+                    help="serve POST /score + GET /healthz on this port")
+    ap.add_argument("--host", type=str, default="127.0.0.1")
+    return ap
+
+
+def main(argv=None):
+    ap = parser()
+    args = ap.parse_args(argv)
+
+    if args.write_example:
+        write_example(args.write_example, seq_len=args.seq_len)
+        print(f"wrote example request {args.write_example}")
+        if not (args.oneshot or args.http is not None or args.watch_dir):
+            return
+    if not (args.oneshot or args.http is not None or args.watch_dir):
+        ap.error("one of --watch-dir, --oneshot, --http or --write-example "
+                 "is required")
+
+    scorer = build_scorer(args)
+
+    if args.oneshot:
+        serve_one(scorer, args.oneshot)
+        return
+
+    if args.http is not None:
+        server = make_http_server(scorer, args.host, args.http)
+        host, port = server.server_address[:2]
+        print(f"scoring at http://{host}:{port}/score (ctrl-c to stop)",
+              flush=True)
+        try:
+            server.serve_forever()
+        finally:
+            server.server_close()
+        return
+
+    print(f"serving from {args.watch_dir} (ctrl-c to stop)")
+    # processed state is keyed by (name, size, mtime): a request caught
+    # mid-copy is retried once the writer finishes; a bad file is rejected
+    # once per version
+    done = set()
+    while True:
+        for fname in sorted(os.listdir(args.watch_dir)):
+            if not fname.endswith(".npz"):
+                continue
+            path = os.path.join(args.watch_dir, fname)
+            try:
+                st = os.stat(path)
+            except OSError:
+                continue
+            key = (fname, st.st_size, st.st_mtime_ns)
+            if key in done:
+                continue
+            try:
+                serve_one(scorer, path)
+            except BadRequest as e:  # a failed forward stops the server
+                print(f"REJECTED {fname} (will retry if the file changes): {e}")
+            done.add(key)
+        time.sleep(args.poll_secs)
