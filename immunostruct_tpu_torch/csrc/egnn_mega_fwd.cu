@@ -1,4 +1,5 @@
-// EGNN edge half-layer forward for Hopper (sm_90a), forward only.
+// EGNN edge half-layer forward for Hopper (sm_90a), with the residuals the
+// backward (csrc/egnn_tail_bwd.cu) reads.
 //
 // Replaces immunostruct_tpu/ops/pallas_mega.py::_mega_fwd_kernel (launched
 // by _mega_fwd_call; public op edge_mega). Per graph b, per real edge s->d:
@@ -9,6 +10,11 @@
 //   m       = silu(silu(a1) @ W2 + b2)
 //   cw      = silu(m @ Wc1 + bc1) @ wc2
 //   out[d] += [m ++ cw*x_hat]                   f32, [N, H+3]
+//
+// For training it also stores, per edge, a1 (after the f32 sum, before the
+// silu, rounded to the compute dtype) into a1_out [B,H,E] and xd into
+// xd_out [B,3,E], zeros for a skipped edge; null pointers skip both stores
+// (inference).
 //
 // What bounds it on the H100. At the serving shapes (B=128, N=288, E=2560,
 // H=64) one layer does 2*E*H*H = 21 M multiply-adds per graph in the two
@@ -34,6 +40,9 @@
 //            H/16 columns, operands in shared memory), m scattered into the
 //            accumulator with shared-memory atomics, cw reduced across the
 //            16 threads of a half-warp, cw*x_hat scattered likewise.
+//            The a1 residual goes through an edge-tile buffer so that its
+//            store in the [B,H,E] layout has neighbouring threads on
+//            neighbouring edges (coalesced), as the xd store does.
 //   end      the accumulator goes to device memory in one coalesced write.
 // The products run on the CUDA cores in f32 (exact f32 arithmetic for the
 // f32 path; bf16 values are held as f32 after rounding), a simple first
@@ -65,6 +74,16 @@ __device__ __forceinline__ float to_f<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+
+// an f32 value stored in the compute dtype (round to nearest even)
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
 }
 
 // round an f32 value to the compute dtype and back (round to nearest even)
@@ -101,8 +120,9 @@ __global__ void __launch_bounds__(kThreads)
                          const float* __restrict__ w2,
                          const float* __restrict__ wc1,
                          const float* __restrict__ small,
-                         float* __restrict__ out, float* proj, int N, int E,
-                         int F) {
+                         float* __restrict__ out, float* proj,
+                         T* __restrict__ a1_out, T* __restrict__ xd_out,
+                         int N, int E, int F) {
   constexpr int C = H + 3;
   constexpr int LD = row_stride(H);
   constexpr int CPT = H / 16;  // accumulator columns per thread
@@ -131,6 +151,8 @@ __global__ void __launch_bounds__(kThreads)
   const uint8_t* maskb = mask + (size_t)b * E;
   const T* efb = ef + (size_t)b * E;
   float* pab = proj + (size_t)b * N * 2 * H;  // [N][2H]: pa | pb
+  T* a1b = a1_out == nullptr ? nullptr : a1_out + (size_t)b * H * E;
+  T* xdb = xd_out == nullptr ? nullptr : xd_out + (size_t)b * 3 * E;
 
   // ---- phase 0: accumulator and weights ----
   for (int i = tid; i < N * C; i += kThreads) acc[i] = 0.0f;
@@ -166,15 +188,16 @@ __global__ void __launch_bounds__(kThreads)
       const int e = e0 + tid;
       int s = 0, d = 0, ok = 0;
       float r = 0.0f, ev = 0.0f, h0 = 0.0f, h1 = 0.0f, h2 = 0.0f;
+      float d0 = 0.0f, d1 = 0.0f, d2 = 0.0f;
       if (e < E) {
         s = srcb[e];
         d = dstb[e];
         ok = maskb[e] != 0 && s >= 0 && s < N && d >= 0 && d < N;
       }
       if (ok) {
-        const float d0 = rnd<T>(to_f(xb[s * 3 + 0]) - to_f(xb[d * 3 + 0]));
-        const float d1 = rnd<T>(to_f(xb[s * 3 + 1]) - to_f(xb[d * 3 + 1]));
-        const float d2 = rnd<T>(to_f(xb[s * 3 + 2]) - to_f(xb[d * 3 + 2]));
+        d0 = rnd<T>(to_f(xb[s * 3 + 0]) - to_f(xb[d * 3 + 0]));
+        d1 = rnd<T>(to_f(xb[s * 3 + 1]) - to_f(xb[d * 3 + 1]));
+        d2 = rnd<T>(to_f(xb[s * 3 + 2]) - to_f(xb[d * 3 + 2]));
         r = rnd<T>(d0 * d0 + d1 * d1 + d2 * d2);
         const float safe = r > 0.0f ? r : 1.0f;
         const float inv = 1.0f / (sqrtf(safe) + 1e-30f);
@@ -185,6 +208,11 @@ __global__ void __launch_bounds__(kThreads)
       } else {
         s = 0;
         d = 0;
+      }
+      if (xdb != nullptr && e < E) {
+        xdb[0 * E + e] = from_f<T>(d0);
+        xdb[1 * E + e] = from_f<T>(d1);
+        xdb[2 * E + e] = from_f<T>(d2);
       }
       srcv[tid] = s;
       dstv[tid] = d;
@@ -197,20 +225,31 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 
-    // ---- a1 -> silu(a1) into bufA ----
+    // ---- a1 -> silu(a1) into bufA (and a1 into bufB for the residual) ----
     for (int i = tid; i < kTile * H; i += kThreads) {
       const int t = i / H, j = i % H;
-      float v = 0.0f;
+      float v = 0.0f, a1 = 0.0f;
       if (okv[t]) {
-        float a1 = pab[srcv[t] * 2 * H + j] + pab[dstv[t] * 2 * H + H + j];
+        a1 = pab[srcv[t] * 2 * H + j] + pab[dstv[t] * 2 * H + H + j];
         a1 = a1 + sms[0 * H + j] * radv[t];
         a1 = a1 + sms[1 * H + j] * efv[t];
         a1 = a1 + sms[2 * H + j];
         v = rnd<T>(silu(a1));
       }
       bufA[t * LD + j] = v;
+      bufB[t * LD + j] = a1;
     }
     __syncthreads();
+    if (a1b != nullptr) {  // uniform across the CTA
+      // neighbouring threads on neighbouring edges: a coalesced store
+      for (int i = tid; i < kTile * H; i += kThreads) {
+        const int j = i / kTile, t = i % kTile;
+        if (e0 + t < E) {
+          a1b[(size_t)j * E + e0 + t] = from_f<T>(bufB[t * LD + j]);
+        }
+      }
+      __syncthreads();  // bufB is rewritten with m next
+    }
 
     // ---- m = silu(silu(a1) @ W2 + b2): into bufB and the accumulator ----
     {
@@ -301,8 +340,8 @@ template <typename T, int H>
 cudaError_t launch(const int* src, const int* dst, const uint8_t* mask,
                    const void* ef, const void* h, const void* x,
                    const float* w1ab, const float* w2, const float* wc1,
-                   const float* small, float* out, float* proj, int B, int N,
-                   int E, int F, cudaStream_t stream) {
+                   const float* small, float* out, float* proj, void* a1,
+                   void* xd, int B, int N, int E, int F, cudaStream_t stream) {
   const size_t bytes = (size_t)smem_floats(N, H) * sizeof(float);
   auto kernel = egnn_mega_fwd_kernel<T, H>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -310,7 +349,8 @@ cudaError_t launch(const int* src, const int* dst, const uint8_t* mask,
   if (err != cudaSuccess) return err;
   kernel<<<B, kThreads, bytes, stream>>>(
       src, dst, mask, static_cast<const T*>(ef), static_cast<const T*>(h),
-      static_cast<const T*>(x), w1ab, w2, wc1, small, out, proj, N, E, F);
+      static_cast<const T*>(x), w1ab, w2, wc1, small, out, proj,
+      static_cast<T*>(a1), static_cast<T*>(xd), N, E, F);
   return cudaGetLastError();
 }
 
@@ -326,14 +366,17 @@ long long egnn_mega_fwd_smem_bytes(int N, int H) {
 // One launch: B CTAs of 256 threads on `stream`. src/dst [B,E] int32,
 // mask [B,E] bool, ef [B,E,1], h [B,N,F], x [B,N,3] in the compute dtype
 // (bf16 != 0: bfloat16, else float32); w1ab [2F,H], w2/wc1 [H,H],
-// small [H,6] f32; out [B,N,H+3] f32; proj [B,N,2H] f32 scratch.
+// small [H,6] f32; out [B,N,H+3] f32; proj [B,N,2H] f32 scratch; a1
+// [B,H,E] and xd [B,3,E] in the compute dtype, or both null (no residuals).
 // Returns the cudaError_t of the launch (0 on success).
 int egnn_mega_fwd(const void* src, const void* dst, const void* mask,
                   const void* ef, const void* h, const void* x,
                   const void* w1ab, const void* w2, const void* wc1,
-                  const void* small, void* out, void* proj, int B, int N,
-                  int E, int F, int H, int bf16, void* stream) {
-  if (B < 1 || N < 1 || E < 0 || F < 1 || F > kTile || H != kHidden) {
+                  const void* small, void* out, void* proj, void* a1,
+                  void* xd, int B, int N, int E, int F, int H, int bf16,
+                  void* stream) {
+  if (B < 1 || N < 1 || E < 0 || F < 1 || F > kTile || H != kHidden ||
+      (a1 == nullptr) != (xd == nullptr)) {
     return cudaErrorInvalidValue;
   }
   const int* s = static_cast<const int*>(src);
@@ -348,10 +391,11 @@ int egnn_mega_fwd(const void* src, const void* dst, const void* mask,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) {
     return launch<__nv_bfloat16, kHidden>(s, d, m, ef, h, x, pw1, pw2, pwc1,
-                                          psm, po, pp, B, N, E, F, st);
+                                          psm, po, pp, a1, xd, B, N, E, F,
+                                          st);
   }
   return launch<float, kHidden>(s, d, m, ef, h, x, pw1, pw2, pwc1, psm, po,
-                                pp, B, N, E, F, st);
+                                pp, a1, xd, B, N, E, F, st);
 }
 
 }  // extern "C"

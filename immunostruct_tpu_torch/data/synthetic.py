@@ -1,7 +1,8 @@
 """Seeded synthetic inputs (counterpart of ``immunostruct_tpu/data/synthetic.py``
-``random_sample_batch`` and ``immunostruct_tpu/serving.py`` ``write_example``).
+``random_sample_batch``/``random_comparative_batch`` and
+``immunostruct_tpu/serving.py`` ``write_example``).
 
-Both functions make the same ``np.random.default_rng`` calls in the same
+The functions make the same ``np.random.default_rng`` calls in the same
 order as the JAX package, so one seed gives bit-identical arrays in both
 packages.
 """
@@ -11,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from immunostruct_tpu_torch.structs import SampleBatch
+from immunostruct_tpu_torch.structs import ComparativeBatch, SampleBatch
 
 
 def random_sample_arrays(batch: int, nodes: int, edges: int, seq_len: int,
@@ -45,6 +46,18 @@ def random_sample_batch(batch: int, nodes: int, edges: int, seq_len: int,
     """``random_sample_arrays`` as a SampleBatch on ``device``."""
     return SampleBatch.from_numpy(
         random_sample_arrays(batch, nodes, edges, seq_len, seed), device)
+
+
+def random_comparative_batch(batch: int, nodes: int, edges: int,
+                             seq_len: int, seed: int = 0,
+                             device: torch.device | str = "cpu"
+                             ) -> ComparativeBatch:
+    """Cancer/WT twins: the cancer half from ``seed``, the WT half from
+    ``seed + 1`` with the cancer half's (pair-level) target."""
+    cancer = random_sample_batch(batch, nodes, edges, seq_len, seed, device)
+    wt = random_sample_batch(batch, nodes, edges, seq_len, seed + 1, device)
+    wt.target = cancer.target
+    return ComparativeBatch(cancer=cancer, wt=wt)
 
 
 def write_example(path, batch: int = 8, nodes: int = 32, edges: int = 128,

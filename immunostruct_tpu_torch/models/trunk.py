@@ -16,8 +16,10 @@ package's parameter treepaths (``['gcn'][0]['edge_mlp'][0]['w']`` is
 The VAE noise ``eps`` is drawn even when ``deterministic=True``, as in the
 JAX package and the reference. The forward takes it as an ``eps`` tensor,
 or else draws it from the ``generator`` it is given; dropout (when not
-deterministic) draws from the same generator. The comparative twin forward
-is not ported yet.
+deterministic, the training-mode forward) draws from the same generator,
+so a generator seeded alike gives the same forward. ``model_apply`` is the
+plain forward, ``model_apply_comparative`` the cancer/WT twin forward with
+shared weights (two passes, or one over the stacked twins).
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from immunostruct_tpu_torch.ops.attention import (
 from immunostruct_tpu_torch.ops.egnn import egnn_stack, egnn_stack_apply
 from immunostruct_tpu_torch.ops.nnp import Linear, draw, dropout, linear_apply
 from immunostruct_tpu_torch.ops.pooling import max_pool, mean_pool
-from immunostruct_tpu_torch.structs import GraphBatch
+from immunostruct_tpu_torch.structs import GraphBatch, map_tensors
 
 NUM_AMINO_ACIDS = 20
 
@@ -280,3 +282,62 @@ def model_apply(model: ImmunoStructModel, graph: Optional[GraphBatch],
     return ModelOutput(recon=recon, mu=mu, logvar=logvar,
                        logits=logits.float(), node_logits=node_logits,
                        embedding=embedding, attention=attn_w)
+
+
+def _cat_twins(cancer, wt):
+    """Stack a cancer/WT pair of tensors or GraphBatches on the batch axis."""
+    if cancer is None:
+        return None
+    if isinstance(cancer, torch.Tensor):
+        return torch.cat([cancer, wt], dim=0)
+    return GraphBatch(**{name: torch.cat([getattr(cancer, name),
+                                          getattr(wt, name)], dim=0)
+                         for name in vars(cancer)})
+
+
+def model_apply_comparative(model: ImmunoStructModel, graph_pair, seq_pair,
+                            props_pair, *,
+                            generator: Optional[torch.Generator] = None,
+                            deterministic: bool = False,
+                            aggregation: str = "auto",
+                            compute_dtype=torch.float32,
+                            stack_twins: bool = False, eps=None):
+    """Twin forward over (cancer, wt) with shared weights.
+
+    Returns (ModelOutput_cancer, ModelOutput_wt, logits). The logits come
+    from the concatenated pair embedding when ``use_wt_for_downstream``;
+    both per-item outputs carry their own recon/mu/logvar for the averaged
+    twin loss. ``stack_twins`` runs ONE ``forward_item`` over the twins
+    stacked on the batch axis instead of two B-sized passes (the same
+    math; only the order of the noise draws differs). ``eps``: the VAE
+    noise, a (cancer, wt) pair for two passes or one [2B, latent] tensor
+    for the stacked pass; None draws it from ``generator``."""
+    kw = dict(generator=generator, deterministic=deterministic,
+              aggregation=aggregation, compute_dtype=compute_dtype)
+    if stack_twins:
+        b = (seq_pair[0] if seq_pair[0] is not None
+             else graph_pair[0].node_feat).shape[0]
+        stacked = forward_item(model, _cat_twins(*graph_pair),
+                               _cat_twins(*seq_pair), _cat_twins(*props_pair),
+                               eps=eps, **kw)
+        cancer = [map_tensors(lambda t: t[:b], v) for v in stacked]
+        wt = [map_tensors(lambda t: t[b:], v) for v in stacked]
+    else:
+        eps_c, eps_w = (None, None) if eps is None else eps
+        cancer = forward_item(model, graph_pair[0], seq_pair[0],
+                              props_pair[0], eps=eps_c, **kw)
+        wt = forward_item(model, graph_pair[1], seq_pair[1], props_pair[1],
+                          eps=eps_w, **kw)
+    emb_c, recon_c, mu_c, logvar_c, attn_c = cancer
+    emb_w, recon_w, mu_w, logvar_w, attn_w = wt
+    combined = (torch.cat([emb_c, emb_w], dim=-1)
+                if model.spec.use_wt_for_downstream else emb_c)
+    logits, node_logits = _classify(model, combined, deterministic, generator)
+    logits = logits.float()
+    out_c = ModelOutput(recon=recon_c, mu=mu_c, logvar=logvar_c,
+                        logits=logits, node_logits=node_logits,
+                        embedding=emb_c, attention=attn_c)
+    out_w = ModelOutput(recon=recon_w, mu=mu_w, logvar=logvar_w,
+                        logits=logits, node_logits=node_logits,
+                        embedding=emb_w, attention=attn_w)
+    return out_c, out_w, logits

@@ -6,13 +6,17 @@ EGNNConv implements it): messages flow src -> dst and are summed at the
 destination; padded edges contribute nothing; padded nodes still flow
 through the node MLP.
 
+Both strategies are differentiable: gradients flow through the node update
+and the coordinate update to every layer's parameters.
+
 Aggregation strategies:
   'scatter'  ``index_select`` gathers and ``index_add_`` aggregation (sums
              in f32) with the radial guard of the JAX package. The CPU path
              and the plain reference for the kernel path.
-  'mega'     the edge half of every layer in one hand-written Hopper kernel
-             from the raw edge indices (ops/mega.py); the node MLP stays in
-             PyTorch. On CPU tensors ``edge_mega`` runs its plain version.
+  'mega'     the edge half of every layer in hand-written Hopper kernels
+             from the raw edge indices (ops/mega.py): B1 forward, B2 in the
+             backward; the node MLP stays in PyTorch. On CPU tensors
+             ``edge_mega`` runs their plain versions.
   'auto'     'mega' for CUDA tensors, 'scatter' for CPU tensors.
 The JAX package's other names ('onehot', 'fused', 'onehot_remat', 'pallas')
 are not ported yet and raise (see ROADMAP.md).
@@ -130,8 +134,9 @@ def _egnn_apply_mega(p: EGNNLayer, h, x, edge_src, edge_dst, edge_feat,
         raise ValueError("aggregation 'mega' takes 1-dim edge features, got "
                          f"{edge_feat.shape[-1]}")
     w1ab, w2, wc1, small = pack_params(p.edge_mlp, p.coord_mlp)
-    agg = edge_mega(edge_src, edge_dst, edge_mask, edge_feat, h,
-                    x.to(h.dtype), w1ab, w2, wc1, small).to(h.dtype)
+    agg = edge_mega(edge_src, edge_dst, edge_mask, edge_feat,
+                    h.contiguous(), x.to(h.dtype).contiguous(), w1ab, w2,
+                    wc1, small).to(h.dtype)
     c = agg.shape[-1] - 3
     return _node_update(p, h, x, agg[..., :c], agg[..., c:].to(x.dtype))
 

@@ -9,7 +9,7 @@ the node MLP, attention and mean pooling.
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional
+from typing import Callable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -115,3 +115,39 @@ class SampleBatch:
             target=self.target.to(device),
             aux_residue=None if self.aux_residue is None
             else self.aux_residue.to(device))
+
+
+@dataclasses.dataclass
+class ComparativeBatch:
+    """Cancer/WT twins at identical padded shapes, for the comparative
+    models (``model_apply_comparative``)."""
+
+    cancer: SampleBatch
+    wt: SampleBatch
+
+    def to(self, device: torch.device | str) -> "ComparativeBatch":
+        return ComparativeBatch(cancer=self.cancer.to(device),
+                                wt=self.wt.to(device))
+
+
+def map_tensors(fn: Callable[[torch.Tensor], torch.Tensor], batch):
+    """Apply ``fn`` to every tensor of a batch dataclass (nested batches
+    included; None fields stay None) and rebuild it."""
+    if batch is None:
+        return None
+    if isinstance(batch, torch.Tensor):
+        return fn(batch)
+    return type(batch)(**{f.name: map_tensors(fn, getattr(batch, f.name))
+                          for f in dataclasses.fields(batch)})
+
+
+def first_tensor(batch) -> torch.Tensor:
+    """The first tensor of a batch dataclass in field order (its leading
+    dimension is the batch size, its device the batch's)."""
+    if isinstance(batch, torch.Tensor):
+        return batch
+    for f in dataclasses.fields(batch):
+        value = getattr(batch, f.name)
+        if value is not None:
+            return first_tensor(value)
+    raise ValueError(f"{type(batch).__name__} holds no tensor")

@@ -1,10 +1,14 @@
 """Load the JAX package's checkpoints (counterpart of the restore side of
-``immunostruct_tpu/utils/checkpoint.py``).
+``immunostruct_tpu/utils/checkpoint.py``), and name the port's parameters
+as the JAX package does.
 
 A JAX checkpoint is a plain ``np.savez`` file keyed by parameter treepath,
 ``jax.tree_util.keystr`` style: ``['gcn'][0]['edge_mlp'][0]['w']``. The
 port's ``state_dict`` names the same parameter ``gcn.0.edge_mlp.0.w``, so
-the map is one to one and numpy alone reads the file.
+the map is one to one and numpy alone reads the file. A training state's
+contrastive projector (``['contrastive_projector']['fc1']['w']``) loads into
+a model that has one attached (``Trainer.init_state``) like any other
+parameter.
 """
 
 from __future__ import annotations
@@ -30,6 +34,19 @@ def jax_name(keystr: str) -> str:
     if not parts or pos != len(keystr):
         raise ValueError(f"not a JAX treepath key: {keystr!r}")
     return ".".join(parts)
+
+
+def jax_keystr(name: str) -> str:
+    """``gcn.0.edge_mlp.0.w`` -> ``['gcn'][0]['edge_mlp'][0]['w']``."""
+    return "".join(f"[{p}]" if p.isdigit() else f"['{p}']"
+                   for p in name.split("."))
+
+
+def jax_params(model: nn.Module) -> dict:
+    """The model's parameters as ``{JAX treepath: numpy array}`` (f32 for
+    a bf16 parameter), the keys ``save_checkpoint`` gives the same tree."""
+    return {jax_keystr(name): t.detach().cpu().float().numpy()
+            for name, t in model.state_dict().items()}
 
 
 def params_from_jax(flat: Mapping[str, np.ndarray]) -> dict:

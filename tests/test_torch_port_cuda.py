@@ -1,5 +1,6 @@
-"""The Hopper kernel behind ``edge_mega`` (immunostruct_tpu_torch/csrc/
-egnn_mega_fwd.cu) against its plain PyTorch version, on the card.
+"""The Hopper kernels behind ``edge_mega`` (immunostruct_tpu_torch/csrc/
+egnn_mega_fwd.cu, B1, and egnn_tail_bwd.cu, B2) against their plain
+PyTorch versions, on the card.
 
 This file imports no JAX, so it also runs on a GPU machine without JAX.
 There ``tests/conftest.py`` (which imports JAX) is skipped:
@@ -7,15 +8,30 @@ There ``tests/conftest.py`` (which imports JAX) is skipped:
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
 
 The tests marked ``cuda`` skip on a host without a CUDA device. Tolerances:
-f32 (TF32 off) within atol=1e-5, rtol=1e-4, the roundoff of a different
-summation order (the kernel sums with shared-memory atomics). bf16, per
-output column over all graphs and nodes: max|diff| <= 4e-3 * max|plain| (one
-bf16 step at the column's largest value) and mean|diff| <= 1e-4 *
-mean|plain|. The kernel and the plain version round at the same points, so
-they differ only where a summation order flips one rounding; a kernel that
+
+- B1, f32 (TF32 off): atol=1e-5, rtol=1e-4, the roundoff of a different
+  summation order (the kernel sums with shared-memory atomics). bf16, per
+  output column over all graphs and nodes: max|diff| <= 4e-3 * max|plain|
+  (one bf16 step at the column's largest value) and mean|diff| <= 1e-4 *
+  mean|plain|. The residuals a1/xd: f32 as above; bf16 each element within
+  one bf16 step at its magnitude, or at 2^-10 below that (a1 is an f32 sum
+  of terms of size ~1 that can cancel).
+- B2, f32: d_cat and d_ef atol=1e-5, rtol=1e-4; the weight gradients (f32
+  sums over every edge of the batch) |diff| <= 1e-5 * max|plain| + 1e-4 *
+  |plain|. bf16, per row of d_cat (over graphs and edges), for d_ef and for
+  each weight gradient: mean|diff| <= 2e-5 * mean|plain|, and max|diff| <=
+  1.6e-2 * max|plain| for d_cat and d_ef (four bf16 steps: one flipped
+  rounding moves the rest of its edge's chain), 1e-3 for the weight
+  gradients. A CPU simulation at these shapes read 2.1e-6 on the means for
+  a change of summation order alone and 5.2e-5 to 2.7e-3 with any one of
+  B2's rounding points removed.
+
+The kernels and the plain versions round at the same points, so they
+differ only where a summation order flips one rounding; a kernel that
 leaves out any one rounding point fails the mean bound, which
-``test_bf16_bound_sees_every_rounding_point`` checks by building such
-kernels.
+``test_bf16_bound_sees_every_rounding_point`` (B1) and
+``test_tail_bf16_bound_sees_every_rounding_point`` (B2) check by building
+such kernels.
 """
 
 import re
@@ -26,7 +42,10 @@ import torch
 from immunostruct_tpu_torch.data.synthetic import random_sample_batch
 from immunostruct_tpu_torch.models import build_model, model_apply
 from immunostruct_tpu_torch.ops import _build, mega
-from immunostruct_tpu_torch.ops.egnn import EGNNLayer
+from immunostruct_tpu_torch.ops.egnn import EGNNLayer, egnn_apply
+from immunostruct_tpu_torch.procedures.train import Trainer, make_optimizer
+from immunostruct_tpu_torch.utils.losses import LossConfig
+from immunostruct_tpu_torch.utils.schedule import constant_lr
 
 N = 288
 
@@ -59,6 +78,63 @@ def _assert_close(out, ref, dtype):
         assert (diff.mean(0) <= 1e-4 * mag.mean(0)).all()
 
 
+def _assert_residuals_close(got, ref, dtype):
+    for g, r in zip(got, ref):
+        assert g.dtype == dtype and g.shape == r.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-4)
+        else:
+            # one bf16 step; below 2^-10 the f32 roundoff of a1's sum of
+            # terms of size ~1 (FMA on the card) can exceed a step
+            g, r = g.float(), r.float()
+            mag = torch.maximum(torch.maximum(g.abs(), r.abs()),
+                                torch.tensor(2.0 ** -10, device=g.device))
+            step = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+            assert ((g - r).abs() <= step).all()
+
+
+def _tail_args(b, e, f, dtype, device, seed, mask_rate=0.1):
+    """B2's operands: residuals from B1 on seeded inputs, and the cotangent
+    of a seeded g gathered at dst (zero on skipped edges)."""
+    args = _args(b, e, f, 64, dtype, device, seed, mask_rate)
+    src, dst, mask, ef = args[:4]
+    _, a1, xd = mega.edge_mega_fwd(*args)
+    valid = mega.valid_edges(src, dst, mask, N)
+    g = torch.randn(b, N, 67, generator=torch.Generator().manual_seed(seed))
+    d = torch.where(valid, dst, 0).long()[..., None].expand(-1, -1, 67)
+    d_both = torch.gather(g.to(device, dtype), 1, d)
+    d_both = torch.where(valid[..., None], d_both, 0.0)
+    return (ef, *args[7:], a1, xd, d_both.transpose(1, 2).contiguous(),
+            valid)
+
+
+def _assert_tail_close(out, ref, dtype):
+    """B2 against its plain version (module docstring)."""
+    d_cat, d_ef = out[:2]
+    assert d_cat.dtype == d_ef.dtype == dtype
+    for t in out:
+        assert torch.isfinite(t).all()
+    for g, r in zip(out[2:], ref[2:]):
+        assert g.dtype == torch.float32 and g.shape == r.shape
+    if dtype == torch.float32:
+        for g, r in zip(out[:2], ref[:2]):
+            torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-4)
+        for g, r in zip(out[2:], ref[2:]):
+            assert ((g - r).abs() <= 1e-5 * r.abs().max()
+                    + 1e-4 * r.abs()).all()
+        return
+    rows = [(d_cat.float().transpose(0, 1).flatten(1),
+             ref[0].float().transpose(0, 1).flatten(1), 1.6e-2),
+            (d_ef.float().flatten()[None], ref[1].float().flatten()[None],
+             1.6e-2)]
+    rows += [(g.flatten()[None], r.flatten()[None], 1e-3)
+             for g, r in zip(out[2:], ref[2:])]
+    for g, r, max_tol in rows:
+        diff, mag = (g - r).abs(), r.abs()
+        assert (diff.amax(1) <= max_tol * mag.amax(1)).all()
+        assert (diff.mean(1) <= 2e-5 * mag.mean(1)).all()
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -84,7 +160,100 @@ def test_kernel_matches_plain_version(cuda, e, f, dtype):
     out = mega.edge_mega(*args)
     torch.cuda.synchronize()
     assert mega.edge_mega.launches == before + 1
-    _assert_close(out, mega.edge_mega_reference(*args), dtype)
+    ref, a1_ref, xd_ref = mega.edge_mega_fwd_reference(*args)
+    _assert_close(out, ref, dtype)
+    # with the residuals the backward reads
+    out2, a1, xd = mega.edge_mega_fwd(*args, residuals=True)
+    torch.cuda.synchronize()
+    _assert_close(out2, ref, dtype)
+    _assert_residuals_close((a1, xd), (a1_ref, xd_ref), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e", [2560, 1408, 100])
+@pytest.mark.parametrize("f", [20, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tail_kernel_matches_plain_version(cuda, e, f, dtype):
+    args = _tail_args(8, e, f, dtype, cuda, seed=e + f + 1)
+    before = mega.tail_bwd.launches
+    out = mega.tail_bwd(*args)
+    torch.cuda.synchronize()
+    assert mega.tail_bwd.launches == before + 1
+    _assert_tail_close(out, mega.tail_bwd_reference(*args), dtype)
+    # the weight gradients are the same from run to run (no atomics)
+    again = mega.tail_bwd(*args)
+    for g, h in zip(out[2:], again[2:]):
+        assert torch.equal(g, h)
+
+
+@pytest.mark.cuda
+def test_tail_kernel_all_edges_masked_gives_zeros(cuda):
+    args = list(_tail_args(2, 256, 20, torch.float32, cuda, seed=1,
+                           mask_rate=1.0))
+    # residuals of skipped edges are never read: fill them with NaN
+    args[4] = torch.full_like(args[4], float("nan"))
+    args[5] = torch.full_like(args[5], float("nan"))
+    for t in mega.tail_bwd(*args):
+        assert torch.count_nonzero(t) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_edge_mega_gradients_match_scatter_on_card(cuda, dtype):
+    """One EGNN layer through 'mega' (B1 forward, B2 backward) against
+    autograd through 'scatter' (plain PyTorch): gradients of the layer's
+    parameters and inputs. f32: atol=1e-4 * max|scatter| + rtol=1e-3 (the
+    two paths sum in other orders); bf16 rounds at other points on the two
+    paths, so only finiteness and the launches are checked there (the bf16
+    gradients are held against the JAX backward on the CPU and B2 against
+    its plain version above)."""
+    gen = torch.Generator().manual_seed(7)
+    layer = EGNNLayer(20, 64, 64, generator=gen, device=cuda)
+    args = _args(4, 1408, 20, 64, torch.float32, "cpu", seed=7)
+    src, dst, mask, ef, h, x = (t.to(cuda) for t in args[:6])
+    cot_h = torch.randn(4, N, 64, generator=gen).to(cuda, dtype)
+    cot_x = torch.randn(4, N, 3, generator=gen).to(cuda, dtype)
+    grads = {}
+    for agg in ("mega", "scatter"):
+        layer.zero_grad()
+        hin = h.to(dtype).requires_grad_(True)
+        xin = x.to(dtype).requires_grad_(True)
+        before = mega.edge_mega.launches, mega.tail_bwd.launches
+        h2, x2 = egnn_apply(layer, hin, xin, src, dst, ef, mask, agg)
+        ((h2 * cot_h).float().sum() + (x2 * cot_x).float().sum()).backward()
+        torch.cuda.synchronize()
+        launched = (mega.edge_mega.launches - before[0],
+                    mega.tail_bwd.launches - before[1])
+        assert launched == ((1, 1) if agg == "mega" else (0, 0))
+        grads[agg] = [hin.grad, xin.grad] + [
+            p.grad.clone() for p in layer.parameters()]
+    for g, r in zip(grads["mega"], grads["scatter"]):
+        assert torch.isfinite(g).all()
+        if dtype == torch.float32:
+            g, r = g.float(), r.float()
+            assert ((g - r).abs() <= 1e-4 * r.abs().max()
+                    + 1e-3 * r.abs()).all()
+
+
+@pytest.mark.cuda
+def test_train_step_launches_both_kernels_per_layer(cuda):
+    """One bf16 training step of full-width HybridModelv2 (6 EGNN layers)
+    at B=16: 6 B1 and 6 B2 launches, a finite loss, finite gradients."""
+    _, model = build_model("HybridModelv2", 20 * 21,
+                           torch.Generator().manual_seed(0), device=cuda)
+    trainer = Trainer(model.spec, LossConfig(20 * 21, 1.0), binary=True,
+                      optimizer=make_optimizer("adam", constant_lr(1e-3)),
+                      aggregation="mega", compute_dtype=torch.bfloat16)
+    state = trainer.init_state(model)
+    batch = random_sample_batch(16, N, 1408, 20, seed=3, device=cuda)
+    before = mega.edge_mega.launches, mega.tail_bwd.launches
+    state, loss = trainer.train_step(state, batch, seed=0)
+    torch.cuda.synchronize()
+    assert (mega.edge_mega.launches - before[0],
+            mega.tail_bwd.launches - before[1]) == (6, 6)
+    assert torch.isfinite(loss)
+    for p in model.parameters():
+        assert torch.isfinite(p.grad).all() and torch.isfinite(p).all()
 
 
 # the kernel source with one bf16 rounding point left out: (pattern,
@@ -108,28 +277,80 @@ _MUTANTS = {
 }
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(_MUTANTS))
-def test_bf16_bound_sees_every_rounding_point(cuda, name, tmp_path,
-                                              monkeypatch):
-    text = (_build.CSRC / "egnn_mega_fwd.cu").read_text()
-    for pattern, repl in _MUTANTS[name]:
+def _mutant_kernel(source, mutants, tmp_path, monkeypatch):
+    """Build csrc/<source> with each (pattern, replacement) applied, in
+    place of the repo's kernel, until the test ends."""
+    text = (_build.CSRC / source).read_text()
+    for pattern, repl in mutants:
         text, n = re.subn(pattern, repl, text)
-        assert n >= 1, f"{name}: {pattern} matches nothing in the source"
+        assert n >= 1, f"{pattern} matches nothing in {source}"
     (tmp_path / "csrc").mkdir()
-    (tmp_path / "csrc" / "egnn_mega_fwd.cu").write_text(text)
+    for other in _build.CSRC.glob("*.cu"):
+        (tmp_path / "csrc" / other.name).write_text(other.read_text())
+    (tmp_path / "csrc" / source).write_text(text)
     monkeypatch.setattr(_build, "CSRC", tmp_path / "csrc")
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     _build.load_library.cache_clear()
-    try:
-        for e, f in ((2560, 20), (1408, 64)):
-            args = _args(8, e, f, 64, torch.bfloat16, cuda, seed=e + f)
-            out = mega.edge_mega(*args)
-            with pytest.raises(AssertionError):
-                _assert_close(out, mega.edge_mega_reference(*args),
-                              torch.bfloat16)
-    finally:
-        _build.load_library.cache_clear()
+    mega._fwd_lib.cache_clear()
+    mega._tail_lib.cache_clear()
+
+
+@pytest.fixture
+def restore_kernels():
+    yield
+    _build.load_library.cache_clear()
+    mega._fwd_lib.cache_clear()
+    mega._tail_lib.cache_clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_MUTANTS))
+def test_bf16_bound_sees_every_rounding_point(cuda, name, tmp_path,
+                                              monkeypatch, restore_kernels):
+    _mutant_kernel("egnn_mega_fwd.cu", _MUTANTS[name], tmp_path, monkeypatch)
+    for e, f in ((2560, 20), (1408, 64)):
+        args = _args(8, e, f, 64, torch.bfloat16, cuda, seed=e + f)
+        out = mega.edge_mega(*args)
+        with pytest.raises(AssertionError):
+            _assert_close(out, mega.edge_mega_reference(*args),
+                          torch.bfloat16)
+
+
+# B2's source with one bf16 rounding point left out (d_xd and d_ef round at
+# their store in the compute dtype, which no edit of the arithmetic removes)
+_TAIL_MUTANTS = {
+    "weights": [(r"(w2s\[k \* LD \+ j\] = )rnd<T>\((w2\[i\])\)", r"\1\2"),
+                (r"(wc1s\[k \* LD \+ j\] = )rnd<T>\((wc1\[i\])\)",
+                 r"\1\2")],
+    "radial": [(r"(const float r = )rnd<T>\((x0 \* x0 \+ x1 \* x1 \+ "
+                r"x2 \* x2)\)", r"\1\2")],
+    "a1s": [(r"(bufA\[t \* LD \+ j\] = )rnd<T>\((a \* s)\)", r"\1\2")],
+    "m": [(r"(bufM\[t \* LD \+ j\] = )rnd<T>\((p \* s)\)", r"\1\2")],
+    "c1": [(r"(c1v\[i\]\[c\] = )rnd<T>\((p \* s)\)", r"\1\2")],
+    "cw": [(r"(cwv\[t\] = )rnd<T>\((cw)\)", r"\1\2")],
+    "d_p3": [(r"(const float dp3 = )rnd<T>\((sms\[kWC2 \* H \+ j\] \* "
+              r"dcw \* g3\[i\]\[c\])\)", r"\1\2")],
+    "d_p2": [(r"(const float dp2 = )rnd<T>\((dm \* g2\[i\]\[c\])\)",
+              r"\1\2")],
+    "d_a1": [(r"(const float da = )rnd<T>\((acc\[i\]\[c\] \* "
+              r"bufG\[t \* LD \+ j\])\)", r"\1\2")],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_TAIL_MUTANTS))
+def test_tail_bf16_bound_sees_every_rounding_point(cuda, name, tmp_path,
+                                                   monkeypatch,
+                                                   restore_kernels):
+    inputs = [_tail_args(8, e, f, torch.bfloat16, cuda, seed=e + f + 1)
+              for e, f in ((2560, 20), (1408, 64))]
+    _mutant_kernel("egnn_tail_bwd.cu", _TAIL_MUTANTS[name], tmp_path,
+                   monkeypatch)
+    for args in inputs:
+        out = mega.tail_bwd(*args)
+        with pytest.raises(AssertionError):
+            _assert_tail_close(out, mega.tail_bwd_reference(*args),
+                               torch.bfloat16)
 
 
 @pytest.mark.cuda
@@ -137,6 +358,24 @@ def test_kernel_all_edges_masked_gives_zeros(cuda):
     args = _args(2, 256, 20, 64, torch.float32, cuda, seed=1, mask_rate=1.0)
     out = mega.edge_mega(*args)
     assert torch.count_nonzero(out) == 0
+
+
+@pytest.mark.cuda
+def test_tail_kernel_rejects_what_it_does_not_take(cuda):
+    args = list(_tail_args(2, 128, 20, torch.float32, cuda, seed=2))
+    half = list(args)
+    half[4], half[5] = half[4].half(), half[5].half()
+    half[0], half[6] = half[0].half(), half[6].half()
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        mega.tail_bwd(*half)
+    strided = list(args)
+    strided[6] = args[6].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        mega.tail_bwd(*strided)
+    wrong = list(args)
+    wrong[7] = args[7][:, :100]
+    with pytest.raises(ValueError, match="valid"):
+        mega.tail_bwd(*wrong)
 
 
 @pytest.mark.cuda

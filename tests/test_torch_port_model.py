@@ -8,6 +8,15 @@ replayed from the key splits of ``model_apply``/``forward_item``, and
 handed to the port as ``eps``. Outputs are compared in f32 within
 atol=1e-5, rtol=1e-4, under aggregation 'scatter' and 'mega' (the JAX mega
 kernel in interpret mode; the port's plain version of its kernel).
+
+Serving runs bf16, so the forward is also compared in bf16, with the noise
+drawn as JAX draws it there (in the compute dtype, ``trunk.py:274``).
+logits, mu, logvar, recon and the attention weights are within one bf16
+step of JAX's, element by element, and differ in at most 1% of their
+entries (measured: none, and 0.13% of the attention weights under
+'mega'). The embedding (the mean over nodes of values that differ by one
+step in a few places) is held to max|diff| <= 1e-3 * max|JAX| (measured
+9.8e-4 at a largest value of 2.1, 4.6e-4 of it).
 """
 
 import dataclasses
@@ -57,12 +66,23 @@ def _jax_graph(a):
         "edge_mask", "node_mask", "num_nodes")})
 
 
-def _jax_eps(key, shape):
+def _jax_eps(key, shape, dtype=jnp.float32):
     """The eps model_apply draws: key -> (k_item, k_cls); k_item ->
-    (k_eps, k_drop); normal(k_eps)."""
+    (k_eps, k_drop); normal(k_eps), in the compute dtype."""
     k_item, _ = jax.random.split(key)
     k_eps, _ = jax.random.split(k_item)
-    return np.array(jax.random.normal(k_eps, shape, jnp.float32))
+    eps = jax.random.normal(k_eps, shape, dtype)
+    return torch.from_numpy(np.array(eps.astype(jnp.float32))).to(
+        getattr(torch, jnp.dtype(dtype).name))
+
+
+def _within_one_bf16_step(got, want, share):
+    """Each element within one bf16 step (the spacing at the larger of the
+    two magnitudes) of ``want``; at most ``share`` of them differ."""
+    mag = np.maximum(np.abs(got), np.abs(want))
+    step = 2.0 ** (np.floor(np.log2(np.where(mag > 0, mag, 1.0))) - 7)
+    assert (np.abs(got - want) <= np.where(mag > 0, step, 0.0)).all()
+    assert (got != want).mean() <= share, (got != want).mean()
 
 
 @pytest.fixture(scope="module")
@@ -86,7 +106,7 @@ def test_hybridv2_forward_matches_jax(models, aggregation):
                           jnp.asarray(a["seq_onehot"]),
                           jnp.asarray(a["props"]), key, deterministic=True,
                           aggregation=aggregation)
-    eps = torch.from_numpy(_jax_eps(key, (B, SMALL["vae_latent_dim"])))
+    eps = _jax_eps(key, (B, SMALL["vae_latent_dim"]))
     with torch.no_grad():
         out = model_apply(model, GraphBatch.from_numpy(a, "cpu"),
                           torch.from_numpy(a["seq_onehot"]),
@@ -97,6 +117,35 @@ def test_hybridv2_forward_matches_jax(models, aggregation):
         assert got.shape == want.shape, name
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-4,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("aggregation", ["scatter", "mega"])
+def test_hybridv2_bf16_forward_matches_jax(models, aggregation):
+    spec, params, model, _ = models
+    a = _arrays()
+    key = jax.random.key(11)
+    ref = jax_model_apply(params, spec, _jax_graph(a),
+                          jnp.asarray(a["seq_onehot"]),
+                          jnp.asarray(a["props"]), key, deterministic=True,
+                          aggregation=aggregation,
+                          compute_dtype=jnp.bfloat16)
+    eps = _jax_eps(key, (B, SMALL["vae_latent_dim"]), jnp.bfloat16)
+    with torch.no_grad():
+        out = model_apply(model, GraphBatch.from_numpy(a, "cpu"),
+                          torch.from_numpy(a["seq_onehot"]),
+                          torch.from_numpy(a["props"]), deterministic=True,
+                          aggregation=aggregation, eps=eps,
+                          compute_dtype=torch.bfloat16)
+    for name in FIELDS:
+        got, want = getattr(out, name), getattr(ref, name)
+        assert str(got.dtype).split(".")[-1] == str(want.dtype), name
+        got = got.float().numpy()
+        want = np.asarray(want.astype(jnp.float32))
+        assert got.shape == want.shape, name
+        if name == "embedding":
+            assert np.abs(got - want).max() <= 1e-3 * np.abs(want).max()
+        else:
+            _within_one_bf16_step(got, want, 0.01)
 
 
 def test_auto_is_scatter_on_cpu(models):
