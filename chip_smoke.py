@@ -6,9 +6,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (none catches its own failure; any failure exits non-zero):
   1. require CUDA;
   2. print the card's name and power limit (nvidia-smi);
-  3. build both Hopper kernels with nvcc (first use): csrc/egnn_mega_fwd.cu
-     (B1, the EGNN edge forward) and csrc/egnn_tail_bwd.cu (B2, its
-     backward);
+  3. build the four Hopper kernels with nvcc, one process per source, all
+     at once: csrc/egnn_mega_fwd.cu (B1, the EGNN edge forward from raw
+     indices), csrc/egnn_tail_bwd.cu (B2, its backward), csrc/egnn_edge_fwd.cu
+     and csrc/egnn_edge_bwd.cu (B3, the edge program over gathered bundles,
+     forward and backward);
   4. compare B1 with its plain PyTorch version on the card at the main
      path's shapes (B=128, N=288, H=64, E=2560 and 1408, F=20 and 64, 10% of
      the edges masked, self-loops), in f32 (TF32 off) and bf16, output and
@@ -19,33 +21,58 @@ Phases (none catches its own failure; any failure exits non-zero):
   6. compare the EdgeMega gradients (B1 + B2 + the node-level backward) with
      autograd through the plain forward (f32) and with the plain backward
      (bf16) at B=128, E=2560, F=64;
-  7. serve full-width HybridModelv2 with seeded weights in bf16 over HTTP on
+  7. compare B3's forward and backward with their plain versions at the same
+     shapes (bundles gathered as 'fused' gathers them, zeros for masked
+     edges; a seeded cotangent), check that its weight gradients are the
+     same bits twice, and time all four; at E=2560 in bf16, read the weight
+     gradients of the kernel, of the plain version on the card and of the
+     plain version on the CPU against the exact (float64) sums;
+  8. compare one EGNN layer under 'fused' (B3 + the gathers and the
+     index_add_ aggregation) with the same layer on B3's plain versions:
+     outputs and gradients, f32 and bf16, B=128, E=2560, F=64;
+  9. serve full-width HybridModelv2 with seeded weights in bf16 over HTTP on
      127.0.0.1 (ephemeral port), POST requests (B=128 at E=2560, B=128 at
      E=1408, B=1): probabilities finite, in (0, 1), matching the same batch
      through aggregation='scatter', the same when a request is sent again,
-     6 B1 launches and no B2 launch per request;
-  8. train full-width HybridModelv2 (bf16 over f32 master weights, Adam
+     6 B1 launches and no other launch per request;
+  10. train full-width HybridModelv2 (bf16 over f32 master weights, Adam
      1e-3, the loss config of the JAX package's bench) on
      random_sample_batch(128, 288, E, 284) for E=2560 and 1408: the first
      step's loss and gradients under 'mega' against 'scatter' from the same
      weights, then 20 'mega' steps (6 B1 + 6 B2 launches each, finite loss
      that falls) and 10 'scatter' steps, with the median step time;
-  9. the comparative twin step (HybridModelv2_Comparative, the contrastive
+  11. the comparative twin step (HybridModelv2_Comparative, the contrastive
      term at 0.1, random_comparative_batch at E=2560): the first step's loss
      and gradients under 'mega' against 'scatter', in f32 and in bf16, then
      6 steps: 12 B1 + 12 B2 launches per step, finite loss, median step
      time. Its loss is not required to fall: the contrastive term dominates
      it and wanders with each step's noise (PERF.md, Findings);
-  10. trace forwards and train steps with torch.profiler ('mega' and
-     'scatter') and print the device-busy time, the device's idle share and
-     the kernels that take the most device time;
-  11. print the times beside the card's name and power limit, then the kernel
+  12. the same train step under 'fused' at both edge counts: the first
+     step against 'scatter', then 20 steps with 6 B3 forward + 6 B3
+     backward launches each and a falling loss, beside phase 10's 'mega';
+  13. the entry point: synthetic_corpus writes 512 samples with 275-residue
+     HLA chains (283-285 tokens, N padded to 288), and
+     cli.train_IEDB_wFT.main runs HybridModelv2 at full width with
+     --aggregation fused, bf16, batch 128, 2 epochs per stage: both stages
+     finish with finite losses, both checkpoints load, the train and test
+     metrics have 15 keys with the train threshold reused on test, both B3
+     kernels ran in both stages and B3's forward in inference; epoch
+     times and pMHC/s printed. Then B3 forward and backward against their
+     plain versions as in phase 7, on the operands the entry point gave
+     B3's forward (the first of each shape: full and partial batches), in
+     bf16 and cast to f32;
+  14. trace forwards and train steps with torch.profiler ('mega',
+     'scatter' and, for the step, 'fused') and print the device-busy time,
+     the device's idle share and the kernels that take the most device
+     time;
+  15. print the times beside the card's name and power limit, then the kernel
      record as one JSON line, the card line and, last, the result line
      {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -57,6 +84,7 @@ import time
 import urllib.error
 import urllib.request
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -113,10 +141,35 @@ TWIN_F32_LOSS_RTOL = 1e-5
 TWIN_F32_RTOL = 1e-3
 TWIN_F32_ATOL = 1e-5
 TWIN_BF16_NOISE = 2.0
+# B3, forward and backward, against its plain versions: f32 edge outputs as
+# F32_TOL, weight gradients as B2's; bf16 per row of the [B, C, E] outputs
+# (over graphs and edges) and for def, B2's bounds (TAIL_MEAN,
+# TAIL_MAX_EDGE): the same chain, rounded at the same points.
+# tests/test_torch_port_cuda.py builds B3 mutant kernels, each without one
+# rounding point, that fail them. The bf16 weight gradients here sum 16x
+# the card tests' edges (B=128): max|diff| <= TAIL_MAX_GRAD * max|plain|
+# and mean|diff| <= EDGE_GRAD_MEAN * mean|plain|. Against the float64 sums
+# of the plain version's own terms, an H100 run read at E=2560 (F=20 and
+# 64): the plain version 2e-7 to 7e-7, the kernel 1.2e-5 to 4.2e-5, and the
+# same plain version run on the CPU 7e-6 to 3.0e-5. The spread is other f32
+# orders flipping other bf16 roundings along the per-edge chains (B3
+# recomputes a1 itself, where B2 is handed B1's); the CPU would fail a
+# bound of 2e-5 as well. Every backward mutant fails the bounds at this
+# shape (test_edge_bwd_smoke_bound_sees_every_rounding_point).
+EDGE_GRAD_MEAN = 1e-4
+# Least time for a kernel's work (NVIDIA's H100 SXM data sheet at 700 W): device memory 3.35 TB/s; 989 TFLOP/s for bf16
+# operands (tensor cores), 67 TFLOP/s for f32 (outside the tensor cores).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TIMED_REQUESTS = 5
 TRAIN_STEPS = 20
 SCATTER_STEPS = 10
 COMPARATIVE_STEPS = 6
+# the entry point at full width: synthetic_corpus with 275-residue HLA
+# chains (283-285 tokens, N padded to 288), two epochs per stage
+CLI_SAMPLES = 512
+CLI_EPOCHS = 2
+METRIC_KEYS = 15
 
 
 def card_line() -> str:
@@ -146,6 +199,19 @@ def alternate_ms(plain, kernel) -> tuple:
     plain_ms = cuda_ms(plain)
     ms = (cuda_ms(kernel) + cuda_ms(kernel)) / 2
     return ms, (plain_ms + cuda_ms(plain)) / 2
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(nbytes: int, flops: float, dtype) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate of their type."""
+    mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    return dict(bytes=nbytes, flops=flops, bound_ms=max(mem_ms, ops_ms),
+                bound_by="bytes" if mem_ms >= ops_ms else "operations")
 
 
 def rel_stats(out: torch.Tensor, ref: torch.Tensor) -> dict:
@@ -207,7 +273,7 @@ def residual_errors(got, ref, dtype) -> float:
 
 def check_fwd_kernel() -> list:
     from immunostruct_tpu_torch.ops.mega import (
-        edge_mega_fwd, edge_mega_fwd_reference,
+        edge_mega_fwd, edge_mega_fwd_reference, valid_edges,
     )
 
     rows = []
@@ -241,7 +307,16 @@ def check_fwd_kernel() -> list:
                     lambda: edge_mega_fwd_reference(*args),
                     lambda: edge_mega_fwd(*args, residuals=False))
                 res_ms = cuda_ms(lambda: edge_mega_fwd(*args, residuals=True))
-                row = dict(E=e, F=f, dtype=name, max_abs_err=err,
+                # the work of the launch with residuals: node projections
+                # and the edge chain's two HxH products on the valid edges
+                valid = valid_edges(*args[:3], N).sum().item()
+                flops = 2 * B * N * f * 2 * H + 2 * valid * 2 * H * H
+                work = bound(tensor_bytes(*args, out, a1, xd), flops, dtype)
+                # serving's launch: the same work without the a1/xd stores
+                bare = bound(tensor_bytes(*args, out), flops, dtype)
+                row = dict(E=e, F=f, dtype=name, max_abs_err=err, **work,
+                           bound_ms_without_residuals=bare["bound_ms"],
+                           bound_by_without_residuals=bare["bound_by"],
                            max_abs_ref=ref.abs().max().item(), **rel,
                            tolerance=tol, residual_err_in_tol=res_err,
                            ms=ms, ms_with_residuals=res_ms,
@@ -318,7 +393,10 @@ def check_tail_kernel() -> list:
                 ms, plain_ms = alternate_ms(
                     lambda: tail_bwd_reference(*args),
                     lambda: tail_bwd(*args))
-                row = dict(E=e, F=f, dtype=name, **stats, ms=ms,
+                # six HxH products per valid edge
+                work = bound(tensor_bytes(*args, *out),
+                             2 * args[-1].sum().item() * 6 * H * H, dtype)
+                row = dict(E=e, F=f, dtype=name, **stats, **work, ms=ms,
                            plain_ms=plain_ms)
                 print("kernel B2:", json.dumps(row), flush=True)
                 rows.append(row)
@@ -419,16 +497,22 @@ def plain_probs(scorer, path):
 
 
 def reset_counts():
+    from immunostruct_tpu_torch.ops.edge import edge_program, edge_program_bwd
     from immunostruct_tpu_torch.ops.mega import edge_mega, tail_bwd
 
     edge_mega.launches = 0
     tail_bwd.launches = 0
+    edge_program.launches = 0
+    edge_program_bwd.launches = 0
 
 
 def read_counts() -> tuple:
+    """(B1, B2, B3 forward, B3 backward) launches."""
+    from immunostruct_tpu_torch.ops.edge import edge_program, edge_program_bwd
     from immunostruct_tpu_torch.ops.mega import edge_mega, tail_bwd
 
-    return edge_mega.launches, tail_bwd.launches
+    return (edge_mega.launches, tail_bwd.launches, edge_program.launches,
+            edge_program_bwd.launches)
 
 
 def check_serving(scorer, requests) -> tuple:
@@ -454,7 +538,7 @@ def check_serving(scorer, requests) -> tuple:
             status, reply = post(base + "/score", body)
             launches = tuple(a - z for a, z in zip(read_counts(), before))
             assert status == 200, reply
-            assert launches == (layers, 0), (label, launches)
+            assert launches == (layers, 0, 0, 0), (label, launches)
             probs = torch.tensor(reply["probs"], dtype=torch.float64)
             assert probs.shape == (b,), probs.shape
             assert torch.isfinite(probs).all()
@@ -564,10 +648,10 @@ def largest_norm(grads: dict) -> float:
     return max(g.norm().item() for g in grads.values())
 
 
-def first_step_mega_vs_scatter(batch) -> dict:
-    """HybridModelv2's first step in bf16, 'mega' against 'scatter', from
-    the same weights and the same noise."""
-    lm, gm = first_step(batch, "HybridModelv2", "mega", torch.bfloat16)
+def first_step_vs_scatter(batch, aggregation: str = "mega") -> dict:
+    """HybridModelv2's first step in bf16 under ``aggregation`` ('mega' or
+    'fused') against 'scatter', from the same weights and the same noise."""
+    lm, gm = first_step(batch, "HybridModelv2", aggregation, torch.bfloat16)
     ls, gs = first_step(batch, "HybridModelv2", "scatter", torch.bfloat16)
     top = largest_norm(gs)
     worst, worst_name = worst_grad(
@@ -576,8 +660,9 @@ def first_step_mega_vs_scatter(batch) -> dict:
     loss_rel = abs(lm - ls) / abs(ls)
     assert loss_rel <= STEP_LOSS_RTOL, (lm, ls)
     assert worst <= 1.0, (worst_name, worst)
-    return dict(loss_mega=lm, loss_scatter=ls, loss_rel_diff=loss_rel,
-                grad_worst_in_tol=worst, grad_worst_param=worst_name)
+    return {f"loss_{aggregation}": lm, "loss_scatter": ls,
+            "loss_rel_diff": loss_rel, "grad_worst_in_tol": worst,
+            "grad_worst_param": worst_name}
 
 
 def twin_first_step_mega_vs_scatter(batch) -> dict:
@@ -618,21 +703,22 @@ def twin_first_step_mega_vs_scatter(batch) -> dict:
 
 
 def check_training() -> tuple:
-    """Phase 8: the train step, this slice's main path."""
+    """Phase 10: the train step ('mega')."""
     from immunostruct_tpu_torch.data.synthetic import random_sample_batch
 
     layers = 6
     rows = []
-    main_counts = (0, 0)
+    main_counts = (0, 0, 0, 0)
     for e in EDGE_COUNTS:
         batch = random_sample_batch(B, N, e, L, seed=0, device="cuda")
-        first = first_step_mega_vs_scatter(batch)
+        first = first_step_vs_scatter(batch, "mega")
         print(f"train first step E={e}:", json.dumps(first), flush=True)
         trainer, state = make_trainer("HybridModelv2", "mega")
         reset_counts()                  # every count to 0: training starts
         losses, ms = timed_steps(trainer, state, batch, TRAIN_STEPS)
         counts = read_counts()          # read just after the 'mega' steps
-        assert counts == (layers * TRAIN_STEPS, layers * TRAIN_STEPS), counts
+        assert counts == (layers * TRAIN_STEPS, layers * TRAIN_STEPS, 0,
+                          0), counts
         main_counts = tuple(a + c for a, c in zip(main_counts, counts))
         assert all(map(lambda v: v == v and abs(v) < float("inf"), losses))
         assert losses[-1] < losses[0], losses
@@ -659,7 +745,7 @@ def check_training() -> tuple:
 
 
 def check_comparative() -> tuple:
-    """Phase 9: the comparative twin step with the contrastive term."""
+    """Phase 11: the comparative twin step with the contrastive term."""
     from immunostruct_tpu_torch.data.synthetic import random_comparative_batch
 
     batch = random_comparative_batch(B, N, EDGE_COUNTS[0], L, seed=0,
@@ -672,7 +758,8 @@ def check_comparative() -> tuple:
     reset_counts()                      # every count to 0: twin steps start
     losses, ms = timed_steps(trainer, state, batch, COMPARATIVE_STEPS)
     counts = read_counts()              # read just after them
-    assert counts == (12 * COMPARATIVE_STEPS, 12 * COMPARATIVE_STEPS), counts
+    assert counts == (12 * COMPARATIVE_STEPS, 12 * COMPARATIVE_STEPS, 0,
+                      0), counts
     assert all(map(lambda v: v == v and abs(v) < float("inf"), losses))
     row = dict(E=EDGE_COUNTS[0], steps=COMPARATIVE_STEPS,
                launches_per_step=[c // COMPARATIVE_STEPS for c in counts],
@@ -683,6 +770,388 @@ def check_comparative() -> tuple:
                **first)
     print("comparative:", json.dumps(row), flush=True)
     return row, counts
+
+
+def edge_inputs(e: int, f: int, dtype, seed: int):
+    """B3's operands as the 'fused' path builds them from kernel_inputs:
+    [h ++ x] bundles [B, F+3, E] gathered by src and dst (zeros for a
+    masked edge), ef [B, 1, E], the packed weights; and a seeded cotangent
+    of the output [B, H+3, E]."""
+    src, dst, mask, ef, h, x, *weights = kernel_inputs(B, e, f, dtype, seed)
+    rows = torch.cat([h, x], dim=-1)
+
+    def bundle(idx):
+        got = torch.gather(rows, 1, idx.long()[..., None].expand(-1, -1, f + 3))
+        return torch.where(mask[..., None], got, 0.0).transpose(1, 2) \
+            .contiguous()
+
+    dout = torch.randn(B, H + 3, e, generator=torch.Generator()
+                       .manual_seed(seed)).to("cuda", dtype)
+    return (bundle(src), bundle(dst), ef.transpose(1, 2).contiguous(),
+            *weights), dout
+
+
+def edge_errors(out, ref, dtype) -> dict:
+    """B3 against its plain version (the forward's output, or the
+    backward's seven outputs); asserts the bounds above."""
+    out = out if isinstance(out, tuple) else (out,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for g, r in zip(out, ref):
+        assert g.shape == r.shape and torch.isfinite(g).all()
+        assert g.dtype == (dtype if g.dim() == 3 else torch.float32)
+    stats = dict(max_abs_err=max((g.float() - r.float()).abs().max().item()
+                                 for g, r in zip(out, ref)))
+    if dtype == torch.float32:
+        for g, r in zip(out, ref):
+            if g.dim() == 3:
+                torch.testing.assert_close(g, r, **F32_TOL)
+            else:
+                assert ((g - r).abs() <= 1e-5 * r.abs().max()
+                        + 1e-4 * r.abs()).all()
+        return stats
+    names = (("out",) if len(out) == 1 else
+             ("dhsx", "dhdx", "def", "dw1ab", "dw2", "dwc1", "dsmall"))
+    for name, g, r in zip(names, out, ref):
+        if g.dim() == 3:
+            s = rel_stats(g.transpose(0, 1), r.transpose(0, 1))
+            max_tol, mean_tol = TAIL_MAX_EDGE, TAIL_MEAN
+        else:
+            s = rel_stats(g.flatten()[None], r.flatten()[None])
+            max_tol, mean_tol = TAIL_MAX_GRAD, EDGE_GRAD_MEAN
+        assert s["max_rel"] <= max_tol, (name, s)
+        assert s["mean_rel"] <= mean_tol, (name, s)
+        stats[name] = s
+    return stats
+
+
+def weight_grad_readings(args, dout, grads, ref) -> dict:
+    """B3's bf16 weight gradients, per gradient, as mean|diff| / mean|exact|
+    against ``exact``, the float64 sums of the plain version's own per-edge
+    terms: for the kernel, the plain version on the card and the plain
+    version on the CPU (another f32 order in every product and every sum,
+    so other flipped bf16 roundings along the chain). Also the kernel and
+    the CPU's plain version against the card's."""
+    from immunostruct_tpu_torch.ops.edge import edge_program_bwd_reference
+
+    exact = edge_program_bwd_reference(*args, dout,
+                                       weight_sums=torch.float64)[3:]
+    cpu = edge_program_bwd_reference(*(t.cpu() for t in args),
+                                     dout.cpu())[3:]
+
+    def ratio(got, want):
+        got, want = got.double().cpu(), want.double().cpu()
+        return ((got - want).abs().mean() / want.abs().mean()).item()
+
+    return {name: dict(kernel_vs_exact=ratio(k, x), plain_vs_exact=ratio(p, x),
+                       plain_cpu_vs_exact=ratio(c, x),
+                       kernel_vs_plain=ratio(k, p),
+                       plain_cpu_vs_plain=ratio(c, p))
+            for name, k, p, c, x in zip(("dw1ab", "dw2", "dwc1", "dsmall"),
+                                        grads[3:], ref[3:], cpu, exact)}
+
+
+def check_edge_case(args, dout, where: str, readings: bool = False) -> list:
+    """B3 forward and backward on one set of operands against their plain
+    versions (the bounds above), the backward's weight gradients the same
+    bits twice, all four timed; a forward and a backward row."""
+    from immunostruct_tpu_torch.ops.edge import (
+        edge_program_bwd, edge_program_bwd_reference, edge_program_fwd,
+        edge_program_reference,
+    )
+
+    b, f, e = args[0].shape[0], args[0].shape[1] - 3, args[0].shape[2]
+    dtype = args[0].dtype
+    out = edge_program_fwd(*args)
+    grads = edge_program_bwd(*args, dout)
+    torch.cuda.synchronize()
+    fwd = edge_errors(out, edge_program_reference(*args), dtype)
+    ref = edge_program_bwd_reference(*args, dout)
+    bwd = edge_errors(grads, ref, dtype)
+    if readings:
+        bwd["weight_sums"] = weight_grad_readings(args, dout, grads, ref)
+    again = edge_program_bwd(*args, dout)
+    assert all(torch.equal(g, h) for g, h in zip(grads[3:], again[3:])), \
+        "B3 weight gradients changed from one run to the next"
+    fwd_ms, fwd_plain = alternate_ms(
+        lambda: edge_program_reference(*args),
+        lambda: edge_program_fwd(*args))
+    bwd_ms, bwd_plain = alternate_ms(
+        lambda: edge_program_bwd_reference(*args, dout),
+        lambda: edge_program_bwd(*args, dout))
+    # every edge is computed: three products forward; the backward
+    # recomputes them, adds three transposed products and three
+    # weight-gradient outer products
+    fwd_work = bound(tensor_bytes(*args, out),
+                     2 * b * e * (2 * f * H + 2 * H * H), dtype)
+    bwd_work = bound(tensor_bytes(*args, dout, *grads),
+                     2 * b * e * (3 * 2 * f * H + 6 * H * H), dtype)
+    rows = []
+    for kind, stats, ms, plain, work in (
+            ("fwd", fwd, fwd_ms, fwd_plain, fwd_work),
+            ("bwd", bwd, bwd_ms, bwd_plain, bwd_work)):
+        row = dict(kernel=kind, shapes=where, B=b, E=e, F=f,
+                   dtype=str(dtype).split(".")[1], **stats, ms=ms,
+                   plain_ms=plain, **work)
+        print(f"kernel B3 {kind}:", json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def check_edge_kernels() -> list:
+    """B3 forward and backward against their plain versions at the bench's
+    shapes, timed; at E=2560 in bf16 with the weight gradients' readings
+    against their exact sums."""
+    rows = []
+    for e in EDGE_COUNTS:
+        for f in (20, 64):
+            for dtype in (torch.float32, torch.bfloat16):
+                args, dout = edge_inputs(e, f, dtype, seed=e + f + 2)
+                rows += check_edge_case(
+                    args, dout, "bench",
+                    readings=dtype == torch.bfloat16 and e == EDGE_COUNTS[0])
+                del args, dout
+    return rows
+
+
+def check_entry_edge_kernels(operands: dict) -> list:
+    """B3 against its plain versions on the operands the entry point gave
+    its forward, the first call of each shape (B, F+3, E): full and partial
+    batches, bf16 as the entry point ran them and cast to f32, with a
+    seeded cotangent for the backward."""
+    rows = []
+    for key in sorted(operands, key=str):
+        (b, c, e, _), args = key, operands[key]
+        dout = torch.randn(b, H + 3, e, generator=torch.Generator()
+                           .manual_seed(b + c + e))
+        for dtype in (torch.float32, torch.bfloat16):
+            cast = tuple(t.to(dtype) if t.dim() == 3 else t for t in args)
+            rows += check_edge_case(cast, dout.to("cuda", dtype),
+                                    "entry point")
+    return rows
+
+
+@contextlib.contextmanager
+def plain_b3():
+    """Within the block, edge_program runs B3's plain versions on CUDA
+    tensors, forward and backward."""
+    from immunostruct_tpu_torch.ops import edge
+
+    saved = edge.edge_program_fwd, edge.edge_program_bwd
+    edge.edge_program_fwd = edge.edge_program_reference
+    edge.edge_program_bwd = edge.edge_program_bwd_reference
+    try:
+        yield
+    finally:
+        edge.edge_program_fwd, edge.edge_program_bwd = saved
+
+
+def check_fused_layer_grads() -> list:
+    """EdgeProgram's gradients through one EGNN layer under 'fused' (B3
+    forward and backward, the gathers and the index_add_ aggregation)
+    against the same layer with B3's plain versions, at B=128, E=2560,
+    F=64."""
+    from immunostruct_tpu_torch.ops.egnn import EGNNLayer, egnn_apply
+
+    rows = []
+    for name, dtype in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        gen = torch.Generator().manual_seed(11)
+        layer = EGNNLayer(64, H, H, generator=gen, device="cuda")
+        src, dst, mask, ef, h, x = kernel_inputs(B, 2560, 64, torch.float32,
+                                                 seed=11)[:6]
+        cot_h = torch.randn(B, N, H, generator=gen).to("cuda", dtype)
+        cot_x = torch.randn(B, N, 3, generator=gen).to("cuda", dtype)
+
+        def run(kernels):
+            layer.zero_grad()
+            hin = h.to(dtype).requires_grad_(True)
+            xin = x.to(dtype).requires_grad_(True)
+            before = read_counts()
+            with contextlib.nullcontext() if kernels else plain_b3():
+                h2, x2 = egnn_apply(layer, hin, xin, src, dst, ef, mask,
+                                    "fused")
+                ((h2 * cot_h).float().sum()
+                 + (x2 * cot_x).float().sum()).backward()
+            torch.cuda.synchronize()
+            launched = tuple(a - z for a, z in zip(read_counts(), before))
+            assert launched == ((0, 0, 1, 1) if kernels else (0,) * 4), \
+                launched
+            return [h2.detach(), x2.detach(), hin.grad, xin.grad] + [
+                p.grad.clone() for p in layer.parameters()]
+
+        worst = 0.0
+        for g, w in zip(run(True), run(False)):
+            assert torch.isfinite(g).all()
+            g, w = g.float(), w.float()
+            if dtype == torch.float32:
+                allowed = 1e-4 * w.abs().max() + 1e-3 * w.abs()
+                worst = max(worst, ((g - w).abs() / allowed).max().item())
+            else:
+                worst = max(worst, ((g - w).abs().mean()
+                                    / w.abs().mean()).item())
+        limit = 1.0 if dtype == torch.float32 else GRAD_BF16_MEAN
+        assert worst <= limit, (name, worst)
+        row = dict(dtype=name, worst=worst, bound=limit,
+                   measure=("max |diff|/allowed" if dtype == torch.float32
+                            else "max over outputs and gradients of "
+                                 "mean|diff|/mean|plain|"))
+        print("EdgeProgram gradients ('fused' layer):", json.dumps(row),
+              flush=True)
+        rows.append(row)
+    return rows
+
+
+def check_fused_training(mega_rows) -> tuple:
+    """The 'fused' train step: its first step against 'scatter', then
+    TRAIN_STEPS steps with 6 B3 forward + 6 B3 backward launches each."""
+    from immunostruct_tpu_torch.data.synthetic import random_sample_batch
+
+    layers = 6
+    rows = []
+    for e, mega in zip(EDGE_COUNTS, mega_rows):
+        batch = random_sample_batch(B, N, e, L, seed=0, device="cuda")
+        first = first_step_vs_scatter(batch, "fused")
+        print(f"fused first step E={e}:", json.dumps(first), flush=True)
+        trainer, state = make_trainer("HybridModelv2", "fused")
+        reset_counts()                  # every count to 0: 'fused' steps
+        losses, ms = timed_steps(trainer, state, batch, TRAIN_STEPS)
+        counts = read_counts()          # read just after them
+        n = layers * TRAIN_STEPS
+        assert counts == (0, 0, n, n), counts
+        assert all(map(lambda v: v == v and abs(v) < float("inf"), losses))
+        assert losses[-1] < losses[0], losses
+        del trainer, state
+        fused_ms = statistics.median(ms[3:])
+        row = dict(E=e, steps=TRAIN_STEPS,
+                   launches_per_step=[c // TRAIN_STEPS for c in counts],
+                   loss_first=losses[0], loss_last=losses[-1],
+                   median_step_ms_fused=fused_ms,
+                   pmhc_per_s_fused=B / (fused_ms / 1e3),
+                   median_step_ms_mega=mega["median_step_ms_mega"],
+                   pmhc_per_s_mega=mega["pmhc_per_s_mega"], **first)
+        print("train fused:", json.dumps(row), flush=True)
+        rows.append(row)
+    return rows, counts
+
+
+def check_entry_point(tmp: str) -> tuple:
+    """This slice's main path: the train_IEDB_wFT entry point at full width
+    under --aggregation fused on a synthetic corpus. Returns its row and
+    the operands of B3's forward, the first call of each shape."""
+    from immunostruct_tpu_torch.cli import train_IEDB_wFT as cli
+    from immunostruct_tpu_torch.data.synthetic import synthetic_corpus
+    from immunostruct_tpu_torch.models import build_model
+    from immunostruct_tpu_torch.ops import edge
+    from immunostruct_tpu_torch.utils.checkpoint import load_checkpoint
+
+    t0 = time.perf_counter()
+    graph_dir, props, hla = synthetic_corpus(
+        os.path.join(tmp, "corpus"), num_samples=CLI_SAMPLES, hla_len=275,
+        seed=3)
+    corpus_s = time.perf_counter() - t0
+    save_dir = os.path.join(tmp, "ckpt")
+    stages, inferences = [], []
+    real_train, real_infer = cli.train_model, cli.inference
+
+    def train_model(config, model, train_pipe, *args, **kw):
+        before = read_counts()
+        model, history = real_train(config, model, train_pipe, *args, **kw)
+        graphs = train_pipe.ds.graphs       # the corpus's padded shapes
+        stages.append(dict(stage=kw["stage"], history=history, launches=[
+            a - z for a, z in zip(read_counts(), before)],
+            N=graphs.max_nodes, E=graphs.max_edges,
+            edges_per_graph=[int(graphs.edge_mask.sum(1).min()),
+                             int(graphs.edge_mask.sum(1).max())]))
+        return model, history
+
+    def inference(*args, **kw):
+        before = read_counts()
+        stats = real_infer(*args, **kw)
+        inferences.append([a - z for a, z in zip(read_counts(), before)])
+        return stats
+
+    # B3's forward wrapper, called as edge_program and EdgeProgram call it
+    # (through the module), keeps a copy of its first operands of each
+    # shape; the launch is counted in the wrapped function as before
+    operands, real_fwd = {}, edge.edge_program_fwd
+
+    def edge_program_fwd(*args):
+        key = (*args[0].shape, args[0].dtype)
+        if key not in operands:
+            # copies that are not inference tensors (inference runs
+            # under torch.inference_mode)
+            with torch.inference_mode(False):
+                operands[key] = [t.detach().clone() for t in args]
+        return real_fwd(*args)
+
+    cli.train_model, cli.inference = train_model, inference
+    edge.edge_program_fwd = edge_program_fwd
+    try:
+        reset_counts()                  # every count to 0: the entry point
+        t0 = time.perf_counter()
+        train_stats, test_stats = cli.main([
+            "--model", "HybridModelv2", "--full-sequence", "--sequence-loss",
+            "--aggregation", "fused", "--compute-dtype", "bfloat16",
+            "--batch-size", str(B), "--num-epochs", str(CLI_EPOCHS),
+            "--device", "cuda", "--seed", "1", "--model-save-dir", save_dir,
+            "--graph-dir-IEDB", graph_dir, "--property-path-IEDB", props,
+            "--hla-path", hla])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = read_counts()          # read just after the entry point
+    finally:
+        cli.train_model, cli.inference = real_train, real_infer
+        edge.edge_program_fwd = real_fwd
+
+    assert [s["stage"] for s in stages] == ["pretrain", "finetune"], stages
+    for s in stages:
+        h = s["history"]
+        assert len(h["train_loss"]) == CLI_EPOCHS, h
+        assert all(v == v and abs(v) < float("inf")
+                   for v in h["train_loss"] + h["val_loss"]), h
+        _, b3f, b3b = s["launches"][1:]
+        assert s["launches"][:2] == [0, 0] and b3f > 0 and b3b > 0, s
+    assert len(inferences) == 2, inferences
+    for launched in inferences:
+        assert launched[0] == launched[1] == launched[3] == 0, launched
+        assert launched[2] > 0, launched
+    for stats in (train_stats, test_stats):
+        assert len(stats) == METRIC_KEYS, sorted(stats)
+    assert test_stats["optimal_threshold"] == \
+        train_stats["optimal_threshold"]
+    ckpts = sorted(f for f in os.listdir(save_dir) if f.endswith(".ckpt"))
+    assert [c.rsplit("_", 1)[1] for c in ckpts] == ["finetune.ckpt",
+                                                     "pretrain.ckpt"], ckpts
+    for c in ckpts:
+        path = os.path.join(save_dir, c)
+        with np.load(path) as z:        # the VAE's width: the corpus's L*21
+            vae_dim = z["['vae']['fc1']['w']"].shape[0]
+        _, fresh = build_model("HybridModelv2", vae_dim,
+                               torch.Generator().manual_seed(0),
+                               device="cuda")
+        load_checkpoint(path, fresh, verbose=False)
+    epochs = []
+    for s in stages:
+        h = s["history"]
+        for i, (dt, n) in enumerate(zip(h["epoch_time"],
+                                        h["train_samples"])):
+            epochs.append(dict(stage=s["stage"], epoch=i + 1, epoch_s=dt,
+                               train_pmhc=n, pmhc_per_s=n / dt,
+                               train_loss=h["train_loss"][i],
+                               val_loss=h["val_loss"][i]))
+    assert stages[0]["N"] == N and stages[0]["E"] % 128 == 0, stages[0]
+    row = dict(samples=CLI_SAMPLES, N=stages[0]["N"], E=stages[0]["E"],
+               edges_per_graph=stages[0]["edges_per_graph"],
+               corpus_s=corpus_s, wall_s=wall_s,
+               launches=counts, launches_by_stage={
+                   s["stage"]: s["launches"] for s in stages},
+               b3_shapes=sorted(k[:3] for k in operands),
+               launches_inference=inferences, epochs=epochs,
+               train_roc_auc=train_stats["roc_auc"],
+               test_roc_auc=test_stats["roc_auc"],
+               threshold=train_stats["optimal_threshold"])
+    print("entry point:", json.dumps(row), flush=True)
+    return row, operands
 
 
 def device_profile(fn, traced: int) -> dict:
@@ -724,6 +1193,8 @@ def profile_row(label, agg, per_name, traced, wall) -> dict:
         idle_share=max(0.0, 1.0 - busy_ms / wall),
         b1_ms=kernel_ms("egnn_mega_fwd_kernel"),
         b2_ms=kernel_ms("egnn_tail_bwd"),
+        b3_fwd_ms=kernel_ms("egnn_edge_fwd"),
+        b3_bwd_ms=kernel_ms("egnn_edge_bwd"),
         top=[[name[:90], t / 1e3 / traced, c // traced]
              for name, (t, c) in top])
     print("profile:", json.dumps(row), flush=True)
@@ -755,14 +1226,15 @@ def profile_forwards(scorer, requests, traced: int = 3) -> list:
 
 
 def profile_training(traced: int = 3) -> list:
-    """Train steps at B=128, E=2560 under 'mega' and 'scatter': median wall
-    of 8 untraced steps (after 3), then ``traced`` steps traced."""
+    """Train steps at B=128, E=2560 under 'mega', 'scatter' and 'fused':
+    median wall of 8 untraced steps (after 3), then ``traced`` steps
+    traced."""
     from immunostruct_tpu_torch.data.synthetic import random_sample_batch
 
     batch = random_sample_batch(B, N, EDGE_COUNTS[0], L, seed=0,
                                 device="cuda")
     rows = []
-    for agg in ("mega", "scatter"):
+    for agg in ("mega", "scatter", "fused"):
         trainer, state = make_trainer("HybridModelv2", agg)
         _, ms = timed_steps(trainer, state, batch, 11)
 
@@ -781,7 +1253,7 @@ def main() -> int:
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from immunostruct_tpu_torch.ops.mega import _kernel_libs
+    from immunostruct_tpu_torch.ops import _build, edge, mega
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -791,25 +1263,33 @@ def main() -> int:
           f"{torch.cuda.device_count()} device(s))", flush=True)
 
     t0 = time.perf_counter()
-    _kernel_libs()
+    _build.build()                      # one nvcc per source, in parallel
+    mega._kernel_libs()
+    edge._kernel_libs()
     build_s = time.perf_counter() - t0
-    print(f"kernel build + load (both): {build_s:.1f} s", flush=True)
+    print(f"kernel build + load (all four): {build_s:.1f} s", flush=True)
 
     fwd_rows = check_fwd_kernel()
     tail_rows = check_tail_kernel()
     check_edge_mega_grads()
+    edge_rows = check_edge_kernels()
+    check_fused_layer_grads()
     scorer = full_width_scorer()
     with tempfile.TemporaryDirectory() as tmp:
         requests = write_requests(tmp)
         served, serving_counts = check_serving(scorer, requests)
         train_rows, train_counts = check_training()
         comp_row, comp_counts = check_comparative()
+        fused_rows, fused_counts = check_fused_training(train_rows)
+        entry, entry_operands = check_entry_point(tmp)
+        edge_rows += check_entry_edge_kernels(entry_operands)
         profile_forwards(scorer, requests)
         profile_training()
 
-    def pick(rows):
+    def pick(rows, **want):
         return next(r for r in rows if r["E"] == 2560 and r["F"] == 64
-                    and r["dtype"] == "bfloat16")
+                    and r["dtype"] == "bfloat16"
+                    and all(r[k] == v for k, v in want.items()))
 
     for r in served:
         print(f"latency [{card}]: {r['request']}: median forward "
@@ -821,38 +1301,68 @@ def main() -> int:
               f"({r['pmhc_per_s_mega']:.0f} pMHC/s), "
               f"{r['median_step_ms_scatter']:.3f} ms 'scatter' "
               f"({r['pmhc_per_s_scatter']:.0f} pMHC/s)")
+    for r in fused_rows:
+        print(f"train   [{card}]: B=128 E={r['E']} bf16: median step "
+              f"{r['median_step_ms_fused']:.3f} ms 'fused' "
+              f"({r['pmhc_per_s_fused']:.0f} pMHC/s)")
     print(f"twins   [{card}]: B=128 E=2560 bf16: median step "
           f"{comp_row['median_step_ms']:.3f} ms")
-    for kind, rows in (("B1", fwd_rows), ("B2", tail_rows)):
+    for ep in entry["epochs"]:
+        print(f"entry   [{card}]: train_IEDB_wFT --aggregation fused, "
+              f"N={entry['N']} E={entry['E']}, {ep['stage']} epoch "
+              f"{ep['epoch']}: {ep['epoch_s']:.3f} s, "
+              f"{ep['pmhc_per_s']:.0f} pMHC/s")
+    for kind, rows in (("B1", fwd_rows), ("B2", tail_rows),
+                       ("B3", edge_rows)):
         for r in rows:
-            print(f"kernel  [{card}]: {kind} E={r['E']} F={r['F']} "
+            label = f"{kind} {r['kernel']}" if kind == "B3" else kind
+            bare = ("" if kind != "B1" else
+                    f"; without residuals {r['bound_ms_without_residuals']:.4f}"
+                    f" ms ({r['bound_by_without_residuals']})")
+            print(f"kernel  [{card}]: {label} B={r.get('B', B)} E={r['E']} "
+                  f"F={r['F']} "
                   f"{r['dtype']}: kernel {r['ms']:.4f} ms, plain "
-                  f"{r['plain_ms']:.4f} ms")
+                  f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}){bare}")
 
     launches = dict(serving=serving_counts, train=train_counts,
-                    comparative=comp_counts)
+                    comparative=comp_counts, train_fused=fused_counts,
+                    entry_point=entry["launches"])
     b1, b2 = pick(fwd_rows), pick(tail_rows)
-    record = {"kernels": [{
-        "name": "egnn_mega_fwd",
-        "route": "cuda",
-        "source": "immunostruct_tpu_torch/csrc/egnn_mega_fwd.cu",
-        "replaces": "immunostruct_tpu/ops/pallas_mega.py:226",
-        "launches": train_counts[0],
-        "launches_by_path": {k: v[0] for k, v in launches.items()},
-        "max_abs_err": max(r["max_abs_err"] for r in fwd_rows),
-        "ms": b1["ms_with_residuals"],
-        "plain_ms": b1["plain_ms"],
-    }, {
-        "name": "egnn_tail_bwd",
-        "route": "cuda",
-        "source": "immunostruct_tpu_torch/csrc/egnn_tail_bwd.cu",
-        "replaces": "immunostruct_tpu/ops/pallas_mega.py:370",
-        "launches": train_counts[1],
-        "launches_by_path": {k: v[1] for k, v in launches.items()},
-        "max_abs_err": max(r["max_abs_err"] for r in tail_rows),
-        "ms": b2["ms"],
-        "plain_ms": b2["plain_ms"],
-    }]}
+    b3f, b3b = pick(edge_rows, kernel="fwd"), pick(edge_rows, kernel="bwd")
+
+    def kernel_record(name, source, replaces, index, main_count, row, rows,
+                      ms_key="ms"):
+        return {
+            "name": name, "route": "cuda",
+            "source": f"immunostruct_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": main_count,
+            "launches_by_path": {k: v[index] for k, v in launches.items()},
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": row[ms_key], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None,
+        }
+
+    # no single PyTorch call computes any of these functions: library_ms
+    # is null for each
+    record = {"kernels": [
+        kernel_record("egnn_mega_fwd", "egnn_mega_fwd.cu",
+                      "immunostruct_tpu/ops/pallas_mega.py:226", 0,
+                      train_counts[0], b1, fwd_rows,
+                      ms_key="ms_with_residuals"),
+        kernel_record("egnn_tail_bwd", "egnn_tail_bwd.cu",
+                      "immunostruct_tpu/ops/pallas_mega.py:370", 1,
+                      train_counts[1], b2, tail_rows),
+        kernel_record("egnn_edge_fwd", "egnn_edge_fwd.cu",
+                      "immunostruct_tpu/ops/pallas_edge.py:152", 2,
+                      entry["launches"][2], b3f,
+                      [r for r in edge_rows if r["kernel"] == "fwd"]),
+        kernel_record("egnn_edge_bwd", "egnn_edge_bwd.cu",
+                      "immunostruct_tpu/ops/pallas_edge.py:168", 3,
+                      entry["launches"][3], b3b,
+                      [r for r in edge_rows if r["kernel"] == "bwd"]),
+    ]}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

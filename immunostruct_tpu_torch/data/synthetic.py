@@ -1,18 +1,139 @@
 """Seeded synthetic inputs (counterpart of ``immunostruct_tpu/data/synthetic.py``
-``random_sample_batch``/``random_comparative_batch`` and
-``immunostruct_tpu/serving.py`` ``write_example``).
+``synthetic_corpus``/``random_sample_batch``/``random_comparative_batch``
+and ``immunostruct_tpu/serving.py`` ``write_example``).
 
 The functions make the same ``np.random.default_rng`` calls in the same
 order as the JAX package, so one seed gives bit-identical arrays in both
-packages.
+packages. ``synthetic_corpus`` writes its tables with the ``csv`` module in
+the layout pandas' ``to_csv`` gives them (header, shortest round-trip
+floats), so both packages' loaders read the same values from either's
+files.
 """
 
 from __future__ import annotations
 
+import csv
+import os
+
 import numpy as np
 import torch
 
+from immunostruct_tpu_torch.data.encoding import AMINO_ACIDS
+from immunostruct_tpu_torch.data.graphs import save_graph_npz
+from immunostruct_tpu_torch.data.tables import get_hash
 from immunostruct_tpu_torch.structs import ComparativeBatch, SampleBatch
+
+_HLA_NAMES = [f"HLA-A*{i:02d}:01" for i in range(1, 28)]
+
+
+def _random_seq(rng, length: int) -> str:
+    return "".join(rng.choice(list(AMINO_ACIDS), length))
+
+
+def _make_graph(rng, seq: str, knn: int = 4, compact_tail: int = 0,
+                tail_scale: float = 0.5):
+    """A noisy helix of CA coordinates; chain bonds plus k-nearest-neighbour
+    contacts, both directions."""
+    n = len(seq)
+    t = np.arange(n, dtype=np.float32)
+    coords = np.stack([np.cos(t * 0.6), np.sin(t * 0.6), 0.5 * t], -1)
+    coords = coords + 0.3 * rng.standard_normal((n, 3)).astype(np.float32)
+    if compact_tail:
+        # pull the peptide's residues toward their centroid: a signal in the
+        # coordinates alone
+        tail = coords[n - compact_tail:]
+        coords[n - compact_tail:] = tail.mean(0) + tail_scale * (tail - tail.mean(0))
+
+    onehot = np.zeros((n, 20), np.float32)
+    for i, ch in enumerate(seq):
+        onehot[i, AMINO_ACIDS.index(ch)] = 1.0
+    hd = rng.integers(0, 3, (n, 1)).astype(np.float32)
+    ha = rng.integers(0, 3, (n, 1)).astype(np.float32)
+    x = np.concatenate([onehot, hd, ha], -1)  # 22 cols; loader cuts last 2
+
+    src = list(range(n - 1)) + list(range(1, n))
+    dst = list(range(1, n)) + list(range(n - 1))
+    d2 = np.sum((coords[:, None] - coords[None]) ** 2, -1)
+    np.fill_diagonal(d2, np.inf)
+    nn = np.argsort(d2, axis=1)[:, :knn]
+    for i in range(n):
+        for j in nn[i]:
+            src.extend([i, int(j)])
+            dst.extend([int(j), i])
+    edge_index = np.unique(np.stack([src, dst]), axis=1).astype(np.int32)
+    return x, coords, edge_index
+
+
+def _write_table(path: str, rows: list[dict], delimiter: str) -> None:
+    """A header line and one line per row, as pandas' ``to_csv`` writes a
+    frame of these columns (no index)."""
+    with open(path, "w", newline="") as fh:
+        writer = csv.writer(fh, delimiter=delimiter, lineterminator="\n")
+        writer.writerow(list(rows[0]))
+        for row in rows:
+            writer.writerow([repr(v) if isinstance(v, float) else v
+                             for v in row.values()])
+
+
+def synthetic_corpus(root: str, num_samples: int = 32, hla_len: int = 48,
+                     seed: int = 0, planted_signal: bool = False,
+                     geometric_signal: bool = False):
+    """Write a synthetic IEDB-dialect (graph dir, property tsv, hla csv)
+    trio; returns (graph_dir, property_path, hla_path).
+
+    Chains are ``hla_len`` + 8-10 residues. ``planted_signal`` makes labels
+    learnable from the peptide's hydrophobic fraction; ``geometric_signal``
+    plants the label in the coordinates alone (the peptide tail compacted);
+    the two are exclusive. The cancer dialect and a shared HLA table belong
+    to the comparative corpora, not ported yet."""
+    if planted_signal and geometric_signal:
+        raise ValueError("planted_signal and geometric_signal are exclusive")
+    rng = np.random.default_rng(seed)
+    graph_dir = os.path.join(root, "graph_pyg_IEDB")
+    os.makedirs(graph_dir, exist_ok=True)
+
+    hla_seqs = {name: _random_seq(rng, hla_len) for name in _HLA_NAMES[:4]}
+    hla_path = os.path.join(root, "HLA_seqs.csv")
+    _write_table(hla_path, [{"allele": a, "seqs": s}
+                            for a, s in hla_seqs.items()], ",")
+
+    rows = []
+    for i in range(num_samples):
+        allele = _HLA_NAMES[int(rng.integers(0, 4))]
+        pep = _random_seq(rng, int(rng.integers(8, 11)))
+        chain = hla_seqs[allele] + pep
+        key = chain[-99:] + "_" + get_hash(chain)[:5]
+        geo_label = int(rng.random() < 0.5) if geometric_signal else 0
+        x, coords, ei = _make_graph(
+            rng, chain, compact_tail=len(pep) if geo_label else 0)
+        save_graph_npz(os.path.join(graph_dir, f"g{i:04d}.npz"),
+                       name=f"synImmuno{key}", x=x, coords=coords,
+                       edge_index=ei)
+        if geometric_signal:
+            immuno = geo_label
+            foreign = float(rng.random())
+            mprop1 = float(rng.random())
+        elif planted_signal:
+            hydrophobic = sum(c in "AVLIMFWPY" for c in pep) / len(pep)
+            immuno = int(hydrophobic > 0.45)
+            foreign = float(np.clip(hydrophobic + 0.1 * rng.standard_normal(), 0, 1))
+            mprop1 = float(np.clip(hydrophobic + 0.2 * rng.standard_normal(), 0, 1))
+        else:
+            immuno = int(rng.random() < 0.4)
+            foreign = float(rng.random())
+            mprop1 = float(rng.random())
+        rows.append({
+            "immunogenicity": immuno,
+            "smoothed_foreign": foreign,
+            "Mprop1": mprop1,
+            "Mprop2": float(rng.random()),
+            "peptide": pep, "allele": allele,
+            "Foreignness_Score": foreign,
+        })
+
+    property_path = os.path.join(root, "props_IEDB.tsv")
+    _write_table(property_path, rows, "\t")
+    return graph_dir, property_path, hla_path
 
 
 def random_sample_arrays(batch: int, nodes: int, edges: int, seq_len: int,

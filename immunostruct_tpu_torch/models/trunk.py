@@ -165,6 +165,22 @@ class ImmunoStructModel(nn.Module):
         self.classifier = _Classifier(spec, **kw)
 
 
+def reset_head(model: ImmunoStructModel, generator: torch.Generator
+               ) -> ImmunoStructModel:
+    """Re-initialize the classifier for a stage transition, in place
+    (``load_trained(new_head=True)``): plain models get a fresh classifier
+    (hybrid_models.py:76-79), SSL models a fresh ``classifier_head`` only
+    (hybrid_models.py:191-194). Weights are drawn from ``generator``."""
+    p = next(model.classifier.parameters())
+    kw = dict(generator=generator, device=p.device, dtype=p.dtype)
+    if model.spec.ssl:
+        model.classifier.classifier_head = Linear(model.spec.mlp_features, 1,
+                                                  **kw)
+    else:
+        model.classifier = _Classifier(model.spec, **kw)
+    return model
+
+
 def _structure_branch(model: ImmunoStructModel, graph: GraphBatch,
                       aggregation: str, compute_dtype):
     spec = model.spec

@@ -9,7 +9,8 @@ interface (no PyTorch headers, so a build takes seconds):
 The library goes to ``immunostruct_tpu_torch/_build/`` (git-ignored), named
 by a hash of the source and the flags, so an edited source rebuilds. The
 compiler's report (registers, shared memory, spills per kernel) is printed
-to standard error on every build. Nothing here runs at import time.
+to standard error on every build. ``build`` starts one nvcc per missing
+library, all at once. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -42,21 +43,45 @@ def _nvcc() -> str:
                        "CUDA toolkit to build")
 
 
-@functools.lru_cache(maxsize=None)
-def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``."""
+def _lib_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}-{digest}.so"
-    if not lib.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        print(proc.stdout + proc.stderr, file=sys.stderr, end="")
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names=None) -> None:
+    """Compile ``csrc/<name>.cu`` for each name (default: every source)
+    whose library is missing, one nvcc process each, run in parallel."""
+    if names is None:
+        names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    todo = [n for n in names if not _lib_path(n).exists()]
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for name in todo:
+        tmp = _lib_path(name).with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for name, tmp, proc in procs:
+        out, _ = proc.communicate()
+        print(out, file=sys.stderr, end="")
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
-                               f"{src.name}:\n{proc.stderr}")
-        os.replace(tmp, lib)
-    return ctypes.CDLL(str(lib))
+            failed.append(f"nvcc failed ({proc.returncode}) building "
+                          f"{name}.cu:\n{out}")
+        else:
+            os.replace(tmp, _lib_path(name))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+@functools.lru_cache(maxsize=None)
+def load_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``."""
+    build([name])
+    return ctypes.CDLL(str(_lib_path(name)))

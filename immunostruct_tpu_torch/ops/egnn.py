@@ -6,7 +6,7 @@ EGNNConv implements it): messages flow src -> dst and are summed at the
 destination; padded edges contribute nothing; padded nodes still flow
 through the node MLP.
 
-Both strategies are differentiable: gradients flow through the node update
+Every strategy is differentiable: gradients flow through the node update
 and the coordinate update to every layer's parameters.
 
 Aggregation strategies:
@@ -17,9 +17,21 @@ Aggregation strategies:
              from the raw edge indices (ops/mega.py): B1 forward, B2 in the
              backward; the node MLP stays in PyTorch. On CPU tensors
              ``edge_mega`` runs their plain versions.
+  'fused'    [h ++ x] bundles gathered by src and by dst into the transposed
+             edge layout [B, F+3, E], the edge program in hand-written Hopper
+             kernels (ops/edge.py: B3 forward, B3 backward recomputing the
+             chain), and the destination aggregation as an f32
+             ``index_add_`` rounded to the compute dtype. The JAX package's
+             numerics: coordinates are cast to h's dtype before the gather,
+             a masked edge (or an index outside [0, N)) gathers zeros on
+             that side and is left out of the aggregation, and the gathers'
+             backward sums in f32 and rounds once, as the JAX one-hot
+             einsums do. JAX's admission rule holds: E a multiple of 128 and
+             1-dim edge features; where JAX would fall back to 'onehot' (not
+             ported), this raises.
   'auto'     'mega' for CUDA tensors, 'scatter' for CPU tensors.
-The JAX package's other names ('onehot', 'fused', 'onehot_remat', 'pallas')
-are not ported yet and raise (see ROADMAP.md).
+The JAX package's other names ('onehot', 'onehot_remat', 'pallas') are not
+ported yet and raise (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -29,10 +41,13 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
-from immunostruct_tpu_torch.ops.mega import edge_mega, pack_params
+from immunostruct_tpu_torch.ops.edge import (
+    EDGE_MULTIPLE, edge_program, pack_params,
+)
+from immunostruct_tpu_torch.ops.mega import edge_mega
 from immunostruct_tpu_torch.ops.nnp import Linear, linear_apply
 
-NOT_PORTED = ("onehot", "fused", "onehot_remat", "pallas")
+NOT_PORTED = ("onehot", "onehot_remat", "pallas")
 
 
 class EGNNLayer(nn.Module):
@@ -69,13 +84,13 @@ def egnn_stack(num_layers: int, in_size: int, hidden_size: int,
 def resolve_aggregation(aggregation: str, device: torch.device) -> str:
     if aggregation == "auto":
         return "mega" if device.type == "cuda" else "scatter"
-    if aggregation in ("scatter", "mega"):
+    if aggregation in ("scatter", "mega", "fused"):
         return aggregation
     if aggregation in NOT_PORTED:
         raise ValueError(
             f"aggregation '{aggregation}' is not ported to PyTorch yet "
             "(see ROADMAP.md, kernels still to port); use 'scatter', "
-            "'mega' or 'auto'")
+            "'mega', 'fused' or 'auto'")
     raise ValueError(f"unknown aggregation '{aggregation}'")
 
 
@@ -141,6 +156,71 @@ def _egnn_apply_mega(p: EGNNLayer, h, x, edge_src, edge_dst, edge_feat,
     return _node_update(p, h, x, agg[..., :c], agg[..., c:].to(x.dtype))
 
 
+def check_fused(edge_count: int, edge_feat_size: int) -> None:
+    """JAX's admission rule for 'fused' (``_fused_or_fallback``): raise
+    where the JAX package would warn and fall back to 'onehot'."""
+    if (edge_count < EDGE_MULTIPLE or edge_count % EDGE_MULTIPLE
+            or edge_feat_size != 1):
+        raise ValueError(
+            f"aggregation='fused' takes a multiple of {EDGE_MULTIPLE} edges "
+            f"and 1-dim edge features, got E={edge_count} and edge_feat "
+            f"size {edge_feat_size} (the JAX package falls back to "
+            "'onehot' there, which is not ported yet, see ROADMAP.md); use "
+            "'mega' or 'scatter'")
+
+
+class _GatherEdges(torch.autograd.Function):
+    """rows [B*N, C] -> [B, C, E]: column (b, :, e) is row ``flat[b, e]``,
+    or zeros where ``ok`` is False. The backward sums the cotangent into
+    the rows in f32 and rounds once to the rows' dtype (the transpose of
+    the JAX package's one-hot einsum with f32 accumulation)."""
+
+    @staticmethod
+    def forward(ctx, rows, flat, ok):
+        b, e = ok.shape
+        out = rows.index_select(0, flat.reshape(-1)).reshape(b, e, -1)
+        out = torch.where(ok[..., None], out, torch.zeros((), dtype=out.dtype,
+                                                          device=out.device))
+        ctx.save_for_backward(flat, ok)
+        ctx.rows = rows.shape[0]
+        return out.transpose(1, 2).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        flat, ok = ctx.saved_tensors
+        gf = torch.where(ok[..., None], g.transpose(1, 2).float(), 0.0)
+        acc = torch.zeros(ctx.rows, g.shape[1], dtype=torch.float32,
+                          device=g.device)
+        acc.index_add_(0, flat.reshape(-1), gf.reshape(-1, g.shape[1]))
+        return acc.to(g.dtype), None, None
+
+
+def _egnn_apply_fused(p: EGNNLayer, h, x, edge_src, edge_dst, edge_feat,
+                      edge_mask):
+    b, n, f = h.shape
+    e = edge_src.shape[1]
+    check_fused(e, edge_feat.shape[-1])
+    dt = h.dtype
+    src_ok = edge_mask & (edge_src >= 0) & (edge_src < n)
+    dst_ok = edge_mask & (edge_dst >= 0) & (edge_dst < n)
+    # in range before any CUDA indexing: an out-of-range index on the card
+    # is a fault, not a zero
+    src = _flat_index(torch.where(src_ok, edge_src, 0), n)
+    dst = _flat_index(torch.where(dst_ok, edge_dst, 0), n)
+    rows = torch.cat([h, x.to(dt)], dim=-1).reshape(b * n, f + 3)
+    hsx = _GatherEdges.apply(rows, src, src_ok)               # [B, F+3, E]
+    hdx = _GatherEdges.apply(rows, dst, dst_ok)
+    ef = edge_feat.to(dt).transpose(1, 2).contiguous()        # [B, 1, E]
+    w1ab, w2, wc1, small = pack_params(p.edge_mlp, p.coord_mlp)
+    both = edge_program(hsx, hdx, ef, w1ab, w2, wc1, small)   # [B, H+3, E]
+    c = both.shape[1]
+    msgs = torch.where(dst_ok[..., None], both.transpose(1, 2).float(), 0.0)
+    agg = torch.zeros(b * n, c, dtype=torch.float32, device=h.device)
+    agg.index_add_(0, dst, msgs.reshape(b * e, c))
+    agg = agg.reshape(b, n, c).to(dt)
+    return _node_update(p, h, x, agg[..., :c - 3], agg[..., c - 3:].to(x.dtype))
+
+
 def egnn_apply(p: EGNNLayer, h: torch.Tensor, x: torch.Tensor,
                edge_src: torch.Tensor, edge_dst: torch.Tensor,
                edge_feat: torch.Tensor, edge_mask: torch.Tensor,
@@ -152,6 +232,9 @@ def egnn_apply(p: EGNNLayer, h: torch.Tensor, x: torch.Tensor,
     if aggregation == "mega":
         return _egnn_apply_mega(p, h, x, edge_src, edge_dst, edge_feat,
                                 edge_mask)
+    if aggregation == "fused":
+        return _egnn_apply_fused(p, h, x, edge_src, edge_dst, edge_feat,
+                                 edge_mask)
     return _egnn_apply_scatter(p, h, x, edge_src, edge_dst, edge_feat,
                                edge_mask)
 

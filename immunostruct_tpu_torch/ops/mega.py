@@ -53,48 +53,19 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence
 
 import torch
 
-# columns of the packed "small" parameter matrix [H, 6]
-W1R, W1E, B1, B2, BC1, WC2 = range(6)
-
-# the head width the kernels are built for (every zoo model's
-# gat_hidden_channels), and the widest node feature B1 takes (F <= its
-# 64-edge tile, whose buffers hold W1ab during the projection phase)
-KERNEL_HIDDEN = 64
-KERNEL_MAX_F = 64
-
-
-def pack_params(edge_mlp: Sequence, coord_mlp: Sequence):
-    """Split one EGNN layer's weights into the kernel's operands.
-
-    edge_mlp: [Linear(2F+2, H), Linear(H, H)];
-    coord_mlp: [Linear(H, H), Linear(H, 1, bias=False)].
-    Returns (w1ab [2F, H], w2 [H, H], wc1 [H, H], small [H, 6] f32) with the
-    columns of ``small`` = (w1r, w1e, b1, b2, bc1, wc2), the layout of
-    ``pallas_edge.pack_params``. Weights stay in their master dtype; the
-    kernels round them to the compute dtype at use. Autograd carries the
-    operands' gradients back through the slices and the stack."""
-    w1 = edge_mlp[0].w
-    f2 = w1.shape[0] - 2
-    small = torch.stack([
-        w1[f2], w1[f2 + 1], edge_mlp[0].b, edge_mlp[1].b,
-        coord_mlp[0].b, coord_mlp[1].w[:, 0],
-    ], dim=1).float().contiguous()
-    return w1[:f2], edge_mlp[1].w, coord_mlp[0].w, small
+from immunostruct_tpu_torch.ops.edge import (  # noqa: F401 (pack_params re-exported)
+    B1, B2, BC1, KERNEL_MAX_F, W1E, W1R, WC2, check_cuda_args,
+    chunks_per_graph, hopper, pack_params, silu_grad,
+)
 
 
 def valid_edges(src, dst, mask, n: int) -> torch.Tensor:
     """[B, E] bool: the edges the kernels compute (mask True, both indices
     in [0, N))."""
     return mask & (src >= 0) & (src < n) & (dst >= 0) & (dst < n)
-
-
-def _silu_grad(x, s):
-    """d silu / dx from the pre-activation x and its sigmoid s."""
-    return s * (1.0 + x * (1.0 - s))
 
 
 # --------------------------------------------------------------------------
@@ -203,10 +174,10 @@ def tail_bwd_reference(ef, w2, wc1, small, a1, xd, d_both, valid=None):
     d_m_in, d_msgx = db[..., :hid], db[..., hid:]
     d_cw = (d_msgx * x_hat).sum(-1, keepdim=True)
     d_xhat = d_msgx * cw_b
-    d_p3 = rnd(sm[:, WC2] * d_cw * _silu_grad(p3, s3))
+    d_p3 = rnd(sm[:, WC2] * d_cw * silu_grad(p3, s3))
     d_m = d_m_in + torch.matmul(d_p3, wc1b.T)
-    d_p2 = rnd(d_m * _silu_grad(p2, s2))
-    d_a1 = rnd(torch.matmul(d_p2, w2b.T) * _silu_grad(a1f, s1))
+    d_p2 = rnd(d_m * silu_grad(p2, s2))
+    d_a1 = rnd(torch.matmul(d_p2, w2b.T) * silu_grad(a1f, s1))
     d_rad_chain = (sm[:, W1R] * d_a1).sum(-1, keepdim=True)
     sum_dxh_xd = (d_xhat * xdf).sum(-1, keepdim=True)
     d_safe = sum_dxh_xd * (-0.5) * inv_s * inv_s / torch.sqrt(safe)
@@ -227,37 +198,6 @@ def tail_bwd_reference(ef, w2, wc1, small, a1, xd, d_both, valid=None):
 # --------------------------------------------------------------------------
 # the kernels' wrappers
 # --------------------------------------------------------------------------
-
-def _check_cuda_args(name: str, want: dict, dtype, hid: int):
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"{name} kernel takes float32 or bfloat16 "
-                         f"features, got {dtype}")
-    device = next(iter(want.values()))[0].device
-    for arg, (t, dt, shape) in want.items():
-        if t.device != device:
-            raise ValueError(f"{name}: {arg} is on {t.device}, "
-                             f"the others on {device}")
-        if t.dtype != dt:
-            raise ValueError(f"{name}: {arg} has dtype {t.dtype}, "
-                             f"the kernel takes {dt}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: {arg} has shape "
-                             f"{tuple(t.shape)}, expected {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} is not contiguous")
-    if hid != KERNEL_HIDDEN:
-        raise ValueError(f"{name} kernel is built for H={KERNEL_HIDDEN}, "
-                         f"got H={hid}; aggregation='scatter' takes any H")
-
-
-def _hopper(device):
-    props = torch.cuda.get_device_properties(device)
-    if props.major != 9:
-        raise RuntimeError(f"the edge_mega kernels are built for sm_90a "
-                           f"(Hopper); {props.name} is "
-                           f"sm_{props.major}{props.minor}")
-    return props
-
 
 @functools.lru_cache(maxsize=None)
 def _fwd_lib():
@@ -308,7 +248,7 @@ def edge_mega_fwd(src, dst, mask, ef, h, x, w1ab, w2, wc1, small,
     b, n, f = h.shape
     e = src.shape[1]
     hid = w2.shape[1]
-    _check_cuda_args("edge_mega", {
+    check_cuda_args("edge_mega", {
         "h": (h, h.dtype, (b, n, f)),
         "src": (src, torch.int32, (b, e)),
         "dst": (dst, torch.int32, (b, e)),
@@ -327,7 +267,7 @@ def edge_mega_fwd(src, dst, mask, ef, h, x, w1ab, w2, wc1, small,
         raise ValueError("edge_mega: empty batch or graph")
     lib = _fwd_lib()
     with torch.cuda.device(h.device):
-        props = _hopper(h.device)
+        props = hopper(h.device, "edge_mega")
         smem = lib.egnn_mega_fwd_smem_bytes(n, hid)
         if smem > props.shared_memory_per_block_optin:
             raise ValueError(
@@ -373,7 +313,7 @@ def tail_bwd(ef, w2, wc1, small, a1, xd, d_both, valid):
     b, hid, e = a1.shape
     c = hid + 3
     dt = a1.dtype
-    _check_cuda_args("tail_bwd", {
+    check_cuda_args("tail_bwd", {
         "a1": (a1, dt, (b, hid, e)),
         "ef": (ef, dt, (b, e, 1)),
         "xd": (xd, dt, (b, 3, e)),
@@ -387,7 +327,7 @@ def tail_bwd(ef, w2, wc1, small, a1, xd, d_both, valid):
         raise ValueError("tail_bwd: empty batch")
     lib = _tail_lib()
     with torch.cuda.device(a1.device):
-        props = _hopper(a1.device)
+        props = hopper(a1.device, "edge_mega")
         smem = lib.egnn_tail_bwd_smem_bytes(hid)
         if smem > props.shared_memory_per_block_optin:
             raise ValueError(
@@ -395,8 +335,7 @@ def tail_bwd(ef, w2, wc1, small, a1, xd, d_both, valid):
                 f"H={hid}; the card allows "
                 f"{props.shared_memory_per_block_optin} B per block")
         # one CTA per (graph, edge chunk): at least one CTA per SM
-        tiles = max(1, -(-e // 64))
-        chunks = min(tiles, max(1, -(-props.multi_processor_count // b)))
+        chunks = chunks_per_graph(e, b, 64, props.multi_processor_count)
         width = 2 * hid * hid + 6 * hid
         d_cat = torch.empty(b, c, e, dtype=dt, device=a1.device)
         d_ef = torch.empty(b, 1, e, dtype=dt, device=a1.device)

@@ -1,6 +1,7 @@
-"""One training step of a zoo model (counterpart of
-``immunostruct_tpu/procedures/train.py``: ``make_optimizer``, ``TrainState``
-and ``Trainer``'s loss, gradient, train and eval steps).
+"""Training engine (counterpart of ``immunostruct_tpu/procedures/train.py``):
+``make_optimizer``, ``TrainState``, ``Trainer`` (loss, gradient, train and
+eval steps, and ``fit``, the epoch loop), the collapse guard and
+``train_model``, the stage runner.
 
 PyTorch runs the step eagerly: the forward, the stage loss, ``backward()``
 (through the EGNN kernels' ``EdgeMega`` on the 'mega' path) and the
@@ -17,13 +18,17 @@ Parity notes, as in the JAX package:
   a step can be repeated. ``eps`` replaces the VAE draws (tests replay the
   JAX package's).
 
-``Trainer.fit``, the collapse guard and ``train_model`` need the data
-pipeline and are not ported yet.
+``Trainer.fit`` keeps the JAX package's epoch loop: best-val checkpoint,
+an optional per-epoch resume snapshot removed when the stage ends, and the
+collapse guard on the validation AUROC (median-split for soft targets).
+Its batches come from ``data/pipeline.py`` through ``prefetch``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -32,6 +37,7 @@ import torch
 from immunostruct_tpu_torch.models.trunk import (
     ImmunoStructModel, ModelSpec, model_apply, model_apply_comparative,
 )
+from immunostruct_tpu_torch.procedures.metrics import roc_auc_score
 from immunostruct_tpu_torch.structs import (
     ComparativeBatch, first_tensor, map_tensors,
 )
@@ -41,6 +47,49 @@ from immunostruct_tpu_torch.utils.contrastive import (
 from immunostruct_tpu_torch.utils.losses import LossConfig, make_loss_fn
 
 OPTIMIZERS = ("adam", "adamw")
+
+
+class PretrainCollapse(RuntimeError):
+    """Raised by ``Trainer.fit`` when the collapse guard fires and the
+    caller opted into restart (``raise_on_fire``)."""
+
+    def __init__(self, epoch: int, val_auc: float, window: int):
+        super().__init__(
+            f"pretrain collapse: val AUROC at chance ({val_auc:.3f}) for "
+            f"{window} consecutive epochs (epoch {epoch + 1})")
+        self.epoch = epoch
+        self.val_auc = val_auc
+
+
+@dataclasses.dataclass
+class CollapseGuard:
+    """Detects the flatlined-at-chance pretrain failure: fires when the
+    validation AUROC stays within ``chance_band`` of 0.5 for ``window``
+    consecutive epochs from ``min_epoch`` on. The loss cannot show it (the
+    VAE branch keeps improving the combined loss while the classifier is
+    dead), so the guard watches the AUROC of the validation logits."""
+
+    window: int = 8           # consecutive at-chance epochs to fire
+    chance_band: float = 0.07 # |AUROC - 0.5| below this counts as chance
+    min_epoch: int = 6        # ignore the initial epochs
+    raise_on_fire: bool = False
+    # whether --reinit-on-collapse would act on this stage (pretrain only):
+    # picks the advice printed when the guard fires
+    reinit_available: bool = True
+
+    _streak: int = dataclasses.field(default=0, init=False)
+    fired: bool = dataclasses.field(default=False, init=False)
+
+    def observe(self, epoch: int, val_auc: float) -> bool:
+        """Record one epoch; returns True the first time the guard fires."""
+        if epoch < self.min_epoch:
+            return False
+        at_chance = abs(val_auc - 0.5) < self.chance_band
+        self._streak = self._streak + 1 if at_chance else 0
+        if self._streak >= self.window and not self.fired:
+            self.fired = True
+            return True
+        return False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,11 +136,17 @@ class TrainState:
     step: int = 0
 
 
+def derived_seed(*words: int) -> int:
+    """One 64-bit seed from a tuple of integers (the counterpart of folding
+    words into a JAX key)."""
+    return int(np.random.SeedSequence(list(words)).generate_state(
+        1, np.uint64)[0])
+
+
 def step_generator(seed: int, step: int, device) -> torch.Generator:
     """The noise generator of one step, seeded from (seed, step)."""
-    state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)
     gen = torch.Generator(device=device)
-    gen.manual_seed(int(state[0]))
+    gen.manual_seed(derived_seed(seed, step))
     return gen
 
 
@@ -227,9 +282,198 @@ class Trainer:
         return state, loss
 
     def eval_step(self, model: ImmunoStructModel, batch, seed: int,
-                  eps=None):
+                  eps=None, index: int = 0):
         """(loss, (logits, target)) of the deterministic forward, without
-        gradients."""
-        generator = step_generator(seed, 0, first_tensor(batch).device)
+        gradients; its noise from ``step_generator(seed, index)``."""
+        generator = step_generator(seed, index, first_tensor(batch).device)
         with torch.no_grad():
             return self._batch_loss_aux(model, batch, generator, True, eps)
+
+    # -- epoch loop ------------------------------------------------------------
+    def fit(self, state: TrainState, train_pipe, val_pipe, num_epochs: int,
+            seed: int, ckpt_path: Optional[str] = None,
+            log_fn: Optional[Callable[[dict], None]] = None,
+            verbose: bool = True, resume_path: Optional[str] = None,
+            collapse_guard: Optional[CollapseGuard] = None):
+        """Best-val-checkpointed training. Returns (state, history).
+
+        Step ``s`` draws its noise from ``step_generator(seed, s)`` and
+        validation batch ``i`` from ``step_generator(seed ^ 0xE7A1, i)``.
+        ``resume_path``: a snapshot file written after every epoch; when it
+        exists at the start, training continues from the saved epoch
+        (model, optimizer, step and best-val tracker) and ends in the state
+        an uninterrupted run reaches. It is removed when the stage ends.
+        ``collapse_guard``: warns when it fires, or raises PretrainCollapse
+        when it has ``raise_on_fire``."""
+        from immunostruct_tpu_torch.data.pipeline import prefetch
+        from immunostruct_tpu_torch.utils.checkpoint import (
+            load_resume_state, save_checkpoint, save_resume_state,
+        )
+
+        history = {"train_loss": [], "val_loss": [], "epoch_time": [],
+                   "train_samples": []}
+        lowest_val = float("inf")
+        start_epoch = 0
+        if resume_path:
+            resumed = load_resume_state(resume_path, state)
+            if resumed is not None:
+                state, start_epoch, lowest_val = resumed
+                if verbose:
+                    print(f"resumed from {resume_path} at epoch {start_epoch}")
+        eval_seed = seed ^ 0xE7A1
+
+        for epoch in range(start_epoch, num_epochs):
+            t0 = time.perf_counter()
+            losses, n_samples = [], 0
+            for batch in prefetch(train_pipe.epoch(epoch)):
+                state, loss = self.train_step(state, batch, seed)
+                losses.append(loss)
+                n_samples += first_tensor(batch).shape[0]
+            # one device-to-host read per epoch, not per step
+            train_loss = (float(torch.stack(losses).float().mean())
+                          if losses else 0.0)
+
+            val_losses, val_logits, val_targets = [], [], []
+            for i, batch in enumerate(val_pipe.epoch(epoch)):
+                loss, (logits, target) = self.eval_step(
+                    state.model, batch, eval_seed, index=i)
+                val_losses.append(loss)
+                if collapse_guard is not None:
+                    val_logits.append(logits.reshape(-1).float())
+                    val_targets.append(target.reshape(-1).float())
+            val_loss = (float(torch.stack(val_losses).float().mean())
+                        if val_losses else 0.0)
+
+            if collapse_guard is not None and val_losses:
+                self._observe_collapse(collapse_guard, epoch, val_logits,
+                                       val_targets, history, log_fn)
+
+            if val_loss < lowest_val:
+                lowest_val = val_loss
+                if ckpt_path:
+                    save_checkpoint(ckpt_path, state.model)
+            if resume_path:
+                save_resume_state(resume_path, state, epoch, lowest_val)
+
+            dt = time.perf_counter() - t0
+            history["train_loss"].append(train_loss)
+            history["val_loss"].append(val_loss)
+            history["epoch_time"].append(dt)
+            history["train_samples"].append(n_samples)
+            if log_fn:
+                log_fn({"epoch": epoch, "train_loss": train_loss,
+                        "val_loss": val_loss, "epoch_time_s": dt})
+            if verbose:
+                print(f"Epoch {epoch + 1}, Train Loss: {train_loss:.4f}, "
+                      f"Val Loss: {val_loss:.4f} ({dt:.2f}s)")
+
+        # stage finished: drop the snapshot so that a later stage with the
+        # same paths starts fresh
+        if resume_path and os.path.exists(resume_path):
+            os.remove(resume_path)
+        return state, history
+
+    @staticmethod
+    def _observe_collapse(guard: CollapseGuard, epoch: int, logits: list,
+                          targets: list, history: dict, log_fn) -> None:
+        t = torch.cat(targets).cpu().numpy()
+        s = torch.cat(logits).cpu().numpy()
+        # soft-target stages (foreignness pretrain): median-split the
+        # targets so that the guard watches the same rank signal
+        uniq = np.unique(t)
+        y = (t > 0.5) if np.isin(uniq, (0.0, 1.0)).all() \
+            else (t > np.median(t))
+        # single-class targets make AUROC meaningless: record nan and do
+        # not feed the guard
+        two_class = len(np.unique(y)) > 1
+        val_auc = roc_auc_score(y, s) if two_class else float("nan")
+        history.setdefault("val_auc", []).append(val_auc)
+        if not (two_class and guard.observe(epoch, val_auc)):
+            return
+        advice = ("Consider --reinit-on-collapse, a different seed, or a "
+                  "lower pretrain LR." if guard.reinit_available else
+                  "Consider a different seed or a lower pretrain LR "
+                  "(--reinit-on-collapse acts on pretrain stages only and "
+                  "would not apply here).")
+        print(f"COLLAPSE GUARD: val AUROC at chance ({val_auc:.3f}) for "
+              f"{guard.window} consecutive epochs at epoch {epoch + 1} — "
+              f"the classifier head has flatlined. {advice}")
+        if log_fn:
+            log_fn({"epoch": epoch, "collapse_detected": True,
+                    "val_auc": val_auc})
+        if guard.raise_on_fire:
+            raise PretrainCollapse(epoch, val_auc, guard.window)
+
+
+# --------------------------------------------------------------------------
+# the stage runner
+# --------------------------------------------------------------------------
+
+def train_model(config, model: ImmunoStructModel, train_pipe, val_pipe,
+                loss_cfg: LossConfig, *, binary: bool, learning_rate: float,
+                weight_decay: float = 0.0, lr_schedule=None,
+                stage: str = "pretrain", log_fn=None, verbose: bool = True):
+    """One stage (the reference's train_model, procedures/train.py:10):
+    trains ``model`` in place with Adam and returns (model, history).
+
+    With ``config.reinit_on_collapse`` a pretrain stage whose collapse guard
+    fires restarts from fresh weights, up to twice. The JAX package's
+    ``resolve_scan_layers`` has no counterpart: ``--scan-layers`` rolls
+    XLA's EGNN layers into one compiled loop, and PyTorch compiles
+    nothing."""
+    from immunostruct_tpu_torch.utils.schedule import constant_lr
+
+    if config.data_parallel:
+        raise ValueError("--data-parallel is not ported to PyTorch yet "
+                         "(see ROADMAP.md); train on one card")
+    seed = config.seed
+    schedule = (lr_schedule if lr_schedule is not None
+                else constant_lr(learning_rate))
+    optimizer = make_optimizer("adam", schedule, weight_decay,
+                               steps_per_epoch=max(len(train_pipe), 1))
+    accum = config.grad_accum_steps
+    if accum > 1 and config.batch_size % accum != 0:
+        raise ValueError(
+            f"--grad-accum-steps {accum} does not divide --batch-size "
+            f"{config.batch_size}; accumulation would be silently skipped on "
+            "every full batch. Pick a divisible pair (e.g. batch 128, k=2).")
+    trainer = Trainer(model.spec, loss_cfg, binary=binary,
+                      optimizer=optimizer, aggregation=config.aggregation,
+                      compute_dtype=getattr(torch, config.compute_dtype),
+                      grad_accum_steps=accum)
+    ckpt = (config.model_save_path_pretrain if stage == "pretrain"
+            else config.model_save_path_finetune)
+    resume_path = ckpt + ".resume" if config.resume else None
+
+    # the guard watches every stage; re-init is for pretrain stages only
+    # (restarting a finetune from fresh weights would discard the trunk)
+    reinit = config.reinit_on_collapse and stage == "pretrain"
+    guard_on = config.collapse_detection
+    max_attempts = 3 if (guard_on and reinit) else 1
+
+    for attempt in range(max_attempts):
+        guard = (CollapseGuard(raise_on_fire=reinit and attempt < max_attempts - 1,
+                               reinit_available=(stage == "pretrain"))
+                 if guard_on else None)
+        attempt_seed = derived_seed(seed, attempt) if attempt else seed
+        state = trainer.init_state(
+            model, torch.Generator().manual_seed(attempt_seed))
+        try:
+            state, history = trainer.fit(
+                state, train_pipe, val_pipe, config.num_epochs, attempt_seed,
+                ckpt_path=ckpt, log_fn=log_fn, verbose=verbose,
+                resume_path=resume_path, collapse_guard=guard)
+            break
+        except PretrainCollapse as e:
+            if verbose:
+                print(f"{e} — re-initializing (attempt {attempt + 2}/"
+                      f"{max_attempts})")
+            if log_fn:
+                log_fn({"collapse_reinit": True, "attempt": attempt + 1})
+            fresh = ImmunoStructModel(
+                model.spec, loss_cfg.vae_input_dim,
+                generator=torch.Generator().manual_seed(
+                    derived_seed(attempt_seed, 0xC011AD5E)),
+                device=next(model.parameters()).device)
+            model.load_state_dict(fresh.state_dict(), strict=False)
+    return state.model, history

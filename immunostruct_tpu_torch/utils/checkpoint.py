@@ -1,6 +1,5 @@
-"""Load the JAX package's checkpoints (counterpart of the restore side of
-``immunostruct_tpu/utils/checkpoint.py``), and name the port's parameters
-as the JAX package does.
+"""Checkpoints in the JAX package's format (counterpart of
+``immunostruct_tpu/utils/checkpoint.py``), and resume snapshots.
 
 A JAX checkpoint is a plain ``np.savez`` file keyed by parameter treepath,
 ``jax.tree_util.keystr`` style: ``['gcn'][0]['edge_mlp'][0]['w']``. The
@@ -8,11 +7,19 @@ port's ``state_dict`` names the same parameter ``gcn.0.edge_mlp.0.w``, so
 the map is one to one and numpy alone reads the file. A training state's
 contrastive projector (``['contrastive_projector']['fc1']['w']``) loads into
 a model that has one attached (``Trainer.init_state``) like any other
-parameter.
+parameter. ``save_checkpoint`` writes the same names, so the JAX
+package's ``load_checkpoint`` reads a checkpoint of the port and
+``load_checkpoint`` here reads one of the JAX package.
+
+A resume snapshot (``save_resume_state``) holds what a stage needs to go
+on after an interruption: the model's and the optimizer's state, the step,
+the epoch and the best validation loss. It is a ``torch.save`` file of the
+port's own, not the JAX package's (whose optimizer state is optax's).
 """
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Mapping
 
@@ -89,10 +96,26 @@ def load_params(model: nn.Module, params: Mapping[str, np.ndarray],
     return model
 
 
+def _replace_into(path: str, write) -> None:
+    """Write a file through ``write(file)`` into a temporary name, then
+    rename it over ``path``, so a reader never sees half a file."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as fh:
+        write(fh)
+    os.replace(tmp, path)
+
+
+def save_checkpoint(path: str, model: nn.Module) -> None:
+    """The model's parameters as a name-addressed npz, keyed by JAX
+    treepath (f32 for a bf16 parameter), as the JAX package writes them."""
+    _replace_into(path, lambda fh: np.savez(fh, **jax_params(model)))
+
+
 def load_jax_checkpoint(path: str, model: nn.Module,
                         verbose: bool = True) -> nn.Module:
-    """Load a JAX package checkpoint (``save_checkpoint`` npz) into
-    ``model`` in place and return it."""
+    """Load a checkpoint of ``save_checkpoint`` (this package's or the JAX
+    package's npz) into ``model`` in place and return it."""
     try:
         with np.load(path, allow_pickle=False) as z:
             flat = {k: z[k] for k in z.files}
@@ -101,3 +124,27 @@ def load_jax_checkpoint(path: str, model: nn.Module,
                          f"({e})") from e
     return load_params(model, params_from_jax(flat), source=path,
                        verbose=verbose)
+
+
+load_checkpoint = load_jax_checkpoint
+
+
+def save_resume_state(path: str, state, epoch: int, best_val: float) -> None:
+    """Snapshot a ``TrainState`` (model, optimizer, step) with the epoch
+    just finished and the best validation loss so far."""
+    snapshot = {"model": state.model.state_dict(),
+                "optimizer": state.optimizer.state_dict(),
+                "step": state.step, "epoch": epoch, "best_val": best_val}
+    _replace_into(path, lambda fh: torch.save(snapshot, fh))
+
+
+def load_resume_state(path: str, state):
+    """Restore a snapshot into ``state`` in place; returns (state, next
+    epoch, best_val), or None when there is no snapshot."""
+    if not os.path.exists(path):
+        return None
+    snap = torch.load(path, map_location="cpu", weights_only=True)
+    state.model.load_state_dict(snap["model"])
+    state.optimizer.load_state_dict(snap["optimizer"])
+    state.step = int(snap["step"])
+    return state, int(snap["epoch"]) + 1, float(snap["best_val"])

@@ -1,6 +1,7 @@
 """The Hopper kernels behind ``edge_mega`` (immunostruct_tpu_torch/csrc/
-egnn_mega_fwd.cu, B1, and egnn_tail_bwd.cu, B2) against their plain
-PyTorch versions, on the card.
+egnn_mega_fwd.cu, B1, and egnn_tail_bwd.cu, B2) and behind ``edge_program``
+(egnn_edge_fwd.cu and egnn_edge_bwd.cu, B3) against their plain PyTorch
+versions, on the card.
 
 This file imports no JAX, so it also runs on a GPU machine without JAX.
 There ``tests/conftest.py`` (which imports JAX) is skipped:
@@ -26,14 +27,27 @@ The tests marked ``cuda`` skip on a host without a CUDA device. Tolerances:
   a change of summation order alone and 5.2e-5 to 2.7e-3 with any one of
   B2's rounding points removed.
 
+- B3 forward and backward, f32: the outputs atol=1e-5, rtol=1e-4; the
+  weight gradients as B2's. bf16, per row of the [B, C, E] outputs (over
+  graphs and edges), for def and for each weight gradient: mean|diff| <=
+  2e-5 * mean|plain|, max|diff| <= 1.6e-2 * max|plain| for the edge
+  outputs, 1e-3 for the weight gradients (B2's bounds: the same chain).
+  chip_smoke.py holds the weight gradients at B=128 to a mean of 1e-4:
+  each sums 16x the edges, and another f32 order flips other bf16
+  roundings along the chain of many more edges;
+  ``test_edge_bwd_smoke_bound_sees_every_rounding_point`` checks that
+  every backward mutant fails that bound at that shape.
+
 The kernels and the plain versions round at the same points, so they
 differ only where a summation order flips one rounding; a kernel that
 leaves out any one rounding point fails the mean bound, which
-``test_bf16_bound_sees_every_rounding_point`` (B1) and
-``test_tail_bf16_bound_sees_every_rounding_point`` (B2) check by building
+``test_bf16_bound_sees_every_rounding_point`` (B1),
+``test_tail_bf16_bound_sees_every_rounding_point`` (B2) and
+``test_edge_bf16_bound_sees_every_rounding_point`` (B3) check by building
 such kernels.
 """
 
+import json
 import re
 
 import pytest
@@ -41,7 +55,7 @@ import torch
 
 from immunostruct_tpu_torch.data.synthetic import random_sample_batch
 from immunostruct_tpu_torch.models import build_model, model_apply
-from immunostruct_tpu_torch.ops import _build, mega
+from immunostruct_tpu_torch.ops import _build, edge, mega
 from immunostruct_tpu_torch.ops.egnn import EGNNLayer, egnn_apply
 from immunostruct_tpu_torch.procedures.train import Trainer, make_optimizer
 from immunostruct_tpu_torch.utils.losses import LossConfig
@@ -290,17 +304,19 @@ def _mutant_kernel(source, mutants, tmp_path, monkeypatch):
     (tmp_path / "csrc" / source).write_text(text)
     monkeypatch.setattr(_build, "CSRC", tmp_path / "csrc")
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    _clear_libraries()
+
+
+def _clear_libraries():
     _build.load_library.cache_clear()
-    mega._fwd_lib.cache_clear()
-    mega._tail_lib.cache_clear()
+    for lib in (mega._fwd_lib, mega._tail_lib, edge._fwd_lib, edge._bwd_lib):
+        lib.cache_clear()
 
 
 @pytest.fixture
 def restore_kernels():
     yield
-    _build.load_library.cache_clear()
-    mega._fwd_lib.cache_clear()
-    mega._tail_lib.cache_clear()
+    _clear_libraries()
 
 
 @pytest.mark.cuda
@@ -414,3 +430,277 @@ def test_model_mega_matches_scatter_on_card(cuda):
         torch.testing.assert_close(getattr(outs["mega"], name),
                                    getattr(outs["scatter"], name),
                                    atol=1e-4, rtol=1e-3)
+
+
+# --------------------------------------------------------------------------
+# B3: the edge program over gathered bundles
+# --------------------------------------------------------------------------
+
+def _edge_args(b, e, f, dtype, device, seed, mask_rate=0.1, tail=0):
+    """B3's operands as the 'fused' path builds them: [h ++ x] bundles
+    gathered by src and dst, zeros for a masked edge (and for the last
+    ``tail`` edges), and a seeded cotangent of the output."""
+    src, dst, mask, ef, h, x, w1ab, w2, wc1, small = _args(
+        b, e, f, 64, dtype, device, seed, mask_rate)
+    if tail:
+        mask[:, e - tail:] = False
+    rows = torch.cat([h, x], dim=-1)
+
+    def bundle(idx):
+        got = torch.gather(rows, 1, idx.long()[..., None].expand(
+            -1, -1, f + 3))
+        return torch.where(mask[..., None], got, 0.0).transpose(1, 2) \
+            .contiguous()
+
+    dout = torch.randn(b, 67, e, generator=torch.Generator().manual_seed(
+        seed)).to(device, dtype)
+    return (bundle(src), bundle(dst), ef.transpose(1, 2).contiguous(),
+            w1ab, w2, wc1, small), dout
+
+
+def _rows(t):
+    """[B, C, E] -> [C, B*E]: one row per channel."""
+    return t.float().transpose(0, 1).flatten(1)
+
+
+def _assert_edge_close(out, ref, dtype, grad_mean=2e-5):
+    """B3 against its plain version (module docstring). ``out``/``ref``:
+    the forward's output alone, or the backward's seven outputs;
+    ``grad_mean`` the bf16 mean bound of the weight gradients."""
+    out = out if isinstance(out, tuple) else (out,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    edge_out = [(g, r) for g, r in zip(out, ref) if g.dim() == 3]
+    grads = [(g, r) for g, r in zip(out, ref) if g.dim() == 2]
+    for g, r in edge_out:
+        assert g.dtype == dtype and g.shape == r.shape
+    for g, r in grads:
+        assert g.dtype == torch.float32 and g.shape == r.shape
+    for g, _ in edge_out + grads:
+        assert torch.isfinite(g).all()
+    if dtype == torch.float32:
+        for g, r in edge_out:
+            torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-4)
+        for g, r in grads:
+            assert ((g - r).abs() <= 1e-5 * r.abs().max()
+                    + 1e-4 * r.abs()).all()
+        return
+    rows = [(_rows(g), _rows(r), 1.6e-2, 2e-5) for g, r in edge_out]
+    rows += [(g.flatten()[None], r.flatten()[None], 1e-3, grad_mean)
+             for g, r in grads]
+    for g, r, max_tol, mean_tol in rows:
+        diff, mag = (g - r).abs(), r.abs()
+        assert (diff.amax(1) <= max_tol * mag.amax(1)).all()
+        assert (diff.mean(1) <= mean_tol * mag.mean(1)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,e,tail", [(8, 2560, 0), (8, 256, 56),
+                                      (26, 1280, 0), (51, 1280, 0)])
+@pytest.mark.parametrize("f", [20, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_edge_kernels_match_plain_versions(cuda, b, e, tail, f, dtype):
+    """B=26 and B=51 at E=1280 are the partial batches of chip_smoke.py's
+    entry-point run; on a 132-SM card B=26 runs 6 chunks of 256 edges per
+    graph, the sixth of them empty."""
+    args, dout = _edge_args(b, e, f, dtype, cuda, seed=e + f, tail=tail)
+    before = edge.edge_program.launches, edge.edge_program_bwd.launches
+    out = edge.edge_program(*args)
+    grads = edge.edge_program_bwd(*args, dout)
+    torch.cuda.synchronize()
+    assert (edge.edge_program.launches - before[0],
+            edge.edge_program_bwd.launches - before[1]) == (1, 1)
+    _assert_edge_close(out, edge.edge_program_reference(*args), dtype)
+    _assert_edge_close(grads, edge.edge_program_bwd_reference(*args, dout),
+                       dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_edge_bwd_weight_gradients_are_deterministic(cuda, dtype):
+    args, dout = _edge_args(16, 1408, 64, dtype, cuda, seed=3)
+    first = edge.edge_program_bwd(*args, dout)
+    again = edge.edge_program_bwd(*args, dout)
+    for g, h in zip(first, again):
+        assert torch.equal(g, h)
+
+
+@pytest.mark.cuda
+def test_edge_program_autograd_launches_both_kernels(cuda):
+    """EdgeProgram through autograd on the card: B3 forward, B3 backward,
+    gradients equal to the backward kernel's on the same cotangent."""
+    args, dout = _edge_args(4, 256, 20, torch.float32, cuda, seed=9)
+    leaves = [t.detach().clone().requires_grad_(True) for t in args]
+    before = edge.edge_program.launches, edge.edge_program_bwd.launches
+    out = edge.edge_program(*leaves)
+    (out * dout).sum().backward()
+    torch.cuda.synchronize()
+    assert (edge.edge_program.launches - before[0],
+            edge.edge_program_bwd.launches - before[1]) == (1, 1)
+    want = edge.edge_program_bwd(*args, dout)
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w.reshape(leaf.shape))
+
+
+# B3's sources with one bf16 rounding point left out (the forward's output,
+# d_hsd, d_xd and d_ef round at their store in the compute dtype, which no
+# edit of the arithmetic removes)
+_EDGE_FWD_MUTANTS = {
+    "weights": [(r"(w1s\[i\] = )rnd<T>\((w1ab\[i\])\)", r"\1\2"),
+                (r"(w2s\[i\] = )rnd<T>\((w2\[i\])\)", r"\1\2"),
+                (r"(wc1s\[i\] = )rnd<T>\((wc1\[i\])\)", r"\1\2")],
+    "xd": [(r"(d\[k\] = )rnd<T>\(", r"\1(")],
+    "radial": [(r"(const float r = )rnd<T>\((d\[0\] \* d\[0\] \+ "
+                r"d\[1\] \* d\[1\] \+ d\[2\] \* d\[2\])\)", r"\1\2")],
+    "silu_a1": [(r"(bufA\[t \* LD \+ j\] = )rnd<T>\((a1 \* sigmoid\(a1\))\)",
+                 r"\1\2")],
+    "m": [(r"(bufM\[t \* LD \+ j\] = )rnd<T>\((p \* sigmoid\(p\))\)",
+           r"\1\2")],
+    "coord_hidden": [(r"(part \+= )rnd<T>\((p \* sigmoid\(p\))\)",
+                      r"\1\2")],
+    "cw": [(r"(const float cwb = )rnd<T>\((cw)\)", r"\1\2")],
+}
+_EDGE_BWD_MUTANTS = {
+    "weights": [(r"(w1s\[\(i / H\) \* LD \+ i % H\] = )rnd<T>\((w1ab\[i\])\)",
+                 r"\1\2"),
+                (r"(w2s\[k \* LD \+ j\] = )rnd<T>\((w2\[i\])\)", r"\1\2"),
+                (r"(wc1s\[k \* LD \+ j\] = )rnd<T>\((wc1\[i\])\)",
+                 r"\1\2")],
+    "xd": [(r"(d\[k\] = )rnd<T>\(", r"\1(")],
+    "radial": [(r"(const float r = )rnd<T>\((d\[0\] \* d\[0\] \+ "
+                r"d\[1\] \* d\[1\] \+ d\[2\] \* d\[2\])\)", r"\1\2")],
+    "a1s": [(r"(bufA\[t \* LD \+ j\] = )rnd<T>\((a \* s)\)", r"\1\2")],
+    "m": [(r"(bufM\[t \* LD \+ j\] = )rnd<T>\((p \* s)\)", r"\1\2")],
+    "c1": [(r"(c1v\[i\]\[c\] = )rnd<T>\((p \* s)\)", r"\1\2")],
+    "cw": [(r"(cwv\[t\] = )rnd<T>\((cw)\)", r"\1\2")],
+    "d_p3": [(r"(const float dp3 = )rnd<T>\((sms\[kWC2 \* H \+ j\] \* "
+              r"dcw \* g3\[i\]\[c\])\)", r"\1\2")],
+    "d_p2": [(r"(const float dp2 = )rnd<T>\((dm \* g2\[i\]\[c\])\)",
+              r"\1\2")],
+    "d_a1": [(r"(const float da = )rnd<T>\((acc\[i\]\[c\] \* "
+              r"bufG\[t \* LD \+ j\])\)", r"\1\2")],
+}
+_EDGE_MUTANTS = ([("egnn_edge_fwd.cu", k) for k in sorted(_EDGE_FWD_MUTANTS)]
+                 + [("egnn_edge_bwd.cu", k) for k in sorted(_EDGE_BWD_MUTANTS)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source,name", _EDGE_MUTANTS)
+def test_edge_bf16_bound_sees_every_rounding_point(cuda, source, name,
+                                                   tmp_path, monkeypatch,
+                                                   restore_kernels):
+    inputs = [_edge_args(8, e, f, torch.bfloat16, cuda, seed=e + f)
+              for e, f in ((2560, 20), (1408, 64))]
+    fwd = source == "egnn_edge_fwd.cu"
+    table = _EDGE_FWD_MUTANTS if fwd else _EDGE_BWD_MUTANTS
+    _mutant_kernel(source, table[name], tmp_path, monkeypatch)
+    for args, dout in inputs:
+        if fwd:
+            out = edge.edge_program_fwd(*args)
+            ref = edge.edge_program_reference(*args)
+        else:
+            out = edge.edge_program_bwd(*args, dout)
+            ref = edge.edge_program_bwd_reference(*args, dout)
+        with pytest.raises(AssertionError):
+            _assert_edge_close(out, ref, torch.bfloat16)
+
+
+def _mean_ratios(out, ref):
+    """Per output of B3's backward, the worst row's mean|diff| / mean|plain|
+    (rows as ``_assert_edge_close`` takes them)."""
+    names = ("dhsx", "dhdx", "def", "dw1ab", "dw2", "dwc1", "dsmall")
+    ratios = {}
+    for name, g, r in zip(names, out, ref):
+        g, r = ((_rows(g), _rows(r)) if g.dim() == 3
+                else (g.flatten()[None], r.flatten()[None]))
+        ratios[name] = ((g - r).abs().mean(1) / r.abs().mean(1)).max().item()
+    return ratios
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_EDGE_BWD_MUTANTS))
+def test_edge_bwd_smoke_bound_sees_every_rounding_point(
+        cuda, name, tmp_path, monkeypatch, restore_kernels):
+    """At chip_smoke.py's shape (B=128, E=2560, F=20, bf16) and with its
+    mean bound on the weight gradients (1e-4, five times the one above:
+    16x the edges in each f32 sum), each backward mutant still fails. The
+    per-output mean ratios are printed (pytest -s)."""
+    args, dout = _edge_args(128, 2560, 20, torch.bfloat16, cuda, seed=2582)
+    ref = edge.edge_program_bwd_reference(*args, dout)
+    _mutant_kernel("egnn_edge_bwd.cu", _EDGE_BWD_MUTANTS[name], tmp_path,
+                   monkeypatch)
+    out = edge.edge_program_bwd(*args, dout)
+    print(f"B3 bwd mutant {name}:", json.dumps(_mean_ratios(out, ref)))
+    with pytest.raises(AssertionError):
+        _assert_edge_close(out, ref, torch.bfloat16, grad_mean=1e-4)
+
+
+@pytest.mark.cuda
+def test_edge_kernels_reject_what_they_do_not_take(cuda):
+    args, dout = _edge_args(2, 128, 20, torch.float32, cuda, seed=2)
+    half = [t.half() if t.dim() == 3 else t for t in args]
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        edge.edge_program(*half)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        edge.edge_program_bwd(*half, dout.half())
+    strided = list(args)
+    strided[0] = args[0].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        edge.edge_program(*strided)
+    with pytest.raises(ValueError, match="contiguous"):
+        edge.edge_program_bwd(*strided, dout)
+    short = list(args)
+    short[1] = args[1][:, :, :100].contiguous()
+    with pytest.raises(ValueError, match="hdx"):
+        edge.edge_program(*short)
+    with pytest.raises(ValueError, match="dout"):
+        edge.edge_program_bwd(*args, dout[:, :, :100].contiguous())
+    wide, _ = _edge_args(2, 128, 65, torch.float32, cuda, seed=2)
+    with pytest.raises(ValueError, match="F <= 64"):
+        edge.edge_program(*wide)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_layer_gradients_on_card(cuda, dtype, monkeypatch):
+    """One EGNN layer through 'fused' (B3 forward and backward, the gathers
+    and the aggregation) against the same layer with B3's plain versions:
+    one B3 forward and one B3 backward launch; outputs and gradients within
+    |diff| <= 1e-4 * max + 1e-3 * |plain| in f32, and a mean ratio of 1e-4
+    per tensor in bf16."""
+    gen = torch.Generator().manual_seed(11)
+    layer = EGNNLayer(20, 64, 64, generator=gen, device=cuda)
+    src, dst, mask, ef, h, x = (t.to(cuda) for t in _args(
+        4, 1408, 20, 64, torch.float32, "cpu", seed=11)[:6])
+    cot_h = torch.randn(4, N, 64, generator=gen).to(cuda, dtype)
+    cot_x = torch.randn(4, N, 3, generator=gen).to(cuda, dtype)
+
+    def run(kernels):
+        layer.zero_grad()
+        hin = h.to(dtype).requires_grad_(True)
+        xin = x.to(dtype).requires_grad_(True)
+        before = edge.edge_program.launches, edge.edge_program_bwd.launches
+        with monkeypatch.context() as m:
+            if not kernels:
+                # B3's plain versions on CUDA tensors, forward and backward
+                m.setattr(edge, "edge_program_fwd",
+                          edge.edge_program_reference)
+                m.setattr(edge, "edge_program_bwd",
+                          edge.edge_program_bwd_reference)
+            h2, x2 = egnn_apply(layer, hin, xin, src, dst, ef, mask, "fused")
+            ((h2 * cot_h).float().sum()
+             + (x2 * cot_x).float().sum()).backward()
+        torch.cuda.synchronize()
+        launched = (edge.edge_program.launches - before[0],
+                    edge.edge_program_bwd.launches - before[1])
+        assert launched == ((1, 1) if kernels else (0, 0))
+        return [h2.detach(), x2.detach(), hin.grad, xin.grad] + [
+            p.grad.clone() for p in layer.parameters()]
+
+    for g, r in zip(run(True), run(False)):
+        assert torch.isfinite(g).all()
+        g, r = g.float(), r.float()
+        if dtype == torch.float32:
+            assert ((g - r).abs() <= 1e-4 * r.abs().max()
+                    + 1e-3 * r.abs()).all()
+        else:
+            assert (g - r).abs().mean() <= 1e-4 * r.abs().mean() + 1e-12

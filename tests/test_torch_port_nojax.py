@@ -1,6 +1,7 @@
-"""The PyTorch port imports no JAX: every ``immunostruct_tpu_torch`` module
-imports in a fresh interpreter in which ``import jax`` fails, and neither
-``jax`` nor the JAX package is loaded afterwards."""
+"""The PyTorch port imports no JAX and no pandas: every
+``immunostruct_tpu_torch`` module imports in a fresh interpreter in which
+``import jax`` (or ``import pandas``) fails, and neither ``jax`` nor the JAX
+package is loaded afterwards. The card's machine has neither."""
 
 import os
 import pkgutil
@@ -14,6 +15,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = """
 import importlib, sys
 sys.modules["jax"] = None            # any `import jax` now raises
+sys.modules["pandas"] = None         # and so does `import pandas`
 for name in sys.argv[1:]:
     importlib.import_module(name)
 loaded = sorted(m for m in sys.modules
@@ -33,14 +35,28 @@ def _modules():
     return names
 
 
-def test_every_module_imports_without_jax():
-    names = _modules()
-    assert "immunostruct_tpu_torch.ops.mega" in names
-    assert "immunostruct_tpu_torch.cli.serve" in names
+def _probe(names, *setup):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
-    proc = subprocess.run([sys.executable, "-c", _PROBE, *names],
+    code = "\n".join([*setup, _PROBE])
+    return subprocess.run([sys.executable, "-c", code, *names],
                           capture_output=True, text=True, cwd=REPO, env=env,
                           timeout=300)
+
+
+def test_every_module_imports_without_jax():
+    names = _modules()
+    for module in ("ops.mega", "ops.edge", "cli.serve", "cli.train_IEDB_wFT",
+                   "data.pipeline", "procedures.infer"):
+        assert f"immunostruct_tpu_torch.{module}" in names
+    proc = _probe(names)
     assert proc.returncode == 0, proc.stderr
     assert f"imported {len(names)}" in proc.stdout
+
+
+def test_the_probe_refuses_a_pandas_import(tmp_path):
+    """The probe fails a module that imports pandas."""
+    (tmp_path / "uses_pandas.py").write_text("import pandas\n")
+    proc = _probe(["uses_pandas"], "import sys",
+                  f"sys.path.insert(0, {str(tmp_path)!r})")
+    assert proc.returncode != 0 and "pandas" in proc.stderr
