@@ -6,11 +6,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (none catches its own failure; any failure exits non-zero):
   1. require CUDA;
   2. print the card's name and power limit (nvidia-smi);
-  3. build the four Hopper kernels with nvcc, one process per source, all
-     at once: csrc/egnn_mega_fwd.cu (B1, the EGNN edge forward from raw
+  3. build the five Hopper kernel sources with nvcc, one process per source,
+     all at once: csrc/egnn_mega_fwd.cu (B1, the EGNN edge forward from raw
      indices), csrc/egnn_tail_bwd.cu (B2, its backward), csrc/egnn_edge_fwd.cu
      and csrc/egnn_edge_bwd.cu (B3, the edge program over gathered bundles,
-     forward and backward);
+     forward and backward), csrc/segment.cu (B8, the segment scatter and
+     gather);
   4. compare B1 with its plain PyTorch version on the card at the main
      path's shapes (B=128, N=288, H=64, E=2560 and 1408, F=20 and 64, 10% of
      the edges masked, self-loops), in f32 (TF32 off) and bf16, output and
@@ -30,28 +31,37 @@ Phases (none catches its own failure; any failure exits non-zero):
   8. compare one EGNN layer under 'fused' (B3 + the gathers and the
      index_add_ aggregation) with the same layer on B3's plain versions:
      outputs and gradients, f32 and bf16, B=128, E=2560, F=64;
-  9. serve full-width HybridModelv2 with seeded weights in bf16 over HTTP on
+  9. compare B8's scatter and gather with their plain versions (B=128,
+     N=288, C=H+3=67, E=2560 and 1408, 10% of the edges masked, indices at
+     -1 and N on masked and unmasked edges; f32 with TF32 off and bf16): the
+     gather bit for bit, the scatter within its bounds (SCATTER_BF16_FLOOR)
+     and the same bits twice; time each beside its plain version and the
+     nearest library call (index_add_, index_select), and print the bound;
+  10. compare one EGNN layer under 'pallas' (B8's scatter, its gather in the
+     backward) with the same layer on B8's plain versions: outputs and
+     gradients, f32 and bf16, B=128, E=2560, F=64;
+  11. serve full-width HybridModelv2 with seeded weights in bf16 over HTTP on
      127.0.0.1 (ephemeral port), POST requests (B=128 at E=2560, B=128 at
      E=1408, B=1): probabilities finite, in (0, 1), matching the same batch
      through aggregation='scatter', the same when a request is sent again,
      6 B1 launches and no other launch per request;
-  10. train full-width HybridModelv2 (bf16 over f32 master weights, Adam
+  12. train full-width HybridModelv2 (bf16 over f32 master weights, Adam
      1e-3, the loss config of the JAX package's bench) on
      random_sample_batch(128, 288, E, 284) for E=2560 and 1408: the first
      step's loss and gradients under 'mega' against 'scatter' from the same
      weights, then 20 'mega' steps (6 B1 + 6 B2 launches each, finite loss
      that falls) and 10 'scatter' steps, with the median step time;
-  11. the comparative twin step (HybridModelv2_Comparative, the contrastive
+  13. the comparative twin step (HybridModelv2_Comparative, the contrastive
      term at 0.1, random_comparative_batch at E=2560): the first step's loss
      and gradients under 'mega' against 'scatter', in f32 and in bf16, then
      6 steps: 12 B1 + 12 B2 launches per step, finite loss, median step
      time. Its loss is not required to fall: the contrastive term dominates
      it and wanders with each step's noise (PERF.md, Findings);
-  12. the same train step under 'fused' at both edge counts: the first
+  14. the same train step under 'fused' at both edge counts: the first
      step against 'scatter', then 20 steps with 6 B3 forward + 6 B3
-     backward launches each and a falling loss, beside phase 10's 'mega';
-  13. the entry point: synthetic_corpus writes 512 samples with 275-residue
-     HLA chains (283-285 tokens, N padded to 288), and
+     backward launches each and a falling loss, beside phase 12's 'mega';
+  15. the IEDB entry point: synthetic_corpus writes 512 samples with
+     275-residue HLA chains (283-285 tokens, N padded to 288), and
      cli.train_IEDB_wFT.main runs HybridModelv2 at full width with
      --aggregation fused, bf16, batch 128, 2 epochs per stage: both stages
      finish with finite losses, both checkpoints load, the train and test
@@ -61,13 +71,31 @@ Phases (none catches its own failure; any failure exits non-zero):
      plain versions as in phase 7, on the operands the entry point gave
      B3's forward (the first of each shape: full and partial batches), in
      bf16 and cast to f32;
-  14. trace forwards and train steps with torch.profiler ('mega',
-     'scatter' and, for the step, 'fused') and print the device-busy time,
-     the device's idle share and the kernels that take the most device
-     time;
-  15. print the times beside the card's name and power limit, then the kernel
-     record as one JSON line, the card line and, last, the result line
-     {"ok": true, "device": {...}}.
+  16. the same train step under 'pallas' at both edge counts: the first
+     step against 'scatter', then 20 steps with 6 B8 scatter + 6 B8 gather
+     launches each (and none of B1-B3) and a falling loss, beside phase 12's
+     'mega' and 'scatter';
+  17. the Cancer entry point, this slice's main path: the corpus of phase
+     15 and synthetic_comparative_corpus's 256 cancer/WT pairs sharing its
+     HLA table (N=288 on both twins); cli.train_Cancer_wFT.main runs
+     HybridModelv2_Comparative at full width with --aggregation pallas
+     --skip-clinical, bf16, batch 128, the contrastive term at 0.1, 2 epochs
+     per stage and the default 64 finetune batches per epoch: three stages
+     in order (pretrain, comparative pretrain, comparative finetune) with
+     finite losses, both checkpoints load into a fresh
+     HybridModelv2_Comparative, 15 metrics per split with the train
+     threshold reused on test, both B8 kernels in every stage and the
+     scatter alone in both inference passes, no launch of B1-B3; epoch
+     times and pMHC/s printed. Then B8 against its plain versions as in
+     phase 9 on the operands the entry point gave it (the first of each
+     kernel, shape and dtype);
+  18. trace forwards and train steps with torch.profiler ('mega',
+     'scatter' and, for the step, 'fused' and 'pallas') and print the
+     device-busy time, the device's idle share and the kernels that take
+     the most device time;
+  19. print the times beside the card's name and power limit, then the
+     kernel record (six kernels) as one JSON line, the card line and, last,
+     the result line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -170,6 +198,18 @@ COMPARATIVE_STEPS = 6
 CLI_SAMPLES = 512
 CLI_EPOCHS = 2
 METRIC_KEYS = 15
+# the Cancer entry point: 256 cancer/WT pairs sharing the IEDB corpus's HLA
+# table (N=288 on both twins), the flagship's finetune floor of 64 batches
+CANCER_PAIRS = 256
+MIN_FINETUNING_BATCHES = 64
+# B8's scatter, bf16: within one bf16 step of the larger magnitude, or of
+# this floor below it (near a cancellation the f32 roundoff of a sum of
+# terms of size ~1 can exceed a step there); f32: within 2 * k * 2^-24 *
+# (the sum of |m| over the element's k edges), the bound of two f32 sums of
+# the same terms in other orders (the plain version sums with atomics).
+# tests/test_torch_port_cuda.py builds a scatter that accumulates in bf16,
+# which fails it.
+SCATTER_BF16_FLOOR = 2.0 ** -10
 
 
 def card_line() -> str:
@@ -496,23 +536,26 @@ def plain_probs(scorer, path):
         return torch.sigmoid(out.logits.reshape(-1)).double().cpu()
 
 
-def reset_counts():
+def _counted():
+    """The six launch wrappers, in read_counts' order."""
     from immunostruct_tpu_torch.ops.edge import edge_program, edge_program_bwd
     from immunostruct_tpu_torch.ops.mega import edge_mega, tail_bwd
+    from immunostruct_tpu_torch.ops.segment import (
+        segment_gather, segment_scatter,
+    )
 
-    edge_mega.launches = 0
-    tail_bwd.launches = 0
-    edge_program.launches = 0
-    edge_program_bwd.launches = 0
+    return (edge_mega, tail_bwd, edge_program, edge_program_bwd,
+            segment_scatter, segment_gather)
+
+
+def reset_counts():
+    for fn in _counted():
+        fn.launches = 0
 
 
 def read_counts() -> tuple:
-    """(B1, B2, B3 forward, B3 backward) launches."""
-    from immunostruct_tpu_torch.ops.edge import edge_program, edge_program_bwd
-    from immunostruct_tpu_torch.ops.mega import edge_mega, tail_bwd
-
-    return (edge_mega.launches, tail_bwd.launches, edge_program.launches,
-            edge_program_bwd.launches)
+    """(B1, B2, B3 forward, B3 backward, B8 scatter, B8 gather) launches."""
+    return tuple(fn.launches for fn in _counted())
 
 
 def check_serving(scorer, requests) -> tuple:
@@ -538,7 +581,7 @@ def check_serving(scorer, requests) -> tuple:
             status, reply = post(base + "/score", body)
             launches = tuple(a - z for a, z in zip(read_counts(), before))
             assert status == 200, reply
-            assert launches == (layers, 0, 0, 0), (label, launches)
+            assert launches == (layers, 0, 0, 0, 0, 0), (label, launches)
             probs = torch.tensor(reply["probs"], dtype=torch.float64)
             assert probs.shape == (b,), probs.shape
             assert torch.isfinite(probs).all()
@@ -703,12 +746,12 @@ def twin_first_step_mega_vs_scatter(batch) -> dict:
 
 
 def check_training() -> tuple:
-    """Phase 10: the train step ('mega')."""
+    """Phase 12: the train step ('mega')."""
     from immunostruct_tpu_torch.data.synthetic import random_sample_batch
 
     layers = 6
     rows = []
-    main_counts = (0, 0, 0, 0)
+    main_counts = (0,) * 6
     for e in EDGE_COUNTS:
         batch = random_sample_batch(B, N, e, L, seed=0, device="cuda")
         first = first_step_vs_scatter(batch, "mega")
@@ -718,7 +761,7 @@ def check_training() -> tuple:
         losses, ms = timed_steps(trainer, state, batch, TRAIN_STEPS)
         counts = read_counts()          # read just after the 'mega' steps
         assert counts == (layers * TRAIN_STEPS, layers * TRAIN_STEPS, 0,
-                          0), counts
+                          0, 0, 0), counts
         main_counts = tuple(a + c for a, c in zip(main_counts, counts))
         assert all(map(lambda v: v == v and abs(v) < float("inf"), losses))
         assert losses[-1] < losses[0], losses
@@ -745,7 +788,7 @@ def check_training() -> tuple:
 
 
 def check_comparative() -> tuple:
-    """Phase 11: the comparative twin step with the contrastive term."""
+    """Phase 13: the comparative twin step with the contrastive term."""
     from immunostruct_tpu_torch.data.synthetic import random_comparative_batch
 
     batch = random_comparative_batch(B, N, EDGE_COUNTS[0], L, seed=0,
@@ -759,7 +802,7 @@ def check_comparative() -> tuple:
     losses, ms = timed_steps(trainer, state, batch, COMPARATIVE_STEPS)
     counts = read_counts()              # read just after them
     assert counts == (12 * COMPARATIVE_STEPS, 12 * COMPARATIVE_STEPS, 0,
-                      0), counts
+                      0, 0, 0), counts
     assert all(map(lambda v: v == v and abs(v) < float("inf"), losses))
     row = dict(E=EDGE_COUNTS[0], steps=COMPARATIVE_STEPS,
                launches_per_step=[c // COMPARATIVE_STEPS for c in counts],
@@ -974,7 +1017,8 @@ def check_fused_layer_grads() -> list:
                  + (x2 * cot_x).float().sum()).backward()
             torch.cuda.synchronize()
             launched = tuple(a - z for a, z in zip(read_counts(), before))
-            assert launched == ((0, 0, 1, 1) if kernels else (0,) * 4), \
+            assert launched == ((0, 0, 1, 1, 0, 0) if kernels
+                                else (0,) * 6), \
                 launched
             return [h2.detach(), x2.detach(), hin.grad, xin.grad] + [
                 p.grad.clone() for p in layer.parameters()]
@@ -1017,7 +1061,7 @@ def check_fused_training(mega_rows) -> tuple:
         losses, ms = timed_steps(trainer, state, batch, TRAIN_STEPS)
         counts = read_counts()          # read just after them
         n = layers * TRAIN_STEPS
-        assert counts == (0, 0, n, n), counts
+        assert counts == (0, 0, n, n, 0, 0), counts
         assert all(map(lambda v: v == v and abs(v) < float("inf"), losses))
         assert losses[-1] < losses[0], losses
         del trainer, state
@@ -1109,12 +1153,12 @@ def check_entry_point(tmp: str) -> tuple:
         assert len(h["train_loss"]) == CLI_EPOCHS, h
         assert all(v == v and abs(v) < float("inf")
                    for v in h["train_loss"] + h["val_loss"]), h
-        _, b3f, b3b = s["launches"][1:]
+        b3f, b3b = s["launches"][2:4]
         assert s["launches"][:2] == [0, 0] and b3f > 0 and b3b > 0, s
+        assert s["launches"][4:] == [0, 0], s
     assert len(inferences) == 2, inferences
     for launched in inferences:
-        assert launched[0] == launched[1] == launched[3] == 0, launched
-        assert launched[2] > 0, launched
+        assert launched[2] > 0 and launched.count(0) == 5, launched
     for stats in (train_stats, test_stats):
         assert len(stats) == METRIC_KEYS, sorted(stats)
     assert test_stats["optimal_threshold"] == \
@@ -1151,6 +1195,429 @@ def check_entry_point(tmp: str) -> tuple:
                test_roc_auc=test_stats["roc_auc"],
                threshold=train_stats["optimal_threshold"])
     print("entry point:", json.dumps(row), flush=True)
+    return row, operands
+
+
+# --------------------------------------------------------------------------
+# B8: segment scatter and gather ('pallas')
+# --------------------------------------------------------------------------
+
+def alternate3_ms(plain, kernel, library) -> tuple:
+    """(kernel ms, plain ms, library ms), timed plain, library, kernel,
+    kernel, library, plain."""
+    plain_ms, library_ms = cuda_ms(plain), cuda_ms(library)
+    ms = (cuda_ms(kernel) + cuda_ms(kernel)) / 2
+    library_ms = (library_ms + cuda_ms(library)) / 2
+    return ms, (plain_ms + cuda_ms(plain)) / 2, library_ms
+
+
+def segment_inputs(e: int, dtype, seed: int):
+    """B8's operands at the main path's shapes: idx/mask [B, E] (10% of the
+    edges masked, indices at -1 and N on masked and unmasked edges, some
+    nodes repeated), m [B, E, H+3] and h [B, N, H+3]."""
+    gen = torch.Generator().manual_seed(seed)
+    idx = torch.randint(0, N, (B, e), generator=gen, dtype=torch.int32)
+    mask = torch.rand(B, e, generator=gen) >= 0.1
+    idx[:, 0:4], idx[:, 4:8] = -1, N
+    mask[:, 0:8:2] = False
+    idx[:, 8:16] = idx[:, 16:24]
+    m = torch.randn(B, e, H + 3, generator=gen)
+    h = torch.randn(B, N, H + 3, generator=gen)
+    return (idx.cuda(), mask.cuda(), m.to("cuda", dtype),
+            h.to("cuda", dtype))
+
+
+def _valid_rows(idx, mask, n):
+    """The valid edges [B, E] and every edge's row of a [B*N, C] view
+    (row 0 of its graph where not valid)."""
+    valid = mask & (idx >= 0) & (idx < n)
+    offs = torch.arange(idx.shape[0], device=idx.device)[:, None] * n
+    return valid, (torch.where(valid, idx, 0).long() + offs).reshape(-1)
+
+
+def scatter_errors(out, ref, idx, mask, m) -> dict:
+    """B8's scatter against its plain version; asserts SCATTER_* bounds.
+    Returns the max |diff| and the worst |diff| / allowed."""
+    from immunostruct_tpu_torch.ops.segment import segment_scatter_reference
+
+    n = out.shape[1]
+    assert out.shape == ref.shape and out.dtype == ref.dtype == m.dtype
+    assert torch.isfinite(out).all()
+    got, want = out.float(), ref.float()
+    diff = (got - want).abs()
+    if m.dtype == torch.float32:
+        abs_sum = segment_scatter_reference(idx, mask, m.abs(), n)
+        count = segment_scatter_reference(
+            idx, mask, torch.ones_like(m[..., :1]), n)
+        allowed = 2 * count * 2.0 ** -24 * abs_sum
+    else:
+        mag = torch.maximum(torch.maximum(got.abs(), want.abs()),
+                            torch.tensor(SCATTER_BF16_FLOOR,
+                                         device=got.device))
+        allowed = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    assert (diff <= allowed).all(), diff.max().item()
+    worst = torch.where(diff > 0, diff / allowed, 0.0).max().item()
+    return dict(max_abs_err=diff.max().item(), worst_in_tol=worst)
+
+
+def check_scatter_case(idx, mask, m, n: int, where: str) -> dict:
+    """B8's scatter on one set of operands against its plain version, the
+    same bits twice, and timed beside the plain version and the nearest
+    library call (index_add_ of the masked messages in f32 into [B*N, C],
+    then one cast; the messages and rows are made before the timing)."""
+    from immunostruct_tpu_torch.ops.segment import (
+        segment_scatter, segment_scatter_reference,
+    )
+
+    b, e, c = m.shape
+    dtype = m.dtype
+    out = segment_scatter(idx, mask, m, n)
+    torch.cuda.synchronize()
+    ref = segment_scatter_reference(idx, mask, m, n)
+    stats = scatter_errors(out, ref, idx, mask, m)
+    assert torch.equal(out, segment_scatter(idx, mask, m, n)), \
+        "B8 scatter changed from one run to the next"
+    valid, rows = _valid_rows(idx, mask, n)
+    msgs = torch.where(valid[..., None], m.float(), 0.0).reshape(b * e, c)
+
+    def library():
+        return torch.zeros(b * n, c, device=m.device).index_add_(
+            0, rows, msgs).to(dtype)
+
+    scatter_errors(library().view(b, n, c), ref, idx, mask, m)
+    ms, plain_ms, library_ms = alternate3_ms(
+        lambda: segment_scatter_reference(idx, mask, m, n),
+        lambda: segment_scatter(idx, mask, m, n), library)
+    # this run's data: idx and mask, the valid edges' messages, the output;
+    # one f32 add per valid message element
+    n_valid = int(valid.sum().item())
+    work = bound(tensor_bytes(idx, mask, out) + n_valid * c * m.element_size(),
+                 n_valid * c, torch.float32)
+    row = dict(kernel="scatter", shapes=where, B=b, E=e, N=n, C=c,
+               dtype=str(dtype).split(".")[1], valid_edges=n_valid, **stats,
+               ms=ms, plain_ms=plain_ms, library_ms=library_ms, **work)
+    print("kernel B8 scatter:", json.dumps(row), flush=True)
+    return row
+
+
+def check_gather_case(idx, mask, h, where: str) -> dict:
+    """B8's gather on one set of operands: bit for bit against its plain
+    version, and timed beside it and the nearest library call
+    (index_select, then the mask)."""
+    from immunostruct_tpu_torch.ops.segment import (
+        segment_gather, segment_gather_reference,
+    )
+
+    b, n, c = h.shape
+    e = idx.shape[1]
+    out = segment_gather(idx, mask, h)
+    torch.cuda.synchronize()
+    ref = segment_gather_reference(idx, mask, h)
+    assert out.dtype == h.dtype and torch.equal(out, ref), "B8 gather"
+    valid, rows = _valid_rows(idx, mask, n)
+    hf, keep = h.reshape(b * n, c), valid[..., None]
+    zero = torch.zeros((), dtype=h.dtype, device=h.device)
+
+    def library():
+        return torch.where(keep, hf.index_select(0, rows).view(b, e, c),
+                           zero)
+
+    assert torch.equal(library(), ref)
+    ms, plain_ms, library_ms = alternate3_ms(
+        lambda: segment_gather_reference(idx, mask, h),
+        lambda: segment_gather(idx, mask, h), library)
+    # this run's data: idx and mask, the node rows the valid edges read
+    # (each once), the output
+    used = torch.unique(rows[valid.reshape(-1)]).numel()
+    work = bound(tensor_bytes(idx, mask, out) + used * c * h.element_size(),
+                 0, torch.float32)
+    row = dict(kernel="gather", shapes=where, B=b, E=e, N=n, C=c,
+               dtype=str(h.dtype).split(".")[1], rows_read=used,
+               max_abs_err=(out.float() - ref.float()).abs().max().item(),
+               ms=ms, plain_ms=plain_ms, library_ms=library_ms, **work)
+    print("kernel B8 gather:", json.dumps(row), flush=True)
+    return row
+
+
+def check_segment_kernels() -> list:
+    """B8 against its plain versions at the main path's shapes, f32 (TF32
+    off) and bf16, timed."""
+    rows = []
+    for e in EDGE_COUNTS:
+        for dtype in (torch.float32, torch.bfloat16):
+            idx, mask, m, h = segment_inputs(e, dtype, seed=e + 3)
+            rows.append(check_scatter_case(idx, mask, m, N, "bench"))
+            rows.append(check_gather_case(idx, mask, h, "bench"))
+            del idx, mask, m, h
+    return rows
+
+
+def check_entry_segment_kernels(operands: dict) -> list:
+    """B8 against its plain versions on the operands the entry point gave
+    it, the first call of each (kernel, shape, dtype)."""
+    rows = []
+    for key in sorted(operands, key=str):
+        kind, args = key[0], operands[key]
+        if kind == "scatter":
+            rows.append(check_scatter_case(*args, "entry point"))
+        else:
+            rows.append(check_gather_case(*args, "entry point"))
+    return rows
+
+
+@contextlib.contextmanager
+def plain_b8():
+    """Within the block, SegmentScatter and SegmentGather run B8's plain
+    versions on CUDA tensors, forward and backward."""
+    from immunostruct_tpu_torch.ops import segment
+
+    saved = segment.segment_scatter, segment.segment_gather
+    segment.segment_scatter = segment.segment_scatter_reference
+    segment.segment_gather = segment.segment_gather_reference
+    try:
+        yield
+    finally:
+        segment.segment_scatter, segment.segment_gather = saved
+
+
+def check_pallas_layer_grads() -> list:
+    """One EGNN layer under 'pallas' (B8's scatter, its gather in the
+    backward) against the same layer on B8's plain versions, at B=128,
+    E=2560, F=64: outputs and gradients. f32 as the 'fused' layer; bf16 per
+    tensor mean|diff| <= 2 * (the plain layer's own run-to-run mean|diff|)
+    + GRAD_BF16_MEAN * mean|plain|: the backward of the layer's index_select
+    gathers adds in bf16 with atomics, so h's and the edge MLP's gradients
+    move from run to run."""
+    from immunostruct_tpu_torch.ops.egnn import EGNNLayer, egnn_apply
+
+    rows = []
+    for name, dtype in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        gen = torch.Generator().manual_seed(13)
+        layer = EGNNLayer(64, H, H, generator=gen, device="cuda")
+        src, dst, mask, ef, h, x = kernel_inputs(B, 2560, 64, torch.float32,
+                                                 seed=13)[:6]
+        cot_h = torch.randn(B, N, H, generator=gen).to("cuda", dtype)
+        cot_x = torch.randn(B, N, 3, generator=gen).to("cuda", dtype)
+
+        def run(kernels):
+            layer.zero_grad()
+            hin = h.to(dtype).requires_grad_(True)
+            xin = x.to(dtype).requires_grad_(True)
+            before = read_counts()
+            with contextlib.nullcontext() if kernels else plain_b8():
+                h2, x2 = egnn_apply(layer, hin, xin, src, dst, ef, mask,
+                                    "pallas")
+                ((h2 * cot_h).float().sum()
+                 + (x2 * cot_x).float().sum()).backward()
+            torch.cuda.synchronize()
+            launched = tuple(a - z for a, z in zip(read_counts(), before))
+            assert launched == ((0, 0, 0, 0, 1, 1) if kernels
+                                else (0,) * 6), launched
+            return [h2.detach(), x2.detach(), hin.grad, xin.grad] + [
+                p.grad.clone() for p in layer.parameters()]
+
+        worst, noise_worst = 0.0, 0.0
+        for g, w, w2 in zip(run(True), run(False), run(False)):
+            assert torch.isfinite(g).all()
+            g, w, w2 = g.float(), w.float(), w2.float()
+            if dtype == torch.float32:
+                allowed = 1e-4 * w.abs().max() + 1e-3 * w.abs()
+                worst = max(worst, ((g - w).abs() / allowed).max().item())
+            else:
+                noise = (w2 - w).abs().mean()
+                allowed = 2 * noise + GRAD_BF16_MEAN * w.abs().mean() + 1e-12
+                worst = max(worst, ((g - w).abs().mean() / allowed).item())
+                noise_worst = max(noise_worst,
+                                  (noise / w.abs().mean()).item())
+        assert worst <= 1.0, (name, worst)
+        row = dict(dtype=name, worst_in_tol=worst,
+                   plain_run_to_run_mean_rel=noise_worst,
+                   measure=("max |diff|/allowed" if dtype == torch.float32
+                            else "max over outputs and gradients of "
+                                 "mean|diff| / (2 * plain noise + 1e-4 * "
+                                 "mean|plain|)"))
+        print("SegmentScatter gradients ('pallas' layer):", json.dumps(row),
+              flush=True)
+        rows.append(row)
+    return rows
+
+
+def check_pallas_training(mega_rows) -> tuple:
+    """The 'pallas' train step: its first step against 'scatter', then
+    TRAIN_STEPS steps with 6 B8 scatter + 6 B8 gather launches each, beside
+    phase 12's 'mega' and 'scatter' steps."""
+    from immunostruct_tpu_torch.data.synthetic import random_sample_batch
+
+    layers = 6
+    rows = []
+    for e, mega in zip(EDGE_COUNTS, mega_rows):
+        batch = random_sample_batch(B, N, e, L, seed=0, device="cuda")
+        first = first_step_vs_scatter(batch, "pallas")
+        print(f"pallas first step E={e}:", json.dumps(first), flush=True)
+        trainer, state = make_trainer("HybridModelv2", "pallas")
+        reset_counts()                  # every count to 0: 'pallas' steps
+        losses, ms = timed_steps(trainer, state, batch, TRAIN_STEPS)
+        counts = read_counts()          # read just after them
+        n = layers * TRAIN_STEPS
+        assert counts == (0, 0, 0, 0, n, n), counts
+        assert all(map(lambda v: v == v and abs(v) < float("inf"), losses))
+        assert losses[-1] < losses[0], losses
+        del trainer, state
+        pallas_ms = statistics.median(ms[3:])
+        row = dict(E=e, steps=TRAIN_STEPS,
+                   launches_per_step=[c // TRAIN_STEPS for c in counts],
+                   loss_first=losses[0], loss_last=losses[-1],
+                   median_step_ms_pallas=pallas_ms,
+                   pmhc_per_s_pallas=B / (pallas_ms / 1e3),
+                   median_step_ms_mega=mega["median_step_ms_mega"],
+                   median_step_ms_scatter=mega["median_step_ms_scatter"],
+                   **first)
+        print("train pallas:", json.dumps(row), flush=True)
+        rows.append(row)
+    return rows, counts
+
+
+def check_cancer_entry_point(tmp: str) -> tuple:
+    """This slice's main path: the train_Cancer_wFT entry point at full
+    width under --aggregation pallas --skip-clinical, on a synthetic IEDB
+    corpus and cancer/WT pairs sharing its HLA table. Returns its row and
+    B8's operands, the first call of each (kernel, shape, dtype)."""
+    from immunostruct_tpu_torch.cli import train_Cancer_wFT as cli
+    from immunostruct_tpu_torch.data.synthetic import (
+        synthetic_comparative_corpus, synthetic_corpus,
+    )
+    from immunostruct_tpu_torch.models import build_model
+    from immunostruct_tpu_torch.ops import segment
+    from immunostruct_tpu_torch.utils.checkpoint import load_checkpoint
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "cancer_corpus")
+    graph_iedb, props_iedb, hla = synthetic_corpus(
+        root, num_samples=CLI_SAMPLES, hla_len=275, seed=3)
+    dir_c, dir_w, props_c, props_w, _ = synthetic_comparative_corpus(
+        root, num_samples=CANCER_PAIRS, hla_len=275, seed=4,
+        shared_hla_path=hla)
+    corpus_s = time.perf_counter() - t0
+    save_dir = os.path.join(tmp, "cancer_ckpt")
+    stages, inferences = [], []
+    real_train, real_infer = cli.train_model, cli.inference
+
+    def train_model(config, model, train_pipe, *args, **kw):
+        before = read_counts()
+        model, history = real_train(config, model, train_pipe, *args, **kw)
+        graphs = train_pipe.ds.graphs
+        stages.append(dict(stage=kw["stage"], resume_tag=kw.get("resume_tag"),
+                           comparative=hasattr(train_pipe, "wt"),
+                           steps_per_epoch=len(train_pipe), history=history,
+                           launches=[a - z for a, z in zip(read_counts(),
+                                                           before)],
+                           N=graphs.max_nodes, E=graphs.max_edges))
+        return model, history
+
+    def inference(*args, **kw):
+        before = read_counts()
+        stats = real_infer(*args, **kw)
+        inferences.append([a - z for a, z in zip(read_counts(), before)])
+        return stats
+
+    # B8's launch helpers keep copies of their first operands of each
+    # shape; the wrappers that call them count the launches as before
+    operands = {}
+    real_scatter, real_gather = segment._scatter_launch, segment._gather_launch
+
+    def keep(kind, args):
+        key = (kind, *args[2].shape, args[2].dtype)
+        if key not in operands:
+            with torch.inference_mode(False):
+                operands[key] = tuple(
+                    t.detach().clone() if torch.is_tensor(t) else t
+                    for t in args)
+
+    def scatter(*args):
+        keep("scatter", args)
+        return real_scatter(*args)
+
+    def gather(*args):
+        keep("gather", args)
+        return real_gather(*args)
+
+    cli.train_model, cli.inference = train_model, inference
+    segment._scatter_launch, segment._gather_launch = scatter, gather
+    try:
+        reset_counts()                  # every count to 0: the entry point
+        t0 = time.perf_counter()
+        train_stats, test_stats = cli.main([
+            "--model", "HybridModelv2_Comparative", "--full-sequence",
+            "--sequence-loss", "--aggregation", "pallas",
+            "--compute-dtype", "bfloat16", "--batch-size", str(B),
+            "--num-epochs", str(CLI_EPOCHS), "--coeff-contrastive", "0.1",
+            "--skip-clinical", "--device", "cuda", "--seed", "1",
+            "--model-save-dir", save_dir,
+            "--graph-dir-IEDB", graph_iedb, "--property-path-IEDB",
+            props_iedb, "--hla-path", hla, "--graph-dir-cancer", dir_c,
+            "--graph-dir-wildtype", dir_w, "--property-path-cancer", props_c,
+            "--property-path-wildtype", props_w])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = read_counts()          # read just after the entry point
+    finally:
+        cli.train_model, cli.inference = real_train, real_infer
+        segment._scatter_launch, segment._gather_launch = (real_scatter,
+                                                           real_gather)
+
+    assert [(s["stage"], s["comparative"], s["resume_tag"]) for s in stages] \
+        == [("pretrain", False, "stage1"), ("pretrain", True, "stage2"),
+            ("finetune", True, None)], stages
+    assert stages[2]["steps_per_epoch"] == MIN_FINETUNING_BATCHES, stages[2]
+    for s in stages:
+        h = s["history"]
+        assert len(h["train_loss"]) == CLI_EPOCHS, h
+        assert all(v == v and abs(v) < float("inf")
+                   for v in h["train_loss"] + h["val_loss"]), h
+        assert s["launches"][:4] == [0, 0, 0, 0], s
+        assert s["launches"][4] > 0 and s["launches"][5] > 0, s
+    assert len(inferences) == 2, inferences
+    for launched in inferences:
+        assert launched[4] > 0 and launched.count(0) == 5, launched
+    assert counts[:4] == (0, 0, 0, 0), counts
+    for stats in (train_stats, test_stats):
+        assert len(stats) == METRIC_KEYS, sorted(stats)
+    assert test_stats["optimal_threshold"] == \
+        train_stats["optimal_threshold"]
+    ckpts = sorted(f for f in os.listdir(save_dir) if f.endswith(".ckpt"))
+    assert [c.rsplit("_", 1)[1] for c in ckpts] == ["finetune.ckpt",
+                                                     "pretrain.ckpt"], ckpts
+    for c in ckpts:
+        path = os.path.join(save_dir, c)
+        with np.load(path) as z:        # the VAE's width: the corpus's L*21
+            vae_dim = z["['vae']['fc1']['w']"].shape[0]
+        _, fresh = build_model("HybridModelv2_Comparative", vae_dim,
+                               torch.Generator().manual_seed(0),
+                               use_wt_for_downstream=False, device="cuda")
+        load_checkpoint(path, fresh, verbose=False)
+    epochs = []
+    for s, label in zip(stages, ("stage 1", "stage 2", "stage 3")):
+        h = s["history"]
+        per = 2 if s["comparative"] else 1      # pMHCs per sample (twins)
+        for i, (dt, n) in enumerate(zip(h["epoch_time"],
+                                        h["train_samples"])):
+            epochs.append(dict(stage=label, epoch=i + 1, epoch_s=dt,
+                               steps=s["steps_per_epoch"], train_samples=n,
+                               samples_per_s=n / dt, pmhc_per_s=per * n / dt,
+                               train_loss=h["train_loss"][i],
+                               val_loss=h["val_loss"][i]))
+    assert stages[1]["N"] == N and stages[1]["E"] % 128 == 0, stages[1]
+    row = dict(iedb_samples=CLI_SAMPLES, pairs=CANCER_PAIRS,
+               N=stages[1]["N"], E_iedb=stages[0]["E"], E_cancer=stages[1]["E"],
+               corpus_s=corpus_s, wall_s=wall_s, launches=counts,
+               launches_by_stage=[s["launches"] for s in stages],
+               launches_inference=inferences,
+               b8_shapes=sorted([k[0], *k[1:4]] for k in operands),
+               epochs=epochs, train_roc_auc=train_stats["roc_auc"],
+               test_roc_auc=test_stats["roc_auc"],
+               threshold=train_stats["optimal_threshold"])
+    print("entry point (Cancer):", json.dumps(row), flush=True)
     return row, operands
 
 
@@ -1195,6 +1662,8 @@ def profile_row(label, agg, per_name, traced, wall) -> dict:
         b2_ms=kernel_ms("egnn_tail_bwd"),
         b3_fwd_ms=kernel_ms("egnn_edge_fwd"),
         b3_bwd_ms=kernel_ms("egnn_edge_bwd"),
+        b8_scatter_ms=kernel_ms("segment_scatter_kernel"),
+        b8_gather_ms=kernel_ms("segment_gather_kernel"),
         top=[[name[:90], t / 1e3 / traced, c // traced]
              for name, (t, c) in top])
     print("profile:", json.dumps(row), flush=True)
@@ -1226,15 +1695,15 @@ def profile_forwards(scorer, requests, traced: int = 3) -> list:
 
 
 def profile_training(traced: int = 3) -> list:
-    """Train steps at B=128, E=2560 under 'mega', 'scatter' and 'fused':
-    median wall of 8 untraced steps (after 3), then ``traced`` steps
-    traced."""
+    """Train steps at B=128, E=2560 under 'mega', 'scatter', 'fused' and
+    'pallas': median wall of 8 untraced steps (after 3), then ``traced``
+    steps traced."""
     from immunostruct_tpu_torch.data.synthetic import random_sample_batch
 
     batch = random_sample_batch(B, N, EDGE_COUNTS[0], L, seed=0,
                                 device="cuda")
     rows = []
-    for agg in ("mega", "scatter", "fused"):
+    for agg in ("mega", "scatter", "fused", "pallas"):
         trainer, state = make_trainer("HybridModelv2", agg)
         _, ms = timed_steps(trainer, state, batch, 11)
 
@@ -1253,7 +1722,7 @@ def main() -> int:
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from immunostruct_tpu_torch.ops import _build, edge, mega
+    from immunostruct_tpu_torch.ops import _build, edge, mega, segment
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1266,14 +1735,18 @@ def main() -> int:
     _build.build()                      # one nvcc per source, in parallel
     mega._kernel_libs()
     edge._kernel_libs()
+    segment._lib()
     build_s = time.perf_counter() - t0
-    print(f"kernel build + load (all four): {build_s:.1f} s", flush=True)
+    print(f"kernel build + load (all five sources): {build_s:.1f} s",
+          flush=True)
 
     fwd_rows = check_fwd_kernel()
     tail_rows = check_tail_kernel()
     check_edge_mega_grads()
     edge_rows = check_edge_kernels()
     check_fused_layer_grads()
+    segment_rows = check_segment_kernels()
+    check_pallas_layer_grads()
     scorer = full_width_scorer()
     with tempfile.TemporaryDirectory() as tmp:
         requests = write_requests(tmp)
@@ -1283,6 +1756,9 @@ def main() -> int:
         fused_rows, fused_counts = check_fused_training(train_rows)
         entry, entry_operands = check_entry_point(tmp)
         edge_rows += check_entry_edge_kernels(entry_operands)
+        pallas_rows, pallas_counts = check_pallas_training(train_rows)
+        cancer, cancer_operands = check_cancer_entry_point(tmp)
+        segment_rows += check_entry_segment_kernels(cancer_operands)
         profile_forwards(scorer, requests)
         profile_training()
 
@@ -1307,11 +1783,26 @@ def main() -> int:
               f"({r['pmhc_per_s_fused']:.0f} pMHC/s)")
     print(f"twins   [{card}]: B=128 E=2560 bf16: median step "
           f"{comp_row['median_step_ms']:.3f} ms")
+    for r in pallas_rows:
+        print(f"train   [{card}]: B=128 E={r['E']} bf16: median step "
+              f"{r['median_step_ms_pallas']:.3f} ms 'pallas' "
+              f"({r['pmhc_per_s_pallas']:.0f} pMHC/s)")
     for ep in entry["epochs"]:
         print(f"entry   [{card}]: train_IEDB_wFT --aggregation fused, "
               f"N={entry['N']} E={entry['E']}, {ep['stage']} epoch "
               f"{ep['epoch']}: {ep['epoch_s']:.3f} s, "
               f"{ep['pmhc_per_s']:.0f} pMHC/s")
+    for ep in cancer["epochs"]:
+        print(f"entry   [{card}]: train_Cancer_wFT --aggregation pallas, "
+              f"N={cancer['N']}, {ep['stage']} epoch {ep['epoch']} "
+              f"({ep['steps']} steps): {ep['epoch_s']:.3f} s, "
+              f"{ep['pmhc_per_s']:.0f} pMHC/s")
+    for r in segment_rows:
+        print(f"kernel  [{card}]: B8 {r['kernel']} ({r['shapes']}) B={r['B']} "
+              f"E={r['E']} N={r['N']} C={r['C']} {r['dtype']}: kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
     for kind, rows in (("B1", fwd_rows), ("B2", tail_rows),
                        ("B3", edge_rows)):
         for r in rows:
@@ -1327,9 +1818,14 @@ def main() -> int:
 
     launches = dict(serving=serving_counts, train=train_counts,
                     comparative=comp_counts, train_fused=fused_counts,
-                    entry_point=entry["launches"])
+                    entry_point=entry["launches"], train_pallas=pallas_counts,
+                    entry_point_cancer=cancer["launches"])
     b1, b2 = pick(fwd_rows), pick(tail_rows)
     b3f, b3b = pick(edge_rows, kernel="fwd"), pick(edge_rows, kernel="bwd")
+    b8s, b8g = (next(r for r in segment_rows if r["kernel"] == kind
+                     and r["shapes"] == "bench" and r["E"] == 2560
+                     and r["dtype"] == "bfloat16")
+                for kind in ("scatter", "gather"))
 
     def kernel_record(name, source, replaces, index, main_count, row, rows,
                       ms_key="ms"):
@@ -1341,11 +1837,11 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": row[ms_key], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": None,
+            "library_ms": row.get("library_ms"),
         }
 
-    # no single PyTorch call computes any of these functions: library_ms
-    # is null for each
+    # no single PyTorch call computes B1-B3: their library_ms is null; B8's
+    # is index_add_ (scatter) and index_select (gather)
     record = {"kernels": [
         kernel_record("egnn_mega_fwd", "egnn_mega_fwd.cu",
                       "immunostruct_tpu/ops/pallas_mega.py:226", 0,
@@ -1362,6 +1858,14 @@ def main() -> int:
                       "immunostruct_tpu/ops/pallas_edge.py:168", 3,
                       entry["launches"][3], b3b,
                       [r for r in edge_rows if r["kernel"] == "bwd"]),
+        kernel_record("segment_scatter", "segment.cu",
+                      "immunostruct_tpu/ops/experimental/pallas_segment.py:60",
+                      4, cancer["launches"][4], b8s,
+                      [r for r in segment_rows if r["kernel"] == "scatter"]),
+        kernel_record("segment_gather", "segment.cu",
+                      "immunostruct_tpu/ops/experimental/pallas_segment.py:79",
+                      5, cancer["launches"][5], b8g,
+                      [r for r in segment_rows if r["kernel"] == "gather"]),
     ]}
     print(json.dumps(record))
     print(card)

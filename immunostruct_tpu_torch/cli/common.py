@@ -5,14 +5,15 @@ accelerator flags, plus ``--device``.
 
 What the port does with the JAX package's accelerator flags:
 
-- ``--aggregation``: 'auto', 'mega', 'fused' and 'scatter' run; the other
-  names are not ported and fail here, before any data is read;
+- ``--aggregation``: 'auto', 'mega', 'fused', 'pallas' and 'scatter' run;
+  'onehot' and 'onehot_remat' are not ported and fail here, before any data
+  is read;
 - ``--device-data`` (the HBM-resident corpus): not ported, so only the host
   pipeline runs and ``--device-data`` fails;
 - ``--data-parallel``: not ported, fails when a stage starts;
 - ``--scan-layers``: a compile-time device of XLA; accepted, no effect;
-- ``--stack-twins``: the comparative twin forwards as one stacked pass;
-  accepted, no effect on the IEDB entry point.
+- ``--stack-twins``: the comparative twin forwards as one stacked pass
+  (``train_Cancer_wFT``); accepted, no effect on the IEDB entry point.
 """
 
 from __future__ import annotations
@@ -55,9 +56,11 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    help="EGNN message aggregation: 'mega' (the B1/B2 "
                         "kernels from raw edge indices), 'fused' (gathered "
                         "edge bundles through the B3 kernels, index_add_ "
-                        "aggregation), 'scatter' (plain PyTorch), 'auto' "
-                        "('mega' on CUDA, 'scatter' on the CPU); the other "
-                        "names are not ported yet")
+                        "aggregation), 'pallas' (the B8 segment scatter "
+                        "kernel, its gather kernel in the backward), "
+                        "'scatter' (plain PyTorch), 'auto' ('mega' on CUDA, "
+                        "'scatter' on the CPU); 'onehot' and 'onehot_remat' "
+                        "are not ported yet")
     p.add_argument("--data-parallel", action="store_true",
                    help="shard batches over all local devices (not ported)")
     p.add_argument("--resume", action="store_true",
@@ -109,7 +112,8 @@ def to_config(args: argparse.Namespace, **extra) -> Config:
     update_paths(cfg)
     if cfg.aggregation in NOT_PORTED:
         raise ValueError(f"--aggregation {cfg.aggregation} is not ported to "
-                         "PyTorch yet; use auto, mega, fused or scatter")
+                         "PyTorch yet; use auto, mega, fused, pallas or "
+                         "scatter")
     if cfg.device_data:
         raise ValueError("--device-data (the device-resident corpus) is not "
                          "ported to PyTorch yet; the host pipeline runs "
@@ -121,8 +125,15 @@ def to_config(args: argparse.Namespace, **extra) -> Config:
 def check_seq_dims(vae_dim: int, full: bool, **named_datasets) -> None:
     """Fail fast on cross-corpus sequence-padding mismatches: the VAE takes
     a fixed L*21 input, and each corpus pads to its own longest chain.
-    Pass every dataset the run will touch."""
+    Pass every dataset the run will touch; a comparative dataset is
+    checked on both twins."""
+    sides = []
     for name, ds in named_datasets.items():
+        if hasattr(ds, "cancer"):       # the twins share the VAE
+            sides += [(f"{name}.cancer", ds.cancer), (f"{name}.wt", ds.wt)]
+        else:
+            sides.append((name, ds))
+    for name, ds in sides:
         seq = ds.seq_full if full else ds.seq_pep
         dim = seq.shape[1] * 21
         if dim != vae_dim:

@@ -4,15 +4,19 @@ data/immmunopred_dataloader.py:17-100).
 
 Dense numpy arrays ready for device streaming: unique graphs are stacked
 once ([G, N, ...]) and rows carry a graph index; foreignness is min-max
-normalized to [-1, 1] (immmunopred_dataloader.py:67-70). The comparative
-and clinical datasets, and the cancer table dialect, belong to entry points
-that are not ported yet.
+normalized to [-1, 1] (immmunopred_dataloader.py:67-70). Comparative WT
+rows get label 0 and foreignness at the corpus minimum, -1.0 under the
+cancer side's normalization bounds (immmunopred_dataloader.py:182-183,
+:208-214). The clinical dataset belongs to an entry point that is not
+ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from collections import Counter
+from typing import Optional
 
 import numpy as np
 import torch
@@ -20,7 +24,7 @@ import torch
 from immunostruct_tpu_torch.data.encoding import one_hot_encode_batch
 from immunostruct_tpu_torch.data.graphs import GraphCorpus, load_graph_dir
 from immunostruct_tpu_torch.data.tables import (
-    expand_hla, parse_property_table,
+    expand_hla, parse_property_table, parse_property_tables_cancer_wt,
 )
 
 
@@ -102,20 +106,29 @@ class ImmunoDataset:
 
     @classmethod
     def load(cls, config, graph_directory: str, property_path: str,
-             hla_path: str) -> "ImmunoDataset":
+             hla_path: str, cancer: Optional[bool] = None) -> "ImmunoDataset":
+        """The table's dialect: ``cancer``, or by default the reference's
+        heuristic, the cancer dialect where the graph directory's path
+        holds 'Cancer'."""
+        if cancer is None:
+            cancer = "Cancer" in graph_directory
         f_dict, fp2_dict, imm_dict, pep_pairs = parse_property_table(
-            property_path)
+            property_path, cancer)
         name_mapper = expand_hla(pep_pairs, hla_path)
         return cls.from_joined(config, load_graph_dir(graph_directory),
                                name_mapper, f_dict, fp2_dict, imm_dict)
 
     @classmethod
     def from_joined(cls, config, corpus: GraphCorpus, name_mapper: dict,
-                    f_dict: dict, fp2_dict: dict,
-                    imm_dict: dict) -> "ImmunoDataset":
-        """Two-sided join (preprocess.py:147-173)."""
+                    f_dict: dict, fp2_dict: dict, imm_dict: dict,
+                    pairs: Optional[list] = None) -> "ImmunoDataset":
+        """Two-sided join (preprocess.py:147-173). ``pairs``: the rows'
+        pep_pairs in order, duplicates kept (the comparative twins: two
+        cancer mutants can share one WT pep_pair, and each keeps its own
+        aligned WT row); by default each pep_pair of ``name_mapper`` once."""
         corpus_index = corpus.index()
-        items = list(name_mapper.items())
+        items = (list(name_mapper.items()) if pairs is None
+                 else [(p, name_mapper[p]) for p in pairs])
         rows = [(pair, v) for pair, v in items if v[1] in corpus_index]
         if not rows:
             raise ValueError(
@@ -156,3 +169,75 @@ class ImmunoDataset:
             raw_chain=chains,
             pep_len=np.asarray([len(p) for p in peps], np.int32),
         )
+
+
+@dataclasses.dataclass
+class ComparativeDataset:
+    """Paired cancer/WT dataset (ImmunoPredDatasetComparative parity): row i
+    of ``cancer`` and of ``wt`` are one pair. Training reads the label and
+    the foreignness from the cancer side."""
+
+    cancer: ImmunoDataset
+    wt: ImmunoDataset
+
+    def __len__(self):
+        return len(self.cancer)
+
+    @property
+    def class_weights(self) -> Counter:
+        return self.cancer.class_weights
+
+    @classmethod
+    def load(cls, config, graph_directory_cancer: str, graph_directory_wt: str,
+             property_path_cancer: str, property_path_wt: str,
+             hla_path: str) -> "ComparativeDataset":
+        corpus_c = load_graph_dir(graph_directory_cancer)
+        corpus_w = load_graph_dir(graph_directory_wt)
+        combined = parse_property_tables_cancer_wt(property_path_cancer,
+                                                   property_path_wt)
+        mapper_c = expand_hla([r["pep_pair_cancer"] for r in combined],
+                              hla_path)
+        mapper_w = expand_hla([r["pep_pair_wt"] for r in combined], hla_path)
+
+        # keep rows whose cancer AND wt graphs both exist
+        # (preprocess.py:188-266)
+        keys_c, keys_w = set(corpus_c.index()), set(corpus_w.index())
+        combined = [r for r in combined
+                    if mapper_c[r["pep_pair_cancer"]][1] in keys_c
+                    and mapper_w[r["pep_pair_wt"]][1] in keys_w]
+        if not combined:
+            raise ValueError("no cancer/WT rows survived the graph join")
+
+        pairs_c = [r["pep_pair_cancer"] for r in combined]
+        pairs_w = [r["pep_pair_wt"] for r in combined]
+        cancer_ds = ImmunoDataset.from_joined(
+            config, corpus_c, mapper_c,
+            {p: r["smoothed_foreign"] for p, r in zip(pairs_c, combined)},
+            {p: (r["Mprop1"], r["Mprop2"]) for p, r in zip(pairs_c, combined)},
+            {p: r["immunogenicity"] for p, r in zip(pairs_c, combined)},
+            pairs=pairs_c)
+
+        # WT rows: label 0, foreignness at the corpus minimum
+        # (immmunopred_dataloader.py:182-183); the row order follows the
+        # combined table, so the twins align 1:1
+        wt_min = min((r["smoothed_foreign"] for r in combined
+                      if not math.isnan(r["smoothed_foreign"])),
+                     default=math.nan)
+        wt_ds = ImmunoDataset.from_joined(
+            config, corpus_w, mapper_w, {p: wt_min for p in pairs_w},
+            {p: (r["Mprop1_wt"], r["Mprop2_wt"])
+             for p, r in zip(pairs_w, combined)},
+            {p: 0.0 for p in pairs_w}, pairs=pairs_w)
+        if len(cancer_ds) != len(wt_ds):
+            raise ValueError(f"cancer/WT row mismatch: {len(cancer_ds)} vs "
+                             f"{len(wt_ds)}")
+        # the reference normalizes with ONE (min, max), the cancer side's,
+        # class-wide (immmunopred_dataloader.py:208-214): from_joined
+        # normalized the constant WT array against itself, so redo it with
+        # the cancer bounds (WT reads -1.0)
+        lo, hi = cancer_ds.foreign_min, cancer_ds.foreign_max
+        wt_ds.foreign_min, wt_ds.foreign_max = lo, hi
+        if hi > lo:
+            norm_min = 2.0 * (wt_min - (hi + lo) / 2.0) / (hi - lo)
+            wt_ds.foreign_norm = np.full_like(wt_ds.foreign_norm, norm_min)
+        return cls(cancer=cancer_ds, wt=wt_ds)

@@ -16,23 +16,31 @@ Reference-parity notes (as in the JAX package):
   masking) reaches the model only on the SSL path, or with
   ``config.force_graph_augmentation``;
 - the train split is shuffled, the others are not; the last batch of an
-  epoch may be partial.
+  epoch may be partial;
+- ``extend_to`` (ExtendedDataset, util_dataloader.py:91-102) cycles a small
+  split's indices up to a floor length.
 
-``ComparativePipeline`` (with its ``extend_to`` floor) belongs to the
-comparative entry point and is not ported yet.
+``ComparativePipeline`` yields cancer/WT ``ComparativeBatch``es: independent
+rotations per branch, the same sequence-mask columns in both, SSL masks on
+residues of one class in both (immmunopred_dataloader.py:216-271), and the
+cancer side's target for both twins.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
 
-from immunostruct_tpu_torch.data.dataset import ImmunoDataset
-from immunostruct_tpu_torch.structs import GraphBatch, SampleBatch
+from immunostruct_tpu_torch.data.dataset import (
+    ComparativeDataset, ImmunoDataset,
+)
+from immunostruct_tpu_torch.structs import (
+    ComparativeBatch, GraphBatch, SampleBatch,
+)
 
 
 def prefetch(iterator, size: int = 2):
@@ -86,15 +94,18 @@ def _mask_positions(rng, batch: int, maskable_len: int, count: int) -> np.ndarra
 
 
 def _mask_sequence_batch(rng, seq: np.ndarray, maskable_len: int,
-                         count: int) -> np.ndarray:
+                         count: int, cols: Optional[np.ndarray] = None
+                         ) -> np.ndarray:
     """Mask ``count`` random positions per row within [0, maskable_len)
-    with the padding one-hot."""
+    with the padding one-hot; ``cols`` [B, count] masks given positions
+    (the same in both comparative twins) and draws nothing."""
     if count <= 0 or maskable_len <= 0:
         return seq
     b, _, a = seq.shape
     pad_onehot = np.zeros((a,), np.float32)
     pad_onehot[a - 1] = 1.0  # 'J' is the last alphabet channel
-    cols = _mask_positions(rng, b, maskable_len, count)
+    if cols is None:
+        cols = _mask_positions(rng, b, maskable_len, count)
     rows = np.repeat(np.arange(b), count)
     seq = seq.copy()
     seq[rows, cols.reshape(-1)] = pad_onehot
@@ -131,15 +142,40 @@ def _ssl_mask_single(rng, onehot: np.ndarray):
     return onehot, classes
 
 
+def _ssl_mask_paired(rng, onehot_c: np.ndarray, onehot_w: np.ndarray):
+    """Mask same-class residues in the cancer/WT pair; return the class."""
+    b = onehot_c.shape[0]
+    classes = np.full((b,), 0, np.int32)
+    onehot_c, onehot_w = onehot_c.copy(), onehot_w.copy()
+    for i in range(b):
+        real_c = np.nonzero(onehot_c[i].sum(-1) == 1)[0]
+        real_w_cls = onehot_w[i].argmax(-1)
+        real_w_valid = onehot_w[i].sum(-1) == 1
+        rng.shuffle(real_c)
+        for pick in real_c:
+            cls = int(np.argmax(onehot_c[i, pick]))
+            cand = np.nonzero(real_w_valid & (real_w_cls == cls))[0]
+            if len(cand):
+                pick_w = cand[rng.integers(0, len(cand))]
+                onehot_c[i, pick] = 1.0
+                onehot_w[i, pick_w] = 1.0
+                classes[i] = cls
+                break
+    return onehot_c, onehot_w, classes
+
+
 class BatchPipeline:
     """Epoch iterator over a split of an ImmunoDataset, yielding
     ``SampleBatch``es of ``config.batch_size`` on ``config.device``."""
 
     def __init__(self, dataset: ImmunoDataset, indices: np.ndarray, *,
                  split: str, binary: bool, full: bool, config,
-                 ssl: bool = False):
+                 ssl: bool = False, extend_to: int = 0):
         self.ds = dataset
         self.indices = np.asarray(indices, np.int64)
+        if extend_to and len(self.indices) < extend_to:
+            reps = int(np.ceil(extend_to / len(self.indices)))
+            self.indices = np.tile(self.indices, reps)[:extend_to]
         self.split = split
         self.binary = binary
         self.full = full
@@ -194,14 +230,17 @@ class BatchPipeline:
         return out
 
     def _assemble(self, rng, rows: np.ndarray) -> SampleBatch:
-        a = self.arrays(rng, rows)
+        return self._sample(self.arrays(rng, rows))
+
+    def _sample(self, a: dict) -> SampleBatch:
+        """``arrays``' dict as a SampleBatch on the pipeline's device."""
         dev = self.device
         graph = GraphBatch(
             node_feat=to_device(a["node_feat"], torch.float32, dev),
             coords=to_device(a["coords"], torch.float32, dev),
             edge_src=to_device(a["edge_src"], torch.int32, dev),
             edge_dst=to_device(a["edge_dst"], torch.int32, dev),
-            edge_feat=torch.ones((len(rows), a["edge_src"].shape[1], 1),
+            edge_feat=torch.ones((*a["edge_src"].shape, 1),
                                  dtype=torch.float32, device=dev),
             edge_mask=to_device(a["edge_mask"], torch.bool, dev),
             node_mask=to_device(a["node_mask"], torch.bool, dev),
@@ -225,3 +264,73 @@ class BatchPipeline:
         idx = self.indices[order]
         for start in range(0, len(idx), self.batch_size):
             yield self._assemble(rng, idx[start:start + self.batch_size])
+
+
+class ComparativePipeline(BatchPipeline):
+    """Paired cancer/WT pipeline over a ComparativeDataset, yielding
+    ``ComparativeBatch``es; the same numpy calls on the same seeds as the
+    JAX package's."""
+
+    def __init__(self, dataset: ComparativeDataset, indices: np.ndarray,
+                 **kw):
+        super().__init__(dataset.cancer, indices, **kw)
+        self.wt = dataset.wt
+
+    def arrays(self, rng, rows: np.ndarray) -> tuple:
+        """One batch as two dicts of numpy arrays (cancer, wt), keyed as
+        ``BatchPipeline.arrays``'."""
+        train = self.split == "train"
+        gc, gw = self.ds.graphs, self.wt.graphs
+        gi_c, gi_w = self.ds.graph_idx[rows], self.wt.graph_idx[rows]
+        onehot_c = gc.node_onehot[gi_c].astype(np.float32)
+        onehot_w = gw.node_onehot[gi_w].astype(np.float32)
+        coords_c, coords_w = gc.coords[gi_c], gw.coords[gi_w]
+        classes = None
+        if train and (self.ssl or self.config.force_graph_augmentation):
+            # independent rotations per branch (util_dataloader.py:38-42)
+            coords_c = np.einsum("bnc,bcd->bnd", coords_c,
+                                 _random_rotations(rng, len(rows)))
+            coords_w = np.einsum("bnc,bcd->bnd", coords_w,
+                                 _random_rotations(rng, len(rows)))
+            if self.ssl:
+                onehot_c, onehot_w, classes = _ssl_mask_paired(
+                    rng, onehot_c, onehot_w)
+            count = self.config.structure_pad_count
+            if count > 0:
+                onehot_c = _mask_structure_batch(rng, onehot_c, count)
+                onehot_w = _mask_structure_batch(rng, onehot_w, count)
+        if self.full:
+            seq_c, seq_w = self.ds.seq_full[rows], self.wt.seq_full[rows]
+            count = self.config.sequence_pad_count
+            if train and count > 0:
+                # the same mask positions in both branches
+                cols = _mask_positions(rng, len(rows), self.maskable_len,
+                                       count)
+                seq_c = _mask_sequence_batch(rng, seq_c, self.maskable_len,
+                                             count, cols)
+                seq_w = _mask_sequence_batch(rng, seq_w, self.maskable_len,
+                                             count, cols)
+        else:
+            seq_c, seq_w = self.ds.seq_pep[rows], self.wt.seq_pep[rows]
+        target = (self.ds.immuno[rows] if self.binary
+                  else self.ds.foreign_norm[rows])
+
+        def side(g, gi, onehot, coords, seq, props):
+            out = dict(node_feat=onehot, coords=coords,
+                       edge_src=g.edge_src[gi], edge_dst=g.edge_dst[gi],
+                       edge_mask=g.edge_mask[gi], node_mask=g.node_mask[gi],
+                       num_nodes=g.num_nodes[gi], seq_onehot=seq,
+                       props=props[rows], target=target)
+            if self.ssl:
+                out["aux_residue"] = (
+                    classes if classes is not None and train
+                    else np.full((len(rows),), -1, np.int32))
+            return out
+
+        return (side(gc, gi_c, onehot_c, coords_c, seq_c, self.ds.props),
+                side(gw, gi_w, onehot_w, coords_w, seq_w, self.wt.props))
+
+    def _assemble(self, rng, rows: np.ndarray) -> ComparativeBatch:
+        cancer, wt = self.arrays(rng, rows)
+        return ComparativeBatch(cancer=self._sample(cancer),
+                                wt=self._sample(wt))

@@ -1,6 +1,7 @@
 """Seeded synthetic inputs (counterpart of ``immunostruct_tpu/data/synthetic.py``
-``synthetic_corpus``/``random_sample_batch``/``random_comparative_batch``
-and ``immunostruct_tpu/serving.py`` ``write_example``).
+``synthetic_corpus``/``synthetic_comparative_corpus``/``random_sample_batch``/
+``random_comparative_batch`` and ``immunostruct_tpu/serving.py``
+``write_example``).
 
 The functions make the same ``np.random.default_rng`` calls in the same
 order as the JAX package, so one seed gives bit-identical arrays in both
@@ -20,7 +21,7 @@ import torch
 
 from immunostruct_tpu_torch.data.encoding import AMINO_ACIDS
 from immunostruct_tpu_torch.data.graphs import save_graph_npz
-from immunostruct_tpu_torch.data.tables import get_hash
+from immunostruct_tpu_torch.data.tables import get_hash, read_rows
 from immunostruct_tpu_torch.structs import ComparativeBatch, SampleBatch
 
 _HLA_NAMES = [f"HLA-A*{i:02d}:01" for i in range(1, 28)]
@@ -75,6 +76,19 @@ def _write_table(path: str, rows: list[dict], delimiter: str) -> None:
                              for v in row.values()])
 
 
+def _hla_table(root: str, rng, hla_len: int, shared_hla_path=None):
+    """Write (or, where ``shared_hla_path`` exists, read and draw nothing)
+    the HLA csv; returns (path, {allele: seq})."""
+    if shared_hla_path and os.path.exists(shared_hla_path):
+        return shared_hla_path, {r["allele"]: r["seqs"]
+                                 for r in read_rows(shared_hla_path, ",")}
+    hla_seqs = {name: _random_seq(rng, hla_len) for name in _HLA_NAMES[:4]}
+    path = shared_hla_path or os.path.join(root, "HLA_seqs.csv")
+    _write_table(path, [{"allele": a, "seqs": q}
+                        for a, q in hla_seqs.items()], ",")
+    return path, hla_seqs
+
+
 def synthetic_corpus(root: str, num_samples: int = 32, hla_len: int = 48,
                      seed: int = 0, planted_signal: bool = False,
                      geometric_signal: bool = False):
@@ -84,18 +98,14 @@ def synthetic_corpus(root: str, num_samples: int = 32, hla_len: int = 48,
     Chains are ``hla_len`` + 8-10 residues. ``planted_signal`` makes labels
     learnable from the peptide's hydrophobic fraction; ``geometric_signal``
     plants the label in the coordinates alone (the peptide tail compacted);
-    the two are exclusive. The cancer dialect and a shared HLA table belong
-    to the comparative corpora, not ported yet."""
+    the two are exclusive."""
     if planted_signal and geometric_signal:
         raise ValueError("planted_signal and geometric_signal are exclusive")
     rng = np.random.default_rng(seed)
     graph_dir = os.path.join(root, "graph_pyg_IEDB")
     os.makedirs(graph_dir, exist_ok=True)
 
-    hla_seqs = {name: _random_seq(rng, hla_len) for name in _HLA_NAMES[:4]}
-    hla_path = os.path.join(root, "HLA_seqs.csv")
-    _write_table(hla_path, [{"allele": a, "seqs": s}
-                            for a, s in hla_seqs.items()], ",")
+    hla_path, hla_seqs = _hla_table(root, rng, hla_len)
 
     rows = []
     for i in range(num_samples):
@@ -134,6 +144,57 @@ def synthetic_corpus(root: str, num_samples: int = 32, hla_len: int = 48,
     property_path = os.path.join(root, "props_IEDB.tsv")
     _write_table(property_path, rows, "\t")
     return graph_dir, property_path, hla_path
+
+
+def synthetic_comparative_corpus(root: str, num_samples: int = 24,
+                                 hla_len: int = 48, seed: int = 0,
+                                 shared_hla_path=None):
+    """Write a paired cancer/WT corpus: both branches' graph dirs and the
+    two cancer-dialect tables. WT peptides are single-point mutations of
+    the cancer peptides. ``shared_hla_path`` reuses one HLA table across
+    corpora (where the file exists; the Cancer curriculum needs it).
+    Returns (graph_dir_cancer, graph_dir_wt, props_cancer, props_wt,
+    hla_path)."""
+    rng = np.random.default_rng(seed)
+    dir_c = os.path.join(root, "graph_pyg_Cancer")
+    dir_w = os.path.join(root, "graph_pyg_Cancer_WT")
+    os.makedirs(dir_c, exist_ok=True)
+    os.makedirs(dir_w, exist_ok=True)
+    hla_path, hla_seqs = _hla_table(root, rng, hla_len, shared_hla_path)
+
+    rows_c, rows_w = [], []
+    for i in range(num_samples):
+        allele_star = _HLA_NAMES[int(rng.integers(0, 4))]
+        allele_raw = "HLA-" + allele_star.split("-")[1].replace(
+            "*", "").replace(":", "")
+        pep_c = _random_seq(rng, int(rng.integers(8, 11)))
+        pos = int(rng.integers(0, len(pep_c)))
+        sub = rng.choice([a for a in AMINO_ACIDS if a != pep_c[pos]])
+        pep_w = pep_c[:pos] + str(sub) + pep_c[pos + 1:]
+
+        for pep, d in ((pep_c, dir_c), (pep_w, dir_w)):
+            chain = hla_seqs[allele_star] + pep
+            key = chain[-99:] + "_" + get_hash(chain)[:5]
+            x, coords, ei = _make_graph(rng, chain)
+            save_graph_npz(os.path.join(d, f"g{i:04d}.npz"),
+                           name=f"synImmuno{key}", x=x, coords=coords,
+                           edge_index=ei)
+
+        immuno = int(rng.random() < 0.5)
+        foreign = float(rng.random())
+        base = {"mut_pep": pep_c, "wt_pep": pep_w, "allele": allele_raw,
+                "immunogenicity": immuno, "foreign": foreign}
+        rows_c.append({**base, "smoothed_foreign": foreign,
+                       "Mprop1": float(rng.random()),
+                       "Mprop2": float(rng.random())})
+        rows_w.append({**base, "Mprop1_wt": float(rng.random()),
+                       "Mprop2_wt": float(rng.random())})
+
+    props_c = os.path.join(root, "props_cancer.tsv")
+    props_w = os.path.join(root, "props_wt.tsv")
+    _write_table(props_c, rows_c, "\t")
+    _write_table(props_w, rows_w, "\t")
+    return dir_c, dir_w, props_c, props_w, hla_path
 
 
 def random_sample_arrays(batch: int, nodes: int, edges: int, seq_len: int,

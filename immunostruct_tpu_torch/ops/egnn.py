@@ -29,9 +29,17 @@ Aggregation strategies:
              einsums do. JAX's admission rule holds: E a multiple of 128 and
              1-dim edge features; where JAX would fall back to 'onehot' (not
              ported), this raises.
+  'pallas'   gathers and the edge/coord MLP as 'scatter', then [m ++
+             msg_x] in the compute dtype summed at the destination by B8's
+             scatter kernel (ops/segment.py: ``SegmentScatter``, f32 sums
+             rounded once; its backward is B8's gather kernel). The JAX
+             package's numerics: the gathers do not mask the index, the
+             aggregation leaves out a masked edge or an index outside [0,
+             N). JAX's admission rule holds: E a multiple of 128; where JAX
+             would fall back to 'onehot' (not ported), this raises.
   'auto'     'mega' for CUDA tensors, 'scatter' for CPU tensors.
-The JAX package's other names ('onehot', 'onehot_remat', 'pallas') are not
-ported yet and raise (see ROADMAP.md).
+The JAX package's other names ('onehot', 'onehot_remat') are not ported yet
+and raise (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -46,8 +54,9 @@ from immunostruct_tpu_torch.ops.edge import (
 )
 from immunostruct_tpu_torch.ops.mega import edge_mega
 from immunostruct_tpu_torch.ops.nnp import Linear, linear_apply
+from immunostruct_tpu_torch.ops.segment import SegmentScatter
 
-NOT_PORTED = ("onehot", "onehot_remat", "pallas")
+NOT_PORTED = ("onehot", "onehot_remat")
 
 
 class EGNNLayer(nn.Module):
@@ -84,13 +93,13 @@ def egnn_stack(num_layers: int, in_size: int, hidden_size: int,
 def resolve_aggregation(aggregation: str, device: torch.device) -> str:
     if aggregation == "auto":
         return "mega" if device.type == "cuda" else "scatter"
-    if aggregation in ("scatter", "mega", "fused"):
+    if aggregation in ("scatter", "mega", "fused", "pallas"):
         return aggregation
     if aggregation in NOT_PORTED:
         raise ValueError(
             f"aggregation '{aggregation}' is not ported to PyTorch yet "
             "(see ROADMAP.md, kernels still to port); use 'scatter', "
-            "'mega', 'fused' or 'auto'")
+            "'mega', 'fused', 'pallas' or 'auto'")
     raise ValueError(f"unknown aggregation '{aggregation}'")
 
 
@@ -107,8 +116,9 @@ def _flat_index(idx: torch.Tensor, n: int) -> torch.Tensor:
     return (idx.long() + offs).reshape(-1)
 
 
-def _egnn_apply_scatter(p: EGNNLayer, h, x, edge_src, edge_dst, edge_feat,
-                        edge_mask):
+def _edge_messages(p: EGNNLayer, h, x, edge_src, edge_dst, edge_feat):
+    """The gathers (the index not masked) and the edge/coord MLP: (m [B, E,
+    H], msg_x [B, E, 3]) and the flat destination rows."""
     b, n, f = h.shape
     e = edge_src.shape[1]
     src = _flat_index(edge_src, n)
@@ -132,7 +142,14 @@ def _egnn_apply_scatter(p: EGNNLayer, h, x, edge_src, edge_dst, edge_feat,
     cw = silu(linear_apply(p.coord_mlp[0], m))
     cw = linear_apply(p.coord_mlp[1], cw)                       # [B, E, 1]
     msg_x = cw.to(x_hat.dtype) * x_hat                          # [B, E, 3]
+    return m, msg_x, dst
 
+
+def _egnn_apply_scatter(p: EGNNLayer, h, x, edge_src, edge_dst, edge_feat,
+                        edge_mask):
+    b, n, _ = h.shape
+    e = edge_src.shape[1]
+    m, msg_x, dst = _edge_messages(p, h, x, edge_src, edge_dst, edge_feat)
     hid = m.shape[-1]
     both = torch.cat([m.float(), msg_x.float()], dim=-1)
     both = both * edge_mask.reshape(b, e, 1).to(both.dtype)
@@ -221,6 +238,30 @@ def _egnn_apply_fused(p: EGNNLayer, h, x, edge_src, edge_dst, edge_feat,
     return _node_update(p, h, x, agg[..., :c - 3], agg[..., c - 3:].to(x.dtype))
 
 
+def check_pallas(edge_count: int) -> None:
+    """JAX's admission rule for 'pallas' (``egnn_stack_apply``: E a
+    multiple of 128, ``_pick_tile``): raise where the JAX package would
+    fall back to 'onehot'."""
+    if edge_count < EDGE_MULTIPLE or edge_count % EDGE_MULTIPLE:
+        raise ValueError(
+            f"aggregation='pallas' takes a multiple of {EDGE_MULTIPLE} "
+            f"edges, got E={edge_count} (the JAX package falls back to "
+            "'onehot' there, which is not ported yet, see ROADMAP.md); use "
+            "'mega' or 'scatter'")
+
+
+def _egnn_apply_pallas(p: EGNNLayer, h, x, edge_src, edge_dst, edge_feat,
+                       edge_mask):
+    check_pallas(edge_src.shape[1])
+    m, msg_x, _ = _edge_messages(p, h, x, edge_src, edge_dst, edge_feat)
+    hid = m.shape[-1]
+    both = torch.cat([m, msg_x.to(m.dtype)], dim=-1)          # compute dtype
+    agg = SegmentScatter.apply(edge_dst.to(torch.int32).contiguous(),
+                               edge_mask.contiguous(), both.contiguous(),
+                               h.shape[1])                    # [B, N, H+3]
+    return _node_update(p, h, x, agg[..., :hid], agg[..., hid:].to(x.dtype))
+
+
 def egnn_apply(p: EGNNLayer, h: torch.Tensor, x: torch.Tensor,
                edge_src: torch.Tensor, edge_dst: torch.Tensor,
                edge_feat: torch.Tensor, edge_mask: torch.Tensor,
@@ -235,6 +276,9 @@ def egnn_apply(p: EGNNLayer, h: torch.Tensor, x: torch.Tensor,
     if aggregation == "fused":
         return _egnn_apply_fused(p, h, x, edge_src, edge_dst, edge_feat,
                                  edge_mask)
+    if aggregation == "pallas":
+        return _egnn_apply_pallas(p, h, x, edge_src, edge_dst, edge_feat,
+                                  edge_mask)
     return _egnn_apply_scatter(p, h, x, edge_src, edge_dst, edge_feat,
                                edge_mask)
 

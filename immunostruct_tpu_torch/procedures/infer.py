@@ -2,10 +2,10 @@
 reference: procedures/infer.py:9-103).
 
 Collects sigmoid probabilities over a pipeline with the deterministic
-forward, derives or reuses the Youden-optimal threshold, and computes the
-full metric suite. The comparative forward's inference and the clinical
-path (per-patient survival analysis) belong to entry points that are not
-ported yet.
+forward (the twin forward for a comparative pipeline, with the cancer
+side's target), derives or reuses the Youden-optimal threshold, and
+computes the full metric suite. The clinical path (per-patient survival
+analysis) belongs to an entry point that is not ported yet.
 """
 
 from __future__ import annotations
@@ -14,27 +14,39 @@ from typing import Optional
 
 import torch
 
-from immunostruct_tpu_torch.models.trunk import ImmunoStructModel, model_apply
+from immunostruct_tpu_torch.models.trunk import (
+    ImmunoStructModel, model_apply, model_apply_comparative,
+)
 from immunostruct_tpu_torch.procedures.metrics import (
     evaluate_metrics, find_optimal_threshold,
 )
 from immunostruct_tpu_torch.procedures.train import step_generator
+from immunostruct_tpu_torch.structs import ComparativeBatch, first_tensor
 
 
 def collect_probs(config, model: ImmunoStructModel, pipe, seed: int):
     """(probabilities, targets) over one pass of ``pipe``, as numpy; batch
-    ``i`` draws its VAE noise from ``step_generator(seed, i)``."""
-    dtype = getattr(torch, config.compute_dtype)
+    ``i`` draws its VAE noise from ``step_generator(seed, i)``. A
+    ``ComparativeBatch`` goes through the twin forward and gives the cancer
+    side's target (infer.py:36-43 of the JAX package)."""
+    kw = dict(deterministic=True, aggregation=config.aggregation,
+              compute_dtype=getattr(torch, config.compute_dtype))
     probs, targets = [], []
     with torch.inference_mode():
         for i, batch in enumerate(pipe.epoch(0)):
-            logits = model_apply(
-                model, batch.graph, batch.seq_onehot, batch.props,
-                generator=step_generator(seed, i, batch.target.device),
-                deterministic=True, aggregation=config.aggregation,
-                compute_dtype=dtype).logits
+            gen = step_generator(seed, i, first_tensor(batch).device)
+            if isinstance(batch, ComparativeBatch):
+                c, w = batch.cancer, batch.wt
+                _, _, logits = model_apply_comparative(
+                    model, (c.graph, w.graph), (c.seq_onehot, w.seq_onehot),
+                    (c.props, w.props), generator=gen, **kw)
+                target = c.target
+            else:
+                logits = model_apply(model, batch.graph, batch.seq_onehot,
+                                     batch.props, generator=gen, **kw).logits
+                target = batch.target
             probs.append(torch.sigmoid(logits.reshape(-1).float()))
-            targets.append(batch.target.reshape(-1))
+            targets.append(target.reshape(-1))
     return (torch.cat(probs).cpu().numpy(),
             torch.cat(targets).float().cpu().numpy())
 

@@ -411,15 +411,25 @@ class Trainer:
 
 def train_model(config, model: ImmunoStructModel, train_pipe, val_pipe,
                 loss_cfg: LossConfig, *, binary: bool, learning_rate: float,
-                weight_decay: float = 0.0, lr_schedule=None,
-                stage: str = "pretrain", log_fn=None, verbose: bool = True):
-    """One stage (the reference's train_model, procedures/train.py:10):
-    trains ``model`` in place with Adam and returns (model, history).
+                weight_decay: float = 0.0, optimizer_name: str = "adam",
+                lr_schedule=None, stage: str = "pretrain",
+                coeff_contrastive: float = 0.0, log_fn=None,
+                verbose: bool = True, resume_tag: Optional[str] = None):
+    """One stage (the reference's train_model/_comparative,
+    procedures/train.py:10, :70): trains ``model`` in place with
+    ``optimizer_name`` ('adam' or 'adamw') and returns (model, history).
+    The comparative twin step follows the pipeline's batches
+    (``ComparativeBatch``), with the contrastive term at
+    ``coeff_contrastive``; ``--stack-twins`` left at auto (None) is off, as
+    in the JAX package's ``resolve_stack_twins``.
 
-    With ``config.reinit_on_collapse`` a pretrain stage whose collapse guard
-    fires restarts from fresh weights, up to twice. The JAX package's
-    ``resolve_scan_layers`` has no counterpart: ``--scan-layers`` rolls
-    XLA's EGNN layers into one compiled loop, and PyTorch compiles
+    ``resume_tag`` names the stage's ``.resume`` snapshot
+    (``<ckpt>.<tag>.resume``): curricula with several pretrain stages share
+    one checkpoint path, and a later stage's snapshot must not resume an
+    earlier one. With ``config.reinit_on_collapse`` a pretrain stage whose
+    collapse guard fires restarts from fresh weights, up to twice. The JAX
+    package's ``resolve_scan_layers`` has no counterpart: ``--scan-layers``
+    rolls XLA's EGNN layers into one compiled loop, and PyTorch compiles
     nothing."""
     from immunostruct_tpu_torch.utils.schedule import constant_lr
 
@@ -429,7 +439,7 @@ def train_model(config, model: ImmunoStructModel, train_pipe, val_pipe,
     seed = config.seed
     schedule = (lr_schedule if lr_schedule is not None
                 else constant_lr(learning_rate))
-    optimizer = make_optimizer("adam", schedule, weight_decay,
+    optimizer = make_optimizer(optimizer_name, schedule, weight_decay,
                                steps_per_epoch=max(len(train_pipe), 1))
     accum = config.grad_accum_steps
     if accum > 1 and config.batch_size % accum != 0:
@@ -438,12 +448,16 @@ def train_model(config, model: ImmunoStructModel, train_pipe, val_pipe,
             f"{config.batch_size}; accumulation would be silently skipped on "
             "every full batch. Pick a divisible pair (e.g. batch 128, k=2).")
     trainer = Trainer(model.spec, loss_cfg, binary=binary,
-                      optimizer=optimizer, aggregation=config.aggregation,
+                      optimizer=optimizer,
+                      coeff_contrastive=coeff_contrastive,
+                      aggregation=config.aggregation,
                       compute_dtype=getattr(torch, config.compute_dtype),
-                      grad_accum_steps=accum)
+                      grad_accum_steps=accum,
+                      stack_twins=bool(config.stack_twins))
     ckpt = (config.model_save_path_pretrain if stage == "pretrain"
             else config.model_save_path_finetune)
-    resume_path = ckpt + ".resume" if config.resume else None
+    suffix = f".{resume_tag}.resume" if resume_tag else ".resume"
+    resume_path = ckpt + suffix if config.resume else None
 
     # the guard watches every stage; re-init is for pretrain stages only
     # (restarting a finetune from fresh weights would discard the trunk)

@@ -45,6 +45,15 @@ leaves out any one rounding point fails the mean bound, which
 ``test_tail_bf16_bound_sees_every_rounding_point`` (B2) and
 ``test_edge_bf16_bound_sees_every_rounding_point`` (B3) check by building
 such kernels.
+
+- B8 (csrc/segment.cu, behind ``segment_scatter``/``segment_gather``): the
+  gather bit for bit. The scatter, f32: |diff| <= 2 * k * 2^-24 * (the sum
+  of |m| over the k edges of the element), the bound of two f32 sums of the
+  same terms in other orders (the plain version on the card sums with
+  atomics); bf16: within one bf16 step of the larger magnitude, or of
+  2^-10 below that (both sum in f32 and round once).
+  ``test_segment_bf16_bound_sees_f32_accumulation`` builds a scatter that
+  accumulates in the compute dtype, which fails it.
 """
 
 import json
@@ -55,7 +64,7 @@ import torch
 
 from immunostruct_tpu_torch.data.synthetic import random_sample_batch
 from immunostruct_tpu_torch.models import build_model, model_apply
-from immunostruct_tpu_torch.ops import _build, edge, mega
+from immunostruct_tpu_torch.ops import _build, edge, mega, segment
 from immunostruct_tpu_torch.ops.egnn import EGNNLayer, egnn_apply
 from immunostruct_tpu_torch.procedures.train import Trainer, make_optimizer
 from immunostruct_tpu_torch.utils.losses import LossConfig
@@ -309,7 +318,8 @@ def _mutant_kernel(source, mutants, tmp_path, monkeypatch):
 
 def _clear_libraries():
     _build.load_library.cache_clear()
-    for lib in (mega._fwd_lib, mega._tail_lib, edge._fwd_lib, edge._bwd_lib):
+    for lib in (mega._fwd_lib, mega._tail_lib, edge._fwd_lib, edge._bwd_lib,
+                segment._lib):
         lib.cache_clear()
 
 
@@ -704,3 +714,188 @@ def test_fused_layer_gradients_on_card(cuda, dtype, monkeypatch):
                     + 1e-3 * r.abs()).all()
         else:
             assert (g - r).abs().mean() <= 1e-4 * r.abs().mean() + 1e-12
+
+
+# --------------------------------------------------------------------------
+# B8: segment scatter and gather
+# --------------------------------------------------------------------------
+
+def _segment_args(b, e, n, c, dtype, device, seed, mask_rate=0.1):
+    """idx/mask [B, E] with indices -1 and n on masked and unmasked edges
+    and a few self-loop-like repeats; m [B, E, C], h [B, N, C]."""
+    gen = torch.Generator().manual_seed(seed)
+    idx = torch.randint(0, n, (b, e), generator=gen, dtype=torch.int32)
+    mask = torch.rand(b, e, generator=gen) >= mask_rate
+    idx[:, 0:4], idx[:, 4:8] = -1, n
+    mask[:, 0:8:2] = False
+    idx[:, 8:12] = idx[:, 12:16]
+    m = torch.randn(b, e, c, generator=gen)
+    h = torch.randn(b, n, c, generator=gen)
+    return idx.to(device), mask.to(device), m.to(device, dtype), \
+        h.to(device, dtype)
+
+
+def _assert_scatter_close(out, ref, idx, mask, m):
+    """B8's scatter against its plain version (module docstring)."""
+    n = out.shape[1]
+    assert out.dtype == ref.dtype == m.dtype and out.shape == ref.shape
+    assert torch.isfinite(out).all()
+    got, want = out.float(), ref.float()
+    if m.dtype == torch.float32:
+        abs_sum = segment.segment_scatter_reference(idx, mask, m.abs(), n)
+        count = segment.segment_scatter_reference(
+            idx, mask, torch.ones_like(m[..., :1]), n)
+        allowed = 2 * count * 2.0 ** -24 * abs_sum
+        assert ((got - want).abs() <= allowed).all()
+    else:
+        mag = torch.maximum(torch.maximum(got.abs(), want.abs()),
+                            torch.tensor(2.0 ** -10, device=got.device))
+        step = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        assert ((got - want).abs() <= step).all()
+
+
+def test_segment_plain_versions_skip_what_is_not_valid():
+    idx, mask, m, h = _segment_args(2, 128, 16, 5, torch.float32, "cpu", 0)
+    out = segment.segment_scatter_reference(idx, mask, m, 16)
+    keep = (mask & (idx >= 0) & (idx < 16))[..., None]
+    torch.testing.assert_close(out.sum(1), (m * keep).sum(1))
+    g = segment.segment_gather_reference(idx, mask, h)
+    assert not g[:, :8].any() and torch.equal(g[~keep[..., 0]],
+                                              torch.zeros_like(g[~keep[..., 0]]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,e,n,c", [(4, 256, 24, 16), (4, 1000, 40, 67),
+                                     (128, 2560, N, 67), (128, 1408, N, 67)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_kernels_match_plain_versions(cuda, b, e, n, c, dtype):
+    """Small shapes (E=1000: not a multiple of any tile; C=16: one channel
+    block short of 32) and chip_smoke.py's (B=128, N=288, C=67 = H+3)."""
+    idx, mask, m, h = _segment_args(b, e, n, c, dtype, cuda, seed=e + c)
+    before = segment.segment_scatter.launches, segment.segment_gather.launches
+    out = segment.segment_scatter(idx, mask, m, n)
+    gat = segment.segment_gather(idx, mask, h)
+    torch.cuda.synchronize()
+    assert (segment.segment_scatter.launches - before[0],
+            segment.segment_gather.launches - before[1]) == (1, 1)
+    _assert_scatter_close(out, segment.segment_scatter_reference(
+        idx, mask, m, n), idx, mask, m)
+    assert gat.dtype == dtype
+    assert torch.equal(gat, segment.segment_gather_reference(idx, mask, h))
+    assert not gat[:, :8].any()         # masked or out of range: zeros
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_scatter_is_deterministic(cuda, dtype):
+    idx, mask, m, _ = _segment_args(128, 2560, N, 67, dtype, cuda, seed=4)
+    first = segment.segment_scatter(idx, mask, m, N)
+    assert torch.equal(first, segment.segment_scatter(idx, mask, m, N))
+
+
+@pytest.mark.cuda
+def test_segment_out_of_range_indices_touch_nothing(cuda):
+    """Every index outside [0, N), masked or not, with NaN messages: the
+    scatter writes zeros, the gather reads nothing (zeros)."""
+    idx, mask, m, h = _segment_args(4, 512, 24, 16, torch.float32, cuda, 5)
+    idx = torch.where(torch.arange(512, device=cuda) % 2 == 0, -7, 24 + 9)
+    idx = idx.expand(4, -1).to(torch.int32).contiguous()
+    mask = torch.ones_like(mask)
+    m = torch.full_like(m, float("nan"))
+    assert not segment.segment_scatter(idx, mask, m, 24).any()
+    assert not segment.segment_gather(idx, mask, h).any()
+
+
+@pytest.mark.cuda
+def test_segment_scatter_shared_memory_oversize_raises(cuda):
+    idx, mask, m, _ = _segment_args(2, 128, 2048, 8, torch.float32, cuda, 6)
+    with pytest.raises(ValueError, match="shared memory"):
+        segment.segment_scatter(idx, mask, m, 2048)
+
+
+@pytest.mark.cuda
+def test_segment_kernels_reject_what_they_do_not_take(cuda):
+    idx, mask, m, h = _segment_args(2, 128, 24, 8, torch.float32, cuda, 7)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        segment.segment_scatter(idx, mask, m.half(), 24)
+    with pytest.raises(ValueError, match="idx has dtype"):
+        segment.segment_gather(idx.long(), mask, h)
+    with pytest.raises(ValueError, match="contiguous"):
+        segment.segment_scatter(idx, mask, m.transpose(1, 2).contiguous()
+                                .transpose(1, 2), 24)
+    with pytest.raises(ValueError, match="mask has shape"):
+        segment.segment_gather(idx, mask[:, :64].contiguous(), h)
+
+
+# the scatter with its sums in the compute dtype: every add rounded
+_SEGMENT_MUTANT = [(r"acc\[n \* kLD \+ lane\] \+= (tile\[\(t0 \+ j\) \* kLD "
+                    r"\+ lane\]);",
+                    r"acc[n * kLD + lane] = to_f<T>(from_f<T>("
+                    r"acc[n * kLD + lane] + \1));")]
+
+
+@pytest.mark.cuda
+def test_segment_bf16_bound_sees_f32_accumulation(cuda, tmp_path,
+                                                  monkeypatch,
+                                                  restore_kernels):
+    inputs = [_segment_args(b, e, N, 67, torch.bfloat16, cuda, seed=e)
+              for b, e in ((8, 2560), (128, 1408))]
+    refs = [segment.segment_scatter_reference(i, k, m, N)
+            for i, k, m, _ in inputs]
+    _mutant_kernel("segment.cu", _SEGMENT_MUTANT, tmp_path, monkeypatch)
+    for (idx, mask, m, _), ref in zip(inputs, refs):
+        out = segment.segment_scatter(idx, mask, m, N)
+        with pytest.raises(AssertionError):
+            _assert_scatter_close(out, ref, idx, mask, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pallas_layer_gradients_on_card(cuda, dtype, monkeypatch):
+    """One EGNN layer through 'pallas' (B8's scatter forward, its gather in
+    the backward) against the same layer with B8's plain versions: one
+    launch of each; outputs and gradients within |diff| <= 1e-4 * max +
+    1e-3 * |plain| in f32. bf16, per tensor: mean|diff| <= 2 * (the plain
+    layer's own run-to-run mean|diff|) + 1e-4 * mean|plain|: the backward of
+    the layer's index_select gathers adds in bf16 with atomics, so h's and
+    the edge MLP's gradients move from run to run (the outputs do not)."""
+    gen = torch.Generator().manual_seed(12)
+    layer = EGNNLayer(20, 64, 64, generator=gen, device=cuda)
+    src, dst, mask, ef, h, x = (t.to(cuda) for t in _args(
+        4, 1408, 20, 64, torch.float32, "cpu", seed=12)[:6])
+    cot_h = torch.randn(4, N, 64, generator=gen).to(cuda, dtype)
+    cot_x = torch.randn(4, N, 3, generator=gen).to(cuda, dtype)
+
+    def run(kernels):
+        layer.zero_grad()
+        hin = h.to(dtype).requires_grad_(True)
+        xin = x.to(dtype).requires_grad_(True)
+        before = (segment.segment_scatter.launches,
+                  segment.segment_gather.launches)
+        with monkeypatch.context() as mp:
+            if not kernels:
+                mp.setattr(segment, "segment_scatter",
+                           segment.segment_scatter_reference)
+                mp.setattr(segment, "segment_gather",
+                           segment.segment_gather_reference)
+            h2, x2 = egnn_apply(layer, hin, xin, src, dst, ef, mask,
+                                "pallas")
+            ((h2 * cot_h).float().sum()
+             + (x2 * cot_x).float().sum()).backward()
+        torch.cuda.synchronize()
+        launched = (segment.segment_scatter.launches - before[0],
+                    segment.segment_gather.launches - before[1])
+        assert launched == ((1, 1) if kernels else (0, 0))
+        return [h2.detach(), x2.detach(), hin.grad, xin.grad] + [
+            p.grad.clone() for p in layer.parameters()]
+
+    for g, r, r2 in zip(run(True), run(False), run(False)):
+        assert torch.isfinite(g).all()
+        g, r, r2 = g.float(), r.float(), r2.float()
+        if dtype == torch.float32:
+            assert ((g - r).abs() <= 1e-4 * r.abs().max()
+                    + 1e-3 * r.abs()).all()
+        else:
+            noise = (r2 - r).abs().mean()
+            assert (g - r).abs().mean() <= (2 * noise + 1e-4 * r.abs().mean()
+                                            + 1e-12)

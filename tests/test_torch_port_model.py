@@ -163,11 +163,12 @@ def test_auto_is_scatter_on_cpu(models):
 @pytest.mark.parametrize("name", ["onehot", "fused", "onehot_remat",
                                   "pallas"])
 def test_unported_aggregations_raise(models, name):
-    """Names not ported raise and point to ROADMAP.md, and so does 'fused'
-    where the JAX package falls back to the unported 'onehot' (an E that is
-    not a multiple of 128)."""
+    """Names not ported raise and point to ROADMAP.md, and so do 'fused'
+    and 'pallas' where the JAX package falls back to the unported 'onehot'
+    (an E that is not a multiple of 128)."""
     *_, model, _ = models
-    b = random_sample_batch(B, N, 100 if name == "fused" else E, L, seed=4)
+    b = random_sample_batch(B, N, 100 if name in ("fused", "pallas") else E,
+                            L, seed=4)
     with pytest.raises(ValueError, match="ROADMAP.md"):
         model_apply(model, b.graph, b.seq_onehot, b.props,
                     deterministic=True, aggregation=name,

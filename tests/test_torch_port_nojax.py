@@ -46,7 +46,8 @@ def _probe(names, *setup):
 
 def test_every_module_imports_without_jax():
     names = _modules()
-    for module in ("ops.mega", "ops.edge", "cli.serve", "cli.train_IEDB_wFT",
+    for module in ("ops.mega", "ops.edge", "ops.segment", "cli.serve",
+                   "cli.train_IEDB_wFT", "cli.train_Cancer_wFT",
                    "data.pipeline", "procedures.infer"):
         assert f"immunostruct_tpu_torch.{module}" in names
     proc = _probe(names)

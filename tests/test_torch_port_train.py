@@ -117,13 +117,16 @@ def _flat(tree):
 
 
 def _setup(name, tmp_path, aggregation, coeff=0.0, accum=1,
-           stack_twins=False):
-    """The JAX trainer and state, and the port's from the same weights."""
+           stack_twins=False, optimizer=("adam", 0.0)):
+    """The JAX trainer and state, and the port's from the same weights;
+    ``optimizer`` is (name, weight decay)."""
     vae_dim = L * 21
     spec, params = jax_build_model(name, vae_dim, jax.random.key(3), **SMALL)
     jtrainer = JaxTrainer(
         spec, JaxLossConfig(vae_dim, pos_weight=1.0, sequence=True),
-        binary=True, optimizer=jax_make_opt("adam", jax_constant_lr(LR)),
+        binary=True,
+        optimizer=jax_make_opt(optimizer[0], jax_constant_lr(LR),
+                               optimizer[1]),
         coeff_contrastive=coeff, aggregation=aggregation, donate=False,
         grad_accum_steps=accum, stack_twins=stack_twins)
     jstate = jtrainer.init_state(params, jax.random.key(5))
@@ -133,7 +136,8 @@ def _setup(name, tmp_path, aggregation, coeff=0.0, accum=1,
                            **SMALL)
     trainer = Trainer(
         model.spec, LossConfig(vae_dim, pos_weight=1.0, sequence=True),
-        binary=True, optimizer=make_optimizer("adam", constant_lr(LR)),
+        binary=True,
+        optimizer=make_optimizer(optimizer[0], constant_lr(LR), optimizer[1]),
         coeff_contrastive=coeff, aggregation=aggregation,
         grad_accum_steps=accum, stack_twins=stack_twins)
     state = trainer.init_state(model)
@@ -197,7 +201,7 @@ def _run_steps(jtrainer, jstate, trainer, state, jbatch, batch, eps_of):
     _assert_params_match(state.model, jstate.params, step_grads)
 
 
-@pytest.mark.parametrize("aggregation", ["scatter", "mega"])
+@pytest.mark.parametrize("aggregation", ["scatter", "mega", "pallas"])
 def test_train_step_matches_jax(tmp_path, aggregation):
     a = _arrays(3, seed=0)
     jt, js, pt, ps = _setup("HybridModelv2", tmp_path, aggregation)
@@ -248,7 +252,8 @@ def _comparative_batches(b, seed):
 
 
 @pytest.mark.parametrize("aggregation,stack_twins",
-                         [("scatter", False), ("mega", True)])
+                         [("scatter", False), ("mega", True),
+                          ("pallas", False)])
 def test_comparative_step_matches_jax(tmp_path, aggregation, stack_twins):
     """HybridModelv2_Comparative with the contrastive term (coeff 0.1):
     the twin forward (two passes, or one over the stacked twins), the
@@ -259,6 +264,18 @@ def test_comparative_step_matches_jax(tmp_path, aggregation, stack_twins):
     assert hasattr(ps.model, "contrastive_projector")
     _run_steps(jt, js, pt, ps, jbatch, batch,
                lambda rng: _twin_eps(rng, 4, stack_twins))
+
+
+def test_comparative_adamw_step_matches_jax(tmp_path):
+    """The twin step as train_Cancer_wFT takes it: 'pallas', the
+    contrastive term at 0.1 and AdamW (decoupled decay, here 1e-2 so that
+    it shows), against optax.adamw."""
+    jbatch, batch = _comparative_batches(4, seed=8)
+    jt, js, pt, ps = _setup("HybridModelv2_Comparative", tmp_path, "pallas",
+                            coeff=0.1, optimizer=("adamw", 1e-2))
+    assert isinstance(ps.optimizer, torch.optim.AdamW)
+    _run_steps(jt, js, pt, ps, jbatch, batch,
+               lambda rng: _twin_eps(rng, 4, False))
 
 
 def test_contrastive_gate_is_zero_for_a_one_class_batch(tmp_path):
