@@ -1,4 +1,3 @@
-#!/usr/bin/env python3
 """Smoke test of the PyTorch port (immunostruct_tpu_torch) on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
@@ -6,12 +5,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (none catches its own failure; any failure exits non-zero):
   1. require CUDA;
   2. print the card's name and power limit (nvidia-smi);
-  3. build the five Hopper kernel sources with nvcc, one process per source,
+  3. build the nine Hopper kernel sources with nvcc, one process per source,
      all at once: csrc/egnn_mega_fwd.cu (B1, the EGNN edge forward from raw
      indices), csrc/egnn_tail_bwd.cu (B2, its backward), csrc/egnn_edge_fwd.cu
      and csrc/egnn_edge_bwd.cu (B3, the edge program over gathered bundles,
      forward and backward), csrc/segment.cu (B8, the segment scatter and
-     gather);
+     gather), and the 'mega' variants: csrc/egnn_mega_paired_fwd.cu (B4, B1
+     on the mirror-paired layout), csrc/egnn_tail_bwd_db.cu (B5a, B2 reading
+     g[dst] itself), csrc/egnn_tail_bwd_nodes.cu (B5b, the edge half's
+     backward up to node space) and csrc/egnn_stack_fwd.cu (B6, the whole
+     conv stack forward), with their shared csrc/egnn_common.cuh;
   4. compare B1 with its plain PyTorch version on the card at the main
      path's shapes (B=128, N=288, H=64, E=2560 and 1408, F=20 and 64, 10% of
      the edges masked, self-loops), in f32 (TF32 off) and bf16, output and
@@ -40,27 +43,41 @@ Phases (none catches its own failure; any failure exits non-zero):
   10. compare one EGNN layer under 'pallas' (B8's scatter, its gather in the
      backward) with the same layer on B8's plain versions: outputs and
      gradients, f32 and bf16, B=128, E=2560, F=64;
-  11. serve full-width HybridModelv2 with seeded weights in bf16 over HTTP on
+  11. compare B4 with its plain version on mirror-paired batches (B=128,
+     N=288, H=64, E=2560 and 1408, F=20 and 64, f32 and bf16, 10% of the arcs
+     masked, arcs at -1 and N, self-loops): B1's bounds, its residuals
+     against B1's on the same batch; time it with and without residuals,
+     beside its plain version and B1;
+  12. compare B5a with its plain version and with B2 on the same operands
+     (bit for bit), at the same shapes; time it beside both;
+  13. compare B5b with its plain version (the node sums per column, d_ef and
+     the weight gradients), the same bits twice; time it beside its plain
+     version and beside what it replaces on the 'hybrid' path;
+  14. compare B6 (six layers, F0=20, H=64) layer by layer with the plain
+     version of that layer run from the kernel's own previous h and x, f32
+     and bf16, E=2560 and 1408; time it with and without residuals, beside
+     its plain version and the per-layer forward;
+  15. serve full-width HybridModelv2 with seeded weights in bf16 over HTTP on
      127.0.0.1 (ephemeral port), POST requests (B=128 at E=2560, B=128 at
      E=1408, B=1): probabilities finite, in (0, 1), matching the same batch
      through aggregation='scatter', the same when a request is sent again,
      6 B1 launches and no other launch per request;
-  12. train full-width HybridModelv2 (bf16 over f32 master weights, Adam
+  16. train full-width HybridModelv2 (bf16 over f32 master weights, Adam
      1e-3, the loss config of the JAX package's bench) on
      random_sample_batch(128, 288, E, 284) for E=2560 and 1408: the first
      step's loss and gradients under 'mega' against 'scatter' from the same
      weights, then 20 'mega' steps (6 B1 + 6 B2 launches each, finite loss
      that falls) and 10 'scatter' steps, with the median step time;
-  13. the comparative twin step (HybridModelv2_Comparative, the contrastive
+  17. the comparative twin step (HybridModelv2_Comparative, the contrastive
      term at 0.1, random_comparative_batch at E=2560): the first step's loss
      and gradients under 'mega' against 'scatter', in f32 and in bf16, then
      6 steps: 12 B1 + 12 B2 launches per step, finite loss, median step
      time. Its loss is not required to fall: the contrastive term dominates
      it and wanders with each step's noise (PERF.md, Findings);
-  14. the same train step under 'fused' at both edge counts: the first
+  18. the same train step under 'fused' at both edge counts: the first
      step against 'scatter', then 20 steps with 6 B3 forward + 6 B3
-     backward launches each and a falling loss, beside phase 12's 'mega';
-  15. the IEDB entry point: synthetic_corpus writes 512 samples with
+     backward launches each and a falling loss, beside phase 16's 'mega';
+  19. the IEDB entry point: synthetic_corpus writes 512 samples with
      275-residue HLA chains (283-285 tokens, N padded to 288), and
      cli.train_IEDB_wFT.main runs HybridModelv2 at full width with
      --aggregation fused, bf16, batch 128, 2 epochs per stage: both stages
@@ -71,12 +88,12 @@ Phases (none catches its own failure; any failure exits non-zero):
      plain versions as in phase 7, on the operands the entry point gave
      B3's forward (the first of each shape: full and partial batches), in
      bf16 and cast to f32;
-  16. the same train step under 'pallas' at both edge counts: the first
+  20. the same train step under 'pallas' at both edge counts: the first
      step against 'scatter', then 20 steps with 6 B8 scatter + 6 B8 gather
-     launches each (and none of B1-B3) and a falling loss, beside phase 12's
+     launches each (and none of B1-B3) and a falling loss, beside phase 16's
      'mega' and 'scatter';
-  17. the Cancer entry point, this slice's main path: the corpus of phase
-     15 and synthetic_comparative_corpus's 256 cancer/WT pairs sharing its
+  21. the Cancer entry point, the fourth slice's main path: the corpus of
+     phase 19 and synthetic_comparative_corpus's 256 cancer/WT pairs sharing its
      HLA table (N=288 on both twins); cli.train_Cancer_wFT.main runs
      HybridModelv2_Comparative at full width with --aggregation pallas
      --skip-clinical, bf16, batch 128, the contrastive term at 0.1, 2 epochs
@@ -89,12 +106,28 @@ Phases (none catches its own failure; any failure exits non-zero):
      times and pMHC/s printed. Then B8 against its plain versions as in
      phase 9 on the operands the entry point gave it (the first of each
      kernel, shape and dtype);
-  18. trace forwards and train steps with torch.profiler ('mega',
-     'scatter' and, for the step, 'fused' and 'pallas') and print the
-     device-busy time, the device's idle share and the kernels that take
-     the most device time;
-  19. print the times beside the card's name and power limit, then the
-     kernel record (six kernels) as one JSON line, the card line and, last,
+  22. each 'mega' variant's first full-width HybridModelv2 train step
+     (bf16) against 'scatter' from the same weights and noise, on
+     build_batch's mirror-paired batch at E=2560 and 1408 (phase 16's
+     bounds): 'dboth', 'inkernel', 'paired', 'stack';
+  23. this slice's main path, the race: cli.race_kernel_variants in-process
+     at B=128, E=2560 and 1408, --paired-batch, all six variants (warm-up,
+     each variant's first step, a burn-in of 3, two interleaved windows of 5
+     steps ending in a value fetch): per step 'diff16' ('hybrid') 6 B1 + 6
+     B2, 'dboth' 6 B1 + 6 B5a, 'inkernel' 6 B1 + 6 B5b, 'paired' 6 B4 + 6 B2,
+     'stack' 1 B6 + 6 B2, 'fused' 6 + 6 B3, no other kernel, and a finite
+     loss that falls for each (its least over the timed steps below the
+     first step's: on one fixed batch the loss spikes now and then); every
+     count set to 0 before each race and read after it;
+  24. serve one B=128 forward with no gradient under 'stack' and 'paired'
+     (the served model, a mirror-paired batch at E=2560): probabilities
+     within 5e-4 of 'scatter', the variant's kernel alone launched;
+  25. trace forwards and train steps with torch.profiler ('mega',
+     'scatter' and, for the step, 'fused', 'pallas' and 'mega' under
+     'stack' and 'inkernel') and print the device-busy time, the device's
+     idle share and the kernels that take the most device time;
+  26. print the times beside the card's name and power limit, then the
+     kernel record (ten kernels) as one JSON line, the card line and, last,
      the result line {"ok": true, "device": {...}}.
 """
 
@@ -311,6 +344,22 @@ def residual_errors(got, ref, dtype) -> float:
     return worst
 
 
+def fwd_errors(out, ref, dtype) -> tuple:
+    """B1's (or B4's) aggregate against its plain version; asserts the
+    bounds above. (max |diff|, the bf16 column statistics, the bound)."""
+    assert out.shape == (B, N, H + 3) and out.dtype == torch.float32
+    assert torch.isfinite(out).all()
+    err = (out - ref).abs().max().item()
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, **F32_TOL)
+        return err, {}, f"atol={F32_TOL['atol']} rtol={F32_TOL['rtol']}"
+    rel = bf16_errors(out, ref)
+    assert rel["col_max_rel"] <= BF16_COL_MAX, rel
+    assert rel["col_mean_rel"] <= BF16_COL_MEAN, rel
+    return err, rel, (f"per column: max <= {BF16_COL_MAX}*max|ref|, "
+                      f"mean <= {BF16_COL_MEAN}*mean|ref|")
+
+
 def check_fwd_kernel() -> list:
     from immunostruct_tpu_torch.ops.mega import (
         edge_mega_fwd, edge_mega_fwd_reference, valid_edges,
@@ -325,19 +374,7 @@ def check_fwd_kernel() -> list:
                 out, a1, xd = edge_mega_fwd(*args, residuals=True)
                 torch.cuda.synchronize()
                 ref, a1_ref, xd_ref = edge_mega_fwd_reference(*args)
-                assert out.shape == (B, N, H + 3) and out.dtype == torch.float32
-                assert torch.isfinite(out).all()
-                err = (out - ref).abs().max().item()
-                rel = {}
-                if dtype == torch.float32:
-                    torch.testing.assert_close(out, ref, **F32_TOL)
-                    tol = f"atol={F32_TOL['atol']} rtol={F32_TOL['rtol']}"
-                else:
-                    rel = bf16_errors(out, ref)
-                    assert rel["col_max_rel"] <= BF16_COL_MAX, rel
-                    assert rel["col_mean_rel"] <= BF16_COL_MEAN, rel
-                    tol = (f"per column: max <= {BF16_COL_MAX}*max|ref|, "
-                           f"mean <= {BF16_COL_MEAN}*mean|ref|")
+                err, rel, tol = fwd_errors(out, ref, dtype)
                 res_err = residual_errors((a1, xd), (a1_ref, xd_ref), dtype)
                 assert res_err <= 1.0, res_err
                 out_nores = edge_mega_fwd(*args, residuals=False)[0]
@@ -449,7 +486,7 @@ def check_edge_mega_grads() -> list:
     path at B=128, E=2560, F=64."""
     from immunostruct_tpu_torch.ops.mega import (
         EdgeMega, edge_half_bwd, edge_mega_fwd_reference, edge_mega_reference,
-        tail_bwd_reference, valid_edges,
+        valid_edges,
     )
 
     rows = []
@@ -472,8 +509,7 @@ def check_edge_mega_grads() -> list:
             src, dst, mask = args[:3]
             _, a1, xd = edge_mega_fwd_reference(*args)
             want = edge_half_bwd(src, dst, valid_edges(src, dst, mask, N),
-                                 *args[3:], a1, xd, cot,
-                                 tail=tail_bwd_reference)
+                                 *args[3:], a1, xd, cot, plain=True)
         worst = 0.0
         for g, w, t in zip(got, want, args[3:]):
             g, w = g.float(), w.to(t.dtype).float().reshape(g.shape)
@@ -537,15 +573,13 @@ def plain_probs(scorer, path):
 
 
 def _counted():
-    """The six launch wrappers, in read_counts' order."""
-    from immunostruct_tpu_torch.ops.edge import edge_program, edge_program_bwd
-    from immunostruct_tpu_torch.ops.mega import edge_mega, tail_bwd
-    from immunostruct_tpu_torch.ops.segment import (
-        segment_gather, segment_scatter,
-    )
+    """The ten launch wrappers, in read_counts' order."""
+    from immunostruct_tpu_torch.cli.race_kernel_variants import counters
 
-    return (edge_mega, tail_bwd, edge_program, edge_program_bwd,
-            segment_scatter, segment_gather)
+    wrappers = counters()
+    return tuple(wrappers[k] for k in ("B1", "B2", "B3_fwd", "B3_bwd",
+                                       "B8_scatter", "B8_gather", "B4",
+                                       "B5a", "B5b", "B6"))
 
 
 def reset_counts():
@@ -554,7 +588,8 @@ def reset_counts():
 
 
 def read_counts() -> tuple:
-    """(B1, B2, B3 forward, B3 backward, B8 scatter, B8 gather) launches."""
+    """(B1, B2, B3 forward, B3 backward, B8 scatter, B8 gather, B4, B5a,
+    B5b, B6) launches."""
     return tuple(fn.launches for fn in _counted())
 
 
@@ -581,7 +616,7 @@ def check_serving(scorer, requests) -> tuple:
             status, reply = post(base + "/score", body)
             launches = tuple(a - z for a, z in zip(read_counts(), before))
             assert status == 200, reply
-            assert launches == (layers, 0, 0, 0, 0, 0), (label, launches)
+            assert launches == (layers,) + (0,) * 9, (label, launches)
             probs = torch.tensor(reply["probs"], dtype=torch.float64)
             assert probs.shape == (b,), probs.shape
             assert torch.isfinite(probs).all()
@@ -627,10 +662,12 @@ def check_serving(scorer, requests) -> tuple:
 
 
 def make_trainer(name: str, aggregation: str, coeff: float = 0.0,
-                 seed: int = 0, compute_dtype=torch.bfloat16):
+                 seed: int = 0, compute_dtype=torch.bfloat16,
+                 mega_variant: str = "hybrid"):
     """A full-width model with seeded weights, its trainer (bf16 over f32
     master weights unless ``compute_dtype`` says otherwise, Adam at 1e-3,
-    the JAX bench's loss config) and state."""
+    the JAX bench's loss config, ``mega_variant`` under 'mega') and
+    state."""
     from immunostruct_tpu_torch.models import build_model
     from immunostruct_tpu_torch.procedures.train import (
         Trainer, make_optimizer,
@@ -645,7 +682,7 @@ def make_trainer(name: str, aggregation: str, coeff: float = 0.0,
                       binary=True,
                       optimizer=make_optimizer("adam", constant_lr(1e-3)),
                       coeff_contrastive=coeff, aggregation=aggregation,
-                      compute_dtype=compute_dtype)
+                      compute_dtype=compute_dtype, mega_variant=mega_variant)
     return trainer, trainer.init_state(
         model, torch.Generator().manual_seed(seed + 1))
 
@@ -664,13 +701,14 @@ def timed_steps(trainer, state, batch, steps: int) -> tuple:
 
 
 def first_step(batch, name: str, aggregation: str, compute_dtype,
-               coeff: float = 0.0) -> tuple:
+               coeff: float = 0.0, mega_variant: str = "hybrid") -> tuple:
     """The first step's loss and gradients (float64, by parameter name),
     from seeded weights and the step's seeded noise."""
     from immunostruct_tpu_torch.procedures.train import step_generator
 
     trainer, state = make_trainer(name, aggregation, coeff,
-                                  compute_dtype=compute_dtype)
+                                  compute_dtype=compute_dtype,
+                                  mega_variant=mega_variant)
     loss = trainer.loss_and_grads(state.model, batch,
                                   step_generator(0, 0, "cuda"))
     grads = {n: p.grad.double() for n, p in state.model.named_parameters()}
@@ -691,10 +729,13 @@ def largest_norm(grads: dict) -> float:
     return max(g.norm().item() for g in grads.values())
 
 
-def first_step_vs_scatter(batch, aggregation: str = "mega") -> dict:
-    """HybridModelv2's first step in bf16 under ``aggregation`` ('mega' or
-    'fused') against 'scatter', from the same weights and the same noise."""
-    lm, gm = first_step(batch, "HybridModelv2", aggregation, torch.bfloat16)
+def first_step_vs_scatter(batch, aggregation: str = "mega",
+                          mega_variant: str = "hybrid") -> dict:
+    """HybridModelv2's first step in bf16 under ``aggregation`` ('mega',
+    with ``mega_variant``, 'fused' or 'pallas') against 'scatter', from the
+    same weights and the same noise."""
+    lm, gm = first_step(batch, "HybridModelv2", aggregation, torch.bfloat16,
+                        mega_variant=mega_variant)
     ls, gs = first_step(batch, "HybridModelv2", "scatter", torch.bfloat16)
     top = largest_norm(gs)
     worst, worst_name = worst_grad(
@@ -746,12 +787,12 @@ def twin_first_step_mega_vs_scatter(batch) -> dict:
 
 
 def check_training() -> tuple:
-    """Phase 12: the train step ('mega')."""
+    """Phase 16: the train step ('mega')."""
     from immunostruct_tpu_torch.data.synthetic import random_sample_batch
 
     layers = 6
     rows = []
-    main_counts = (0,) * 6
+    main_counts = (0,) * 10
     for e in EDGE_COUNTS:
         batch = random_sample_batch(B, N, e, L, seed=0, device="cuda")
         first = first_step_vs_scatter(batch, "mega")
@@ -760,8 +801,8 @@ def check_training() -> tuple:
         reset_counts()                  # every count to 0: training starts
         losses, ms = timed_steps(trainer, state, batch, TRAIN_STEPS)
         counts = read_counts()          # read just after the 'mega' steps
-        assert counts == (layers * TRAIN_STEPS, layers * TRAIN_STEPS, 0,
-                          0, 0, 0), counts
+        assert counts == (layers * TRAIN_STEPS, layers * TRAIN_STEPS) + (
+            0,) * 8, counts
         main_counts = tuple(a + c for a, c in zip(main_counts, counts))
         assert all(map(lambda v: v == v and abs(v) < float("inf"), losses))
         assert losses[-1] < losses[0], losses
@@ -788,7 +829,7 @@ def check_training() -> tuple:
 
 
 def check_comparative() -> tuple:
-    """Phase 13: the comparative twin step with the contrastive term."""
+    """Phase 17: the comparative twin step with the contrastive term."""
     from immunostruct_tpu_torch.data.synthetic import random_comparative_batch
 
     batch = random_comparative_batch(B, N, EDGE_COUNTS[0], L, seed=0,
@@ -801,8 +842,8 @@ def check_comparative() -> tuple:
     reset_counts()                      # every count to 0: twin steps start
     losses, ms = timed_steps(trainer, state, batch, COMPARATIVE_STEPS)
     counts = read_counts()              # read just after them
-    assert counts == (12 * COMPARATIVE_STEPS, 12 * COMPARATIVE_STEPS, 0,
-                      0, 0, 0), counts
+    assert counts == (12 * COMPARATIVE_STEPS, 12 * COMPARATIVE_STEPS) + (
+        0,) * 8, counts
     assert all(map(lambda v: v == v and abs(v) < float("inf"), losses))
     row = dict(E=EDGE_COUNTS[0], steps=COMPARATIVE_STEPS,
                launches_per_step=[c // COMPARATIVE_STEPS for c in counts],
@@ -1017,9 +1058,8 @@ def check_fused_layer_grads() -> list:
                  + (x2 * cot_x).float().sum()).backward()
             torch.cuda.synchronize()
             launched = tuple(a - z for a, z in zip(read_counts(), before))
-            assert launched == ((0, 0, 1, 1, 0, 0) if kernels
-                                else (0,) * 6), \
-                launched
+            assert launched == ((0, 0, 1, 1) + (0,) * 6 if kernels
+                                else (0,) * 10), launched
             return [h2.detach(), x2.detach(), hin.grad, xin.grad] + [
                 p.grad.clone() for p in layer.parameters()]
 
@@ -1061,7 +1101,7 @@ def check_fused_training(mega_rows) -> tuple:
         losses, ms = timed_steps(trainer, state, batch, TRAIN_STEPS)
         counts = read_counts()          # read just after them
         n = layers * TRAIN_STEPS
-        assert counts == (0, 0, n, n, 0, 0), counts
+        assert counts == (0, 0, n, n) + (0,) * 6, counts
         assert all(map(lambda v: v == v and abs(v) < float("inf"), losses))
         assert losses[-1] < losses[0], losses
         del trainer, state
@@ -1079,8 +1119,8 @@ def check_fused_training(mega_rows) -> tuple:
 
 
 def check_entry_point(tmp: str) -> tuple:
-    """This slice's main path: the train_IEDB_wFT entry point at full width
-    under --aggregation fused on a synthetic corpus. Returns its row and
+    """The third slice's main path: the train_IEDB_wFT entry point at full
+    width under --aggregation fused on a synthetic corpus. Returns its row and
     the operands of B3's forward, the first call of each shape."""
     from immunostruct_tpu_torch.cli import train_IEDB_wFT as cli
     from immunostruct_tpu_torch.data.synthetic import synthetic_corpus
@@ -1155,10 +1195,10 @@ def check_entry_point(tmp: str) -> tuple:
                    for v in h["train_loss"] + h["val_loss"]), h
         b3f, b3b = s["launches"][2:4]
         assert s["launches"][:2] == [0, 0] and b3f > 0 and b3b > 0, s
-        assert s["launches"][4:] == [0, 0], s
+        assert s["launches"][4:] == [0] * 6, s
     assert len(inferences) == 2, inferences
     for launched in inferences:
-        assert launched[2] > 0 and launched.count(0) == 5, launched
+        assert launched[2] > 0 and launched.count(0) == 9, launched
     for stats in (train_stats, test_stats):
         assert len(stats) == METRIC_KEYS, sorted(stats)
     assert test_stats["optimal_threshold"] == \
@@ -1412,8 +1452,8 @@ def check_pallas_layer_grads() -> list:
                  + (x2 * cot_x).float().sum()).backward()
             torch.cuda.synchronize()
             launched = tuple(a - z for a, z in zip(read_counts(), before))
-            assert launched == ((0, 0, 0, 0, 1, 1) if kernels
-                                else (0,) * 6), launched
+            assert launched == ((0, 0, 0, 0, 1, 1) + (0,) * 4 if kernels
+                                else (0,) * 10), launched
             return [h2.detach(), x2.detach(), hin.grad, xin.grad] + [
                 p.grad.clone() for p in layer.parameters()]
 
@@ -1446,7 +1486,7 @@ def check_pallas_layer_grads() -> list:
 def check_pallas_training(mega_rows) -> tuple:
     """The 'pallas' train step: its first step against 'scatter', then
     TRAIN_STEPS steps with 6 B8 scatter + 6 B8 gather launches each, beside
-    phase 12's 'mega' and 'scatter' steps."""
+    phase 16's 'mega' and 'scatter' steps."""
     from immunostruct_tpu_torch.data.synthetic import random_sample_batch
 
     layers = 6
@@ -1460,7 +1500,7 @@ def check_pallas_training(mega_rows) -> tuple:
         losses, ms = timed_steps(trainer, state, batch, TRAIN_STEPS)
         counts = read_counts()          # read just after them
         n = layers * TRAIN_STEPS
-        assert counts == (0, 0, 0, 0, n, n), counts
+        assert counts == (0, 0, 0, 0, n, n) + (0,) * 4, counts
         assert all(map(lambda v: v == v and abs(v) < float("inf"), losses))
         assert losses[-1] < losses[0], losses
         del trainer, state
@@ -1479,8 +1519,8 @@ def check_pallas_training(mega_rows) -> tuple:
 
 
 def check_cancer_entry_point(tmp: str) -> tuple:
-    """This slice's main path: the train_Cancer_wFT entry point at full
-    width under --aggregation pallas --skip-clinical, on a synthetic IEDB
+    """The fourth slice's main path: the train_Cancer_wFT entry point at
+    full width under --aggregation pallas --skip-clinical, on a synthetic IEDB
     corpus and cancer/WT pairs sharing its HLA table. Returns its row and
     B8's operands, the first call of each (kernel, shape, dtype)."""
     from immunostruct_tpu_torch.cli import train_Cancer_wFT as cli
@@ -1576,11 +1616,12 @@ def check_cancer_entry_point(tmp: str) -> tuple:
         assert all(v == v and abs(v) < float("inf")
                    for v in h["train_loss"] + h["val_loss"]), h
         assert s["launches"][:4] == [0, 0, 0, 0], s
+        assert s["launches"][6:] == [0] * 4, s
         assert s["launches"][4] > 0 and s["launches"][5] > 0, s
     assert len(inferences) == 2, inferences
     for launched in inferences:
-        assert launched[4] > 0 and launched.count(0) == 5, launched
-    assert counts[:4] == (0, 0, 0, 0), counts
+        assert launched[4] > 0 and launched.count(0) == 9, launched
+    assert counts[:4] == (0, 0, 0, 0) and counts[6:] == (0,) * 4, counts
     for stats in (train_stats, test_stats):
         assert len(stats) == METRIC_KEYS, sorted(stats)
     assert test_stats["optimal_threshold"] == \
@@ -1621,6 +1662,419 @@ def check_cancer_entry_point(tmp: str) -> tuple:
     return row, operands
 
 
+# --------------------------------------------------------------------------
+# the 'mega' kernel variants: B4, B5a, B5b, B6, and the race
+# --------------------------------------------------------------------------
+
+DTYPES = (("float32", torch.float32), ("bfloat16", torch.bfloat16))
+# per train step of six layers, by the race's variant names
+VARIANT_LAUNCHES = {
+    "diff16": {"B1": 6, "B2": 6}, "dboth": {"B1": 6, "B5a": 6},
+    "inkernel": {"B1": 6, "B5b": 6}, "paired": {"B4": 6, "B2": 6},
+    "stack": {"B6": 1, "B2": 6}, "fused": {"B3_fwd": 6, "B3_bwd": 6},
+}
+RACE_WINDOWS, RACE_STEPS, RACE_BURNIN = 2, 5, 3
+# B6, bf16, each layer run from the kernel's own previous h and x: aggs
+# (rounded to bf16 on both sides) per column max|diff| <= one bf16 step at
+# the column's largest |plain| and mean|diff| <= BF16_COL_MEAN * mean|plain|,
+# a1s/xds as B1's residuals, hs/xs per column mean|diff| <= BF16_COL_MEAN *
+# mean|plain|; f32 as F32_TOL.
+# tests/test_torch_port_cuda.py builds B6 mutant kernels, each without one
+# rounding point, that fail them.
+
+
+def paired_inputs(e: int, f: int, dtype, seed: int):
+    """kernel_inputs on the mirror-paired layout: the arc half's indices
+    (arcs at -1 and N among them, self-loops) and mask, mirrored."""
+    src, dst, mask, *rest = kernel_inputs(B, e, f, dtype, seed)
+    half = e // 2
+    s0, d0, m0 = (t[:, :half].clone() for t in (src, dst, mask))
+    s0[:, 8:12] = -1
+    d0[:, 12:16] = N
+    return (torch.cat([s0, d0], 1), torch.cat([d0, s0], 1),
+            torch.cat([m0, m0], 1), *rest)
+
+
+def check_paired_kernel() -> list:
+    """B4 against its plain version on paired batches, timed beside it and
+    beside B1 on the same batch (whose residuals it should equal)."""
+    from immunostruct_tpu_torch.ops.mega import (
+        check_paired, edge_mega_fwd, edge_mega_paired_fwd,
+        edge_mega_paired_fwd_reference, mirror_edges, valid_edges,
+    )
+
+    rows = []
+    for e in EDGE_COUNTS:
+        for f in (20, 64):
+            for name, dtype in DTYPES:
+                args = paired_inputs(e, f, dtype, seed=e + f + 2)
+                check_paired(*args[:3])
+                out, a1, xd = edge_mega_paired_fwd(*args)
+                torch.cuda.synchronize()
+                ref, a1_ref, xd_ref = edge_mega_paired_fwd_reference(*args)
+                err, rel, tol = fwd_errors(out, ref, dtype)
+                res_err = residual_errors((a1, xd), (a1_ref, xd_ref), dtype)
+                assert res_err <= 1.0, res_err
+                _, a1_b1, xd_b1 = edge_mega_fwd(*args)
+                same = torch.equal(a1, a1_b1) and torch.equal(xd, xd_b1)
+                ms, plain_ms = alternate_ms(
+                    lambda: edge_mega_paired_fwd_reference(*args),
+                    lambda: edge_mega_paired_fwd(*args))
+                b1_ms = cuda_ms(lambda: edge_mega_fwd(*args))
+                bare_ms = cuda_ms(lambda: edge_mega_paired_fwd(
+                    *args, residuals=False))
+                valid = valid_edges(*mirror_edges(*args[:3]), N).sum().item()
+                flops = 2 * B * N * f * 2 * H + 2 * valid * 2 * H * H
+                # the arc half of src, dst and mask is read
+                nbytes = (tensor_bytes(*args[3:], out, a1, xd)
+                          + tensor_bytes(*args[:3]) // 2)
+                row = dict(E=e, F=f, dtype=name, max_abs_err=err,
+                           **bound(nbytes, flops, dtype), **rel,
+                           tolerance=tol, residual_err_in_tol=res_err,
+                           residuals_equal_b1=same, ms=ms,
+                           ms_without_residuals=bare_ms, plain_ms=plain_ms,
+                           b1_ms_same_batch=b1_ms)
+                print("kernel B4:", json.dumps(row), flush=True)
+                rows.append(row)
+                del args, out, ref, a1, xd, a1_ref, xd_ref, a1_b1, xd_b1
+    return rows
+
+
+def tail_g_inputs(e: int, f: int, dtype, seed: int):
+    """B5's operands: B1's residuals on seeded inputs (indices at -1 and N
+    on a few edges), a seeded node cotangent g [B, N, H+3] in the compute
+    dtype: (src, dst, valid, ef, w2, wc1, small, a1, xd, g)."""
+    from immunostruct_tpu_torch.ops.mega import edge_mega_fwd, valid_edges
+
+    args = list(kernel_inputs(B, e, f, dtype, seed))
+    args[0][:, 8:12] = -1
+    args[1][:, 12:16] = N
+    src, dst, mask, ef = args[:4]
+    _, a1, xd = edge_mega_fwd(*args, residuals=True)
+    g = torch.randn(B, N, H + 3, generator=torch.Generator().manual_seed(seed))
+    return (src, dst, valid_edges(src, dst, mask, N), ef, *args[7:], a1, xd,
+            g.to("cuda", dtype))
+
+
+def b2_operands(src, dst, valid, ef, w2, wc1, small, a1, xd, g):
+    """B2's operands from B5's, d_both = g[dst] gathered as 'hybrid' does."""
+    from immunostruct_tpu_torch.ops.mega import _gather_rows
+
+    d_both = _gather_rows(g, dst, valid).transpose(1, 2).contiguous()
+    return ef, w2, wc1, small, a1, xd, d_both, valid
+
+
+def check_tail_db_kernel() -> list:
+    """B5a against its plain version and against B2 on the same inputs."""
+    from immunostruct_tpu_torch.ops.mega import (
+        tail_bwd, tail_bwd_db, tail_bwd_db_reference,
+    )
+
+    rows = []
+    for e in EDGE_COUNTS:
+        for f in (20, 64):
+            for name, dtype in DTYPES:
+                args = tail_g_inputs(e, f, dtype, seed=e + f + 3)
+                db = args[1:]
+                out = tail_bwd_db(*db)
+                torch.cuda.synchronize()
+                stats = tail_errors(out, tail_bwd_db_reference(*db), dtype)
+                b2_args = b2_operands(*args)
+                b2 = tail_bwd(*b2_args)
+                equal_b2 = all(torch.equal(g, h) for g, h in zip(out, b2))
+                ms, plain_ms = alternate_ms(
+                    lambda: tail_bwd_db_reference(*db),
+                    lambda: tail_bwd_db(*db))
+                b2_ms = cuda_ms(lambda: tail_bwd(*b2_args))
+                gather_b2_ms = cuda_ms(lambda: tail_bwd(*b2_operands(*args)))
+                valid = args[2].sum().item()
+                work = bound(tensor_bytes(*db, *out),
+                             2 * valid * 6 * H * H, dtype)
+                row = dict(E=e, F=f, dtype=name, **stats, **work,
+                           equals_b2_bit_for_bit=equal_b2, ms=ms,
+                           plain_ms=plain_ms, b2_ms=b2_ms,
+                           gather_and_b2_ms=gather_b2_ms)
+                print("kernel B5a:", json.dumps(row), flush=True)
+                rows.append(row)
+                del args, db, out, b2, b2_args
+    return rows
+
+
+def nodes_errors(got, ref, dtype) -> dict:
+    """B5b's d_nodes [B, N, 2(H+3)] f32 against its plain version, per
+    column over graphs and nodes: f32 |diff| <= 1e-5 * max|plain| + 1e-4 *
+    |plain|; bf16 B2's d_cat bounds (TAIL_MAX_EDGE, TAIL_MEAN)."""
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    g, r = got.flatten(0, 1).T, ref.flatten(0, 1).T
+    if dtype == torch.float32:
+        assert ((g - r).abs() <= 1e-5 * r.abs().amax(1, keepdim=True)
+                + 1e-4 * r.abs()).all()
+        return dict(d_nodes_max_abs_err=(g - r).abs().max().item())
+    stats = rel_stats(g, r)
+    assert stats["max_rel"] <= TAIL_MAX_EDGE, stats
+    assert stats["mean_rel"] <= TAIL_MEAN, stats
+    return dict(d_nodes=stats, d_nodes_max_abs_err=(g - r).abs().max().item())
+
+
+def check_tail_nodes_kernel() -> list:
+    """B5b against its plain version, the same bits twice, and timed beside
+    what it replaces on the 'hybrid' path (the gather, B2, two
+    scatter_add_)."""
+    from immunostruct_tpu_torch.ops.mega import (
+        tail_bwd, tail_bwd_nodes, tail_bwd_nodes_reference,
+    )
+
+    def hybrid_glue(src, dst, valid, ef, w2, wc1, small, a1, xd, g):
+        d_cat = tail_bwd(*b2_operands(src, dst, valid, ef, w2, wc1, small,
+                                      a1, xd, g))[0]
+        dcf = d_cat.transpose(1, 2).float()
+        for idx in (src, dst):
+            i = torch.where(valid, idx, 0).long()[..., None].expand(
+                -1, -1, H + 3)
+            torch.zeros(B, N, H + 3, device="cuda").scatter_add_(1, i, dcf)
+
+    rows = []
+    for e in EDGE_COUNTS:
+        for f in (20, 64):
+            for name, dtype in DTYPES:
+                args = tail_g_inputs(e, f, dtype, seed=e + f + 4)
+                out = tail_bwd_nodes(*args)
+                torch.cuda.synchronize()
+                ref = tail_bwd_nodes_reference(*args)
+                stats = nodes_errors(out[0], ref[0], dtype)
+                zeros = torch.zeros(1, 1, 1, dtype=dtype, device="cuda")
+                stats.update(tail_errors((zeros, *out[1:]),
+                                         (zeros, *ref[1:]), dtype))
+                stats["max_abs_err"] = max(stats["max_abs_err"],
+                                           stats["d_nodes_max_abs_err"])
+                again = tail_bwd_nodes(*args)
+                assert all(torch.equal(g, h) for g, h in zip(out, again)), \
+                    "B5b changed from one run to the next"
+                ms, plain_ms = alternate_ms(
+                    lambda: tail_bwd_nodes_reference(*args),
+                    lambda: tail_bwd_nodes(*args))
+                glue_ms = cuda_ms(lambda: hybrid_glue(*args))
+                valid = args[2].sum().item()
+                work = bound(tensor_bytes(*args, *out),
+                             2 * valid * 6 * H * H, dtype)
+                row = dict(E=e, F=f, dtype=name, **stats, **work, ms=ms,
+                           plain_ms=plain_ms,
+                           gather_b2_scatter_adds_ms=glue_ms)
+                print("kernel B5b:", json.dumps(row), flush=True)
+                rows.append(row)
+                del args, out, ref, again
+    return rows
+
+
+def stack_inputs(e: int, dtype, seed: int):
+    """B6's operands: HybridModelv2's six conv layers (F0=20, H=64) with
+    seeded weights, and kernel_inputs at F=20 with indices at -1 and N on a
+    few edges: ([src, dst, mask, ef, h0, x0], the layers' packed weights)."""
+    from immunostruct_tpu_torch.ops.egnn import egnn_stack
+    from immunostruct_tpu_torch.ops.stack import pack_layer
+
+    args = list(kernel_inputs(B, e, 20, dtype, seed)[:6])
+    args[0][:, 8:12] = -1
+    args[1][:, 12:16] = N
+    layers = egnn_stack(5, 20, H, generator=torch.Generator().manual_seed(
+        seed), device="cuda")
+    return args, [tuple(t.detach() for t in pack_layer(p)) for p in layers]
+
+
+def stack_layer_errors(out, args, packed, dtype) -> dict:
+    """Each layer of B6 against the plain version of that layer run from
+    the kernel's own previous h and x (so that a flipped rounding does not
+    carry into the next layer's check); asserts the bounds above."""
+    from immunostruct_tpu_torch.ops.stack import stack_fwd_reference
+
+    h, x, hs, xs, aggs, a1s, xds = out
+    assert torch.equal(h, hs[:, -1]) and torch.equal(x, xs[:, -1])
+    src, dst, mask, ef, h0, x0 = args
+    worst = dict(max_abs_err=0.0, residual_err_in_tol=0.0,
+                 agg_col_max_in_steps=0.0, agg_col_mean_rel=0.0,
+                 hx_col_mean_rel=0.0)
+    for layer, weights in enumerate(packed):
+        h_in = h0 if layer == 0 else hs[:, layer - 1]
+        x_in = x0 if layer == 0 else xs[:, layer - 1]
+        ref = stack_fwd_reference(src, dst, mask, ef, h_in, x_in, [weights])
+        got = [t[:, layer] for t in (hs, xs, aggs, a1s, xds)]
+        want = [t[:, 0] for t in ref[2:]]
+        assert all(torch.isfinite(g).all() for g in got)
+        worst["max_abs_err"] = max(worst["max_abs_err"], *(
+            (g.float() - w.float()).abs().max().item()
+            for g, w in zip(got, want)))
+        worst["residual_err_in_tol"] = max(
+            worst["residual_err_in_tol"],
+            residual_errors(got[3:], want[3:], dtype))
+        if dtype == torch.float32:
+            for g, w in zip(got[:3], want[:3]):
+                torch.testing.assert_close(g, w, **F32_TOL)
+            continue
+        g, w = got[2].float().flatten(0, 1), want[2].float().flatten(0, 1)
+        top = w.abs().amax(0).clamp_min(torch.finfo(torch.float32).tiny)
+        steps = (g - w).abs().amax(0) / torch.exp2(
+            torch.floor(torch.log2(top)) - 7)
+        worst["agg_col_max_in_steps"] = max(worst["agg_col_max_in_steps"],
+                                            steps.max().item())
+        worst["agg_col_mean_rel"] = max(
+            worst["agg_col_mean_rel"],
+            bf16_errors(got[2].float(), want[2].float())["col_mean_rel"])
+        for g, w in zip(got[:2], want[:2]):
+            worst["hx_col_mean_rel"] = max(
+                worst["hx_col_mean_rel"],
+                bf16_errors(g.float(), w.float())["col_mean_rel"])
+    assert worst["residual_err_in_tol"] <= 1.0, worst
+    if dtype == torch.bfloat16:
+        assert worst["agg_col_max_in_steps"] <= 1.0, worst
+        assert worst["agg_col_mean_rel"] <= BF16_COL_MEAN, worst
+        assert worst["hx_col_mean_rel"] <= BF16_COL_MEAN, worst
+    return worst
+
+
+def check_stack_kernel() -> list:
+    """B6 against its plain version, layer by layer, timed beside it and
+    beside the per-layer path's forward with no gradient."""
+    from immunostruct_tpu_torch.ops.egnn import egnn_stack
+    from immunostruct_tpu_torch.ops.mega import valid_edges
+    from immunostruct_tpu_torch.ops.stack import (
+        stack_fwd, stack_fwd_reference,
+    )
+
+    rows = []
+    for e in EDGE_COUNTS:
+        for name, dtype in DTYPES:
+            args, packed = stack_inputs(e, dtype, seed=e + 6)
+            out = stack_fwd(*args, packed)
+            torch.cuda.synchronize()
+            stats = stack_layer_errors(out, args, packed, dtype)
+            ms, plain_ms = alternate_ms(
+                lambda: stack_fwd_reference(*args, packed),
+                lambda: stack_fwd(*args, packed))
+            bare_ms = cuda_ms(lambda: stack_fwd(*args, packed,
+                                                residuals=False))
+            layers = egnn_stack(5, 20, H, generator=torch.Generator()
+                                .manual_seed(e + 6), device="cuda")
+
+            def per_layer():
+                from immunostruct_tpu_torch.ops.egnn import egnn_stack_apply
+
+                with torch.no_grad():
+                    egnn_stack_apply(layers, args[4], args[5], *args[:2],
+                                     args[3], args[2], "mega")
+
+            hybrid_ms = cuda_ms(per_layer)
+            valid = valid_edges(*args[:3], N).sum().item()
+            flops = 0
+            for weights in packed:
+                f = weights[0].shape[0] // 2
+                flops += (2 * B * N * f * 2 * H + 2 * valid * 2 * H * H
+                          + 2 * B * N * (f + H) * H + 2 * B * N * H * H)
+            work = bound(tensor_bytes(*args, *(t for w in packed for t in w),
+                                      *out), flops, dtype)
+            row = dict(E=e, F="20, then 64", dtype=name, **stats, **work,
+                       ms=ms, ms_without_residuals=bare_ms, plain_ms=plain_ms,
+                       per_layer_forward_no_grad_ms=hybrid_ms)
+            print("kernel B6:", json.dumps(row), flush=True)
+            rows.append(row)
+            del args, packed, out, layers
+    return rows
+
+
+def check_variant_first_steps() -> list:
+    """Each variant's first full-width HybridModelv2 step (bf16) against
+    'scatter' on a mirror-paired batch, as phase 16 holds 'mega''s."""
+    from immunostruct_tpu_torch.data.synthetic import build_batch
+
+    rows = []
+    for e in EDGE_COUNTS:
+        batch = build_batch(B, N, e, L, paired=True, device="cuda")
+        for v in ("dboth", "inkernel", "paired", "stack"):
+            first = first_step_vs_scatter(batch, "mega", v)
+            row = dict(E=e, variant=v, **first)
+            print("variant first step:", json.dumps(row), flush=True)
+            rows.append(row)
+    return rows
+
+
+def check_race() -> tuple:
+    """This slice's main path: cli.race_kernel_variants in-process at B=128,
+    E=2560 and 1408, --paired-batch, all six variants. Each variant's
+    launches per step are the ones VARIANT_LAUNCHES names, and its loss
+    falls."""
+    from immunostruct_tpu_torch.cli import race_kernel_variants as race
+
+    rows = []
+    total = (0,) * 10
+    for e in EDGE_COUNTS:
+        reset_counts()                  # every count to 0: the race starts
+        out = race.main(["--edges", str(e), "--batch", str(B),
+                         "--paired-batch", "--windows", str(RACE_WINDOWS),
+                         "--steps", str(RACE_STEPS), "--burnin",
+                         str(RACE_BURNIN), "--device", "cuda"])
+        counts = read_counts()          # read just after it
+        total = tuple(a + c for a, c in zip(total, counts))
+        assert list(out) == list(VARIANT_LAUNCHES), list(out)
+        for v, r in out.items():
+            assert r["launches_per_step"] == VARIANT_LAUNCHES[v], (v, r)
+            assert all(t == t and abs(t) < float("inf")
+                       for t in (r["loss0"], r["min_loss"],
+                                 *r["windows_loss"])), (v, r)
+            # the loss falls: on one fixed batch every variant's loss, the
+            # 'fused' control's too, spikes now and then and recovers
+            assert r["min_loss"] < r["loss0"], (v, r)
+        rows.append(dict(E=e, launches=counts, race=out))
+        print(f"race E={e}:", json.dumps(rows[-1]), flush=True)
+    # the path's kernels: every one but B8's ran
+    assert all(total[i] > 0 for i in (0, 1, 2, 3, 6, 7, 8, 9)), total
+    return rows, total
+
+
+def check_variant_serving(scorer) -> list:
+    """One B=128 forward with no gradient under 'stack' and 'paired' (the
+    served model, a mirror-paired batch at E=2560): probabilities within
+    PROB_ATOL of 'scatter', the variant's kernel alone launched."""
+    from immunostruct_tpu_torch.data.synthetic import build_batch
+    from immunostruct_tpu_torch.models.trunk import model_apply
+
+    batch = build_batch(B, N, EDGE_COUNTS[0], L, paired=True, device="cuda")
+
+    def probs(aggregation, variant):
+        with torch.inference_mode():
+            out = model_apply(scorer.model, batch.graph, batch.seq_onehot,
+                              batch.props, generator=scorer.generator(),
+                              deterministic=True, aggregation=aggregation,
+                              compute_dtype=scorer.compute_dtype,
+                              mega_variant=variant)
+            return torch.sigmoid(out.logits.reshape(-1)).double().cpu()
+
+    def forward_ms(aggregation, variant):
+        walls = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            probs(aggregation, variant)     # ends in a copy to the host
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(walls[1:])
+
+    want = probs("scatter", "hybrid")
+    rows = []
+    for variant, kernel in (("stack", 9), ("paired", 6)):
+        before = read_counts()
+        got = probs("mega", variant)
+        launched = tuple(a - z for a, z in zip(read_counts(), before))
+        layers = 1 if variant == "stack" else 6
+        assert launched == tuple(layers if i == kernel else 0
+                                 for i in range(10)), (variant, launched)
+        err = (got - want).abs().max().item()
+        assert torch.isfinite(got).all() and err <= PROB_ATOL, (variant, err)
+        row = dict(variant=variant, launches=launched,
+                   max_abs_prob_err_vs_scatter=err,
+                   median_forward_ms=forward_ms("mega", variant),
+                   median_forward_ms_hybrid=forward_ms("mega", "hybrid"))
+        print("served variant:", json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
 def device_profile(fn, traced: int) -> dict:
     """``traced`` calls of ``fn`` under torch.profiler: device time per call
     by kernel name."""
@@ -1649,9 +2103,9 @@ def profile_row(label, agg, per_name, traced, wall) -> dict:
     busy_ms = sum(t for t, _ in per_name.values()) / 1e3 / traced
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:5]
 
-    def kernel_ms(tag):
+    def kernel_ms(tag, also=""):
         return sum(t for name, (t, _) in per_name.items()
-                   if tag in name) / 1e3 / traced
+                   if tag in name and also in name) / 1e3 / traced
 
     row = dict(
         work=label, aggregation=agg, wall_ms_median=wall,
@@ -1659,11 +2113,15 @@ def profile_row(label, agg, per_name, traced, wall) -> dict:
         device_ops_per_call=sum(c for _, c in per_name.values()) / traced,
         idle_share=max(0.0, 1.0 - busy_ms / wall),
         b1_ms=kernel_ms("egnn_mega_fwd_kernel"),
-        b2_ms=kernel_ms("egnn_tail_bwd"),
+        b2_ms=kernel_ms("tail_bwd_kernel", ", 0>("),
         b3_fwd_ms=kernel_ms("egnn_edge_fwd"),
         b3_bwd_ms=kernel_ms("egnn_edge_bwd"),
         b8_scatter_ms=kernel_ms("segment_scatter_kernel"),
         b8_gather_ms=kernel_ms("segment_gather_kernel"),
+        b4_ms=kernel_ms("egnn_mega_paired_fwd_kernel"),
+        b5a_ms=kernel_ms("tail_bwd_kernel", ", 1>("),
+        b5b_ms=kernel_ms("tail_bwd_kernel", ", 2>("),
+        b6_ms=kernel_ms("egnn_stack_fwd_kernel"),
         top=[[name[:90], t / 1e3 / traced, c // traced]
              for name, (t, c) in top])
     print("profile:", json.dumps(row), flush=True)
@@ -1695,23 +2153,34 @@ def profile_forwards(scorer, requests, traced: int = 3) -> list:
 
 
 def profile_training(traced: int = 3) -> list:
-    """Train steps at B=128, E=2560 under 'mega', 'scatter', 'fused' and
-    'pallas': median wall of 8 untraced steps (after 3), then ``traced``
-    steps traced."""
-    from immunostruct_tpu_torch.data.synthetic import random_sample_batch
+    """Train steps at B=128, E=2560 under 'mega', 'scatter', 'fused',
+    'pallas' and 'mega' with mega_variant 'stack' and 'inkernel' (those two
+    on build_batch's mirror-paired batch): median wall of 8 untraced steps
+    (after 3), then ``traced`` steps traced."""
+    from immunostruct_tpu_torch.data.synthetic import (
+        build_batch, random_sample_batch,
+    )
 
     batch = random_sample_batch(B, N, EDGE_COUNTS[0], L, seed=0,
                                 device="cuda")
+    paired = build_batch(B, N, EDGE_COUNTS[0], L, paired=True, device="cuda")
     rows = []
-    for agg in ("mega", "scatter", "fused", "pallas"):
-        trainer, state = make_trainer("HybridModelv2", agg)
-        _, ms = timed_steps(trainer, state, batch, 11)
+    for agg, variant, data in (("mega", "hybrid", batch),
+                               ("scatter", "hybrid", batch),
+                               ("fused", "hybrid", batch),
+                               ("pallas", "hybrid", batch),
+                               ("mega", "stack", paired),
+                               ("mega", "inkernel", paired)):
+        trainer, state = make_trainer("HybridModelv2", agg,
+                                      mega_variant=variant)
+        _, ms = timed_steps(trainer, state, data, 11)
 
         def step():
-            trainer.train_step(state, batch, seed=0)
+            trainer.train_step(state, data, seed=0)
 
         per_name = device_profile(step, traced)
-        rows.append(profile_row("train step B=128 E=2560", agg, per_name,
+        label = agg if variant == "hybrid" else f"{agg} / {variant}"
+        rows.append(profile_row("train step B=128 E=2560", label, per_name,
                                 traced, statistics.median(ms[3:])))
         del trainer, state
     return rows
@@ -1722,7 +2191,7 @@ def main() -> int:
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from immunostruct_tpu_torch.ops import _build, edge, mega, segment
+    from immunostruct_tpu_torch.ops import _build, edge, mega, segment, stack
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1736,8 +2205,11 @@ def main() -> int:
     mega._kernel_libs()
     edge._kernel_libs()
     segment._lib()
+    stack._lib()
     build_s = time.perf_counter() - t0
-    print(f"kernel build + load (all five sources): {build_s:.1f} s",
+    sources = len(list(_build.CSRC.glob("*.cu")))
+    assert sources == 9, sources
+    print(f"kernel build + load (all {sources} sources): {build_s:.1f} s",
           flush=True)
 
     fwd_rows = check_fwd_kernel()
@@ -1747,6 +2219,10 @@ def main() -> int:
     check_fused_layer_grads()
     segment_rows = check_segment_kernels()
     check_pallas_layer_grads()
+    paired_rows = check_paired_kernel()
+    db_rows = check_tail_db_kernel()
+    nodes_rows = check_tail_nodes_kernel()
+    stack_rows = check_stack_kernel()
     scorer = full_width_scorer()
     with tempfile.TemporaryDirectory() as tmp:
         requests = write_requests(tmp)
@@ -1759,6 +2235,9 @@ def main() -> int:
         pallas_rows, pallas_counts = check_pallas_training(train_rows)
         cancer, cancer_operands = check_cancer_entry_point(tmp)
         segment_rows += check_entry_segment_kernels(cancer_operands)
+        variant_firsts = check_variant_first_steps()
+        race_rows, race_counts = check_race()
+        variant_served = check_variant_serving(scorer)
         profile_forwards(scorer, requests)
         profile_training()
 
@@ -1803,6 +2282,29 @@ def main() -> int:
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
               f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})")
+    for r in race_rows:
+        for v, t in r["race"].items():
+            print(f"race    [{card}]: B=128 E={r['E']} bf16 paired batch: "
+                  f"{v} p50 {t['p50_ms']:.3f} ms (best {t['best_ms']:.3f}, "
+                  f"windows {t['windows_ms']}), loss {t['loss0']:.4f} -> "
+                  f"window medians {t['windows_loss']}, least "
+                  f"{t['min_loss']:.4f}")
+    for r in variant_firsts:
+        print(f"variant [{card}]: first step E={r['E']} {r['variant']}: "
+              f"loss rel diff {r['loss_rel_diff']:.2e}, worst gradient "
+              f"{r['grad_worst_in_tol']:.3f} of its bound")
+    for r in variant_served:
+        print(f"serve   [{card}]: B=128 E=2560 {r['variant']}: median "
+              f"forward {r['median_forward_ms']:.3f} ms ('hybrid' "
+              f"{r['median_forward_ms_hybrid']:.3f} ms), prob err "
+              f"{r['max_abs_prob_err_vs_scatter']:.2e}")
+    for kind, rows in (("B4", paired_rows), ("B5a", db_rows),
+                       ("B5b", nodes_rows), ("B6", stack_rows)):
+        for r in rows:
+            print(f"kernel  [{card}]: {kind} B={B} E={r['E']} F={r['F']} "
+                  f"{r['dtype']}: kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']})")
     for kind, rows in (("B1", fwd_rows), ("B2", tail_rows),
                        ("B3", edge_rows)):
         for r in rows:
@@ -1819,13 +2321,16 @@ def main() -> int:
     launches = dict(serving=serving_counts, train=train_counts,
                     comparative=comp_counts, train_fused=fused_counts,
                     entry_point=entry["launches"], train_pallas=pallas_counts,
-                    entry_point_cancer=cancer["launches"])
+                    entry_point_cancer=cancer["launches"], race=race_counts)
     b1, b2 = pick(fwd_rows), pick(tail_rows)
     b3f, b3b = pick(edge_rows, kernel="fwd"), pick(edge_rows, kernel="bwd")
     b8s, b8g = (next(r for r in segment_rows if r["kernel"] == kind
                      and r["shapes"] == "bench" and r["E"] == 2560
                      and r["dtype"] == "bfloat16")
                 for kind in ("scatter", "gather"))
+    b4, b5a, b5b = pick(paired_rows), pick(db_rows), pick(nodes_rows)
+    b6 = next(r for r in stack_rows if r["E"] == 2560
+              and r["dtype"] == "bfloat16")
 
     def kernel_record(name, source, replaces, index, main_count, row, rows,
                       ms_key="ms"):
@@ -1840,7 +2345,7 @@ def main() -> int:
             "library_ms": row.get("library_ms"),
         }
 
-    # no single PyTorch call computes B1-B3: their library_ms is null; B8's
+    # no single PyTorch call computes B1-B6: their library_ms is null; B8's
     # is index_add_ (scatter) and index_select (gather)
     record = {"kernels": [
         kernel_record("egnn_mega_fwd", "egnn_mega_fwd.cu",
@@ -1866,7 +2371,20 @@ def main() -> int:
                       "immunostruct_tpu/ops/experimental/pallas_segment.py:79",
                       5, cancer["launches"][5], b8g,
                       [r for r in segment_rows if r["kernel"] == "gather"]),
+        kernel_record("egnn_mega_paired_fwd", "egnn_mega_paired_fwd.cu",
+                      "immunostruct_tpu/ops/pallas_mega.py:303", 6,
+                      race_counts[6], b4, paired_rows),
+        kernel_record("egnn_tail_bwd_db", "egnn_tail_bwd_db.cu",
+                      "immunostruct_tpu/ops/pallas_mega.py:501", 7,
+                      race_counts[7], b5a, db_rows),
+        kernel_record("egnn_tail_bwd_nodes", "egnn_tail_bwd_nodes.cu",
+                      "immunostruct_tpu/ops/pallas_mega.py:525", 8,
+                      race_counts[8], b5b, nodes_rows),
+        kernel_record("egnn_stack_fwd", "egnn_stack_fwd.cu",
+                      "immunostruct_tpu/ops/experimental/pallas_stack.py:98",
+                      9, race_counts[9], b6, stack_rows),
     ]}
+    assert len(record["kernels"]) == 10
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -56,464 +56,19 @@
 // their store in the compute dtype; d_m and W2 @ d_p2 are f32 sums; weight
 // gradients are f32 sums of products of the rounded values.
 //
+// The body is csrc/egnn_common.cuh's tail_bwd_kernel<T, H, kOperand>,
+// shared with the variants B5a and B5b.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (immunostruct_tpu_torch/ops/_build.py).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace {
-
-constexpr int kThreads = 256;
-constexpr int kTile = 64;    // edges per tile: 16 edge groups x 4 edges
-constexpr int kHidden = 64;  // H of every zoo model (gat_hidden_channels)
-constexpr int kReduceThreads = 256;
-
-// columns of the packed small [H, 6]
-constexpr int kW1R = 0, kW1E = 1, kB1 = 2, kB2 = 3, kBC1 = 4, kWC2 = 5;
-
-template <typename T>
-__device__ __forceinline__ float to_f(T v);
-template <>
-__device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// an f32 value stored in the compute dtype (round to nearest even)
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// round an f32 value to the compute dtype and back
-template <typename T>
-__device__ __forceinline__ float rnd(float v) {
-  return to_f<T>(from_f<T>(v));
-}
-
-__device__ __forceinline__ float sigmoid(float v) {
-  return 1.0f / (1.0f + expf(-v));
-}
-
-// d silu / dx from the pre-activation and its sigmoid
-__device__ __forceinline__ float silu_grad(float v, float s) {
-  return s * (1.0f + v * (1.0f - s));
-}
-
-// sum over the 16 column groups: lanes 0-15 / 16-31 of the warp
-__device__ __forceinline__ float sum16(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 8);
-  v += __shfl_xor_sync(0xffffffffu, v, 4);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v;
-}
-
-__host__ __device__ constexpr int row_stride(int hid) { return hid + 1; }
-
-// shared-memory floats: W2, Wc1 2*H*(H+1) | small^T 6*H | five edge-tile
-// buffers 5*kTile*(H+1) | per-edge values 11*kTile (+ kTile ints)
-__host__ __device__ inline long long smem_floats(int hid) {
-  return 2LL * hid * row_stride(hid) + 6LL * hid +
-         5LL * kTile * row_stride(hid) + 12LL * kTile;
-}
-
-// width of one block's partial gradients: dW2 | dWc1 | dsmall
-__host__ __device__ constexpr int grad_width(int hid) {
-  return 2 * hid * hid + 6 * hid;
-}
-
-// acc[i][c] += sum_k A[tg*4+i][k] * W(k, cg*CPT+c); W(k, j) at
-// w[k*LD + j] (kTransposed false) or w[j*LD + k] (true)
-template <int H, bool kTransposed>
-__device__ __forceinline__ void tile_product(const float* a, const float* w,
-                                             int tg, int cg,
-                                             float (&acc)[4][H / 16]) {
-  constexpr int LD = row_stride(H);
-  constexpr int CPT = H / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.0f;
-#pragma unroll 8
-  for (int k = 0; k < H; ++k) {
-    float av[4], wv[CPT];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(tg * 4 + i) * LD + k];
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int j = cg * CPT + c;
-      wv[c] = kTransposed ? w[j * LD + k] : w[k * LD + j];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[i][c] += av[i] * wv[c];
-  }
-}
-
-template <typename T, int H>
-__global__ void __launch_bounds__(kThreads)
-    egnn_tail_bwd_kernel(const uint8_t* __restrict__ valid,
-                         const T* __restrict__ ef,
-                         const float* __restrict__ w2,
-                         const float* __restrict__ wc1,
-                         const float* __restrict__ small,
-                         const T* __restrict__ a1, const T* __restrict__ xd,
-                         const T* __restrict__ dboth, T* __restrict__ dcat,
-                         T* __restrict__ def, float* __restrict__ partial,
-                         int E, int chunks, int chunk_edges) {
-  constexpr int C = H + 3;
-  constexpr int LD = row_stride(H);
-  constexpr int CPT = H / 16;  // columns per thread
-  static_assert(H % 16 == 0, "H must be a multiple of 16");
-
-  extern __shared__ float smem[];
-  float* w2s = smem;                 // [H][LD], row k = input unit k
-  float* wc1s = w2s + H * LD;        // [H][LD]
-  float* sms = wc1s + H * LD;        // [6][H] (small transposed)
-  float* bufA = sms + 6 * H;         // [kTile][LD] a1s
-  float* bufM = bufA + kTile * LD;   // [kTile][LD] m
-  float* bufG = bufM + kTile * LD;   // [kTile][LD] silu'(a1), then d_a1
-  float* bufP3 = bufG + kTile * LD;  // [kTile][LD] d_p3
-  float* bufP2 = bufP3 + kTile * LD; // [kTile][LD] d_m_in, then d_p2
-  float* radv = bufP2 + kTile * LD;  // [kTile] radial (rounded)
-  float* invv = radv + kTile;        // [kTile] 1 / (sqrt(radial) + 1e-30)
-  float* efv = invv + kTile;         // [kTile]
-  float* cwv = efv + kTile;          // [kTile] cw (rounded)
-  float* dcwv = cwv + kTile;         // [kTile] d_cw
-  float* xdv = dcwv + kTile;         // [3][kTile]
-  float* dmxv = xdv + 3 * kTile;     // [3][kTile] d_msgx
-  int* okv = reinterpret_cast<int*>(dmxv + 3 * kTile);
-
-  const int b = blockIdx.x / chunks;
-  const int e_begin = (blockIdx.x % chunks) * chunk_edges;
-  const int e_end = min(E, e_begin + chunk_edges);
-  const int tid = threadIdx.x;
-  const int tg = tid / 16;  // edge group: edges tg*4 .. tg*4+3 of a tile
-  const int cg = tid % 16;  // column group: columns cg*CPT .. +CPT-1
-  const uint8_t* vb = valid + (size_t)b * E;
-  const T* efb = ef + (size_t)b * E;
-  const T* a1b = a1 + (size_t)b * H * E;
-  const T* xdb = xd + (size_t)b * 3 * E;
-  const T* dbb = dboth + (size_t)b * C * E;
-  T* dcb = dcat + (size_t)b * C * E;
-  T* defb = def + (size_t)b * E;
-
-  // ---- weights, rounded to the compute dtype ----
-  for (int i = tid; i < H * H; i += kThreads) {
-    const int k = i / H, j = i % H;
-    w2s[k * LD + j] = rnd<T>(w2[i]);
-    wc1s[k * LD + j] = rnd<T>(wc1[i]);
-  }
-  for (int i = tid; i < 6 * H; i += kThreads) {
-    sms[(i % 6) * H + i / 6] = small[i];
-  }
-
-  // this thread's share of the weight gradients, summed over its tiles:
-  // dW2/dWc1 rows tg*4+r, columns cg*CPT+c; dsmall columns cg*CPT+c
-  float gw2[4][CPT], gwc1[4][CPT], gsm[6][CPT];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) gw2[r][c] = gwc1[r][c] = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 6; ++k)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) gsm[k][c] = 0.0f;
-  __syncthreads();
-
-  for (int e0 = e_begin; e0 < e_end; e0 += kTile) {
-    // ---- per-edge geometry and coordinate cotangent ----
-    if (tid < kTile) {
-      const int e = e0 + tid;
-      const int ok = e < e_end && vb[e] != 0;
-      float x0 = 0.0f, x1 = 0.0f, x2 = 0.0f, m0 = 0.0f, m1 = 0.0f,
-            m2 = 0.0f, ev = 0.0f;
-      if (ok) {
-        x0 = to_f(xdb[0 * E + e]);
-        x1 = to_f(xdb[1 * E + e]);
-        x2 = to_f(xdb[2 * E + e]);
-        m0 = to_f(dbb[(size_t)(H + 0) * E + e]);
-        m1 = to_f(dbb[(size_t)(H + 1) * E + e]);
-        m2 = to_f(dbb[(size_t)(H + 2) * E + e]);
-        ev = to_f(efb[e]);
-      }
-      const float r = rnd<T>(x0 * x0 + x1 * x1 + x2 * x2);
-      const float safe = r > 0.0f ? r : 1.0f;
-      okv[tid] = ok;
-      radv[tid] = r;
-      invv[tid] = 1.0f / (sqrtf(safe) + 1e-30f);
-      efv[tid] = ev;
-      xdv[0 * kTile + tid] = x0;
-      xdv[1 * kTile + tid] = x1;
-      xdv[2 * kTile + tid] = x2;
-      dmxv[0 * kTile + tid] = m0;
-      dmxv[1 * kTile + tid] = m1;
-      dmxv[2 * kTile + tid] = m2;
-    }
-    // ---- a1 -> a1s, silu'(a1); d_m_in (coalesced: t fastest) ----
-    for (int i = tid; i < kTile * H; i += kThreads) {
-      const int j = i / kTile, t = i % kTile;
-      const int e = e0 + t;
-      float a = 0.0f, dm = 0.0f;
-      if (e < e_end && vb[e] != 0) {
-        a = to_f(a1b[(size_t)j * E + e]);
-        dm = to_f(dbb[(size_t)j * E + e]);
-      }
-      const float s = sigmoid(a);
-      bufA[t * LD + j] = rnd<T>(a * s);
-      bufG[t * LD + j] = silu_grad(a, s);
-      bufP2[t * LD + j] = dm;
-    }
-    __syncthreads();
-
-    // ---- p2 = a1s @ W2 + b2 -> m; keep silu'(p2) ----
-    float g2[4][CPT];
-    {
-      float acc[4][CPT];
-      tile_product<H, false>(bufA, w2s, tg, cg, acc);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          const int t = tg * 4 + i, j = cg * CPT + c;
-          const float p = acc[i][c] + sms[kB2 * H + j];
-          const float s = sigmoid(p);
-          bufM[t * LD + j] = rnd<T>(p * s);
-          g2[i][c] = silu_grad(p, s);
-        }
-    }
-    __syncthreads();
-
-    // ---- p3 = m @ Wc1 + bc1 -> c1, cw; keep silu'(p3) and c1 ----
-    float g3[4][CPT], c1v[4][CPT];
-    {
-      float acc[4][CPT];
-      tile_product<H, false>(bufM, wc1s, tg, cg, acc);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = tg * 4 + i;
-        float part = 0.0f;
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          const int j = cg * CPT + c;
-          const float p = acc[i][c] + sms[kBC1 * H + j];
-          const float s = sigmoid(p);
-          c1v[i][c] = rnd<T>(p * s);
-          g3[i][c] = silu_grad(p, s);
-          part += c1v[i][c] * sms[kWC2 * H + j];
-        }
-        const float cw = sum16(part);
-        if (cg == 0) {
-          // d_cw = d_msgx . x_hat, x_hat = xd / (sqrt(radial) + 1e-30)
-          const float inv = invv[t];
-          cwv[t] = rnd<T>(cw);
-          dcwv[t] = dmxv[0 * kTile + t] * (xdv[0 * kTile + t] * inv) +
-                    dmxv[1 * kTile + t] * (xdv[1 * kTile + t] * inv) +
-                    dmxv[2 * kTile + t] * (xdv[2 * kTile + t] * inv);
-        }
-      }
-    }
-    __syncthreads();
-
-    // ---- d_p3 = wc2 * d_cw * silu'(p3); d bc1, d wc2 ----
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = tg * 4 + i;
-      const float dcw = dcwv[t];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const int j = cg * CPT + c;
-        const float dp3 = rnd<T>(sms[kWC2 * H + j] * dcw * g3[i][c]);
-        bufP3[t * LD + j] = dp3;
-        gsm[kBC1][c] += dp3;
-        gsm[kWC2][c] += c1v[i][c] * dcw;
-      }
-    }
-    __syncthreads();
-
-    // ---- d_m = d_m_in + Wc1 @ d_p3; d_p2 = d_m * silu'(p2); d b2 ----
-    {
-      float acc[4][CPT];
-      tile_product<H, true>(bufP3, wc1s, tg, cg, acc);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          const int t = tg * 4 + i, j = cg * CPT + c;
-          const float dm = bufP2[t * LD + j] + acc[i][c];
-          const float dp2 = rnd<T>(dm * g2[i][c]);
-          bufP2[t * LD + j] = dp2;  // read and written by this thread only
-          gsm[kB2][c] += dp2;
-        }
-    }
-    __syncthreads();
-
-    // ---- d_a1 = (W2 @ d_p2) * silu'(a1); d w1r, d w1e, d b1; d_xd, d_ef ----
-    {
-      float acc[4][CPT];
-      tile_product<H, true>(bufP2, w2s, tg, cg, acc);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = tg * 4 + i;
-        float prad = 0.0f, pef = 0.0f;
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          const int j = cg * CPT + c;
-          const float da = rnd<T>(acc[i][c] * bufG[t * LD + j]);
-          bufG[t * LD + j] = da;  // read and written by this thread only
-          gsm[kW1R][c] += da * radv[t];
-          gsm[kW1E][c] += da * efv[t];
-          gsm[kB1][c] += da;
-          prad += sms[kW1R * H + j] * da;
-          pef += sms[kW1E * H + j] * da;
-        }
-        const float d_rad_chain = sum16(prad);
-        const float d_ef = sum16(pef);
-        const int e = e0 + t;
-        if (cg == 0 && e < e_end) {
-          float dx[3] = {0.0f, 0.0f, 0.0f}, dfe = 0.0f;
-          if (okv[t]) {
-            const float r = radv[t], inv = invv[t], cwb = cwv[t];
-            const float safe = r > 0.0f ? r : 1.0f;
-            float sum_dxh_xd = 0.0f;
-#pragma unroll
-            for (int k = 0; k < 3; ++k) {
-              sum_dxh_xd += dmxv[k * kTile + t] * cwb * xdv[k * kTile + t];
-            }
-            const float d_safe =
-                sum_dxh_xd * (-0.5f) * inv * inv / sqrtf(safe);
-            const float d_rad = d_rad_chain + (r > 0.0f ? d_safe : 0.0f);
-#pragma unroll
-            for (int k = 0; k < 3; ++k) {
-              dx[k] = dmxv[k * kTile + t] * cwb * inv +
-                      2.0f * xdv[k * kTile + t] * d_rad;
-            }
-            dfe = d_ef;
-          }
-#pragma unroll
-          for (int k = 0; k < 3; ++k) {
-            dcb[(size_t)(H + k) * E + e] = from_f<T>(dx[k]);
-          }
-          defb[e] = from_f<T>(dfe);
-        }
-      }
-    }
-    __syncthreads();
-
-    // ---- d_a1 into d_cat (coalesced); dW2 += a1s (x) d_p2, dWc1 += m (x) d_p3
-    for (int i = tid; i < kTile * H; i += kThreads) {
-      const int j = i / kTile, t = i % kTile;
-      if (e0 + t < e_end) {
-        dcb[(size_t)j * E + e0 + t] = from_f<T>(okv[t] ? bufG[t * LD + j]
-                                                       : 0.0f);
-      }
-    }
-#pragma unroll 4
-    for (int t = 0; t < kTile; ++t) {
-      float av[4], mv[4], p2v[CPT], p3v[CPT];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        av[r] = bufA[t * LD + tg * 4 + r];
-        mv[r] = bufM[t * LD + tg * 4 + r];
-      }
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        p2v[c] = bufP2[t * LD + cg * CPT + c];
-        p3v[c] = bufP3[t * LD + cg * CPT + c];
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          gw2[r][c] += av[r] * p2v[c];
-          gwc1[r][c] += mv[r] * p3v[c];
-        }
-    }
-    __syncthreads();  // tile buffers and per-edge values are rewritten next
-  }
-
-  // ---- this block's partial gradients: dW2 | dWc1 | dsmall [H][6] ----
-  float* pb = partial + (size_t)blockIdx.x * grad_width(H);
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int row = tg * 4 + r, col = cg * CPT + c;
-      pb[row * H + col] = gw2[r][c];
-      pb[H * H + row * H + col] = gwc1[r][c];
-    }
-  float* red = bufA;  // [16 edge groups][6][H], over the free tile buffers
-#pragma unroll
-  for (int k = 0; k < 6; ++k)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      red[(tg * 6 + k) * H + cg * CPT + c] = gsm[k][c];
-    }
-  __syncthreads();
-  for (int i = tid; i < 6 * H; i += kThreads) {
-    const int j = i / 6, k = i % 6;
-    float s = 0.0f;
-    for (int g = 0; g < 16; ++g) s += red[(g * 6 + k) * H + j];
-    pb[2 * H * H + i] = s;
-  }
-}
-
-// grads[i] = sum over blocks, in block order, of partial[block][i]
-__global__ void __launch_bounds__(kReduceThreads)
-    egnn_tail_bwd_reduce(const float* __restrict__ partial, int blocks,
-                         int width, float* __restrict__ grads) {
-  const int i = blockIdx.x * kReduceThreads + threadIdx.x;
-  if (i >= width) return;
-  float s = 0.0f;
-  for (int k = 0; k < blocks; ++k) s += partial[(size_t)k * width + i];
-  grads[i] = s;
-}
-
-template <typename T, int H>
-cudaError_t launch(const uint8_t* valid, const void* ef, const float* w2,
-                   const float* wc1, const float* small, const void* a1,
-                   const void* xd, const void* dboth, void* dcat, void* def,
-                   float* partial, float* grads, int B, int E, int chunks,
-                   cudaStream_t stream) {
-  const size_t bytes = (size_t)smem_floats(H) * sizeof(float);
-  auto kernel = egnn_tail_bwd_kernel<T, H>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  // edges per chunk: a whole number of tiles
-  const int per = (E + chunks - 1) / chunks;
-  const int chunk_edges = (per + kTile - 1) / kTile * kTile;
-  const int blocks = B * chunks;
-  kernel<<<blocks, kThreads, bytes, stream>>>(
-      valid, static_cast<const T*>(ef), w2, wc1, small,
-      static_cast<const T*>(a1), static_cast<const T*>(xd),
-      static_cast<const T*>(dboth), static_cast<T*>(dcat),
-      static_cast<T*>(def), partial, E, chunks, chunk_edges);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int width = grad_width(H);
-  egnn_tail_bwd_reduce<<<(width + kReduceThreads - 1) / kReduceThreads,
-                         kReduceThreads, 0, stream>>>(partial, blocks, width,
-                                                      grads);
-  return cudaGetLastError();
-}
-
-}  // namespace
+#include "egnn_common.cuh"
 
 extern "C" {
 
 // Shared memory one CTA of the main kernel needs for hidden width H.
 long long egnn_tail_bwd_smem_bytes(int H) {
-  return smem_floats(H) * (long long)sizeof(float);
+  return egnn::tail_smem_floats(H) * (long long)sizeof(float);
 }
 
 // One backward: B*chunks CTAs of 256 threads, then the reduction, both on
@@ -528,7 +83,7 @@ int egnn_tail_bwd(const void* valid, const void* ef, const void* w2,
                   const void* xd, const void* dboth, void* dcat, void* def,
                   void* partial, void* grads, int B, int E, int H, int chunks,
                   int bf16, void* stream) {
-  if (B < 1 || E < 0 || H != kHidden || chunks < 1) {
+  if (B < 1 || E < 0 || H != egnn::kHidden || chunks < 1) {
     return cudaErrorInvalidValue;
   }
   const uint8_t* v = static_cast<const uint8_t*>(valid);
@@ -538,13 +93,15 @@ int egnn_tail_bwd(const void* valid, const void* ef, const void* w2,
   float* pp = static_cast<float*>(partial);
   float* pg = static_cast<float*>(grads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // no indices and no node count: d_both arrives gathered
   if (bf16) {
-    return launch<__nv_bfloat16, kHidden>(v, ef, pw2, pwc1, psm, a1, xd,
-                                          dboth, dcat, def, pp, pg, B, E,
-                                          chunks, st);
+    return egnn::launch_tail<__nv_bfloat16, egnn::kHidden, egnn::kOperand>(
+        nullptr, nullptr, v, ef, pw2, pwc1, psm, a1, xd, dboth, dcat,
+        nullptr, def, pp, pg, B, 0, E, chunks, st);
   }
-  return launch<float, kHidden>(v, ef, pw2, pwc1, psm, a1, xd, dboth, dcat,
-                                def, pp, pg, B, E, chunks, st);
+  return egnn::launch_tail<float, egnn::kHidden, egnn::kOperand>(
+      nullptr, nullptr, v, ef, pw2, pwc1, psm, a1, xd, dboth, dcat, nullptr,
+      def, pp, pg, B, 0, E, chunks, st);
 }
 
 }  // extern "C"

@@ -10,8 +10,9 @@ Filtering parity (preprocess.py:29-42): drop graphs whose name contains
 'NXVPMVATV' or 'X'; dedup by join key keeping the first; cut the last 2 node
 feature columns (h-bond donor/acceptor), leaving the 20-dim one-hot.
 
-Not ported yet: legacy PyG ``.pt`` graphs (``convert_graphs``) and the
-mirror-paired edge layout of the paired mega kernel (B4); both raise.
+Not ported yet: legacy PyG ``.pt`` graphs (``convert_graphs``); they raise.
+``GraphCorpus.stack(paired=True)`` lays the edges out mirror-paired for the
+paired mega kernel (B4, ``mega_variant='paired'``).
 """
 
 from __future__ import annotations
@@ -70,13 +71,36 @@ class GraphCorpus:
         node_onehot [M, N, 20] uint8, coords [M, N, 3] f32,
         edge_src/edge_dst [M, E] int32, edge_mask [M, E] bool,
         node_mask [M, N] bool, num_nodes [M] int32; N and E rounded up to
-        their multiples."""
-        if paired:
-            raise ValueError("the mirror-paired edge layout (B4's) is not "
-                             "ported to PyTorch yet")
+        their multiples.
+
+        ``paired=True`` gives the mirror-paired layout of the paired kernel
+        (B4): each graph's arcs are put in order by
+        ``structs.mirror_pair_edge_index``, each half is padded on its own
+        to a common multiple of ``edges_multiple`` (so E is twice that), and
+        slot k + E/2 holds the reverse of slot k, padding mirrored. As in
+        the JAX package, ``max_edges`` is then a floor on E, not a cap.
+        Raises ValueError naming a graph whose edge list cannot be paired."""
         m = len(self)
         n = _round_up(max_nodes or self.max_nodes, nodes_multiple)
-        e = _round_up(max(max_edges or self.max_edges, 1), edges_multiple)
+        if paired:
+            from immunostruct_tpu_torch.structs import mirror_pair_edge_index
+
+            ordered = []
+            for i, ei in enumerate(self.edge_index):
+                oi = mirror_pair_edge_index(ei)
+                if oi is None:
+                    raise ValueError(
+                        f"graph {self.keys[i]}: edge list not mirror-"
+                        "pairable (self loop / unpaired arc / duplicate) "
+                        "— cannot use the paired edge layout")
+                ordered.append(oi)
+            want_half = max((max_edges or 0) + 1, 2) // 2 if max_edges else 1
+            half = _round_up(
+                max(want_half, max((ei.shape[1] // 2 for ei in ordered),
+                                   default=1), 1), edges_multiple)
+            e = 2 * half
+        else:
+            e = _round_up(max(max_edges or self.max_edges, 1), edges_multiple)
         out = {
             "node_onehot": np.zeros((m, n, 20), np.uint8),
             "coords": np.zeros((m, n, 3), np.float32),
@@ -87,16 +111,24 @@ class GraphCorpus:
             "num_nodes": np.zeros((m,), np.int32),
         }
         for i in range(m):
-            f, c, ei = self.node_onehot[i], self.coords[i], self.edge_index[i]
+            f, c = self.node_onehot[i], self.coords[i]
+            ei = ordered[i] if paired else self.edge_index[i]
             ni, ne = f.shape[0], ei.shape[1]
             if ni > n or ne > e:
                 raise ValueError(f"graph {self.keys[i]}: {ni} nodes/{ne} "
                                  f"edges exceed pad {n}/{e}")
             out["node_onehot"][i, :ni] = f.astype(np.uint8)
             out["coords"][i, :ni] = c
-            out["edge_src"][i, :ne] = ei[0]
-            out["edge_dst"][i, :ne] = ei[1]
-            out["edge_mask"][i, :ne] = True
+            if paired:
+                u, half = ne // 2, e // 2
+                for lo, a, b in ((0, 0, 1), (half, 1, 0)):
+                    out["edge_src"][i, lo:lo + u] = ei[a, :u]
+                    out["edge_dst"][i, lo:lo + u] = ei[b, :u]
+                    out["edge_mask"][i, lo:lo + u] = True
+            else:
+                out["edge_src"][i, :ne] = ei[0]
+                out["edge_dst"][i, :ne] = ei[1]
+                out["edge_mask"][i, :ne] = True
             out["node_mask"][i, :ni] = True
             out["num_nodes"][i] = ni
         return out

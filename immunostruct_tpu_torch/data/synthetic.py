@@ -1,7 +1,7 @@
 """Seeded synthetic inputs (counterpart of ``immunostruct_tpu/data/synthetic.py``
 ``synthetic_corpus``/``synthetic_comparative_corpus``/``random_sample_batch``/
-``random_comparative_batch`` and ``immunostruct_tpu/serving.py``
-``write_example``).
+``random_comparative_batch``, ``immunostruct_tpu/serving.py``
+``write_example`` and ``scripts/perf_sweep.py`` ``build_batch``).
 
 The functions make the same ``np.random.default_rng`` calls in the same
 order as the JAX package, so one seed gives bit-identical arrays in both
@@ -228,6 +228,40 @@ def random_sample_batch(batch: int, nodes: int, edges: int, seq_len: int,
     """``random_sample_arrays`` as a SampleBatch on ``device``."""
     return SampleBatch.from_numpy(
         random_sample_arrays(batch, nodes, edges, seq_len, seed), device)
+
+
+def build_batch(batch: int, nodes: int, edges: int, seq_len: int,
+                paired: bool = False,
+                device: torch.device | str = "cpu") -> SampleBatch:
+    """The kernel races' batch (counterpart of ``scripts/perf_sweep.py``
+    ``build_batch``: the same draws from ``default_rng(0)``). Every edge is
+    real. ``paired=True`` lays the random edges out mirror-paired (slot
+    k + E/2 is the reverse of slot k, no self loops): a valid input for every
+    kernel variant and the layout ``mega_variant='paired'`` requires."""
+    rng = np.random.default_rng(0)
+    onehot = np.zeros((batch, nodes, 20), np.float32)
+    for b in range(batch):
+        onehot[b, np.arange(nodes), rng.integers(0, 20, nodes)] = 1.0
+    if paired:
+        half = edges // 2
+        s0 = rng.integers(0, nodes, (batch, half)).astype(np.int32)
+        d0 = ((s0 + rng.integers(1, nodes, (batch, half))) % nodes
+              ).astype(np.int32)
+        esrc = np.concatenate([s0, d0], axis=1)
+        edst = np.concatenate([d0, s0], axis=1)
+    else:
+        esrc = rng.integers(0, nodes, (batch, edges)).astype(np.int32)
+        edst = rng.integers(0, nodes, (batch, edges)).astype(np.int32)
+    coords = rng.standard_normal((batch, nodes, 3)).astype(np.float32)
+    return SampleBatch.from_numpy(dict(
+        node_feat=onehot, coords=coords, edge_src=esrc, edge_dst=edst,
+        edge_feat=np.ones((batch, edges, 1), np.float32),
+        edge_mask=np.ones((batch, edges), bool),
+        node_mask=np.ones((batch, nodes), bool),
+        num_nodes=np.full((batch,), nodes, np.int32),
+        seq_onehot=rng.random((batch, seq_len, 21)).astype(np.float32),
+        props=rng.random((batch, 2)).astype(np.float32),
+        target=(rng.random(batch) > 0.5).astype(np.float32)), device)
 
 
 def random_comparative_batch(batch: int, nodes: int, edges: int,

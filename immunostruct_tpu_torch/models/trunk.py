@@ -182,13 +182,15 @@ def reset_head(model: ImmunoStructModel, generator: torch.Generator
 
 
 def _structure_branch(model: ImmunoStructModel, graph: GraphBatch,
-                      aggregation: str, compute_dtype):
+                      aggregation: str, compute_dtype,
+                      mega_variant: str = "hybrid"):
     spec = model.spec
     h = graph.node_feat[..., :NUM_AMINO_ACIDS].to(compute_dtype)
     x = graph.coords.to(compute_dtype)
     h, _ = egnn_stack_apply(model.gcn, h, x, graph.edge_src, graph.edge_dst,
                             graph.edge_feat, graph.edge_mask,
-                            aggregation=aggregation)
+                            aggregation=aggregation,
+                            mega_variant=mega_variant)
     if spec.node_attention == "self":
         attn_out, attn_w = self_attention_apply(model.node_attn, h)
     else:
@@ -230,15 +232,17 @@ def forward_item(model: ImmunoStructModel, graph: Optional[GraphBatch],
                  generator: Optional[torch.Generator] = None,
                  deterministic: bool = False, aggregation: str = "auto",
                  compute_dtype=torch.float32,
-                 eps: Optional[torch.Tensor] = None):
+                 eps: Optional[torch.Tensor] = None,
+                 mega_variant: str = "hybrid"):
     """Single-branch forward. Returns (embedding, recon, mu, logvar,
-    attention weights); ``embedding`` is [pool | z_vae]."""
+    attention weights); ``embedding`` is [pool | z_vae]. ``mega_variant``:
+    the kernel variant of aggregation 'mega' (``egnn_stack_apply``)."""
     spec = model.spec
     pooled, attn_w, recon, mu, logvar = None, None, None, None, None
     pieces = []
     if spec.use_structure:
         pooled, attn_w = _structure_branch(model, graph, aggregation,
-                                           compute_dtype)
+                                           compute_dtype, mega_variant)
         pieces.append(pooled)
     if spec.use_sequence:
         b = seq_onehot.shape[0]
@@ -283,14 +287,15 @@ def model_apply(model: ImmunoStructModel, graph: Optional[GraphBatch],
                 generator: Optional[torch.Generator] = None,
                 deterministic: bool = False, aggregation: str = "auto",
                 compute_dtype=torch.float32,
-                eps: Optional[torch.Tensor] = None) -> ModelOutput:
+                eps: Optional[torch.Tensor] = None,
+                mega_variant: str = "hybrid") -> ModelOutput:
     """Plain (non-comparative) forward. For comparative specs the item
     embedding is duplicated to fill the 2x-wide classifier, as in the JAX
     package's pretraining path."""
     embedding, recon, mu, logvar, attn_w = forward_item(
         model, graph, seq_onehot, props, generator=generator,
         deterministic=deterministic, aggregation=aggregation,
-        compute_dtype=compute_dtype, eps=eps)
+        compute_dtype=compute_dtype, eps=eps, mega_variant=mega_variant)
     combined = embedding
     if model.spec.comparative and model.spec.use_wt_for_downstream:
         combined = torch.cat([embedding, embedding], dim=-1)
@@ -317,7 +322,8 @@ def model_apply_comparative(model: ImmunoStructModel, graph_pair, seq_pair,
                             deterministic: bool = False,
                             aggregation: str = "auto",
                             compute_dtype=torch.float32,
-                            stack_twins: bool = False, eps=None):
+                            stack_twins: bool = False, eps=None,
+                            mega_variant: str = "hybrid"):
     """Twin forward over (cancer, wt) with shared weights.
 
     Returns (ModelOutput_cancer, ModelOutput_wt, logits). The logits come
@@ -329,7 +335,8 @@ def model_apply_comparative(model: ImmunoStructModel, graph_pair, seq_pair,
     noise, a (cancer, wt) pair for two passes or one [2B, latent] tensor
     for the stacked pass; None draws it from ``generator``."""
     kw = dict(generator=generator, deterministic=deterministic,
-              aggregation=aggregation, compute_dtype=compute_dtype)
+              aggregation=aggregation, compute_dtype=compute_dtype,
+              mega_variant=mega_variant)
     if stack_twins:
         b = (seq_pair[0] if seq_pair[0] is not None
              else graph_pair[0].node_feat).shape[0]

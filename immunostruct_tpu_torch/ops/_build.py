@@ -7,7 +7,8 @@ interface (no PyTorch headers, so a build takes seconds):
          -Xcompiler -fPIC -Xptxas -v -o <lib> <source>
 
 The library goes to ``immunostruct_tpu_torch/_build/`` (git-ignored), named
-by a hash of the source and the flags, so an edited source rebuilds. The
+by a hash of the source, the shared headers (``csrc/*.cuh``) and the flags,
+so an edited source or header rebuilds. The
 compiler's report (registers, shared memory, spills per kernel) is printed
 to standard error on every build. ``build`` starts one nvcc per missing
 library, all at once. Nothing here runs at import time.
@@ -44,8 +45,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    text = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        text += header.read_bytes()
+    digest = hashlib.sha256(text
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -16,7 +16,13 @@ Aggregation strategies:
   'mega'     the edge half of every layer in hand-written Hopper kernels
              from the raw edge indices (ops/mega.py): B1 forward, B2 in the
              backward; the node MLP stays in PyTorch. On CPU tensors
-             ``edge_mega`` runs their plain versions.
+             ``edge_mega`` runs their plain versions. ``mega_variant`` picks
+             the JAX package's kernel variants per call ('hybrid', the
+             default; 'dboth' B5a and 'inkernel' B5b in the backward;
+             'paired' B4 on the mirror-paired layout, checked once before
+             the first layer; 'stack' B6, the whole stack in one kernel,
+             ops/stack.py). Any other aggregation raises with a variant
+             other than 'hybrid'.
   'fused'    [h ++ x] bundles gathered by src and by dst into the transposed
              edge layout [B, F+3, E], the edge program in hand-written Hopper
              kernels (ops/edge.py: B3 forward, B3 backward recomputing the
@@ -52,9 +58,12 @@ from torch import nn
 from immunostruct_tpu_torch.ops.edge import (
     EDGE_MULTIPLE, edge_program, pack_params,
 )
-from immunostruct_tpu_torch.ops.mega import edge_mega
+from immunostruct_tpu_torch.ops.mega import (
+    check_paired, check_variant, edge_mega,
+)
 from immunostruct_tpu_torch.ops.nnp import Linear, linear_apply
 from immunostruct_tpu_torch.ops.segment import SegmentScatter
+from immunostruct_tpu_torch.ops.stack import apply_stack
 
 NOT_PORTED = ("onehot", "onehot_remat")
 
@@ -161,14 +170,14 @@ def _egnn_apply_scatter(p: EGNNLayer, h, x, edge_src, edge_dst, edge_feat,
 
 
 def _egnn_apply_mega(p: EGNNLayer, h, x, edge_src, edge_dst, edge_feat,
-                     edge_mask):
+                     edge_mask, mega_variant: str = "hybrid"):
     if edge_feat.shape[-1] != 1:
         raise ValueError("aggregation 'mega' takes 1-dim edge features, got "
                          f"{edge_feat.shape[-1]}")
     w1ab, w2, wc1, small = pack_params(p.edge_mlp, p.coord_mlp)
     agg = edge_mega(edge_src, edge_dst, edge_mask, edge_feat,
                     h.contiguous(), x.to(h.dtype).contiguous(), w1ab, w2,
-                    wc1, small).to(h.dtype)
+                    wc1, small, mega_variant).to(h.dtype)
     c = agg.shape[-1] - 3
     return _node_update(p, h, x, agg[..., :c], agg[..., c:].to(x.dtype))
 
@@ -265,14 +274,21 @@ def _egnn_apply_pallas(p: EGNNLayer, h, x, edge_src, edge_dst, edge_feat,
 def egnn_apply(p: EGNNLayer, h: torch.Tensor, x: torch.Tensor,
                edge_src: torch.Tensor, edge_dst: torch.Tensor,
                edge_feat: torch.Tensor, edge_mask: torch.Tensor,
-               aggregation: str = "scatter"
+               aggregation: str = "scatter", mega_variant: str = "hybrid"
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One EGNN layer. h [B,N,F], x [B,N,3], edge_src/edge_dst [B,E],
-    edge_feat [B,E,1], edge_mask [B,E]. Returns (h', x')."""
+    edge_feat [B,E,1], edge_mask [B,E]. Returns (h', x'). ``mega_variant``
+    is a per-layer variant of 'mega' ('stack' spans the whole stack:
+    ``egnn_stack_apply``); under 'paired' the caller holds the batch to
+    ``check_paired``."""
     aggregation = resolve_aggregation(aggregation, h.device)
+    check_variant(mega_variant, aggregation)
+    if mega_variant == "stack":
+        raise ValueError("mega_variant='stack' runs the whole conv stack "
+                         "in one kernel: call egnn_stack_apply")
     if aggregation == "mega":
         return _egnn_apply_mega(p, h, x, edge_src, edge_dst, edge_feat,
-                                edge_mask)
+                                edge_mask, mega_variant)
     if aggregation == "fused":
         return _egnn_apply_fused(p, h, x, edge_src, edge_dst, edge_feat,
                                  edge_mask)
@@ -284,10 +300,20 @@ def egnn_apply(p: EGNNLayer, h: torch.Tensor, x: torch.Tensor,
 
 
 def egnn_stack_apply(layers: Sequence[EGNNLayer], h, x, edge_src, edge_dst,
-                     edge_feat, edge_mask, aggregation: str = "auto"):
-    """Run the conv stack. Returns (h, x)."""
+                     edge_feat, edge_mask, aggregation: str = "auto",
+                     mega_variant: str = "hybrid"):
+    """Run the conv stack. Returns (h, x). ``mega_variant`` (aggregation
+    'mega' only): 'stack' runs every layer in B6 (``apply_stack``);
+    'paired' checks the mirror-paired layout once, here, before the first
+    layer; the others pick each layer's kernels."""
     aggregation = resolve_aggregation(aggregation, h.device)
+    check_variant(mega_variant, aggregation)
+    if mega_variant == "stack":
+        return apply_stack(layers, h, x, edge_src, edge_dst, edge_feat,
+                           edge_mask)
+    if mega_variant == "paired":
+        check_paired(edge_src, edge_dst, edge_mask)
     for p in layers:
         h, x = egnn_apply(p, h, x, edge_src, edge_dst, edge_feat, edge_mask,
-                          aggregation)
+                          aggregation, mega_variant)
     return h, x

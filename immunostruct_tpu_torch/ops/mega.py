@@ -12,8 +12,9 @@ For each graph b and each real edge (s -> d):
     cw      = silu(m @ Wc1 + bc1) @ wc2
     out[d] += [m ++ cw * x_hat]                      f32 sum, [B, N, H+3]
 
-Two hand-written Hopper kernels carry it, each with its plain PyTorch
-version beside it in this module:
+Two hand-written Hopper kernels carry it by default (three more carry the
+variants below), each with its plain PyTorch version beside it in this
+module; the kernels share their device code (csrc/egnn_common.cuh):
 
   B1  ``edge_mega_fwd``  -> csrc/egnn_mega_fwd.cu  (plain: ``edge_mega_fwd_reference``)
       the forward; for training it also writes the residuals a1 [B,H,E] and
@@ -29,6 +30,32 @@ leaves it to XLA einsums. ``EdgeMega`` is the ``torch.autograd.Function``
 and ``edge_mega`` the op. A CUDA tensor launches the kernels or raises; a
 CPU tensor takes the plain versions. A forward that needs no gradient
 (inference) skips the residual stores.
+
+The JAX package's kernel variants, each reached there through a module
+global, are per-call options here (``mega_variant``, ``MEGA_VARIANTS``):
+
+  'hybrid'   B1 forward; B2 backward with PyTorch's gather of d_both and
+             two ``scatter_add_`` (the defaults).
+  'dboth'    B1 forward; B5a ``tail_bwd_db`` -> csrc/egnn_tail_bwd_db.cu
+             (plain: ``tail_bwd_db_reference``), B2 with d_both = g[dst]
+             read in the kernel (JAX ``BWD_DBOTH_INKERNEL``).
+  'inkernel' B1 forward; B5b ``tail_bwd_nodes`` -> csrc/egnn_tail_bwd_nodes.cu
+             (plain: ``tail_bwd_nodes_reference``), B5a that also sums d_cat
+             into node space by src and by dst in f32 (d_nodes [B,N,2(H+3)]),
+             so no [B,C,E] cotangent reaches device memory
+             (``BWD_INKERNEL_NODES``).
+  'paired'   B4 ``edge_mega_paired_fwd`` -> csrc/egnn_mega_paired_fwd.cu
+             (plain: ``edge_mega_paired_fwd_reference``): B1 on the
+             mirror-paired layout, edge k + E/2 the reverse of edge k. The
+             kernel reads the arc half's indices and mask only; one xd and
+             one geometry serve both directions. The backward is 'hybrid''s
+             (``MEGA_PAIRED``). ``check_paired`` tests the layout.
+  'stack'    B6, all layers in one kernel (ops/stack.py; ``STACK_ENABLE``),
+             taken by ``egnn_stack_apply``, not by this per-layer op.
+
+The JAX package falls back silently where its TPU lowering cannot take a
+variant (lane alignment, the VMEM budget); the Hopper kernels have neither
+gate, so a variant runs wherever its semantics hold and raises elsewhere.
 
 Rounding points under bf16 are the TPU kernels'. Forward: the weights
 W1ab/W2/Wc1 are rounded to the compute dtype; pa and pb are rounded, then
@@ -62,10 +89,58 @@ from immunostruct_tpu_torch.ops.edge import (  # noqa: F401 (pack_params re-expo
 )
 
 
+MEGA_VARIANTS = ("hybrid", "dboth", "inkernel", "paired", "stack")
+# the backward of one layer's edge half under each per-layer variant
+_BACKWARD = {"hybrid": "hybrid", "dboth": "dboth", "inkernel": "inkernel",
+             "paired": "hybrid"}
+
+
+def check_variant(mega_variant: str, aggregation: str = "mega") -> None:
+    """Raise unless ``mega_variant`` is one of MEGA_VARIANTS and, when it is
+    not 'hybrid', the aggregation is 'mega'."""
+    if mega_variant not in MEGA_VARIANTS:
+        raise ValueError(f"unknown mega_variant '{mega_variant}'; choose "
+                         f"from {MEGA_VARIANTS}")
+    if mega_variant != "hybrid" and aggregation != "mega":
+        raise ValueError(f"mega_variant='{mega_variant}' is a form of "
+                         f"aggregation 'mega', not of '{aggregation}'")
+
+
 def valid_edges(src, dst, mask, n: int) -> torch.Tensor:
     """[B, E] bool: the edges the kernels compute (mask True, both indices
     in [0, N))."""
     return mask & (src >= 0) & (src < n) & (dst >= 0) & (dst < n)
+
+
+def mirror_edges(src, dst, mask):
+    """(src, dst, mask) [B, E] of the mirror-paired layout that the arc half
+    (edges 0 .. E/2-1) implies: edge k + E/2 is the reverse of edge k with
+    its mask. What B4 computes on, whatever the second half holds."""
+    half = src.shape[1] // 2
+    s, d, m = src[:, :half], dst[:, :half], mask[:, :half]
+    return (torch.cat([s, d], 1).contiguous(), torch.cat([d, s], 1).contiguous(),
+            torch.cat([m, m], 1).contiguous())
+
+
+def check_paired(src, dst, mask) -> None:
+    """Raise unless the batch holds the mirror-paired layout: E even,
+    src[:, k+E/2] == dst[:, k], dst[:, k+E/2] == src[:, k] and
+    mask[:, k+E/2] == mask[:, k] for every k (padding mirrored too). One
+    comparison on the tensors' device."""
+    e = src.shape[1]
+    if e % 2:
+        raise ValueError(f"mega_variant='paired' needs an even edge count "
+                         f"(the mirror-paired layout), got E={e}")
+    half = e // 2
+    ok = ((src[:, half:] == dst[:, :half]).all()
+          & (dst[:, half:] == src[:, :half]).all()
+          & (mask[:, half:] == mask[:, :half]).all())
+    if not bool(ok):
+        raise ValueError(
+            "mega_variant='paired' needs the mirror-paired edge layout (edge "
+            "k + E/2 the reverse of edge k, masks mirrored; "
+            "GraphCorpus.stack(paired=True) or build_batch(paired=True)); "
+            "this batch breaks it")
 
 
 # --------------------------------------------------------------------------
@@ -195,6 +270,49 @@ def tail_bwd_reference(ef, w2, wc1, small, a1, xd, d_both, valid=None):
             dw2, dwc1, dsmall)
 
 
+def edge_mega_paired_fwd_reference(src, dst, mask, ef, h, x, w1ab, w2, wc1,
+                                   small):
+    """Plain PyTorch version of B4: B1 on ``mirror_edges(src, dst, mask)``.
+    The mirror's xd is -xd exactly (rounding is symmetric), so this is the
+    paired kernel's arithmetic."""
+    if src.shape[1] % 2:
+        raise ValueError(f"the paired layout needs an even edge count, got "
+                         f"E={src.shape[1]}")
+    return edge_mega_fwd_reference(*mirror_edges(src, dst, mask), ef, h, x,
+                                   w1ab, w2, wc1, small)
+
+
+def _gather_rows(g, idx, valid):
+    """[B, E, C]: row idx[b, e] of g[b], zero where ``valid`` is False."""
+    d = torch.where(valid, idx, 0).long()[..., None].expand(-1, -1,
+                                                           g.shape[-1])
+    return torch.where(valid[..., None], torch.gather(g, 1, d), 0.0)
+
+
+def tail_bwd_db_reference(dst, valid, ef, w2, wc1, small, a1, xd, g):
+    """Plain PyTorch version of B5a: B2 with d_both = g[dst] formed from
+    g [B, N, H+3] in the compute dtype. Returns B2's outputs."""
+    d_both = _gather_rows(g, dst, valid).transpose(1, 2).contiguous()
+    return tail_bwd_reference(ef, w2, wc1, small, a1, xd, d_both, valid)
+
+
+def tail_bwd_nodes_reference(src, dst, valid, ef, w2, wc1, small, a1, xd, g):
+    """Plain PyTorch version of B5b: B5a, then d_cat summed in f32 into node
+    space by src and by dst. Returns (d_nodes [B, N, 2(H+3)] f32 = [d_src |
+    d_dst], d_ef [B, 1, E], dW2, dWc1, dsmall)."""
+    d_cat, d_ef, dw2, dwc1, dsmall = tail_bwd_db_reference(
+        dst, valid, ef, w2, wc1, small, a1, xd, g)
+    b, n, c = g.shape
+    dcf = d_cat.transpose(1, 2).float()                        # [B, E, C]
+    d_nodes = torch.zeros(b, n, 2 * c, dtype=torch.float32, device=g.device)
+    for side, idx in enumerate((src, dst)):
+        i = torch.where(valid, idx, 0).long()[..., None].expand(-1, -1, c)
+        part = torch.zeros(b, n, c, dtype=torch.float32, device=g.device)
+        part.scatter_add_(1, i, torch.where(valid[..., None], dcf, 0.0))
+        d_nodes[..., side * c:(side + 1) * c] = part
+    return d_nodes, d_ef, dw2, dwc1, dsmall
+
+
 # --------------------------------------------------------------------------
 # the kernels' wrappers
 # --------------------------------------------------------------------------
@@ -225,9 +343,57 @@ def _tail_lib():
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _paired_lib():
+    from immunostruct_tpu_torch.ops._build import load_library
+
+    lib = load_library("egnn_mega_paired_fwd")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.egnn_mega_paired_fwd.argtypes = [ptr] * 14 + [i32] * 6 + [ptr]
+    lib.egnn_mega_paired_fwd.restype = i32
+    lib.egnn_mega_paired_fwd_smem_bytes.argtypes = [i32, i32]
+    lib.egnn_mega_paired_fwd_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _tail_db_lib():
+    from immunostruct_tpu_torch.ops._build import load_library
+
+    lib = load_library("egnn_tail_bwd_db")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.egnn_tail_bwd_db.argtypes = [ptr] * 13 + [i32] * 6 + [ptr]
+    lib.egnn_tail_bwd_db.restype = i32
+    lib.egnn_tail_bwd_db_smem_bytes.argtypes = [i32]
+    lib.egnn_tail_bwd_db_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _tail_nodes_lib():
+    from immunostruct_tpu_torch.ops._build import load_library
+
+    lib = load_library("egnn_tail_bwd_nodes")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.egnn_tail_bwd_nodes.argtypes = [ptr] * 14 + [i32] * 5 + [ptr]
+    lib.egnn_tail_bwd_nodes.restype = i32
+    lib.egnn_tail_bwd_nodes_smem_bytes.argtypes = [i32]
+    lib.egnn_tail_bwd_nodes_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
 def _kernel_libs():
-    """Build (at first use) and load both kernels' libraries."""
-    return _fwd_lib(), _tail_lib()
+    """Build (at first use) and load every kernel library of this module."""
+    return (_fwd_lib(), _tail_lib(), _paired_lib(), _tail_db_lib(),
+            _tail_nodes_lib())
+
+
+def _check_smem(props, smem: int, name: str, shape: str) -> None:
+    if smem > props.shared_memory_per_block_optin:
+        raise ValueError(
+            f"{name} kernel needs {smem} B of shared memory for {shape}; "
+            f"the card allows {props.shared_memory_per_block_optin} B per "
+            "block")
 
 
 def edge_mega_fwd(src, dst, mask, ef, h, x, w1ab, w2, wc1, small,
@@ -238,17 +404,52 @@ def edge_mega_fwd(src, dst, mask, ef, h, x, w1ab, w2, wc1, small,
     CUDA tensors launch csrc/egnn_mega_fwd.cu or raise; CPU tensors go
     through ``edge_mega_fwd_reference``. ``edge_mega.launches`` counts the
     kernel's launches."""
+    out = _fwd_launch("edge_mega", edge_mega_fwd_reference, _fwd_lib,
+                      "egnn_mega_fwd", src, dst, mask, ef, h, x, w1ab, w2,
+                      wc1, small, residuals)
+    if h.device.type == "cuda":
+        edge_mega.launches += 1
+    return out
+
+
+def edge_mega_paired_fwd(src, dst, mask, ef, h, x, w1ab, w2, wc1, small,
+                         residuals: bool = True):
+    """B4: B1's outputs on the mirror-paired layout, from the arc half's
+    indices and mask (edges 0 .. E/2-1; ``mirror_edges`` says what the
+    kernel computes on). E must be even.
+
+    CUDA tensors launch csrc/egnn_mega_paired_fwd.cu or raise; CPU tensors
+    go through ``edge_mega_paired_fwd_reference``.
+    ``edge_mega_paired_fwd.launches`` counts the kernel's launches."""
+    if src.shape[1] % 2:
+        raise ValueError(f"the paired layout needs an even edge count, got "
+                         f"E={src.shape[1]}")
+    out = _fwd_launch("edge_mega_paired", edge_mega_paired_fwd_reference,
+                      _paired_lib, "egnn_mega_paired_fwd", src, dst, mask,
+                      ef, h, x, w1ab, w2, wc1, small, residuals)
+    if h.device.type == "cuda":
+        edge_mega_paired_fwd.launches += 1
+    return out
+
+
+edge_mega_paired_fwd.launches = 0
+
+
+def _fwd_launch(name, reference, lib_fn, entry, src, dst, mask, ef, h, x,
+                w1ab, w2, wc1, small, residuals):
+    """B1 or B4 (``entry``, the C function of ``lib_fn()``'s library, with
+    the same interface): the CPU path, the checks and the launch."""
     if h.device.type == "cpu":
-        out, a1, xd = edge_mega_fwd_reference(src, dst, mask, ef, h, x,
-                                              w1ab, w2, wc1, small)
+        out, a1, xd = reference(src, dst, mask, ef, h, x, w1ab, w2, wc1,
+                                small)
         return (out, a1, xd) if residuals else (out, None, None)
     if h.device.type != "cuda":
-        raise ValueError(f"edge_mega runs on cuda or cpu tensors, "
+        raise ValueError(f"{name} runs on cuda or cpu tensors, "
                          f"not {h.device.type}")
     b, n, f = h.shape
     e = src.shape[1]
     hid = w2.shape[1]
-    check_cuda_args("edge_mega", {
+    check_cuda_args(name, {
         "h": (h, h.dtype, (b, n, f)),
         "src": (src, torch.int32, (b, e)),
         "dst": (dst, torch.int32, (b, e)),
@@ -261,19 +462,15 @@ def edge_mega_fwd(src, dst, mask, ef, h, x, w1ab, w2, wc1, small,
         "small": (small, torch.float32, (hid, 6)),
     }, h.dtype, hid)
     if not 1 <= f <= KERNEL_MAX_F:
-        raise ValueError(f"edge_mega kernel takes 1 <= F <= {KERNEL_MAX_F}, "
+        raise ValueError(f"{name} kernel takes 1 <= F <= {KERNEL_MAX_F}, "
                          f"got F={f}")
     if b == 0 or n == 0:
-        raise ValueError("edge_mega: empty batch or graph")
-    lib = _fwd_lib()
+        raise ValueError(f"{name}: empty batch or graph")
+    lib = lib_fn()
     with torch.cuda.device(h.device):
         props = hopper(h.device, "edge_mega")
-        smem = lib.egnn_mega_fwd_smem_bytes(n, hid)
-        if smem > props.shared_memory_per_block_optin:
-            raise ValueError(
-                f"edge_mega kernel needs {smem} B of shared memory for "
-                f"N={n}, H={hid}; the card allows "
-                f"{props.shared_memory_per_block_optin} B per block")
+        _check_smem(props, getattr(lib, f"{entry}_smem_bytes")(n, hid), name,
+                    f"N={n}, H={hid}")
         out = torch.empty(b, n, hid + 3, dtype=torch.float32,
                           device=h.device)
         proj = torch.empty(b, n, 2 * hid, dtype=torch.float32,
@@ -283,7 +480,7 @@ def edge_mega_fwd(src, dst, mask, ef, h, x, w1ab, w2, wc1, small,
             a1 = torch.empty(b, hid, e, dtype=h.dtype, device=h.device)
             xd = torch.empty(b, 3, e, dtype=h.dtype, device=h.device)
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        rc = lib.egnn_mega_fwd(
+        rc = getattr(lib, entry)(
             src.data_ptr(), dst.data_ptr(), mask.data_ptr(), ef.data_ptr(),
             h.data_ptr(), x.data_ptr(), w1ab.data_ptr(), w2.data_ptr(),
             wc1.data_ptr(), small.data_ptr(), out.data_ptr(),
@@ -291,9 +488,8 @@ def edge_mega_fwd(src, dst, mask, ef, h, x, w1ab, w2, wc1, small,
             xd.data_ptr() if residuals else None, b, n, e, f, hid,
             int(h.dtype == torch.bfloat16), stream)
     if rc != 0:
-        raise RuntimeError(f"egnn_mega_fwd launch failed with CUDA error "
+        raise RuntimeError(f"{entry} launch failed with CUDA error "
                            f"{rc} (B={b}, N={n}, E={e}, F={f}, H={hid})")
-    edge_mega.launches += 1
     return out, a1, xd
 
 
@@ -307,58 +503,162 @@ def tail_bwd(ef, w2, wc1, small, a1, xd, d_both, valid):
     counts the kernel's launches."""
     if a1.device.type == "cpu":
         return tail_bwd_reference(ef, w2, wc1, small, a1, xd, d_both, valid)
-    if a1.device.type != "cuda":
-        raise ValueError(f"tail_bwd runs on cuda or cpu tensors, "
-                         f"not {a1.device.type}")
     b, hid, e = a1.shape
     c = hid + 3
     dt = a1.dtype
-    check_cuda_args("tail_bwd", {
+    lib, props = _tail_checks("tail_bwd", _tail_lib, "egnn_tail_bwd", ef,
+                              w2, wc1, small, a1, xd, valid, {
+                                  "d_both": (d_both, dt, (b, c, e))})
+    with torch.cuda.device(a1.device):
+        # one CTA per (graph, edge chunk): at least one CTA per SM
+        chunks = chunks_per_graph(e, b, 64, props.multi_processor_count)
+        d_cat = torch.empty(b, c, e, dtype=dt, device=a1.device)
+        d_ef = torch.empty(b, 1, e, dtype=dt, device=a1.device)
+        partial, grads = _grad_buffers(b * chunks, hid, a1.device)
+        rc = lib.egnn_tail_bwd(
+            valid.data_ptr(), ef.data_ptr(), w2.data_ptr(), wc1.data_ptr(),
+            small.data_ptr(), a1.data_ptr(), xd.data_ptr(),
+            d_both.data_ptr(), d_cat.data_ptr(), d_ef.data_ptr(),
+            partial.data_ptr(), grads.data_ptr(), b, e, hid, chunks,
+            int(dt == torch.bfloat16), _stream(a1))
+    _raise_on("egnn_tail_bwd", rc, b, e, hid)
+    tail_bwd.launches += 1
+    return (d_cat, d_ef, *_split_grads(grads, hid))
+
+
+tail_bwd.launches = 0
+
+
+def tail_bwd_db(dst, valid, ef, w2, wc1, small, a1, xd, g):
+    """B5a: B2's outputs with d_both = g[dst] read in the kernel from
+    g [B, N, H+3] in the compute dtype (``tail_bwd_db_reference``'s
+    contract). Its block partition and its fixed-order reduction are B2's.
+
+    CUDA tensors launch csrc/egnn_tail_bwd_db.cu or raise; CPU tensors go
+    through ``tail_bwd_db_reference``. ``tail_bwd_db.launches`` counts the
+    kernel's launches."""
+    if a1.device.type == "cpu":
+        return tail_bwd_db_reference(dst, valid, ef, w2, wc1, small, a1, xd,
+                                     g)
+    b, hid, e = a1.shape
+    n = g.shape[1]
+    dt = a1.dtype
+    lib, props = _tail_checks("tail_bwd_db", _tail_db_lib,
+                              "egnn_tail_bwd_db", ef, w2, wc1, small, a1,
+                              xd, valid, {
+                                  "dst": (dst, torch.int32, (b, e)),
+                                  "g": (g, dt, (b, n, hid + 3))})
+    with torch.cuda.device(a1.device):
+        chunks = chunks_per_graph(e, b, 64, props.multi_processor_count)
+        d_cat = torch.empty(b, hid + 3, e, dtype=dt, device=a1.device)
+        d_ef = torch.empty(b, 1, e, dtype=dt, device=a1.device)
+        partial, grads = _grad_buffers(b * chunks, hid, a1.device)
+        rc = lib.egnn_tail_bwd_db(
+            dst.data_ptr(), valid.data_ptr(), ef.data_ptr(), w2.data_ptr(),
+            wc1.data_ptr(), small.data_ptr(), a1.data_ptr(), xd.data_ptr(),
+            g.data_ptr(), d_cat.data_ptr(), d_ef.data_ptr(),
+            partial.data_ptr(), grads.data_ptr(), b, n, e, hid, chunks,
+            int(dt == torch.bfloat16), _stream(a1))
+    _raise_on("egnn_tail_bwd_db", rc, b, e, hid)
+    tail_bwd_db.launches += 1
+    return (d_cat, d_ef, *_split_grads(grads, hid))
+
+
+tail_bwd_db.launches = 0
+
+
+def tail_bwd_nodes(src, dst, valid, ef, w2, wc1, small, a1, xd, g):
+    """B5b: the whole edge-half backward up to node space
+    (``tail_bwd_nodes_reference``'s contract): (d_nodes [B, N, 2(H+3)] f32,
+    d_ef [B, 1, E], dW2, dWc1, dsmall). One CTA per graph owns its graph's
+    rows of d_nodes; each of its (side, channel) columns is summed by one
+    thread in edge order, so every output is the same from run to run.
+
+    CUDA tensors launch csrc/egnn_tail_bwd_nodes.cu or raise; CPU tensors
+    go through ``tail_bwd_nodes_reference``. ``tail_bwd_nodes.launches``
+    counts the kernel's launches."""
+    if a1.device.type == "cpu":
+        return tail_bwd_nodes_reference(src, dst, valid, ef, w2, wc1, small,
+                                        a1, xd, g)
+    b, hid, e = a1.shape
+    n = g.shape[1]
+    dt = a1.dtype
+    lib, _ = _tail_checks("tail_bwd_nodes", _tail_nodes_lib,
+                          "egnn_tail_bwd_nodes", ef, w2, wc1, small, a1, xd,
+                          valid, {
+                              "src": (src, torch.int32, (b, e)),
+                              "dst": (dst, torch.int32, (b, e)),
+                              "g": (g, dt, (b, n, hid + 3))})
+    with torch.cuda.device(a1.device):
+        d_nodes = torch.empty(b, n, 2 * (hid + 3), dtype=torch.float32,
+                              device=a1.device)
+        d_ef = torch.empty(b, 1, e, dtype=dt, device=a1.device)
+        partial, grads = _grad_buffers(b, hid, a1.device)
+        rc = lib.egnn_tail_bwd_nodes(
+            src.data_ptr(), dst.data_ptr(), valid.data_ptr(), ef.data_ptr(),
+            w2.data_ptr(), wc1.data_ptr(), small.data_ptr(), a1.data_ptr(),
+            xd.data_ptr(), g.data_ptr(), d_nodes.data_ptr(), d_ef.data_ptr(),
+            partial.data_ptr(), grads.data_ptr(), b, n, e, hid,
+            int(dt == torch.bfloat16), _stream(a1))
+    _raise_on("egnn_tail_bwd_nodes", rc, b, e, hid)
+    tail_bwd_nodes.launches += 1
+    return (d_nodes, d_ef, *_split_grads(grads, hid))
+
+
+tail_bwd_nodes.launches = 0
+
+
+def _tail_checks(name, lib_fn, entry, ef, w2, wc1, small, a1, xd, valid,
+                 extra: dict):
+    """The checks B2, B5a and B5b share; (library, card properties)."""
+    if a1.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, "
+                         f"not {a1.device.type}")
+    b, hid, e = a1.shape
+    dt = a1.dtype
+    check_cuda_args(name, {
         "a1": (a1, dt, (b, hid, e)),
         "ef": (ef, dt, (b, e, 1)),
         "xd": (xd, dt, (b, 3, e)),
-        "d_both": (d_both, dt, (b, c, e)),
+        **extra,
         "valid": (valid, torch.bool, (b, e)),
         "w2": (w2, torch.float32, (hid, hid)),
         "wc1": (wc1, torch.float32, (hid, hid)),
         "small": (small, torch.float32, (hid, 6)),
     }, dt, hid)
     if b == 0:
-        raise ValueError("tail_bwd: empty batch")
-    lib = _tail_lib()
+        raise ValueError(f"{name}: empty batch")
+    lib = lib_fn()
     with torch.cuda.device(a1.device):
         props = hopper(a1.device, "edge_mega")
-        smem = lib.egnn_tail_bwd_smem_bytes(hid)
-        if smem > props.shared_memory_per_block_optin:
-            raise ValueError(
-                f"tail_bwd kernel needs {smem} B of shared memory for "
-                f"H={hid}; the card allows "
-                f"{props.shared_memory_per_block_optin} B per block")
-        # one CTA per (graph, edge chunk): at least one CTA per SM
-        chunks = chunks_per_graph(e, b, 64, props.multi_processor_count)
-        width = 2 * hid * hid + 6 * hid
-        d_cat = torch.empty(b, c, e, dtype=dt, device=a1.device)
-        d_ef = torch.empty(b, 1, e, dtype=dt, device=a1.device)
-        grads = torch.empty(width, dtype=torch.float32, device=a1.device)
-        partial = torch.empty(b * chunks, width, dtype=torch.float32,
-                              device=a1.device)
-        stream = torch.cuda.current_stream(a1.device).cuda_stream
-        rc = lib.egnn_tail_bwd(
-            valid.data_ptr(), ef.data_ptr(), w2.data_ptr(), wc1.data_ptr(),
-            small.data_ptr(), a1.data_ptr(), xd.data_ptr(),
-            d_both.data_ptr(), d_cat.data_ptr(), d_ef.data_ptr(),
-            partial.data_ptr(), grads.data_ptr(), b, e, hid, chunks,
-            int(dt == torch.bfloat16), stream)
-    if rc != 0:
-        raise RuntimeError(f"egnn_tail_bwd launch failed with CUDA error "
-                           f"{rc} (B={b}, E={e}, H={hid})")
-    tail_bwd.launches += 1
+    _check_smem(props, getattr(lib, f"{entry}_smem_bytes")(hid), name,
+                f"H={hid}")
+    return lib, props
+
+
+def _grad_buffers(blocks: int, hid: int, device):
+    """(per-block partial weight gradients, their sum): f32 scratch of
+    width 2H^2 + 6H."""
+    width = 2 * hid * hid + 6 * hid
+    return (torch.empty(blocks, width, dtype=torch.float32, device=device),
+            torch.empty(width, dtype=torch.float32, device=device))
+
+
+def _split_grads(grads, hid: int):
+    """dW2 [H, H], dWc1 [H, H], dsmall [H, 6] views of the summed buffer."""
     hh = hid * hid
-    return (d_cat, d_ef, grads[:hh].view(hid, hid),
-            grads[hh:2 * hh].view(hid, hid), grads[2 * hh:].view(hid, 6))
+    return (grads[:hh].view(hid, hid), grads[hh:2 * hh].view(hid, hid),
+            grads[2 * hh:].view(hid, 6))
 
 
-tail_bwd.launches = 0
+def _stream(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_on(entry: str, rc: int, b: int, e: int, hid: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed with CUDA error {rc} "
+                           f"(B={b}, E={e}, H={hid})")
 
 
 # --------------------------------------------------------------------------
@@ -366,30 +666,47 @@ tail_bwd.launches = 0
 # --------------------------------------------------------------------------
 
 def edge_half_bwd(src, dst, valid, ef, h, x, w1ab, w2, wc1, small, a1, xd,
-                  g, tail=tail_bwd):
+                  g, backward: str = "hybrid", plain: bool = False):
     """Backward of one edge half-layer from the forward's residuals and the
     cotangent g [B, N, H+3] of its output: the counterpart of
-    ``_edge_half_bwd`` + ``_finish_node_grads``. ``tail`` is B2 (``tail_bwd``
-    or ``tail_bwd_reference``). Returns (d_ef [B, E, 1], d_h [B, N, F],
-    d_x [B, N, 3], dw1ab [2F, H], dw2, dwc1, dsmall), node-level gradients
-    in f32, d_ef in the compute dtype."""
+    ``_edge_half_bwd`` + ``_finish_node_grads``. ``backward`` names the
+    variant: 'hybrid' (PyTorch's gather of d_both, B2, two
+    ``scatter_add_``), 'dboth' (B5a, then the two ``scatter_add_``) or
+    'inkernel' (B5b, which returns the node sums). ``plain`` takes the
+    kernels' plain versions whatever the device. Returns (d_ef [B, E, 1],
+    d_h [B, N, F], d_x [B, N, 3], dw1ab [2F, H], dw2, dwc1, dsmall),
+    node-level gradients in f32, d_ef in the compute dtype."""
     dt = h.dtype
     f32 = torch.float32
     b, n, f = h.shape
     hid = w2.shape[1]
     c = hid + 3
-    s = torch.where(valid, src, 0).long()[..., None].expand(-1, -1, c)
-    d = torch.where(valid, dst, 0).long()[..., None].expand(-1, -1, c)
-    d_both = torch.gather(g.to(dt), 1, d)                       # [B, E, C]
-    d_both = torch.where(valid[..., None], d_both, 0.0)
-    d_cat, d_ef, dw2, dwc1, dsmall = tail(
-        ef, w2, wc1, small, a1, xd, d_both.transpose(1, 2).contiguous(),
-        valid)
-    dcf = d_cat.transpose(1, 2).to(f32)                         # [B, E, C]
-    d_src = torch.zeros(b, n, c, dtype=f32, device=h.device)
-    d_src.scatter_add_(1, s, dcf)
-    d_dst = torch.zeros(b, n, c, dtype=f32, device=h.device)
-    d_dst.scatter_add_(1, d, dcf)
+    gd = g.to(dt).contiguous()
+    if backward == "inkernel":
+        fn = tail_bwd_nodes_reference if plain else tail_bwd_nodes
+        d_nodes, d_ef, dw2, dwc1, dsmall = fn(src, dst, valid, ef, w2, wc1,
+                                              small, a1, xd, gd)
+        d_src, d_dst = d_nodes[..., :c], d_nodes[..., c:]
+    else:
+        if backward == "dboth":
+            fn = tail_bwd_db_reference if plain else tail_bwd_db
+            d_cat, d_ef, dw2, dwc1, dsmall = fn(dst, valid, ef, w2, wc1,
+                                                small, a1, xd, gd)
+        elif backward == "hybrid":
+            fn = tail_bwd_reference if plain else tail_bwd
+            d_both = _gather_rows(gd, dst, valid)               # [B, E, C]
+            d_cat, d_ef, dw2, dwc1, dsmall = fn(
+                ef, w2, wc1, small, a1, xd,
+                d_both.transpose(1, 2).contiguous(), valid)
+        else:
+            raise ValueError(f"unknown backward '{backward}'")
+        dcf = d_cat.transpose(1, 2).to(f32)                     # [B, E, C]
+        s = torch.where(valid, src, 0).long()[..., None].expand(-1, -1, c)
+        d = torch.where(valid, dst, 0).long()[..., None].expand(-1, -1, c)
+        d_src = torch.zeros(b, n, c, dtype=f32, device=h.device)
+        d_src.scatter_add_(1, s, dcf)
+        d_dst = torch.zeros(b, n, c, dtype=f32, device=h.device)
+        d_dst.scatter_add_(1, d, dcf)
     d_pa = d_src[..., :hid].to(dt).to(f32)
     d_pb = d_dst[..., :hid].to(dt).to(f32)
     d_x = d_src[..., hid:] - d_dst[..., hid:]
@@ -402,17 +719,25 @@ def edge_half_bwd(src, dst, valid, ef, h, x, w1ab, w2, wc1, small, a1, xd,
 
 
 class EdgeMega(torch.autograd.Function):
-    """``edge_mega`` with its backward: B1 with residuals forward; B2 and
-    ``edge_half_bwd`` backward. Gradients for ef, h, x, w1ab, w2, wc1 and
-    small, each in its input's dtype."""
+    """``edge_mega`` with its backward: B1 (B4 under 'paired') with
+    residuals forward; ``edge_half_bwd`` with the variant's backward.
+    Gradients for ef, h, x, w1ab, w2, wc1 and small, each in its input's
+    dtype. Under 'paired' the forward reads the arc half only, and the
+    backward takes the layout ``mirror_edges`` derives from it."""
 
     @staticmethod
-    def forward(ctx, src, dst, mask, ef, h, x, w1ab, w2, wc1, small):
-        out, a1, xd = edge_mega_fwd(src, dst, mask, ef, h, x, w1ab, w2, wc1,
-                                    small, residuals=True)
+    def forward(ctx, src, dst, mask, ef, h, x, w1ab, w2, wc1, small,
+                mega_variant="hybrid"):
+        fwd = (edge_mega_paired_fwd if mega_variant == "paired"
+               else edge_mega_fwd)
+        out, a1, xd = fwd(src, dst, mask, ef, h, x, w1ab, w2, wc1, small,
+                          residuals=True)
+        if mega_variant == "paired":
+            src, dst, mask = mirror_edges(src, dst, mask)
         valid = valid_edges(src, dst, mask, h.shape[1])
         ctx.save_for_backward(src, dst, valid, ef, h, x, w1ab, w2, wc1,
                               small, a1, xd)
+        ctx.backward_variant = _BACKWARD[mega_variant]
         return out
 
     @staticmethod
@@ -420,28 +745,38 @@ class EdgeMega(torch.autograd.Function):
         src, dst, valid, ef, h, x, w1ab, w2, wc1, small, a1, xd = \
             ctx.saved_tensors
         grads = edge_half_bwd(src, dst, valid, ef, h, x, w1ab, w2, wc1,
-                              small, a1, xd, g)
+                              small, a1, xd, g, ctx.backward_variant)
         inputs = (ef, h, x, w1ab, w2, wc1, small)
         return (None, None, None) + tuple(
             gr.to(t.dtype) if need else None
-            for gr, t, need in zip(grads, inputs, ctx.needs_input_grad[3:]))
+            for gr, t, need in zip(grads, inputs,
+                                   ctx.needs_input_grad[3:10])) + (None,)
 
 
-def edge_mega(src, dst, mask, ef, h, x, w1ab, w2, wc1, small):
+def edge_mega(src, dst, mask, ef, h, x, w1ab, w2, wc1, small,
+              mega_variant: str = "hybrid"):
     """EGNN edge half-layer: [B, N, H+3] f32 per-node sums of messages
     (columns 0..H-1) and coordinate messages (columns H..H+2).
 
-    Differentiable (``EdgeMega``) when gradients are enabled and an input
-    requires one; otherwise B1 runs without its residual stores. CUDA
-    tensors launch the Hopper kernels or raise; CPU tensors take the plain
-    versions. ``edge_mega.launches`` counts B1's launches,
-    ``tail_bwd.launches`` B2's."""
+    ``mega_variant``: 'hybrid', 'dboth', 'inkernel' or 'paired' (module
+    docstring; 'paired' computes on ``mirror_edges(src, dst, mask)``, which
+    ``check_paired`` holds to the batch). Differentiable (``EdgeMega``) when
+    gradients are enabled and an input requires one; otherwise the forward
+    kernel runs without its residual stores. CUDA tensors launch the Hopper
+    kernels or raise; CPU tensors take the plain versions.
+    ``edge_mega.launches`` counts B1's launches, ``tail_bwd.launches`` B2's,
+    and each variant's wrapper its own kernel's."""
+    if mega_variant not in _BACKWARD:
+        raise ValueError(f"edge_mega takes mega_variant in "
+                         f"{tuple(_BACKWARD)}, got '{mega_variant}'")
     ef = ef.to(h.dtype)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (ef, h, x, w1ab, w2, wc1, small)):
-        return EdgeMega.apply(src, dst, mask, ef, h, x, w1ab, w2, wc1, small)
-    return edge_mega_fwd(src, dst, mask, ef, h, x, w1ab, w2, wc1, small,
-                         residuals=False)[0]
+        return EdgeMega.apply(src, dst, mask, ef, h, x, w1ab, w2, wc1, small,
+                              mega_variant)
+    fwd = edge_mega_paired_fwd if mega_variant == "paired" else edge_mega_fwd
+    return fwd(src, dst, mask, ef, h, x, w1ab, w2, wc1, small,
+               residuals=False)[0]
 
 
 edge_mega.launches = 0

@@ -157,7 +157,7 @@ class Trainer:
                  binary: bool, optimizer: OptimizerConfig,
                  coeff_contrastive: float = 0.0, aggregation: str = "auto",
                  compute_dtype=torch.float32, grad_accum_steps: int = 1,
-                 stack_twins: bool = False):
+                 stack_twins: bool = False, mega_variant: str = "hybrid"):
         if coeff_contrastive > 0 and grad_accum_steps > 1:
             # the contrastive pair-similarity / cross-correlation statistics
             # are taken over the batch the loss sees: under accumulation
@@ -174,6 +174,9 @@ class Trainer:
         self.optimizer = optimizer
         self.coeff_contrastive = coeff_contrastive
         self.aggregation = aggregation
+        # the kernel variant of aggregation 'mega' (ops/egnn.py); the JAX
+        # package sets its counterparts as module globals
+        self.mega_variant = mega_variant
         self.compute_dtype = compute_dtype
         self.loss_fn = make_loss_fn(loss_cfg, binary)
         self.grad_accum_steps = grad_accum_steps
@@ -206,7 +209,8 @@ class Trainer:
         takes), None to draw it from ``generator``."""
         kw = dict(generator=generator, deterministic=deterministic,
                   aggregation=self.aggregation,
-                  compute_dtype=self.compute_dtype, eps=eps)
+                  compute_dtype=self.compute_dtype, eps=eps,
+                  mega_variant=self.mega_variant)
         if isinstance(batch, ComparativeBatch):
             c, w = batch.cancer, batch.wt
             out_c, out_w, logits = model_apply_comparative(

@@ -130,6 +130,32 @@ class ComparativeBatch:
                                 wt=self.wt.to(device))
 
 
+def mirror_pair_edge_index(edge_index: np.ndarray) -> Optional[np.ndarray]:
+    """A both-arcs [2, E] edge index reordered into the mirror-paired layout
+    of the paired kernel (B4): slot k + E/2 holds the reverse of slot k, the
+    arcs with src < dst first. None when the list cannot be paired: an odd
+    count, a self loop, a duplicate, or an arc without its reverse.
+
+    Padding is the stacker's job: each half is padded on its own, so that
+    the mirror of a padded slot is padded (``GraphCorpus.stack(paired=True)``)."""
+    src, dst = np.asarray(edge_index[0]), np.asarray(edge_index[1])
+    e = src.shape[0]
+    if e % 2 or np.any(src == dst):
+        return None
+    big = np.int64(max(int(src.max(initial=0)), int(dst.max(initial=0))) + 1)
+    keys = src.astype(np.int64) * big + dst.astype(np.int64)
+    if np.unique(keys).shape[0] != e:
+        return None
+    rkeys = dst.astype(np.int64) * big + src.astype(np.int64)
+    if not np.array_equal(np.sort(keys), np.sort(rkeys)):
+        return None
+    fwd = src < dst
+    arcs = np.stack([src[fwd], dst[fwd]])
+    if arcs.shape[1] != e // 2:
+        return None
+    return np.concatenate([arcs, arcs[::-1]], axis=1)
+
+
 def map_tensors(fn: Callable[[torch.Tensor], torch.Tensor], batch):
     """Apply ``fn`` to every tensor of a batch dataclass (nested batches
     included; None fields stay None) and rebuild it."""

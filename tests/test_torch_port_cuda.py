@@ -46,6 +46,32 @@ leaves out any one rounding point fails the mean bound, which
 ``test_edge_bf16_bound_sees_every_rounding_point`` (B3) check by building
 such kernels.
 
+- B4 (csrc/egnn_mega_paired_fwd.cu) on mirror-paired batches: B1's bounds
+  against its plain version; its residuals equal B1's bit for bit on the
+  same batch.
+- B5a (csrc/egnn_tail_bwd_db.cu): B2's bounds against its plain version,
+  and B2's outputs bit for bit on the same inputs (the same arithmetic, the
+  same block partition and reduction order). B5b
+  (csrc/egnn_tail_bwd_nodes.cu): d_ef and the weight gradients as B2's; the
+  node sums d_nodes, f32, per column (over graphs and nodes) |diff| <= 1e-5
+  * max|plain| + 1e-4 * |plain|; bf16, per column, B2's bounds for d_cat
+  (TAIL_MEAN, TAIL_MAX_EDGE: the sums of its rows). B5b's outputs are the
+  same bits twice (no atomics).
+- B6 (csrc/egnn_stack_fwd.cu), six layers (F0=20, H=64): each layer is held
+  against the plain version of that one layer run from the kernel's own
+  previous h and x (so a flipped rounding does not carry into the next
+  layer's check): f32 as B1's; bf16, aggs (rounded to bf16 on both sides)
+  per column max|diff| <= one bf16 step at the column's largest |plain|
+  (B1's 4e-3 * max is under one step where that largest value lies just
+  below a power of two, which a one-step flip at E=1408 reached) and
+  mean|diff| <= 1e-4 * mean|plain|, a1s/xds B1's residual rule, hs/xs per
+  column mean|diff| <= 1e-4 * mean|plain|.
+  Its sums use shared-memory atomics, as B1's do: not the same bits twice.
+- Mutants: three of B4 (the mirror's sign, xd, radial), two of the shared
+  tail body through B5a (d_p2, d_a1), one of B5b (d_xd before the node
+  sums), five of B6 (agg, hmid, h, x, the node MLP's weights); each fails
+  its kernel's bf16 bound.
+
 - B8 (csrc/segment.cu, behind ``segment_scatter``/``segment_gather``): the
   gather bit for bit. The scatter, f32: |diff| <= 2 * k * 2^-24 * (the sum
   of |m| over the k edges of the element), the bound of two f32 sums of the
@@ -64,8 +90,11 @@ import torch
 
 from immunostruct_tpu_torch.data.synthetic import random_sample_batch
 from immunostruct_tpu_torch.models import build_model, model_apply
-from immunostruct_tpu_torch.ops import _build, edge, mega, segment
-from immunostruct_tpu_torch.ops.egnn import EGNNLayer, egnn_apply
+from immunostruct_tpu_torch.data.synthetic import build_batch
+from immunostruct_tpu_torch.ops import _build, edge, mega, segment, stack
+from immunostruct_tpu_torch.ops.egnn import (
+    EGNNLayer, egnn_apply, egnn_stack, egnn_stack_apply,
+)
 from immunostruct_tpu_torch.procedures.train import Trainer, make_optimizer
 from immunostruct_tpu_torch.utils.losses import LossConfig
 from immunostruct_tpu_torch.utils.schedule import constant_lr
@@ -279,8 +308,9 @@ def test_train_step_launches_both_kernels_per_layer(cuda):
         assert torch.isfinite(p.grad).all() and torch.isfinite(p).all()
 
 
-# the kernel source with one bf16 rounding point left out: (pattern,
-# replacement) pairs applied to csrc/egnn_mega_fwd.cu
+# B1 with one bf16 rounding point left out: (pattern, replacement) pairs
+# applied to csrc/egnn_mega_fwd.cu and the device code it shares
+# (csrc/egnn_common.cuh)
 _MUTANTS = {
     "weights": [(r"(w2s\[i\] = )rnd<T>\((w2\[i\])\)", r"\1\2"),
                 (r"(wc1s\[i\] = )rnd<T>\((wc1\[i\])\)", r"\1\2"),
@@ -291,26 +321,33 @@ _MUTANTS = {
     "radial": [(r"(r = )rnd<T>\((d0 \* d0 \+ d1 \* d1 \+ d2 \* d2)\)",
                 r"\1\2")],
     "silu_a1": [(r"(v = )rnd<T>\((silu\(a1\))\)", r"\1\2")],
-    "m": [(r"(mv = )rnd<T>\((silu\(r\[i\]\[c\] \+ sms\[3 \* H \+ j\]\))\)",
-           r"\1\2")],
+    "m": [(r"(mv = )rnd<T>\((silu\(r\[i\]\[c\] \+ "
+           r"sms\[kB2 \* H \+ j\]\))\)", r"\1\2")],
     "coord_hidden": [(r"(c1 = )rnd<T>\((silu\(r\[i\]\[c\] \+ "
-                      r"sms\[4 \* H \+ j\]\))\)", r"\1\2")],
+                      r"sms\[kBC1 \* H \+ j\]\))\)", r"\1\2")],
     "cw": [(r"(cwb = )rnd<T>\((part)\)", r"\1\2")],
-    "cw_xhat": [(r"rnd<T>\((cwb \* xh\[t \* 3 \+ \d\])\)", r"(\1)")],
+    "cw_xhat": [(r"rnd<T>\((cwb \* g\.xh\[t \* 3 \+ \d\])\)",
+                 r"(\1)")],
 }
 
 
-def _mutant_kernel(source, mutants, tmp_path, monkeypatch):
-    """Build csrc/<source> with each (pattern, replacement) applied, in
-    place of the repo's kernel, until the test ends."""
-    text = (_build.CSRC / source).read_text()
+def _mutant_kernel(sources, mutants, tmp_path, monkeypatch):
+    """Build csrc/ with each (pattern, replacement) applied to ``sources``
+    (a file name, or a tuple of them; each pattern matches in at least one),
+    in place of the repo's kernels, until the test ends."""
+    sources = (sources,) if isinstance(sources, str) else sources
+    texts = {name: (_build.CSRC / name).read_text() for name in sources}
     for pattern, repl in mutants:
-        text, n = re.subn(pattern, repl, text)
-        assert n >= 1, f"{pattern} matches nothing in {source}"
+        n = 0
+        for name in texts:
+            texts[name], k = re.subn(pattern, repl, texts[name])
+            n += k
+        assert n >= 1, f"{pattern} matches nothing in {sources}"
     (tmp_path / "csrc").mkdir()
-    for other in _build.CSRC.glob("*.cu"):
+    for other in [*_build.CSRC.glob("*.cu"), *_build.CSRC.glob("*.cuh")]:
         (tmp_path / "csrc" / other.name).write_text(other.read_text())
-    (tmp_path / "csrc" / source).write_text(text)
+    for name, text in texts.items():
+        (tmp_path / "csrc" / name).write_text(text)
     monkeypatch.setattr(_build, "CSRC", tmp_path / "csrc")
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     _clear_libraries()
@@ -318,8 +355,9 @@ def _mutant_kernel(source, mutants, tmp_path, monkeypatch):
 
 def _clear_libraries():
     _build.load_library.cache_clear()
-    for lib in (mega._fwd_lib, mega._tail_lib, edge._fwd_lib, edge._bwd_lib,
-                segment._lib):
+    for lib in (mega._fwd_lib, mega._tail_lib, mega._paired_lib,
+                mega._tail_db_lib, mega._tail_nodes_lib, stack._lib,
+                edge._fwd_lib, edge._bwd_lib, segment._lib):
         lib.cache_clear()
 
 
@@ -333,7 +371,8 @@ def restore_kernels():
 @pytest.mark.parametrize("name", sorted(_MUTANTS))
 def test_bf16_bound_sees_every_rounding_point(cuda, name, tmp_path,
                                               monkeypatch, restore_kernels):
-    _mutant_kernel("egnn_mega_fwd.cu", _MUTANTS[name], tmp_path, monkeypatch)
+    _mutant_kernel(("egnn_mega_fwd.cu", "egnn_common.cuh"), _MUTANTS[name],
+                   tmp_path, monkeypatch)
     for e, f in ((2560, 20), (1408, 64)):
         args = _args(8, e, f, 64, torch.bfloat16, cuda, seed=e + f)
         out = mega.edge_mega(*args)
@@ -342,8 +381,9 @@ def test_bf16_bound_sees_every_rounding_point(cuda, name, tmp_path,
                           torch.bfloat16)
 
 
-# B2's source with one bf16 rounding point left out (d_xd and d_ef round at
-# their store in the compute dtype, which no edit of the arithmetic removes)
+# B2 with one bf16 rounding point left out, in the body it shares with B5a
+# and B5b (csrc/egnn_common.cuh; d_xd and d_ef round at their store in the
+# compute dtype, which no edit of the arithmetic removes)
 _TAIL_MUTANTS = {
     "weights": [(r"(w2s\[k \* LD \+ j\] = )rnd<T>\((w2\[i\])\)", r"\1\2"),
                 (r"(wc1s\[k \* LD \+ j\] = )rnd<T>\((wc1\[i\])\)",
@@ -370,7 +410,7 @@ def test_tail_bf16_bound_sees_every_rounding_point(cuda, name, tmp_path,
                                                    restore_kernels):
     inputs = [_tail_args(8, e, f, torch.bfloat16, cuda, seed=e + f + 1)
               for e, f in ((2560, 20), (1408, 64))]
-    _mutant_kernel("egnn_tail_bwd.cu", _TAIL_MUTANTS[name], tmp_path,
+    _mutant_kernel("egnn_common.cuh", _TAIL_MUTANTS[name], tmp_path,
                    monkeypatch)
     for args in inputs:
         out = mega.tail_bwd(*args)
@@ -899,3 +939,371 @@ def test_pallas_layer_gradients_on_card(cuda, dtype, monkeypatch):
             noise = (r2 - r).abs().mean()
             assert (g - r).abs().mean() <= (2 * noise + 1e-4 * r.abs().mean()
                                             + 1e-12)
+
+
+# --------------------------------------------------------------------------
+# B4, B5a, B5b, B6: the 'mega' kernel variants
+# --------------------------------------------------------------------------
+
+def _paired_args(b, e, f, dtype, device, seed, mask_rate=0.1):
+    """B1's operands on a mirror-paired batch (edge k + E/2 the reverse of
+    edge k, masks mirrored), with arcs at index -1 and N, masked and not."""
+    args = _args(b, e, f, 64, dtype, "cpu", seed, mask_rate)
+    gen = torch.Generator().manual_seed(seed + 1)
+    half = e // 2
+    s0 = torch.randint(0, N, (b, half), generator=gen, dtype=torch.int32)
+    d0 = (s0 + torch.randint(1, N, (b, half), generator=gen,
+                             dtype=torch.int32)) % N
+    s0[:, 8:12] = -1                                        # out of range
+    d0[:, 12:16] = N
+    m0 = torch.rand(b, half, generator=gen) >= mask_rate
+    m0[:, 8] = m0[:, 12] = False
+    args[0], args[1] = torch.cat([s0, d0], 1), torch.cat([d0, s0], 1)
+    args[2] = torch.cat([m0, m0], 1)
+    return [t.to(device) for t in args]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e", [2560, 1408])
+@pytest.mark.parametrize("f", [20, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paired_kernel_matches_plain_version(cuda, e, f, dtype):
+    args = _paired_args(128, e, f, dtype, cuda, seed=e + f + 2)
+    mega.check_paired(*args[:3])
+    before = mega.edge_mega_paired_fwd.launches
+    out, a1, xd = mega.edge_mega_paired_fwd(*args)
+    torch.cuda.synchronize()
+    assert mega.edge_mega_paired_fwd.launches == before + 1
+    ref, a1_ref, xd_ref = mega.edge_mega_paired_fwd_reference(*args)
+    _assert_close(out, ref, dtype)
+    _assert_residuals_close((a1, xd), (a1_ref, xd_ref), dtype)
+    bare = mega.edge_mega_paired_fwd(*args, residuals=False)[0]
+    _assert_close(bare, ref, dtype)
+    # B1 on the same batch: the same residuals, bit for bit
+    _, a1_b1, xd_b1 = mega.edge_mega_fwd(*args)
+    assert torch.equal(a1, a1_b1) and torch.equal(xd, xd_b1)
+
+
+# B4's source with one bf16 rounding point left out, or the mirror's sign
+_PAIRED_MUTANTS = {
+    "mirror_sign": [(r"g\.xh\[m \* 3 \+ (\d)\] = -h\1;",
+                     r"g.xh[m * 3 + \1] = h\1;")],
+    "xd": [(r"rnd<T>\((to_f\(xb\[s \* 3 \+ \d\]\) - to_f\(xb\[d \* 3 \+ "
+            r"\d\]\))\)", r"(\1)")],
+    "radial": [(r"(r = )rnd<T>\((d0 \* d0 \+ d1 \* d1 \+ d2 \* d2)\)",
+                r"\1\2")],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_PAIRED_MUTANTS))
+def test_paired_bf16_bound_sees_every_rounding_point(cuda, name, tmp_path,
+                                                     monkeypatch,
+                                                     restore_kernels):
+    _mutant_kernel("egnn_mega_paired_fwd.cu", _PAIRED_MUTANTS[name],
+                   tmp_path, monkeypatch)
+    for e, f in ((2560, 20), (1408, 64)):
+        args = _paired_args(8, e, f, torch.bfloat16, cuda, seed=e + f)
+        out = mega.edge_mega_paired_fwd(*args, residuals=False)[0]
+        with pytest.raises(AssertionError):
+            _assert_close(out, mega.edge_mega_paired_fwd_reference(*args)[0],
+                          torch.bfloat16)
+
+
+def _tail_g_args(b, e, f, dtype, device, seed, mask_rate=0.1):
+    """B5's operands: B1's residuals on seeded inputs with indices at -1 and
+    N, and a seeded node cotangent g [B, N, H+3] in the compute dtype:
+    (src, dst, valid, ef, w2, wc1, small, a1, xd, g)."""
+    args = _args(b, e, f, 64, dtype, "cpu", seed, mask_rate)
+    args[0][:, 8:12] = -1
+    args[1][:, 12:16] = N
+    args = [t.to(device) for t in args]
+    src, dst, mask, ef = args[:4]
+    _, a1, xd = mega.edge_mega_fwd(*args)
+    g = torch.randn(b, N, 67, generator=torch.Generator().manual_seed(seed))
+    return (src, dst, mega.valid_edges(src, dst, mask, N), ef, *args[7:],
+            a1, xd, g.to(device, dtype))
+
+
+def _b2_of(src, dst, valid, ef, w2, wc1, small, a1, xd, g):
+    """B2's operands from B5's: d_both = g[dst] gathered by PyTorch."""
+    d_both = mega._gather_rows(g, dst, valid).transpose(1, 2).contiguous()
+    return ef, w2, wc1, small, a1, xd, d_both, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e", [2560, 1408])
+@pytest.mark.parametrize("f", [20, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tail_db_kernel_matches_plain_version_and_b2(cuda, e, f, dtype):
+    args = _tail_g_args(128, e, f, dtype, cuda, seed=e + f + 3)
+    db_args = (args[1], *args[2:])
+    before = mega.tail_bwd_db.launches
+    out = mega.tail_bwd_db(*db_args)
+    torch.cuda.synchronize()
+    assert mega.tail_bwd_db.launches == before + 1
+    _assert_tail_close(out, mega.tail_bwd_db_reference(*db_args), dtype)
+    for got, want in zip(out, mega.tail_bwd(*_b2_of(*args))):
+        assert torch.equal(got, want)
+
+
+def _assert_nodes_close(got, ref, dtype):
+    """B5b's d_nodes [B, N, 2(H+3)] f32 (module docstring), per column."""
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    g, r = got.flatten(0, 1).T, ref.flatten(0, 1).T
+    if dtype == torch.float32:
+        assert ((g - r).abs() <= 1e-5 * r.abs().amax(1, keepdim=True)
+                + 1e-4 * r.abs()).all()
+        return
+    diff, mag = (g - r).abs(), r.abs()
+    assert (diff.amax(1) <= TAIL_MAX_EDGE * mag.amax(1)).all()
+    assert (diff.mean(1) <= TAIL_MEAN * mag.mean(1)).all()
+
+
+TAIL_MEAN, TAIL_MAX_EDGE = 2e-5, 1.6e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e", [2560, 1408])
+@pytest.mark.parametrize("f", [20, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tail_nodes_kernel_matches_plain_version(cuda, e, f, dtype):
+    args = _tail_g_args(128, e, f, dtype, cuda, seed=e + f + 4)
+    before = mega.tail_bwd_nodes.launches
+    out = mega.tail_bwd_nodes(*args)
+    torch.cuda.synchronize()
+    assert mega.tail_bwd_nodes.launches == before + 1
+    ref = mega.tail_bwd_nodes_reference(*args)
+    _assert_nodes_close(out[0], ref[0], dtype)
+    # d_ef and the weight gradients as B2's (zeros stand in for d_cat)
+    fake = torch.zeros(128, 67, e, dtype=dtype, device=cuda)
+    _assert_tail_close((fake, *out[1:]), (fake, *ref[1:]), dtype)
+    # the same bits twice: no atomics
+    again = mega.tail_bwd_nodes(*args)
+    for g, h in zip(out, again):
+        assert torch.equal(g, h)
+
+
+# the shared tail body (egnn_common.cuh) with one rounding point left out,
+# built through B5a; B5b's own point, d_xd before the node sums
+_TAIL_G_MUTANTS = {
+    "d_p2": [(r"(const float dp2 = )rnd<T>\((dm \* g2\[i\]\[c\])\)",
+              r"\1\2")],
+    "d_a1": [(r"(const float da = )rnd<T>\((acc\[i\]\[c\] \* "
+              r"bufG\[t \* LD \+ j\])\)", r"\1\2")],
+}
+_NODES_MUTANTS = {
+    "d_xd": [(r"(dxv\[k \* kTile \+ t\] = )rnd<T>\((dx\[k\])\)", r"\1\2")],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,name", [("db", k) for k in
+                                         sorted(_TAIL_G_MUTANTS)]
+                         + [("nodes", k) for k in sorted(_NODES_MUTANTS)])
+def test_tail_variant_bf16_bound_sees_rounding_points(cuda, kernel, name,
+                                                      tmp_path, monkeypatch,
+                                                      restore_kernels):
+    inputs = [_tail_g_args(8, e, f, torch.bfloat16, cuda, seed=e + f + 5)
+              for e, f in ((2560, 20), (1408, 64))]
+    table = _TAIL_G_MUTANTS if kernel == "db" else _NODES_MUTANTS
+    _mutant_kernel("egnn_common.cuh", table[name], tmp_path, monkeypatch)
+    for args in inputs:
+        if kernel == "db":
+            db_args = (args[1], *args[2:])
+            out = mega.tail_bwd_db(*db_args)
+            with pytest.raises(AssertionError):
+                _assert_tail_close(out, mega.tail_bwd_db_reference(*db_args),
+                                   torch.bfloat16)
+        else:
+            out = mega.tail_bwd_nodes(*args)
+            with pytest.raises(AssertionError):
+                _assert_nodes_close(
+                    out[0], mega.tail_bwd_nodes_reference(*args)[0],
+                    torch.bfloat16)
+
+
+def _stack_args(b, e, dtype, device, seed, mask_rate=0.1):
+    """B6's operands: HybridModelv2's conv stack (F0=20, H=64, six layers)
+    with seeded weights, and seeded inputs with 10% of the edges masked and
+    indices at -1 and N."""
+    src, dst, mask, ef, h, x = _args(b, e, 20, 64, dtype, "cpu", seed,
+                                     mask_rate)[:6]
+    src[:, 8:12] = -1
+    dst[:, 12:16] = N
+    gen = torch.Generator().manual_seed(seed)
+    layers = egnn_stack(5, 20, 64, generator=gen, device=device)
+    packed = [tuple(t.detach() for t in stack.pack_layer(p)) for p in layers]
+    return [t.to(device) for t in (src, dst, mask, ef, h, x)], packed
+
+
+def _assert_agg_steps_close(got, ref):
+    """B6's aggregate, rounded to bf16 by kernel and plain version alike:
+    per column (over graphs and nodes) max|diff| <= one bf16 step at the
+    column's largest |plain| and mean|diff| <= 1e-4 * mean|plain|."""
+    g, r = got.float().flatten(0, 1), ref.float().flatten(0, 1)
+    diff, mag = (g - r).abs(), r.abs()
+    top = mag.amax(0).clamp_min(torch.finfo(torch.float32).tiny)
+    assert (diff.amax(0) <= torch.exp2(torch.floor(torch.log2(top)) - 7)).all()
+    assert (diff.mean(0) <= 1e-4 * mag.mean(0)).all()
+
+
+def _assert_stack_layers_close(out, args, packed, dtype):
+    """Each layer of B6's outputs against the plain version of that layer
+    run from the kernel's own previous h and x (module docstring)."""
+    h, x, hs, xs, aggs, a1s, xds = out
+    assert torch.equal(h, hs[:, -1]) and torch.equal(x, xs[:, -1])
+    src, dst, mask, ef, h0, x0 = args
+    for layer, weights in enumerate(packed):
+        h_in = h0 if layer == 0 else hs[:, layer - 1]
+        x_in = x0 if layer == 0 else xs[:, layer - 1]
+        ref = stack.stack_fwd_reference(src, dst, mask, ef, h_in, x_in,
+                                        [weights])
+        got = [t[:, layer] for t in (hs, xs, aggs, a1s, xds)]
+        want = [t[:, 0] for t in ref[2:]]
+        for g in got:
+            assert torch.isfinite(g).all()
+        _assert_residuals_close(got[3:], want[3:], dtype)
+        if dtype == torch.float32:
+            for g, w in zip(got[:3], want[:3]):
+                torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-4)
+            continue
+        _assert_agg_steps_close(got[2], want[2])
+        for g, w in zip(got[:2], want[:2]):
+            g, w = g.float().flatten(0, 1), w.float().flatten(0, 1)
+            assert ((g - w).abs().mean(0) <= 1e-4 * w.abs().mean(0)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e", [2560, 1408])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stack_kernel_matches_plain_version(cuda, e, dtype):
+    args, packed = _stack_args(128, e, dtype, cuda, seed=e + 6)
+    before = stack.stack_fwd.launches
+    out = stack.stack_fwd(*args, packed)
+    torch.cuda.synchronize()
+    assert stack.stack_fwd.launches == before + 1
+    _assert_stack_layers_close(out, args, packed, dtype)
+    h, x = stack.stack_fwd(*args, packed, residuals=False)[:2]
+    if dtype == torch.float32:
+        torch.testing.assert_close(h, out[0], atol=1e-5, rtol=1e-4)
+        torch.testing.assert_close(x, out[1], atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_stack_kernel_shared_memory_oversize_raises(cuda):
+    args, packed = _stack_args(2, 256, torch.float32, cuda, seed=7)
+    big = [args[0], args[1], args[2], args[3],
+           torch.zeros(2, 400, 20, device=cuda),
+           torch.zeros(2, 400, 3, device=cuda)]
+    with pytest.raises(ValueError, match="shared memory"):
+        stack.stack_fwd(*big, packed)
+
+
+# B6's source with one bf16 rounding point left out
+_STACK_MUTANTS = {
+    "agg": [(r"(const float v = )rnd<T>\((acc\[i\])\)", r"\1\2")],
+    "hmid": [(r"rnd<T>\((silu\(p\[i\]\[c\] \+ nbs\[j\]\))\)", r"\1")],
+    "h": [(r"(const float v = )rnd<T>\((q\[i\]\[c\] \+ nbs\[H \+ j\])\)",
+           r"\1\2")],
+    "x": [(r"(const float v = )rnd<T>\((xsm\[i\] \+ "
+           r"acc\[\(i / 3\) \* C \+ H \+ i % 3\])\)", r"\1\2")],
+    "node_weights": [(r"(nm0s\[i\] = )rnd<T>\((nm0w\[i\])\)", r"\1\2"),
+                     (r"(nm1s\[i\] = )rnd<T>\((nm1w\[i\])\)", r"\1\2")],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_STACK_MUTANTS))
+def test_stack_bf16_bound_sees_every_rounding_point(cuda, name, tmp_path,
+                                                    monkeypatch,
+                                                    restore_kernels):
+    inputs = [_stack_args(8, e, torch.bfloat16, cuda, seed=e + 8)
+              for e in (2560, 1408)]
+    _mutant_kernel("egnn_stack_fwd.cu", _STACK_MUTANTS[name], tmp_path,
+                   monkeypatch)
+    for args, packed in inputs:
+        out = stack.stack_fwd(*args, packed)
+        with pytest.raises(AssertionError):
+            _assert_stack_layers_close(out, args, packed, torch.bfloat16)
+
+
+_VARIANT_LAUNCHES = {                   # per train step of six layers
+    "hybrid": dict(B1=6, B2=6), "dboth": dict(B1=6, B5a=6),
+    "inkernel": dict(B1=6, B5b=6), "paired": dict(B4=6, B2=6),
+    "stack": dict(B6=1, B2=6),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(_VARIANT_LAUNCHES))
+def test_variant_train_step_launches_its_kernels(cuda, variant):
+    """One bf16 training step of full-width HybridModelv2 at B=16 on a
+    mirror-paired batch: the variant's kernels and no other, a finite loss
+    and finite gradients."""
+    from immunostruct_tpu_torch.cli.race_kernel_variants import read_counts
+
+    _, model = build_model("HybridModelv2", 20 * 21,
+                           torch.Generator().manual_seed(0), device=cuda)
+    trainer = Trainer(model.spec, LossConfig(20 * 21, 1.0), binary=True,
+                      optimizer=make_optimizer("adam", constant_lr(1e-3)),
+                      aggregation="mega", compute_dtype=torch.bfloat16,
+                      mega_variant=variant)
+    state = trainer.init_state(model)
+    batch = build_batch(16, N, 1408, 20, paired=True, device=cuda)
+    before = read_counts()
+    state, loss = trainer.train_step(state, batch, seed=0)
+    torch.cuda.synchronize()
+    launched = {k: n - before[k] for k, n in read_counts().items()
+                if n != before[k]}
+    assert launched == _VARIANT_LAUNCHES[variant]
+    assert torch.isfinite(loss)
+    for p in model.parameters():
+        assert torch.isfinite(p.grad).all() and torch.isfinite(p).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["paired", "stack"])
+def test_variant_forward_matches_scatter_on_card(cuda, variant):
+    """A forward with no gradient (serving) under the variant against
+    'scatter' in f32 (TF32 off)."""
+    _, model = build_model("HybridModelv2", 20 * 21,
+                           torch.Generator().manual_seed(0), device=cuda)
+    b = build_batch(16, N, 1408, 20, paired=True, device=cuda)
+    eps = torch.randn(16, 32, generator=torch.Generator().manual_seed(2))
+    outs = {}
+    for agg, v in (("mega", variant), ("scatter", "hybrid")):
+        with torch.inference_mode():
+            outs[agg] = model_apply(model, b.graph, b.seq_onehot, b.props,
+                                    deterministic=True, aggregation=agg,
+                                    eps=eps.to(cuda), mega_variant=v)
+    for name in ("logits", "embedding", "attention"):
+        torch.testing.assert_close(getattr(outs["mega"], name),
+                                   getattr(outs["scatter"], name),
+                                   atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["dboth", "inkernel", "paired"])
+def test_variant_layer_gradients_match_scatter_on_card(cuda, variant):
+    """One EGNN layer under the variant against autograd through 'scatter'
+    in f32: gradients within 1e-4 * max + 1e-3 * |scatter|."""
+    gen = torch.Generator().manual_seed(9)
+    layer = EGNNLayer(20, 64, 64, generator=gen, device=cuda)
+    src, dst, mask, ef, h, x = _paired_args(4, 1408, 20, torch.float32,
+                                            "cpu", seed=9)[:6]
+    src, dst = src.clamp(0, N - 1), dst.clamp(0, N - 1)     # 'scatter' indexes
+    src, dst, mask, ef, h, x = (t.to(cuda) for t in (src, dst, mask, ef, h, x))
+    cot_h = torch.randn(4, N, 64, generator=gen).to(cuda)
+    cot_x = torch.randn(4, N, 3, generator=gen).to(cuda)
+    grads = {}
+    for agg, v in (("mega", variant), ("scatter", "hybrid")):
+        layer.zero_grad()
+        hin, xin = h.clone().requires_grad_(True), x.clone().requires_grad_(True)
+        h2, x2 = egnn_stack_apply([layer], hin, xin, src, dst, ef, mask, agg,
+                                  v)
+        ((h2 * cot_h).sum() + (x2 * cot_x).sum()).backward()
+        grads[agg] = [hin.grad, xin.grad] + [
+            p.grad.clone() for p in layer.parameters()]
+    for g, r in zip(grads["mega"], grads["scatter"]):
+        assert ((g - r).abs() <= 1e-4 * r.abs().max() + 1e-3 * r.abs()).all()
