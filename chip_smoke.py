@@ -5,7 +5,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (none catches its own failure; any failure exits non-zero):
   1. require CUDA;
   2. print the card's name and power limit (nvidia-smi);
-  3. build the nine Hopper kernel sources with nvcc, one process per source,
+  3. build the ten Hopper kernel sources with nvcc, one process per source,
      all at once: csrc/egnn_mega_fwd.cu (B1, the EGNN edge forward from raw
      indices), csrc/egnn_tail_bwd.cu (B2, its backward), csrc/egnn_edge_fwd.cu
      and csrc/egnn_edge_bwd.cu (B3, the edge program over gathered bundles,
@@ -14,7 +14,8 @@ Phases (none catches its own failure; any failure exits non-zero):
      on the mirror-paired layout), csrc/egnn_tail_bwd_db.cu (B5a, B2 reading
      g[dst] itself), csrc/egnn_tail_bwd_nodes.cu (B5b, the edge half's
      backward up to node space) and csrc/egnn_stack_fwd.cu (B6, the whole
-     conv stack forward), with their shared csrc/egnn_common.cuh;
+     conv stack forward), and csrc/egnn_layer_fwd.cu (B7, one whole EGNN
+     layer forward), with their shared csrc/egnn_common.cuh;
   4. compare B1 with its plain PyTorch version on the card at the main
      path's shapes (B=128, N=288, H=64, E=2560 and 1408, F=20 and 64, 10% of
      the edges masked, self-loops), in f32 (TF32 off) and bf16, output and
@@ -57,17 +58,30 @@ Phases (none catches its own failure; any failure exits non-zero):
      version of that layer run from the kernel's own previous h and x, f32
      and bf16, E=2560 and 1408; time it with and without residuals, beside
      its plain version and the per-layer forward;
+  14a. compare B7 with its plain version at phase 4's shapes (unmasked
+     edges with src or dst at -1 and N among them): h' and x' per column
+     within one bf16 step at the column's largest value and BF16_COL_MEAN
+     in bf16, F32_TOL in f32, the same bits twice; time it beside its plain
+     version and print its bound;
   15. serve full-width HybridModelv2 with seeded weights in bf16 over HTTP on
      127.0.0.1 (ephemeral port), POST requests (B=128 at E=2560, B=128 at
      E=1408, B=1): probabilities finite, in (0, 1), matching the same batch
      through aggregation='scatter', the same when a request is sent again,
      6 B1 launches and no other launch per request;
+  15a. the sixth slice's main path: the same model and requests through
+     Scorer(fused_stack=True): probabilities within PROB_ATOL of 'scatter',
+     a repeated request the same bits, exactly 6 B7 launches and no other
+     per request, the median forward beside phase 15's 'mega';
   16. train full-width HybridModelv2 (bf16 over f32 master weights, Adam
      1e-3, the loss config of the JAX package's bench) on
      random_sample_batch(128, 288, E, 284) for E=2560 and 1408: the first
      step's loss and gradients under 'mega' against 'scatter' from the same
      weights, then 20 'mega' steps (6 B1 + 6 B2 launches each, finite loss
      that falls) and 10 'scatter' steps, with the median step time;
+  16a. the first full-width train step under 'onehot' and 'onehot_remat'
+     against 'scatter' (phase 16's bounds) at E=2560, no kernel launched;
+     torch.cuda.max_memory_allocated for one step under each and under
+     'mega' (onehot_remat below onehot);
   17. the comparative twin step (HybridModelv2_Comparative, the contrastive
      term at 0.1, random_comparative_batch at E=2560): the first step's loss
      and gradients under 'mega' against 'scatter', in f32 and in bf16, then
@@ -106,6 +120,11 @@ Phases (none catches its own failure; any failure exits non-zero):
      times and pMHC/s printed. Then B8 against its plain versions as in
      phase 9 on the operands the entry point gave it (the first of each
      kernel, shape and dtype);
+  21a. batch inference: cli.infer_IEDB_or_Cancer.main in-process on phase
+     19's finetune checkpoint under --aggregation auto (6 B1 launches per
+     batch) and onehot (no kernel): 51 test rows of three columns, the same
+     rows and labels, probabilities within PROB_ATOL of each other; then
+     --comparative on phase 21's checkpoint (12 B1 launches per batch);
   22. each 'mega' variant's first full-width HybridModelv2 train step
      (bf16) against 'scatter' from the same weights and noise, on
      build_batch's mirror-paired batch at E=2560 and 1408 (phase 16's
@@ -122,12 +141,14 @@ Phases (none catches its own failure; any failure exits non-zero):
   24. serve one B=128 forward with no gradient under 'stack' and 'paired'
      (the served model, a mirror-paired batch at E=2560): probabilities
      within 5e-4 of 'scatter', the variant's kernel alone launched;
+  24a. phase 24's 'paired' forward and one 'paired' train step under
+     torch.cuda.set_sync_debug_mode("error"): no host sync;
   25. trace forwards and train steps with torch.profiler ('mega',
-     'scatter' and, for the step, 'fused', 'pallas' and 'mega' under
-     'stack' and 'inkernel') and print the device-busy time, the device's
+     'scatter' and fused_stack (B7) for the forwards; for the step also
+     'fused', 'pallas' and 'mega' under 'stack' and 'inkernel') and print the device-busy time, the device's
      idle share and the kernels that take the most device time;
   26. print the times beside the card's name and power limit, then the
-     kernel record (ten kernels) as one JSON line, the card line and, last,
+     kernel record (eleven kernels) as one JSON line, the card line and, last,
      the result line {"ok": true, "device": {...}}.
 """
 
@@ -573,13 +594,13 @@ def plain_probs(scorer, path):
 
 
 def _counted():
-    """The ten launch wrappers, in read_counts' order."""
+    """The eleven launch wrappers, in read_counts' order."""
     from immunostruct_tpu_torch.cli.race_kernel_variants import counters
 
     wrappers = counters()
     return tuple(wrappers[k] for k in ("B1", "B2", "B3_fwd", "B3_bwd",
                                        "B8_scatter", "B8_gather", "B4",
-                                       "B5a", "B5b", "B6"))
+                                       "B5a", "B5b", "B6", "B7"))
 
 
 def reset_counts():
@@ -589,11 +610,19 @@ def reset_counts():
 
 def read_counts() -> tuple:
     """(B1, B2, B3 forward, B3 backward, B8 scatter, B8 gather, B4, B5a,
-    B5b, B6) launches."""
+    B5b, B6, B7) launches."""
     return tuple(fn.launches for fn in _counted())
 
 
-def check_serving(scorer, requests) -> tuple:
+B7_INDEX = 10                   # B7's place in read_counts()
+
+
+def check_serving(scorer, requests, kernel: int = 0) -> tuple:
+    """Serve ``requests`` over HTTP: each request launches ``kernel`` (its
+    index in read_counts(): B1 under 'mega', B7 under fused_stack) once per
+    layer and no other kernel; its probabilities are within PROB_ATOL of
+    'scatter''s and, sent again, of the first reply's (B7 sums without
+    atomics: the same bits)."""
     from immunostruct_tpu_torch.serving import make_http_server
 
     layers = len(scorer.model.gcn)
@@ -616,7 +645,8 @@ def check_serving(scorer, requests) -> tuple:
             status, reply = post(base + "/score", body)
             launches = tuple(a - z for a, z in zip(read_counts(), before))
             assert status == 200, reply
-            assert launches == (layers,) + (0,) * 9, (label, launches)
+            want = tuple(layers if i == kernel else 0 for i in range(11))
+            assert launches == want, (label, launches)
             probs = torch.tensor(reply["probs"], dtype=torch.float64)
             assert probs.shape == (b,), probs.shape
             assert torch.isfinite(probs).all()
@@ -638,9 +668,12 @@ def check_serving(scorer, requests) -> tuple:
                 again = torch.tensor(reply["probs"], dtype=torch.float64)
                 repeat_err = max(repeat_err,
                                  (again - probs).abs().max().item())
-            assert read_counts()[0] - before[0] == layers * TIMED_REQUESTS
+            assert read_counts()[kernel] - before[kernel] == \
+                layers * TIMED_REQUESTS
             assert repeat_err <= PROB_ATOL, (label, repeat_err)
-            row = dict(request=label, launches_per_request=launches[0],
+            if kernel == B7_INDEX:
+                assert repeat_err == 0.0, (label, repeat_err)
+            row = dict(request=label, launches_per_request=launches[kernel],
                        max_abs_prob_err_vs_scatter=prob_err,
                        max_abs_prob_diff_repeated=repeat_err,
                        median_http_wall_ms=statistics.median(walls),
@@ -792,7 +825,7 @@ def check_training() -> tuple:
 
     layers = 6
     rows = []
-    main_counts = (0,) * 10
+    main_counts = (0,) * 11
     for e in EDGE_COUNTS:
         batch = random_sample_batch(B, N, e, L, seed=0, device="cuda")
         first = first_step_vs_scatter(batch, "mega")
@@ -802,7 +835,7 @@ def check_training() -> tuple:
         losses, ms = timed_steps(trainer, state, batch, TRAIN_STEPS)
         counts = read_counts()          # read just after the 'mega' steps
         assert counts == (layers * TRAIN_STEPS, layers * TRAIN_STEPS) + (
-            0,) * 8, counts
+            0,) * 9, counts
         main_counts = tuple(a + c for a, c in zip(main_counts, counts))
         assert all(map(lambda v: v == v and abs(v) < float("inf"), losses))
         assert losses[-1] < losses[0], losses
@@ -843,7 +876,7 @@ def check_comparative() -> tuple:
     losses, ms = timed_steps(trainer, state, batch, COMPARATIVE_STEPS)
     counts = read_counts()              # read just after them
     assert counts == (12 * COMPARATIVE_STEPS, 12 * COMPARATIVE_STEPS) + (
-        0,) * 8, counts
+        0,) * 9, counts
     assert all(map(lambda v: v == v and abs(v) < float("inf"), losses))
     row = dict(E=EDGE_COUNTS[0], steps=COMPARATIVE_STEPS,
                launches_per_step=[c // COMPARATIVE_STEPS for c in counts],
@@ -1058,8 +1091,8 @@ def check_fused_layer_grads() -> list:
                  + (x2 * cot_x).float().sum()).backward()
             torch.cuda.synchronize()
             launched = tuple(a - z for a, z in zip(read_counts(), before))
-            assert launched == ((0, 0, 1, 1) + (0,) * 6 if kernels
-                                else (0,) * 10), launched
+            assert launched == ((0, 0, 1, 1) + (0,) * 7 if kernels
+                                else (0,) * 11), launched
             return [h2.detach(), x2.detach(), hin.grad, xin.grad] + [
                 p.grad.clone() for p in layer.parameters()]
 
@@ -1101,7 +1134,7 @@ def check_fused_training(mega_rows) -> tuple:
         losses, ms = timed_steps(trainer, state, batch, TRAIN_STEPS)
         counts = read_counts()          # read just after them
         n = layers * TRAIN_STEPS
-        assert counts == (0, 0, n, n) + (0,) * 6, counts
+        assert counts == (0, 0, n, n) + (0,) * 7, counts
         assert all(map(lambda v: v == v and abs(v) < float("inf"), losses))
         assert losses[-1] < losses[0], losses
         del trainer, state
@@ -1195,10 +1228,10 @@ def check_entry_point(tmp: str) -> tuple:
                    for v in h["train_loss"] + h["val_loss"]), h
         b3f, b3b = s["launches"][2:4]
         assert s["launches"][:2] == [0, 0] and b3f > 0 and b3b > 0, s
-        assert s["launches"][4:] == [0] * 6, s
+        assert s["launches"][4:] == [0] * 7, s
     assert len(inferences) == 2, inferences
     for launched in inferences:
-        assert launched[2] > 0 and launched.count(0) == 9, launched
+        assert launched[2] > 0 and launched.count(0) == 10, launched
     for stats in (train_stats, test_stats):
         assert len(stats) == METRIC_KEYS, sorted(stats)
     assert test_stats["optimal_threshold"] == \
@@ -1224,7 +1257,10 @@ def check_entry_point(tmp: str) -> tuple:
                                train_loss=h["train_loss"][i],
                                val_loss=h["val_loss"][i]))
     assert stages[0]["N"] == N and stages[0]["E"] % 128 == 0, stages[0]
-    row = dict(samples=CLI_SAMPLES, N=stages[0]["N"], E=stages[0]["E"],
+    row = dict(save_dir=save_dir, infer_args=[
+                   "--graph-dir-IEDB", graph_dir, "--property-path-IEDB",
+                   props, "--hla-path", hla],
+               samples=CLI_SAMPLES, N=stages[0]["N"], E=stages[0]["E"],
                edges_per_graph=stages[0]["edges_per_graph"],
                corpus_s=corpus_s, wall_s=wall_s,
                launches=counts, launches_by_stage={
@@ -1452,8 +1488,8 @@ def check_pallas_layer_grads() -> list:
                  + (x2 * cot_x).float().sum()).backward()
             torch.cuda.synchronize()
             launched = tuple(a - z for a, z in zip(read_counts(), before))
-            assert launched == ((0, 0, 0, 0, 1, 1) + (0,) * 4 if kernels
-                                else (0,) * 10), launched
+            assert launched == ((0, 0, 0, 0, 1, 1) + (0,) * 5 if kernels
+                                else (0,) * 11), launched
             return [h2.detach(), x2.detach(), hin.grad, xin.grad] + [
                 p.grad.clone() for p in layer.parameters()]
 
@@ -1500,7 +1536,7 @@ def check_pallas_training(mega_rows) -> tuple:
         losses, ms = timed_steps(trainer, state, batch, TRAIN_STEPS)
         counts = read_counts()          # read just after them
         n = layers * TRAIN_STEPS
-        assert counts == (0, 0, 0, 0, n, n) + (0,) * 4, counts
+        assert counts == (0, 0, 0, 0, n, n) + (0,) * 5, counts
         assert all(map(lambda v: v == v and abs(v) < float("inf"), losses))
         assert losses[-1] < losses[0], losses
         del trainer, state
@@ -1616,12 +1652,12 @@ def check_cancer_entry_point(tmp: str) -> tuple:
         assert all(v == v and abs(v) < float("inf")
                    for v in h["train_loss"] + h["val_loss"]), h
         assert s["launches"][:4] == [0, 0, 0, 0], s
-        assert s["launches"][6:] == [0] * 4, s
+        assert s["launches"][6:] == [0] * 5, s
         assert s["launches"][4] > 0 and s["launches"][5] > 0, s
     assert len(inferences) == 2, inferences
     for launched in inferences:
-        assert launched[4] > 0 and launched.count(0) == 9, launched
-    assert counts[:4] == (0, 0, 0, 0) and counts[6:] == (0,) * 4, counts
+        assert launched[4] > 0 and launched.count(0) == 10, launched
+    assert counts[:4] == (0, 0, 0, 0) and counts[6:] == (0,) * 5, counts
     for stats in (train_stats, test_stats):
         assert len(stats) == METRIC_KEYS, sorted(stats)
     assert test_stats["optimal_threshold"] == \
@@ -1649,7 +1685,11 @@ def check_cancer_entry_point(tmp: str) -> tuple:
                                train_loss=h["train_loss"][i],
                                val_loss=h["val_loss"][i]))
     assert stages[1]["N"] == N and stages[1]["E"] % 128 == 0, stages[1]
-    row = dict(iedb_samples=CLI_SAMPLES, pairs=CANCER_PAIRS,
+    row = dict(save_dir=save_dir, infer_args=[
+                   "--graph-dir-cancer", dir_c, "--graph-dir-wildtype", dir_w,
+                   "--property-path-cancer", props_c,
+                   "--property-path-wildtype", props_w, "--hla-path", hla],
+               iedb_samples=CLI_SAMPLES, pairs=CANCER_PAIRS,
                N=stages[1]["N"], E_iedb=stages[0]["E"], E_cancer=stages[1]["E"],
                corpus_s=corpus_s, wall_s=wall_s, launches=counts,
                launches_by_stage=[s["launches"] for s in stages],
@@ -2004,7 +2044,7 @@ def check_race() -> tuple:
     from immunostruct_tpu_torch.cli import race_kernel_variants as race
 
     rows = []
-    total = (0,) * 10
+    total = (0,) * 11
     for e in EDGE_COUNTS:
         reset_counts()                  # every count to 0: the race starts
         out = race.main(["--edges", str(e), "--batch", str(B),
@@ -2063,7 +2103,7 @@ def check_variant_serving(scorer) -> list:
         launched = tuple(a - z for a, z in zip(read_counts(), before))
         layers = 1 if variant == "stack" else 6
         assert launched == tuple(layers if i == kernel else 0
-                                 for i in range(10)), (variant, launched)
+                                 for i in range(11)), (variant, launched)
         err = (got - want).abs().max().item()
         assert torch.isfinite(got).all() and err <= PROB_ATOL, (variant, err)
         row = dict(variant=variant, launches=launched,
@@ -2073,6 +2113,236 @@ def check_variant_serving(scorer) -> list:
         print("served variant:", json.dumps(row), flush=True)
         rows.append(row)
     return rows
+
+
+# --------------------------------------------------------------------------
+# the forward-only paths: B7, 'onehot'/'onehot_remat', batch inference
+# --------------------------------------------------------------------------
+
+def b7_inputs(b: int, e: int, f: int, dtype, seed: int):
+    """B7's operands at the main path's shapes: a seeded EGNN layer (H=64)
+    and seeded inputs with 10% of the edges masked, self-loops, and
+    unmasked edges whose src or dst is -1 or N."""
+    from immunostruct_tpu_torch.ops.egnn import EGNNLayer
+
+    src, dst, mask, _, h, x = kernel_inputs(b, e, f, dtype, seed)[:6]
+    src[:, 8:10], src[:, 10:12] = -1, N
+    dst[:, 12:14], dst[:, 14:16] = -1, N
+    mask[:, 8:16] = True
+    layer = EGNNLayer(f, H, H, generator=torch.Generator().manual_seed(seed),
+                      device="cuda")
+    return layer, (h, x, src, dst, mask)
+
+
+def b7_errors(out, ref, dtype) -> dict:
+    """h' and x' against the plain version: f32 within F32_TOL; bf16 per
+    column (over graphs and nodes) max|diff| within one bf16 step at the
+    column's largest |plain| (phase 14's form: one flipped rounding at a
+    value just above a power of two is up to 2^-7 of it, over
+    BF16_COL_MAX) and mean|diff| <= BF16_COL_MEAN * mean|plain|. The card
+    tests' ten mutant kernels, each without one of B7's rounding points,
+    fail these bounds (tests/test_torch_port_cuda.py)."""
+    row = dict(max_abs_err=max((o.float() - r.float()).abs().max().item()
+                               for o, r in zip(out, ref)))
+    for name, o, r in zip(("h", "x"), out, ref):
+        assert o.dtype == r.dtype and o.shape == r.shape, name
+        assert torch.isfinite(o).all(), name
+        if dtype == torch.float32:
+            torch.testing.assert_close(o, r, **F32_TOL)
+            continue
+        g, w = o.float().flatten(0, 1), r.float().flatten(0, 1)
+        diff, mag = (g - w).abs(), w.abs()
+        top = mag.amax(0).clamp_min(torch.finfo(torch.float32).tiny)
+        steps = (diff.amax(0) / torch.exp2(torch.floor(torch.log2(top))
+                                           - 7)).max().item()
+        rel = bf16_errors(o, r)
+        assert steps <= 1.0, (name, steps)
+        assert rel["col_mean_rel"] <= BF16_COL_MEAN, (name, rel)
+        row.update({f"{name}_{k}": v for k, v in rel.items()},
+                   **{f"{name}_col_max_steps": steps})
+    return row
+
+
+def check_b7_kernel() -> list:
+    """B7-check: B7 against its plain version at phase 4's shapes, the same
+    bits twice, kernel, plain and bound times."""
+    from immunostruct_tpu_torch.ops.fused_layer import (
+        _lib, fused_egnn_layer, fused_egnn_layer_reference,
+    )
+
+    rows = []
+    with torch.no_grad():
+        for e in EDGE_COUNTS:
+            for f in (20, 64):
+                for name, dtype in DTYPES:
+                    layer, args = b7_inputs(B, e, f, dtype, seed=e + f + 7)
+                    out = fused_egnn_layer(layer, *args)
+                    again = fused_egnn_layer(layer, *args)
+                    torch.cuda.synchronize()
+                    assert all(torch.equal(a, z) for a, z in zip(out, again))
+                    ref = fused_egnn_layer_reference(layer, *args)
+                    err = b7_errors(out, ref, dtype)
+                    ms, plain_ms = alternate_ms(
+                        lambda: fused_egnn_layer_reference(layer, *args),
+                        lambda: fused_egnn_layer(layer, *args))
+                    h, x, src, dst, mask = args
+                    summed = (mask & (dst >= 0) & (dst < N)).sum().item()
+                    # the products this run's edges need (those summed at a
+                    # dst: the others touch no output), then the node MLP
+                    flops = (2 * summed * (2 * f * H + 2 * H * H + H)
+                             + 2 * B * N * ((f + H) * H + H * H))
+                    weights = _lib().egnn_layer_fwd_weight_count(f, H)
+                    nbytes = (tensor_bytes(h, x, src, dst, mask, *out)
+                              + weights * h.element_size())
+                    row = dict(E=e, F=f, dtype=name, **err,
+                               **bound(nbytes, flops, dtype), same_bits=True,
+                               edges_summed=summed, ms=ms,
+                               plain_ms=plain_ms)
+                    print("kernel B7:", json.dumps(row), flush=True)
+                    rows.append(row)
+                    del layer, args, out, again, ref
+    return rows
+
+
+def fused_stack_scorer(scorer):
+    """The served model of phase 15 behind a Scorer with fused_stack."""
+    from immunostruct_tpu_torch.serving import Scorer
+
+    return Scorer(scorer.model, device=scorer.device,
+                  compute_dtype=scorer.compute_dtype, aggregation="auto",
+                  seed=scorer.seed, fused_stack=True)
+
+
+def check_onehot_training() -> list:
+    """The first full-width train step under 'onehot' and 'onehot_remat'
+    against 'scatter' (phase 16's bounds) at E=2560, and the peak device
+    memory of one step under each and under 'mega'."""
+    from immunostruct_tpu_torch.data.synthetic import random_sample_batch
+
+    batch = random_sample_batch(B, N, EDGE_COUNTS[0], L, seed=0,
+                                device="cuda")
+    row = dict(E=EDGE_COUNTS[0])
+    for agg in ("onehot", "onehot_remat"):
+        first = first_step_vs_scatter(batch, agg)
+        row[agg] = first
+        print(f"{agg} first step E={EDGE_COUNTS[0]}:", json.dumps(first),
+              flush=True)
+    peak = {}
+    for agg in ("onehot", "onehot_remat", "mega"):
+        trainer, state = make_trainer("HybridModelv2", agg)
+        trainer.train_step(state, batch, seed=0)    # optimizer state made
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = read_counts()
+        t0 = time.perf_counter()
+        trainer.train_step(state, batch, seed=0)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        launched = tuple(a - z for a, z in zip(read_counts(), before))
+        want = (6, 6) + (0,) * 9 if agg == "mega" else (0,) * 11
+        assert launched == want, (agg, launched)
+        peak[agg] = dict(max_memory_allocated_bytes=
+                         torch.cuda.max_memory_allocated(), step_ms=step_ms)
+        del trainer, state
+    assert (peak["onehot_remat"]["max_memory_allocated_bytes"]
+            < peak["onehot"]["max_memory_allocated_bytes"]), peak
+    row["peak_memory"] = peak
+    print("onehot training:", json.dumps(row), flush=True)
+    return row
+
+
+def check_batch_inference(entry: dict, cancer: dict, tmp: str) -> dict:
+    """cli.infer_IEDB_or_Cancer in-process on phase 19's finetune
+    checkpoint, under --aggregation auto (6 B1 launches per batch) and
+    onehot (no kernel): 51 test rows of three columns each, the same rows
+    and labels, probabilities within PROB_ATOL of each other; then
+    --comparative on phase 21's checkpoint."""
+    from immunostruct_tpu_torch.cli import infer_IEDB_or_Cancer as cli
+
+    def finetune(save_dir):
+        return os.path.join(save_dir, next(
+            f for f in sorted(os.listdir(save_dir))
+            if f.endswith("_finetune.ckpt")))
+
+    def run(args, aggregation, out):
+        reset_counts()                  # every count to 0: inference starts
+        t0 = time.perf_counter()
+        stats = cli.main(args + ["--aggregation", aggregation, "--output",
+                                 out, "--compute-dtype", "bfloat16",
+                                 "--batch-size", str(B), "--device", "cuda",
+                                 "--seed", "1", "--full-sequence"])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = read_counts()          # read just after it
+        with open(out) as fh:
+            rows = [line.rstrip("\n").split("\t") for line in fh]
+        assert all(len(r) == 3 for r in rows), rows[:2]
+        probs = np.array([float(r[0]) for r in rows])
+        assert np.isfinite(probs).all() and ((probs > 0) & (probs < 1)).all()
+        assert len(stats["predicted_probs"]) == len(rows)
+        return rows, probs, counts, wall_s
+
+    out = {}
+    for label, args, model in (
+            ("IEDB", entry["infer_args"], "HybridModelv2"),
+            ("comparative", cancer["infer_args"] + ["--comparative"],
+             "HybridModelv2_Comparative")):
+        args = ["--model", model, "--checkpoint",
+                finetune(entry["save_dir"] if label == "IEDB"
+                         else cancer["save_dir"])] + args
+        auto = run(args, "auto", os.path.join(tmp, f"preds_{label}_auto.txt"))
+        onehot = run(args, "onehot",
+                     os.path.join(tmp, f"preds_{label}_onehot.txt"))
+        batches = -(-len(auto[0]) // B)
+        per = 12 if label == "comparative" else 6     # twins: two passes
+        assert auto[2] == (per * batches,) + (0,) * 10, auto[2]
+        assert onehot[2] == (0,) * 11, onehot[2]
+        assert [r[1:] for r in auto[0]] == [r[1:] for r in onehot[0]]
+        err = float(np.abs(auto[1] - onehot[1]).max())
+        assert err <= PROB_ATOL, (label, err)
+        if label == "IEDB":
+            assert len(auto[0]) == int(CLI_SAMPLES * 0.1), len(auto[0])
+        row = dict(rows=len(auto[0]), batches=batches,
+                   launches_auto=auto[2], launches_onehot=onehot[2],
+                   max_abs_prob_diff=err, wall_s_auto=auto[3],
+                   wall_s_onehot=onehot[3])
+        print(f"batch inference ({label}):", json.dumps(row), flush=True)
+        out[label] = row
+    return out
+
+
+def check_paired_no_sync(scorer) -> dict:
+    """Phase 24's 'paired' forward and one 'paired' train step under
+    torch.cuda.set_sync_debug_mode('error'): neither waits for the
+    device."""
+    from immunostruct_tpu_torch.data.synthetic import build_batch
+    from immunostruct_tpu_torch.models.trunk import model_apply
+
+    batch = build_batch(B, N, EDGE_COUNTS[0], L, paired=True, device="cuda")
+    trainer, state = make_trainer("HybridModelv2", "mega",
+                                  mega_variant="paired")
+    trainer.train_step(state, batch, seed=0)
+    gen = scorer.generator()
+    torch.cuda.synchronize()
+    before = read_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            out = model_apply(scorer.model, batch.graph, batch.seq_onehot,
+                              batch.props, generator=gen, deterministic=True,
+                              aggregation="mega",
+                              compute_dtype=scorer.compute_dtype,
+                              mega_variant="paired")
+        state, loss = trainer.train_step(state, batch, seed=0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launched = tuple(a - z for a, z in zip(read_counts(), before))
+    assert launched[6] == 12 and launched[1] == 6, launched   # B4, B2
+    assert torch.isfinite(out.logits).all() and torch.isfinite(loss)
+    row = dict(launches=launched, loss=float(loss))
+    print("paired without a host sync:", json.dumps(row), flush=True)
+    return row
 
 
 def device_profile(fn, traced: int) -> dict:
@@ -2122,6 +2392,7 @@ def profile_row(label, agg, per_name, traced, wall) -> dict:
         b5a_ms=kernel_ms("tail_bwd_kernel", ", 1>("),
         b5b_ms=kernel_ms("tail_bwd_kernel", ", 2>("),
         b6_ms=kernel_ms("egnn_stack_fwd_kernel"),
+        b7_ms=kernel_ms("egnn_layer_fwd_kernel"),
         top=[[name[:90], t / 1e3 / traced, c // traced]
              for name, (t, c) in top])
     print("profile:", json.dumps(row), flush=True)
@@ -2129,15 +2400,17 @@ def profile_row(label, agg, per_name, traced, wall) -> dict:
 
 
 def profile_forwards(scorer, requests, traced: int = 3) -> list:
-    """Per request shape and aggregation: median wall time of 10 untraced
-    forwards, then ``traced`` forwards under torch.profiler."""
+    """Per request shape and forward ('mega', 'scatter', and 'auto' with
+    fused_stack, B7): median wall time of 10 untraced forwards, then
+    ``traced`` forwards under torch.profiler."""
     from immunostruct_tpu_torch.serving import request_to_args
 
     rows = []
     for label, _, path in requests:
         args = request_to_args(path, scorer.device, scorer.model)
-        for agg in ("mega", "scatter"):
-            scorer.aggregation = agg
+        for agg in ("mega", "scatter", "fused_stack"):
+            scorer.fused_stack = agg == "fused_stack"
+            scorer.aggregation = "auto" if scorer.fused_stack else agg
             for _ in range(3):
                 scorer(*args)
             walls = []
@@ -2148,7 +2421,7 @@ def profile_forwards(scorer, requests, traced: int = 3) -> list:
             per_name = device_profile(lambda: scorer(*args), traced)
             rows.append(profile_row(f"forward {label}", agg, per_name,
                                     traced, statistics.median(walls)))
-    scorer.aggregation = "mega"
+    scorer.aggregation, scorer.fused_stack = "mega", False
     return rows
 
 
@@ -2191,7 +2464,9 @@ def main() -> int:
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from immunostruct_tpu_torch.ops import _build, edge, mega, segment, stack
+    from immunostruct_tpu_torch.ops import (
+        _build, edge, fused_layer, mega, segment, stack,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2206,9 +2481,10 @@ def main() -> int:
     edge._kernel_libs()
     segment._lib()
     stack._lib()
+    fused_layer._lib()
     build_s = time.perf_counter() - t0
     sources = len(list(_build.CSRC.glob("*.cu")))
-    assert sources == 9, sources
+    assert sources == 10, sources
     print(f"kernel build + load (all {sources} sources): {build_s:.1f} s",
           flush=True)
 
@@ -2223,11 +2499,15 @@ def main() -> int:
     db_rows = check_tail_db_kernel()
     nodes_rows = check_tail_nodes_kernel()
     stack_rows = check_stack_kernel()
+    b7_rows = check_b7_kernel()
     scorer = full_width_scorer()
     with tempfile.TemporaryDirectory() as tmp:
         requests = write_requests(tmp)
         served, serving_counts = check_serving(scorer, requests)
+        b7_served, b7_counts = check_serving(fused_stack_scorer(scorer),
+                                             requests, kernel=B7_INDEX)
         train_rows, train_counts = check_training()
+        onehot_row = check_onehot_training()
         comp_row, comp_counts = check_comparative()
         fused_rows, fused_counts = check_fused_training(train_rows)
         entry, entry_operands = check_entry_point(tmp)
@@ -2235,9 +2515,11 @@ def main() -> int:
         pallas_rows, pallas_counts = check_pallas_training(train_rows)
         cancer, cancer_operands = check_cancer_entry_point(tmp)
         segment_rows += check_entry_segment_kernels(cancer_operands)
+        inference_rows = check_batch_inference(entry, cancer, tmp)
         variant_firsts = check_variant_first_steps()
         race_rows, race_counts = check_race()
         variant_served = check_variant_serving(scorer)
+        paired_sync = check_paired_no_sync(scorer)
         profile_forwards(scorer, requests)
         profile_training()
 
@@ -2246,10 +2528,27 @@ def main() -> int:
                     and r["dtype"] == "bfloat16"
                     and all(r[k] == v for k, v in want.items()))
 
-    for r in served:
+    for r, r7 in zip(served, b7_served):
         print(f"latency [{card}]: {r['request']}: median forward "
               f"{r['median_forward_ms']:.3f} ms, median HTTP round trip "
-              f"{r['median_http_wall_ms']:.3f} ms")
+              f"{r['median_http_wall_ms']:.3f} ms; with fused_stack (B7) "
+              f"{r7['median_forward_ms']:.3f} ms, round trip "
+              f"{r7['median_http_wall_ms']:.3f} ms")
+    for r in b7_rows:
+        print(f"kernel  [{card}]: B7 B={B} E={r['E']} F={r['F']} "
+              f"{r['dtype']}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
+    for agg, v in onehot_row["peak_memory"].items():
+        print(f"memory  [{card}]: train step B=128 E=2560 bf16 {agg}: peak "
+              f"{v['max_memory_allocated_bytes']} B allocated, step "
+              f"{v['step_ms']:.3f} ms")
+    for label, r in inference_rows.items():
+        print(f"infer   [{card}]: infer_IEDB_or_Cancer {label}: {r['rows']} "
+              f"rows, {r['wall_s_auto']:.3f} s under auto, "
+              f"{r['wall_s_onehot']:.3f} s under onehot")
+    print(f"paired  [{card}]: forward and step without a host sync, "
+          f"launches {list(paired_sync['launches'])}")
     for r in train_rows:
         print(f"train   [{card}]: B=128 E={r['E']} bf16: median step "
               f"{r['median_step_ms_mega']:.3f} ms 'mega' "
@@ -2318,7 +2617,8 @@ def main() -> int:
                   f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']}){bare}")
 
-    launches = dict(serving=serving_counts, train=train_counts,
+    launches = dict(serving=serving_counts, serving_b7=b7_counts,
+                    train=train_counts,
                     comparative=comp_counts, train_fused=fused_counts,
                     entry_point=entry["launches"], train_pallas=pallas_counts,
                     entry_point_cancer=cancer["launches"], race=race_counts)
@@ -2331,6 +2631,7 @@ def main() -> int:
     b4, b5a, b5b = pick(paired_rows), pick(db_rows), pick(nodes_rows)
     b6 = next(r for r in stack_rows if r["E"] == 2560
               and r["dtype"] == "bfloat16")
+    b7 = pick(b7_rows)
 
     def kernel_record(name, source, replaces, index, main_count, row, rows,
                       ms_key="ms"):
@@ -2345,8 +2646,9 @@ def main() -> int:
             "library_ms": row.get("library_ms"),
         }
 
-    # no single PyTorch call computes B1-B6: their library_ms is null; B8's
-    # is index_add_ (scatter) and index_select (gather)
+    # no single PyTorch call computes B1-B7 (B7 a whole EGNN layer): their
+    # library_ms is null; B8's is index_add_ (scatter) and index_select
+    # (gather)
     record = {"kernels": [
         kernel_record("egnn_mega_fwd", "egnn_mega_fwd.cu",
                       "immunostruct_tpu/ops/pallas_mega.py:226", 0,
@@ -2383,8 +2685,11 @@ def main() -> int:
         kernel_record("egnn_stack_fwd", "egnn_stack_fwd.cu",
                       "immunostruct_tpu/ops/experimental/pallas_stack.py:98",
                       9, race_counts[9], b6, stack_rows),
+        kernel_record("egnn_layer_fwd", "egnn_layer_fwd.cu",
+                      "immunostruct_tpu/ops/experimental/pallas_egnn.py:48",
+                      B7_INDEX, b7_counts[B7_INDEX], b7, b7_rows),
     ]}
-    assert len(record["kernels"]) == 10
+    assert len(record["kernels"]) == 11
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,8 @@ accelerator flags, plus ``--device``.
 
 What the port does with the JAX package's accelerator flags:
 
-- ``--aggregation``: 'auto', 'mega', 'fused', 'pallas' and 'scatter' run;
-  'onehot' and 'onehot_remat' are not ported and fail here, before any data
-  is read;
+- ``--aggregation``: every name runs ('auto', 'mega', 'fused', 'pallas',
+  'onehot', 'onehot_remat', 'scatter'; ``ops/egnn.py``);
 - ``--device-data`` (the HBM-resident corpus): not ported, so only the host
   pipeline runs and ``--device-data`` fails;
 - ``--data-parallel``: not ported, fails when a stage starts;
@@ -23,7 +22,6 @@ import argparse
 import torch
 
 from immunostruct_tpu_torch.config import Config, update_paths
-from immunostruct_tpu_torch.ops.egnn import NOT_PORTED
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
@@ -58,9 +56,11 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                         "edge bundles through the B3 kernels, index_add_ "
                         "aggregation), 'pallas' (the B8 segment scatter "
                         "kernel, its gather kernel in the backward), "
-                        "'scatter' (plain PyTorch), 'auto' ('mega' on CUDA, "
-                        "'scatter' on the CPU); 'onehot' and 'onehot_remat' "
-                        "are not ported yet")
+                        "'onehot' (one-hot matrix products, plain PyTorch), "
+                        "'onehot_remat' (the same, rebuilt per layer under "
+                        "checkpointing: less memory), 'scatter' (plain "
+                        "PyTorch), 'auto' ('scatter' on the CPU; on CUDA "
+                        "'mega', else 'fused', else 'onehot', by shape)")
     p.add_argument("--data-parallel", action="store_true",
                    help="shard batches over all local devices (not ported)")
     p.add_argument("--resume", action="store_true",
@@ -104,16 +104,12 @@ def resolve_device(name: str) -> torch.device:
 
 def to_config(args: argparse.Namespace, **extra) -> Config:
     """The Config of the parsed flags; fails on what the port does not
-    run (an aggregation not ported, ``--device-data``, a missing card)."""
+    run (``--device-data``, a missing card)."""
     known = {f.name for f in Config.__dataclass_fields__.values()}
     kv = {k: v for k, v in vars(args).items() if k in known}
     kv.update(extra)
     cfg = Config(**kv)
     update_paths(cfg)
-    if cfg.aggregation in NOT_PORTED:
-        raise ValueError(f"--aggregation {cfg.aggregation} is not ported to "
-                         "PyTorch yet; use auto, mega, fused, pallas or "
-                         "scatter")
     if cfg.device_data:
         raise ValueError("--device-data (the device-resident corpus) is not "
                          "ported to PyTorch yet; the host pipeline runs "
@@ -126,9 +122,12 @@ def check_seq_dims(vae_dim: int, full: bool, **named_datasets) -> None:
     """Fail fast on cross-corpus sequence-padding mismatches: the VAE takes
     a fixed L*21 input, and each corpus pads to its own longest chain.
     Pass every dataset the run will touch; a comparative dataset is
-    checked on both twins."""
+    checked on both twins, and a None (a dataset the run skips) is
+    skipped."""
     sides = []
     for name, ds in named_datasets.items():
+        if ds is None:
+            continue
         if hasattr(ds, "cancer"):       # the twins share the VAE
             sides += [(f"{name}.cancer", ds.cancer), (f"{name}.wt", ds.wt)]
         else:

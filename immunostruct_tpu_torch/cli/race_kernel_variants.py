@@ -62,6 +62,7 @@ _TPU_FORMS = re.compile(r"base|cast|stacked|split|concat|skipprobe|"
 def counters() -> dict:
     """The kernel wrappers whose ``launches`` a race reads, by kernel."""
     from immunostruct_tpu_torch.ops.edge import edge_program, edge_program_bwd
+    from immunostruct_tpu_torch.ops.fused_layer import fused_egnn_layer
     from immunostruct_tpu_torch.ops.mega import (
         edge_mega, edge_mega_paired_fwd, tail_bwd, tail_bwd_db,
         tail_bwd_nodes,
@@ -74,7 +75,8 @@ def counters() -> dict:
     return {"B1": edge_mega, "B2": tail_bwd, "B3_fwd": edge_program,
             "B3_bwd": edge_program_bwd, "B4": edge_mega_paired_fwd,
             "B5a": tail_bwd_db, "B5b": tail_bwd_nodes, "B6": stack_fwd,
-            "B8_scatter": segment_scatter, "B8_gather": segment_gather}
+            "B7": fused_egnn_layer, "B8_scatter": segment_scatter,
+            "B8_gather": segment_gather}
 
 
 def read_counts() -> dict:
@@ -149,6 +151,12 @@ def race(variants, edges: int = 2560, batch: int = 128, windows: int = 3,
     vae_dim = SEQ_LEN * 21
     data = build_batch(batch, NODES, edges, SEQ_LEN, paired=paired_batch,
                        device=device)
+    if "paired" in names:
+        # once per batch, before any window: the step itself checks nothing
+        # on the device (ops/egnn.py, 'paired')
+        from immunostruct_tpu_torch.ops.mega import check_paired
+        g = data.graph
+        check_paired(g.edge_src, g.edge_dst, g.edge_mask)
     print(f"device={device} edges={edges} batch={batch} "
           f"paired_batch={paired_batch}", file=log)
     warm_process(device)

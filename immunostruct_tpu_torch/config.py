@@ -80,7 +80,7 @@ class Config:
     pad_nodes_multiple: int = 8      # round corpus max_nodes up
     pad_edges_multiple: int = 128    # round corpus max_edges up ('fused' needs it)
     data_parallel: bool = False
-    aggregation: str = "auto"        # 'auto' | 'mega' | 'fused' | 'scatter'
+    aggregation: str = "auto"        # ops/egnn.py AGGREGATIONS
     resume: bool = False             # within-stage resume from .resume snapshots
     device_data: object = None
     grad_accum_steps: int = 1

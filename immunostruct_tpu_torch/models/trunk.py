@@ -183,14 +183,16 @@ def reset_head(model: ImmunoStructModel, generator: torch.Generator
 
 def _structure_branch(model: ImmunoStructModel, graph: GraphBatch,
                       aggregation: str, compute_dtype,
-                      mega_variant: str = "hybrid"):
+                      mega_variant: str = "hybrid",
+                      fused_stack: bool = False):
     spec = model.spec
     h = graph.node_feat[..., :NUM_AMINO_ACIDS].to(compute_dtype)
     x = graph.coords.to(compute_dtype)
     h, _ = egnn_stack_apply(model.gcn, h, x, graph.edge_src, graph.edge_dst,
                             graph.edge_feat, graph.edge_mask,
                             aggregation=aggregation,
-                            mega_variant=mega_variant)
+                            mega_variant=mega_variant,
+                            fused_stack=fused_stack)
     if spec.node_attention == "self":
         attn_out, attn_w = self_attention_apply(model.node_attn, h)
     else:
@@ -233,16 +235,18 @@ def forward_item(model: ImmunoStructModel, graph: Optional[GraphBatch],
                  deterministic: bool = False, aggregation: str = "auto",
                  compute_dtype=torch.float32,
                  eps: Optional[torch.Tensor] = None,
-                 mega_variant: str = "hybrid"):
+                 mega_variant: str = "hybrid", fused_stack: bool = False):
     """Single-branch forward. Returns (embedding, recon, mu, logvar,
     attention weights); ``embedding`` is [pool | z_vae]. ``mega_variant``:
-    the kernel variant of aggregation 'mega' (``egnn_stack_apply``)."""
+    the kernel variant of aggregation 'mega'; ``fused_stack``: the conv
+    stack through B7, forward only (both ``egnn_stack_apply``'s)."""
     spec = model.spec
     pooled, attn_w, recon, mu, logvar = None, None, None, None, None
     pieces = []
     if spec.use_structure:
         pooled, attn_w = _structure_branch(model, graph, aggregation,
-                                           compute_dtype, mega_variant)
+                                           compute_dtype, mega_variant,
+                                           fused_stack)
         pieces.append(pooled)
     if spec.use_sequence:
         b = seq_onehot.shape[0]
@@ -288,14 +292,17 @@ def model_apply(model: ImmunoStructModel, graph: Optional[GraphBatch],
                 deterministic: bool = False, aggregation: str = "auto",
                 compute_dtype=torch.float32,
                 eps: Optional[torch.Tensor] = None,
-                mega_variant: str = "hybrid") -> ModelOutput:
+                mega_variant: str = "hybrid",
+                fused_stack: bool = False) -> ModelOutput:
     """Plain (non-comparative) forward. For comparative specs the item
     embedding is duplicated to fill the 2x-wide classifier, as in the JAX
-    package's pretraining path."""
+    package's pretraining path. ``fused_stack`` runs the conv stack through
+    B7 (forward only: it raises under a gradient)."""
     embedding, recon, mu, logvar, attn_w = forward_item(
         model, graph, seq_onehot, props, generator=generator,
         deterministic=deterministic, aggregation=aggregation,
-        compute_dtype=compute_dtype, eps=eps, mega_variant=mega_variant)
+        compute_dtype=compute_dtype, eps=eps, mega_variant=mega_variant,
+        fused_stack=fused_stack)
     combined = embedding
     if model.spec.comparative and model.spec.use_wt_for_downstream:
         combined = torch.cat([embedding, embedding], dim=-1)
@@ -323,7 +330,8 @@ def model_apply_comparative(model: ImmunoStructModel, graph_pair, seq_pair,
                             aggregation: str = "auto",
                             compute_dtype=torch.float32,
                             stack_twins: bool = False, eps=None,
-                            mega_variant: str = "hybrid"):
+                            mega_variant: str = "hybrid",
+                            fused_stack: bool = False):
     """Twin forward over (cancer, wt) with shared weights.
 
     Returns (ModelOutput_cancer, ModelOutput_wt, logits). The logits come
@@ -333,10 +341,11 @@ def model_apply_comparative(model: ImmunoStructModel, graph_pair, seq_pair,
     stacked on the batch axis instead of two B-sized passes (the same
     math; only the order of the noise draws differs). ``eps``: the VAE
     noise, a (cancer, wt) pair for two passes or one [2B, latent] tensor
-    for the stacked pass; None draws it from ``generator``."""
+    for the stacked pass; None draws it from ``generator``.
+    ``fused_stack``: the conv stack through B7, as in ``model_apply``."""
     kw = dict(generator=generator, deterministic=deterministic,
               aggregation=aggregation, compute_dtype=compute_dtype,
-              mega_variant=mega_variant)
+              mega_variant=mega_variant, fused_stack=fused_stack)
     if stack_twins:
         b = (seq_pair[0] if seq_pair[0] is not None
              else graph_pair[0].node_feat).shape[0]

@@ -62,6 +62,10 @@ KERNEL_MAX_F = 64
 # _fused_or_fallback): the edge pad is a multiple of the TPU's 128-lane tile
 EDGE_MULTIPLE = 128
 
+# shared memory one block may opt into on sm_90 (the H100's 227 KB); what
+# ``mega_admits`` holds B1's need to, without asking a card
+HOPPER_SMEM_OPTIN = 232_448
+
 
 def pack_params(edge_mlp: Sequence, coord_mlp: Sequence):
     """Split one EGNN layer's weights into the kernels' operands.
@@ -80,6 +84,17 @@ def pack_params(edge_mlp: Sequence, coord_mlp: Sequence):
         coord_mlp[0].b, coord_mlp[1].w[:, 0],
     ], dim=1).float().contiguous()
     return w1[:f2], edge_mlp[1].w, coord_mlp[0].w, small
+
+
+def fused_admits(edges: int, features: int, hidden: int,
+                 edge_feat_size: int) -> bool:
+    """Whether B3 takes these shapes: JAX's rule for 'fused' (a multiple of
+    128 edges, 1-dim edge features) and the kernel's widths (H =
+    KERNEL_HIDDEN, 1 <= F <= KERNEL_MAX_F; its shared memory does not grow
+    with E or N)."""
+    return (edges >= EDGE_MULTIPLE and edges % EDGE_MULTIPLE == 0
+            and edge_feat_size == 1 and hidden == KERNEL_HIDDEN
+            and 1 <= features <= KERNEL_MAX_F)
 
 
 def silu_grad(x, s):
@@ -109,7 +124,8 @@ def check_cuda_args(name: str, want: dict, dtype, hid: int):
             raise ValueError(f"{name}: {arg} is not contiguous")
     if hid != KERNEL_HIDDEN:
         raise ValueError(f"{name} kernel is built for H={KERNEL_HIDDEN}, "
-                         f"got H={hid}; aggregation='scatter' takes any H")
+                         f"got H={hid}; aggregation 'onehot' or 'scatter' "
+                         "takes any H")
 
 
 def hopper(device, name: str):
@@ -292,7 +308,8 @@ def _check_bundles(name, hsx, hdx, ef, w1ab, w2, wc1, small, extra=None):
     check_cuda_args(name, want, hsx.dtype, hid)
     if not 1 <= f <= KERNEL_MAX_F:
         raise ValueError(f"{name} kernel takes 1 <= F <= {KERNEL_MAX_F}, "
-                         f"got F={f}")
+                         f"got F={f}; aggregation 'onehot' or 'scatter' "
+                         "takes any F")
     if b == 0:
         raise ValueError(f"{name}: empty batch")
     return b, f, e, hid

@@ -13,16 +13,36 @@ Aggregation strategies:
   'scatter'  ``index_select`` gathers and ``index_add_`` aggregation (sums
              in f32) with the radial guard of the JAX package. The CPU path
              and the plain reference for the kernel path.
+  'onehot'   gathers and aggregation as batched products with masked
+             [B, N, E] one-hot matrices (JAX ``build_scatter_matrix``; an
+             index outside [0, N) gives a zero column, a masked edge a zero
+             column on both sides). The matrices hold 0 and 1 (the
+             difference matrix -1, 0 and 1), exact in any dtype, so they are
+             built in f32 and every product accumulates in f32 and is
+             rounded once to its operand's dtype, on the CPU and the card
+             alike (with TF32 off, the card's default for matmul).
+             ``x_diff`` is one product of the difference matrix with x,
+             promoted against x: f32 coordinates stay f32 under bf16
+             features (the only path that keeps them). The stack builds the
+             matrices once and shares them across layers. Plain PyTorch:
+             the JAX package runs these as XLA einsums, outside any Pallas
+             kernel.
+  'onehot_remat' the same values; each layer rebuilds the matrices inside
+             ``torch.utils.checkpoint`` (non-reentrant), so they never
+             outlive the layer's forward or its recompute in the backward.
   'mega'     the edge half of every layer in hand-written Hopper kernels
              from the raw edge indices (ops/mega.py): B1 forward, B2 in the
              backward; the node MLP stays in PyTorch. On CPU tensors
              ``edge_mega`` runs their plain versions. ``mega_variant`` picks
              the JAX package's kernel variants per call ('hybrid', the
              default; 'dboth' B5a and 'inkernel' B5b in the backward;
-             'paired' B4 on the mirror-paired layout, checked once before
-             the first layer; 'stack' B6, the whole stack in one kernel,
-             ops/stack.py). Any other aggregation raises with a variant
-             other than 'hybrid'.
+             'paired' B4 on the mirror-paired layout; 'stack' B6, the whole
+             stack in one kernel, ops/stack.py). Any other aggregation
+             raises with a variant other than 'hybrid'. Under 'paired' the
+             layout is checked on the host where the batch is built
+             (``check_paired``); on CPU tensors the stack checks it too, on
+             CUDA tensors it computes on the mirror that the arc half
+             implies, as the JAX kernel does, with no host round trip.
   'fused'    [h ++ x] bundles gathered by src and by dst into the transposed
              edge layout [B, F+3, E], the edge program in hand-written Hopper
              kernels (ops/edge.py: B3 forward, B3 backward recomputing the
@@ -33,8 +53,8 @@ Aggregation strategies:
              that side and is left out of the aggregation, and the gathers'
              backward sums in f32 and rounds once, as the JAX one-hot
              einsums do. JAX's admission rule holds: E a multiple of 128 and
-             1-dim edge features; where JAX would fall back to 'onehot' (not
-             ported), this raises.
+             1-dim edge features; where JAX would fall back to 'onehot',
+             this raises and names it.
   'pallas'   gathers and the edge/coord MLP as 'scatter', then [m ++
              msg_x] in the compute dtype summed at the destination by B8's
              scatter kernel (ops/segment.py: ``SegmentScatter``, f32 sums
@@ -42,30 +62,43 @@ Aggregation strategies:
              package's numerics: the gathers do not mask the index, the
              aggregation leaves out a masked edge or an index outside [0,
              N). JAX's admission rule holds: E a multiple of 128; where JAX
-             would fall back to 'onehot' (not ported), this raises.
-  'auto'     'mega' for CUDA tensors, 'scatter' for CPU tensors.
-The JAX package's other names ('onehot', 'onehot_remat') are not ported yet
-and raise (see ROADMAP.md).
+             would fall back to 'onehot', this raises and names it.
+  'auto'     'scatter' for CPU tensors. For CUDA tensors the JAX package's
+             chain (``_mega_or_fallback``, ``_fused_or_fallback``), decided
+             from the shapes before any launch, with its warnings: 'mega'
+             where B1 takes the shapes, else 'fused' where B3 takes them,
+             else 'onehot'.
+
+``fused_stack=True`` (``egnn_stack_apply``, forward only) runs the whole
+conv stack through B7, one kernel per layer (ops/fused_layer.py, the
+counterpart of ``ops/experimental/pallas_egnn.py``). Like the JAX kernel
+it reads no edge features: they must be all ones. On CPU tensors the stack
+checks that; on CUDA tensors it is the caller's contract (the request and
+batch builders check it on the host), as it is the JAX wrapper's.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from immunostruct_tpu_torch.ops.edge import (
-    EDGE_MULTIPLE, edge_program, pack_params,
+    EDGE_MULTIPLE, edge_program, fused_admits, pack_params,
 )
+from immunostruct_tpu_torch.ops.fused_layer import fused_egnn_stack
 from immunostruct_tpu_torch.ops.mega import (
-    check_paired, check_variant, edge_mega,
+    check_paired, check_variant, edge_mega, mega_admits,
 )
 from immunostruct_tpu_torch.ops.nnp import Linear, linear_apply
 from immunostruct_tpu_torch.ops.segment import SegmentScatter
 from immunostruct_tpu_torch.ops.stack import apply_stack
 
-NOT_PORTED = ("onehot", "onehot_remat")
+AGGREGATIONS = ("auto", "scatter", "onehot", "onehot_remat", "mega", "fused",
+                "pallas")
 
 
 class EGNNLayer(nn.Module):
@@ -99,17 +132,41 @@ def egnn_stack(num_layers: int, in_size: int, hidden_size: int,
                      **kw) for _ in range(num_layers)])
 
 
-def resolve_aggregation(aggregation: str, device: torch.device) -> str:
-    if aggregation == "auto":
-        return "mega" if device.type == "cuda" else "scatter"
-    if aggregation in ("scatter", "mega", "fused", "pallas"):
+def resolve_aggregation(aggregation: str, device: torch.device, *,
+                        edges: int, nodes: int, features: int, hidden: int,
+                        edge_feat_size: int) -> str:
+    """The aggregation that runs. 'auto' is 'scatter' on the CPU; on CUDA it
+    follows the JAX package's chain from the shapes alone (E edges, N
+    nodes, the input width F, the hidden width H, the edge-feature width):
+    'mega' where B1 takes them (``mega_admits``), else 'fused' where B3 does
+    (``fused_admits``), else 'onehot', warning at each step as JAX does."""
+    if aggregation not in AGGREGATIONS:
+        raise ValueError(f"unknown aggregation '{aggregation}'; choose from "
+                         f"{AGGREGATIONS}")
+    if aggregation != "auto":
         return aggregation
-    if aggregation in NOT_PORTED:
-        raise ValueError(
-            f"aggregation '{aggregation}' is not ported to PyTorch yet "
-            "(see ROADMAP.md, kernels still to port); use 'scatter', "
-            "'mega', 'fused', 'pallas' or 'auto'")
-    raise ValueError(f"unknown aggregation '{aggregation}'")
+    if device.type != "cuda":
+        return "scatter"
+    if mega_admits(nodes, features, hidden, edge_feat_size):
+        return "mega"
+    warnings.warn(
+        f"aggregation='mega' unsupported for edge count {edges} / {nodes} "
+        f"nodes / edge_feat size {edge_feat_size}; falling back to 'fused'",
+        stacklevel=3)
+    if fused_admits(edges, features, hidden, edge_feat_size):
+        return "fused"
+    warnings.warn(
+        f"aggregation='fused' unsupported for edge count {edges} / "
+        f"edge_feat size {edge_feat_size} (needs a 128-multiple edge pad "
+        "and 1-dim edge features); falling back to 'onehot'", stacklevel=3)
+    return "onehot"
+
+
+def _resolve(aggregation, p: EGNNLayer, h, edge_src, edge_feat) -> str:
+    return resolve_aggregation(
+        aggregation, h.device, edges=edge_src.shape[1], nodes=h.shape[1],
+        features=h.shape[-1], hidden=p.edge_mlp[1].w.shape[1],
+        edge_feat_size=edge_feat.shape[-1])
 
 
 def _node_update(p: EGNNLayer, h, x, h_agg, x_agg):
@@ -125,6 +182,23 @@ def _flat_index(idx: torch.Tensor, n: int) -> torch.Tensor:
     return (idx.long() + offs).reshape(-1)
 
 
+def _edge_mlp(p: EGNNLayer, h_src, h_dst, x_diff, edge_feat):
+    """The edge/coord MLP on gathered values: (m [B, E, H], msg_x [B, E, 3]
+    in x_diff's dtype), with the JAX package's radial guard."""
+    radial = (x_diff * x_diff).sum(-1, keepdim=True)
+    # radial = 0 (self-loops) keeps x_hat = 0 and the sqrt finite
+    radial_safe = torch.where(radial > 0, radial, torch.ones_like(radial))
+    x_hat = x_diff / (torch.sqrt(radial_safe) + 1e-30)
+    dt = h_src.dtype
+    feat = torch.cat([h_src, h_dst, radial.to(dt), edge_feat.to(dt)], dim=-1)
+    silu = nn.functional.silu
+    m = silu(linear_apply(p.edge_mlp[0], feat))
+    m = silu(linear_apply(p.edge_mlp[1], m))                    # [B, E, H]
+    cw = silu(linear_apply(p.coord_mlp[0], m))
+    cw = linear_apply(p.coord_mlp[1], cw)                       # [B, E, 1]
+    return m, cw.to(x_hat.dtype) * x_hat                        # [B, E, 3]
+
+
 def _edge_messages(p: EGNNLayer, h, x, edge_src, edge_dst, edge_feat):
     """The gathers (the index not masked) and the edge/coord MLP: (m [B, E,
     H], msg_x [B, E, 3]) and the flat destination rows."""
@@ -138,19 +212,7 @@ def _edge_messages(p: EGNNLayer, h, x, edge_src, edge_dst, edge_feat):
     h_dst = hf.index_select(0, dst).reshape(b, e, f)
     x_diff = (xf.index_select(0, src) - xf.index_select(0, dst)
               ).reshape(b, e, 3)
-    radial = (x_diff * x_diff).sum(-1, keepdim=True)
-    # radial = 0 (self-loops) keeps x_hat = 0 and the sqrt finite
-    radial_safe = torch.where(radial > 0, radial, torch.ones_like(radial))
-    x_hat = x_diff / (torch.sqrt(radial_safe) + 1e-30)
-
-    feat = torch.cat([h_src, h_dst, radial.to(h.dtype),
-                      edge_feat.to(h.dtype)], dim=-1)
-    silu = nn.functional.silu
-    m = silu(linear_apply(p.edge_mlp[0], feat))
-    m = silu(linear_apply(p.edge_mlp[1], m))                    # [B, E, H]
-    cw = silu(linear_apply(p.coord_mlp[0], m))
-    cw = linear_apply(p.coord_mlp[1], cw)                       # [B, E, 1]
-    msg_x = cw.to(x_hat.dtype) * x_hat                          # [B, E, 3]
+    m, msg_x = _edge_mlp(p, h_src, h_dst, x_diff, edge_feat)
     return m, msg_x, dst
 
 
@@ -168,6 +230,63 @@ def _egnn_apply_scatter(p: EGNNLayer, h, x, edge_src, edge_dst, edge_feat,
     return _node_update(p, h, x, agg[..., :hid].to(m.dtype),
                         agg[..., hid:].to(x.dtype))
 
+
+# --------------------------------------------------------------------------
+# 'onehot' and 'onehot_remat'
+# --------------------------------------------------------------------------
+
+def one_hot_matrix(idx: torch.Tensor, mask: torch.Tensor,
+                   n: int) -> torch.Tensor:
+    """[B, E] node indices -> the [B, N, E] masked one-hot matrix in f32
+    (JAX ``build_scatter_matrix``): column e is node idx[b, e]'s unit
+    vector, or zeros where the edge is masked or the index lies outside
+    [0, N)."""
+    nodes = torch.arange(n, device=idx.device)
+    hit = nodes[None, :, None] == idx[:, None, :].long()
+    return (hit & mask[:, None, :].bool()).float()
+
+
+def one_hot_matrices(edge_src, edge_dst, edge_mask, n: int):
+    """(dst matrix, src matrix, src - dst): the three [B, N, E] matrices
+    of a 'onehot' layer."""
+    sm = one_hot_matrix(edge_dst, edge_mask, n)
+    srcm = one_hot_matrix(edge_src, edge_mask, n)
+    return sm, srcm, srcm - sm
+
+
+def _gather_product(onehot, t):
+    """[B, N, E] x [B, N, C] -> [B, E, C] in t's dtype, summed in f32."""
+    return torch.matmul(onehot.transpose(1, 2), t.float()).to(t.dtype)
+
+
+def _egnn_apply_onehot(p: EGNNLayer, h, x, edge_feat, matrices):
+    """One layer on prebuilt ``one_hot_matrices`` (JAX ``egnn_apply`` with
+    scatter/src/diff matrices)."""
+    sm, srcm, diff = matrices
+    h_src = _gather_product(srcm, h)
+    h_dst = _gather_product(sm, h)
+    x_diff = _gather_product(diff, x)                        # x's dtype
+    m, msg_x = _edge_mlp(p, h_src, h_dst, x_diff, edge_feat)
+    both = torch.cat([m, msg_x.to(m.dtype)], dim=-1)
+    agg = torch.matmul(sm, both.float()).to(both.dtype)      # [B, N, H+3]
+    hid = m.shape[-1]
+    return _node_update(p, h, x, agg[..., :hid], agg[..., hid:].to(x.dtype))
+
+
+def _egnn_apply_onehot_remat(p: EGNNLayer, h, x, edge_src, edge_dst,
+                             edge_feat, edge_mask):
+    """'onehot' with the matrices built inside a non-reentrant checkpoint:
+    the backward rebuilds them with the rest of the layer."""
+    def layer(h, x):
+        mats = one_hot_matrices(edge_src, edge_dst, edge_mask, h.shape[1])
+        return _egnn_apply_onehot(p, h, x, edge_feat, mats)
+
+    return checkpoint(layer, h, x, use_reentrant=False)
+
+
+# --------------------------------------------------------------------------
+# the kernel paths
+# --------------------------------------------------------------------------
 
 def _egnn_apply_mega(p: EGNNLayer, h, x, edge_src, edge_dst, edge_feat,
                      edge_mask, mega_variant: str = "hybrid"):
@@ -191,8 +310,7 @@ def check_fused(edge_count: int, edge_feat_size: int) -> None:
             f"aggregation='fused' takes a multiple of {EDGE_MULTIPLE} edges "
             f"and 1-dim edge features, got E={edge_count} and edge_feat "
             f"size {edge_feat_size} (the JAX package falls back to "
-            "'onehot' there, which is not ported yet, see ROADMAP.md); use "
-            "'mega' or 'scatter'")
+            "'onehot' there); use 'onehot', 'mega' or 'scatter'")
 
 
 class _GatherEdges(torch.autograd.Function):
@@ -255,8 +373,7 @@ def check_pallas(edge_count: int) -> None:
         raise ValueError(
             f"aggregation='pallas' takes a multiple of {EDGE_MULTIPLE} "
             f"edges, got E={edge_count} (the JAX package falls back to "
-            "'onehot' there, which is not ported yet, see ROADMAP.md); use "
-            "'mega' or 'scatter'")
+            "'onehot' there); use 'onehot', 'mega' or 'scatter'")
 
 
 def _egnn_apply_pallas(p: EGNNLayer, h, x, edge_src, edge_dst, edge_feat,
@@ -271,6 +388,32 @@ def _egnn_apply_pallas(p: EGNNLayer, h, x, edge_src, edge_dst, edge_feat,
     return _node_update(p, h, x, agg[..., :hid], agg[..., hid:].to(x.dtype))
 
 
+def _apply_layer(p: EGNNLayer, h, x, edge_src, edge_dst, edge_feat,
+                 edge_mask, aggregation: str, mega_variant: str,
+                 matrices=None):
+    """One layer under a resolved aggregation; ``matrices``: the stack's
+    shared ``one_hot_matrices`` under 'onehot' (None: built here)."""
+    if aggregation == "mega":
+        return _egnn_apply_mega(p, h, x, edge_src, edge_dst, edge_feat,
+                                edge_mask, mega_variant)
+    if aggregation == "fused":
+        return _egnn_apply_fused(p, h, x, edge_src, edge_dst, edge_feat,
+                                 edge_mask)
+    if aggregation == "pallas":
+        return _egnn_apply_pallas(p, h, x, edge_src, edge_dst, edge_feat,
+                                  edge_mask)
+    if aggregation == "onehot":
+        if matrices is None:
+            matrices = one_hot_matrices(edge_src, edge_dst, edge_mask,
+                                        h.shape[1])
+        return _egnn_apply_onehot(p, h, x, edge_feat, matrices)
+    if aggregation == "onehot_remat":
+        return _egnn_apply_onehot_remat(p, h, x, edge_src, edge_dst,
+                                        edge_feat, edge_mask)
+    return _egnn_apply_scatter(p, h, x, edge_src, edge_dst, edge_feat,
+                               edge_mask)
+
+
 def egnn_apply(p: EGNNLayer, h: torch.Tensor, x: torch.Tensor,
                edge_src: torch.Tensor, edge_dst: torch.Tensor,
                edge_feat: torch.Tensor, edge_mask: torch.Tensor,
@@ -281,39 +424,65 @@ def egnn_apply(p: EGNNLayer, h: torch.Tensor, x: torch.Tensor,
     is a per-layer variant of 'mega' ('stack' spans the whole stack:
     ``egnn_stack_apply``); under 'paired' the caller holds the batch to
     ``check_paired``."""
-    aggregation = resolve_aggregation(aggregation, h.device)
+    aggregation = _resolve(aggregation, p, h, edge_src, edge_feat)
     check_variant(mega_variant, aggregation)
     if mega_variant == "stack":
         raise ValueError("mega_variant='stack' runs the whole conv stack "
                          "in one kernel: call egnn_stack_apply")
-    if aggregation == "mega":
-        return _egnn_apply_mega(p, h, x, edge_src, edge_dst, edge_feat,
-                                edge_mask, mega_variant)
-    if aggregation == "fused":
-        return _egnn_apply_fused(p, h, x, edge_src, edge_dst, edge_feat,
-                                 edge_mask)
-    if aggregation == "pallas":
-        return _egnn_apply_pallas(p, h, x, edge_src, edge_dst, edge_feat,
-                                  edge_mask)
-    return _egnn_apply_scatter(p, h, x, edge_src, edge_dst, edge_feat,
-                               edge_mask)
+    return _apply_layer(p, h, x, edge_src, edge_dst, edge_feat, edge_mask,
+                        aggregation, mega_variant)
+
+
+def check_fused_stack(aggregation: str, mega_variant: str, tensors) -> None:
+    """Raise unless ``fused_stack`` can run: aggregation 'auto', variant
+    'hybrid', and no gradient needed (B7 is forward only)."""
+    if aggregation != "auto":
+        raise ValueError("fused_stack runs every layer through B7, not "
+                         f"through aggregation '{aggregation}'; leave "
+                         "aggregation at 'auto'")
+    if mega_variant != "hybrid":
+        raise ValueError(f"fused_stack takes no mega_variant "
+                         f"('{mega_variant}'): B7 is not a form of 'mega'")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError("fused_stack is forward only (B7 has no backward): "
+                         "call it under torch.no_grad() or "
+                         "torch.inference_mode(), with no input that "
+                         "requires a gradient")
 
 
 def egnn_stack_apply(layers: Sequence[EGNNLayer], h, x, edge_src, edge_dst,
                      edge_feat, edge_mask, aggregation: str = "auto",
-                     mega_variant: str = "hybrid"):
+                     mega_variant: str = "hybrid", fused_stack: bool = False):
     """Run the conv stack. Returns (h, x). ``mega_variant`` (aggregation
     'mega' only): 'stack' runs every layer in B6 (``apply_stack``);
-    'paired' checks the mirror-paired layout once, here, before the first
-    layer; the others pick each layer's kernels."""
-    aggregation = resolve_aggregation(aggregation, h.device)
+    'paired' holds the batch to ``check_paired`` here on CPU tensors (on
+    CUDA tensors, where that would stall the host, B4 computes on the
+    mirror its arc half implies); the others pick each layer's kernels.
+    'onehot' builds its matrices once for every layer. ``fused_stack``
+    (forward only, aggregation 'auto', variant 'hybrid') runs every layer
+    in B7 (``fused_egnn_stack``); edge features must be all ones, which is
+    checked on CPU tensors."""
+    if fused_stack:
+        params = [t for p in layers for t in p.parameters()]
+        check_fused_stack(aggregation, mega_variant, [h, x, *params])
+        if edge_feat.device.type == "cpu" and not bool(
+                (edge_feat[edge_mask.bool()] == 1).all()):
+            raise ValueError("fused_stack reads no edge features (B7 folds "
+                             "an all-ones feature into the bias), and this "
+                             "batch has features other than 1")
+        return fused_egnn_stack(layers, h, x, edge_src, edge_dst, edge_mask)
+    aggregation = _resolve(aggregation, layers[0], h, edge_src, edge_feat)
     check_variant(mega_variant, aggregation)
     if mega_variant == "stack":
         return apply_stack(layers, h, x, edge_src, edge_dst, edge_feat,
                            edge_mask)
-    if mega_variant == "paired":
+    if mega_variant == "paired" and edge_src.device.type == "cpu":
         check_paired(edge_src, edge_dst, edge_mask)
+    matrices = None
+    if aggregation == "onehot":
+        matrices = one_hot_matrices(edge_src, edge_dst, edge_mask,
+                                    h.shape[1])
     for p in layers:
-        h, x = egnn_apply(p, h, x, edge_src, edge_dst, edge_feat, edge_mask,
-                          aggregation, mega_variant)
+        h, x = _apply_layer(p, h, x, edge_src, edge_dst, edge_feat,
+                            edge_mask, aggregation, mega_variant, matrices)
     return h, x

@@ -49,7 +49,8 @@ global, are per-call options here (``mega_variant``, ``MEGA_VARIANTS``):
              mirror-paired layout, edge k + E/2 the reverse of edge k. The
              kernel reads the arc half's indices and mask only; one xd and
              one geometry serve both directions. The backward is 'hybrid''s
-             (``MEGA_PAIRED``). ``check_paired`` tests the layout.
+             (``MEGA_PAIRED``). ``check_paired`` tests the layout on the
+             host.
   'stack'    B6, all layers in one kernel (ops/stack.py; ``STACK_ENABLE``),
              taken by ``egnn_stack_apply``, not by this per-layer op.
 
@@ -81,11 +82,12 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from immunostruct_tpu_torch.ops.edge import (  # noqa: F401 (pack_params re-exported)
-    B1, B2, BC1, KERNEL_MAX_F, W1E, W1R, WC2, check_cuda_args,
-    chunks_per_graph, hopper, pack_params, silu_grad,
+    B1, B2, BC1, HOPPER_SMEM_OPTIN, KERNEL_HIDDEN, KERNEL_MAX_F, W1E, W1R,
+    WC2, check_cuda_args, chunks_per_graph, hopper, pack_params, silu_grad,
 )
 
 
@@ -106,6 +108,25 @@ def check_variant(mega_variant: str, aggregation: str = "mega") -> None:
                          f"aggregation 'mega', not of '{aggregation}'")
 
 
+def fwd_smem_bytes(n: int, hid: int) -> int:
+    """Shared memory of one B1 block (csrc/egnn_common.cuh
+    ``fwd_smem_floats``): acc N*(H+3), W2 and Wc1, small^T, two edge-tile
+    buffers of 64 rows of H+1, the tile's geometry (9*64), in f32."""
+    return 4 * (n * (hid + 3) + 2 * hid * hid + 6 * hid
+                + 2 * 64 * (hid + 1) + 9 * 64)
+
+
+def mega_admits(nodes: int, features: int, hidden: int,
+                edge_feat_size: int) -> bool:
+    """Whether B1 takes these shapes: 1-dim edge features, H =
+    KERNEL_HIDDEN, 1 <= F <= KERNEL_MAX_F, and the block's shared memory
+    within the card's opt-in limit (JAX's ``mega_pick_tile`` asks the same
+    of the TPU's VMEM). B1 takes any E."""
+    return (edge_feat_size == 1 and hidden == KERNEL_HIDDEN
+            and 1 <= features <= KERNEL_MAX_F
+            and fwd_smem_bytes(nodes, hidden) <= HOPPER_SMEM_OPTIN)
+
+
 def valid_edges(src, dst, mask, n: int) -> torch.Tensor:
     """[B, E] bool: the edges the kernels compute (mask True, both indices
     in [0, N))."""
@@ -122,20 +143,31 @@ def mirror_edges(src, dst, mask):
             torch.cat([m, m], 1).contiguous())
 
 
+def _host(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        return t.detach().cpu().numpy()
+    return np.asarray(t)
+
+
 def check_paired(src, dst, mask) -> None:
     """Raise unless the batch holds the mirror-paired layout: E even,
     src[:, k+E/2] == dst[:, k], dst[:, k+E/2] == src[:, k] and
-    mask[:, k+E/2] == mask[:, k] for every k (padding mirrored too). One
-    comparison on the tensors' device."""
+    mask[:, k+E/2] == mask[:, k] for every k (padding mirrored too).
+
+    A check on the host: numpy arrays or CPU tensors, where a batch is
+    built (``request_to_args``, the race CLI). Device tensors are copied
+    to the host, a round trip that the per-forward path never makes: on
+    CUDA tensors B4 computes on the mirror the arc half implies."""
+    src, dst, mask = _host(src), _host(dst), _host(mask)
     e = src.shape[1]
     if e % 2:
         raise ValueError(f"mega_variant='paired' needs an even edge count "
                          f"(the mirror-paired layout), got E={e}")
     half = e // 2
     ok = ((src[:, half:] == dst[:, :half]).all()
-          & (dst[:, half:] == src[:, :half]).all()
-          & (mask[:, half:] == mask[:, :half]).all())
-    if not bool(ok):
+          and (dst[:, half:] == src[:, :half]).all()
+          and (mask[:, half:] == mask[:, :half]).all())
+    if not ok:
         raise ValueError(
             "mega_variant='paired' needs the mirror-paired edge layout (edge "
             "k + E/2 the reverse of edge k, masks mirrored; "
@@ -463,7 +495,8 @@ def _fwd_launch(name, reference, lib_fn, entry, src, dst, mask, ef, h, x,
     }, h.dtype, hid)
     if not 1 <= f <= KERNEL_MAX_F:
         raise ValueError(f"{name} kernel takes 1 <= F <= {KERNEL_MAX_F}, "
-                         f"got F={f}")
+                         f"got F={f}; aggregation 'onehot' or 'scatter' "
+                         "takes any F")
     if b == 0 or n == 0:
         raise ValueError(f"{name}: empty batch or graph")
     lib = lib_fn()

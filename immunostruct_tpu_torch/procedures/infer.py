@@ -53,13 +53,20 @@ def collect_probs(config, model: ImmunoStructModel, pipe, seed: int):
 
 def inference(config, model: ImmunoStructModel, pipe, *,
               optimal_threshold: Optional[float] = None,
+              return_raw_preds: bool = False,
               verbose: bool = True) -> dict:
     """Metric evaluation over a pipeline; batch noise from (seed + 0x1f,
     batch). When ``optimal_threshold`` is None, Youden's optimum is derived
     from THIS split and returned for reuse on another
-    (train_IEDB_wFT.py:127-129)."""
+    (train_IEDB_wFT.py:127-129). ``return_raw_preds`` adds the
+    probabilities and targets, in the pipeline's order, as
+    ``predicted_probs`` and ``true_targets``."""
     probs, targets = collect_probs(config, model, pipe, config.seed + 0x1f)
     if optimal_threshold is None:
         optimal_threshold = find_optimal_threshold(targets, probs)
-    return evaluate_metrics(targets, probs, optimal_threshold,
-                            verbose=verbose)
+    out = evaluate_metrics(targets, probs, optimal_threshold,
+                           verbose=verbose)
+    if return_raw_preds:
+        out["predicted_probs"] = probs
+        out["true_targets"] = targets
+    return out

@@ -21,6 +21,13 @@ Request npz keys (the JAX package's format):
   seq [B,L,21], props [B,2]
 (produce one with ``--write-example``).
 
+``Scorer(fused_stack=True)`` runs the conv stack through B7 (one kernel per
+layer, ops/fused_layer.py), which reads no edge features: a request whose
+unmasked edges have features other than 1 is refused (400) before anything
+reaches the device. ``Scorer(mega_variant='paired')`` holds each request to
+the mirror-paired edge layout the same way, on the host. Neither has a
+command-line flag.
+
 The VAE noise of every request comes from a ``torch.Generator`` seeded
 afresh with ``--seed``, so the same request always gets the same scores,
 whatever came before it (the JAX export folds in one fixed key for the same
@@ -47,6 +54,7 @@ import torch
 from immunostruct_tpu_torch.data.synthetic import write_example
 from immunostruct_tpu_torch.models.trunk import NUM_AMINO_ACIDS, model_apply
 from immunostruct_tpu_torch.models.zoo import build_model
+from immunostruct_tpu_torch.ops.mega import check_paired
 from immunostruct_tpu_torch.structs import GraphBatch
 from immunostruct_tpu_torch.utils.checkpoint import load_jax_checkpoint
 
@@ -97,11 +105,25 @@ def _read_request(source, model=None) -> dict:
     return arrays
 
 
-def request_to_args(source, device, model=None):
+def request_to_args(source, device, model=None, *, paired: bool = False,
+                    ones_edge_feat: bool = False):
     """Parse a request ``.npz`` (path or file-like) into (graph, seq, props)
     on ``device``. A malformed request raises ``BadRequest`` before anything
-    reaches the device."""
+    reaches the device; so does, on the host, a request that breaks the
+    mirror-paired layout (``paired``) or has edge features other than 1 on
+    an unmasked edge (``ones_edge_feat``)."""
     arrays = _read_request(source, model)
+    if paired:
+        try:
+            check_paired(arrays["edge_src"], arrays["edge_dst"],
+                         arrays["edge_mask"].astype(bool))
+        except ValueError as e:
+            raise BadRequest(str(e)) from e
+    if ones_edge_feat and not (arrays["edge_feat"][
+            arrays["edge_mask"].astype(bool)] == 1).all():
+        raise BadRequest("edge_feat holds values other than 1 on unmasked "
+                         "edges; the fused_stack forward (B7) takes all-ones "
+                         "edge features")
     graph = GraphBatch.from_numpy(arrays, device)
     seq = torch.as_tensor(arrays["seq"]).to(device=device,
                                             dtype=torch.float32)
@@ -111,15 +133,21 @@ def request_to_args(source, device, model=None):
 
 
 class Scorer:
-    """The deterministic inference function ``probs = f(graph, seq, props)``."""
+    """The deterministic inference function ``probs = f(graph, seq, props)``.
+    ``mega_variant`` and ``fused_stack`` are ``model_apply``'s; with either
+    set, ``score_request`` holds each request to what the path reads (the
+    mirror-paired layout; all-ones edge features) on the host."""
 
     def __init__(self, model, *, device, compute_dtype=torch.bfloat16,
-                 aggregation: str = "auto", seed: int = 0):
+                 aggregation: str = "auto", seed: int = 0,
+                 mega_variant: str = "hybrid", fused_stack: bool = False):
         self.model = model.eval()
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
         self.aggregation = aggregation
         self.seed = seed
+        self.mega_variant = mega_variant
+        self.fused_stack = fused_stack
         self.failure = None     # the first failed forward, as text
 
     def generator(self) -> torch.Generator:
@@ -131,14 +159,18 @@ class Scorer:
             out = model_apply(self.model, graph, seq, props,
                               generator=self.generator(), deterministic=True,
                               aggregation=self.aggregation,
-                              compute_dtype=self.compute_dtype)
+                              compute_dtype=self.compute_dtype,
+                              mega_variant=self.mega_variant,
+                              fused_stack=self.fused_stack)
             probs = torch.sigmoid(out.logits.reshape(-1))
         return probs.cpu().numpy()
 
     def score_request(self, source):
         """Score a request path or file-like; returns (probs, ms), where ms
         is the wall time from parsed request to probabilities on the host."""
-        args = request_to_args(source, self.device, self.model)
+        args = request_to_args(source, self.device, self.model,
+                               paired=self.mega_variant == "paired",
+                               ones_edge_feat=self.fused_stack)
         t0 = time.perf_counter()
         try:
             probs = self(*args)

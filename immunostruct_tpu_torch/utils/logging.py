@@ -54,7 +54,9 @@ def stage_log_fn(logger: MetricLogger, stage_prefix: str):
 
 
 def stats_to_wandb(prefix: str, stats: dict) -> dict:
-    """Final metric dump layout (train_IEDB_wFT.py:131-163)."""
+    """Final metric dump layout (train_IEDB_wFT.py:131-163); the clinical
+    survival p-values, where ``stats`` has them, under their own names
+    without the prefix."""
     names = {
         "roc_auc": "ROC AUC", "pr_auc": "PR AUC",
         "accuracy": "Accuracy @0.5", "accuracy_op": "Accuracy @op",
@@ -64,5 +66,10 @@ def stats_to_wandb(prefix: str, stats: dict) -> dict:
         "ppvn": "Mean PPVn @0.5", "ppvn_op": "Mean PPVn @op",
         "ppv30": "PPVn (n=30) @0.5", "ppv30_op": "PPVn (n=30) @op",
     }
-    return {f"{prefix} {label}": stats[key] for key, label in names.items()
-            if key in stats}
+    out = {f"{prefix} {label}": stats[key] for key, label in names.items()
+           if key in stats}
+    for key, label in (("os_p_value", "OS p-value"),
+                       ("pfs_p_value", "PFS p-value")):
+        if key in stats:
+            out[label] = stats[key]
+    return out

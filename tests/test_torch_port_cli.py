@@ -227,7 +227,7 @@ def test_train_IEDB_wFT_end_to_end(corpus, tmp_path, aggregation):
 
 @pytest.mark.parametrize("flag,match", [
     (["--device-data"], "device-data"),
-    (["--aggregation", "onehot"], "not ported"),
+    (["--data-parallel"], "not ported"),
     (["--device", "cuda"], "no CUDA device"),
 ])
 def test_train_IEDB_wFT_refuses_what_is_not_ported(corpus, tmp_path, flag,

@@ -80,6 +80,24 @@ such kernels.
   2^-10 below that (both sum in f32 and round once).
   ``test_segment_bf16_bound_sees_f32_accumulation`` builds a scatter that
   accumulates in the compute dtype, which fails it.
+
+- B7 (csrc/egnn_layer_fwd.cu, behind ``fused_egnn_layer``) at B=128,
+  N=288, E=2560/1408/256, F=20/64, with unmasked edges whose src or dst is
+  -1 or N: h' and x' f32 atol=1e-5, rtol=1e-4; bf16 per column (over graphs
+  and nodes) max|diff| within one bf16 step at the column's largest
+  |plain| (B6's form: a flip at a value just above a power of two is 2^-7
+  of it, over B1's 4e-3) and mean|diff| <= 1e-4 * mean|plain| (an H100 run
+  read h' equal bit for bit, x' one flip: max 2.1e-3 of the column's
+  largest value, mean 3.2e-7). The same bits twice (no atomics). Ten
+  mutants, each without one of B7's rounding points (the bias fold, the x
+  cast, radial, silu(z1), m, c1, msg_x, agg, a, x' from x's own dtype; the
+  two on x run f32 coordinates under bf16 features), fail the bf16 bound.
+  c1 and msg_x reach x' only, through x_agg: at unit-scale coordinates x
+  carries x' and their change can stay under the mean bound, so they run
+  coordinates at 1/16 scale, where x_agg carries x'.
+- 'paired' forward and train step under
+  ``torch.cuda.set_sync_debug_mode("error")``; 'onehot'/'onehot_remat'
+  layers and ``model_apply(fused_stack=True)`` against 'scatter' in f32.
 """
 
 import json
@@ -1307,3 +1325,253 @@ def test_variant_layer_gradients_match_scatter_on_card(cuda, variant):
             p.grad.clone() for p in layer.parameters()]
     for g, r in zip(grads["mega"], grads["scatter"]):
         assert ((g - r).abs() <= 1e-4 * r.abs().max() + 1e-3 * r.abs()).all()
+
+
+# --------------------------------------------------------------------------
+# B7: one whole EGNN layer, forward only (csrc/egnn_layer_fwd.cu)
+# --------------------------------------------------------------------------
+
+from immunostruct_tpu_torch.ops import fused_layer  # noqa: E402
+
+B7_BF16_COL_MEAN = 1e-4         # h', x' per column, bf16 (module docstring)
+
+
+def _b7_args(b, e, f, dtype, device, seed, x_dtype=None, mask_rate=0.1,
+             x_scale=1.0):
+    """B7's operands: a seeded EGNN layer (H=64) and seeded inputs with 10%
+    of the edges masked, self-loops and unmasked edges whose src or dst is
+    -1 or N; the coordinates times ``x_scale``."""
+    src, dst, mask, _, h, x = _args(b, e, f, 64, torch.float32, "cpu", seed,
+                                    mask_rate)[:6]
+    src[:, 8:10], src[:, 10:12] = -1, N
+    dst[:, 12:14], dst[:, 14:16] = -1, N
+    mask[:, 8:16] = True
+    layer = EGNNLayer(f, 64, 64, generator=torch.Generator().manual_seed(seed),
+                      device=device)
+    return layer, [h.to(device, dtype),
+                   (x * x_scale).to(device, x_dtype or dtype),
+                   src.to(device), dst.to(device), mask.to(device)]
+
+
+def _assert_b7_close(out, ref, dtype):
+    """h' and x' against the plain version: f32 atol=1e-5, rtol=1e-4; bf16
+    per column (over graphs and nodes) max|diff| within one bf16 step at
+    the column's largest |plain| and mean|diff| <= B7_BF16_COL_MEAN *
+    mean|plain| (``_assert_agg_steps_close``, B6's form)."""
+    for got, want in zip(out, ref):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.isfinite(got).all()
+        if dtype == torch.float32 and got.dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+            continue
+        g, w = got.float().flatten(0, 1), want.float().flatten(0, 1)
+        diff, mag = (g - w).abs(), w.abs()
+        top = mag.amax(0).clamp_min(torch.finfo(torch.float32).tiny)
+        assert (diff.amax(0) <= torch.exp2(torch.floor(torch.log2(top))
+                                           - 7)).all()
+        assert (diff.mean(0) <= B7_BF16_COL_MEAN * mag.mean(0)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e", [2560, 1408, 256])
+@pytest.mark.parametrize("f", [20, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_layer_kernel_matches_plain_version(cuda, e, f, dtype):
+    layer, args = _b7_args(128, e, f, dtype, cuda, seed=e + f + 7)
+    before = fused_layer.fused_egnn_layer.launches
+    with torch.no_grad():
+        out = fused_layer.fused_egnn_layer(layer, *args)
+        torch.cuda.synchronize()
+        assert fused_layer.fused_egnn_layer.launches == before + 1
+        _assert_b7_close(out, fused_layer.fused_egnn_layer_reference(
+            layer, *args), dtype)
+        # no atomics: the same bits every run
+        again = fused_layer.fused_egnn_layer(layer, *args)
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_fused_layer_kernel_keeps_f32_coordinates(cuda):
+    """bf16 features over f32 coordinates: x' comes back f32."""
+    layer, args = _b7_args(16, 1408, 20, torch.bfloat16, cuda, seed=3,
+                           x_dtype=torch.float32)
+    with torch.no_grad():
+        out = fused_layer.fused_egnn_layer(layer, *args)
+        ref = fused_layer.fused_egnn_layer_reference(layer, *args)
+    assert out[1].dtype == torch.float32
+    _assert_b7_close(out, ref, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_fused_layer_kernel_all_edges_masked(cuda):
+    """Nothing is summed: x' is x, h' the node MLP of (h, 0)."""
+    layer, args = _b7_args(4, 256, 20, torch.float32, cuda, seed=4,
+                           mask_rate=1.0)
+    args[4][:] = False
+    with torch.no_grad():
+        h2, x2 = fused_layer.fused_egnn_layer(layer, *args)
+        ref = fused_layer.fused_egnn_layer_reference(layer, *args)
+    assert torch.equal(x2, args[1])
+    torch.testing.assert_close(h2, ref[0], atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_fused_layer_kernel_raises(cuda):
+    layer, args = _b7_args(2, 256, 20, torch.float32, cuda, seed=5)
+    big = [torch.zeros(2, 400, 64, device=cuda),
+           torch.zeros(2, 400, 3, device=cuda), *args[2:]]
+    wide = EGNNLayer(64, 64, 64, generator=torch.Generator().manual_seed(0),
+                     device=cuda)
+    with torch.no_grad(), pytest.raises(ValueError, match="shared memory"):
+        fused_layer.fused_egnn_layer(wide, *big)
+    narrow = EGNNLayer(20, 32, 32, generator=torch.Generator().manual_seed(0),
+                       device=cuda)
+    with torch.no_grad(), pytest.raises(ValueError, match="H=64"):
+        fused_layer.fused_egnn_layer(narrow, *args)
+    with pytest.raises(ValueError, match="forward only"):
+        fused_layer.fused_egnn_layer(layer, *args)
+
+
+# B7's source with one bf16 rounding point of pallas_egnn.py left out
+_B7_MUTANTS = {
+    "bias_fold": [(r"rnd<T>\((to_f\(w\.be1\[j\]\) \+ to_f\(w\.w_ef\[j\]\))\)",
+                   r"(\1)")],
+    "x_cast": [(r"(xc\[i\] = )rnd<T>\((to_f\(xb\[i\]\))\)", r"\1\2")],
+    "radial": [(r"(rad\[tid\] = )rnd<T>\((r)\)", r"\1\2")],
+    "m1": [(r"rnd<T>\((silu\(z1\))\)", r"\1")],
+    "m": [(r"(const float mv = )rnd<T>\((silu\(r\[i\]\[c\] \+ "
+           r"vec\[kBe2 \* H \+ j\]\))\)", r"\1\2")],
+    "c1": [(r"(const float c1 = )rnd<T>\((silu\(r\[i\]\[c\] \+ "
+            r"vec\[kBc1 \* H \+ j\]\))\)", r"\1\2")],
+    "msg_x": [(r"rnd<T>\((__fmul_rn\(cw, xh\[t \* 3 \+ k\]\))\)", r"\1")],
+    "agg": [(r"(acc\[i\] = )rnd<T>\((acc\[i\])\)", r"\1\2")],
+    "a": [(r"rnd<T>\((silu\(zn\))\)", r"\1")],
+    "x_own_dtype": [(r"from_f<XT>\(to_f\(xb\[i\]\) \+ accx\[i\]\)",
+                     r"from_f<XT>(xc[i] + accx[i])")],
+}
+
+
+def _clear_b7():
+    _build.load_library.cache_clear()
+    fused_layer._lib.cache_clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_B7_MUTANTS))
+def test_fused_layer_bf16_bound_sees_every_rounding_point(cuda, name,
+                                                          tmp_path,
+                                                          monkeypatch):
+    """Each mutant fails the bf16 bound. The x cast and x' from x's own
+    dtype only show with coordinates that are not already bf16: those two
+    run bf16 features over f32 coordinates. c1 and msg_x reach x' only
+    through x_agg: those two run coordinates at 1/16 scale (module
+    docstring)."""
+    x_dtype = torch.float32 if name in ("x_cast", "x_own_dtype") else None
+    x_scale = 1 / 16 if name in ("c1", "msg_x") else 1.0
+    inputs = [_b7_args(32, e, f, torch.bfloat16, cuda, seed=e + f,
+                       x_dtype=x_dtype, x_scale=x_scale)
+              for e, f in ((2560, 20), (1408, 64))]
+    _mutant_kernel("egnn_layer_fwd.cu", _B7_MUTANTS[name], tmp_path,
+                   monkeypatch)
+    fused_layer._lib.cache_clear()
+    try:
+        failed = 0
+        for layer, args in inputs:
+            with torch.no_grad():
+                out = fused_layer.fused_egnn_layer(layer, *args)
+                ref = fused_layer.fused_egnn_layer_reference(layer, *args)
+            try:
+                _assert_b7_close(out, ref, torch.bfloat16)
+            except AssertionError:
+                failed += 1
+        assert failed == len(inputs), name
+    finally:
+        monkeypatch.undo()
+        _clear_b7()
+
+
+@pytest.mark.cuda
+def test_fused_stack_forward_matches_scatter_and_launches_b7(cuda):
+    """model_apply(fused_stack=True), f32: 6 B7 launches and no other
+    kernel, the outputs within atol=1e-4, rtol=1e-3 of 'scatter'."""
+    from immunostruct_tpu_torch.cli.race_kernel_variants import read_counts
+
+    _, model = build_model("HybridModelv2", 20 * 21,
+                           torch.Generator().manual_seed(0), device=cuda)
+    b = random_sample_batch(16, N, 1408, 20, seed=2, device=cuda)
+    eps = torch.randn(16, 32, generator=torch.Generator().manual_seed(2))
+    outs = {}
+    for fused in (True, False):
+        before = read_counts()
+        with torch.inference_mode():
+            outs[fused] = model_apply(
+                model, b.graph, b.seq_onehot, b.props, deterministic=True,
+                aggregation="auto" if fused else "scatter",
+                eps=eps.to(cuda), fused_stack=fused)
+        launched = {k: n - before[k] for k, n in read_counts().items()
+                    if n != before[k]}
+        assert launched == ({"B7": 6} if fused else {})
+    for name in ("logits", "embedding", "attention"):
+        torch.testing.assert_close(getattr(outs[True], name),
+                                   getattr(outs[False], name),
+                                   atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_paired_forward_and_step_make_no_host_sync(cuda):
+    """Under mega_variant='paired' neither a forward nor a train step waits
+    for the device (torch.cuda.set_sync_debug_mode('error') raises on any
+    synchronising call)."""
+    _, model = build_model("HybridModelv2", 20 * 21,
+                           torch.Generator().manual_seed(0), device=cuda)
+    batch = build_batch(16, N, 1408, 20, paired=True, device=cuda)
+    trainer = Trainer(model.spec, LossConfig(20 * 21, 1.0), binary=True,
+                      optimizer=make_optimizer("adam", constant_lr(1e-3)),
+                      aggregation="mega", compute_dtype=torch.bfloat16,
+                      mega_variant="paired")
+    state = trainer.init_state(model)
+    eps = torch.randn(16, 32, generator=torch.Generator().manual_seed(1),
+                      device="cpu").to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            out = model_apply(model, batch.graph, batch.seq_onehot,
+                              batch.props, deterministic=True,
+                              aggregation="mega", eps=eps,
+                              compute_dtype=torch.bfloat16,
+                              mega_variant="paired")
+        state, loss = trainer.train_step(state, batch, seed=0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(out.logits).all() and torch.isfinite(loss)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aggregation", ["onehot", "onehot_remat"])
+def test_onehot_layers_match_scatter_on_card(cuda, aggregation):
+    """Two layers under 'onehot'/'onehot_remat' against 'scatter' in f32
+    (TF32 off): outputs atol=1e-5, rtol=1e-4; gradients within 1e-4 * max
+    + 1e-3 * |scatter|."""
+    gen = torch.Generator().manual_seed(11)
+    layers = egnn_stack(1, 20, 64, generator=gen, device=cuda)
+    src, dst, mask, ef, h, x = _args(4, 1408, 20, 64, torch.float32, "cpu",
+                                     seed=11)[:6]
+    src, dst, mask, ef, h, x = (t.to(cuda) for t in (src, dst, mask, ef, h,
+                                                       x))
+    cot = torch.randn(4, N, 64, generator=gen).to(cuda)
+    res = {}
+    for agg in (aggregation, "scatter"):
+        for p in layers:
+            p.zero_grad()
+        hin = h.clone().requires_grad_(True)
+        h2, x2 = egnn_stack_apply(layers, hin, x, src, dst, ef, mask, agg)
+        ((h2 * cot).sum() + x2.sum()).backward()
+        res[agg] = [h2.detach(), x2.detach(), hin.grad] + [
+            p.grad.clone() for p in layers.parameters()]
+    for got, want in zip(res[aggregation][:2], res["scatter"][:2]):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+    for got, want in zip(res[aggregation][2:], res["scatter"][2:]):
+        assert ((got - want).abs() <= 1e-4 * want.abs().max()
+                + 1e-3 * want.abs()).all()

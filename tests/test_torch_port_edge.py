@@ -340,8 +340,7 @@ def test_fused_matches_scatter_in_the_port():
 @pytest.mark.parametrize("e,ef_width", [(200, 1), (128, 2)])
 def test_fused_admission_rule_raises(e, ef_width):
     """Where the JAX package falls back to 'onehot' (E not a multiple of
-    128, or edge features wider than 1), the port raises: 'onehot' is not
-    ported."""
+    128, or edge features wider than 1), the port raises and names it."""
     g = _graph(8, 6, e=e)
     layer = _port_layer(_jax_layer(8, 6), 8)
     ef = torch.randn(B, e, ef_width)

@@ -163,16 +163,25 @@ def test_auto_is_scatter_on_cpu(models):
 @pytest.mark.parametrize("name", ["onehot", "fused", "onehot_remat",
                                   "pallas"])
 def test_unported_aggregations_raise(models, name):
-    """Names not ported raise and point to ROADMAP.md, and so do 'fused'
-    and 'pallas' where the JAX package falls back to the unported 'onehot'
-    (an E that is not a multiple of 128)."""
+    """At an E that is not a multiple of 128, where the JAX package falls
+    back from 'fused' and 'pallas' to 'onehot': 'fused' and 'pallas' raise
+    and name 'onehot', and 'onehot' and 'onehot_remat' (ported now) run and
+    give 'scatter''s logits in f32."""
     *_, model, _ = models
-    b = random_sample_batch(B, N, 100 if name in ("fused", "pallas") else E,
-                            L, seed=4)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        model_apply(model, b.graph, b.seq_onehot, b.props,
-                    deterministic=True, aggregation=name,
-                    generator=torch.Generator().manual_seed(0))
+    b = random_sample_batch(B, N, 100, L, seed=4)
+
+    def run(aggregation):
+        with torch.no_grad():
+            return model_apply(model, b.graph, b.seq_onehot, b.props,
+                               deterministic=True, aggregation=aggregation,
+                               generator=torch.Generator().manual_seed(0))
+
+    if name in ("fused", "pallas"):
+        with pytest.raises(ValueError, match="use 'onehot'"):
+            run(name)
+    else:
+        torch.testing.assert_close(run(name).logits, run("scatter").logits,
+                                   atol=1e-5, rtol=1e-4)
 
 
 def test_training_mode_forward_draws_from_generator(models):
@@ -250,3 +259,99 @@ def test_zoo_matches_jax_registry():
     for name, spec in jax_map.items():
         assert (dataclasses.asdict(model_map[name])
                 == dataclasses.asdict(spec))
+
+
+ZOO_FIELDS = ("logits", "node_logits", "mu", "logvar", "recon", "embedding",
+              "attention")
+
+
+@pytest.mark.parametrize("name", sorted(model_map))
+def test_zoo_forward_matches_jax(name, tmp_path):
+    """Every registry spec's forward against JAX's: f32, 'scatter', B=3,
+    N=16, E=128, the small widths above, JAX's eps injected; every output
+    field (None on both sides, or within atol=1e-5, rtol=1e-4)."""
+    spec, params = jax_build_model(name, L * 21, jax.random.key(21), **SMALL)
+    path = str(tmp_path / "model.ckpt")
+    save_checkpoint(path, params)
+    _, model = build_model(name, L * 21, torch.Generator().manual_seed(0),
+                           **SMALL)
+    load_jax_checkpoint(path, model, verbose=False)
+    a = _arrays(seed=2)
+    key = jax.random.key(13)
+    ref = jax_model_apply(params, spec, _jax_graph(a),
+                          jnp.asarray(a["seq_onehot"]),
+                          jnp.asarray(a["props"]), key, deterministic=True,
+                          aggregation="scatter")
+    eps = _jax_eps(key, (B, SMALL["vae_latent_dim"]))
+    with torch.no_grad():
+        out = model_apply(model, GraphBatch.from_numpy(a, "cpu"),
+                          torch.from_numpy(a["seq_onehot"]),
+                          torch.from_numpy(a["props"]), deterministic=True,
+                          aggregation="scatter", eps=eps)
+    for field in ZOO_FIELDS:
+        got, want = getattr(out, field), getattr(ref, field)
+        assert (got is None) == (want is None), field
+        if got is not None:
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       atol=1e-5, rtol=1e-4, err_msg=field)
+
+
+def test_ssl_train_step_matches_jax(tmp_path):
+    """One Adam step of an SSL spec (HybridModel_SSL: the node_logits head
+    and its cross-entropy on the masked residue) against the JAX Trainer:
+    f32, 'scatter', dropout off; the loss within rtol=1e-5, the gradients
+    and the updated parameters as tests/test_torch_port_train.py holds
+    them."""
+    from immunostruct_tpu.procedures.train import Trainer as JaxTrainer
+    from immunostruct_tpu.procedures.train import make_optimizer as jax_opt
+    from immunostruct_tpu.structs import SampleBatch as JaxSampleBatch
+    from immunostruct_tpu.utils.losses import LossConfig as JaxLossConfig
+    from immunostruct_tpu.utils.schedule import constant_lr as jax_lr
+    from immunostruct_tpu_torch.procedures.train import (
+        Trainer, make_optimizer, step_generator,
+    )
+    from immunostruct_tpu_torch.structs import SampleBatch
+    from immunostruct_tpu_torch.utils.losses import LossConfig
+    from immunostruct_tpu_torch.utils.schedule import constant_lr
+    from tests.test_torch_port_train import (
+        _assert_grads_match, _assert_params_match, _grads_of, _plain_eps,
+    )
+
+    name, vae_dim = "HybridModel_SSL", L * 21
+    small = dict(SMALL, dropout_rate=0.0)
+    spec, params = jax_build_model(name, vae_dim, jax.random.key(3), **small)
+    jt = JaxTrainer(spec, JaxLossConfig(vae_dim, 1.0, sequence=True, ssl=True),
+                    binary=True, optimizer=jax_opt("adam", jax_lr(1e-3)),
+                    aggregation="scatter", donate=False)
+    js = jt.init_state(params, jax.random.key(5))
+    path = str(tmp_path / "init.ckpt")
+    save_checkpoint(path, js.params)
+    _, model = build_model(name, vae_dim, torch.Generator().manual_seed(0),
+                           **small)
+    pt = Trainer(model.spec, LossConfig(vae_dim, 1.0, sequence=True, ssl=True),
+                 binary=True, optimizer=make_optimizer("adam",
+                                                       constant_lr(1e-3)),
+                 aggregation="scatter")
+    ps = pt.init_state(model)
+    load_jax_checkpoint(path, ps.model, verbose=False)
+    a = _arrays(seed=6)
+    a["target"] = (np.arange(B) % 2 == 0).astype(np.float32)
+    a["aux_residue"] = np.array([3, -1, 17], np.int32)   # one unmasked row
+    jbatch = JaxSampleBatch(graph=_jax_graph(a),
+                            seq_onehot=jnp.asarray(a["seq_onehot"]),
+                            props=jnp.asarray(a["props"]),
+                            target=jnp.asarray(a["target"]),
+                            aux_residue=jnp.asarray(a["aux_residue"]))
+    batch = SampleBatch.from_numpy(a, "cpu")
+    key = jax.random.key(7)
+    eps = _plain_eps(jax.random.fold_in(key, 0), B)
+    jloss, jgrads = jt._loss_and_grads(js.params, jbatch,
+                                       jax.random.fold_in(key, 0))
+    loss = pt.loss_and_grads(ps.model, batch, step_generator(0, 0, "cpu"),
+                             eps)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    _assert_grads_match(ps.model, jgrads)
+    js, jl = jt._train_step(js, jbatch, key)
+    ps, pl = pt.train_step(ps, batch, 0, eps=eps)
+    np.testing.assert_allclose(float(pl), float(jl), rtol=1e-5)
+    _assert_params_match(ps.model, js.params, [_grads_of(ps.model)])

@@ -47,9 +47,10 @@ def _probe(names, *setup):
 def test_every_module_imports_without_jax():
     names = _modules()
     for module in ("ops.mega", "ops.edge", "ops.segment", "ops.stack",
-                   "cli.serve", "cli.train_IEDB_wFT", "cli.train_Cancer_wFT",
-                   "cli.race_kernel_variants", "data.pipeline",
-                   "procedures.infer"):
+                   "ops.fused_layer", "cli.serve", "cli.train_IEDB_wFT",
+                   "cli.train_Cancer_wFT", "cli.race_kernel_variants",
+                   "cli.infer_IEDB_or_Cancer", "data.pipeline",
+                   "procedures.infer", "utils.torch_import"):
         assert f"immunostruct_tpu_torch.{module}" in names
     proc = _probe(names)
     assert proc.returncode == 0, proc.stderr

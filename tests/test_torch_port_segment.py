@@ -274,9 +274,9 @@ def test_pallas_matches_scatter_in_the_port():
 
 def test_pallas_admission_rule_raises():
     """E=1000 is not a multiple of 128: the JAX package falls back to
-    'onehot', which is not ported, so the port raises."""
+    'onehot'; the port raises and names it."""
     g = _graph(8, 6, e=1000)
     layer = _port_layer(_jax_layer(8, 6), 8)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="use 'onehot'"):
         egnn_stack_apply([layer], *(torch.from_numpy(g[k]) for k in (
             "h", "x", "src", "dst", "ef", "mask")), aggregation="pallas")

@@ -159,3 +159,61 @@ def test_cli_cuda_device_without_cuda_raises(tmp_path):
 def test_cli_requires_a_transport():
     with pytest.raises(SystemExit):
         serving.main(["--device", "cpu"])
+
+
+def _paired_request(path, broken=False):
+    """A request of build_batch's mirror-paired batch (B=2, N=16, E=128);
+    ``broken`` moves one mirror edge."""
+    from immunostruct_tpu_torch.data.synthetic import build_batch
+
+    b = build_batch(2, 16, 128, L, paired=True)
+    g = {k: getattr(b.graph, k).numpy() for k in (
+        "node_feat", "coords", "edge_src", "edge_dst", "edge_feat",
+        "edge_mask", "node_mask", "num_nodes")}
+    if broken:
+        g["edge_dst"][0, 64] = (g["edge_dst"][0, 64] + 1) % 16
+    np.savez(path, seq=b.seq_onehot.numpy(), props=b.props.numpy(), **g)
+
+
+def test_paired_scorer_refuses_a_broken_layout_on_the_host(tmp_path):
+    """Under mega_variant='paired' the request is held to the layout while
+    it is still numpy (no device round trip per forward): a paired request
+    scores, a broken one is a BadRequest, as is the same batch handed to
+    the stack on CPU tensors."""
+    from immunostruct_tpu_torch.ops.egnn import egnn_stack_apply
+
+    scorer = _tiny_scorer()
+    scorer.aggregation, scorer.mega_variant = "mega", "paired"
+    good, bad = str(tmp_path / "good.npz"), str(tmp_path / "bad.npz")
+    _paired_request(good)
+    _paired_request(bad, broken=True)
+    probs, _ = scorer.score_request(good)
+    assert probs.shape == (2,) and np.isfinite(probs).all()
+    with pytest.raises(serving.BadRequest, match="mirror-paired"):
+        scorer.score_request(bad)
+    graph, _, _ = serving.request_to_args(bad, "cpu")
+    h = graph.node_feat[..., :20]
+    with pytest.raises(ValueError, match="mirror-paired"):
+        egnn_stack_apply(scorer.model.gcn, h, graph.coords, graph.edge_src,
+                         graph.edge_dst, graph.edge_feat, graph.edge_mask,
+                         aggregation="mega", mega_variant="paired")
+
+
+def test_fused_stack_scorer_matches_scatter_and_refuses_other_features(
+        tmp_path):
+    """Scorer(fused_stack=True) (B7's plain version on the CPU) scores a
+    request as 'scatter' does, in f32; a request with an edge feature
+    other than 1 is a BadRequest."""
+    req = str(tmp_path / "req.npz")
+    write_example(req, batch=2, nodes=16, edges=128, seq_len=L)
+    fused, plain = _tiny_scorer(), _tiny_scorer()
+    fused.fused_stack = True
+    plain.aggregation = "scatter"
+    np.testing.assert_allclose(fused.score_request(req)[0],
+                               plain.score_request(req)[0], atol=1e-5)
+    with np.load(req) as z:
+        arrays = dict(z)
+    arrays["edge_feat"][1, 3] = 0.5
+    np.savez(req, **arrays)
+    with pytest.raises(serving.BadRequest, match="other than 1"):
+        fused.score_request(req)
