@@ -15,14 +15,18 @@ Phases (none catches its own failure; any failure exits non-zero):
      g[dst] itself), csrc/egnn_tail_bwd_nodes.cu (B5b, the edge half's
      backward up to node space) and csrc/egnn_stack_fwd.cu (B6, the whole
      conv stack forward), and csrc/egnn_layer_fwd.cu (B7, one whole EGNN
-     layer forward), with their shared csrc/egnn_common.cuh;
+     layer forward), with their shared csrc/egnn_common.cuh (and
+     csrc/egnn_tail.cuh, the tail backward of B2, B5a and B5b: tensor cores
+     in bf16);
   4. compare B1 with its plain PyTorch version on the card at the main
      path's shapes (B=128, N=288, H=64, E=2560 and 1408, F=20 and 64, 10% of
      the edges masked, self-loops), in f32 (TF32 off) and bf16, output and
      the a1/xd residuals, and time the kernel with and without its residual
      stores and the plain version;
   5. compare B2 with its plain version at the same shapes (its residuals
-     from B1, a seeded cotangent), and time both;
+     from B1, a seeded cotangent), and in bf16 at E=2560, F=64 also at B=1
+     and B=200 (one graph; more graphs than SMs); the same bits twice; time
+     both and print the kernel's shared memory per CTA;
   6. compare the EdgeMega gradients (B1 + B2 + the node-level backward) with
      autograd through the plain forward (f32) and with the plain backward
      (bf16) at B=128, E=2560, F=64;
@@ -50,10 +54,12 @@ Phases (none catches its own failure; any failure exits non-zero):
      against B1's on the same batch; time it with and without residuals,
      beside its plain version and B1;
   12. compare B5a with its plain version and with B2 on the same operands
-     (bit for bit), at the same shapes; time it beside both;
+     (bit for bit), at phase 5's shapes, the same bits twice; time it beside
+     both;
   13. compare B5b with its plain version (the node sums per column, d_ef and
-     the weight gradients), the same bits twice; time it beside its plain
-     version and beside what it replaces on the 'hybrid' path;
+     the weight gradients) at phase 5's shapes, the same bits twice; time it
+     beside its plain version and beside what it replaces on the 'hybrid'
+     path;
   14. compare B6 (six layers, F0=20, H=64) layer by layer with the plain
      version of that layer run from the kernel's own previous h and x, f32
      and bf16, E=2560 and 1408; time it with and without residuals, beside
@@ -145,8 +151,9 @@ Phases (none catches its own failure; any failure exits non-zero):
      torch.cuda.set_sync_debug_mode("error"): no host sync;
   25. trace forwards and train steps with torch.profiler ('mega',
      'scatter' and fused_stack (B7) for the forwards; for the step also
-     'fused', 'pallas' and 'mega' under 'stack' and 'inkernel') and print the device-busy time, the device's
-     idle share and the kernels that take the most device time;
+     'fused', 'pallas' and 'mega' under 'stack', 'inkernel' and 'paired')
+     and print the device-busy time, the device's idle share and the
+     kernels that take the most device time;
   26. print the times beside the card's name and power limit, then the
      kernel record (eleven kernels) as one JSON line, the card line and, last,
      the result line {"ok": true, "device": {...}}.
@@ -425,16 +432,16 @@ def check_fwd_kernel() -> list:
     return rows
 
 
-def tail_inputs(e: int, f: int, dtype, seed: int):
+def tail_inputs(e: int, f: int, dtype, seed: int, b: int = B):
     """B2's operands: B1's residuals on seeded inputs, and a seeded node
     cotangent gathered at dst (zero on skipped edges)."""
     from immunostruct_tpu_torch.ops.mega import edge_mega_fwd, valid_edges
 
-    args = kernel_inputs(B, e, f, dtype, seed)
+    args = kernel_inputs(b, e, f, dtype, seed)
     src, dst, mask, ef = args[:4]
     _, a1, xd = edge_mega_fwd(*args, residuals=True)
     valid = valid_edges(src, dst, mask, N)
-    g = torch.randn(B, N, H + 3, generator=torch.Generator().manual_seed(seed))
+    g = torch.randn(b, N, H + 3, generator=torch.Generator().manual_seed(seed))
     d = torch.where(valid, dst, 0).long()[..., None].expand(-1, -1, H + 3)
     d_both = torch.gather(g.to("cuda", dtype), 1, d)
     d_both = torch.where(valid[..., None], d_both, 0.0)
@@ -471,34 +478,49 @@ def tail_errors(out, ref, dtype) -> dict:
     return stats
 
 
+# the tail kernels' (B2, B5a, B5b) shapes: the main path's, and the grid's
+# edge cases in bf16 at E=2560, F=64: one graph, and more graphs than SMs
+TAIL_CASES = ([(B, e, f, name, dtype) for e in EDGE_COUNTS for f in (20, 64)
+               for name, dtype in (("float32", torch.float32),
+                                   ("bfloat16", torch.bfloat16))]
+              + [(b, 2560, 64, "bfloat16", torch.bfloat16) for b in (1, 200)])
+
+
+def tail_smem(entry: str, dtype) -> int:
+    """Shared memory per CTA of a tail kernel's main kernel."""
+    from immunostruct_tpu_torch.ops import mega
+
+    lib = {"egnn_tail_bwd": mega._tail_lib,
+           "egnn_tail_bwd_db": mega._tail_db_lib,
+           "egnn_tail_bwd_nodes": mega._tail_nodes_lib}[entry]()
+    return getattr(lib, f"{entry}_smem_bytes")(H, int(dtype == torch.bfloat16))
+
+
 def check_tail_kernel() -> list:
     from immunostruct_tpu_torch.ops.mega import tail_bwd, tail_bwd_reference
 
     rows = []
-    for e in EDGE_COUNTS:
-        for f in (20, 64):
-            for name, dtype in (("float32", torch.float32),
-                                ("bfloat16", torch.bfloat16)):
-                args = tail_inputs(e, f, dtype, seed=e + f + 1)
-                out = tail_bwd(*args)
-                torch.cuda.synchronize()
-                ref = tail_bwd_reference(*args)
-                stats = tail_errors(out, ref, dtype)
-                again = tail_bwd(*args)
-                assert all(torch.equal(g, h)
-                           for g, h in zip(out[2:], again[2:])), \
-                    "B2 weight gradients changed from one run to the next"
-                ms, plain_ms = alternate_ms(
-                    lambda: tail_bwd_reference(*args),
-                    lambda: tail_bwd(*args))
-                # six HxH products per valid edge
-                work = bound(tensor_bytes(*args, *out),
-                             2 * args[-1].sum().item() * 6 * H * H, dtype)
-                row = dict(E=e, F=f, dtype=name, **stats, **work, ms=ms,
-                           plain_ms=plain_ms)
-                print("kernel B2:", json.dumps(row), flush=True)
-                rows.append(row)
-                del args, out, ref, again
+    for b, e, f, name, dtype in TAIL_CASES:
+        args = tail_inputs(e, f, dtype, seed=e + f + 1, b=b)
+        out = tail_bwd(*args)
+        torch.cuda.synchronize()
+        ref = tail_bwd_reference(*args)
+        stats = tail_errors(out, ref, dtype)
+        again = tail_bwd(*args)
+        assert all(torch.equal(g, h) for g, h in zip(out, again)), \
+            "B2 changed from one run to the next"
+        ms, plain_ms = alternate_ms(
+            lambda: tail_bwd_reference(*args),
+            lambda: tail_bwd(*args))
+        # six HxH products per valid edge
+        work = bound(tensor_bytes(*args, *out),
+                     2 * args[-1].sum().item() * 6 * H * H, dtype)
+        row = dict(B=b, E=e, F=f, dtype=name, **stats, **work, ms=ms,
+                   plain_ms=plain_ms,
+                   smem_per_cta=tail_smem("egnn_tail_bwd", dtype))
+        print("kernel B2:", json.dumps(row), flush=True)
+        rows.append(row)
+        del args, out, ref, again
     return rows
 
 
@@ -1780,18 +1802,18 @@ def check_paired_kernel() -> list:
     return rows
 
 
-def tail_g_inputs(e: int, f: int, dtype, seed: int):
+def tail_g_inputs(e: int, f: int, dtype, seed: int, b: int = B):
     """B5's operands: B1's residuals on seeded inputs (indices at -1 and N
     on a few edges), a seeded node cotangent g [B, N, H+3] in the compute
     dtype: (src, dst, valid, ef, w2, wc1, small, a1, xd, g)."""
     from immunostruct_tpu_torch.ops.mega import edge_mega_fwd, valid_edges
 
-    args = list(kernel_inputs(B, e, f, dtype, seed))
+    args = list(kernel_inputs(b, e, f, dtype, seed))
     args[0][:, 8:12] = -1
     args[1][:, 12:16] = N
     src, dst, mask, ef = args[:4]
     _, a1, xd = edge_mega_fwd(*args, residuals=True)
-    g = torch.randn(B, N, H + 3, generator=torch.Generator().manual_seed(seed))
+    g = torch.randn(b, N, H + 3, generator=torch.Generator().manual_seed(seed))
     return (src, dst, valid_edges(src, dst, mask, N), ef, *args[7:], a1, xd,
             g.to("cuda", dtype))
 
@@ -1811,32 +1833,34 @@ def check_tail_db_kernel() -> list:
     )
 
     rows = []
-    for e in EDGE_COUNTS:
-        for f in (20, 64):
-            for name, dtype in DTYPES:
-                args = tail_g_inputs(e, f, dtype, seed=e + f + 3)
-                db = args[1:]
-                out = tail_bwd_db(*db)
-                torch.cuda.synchronize()
-                stats = tail_errors(out, tail_bwd_db_reference(*db), dtype)
-                b2_args = b2_operands(*args)
-                b2 = tail_bwd(*b2_args)
-                equal_b2 = all(torch.equal(g, h) for g, h in zip(out, b2))
-                ms, plain_ms = alternate_ms(
-                    lambda: tail_bwd_db_reference(*db),
-                    lambda: tail_bwd_db(*db))
-                b2_ms = cuda_ms(lambda: tail_bwd(*b2_args))
-                gather_b2_ms = cuda_ms(lambda: tail_bwd(*b2_operands(*args)))
-                valid = args[2].sum().item()
-                work = bound(tensor_bytes(*db, *out),
-                             2 * valid * 6 * H * H, dtype)
-                row = dict(E=e, F=f, dtype=name, **stats, **work,
-                           equals_b2_bit_for_bit=equal_b2, ms=ms,
-                           plain_ms=plain_ms, b2_ms=b2_ms,
-                           gather_and_b2_ms=gather_b2_ms)
-                print("kernel B5a:", json.dumps(row), flush=True)
-                rows.append(row)
-                del args, db, out, b2, b2_args
+    for b, e, f, name, dtype in TAIL_CASES:
+        args = tail_g_inputs(e, f, dtype, seed=e + f + 3, b=b)
+        db = args[1:]
+        out = tail_bwd_db(*db)
+        torch.cuda.synchronize()
+        stats = tail_errors(out, tail_bwd_db_reference(*db), dtype)
+        b2_args = b2_operands(*args)
+        b2 = tail_bwd(*b2_args)
+        equal_b2 = all(torch.equal(g, h) for g, h in zip(out, b2))
+        again = tail_bwd_db(*db)
+        assert all(torch.equal(g, h) for g, h in zip(out, again)), \
+            "B5a changed from one run to the next"
+        ms, plain_ms = alternate_ms(
+            lambda: tail_bwd_db_reference(*db),
+            lambda: tail_bwd_db(*db))
+        b2_ms = cuda_ms(lambda: tail_bwd(*b2_args))
+        gather_b2_ms = cuda_ms(lambda: tail_bwd(*b2_operands(*args)))
+        valid = args[2].sum().item()
+        work = bound(tensor_bytes(*db, *out),
+                     2 * valid * 6 * H * H, dtype)
+        row = dict(B=b, E=e, F=f, dtype=name, **stats, **work,
+                   smem_per_cta=tail_smem("egnn_tail_bwd_db", dtype),
+                   equals_b2_bit_for_bit=equal_b2, ms=ms,
+                   plain_ms=plain_ms, b2_ms=b2_ms,
+                   gather_and_b2_ms=gather_b2_ms)
+        print("kernel B5a:", json.dumps(row), flush=True)
+        rows.append(row)
+        del args, db, out, b2, b2_args, again
     return rows
 
 
@@ -1871,38 +1895,38 @@ def check_tail_nodes_kernel() -> list:
         for idx in (src, dst):
             i = torch.where(valid, idx, 0).long()[..., None].expand(
                 -1, -1, H + 3)
-            torch.zeros(B, N, H + 3, device="cuda").scatter_add_(1, i, dcf)
+            torch.zeros(src.shape[0], N, H + 3,
+                        device="cuda").scatter_add_(1, i, dcf)
 
     rows = []
-    for e in EDGE_COUNTS:
-        for f in (20, 64):
-            for name, dtype in DTYPES:
-                args = tail_g_inputs(e, f, dtype, seed=e + f + 4)
-                out = tail_bwd_nodes(*args)
-                torch.cuda.synchronize()
-                ref = tail_bwd_nodes_reference(*args)
-                stats = nodes_errors(out[0], ref[0], dtype)
-                zeros = torch.zeros(1, 1, 1, dtype=dtype, device="cuda")
-                stats.update(tail_errors((zeros, *out[1:]),
-                                         (zeros, *ref[1:]), dtype))
-                stats["max_abs_err"] = max(stats["max_abs_err"],
-                                           stats["d_nodes_max_abs_err"])
-                again = tail_bwd_nodes(*args)
-                assert all(torch.equal(g, h) for g, h in zip(out, again)), \
-                    "B5b changed from one run to the next"
-                ms, plain_ms = alternate_ms(
-                    lambda: tail_bwd_nodes_reference(*args),
-                    lambda: tail_bwd_nodes(*args))
-                glue_ms = cuda_ms(lambda: hybrid_glue(*args))
-                valid = args[2].sum().item()
-                work = bound(tensor_bytes(*args, *out),
-                             2 * valid * 6 * H * H, dtype)
-                row = dict(E=e, F=f, dtype=name, **stats, **work, ms=ms,
-                           plain_ms=plain_ms,
-                           gather_b2_scatter_adds_ms=glue_ms)
-                print("kernel B5b:", json.dumps(row), flush=True)
-                rows.append(row)
-                del args, out, ref, again
+    for b, e, f, name, dtype in TAIL_CASES:
+        args = tail_g_inputs(e, f, dtype, seed=e + f + 4, b=b)
+        out = tail_bwd_nodes(*args)
+        torch.cuda.synchronize()
+        ref = tail_bwd_nodes_reference(*args)
+        stats = nodes_errors(out[0], ref[0], dtype)
+        zeros = torch.zeros(1, 1, 1, dtype=dtype, device="cuda")
+        stats.update(tail_errors((zeros, *out[1:]),
+                                 (zeros, *ref[1:]), dtype))
+        stats["max_abs_err"] = max(stats["max_abs_err"],
+                                   stats["d_nodes_max_abs_err"])
+        again = tail_bwd_nodes(*args)
+        assert all(torch.equal(g, h) for g, h in zip(out, again)), \
+            "B5b changed from one run to the next"
+        ms, plain_ms = alternate_ms(
+            lambda: tail_bwd_nodes_reference(*args),
+            lambda: tail_bwd_nodes(*args))
+        glue_ms = cuda_ms(lambda: hybrid_glue(*args))
+        valid = args[2].sum().item()
+        work = bound(tensor_bytes(*args, *out),
+                     2 * valid * 6 * H * H, dtype)
+        row = dict(B=b, E=e, F=f, dtype=name, **stats, **work, ms=ms,
+                   smem_per_cta=tail_smem("egnn_tail_bwd_nodes", dtype),
+                   plain_ms=plain_ms,
+                   gather_b2_scatter_adds_ms=glue_ms)
+        print("kernel B5b:", json.dumps(row), flush=True)
+        rows.append(row)
+        del args, out, ref, again
     return rows
 
 
@@ -2383,14 +2407,15 @@ def profile_row(label, agg, per_name, traced, wall) -> dict:
         device_ops_per_call=sum(c for _, c in per_name.values()) / traced,
         idle_share=max(0.0, 1.0 - busy_ms / wall),
         b1_ms=kernel_ms("egnn_mega_fwd_kernel"),
-        b2_ms=kernel_ms("tail_bwd_kernel", ", 0>("),
+        b2_ms=kernel_ms("tail_bwd", ", 0>("),
         b3_fwd_ms=kernel_ms("egnn_edge_fwd"),
         b3_bwd_ms=kernel_ms("egnn_edge_bwd"),
         b8_scatter_ms=kernel_ms("segment_scatter_kernel"),
         b8_gather_ms=kernel_ms("segment_gather_kernel"),
         b4_ms=kernel_ms("egnn_mega_paired_fwd_kernel"),
-        b5a_ms=kernel_ms("tail_bwd_kernel", ", 1>("),
-        b5b_ms=kernel_ms("tail_bwd_kernel", ", 2>("),
+        b5a_ms=kernel_ms("tail_bwd", ", 1>("),
+        b5b_ms=(kernel_ms("tail_bwd", ", 2>(")
+                + kernel_ms("reduce_node_chunks")),
         b6_ms=kernel_ms("egnn_stack_fwd_kernel"),
         b7_ms=kernel_ms("egnn_layer_fwd_kernel"),
         top=[[name[:90], t / 1e3 / traced, c // traced]
@@ -2427,8 +2452,8 @@ def profile_forwards(scorer, requests, traced: int = 3) -> list:
 
 def profile_training(traced: int = 3) -> list:
     """Train steps at B=128, E=2560 under 'mega', 'scatter', 'fused',
-    'pallas' and 'mega' with mega_variant 'stack' and 'inkernel' (those two
-    on build_batch's mirror-paired batch): median wall of 8 untraced steps
+    'pallas' and 'mega' with mega_variant 'stack', 'inkernel' and 'paired'
+    (those three on build_batch's mirror-paired batch): median wall of 8 untraced steps
     (after 3), then ``traced`` steps traced."""
     from immunostruct_tpu_torch.data.synthetic import (
         build_batch, random_sample_batch,
@@ -2443,7 +2468,8 @@ def profile_training(traced: int = 3) -> list:
                                ("fused", "hybrid", batch),
                                ("pallas", "hybrid", batch),
                                ("mega", "stack", paired),
-                               ("mega", "inkernel", paired)):
+                               ("mega", "inkernel", paired),
+                               ("mega", "paired", paired)):
         trainer, state = make_trainer("HybridModelv2", agg,
                                       mega_variant=variant)
         _, ms = timed_steps(trainer, state, data, 11)
@@ -2525,7 +2551,7 @@ def main() -> int:
 
     def pick(rows, **want):
         return next(r for r in rows if r["E"] == 2560 and r["F"] == 64
-                    and r["dtype"] == "bfloat16"
+                    and r["dtype"] == "bfloat16" and r.get("B", B) == B
                     and all(r[k] == v for k, v in want.items()))
 
     for r, r7 in zip(served, b7_served):
@@ -2600,10 +2626,12 @@ def main() -> int:
     for kind, rows in (("B4", paired_rows), ("B5a", db_rows),
                        ("B5b", nodes_rows), ("B6", stack_rows)):
         for r in rows:
-            print(f"kernel  [{card}]: {kind} B={B} E={r['E']} F={r['F']} "
-                  f"{r['dtype']}: kernel {r['ms']:.4f} ms, plain "
+            smem = ("" if "smem_per_cta" not in r else
+                    f", {r['smem_per_cta']} B shared memory a CTA")
+            print(f"kernel  [{card}]: {kind} B={r.get('B', B)} E={r['E']} "
+                  f"F={r['F']} {r['dtype']}: kernel {r['ms']:.4f} ms, plain "
                   f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                  f"({r['bound_by']})")
+                  f"({r['bound_by']}){smem}")
     for kind, rows in (("B1", fwd_rows), ("B2", tail_rows),
                        ("B3", edge_rows)):
         for r in rows:
@@ -2611,6 +2639,8 @@ def main() -> int:
             bare = ("" if kind != "B1" else
                     f"; without residuals {r['bound_ms_without_residuals']:.4f}"
                     f" ms ({r['bound_by_without_residuals']})")
+            if "smem_per_cta" in r:
+                bare += f", {r['smem_per_cta']} B shared memory a CTA"
             print(f"kernel  [{card}]: {label} B={r.get('B', B)} E={r['E']} "
                   f"F={r['F']} "
                   f"{r['dtype']}: kernel {r['ms']:.4f} ms, plain "

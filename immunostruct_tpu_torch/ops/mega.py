@@ -370,7 +370,7 @@ def _tail_lib():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.egnn_tail_bwd.argtypes = [ptr] * 12 + [i32] * 5 + [ptr]
     lib.egnn_tail_bwd.restype = i32
-    lib.egnn_tail_bwd_smem_bytes.argtypes = [i32]
+    lib.egnn_tail_bwd_smem_bytes.argtypes = [i32, i32]
     lib.egnn_tail_bwd_smem_bytes.restype = ctypes.c_longlong
     return lib
 
@@ -396,7 +396,7 @@ def _tail_db_lib():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.egnn_tail_bwd_db.argtypes = [ptr] * 13 + [i32] * 6 + [ptr]
     lib.egnn_tail_bwd_db.restype = i32
-    lib.egnn_tail_bwd_db_smem_bytes.argtypes = [i32]
+    lib.egnn_tail_bwd_db_smem_bytes.argtypes = [i32, i32]
     lib.egnn_tail_bwd_db_smem_bytes.restype = ctypes.c_longlong
     return lib
 
@@ -407,9 +407,9 @@ def _tail_nodes_lib():
 
     lib = load_library("egnn_tail_bwd_nodes")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.egnn_tail_bwd_nodes.argtypes = [ptr] * 14 + [i32] * 5 + [ptr]
+    lib.egnn_tail_bwd_nodes.argtypes = [ptr] * 15 + [i32] * 6 + [ptr]
     lib.egnn_tail_bwd_nodes.restype = i32
-    lib.egnn_tail_bwd_nodes_smem_bytes.argtypes = [i32]
+    lib.egnn_tail_bwd_nodes_smem_bytes.argtypes = [i32, i32]
     lib.egnn_tail_bwd_nodes_smem_bytes.restype = ctypes.c_longlong
     return lib
 
@@ -603,9 +603,11 @@ tail_bwd_db.launches = 0
 def tail_bwd_nodes(src, dst, valid, ef, w2, wc1, small, a1, xd, g):
     """B5b: the whole edge-half backward up to node space
     (``tail_bwd_nodes_reference``'s contract): (d_nodes [B, N, 2(H+3)] f32,
-    d_ef [B, 1, E], dW2, dWc1, dsmall). One CTA per graph owns its graph's
-    rows of d_nodes; each of its (side, channel) columns is summed by one
-    thread in edge order, so every output is the same from run to run.
+    d_ef [B, 1, E], dW2, dWc1, dsmall). B2's grid, one CTA per (graph,
+    edge chunk) (``chunks_per_graph``): each chunk sums its edges' d_cat
+    into a node block of its own in a fixed order, and a second kernel sums
+    a graph's chunks in chunk order, so every output is the same from run
+    to run.
 
     CUDA tensors launch csrc/egnn_tail_bwd_nodes.cu or raise; CPU tensors
     go through ``tail_bwd_nodes_reference``. ``tail_bwd_nodes.launches``
@@ -616,22 +618,28 @@ def tail_bwd_nodes(src, dst, valid, ef, w2, wc1, small, a1, xd, g):
     b, hid, e = a1.shape
     n = g.shape[1]
     dt = a1.dtype
-    lib, _ = _tail_checks("tail_bwd_nodes", _tail_nodes_lib,
-                          "egnn_tail_bwd_nodes", ef, w2, wc1, small, a1, xd,
-                          valid, {
-                              "src": (src, torch.int32, (b, e)),
-                              "dst": (dst, torch.int32, (b, e)),
-                              "g": (g, dt, (b, n, hid + 3))})
+    lib, props = _tail_checks("tail_bwd_nodes", _tail_nodes_lib,
+                              "egnn_tail_bwd_nodes", ef, w2, wc1, small, a1,
+                              xd, valid, {
+                                  "src": (src, torch.int32, (b, e)),
+                                  "dst": (dst, torch.int32, (b, e)),
+                                  "g": (g, dt, (b, n, hid + 3))})
     with torch.cuda.device(a1.device):
+        chunks = chunks_per_graph(e, b, 64, props.multi_processor_count)
         d_nodes = torch.empty(b, n, 2 * (hid + 3), dtype=torch.float32,
                               device=a1.device)
+        # one chunk: the kernel writes d_nodes itself, no scratch is read
+        node_partial = (d_nodes if chunks == 1 else
+                        torch.empty(b * chunks, n, 2 * (hid + 3),
+                                    dtype=torch.float32, device=a1.device))
         d_ef = torch.empty(b, 1, e, dtype=dt, device=a1.device)
-        partial, grads = _grad_buffers(b, hid, a1.device)
+        partial, grads = _grad_buffers(b * chunks, hid, a1.device)
         rc = lib.egnn_tail_bwd_nodes(
             src.data_ptr(), dst.data_ptr(), valid.data_ptr(), ef.data_ptr(),
             w2.data_ptr(), wc1.data_ptr(), small.data_ptr(), a1.data_ptr(),
-            xd.data_ptr(), g.data_ptr(), d_nodes.data_ptr(), d_ef.data_ptr(),
-            partial.data_ptr(), grads.data_ptr(), b, n, e, hid,
+            xd.data_ptr(), g.data_ptr(), d_nodes.data_ptr(),
+            node_partial.data_ptr(), d_ef.data_ptr(), partial.data_ptr(),
+            grads.data_ptr(), b, n, e, hid, chunks,
             int(dt == torch.bfloat16), _stream(a1))
     _raise_on("egnn_tail_bwd_nodes", rc, b, e, hid)
     tail_bwd_nodes.launches += 1
@@ -664,8 +672,8 @@ def _tail_checks(name, lib_fn, entry, ef, w2, wc1, small, a1, xd, valid,
     lib = lib_fn()
     with torch.cuda.device(a1.device):
         props = hopper(a1.device, "edge_mega")
-    _check_smem(props, getattr(lib, f"{entry}_smem_bytes")(hid), name,
-                f"H={hid}")
+    _check_smem(props, getattr(lib, f"{entry}_smem_bytes")(
+        hid, int(dt == torch.bfloat16)), name, f"H={hid}, {dt}")
     return lib, props
 
 

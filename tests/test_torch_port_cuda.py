@@ -25,7 +25,8 @@ The tests marked ``cuda`` skip on a host without a CUDA device. Tolerances:
   rounding moves the rest of its edge's chain), 1e-3 for the weight
   gradients. A CPU simulation at these shapes read 2.1e-6 on the means for
   a change of summation order alone and 5.2e-5 to 2.7e-3 with any one of
-  B2's rounding points removed.
+  B2's rounding points removed. The bounds are the same for B2's f32 form
+  (CUDA cores) and its bf16 form (tensor cores, csrc/egnn_tail.cuh).
 
 - B3 forward and backward, f32: the outputs atol=1e-5, rtol=1e-4; the
   weight gradients as B2's. bf16, per row of the [B, C, E] outputs (over
@@ -56,7 +57,9 @@ such kernels.
   node sums d_nodes, f32, per column (over graphs and nodes) |diff| <= 1e-5
   * max|plain| + 1e-4 * |plain|; bf16, per column, B2's bounds for d_cat
   (TAIL_MEAN, TAIL_MAX_EDGE: the sums of its rows). B5b's outputs are the
-  same bits twice (no atomics).
+  same bits twice (no atomics). B2, B5a and B5b also run at B=1 and
+  B=200, at E=2560 and 1000, with an all-masked graph (its outputs exactly
+  zero) and with no valid edge at all (every output zero).
 - B6 (csrc/egnn_stack_fwd.cu), six layers (F0=20, H=64): each layer is held
   against the plain version of that one layer run from the kernel's own
   previous h and x (so a flipped rounding does not carry into the next
@@ -67,10 +70,11 @@ such kernels.
   mean|diff| <= 1e-4 * mean|plain|, a1s/xds B1's residual rule, hs/xs per
   column mean|diff| <= 1e-4 * mean|plain|.
   Its sums use shared-memory atomics, as B1's do: not the same bits twice.
-- Mutants: three of B4 (the mirror's sign, xd, radial), two of the shared
-  tail body through B5a (d_p2, d_a1), one of B5b (d_xd before the node
-  sums), five of B6 (agg, hmid, h, x, the node MLP's weights); each fails
-  its kernel's bf16 bound.
+- Mutants: five of B2's tensor-core body (radial, c1, cw, d_p2, d_a1;
+  the table says why W2/Wc1, a1s, m and d_p3 have none), three of B4 (the
+  mirror's sign, xd, radial), two of the shared tail body through B5a
+  (d_p2, d_a1), one of B5b (d_xd before the node sums), five of B6 (agg,
+  hmid, h, x, the node MLP's weights); each fails its kernel's bf16 bound.
 
 - B8 (csrc/segment.cu, behind ``segment_scatter``/``segment_gather``): the
   gather bit for bit. The scatter, f32: |diff| <= 2 * k * 2^-24 * (the sum
@@ -399,25 +403,29 @@ def test_bf16_bound_sees_every_rounding_point(cuda, name, tmp_path,
                           torch.bfloat16)
 
 
-# B2 with one bf16 rounding point left out, in the body it shares with B5a
-# and B5b (csrc/egnn_common.cuh; d_xd and d_ef round at their store in the
-# compute dtype, which no edit of the arithmetic removes)
+# B2 with one bf16 rounding point left out, in the tensor-core body it
+# shares with B5a and B5b (csrc/egnn_tail.cuh, bf16 only). W2/Wc1, a1s and m
+# have no mutant: each reaches the tensor cores as a bf16 operand and is
+# used nowhere else, so its rounding is the operand's store, which no edit
+# of the arithmetic removes. d_p2, d_p3 and d_a1 also feed bf16 operands;
+# a mutant leaves out the rounding where the value meets an f32 consumer
+# outside the products: d_p2 in db2, d_a1 in the per-edge sums that give
+# d_rad (hence d_xd) and d_ef. d_p3's is dbc1 (where gbc1 adds
+# `__low2float(q)`, add `d3[0]`, and `d3[1]` for `__high2float(q)`), not
+# in the table: dbc1 is one of the six columns of dsmall, held as one
+# row, and among its smallest, and the row's mean bound does not see that
+# mutant at these inputs (it did not raise on the card); it waits for a
+# bound per dsmall column. d_xd and d_ef round at their store in the
+# compute dtype, which no edit of the arithmetic removes.
 _TAIL_MUTANTS = {
-    "weights": [(r"(w2s\[k \* LD \+ j\] = )rnd<T>\((w2\[i\])\)", r"\1\2"),
-                (r"(wc1s\[k \* LD \+ j\] = )rnd<T>\((wc1\[i\])\)",
-                 r"\1\2")],
-    "radial": [(r"(const float r = )rnd<T>\((x0 \* x0 \+ x1 \* x1 \+ "
-                r"x2 \* x2)\)", r"\1\2")],
-    "a1s": [(r"(bufA\[t \* LD \+ j\] = )rnd<T>\((a \* s)\)", r"\1\2")],
-    "m": [(r"(bufM\[t \* LD \+ j\] = )rnd<T>\((p \* s)\)", r"\1\2")],
-    "c1": [(r"(c1v\[i\]\[c\] = )rnd<T>\((p \* s)\)", r"\1\2")],
-    "cw": [(r"(cwv\[t\] = )rnd<T>\((cw)\)", r"\1\2")],
-    "d_p3": [(r"(const float dp3 = )rnd<T>\((sms\[kWC2 \* H \+ j\] \* "
-              r"dcw \* g3\[i\]\[c\])\)", r"\1\2")],
-    "d_p2": [(r"(const float dp2 = )rnd<T>\((dm \* g2\[i\]\[c\])\)",
+    "radial": [(r"(const float r = )rnd<bf>\((x\[0\] \* x\[0\] \+ x\[1\] \* "
+                r"x\[1\] \+ x\[2\] \* x\[2\])\)", r"\1\2")],
+    "c1": [(r"(const float c1 = )rnd<bf>\((p \* s)\)", r"\1\2")],
+    "cw": [(r"(ev\[kECw \* kTile \+ m0 \+ fr \+ 8 \* h\] = )rnd<bf>\((cw)\)",
+            r"\1\2")],
+    "d_p2": [(r"(const float dp2 = )rnd<bf>\((dm \* g2\[nt\]\[2 \* h \+ c\])\)",
               r"\1\2")],
-    "d_a1": [(r"(const float da = )rnd<T>\((acc\[i\]\[c\] \* "
-              r"bufG\[t \* LD \+ j\])\)", r"\1\2")],
+    "d_a1": [(r"(const float da = )rnd<bf>\((dsum \* g1)\)", r"\1\2")],
 }
 
 
@@ -428,13 +436,31 @@ def test_tail_bf16_bound_sees_every_rounding_point(cuda, name, tmp_path,
                                                    restore_kernels):
     inputs = [_tail_args(8, e, f, torch.bfloat16, cuda, seed=e + f + 1)
               for e, f in ((2560, 20), (1408, 64))]
-    _mutant_kernel("egnn_common.cuh", _TAIL_MUTANTS[name], tmp_path,
+    _mutant_kernel("egnn_tail.cuh", _TAIL_MUTANTS[name], tmp_path,
                    monkeypatch)
     for args in inputs:
         out = mega.tail_bwd(*args)
         with pytest.raises(AssertionError):
             _assert_tail_close(out, mega.tail_bwd_reference(*args),
                                torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_tail_bf16_bound_sees_the_near_tie_recompute(cuda, tmp_path,
+                                                     monkeypatch,
+                                                     restore_kernels):
+    """Without the near-tie recompute (csrc/egnn_tail.cuh), one d_p2 of
+    test_tail_kernel_matches_plain_version's bf16 B=8, E=100, F=64 input
+    rounds the other way from the plain version's, and the d_a1 it moves
+    fail the per-row mean bound at 800 edges."""
+    args = _tail_args(8, 100, 64, torch.bfloat16, cuda, seed=165)
+    _mutant_kernel("egnn_tail.cuh",
+                   [(r"(constexpr int kTieUlps = )\d+;", r"\g<1>-1;")],
+                   tmp_path, monkeypatch)
+    out = mega.tail_bwd(*args)
+    with pytest.raises(AssertionError):
+        _assert_tail_close(out, mega.tail_bwd_reference(*args),
+                           torch.bfloat16)
 
 
 @pytest.mark.cuda
@@ -1102,16 +1128,13 @@ def test_tail_nodes_kernel_matches_plain_version(cuda, e, f, dtype):
         assert torch.equal(g, h)
 
 
-# the shared tail body (egnn_common.cuh) with one rounding point left out,
-# built through B5a; B5b's own point, d_xd before the node sums
-_TAIL_G_MUTANTS = {
-    "d_p2": [(r"(const float dp2 = )rnd<T>\((dm \* g2\[i\]\[c\])\)",
-              r"\1\2")],
-    "d_a1": [(r"(const float da = )rnd<T>\((acc\[i\]\[c\] \* "
-              r"bufG\[t \* LD \+ j\])\)", r"\1\2")],
-}
+# the shared tail body (csrc/egnn_tail.cuh) with one rounding point left
+# out, built through B5a (B2's table); B5b's own point, d_xd before the node
+# sums (B2 and B5a round d_xd again at its store)
+_TAIL_G_MUTANTS = {k: _TAIL_MUTANTS[k] for k in ("d_p2", "d_a1")}
 _NODES_MUTANTS = {
-    "d_xd": [(r"(dxv\[k \* kTile \+ t\] = )rnd<T>\((dx\[k\])\)", r"\1\2")],
+    "d_xd": [(r"(ev\[\(kEDxd \+ k\) \* kTile \+ t\] = )rnd<bf>\((dx\[k\])\)",
+              r"\1\2")],
 }
 
 
@@ -1125,7 +1148,7 @@ def test_tail_variant_bf16_bound_sees_rounding_points(cuda, kernel, name,
     inputs = [_tail_g_args(8, e, f, torch.bfloat16, cuda, seed=e + f + 5)
               for e, f in ((2560, 20), (1408, 64))]
     table = _TAIL_G_MUTANTS if kernel == "db" else _NODES_MUTANTS
-    _mutant_kernel("egnn_common.cuh", table[name], tmp_path, monkeypatch)
+    _mutant_kernel("egnn_tail.cuh", table[name], tmp_path, monkeypatch)
     for args in inputs:
         if kernel == "db":
             db_args = (args[1], *args[2:])
@@ -1139,6 +1162,61 @@ def test_tail_variant_bf16_bound_sees_rounding_points(cuda, kernel, name,
                 _assert_nodes_close(
                     out[0], mega.tail_bwd_nodes_reference(*args)[0],
                     torch.bfloat16)
+
+
+def _tail_cases(args):
+    """(kernel, plain version, operands) of B2, B5a and B5b on B5's
+    operands."""
+    return ((mega.tail_bwd, mega.tail_bwd_reference, _b2_of(*args)),
+            (mega.tail_bwd_db, mega.tail_bwd_db_reference,
+             (args[1], *args[2:])),
+            (mega.tail_bwd_nodes, mega.tail_bwd_nodes_reference, tuple(args)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 200])
+@pytest.mark.parametrize("e", [2560, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tail_kernels_at_the_grid_edges(cuda, b, e, dtype):
+    """B2, B5a and B5b at one graph (its edges split over many CTAs) and at
+    more graphs than SMs (one CTA each), at an E that is a multiple of 64
+    and one that is not, with the last graph all masked when B > 1: each
+    against its plain version, that graph's d_cat, d_ef and node sums
+    exactly zero, the same bits twice."""
+    args = list(_tail_g_args(b, e, 20, dtype, cuda, seed=b + e))
+    if b > 1:
+        args[2] = args[2].clone()
+        args[2][-1] = False
+    for fn, plain, operands in _tail_cases(args):
+        out = fn(*operands)
+        torch.cuda.synchronize()
+        ref = plain(*operands)
+        if fn is mega.tail_bwd_nodes:
+            _assert_nodes_close(out[0], ref[0], dtype)
+            fake = torch.zeros(b, 67, e, dtype=dtype, device=cuda)
+            _assert_tail_close((fake, *out[1:]), (fake, *ref[1:]), dtype)
+        else:
+            _assert_tail_close(out, ref, dtype)
+        if b > 1:
+            assert torch.count_nonzero(out[0][-1]) == 0
+            assert torch.count_nonzero(out[1][-1]) == 0
+        again = fn(*operands)
+        for g, h in zip(out, again):
+            assert torch.equal(g, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tail_kernels_all_masked_give_zeros(cuda, dtype):
+    """No valid edge: every output of B2, B5a and B5b is exactly zero, with
+    NaN in the residuals that are never read."""
+    args = list(_tail_g_args(3, 1000, 20, dtype, cuda, seed=9,
+                             mask_rate=1.0))
+    args[7] = torch.full_like(args[7], float("nan"))
+    args[8] = torch.full_like(args[8], float("nan"))
+    for fn, _, operands in _tail_cases(args):
+        for t in fn(*operands):
+            assert torch.count_nonzero(t) == 0
 
 
 def _stack_args(b, e, dtype, device, seed, mask_rate=0.1):

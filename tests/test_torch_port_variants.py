@@ -52,6 +52,7 @@ from immunostruct_tpu_torch.data.synthetic import (
     build_batch, random_sample_arrays,
 )
 from immunostruct_tpu_torch.ops import mega
+from immunostruct_tpu_torch.ops.edge import chunks_per_graph
 from immunostruct_tpu_torch.ops.egnn import egnn_apply, egnn_stack_apply
 from immunostruct_tpu_torch.structs import SampleBatch, mirror_pair_edge_index
 from scripts.perf_sweep import build_batch as jax_build_batch
@@ -419,6 +420,20 @@ def test_cpu_tensors_launch_no_kernel():
     for variant in ("dboth", "inkernel", "paired", "stack"):
         port_named(_jax_stack(41), _graph(41), "float32", variant)
     assert {k: fn.launches for k, fn in counted.items()} == before
+
+
+@pytest.mark.parametrize("b,e,chunks", [
+    (128, 2560, 2), (132, 2560, 1), (200, 2560, 1), (1, 2560, 40),
+    (1, 100, 2), (25, 2560, 6), (66, 1408, 2), (3, 0, 1)])
+def test_chunks_per_graph(b, e, chunks):
+    """The grid of B2, B5a and B5b (and B3) on a 132-SM card: at least one
+    CTA per SM while a graph has 64-edge tiles to split, no chunk without
+    a tile."""
+    got = chunks_per_graph(e, b, 64, 132)
+    assert got == chunks
+    tiles = max(1, -(-e // 64))
+    assert got <= tiles
+    assert b * got >= 132 or got == tiles
 
 
 # --------------------------------------------------------------------------
