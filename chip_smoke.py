@@ -15,14 +15,17 @@ Phases (none catches its own failure; any failure exits non-zero):
      g[dst] itself), csrc/egnn_tail_bwd_nodes.cu (B5b, the edge half's
      backward up to node space) and csrc/egnn_stack_fwd.cu (B6, the whole
      conv stack forward), and csrc/egnn_layer_fwd.cu (B7, one whole EGNN
-     layer forward), with their shared csrc/egnn_common.cuh (and
-     csrc/egnn_tail.cuh, the tail backward of B2, B5a and B5b: tensor cores
-     in bf16);
+     layer forward), with their shared csrc/egnn_common.cuh, csrc/
+     egnn_hopper.cuh (the tensor-core building blocks of B1, B2, B5a, B5b
+     and B3's backward in bf16) and csrc/egnn_tail.cuh (the tail backward
+     of B2, B5a and B5b);
   4. compare B1 with its plain PyTorch version on the card at the main
      path's shapes (B=128, N=288, H=64, E=2560 and 1408, F=20 and 64, 10% of
-     the edges masked, self-loops), in f32 (TF32 off) and bf16, output and
-     the a1/xd residuals, and time the kernel with and without its residual
-     stores and the plain version;
+     the edges masked, self-loops), in f32 (TF32 off) and bf16, and in bf16
+     at E=2560, F=64 also at B=1 (one graph over many CTAs) and B=200 (more
+     graphs than SMs), output and the a1/xd residuals; time the kernel with
+     and without its residual stores and the plain version, and print its
+     shared memory a CTA and CTAs an SM;
   5. compare B2 with its plain version at the same shapes (its residuals
      from B1, a seeded cotangent), and in bf16 at E=2560, F=64 also at B=1
      and B=200 (one graph; more graphs than SMs); the same bits twice; time
@@ -32,8 +35,10 @@ Phases (none catches its own failure; any failure exits non-zero):
      (bf16) at B=128, E=2560, F=64;
   7. compare B3's forward and backward with their plain versions at the same
      shapes (bundles gathered as 'fused' gathers them, zeros for masked
-     edges; a seeded cotangent), check that its weight gradients are the
-     same bits twice, and time all four; at E=2560 in bf16, read the weight
+     edges; a seeded cotangent; in bf16 also dbc1 against the sum of d_p3
+     unrounded), check that its weight gradients are the
+     same bits twice, and time all four, printing the backward's shared
+     memory a CTA and CTAs an SM; at E=2560 in bf16, read the weight
      gradients of the kernel, of the plain version on the card and of the
      plain version on the CPU against the exact (float64) sums;
   8. compare one EGNN layer under 'fused' (B3 + the gathers and the
@@ -237,9 +242,10 @@ TWIN_BF16_NOISE = 2.0
 # tests/test_torch_port_cuda.py builds B3 mutant kernels, each without one
 # rounding point, that fail them. The bf16 weight gradients here sum 16x
 # the card tests' edges (B=128): max|diff| <= TAIL_MAX_GRAD * max|plain|
-# and mean|diff| <= EDGE_GRAD_MEAN * mean|plain|. Against the float64 sums
-# of the plain version's own terms, an H100 run read at E=2560 (F=20 and
-# 64): the plain version 2e-7 to 7e-7, the kernel 1.2e-5 to 4.2e-5, and the
+# and mean|diff| <= EDGE_GRAD_MEAN * mean|plain|; dbc1 (dsmall's bc1
+# column) no farther from the plain version's than from the sum of d_p3
+# unrounded (dbc1_rounding). Against the float64 sums of the plain
+# version's own terms, an H100 run read at E=2560 (F=20 and 64): the plain version 2e-7 to 7e-7, the kernel 1.2e-5 to 4.2e-5, and the
 # same plain version run on the CPU 7e-6 to 3.0e-5. The spread is other f32
 # orders flipping other bf16 roundings along the per-edge chains (B3
 # recomputes a1 itself, where B2 is handed B1's); the CPU would fail a
@@ -375,7 +381,7 @@ def residual_errors(got, ref, dtype) -> float:
 def fwd_errors(out, ref, dtype) -> tuple:
     """B1's (or B4's) aggregate against its plain version; asserts the
     bounds above. (max |diff|, the bf16 column statistics, the bound)."""
-    assert out.shape == (B, N, H + 3) and out.dtype == torch.float32
+    assert out.shape[1:] == (N, H + 3) and out.dtype == torch.float32
     assert torch.isfinite(out).all()
     err = (out - ref).abs().max().item()
     if dtype == torch.float32:
@@ -388,47 +394,62 @@ def fwd_errors(out, ref, dtype) -> tuple:
                       f"mean <= {BF16_COL_MEAN}*mean|ref|")
 
 
+# B1's shapes: the main path's, and the grid's edge cases in bf16 at
+# E=2560, F=64: one graph (its edges over many CTAs), more graphs than SMs
+FWD_CASES = ([(B, e, f, name, dtype) for e in EDGE_COUNTS for f in (20, 64)
+              for name, dtype in (("float32", torch.float32),
+                                  ("bfloat16", torch.bfloat16))]
+             + [(b, 2560, 64, "bfloat16", torch.bfloat16) for b in (1, 200)])
+
+
+def occupancy(lib, entry: str, size: int, dtype) -> dict:
+    """Shared memory per CTA of a kernel's main kernel and the CTAs of it
+    that fit on one SM (B1: size N; B3's backward: size F)."""
+    bf16 = int(dtype == torch.bfloat16)
+    return dict(smem_per_cta=getattr(lib, f"{entry}_smem_bytes")(size, H,
+                                                                   bf16),
+                ctas_per_sm=getattr(lib, f"{entry}_ctas_per_sm")(size, H,
+                                                                 bf16))
+
+
 def check_fwd_kernel() -> list:
+    from immunostruct_tpu_torch.ops import mega
     from immunostruct_tpu_torch.ops.mega import (
         edge_mega_fwd, edge_mega_fwd_reference, valid_edges,
     )
 
     rows = []
-    for e in EDGE_COUNTS:
-        for f in (20, 64):
-            for name, dtype in (("float32", torch.float32),
-                                ("bfloat16", torch.bfloat16)):
-                args = kernel_inputs(B, e, f, dtype, seed=e + f)
-                out, a1, xd = edge_mega_fwd(*args, residuals=True)
-                torch.cuda.synchronize()
-                ref, a1_ref, xd_ref = edge_mega_fwd_reference(*args)
-                err, rel, tol = fwd_errors(out, ref, dtype)
-                res_err = residual_errors((a1, xd), (a1_ref, xd_ref), dtype)
-                assert res_err <= 1.0, res_err
-                out_nores = edge_mega_fwd(*args, residuals=False)[0]
-                torch.testing.assert_close(out_nores, out, atol=1e-5,
-                                           rtol=1e-5)
-                ms, plain_ms = alternate_ms(
-                    lambda: edge_mega_fwd_reference(*args),
-                    lambda: edge_mega_fwd(*args, residuals=False))
-                res_ms = cuda_ms(lambda: edge_mega_fwd(*args, residuals=True))
-                # the work of the launch with residuals: node projections
-                # and the edge chain's two HxH products on the valid edges
-                valid = valid_edges(*args[:3], N).sum().item()
-                flops = 2 * B * N * f * 2 * H + 2 * valid * 2 * H * H
-                work = bound(tensor_bytes(*args, out, a1, xd), flops, dtype)
-                # serving's launch: the same work without the a1/xd stores
-                bare = bound(tensor_bytes(*args, out), flops, dtype)
-                row = dict(E=e, F=f, dtype=name, max_abs_err=err, **work,
-                           bound_ms_without_residuals=bare["bound_ms"],
-                           bound_by_without_residuals=bare["bound_by"],
-                           max_abs_ref=ref.abs().max().item(), **rel,
-                           tolerance=tol, residual_err_in_tol=res_err,
-                           ms=ms, ms_with_residuals=res_ms,
-                           plain_ms=plain_ms)
-                print("kernel B1:", json.dumps(row), flush=True)
-                rows.append(row)
-                del args, out, ref, a1, xd, a1_ref, xd_ref
+    for b, e, f, name, dtype in FWD_CASES:
+        args = kernel_inputs(b, e, f, dtype, seed=e + f)
+        out, a1, xd = edge_mega_fwd(*args, residuals=True)
+        torch.cuda.synchronize()
+        ref, a1_ref, xd_ref = edge_mega_fwd_reference(*args)
+        err, rel, tol = fwd_errors(out, ref, dtype)
+        res_err = residual_errors((a1, xd), (a1_ref, xd_ref), dtype)
+        assert res_err <= 1.0, res_err
+        out_nores = edge_mega_fwd(*args, residuals=False)[0]
+        torch.testing.assert_close(out_nores, out, atol=1e-5, rtol=1e-5)
+        ms, plain_ms = alternate_ms(
+            lambda: edge_mega_fwd_reference(*args),
+            lambda: edge_mega_fwd(*args, residuals=False))
+        res_ms = cuda_ms(lambda: edge_mega_fwd(*args, residuals=True))
+        # the work of the launch with residuals: node projections and the
+        # edge chain's two HxH products on the valid edges
+        valid = valid_edges(*args[:3], N).sum().item()
+        flops = 2 * b * N * f * 2 * H + 2 * valid * 2 * H * H
+        work = bound(tensor_bytes(*args, out, a1, xd), flops, dtype)
+        # serving's launch: the same work without the a1/xd stores
+        bare = bound(tensor_bytes(*args, out), flops, dtype)
+        row = dict(B=b, E=e, F=f, dtype=name, max_abs_err=err, **work,
+                   bound_ms_without_residuals=bare["bound_ms"],
+                   bound_by_without_residuals=bare["bound_by"],
+                   max_abs_ref=ref.abs().max().item(), **rel,
+                   tolerance=tol, residual_err_in_tol=res_err,
+                   ms=ms, ms_with_residuals=res_ms, plain_ms=plain_ms,
+                   **occupancy(mega._fwd_lib(), "egnn_mega_fwd", N, dtype))
+        print("kernel B1:", json.dumps(row), flush=True)
+        rows.append(row)
+        del args, out, ref, a1, xd, a1_ref, xd_ref
     return rows
 
 
@@ -989,10 +1010,26 @@ def weight_grad_readings(args, dout, grads, ref) -> dict:
                                         grads[3:], ref[3:], cpu, exact)}
 
 
+def dbc1_rounding(args, dout, grads, ref) -> float:
+    """mean|dbc1 - plain| / mean|dbc1 - the sum of d_p3 unrounded| for B3's
+    bf16 backward (dbc1: dsmall's bc1 column): at most 1 when the kernel
+    rounds d_p3 before that sum as the plain version does, which no bound
+    on dsmall's rows sees; asserted."""
+    from immunostruct_tpu_torch.ops.edge import BC1, d_p3_unrounded_sum
+
+    k, r = grads[6][:, BC1], ref[6][:, BC1]
+    near = (k - r).abs().mean().item()
+    far = (k - d_p3_unrounded_sum(*args, dout)).abs().mean().item()
+    assert near <= far, ("B3 dbc1 nearer the sum of d_p3 unrounded", near,
+                         far)
+    return near / far if far > 0 else 0.0
+
+
 def check_edge_case(args, dout, where: str, readings: bool = False) -> list:
     """B3 forward and backward on one set of operands against their plain
     versions (the bounds above), the backward's weight gradients the same
     bits twice, all four timed; a forward and a backward row."""
+    from immunostruct_tpu_torch.ops import edge
     from immunostruct_tpu_torch.ops.edge import (
         edge_program_bwd, edge_program_bwd_reference, edge_program_fwd,
         edge_program_reference,
@@ -1006,6 +1043,8 @@ def check_edge_case(args, dout, where: str, readings: bool = False) -> list:
     fwd = edge_errors(out, edge_program_reference(*args), dtype)
     ref = edge_program_bwd_reference(*args, dout)
     bwd = edge_errors(grads, ref, dtype)
+    if dtype == torch.bfloat16:
+        bwd["dbc1_rounding"] = dbc1_rounding(args, dout, grads, ref)
     if readings:
         bwd["weight_sums"] = weight_grad_readings(args, dout, grads, ref)
     again = edge_program_bwd(*args, dout)
@@ -1025,12 +1064,13 @@ def check_edge_case(args, dout, where: str, readings: bool = False) -> list:
     bwd_work = bound(tensor_bytes(*args, dout, *grads),
                      2 * b * e * (3 * 2 * f * H + 6 * H * H), dtype)
     rows = []
+    occ = occupancy(edge._bwd_lib(), "egnn_edge_bwd", f, dtype)
     for kind, stats, ms, plain, work in (
             ("fwd", fwd, fwd_ms, fwd_plain, fwd_work),
             ("bwd", bwd, bwd_ms, bwd_plain, bwd_work)):
         row = dict(kernel=kind, shapes=where, B=b, E=e, F=f,
                    dtype=str(dtype).split(".")[1], **stats, ms=ms,
-                   plain_ms=plain, **work)
+                   plain_ms=plain, **work, **(occ if kind == "bwd" else {}))
         print(f"kernel B3 {kind}:", json.dumps(row), flush=True)
         rows.append(row)
     return rows
@@ -2406,7 +2446,9 @@ def profile_row(label, agg, per_name, traced, wall) -> dict:
         device_busy_ms=busy_ms,
         device_ops_per_call=sum(c for _, c in per_name.values()) / traced,
         idle_share=max(0.0, 1.0 - busy_ms / wall),
-        b1_ms=kernel_ms("egnn_mega_fwd_kernel"),
+        # B1: its f32 kernel, or the bf16 form's projections and edge
+        # kernel; the chunk sums (B1 at small B, B5b) are chunk_sum_ms
+        b1_ms=kernel_ms("egnn_mega_fwd") + kernel_ms("egnn_mega_proj"),
         b2_ms=kernel_ms("tail_bwd", ", 0>("),
         b3_fwd_ms=kernel_ms("egnn_edge_fwd"),
         b3_bwd_ms=kernel_ms("egnn_edge_bwd"),
@@ -2414,8 +2456,8 @@ def profile_row(label, agg, per_name, traced, wall) -> dict:
         b8_gather_ms=kernel_ms("segment_gather_kernel"),
         b4_ms=kernel_ms("egnn_mega_paired_fwd_kernel"),
         b5a_ms=kernel_ms("tail_bwd", ", 1>("),
-        b5b_ms=(kernel_ms("tail_bwd", ", 2>(")
-                + kernel_ms("reduce_node_chunks")),
+        b5b_ms=kernel_ms("tail_bwd", ", 2>("),
+        chunk_sum_ms=kernel_ms("reduce_node_chunks"),
         b6_ms=kernel_ms("egnn_stack_fwd_kernel"),
         b7_ms=kernel_ms("egnn_layer_fwd_kernel"),
         top=[[name[:90], t / 1e3 / traced, c // traced]
@@ -2641,6 +2683,8 @@ def main() -> int:
                     f" ms ({r['bound_by_without_residuals']})")
             if "smem_per_cta" in r:
                 bare += f", {r['smem_per_cta']} B shared memory a CTA"
+            if "ctas_per_sm" in r:
+                bare += f", {r['ctas_per_sm']} CTAs an SM"
             print(f"kernel  [{card}]: {label} B={r.get('B', B)} E={r['E']} "
                   f"F={r['F']} "
                   f"{r['dtype']}: kernel {r['ms']:.4f} ms, plain "

@@ -1,18 +1,28 @@
-// Device code shared by the 'mega' EGNN kernels for Hopper (sm_90a):
-// csrc/egnn_mega_fwd.cu (B1), csrc/egnn_tail_bwd.cu (B2) and their variants
+// Device code shared by the EGNN kernels for Hopper (sm_90a): csrc/
+// egnn_mega_fwd.cu (B1), csrc/egnn_tail_bwd.cu (B2) and their variants
 // csrc/egnn_mega_paired_fwd.cu (B4), csrc/egnn_tail_bwd_db.cu (B5a),
-// csrc/egnn_tail_bwd_nodes.cu (B5b) and csrc/egnn_stack_fwd.cu (B6).
+// csrc/egnn_tail_bwd_nodes.cu (B5b), csrc/egnn_stack_fwd.cu (B6) and
+// csrc/egnn_layer_fwd.cu (B7), and csrc/egnn_edge_bwd.cu (B3's backward).
 //
-//   geometry_tile      the per-edge geometry from raw indices (B1, B6);
-//   fwd_tile_chain     the edge chain over one 64-edge tile whose geometry
-//                      is in shared memory (a1, m, cw, the f32 aggregation
-//                      with shared-memory atomics, the a1 residual store;
-//                      B1, B4, B6).
-// The chain's backward (B2, B5a, B5b) is csrc/egnn_tail.cuh, which includes
-// this header. The sources say what each kernel computes, what bounds it
-// and what its design does about it. Rounding points under bf16 are the
-// TPU kernels' (pallas_mega.py, pallas_edge.py): see csrc/egnn_mega_fwd.cu
-// and csrc/egnn_tail_bwd.cu.
+//   rnd, sigmoid, silu, silu_grad, sum16
+//                      the element-wise steps and rounding points;
+//   tile_product, tile_product_k
+//                      the f32 forms' products: register-tiled FMA loops
+//                      over f32 tiles in shared memory (CUDA cores; f32 keeps
+//                      them, since TF32 would break the f32 bounds);
+//   node_projections   pa | pb = h @ W1ab for a graph's nodes, in f32 (B1 in
+//                      both forms, B4, B6);
+//   geometry_tile      the per-edge geometry from raw indices and the xd
+//                      residual (B1 in both forms, B4, B6);
+//   fwd_tile_chain     the edge chain over one 64-edge tile on the CUDA
+//                      cores (a1, m, cw, the f32 aggregation with
+//                      shared-memory atomics, the a1 residual): B1's f32
+//                      form, B4, B6.
+// The tensor-core forms (B1, B2, B5a, B5b and B3's backward in bf16) build
+// on csrc/egnn_hopper.cuh, which includes this header. What bounds each
+// kernel on the card and what its design does about it is in its source.
+// Rounding points under bf16 are the TPU kernels' (pallas_mega.py,
+// pallas_edge.py): see csrc/egnn_mega_fwd.cu and csrc/egnn_tail_bwd.cu.
 //
 // Each kernel is its own launch, from its own source's plain C interface.
 
@@ -101,6 +111,38 @@ __device__ __forceinline__ void tile_product(const float* a, const float* w,
     for (int c = 0; c < CPT; ++c) {
       const int j = cg * CPT + c;
       wv[c] = kTransposed ? w[j * WLD + k] : w[k * WLD + j];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) acc[i][c] += av[i] * wv[c];
+  }
+}
+
+// acc[i][c] = sum over k < K of A[tg*4+i][k] * W(k, cg*CPT+c), A rows of
+// stride lda, W rows of stride row_stride(H): W(k, j) at w[k*LD + j]
+// (kTransposed false) or w[j*LD + k] (true). The form of tile_product for a
+// depth other than H (B3's backward, K = 2F).
+template <int H, bool kTransposed>
+__device__ __forceinline__ void tile_product_k(const float* a, int lda,
+                                               const float* w, int K, int tg,
+                                               int cg,
+                                               float (&acc)[4][H / 16]) {
+  constexpr int LD = row_stride(H);
+  constexpr int CPT = H / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.0f;
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    float av[4], wv[CPT];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = a[(tg * 4 + i) * lda + k];
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      const int j = cg * CPT + c;
+      wv[c] = kTransposed ? w[j * LD + k] : w[k * LD + j];
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)

@@ -22,35 +22,43 @@
 //              dWc1 += m (x) d_p3;
 //              dsmall += [d_a1*radial, d_a1*ef, d_a1, d_p2, d_p3, c1*d_cw]
 //
-// What bounds it on the H100. Per edge, nine products: three to recompute
-// the chain (2F x H, H x H, H x H), three back through Wc1, W2 and W1ab, and
-// three outer products for dWc1, dW2 and dW1ab. At B=128, E=2560, F=H=64
-// that is 2*E*(3*2F*H + 6*H*H) = 252 M multiply-adds per graph, 32 GFLOP
-// per launch, against ~221 MB moved (hsx, hdx, dout read, dhsx, dhdx
-// written, in bf16): ~66 us at 3.35 TB/s; the FLOPs on the CUDA cores in
-// f32 (67 TFLOP/s) take ~0.48 ms, so a first form on the CUDA cores is
-// bound by arithmetic.
+// What bounds it on the H100: bytes. Per edge, nine products: three to
+// recompute the chain (2F x H, H x H, H x H), three back through Wc1, W2
+// and W1ab, and three outer products for dWc1, dW2 and dW1ab. At B=128,
+// E=2560, F=H=64 that is 2*E*(3*2F*H + 6*H*H) = 252 M multiply-adds per
+// graph, 32.2 GFLOP a launch: 0.033 ms at the tensor cores' bf16 peak, 0.48
+// ms at the CUDA cores' f32 rate. A launch moves ~221 MB (hsx, hdx, dout
+// read, dhsx, dhdx written, in bf16): 0.066 ms at 3.35 TB/s.
 //
-// What the design does (the shape of csrc/egnn_tail_bwd.cu, B2):
-//   - one CTA of 256 threads per (graph, edge chunk), enough CTAs to give
-//     every SM one; 64-edge tiles inside;
-//   - W1ab, W2 and Wc1, rounded to the compute dtype, sit in shared memory
-//     with a padded row (H+1), so that W @ v and W^T @ v both read them
-//     with at most 2-way bank conflicts; every product is a register-tiled
-//     FMA loop (each thread 4 edges x H/16 columns);
-//   - the tile's operands ([hs ; hd], a1s, m, silu'(a1) -> d_a1, d_p3,
-//     d_m_in -> d_p2) live in shared memory; bundles, cotangents and the
-//     outputs move between device memory and shared memory with
-//     neighbouring threads on neighbouring edges (coalesced in [B,C,E]);
-//   - the weight gradients cross blocks. On the TPU the grid runs in order
-//     and carries them in a revisited output block; here blocks run in no
-//     order. Each thread keeps its 4 x H/16 share of dW2 and dWc1 and its
-//     columns of dsmall in registers over all its tiles, and its 8 x H/16
-//     share of dW1ab in shared memory (no other thread touches it); the
-//     CTA writes them to a [blocks, 2F*H + 2H^2 + 6H] f32 scratch, and a
-//     second kernel sums the scratch over blocks in block order. No
-//     atomics: the gradients are the same from run to run.
-// Tensor cores (mma.sync / wgmma) for the nine products are the next step.
+// What the design does about it:
+//   - bf16 (egnn_edge_bwd_mma_kernel): all nine products on the tensor
+//     cores (mma.sync m16n8k16, bf16 operands from bf16 tiles in shared
+//     memory, each product added in f32: csrc/egnn_hopper.cuh), one
+//     warpgroup of 128 threads a CTA; per 64-edge tile warp w owns edges
+//     16w..16w+15 for the chain. Every operand is a bf16-rounded value at
+//     its rounding point already (W1ab, W2, Wc1, the bundles, a1s, m, d_p3,
+//     d_p2, d_a1), so no rounding moves; at F=20 the depth 2F=40 pads to 48
+//     with zero rows. A value about to round to bf16 within kTieUlps f32
+//     units of a rounding boundary (a1s, m, c1, d_p3, d_p2, d_a1) is
+//     recomputed on the CUDA cores in the plain version's order;
+//   - the next tile's runs of 64 bf16 along E (the bundles' [F+3] rows each
+//     side, the cotangent's H+3, ef) arrive by cp.async into the other of
+//     two stages while this tile computes; the bundle rows are the A operand
+//     of the a1 product and of dW1ab as they land ([feature][edge], read by
+//     ldmatrix and ldmatrix.trans). An E that is not a multiple of 8 is
+//     read into the stage element by element instead;
+//   - a1 stays in f32 in shared memory for silu'(a1); dW2 and dWc1 in
+//     register fragments over a CTA's tiles; dW1ab (2F x H f32, 32 KB at
+//     F=64: no room beside them in registers) in shared memory, each warp
+//     adding 16-row blocks of [hs ; hd]^T . d_a1 to rows it alone owns;
+//   - one CTA per (graph, edge chunk), enough CTAs to give every SM one
+//     (~190 KB of shared memory at F=64: one CTA an SM); the weight
+//     gradients cross CTAs: each writes its share to a [blocks, 2F*H +
+//     2H^2 + 6H] f32 scratch and a second kernel sums it over CTAs in CTA
+//     order. No atomics: the gradients are the same from run to run;
+//   - f32 keeps the CUDA-core form (egnn_edge_bwd_kernel: register-tiled
+//     FMA loops over f32 tiles, 256 threads a CTA), so its f32 bounds hold;
+//     TF32 would break them.
 //
 // Rounding points under bf16 are the TPU kernel's (pallas_edge.py:104-256):
 // W1ab/W2/Wc1 rounded; the chain recomputed with the forward's rounding
@@ -63,66 +71,18 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (immunostruct_tpu_torch/ops/_build.py).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "egnn_hopper.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 64;    // edges per tile: 16 edge groups x 4 edges
-constexpr int kHidden = 64;  // H of every zoo model (gat_hidden_channels)
+using namespace egnn;
+
 constexpr int kMaxF = 64;
-constexpr int kRows1 = 2 * kMaxF / 16;  // dW1ab rows per thread
-constexpr int kReduceThreads = 256;
+constexpr int kRows1 = 2 * kMaxF / 16;  // dW1ab rows per thread (f32 form)
 
-// columns of the packed small [H, 6]
-constexpr int kW1R = 0, kW1E = 1, kB1 = 2, kB2 = 3, kBC1 = 4, kWC2 = 5;
-
-template <typename T>
-__device__ __forceinline__ float to_f(T v);
-template <>
-__device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// an f32 value stored in the compute dtype (round to nearest even)
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// round an f32 value to the compute dtype and back
-template <typename T>
-__device__ __forceinline__ float rnd(float v) {
-  return to_f<T>(from_f<T>(v));
-}
-
-__device__ __forceinline__ float sigmoid(float v) {
-  return 1.0f / (1.0f + expf(-v));
-}
-
-// d silu / dx from the pre-activation and its sigmoid
-__device__ __forceinline__ float silu_grad(float v, float s) {
-  return s * (1.0f + v * (1.0f - s));
-}
-
-// sum over the 16 column groups: lanes 0-15 / 16-31 of the warp
-__device__ __forceinline__ float sum16(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 8);
-  v += __shfl_xor_sync(0xffffffffu, v, 4);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v;
-}
-
-__host__ __device__ constexpr int row_stride(int hid) { return hid + 1; }
+// ---------------------------------------------------------------------------
+// f32: the CUDA-core form
+// ---------------------------------------------------------------------------
 
 // shared-memory floats: W1ab 2F*(H+1) | W2, Wc1 2*H*(H+1) | small^T 6*H |
 // feature tile kTile*(2F+1) | five edge-tile buffers 5*kTile*(H+1) | the
@@ -138,45 +98,18 @@ __host__ __device__ inline int grad_width(int f, int hid) {
   return 2 * f * hid + 2 * hid * hid + 6 * hid;
 }
 
-// acc[i][c] = sum_k A[tg*4+i][k] * W(k, cg*CPT+c), A at a[row*lda + k];
-// W(k, j) at w[k*LD + j] (kTransposed false) or w[j*LD + k] (true)
-template <int H, bool kTransposed>
-__device__ __forceinline__ void tile_product(const float* a, int lda,
-                                             const float* w, int K, int tg,
-                                             int cg, float (&acc)[4][H / 16]) {
-  constexpr int LD = row_stride(H);
-  constexpr int CPT = H / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.0f;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float av[4], wv[CPT];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(tg * 4 + i) * lda + k];
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int j = cg * CPT + c;
-      wv[c] = kTransposed ? w[j * LD + k] : w[k * LD + j];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[i][c] += av[i] * wv[c];
-  }
-}
-
-template <typename T, int H>
+template <int H>
 __global__ void __launch_bounds__(kThreads)
-    egnn_edge_bwd_kernel(const T* __restrict__ hsx, const T* __restrict__ hdx,
-                         const T* __restrict__ ef,
+    egnn_edge_bwd_kernel(const float* __restrict__ hsx,
+                         const float* __restrict__ hdx,
+                         const float* __restrict__ ef,
                          const float* __restrict__ w1ab,
                          const float* __restrict__ w2,
                          const float* __restrict__ wc1,
                          const float* __restrict__ small,
-                         const T* __restrict__ dout, T* __restrict__ dhsx,
-                         T* __restrict__ dhdx, T* __restrict__ def,
+                         const float* __restrict__ dout,
+                         float* __restrict__ dhsx,
+                         float* __restrict__ dhdx, float* __restrict__ def,
                          float* __restrict__ partial, int E, int F,
                          int chunks, int chunk_edges) {
   constexpr int LD = row_stride(H);
@@ -197,10 +130,10 @@ __global__ void __launch_bounds__(kThreads)
   float* bufP3 = bufG + kTile * LD;    // [kTile][LD] d_p3
   float* bufP2 = bufP3 + kTile * LD;   // [kTile][LD] d_m_in, then d_p2
   float* gw1 = bufP2 + kTile * LD;     // [2F][H] this CTA's dW1ab
-  float* radv = gw1 + F2 * H;          // [kTile] radial (rounded)
+  float* radv = gw1 + F2 * H;          // [kTile] radial
   float* invv = radv + kTile;          // [kTile] 1 / (sqrt(radial) + 1e-30)
   float* efv = invv + kTile;           // [kTile]
-  float* cwv = efv + kTile;            // [kTile] cw (rounded)
+  float* cwv = efv + kTile;            // [kTile] cw
   float* dcwv = cwv + kTile;           // [kTile] d_cw
   float* xdv = dcwv + kTile;           // [3][kTile]
   float* dmxv = xdv + 3 * kTile;       // [3][kTile] d_msgx
@@ -211,23 +144,23 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x;
   const int tg = tid / 16;  // edge group: edges tg*4 .. tg*4+3 of a tile
   const int cg = tid % 16;  // column group: columns cg*CPT .. +CPT-1
-  const T* hsb = hsx + (size_t)b * (F + 3) * E;
-  const T* hdb = hdx + (size_t)b * (F + 3) * E;
-  const T* efb = ef + (size_t)b * E;
-  const T* dob = dout + (size_t)b * (H + 3) * E;
-  T* dhsb = dhsx + (size_t)b * (F + 3) * E;
-  T* dhdb = dhdx + (size_t)b * (F + 3) * E;
-  T* defb = def + (size_t)b * E;
+  const float* hsb = hsx + (size_t)b * (F + 3) * E;
+  const float* hdb = hdx + (size_t)b * (F + 3) * E;
+  const float* efb = ef + (size_t)b * E;
+  const float* dob = dout + (size_t)b * (H + 3) * E;
+  float* dhsb = dhsx + (size_t)b * (F + 3) * E;
+  float* dhdb = dhdx + (size_t)b * (F + 3) * E;
+  float* defb = def + (size_t)b * E;
 
-  // ---- weights, rounded to the compute dtype ----
+  // ---- weights ----
   for (int i = tid; i < F2 * H; i += kThreads) {
-    w1s[(i / H) * LD + i % H] = rnd<T>(w1ab[i]);
+    w1s[(i / H) * LD + i % H] = w1ab[i];
     gw1[i] = 0.0f;
   }
   for (int i = tid; i < H * H; i += kThreads) {
     const int k = i / H, j = i % H;
-    w2s[k * LD + j] = rnd<T>(w2[i]);
-    wc1s[k * LD + j] = rnd<T>(wc1[i]);
+    w2s[k * LD + j] = w2[i];
+    wc1s[k * LD + j] = wc1[i];
   }
   for (int i = tid; i < 6 * H; i += kThreads) {
     sms[(i % 6) * H + i / 6] = small[i];
@@ -253,14 +186,14 @@ __global__ void __launch_bounds__(kThreads)
       const int e = e0 + t;
       float v = 0.0f;
       if (e < e_end) {
-        v = to_f(k < F ? hsb[(size_t)k * E + e] : hdb[(size_t)(k - F) * E + e]);
+        v = k < F ? hsb[(size_t)k * E + e] : hdb[(size_t)(k - F) * E + e];
       }
       bufX[t * LDX + k] = v;
     }
     for (int i = tid; i < H * kTile; i += kThreads) {
       const int j = i / kTile, t = i % kTile;
       const int e = e0 + t;
-      bufP2[t * LD + j] = e < e_end ? to_f(dob[(size_t)j * E + e]) : 0.0f;
+      bufP2[t * LD + j] = e < e_end ? dob[(size_t)j * E + e] : 0.0f;
     }
     // ---- per-edge geometry and coordinate cotangent ----
     if (tid < kTile) {
@@ -269,13 +202,12 @@ __global__ void __launch_bounds__(kThreads)
       if (e < e_end) {
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
-          d[k] = rnd<T>(to_f(hsb[(size_t)(F + k) * E + e]) -
-                        to_f(hdb[(size_t)(F + k) * E + e]));
-          dm[k] = to_f(dob[(size_t)(H + k) * E + e]);
+          d[k] = hsb[(size_t)(F + k) * E + e] - hdb[(size_t)(F + k) * E + e];
+          dm[k] = dob[(size_t)(H + k) * E + e];
         }
-        ev = to_f(efb[e]);
+        ev = efb[e];
       }
-      const float r = rnd<T>(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]);
+      const float r = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
       const float safe = r > 0.0f ? r : 1.0f;
       radv[tid] = r;
       invv[tid] = 1.0f / (sqrtf(safe) + 1e-30f);
@@ -291,7 +223,7 @@ __global__ void __launch_bounds__(kThreads)
     // ---- a1 = W1ab^T [hs ; hd] + ... -> a1s, silu'(a1) ----
     {
       float acc[4][CPT];
-      tile_product<H, false>(bufX, LDX, w1s, F2, tg, cg, acc);
+      tile_product_k<H, false>(bufX, LDX, w1s, F2, tg, cg, acc);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -301,7 +233,7 @@ __global__ void __launch_bounds__(kThreads)
           a = a + sms[kW1E * H + j] * efv[t];
           a = a + sms[kB1 * H + j];
           const float s = sigmoid(a);
-          bufA[t * LD + j] = rnd<T>(a * s);
+          bufA[t * LD + j] = a * s;
           bufG[t * LD + j] = silu_grad(a, s);
         }
     }
@@ -311,7 +243,7 @@ __global__ void __launch_bounds__(kThreads)
     float g2[4][CPT];
     {
       float acc[4][CPT];
-      tile_product<H, false>(bufA, LD, w2s, H, tg, cg, acc);
+      tile_product_k<H, false>(bufA, LD, w2s, H, tg, cg, acc);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -319,7 +251,7 @@ __global__ void __launch_bounds__(kThreads)
           const int t = tg * 4 + i, j = cg * CPT + c;
           const float p = acc[i][c] + sms[kB2 * H + j];
           const float s = sigmoid(p);
-          bufM[t * LD + j] = rnd<T>(p * s);
+          bufM[t * LD + j] = p * s;
           g2[i][c] = silu_grad(p, s);
         }
     }
@@ -329,7 +261,7 @@ __global__ void __launch_bounds__(kThreads)
     float g3[4][CPT], c1v[4][CPT];
     {
       float acc[4][CPT];
-      tile_product<H, false>(bufM, LD, wc1s, H, tg, cg, acc);
+      tile_product_k<H, false>(bufM, LD, wc1s, H, tg, cg, acc);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int t = tg * 4 + i;
@@ -339,7 +271,7 @@ __global__ void __launch_bounds__(kThreads)
           const int j = cg * CPT + c;
           const float p = acc[i][c] + sms[kBC1 * H + j];
           const float s = sigmoid(p);
-          c1v[i][c] = rnd<T>(p * s);
+          c1v[i][c] = p * s;
           g3[i][c] = silu_grad(p, s);
           part += c1v[i][c] * sms[kWC2 * H + j];
         }
@@ -347,7 +279,7 @@ __global__ void __launch_bounds__(kThreads)
         if (cg == 0) {
           // d_cw = d_msgx . x_hat, x_hat = xd / (sqrt(radial) + 1e-30)
           const float inv = invv[t];
-          cwv[t] = rnd<T>(cw);
+          cwv[t] = cw;
           dcwv[t] = dmxv[0 * kTile + t] * (xdv[0 * kTile + t] * inv) +
                     dmxv[1 * kTile + t] * (xdv[1 * kTile + t] * inv) +
                     dmxv[2 * kTile + t] * (xdv[2 * kTile + t] * inv);
@@ -364,7 +296,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
         const int j = cg * CPT + c;
-        const float dp3 = rnd<T>(sms[kWC2 * H + j] * dcw * g3[i][c]);
+        const float dp3 = sms[kWC2 * H + j] * dcw * g3[i][c];
         bufP3[t * LD + j] = dp3;
         gsm[kBC1][c] += dp3;
         gsm[kWC2][c] += c1v[i][c] * dcw;
@@ -375,14 +307,14 @@ __global__ void __launch_bounds__(kThreads)
     // ---- d_m = d_m_in + Wc1 @ d_p3; d_p2 = d_m * silu'(p2); d b2 ----
     {
       float acc[4][CPT];
-      tile_product<H, true>(bufP3, LD, wc1s, H, tg, cg, acc);
+      tile_product_k<H, true>(bufP3, LD, wc1s, H, tg, cg, acc);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int c = 0; c < CPT; ++c) {
           const int t = tg * 4 + i, j = cg * CPT + c;
           const float dm = bufP2[t * LD + j] + acc[i][c];
-          const float dp2 = rnd<T>(dm * g2[i][c]);
+          const float dp2 = dm * g2[i][c];
           bufP2[t * LD + j] = dp2;  // read and written by this thread only
           gsm[kB2][c] += dp2;
         }
@@ -392,7 +324,7 @@ __global__ void __launch_bounds__(kThreads)
     // ---- d_a1 = (W2 @ d_p2) * silu'(a1); d w1r, d w1e, d b1; d_xd, d_ef ----
     {
       float acc[4][CPT];
-      tile_product<H, true>(bufP2, LD, w2s, H, tg, cg, acc);
+      tile_product_k<H, true>(bufP2, LD, w2s, H, tg, cg, acc);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int t = tg * 4 + i;
@@ -400,7 +332,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int c = 0; c < CPT; ++c) {
           const int j = cg * CPT + c;
-          const float da = rnd<T>(acc[i][c] * bufG[t * LD + j]);
+          const float da = acc[i][c] * bufG[t * LD + j];
           bufG[t * LD + j] = da;  // read and written by this thread only
           gsm[kW1R][c] += da * radv[t];
           gsm[kW1E][c] += da * efv[t];
@@ -425,10 +357,10 @@ __global__ void __launch_bounds__(kThreads)
           for (int k = 0; k < 3; ++k) {
             const float dx = dmxv[k * kTile + t] * cwb * inv +
                              2.0f * xdv[k * kTile + t] * d_rad;
-            dhsb[(size_t)(F + k) * E + e] = from_f<T>(dx);
-            dhdb[(size_t)(F + k) * E + e] = from_f<T>(-dx);
+            dhsb[(size_t)(F + k) * E + e] = dx;
+            dhdb[(size_t)(F + k) * E + e] = -dx;
           }
-          defb[e] = from_f<T>(d_ef);
+          defb[e] = d_ef;
         }
       }
     }
@@ -481,7 +413,9 @@ __global__ void __launch_bounds__(kThreads)
         const int row = tg + 16 * r;
         if (row < F2) {
 #pragma unroll
-          for (int c = 0; c < CPT; ++c) gw1[row * H + cg * CPT + c] += acc[r][c];
+          for (int c = 0; c < CPT; ++c) {
+            gw1[row * H + cg * CPT + c] += acc[r][c];
+          }
         }
       }
     }
@@ -514,7 +448,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int c = 0; c < CPT; ++c) {
           const int col = c0 + cg * CPT + c;
-          if (col < F2) bufX[(tg * 4 + i) * LDX + col] = rnd<T>(acc[i][c]);
+          if (col < F2) bufX[(tg * 4 + i) * LDX + col] = acc[i][c];
         }
     }
     __syncthreads();
@@ -523,7 +457,7 @@ __global__ void __launch_bounds__(kThreads)
       const int k = i / kTile, t = i % kTile;
       const int e = e0 + t;
       if (e < e_end) {
-        const T v = from_f<T>(bufX[t * LDX + k]);
+        const float v = bufX[t * LDX + k];
         if (k < F) {
           dhsb[(size_t)k * E + e] = v;
         } else {
@@ -562,6 +496,433 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core form
+// ---------------------------------------------------------------------------
+
+using bf2 = __nv_bfloat162;
+constexpr int kLdf = kHidden + 8;  // f32 row of a1 and dW1ab: 2-way banks
+constexpr int kRowChunks = 8;      // 16-byte chunks of a run of 64 bf16
+
+// Byte offsets into a CTA's shared memory for node features F. A stage holds
+// one tile's runs of 64 bf16 along E, each in a row of kRunBytes: the bundle
+// features [hs ; hd] in rows 0..2F-1 (rows 2F..kp-1 stay zero: the depth of
+// the a1 product is kp, 2F rounded up to 16), hs's and hd's coordinates in
+// rows kp..kp+5, the cotangent [H+3] in rows kp+6.., ef in the last row;
+// rows 0..kp-1 are the A operand [feature][edge] of the products that read
+// the bundle. Then W1ab bf16 [np][kLdb] (np: 2F rounded up to 64, the
+// columns of d_hsd in passes of 64), W2, Wc1 bf16 [H][kLdb], the four bf16
+// tiles, a1 f32 [kTile][kLdf], dW1ab f32 [kp][kLdf], V [kTile][8] bf16
+// (radial, ef, 1), small^T [6][H] f32 and the per-edge values.
+struct EdgeLayout {
+  int kp, np, rows, stage, w1, w2, wc1, a1s, m, dp3, dp2, a1f, gw1, v, sms,
+      edge, bytes;
+};
+
+__host__ __device__ inline EdgeLayout edge_layout(int f) {
+  EdgeLayout l;
+  l.kp = (2 * f + 15) / 16 * 16;
+  l.np = (2 * f + 63) / 64 * 64;
+  l.rows = l.kp + 6 + kHidden + 3 + 1;
+  l.stage = l.rows * kRunBytes;
+  l.w1 = 2 * l.stage;
+  l.w2 = l.w1 + l.np * kLdb * 2;
+  l.wc1 = l.w2 + kHidden * kLdb * 2;
+  l.a1s = l.wc1 + kHidden * kLdb * 2;
+  l.m = l.a1s + kTileBytes;
+  l.dp3 = l.m + kTileBytes;
+  l.dp2 = l.dp3 + kTileBytes;
+  l.a1f = l.dp2 + kTileBytes;
+  l.gw1 = l.a1f + kTile * kLdf * 4;
+  l.v = l.gw1 + l.kp * kLdf * 4;
+  l.sms = l.v + kTile * 16;
+  l.edge = l.sms + 6 * kHidden * 4;
+  l.bytes = l.edge + kEdgeRows * kTile * 4;
+  return l;
+}
+
+// acc[nt][.] += rows m0..m0+15 of A . B over depth K (a multiple of 16), all
+// 64 columns; A stored [k][m], B stored [k][n] (warp_product<true, true> at
+// any depth)
+__device__ __forceinline__ void warp_product_k(const bf* a, const bf* b,
+                                               int m0, int lane, int K,
+                                               float (&acc)[8][4]) {
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    unsigned af[4];
+    load_a<true>(af, a, m0, k0, lane);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      unsigned bfr[4];
+      load_b<true>(bfr, b, np * 16, k0, lane);
+      mma_add(acc[2 * np], af, bfr[0], bfr[1]);
+      mma_add(acc[2 * np + 1], af, bfr[2], bfr[3]);
+    }
+  }
+}
+
+// sum over k < K, in k order, of a[k * sa] * b[k * sb]
+__device__ __forceinline__ float dot_n(const bf* a, int sa, const bf* b,
+                                       int sb, int K) {
+  float acc = 0.0f;
+#pragma unroll 8
+  for (int k = 0; k < K; ++k) {
+    acc = fmaf(__bfloat162float(a[k * sa]), __bfloat162float(b[k * sb]),
+               acc);
+  }
+  return acc;
+}
+
+// Per graph b (CTAs b*chunks .. b*chunks+chunks-1, each a chunk of edges),
+// the contract of egnn_edge_bwd_kernel in bf16, with the TPU kernel's
+// rounding points (the header). One warpgroup; warp w owns edges
+// 16w..16w+15 of a 64-edge tile for the chain and rows 16w..16w+15 of
+// dW2/dWc1; the next tile's runs arrive by cp.async while this one computes
+// (when E is a multiple of 8 and the tensors 16-byte aligned; otherwise each
+// tile is read into its stage element by element).
+template <int H>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    egnn_edge_bwd_mma_kernel(const bf* __restrict__ hsx,
+                             const bf* __restrict__ hdx,
+                             const bf* __restrict__ ef,
+                             const float* __restrict__ w1ab,
+                             const float* __restrict__ w2,
+                             const float* __restrict__ wc1,
+                             const float* __restrict__ small,
+                             const bf* __restrict__ dout, bf* __restrict__ dhsx,
+                             bf* __restrict__ dhdx, bf* __restrict__ def,
+                             float* __restrict__ partial, int E, int F,
+                             int chunks, int chunk_edges) {
+  static_assert(H == kHidden, "the tensor-core form is written for H = 64");
+  constexpr int C = H + 3;
+  const EdgeLayout L = edge_layout(F);
+  const int F2 = 2 * F;
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  unsigned char* sm = smem_mma;
+  bf* w1s = reinterpret_cast<bf*>(sm + L.w1);     // [feature][j]
+  bf* w2s = reinterpret_cast<bf*>(sm + L.w2);     // [k][n]
+  bf* wc1s = reinterpret_cast<bf*>(sm + L.wc1);   // [k][n]
+  bf* a1st = reinterpret_cast<bf*>(sm + L.a1s);   // a1s [j][t]; d_a1 [t][j]
+  bf* mt = reinterpret_cast<bf*>(sm + L.m);       // m, then d_hsd [f][t]
+  bf* dp3t = reinterpret_cast<bf*>(sm + L.dp3);   // d_p3 (d_hsd rows 64..)
+  bf* dp2t = reinterpret_cast<bf*>(sm + L.dp2);
+  float* a1f = reinterpret_cast<float*>(sm + L.a1f);  // a1 [t][kLdf]
+  float* gw1 = reinterpret_cast<float*>(sm + L.gw1);  // dW1ab [kp][kLdf]
+  bf* vt = reinterpret_cast<bf*>(sm + L.v);           // [t][8]
+  float* sms = reinterpret_cast<float*>(sm + L.sms);
+  float* ev = reinterpret_cast<float*>(sm + L.edge);
+
+  const int b = blockIdx.x / chunks;
+  const int e_begin = (blockIdx.x % chunks) * chunk_edges;
+  const int e_end = min(E, e_begin + chunk_edges);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int fr = lane >> 2, fq = lane & 3;  // fragment row, column pair
+  const int m0 = warp * 16;
+  const int rx = L.kp, rc = L.kp + 6, re = L.kp + 6 + C;  // stage rows
+  const bf* hsb = hsx + (size_t)b * (F + 3) * E;
+  const bf* hdb = hdx + (size_t)b * (F + 3) * E;
+  const bf* efb = ef + (size_t)b * E;
+  const bf* dob = dout + (size_t)b * C * E;
+  bf* dhsb = dhsx + (size_t)b * (F + 3) * E;
+  bf* dhdb = dhdx + (size_t)b * (F + 3) * E;
+  bf* defb = def + (size_t)b * E;
+  // runs start 16-byte aligned: cp.async takes them whole
+  const bool aligned =
+      (E & 7) == 0 &&
+      ((reinterpret_cast<uintptr_t>(hsx) | reinterpret_cast<uintptr_t>(hdx) |
+        reinterpret_cast<uintptr_t>(ef) | reinterpret_cast<uintptr_t>(dout)) &
+       15) == 0;
+  // the tensor row that stage row r holds (null: a zero row)
+  auto row_src = [&](int r) -> const bf* {
+    if (r < F) return hsb + (size_t)r * E;
+    if (r < F2) return hdb + (size_t)(r - F) * E;
+    if (r < rx) return nullptr;
+    if (r < rx + 3) return hsb + (size_t)(F + r - rx) * E;
+    if (r < rc) return hdb + (size_t)(F + r - rx - 3) * E;
+    if (r < re) return dob + (size_t)(r - rc) * E;
+    return efb;
+  };
+
+  // ---- weights, rounded to bf16 by their store; zero rows ----
+  for (int i = tid; i < L.np * H; i += kMmaThreads) {
+    const int k = i / H, j = i % H;
+    w1s[k * kLdb + j] = __float2bfloat16(k < F2 ? w1ab[i] : 0.0f);
+  }
+  for (int i = tid; i < H * H; i += kMmaThreads) {
+    const int k = i / H, j = i % H;
+    w2s[k * kLdb + j] = __float2bfloat16(w2[i]);
+    wc1s[k * kLdb + j] = __float2bfloat16(wc1[i]);
+  }
+  for (int i = tid; i < 6 * H; i += kMmaThreads) {
+    sms[(i % 6) * H + i / 6] = small[i];
+  }
+  for (int i = tid; i < L.kp * kLdf; i += kMmaThreads) gw1[i] = 0.0f;
+  for (int i = tid; i < 2 * (L.kp - F2) * kTile; i += kMmaThreads) {
+    const int s = i / ((L.kp - F2) * kTile), r = i % ((L.kp - F2) * kTile);
+    reinterpret_cast<bf*>(sm + s * L.stage + (F2 + r / kTile) * kRunBytes)
+        [r % kTile] = __float2bfloat16(0.0f);
+  }
+
+  // the weight gradients: dW2/dWc1 rows m0.., as fragments; db2, dbc1 and
+  // dwc2 over this thread's 16 columns (index 2*nt + i%2); dw1r, dw1e, db1
+  // as the fragment of d_a1^T . V; dW1ab in shared memory
+  float gw2[8][4], gwc1[8][4], gv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float gb2[16], gbc1[16], gwc2[16];
+  zero(gw2);
+  zero(gwc1);
+#pragma unroll
+  for (int c = 0; c < 16; ++c) gb2[c] = gbc1[c] = gwc2[c] = 0.0f;
+
+  // ---- the pipeline: tile it computes from stage it % 2 while tile it+1
+  // arrives in the other ----
+  const int ntiles =
+      e_end > e_begin ? (e_end - e_begin + kTile - 1) / kTile : 0;
+  auto stage_tile = [&](int it) {
+    unsigned char* st = sm + (it & 1) * L.stage;
+    const int e0 = e_begin + it * kTile;
+    const int n = min(kTile, e_end - e0);
+    if (aligned) {
+      const int nc = (2 * n + 15) / 16;
+      for (int i = tid; i < L.rows * kRowChunks; i += kMmaThreads) {
+        const int r = i / kRowChunks, c = i % kRowChunks;
+        const bf* g = row_src(r);
+        if (g != nullptr && c < nc) {
+          cp_async16(st + r * kRunBytes + c * 16, g + e0 + c * 8);
+        }
+      }
+    } else {
+      for (int i = tid; i < L.rows * kTile; i += kMmaThreads) {
+        const int r = i / kTile, t = i % kTile;
+        const bf* g = row_src(r);
+        if (g != nullptr) {
+          reinterpret_cast<bf*>(st + r * kRunBytes)[t] =
+              t < n ? g[e0 + t] : __float2bfloat16(0.0f);
+        }
+      }
+    }
+  };
+  __syncthreads();  // weights, zero rows and dW1ab's zeros
+  if (ntiles > 0) stage_tile(0);
+  cp_async_commit();
+
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) stage_tile(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const int e0 = e_begin + it * kTile;
+    const int n = min(kTile, e_end - e0);
+    unsigned char* st = sm + (it & 1) * L.stage;
+    const bf* xt = reinterpret_cast<const bf*>(st);  // [feature][t], kLdb
+    if (aligned && n < kTile) {
+      // the ragged end of the chunk: zeros past its last edge, so that
+      // those rows of every product are finite and add nothing
+      for (int i = tid; i < L.rows * kTile; i += kMmaThreads) {
+        const int r = i / kTile, t = i % kTile;
+        if (t >= n && row_src(r) != nullptr) {
+          reinterpret_cast<bf*>(st + r * kRunBytes)[t] =
+              __float2bfloat16(0.0f);
+        }
+      }
+      __syncthreads();
+    }
+    auto at = [&](int r, int t) {
+      return __bfloat162float(
+          reinterpret_cast<const bf*>(st + r * kRunBytes)[t]);
+    };
+    // a1 of tile edge t, column j, as the plain version sums it; a1 as the
+    // chain's backward reads it; the cotangent d_m_in
+    auto a1_exact = [&](int t, int j) {
+      float a = dot_n(xt + t, kLdb, w1s + j, kLdb, F2) +
+                sms[kW1R * H + j] * ev[kERad * kTile + t];
+      a = a + sms[kW1E * H + j] * ev[kEEf * kTile + t];
+      return a + sms[kB1 * H + j];
+    };
+    auto a1_of = [&](int t, int j) { return a1f[t * kLdf + j]; };
+    auto dm_in = [&](int t, int j) { return at(rc + j, t); };
+
+    // ---- per edge: geometry, d_msgx, d_cw; V ----
+    if (tid < kTile) {
+      const int t = tid;
+      float d[3], dm[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        d[k] = rnd<bf>(at(rx + k, t) - at(rx + 3 + k, t));
+        dm[k] = at(rc + H + k, t);
+      }
+      const float efv = at(re, t);
+      const float r = rnd<bf>(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]);
+      const float safe = r > 0.0f ? r : 1.0f;
+      const float inv = 1.0f / (sqrtf(safe) + 1e-30f);
+      ev[kERad * kTile + t] = r;
+      ev[kEInv * kTile + t] = inv;
+      ev[kEEf * kTile + t] = efv;
+      // d_cw = d_msgx . x_hat, x_hat = xd / (sqrt(radial) + 1e-30)
+      ev[kEDcw * kTile + t] =
+          dm[0] * (d[0] * inv) + dm[1] * (d[1] * inv) + dm[2] * (d[2] * inv);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        ev[(kEXd + k) * kTile + t] = d[k];
+        ev[(kEDmx + k) * kTile + t] = dm[k];
+      }
+      store_pair(vt + t * 8 + 0, r, efv);
+      store_pair(vt + t * 8 + 2, 1.0f, 0.0f);
+      store_pair(vt + t * 8 + 4, 0.0f, 0.0f);
+      store_pair(vt + t * 8 + 6, 0.0f, 0.0f);
+    }
+    __syncthreads();
+
+    // ---- a1 = [hs ; hd] @ W1ab + w1r*radial + w1e*ef + b1 -> a1s [j][t];
+    // a1 kept in f32 for silu'(a1) ----
+    {
+      float acc[8][4];
+      zero(acc);
+      warp_product_k(xt, w1s, m0, lane, L.kp, acc);
+      unsigned tie = 0;  // bit tie_bit(nt, h, c): a1s near a tie
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int t = m0 + fr + 8 * h, j0 = nt * 8 + 2 * fq;
+          float av[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int j = j0 + c;
+            float a = acc[nt][2 * h + c] +
+                      sms[kW1R * H + j] * ev[kERad * kTile + t];
+            a = a + sms[kW1E * H + j] * ev[kEEf * kTile + t];
+            a = a + sms[kB1 * H + j];
+            av[c] = a;
+            const float v = a * sigmoid_fast(a);
+            tie |= unsigned(near_tie(v)) << tie_bit(nt, h, c);
+            a1st[j * kLdb + t] = __float2bfloat16(v);
+          }
+          *reinterpret_cast<float2*>(a1f + t * kLdf + j0) =
+              make_float2(av[0], av[1]);
+        }
+      for (; tie; tie &= tie - 1) {
+        const int i = __ffs(tie) - 1;
+        const int t = tie_edge(m0, fr, i), j = tie_col(i, fq);
+        const float a = a1_exact(t, j);
+        a1st[j * kLdb + t] = __float2bfloat16(a * sigmoid(a));
+        a1f[t * kLdf + j] = a;
+      }
+    }
+    __syncwarp();
+
+    // ---- p2 = a1s @ W2 + b2 -> m; keep silu'(p2) ----
+    float g2[8][4];
+    chain_p2(a1st, w2s, sms, mt, m0, lane, g2);
+    __syncwarp();
+
+    // ---- p3 = m @ Wc1 + bc1 -> c1, cw; d_p3 = wc2 * d_cw * silu'(p3) ----
+    chain_p3(mt, wc1s, sms, ev, dp3t, m0, lane, gbc1, gwc2);
+    __syncwarp();
+
+    // ---- d_m = d_m_in + Wc1 @ d_p3; d_p2 = d_m * silu'(p2) ----
+    chain_dp2(dp3t, wc1s, a1st, w2s, sms, g2, dm_in, dp2t, m0, lane, gb2);
+    __syncthreads();  // every warp's d_p2/d_p3 rows for the weight gradients
+
+    // ---- W2 @ d_p2; dW2 += a1s (x) d_p2; dWc1 += m (x) d_p3 ----
+    float da_acc[8][4];
+    zero(da_acc);
+    warp_product<false, false>(dp2t, w2s, m0, lane, da_acc);
+    warp_product<false, true>(a1st, dp2t, m0, lane, gw2);
+    warp_product<true, true>(mt, dp3t, m0, lane, gwc1);
+    __syncthreads();  // a1s, m and d_p3 are read; their tiles turn over
+
+    // ---- d_a1 = (W2 @ d_p2) * silu'(a1); d_xd, d_ef ----
+    {
+      float prad[2] = {0.0f, 0.0f}, pef[2] = {0.0f, 0.0f};
+      chain_da1(da_acc, dp2t, w2s, sms, a1_of, a1_exact, a1st, m0, lane,
+                prad, pef);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float d_rad_chain = sum4(prad[h]);
+        const float d_ef = sum4(pef[h]);
+        const int t = m0 + fr + 8 * h;
+        if (fq == 0 && t < n) {
+          edge_dxd(ev, t, true, d_rad_chain);
+          defb[e0 + t] = __float2bfloat16(d_ef);
+        }
+      }
+    }
+    __syncthreads();  // d_a1 [t][j] of every edge
+
+    // ---- dw1r, dw1e, db1 += d_a1^T . [radial, ef, 1] ----
+    chain_dsmall_v(a1st, vt, m0, lane, gv);
+    // ---- dW1ab += [hs ; hd]^T . d_a1: 16-row blocks of it, one warp each,
+    // added to the f32 sums in shared memory (rows 2F.. add zeros) ----
+    for (int blk = warp; blk < L.kp / 16; blk += kMmaThreads / 32) {
+      float acc[8][4];
+      zero(acc);
+      warp_product<false, true>(xt, a1st, blk * 16, lane, acc);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float2* g = reinterpret_cast<float2*>(
+              gw1 + (blk * 16 + fr + 8 * h) * kLdf + nt * 8 + 2 * fq);
+          float2 s = *g;
+          s.x += acc[nt][2 * h];
+          s.y += acc[nt][2 * h + 1];
+          *g = s;
+        }
+    }
+    // ---- d_hsd = d_a1 @ W1ab^T, rounded, into the m and d_p3 tiles (one
+    // run of np x kLdb) as [feature][t] (columns in passes of 64) ----
+    bf* hsdt = mt;
+    for (int p = 0; p < L.np / 64; ++p) {
+      float acc[8][4];
+      zero(acc);
+      warp_product<false, false>(a1st, w1s + p * 64 * kLdb, m0, lane, acc);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int t = m0 + fr + 8 * (i >> 1);
+          const int f = p * 64 + nt * 8 + 2 * fq + (i & 1);
+          hsdt[f * kLdb + t] = __float2bfloat16(acc[nt][i]);
+        }
+    }
+    __syncthreads();  // d_hsd and d_xd of every edge
+
+    // ---- dhsx = [d_hsd[:F] ; d_xd], dhdx = [d_hsd[F:] ; -d_xd]: warp w
+    // takes rows w, w+4, ..; lane l edges 2l, 2l+1 (one 32-bit store when
+    // E is even) ----
+    for (int k = warp; k < 2 * (F + 3); k += kMmaThreads / 32) {
+      const int side = k >= F + 3, kk = k - side * (F + 3);
+      const int t = 2 * lane;
+      bf2 v;
+      if (kk < F) {
+        v = *reinterpret_cast<const bf2*>(hsdt + (side * F + kk) * kLdb + t);
+      } else {
+        const float* dx = ev + (kEDxd + kk - F) * kTile + t;
+        v = side == 0 ? __floats2bfloat162_rn(dx[0], dx[1])
+                      : __floats2bfloat162_rn(-dx[0], -dx[1]);
+      }
+      bf* row = (side == 0 ? dhsb : dhdb) + (size_t)kk * E + e0 + t;
+      if ((E & 1) == 0 && t + 1 < n) {
+        *reinterpret_cast<bf2*>(row) = v;
+      } else {
+        if (t < n) row[0] = v.x;
+        if (t + 1 < n) row[1] = v.y;
+      }
+    }
+    __syncthreads();  // the stage, the tiles and the per-edge values turn over
+  }
+  cp_async_wait<0>();
+
+  // ---- this CTA's partial gradients: dW1ab | dW2 | dWc1 | dsmall [H][6] ----
+  float* pb = partial + (size_t)blockIdx.x * grad_width(F, H);
+  for (int i = tid; i < F2 * H; i += kMmaThreads) {
+    pb[i] = gw1[(i / H) * kLdf + i % H];
+  }
+  store_chain_partials(pb + F2 * H, gw2, gwc1, gv, gb2, gbc1, gwc2,
+                       reinterpret_cast<float*>(sm + L.a1s), tid);
+}
+
 // grads[i] = sum over blocks, in block order, of partial[block][i]
 __global__ void __launch_bounds__(kReduceThreads)
     egnn_edge_bwd_reduce(const float* __restrict__ partial, int blocks,
@@ -573,27 +934,50 @@ __global__ void __launch_bounds__(kReduceThreads)
   grads[i] = s;
 }
 
+// shared memory of one CTA of the main kernel: the f32 or the bf16 form
+inline long long smem_bytes(int f, int hid, bool bf16) {
+  return bf16 ? edge_layout(f).bytes
+              : smem_floats(f, hid) * (long long)sizeof(float);
+}
+
+// The main kernel over B*chunks CTAs (f32: egnn_edge_bwd_kernel; bf16:
+// egnn_edge_bwd_mma_kernel), then the weight gradients' reduction.
 template <typename T, int H>
 cudaError_t launch(const void* hsx, const void* hdx, const void* ef,
                    const float* w1ab, const float* w2, const float* wc1,
                    const float* small, const void* dout, void* dhsx,
                    void* dhdx, void* def, float* partial, float* grads, int B,
                    int E, int F, int chunks, cudaStream_t stream) {
-  const size_t bytes = (size_t)smem_floats(F, H) * sizeof(float);
-  auto kernel = egnn_edge_bwd_kernel<T, H>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
+  constexpr bool kBf16 = sizeof(T) == 2;
+  const size_t bytes = (size_t)smem_bytes(F, H, kBf16);
   // edges per chunk: a whole number of tiles
   const int per = (E + chunks - 1) / chunks;
   const int chunk_edges = (per + kTile - 1) / kTile * kTile;
   const int blocks = B * chunks;
-  kernel<<<blocks, kThreads, bytes, stream>>>(
-      static_cast<const T*>(hsx), static_cast<const T*>(hdx),
-      static_cast<const T*>(ef), w1ab, w2, wc1, small,
-      static_cast<const T*>(dout), static_cast<T*>(dhsx),
-      static_cast<T*>(dhdx), static_cast<T*>(def), partial, E, F, chunks,
-      chunk_edges);
+  cudaError_t err;
+  if constexpr (kBf16) {
+    auto kernel = egnn_edge_bwd_mma_kernel<H>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<blocks, kMmaThreads, bytes, stream>>>(
+        static_cast<const bf*>(hsx), static_cast<const bf*>(hdx),
+        static_cast<const bf*>(ef), w1ab, w2, wc1, small,
+        static_cast<const bf*>(dout), static_cast<bf*>(dhsx),
+        static_cast<bf*>(dhdx), static_cast<bf*>(def), partial, E, F, chunks,
+        chunk_edges);
+  } else {
+    auto kernel = egnn_edge_bwd_kernel<H>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<blocks, kThreads, bytes, stream>>>(
+        static_cast<const float*>(hsx), static_cast<const float*>(hdx),
+        static_cast<const float*>(ef), w1ab, w2, wc1, small,
+        static_cast<const float*>(dout), static_cast<float*>(dhsx),
+        static_cast<float*>(dhdx), static_cast<float*>(def), partial, E, F,
+        chunks, chunk_edges);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int width = grad_width(F, H);
@@ -607,19 +991,46 @@ cudaError_t launch(const void* hsx, const void* hdx, const void* ef,
 
 extern "C" {
 
-// Shared memory one CTA of the main kernel needs for node features F and
-// hidden width H.
-long long egnn_edge_bwd_smem_bytes(int F, int H) {
-  return smem_floats(F, H) * (long long)sizeof(float);
+// Shared memory one CTA of the main kernel needs for node features F,
+// hidden width H and the compute dtype (bf16 != 0: bfloat16, else float32).
+long long egnn_edge_bwd_smem_bytes(int F, int H, int bf16) {
+  return smem_bytes(F, H, bf16 != 0);
 }
 
-// One backward: B*chunks CTAs of 256 threads, then the reduction, both on
-// `stream`. hsx/hdx [B,F+3,E], ef [B,1,E] and dout [B,H+3,E] in the
-// compute dtype (bf16 != 0: bfloat16, else float32); w1ab [2F,H], w2/wc1
-// [H,H], small [H,6] f32. Writes dhsx/dhdx [B,F+3,E] and def [B,1,E] in
-// the compute dtype and grads = dW1ab [2F,H] | dW2 [H,H] | dWc1 [H,H] |
-// dsmall [H,6] in f32; partial [B*chunks, 2F*H + 2H^2 + 6H] f32 is
-// scratch. Returns the cudaError_t of the launches (0 on success).
+// CTAs of the main kernel that fit on one SM at once for node features F,
+// hidden width H and the compute dtype (the occupancy calculator's count),
+// or -1 on a CUDA error.
+int egnn_edge_bwd_ctas_per_sm(int F, int H, int bf16) {
+  const int bytes = (int)smem_bytes(F, H, bf16 != 0);
+  int n = 0;
+  cudaError_t err;
+  if (bf16) {
+    auto kernel = egnn_edge_bwd_mma_kernel<kHidden>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, kernel, kMmaThreads, bytes);
+    }
+  } else {
+    auto kernel = egnn_edge_bwd_kernel<kHidden>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel,
+                                                          kThreads, bytes);
+    }
+  }
+  return err == cudaSuccess ? n : -1;
+}
+
+// One backward: B*chunks CTAs (256 threads in f32, 128 in bf16), then the
+// reduction, both on `stream`. hsx/hdx [B,F+3,E], ef [B,1,E] and dout
+// [B,H+3,E] in the compute dtype (bf16 != 0: bfloat16, else float32);
+// w1ab [2F,H], w2/wc1 [H,H], small [H,6] f32. Writes dhsx/dhdx [B,F+3,E]
+// and def [B,1,E] in the compute dtype and grads = dW1ab [2F,H] | dW2
+// [H,H] | dWc1 [H,H] | dsmall [H,6] in f32; partial [B*chunks, 2F*H + 2H^2
+// + 6H] f32 is scratch. Returns the cudaError_t of the launches (0 on success).
 int egnn_edge_bwd(const void* hsx, const void* hdx, const void* ef,
                   const void* w1ab, const void* w2, const void* wc1,
                   const void* small, const void* dout, void* dhsx, void* dhdx,

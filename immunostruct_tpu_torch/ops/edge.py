@@ -257,6 +257,20 @@ def edge_program_bwd_reference(hsx, hdx, ef, w1ab, w2, wc1, small, dout,
     return (cbe(dhsx), cbe(dhdx), cbe(d_ef), dw1ab, dw2, dwc1, dsmall)
 
 
+def d_p3_unrounded_sum(hsx, hdx, ef, w1ab, w2, wc1, small, dout):
+    """dsmall's bc1 column [H] as ``edge_program_bwd_reference`` sums it,
+    but with d_p3 not rounded to the compute dtype first: what a backward
+    that leaves out that rounding point gives. The card tests and
+    chip_smoke.py hold the kernel's dbc1 nearer the plain version's than
+    this (no bound on dsmall's rows sees the rounding)."""
+    hid = w2.shape[1]
+    ch = _recompute(hsx, hdx, ef, w1ab, w2, wc1, small)
+    db = dout.to(hsx.dtype).transpose(1, 2).float()
+    d_cw = (db[..., hid:] * ch["xd"] * ch["inv_s"]).sum(-1, keepdim=True)
+    return (ch["sm"][:, WC2] * d_cw
+            * silu_grad(ch["p3"], ch["s3"])).sum((0, 1))
+
+
 # --------------------------------------------------------------------------
 # the kernels' wrappers
 # --------------------------------------------------------------------------
@@ -282,8 +296,10 @@ def _bwd_lib():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.egnn_edge_bwd.argtypes = [ptr] * 13 + [i32] * 6 + [ptr]
     lib.egnn_edge_bwd.restype = i32
-    lib.egnn_edge_bwd_smem_bytes.argtypes = [i32, i32]
+    lib.egnn_edge_bwd_smem_bytes.argtypes = [i32, i32, i32]
     lib.egnn_edge_bwd_smem_bytes.restype = ctypes.c_longlong
+    lib.egnn_edge_bwd_ctas_per_sm.argtypes = [i32, i32, i32]
+    lib.egnn_edge_bwd_ctas_per_sm.restype = i32
     return lib
 
 
@@ -364,8 +380,9 @@ def edge_program_fwd(hsx, hdx, ef, w1ab, w2, wc1, small):
 def edge_program_bwd(hsx, hdx, ef, w1ab, w2, wc1, small, dout):
     """B3's backward: the contract of ``edge_program_bwd_reference``.
 
-    CUDA tensors launch csrc/egnn_edge_bwd.cu (per-block partial weight
-    gradients and their fixed-order reduction) or raise; CPU tensors go
+    CUDA tensors launch csrc/egnn_edge_bwd.cu (f32 on the CUDA cores, bf16
+    on the tensor cores; per-block partial weight gradients and their
+    fixed-order reduction) or raise; CPU tensors go
     through ``edge_program_bwd_reference``. ``edge_program_bwd.launches``
     counts the kernel's launches."""
     if not _on_cuda("edge_program_bwd", hsx):
@@ -380,7 +397,9 @@ def edge_program_bwd(hsx, hdx, ef, w1ab, w2, wc1, small, dout):
     lib = _bwd_lib()
     with torch.cuda.device(hsx.device):
         props = hopper(hsx.device, "edge_program")
-        _smem_ok("edge_program_bwd", lib.egnn_edge_bwd_smem_bytes(f, hid),
+        _smem_ok("edge_program_bwd",
+                 lib.egnn_edge_bwd_smem_bytes(f, hid,
+                                              int(dt == torch.bfloat16)),
                  props, f, hid)
         chunks = chunks_per_graph(e, b, 64, props.multi_processor_count)
         width = 2 * f * hid + 2 * hid * hid + 6 * hid

@@ -18,7 +18,8 @@ module; the kernels share their device code (csrc/egnn_common.cuh):
 
   B1  ``edge_mega_fwd``  -> csrc/egnn_mega_fwd.cu  (plain: ``edge_mega_fwd_reference``)
       the forward; for training it also writes the residuals a1 [B,H,E] and
-      xd [B,3,E] in the compute dtype.
+      xd [B,3,E] in the compute dtype. In bf16 its products run on the
+      tensor cores and a graph's edges over ``fwd_chunks`` CTAs.
   B2  ``tail_bwd``       -> csrc/egnn_tail_bwd.cu  (plain: ``tail_bwd_reference``)
       the backward of the edge/coordinate MLP chain from a1/xd and the
       cotangent d_both = g[dst]: d_cat = [d_a1 ; d_xd], d_ef, and the f32
@@ -109,9 +110,11 @@ def check_variant(mega_variant: str, aggregation: str = "mega") -> None:
 
 
 def fwd_smem_bytes(n: int, hid: int) -> int:
-    """Shared memory of one B1 block (csrc/egnn_common.cuh
+    """Shared memory of one B1 block in its f32 form (csrc/egnn_common.cuh
     ``fwd_smem_floats``): acc N*(H+3), W2 and Wc1, small^T, two edge-tile
-    buffers of 64 rows of H+1, the tile's geometry (9*64), in f32."""
+    buffers of 64 rows of H+1, the tile's geometry (9*64), in f32. The bf16
+    form needs no more (``egnn_mega_fwd_smem_bytes``; a card test holds the
+    two together)."""
     return 4 * (n * (hid + 3) + 2 * hid * hid + 6 * hid
                 + 2 * 64 * (hid + 1) + 9 * 64)
 
@@ -355,10 +358,12 @@ def _fwd_lib():
 
     lib = load_library("egnn_mega_fwd")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.egnn_mega_fwd.argtypes = [ptr] * 14 + [i32] * 6 + [ptr]
+    lib.egnn_mega_fwd.argtypes = [ptr] * 15 + [i32] * 7 + [ptr]
     lib.egnn_mega_fwd.restype = i32
-    lib.egnn_mega_fwd_smem_bytes.argtypes = [i32, i32]
+    lib.egnn_mega_fwd_smem_bytes.argtypes = [i32, i32, i32]
     lib.egnn_mega_fwd_smem_bytes.restype = ctypes.c_longlong
+    lib.egnn_mega_fwd_ctas_per_sm.argtypes = [i32, i32, i32]
+    lib.egnn_mega_fwd_ctas_per_sm.restype = i32
     return lib
 
 
@@ -433,15 +438,31 @@ def edge_mega_fwd(src, dst, mask, ef, h, x, w1ab, w2, wc1, small,
     """B1: (out [B, N, H+3] f32, a1 [B, H, E], xd [B, 3, E]); a1 and xd are
     None when ``residuals`` is False (the kernel then skips their stores).
 
-    CUDA tensors launch csrc/egnn_mega_fwd.cu or raise; CPU tensors go
-    through ``edge_mega_fwd_reference``. ``edge_mega.launches`` counts the
-    kernel's launches."""
-    out = _fwd_launch("edge_mega", edge_mega_fwd_reference, _fwd_lib,
-                      "egnn_mega_fwd", src, dst, mask, ef, h, x, w1ab, w2,
-                      wc1, small, residuals)
-    if h.device.type == "cuda":
-        edge_mega.launches += 1
-    return out
+    CUDA tensors launch csrc/egnn_mega_fwd.cu or raise (bf16: the node
+    projections, ``fwd_chunks`` CTAs per graph and, with more than one, the
+    chunks' sum, all counted as one launch); CPU tensors go through
+    ``edge_mega_fwd_reference``. ``edge_mega.launches`` counts the kernel's
+    launches."""
+    args = (src, dst, mask, ef, h, x, w1ab, w2, wc1, small)
+    if h.device.type == "cpu":
+        return _fwd_cpu(edge_mega_fwd_reference, args, residuals)
+    out, a1, xd, ptrs, sizes = _fwd_operands("edge_mega", args, residuals)
+    b, n, e, _, hid = sizes[2:]
+    bf16 = int(h.dtype == torch.bfloat16)
+    lib = _fwd_lib()
+    with torch.cuda.device(h.device):
+        props = hopper(h.device, "edge_mega")
+        _check_smem(props, lib.egnn_mega_fwd_smem_bytes(n, hid, bf16),
+                    "edge_mega", f"N={n}, H={hid}")
+        chunks = fwd_chunks(e, b, props.multi_processor_count) if bf16 else 1
+        nodes = (torch.empty(b * chunks, n, hid + 3, dtype=torch.float32,
+                             device=h.device) if chunks > 1 else None)
+        rc = lib.egnn_mega_fwd(
+            *ptrs, None if nodes is None else nodes.data_ptr(), *sizes,
+            chunks, bf16, torch.cuda.current_stream(h.device).cuda_stream)
+    _fwd_rc("egnn_mega_fwd", rc, sizes)
+    edge_mega.launches += 1
+    return out, a1, xd
 
 
 def edge_mega_paired_fwd(src, dst, mask, ef, h, x, w1ab, w2, wc1, small,
@@ -456,25 +477,46 @@ def edge_mega_paired_fwd(src, dst, mask, ef, h, x, w1ab, w2, wc1, small,
     if src.shape[1] % 2:
         raise ValueError(f"the paired layout needs an even edge count, got "
                          f"E={src.shape[1]}")
-    out = _fwd_launch("edge_mega_paired", edge_mega_paired_fwd_reference,
-                      _paired_lib, "egnn_mega_paired_fwd", src, dst, mask,
-                      ef, h, x, w1ab, w2, wc1, small, residuals)
-    if h.device.type == "cuda":
-        edge_mega_paired_fwd.launches += 1
-    return out
+    args = (src, dst, mask, ef, h, x, w1ab, w2, wc1, small)
+    if h.device.type == "cpu":
+        return _fwd_cpu(edge_mega_paired_fwd_reference, args, residuals)
+    out, a1, xd, ptrs, sizes = _fwd_operands("edge_mega_paired", args,
+                                             residuals)
+    n, hid = sizes[3], sizes[6]
+    lib = _paired_lib()
+    with torch.cuda.device(h.device):
+        _check_smem(hopper(h.device, "edge_mega"),
+                    lib.egnn_mega_paired_fwd_smem_bytes(n, hid),
+                    "edge_mega_paired", f"N={n}, H={hid}")
+        rc = lib.egnn_mega_paired_fwd(
+            *ptrs, *sizes, int(h.dtype == torch.bfloat16),
+            torch.cuda.current_stream(h.device).cuda_stream)
+    _fwd_rc("egnn_mega_paired_fwd", rc, sizes)
+    edge_mega_paired_fwd.launches += 1
+    return out, a1, xd
 
 
 edge_mega_paired_fwd.launches = 0
 
 
-def _fwd_launch(name, reference, lib_fn, entry, src, dst, mask, ef, h, x,
-                w1ab, w2, wc1, small, residuals):
-    """B1 or B4 (``entry``, the C function of ``lib_fn()``'s library, with
-    the same interface): the CPU path, the checks and the launch."""
-    if h.device.type == "cpu":
-        out, a1, xd = reference(src, dst, mask, ef, h, x, w1ab, w2, wc1,
-                                small)
-        return (out, a1, xd) if residuals else (out, None, None)
+def fwd_chunks(e: int, b: int, sms: int) -> int:
+    """Edge chunks per graph of B1's bf16 form (one CTA per (graph,
+    chunk), one CTA an SM): as many as fill the SMs in one wave, at least
+    two 64-edge tiles a chunk."""
+    tiles = max(1, -(-e // 64))
+    return min(-(-tiles // 2), max(1, sms // b))
+
+
+def _fwd_cpu(reference, args, residuals):
+    out, a1, xd = reference(*args)
+    return (out, a1, xd) if residuals else (out, None, None)
+
+
+def _fwd_operands(name, args, residuals):
+    """The checks B1 and B4 share, and their buffers on the card: (out, a1,
+    xd, the C entry's pointers from src to proj, its arguments from a1 to
+    H); a1 and xd are None without ``residuals``."""
+    src, dst, mask, ef, h, x, w1ab, w2, wc1, small = args
     if h.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu tensors, "
                          f"not {h.device.type}")
@@ -499,31 +541,23 @@ def _fwd_launch(name, reference, lib_fn, entry, src, dst, mask, ef, h, x,
                          "takes any F")
     if b == 0 or n == 0:
         raise ValueError(f"{name}: empty batch or graph")
-    lib = lib_fn()
-    with torch.cuda.device(h.device):
-        props = hopper(h.device, "edge_mega")
-        _check_smem(props, getattr(lib, f"{entry}_smem_bytes")(n, hid), name,
-                    f"N={n}, H={hid}")
-        out = torch.empty(b, n, hid + 3, dtype=torch.float32,
-                          device=h.device)
-        proj = torch.empty(b, n, 2 * hid, dtype=torch.float32,
-                           device=h.device)
-        a1 = xd = None
-        if residuals:
-            a1 = torch.empty(b, hid, e, dtype=h.dtype, device=h.device)
-            xd = torch.empty(b, 3, e, dtype=h.dtype, device=h.device)
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        rc = getattr(lib, entry)(
-            src.data_ptr(), dst.data_ptr(), mask.data_ptr(), ef.data_ptr(),
-            h.data_ptr(), x.data_ptr(), w1ab.data_ptr(), w2.data_ptr(),
-            wc1.data_ptr(), small.data_ptr(), out.data_ptr(),
-            proj.data_ptr(), a1.data_ptr() if residuals else None,
-            xd.data_ptr() if residuals else None, b, n, e, f, hid,
-            int(h.dtype == torch.bfloat16), stream)
+    out = torch.empty(b, n, hid + 3, dtype=torch.float32, device=h.device)
+    proj = torch.empty(b, n, 2 * hid, dtype=torch.float32, device=h.device)
+    a1 = xd = None
+    if residuals:
+        a1 = torch.empty(b, hid, e, dtype=h.dtype, device=h.device)
+        xd = torch.empty(b, 3, e, dtype=h.dtype, device=h.device)
+    ptrs = [t.data_ptr() for t in (*args[:7], w2, wc1, small, out, proj)]
+    sizes = [a1.data_ptr() if residuals else None,
+             xd.data_ptr() if residuals else None, b, n, e, f, hid]
+    return out, a1, xd, ptrs, sizes
+
+
+def _fwd_rc(entry, rc, sizes):
     if rc != 0:
+        b, n, e, f, hid = sizes[2:]
         raise RuntimeError(f"{entry} launch failed with CUDA error "
                            f"{rc} (B={b}, N={n}, E={e}, F={f}, H={hid})")
-    return out, a1, xd
 
 
 def tail_bwd(ef, w2, wc1, small, a1, xd, d_both, valid):

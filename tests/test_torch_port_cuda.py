@@ -10,13 +10,18 @@ There ``tests/conftest.py`` (which imports JAX) is skipped:
 
 The tests marked ``cuda`` skip on a host without a CUDA device. Tolerances:
 
-- B1, f32 (TF32 off): atol=1e-5, rtol=1e-4, the roundoff of a different
-  summation order (the kernel sums with shared-memory atomics). bf16, per
-  output column over all graphs and nodes: max|diff| <= 4e-3 * max|plain|
-  (one bf16 step at the column's largest value) and mean|diff| <= 1e-4 *
+- B1, f32 (TF32 off; the CUDA-core form): atol=1e-5, rtol=1e-4, the
+  roundoff of a different summation order (the kernel sums with
+  shared-memory atomics). bf16 (the tensor-core form, one CTA per (graph,
+  edge chunk), the chunks' node blocks summed in chunk order), per output
+  column over all graphs and nodes: max|diff| <= 4e-3 * max|plain| (one
+  bf16 step at the column's largest value) and mean|diff| <= 1e-4 *
   mean|plain|. The residuals a1/xd: f32 as above; bf16 each element within
   one bf16 step at its magnitude, or at 2^-10 below that (a1 is an f32 sum
-  of terms of size ~1 that can cancel).
+  of terms of size ~1 that can cancel). Both forms also run at B=1 and
+  B=200 with an all-masked graph (``test_kernel_at_the_grid_edges``), and
+  ``fwd_smem_bytes`` (the 'auto' admission rule) is held above each form's
+  shared memory for every N it admits.
 - B2, f32: d_cat and d_ef atol=1e-5, rtol=1e-4; the weight gradients (f32
   sums over every edge of the batch) |diff| <= 1e-5 * max|plain| + 1e-4 *
   |plain|. bf16, per row of d_cat (over graphs and edges), for d_ef and for
@@ -29,10 +34,14 @@ The tests marked ``cuda`` skip on a host without a CUDA device. Tolerances:
   (CUDA cores) and its bf16 form (tensor cores, csrc/egnn_tail.cuh).
 
 - B3 forward and backward, f32: the outputs atol=1e-5, rtol=1e-4; the
-  weight gradients as B2's. bf16, per row of the [B, C, E] outputs (over
-  graphs and edges), for def and for each weight gradient: mean|diff| <=
-  2e-5 * mean|plain|, max|diff| <= 1.6e-2 * max|plain| for the edge
-  outputs, 1e-3 for the weight gradients (B2's bounds: the same chain).
+  weight gradients as B2's. The backward's bf16 form runs its nine products
+  on the tensor cores with B2's near-tie recompute (csrc/egnn_hopper.cuh);
+  its f32 form stays on the CUDA cores. bf16, per row of the [B, C, E]
+  outputs (over graphs and edges), for def and for each weight gradient:
+  mean|diff| <= 2e-5 * mean|plain|, max|diff| <= 1.6e-2 * max|plain| for
+  the edge outputs, 1e-3 for the weight gradients (B2's bounds: the same
+  chain); and dbc1 no farther from the plain version's than from the sum
+  of d_p3 unrounded (``_assert_edge_bwd_close``).
   chip_smoke.py holds the weight gradients at B=128 to a mean of 1e-4:
   each sums 16x the edges, and another f32 order flips other bf16
   roundings along the chain of many more edges;
@@ -70,9 +79,14 @@ such kernels.
   mean|diff| <= 1e-4 * mean|plain|, a1s/xds B1's residual rule, hs/xs per
   column mean|diff| <= 1e-4 * mean|plain|.
   Its sums use shared-memory atomics, as B1's do: not the same bits twice.
-- Mutants: five of B2's tensor-core body (radial, c1, cw, d_p2, d_a1;
-  the table says why W2/Wc1, a1s, m and d_p3 have none), three of B4 (the
-  mirror's sign, xd, radial), two of the shared tail body through B5a
+- Mutants: seven of B1's bf16 form (W1ab, xd, radial, m, c1, cw,
+  cw*x_hat; the table says why W2/Wc1, silu(a1) and pa/pb have none),
+  seven of B3's backward (xd, radial, c1, cw, d_p2, d_p3, d_a1; its table
+  says why W1ab, W2, Wc1, a1s and m have none), five of B2's tensor-core
+  body (radial, c1, cw, d_p2, d_a1; the table says why W2/Wc1, a1s, m and
+  d_p3 have none), eleven of B4 (the mirror's sign, xd, radial, and the
+  CUDA-core chain it shares with B6 and B1's f32 form: W2/Wc1/W1ab, pa/pb,
+  silu(a1), m, c1, cw, cw*x_hat), two of the shared tail body through B5a
   (d_p2, d_a1), one of B5b (d_xd before the node sums), five of B6 (agg,
   hmid, h, x, the node MLP's weights); each fails its kernel's bf16 bound.
 
@@ -330,26 +344,27 @@ def test_train_step_launches_both_kernels_per_layer(cuda):
         assert torch.isfinite(p.grad).all() and torch.isfinite(p).all()
 
 
-# B1 with one bf16 rounding point left out: (pattern, replacement) pairs
-# applied to csrc/egnn_mega_fwd.cu and the device code it shares
-# (csrc/egnn_common.cuh)
+# B1's bf16 form (the tensor-core kernel of csrc/egnn_mega_fwd.cu and the
+# projections and geometry it shares in csrc/egnn_common.cuh) with one bf16
+# rounding point left out: (pattern, replacement) pairs. W2, Wc1 and
+# silu(a1) have no mutant: each reaches the tensor cores as a bf16 operand
+# and is used nowhere else, so its rounding is the operand's type, which no
+# edit of the arithmetic removes; nor pa/pb, which reach the edges through
+# a bf16 scratch whose store rounds them. m keeps one through its f32
+# consumer, the node block's sum (its rounding for the product is the
+# operand's). B4's table keeps the CUDA-core chain's mutants.
 _MUTANTS = {
-    "weights": [(r"(w2s\[i\] = )rnd<T>\((w2\[i\])\)", r"\1\2"),
-                (r"(wc1s\[i\] = )rnd<T>\((wc1\[i\])\)", r"\1\2"),
-                (r"(w1s\[i\] = )rnd<T>\((w1ab\[i\])\)", r"\1\2")],
-    "pa_pb": [(r"(pab\[i\] = )rnd<T>\((s)\)", r"\1\2")],
+    "weights": [(r"(w1s\[i\] = )rnd<T>\((w1ab\[i\])\)", r"\1\2")],
     "xd": [(r"rnd<T>\((to_f\(xb\[s \* 3 \+ \d\]\) - to_f\(xb\[d \* 3 \+ "
             r"\d\]\))\)", r"(\1)")],
     "radial": [(r"(r = )rnd<T>\((d0 \* d0 \+ d1 \* d1 \+ d2 \* d2)\)",
                 r"\1\2")],
-    "silu_a1": [(r"(v = )rnd<T>\((silu\(a1\))\)", r"\1\2")],
-    "m": [(r"(mv = )rnd<T>\((silu\(r\[i\]\[c\] \+ "
-           r"sms\[kB2 \* H \+ j\]\))\)", r"\1\2")],
-    "coord_hidden": [(r"(c1 = )rnd<T>\((silu\(r\[i\]\[c\] \+ "
-                      r"sms\[kBC1 \* H \+ j\]\))\)", r"\1\2")],
-    "cw": [(r"(cwb = )rnd<T>\((part)\)", r"\1\2")],
-    "cw_xhat": [(r"rnd<T>\((cwb \* g\.xh\[t \* 3 \+ \d\])\)",
-                 r"(\1)")],
+    "m": [(r"(const float mv = )rnd<bf>\((p \* sigmoid_fast\(p\))\)",
+           r"\1\2")],
+    "coord_hidden": [(r"(const float c1 = )rnd<bf>\((p \* sigmoid_fast\(p\))\)",
+                      r"\1\2")],
+    "cw": [(r"(const float cwb = )rnd<bf>\((cw)\)", r"\1\2")],
+    "cw_xhat": [(r"rnd<bf>\((cwb \* g\.xh\[t \* 3 \+ k\])\)", r"(\1)")],
 }
 
 
@@ -404,7 +419,8 @@ def test_bf16_bound_sees_every_rounding_point(cuda, name, tmp_path,
 
 
 # B2 with one bf16 rounding point left out, in the tensor-core body it
-# shares with B5a and B5b (csrc/egnn_tail.cuh, bf16 only). W2/Wc1, a1s and m
+# shares with B5a and B5b (csrc/egnn_tail.cuh, bf16 only) and the chain
+# steps that body shares with B3's backward (csrc/egnn_hopper.cuh). W2/Wc1, a1s and m
 # have no mutant: each reaches the tensor cores as a bf16 operand and is
 # used nowhere else, so its rounding is the operand's store, which no edit
 # of the arithmetic removes. d_p2, d_p3 and d_a1 also feed bf16 operands;
@@ -417,6 +433,7 @@ def test_bf16_bound_sees_every_rounding_point(cuda, name, tmp_path,
 # mutant at these inputs (it did not raise on the card); it waits for a
 # bound per dsmall column. d_xd and d_ef round at their store in the
 # compute dtype, which no edit of the arithmetic removes.
+_TAIL_SOURCES = ("egnn_tail.cuh", "egnn_hopper.cuh")
 _TAIL_MUTANTS = {
     "radial": [(r"(const float r = )rnd<bf>\((x\[0\] \* x\[0\] \+ x\[1\] \* "
                 r"x\[1\] \+ x\[2\] \* x\[2\])\)", r"\1\2")],
@@ -436,7 +453,7 @@ def test_tail_bf16_bound_sees_every_rounding_point(cuda, name, tmp_path,
                                                    restore_kernels):
     inputs = [_tail_args(8, e, f, torch.bfloat16, cuda, seed=e + f + 1)
               for e, f in ((2560, 20), (1408, 64))]
-    _mutant_kernel("egnn_tail.cuh", _TAIL_MUTANTS[name], tmp_path,
+    _mutant_kernel(_TAIL_SOURCES, _TAIL_MUTANTS[name], tmp_path,
                    monkeypatch)
     for args in inputs:
         out = mega.tail_bwd(*args)
@@ -445,22 +462,65 @@ def test_tail_bf16_bound_sees_every_rounding_point(cuda, name, tmp_path,
                                torch.bfloat16)
 
 
+# the near-tie recompute of the tensor-core forms (csrc/egnn_hopper.cuh)
+# turned off
+_NO_TIE_RECOMPUTE = [(r"(constexpr int kTieUlps = )\d+;", r"\g<1>-1;")]
+
+
 @pytest.mark.cuda
 def test_tail_bf16_bound_sees_the_near_tie_recompute(cuda, tmp_path,
                                                      monkeypatch,
                                                      restore_kernels):
-    """Without the near-tie recompute (csrc/egnn_tail.cuh), one d_p2 of
+    """Without the near-tie recompute (csrc/egnn_hopper.cuh), one d_p2 of
     test_tail_kernel_matches_plain_version's bf16 B=8, E=100, F=64 input
     rounds the other way from the plain version's, and the d_a1 it moves
     fail the per-row mean bound at 800 edges."""
     args = _tail_args(8, 100, 64, torch.bfloat16, cuda, seed=165)
-    _mutant_kernel("egnn_tail.cuh",
-                   [(r"(constexpr int kTieUlps = )\d+;", r"\g<1>-1;")],
-                   tmp_path, monkeypatch)
+    _mutant_kernel("egnn_hopper.cuh", _NO_TIE_RECOMPUTE, tmp_path,
+                   monkeypatch)
     out = mega.tail_bwd(*args)
     with pytest.raises(AssertionError):
         _assert_tail_close(out, mega.tail_bwd_reference(*args),
                            torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 200])
+@pytest.mark.parametrize("e", [2560, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_at_the_grid_edges(cuda, b, e, dtype):
+    """B1 at one graph (bf16: its edges split over many CTAs, the chunks'
+    node blocks summed by a second kernel) and at more graphs than SMs, at
+    an E that is a multiple of 64 and one that is not, with the last graph
+    all masked when B > 1: output and residuals against the plain
+    version's, that graph's output and residuals exactly zero."""
+    args = _args(b, e, 64, 64, dtype, cuda, seed=b + e)
+    if b > 1:
+        args[2] = args[2].clone()
+        args[2][-1] = False
+    out, a1, xd = mega.edge_mega_fwd(*args)
+    torch.cuda.synchronize()
+    ref, a1_ref, xd_ref = mega.edge_mega_fwd_reference(*args)
+    _assert_close(out, ref, dtype)
+    _assert_residuals_close((a1, xd), (a1_ref, xd_ref), dtype)
+    if b > 1:
+        for t in (out[-1], a1[-1], xd[-1]):
+            assert torch.count_nonzero(t) == 0
+
+
+@pytest.mark.cuda
+def test_admission_covers_the_kernels_shared_memory(cuda):
+    """``mega_admits`` decides 'auto' from ``fwd_smem_bytes``, a copy of
+    the f32 form's formula: for every N it admits, from 16 up, B1's form in
+    either dtype needs no more shared memory a CTA than that."""
+    lib = mega._fwd_lib()
+    n = 16
+    while mega.mega_admits(n, 64, 64, 1):
+        for bf16 in (0, 1):
+            assert (mega.fwd_smem_bytes(n, 64)
+                    >= lib.egnn_mega_fwd_smem_bytes(n, 64, bf16))
+        n += 1
+    assert n > N
 
 
 @pytest.mark.cuda
@@ -587,15 +647,33 @@ def _assert_edge_close(out, ref, dtype, grad_mean=2e-5):
         assert (diff.mean(1) <= mean_tol * mag.mean(1)).all()
 
 
+def _assert_edge_bwd_close(args, dout, out, ref, dtype, grad_mean=2e-5):
+    """B3's backward against its plain version: ``_assert_edge_close``
+    and, in bf16, dbc1 (dsmall's bc1 column, the sum of the rounded d_p3
+    over the edges) no farther from the plain version's than from the same
+    sum of d_p3 unrounded (``edge.d_p3_unrounded_sum``). The bound on
+    dsmall's row does not see that rounding: dbc1 is small beside dsmall's
+    other columns. On an H100 (scripts/torch_kernel_ties.py --kernel
+    edge_bwd, the tests' shapes at their seeds and 1..8) the kernel read
+    0-0.011 of the way, the kernel without the rounding 138 or more."""
+    _assert_edge_close(out, ref, dtype, grad_mean)
+    if dtype == torch.bfloat16:
+        k, r = out[6][:, edge.BC1], ref[6][:, edge.BC1]
+        u = edge.d_p3_unrounded_sum(*args, dout)
+        assert (k - r).abs().mean() <= (k - u).abs().mean()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,e,tail", [(8, 2560, 0), (8, 256, 56),
-                                      (26, 1280, 0), (51, 1280, 0)])
+                                      (26, 1280, 0), (51, 1280, 0),
+                                      (8, 100, 0)])
 @pytest.mark.parametrize("f", [20, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_edge_kernels_match_plain_versions(cuda, b, e, tail, f, dtype):
     """B=26 and B=51 at E=1280 are the partial batches of chip_smoke.py's
     entry-point run; on a 132-SM card B=26 runs 6 chunks of 256 edges per
-    graph, the sixth of them empty."""
+    graph, the sixth of them empty. E=100, not a multiple of 8, takes the
+    bf16 backward's element-wise tile loads (cp.async needs 16-byte runs)."""
     args, dout = _edge_args(b, e, f, dtype, cuda, seed=e + f, tail=tail)
     before = edge.edge_program.launches, edge.edge_program_bwd.launches
     out = edge.edge_program(*args)
@@ -604,8 +682,9 @@ def test_edge_kernels_match_plain_versions(cuda, b, e, tail, f, dtype):
     assert (edge.edge_program.launches - before[0],
             edge.edge_program_bwd.launches - before[1]) == (1, 1)
     _assert_edge_close(out, edge.edge_program_reference(*args), dtype)
-    _assert_edge_close(grads, edge.edge_program_bwd_reference(*args, dout),
-                       dtype)
+    _assert_edge_bwd_close(args, dout, grads,
+                           edge.edge_program_bwd_reference(*args, dout),
+                           dtype)
 
 
 @pytest.mark.cuda
@@ -635,9 +714,8 @@ def test_edge_program_autograd_launches_both_kernels(cuda):
         assert torch.equal(leaf.grad, w.reshape(leaf.shape))
 
 
-# B3's sources with one bf16 rounding point left out (the forward's output,
-# d_hsd, d_xd and d_ef round at their store in the compute dtype, which no
-# edit of the arithmetic removes)
+# B3's forward with one bf16 rounding point left out (its output rounds at
+# its store in the compute dtype, which no edit of the arithmetic removes)
 _EDGE_FWD_MUTANTS = {
     "weights": [(r"(w1s\[i\] = )rnd<T>\((w1ab\[i\])\)", r"\1\2"),
                 (r"(w2s\[i\] = )rnd<T>\((w2\[i\])\)", r"\1\2"),
@@ -653,25 +731,26 @@ _EDGE_FWD_MUTANTS = {
                       r"\1\2")],
     "cw": [(r"(const float cwb = )rnd<T>\((cw)\)", r"\1\2")],
 }
+# B3's backward in bf16 (the tensor-core kernel of csrc/egnn_edge_bwd.cu and
+# the chain steps it shares with B2 in csrc/egnn_hopper.cuh) with one
+# rounding point left out, as B2's table: W1ab, W2, Wc1, a1s and m
+# have no mutant (each reaches the tensor cores as a bf16 operand and is
+# used nowhere else), nor d_hsd (rounded by its store); d_p2 keeps its
+# rounding through db2, d_a1 through d_rad (hence d_xd) and d_ef, d_p3
+# through dbc1 (``_assert_edge_bwd_close``).
 _EDGE_BWD_MUTANTS = {
-    "weights": [(r"(w1s\[\(i / H\) \* LD \+ i % H\] = )rnd<T>\((w1ab\[i\])\)",
-                 r"\1\2"),
-                (r"(w2s\[k \* LD \+ j\] = )rnd<T>\((w2\[i\])\)", r"\1\2"),
-                (r"(wc1s\[k \* LD \+ j\] = )rnd<T>\((wc1\[i\])\)",
-                 r"\1\2")],
-    "xd": [(r"(d\[k\] = )rnd<T>\(", r"\1(")],
-    "radial": [(r"(const float r = )rnd<T>\((d\[0\] \* d\[0\] \+ "
+    "xd": [(r"(d\[k\] = )rnd<bf>\(", r"\1(")],
+    "radial": [(r"(const float r = )rnd<bf>\((d\[0\] \* d\[0\] \+ "
                 r"d\[1\] \* d\[1\] \+ d\[2\] \* d\[2\])\)", r"\1\2")],
-    "a1s": [(r"(bufA\[t \* LD \+ j\] = )rnd<T>\((a \* s)\)", r"\1\2")],
-    "m": [(r"(bufM\[t \* LD \+ j\] = )rnd<T>\((p \* s)\)", r"\1\2")],
-    "c1": [(r"(c1v\[i\]\[c\] = )rnd<T>\((p \* s)\)", r"\1\2")],
-    "cw": [(r"(cwv\[t\] = )rnd<T>\((cw)\)", r"\1\2")],
-    "d_p3": [(r"(const float dp3 = )rnd<T>\((sms\[kWC2 \* H \+ j\] \* "
-              r"dcw \* g3\[i\]\[c\])\)", r"\1\2")],
-    "d_p2": [(r"(const float dp2 = )rnd<T>\((dm \* g2\[i\]\[c\])\)",
+    "c1": [(r"(const float c1 = )rnd<bf>\((p \* s)\)", r"\1\2")],
+    "cw": [(r"(ev\[kECw \* kTile \+ m0 \+ fr \+ 8 \* h\] = )rnd<bf>\((cw)\)",
+            r"\1\2")],
+    "d_p2": [(r"(const float dp2 = )rnd<bf>\((dm \* g2\[nt\]\[2 \* h \+ c\])\)",
               r"\1\2")],
-    "d_a1": [(r"(const float da = )rnd<T>\((acc\[i\]\[c\] \* "
-              r"bufG\[t \* LD \+ j\])\)", r"\1\2")],
+    "d_a1": [(r"(const float da = )rnd<bf>\((dsum \* g1)\)", r"\1\2")],
+    "d_p3": [(r"(gbc1\[2 \* nt\] \+= )__low2float\(q\);", r"\1d3[0];"),
+             (r"(gbc1\[2 \* nt \+ 1\] \+= )__high2float\(q\);",
+              r"\1d3[1];")],
 }
 _EDGE_MUTANTS = ([("egnn_edge_fwd.cu", k) for k in sorted(_EDGE_FWD_MUTANTS)]
                  + [("egnn_edge_bwd.cu", k) for k in sorted(_EDGE_BWD_MUTANTS)])
@@ -686,7 +765,8 @@ def test_edge_bf16_bound_sees_every_rounding_point(cuda, source, name,
               for e, f in ((2560, 20), (1408, 64))]
     fwd = source == "egnn_edge_fwd.cu"
     table = _EDGE_FWD_MUTANTS if fwd else _EDGE_BWD_MUTANTS
-    _mutant_kernel(source, table[name], tmp_path, monkeypatch)
+    _mutant_kernel(source if fwd else (source, "egnn_hopper.cuh"),
+                   table[name], tmp_path, monkeypatch)
     for args, dout in inputs:
         if fwd:
             out = edge.edge_program_fwd(*args)
@@ -695,7 +775,10 @@ def test_edge_bf16_bound_sees_every_rounding_point(cuda, source, name,
             out = edge.edge_program_bwd(*args, dout)
             ref = edge.edge_program_bwd_reference(*args, dout)
         with pytest.raises(AssertionError):
-            _assert_edge_close(out, ref, torch.bfloat16)
+            if fwd:
+                _assert_edge_close(out, ref, torch.bfloat16)
+            else:
+                _assert_edge_bwd_close(args, dout, out, ref, torch.bfloat16)
 
 
 def _mean_ratios(out, ref):
@@ -711,21 +794,39 @@ def _mean_ratios(out, ref):
 
 
 @pytest.mark.cuda
+def test_edge_bwd_bf16_bound_sees_the_near_tie_recompute(
+        cuda, tmp_path, monkeypatch, restore_kernels):
+    """Without the near-tie recompute (csrc/egnn_hopper.cuh), B3's bf16
+    backward on test_edge_kernels_match_plain_versions' B=8, E=2560, F=64
+    input rounds values near a bf16 tie the other way from the plain
+    version, and the chains they move fail the bf16 mean bounds."""
+    args, dout = _edge_args(8, 2560, 64, torch.bfloat16, cuda, seed=2624)
+    _mutant_kernel("egnn_hopper.cuh", _NO_TIE_RECOMPUTE, tmp_path,
+                   monkeypatch)
+    out = edge.edge_program_bwd(*args, dout)
+    with pytest.raises(AssertionError):
+        _assert_edge_close(out, edge.edge_program_bwd_reference(*args, dout),
+                           torch.bfloat16)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(_EDGE_BWD_MUTANTS))
 def test_edge_bwd_smoke_bound_sees_every_rounding_point(
         cuda, name, tmp_path, monkeypatch, restore_kernels):
     """At chip_smoke.py's shape (B=128, E=2560, F=20, bf16) and with its
-    mean bound on the weight gradients (1e-4, five times the one above:
-    16x the edges in each f32 sum), each backward mutant still fails. The
-    per-output mean ratios are printed (pytest -s)."""
+    checks (the mean bound on the weight gradients 1e-4, five times the one
+    above: 16x the edges in each f32 sum; dbc1 as above), each backward
+    mutant still fails. The per-output mean ratios are printed (pytest
+    -s)."""
     args, dout = _edge_args(128, 2560, 20, torch.bfloat16, cuda, seed=2582)
     ref = edge.edge_program_bwd_reference(*args, dout)
-    _mutant_kernel("egnn_edge_bwd.cu", _EDGE_BWD_MUTANTS[name], tmp_path,
-                   monkeypatch)
+    _mutant_kernel(("egnn_edge_bwd.cu", "egnn_hopper.cuh"),
+                   _EDGE_BWD_MUTANTS[name], tmp_path, monkeypatch)
     out = edge.edge_program_bwd(*args, dout)
     print(f"B3 bwd mutant {name}:", json.dumps(_mean_ratios(out, ref)))
     with pytest.raises(AssertionError):
-        _assert_edge_close(out, ref, torch.bfloat16, grad_mean=1e-4)
+        _assert_edge_bwd_close(args, dout, out, ref, torch.bfloat16,
+                               grad_mean=1e-4)
 
 
 @pytest.mark.cuda
@@ -1028,7 +1129,12 @@ def test_paired_kernel_matches_plain_version(cuda, e, f, dtype):
     assert torch.equal(a1, a1_b1) and torch.equal(xd, xd_b1)
 
 
-# B4's source with one bf16 rounding point left out, or the mirror's sign
+# B4 (csrc/egnn_mega_paired_fwd.cu and the CUDA-core chain it shares with
+# B6 and B1's f32 form in csrc/egnn_common.cuh: stage_edge_weights,
+# node_projections, fwd_tile_chain) with one bf16 rounding point left out,
+# or the mirror's sign. The chain's eight were B1's mutants until B1's bf16
+# form moved to the tensor cores; B4 runs that chain in bf16 still.
+_PAIRED_SOURCES = ("egnn_mega_paired_fwd.cu", "egnn_common.cuh")
 _PAIRED_MUTANTS = {
     "mirror_sign": [(r"g\.xh\[m \* 3 \+ (\d)\] = -h\1;",
                      r"g.xh[m * 3 + \1] = h\1;")],
@@ -1036,6 +1142,18 @@ _PAIRED_MUTANTS = {
             r"\d\]\))\)", r"(\1)")],
     "radial": [(r"(r = )rnd<T>\((d0 \* d0 \+ d1 \* d1 \+ d2 \* d2)\)",
                 r"\1\2")],
+    "weights": [(r"(w2s\[i\] = )rnd<T>\((w2\[i\])\)", r"\1\2"),
+                (r"(wc1s\[i\] = )rnd<T>\((wc1\[i\])\)", r"\1\2"),
+                (r"(w1s\[i\] = )rnd<T>\((w1ab\[i\])\)", r"\1\2")],
+    "pa_pb": [(r"(pab\[i\] = )rnd<T>\((s)\)", r"\1\2")],
+    "silu_a1": [(r"(v = )rnd<T>\((silu\(a1\))\)", r"\1\2")],
+    "m": [(r"(mv = )rnd<T>\((silu\(r\[i\]\[c\] \+ "
+           r"sms\[kB2 \* H \+ j\]\))\)", r"\1\2")],
+    "coord_hidden": [(r"(c1 = )rnd<T>\((silu\(r\[i\]\[c\] \+ "
+                      r"sms\[kBC1 \* H \+ j\]\))\)", r"\1\2")],
+    "cw": [(r"(cwb = )rnd<T>\((part)\)", r"\1\2")],
+    "cw_xhat": [(r"rnd<T>\((cwb \* g\.xh\[t \* 3 \+ \d\])\)",
+                 r"(\1)")],
 }
 
 
@@ -1044,8 +1162,8 @@ _PAIRED_MUTANTS = {
 def test_paired_bf16_bound_sees_every_rounding_point(cuda, name, tmp_path,
                                                      monkeypatch,
                                                      restore_kernels):
-    _mutant_kernel("egnn_mega_paired_fwd.cu", _PAIRED_MUTANTS[name],
-                   tmp_path, monkeypatch)
+    _mutant_kernel(_PAIRED_SOURCES, _PAIRED_MUTANTS[name], tmp_path,
+                   monkeypatch)
     for e, f in ((2560, 20), (1408, 64)):
         args = _paired_args(8, e, f, torch.bfloat16, cuda, seed=e + f)
         out = mega.edge_mega_paired_fwd(*args, residuals=False)[0]
@@ -1128,8 +1246,8 @@ def test_tail_nodes_kernel_matches_plain_version(cuda, e, f, dtype):
         assert torch.equal(g, h)
 
 
-# the shared tail body (csrc/egnn_tail.cuh) with one rounding point left
-# out, built through B5a (B2's table); B5b's own point, d_xd before the node
+# the shared tail body (csrc/egnn_tail.cuh, egnn_hopper.cuh) with one
+# rounding point left out, built through B5a (B2's table); B5b's own point, d_xd before the node
 # sums (B2 and B5a round d_xd again at its store)
 _TAIL_G_MUTANTS = {k: _TAIL_MUTANTS[k] for k in ("d_p2", "d_a1")}
 _NODES_MUTANTS = {
@@ -1148,7 +1266,7 @@ def test_tail_variant_bf16_bound_sees_rounding_points(cuda, kernel, name,
     inputs = [_tail_g_args(8, e, f, torch.bfloat16, cuda, seed=e + f + 5)
               for e, f in ((2560, 20), (1408, 64))]
     table = _TAIL_G_MUTANTS if kernel == "db" else _NODES_MUTANTS
-    _mutant_kernel("egnn_tail.cuh", table[name], tmp_path, monkeypatch)
+    _mutant_kernel(_TAIL_SOURCES, table[name], tmp_path, monkeypatch)
     for args in inputs:
         if kernel == "db":
             db_args = (args[1], *args[2:])

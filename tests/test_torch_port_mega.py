@@ -369,3 +369,15 @@ def test_other_devices_raise():
     valid = torch.ones(B, 128, dtype=torch.bool)
     with pytest.raises(ValueError, match="cuda or cpu"):
         mega.tail_bwd(*[t.to("meta") for t in tail_in], valid.to("meta"))
+
+
+@pytest.mark.parametrize("b,e,chunks", [
+    (128, 2560, 1), (200, 2560, 1), (1, 2560, 20), (1, 100, 1),
+    (16, 1408, 8), (26, 1280, 5), (66, 2560, 2), (3, 0, 1)])
+def test_fwd_chunks(b, e, chunks):
+    """B1's bf16 grid on a 132-SM card (one CTA an SM): one wave of CTAs,
+    at least two 64-edge tiles a chunk where the graph has them."""
+    got = mega.fwd_chunks(e, b, 132)
+    assert got == chunks
+    assert b * got <= max(132, b)
+    assert 2 * got - 1 <= max(1, -(-e // 64))
