@@ -27,9 +27,10 @@ Phases (none catches its own failure; any failure exits non-zero):
      and without its residual stores and the plain version, and print its
      shared memory a CTA and CTAs an SM;
   5. compare B2 with its plain version at the same shapes (its residuals
-     from B1, a seeded cotangent), and in bf16 at E=2560, F=64 also at B=1
-     and B=200 (one graph; more graphs than SMs); the same bits twice; time
-     both and print the kernel's shared memory per CTA;
+     from B1, a seeded cotangent; in bf16 also dbc1 against the sum of d_p3
+     unrounded, as B3's in phase 7), and in bf16 at E=2560, F=64 also at
+     B=1 and B=200 (one graph; more graphs than SMs); the same bits twice;
+     time both and print the kernel's shared memory per CTA;
   6. compare the EdgeMega gradients (B1 + B2 + the node-level backward) with
      autograd through the plain forward (f32) and with the plain backward
      (bf16) at B=128, E=2560, F=64;
@@ -47,9 +48,12 @@ Phases (none catches its own failure; any failure exits non-zero):
   9. compare B8's scatter and gather with their plain versions (B=128,
      N=288, C=H+3=67, E=2560 and 1408, 10% of the edges masked, indices at
      -1 and N on masked and unmasked edges; f32 with TF32 off and bf16): the
-     gather bit for bit, the scatter within its bounds (SCATTER_BF16_FLOOR)
-     and the same bits twice; time each beside its plain version and the
-     nearest library call (index_add_, index_select), and print the bound;
+     gather bit for bit, the scatter within its bounds (SCATTER_BF16_FLOOR),
+     bit for bit the plain version run on the CPU (sums in edge order) and
+     the same bits twice; time each beside its plain version and the
+     nearest library call (index_add_, index_select): CUDA events, the
+     device-only time (torch.profiler) and the host time per call (1,000
+     calls without a sync) of both; print the bound;
   10. compare one EGNN layer under 'pallas' (B8's scatter, its gather in the
      backward) with the same layer on B8's plain versions: outputs and
      gradients, f32 and bf16, B=128, E=2560, F=64;
@@ -469,8 +473,22 @@ def tail_inputs(e: int, f: int, dtype, seed: int, b: int = B):
     return (ef, *args[7:], a1, xd, d_both.transpose(1, 2).contiguous(), valid)
 
 
-def tail_errors(out, ref, dtype) -> dict:
-    """B2 against its plain version; asserts the bounds above."""
+def dbc1_nearness(kernel: str, k, r, u) -> float:
+    """mean|dbc1 - plain| / mean|dbc1 - the sum of d_p3 unrounded| for a
+    bf16 backward of the edge chain (dbc1 ``k``: dsmall's bc1 column; ``r``
+    the plain version's, ``u`` the sum of d_p3 unrounded): at most 1 when
+    the kernel rounds d_p3 before that sum as the plain version does, which
+    no bound on dsmall's rows sees; asserted."""
+    near = (k - r).abs().mean().item()
+    far = (k - u).abs().mean().item()
+    assert near <= far, (f"{kernel} dbc1 nearer the sum of d_p3 unrounded",
+                         near, far)
+    return near / far if far > 0 else 0.0
+
+
+def tail_errors(out, ref, dtype, args=None) -> dict:
+    """B2 against its plain version; asserts the bounds above, and in bf16,
+    given B2's operands ``args``, dbc1_nearness."""
     assert out[0].dtype == out[1].dtype == dtype
     for t in out:
         assert torch.isfinite(t).all()
@@ -496,6 +514,14 @@ def tail_errors(out, ref, dtype) -> dict:
         assert s["mean_rel"] <= TAIL_MEAN, stats
     stats["max_abs_err"] = max((g.float() - r.float()).abs().max().item()
                                for g, r in zip(out, ref))
+    if args is not None:
+        from immunostruct_tpu_torch.ops.mega import (
+            BC1, tail_d_p3_unrounded_sum,
+        )
+
+        stats["dbc1_rounding"] = dbc1_nearness(
+            "B2", out[4][:, BC1], ref[4][:, BC1],
+            tail_d_p3_unrounded_sum(*args))
     return stats
 
 
@@ -526,7 +552,7 @@ def check_tail_kernel() -> list:
         out = tail_bwd(*args)
         torch.cuda.synchronize()
         ref = tail_bwd_reference(*args)
-        stats = tail_errors(out, ref, dtype)
+        stats = tail_errors(out, ref, dtype, args)
         again = tail_bwd(*args)
         assert all(torch.equal(g, h) for g, h in zip(out, again)), \
             "B2 changed from one run to the next"
@@ -1011,18 +1037,11 @@ def weight_grad_readings(args, dout, grads, ref) -> dict:
 
 
 def dbc1_rounding(args, dout, grads, ref) -> float:
-    """mean|dbc1 - plain| / mean|dbc1 - the sum of d_p3 unrounded| for B3's
-    bf16 backward (dbc1: dsmall's bc1 column): at most 1 when the kernel
-    rounds d_p3 before that sum as the plain version does, which no bound
-    on dsmall's rows sees; asserted."""
+    """dbc1_nearness for B3's bf16 backward."""
     from immunostruct_tpu_torch.ops.edge import BC1, d_p3_unrounded_sum
 
-    k, r = grads[6][:, BC1], ref[6][:, BC1]
-    near = (k - r).abs().mean().item()
-    far = (k - d_p3_unrounded_sum(*args, dout)).abs().mean().item()
-    assert near <= far, ("B3 dbc1 nearer the sum of d_p3 unrounded", near,
-                         far)
-    return near / far if far > 0 else 0.0
+    return dbc1_nearness("B3", grads[6][:, BC1], ref[6][:, BC1],
+                         d_p3_unrounded_sum(*args, dout))
 
 
 def check_edge_case(args, dout, where: str, readings: bool = False) -> list:
@@ -1349,6 +1368,54 @@ def alternate3_ms(plain, kernel, library) -> tuple:
     return ms, (plain_ms + cuda_ms(plain)) / 2, library_ms
 
 
+def device_ms(fn, calls: int = 20) -> float:
+    """Device time per call of ``fn`` with the host out of the way: the
+    calls queued behind a spin kernel (torch.cuda._sleep) that outlasts
+    their queueing, then timed back to back on the device with CUDA events
+    (their kernels and the gaps between them, no host time). The spin is
+    lengthened until it outlasts the queueing."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 2_000_000
+    while True:
+        spin, start, end = (torch.cuda.Event(enable_timing=True)
+                            for _ in range(3))
+        spin.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        if queued_ms < 0.8 * spin.elapsed_time(start):
+            return start.elapsed_time(end) / calls
+        cycles *= 4
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Host time per call of ``fn``: time.perf_counter over ``calls`` calls
+    with no synchronisation between them (the launches queue up)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
+
+
+def b8_readings(kernel, library) -> dict:
+    """B8's device-only and host readings beside the events ones: the
+    kernel's and the library call's device time per call (``device_ms``),
+    and their host time per call (``host_us``)."""
+    return dict(device_ms=device_ms(kernel),
+                library_device_ms=device_ms(library),
+                host_us=host_us(kernel), library_host_us=host_us(library))
+
+
 def segment_inputs(e: int, dtype, seed: int):
     """B8's operands at the main path's shapes: idx/mask [B, E] (10% of the
     edges masked, indices at -1 and N on masked and unmasked edges, some
@@ -1399,10 +1466,13 @@ def scatter_errors(out, ref, idx, mask, m) -> dict:
 
 
 def check_scatter_case(idx, mask, m, n: int, where: str) -> dict:
-    """B8's scatter on one set of operands against its plain version, the
-    same bits twice, and timed beside the plain version and the nearest
-    library call (index_add_ of the masked messages in f32 into [B*N, C],
-    then one cast; the messages and rows are made before the timing)."""
+    """B8's scatter on one set of operands against its plain version on
+    the card (SCATTER_* bounds) and bit for bit against it on the CPU
+    (index_add_ there sums each element in edge order, as the kernel
+    does), the same bits twice, and timed beside the plain version and the
+    nearest library call (index_add_ of the masked messages in f32 into
+    [B*N, C], then one cast; the messages and rows are made before the
+    timing)."""
     from immunostruct_tpu_torch.ops.segment import (
         segment_scatter, segment_scatter_reference,
     )
@@ -1415,6 +1485,9 @@ def check_scatter_case(idx, mask, m, n: int, where: str) -> dict:
     stats = scatter_errors(out, ref, idx, mask, m)
     assert torch.equal(out, segment_scatter(idx, mask, m, n)), \
         "B8 scatter changed from one run to the next"
+    assert torch.equal(out.cpu(), segment_scatter_reference(
+        idx.cpu(), mask.cpu(), m.cpu(), n)), \
+        "B8 scatter is not the CPU plain version's bits"
     valid, rows = _valid_rows(idx, mask, n)
     msgs = torch.where(valid[..., None], m.float(), 0.0).reshape(b * e, c)
 
@@ -1426,6 +1499,7 @@ def check_scatter_case(idx, mask, m, n: int, where: str) -> dict:
     ms, plain_ms, library_ms = alternate3_ms(
         lambda: segment_scatter_reference(idx, mask, m, n),
         lambda: segment_scatter(idx, mask, m, n), library)
+    readings = b8_readings(lambda: segment_scatter(idx, mask, m, n), library)
     # this run's data: idx and mask, the valid edges' messages, the output;
     # one f32 add per valid message element
     n_valid = int(valid.sum().item())
@@ -1433,7 +1507,8 @@ def check_scatter_case(idx, mask, m, n: int, where: str) -> dict:
                  n_valid * c, torch.float32)
     row = dict(kernel="scatter", shapes=where, B=b, E=e, N=n, C=c,
                dtype=str(dtype).split(".")[1], valid_edges=n_valid, **stats,
-               ms=ms, plain_ms=plain_ms, library_ms=library_ms, **work)
+               ms=ms, plain_ms=plain_ms, library_ms=library_ms, **readings,
+               **work)
     print("kernel B8 scatter:", json.dumps(row), flush=True)
     return row
 
@@ -1464,6 +1539,7 @@ def check_gather_case(idx, mask, h, where: str) -> dict:
     ms, plain_ms, library_ms = alternate3_ms(
         lambda: segment_gather_reference(idx, mask, h),
         lambda: segment_gather(idx, mask, h), library)
+    readings = b8_readings(lambda: segment_gather(idx, mask, h), library)
     # this run's data: idx and mask, the node rows the valid edges read
     # (each once), the output
     used = torch.unique(rows[valid.reshape(-1)]).numel()
@@ -1472,7 +1548,8 @@ def check_gather_case(idx, mask, h, where: str) -> dict:
     row = dict(kernel="gather", shapes=where, B=b, E=e, N=n, C=c,
                dtype=str(h.dtype).split(".")[1], rows_read=used,
                max_abs_err=(out.float() - ref.float()).abs().max().item(),
-               ms=ms, plain_ms=plain_ms, library_ms=library_ms, **work)
+               ms=ms, plain_ms=plain_ms, library_ms=library_ms, **readings,
+               **work)
     print("kernel B8 gather:", json.dumps(row), flush=True)
     return row
 
@@ -1878,8 +1955,8 @@ def check_tail_db_kernel() -> list:
         db = args[1:]
         out = tail_bwd_db(*db)
         torch.cuda.synchronize()
-        stats = tail_errors(out, tail_bwd_db_reference(*db), dtype)
         b2_args = b2_operands(*args)
+        stats = tail_errors(out, tail_bwd_db_reference(*db), dtype, b2_args)
         b2 = tail_bwd(*b2_args)
         equal_b2 = all(torch.equal(g, h) for g, h in zip(out, b2))
         again = tail_bwd_db(*db)
@@ -1946,8 +2023,8 @@ def check_tail_nodes_kernel() -> list:
         ref = tail_bwd_nodes_reference(*args)
         stats = nodes_errors(out[0], ref[0], dtype)
         zeros = torch.zeros(1, 1, 1, dtype=dtype, device="cuda")
-        stats.update(tail_errors((zeros, *out[1:]),
-                                 (zeros, *ref[1:]), dtype))
+        stats.update(tail_errors((zeros, *out[1:]), (zeros, *ref[1:]),
+                                 dtype, b2_operands(*args)))
         stats["max_abs_err"] = max(stats["max_abs_err"],
                                    stats["d_nodes_max_abs_err"])
         again = tail_bwd_nodes(*args)
@@ -2646,9 +2723,11 @@ def main() -> int:
     for r in segment_rows:
         print(f"kernel  [{card}]: B8 {r['kernel']} ({r['shapes']}) B={r['B']} "
               f"E={r['E']} N={r['N']} C={r['C']} {r['dtype']}: kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']})")
+              f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}, host "
+              f"{r['host_us']:.1f} us a call), plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']:.4f} ms (device "
+              f"{r['library_device_ms']:.4f}, host {r['library_host_us']:.1f}"
+              f" us), bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     for r in race_rows:
         for v, t in r["race"].items():
             print(f"race    [{card}]: B=128 E={r['E']} bf16 paired batch: "

@@ -248,6 +248,21 @@ def tail_bwd_reference(ef, w2, wc1, small, a1, xd, d_both, valid=None):
     get d_cat = d_ef = 0 and add nothing, whatever their residuals hold.
     Returns (d_cat [B, H+3, E], d_ef [B, 1, E] in the compute dtype,
     dW2 [H, H], dWc1 [H, H], dsmall [H, 6] in f32)."""
+    return _tail_bwd_plain(ef, w2, wc1, small, a1, xd, d_both, valid, True)
+
+
+def tail_d_p3_unrounded_sum(ef, w2, wc1, small, a1, xd, d_both, valid=None):
+    """dsmall's bc1 column [H] as ``tail_bwd_reference`` sums it, but with
+    d_p3 not rounded to the compute dtype first: what a B2 that leaves out
+    that rounding point gives (B3's counterpart:
+    ``ops/edge.py::d_p3_unrounded_sum``). The card tests and chip_smoke.py
+    hold B2's dbc1 nearer the plain version's than this (no bound on
+    dsmall's rows sees the rounding)."""
+    return _tail_bwd_plain(ef, w2, wc1, small, a1, xd, d_both, valid,
+                           False)[4][:, BC1]
+
+
+def _tail_bwd_plain(ef, w2, wc1, small, a1, xd, d_both, valid, round_d_p3):
     dt = a1.dtype
     f32 = torch.float32
     hid = w2.shape[1]
@@ -284,7 +299,8 @@ def tail_bwd_reference(ef, w2, wc1, small, a1, xd, d_both, valid=None):
     d_m_in, d_msgx = db[..., :hid], db[..., hid:]
     d_cw = (d_msgx * x_hat).sum(-1, keepdim=True)
     d_xhat = d_msgx * cw_b
-    d_p3 = rnd(sm[:, WC2] * d_cw * silu_grad(p3, s3))
+    d_p3 = sm[:, WC2] * d_cw * silu_grad(p3, s3)
+    d_p3 = rnd(d_p3) if round_d_p3 else d_p3
     d_m = d_m_in + torch.matmul(d_p3, wc1b.T)
     d_p2 = rnd(d_m * silu_grad(p2, s2))
     d_a1 = rnd(torch.matmul(d_p2, w2b.T) * silu_grad(a1f, s1))

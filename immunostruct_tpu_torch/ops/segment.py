@@ -76,6 +76,34 @@ def segment_gather_reference(idx: torch.Tensor, mask: torch.Tensor,
 # the kernels' wrappers
 # --------------------------------------------------------------------------
 
+# csrc/segment.cu's limits: nodes a scatter CTA (kMaxRange), edges a gather
+# CTA (kMaxChunk)
+SCATTER_MAX_RANGE = 1024
+GATHER_MAX_CHUNK = 2048
+
+
+@functools.lru_cache(maxsize=None)
+def scatter_range_nodes(n: int, b: int, slots: int) -> int:
+    """Nodes a scatter CTA takes (one CTA per (graph, node range)): as many
+    ranges as the card's ``slots`` (CTAs it holds at once) take in one wave,
+    each at least 8 nodes (one a warp) where the graph has them and at most
+    SCATTER_MAX_RANGE. A CTA sorts its graph's whole edge list whatever its
+    range, so a second wave would cost that sort again."""
+    ranges = min(max(1, n // 8), max(1, slots // b))
+    return min(-(-n // ranges), SCATTER_MAX_RANGE)
+
+
+@functools.lru_cache(maxsize=None)
+def gather_chunk_edges(e: int, b: int, sms: int) -> int:
+    """Edges a gather CTA writes (one CTA per (graph, edge chunk)): as many
+    chunks as give four CTAs an SM, each at least 32 edges where the graph
+    has them, a multiple of 8 (so that a chunk's run starts on 16 bytes in
+    bf16 where its graph's does) and at most GATHER_MAX_CHUNK."""
+    chunks = min(-(-4 * sms // b), max(1, e // 32))
+    size = max(1, -(-e // chunks))
+    return min(-(-size // 8) * 8, GATHER_MAX_CHUNK)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     from immunostruct_tpu_torch.ops._build import load_library
@@ -83,16 +111,56 @@ def _lib():
     lib = load_library("segment")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.segment_scatter, lib.segment_gather):
-        fn.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
+        fn.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
         fn.restype = i32
-    lib.segment_scatter_smem_bytes.argtypes = [i32]
+    lib.segment_scatter_smem_bytes.argtypes = [i32, i32]
     lib.segment_scatter_smem_bytes.restype = ctypes.c_longlong
+    lib.segment_set_smem_limit.argtypes = [i32]
+    lib.segment_scatter_ctas_per_sm.argtypes = [i32, i32, i32]
+    for fn in (lib.segment_set_smem_limit, lib.segment_scatter_ctas_per_sm):
+        fn.restype = i32
+    lib.devices, lib.answers = {}, {}
     return lib
 
 
+def _device(lib, device: int) -> tuple:
+    """(SMs, shared memory a block may opt in to) of card ``device`` (the
+    current one), which must be a Hopper; the first time for this library
+    and card, also lets the scatter kernels take that much shared
+    memory."""
+    got = lib.devices.get(device)
+    if got is None:
+        props = hopper(device, "segment")
+        optin = props.shared_memory_per_block_optin
+        rc = lib.segment_set_smem_limit(optin)
+        if rc != 0:
+            raise RuntimeError(f"segment: cudaFuncSetAttribute failed with "
+                               f"CUDA error {rc}")
+        got = lib.devices[device] = (props.multi_processor_count, optin)
+    return got
+
+
+def _stream(card: int) -> int:
+    """The current CUDA stream of ``card``, as the raw handle a launch
+    takes: PyTorch's own getter, which builds no Stream object as
+    ``torch.cuda.current_stream(...).cuda_stream`` does on every call."""
+    return torch._C._cuda_getCurrentRawStream(card)
+
+
+def _query(lib, entry: str, *args, card=None) -> int:
+    """The C helper ``entry``'s answer for ``args`` (shared-memory bytes,
+    CTAs an SM), cached, per ``card`` where the answer depends on it."""
+    key = (entry, card, *args)
+    got = lib.answers.get(key)
+    if got is None:
+        got = lib.answers[key] = getattr(lib, entry)(*args)
+    return got
+
+
 def _check(name: str, idx, mask, data, rows: int):
-    """Raise ValueError unless idx [B, E] int32, mask [B, E] bool and data
-    [B, rows, C] f32 or bf16 are contiguous and on one device."""
+    """Raise ValueError, naming the first fault, unless idx [B, E] int32,
+    mask [B, E] bool and data [B, rows, C] f32 or bf16 are contiguous and
+    on one device, with B and C at least 1."""
     if data.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name} kernel takes float32 or bfloat16 data, "
                          f"got {data.dtype}")
@@ -101,17 +169,17 @@ def _check(name: str, idx, mask, data, rows: int):
                          f"expected, got {tuple(idx.shape)} and "
                          f"{tuple(data.shape)}")
     b, e = idx.shape
-    want = {"idx": (idx, torch.int32, (b, e)),
-            "mask": (mask, torch.bool, (b, e)),
-            "data": (data, data.dtype, (b, rows, data.shape[2]))}
-    for arg, (t, dt, shape) in want.items():
+    want = (("idx", idx, torch.int32, (b, e)),
+            ("mask", mask, torch.bool, (b, e)),
+            ("data", data, data.dtype, (b, rows, data.shape[2])))
+    for arg, t, dt, shape in want:
         if t.device != data.device:
             raise ValueError(f"{name}: {arg} is on {t.device}, the data on "
                              f"{data.device}")
         if t.dtype != dt:
             raise ValueError(f"{name}: {arg} has dtype {t.dtype}, the kernel "
                              f"takes {dt}")
-        if tuple(t.shape) != shape:
+        if t.shape != shape:
             raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
                              f"expected {shape}")
         if not t.is_contiguous():
@@ -126,19 +194,29 @@ def _scatter_launch(idx, mask, m, num_nodes: int) -> torch.Tensor:
     _check("segment_scatter", idx, mask, m, idx.shape[1])
     b, e, c = m.shape
     lib = _lib()
-    with torch.cuda.device(m.device):
-        props = hopper(m.device, "segment")
-        smem = lib.segment_scatter_smem_bytes(num_nodes)
-        if num_nodes < 1 or smem > props.shared_memory_per_block_optin:
+    card = m.device.index
+    with torch.cuda._DeviceGuard(card):
+        sms, optin = _device(lib, card)
+        if num_nodes < 1:
+            raise ValueError(f"segment_scatter: N={num_nodes} nodes")
+        bf16 = m.dtype == torch.bfloat16
+        # CTAs an SM at the smallest range (shared memory grows little with R)
+        ctas = _query(lib, "segment_scatter_ctas_per_sm", e, 8, bf16,
+                      card=card)
+        if ctas < 0:
+            raise RuntimeError(f"segment_scatter: the occupancy query failed "
+                               f"with CUDA error {-ctas}")
+        r = scatter_range_nodes(num_nodes, b, max(1, ctas) * sms)
+        smem = _query(lib, "segment_scatter_smem_bytes", e, r)
+        if smem > optin:
             raise ValueError(
                 f"segment_scatter kernel needs {smem} B of shared memory for "
-                f"N={num_nodes}; the card allows "
-                f"{props.shared_memory_per_block_optin} B per block")
-        out = torch.empty(b, num_nodes, c, dtype=m.dtype, device=m.device)
-        stream = torch.cuda.current_stream(m.device).cuda_stream
+                f"E={e} (R={r} nodes a CTA); the card allows {optin} B per "
+                "block")
+        out = m.new_empty((b, num_nodes, c))
         rc = lib.segment_scatter(
             idx.data_ptr(), mask.data_ptr(), m.data_ptr(), out.data_ptr(), b,
-            e, num_nodes, c, int(m.dtype == torch.bfloat16), stream)
+            e, num_nodes, c, r, bf16, _stream(card))
     if rc != 0:
         raise RuntimeError(f"segment_scatter launch failed with CUDA error "
                            f"{rc} (B={b}, E={e}, N={num_nodes}, C={c})")
@@ -152,13 +230,14 @@ def _gather_launch(idx, mask, h) -> torch.Tensor:
     _check("segment_gather", idx, mask, h, n)
     e = idx.shape[1]
     lib = _lib()
-    with torch.cuda.device(h.device):
-        hopper(h.device, "segment")
-        out = torch.empty(b, e, c, dtype=h.dtype, device=h.device)
-        stream = torch.cuda.current_stream(h.device).cuda_stream
+    bf16 = h.dtype == torch.bfloat16
+    card = h.device.index
+    with torch.cuda._DeviceGuard(card):
+        sms, _ = _device(lib, card)
+        out = h.new_empty((b, e, c))
         rc = lib.segment_gather(
             idx.data_ptr(), mask.data_ptr(), h.data_ptr(), out.data_ptr(), b,
-            e, n, c, int(h.dtype == torch.bfloat16), stream)
+            e, n, c, gather_chunk_edges(e, b, sms), bf16, _stream(card))
     if rc != 0:
         raise RuntimeError(f"segment_gather launch failed with CUDA error "
                            f"{rc} (B={b}, E={e}, N={n}, C={c})")

@@ -29,16 +29,51 @@ seeded ones. One section per kernel (--kernel, default all of them):
             entries more than one bf16 step off, with their edge's nodes.
   sass      the atomic instructions in each kernel library's SASS
             (cuobjdump), by opcode.
+  segment_times
+            B8 (csrc/segment.cu behind ops/segment.py) at every shape
+            chip_smoke.py times it: B=128, N=288, C=67, E=2560 and 1408,
+            f32 and bf16 (chip_smoke.segment_inputs), and the operands the
+            train_Cancer_wFT entry point gives it (the first call of each
+            kernel, shape and dtype: B=25-128 at E=1280, bf16). Per shape
+            chip_smoke.py's check_scatter_case and check_gather_case: the
+            kernel against its plain version, and per call the CUDA-events
+            reading (20 back-to-back calls), the device time (the calls
+            queued behind a spin kernel, then timed back to back by CUDA
+            events: no host time), the host time (time.perf_counter over
+            1,000 calls without synchronisation) and the same three of the
+            library call (index_add_, index_select), with the bound.
+  segment_phases
+            where B8's scatter kernel spends its time: builds of a copy of
+            csrc/ whose kernel stamps the device clock (%globaltimer, ns)
+            at its start, at each of its five __syncthreads and at its end,
+            from thread 0 of every CTA; one build as it is, one whose sums
+            add 1 in place of each message value (every load of m left
+            out). Per shape the CTAs' start and end times (percentiles, µs
+            from the first start), each phase's mean and largest duration
+            over the CTAs (0 idx and mask, 1 the warps' ranking, 2 the
+            counts and offsets, 3 their prefix sum, 4 the edge lists, 5 the
+            sums), and the load the grid sees: the valid edges of each
+            CTA's node range (mean and largest) and the largest in-degree.
+            Uniform random indices over N=288, 10% masked (the entry's
+            shapes pad the last 180 edges to node 0, masked), and the entry
+            point's scatter operands, whose in-degrees are not uniform.
 
---baseline OTHER_CSRC_DIR adds a build of another csrc/ directory (an
-earlier form of the kernels, say, from ``git archive``) to the tail
-section: B2's, B5a's and B5b's outputs against this build's, bit for bit,
-and their times beside the others.
+--baseline OTHER_CSRC_DIR adds an earlier form of the kernels (say, the
+parent commit's, from ``git archive``). In the tail section, a build of
+that csrc/ directory: B2's, B5a's and B5b's outputs against this build's,
+bit for bit, and their times beside the others. In segment_times, the
+checkout that holds it (OTHER_CSRC_DIR/..: its ops/segment.py, with its
+segment.cu), timed in the order baseline, this tree, this tree, baseline;
+every row keeps its tree and round. Every build goes to a temporary
+directory under the build directory, removed at the end.
 
     python scripts/torch_kernel_ties.py [--kernel tail edge_bwd ...]
         [--baseline OTHER_CSRC_DIR]
 """
 import argparse
+import contextlib
+import ctypes
+import functools
 import importlib.util
 import json
 import re
@@ -49,12 +84,15 @@ import tempfile
 from collections import Counter
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
-from immunostruct_tpu_torch.ops import _build, edge, mega  # noqa: E402
+from immunostruct_tpu_torch.ops import (  # noqa: E402
+    _build, edge, mega, segment,
+)
 
 _spec = importlib.util.spec_from_file_location(
     "card_tests", ROOT / "tests" / "test_torch_port_cuda.py")
@@ -63,7 +101,8 @@ _spec.loader.exec_module(tc)
 
 TIE_ULPS = (32, -1, 64)  # the first is the source's own
 SEEDS = range(1, 9)
-KERNELS = ("tail", "edge_bwd", "mega_fwd", "sass")
+KERNELS = ("tail", "edge_bwd", "mega_fwd", "sass", "segment_times",
+           "segment_phases")
 # each library's tensor-core kernel, whose registers and spills are shown
 MMA_KERNEL = {"egnn_tail_bwd": "tail_bwd_mma_kernel",
               "egnn_tail_bwd_db": "tail_bwd_mma_kernel",
@@ -98,7 +137,8 @@ def build_variants(variants, sources, root):
     """{name: dir}, each dir a copy of csrc/ (with the files of
     variants[name], {file: text}, in it; or, for a Path, that directory)
     and each of ``sources`` built there, one nvcc each, all at once. Prints
-    the registers and spill stores of each library's tensor-core kernel."""
+    the registers and spill stores of each library's tensor-core kernel,
+    where it has one."""
     dirs, procs = {}, []
     nvcc = _build._nvcc()
     for name, texts in variants.items():
@@ -120,6 +160,8 @@ def build_variants(variants, sources, root):
     for name, src, p in procs:
         out, _ = p.communicate()
         assert p.returncode == 0, out[-3000:]
+        if src not in MMA_KERNEL:
+            continue
         mma = out.split(MMA_KERNEL[src])[-1]
         spill = re.search(r"(\d+) bytes spill stores", mma)
         regs = re.search(r"Used (\d+) registers", mma)
@@ -427,6 +469,209 @@ def sass():
               flush=True)
 
 
+# ---------------------------------------------------------------- B8
+
+SEGMENT_N, SEGMENT_C = 288, 67
+# (B, E, dtype, real edges: the rest padded to node 0, masked)
+PHASE_SHAPES = ((128, 2560, torch.bfloat16, None),
+                (128, 2560, torch.float32, None),
+                (128, 1408, torch.bfloat16, None),
+                (128, 1280, torch.bfloat16, 1100),
+                (77, 1280, torch.bfloat16, 1100),
+                (25, 1280, torch.bfloat16, 1100))
+MAX_CTAS = 1 << 16
+STAMP = ("__device__ unsigned long long g_stamp[{}][8];\n"
+         "__device__ __forceinline__ void stamp(int i) {{\n"
+         "  unsigned long long t;\n"
+         "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
+         "  if (threadIdx.x == 0) g_stamp[blockIdx.x][i] = t;\n"
+         "}}\n").format(MAX_CTAS)
+
+
+@functools.lru_cache(maxsize=None)
+def entry_operands():
+    """{(kernel, shape, dtype): operands} that the train_Cancer_wFT entry
+    point gives B8 (chip_smoke.check_cancer_entry_point), once."""
+    use(None)
+    with tempfile.TemporaryDirectory() as tmp:
+        row, operands = cs.check_cancer_entry_point(tmp)
+    print("entry point:", json.dumps(dict(
+        wall_s=row["wall_s"], b8_shapes=row["b8_shapes"])), flush=True)
+    return operands
+
+
+def segment_module(csrc_dir: Path):
+    """ops/segment.py of the checkout that holds ``csrc_dir``, as a module
+    of its own (it imports this tree's ops.edge)."""
+    path = csrc_dir.resolve().parent / "ops" / "segment.py"
+    spec = importlib.util.spec_from_file_location("baseline_segment", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@contextlib.contextmanager
+def segment_as(module):
+    """Within the block, ``immunostruct_tpu_torch.ops.segment`` (which
+    chip_smoke.py's B8 checks import) is ``module``."""
+    name = "immunostruct_tpu_torch.ops.segment"
+    saved = sys.modules[name]
+    sys.modules[name] = module
+    try:
+        yield
+    finally:
+        sys.modules[name] = saved
+
+
+def segment_round():
+    """chip_smoke.py's B8 rows at the bench shapes and the entry point's."""
+    rows = []
+    for e in cs.EDGE_COUNTS:
+        for dtype in (torch.float32, torch.bfloat16):
+            idx, mask, m, h = cs.segment_inputs(e, dtype, seed=e + 3)
+            rows.append(cs.check_scatter_case(idx, mask, m, cs.N, "bench"))
+            rows.append(cs.check_gather_case(idx, mask, h, "bench"))
+    operands = entry_operands()
+    for key in sorted(operands, key=str):
+        check = (cs.check_scatter_case if key[0] == "scatter"
+                 else cs.check_gather_case)
+        rows.append(check(*operands[key], "entry point"))
+    return rows
+
+
+def segment_times(root, baseline):
+    entry_operands()
+    trees = [("this", None, segment)]
+    if baseline is not None:
+        d = build_variants({"baseline": baseline}, ("segment",), root)
+        use(d["baseline"])
+        other = ("baseline", d["baseline"], segment_module(baseline))
+        other[2]._lib()  # its library, from its own segment.cu
+        trees = [other, trees[0], trees[0], other]
+    rows = []
+    for rnd, (label, d, module) in enumerate(trees):
+        use(d)
+        with segment_as(module):
+            for r in segment_round():
+                rows.append(dict(r, tree=label, round=rnd))
+                print("segment_times:", json.dumps(rows[-1]), flush=True)
+    use(None)
+    keys = ("ms", "device_ms", "host_us", "library_ms", "library_device_ms",
+            "library_host_us", "bound_ms")
+    shapes = {}
+    for r in rows:
+        shape = (r["kernel"], r["shapes"], r["B"], r["E"], r["dtype"])
+        shapes.setdefault(shape, {}).setdefault(r["tree"], []).append(
+            {k: r[k] for k in keys})
+    for shape, by_tree in shapes.items():
+        print("segment_times summary:", json.dumps(dict(
+            kernel=shape[0], shapes=shape[1], B=shape[2], E=shape[3],
+            dtype=shape[4], **by_tree)), flush=True)
+
+
+def stamped(text: str, without_loads: bool) -> str:
+    """segment.cu with the scatter kernel's stamps (segment_phases)."""
+    text = text.replace("namespace {\n", "namespace {\n" + STAMP, 1)
+    text = text.replace(
+        'extern "C" {\n',
+        'extern "C" {\nint segment_stamps(void* host) {\n'
+        '  return cudaMemcpyFromSymbol(host, g_stamp, sizeof(g_stamp));\n}\n'
+        'int segment_stamps_clear() {\n  void* p;\n'
+        '  cudaGetSymbolAddress(&p, g_stamp);\n'
+        '  return cudaMemset(p, 0, sizeof(g_stamp));\n}\n', 1)
+    k0 = text.index("segment_scatter_kernel(const int*")
+    k1 = text.index("\n}\n", k0)
+    body = text[k0:k1]
+    body = body.replace("  extern __shared__ int smem[];",
+                        "  stamp(0);\n  extern __shared__ int smem[];", 1)
+    parts = body.split("  __syncthreads();\n")
+    assert len(parts) == 6, len(parts)
+    body = parts[0] + "".join(f"  __syncthreads();\n  stamp({i});\n" + p
+                              for i, p in enumerate(parts[1:], start=1))
+    body += "\n  __syncthreads();\n  stamp(6);"
+    if without_loads:
+        load = "val[u][v] = row != nullptr && c < C ? to_f(row[c]) : 0.0f;"
+        assert load in body
+        body = body.replace(
+            load, "val[u][v] = row != nullptr && c < C ? 1.0f : 0.0f;")
+    return text[:k0] + body + text[k1:]
+
+
+def phase_inputs(b, e, dtype, real):
+    gen = torch.Generator().manual_seed(b + e)
+    idx = torch.randint(0, SEGMENT_N, (b, e), generator=gen,
+                        dtype=torch.int32)
+    mask = torch.rand(b, e, generator=gen) >= 0.1
+    if real:
+        idx[:, real:], mask[:, real:] = 0, False
+    m = torch.randn(b, e, SEGMENT_C, generator=gen).to(dtype)
+    return idx.cuda(), mask.cuda(), m.cuda()
+
+
+def grid_load(lib, idx, mask, bf16):
+    """(valid edges of each CTA's node range: mean, largest; the largest
+    in-degree) on the grid the wrapper picks."""
+    b, e = idx.shape
+    n = SEGMENT_N
+    sms, _ = segment._device(lib, idx.device.index)
+    ctas = lib.segment_scatter_ctas_per_sm(e, 8, int(bf16))
+    r = segment.scatter_range_nodes(n, b, max(1, ctas) * sms)
+    valid = mask & (idx >= 0) & (idx < n)
+    degree = torch.zeros(b, n, dtype=torch.int64, device=idx.device)
+    degree.scatter_add_(1, torch.where(valid, idx, 0).long(), valid.long())
+    per_cta = torch.nn.functional.pad(degree, (0, -n % r)).reshape(b, -1, r)
+    per_cta = per_cta.sum(-1).float()
+    return (round(per_cta.mean().item(), 1), int(per_cta.max().item()),
+            int(degree.max().item()))
+
+
+def percentiles(x):
+    return [round(float(v), 3) for v in np.percentile(x, [0, 50, 90, 100])]
+
+
+def segment_phases(root):
+    text = (REPO_CSRC / "segment.cu").read_text()
+    forms = {form: {"segment.cu": stamped(text, form != "kernel")}
+             for form in ("kernel", "without_loads")}
+    dirs = build_variants(forms, ("segment",), root)
+    cases = [("uniform", *phase_inputs(*shape)) for shape in PHASE_SHAPES]
+    operands = entry_operands()
+    cases += [("entry", *operands[key][:3])
+              for key in sorted(operands, key=str) if key[0] == "scatter"]
+    n = SEGMENT_N
+    for form, d in dirs.items():
+        use(d)
+        lib = segment._lib()
+        lib.segment_stamps.argtypes = [ctypes.c_void_p]
+        for label, idx, mask, m in cases:
+            b, e = idx.shape
+            for _ in range(3):
+                segment.segment_scatter(idx, mask, m, n)
+            torch.cuda.synchronize()
+            assert lib.segment_stamps_clear() == 0
+            out = segment.segment_scatter(idx, mask, m, n)
+            torch.cuda.synchronize()
+            want = segment.segment_scatter_reference(idx.cpu(), mask.cpu(),
+                                                     m.cpu(), n)
+            assert form != "kernel" or torch.equal(out.cpu(), want)
+            stamps = np.zeros((MAX_CTAS, 8), dtype=np.uint64)
+            assert lib.segment_stamps(stamps.ctypes.data) == 0
+            ctas = int((stamps[:, 6] > 0).sum())
+            t = stamps[:ctas, :7].astype(np.int64)
+            rel = (t - t[:, 0].min()) / 1e3
+            phases = np.diff(t, axis=1) / 1e3
+            load = grid_load(lib, idx, mask, m.dtype == torch.bfloat16)
+            print("segment_phases:", json.dumps(dict(
+                form=form, operands=label, B=b, E=e,
+                dtype=str(m.dtype).split(".")[1], ctas=ctas,
+                edges_per_cta_mean_max=load[:2], largest_in_degree=load[2],
+                start_us=percentiles(rel[:, 0]), end_us=percentiles(rel[:, 6]),
+                phase_mean_us=[round(float(v), 3) for v in phases.mean(0)],
+                phase_max_us=[round(float(v), 3) for v in phases.max(0)])),
+                flush=True)
+    use(None)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", nargs="+", choices=KERNELS,
@@ -446,8 +691,12 @@ def main():
                 edge_bwd(root / "edge_bwd")
             elif kernel == "mega_fwd":
                 mega_fwd()
-            else:
+            elif kernel == "sass":
                 sass()
+            elif kernel == "segment_times":
+                segment_times(root / "segment_times", opts.baseline)
+            else:
+                segment_phases(root / "segment_phases")
     finally:
         shutil.rmtree(root)
     print(cs.card_line())

@@ -31,7 +31,10 @@ The tests marked ``cuda`` skip on a host without a CUDA device. Tolerances:
   gradients. A CPU simulation at these shapes read 2.1e-6 on the means for
   a change of summation order alone and 5.2e-5 to 2.7e-3 with any one of
   B2's rounding points removed. The bounds are the same for B2's f32 form
-  (CUDA cores) and its bf16 form (tensor cores, csrc/egnn_tail.cuh).
+  (CUDA cores) and its bf16 form (tensor cores, csrc/egnn_tail.cuh). In
+  bf16 also B3's dbc1 check: dbc1 no farther from the plain version's than
+  from the sum of d_p3 unrounded (``_assert_tail_close`` with B2's
+  operands, for B2, B5a and B5b).
 
 - B3 forward and backward, f32: the outputs atol=1e-5, rtol=1e-4; the
   weight gradients as B2's. The backward's bf16 form runs its nine products
@@ -82,9 +85,9 @@ such kernels.
 - Mutants: seven of B1's bf16 form (W1ab, xd, radial, m, c1, cw,
   cw*x_hat; the table says why W2/Wc1, silu(a1) and pa/pb have none),
   seven of B3's backward (xd, radial, c1, cw, d_p2, d_p3, d_a1; its table
-  says why W1ab, W2, Wc1, a1s and m have none), five of B2's tensor-core
-  body (radial, c1, cw, d_p2, d_a1; the table says why W2/Wc1, a1s, m and
-  d_p3 have none), eleven of B4 (the mirror's sign, xd, radial, and the
+  says why W1ab, W2, Wc1, a1s and m have none), six of B2's tensor-core
+  body (radial, c1, cw, d_p2, d_a1, d_p3; the table says why W2/Wc1, a1s
+  and m have none), eleven of B4 (the mirror's sign, xd, radial, and the
   CUDA-core chain it shares with B6 and B1's f32 form: W2/Wc1/W1ab, pa/pb,
   silu(a1), m, c1, cw, cw*x_hat), two of the shared tail body through B5a
   (d_p2, d_a1), one of B5b (d_xd before the node sums), five of B6 (agg,
@@ -95,9 +98,13 @@ such kernels.
   of |m| over the k edges of the element), the bound of two f32 sums of the
   same terms in other orders (the plain version on the card sums with
   atomics); bf16: within one bf16 step of the larger magnitude, or of
-  2^-10 below that (both sum in f32 and round once).
+  2^-10 below that (both sum in f32 and round once). It sums each element
+  in edge order, so it is also bit for bit the plain version run on the
+  CPU (``index_add_`` there sums in edge order), at the grids' edges (B=1,
+  25, 200; E=128, 1280, 1283, 2560; C=1, 3, 67, 128; N=1, 288, 2048; an
+  all-masked graph; the corpus's padding to node 0).
   ``test_segment_bf16_bound_sees_f32_accumulation`` builds a scatter that
-  accumulates in the compute dtype, which fails it.
+  accumulates in the compute dtype, which fails the bf16 bound.
 
 - B7 (csrc/egnn_layer_fwd.cu, behind ``fused_egnn_layer``) at B=128,
   N=288, E=2560/1408/256, F=20/64, with unmasked edges whose src or dst is
@@ -196,8 +203,13 @@ def _tail_args(b, e, f, dtype, device, seed, mask_rate=0.1):
             valid)
 
 
-def _assert_tail_close(out, ref, dtype):
-    """B2 against its plain version (module docstring)."""
+def _assert_tail_close(out, ref, dtype, args=None):
+    """B2 against its plain version (module docstring); in bf16, given B2's
+    operands ``args``, also dbc1 (dsmall's bc1 column, the sum of the
+    rounded d_p3 over the edges) no farther from the plain version's than
+    from the same sum of d_p3 unrounded (``mega.tail_d_p3_unrounded_sum``),
+    B3's check (``_assert_edge_bwd_close``): the bound on dsmall's row does
+    not see that rounding."""
     d_cat, d_ef = out[:2]
     assert d_cat.dtype == d_ef.dtype == dtype
     for t in out:
@@ -221,6 +233,10 @@ def _assert_tail_close(out, ref, dtype):
         diff, mag = (g - r).abs(), r.abs()
         assert (diff.amax(1) <= max_tol * mag.amax(1)).all()
         assert (diff.mean(1) <= 2e-5 * mag.mean(1)).all()
+    if args is not None:
+        k, r = out[4][:, mega.BC1], ref[4][:, mega.BC1]
+        u = mega.tail_d_p3_unrounded_sum(*args)
+        assert (k - r).abs().mean() <= (k - u).abs().mean()
 
 
 @pytest.fixture
@@ -267,7 +283,7 @@ def test_tail_kernel_matches_plain_version(cuda, e, f, dtype):
     out = mega.tail_bwd(*args)
     torch.cuda.synchronize()
     assert mega.tail_bwd.launches == before + 1
-    _assert_tail_close(out, mega.tail_bwd_reference(*args), dtype)
+    _assert_tail_close(out, mega.tail_bwd_reference(*args), dtype, args)
     # the weight gradients are the same from run to run (no atomics)
     again = mega.tail_bwd(*args)
     for g, h in zip(out[2:], again[2:]):
@@ -426,13 +442,13 @@ def test_bf16_bound_sees_every_rounding_point(cuda, name, tmp_path,
 # of the arithmetic removes. d_p2, d_p3 and d_a1 also feed bf16 operands;
 # a mutant leaves out the rounding where the value meets an f32 consumer
 # outside the products: d_p2 in db2, d_a1 in the per-edge sums that give
-# d_rad (hence d_xd) and d_ef. d_p3's is dbc1 (where gbc1 adds
-# `__low2float(q)`, add `d3[0]`, and `d3[1]` for `__high2float(q)`), not
-# in the table: dbc1 is one of the six columns of dsmall, held as one
-# row, and among its smallest, and the row's mean bound does not see that
-# mutant at these inputs (it did not raise on the card); it waits for a
-# bound per dsmall column. d_xd and d_ef round at their store in the
-# compute dtype, which no edit of the arithmetic removes.
+# d_rad (hence d_xd) and d_ef, d_p3 in dbc1 (where gbc1 adds
+# `__low2float(q)`, add `d3[0]`, and `d3[1]` for `__high2float(q)`): dbc1
+# is one of the six columns of dsmall, held as one row, and among its
+# smallest, so the row's mean bound does not see that mutant; the dbc1
+# check of ``_assert_tail_close`` (B3's since its backward's redesign)
+# does. d_xd and d_ef round at their store in the compute dtype, which no
+# edit of the arithmetic removes.
 _TAIL_SOURCES = ("egnn_tail.cuh", "egnn_hopper.cuh")
 _TAIL_MUTANTS = {
     "radial": [(r"(const float r = )rnd<bf>\((x\[0\] \* x\[0\] \+ x\[1\] \* "
@@ -443,6 +459,9 @@ _TAIL_MUTANTS = {
     "d_p2": [(r"(const float dp2 = )rnd<bf>\((dm \* g2\[nt\]\[2 \* h \+ c\])\)",
               r"\1\2")],
     "d_a1": [(r"(const float da = )rnd<bf>\((dsum \* g1)\)", r"\1\2")],
+    "d_p3": [(r"(gbc1\[2 \* nt\] \+= )__low2float\(q\);", r"\1d3[0];"),
+             (r"(gbc1\[2 \* nt \+ 1\] \+= )__high2float\(q\);",
+              r"\1d3[1];")],
 }
 
 
@@ -459,7 +478,7 @@ def test_tail_bf16_bound_sees_every_rounding_point(cuda, name, tmp_path,
         out = mega.tail_bwd(*args)
         with pytest.raises(AssertionError):
             _assert_tail_close(out, mega.tail_bwd_reference(*args),
-                               torch.bfloat16)
+                               torch.bfloat16, args)
 
 
 # the near-tie recompute of the tensor-core forms (csrc/egnn_hopper.cuh)
@@ -993,9 +1012,86 @@ def test_segment_out_of_range_indices_touch_nothing(cuda):
 
 @pytest.mark.cuda
 def test_segment_scatter_shared_memory_oversize_raises(cuda):
-    idx, mask, m, _ = _segment_args(2, 128, 2048, 8, torch.float32, cuda, 6)
+    """The scatter's shared memory grows with E (each CTA sorts its
+    graph's edges: 8 B an edge, ``segment_scatter_smem_bytes``); past the
+    card's limit it raises before any launch, and at the largest E that
+    fits it launches."""
+    lib = segment._lib()
+    props = torch.cuda.get_device_properties(cuda)
+    optin = props.shared_memory_per_block_optin
+    r = segment.scatter_range_nodes(24, 1, props.multi_processor_count)
+    assert r == 8                       # three ranges: one wave on any card
+    fits = max(e for e in range(0, 40000, 8)
+               if lib.segment_scatter_smem_bytes(e, r) <= optin)
+    idx, mask, m, _ = _segment_args(1, fits, 24, 2, torch.float32, cuda, 6)
+    _assert_scatter_close(segment.segment_scatter(idx, mask, m, 24),
+                          segment.segment_scatter_reference(idx, mask, m, 24),
+                          idx, mask, m)
+    idx, mask, m, _ = _segment_args(1, fits + 8, 24, 2, torch.float32, cuda,
+                                    6)
     with pytest.raises(ValueError, match="shared memory"):
-        segment.segment_scatter(idx, mask, m, 2048)
+        segment.segment_scatter(idx, mask, m, 24)
+
+
+def _corpus_layout(idx, mask, real):
+    """The corpus's padding: edges from ``real`` on name node 0, masked."""
+    idx, mask = idx.clone(), mask.clone()
+    idx[:, real:], mask[:, real:] = 0, False
+    return idx, mask
+
+
+def _cpu(*ts):
+    return [t.cpu() for t in ts]
+
+
+# B, E, N, C: the grids' edges (one graph over many CTAs, more graphs than
+# SMs), the entry point's B=25 at E=1280, E=1283 (not a multiple of 8: no
+# chunk's run starts on 16 bytes), C=1, 3, 128, N=1, and N=2048 (which the
+# first form's shared memory did not take)
+_SEGMENT_GRIDS = [(1, 2560, N, 67), (25, 1280, N, 67), (200, 2560, N, 67),
+                  (25, 128, N, 3), (8, 1283, N, 67), (25, 1280, N, 1),
+                  (25, 1280, N, 128), (8, 128, 1, 67), (2, 128, 2048, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,e,n,c", _SEGMENT_GRIDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_kernels_on_their_grids(cuda, b, e, n, c, dtype):
+    """Both kernels at the edges of their grids, the first graph all
+    masked and the last on the corpus's layout (its last 40% of edges
+    padded to node 0, masked): the scatter bit for bit the CPU plain
+    version's (each element summed in edge order) and the same bits twice,
+    the gather bit for bit its plain version's."""
+    idx, mask, m, h = _segment_args(b, e, n, c, dtype, cuda, seed=b + e + c)
+    mask[0] = False
+    last_i, last_m = _corpus_layout(idx[-1:], mask[-1:], e - 2 * e // 5)
+    idx[-1:], mask[-1:] = last_i, last_m
+    before = segment.segment_scatter.launches, segment.segment_gather.launches
+    out = segment.segment_scatter(idx, mask, m, n)
+    gat = segment.segment_gather(idx, mask, h)
+    torch.cuda.synchronize()
+    assert (segment.segment_scatter.launches - before[0],
+            segment.segment_gather.launches - before[1]) == (1, 1)
+    want = segment.segment_scatter_reference(*_cpu(idx, mask, m), n)
+    assert out.dtype == dtype and torch.equal(out.cpu(), want)
+    assert torch.equal(out, segment.segment_scatter(idx, mask, m, n))
+    assert not out[0].any() and not gat[0].any()
+    assert torch.equal(gat, segment.segment_gather_reference(idx, mask, h))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_scatter_on_the_corpus_layout(cuda, dtype):
+    """chip_smoke.py's B=128, E=2560 with 1408 real edges, the rest padded
+    to node 0 and masked, as the corpus pads them: node 0 sums its real
+    edges alone, bit for bit the CPU plain version."""
+    idx, mask, m, h = _segment_args(128, 2560, N, 67, dtype, cuda, seed=9)
+    idx, mask = _corpus_layout(idx, mask, 1408)
+    out = segment.segment_scatter(idx, mask, m, N)
+    want = segment.segment_scatter_reference(*_cpu(idx, mask, m), N)
+    assert torch.equal(out.cpu(), want)
+    assert torch.equal(segment.segment_gather(idx, mask, h),
+                       segment.segment_gather_reference(idx, mask, h))
 
 
 @pytest.mark.cuda
@@ -1013,10 +1109,8 @@ def test_segment_kernels_reject_what_they_do_not_take(cuda):
 
 
 # the scatter with its sums in the compute dtype: every add rounded
-_SEGMENT_MUTANT = [(r"acc\[n \* kLD \+ lane\] \+= (tile\[\(t0 \+ j\) \* kLD "
-                    r"\+ lane\]);",
-                    r"acc[n * kLD + lane] = to_f<T>(from_f<T>("
-                    r"acc[n * kLD + lane] + \1));")]
+_SEGMENT_MUTANT = [(r"acc\[v\] \+= (val\[u\]\[v\]);",
+                    r"acc[v] = to_f<T>(from_f<T>(acc[v] + \1));")]
 
 
 @pytest.mark.cuda
@@ -1204,7 +1298,8 @@ def test_tail_db_kernel_matches_plain_version_and_b2(cuda, e, f, dtype):
     out = mega.tail_bwd_db(*db_args)
     torch.cuda.synchronize()
     assert mega.tail_bwd_db.launches == before + 1
-    _assert_tail_close(out, mega.tail_bwd_db_reference(*db_args), dtype)
+    _assert_tail_close(out, mega.tail_bwd_db_reference(*db_args), dtype,
+                       _b2_of(*args))
     for got, want in zip(out, mega.tail_bwd(*_b2_of(*args))):
         assert torch.equal(got, want)
 
@@ -1312,9 +1407,10 @@ def test_tail_kernels_at_the_grid_edges(cuda, b, e, dtype):
         if fn is mega.tail_bwd_nodes:
             _assert_nodes_close(out[0], ref[0], dtype)
             fake = torch.zeros(b, 67, e, dtype=dtype, device=cuda)
-            _assert_tail_close((fake, *out[1:]), (fake, *ref[1:]), dtype)
+            _assert_tail_close((fake, *out[1:]), (fake, *ref[1:]), dtype,
+                               _b2_of(*args))
         else:
-            _assert_tail_close(out, ref, dtype)
+            _assert_tail_close(out, ref, dtype, _b2_of(*args))
         if b > 1:
             assert torch.count_nonzero(out[0][-1]) == 0
             assert torch.count_nonzero(out[1][-1]) == 0

@@ -208,6 +208,26 @@ def test_tail_bwd_reference_matches_jax(f, dtype):
             _assert_bf16_close(g, w)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tail_d_p3_unrounded_sum(dtype):
+    """dbc1 with d_p3 not rounded first (the card tests' and chip_smoke.py's
+    check on B2's d_p3 rounding point): in f32, where nothing rounds, the
+    plain version's dbc1 bit for bit; in bf16 another sum, within one bf16
+    step of each term of it (128 edges a graph, B graphs)."""
+    _, port_in = _tail_inputs(20, 7, dtype)
+    valid = torch.ones(B, 128, dtype=torch.bool)
+    valid[:, 120:] = False
+    dbc1 = mega.tail_bwd_reference(*port_in, valid)[4][:, mega.BC1]
+    got = mega.tail_d_p3_unrounded_sum(*port_in, valid)
+    assert got.shape == dbc1.shape and got.dtype == torch.float32
+    if dtype == "float32":
+        assert torch.equal(got, dbc1)
+    else:
+        assert not torch.equal(got, dbc1)
+        assert ((got - dbc1).abs() <= B * 120 * 2.0 ** -8
+                * got.abs().clamp_min(1.0)).all()
+
+
 def test_tail_bwd_reference_skips_invalid_edges():
     """An edge marked invalid gets d_cat = d_ef = 0 and adds nothing, even
     with NaN residuals and a nonzero cotangent: the same as a valid edge

@@ -10,8 +10,9 @@ runs them on the CPU; ops/egnn.py ``egnn_apply``/``egnn_stack_apply`` with
 The same numpy inputs, made from a seed, go through both; the JAX side is
 compiled with ``xla_allow_excess_precision`` off, so that every cast to
 bf16 rounds as on the TPU. B=2, N=24, C=16, E = 128, 256, 512 and 1280 (each
-of the JAX wrapper's tiles, 1280 in 256-edge tiles), with masked edges and
-indices at -1 and N on masked and unmasked edges. Tolerances:
+of the JAX wrapper's tiles, 1280 in 256-edge tiles), and at B=1, C=1 and
+C=3, with masked edges and indices at -1 and N on masked and unmasked edges.
+Tolerances:
 
 - the gather and the scatter's VJP (a gather): bit for bit in f32 and bf16
   (one non-zero term);
@@ -60,17 +61,17 @@ def _rounding(fn, *args):
         compiler_options={"xla_allow_excess_precision": False})(*args)
 
 
-def _inputs(e, seed):
-    """idx, mask [B, E] with indices -1 and N on masked and unmasked edges;
-    m [B, E, C], h [B, N, C] and the cotangents of the scatter [B, N, C] and
-    of the gather [B, E, C]."""
+def _inputs(e, seed, b=B, c=C):
+    """idx, mask [b, E] with indices -1 and N on masked and unmasked edges;
+    m [b, E, c], h [b, N, c] and the cotangents of the scatter [b, N, c] and
+    of the gather [b, E, c]."""
     rng = np.random.default_rng(seed)
-    idx = rng.integers(0, N, (B, e)).astype(np.int32)
-    mask = rng.random((B, e)) >= 0.1
+    idx = rng.integers(0, N, (b, e)).astype(np.int32)
+    mask = rng.random((b, e)) >= 0.1
     idx[:, 0:4], idx[:, 4:8] = -1, N
     mask[:, 0:8:2] = False
     arrays = [rng.standard_normal(s).astype(np.float32)
-              for s in ((B, e, C), (B, N, C), (B, N, C), (B, e, C))]
+              for s in ((b, e, c), (b, N, c), (b, N, c), (b, e, c))]
     return idx, mask, arrays
 
 
@@ -98,7 +99,21 @@ def _jax_side(idx, mask, arrays, dtype):
 @pytest.mark.parametrize("e", [128, 256, 512, 1280])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_segment_ops_match_jax(e, dtype):
-    idx, mask, arrays = _inputs(e, seed=e)
+    _check_segment_ops(*_inputs(e, seed=e), dtype)
+
+
+@pytest.mark.parametrize("b,c,e", [(1, 16, 128), (2, 1, 128), (2, 3, 128),
+                                   (1, 3, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_segment_ops_match_jax_narrow(b, c, e, dtype):
+    """The kernels' small grids: one graph (B=1), one and three channels
+    (C=1, 3), the smallest E the JAX wrapper takes."""
+    _check_segment_ops(*_inputs(e, seed=b + c + e, b=b, c=c), dtype)
+
+
+def _check_segment_ops(idx, mask, arrays, dtype):
+    """The plain versions and the autograd Functions against the JAX
+    kernels in interpret mode (module docstring)."""
     want = _jax_side(idx, mask, arrays, dtype)
     tdt = getattr(torch, dtype)
     ti, tm = torch.from_numpy(idx), torch.from_numpy(mask)
@@ -130,6 +145,65 @@ def test_segment_ops_match_jax(e, dtype):
     assert not got[2][:, :8].any()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scatter_plain_version_sums_in_edge_order(dtype):
+    """On CPU tensors the scatter's plain version is each element's f32 sum
+    of its valid edges' messages in edge order from +0, rounded once: the
+    bits the scatter kernel gives (csrc/segment.cu sums in that order), which
+    the card tests and chip_smoke.py assert. A sequential numpy sum here."""
+    idx, mask, arrays = _inputs(512, seed=3)
+    idx[:, -100:], mask[:, -100:] = 0, False        # the corpus's padding
+    tdt = getattr(torch, dtype)
+    m = torch.from_numpy(arrays[0]).to(tdt)
+    got = segment.segment_scatter_reference(torch.from_numpy(idx),
+                                            torch.from_numpy(mask), m, N)
+    msgs = m.float().numpy()
+    want = np.zeros((B, N, C), np.float32)
+    for b in range(B):
+        for e in range(idx.shape[1]):
+            if mask[b, e] and 0 <= idx[b, e] < N:
+                want[b, idx[b, e]] += msgs[b, e]
+    assert torch.equal(got, torch.from_numpy(want).to(tdt))
+
+
+@pytest.mark.parametrize("n,b,nodes", [(288, 128, 58), (288, 25, 12),
+                                       (288, 1, 8), (288, 200, 96),
+                                       (1, 25, 1), (2048, 2, 8),
+                                       (5000, 200, 1024), (50000, 200, 1024),
+                                       (7, 1, 7), (288, 700, 288)])
+def test_scatter_range_nodes(n, b, nodes):
+    """The scatter's grid (one CTA per (graph, node range)) on a card that
+    holds 660 CTAs at once (5 an SM on 132 SMs): ranges of at least 8 nodes
+    (one a warp) where the graph has them and at most SCATTER_MAX_RANGE, as
+    many as fit in one wave, at least one a graph."""
+    got = segment.scatter_range_nodes(n, b, 660)
+    assert got == nodes
+    ranges = -(-n // got)
+    assert min(n, 8) <= got <= segment.SCATTER_MAX_RANGE
+    assert b * ranges <= max(660, b) or got == segment.SCATTER_MAX_RANGE
+    # the smallest such range: one node fewer would not fit or be too small
+    if 1 < got < segment.SCATTER_MAX_RANGE:
+        more = -(-n // (got - 1))
+        assert b * more > max(660, b) or more > max(1, n // 8)
+
+
+@pytest.mark.parametrize("e,b,edges", [(2560, 128, 512), (1280, 25, 64),
+                                       (1280, 77, 184), (2560, 1, 32),
+                                       (1283, 8, 40), (128, 200, 48),
+                                       (0, 4, 8), (100000, 1, 192)])
+def test_gather_chunk_edges(e, b, edges):
+    """The gather's grid on a 132-SM card (one CTA per (graph, edge
+    chunk)): chunks of a multiple of 8 edges (so that each chunk's run
+    starts on 16 bytes in bf16 where its graph's does), at least 32 where
+    the graph has them and at most GATHER_MAX_CHUNK, as many as give every
+    SM two CTAs (the rule asks four; a chunk's size is rounded up)."""
+    got = segment.gather_chunk_edges(e, b, 132)
+    assert got == edges
+    assert got % 8 == 0 and 8 <= got <= segment.GATHER_MAX_CHUNK
+    chunks = -(-e // got)
+    assert b * chunks >= 2 * 132 or chunks >= max(1, e // 32) or e == 0
+
+
 def test_segment_ops_on_cpu_launch_nothing():
     idx, mask, arrays = _inputs(128, seed=1)
     ti, tm = torch.from_numpy(idx), torch.from_numpy(mask)
@@ -141,6 +215,59 @@ def test_segment_ops_on_cpu_launch_nothing():
     assert segment.segment_gather(ti, tm, out.detach()).shape == (B, 128, C)
     assert (segment.segment_scatter.launches,
             segment.segment_gather.launches) == before
+
+
+def _bad_operands(fault):
+    """(idx, mask, data) for the kernels' operand check, with one fault."""
+    idx = torch.zeros(B, 128, dtype=torch.int32)
+    mask = torch.ones(B, 128, dtype=torch.bool)
+    data = torch.zeros(B, 128, C)
+    if fault == "data dtype":
+        data = data.half()
+    elif fault == "data rank":
+        data = data[0]
+    elif fault == "idx dtype":
+        idx = idx.long()
+    elif fault == "mask dtype":
+        mask = mask.to(torch.uint8)
+    elif fault == "mask shape":
+        mask = mask[:, :64]
+    elif fault == "data rows":
+        data = data[:, :100]
+    elif fault == "idx contiguous":
+        idx = torch.zeros(128, B, dtype=torch.int32).T
+    elif fault == "data contiguous":
+        data = torch.zeros(B, C, 128).transpose(1, 2)
+    elif fault == "mask device":
+        mask = torch.ones(B, 128, dtype=torch.bool, device="meta")
+    elif fault == "empty batch":
+        idx, mask, data = idx[:0], mask[:0], data[:0]
+    elif fault == "no channels":
+        data = data[..., :0]
+    return idx, mask, data
+
+
+@pytest.mark.parametrize("fault,message", [
+    (None, None), ("data dtype", "float32 or bfloat16 data"),
+    ("data rank", r"idx \[B, E\] and data \[B, 128, C\] expected"),
+    ("idx dtype", "idx has dtype torch.int64"),
+    ("mask dtype", "mask has dtype torch.uint8"),
+    ("mask shape", r"mask has shape \(2, 64\), expected \(2, 128\)"),
+    ("data rows", r"data has shape \(2, 100, 16\), expected \(2, 128, 16\)"),
+    ("idx contiguous", "idx is not contiguous"),
+    ("data contiguous", "data is not contiguous"),
+    ("mask device", "mask is on meta"),
+    ("empty batch", "empty batch or channels"),
+    ("no channels", "empty batch or channels")])
+def test_operand_check_names_each_fault(fault, message):
+    """The kernels' operand check (``_check``, run before any launch on the
+    card) passes good operands and names the first fault of bad ones."""
+    idx, mask, data = _bad_operands(fault)
+    if message is None:
+        segment._check("segment_gather", idx, mask, data, 128)
+        return
+    with pytest.raises(ValueError, match="segment_gather.*" + message):
+        segment._check("segment_gather", idx, mask, data, 128)
 
 
 # --------------------------------------------------------------------------
