@@ -1047,7 +1047,9 @@ def dbc1_rounding(args, dout, grads, ref) -> float:
 def check_edge_case(args, dout, where: str, readings: bool = False) -> list:
     """B3 forward and backward on one set of operands against their plain
     versions (the bounds above), the backward's weight gradients the same
-    bits twice, all four timed; a forward and a backward row."""
+    bits twice, all four timed (the forward also by its device time,
+    ``device_ms``); a forward and a backward row, each with its kernel's
+    shared memory a CTA and CTAs an SM."""
     from immunostruct_tpu_torch.ops import edge
     from immunostruct_tpu_torch.ops.edge import (
         edge_program_bwd, edge_program_bwd_reference, edge_program_fwd,
@@ -1082,14 +1084,16 @@ def check_edge_case(args, dout, where: str, readings: bool = False) -> list:
                      2 * b * e * (2 * f * H + 2 * H * H), dtype)
     bwd_work = bound(tensor_bytes(*args, dout, *grads),
                      2 * b * e * (3 * 2 * f * H + 6 * H * H), dtype)
+    fwd["device_ms"] = device_ms(lambda: edge_program_fwd(*args))
     rows = []
-    occ = occupancy(edge._bwd_lib(), "egnn_edge_bwd", f, dtype)
     for kind, stats, ms, plain, work in (
             ("fwd", fwd, fwd_ms, fwd_plain, fwd_work),
             ("bwd", bwd, bwd_ms, bwd_plain, bwd_work)):
+        occ = occupancy(edge._fwd_lib() if kind == "fwd" else edge._bwd_lib(),
+                        f"egnn_edge_{kind}", f, dtype)
         row = dict(kernel=kind, shapes=where, B=b, E=e, F=f,
                    dtype=str(dtype).split(".")[1], **stats, ms=ms,
-                   plain_ms=plain, **work, **(occ if kind == "bwd" else {}))
+                   plain_ms=plain, **work, **occ)
         print(f"kernel B3 {kind}:", json.dumps(row), flush=True)
         rows.append(row)
     return rows
@@ -1098,7 +1102,12 @@ def check_edge_case(args, dout, where: str, readings: bool = False) -> list:
 def check_edge_kernels() -> list:
     """B3 forward and backward against their plain versions at the bench's
     shapes, timed; at E=2560 in bf16 with the weight gradients' readings
-    against their exact sums."""
+    against their exact sums. Each form's registers and spills first."""
+    from immunostruct_tpu_torch.ops import _build
+
+    for src in ("egnn_edge_fwd", "egnn_edge_bwd"):
+        print(f"kernel B3 ptxas {src}:",
+              json.dumps(_build.ptxas_readings(src)), flush=True)
     rows = []
     for e in EDGE_COUNTS:
         for f in (20, 64):
@@ -1862,10 +1871,10 @@ RACE_WINDOWS, RACE_STEPS, RACE_BURNIN = 2, 5, 3
 # rounding point, that fail them.
 
 
-def paired_inputs(e: int, f: int, dtype, seed: int):
+def paired_inputs(e: int, f: int, dtype, seed: int, b: int = B):
     """kernel_inputs on the mirror-paired layout: the arc half's indices
     (arcs at -1 and N among them, self-loops) and mask, mirrored."""
-    src, dst, mask, *rest = kernel_inputs(B, e, f, dtype, seed)
+    src, dst, mask, *rest = kernel_inputs(b, e, f, dtype, seed)
     half = e // 2
     s0, d0, m0 = (t[:, :half].clone() for t in (src, dst, mask))
     s0[:, 8:12] = -1
@@ -1874,48 +1883,59 @@ def paired_inputs(e: int, f: int, dtype, seed: int):
             torch.cat([m0, m0], 1), *rest)
 
 
+# B4's shapes: the race's, and one graph (its arcs over many CTAs in bf16)
+PAIRED_CASES = ([(B, e, f, name, dtype) for e in EDGE_COUNTS for f in (20, 64)
+                 for name, dtype in DTYPES]
+                + [(1, 2560, 64, "bfloat16", torch.bfloat16)])
+
+
 def check_paired_kernel() -> list:
     """B4 against its plain version on paired batches, timed beside it and
-    beside B1 on the same batch (whose residuals it should equal)."""
+    beside B1 on the same batch (whose residuals it should equal); its
+    shared memory, CTAs an SM and each form's registers and spills."""
+    from immunostruct_tpu_torch.ops import _build, mega
     from immunostruct_tpu_torch.ops.mega import (
         check_paired, edge_mega_fwd, edge_mega_paired_fwd,
         edge_mega_paired_fwd_reference, mirror_edges, valid_edges,
     )
 
+    print("kernel B4 ptxas:", json.dumps(
+        _build.ptxas_readings("egnn_mega_paired_fwd")), flush=True)
     rows = []
-    for e in EDGE_COUNTS:
-        for f in (20, 64):
-            for name, dtype in DTYPES:
-                args = paired_inputs(e, f, dtype, seed=e + f + 2)
-                check_paired(*args[:3])
-                out, a1, xd = edge_mega_paired_fwd(*args)
-                torch.cuda.synchronize()
-                ref, a1_ref, xd_ref = edge_mega_paired_fwd_reference(*args)
-                err, rel, tol = fwd_errors(out, ref, dtype)
-                res_err = residual_errors((a1, xd), (a1_ref, xd_ref), dtype)
-                assert res_err <= 1.0, res_err
-                _, a1_b1, xd_b1 = edge_mega_fwd(*args)
-                same = torch.equal(a1, a1_b1) and torch.equal(xd, xd_b1)
-                ms, plain_ms = alternate_ms(
-                    lambda: edge_mega_paired_fwd_reference(*args),
-                    lambda: edge_mega_paired_fwd(*args))
-                b1_ms = cuda_ms(lambda: edge_mega_fwd(*args))
-                bare_ms = cuda_ms(lambda: edge_mega_paired_fwd(
-                    *args, residuals=False))
-                valid = valid_edges(*mirror_edges(*args[:3]), N).sum().item()
-                flops = 2 * B * N * f * 2 * H + 2 * valid * 2 * H * H
-                # the arc half of src, dst and mask is read
-                nbytes = (tensor_bytes(*args[3:], out, a1, xd)
-                          + tensor_bytes(*args[:3]) // 2)
-                row = dict(E=e, F=f, dtype=name, max_abs_err=err,
-                           **bound(nbytes, flops, dtype), **rel,
-                           tolerance=tol, residual_err_in_tol=res_err,
-                           residuals_equal_b1=same, ms=ms,
-                           ms_without_residuals=bare_ms, plain_ms=plain_ms,
-                           b1_ms_same_batch=b1_ms)
-                print("kernel B4:", json.dumps(row), flush=True)
-                rows.append(row)
-                del args, out, ref, a1, xd, a1_ref, xd_ref, a1_b1, xd_b1
+    for b, e, f, name, dtype in PAIRED_CASES:
+        args = paired_inputs(e, f, dtype, seed=e + f + 2, b=b)
+        check_paired(*args[:3])
+        out, a1, xd = edge_mega_paired_fwd(*args)
+        torch.cuda.synchronize()
+        ref, a1_ref, xd_ref = edge_mega_paired_fwd_reference(*args)
+        err, rel, tol = fwd_errors(out, ref, dtype)
+        res_err = residual_errors((a1, xd), (a1_ref, xd_ref), dtype)
+        assert res_err <= 1.0, res_err
+        _, a1_b1, xd_b1 = edge_mega_fwd(*args)
+        same = torch.equal(a1, a1_b1) and torch.equal(xd, xd_b1)
+        ms, plain_ms = alternate_ms(
+            lambda: edge_mega_paired_fwd_reference(*args),
+            lambda: edge_mega_paired_fwd(*args))
+        b1_ms = cuda_ms(lambda: edge_mega_fwd(*args))
+        bare_ms = cuda_ms(lambda: edge_mega_paired_fwd(
+            *args, residuals=False))
+        valid = valid_edges(*mirror_edges(*args[:3]), N).sum().item()
+        flops = 2 * b * N * f * 2 * H + 2 * valid * 2 * H * H
+        # the arc half of src, dst and mask is read
+        nbytes = (tensor_bytes(*args[3:], out, a1, xd)
+                  + tensor_bytes(*args[:3]) // 2)
+        row = dict(B=b, E=e, F=f, dtype=name, max_abs_err=err,
+                   **bound(nbytes, flops, dtype), **rel,
+                   tolerance=tol, residual_err_in_tol=res_err,
+                   residuals_equal_b1=same, ms=ms,
+                   ms_without_residuals=bare_ms, plain_ms=plain_ms,
+                   b1_ms_same_batch=b1_ms,
+                   **occupancy(mega._paired_lib(),
+                               "egnn_mega_paired_fwd", N, dtype))
+        assert same, "B4's residuals are not B1's"
+        print("kernel B4:", json.dumps(row), flush=True)
+        rows.append(row)
+        del args, out, ref, a1, xd, a1_ref, xd_ref, a1_b1, xd_b1
     return rows
 
 
@@ -2518,20 +2538,26 @@ def profile_row(label, agg, per_name, traced, wall) -> dict:
         return sum(t for name, (t, _) in per_name.items()
                    if tag in name and also in name) / 1e3 / traced
 
+    # B1 and B4: their f32 kernels, or the bf16 form's projections (one
+    # kernel for both: B4's under 'paired') and edge kernel (B1's tile
+    # policy EdgeTiles, B4's ArcTiles); the chunk sums (B1 and B4 at small
+    # B, B5b) are chunk_sum_ms
+    proj_ms = kernel_ms("egnn_mega_proj")
+    paired = "paired" in agg
     row = dict(
         work=label, aggregation=agg, wall_ms_median=wall,
         device_busy_ms=busy_ms,
         device_ops_per_call=sum(c for _, c in per_name.values()) / traced,
         idle_share=max(0.0, 1.0 - busy_ms / wall),
-        # B1: its f32 kernel, or the bf16 form's projections and edge
-        # kernel; the chunk sums (B1 at small B, B5b) are chunk_sum_ms
-        b1_ms=kernel_ms("egnn_mega_fwd") + kernel_ms("egnn_mega_proj"),
+        b1_ms=(kernel_ms("egnn_mega_fwd_kernel") + kernel_ms("EdgeTiles")
+               + (0.0 if paired else proj_ms)),
         b2_ms=kernel_ms("tail_bwd", ", 0>("),
         b3_fwd_ms=kernel_ms("egnn_edge_fwd"),
         b3_bwd_ms=kernel_ms("egnn_edge_bwd"),
         b8_scatter_ms=kernel_ms("segment_scatter_kernel"),
         b8_gather_ms=kernel_ms("segment_gather_kernel"),
-        b4_ms=kernel_ms("egnn_mega_paired_fwd_kernel"),
+        b4_ms=(kernel_ms("egnn_mega_paired_fwd_kernel")
+               + kernel_ms("ArcTiles") + (proj_ms if paired else 0.0)),
         b5a_ms=kernel_ms("tail_bwd", ", 1>("),
         b5b_ms=kernel_ms("tail_bwd", ", 2>("),
         chunk_sum_ms=kernel_ms("reduce_node_chunks"),
@@ -2749,6 +2775,8 @@ def main() -> int:
         for r in rows:
             smem = ("" if "smem_per_cta" not in r else
                     f", {r['smem_per_cta']} B shared memory a CTA")
+            if "ctas_per_sm" in r:
+                smem += f", {r['ctas_per_sm']} CTAs an SM"
             print(f"kernel  [{card}]: {kind} B={r.get('B', B)} E={r['E']} "
                   f"F={r['F']} {r['dtype']}: kernel {r['ms']:.4f} ms, plain "
                   f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -2764,6 +2792,8 @@ def main() -> int:
                 bare += f", {r['smem_per_cta']} B shared memory a CTA"
             if "ctas_per_sm" in r:
                 bare += f", {r['ctas_per_sm']} CTAs an SM"
+            if "device_ms" in r:
+                bare += f", device {r['device_ms']:.4f} ms"
             print(f"kernel  [{card}]: {label} B={r.get('B', B)} E={r['E']} "
                   f"F={r['F']} "
                   f"{r['dtype']}: kernel {r['ms']:.4f} ms, plain "

@@ -10,16 +10,16 @@
 //                      the f32 forms' products: register-tiled FMA loops
 //                      over f32 tiles in shared memory (CUDA cores; f32 keeps
 //                      them, since TF32 would break the f32 bounds);
-//   node_projections   pa | pb = h @ W1ab for a graph's nodes, in f32 (B1 in
-//                      both forms, B4, B6);
+//   node_projections   pa | pb = h @ W1ab for a graph's nodes, in f32 (B1
+//                      and B4 in both forms, B6);
 //   geometry_tile      the per-edge geometry from raw indices and the xd
-//                      residual (B1 in both forms, B4, B6);
+//                      residual (B1 in both forms, B6);
 //   fwd_tile_chain     the edge chain over one 64-edge tile on the CUDA
 //                      cores (a1, m, cw, the f32 aggregation with
-//                      shared-memory atomics, the a1 residual): B1's f32
-//                      form, B4, B6.
-// The tensor-core forms (B1, B2, B5a, B5b and B3's backward in bf16) build
-// on csrc/egnn_hopper.cuh, which includes this header. What bounds each
+//                      shared-memory atomics, the a1 residual): the f32
+//                      forms of B1 and B4, and B6 in both dtypes.
+// The tensor-core forms (B1, B2, B3, B4, B5a, B5b in bf16) build on
+// csrc/egnn_hopper.cuh, which includes this header. What bounds each
 // kernel on the card and what its design does about it is in its source.
 // Rounding points under bf16 are the TPU kernels' (pallas_mega.py,
 // pallas_edge.py): see csrc/egnn_mega_fwd.cu and csrc/egnn_tail_bwd.cu.

@@ -40,7 +40,9 @@
 //     d_p2, d_a1), so no rounding moves; at F=20 the depth 2F=40 pads to 48
 //     with zero rows. A value about to round to bf16 within kTieUlps f32
 //     units of a rounding boundary (a1s, m, c1, d_p3, d_p2, d_a1) is
-//     recomputed on the CUDA cores in the plain version's order;
+//     recomputed on the CUDA cores in the plain version's order. The
+//     chain's steps are csrc/egnn_hopper.cuh's, its recompute (chain_a1,
+//     chain_p2, chain_c1) shared with B3's forward;
 //   - the next tile's runs of 64 bf16 along E (the bundles' [F+3] rows each
 //     side, the cotangent's H+3, ef) arrive by cp.async into the other of
 //     two stages while this tile computes; the bundle rows are the A operand
@@ -501,8 +503,6 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 
 using bf2 = __nv_bfloat162;
-constexpr int kLdf = kHidden + 8;  // f32 row of a1 and dW1ab: 2-way banks
-constexpr int kRowChunks = 8;      // 16-byte chunks of a run of 64 bf16
 
 // Byte offsets into a CTA's shared memory for node features F. A stage holds
 // one tile's runs of 64 bf16 along E, each in a row of kRunBytes: the bundle
@@ -539,37 +539,6 @@ __host__ __device__ inline EdgeLayout edge_layout(int f) {
   l.edge = l.sms + 6 * kHidden * 4;
   l.bytes = l.edge + kEdgeRows * kTile * 4;
   return l;
-}
-
-// acc[nt][.] += rows m0..m0+15 of A . B over depth K (a multiple of 16), all
-// 64 columns; A stored [k][m], B stored [k][n] (warp_product<true, true> at
-// any depth)
-__device__ __forceinline__ void warp_product_k(const bf* a, const bf* b,
-                                               int m0, int lane, int K,
-                                               float (&acc)[8][4]) {
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    unsigned af[4];
-    load_a<true>(af, a, m0, k0, lane);
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      unsigned bfr[4];
-      load_b<true>(bfr, b, np * 16, k0, lane);
-      mma_add(acc[2 * np], af, bfr[0], bfr[1]);
-      mma_add(acc[2 * np + 1], af, bfr[2], bfr[3]);
-    }
-  }
-}
-
-// sum over k < K, in k order, of a[k * sa] * b[k * sb]
-__device__ __forceinline__ float dot_n(const bf* a, int sa, const bf* b,
-                                       int sb, int K) {
-  float acc = 0.0f;
-#pragma unroll 8
-  for (int k = 0; k < K; ++k) {
-    acc = fmaf(__bfloat162float(a[k * sa]), __bfloat162float(b[k * sb]),
-               acc);
-  }
-  return acc;
 }
 
 // Per graph b (CTAs b*chunks .. b*chunks+chunks-1, each a chunk of edges),
@@ -733,11 +702,8 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
     };
     // a1 of tile edge t, column j, as the plain version sums it; a1 as the
     // chain's backward reads it; the cotangent d_m_in
-    auto a1_exact = [&](int t, int j) {
-      float a = dot_n(xt + t, kLdb, w1s + j, kLdb, F2) +
-                sms[kW1R * H + j] * ev[kERad * kTile + t];
-      a = a + sms[kW1E * H + j] * ev[kEEf * kTile + t];
-      return a + sms[kB1 * H + j];
+    auto a1_tie = [&](int t, int j) {
+      return a1_exact(xt, w1s, F2, sms, ev, t, j);
     };
     auto a1_of = [&](int t, int j) { return a1f[t * kLdf + j]; };
     auto dm_in = [&](int t, int j) { return at(rc + j, t); };
@@ -775,40 +741,7 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
 
     // ---- a1 = [hs ; hd] @ W1ab + w1r*radial + w1e*ef + b1 -> a1s [j][t];
     // a1 kept in f32 for silu'(a1) ----
-    {
-      float acc[8][4];
-      zero(acc);
-      warp_product_k(xt, w1s, m0, lane, L.kp, acc);
-      unsigned tie = 0;  // bit tie_bit(nt, h, c): a1s near a tie
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int t = m0 + fr + 8 * h, j0 = nt * 8 + 2 * fq;
-          float av[2];
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int j = j0 + c;
-            float a = acc[nt][2 * h + c] +
-                      sms[kW1R * H + j] * ev[kERad * kTile + t];
-            a = a + sms[kW1E * H + j] * ev[kEEf * kTile + t];
-            a = a + sms[kB1 * H + j];
-            av[c] = a;
-            const float v = a * sigmoid_fast(a);
-            tie |= unsigned(near_tie(v)) << tie_bit(nt, h, c);
-            a1st[j * kLdb + t] = __float2bfloat16(v);
-          }
-          *reinterpret_cast<float2*>(a1f + t * kLdf + j0) =
-              make_float2(av[0], av[1]);
-        }
-      for (; tie; tie &= tie - 1) {
-        const int i = __ffs(tie) - 1;
-        const int t = tie_edge(m0, fr, i), j = tie_col(i, fq);
-        const float a = a1_exact(t, j);
-        a1st[j * kLdb + t] = __float2bfloat16(a * sigmoid(a));
-        a1f[t * kLdf + j] = a;
-      }
-    }
+    chain_a1(xt, w1s, L.kp, F2, sms, ev, a1st, a1f, m0, lane);
     __syncwarp();
 
     // ---- p2 = a1s @ W2 + b2 -> m; keep silu'(p2) ----
@@ -817,7 +750,7 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
     __syncwarp();
 
     // ---- p3 = m @ Wc1 + bc1 -> c1, cw; d_p3 = wc2 * d_cw * silu'(p3) ----
-    chain_p3(mt, wc1s, sms, ev, dp3t, m0, lane, gbc1, gwc2);
+    chain_c1<true>(mt, wc1s, sms, ev, dp3t, m0, lane, gbc1, gwc2);
     __syncwarp();
 
     // ---- d_m = d_m_in + Wc1 @ d_p3; d_p2 = d_m * silu'(p2) ----
@@ -835,7 +768,7 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
     // ---- d_a1 = (W2 @ d_p2) * silu'(a1); d_xd, d_ef ----
     {
       float prad[2] = {0.0f, 0.0f}, pef[2] = {0.0f, 0.0f};
-      chain_da1(da_acc, dp2t, w2s, sms, a1_of, a1_exact, a1st, m0, lane,
+      chain_da1(da_acc, dp2t, w2s, sms, a1_of, a1_tie, a1st, m0, lane,
                 prad, pef);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {

@@ -1,25 +1,29 @@
 // Building blocks of the tensor-core forms for Hopper (sm_90a), shared by
-// csrc/egnn_tail.cuh (B2, B5a, B5b), csrc/egnn_edge_bwd.cu (B3's backward)
-// and csrc/egnn_mega_fwd.cu (B1):
+// csrc/egnn_tail.cuh (B2, B5a, B5b), csrc/egnn_edge_fwd.cu and
+// csrc/egnn_edge_bwd.cu (B3's forward and backward) and csrc/egnn_mega.cuh
+// (B1 and B4):
 //
 //   cp_async*, stage_run, run_offset, staged
 //                      tiles copied from device memory to shared memory by
 //                      cp.async while the previous tile computes;
-//   ldsm_*, load_a, load_b, mma_add, warp_product
+//   ldsm_*, load_a, load_b, mma_add, warp_product, warp_product_k
 //                      mma.sync.m16n8k16 with bf16 operands fed by ldmatrix
 //                      from bf16 tiles of row stride kLdb (144 B: the 8 rows
 //                      of a 16-byte ldmatrix read fall in 8 bank groups), each
 //                      product added to its accumulator in f32;
-//   sigmoid_fast, near_tie, dot_k and the tie helpers
+//   sigmoid_fast, near_tie, dot_k, dot_n and the tie helpers
 //                      the near-tie recompute: a value about to round to bf16
 //                      within kTieUlps f32 units of a rounding boundary is
 //                      recomputed on the CUDA cores in the plain version's
 //                      order, so that it rounds as there;
-//   chain_p2, chain_p3, chain_dp2, chain_da1, edge_dxd, chain_dsmall_v,
-//   store_chain_partials
-//                      the steps of the edge chain's backward that the tail
-//                      backwards and B3's backward share, per warp of 16
-//                      edges, with their rounding points and the recompute;
+//   chain_a1, chain_p2, chain_c1
+//                      the steps of the edge chain forward, per warp of 16
+//                      edges, with their rounding points and the recompute:
+//                      B3's forward and backward, and (from chain_p2 on) the
+//                      tail backwards;
+//   chain_dp2, chain_da1, edge_dxd, chain_dsmall_v, store_chain_partials
+//                      the steps of the chain's backward that the tail
+//                      backwards and B3's backward share;
 //   reduce_node_chunks per-chunk f32 node blocks summed in chunk order (no
 //                      atomics: the same bits from run to run).
 
@@ -36,6 +40,8 @@ constexpr int kLdb = kHidden + 8;       // bf16 row of an operand tile, 144 B
 constexpr int kTileBytes = kTile * kLdb * 2;
 constexpr int kRunBytes = 144;          // a staged run of 64 bf16: 9 chunks
 constexpr int kRunChunks = kRunBytes / 16;
+constexpr int kRowChunks = 8;          // 16-byte chunks of a run of 64 bf16
+constexpr int kLdf = kHidden + 8;       // f32 row of a1 and dW1ab: 2-way banks
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -146,6 +152,18 @@ __device__ __forceinline__ float dot_k(const bf* a, int sa, const bf* b,
   return acc;
 }
 
+// sum over k < K, in k order, of a[k * sa] * b[k * sb]
+__device__ __forceinline__ float dot_n(const bf* a, int sa, const bf* b,
+                                       int sb, int K) {
+  float acc = 0.0f;
+#pragma unroll 8
+  for (int k = 0; k < K; ++k) {
+    acc = fmaf(__bfloat162float(a[k * sa]), __bfloat162float(b[k * sb]),
+               acc);
+  }
+  return acc;
+}
+
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -231,6 +249,25 @@ __device__ __forceinline__ void warp_product(const bf* a, const bf* b,
   }
 }
 
+// acc[nt][.] += rows m0..m0+15 of A . B over depth K (a multiple of 16), all
+// 64 columns; A stored [k][m], B stored [k][n] (warp_product<true, true> at
+// any depth)
+__device__ __forceinline__ void warp_product_k(const bf* a, const bf* b,
+                                               int m0, int lane, int K,
+                                               float (&acc)[8][4]) {
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    unsigned af[4];
+    load_a<true>(af, a, m0, k0, lane);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      unsigned bfr[4];
+      load_b<true>(bfr, b, np * 16, k0, lane);
+      mma_add(acc[2 * np], af, bfr[0], bfr[1]);
+      mma_add(acc[2 * np + 1], af, bfr[2], bfr[3]);
+    }
+  }
+}
+
 __device__ __forceinline__ void zero(float (&acc)[8][4]) {
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt)
@@ -250,17 +287,78 @@ __device__ __forceinline__ float sum4(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// The edge chain's backward on the tensor cores, shared by the tail
-// backwards (B2, B5a, B5b: csrc/egnn_tail.cuh) and B3's backward
-// (csrc/egnn_edge_bwd.cu). Per warp: the 16 edges m0..m0+15 of a 64-edge
-// tile, lane `lane`. The tile's operands are bf16 [.][kLdb]: a1s [j][t]
-// (then d_a1 [t][j]), m, d_p3, d_p2 [t][j]; W2 and Wc1 [k][n]; small^T
-// sms [6][H] f32; the per-edge f32 values ev [kEdgeRows][kTile].
+// The edge chain on the tensor cores: its forward steps, shared by B3's
+// forward (csrc/egnn_edge_fwd.cu) and the backwards that recompute it, and
+// its backward steps, shared by the tail backwards (B2, B5a, B5b:
+// csrc/egnn_tail.cuh) and B3's backward (csrc/egnn_edge_bwd.cu). Per warp:
+// the 16 edges m0..m0+15 of a 64-edge tile, lane `lane`. The tile's
+// operands are bf16 [.][kLdb]: the staged bundle features xt [feature][t],
+// a1s [j][t] (then d_a1 [t][j]), m, d_p3, d_p2 [t][j]; W1ab, W2 and Wc1
+// [k][n]; small^T sms [6][H] f32; the per-edge f32 values ev
+// [kEdgeRows][kTile].
 // ---------------------------------------------------------------------------
 
 // rows of the per-edge values
 constexpr int kERad = 0, kEInv = 1, kEEf = 2, kECw = 3, kEDcw = 4, kEXd = 5,
               kEDmx = 8, kEDxd = 11, kEdgeRows = 14;
+
+// a1 of tile edge t, column j, as the plain version sums it: [hs ; hd] . W1ab
+// over the 2F features in k order (xt [feature][t], w1s [feature][j]), then
+// w1r*radial, w1e*ef and b1 (radial and ef from ev)
+__device__ __forceinline__ float a1_exact(const bf* xt, const bf* w1s, int f2,
+                                          const float* sms, const float* ev,
+                                          int t, int j) {
+  constexpr int H = kHidden;
+  float a = dot_n(xt + t, kLdb, w1s + j, kLdb, f2) +
+            sms[kW1R * H + j] * ev[kERad * kTile + t];
+  a = a + sms[kW1E * H + j] * ev[kEEf * kTile + t];
+  return a + sms[kB1 * H + j];
+}
+
+// a1 = [hs ; hd] @ W1ab + w1r*radial + w1e*ef + b1 over depth kp (2F padded
+// with zero rows to a multiple of 16) -> a1s into a1st [j][t]; a1 in f32
+// into a1f [t][kLdf] where a1f is not null (the backward's silu'(a1))
+__device__ __forceinline__ void chain_a1(const bf* xt, const bf* w1s, int kp,
+                                         int f2, const float* sms,
+                                         const float* ev, bf* a1st,
+                                         float* a1f, int m0, int lane) {
+  constexpr int H = kHidden;
+  const int fr = lane >> 2, fq = lane & 3;
+  float acc[8][4];
+  zero(acc);
+  warp_product_k(xt, w1s, m0, lane, kp, acc);
+  unsigned tie = 0;  // bit tie_bit(nt, h, c): a1s near a tie
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int t = m0 + fr + 8 * h, j0 = nt * 8 + 2 * fq;
+      float av[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int j = j0 + c;
+        float a = acc[nt][2 * h + c] +
+                  sms[kW1R * H + j] * ev[kERad * kTile + t];
+        a = a + sms[kW1E * H + j] * ev[kEEf * kTile + t];
+        a = a + sms[kB1 * H + j];
+        av[c] = a;
+        const float v = a * sigmoid_fast(a);
+        tie |= unsigned(near_tie(v)) << tie_bit(nt, h, c);
+        a1st[j * kLdb + t] = __float2bfloat16(v);
+      }
+      if (a1f != nullptr) {
+        *reinterpret_cast<float2*>(a1f + t * kLdf + j0) =
+            make_float2(av[0], av[1]);
+      }
+    }
+  for (; tie; tie &= tie - 1) {
+    const int i = __ffs(tie) - 1;
+    const int t = tie_edge(m0, fr, i), j = tie_col(i, fq);
+    const float a = a1_exact(xt, w1s, f2, sms, ev, t, j);
+    a1st[j * kLdb + t] = __float2bfloat16(a * sigmoid(a));
+    if (a1f != nullptr) a1f[t * kLdf + j] = a;
+  }
+}
 
 // p2 = a1s @ W2 + b2 -> m into mt; g2 = silu'(p2)
 __device__ __forceinline__ void chain_p2(const bf* a1st, const bf* w2s,
@@ -298,9 +396,11 @@ __device__ __forceinline__ void chain_p2(const bf* a1st, const bf* w2s,
   }
 }
 
-// p3 = m @ Wc1 + bc1 -> c1, cw (rounded, into ev); d_p3 = wc2 * d_cw *
-// silu'(p3) into dp3t; dbc1 and dwc2 summed over this thread's columns
-__device__ __forceinline__ void chain_p3(const bf* mt, const bf* wc1s,
+// p3 = m @ Wc1 + bc1 -> c1, cw (rounded, into ev). With kDp3 (the
+// backward) also d_p3 = wc2 * d_cw * silu'(p3) into dp3t, and dbc1 and dwc2
+// summed over this thread's columns; the forward (B3's) passes no d_p3.
+template <bool kDp3>
+__device__ __forceinline__ void chain_c1(const bf* mt, const bf* wc1s,
                                          const float* sms, float* ev,
                                          bf* dp3t, int m0, int lane,
                                          float (&gbc1)[16],
@@ -317,7 +417,7 @@ __device__ __forceinline__ void chain_p3(const bf* mt, const bf* wc1s,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int t = m0 + fr + 8 * h, j0 = nt * 8 + 2 * fq;
-      const float dcw = ev[kEDcw * kTile + t];
+      const float dcw = kDp3 ? ev[kEDcw * kTile + t] : 0.0f;
       float d3[2];
       bool at_tie[2];
 #pragma unroll
@@ -326,34 +426,43 @@ __device__ __forceinline__ void chain_p3(const bf* mt, const bf* wc1s,
         const float p = acc[nt][2 * h + c] + sms[kBC1 * H + j];
         const float s = sigmoid_fast(p);
         const float c1 = rnd<bf>(p * s);
-        const float g3 = silu_grad(p, s);
-        d3[c] = sms[kWC2 * H + j] * dcw * g3;
-        at_tie[c] = near_tie(p * s) || near_tie(d3[c]);
+        if constexpr (kDp3) {
+          const float g3 = silu_grad(p, s);
+          d3[c] = sms[kWC2 * H + j] * dcw * g3;
+          at_tie[c] = near_tie(p * s) || near_tie(d3[c]);
+        } else {
+          at_tie[c] = near_tie(p * s);
+        }
         tie |= unsigned(at_tie[c]) << tie_bit(nt, h, c);
         part[h] += at_tie[c] ? 0.0f : c1 * sms[kWC2 * H + j];
-        gwc2[2 * nt + c] += at_tie[c] ? 0.0f : c1 * dcw;
+        if constexpr (kDp3) gwc2[2 * nt + c] += at_tie[c] ? 0.0f : c1 * dcw;
       }
-      // d_p3 rounds once, at its bf16 store, and dbc1 sums the stored
-      // values: the products and dbc1 see the same rounded d_p3
-      const __nv_bfloat162 q = __floats2bfloat162_rn(d3[0], d3[1]);
-      *reinterpret_cast<__nv_bfloat162*>(dp3t + t * kLdb + j0) = q;
-      gbc1[2 * nt] += __low2float(q);
-      gbc1[2 * nt + 1] += __high2float(q);
+      if constexpr (kDp3) {
+        // d_p3 rounds once, at its bf16 store, and dbc1 sums the stored
+        // values: the products and dbc1 see the same rounded d_p3
+        const __nv_bfloat162 q = __floats2bfloat162_rn(d3[0], d3[1]);
+        *reinterpret_cast<__nv_bfloat162*>(dp3t + t * kLdb + j0) = q;
+        gbc1[2 * nt] += __low2float(q);
+        gbc1[2 * nt + 1] += __high2float(q);
+      }
     }
   for (; tie; tie &= tie - 1) {
     const int i = __ffs(tie) - 1;
     const int t = tie_edge(m0, fr, i), j = tie_col(i, fq);
-    const float dcw = ev[kEDcw * kTile + t];
     const float p =
         dot_k(mt + t * kLdb, 1, wc1s + j, kLdb) + sms[kBC1 * H + j];
     const float s = sigmoid(p);
     const float c1 = rnd<bf>(p * s);
-    const bf q = __float2bfloat16(sms[kWC2 * H + j] * dcw * silu_grad(p, s));
-    add_at(gbc1, tie_sum(i),
-           __bfloat162float(q) - __bfloat162float(dp3t[t * kLdb + j]));
-    dp3t[t * kLdb + j] = q;
+    if constexpr (kDp3) {
+      const float dcw = ev[kEDcw * kTile + t];
+      const bf q =
+          __float2bfloat16(sms[kWC2 * H + j] * dcw * silu_grad(p, s));
+      add_at(gbc1, tie_sum(i),
+             __bfloat162float(q) - __bfloat162float(dp3t[t * kLdb + j]));
+      dp3t[t * kLdb + j] = q;
+      add_at(gwc2, tie_sum(i), c1 * dcw);
+    }
     add_at(part, i / 2 % 2, c1 * sms[kWC2 * H + j]);
-    add_at(gwc2, tie_sum(i), c1 * dcw);
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {

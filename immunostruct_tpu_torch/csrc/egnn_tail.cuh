@@ -775,7 +775,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     __syncwarp();
 
     // ---- p3 = m @ Wc1 + bc1 -> c1, cw; d_p3 = wc2 * d_cw * silu'(p3) ----
-    chain_p3(mt, wc1s, sms, ev, dp3t, m0, lane, gbc1, gwc2);
+    chain_c1<true>(mt, wc1s, sms, ev, dp3t, m0, lane, gbc1, gwc2);
     __syncwarp();
 
     // ---- d_m = d_m_in + Wc1 @ d_p3; d_p2 = d_m * silu'(p2) ----

@@ -10,8 +10,9 @@ The library goes to ``immunostruct_tpu_torch/_build/`` (git-ignored), named
 by a hash of the source, the shared headers (``csrc/*.cuh``) and the flags,
 so an edited source or header rebuilds. The
 compiler's report (registers, shared memory, spills per kernel) is printed
-to standard error on every build. ``build`` starts one nvcc per missing
-library, all at once. Nothing here runs at import time.
+to standard error on every build and kept beside the library (``.log``);
+``ptxas_readings`` reads it per kernel. ``build`` starts one nvcc per
+missing library, all at once. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -78,9 +80,53 @@ def build(names=None) -> None:
             failed.append(f"nvcc failed ({proc.returncode}) building "
                           f"{name}.cu:\n{out}")
         else:
+            _lib_path(name).with_suffix(".log").write_text(out)
             os.replace(tmp, _lib_path(name))
     if failed:
         raise RuntimeError("\n".join(failed))
+
+
+def ptxas_readings(name: str) -> dict:
+    """{kernel: {registers, spill_stores, spill_loads}} from the compiler's
+    report of the built ``csrc/<name>.cu`` (else {}); a kernel is named by
+    its function, its tile policy where it has one and its compute dtype
+    (f32 or bf16) where it is a template on it."""
+    log = _lib_path(name).with_suffix(".log")
+    report = log.read_text() if log.exists() else ""
+    readings = {}
+    for part in report.split("Compiling entry function '")[1:]:
+        mangled = part.split("'", 1)[0]
+        key, rest = mangled, ""
+        i = 0
+        while i < len(mangled):               # <length><identifier> names
+            m = re.match(r"\d+", mangled[i:])
+            if m is None:
+                i += 1
+                continue
+            start = i + m.end()
+            ident = mangled[start:start + int(m.group())]
+            i = start + len(ident)
+            if ident.endswith(("kernel", "chunks", "reduce", "blocks")):
+                key, rest = ident, mangled[i:]
+                break
+        tag = re.search(r"(EdgeTiles|ArcTiles)", rest)
+        variant = re.match(r"ILi\d+ELi(\d+)E", rest)
+        if tag:
+            key += f"<{tag.group(1)}>"
+        elif variant:
+            key += f"<{variant.group(1)}>"
+        elif rest.startswith("I13__nv_bfloat16"):
+            key += "<bf16>"
+        elif rest.startswith("If"):
+            key += "<f32>"
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", part)
+        readings[key] = dict(
+            registers=int(regs.group(1)) if regs else None,
+            spill_stores=int(spill.group(1)) if spill else None,
+            spill_loads=int(spill.group(2)) if spill else None)
+    return readings
 
 
 @functools.lru_cache(maxsize=None)

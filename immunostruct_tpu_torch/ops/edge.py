@@ -18,6 +18,7 @@ Two hand-written Hopper kernels carry it, each with its plain PyTorch
 version beside it in this module:
 
   B3 fwd ``edge_program_fwd`` -> csrc/egnn_edge_fwd.cu (plain: ``edge_program_reference``)
+         in bf16 on the tensor cores, with B3 bwd's chain steps.
   B3 bwd ``edge_program_bwd`` -> csrc/egnn_edge_bwd.cu (plain: ``edge_program_bwd_reference``)
          recomputes the chain from hsx/hdx/ef (nothing is saved from the
          forward) and returns dhsx, dhdx [B, F+3, E] and def [B, 1, E] in
@@ -283,8 +284,10 @@ def _fwd_lib():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.egnn_edge_fwd.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
     lib.egnn_edge_fwd.restype = i32
-    lib.egnn_edge_fwd_smem_bytes.argtypes = [i32, i32]
+    lib.egnn_edge_fwd_smem_bytes.argtypes = [i32, i32, i32]
     lib.egnn_edge_fwd_smem_bytes.restype = ctypes.c_longlong
+    lib.egnn_edge_fwd_ctas_per_sm.argtypes = [i32, i32, i32]
+    lib.egnn_edge_fwd_ctas_per_sm.restype = i32
     return lib
 
 
@@ -351,9 +354,10 @@ def _on_cuda(name, t) -> bool:
 def edge_program_fwd(hsx, hdx, ef, w1ab, w2, wc1, small):
     """B3's forward: [B, H+3, E] in the compute dtype.
 
-    CUDA tensors launch csrc/egnn_edge_fwd.cu or raise; CPU tensors go
-    through ``edge_program_reference``. ``edge_program.launches`` counts
-    the kernel's launches."""
+    CUDA tensors launch csrc/egnn_edge_fwd.cu (f32 on the CUDA cores, bf16
+    on the tensor cores) or raise; CPU tensors go through
+    ``edge_program_reference``. ``edge_program.launches`` counts the
+    kernel's launches."""
     if not _on_cuda("edge_program", hsx):
         return edge_program_reference(hsx, hdx, ef, w1ab, w2, wc1, small)
     b, f, e, hid = _check_bundles("edge_program", hsx, hdx, ef, w1ab, w2,
@@ -361,7 +365,9 @@ def edge_program_fwd(hsx, hdx, ef, w1ab, w2, wc1, small):
     lib = _fwd_lib()
     with torch.cuda.device(hsx.device):
         props = hopper(hsx.device, "edge_program")
-        _smem_ok("edge_program", lib.egnn_edge_fwd_smem_bytes(f, hid),
+        _smem_ok("edge_program",
+                 lib.egnn_edge_fwd_smem_bytes(
+                     f, hid, int(hsx.dtype == torch.bfloat16)),
                  props, f, hid)
         chunks = chunks_per_graph(e, b, 64, props.multi_processor_count)
         out = torch.empty(b, hid + 3, e, dtype=hsx.dtype, device=hsx.device)

@@ -49,9 +49,11 @@ global, are per-call options here (``mega_variant``, ``MEGA_VARIANTS``):
              (plain: ``edge_mega_paired_fwd_reference``): B1 on the
              mirror-paired layout, edge k + E/2 the reverse of edge k. The
              kernel reads the arc half's indices and mask only; one xd and
-             one geometry serve both directions. The backward is 'hybrid''s
-             (``MEGA_PAIRED``). ``check_paired`` tests the layout on the
-             host.
+             one geometry serve both directions. In bf16 it is B1's
+             tensor-core kernel with tiles of 32 arcs and their mirrors,
+             over ``paired_fwd_chunks`` CTAs per graph. The backward is
+             'hybrid''s (``MEGA_PAIRED``). ``check_paired`` tests the
+             layout on the host.
   'stack'    B6, all layers in one kernel (ops/stack.py; ``STACK_ENABLE``),
              taken by ``egnn_stack_apply``, not by this per-layer op.
 
@@ -113,8 +115,9 @@ def fwd_smem_bytes(n: int, hid: int) -> int:
     """Shared memory of one B1 block in its f32 form (csrc/egnn_common.cuh
     ``fwd_smem_floats``): acc N*(H+3), W2 and Wc1, small^T, two edge-tile
     buffers of 64 rows of H+1, the tile's geometry (9*64), in f32. The bf16
-    form needs no more (``egnn_mega_fwd_smem_bytes``; a card test holds the
-    two together)."""
+    form, and B4's two forms, need no more (``egnn_mega_fwd_smem_bytes``,
+    ``egnn_mega_paired_fwd_smem_bytes``; a card test holds them
+    together)."""
     return 4 * (n * (hid + 3) + 2 * hid * hid + 6 * hid
                 + 2 * 64 * (hid + 1) + 9 * 64)
 
@@ -402,10 +405,12 @@ def _paired_lib():
 
     lib = load_library("egnn_mega_paired_fwd")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.egnn_mega_paired_fwd.argtypes = [ptr] * 14 + [i32] * 6 + [ptr]
+    lib.egnn_mega_paired_fwd.argtypes = [ptr] * 15 + [i32] * 7 + [ptr]
     lib.egnn_mega_paired_fwd.restype = i32
-    lib.egnn_mega_paired_fwd_smem_bytes.argtypes = [i32, i32]
+    lib.egnn_mega_paired_fwd_smem_bytes.argtypes = [i32, i32, i32]
     lib.egnn_mega_paired_fwd_smem_bytes.restype = ctypes.c_longlong
+    lib.egnn_mega_paired_fwd_ctas_per_sm.argtypes = [i32, i32, i32]
+    lib.egnn_mega_paired_fwd_ctas_per_sm.restype = i32
     return lib
 
 
@@ -462,7 +467,8 @@ def edge_mega_fwd(src, dst, mask, ef, h, x, w1ab, w2, wc1, small,
     args = (src, dst, mask, ef, h, x, w1ab, w2, wc1, small)
     if h.device.type == "cpu":
         return _fwd_cpu(edge_mega_fwd_reference, args, residuals)
-    out, a1, xd, ptrs, sizes = _fwd_operands("edge_mega", args, residuals)
+    out, a1, xd, proj, ptrs, sizes = _fwd_operands("edge_mega", args,
+                                                   residuals)
     b, n, e, _, hid = sizes[2:]
     bf16 = int(h.dtype == torch.bfloat16)
     lib = _fwd_lib()
@@ -487,8 +493,10 @@ def edge_mega_paired_fwd(src, dst, mask, ef, h, x, w1ab, w2, wc1, small,
     indices and mask (edges 0 .. E/2-1; ``mirror_edges`` says what the
     kernel computes on). E must be even.
 
-    CUDA tensors launch csrc/egnn_mega_paired_fwd.cu or raise; CPU tensors
-    go through ``edge_mega_paired_fwd_reference``.
+    CUDA tensors launch csrc/egnn_mega_paired_fwd.cu or raise (bf16: B1's
+    projections, ``paired_fwd_chunks`` CTAs per graph and, with more than
+    one, the chunks' sum, all counted as one launch); CPU tensors go
+    through ``edge_mega_paired_fwd_reference``.
     ``edge_mega_paired_fwd.launches`` counts the kernel's launches."""
     if src.shape[1] % 2:
         raise ValueError(f"the paired layout needs an even edge count, got "
@@ -496,17 +504,22 @@ def edge_mega_paired_fwd(src, dst, mask, ef, h, x, w1ab, w2, wc1, small,
     args = (src, dst, mask, ef, h, x, w1ab, w2, wc1, small)
     if h.device.type == "cpu":
         return _fwd_cpu(edge_mega_paired_fwd_reference, args, residuals)
-    out, a1, xd, ptrs, sizes = _fwd_operands("edge_mega_paired", args,
-                                             residuals)
-    n, hid = sizes[3], sizes[6]
+    out, a1, xd, proj, ptrs, sizes = _fwd_operands("edge_mega_paired",
+                                                   args, residuals)
+    b, n, e, _, hid = sizes[2:]
+    bf16 = int(h.dtype == torch.bfloat16)
     lib = _paired_lib()
     with torch.cuda.device(h.device):
-        _check_smem(hopper(h.device, "edge_mega"),
-                    lib.egnn_mega_paired_fwd_smem_bytes(n, hid),
+        props = hopper(h.device, "edge_mega")
+        _check_smem(props, lib.egnn_mega_paired_fwd_smem_bytes(n, hid, bf16),
                     "edge_mega_paired", f"N={n}, H={hid}")
+        chunks = (paired_fwd_chunks(e, b, props.multi_processor_count)
+                  if bf16 else 1)
+        nodes = (torch.empty(b * chunks, n, hid + 3, dtype=torch.float32,
+                             device=h.device) if chunks > 1 else None)
         rc = lib.egnn_mega_paired_fwd(
-            *ptrs, *sizes, int(h.dtype == torch.bfloat16),
-            torch.cuda.current_stream(h.device).cuda_stream)
+            *ptrs, None if nodes is None else nodes.data_ptr(), *sizes,
+            chunks, bf16, torch.cuda.current_stream(h.device).cuda_stream)
     _fwd_rc("egnn_mega_paired_fwd", rc, sizes)
     edge_mega_paired_fwd.launches += 1
     return out, a1, xd
@@ -523,6 +536,17 @@ def fwd_chunks(e: int, b: int, sms: int) -> int:
     return min(-(-tiles // 2), max(1, sms // b))
 
 
+def paired_fwd_chunks(e: int, b: int, sms: int) -> int:
+    """Arc chunks per graph of B4's bf16 form (one CTA per (graph, chunk),
+    one CTA an SM): ``fwd_chunks``' rule on the E/2 arcs, in tiles of 32
+    arcs (each tile also computes their 32 mirrors), then as few chunks as
+    keep that many tiles a chunk, so that none is empty. The kernel gives
+    each chunk ceil(ceil(E/2 / chunks) / 32) tiles."""
+    tiles = max(1, -(-(e // 2) // 32))
+    chunks = min(-(-tiles // 2), max(1, sms // b))
+    return -(-tiles // -(-tiles // chunks))
+
+
 def _fwd_cpu(reference, args, residuals):
     out, a1, xd = reference(*args)
     return (out, a1, xd) if residuals else (out, None, None)
@@ -530,8 +554,11 @@ def _fwd_cpu(reference, args, residuals):
 
 def _fwd_operands(name, args, residuals):
     """The checks B1 and B4 share, and their buffers on the card: (out, a1,
-    xd, the C entry's pointers from src to proj, its arguments from a1 to
-    H); a1 and xd are None without ``residuals``."""
+    xd, proj, the C entry's pointers from src to proj, its arguments from
+    a1 to H); a1 and xd are None without ``residuals``. The caller holds
+    proj, the projections' scratch, until it has launched the kernel: freed
+    earlier, its memory would go to the next allocation (the chunks' node
+    blocks) and the two would overwrite each other."""
     src, dst, mask, ef, h, x, w1ab, w2, wc1, small = args
     if h.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu tensors, "
@@ -566,7 +593,7 @@ def _fwd_operands(name, args, residuals):
     ptrs = [t.data_ptr() for t in (*args[:7], w2, wc1, small, out, proj)]
     sizes = [a1.data_ptr() if residuals else None,
              xd.data_ptr() if residuals else None, b, n, e, f, hid]
-    return out, a1, xd, ptrs, sizes
+    return out, a1, xd, proj, ptrs, sizes
 
 
 def _fwd_rc(entry, rc, sizes):

@@ -27,8 +27,25 @@ seeded ones. One section per kernel (--kernel, default all of them):
             (with the residuals and without) and the residuals pass the
             bounds, the worst column's mean and max ratio, and the a1
             entries more than one bf16 step off, with their edge's nodes.
-  sass      the atomic instructions in each kernel library's SASS
-            (cuobjdump), by opcode.
+  paired_fwd
+            B4's bf16 form (csrc/egnn_mega_paired_fwd.cu on B1's tensor-core
+            kernel, csrc/egnn_mega.cuh; no near-tie recompute) on the card
+            tests' shapes (B=128 at E=2560, 1408 and F=20, 64; B=1 and 200
+            at E=2560 and 1000, F=64, the last graph all masked; B=8 with
+            the second half scrambled), at the tests' seeds and at 1..8:
+            whether the output (with the residuals and without) and the
+            residuals pass B1's bounds, the worst column's mean and max
+            ratio, the a1 entries more than one bf16 step off, and whether
+            the residuals are B1's bit for bit.
+  edge_fwd  B3's bf16 forward (csrc/egnn_edge_fwd.cu) on the card tests'
+            shapes at their seeds and 1..8, at B=1 and 200, and at
+            chip_smoke.py's B=128: whether each input passes
+            ``_assert_edge_close``, the worst row's mean and max ratio and
+            the output entries that differ from the plain version, for
+            kTieUlps 32 (the source's) and -1 (the recompute off).
+  sass      per kernel library's SASS (cuobjdump): the atomic instructions
+            by opcode, and the tensor-core ones (HMMA) of each tensor-core
+            kernel.
   segment_times
             B8 (csrc/segment.cu behind ops/segment.py) at every shape
             chip_smoke.py times it: B=128, N=288, C=67, E=2560 and 1408,
@@ -61,7 +78,14 @@ seeded ones. One section per kernel (--kernel, default all of them):
 --baseline OTHER_CSRC_DIR adds an earlier form of the kernels (say, the
 parent commit's, from ``git archive``). In the tail section, a build of
 that csrc/ directory: B2's, B5a's and B5b's outputs against this build's,
-bit for bit, and their times beside the others. In segment_times, the
+bit for bit, and their times beside the others. In paired_fwd and
+edge_fwd, the checkout that holds it (its ops/mega.py and ops/edge.py with
+their sources): B4 (with the residuals and without, B=128 and B=1) and B3's
+forward timed (CUDA events) in the order baseline, this tree, this tree,
+baseline, at B=128, E=2560 and 1408, F=64 and 20, bf16; and the f32 forms'
+outputs against the baseline's (B3's forward bit for bit; B4's residuals
+bit for bit, its atomic sums within f32 roundoff), B3's backward's outputs
+bit for bit in both dtypes. In segment_times, the
 checkout that holds it (OTHER_CSRC_DIR/..: its ops/segment.py, with its
 segment.cu), timed in the order baseline, this tree, this tree, baseline;
 every row keeps its tree and round. Every build goes to a temporary
@@ -101,14 +125,16 @@ _spec.loader.exec_module(tc)
 
 TIE_ULPS = (32, -1, 64)  # the first is the source's own
 SEEDS = range(1, 9)
-KERNELS = ("tail", "edge_bwd", "mega_fwd", "sass", "segment_times",
-           "segment_phases")
+KERNELS = ("tail", "edge_bwd", "mega_fwd", "paired_fwd", "edge_fwd", "sass",
+           "segment_times", "segment_phases")
 # each library's tensor-core kernel, whose registers and spills are shown
 MMA_KERNEL = {"egnn_tail_bwd": "tail_bwd_mma_kernel",
               "egnn_tail_bwd_db": "tail_bwd_mma_kernel",
               "egnn_tail_bwd_nodes": "tail_bwd_mma_kernel",
               "egnn_edge_bwd": "egnn_edge_bwd_mma_kernel",
-              "egnn_mega_fwd": "egnn_mega_fwd_mma_kernel"}
+              "egnn_edge_fwd": "egnn_edge_fwd_mma_kernel",
+              "egnn_mega_fwd": "egnn_mega_fwd_mma_kernel",
+              "egnn_mega_paired_fwd": "egnn_mega_fwd_mma_kernel"}
 REPO_CSRC, REPO_BUILD = _build.CSRC, _build.BUILD_DIR
 TAIL_FNS = {"b2": (mega.tail_bwd, mega.tail_bwd_reference),
             "db": (mega.tail_bwd_db, mega.tail_bwd_db_reference),
@@ -455,6 +481,227 @@ def mega_fwd():
         tests_seeds_worst_max_ratio=worst_own[1])), flush=True)
 
 
+# ---------------------------------------------------------------- B4
+
+def paired_cases():
+    """(B, E, F, seed, the tests' seed?, the last graph all masked?, the
+    second half scrambled?): ``test_paired_kernel_matches_plain_version``'s,
+    ``test_paired_kernel_at_the_grid_edges``' and
+    ``test_paired_kernel_reads_only_the_arc_half``'s shapes."""
+    for e in (2560, 1408):
+        for f in (20, 64):
+            for seed in [e + f + 2, *SEEDS]:
+                yield 128, e, f, seed, seed == e + f + 2, False, False
+    for b in (1, 200):
+        for e in (2560, 1000):
+            for seed in [b + e + 3, *SEEDS]:
+                yield b, e, 64, seed, seed == b + e + 3, b > 1, False
+    for seed in [41, *SEEDS]:
+        yield 8, 2560, 20, seed, seed == 41, False, True
+
+
+def paired_fwd(root, baseline):
+    use(None)
+    dev = torch.device("cuda")
+    n, worst, worst_own = 0, [0.0, 0.0], [0.0, 0.0]
+    failing = dict(output=0, residuals=0, residuals_not_b1=0)
+    for b, e, f, seed, own, masked, scrambled in paired_cases():
+        args = tc._paired_args(b, e, f, torch.bfloat16, dev, seed=seed)
+        if masked:
+            args[2] = args[2].clone()
+            args[2][-1] = False
+        if scrambled:
+            args = tc._scrambled_mirror_half(args, seed=seed + 1)
+        ref, a1_ref, xd_ref = mega.edge_mega_paired_fwd_reference(*args)
+        out, a1, xd = mega.edge_mega_paired_fwd(*args)
+        bare = mega.edge_mega_paired_fwd(*args, residuals=False)[0]
+        _, a1_b1, xd_b1 = mega.edge_mega_fwd(*mega.mirror_edges(*args[:3]),
+                                             *args[3:])
+        same_b1 = torch.equal(a1, a1_b1) and torch.equal(xd, xd_b1)
+        ok_out = (passes(tc._assert_close, out, ref, torch.bfloat16)
+                  and passes(tc._assert_close, bare, ref, torch.bfloat16))
+        ok_res = passes(tc._assert_residuals_close, (a1, xd),
+                        (a1_ref, xd_ref), torch.bfloat16)
+        src, dst = mega.mirror_edges(*args[:3])[:2]
+        misses = [(e_, j, int(src[g_, e_]), int(dst[g_, e_]))
+                  for g_, j, e_ in residual_misses(a1, a1_ref)[:6]]
+        r, r_bare = col_ratios(out, ref), col_ratios(bare, ref)
+        for i in range(2):
+            worst[i] = max(worst[i], r[i], r_bare[i])
+            if own:
+                worst_own[i] = max(worst_own[i], r[i], r_bare[i])
+        failing["output"] += not ok_out
+        failing["residuals"] += not ok_res
+        failing["residuals_not_b1"] += not same_b1
+        n += 1
+        print("paired_fwd:", json.dumps(dict(
+            B=b, E=e, F=f, seed=seed, tests_seed=own, scrambled=scrambled,
+            ok_output=ok_out, ok_residuals=ok_res, residuals_equal_b1=same_b1,
+            a1_misses_edge_col_src_dst=misses, mean_ratio=r[0],
+            max_ratio=r[1], bare_mean_ratio=r_bare[0],
+            bare_max_ratio=r_bare[1])), flush=True)
+    print("paired_fwd summary:", json.dumps(dict(
+        failing=failing, of=n, worst_mean_ratio=worst[0],
+        worst_max_ratio=worst[1], tests_seeds_worst_mean_ratio=worst_own[0],
+        tests_seeds_worst_max_ratio=worst_own[1])), flush=True)
+    if baseline is not None:
+        fwd_times(root, baseline, "paired_fwd")
+
+
+# ---------------------------------------------------------------- B3 fwd
+
+def edge_fwd_cases():
+    """(B, E, tail, F, seed, the last graph's bundles zero?): the card
+    tests' shapes and seeds (``test_edge_kernels_match_plain_versions``,
+    ``test_edge_fwd_kernel_at_the_grid_edges``), 1..8, and chip_smoke.py's
+    B=128 (``check_edge_kernels``' seeds and 1..3)."""
+    for b, e, tail_ in EDGE_SHAPES:
+        for f in (20, 64):
+            for seed in [e + f, *SEEDS]:
+                yield b, e, tail_, f, seed, False
+    for b in (1, 200):
+        for e in (2560, 1000):
+            for seed in [b + e + 5, *SEEDS]:
+                yield b, e, 0, 64, seed, b > 1
+    for e in cs.EDGE_COUNTS:
+        for f in (20, 64):
+            for seed in (e + f + 2, 1, 2, 3):
+                yield 128, e, 0, f, seed, False
+
+
+def edge_fwd_ratios(out, ref):
+    """The worst row's mean and max |diff| over the bf16 bounds of
+    ``_assert_edge_close`` (2e-5 and 1.6e-2 of the same statistic of
+    |plain|), and the entries that differ."""
+    g, r = tc._rows(out), tc._rows(ref)
+    diff, mag = (g - r).abs(), r.abs()
+    tiny = torch.finfo(torch.float32).tiny
+    return (round((diff.mean(1) / (2e-5 * mag.mean(1)).clamp_min(tiny))
+                  .max().item(), 4),
+            round((diff.amax(1) / (1.6e-2 * mag.amax(1)).clamp_min(tiny))
+                  .max().item(), 4),
+            int((out != ref).sum().item()))
+
+
+def edge_fwd(root, baseline):
+    variants = {f"kTieUlps={u}": with_ulps(u) for u in TIE_ULPS[:2]}
+    dirs = build_variants(variants, ("egnn_edge_fwd",), root / "ties")
+    dev = torch.device("cuda")
+    fails = {u: 0 for u in dirs}
+    worst = {u: [0.0, 0.0] for u in dirs}
+    n = 0
+    for b, e, tail_, f, seed, zeroed in edge_fwd_cases():
+        args, _ = tc._edge_args(b, e, f, torch.bfloat16, dev, seed=seed,
+                                tail=tail_)
+        if zeroed:
+            for t in args[:2]:
+                t[-1] = 0
+        ref = edge.edge_program_reference(*args)
+        row = dict(B=b, E=e, tail=tail_, F=f, seed=seed)
+        for u, d in dirs.items():
+            use(d)
+            got = edge.edge_program_fwd(*args)
+            ok = passes(tc._assert_edge_close, got, ref, torch.bfloat16)
+            fails[u] += not ok
+            mean, mx, differ = edge_fwd_ratios(got, ref)
+            worst[u] = [max(worst[u][0], mean), max(worst[u][1], mx)]
+            row[u] = dict(ok=ok, mean_ratio=mean, max_ratio=mx,
+                          differing=differ)
+        n += 1
+        print("edge_fwd:", json.dumps(row), flush=True)
+    print("edge_fwd summary:", json.dumps(dict(
+        failing=fails, of=n, worst_mean_max_ratio=worst)), flush=True)
+    use(None)
+    if baseline is not None:
+        fwd_times(root, baseline, "edge_fwd")
+
+
+# ------------------------------------------- B4 and B3 fwd beside a baseline
+
+def baseline_module(csrc_dir: Path, name: str):
+    """ops/<name>.py of the checkout that holds ``csrc_dir``, as a module of
+    its own (it imports this tree's ops.edge and ops._build)."""
+    path = csrc_dir.resolve().parent / "ops" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"baseline_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def fwd_times(root, baseline, section):
+    """B4 (paired_fwd) or B3's forward (edge_fwd) of this tree beside the
+    baseline checkout's: times in the order baseline, this, this, baseline;
+    the f32 forms' outputs (and, for edge_fwd, B3's backward's) against
+    the baseline's."""
+    paired = section == "paired_fwd"
+    sources = (("egnn_mega_paired_fwd", "egnn_mega_fwd") if paired
+               else ("egnn_edge_fwd", "egnn_edge_bwd"))
+    d = build_variants({"baseline": baseline}, sources,
+                       root / "baseline")["baseline"]
+    other = baseline_module(baseline, "mega" if paired else "edge")
+    dev = torch.device("cuda")
+    if paired:
+        def case(b, e, f, dtype):
+            return cs.paired_inputs(e, f, dtype, seed=e + f + 2) if b == cs.B \
+                else tc._paired_args(b, e, f, dtype, dev, seed=e + f + 2)
+        shapes = [(cs.B, e, f) for e in cs.EDGE_COUNTS for f in (64, 20)]
+        shapes.append((1, 2560, 64))
+        calls = {"with residuals": lambda m, a: m.edge_mega_paired_fwd(*a),
+                 "without residuals": lambda m, a: m.edge_mega_paired_fwd(
+                     *a, residuals=False)}
+    else:
+        def case(b, e, f, dtype):
+            return cs.edge_inputs(e, f, dtype, seed=e + f + 2)
+        shapes = [(cs.B, e, f) for e in cs.EDGE_COUNTS for f in (64, 20)]
+        calls = {"forward": lambda m, a: m.edge_program_fwd(*a[0])}
+    trees = [("baseline", d, other), ("this", None, mega if paired else edge)]
+    times = {}
+    for b, e, f in shapes:
+        a = case(b, e, f, torch.bfloat16)
+        for name, call in calls.items():
+            key = f"B={b} E={e} F={f} bf16 {name}"
+            times[key] = {"baseline": [], "this": []}
+            for label, dd, module in (trees[0], trees[1], trees[1],
+                                      trees[0]):
+                use(dd)
+                times[key][label].append(cs.cuda_ms(lambda: call(module, a)))
+        print(f"{section} times:", json.dumps({
+            k: v for k, v in times.items() if k.startswith(f"B={b} E={e} "
+                                                           f"F={f} ")}),
+              flush=True)
+        del a
+    # the f32 forms (and B3's backward in both dtypes) against the baseline
+    same = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        a = case(cs.B, 2560, 20, dtype)
+        got = {}
+        for label, dd, module in trees:
+            use(dd)
+            if paired and dtype == torch.float32:
+                got[label] = module.edge_mega_paired_fwd(*a)
+            elif not paired:
+                got[label] = ((module.edge_program_fwd(*a[0]),)
+                              if dtype == torch.float32 else ()) + tuple(
+                    module.edge_program_bwd(*a[0], a[1]))
+        if not got:
+            continue
+        key = str(dtype).split(".")[1]
+        if paired:
+            (o, a1, xd), (ob, a1b, xdb) = got["this"], got["baseline"]
+            same[key] = dict(residuals_equal=torch.equal(a1, a1b)
+                             and torch.equal(xd, xdb),
+                             out_max_abs_diff=(o - ob).abs().max().item(),
+                             out_max_abs=ob.abs().max().item())
+        else:
+            names = ((("fwd",) if dtype == torch.float32 else ())
+                     + ("dhsx", "dhdx", "def", "dw1ab", "dw2", "dwc1",
+                        "dsmall"))
+            same[key] = {nm: torch.equal(x, y) for nm, x, y in
+                         zip(names, got["this"], got["baseline"])}
+    use(None)
+    print(f"{section} against the baseline:", json.dumps(same), flush=True)
+
+
 # ---------------------------------------------------------------- SASS
 
 def sass():
@@ -465,8 +712,18 @@ def sass():
                               capture_output=True, text=True).stdout
         ops = Counter(re.findall(r"\b(ATOMS\.[A-Z0-9.]+|ATOM\.[A-Z0-9.]+|"
                                  r"RED\.[A-Z0-9.]+|ATOMG\.[A-Z0-9.]+)", dump))
-        print("sass:", json.dumps(dict(library=lib.name, atomics=ops)),
-              flush=True)
+        # per function: its HMMA instructions beside its atomics
+        funcs = {}
+        for name, body in re.findall(r"Function : (\S+)\n(.*?)(?=Function :|\Z)",
+                                     dump, flags=re.S):
+            hmma = Counter(re.findall(r"\b(HMMA\.[A-Z0-9.]+)", body))
+            atoms = Counter(re.findall(r"\b(ATOMS\.[A-Z0-9.]+|"
+                                       r"ATOMG?\.[A-Z0-9.]+|RED\.[A-Z0-9.]+)",
+                                       body))
+            if hmma or atoms:
+                funcs[name[:90]] = dict(hmma=hmma, atomics=atoms)
+        print("sass:", json.dumps(dict(library=lib.name, atomics=ops,
+                                       functions=funcs)), flush=True)
 
 
 # ---------------------------------------------------------------- B8
@@ -691,6 +948,10 @@ def main():
                 edge_bwd(root / "edge_bwd")
             elif kernel == "mega_fwd":
                 mega_fwd()
+            elif kernel == "paired_fwd":
+                paired_fwd(root / "paired_fwd", opts.baseline)
+            elif kernel == "edge_fwd":
+                edge_fwd(root / "edge_fwd", opts.baseline)
             elif kernel == "sass":
                 sass()
             elif kernel == "segment_times":

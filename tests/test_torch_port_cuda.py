@@ -37,9 +37,12 @@ The tests marked ``cuda`` skip on a host without a CUDA device. Tolerances:
   operands, for B2, B5a and B5b).
 
 - B3 forward and backward, f32: the outputs atol=1e-5, rtol=1e-4; the
-  weight gradients as B2's. The backward's bf16 form runs its nine products
-  on the tensor cores with B2's near-tie recompute (csrc/egnn_hopper.cuh);
-  its f32 form stays on the CUDA cores. bf16, per row of the [B, C, E]
+  weight gradients as B2's. The bf16 forms run their products (the
+  forward's three, the backward's nine) on the tensor cores with B2's
+  near-tie recompute and share the chain's steps (csrc/egnn_hopper.cuh);
+  the f32 forms stay on the CUDA cores. The forward also runs at B=1 and
+  B=200, E=2560 and 1000, the last graph's bundles zero
+  (``test_edge_fwd_kernel_at_the_grid_edges``). bf16, per row of the [B, C, E]
   outputs (over graphs and edges), for def and for each weight gradient:
   mean|diff| <= 2e-5 * mean|plain|, max|diff| <= 1.6e-2 * max|plain| for
   the edge outputs, 1e-3 for the weight gradients (B2's bounds: the same
@@ -59,9 +62,12 @@ leaves out any one rounding point fails the mean bound, which
 ``test_edge_bf16_bound_sees_every_rounding_point`` (B3) check by building
 such kernels.
 
-- B4 (csrc/egnn_mega_paired_fwd.cu) on mirror-paired batches: B1's bounds
-  against its plain version; its residuals equal B1's bit for bit on the
-  same batch.
+- B4 (csrc/egnn_mega_paired_fwd.cu; in bf16 B1's tensor-core kernel,
+  csrc/egnn_mega.cuh, with tiles of 32 arcs and their mirrors) on
+  mirror-paired batches: B1's bounds against its plain version; its
+  residuals equal B1's bit for bit on the same batch. Also at B=1 and
+  B=200, E=2560 and 1000, the last graph all masked, and on a batch whose
+  second half breaks the layout (B4 reads the arc half only).
 - B5a (csrc/egnn_tail_bwd_db.cu): B2's bounds against its plain version,
   and B2's outputs bit for bit on the same inputs (the same arithmetic, the
   same block partition and reduction order). B5b
@@ -84,14 +90,18 @@ such kernels.
   Its sums use shared-memory atomics, as B1's do: not the same bits twice.
 - Mutants: seven of B1's bf16 form (W1ab, xd, radial, m, c1, cw,
   cw*x_hat; the table says why W2/Wc1, silu(a1) and pa/pb have none),
-  seven of B3's backward (xd, radial, c1, cw, d_p2, d_p3, d_a1; its table
-  says why W1ab, W2, Wc1, a1s and m have none), six of B2's tensor-core
-  body (radial, c1, cw, d_p2, d_a1, d_p3; the table says why W2/Wc1, a1s
-  and m have none), eleven of B4 (the mirror's sign, xd, radial, and the
-  CUDA-core chain it shares with B6 and B1's f32 form: W2/Wc1/W1ab, pa/pb,
-  silu(a1), m, c1, cw, cw*x_hat), two of the shared tail body through B5a
-  (d_p2, d_a1), one of B5b (d_xd before the node sums), five of B6 (agg,
-  hmid, h, x, the node MLP's weights); each fails its kernel's bf16 bound.
+  four of B3's forward (xd, radial, c1, cw; its table says why W1ab, W2,
+  Wc1, a1s, m and cw*x_hat have none), seven of B3's backward (xd, radial,
+  c1, cw, d_p2, d_p3, d_a1; its table says why W1ab, W2, Wc1, a1s and m
+  have none), six of B2's tensor-core body (radial, c1, cw, d_p2, d_a1,
+  d_p3; the table says why W2/Wc1, a1s and m have none), nine of B4's bf16
+  form (B1's seven on B4's tiles, the mirror's sign, and the mirror's
+  geometry formed anew from the second half), two of the shared tail body
+  through B5a (d_p2, d_a1), one of B5b (d_xd before the node sums), twelve
+  of B6 (agg, hmid, h, x, the node MLP's weights, and the CUDA-core chain
+  of csrc/egnn_common.cuh it alone runs in bf16: the edge MLP's weights,
+  pa/pb, silu(a1), m, c1, cw, cw*x_hat); each fails its kernel's bf16
+  bound.
 
 - B8 (csrc/segment.cu, behind ``segment_scatter``/``segment_gather``): the
   gather bit for bit. The scatter, f32: |diff| <= 2 * k * 2^-24 * (the sum
@@ -360,15 +370,16 @@ def test_train_step_launches_both_kernels_per_layer(cuda):
         assert torch.isfinite(p.grad).all() and torch.isfinite(p).all()
 
 
-# B1's bf16 form (the tensor-core kernel of csrc/egnn_mega_fwd.cu and the
-# projections and geometry it shares in csrc/egnn_common.cuh) with one bf16
-# rounding point left out: (pattern, replacement) pairs. W2, Wc1 and
-# silu(a1) have no mutant: each reaches the tensor cores as a bf16 operand
-# and is used nowhere else, so its rounding is the operand's type, which no
-# edit of the arithmetic removes; nor pa/pb, which reach the edges through
-# a bf16 scratch whose store rounds them. m keeps one through its f32
-# consumer, the node block's sum (its rounding for the product is the
-# operand's). B4's table keeps the CUDA-core chain's mutants.
+# B1's bf16 form (the tensor-core kernel of csrc/egnn_mega.cuh, and the
+# geometry it shares in csrc/egnn_common.cuh) with one bf16 rounding point
+# left out: (pattern, replacement) pairs. W2, Wc1 and silu(a1) have no
+# mutant: each reaches the tensor cores as a bf16 operand and is used
+# nowhere else, so its rounding is the operand's type, which no edit of the
+# arithmetic removes; nor pa/pb, which reach the edges through a bf16
+# scratch whose store rounds them. m keeps one through its f32 consumer,
+# the node block's sum (its rounding for the product is the operand's).
+# B6's table keeps the CUDA-core chain's mutants.
+_B1_SOURCES = ("egnn_mega_fwd.cu", "egnn_mega.cuh", "egnn_common.cuh")
 _MUTANTS = {
     "weights": [(r"(w1s\[i\] = )rnd<T>\((w1ab\[i\])\)", r"\1\2")],
     "xd": [(r"rnd<T>\((to_f\(xb\[s \* 3 \+ \d\]\) - to_f\(xb\[d \* 3 \+ "
@@ -424,8 +435,7 @@ def restore_kernels():
 @pytest.mark.parametrize("name", sorted(_MUTANTS))
 def test_bf16_bound_sees_every_rounding_point(cuda, name, tmp_path,
                                               monkeypatch, restore_kernels):
-    _mutant_kernel(("egnn_mega_fwd.cu", "egnn_common.cuh"), _MUTANTS[name],
-                   tmp_path, monkeypatch)
+    _mutant_kernel(_B1_SOURCES, _MUTANTS[name], tmp_path, monkeypatch)
     for e, f in ((2560, 20), (1408, 64)):
         args = _args(8, e, f, 64, torch.bfloat16, cuda, seed=e + f)
         out = mega.edge_mega(*args)
@@ -528,18 +538,71 @@ def test_kernel_at_the_grid_edges(cuda, b, e, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("paired", [False, True])
+@pytest.mark.parametrize("residuals", [True, False])
+def test_forward_scratch_outlives_the_launch(cuda, paired, residuals,
+                                             monkeypatch):
+    """B1 and B4 in bf16 at B=16, E=1408 (8 chunks a graph): no two buffers
+    the launch writes (out, the projections' scratch, the chunks' node
+    blocks, the residuals) overlap, and the output is the plain version's.
+    A scratch freed before the launch goes to the caching allocator's next
+    request, the node blocks, and the kernels overwrite one with the
+    other."""
+    args = _paired_args(16, 1408, 64, torch.bfloat16, cuda, seed=3)
+    lib = mega._paired_lib() if paired else mega._fwd_lib()
+    entry = "egnn_mega_paired_fwd" if paired else "egnn_mega_fwd"
+    launch = getattr(lib, entry)
+    spans = []
+
+    def recorded(*a):
+        b, n, e, _, hid, chunks = a[15:21]
+        c = hid + 3
+        for ptr, size in ((a[10], b * n * c * 4), (a[11], b * n * 2 * hid * 4),
+                          (a[12], b * chunks * n * c * 4),
+                          (a[13], b * hid * e * 2), (a[14], b * 3 * e * 2)):
+            if ptr:
+                spans.append((ptr, ptr + size))
+        return launch(*a)
+
+    monkeypatch.setattr(lib, entry, recorded)
+    torch.cuda.empty_cache()
+    fwd = mega.edge_mega_paired_fwd if paired else mega.edge_mega_fwd
+    out = fwd(*args, residuals=residuals)[0]
+    torch.cuda.synchronize()
+    spans.sort()
+    assert len(spans) == (5 if residuals else 3)
+    assert all(x[1] <= y[0] for x, y in zip(spans, spans[1:]))
+    ref = (mega.edge_mega_paired_fwd_reference if paired
+           else mega.edge_mega_fwd_reference)(*args)[0]
+    _assert_close(out, ref, torch.bfloat16)
+
+
+@pytest.mark.cuda
 def test_admission_covers_the_kernels_shared_memory(cuda):
     """``mega_admits`` decides 'auto' from ``fwd_smem_bytes``, a copy of
-    the f32 form's formula: for every N it admits, from 16 up, B1's form in
-    either dtype needs no more shared memory a CTA than that."""
-    lib = mega._fwd_lib()
+    the f32 form's formula: for every N it admits, from 16 up, B1's and
+    B4's forms in either dtype need no more shared memory a CTA than that.
+    ``fused_admits`` takes every F <= 64 whatever the card: B3's forward
+    in either dtype fits the card's opt-in limit there, and its bf16 form
+    two CTAs an SM at F=64."""
+    lib, paired = mega._fwd_lib(), mega._paired_lib()
     n = 16
     while mega.mega_admits(n, 64, 64, 1):
         for bf16 in (0, 1):
             assert (mega.fwd_smem_bytes(n, 64)
                     >= lib.egnn_mega_fwd_smem_bytes(n, 64, bf16))
+            assert (mega.fwd_smem_bytes(n, 64)
+                    >= paired.egnn_mega_paired_fwd_smem_bytes(n, 64, bf16))
         n += 1
     assert n > N
+    fwd = edge._fwd_lib()
+    optin = torch.cuda.get_device_properties(cuda) \
+        .shared_memory_per_block_optin
+    for f in range(1, edge.KERNEL_MAX_F + 1):
+        assert edge.fused_admits(2560, f, 64, 1)
+        for bf16 in (0, 1):
+            assert fwd.egnn_edge_fwd_smem_bytes(f, 64, bf16) <= optin
+    assert fwd.egnn_edge_fwd_ctas_per_sm(64, 64, 1) == 2
 
 
 @pytest.mark.cuda
@@ -717,6 +780,26 @@ def test_edge_bwd_weight_gradients_are_deterministic(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 200])
+@pytest.mark.parametrize("e", [2560, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_edge_fwd_kernel_at_the_grid_edges(cuda, b, e, dtype):
+    """B3's forward at one graph (its edges over many CTAs) and at more
+    graphs than SMs, at an E that is a multiple of 64 and one that is not,
+    with the last graph all masked when B > 1 (its bundles zero, as the
+    'fused' path gathers them): against the plain version, one launch."""
+    args, _ = _edge_args(b, e, 64, dtype, cuda, seed=b + e + 5)
+    if b > 1:
+        for t in args[:2]:
+            t[-1] = 0
+    before = edge.edge_program.launches
+    out = edge.edge_program_fwd(*args)
+    torch.cuda.synchronize()
+    assert edge.edge_program.launches == before + 1
+    _assert_edge_close(out, edge.edge_program_reference(*args), dtype)
+
+
+@pytest.mark.cuda
 def test_edge_program_autograd_launches_both_kernels(cuda):
     """EdgeProgram through autograd on the card: B3 forward, B3 backward,
     gradients equal to the backward kernel's on the same cotangent."""
@@ -733,22 +816,20 @@ def test_edge_program_autograd_launches_both_kernels(cuda):
         assert torch.equal(leaf.grad, w.reshape(leaf.shape))
 
 
-# B3's forward with one bf16 rounding point left out (its output rounds at
-# its store in the compute dtype, which no edit of the arithmetic removes)
+# B3's forward in bf16 (the tensor-core kernel of csrc/egnn_edge_fwd.cu and
+# the chain steps it shares with B3's backward and B2 in
+# csrc/egnn_hopper.cuh) with one rounding point left out. W1ab, W2, Wc1,
+# a1s and m have no mutant: each reaches the tensor cores as a bf16 operand
+# (m also the output, rounded by its store in the compute dtype) and is
+# used nowhere else; nor cw * x_hat, rounded by its store. c1 keeps its
+# rounding through cw's f32 sum, cw through cw * x_hat.
 _EDGE_FWD_MUTANTS = {
-    "weights": [(r"(w1s\[i\] = )rnd<T>\((w1ab\[i\])\)", r"\1\2"),
-                (r"(w2s\[i\] = )rnd<T>\((w2\[i\])\)", r"\1\2"),
-                (r"(wc1s\[i\] = )rnd<T>\((wc1\[i\])\)", r"\1\2")],
-    "xd": [(r"(d\[k\] = )rnd<T>\(", r"\1(")],
-    "radial": [(r"(const float r = )rnd<T>\((d\[0\] \* d\[0\] \+ "
+    "xd": [(r"(d\[k\] = )rnd<bf>\(", r"\1(")],
+    "radial": [(r"(const float r = )rnd<bf>\((d\[0\] \* d\[0\] \+ "
                 r"d\[1\] \* d\[1\] \+ d\[2\] \* d\[2\])\)", r"\1\2")],
-    "silu_a1": [(r"(bufA\[t \* LD \+ j\] = )rnd<T>\((a1 \* sigmoid\(a1\))\)",
-                 r"\1\2")],
-    "m": [(r"(bufM\[t \* LD \+ j\] = )rnd<T>\((p \* sigmoid\(p\))\)",
-           r"\1\2")],
-    "coord_hidden": [(r"(part \+= )rnd<T>\((p \* sigmoid\(p\))\)",
-                      r"\1\2")],
-    "cw": [(r"(const float cwb = )rnd<T>\((cw)\)", r"\1\2")],
+    "coord_hidden": [(r"(const float c1 = )rnd<bf>\((p \* s)\)", r"\1\2")],
+    "cw": [(r"(ev\[kECw \* kTile \+ m0 \+ fr \+ 8 \* h\] = )rnd<bf>\((cw)\)",
+            r"\1\2")],
 }
 # B3's backward in bf16 (the tensor-core kernel of csrc/egnn_edge_bwd.cu and
 # the chain steps it shares with B2 in csrc/egnn_hopper.cuh) with one
@@ -784,8 +865,8 @@ def test_edge_bf16_bound_sees_every_rounding_point(cuda, source, name,
               for e, f in ((2560, 20), (1408, 64))]
     fwd = source == "egnn_edge_fwd.cu"
     table = _EDGE_FWD_MUTANTS if fwd else _EDGE_BWD_MUTANTS
-    _mutant_kernel(source if fwd else (source, "egnn_hopper.cuh"),
-                   table[name], tmp_path, monkeypatch)
+    _mutant_kernel((source, "egnn_hopper.cuh"), table[name], tmp_path,
+                   monkeypatch)
     for args, dout in inputs:
         if fwd:
             out = edge.edge_program_fwd(*args)
@@ -826,6 +907,25 @@ def test_edge_bwd_bf16_bound_sees_the_near_tie_recompute(
     with pytest.raises(AssertionError):
         _assert_edge_close(out, edge.edge_program_bwd_reference(*args, dout),
                            torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_edge_fwd_bf16_bound_sees_the_near_tie_recompute(
+        cuda, tmp_path, monkeypatch, restore_kernels):
+    """Without the near-tie recompute (csrc/egnn_hopper.cuh), B3's bf16
+    forward on a B=1, E=1000, F=64 input rounds values of a1s, m and c1
+    near a bf16 tie the other way from the plain version, and the edges
+    they move fail the per-row mean bound; with it, the kernel passes. On
+    an H100 (scripts/torch_kernel_ties.py --kernel edge_fwd) this input
+    read 1.17 of the mean bound without the recompute and 0 with it."""
+    args, _ = _edge_args(1, 1000, 64, torch.bfloat16, cuda, seed=5)
+    ref = edge.edge_program_reference(*args)
+    _assert_edge_close(edge.edge_program_fwd(*args), ref, torch.bfloat16)
+    _mutant_kernel("egnn_hopper.cuh", _NO_TIE_RECOMPUTE, tmp_path,
+                   monkeypatch)
+    out = edge.edge_program_fwd(*args)
+    with pytest.raises(AssertionError):
+        _assert_edge_close(out, ref, torch.bfloat16)
 
 
 @pytest.mark.cuda
@@ -1223,31 +1323,97 @@ def test_paired_kernel_matches_plain_version(cuda, e, f, dtype):
     assert torch.equal(a1, a1_b1) and torch.equal(xd, xd_b1)
 
 
-# B4 (csrc/egnn_mega_paired_fwd.cu and the CUDA-core chain it shares with
-# B6 and B1's f32 form in csrc/egnn_common.cuh: stage_edge_weights,
-# node_projections, fwd_tile_chain) with one bf16 rounding point left out,
-# or the mirror's sign. The chain's eight were B1's mutants until B1's bf16
-# form moved to the tensor cores; B4 runs that chain in bf16 still.
-_PAIRED_SOURCES = ("egnn_mega_paired_fwd.cu", "egnn_common.cuh")
+def _scrambled_mirror_half(args, seed):
+    """A paired batch whose second half's indices and mask are replaced by
+    seeded ones in [0, N): what B4 never reads (it computes on the mirror
+    the arc half implies, ``mega.mirror_edges``)."""
+    args = list(args)
+    b, e = args[0].shape
+    half = e // 2
+    gen = torch.Generator().manual_seed(seed)
+    for i in (0, 1):
+        args[i] = args[i].clone()
+        args[i][:, half:] = torch.randint(0, N, (b, half), generator=gen,
+                                          dtype=torch.int32).to(args[i].device)
+    args[2] = args[2].clone()
+    args[2][:, half:] = (torch.rand(b, half, generator=gen) >= 0.5).to(
+        args[2].device)
+    return args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paired_kernel_reads_only_the_arc_half(cuda, dtype):
+    """B4 on a batch whose second half breaks the mirror-paired layout:
+    its output and residuals those of the layout the arc half implies (the
+    plain version's, and B1's residuals on ``mirror_edges`` bit for
+    bit)."""
+    args = _scrambled_mirror_half(
+        _paired_args(8, 2560, 20, dtype, cuda, seed=41), seed=42)
+    out, a1, xd = mega.edge_mega_paired_fwd(*args)
+    torch.cuda.synchronize()
+    ref, a1_ref, xd_ref = mega.edge_mega_paired_fwd_reference(*args)
+    _assert_close(out, ref, dtype)
+    _assert_residuals_close((a1, xd), (a1_ref, xd_ref), dtype)
+    _, a1_b1, xd_b1 = mega.edge_mega_fwd(*mega.mirror_edges(*args[:3]),
+                                         *args[3:])
+    assert torch.equal(a1, a1_b1) and torch.equal(xd, xd_b1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 200])
+@pytest.mark.parametrize("e", [2560, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paired_kernel_at_the_grid_edges(cuda, b, e, dtype):
+    """B4 at one graph (bf16: its arcs over many CTAs, the chunks' node
+    blocks summed by a second kernel) and at more graphs than SMs, at an
+    E/2 that is a multiple of 32 arcs and one that is not, with the last
+    graph all masked when B > 1: output and residuals against the plain
+    version's, that graph's exactly zero; the residuals B1's bit for bit."""
+    args = _paired_args(b, e, 64, dtype, cuda, seed=b + e + 3)
+    if b > 1:
+        args[2] = args[2].clone()
+        args[2][-1] = False
+    out, a1, xd = mega.edge_mega_paired_fwd(*args)
+    torch.cuda.synchronize()
+    ref, a1_ref, xd_ref = mega.edge_mega_paired_fwd_reference(*args)
+    _assert_close(out, ref, dtype)
+    _assert_residuals_close((a1, xd), (a1_ref, xd_ref), dtype)
+    _, a1_b1, xd_b1 = mega.edge_mega_fwd(*args)
+    assert torch.equal(a1, a1_b1) and torch.equal(xd, xd_b1)
+    if b > 1:
+        for t in (out[-1], a1[-1], xd[-1]):
+            assert torch.count_nonzero(t) == 0
+
+
+# B4's bf16 form (B1's tensor-core kernel of csrc/egnn_mega.cuh with B4's
+# tiles and arc geometry, csrc/egnn_mega_paired_fwd.cu) with one bf16
+# rounding point left out, as B1's table takes them, or the mirror's sign,
+# or the mirror's geometry formed anew from the second half's indices (as
+# a kernel that reads the mirror edge would) rather than the arc's negated.
+# Each runs on a batch whose second half is scrambled, which B4 never
+# reads. The CUDA-core chain B4's f32 form runs (csrc/egnn_common.cuh) has
+# its mutants in B6's table, the one kernel that runs it in bf16.
+_PAIRED_SOURCES = ("egnn_mega_paired_fwd.cu", "egnn_mega.cuh")
 _PAIRED_MUTANTS = {
     "mirror_sign": [(r"g\.xh\[m \* 3 \+ (\d)\] = -h\1;",
                      r"g.xh[m * 3 + \1] = h\1;")],
+    "mirror_anew": [(r"g\.xh\[m \* 3 \+ (\d)\] = -h\1;",
+                     r"g.xh[m * 3 + \1] = ok ? rnd<T>("
+                     r"to_f(xb[srcb[k + half] * 3 + \1]) - "
+                     r"to_f(xb[dstb[k + half] * 3 + \1])) * "
+                     r"(1.0f / (sqrtf(r > 0.0f ? r : 1.0f) + 1e-30f)) : 0.0f;")],
     "xd": [(r"rnd<T>\((to_f\(xb\[s \* 3 \+ \d\]\) - to_f\(xb\[d \* 3 \+ "
             r"\d\]\))\)", r"(\1)")],
     "radial": [(r"(r = )rnd<T>\((d0 \* d0 \+ d1 \* d1 \+ d2 \* d2)\)",
                 r"\1\2")],
-    "weights": [(r"(w2s\[i\] = )rnd<T>\((w2\[i\])\)", r"\1\2"),
-                (r"(wc1s\[i\] = )rnd<T>\((wc1\[i\])\)", r"\1\2"),
-                (r"(w1s\[i\] = )rnd<T>\((w1ab\[i\])\)", r"\1\2")],
-    "pa_pb": [(r"(pab\[i\] = )rnd<T>\((s)\)", r"\1\2")],
-    "silu_a1": [(r"(v = )rnd<T>\((silu\(a1\))\)", r"\1\2")],
-    "m": [(r"(mv = )rnd<T>\((silu\(r\[i\]\[c\] \+ "
-           r"sms\[kB2 \* H \+ j\]\))\)", r"\1\2")],
-    "coord_hidden": [(r"(c1 = )rnd<T>\((silu\(r\[i\]\[c\] \+ "
-                      r"sms\[kBC1 \* H \+ j\]\))\)", r"\1\2")],
-    "cw": [(r"(cwb = )rnd<T>\((part)\)", r"\1\2")],
-    "cw_xhat": [(r"rnd<T>\((cwb \* g\.xh\[t \* 3 \+ \d\])\)",
-                 r"(\1)")],
+    "weights": [(r"(w1s\[i\] = )rnd<T>\((w1ab\[i\])\)", r"\1\2")],
+    "m": [(r"(const float mv = )rnd<bf>\((p \* sigmoid_fast\(p\))\)",
+           r"\1\2")],
+    "coord_hidden": [(r"(const float c1 = )rnd<bf>\((p \* sigmoid_fast\(p\))\)",
+                      r"\1\2")],
+    "cw": [(r"(const float cwb = )rnd<bf>\((cw)\)", r"\1\2")],
+    "cw_xhat": [(r"rnd<bf>\((cwb \* g\.xh\[t \* 3 \+ k\])\)", r"(\1)")],
 }
 
 
@@ -1259,7 +1425,9 @@ def test_paired_bf16_bound_sees_every_rounding_point(cuda, name, tmp_path,
     _mutant_kernel(_PAIRED_SOURCES, _PAIRED_MUTANTS[name], tmp_path,
                    monkeypatch)
     for e, f in ((2560, 20), (1408, 64)):
-        args = _paired_args(8, e, f, torch.bfloat16, cuda, seed=e + f)
+        args = _scrambled_mirror_half(
+            _paired_args(8, e, f, torch.bfloat16, cuda, seed=e + f),
+            seed=e + f + 1)
         out = mega.edge_mega_paired_fwd(*args, residuals=False)[0]
         with pytest.raises(AssertionError):
             _assert_close(out, mega.edge_mega_paired_fwd_reference(*args)[0],
@@ -1510,8 +1678,23 @@ def test_stack_kernel_shared_memory_oversize_raises(cuda):
         stack.stack_fwd(*big, packed)
 
 
-# B6's source with one bf16 rounding point left out
+# B6 (csrc/egnn_stack_fwd.cu, and the CUDA-core chain of
+# csrc/egnn_common.cuh that it alone runs in bf16: stage_edge_weights,
+# node_projections, fwd_tile_chain) with one bf16 rounding point left out.
+_STACK_SOURCES = ("egnn_stack_fwd.cu", "egnn_common.cuh")
 _STACK_MUTANTS = {
+    "edge_weights": [(r"(w2s\[i\] = )rnd<T>\((w2\[i\])\)", r"\1\2"),
+                     (r"(wc1s\[i\] = )rnd<T>\((wc1\[i\])\)", r"\1\2"),
+                     (r"(w1s\[i\] = )rnd<T>\((w1ab\[i\])\)", r"\1\2")],
+    "pa_pb": [(r"(pab\[i\] = )rnd<T>\((s)\)", r"\1\2")],
+    "silu_a1": [(r"(v = )rnd<T>\((silu\(a1\))\)", r"\1\2")],
+    "m": [(r"(mv = )rnd<T>\((silu\(r\[i\]\[c\] \+ "
+           r"sms\[kB2 \* H \+ j\]\))\)", r"\1\2")],
+    "coord_hidden": [(r"(c1 = )rnd<T>\((silu\(r\[i\]\[c\] \+ "
+                      r"sms\[kBC1 \* H \+ j\]\))\)", r"\1\2")],
+    "cw": [(r"(cwb = )rnd<T>\((part)\)", r"\1\2")],
+    "cw_xhat": [(r"rnd<T>\((cwb \* g\.xh\[t \* 3 \+ \d\])\)",
+                 r"(\1)")],
     "agg": [(r"(const float v = )rnd<T>\((acc\[i\])\)", r"\1\2")],
     "hmid": [(r"rnd<T>\((silu\(p\[i\]\[c\] \+ nbs\[j\]\))\)", r"\1")],
     "h": [(r"(const float v = )rnd<T>\((q\[i\]\[c\] \+ nbs\[H \+ j\])\)",
@@ -1530,7 +1713,7 @@ def test_stack_bf16_bound_sees_every_rounding_point(cuda, name, tmp_path,
                                                     restore_kernels):
     inputs = [_stack_args(8, e, torch.bfloat16, cuda, seed=e + 8)
               for e in (2560, 1408)]
-    _mutant_kernel("egnn_stack_fwd.cu", _STACK_MUTANTS[name], tmp_path,
+    _mutant_kernel(_STACK_SOURCES, _STACK_MUTANTS[name], tmp_path,
                    monkeypatch)
     for args, packed in inputs:
         out = stack.stack_fwd(*args, packed)

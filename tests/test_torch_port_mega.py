@@ -401,3 +401,24 @@ def test_fwd_chunks(b, e, chunks):
     assert got == chunks
     assert b * got <= max(132, b)
     assert 2 * got - 1 <= max(1, -(-e // 64))
+
+
+@pytest.mark.parametrize("b,e,chunks", [
+    (128, 2560, 1), (200, 2560, 1), (1, 2560, 20), (1, 100, 1),
+    (16, 1408, 8), (26, 1280, 5), (66, 2560, 2), (33, 576, 3),
+    (1, 1000, 8), (4, 1408, 11), (1, 64, 1), (3, 0, 1)])
+def test_paired_fwd_chunks(b, e, chunks):
+    """B4's bf16 grid on a 132-SM card (one CTA an SM): one wave of CTAs;
+    each chunk, as the kernel cuts it (ceil(ceil(E/2 / chunks) / 32) tiles
+    of 32 arcs), a whole number of tiles and none empty; at least two tiles
+    a chunk where the graph has them; E=0 one chunk."""
+    got = mega.paired_fwd_chunks(e, b, 132)
+    assert got == chunks
+    assert b * got <= max(132, b)
+    arcs = e // 2
+    tiles = max(1, -(-arcs // 32))
+    assert 2 * got - 1 <= tiles
+    if arcs:
+        per = -(-(-(-arcs // got)) // 32) * 32   # the kernel's chunk_items
+        assert per % 32 == 0 and per >= 32
+        assert (got - 1) * per < arcs < got * per + 1
