@@ -43,8 +43,9 @@ Phases (none catches its own failure; any failure exits non-zero):
      gradients of the kernel, of the plain version on the card and of the
      plain version on the CPU against the exact (float64) sums;
   8. compare one EGNN layer under 'fused' (B3 + the gathers and the
-     index_add_ aggregation) with the same layer on B3's plain versions:
-     outputs and gradients, f32 and bf16, B=128, E=2560, F=64;
+     aggregation, both summed through B8's scatter) with the same layer on
+     B3's plain versions: outputs and gradients, f32 and bf16, B=128,
+     E=2560, F=64;
   9. compare B8's scatter and gather with their plain versions (B=128,
      N=288, C=H+3=67, E=2560 and 1408, 10% of the edges masked, indices at
      -1 and N on masked and unmasked edges; f32 with TF32 off and bf16): the
@@ -55,8 +56,9 @@ Phases (none catches its own failure; any failure exits non-zero):
      device-only time (torch.profiler) and the host time per call (1,000
      calls without a sync) of both; print the bound;
   10. compare one EGNN layer under 'pallas' (B8's scatter, its gather in the
-     backward) with the same layer on B8's plain versions: outputs and
-     gradients, f32 and bf16, B=128, E=2560, F=64;
+     backward, its scatter as the backward of the layer's gathers) with the
+     same layer on B8's plain versions: outputs and gradients, f32 and
+     bf16, B=128, E=2560, F=64;
   11. compare B4 with its plain version on mirror-paired batches (B=128,
      N=288, H=64, E=2560 and 1408, F=20 and 64, f32 and bf16, 10% of the arcs
      masked, arcs at -1 and N, self-loops): B1's bounds, its residuals
@@ -71,18 +73,22 @@ Phases (none catches its own failure; any failure exits non-zero):
      path;
   14. compare B6 (six layers, F0=20, H=64) layer by layer with the plain
      version of that layer run from the kernel's own previous h and x, f32
-     and bf16, E=2560 and 1408; time it with and without residuals, beside
-     its plain version and the per-layer forward;
+     and bf16, E=2560 and 1408, and in bf16 at B=1; the same bits twice;
+     time it with and without residuals, beside its plain version and the
+     per-layer forward; print its shared memory a CTA, CTAs an SM and the
+     compiler's readings;
   14a. compare B7 with its plain version at phase 4's shapes (unmasked
-     edges with src or dst at -1 and N among them): h' and x' per column
-     within one bf16 step at the column's largest value and BF16_COL_MEAN
-     in bf16, F32_TOL in f32, the same bits twice; time it beside its plain
-     version and print its bound;
+     edges with src or dst at -1 and N among them) and in bf16 at B=1 and
+     8 (a graph over a cluster of CTAs): h' and x' per column within one
+     bf16 step at the column's largest value and BF16_COL_MEAN in bf16,
+     F32_TOL in f32, the same bits twice; time it beside its plain version
+     and print its bound, its cluster size, shared memory a CTA, CTAs an
+     SM, the clusters the card holds at once and the compiler's readings;
   15. serve full-width HybridModelv2 with seeded weights in bf16 over HTTP on
      127.0.0.1 (ephemeral port), POST requests (B=128 at E=2560, B=128 at
      E=1408, B=1): probabilities finite, in (0, 1), matching the same batch
-     through aggregation='scatter', the same when a request is sent again,
-     6 B1 launches and no other launch per request;
+     through aggregation='scatter', the same bits when a request is sent
+     again, 6 B1 launches and no other launch per request;
   15a. the sixth slice's main path: the same model and requests through
      Scorer(fused_stack=True): probabilities within PROB_ATOL of 'scatter',
      a repeated request the same bits, exactly 6 B7 launches and no other
@@ -91,8 +97,14 @@ Phases (none catches its own failure; any failure exits non-zero):
      1e-3, the loss config of the JAX package's bench) on
      random_sample_batch(128, 288, E, 284) for E=2560 and 1408: the first
      step's loss and gradients under 'mega' against 'scatter' from the same
-     weights, then 20 'mega' steps (6 B1 + 6 B2 launches each, finite loss
-     that falls) and 10 'scatter' steps, with the median step time;
+     weights, then 20 'mega' steps (6 B1 + 6 B2 + 12 B8 scatter launches
+     each: B8 sums the backward's node gradients; finite loss that falls)
+     and 10 'scatter' steps, with the median step time;
+  16b. same seed, same bits: HybridModelv2 from one seed trained twice from
+     fresh state (B=16, E=2560, bf16, three steps on one mirror-paired
+     batch) under 'mega' with each variant, 'fused', 'pallas', 'onehot' and
+     'auto': the losses, every parameter and every Adam moment equal bit
+     for bit; 'scatter' read, not asserted;
   16a. the first full-width train step under 'onehot' and 'onehot_remat'
      against 'scatter' (phase 16's bounds) at E=2560, no kernel launched;
      torch.cuda.max_memory_allocated for one step under each and under
@@ -100,26 +112,30 @@ Phases (none catches its own failure; any failure exits non-zero):
   17. the comparative twin step (HybridModelv2_Comparative, the contrastive
      term at 0.1, random_comparative_batch at E=2560): the first step's loss
      and gradients under 'mega' against 'scatter', in f32 and in bf16, then
-     6 steps: 12 B1 + 12 B2 launches per step, finite loss, median step
+     6 steps: 12 B1 + 12 B2 + 24 B8 scatter launches per step, finite
+     loss, median step
      time. Its loss is not required to fall: the contrastive term dominates
      it and wanders with each step's noise (PERF.md, Findings);
   18. the same train step under 'fused' at both edge counts: the first
      step against 'scatter', then 20 steps with 6 B3 forward + 6 B3
-     backward launches each and a falling loss, beside phase 16's 'mega';
+     backward + 16 B8 scatter + 6 B8 gather launches each and a falling
+     loss, beside phase 16's 'mega';
   19. the IEDB entry point: synthetic_corpus writes 512 samples with
      275-residue HLA chains (283-285 tokens, N padded to 288), and
      cli.train_IEDB_wFT.main runs HybridModelv2 at full width with
      --aggregation fused, bf16, batch 128, 2 epochs per stage: both stages
      finish with finite losses, both checkpoints load, the train and test
      metrics have 15 keys with the train threshold reused on test, both B3
-     kernels ran in both stages and B3's forward in inference; epoch
+     kernels and both B8 kernels ran in both stages and B3's forward and
+     B8's scatter in inference; epoch
      times and pMHC/s printed. Then B3 forward and backward against their
      plain versions as in phase 7, on the operands the entry point gave
      B3's forward (the first of each shape: full and partial batches), in
      bf16 and cast to f32;
   20. the same train step under 'pallas' at both edge counts: the first
-     step against 'scatter', then 20 steps with 6 B8 scatter + 6 B8 gather
-     launches each (and none of B1-B3) and a falling loss, beside phase 16's
+     step against 'scatter', then 20 steps with 26 B8 scatter + 6 B8
+     gather launches each (and none of B1-B3) and a falling loss, beside
+     phase 16's
      'mega' and 'scatter';
   21. the Cancer entry point, the fourth slice's main path: the corpus of
      phase 19 and synthetic_comparative_corpus's 256 cancer/WT pairs sharing its
@@ -149,13 +165,16 @@ Phases (none catches its own failure; any failure exits non-zero):
      each variant's first step, a burn-in of 3, two interleaved windows of 5
      steps ending in a value fetch): per step 'diff16' ('hybrid') 6 B1 + 6
      B2, 'dboth' 6 B1 + 6 B5a, 'inkernel' 6 B1 + 6 B5b, 'paired' 6 B4 + 6 B2,
-     'stack' 1 B6 + 6 B2, 'fused' 6 + 6 B3, no other kernel, and a finite
+     'stack' 1 B6 + 6 B2, each with 12 B8 scatters but 'inkernel', 'fused'
+     6 + 6 B3 with 16 B8 scatters and 6 B8 gathers, no other kernel, and a
+     finite
      loss that falls for each (its least over the timed steps below the
      first step's: on one fixed batch the loss spikes now and then); every
      count set to 0 before each race and read after it;
   24. serve one B=128 forward with no gradient under 'stack' and 'paired'
      (the served model, a mirror-paired batch at E=2560): probabilities
-     within 5e-4 of 'scatter', the variant's kernel alone launched;
+     within 5e-4 of 'scatter', the same bits twice, the variant's kernel
+     alone launched;
   24a. phase 24's 'paired' forward and one 'paired' train step under
      torch.cuda.set_sync_debug_mode("error"): no host sync;
   25. trace forwards and train steps with torch.profiler ('mega',
@@ -690,8 +709,8 @@ def check_serving(scorer, requests, kernel: int = 0) -> tuple:
     """Serve ``requests`` over HTTP: each request launches ``kernel`` (its
     index in read_counts(): B1 under 'mega', B7 under fused_stack) once per
     layer and no other kernel; its probabilities are within PROB_ATOL of
-    'scatter''s and, sent again, of the first reply's (B7 sums without
-    atomics: the same bits)."""
+    'scatter''s and, sent again, the first reply's bits (every sum of both
+    kernels is in a fixed order, without atomics)."""
     from immunostruct_tpu_torch.serving import make_http_server
 
     layers = len(scorer.model.gcn)
@@ -724,8 +743,7 @@ def check_serving(scorer, requests, kernel: int = 0) -> tuple:
             prob_err = (probs - plain_probs(scorer, path)).abs().max().item()
             assert prob_err <= PROB_ATOL, (label, prob_err)
             # latency: TIMED_REQUESTS more posts of the same request, each
-            # scored as the first was (up to the order of the kernel's f32
-            # atomic sums)
+            # scored as the first was, bit for bit
             walls, server_ms, repeat_err = [], [], 0.0
             before = read_counts()
             for _ in range(TIMED_REQUESTS):
@@ -739,9 +757,7 @@ def check_serving(scorer, requests, kernel: int = 0) -> tuple:
                                  (again - probs).abs().max().item())
             assert read_counts()[kernel] - before[kernel] == \
                 layers * TIMED_REQUESTS
-            assert repeat_err <= PROB_ATOL, (label, repeat_err)
-            if kernel == B7_INDEX:
-                assert repeat_err == 0.0, (label, repeat_err)
+            assert repeat_err == 0.0, (label, repeat_err)
             row = dict(request=label, launches_per_request=launches[kernel],
                        max_abs_prob_err_vs_scatter=prob_err,
                        max_abs_prob_diff_repeated=repeat_err,
@@ -903,8 +919,8 @@ def check_training() -> tuple:
         reset_counts()                  # every count to 0: training starts
         losses, ms = timed_steps(trainer, state, batch, TRAIN_STEPS)
         counts = read_counts()          # read just after the 'mega' steps
-        assert counts == (layers * TRAIN_STEPS, layers * TRAIN_STEPS) + (
-            0,) * 9, counts
+        n = layers * TRAIN_STEPS
+        assert counts == (n, n, 0, 0, 2 * n) + (0,) * 6, counts
         main_counts = tuple(a + c for a, c in zip(main_counts, counts))
         assert all(map(lambda v: v == v and abs(v) < float("inf"), losses))
         assert losses[-1] < losses[0], losses
@@ -944,8 +960,8 @@ def check_comparative() -> tuple:
     reset_counts()                      # every count to 0: twin steps start
     losses, ms = timed_steps(trainer, state, batch, COMPARATIVE_STEPS)
     counts = read_counts()              # read just after them
-    assert counts == (12 * COMPARATIVE_STEPS, 12 * COMPARATIVE_STEPS) + (
-        0,) * 9, counts
+    n = 12 * COMPARATIVE_STEPS
+    assert counts == (n, n, 0, 0, 2 * n) + (0,) * 6, counts
     assert all(map(lambda v: v == v and abs(v) < float("inf"), losses))
     row = dict(E=EDGE_COUNTS[0], steps=COMPARATIVE_STEPS,
                launches_per_step=[c // COMPARATIVE_STEPS for c in counts],
@@ -1181,8 +1197,10 @@ def check_fused_layer_grads() -> list:
                  + (x2 * cot_x).float().sum()).backward()
             torch.cuda.synchronize()
             launched = tuple(a - z for a, z in zip(read_counts(), before))
-            assert launched == ((0, 0, 1, 1) + (0,) * 7 if kernels
-                                else (0,) * 11), launched
+            # B8's scatter sums the aggregation and the two gathers'
+            # backward, its gather the aggregation's backward
+            assert launched == ((0, 0, 1, 1, 3, 1) + (0,) * 5 if kernels
+                                else (0, 0, 0, 0, 3, 1) + (0,) * 5), launched
             return [h2.detach(), x2.detach(), hin.grad, xin.grad] + [
                 p.grad.clone() for p in layer.parameters()]
 
@@ -1224,7 +1242,11 @@ def check_fused_training(mega_rows) -> tuple:
         losses, ms = timed_steps(trainer, state, batch, TRAIN_STEPS)
         counts = read_counts()          # read just after them
         n = layers * TRAIN_STEPS
-        assert counts == (0, 0, n, n) + (0,) * 7, counts
+        # B8's scatter: each layer's aggregation, and the backward of its
+        # two gathers but in the first layer, whose h and x are inputs
+        # that need no gradient; its gather: the aggregation's backward
+        assert counts == (0, 0, n, n, 3 * n - 2 * TRAIN_STEPS, n) + (
+            0,) * 5, counts
         assert all(map(lambda v: v == v and abs(v) < float("inf"), losses))
         assert losses[-1] < losses[0], losses
         del trainer, state
@@ -1316,12 +1338,17 @@ def check_entry_point(tmp: str) -> tuple:
         assert len(h["train_loss"]) == CLI_EPOCHS, h
         assert all(v == v and abs(v) < float("inf")
                    for v in h["train_loss"] + h["val_loss"]), h
-        b3f, b3b = s["launches"][2:4]
+        b3f, b3b, b8s, b8g = s["launches"][2:6]
         assert s["launches"][:2] == [0, 0] and b3f > 0 and b3b > 0, s
-        assert s["launches"][4:] == [0] * 7, s
+        # B8's scatter: one aggregation a forward, the backward of two
+        # gathers a backward but in the first of the six layers (its h and
+        # x need no gradient); its gather: the aggregation's backward
+        assert b8s == b3f + 2 * (b3b - b3b // 6) and b8g == b3b, s
+        assert s["launches"][6:] == [0] * 5, s
     assert len(inferences) == 2, inferences
     for launched in inferences:
-        assert launched[2] > 0 and launched.count(0) == 10, launched
+        assert launched[2] > 0 and launched[4] == launched[2], launched
+        assert launched.count(0) == 9, launched
     for stats in (train_stats, test_stats):
         assert len(stats) == METRIC_KEYS, sorted(stats)
     assert test_stats["optimal_threshold"] == \
@@ -1609,9 +1636,9 @@ def check_pallas_layer_grads() -> list:
     backward) against the same layer on B8's plain versions, at B=128,
     E=2560, F=64: outputs and gradients. f32 as the 'fused' layer; bf16 per
     tensor mean|diff| <= 2 * (the plain layer's own run-to-run mean|diff|)
-    + GRAD_BF16_MEAN * mean|plain|: the backward of the layer's index_select
-    gathers adds in bf16 with atomics, so h's and the edge MLP's gradients
-    move from run to run."""
+    + GRAD_BF16_MEAN * mean|plain|: the plain scatter (index_add_) sums with
+    atomics on the card, so h's and the edge MLP's gradients move from run
+    to run there."""
     from immunostruct_tpu_torch.ops.egnn import EGNNLayer, egnn_apply
 
     rows = []
@@ -1636,7 +1663,9 @@ def check_pallas_layer_grads() -> list:
                  + (x2 * cot_x).float().sum()).backward()
             torch.cuda.synchronize()
             launched = tuple(a - z for a, z in zip(read_counts(), before))
-            assert launched == ((0, 0, 0, 0, 1, 1) + (0,) * 5 if kernels
+            # the scatter sums the aggregation and the backward of the
+            # layer's four gathers, the gather the aggregation's backward
+            assert launched == ((0, 0, 0, 0, 5, 1) + (0,) * 5 if kernels
                                 else (0,) * 11), launched
             return [h2.detach(), x2.detach(), hin.grad, xin.grad] + [
                 p.grad.clone() for p in layer.parameters()]
@@ -1684,7 +1713,10 @@ def check_pallas_training(mega_rows) -> tuple:
         losses, ms = timed_steps(trainer, state, batch, TRAIN_STEPS)
         counts = read_counts()          # read just after them
         n = layers * TRAIN_STEPS
-        assert counts == (0, 0, 0, 0, n, n) + (0,) * 5, counts
+        # the scatter: each layer's aggregation and the backward of its
+        # four gathers but in the first layer (h and x need no gradient)
+        assert counts == (0, 0, 0, 0, 5 * n - 4 * TRAIN_STEPS, n) + (
+            0,) * 5, counts
         assert all(map(lambda v: v == v and abs(v) < float("inf"), losses))
         assert losses[-1] < losses[0], losses
         del trainer, state
@@ -1857,9 +1889,12 @@ def check_cancer_entry_point(tmp: str) -> tuple:
 DTYPES = (("float32", torch.float32), ("bfloat16", torch.bfloat16))
 # per train step of six layers, by the race's variant names
 VARIANT_LAUNCHES = {
-    "diff16": {"B1": 6, "B2": 6}, "dboth": {"B1": 6, "B5a": 6},
-    "inkernel": {"B1": 6, "B5b": 6}, "paired": {"B4": 6, "B2": 6},
-    "stack": {"B6": 1, "B2": 6}, "fused": {"B3_fwd": 6, "B3_bwd": 6},
+    "diff16": {"B1": 6, "B2": 6, "B8_scatter": 12},
+    "dboth": {"B1": 6, "B5a": 6, "B8_scatter": 12},
+    "inkernel": {"B1": 6, "B5b": 6},
+    "paired": {"B4": 6, "B2": 6, "B8_scatter": 12},
+    "stack": {"B6": 1, "B2": 6, "B8_scatter": 12},
+    "fused": {"B3_fwd": 6, "B3_bwd": 6, "B8_scatter": 16, "B8_gather": 6},
 }
 RACE_WINDOWS, RACE_STEPS, RACE_BURNIN = 2, 5, 3
 # B6, bf16, each layer run from the kernel's own previous h and x: aggs
@@ -2067,14 +2102,14 @@ def check_tail_nodes_kernel() -> list:
     return rows
 
 
-def stack_inputs(e: int, dtype, seed: int):
+def stack_inputs(e: int, dtype, seed: int, b: int = B):
     """B6's operands: HybridModelv2's six conv layers (F0=20, H=64) with
     seeded weights, and kernel_inputs at F=20 with indices at -1 and N on a
     few edges: ([src, dst, mask, ef, h0, x0], the layers' packed weights)."""
     from immunostruct_tpu_torch.ops.egnn import egnn_stack
     from immunostruct_tpu_torch.ops.stack import pack_layer
 
-    args = list(kernel_inputs(B, e, 20, dtype, seed)[:6])
+    args = list(kernel_inputs(b, e, 20, dtype, seed)[:6])
     args[0][:, 8:12] = -1
     args[1][:, 12:16] = N
     layers = egnn_stack(5, 20, H, generator=torch.Generator().manual_seed(
@@ -2082,11 +2117,17 @@ def stack_inputs(e: int, dtype, seed: int):
     return args, [tuple(t.detach() for t in pack_layer(p)) for p in layers]
 
 
-def stack_layer_errors(out, args, packed, dtype) -> dict:
+def stack_layer_errors(out, args, packed, dtype, own_agg=False) -> dict:
     """Each layer of B6 against the plain version of that layer run from
     the kernel's own previous h and x (so that a flipped rounding does not
-    carry into the next layer's check); asserts the bounds above."""
-    from immunostruct_tpu_torch.ops.stack import stack_fwd_reference
+    carry into the next layer's check); asserts the bounds above. With
+    ``own_agg`` h and x are held to the plain node update run from the
+    kernel's own aggregate (the B=1 row: a column's mean there runs over
+    288 nodes, so one flip of the aggregate, which its bound allows, moves
+    a node's h past 1e-4 of the column's mean; an H100 run read 1.25e-4)."""
+    from immunostruct_tpu_torch.ops.stack import (
+        stack_fwd_reference, stack_node_update_reference,
+    )
 
     h, x, hs, xs, aggs, a1s, xds = out
     assert torch.equal(h, hs[:, -1]) and torch.equal(x, xs[:, -1])
@@ -2100,6 +2141,9 @@ def stack_layer_errors(out, args, packed, dtype) -> dict:
         ref = stack_fwd_reference(src, dst, mask, ef, h_in, x_in, [weights])
         got = [t[:, layer] for t in (hs, xs, aggs, a1s, xds)]
         want = [t[:, 0] for t in ref[2:]]
+        if own_agg:
+            want[:2] = stack_node_update_reference(h_in, x_in, got[2],
+                                                   *weights[4:])
         assert all(torch.isfinite(g).all() for g in got)
         worst["max_abs_err"] = max(worst["max_abs_err"], *(
             (g.float() - w.float()).abs().max().item()
@@ -2134,50 +2178,70 @@ def stack_layer_errors(out, args, packed, dtype) -> dict:
 
 def check_stack_kernel() -> list:
     """B6 against its plain version, layer by layer, timed beside it and
-    beside the per-layer path's forward with no gradient."""
+    beside the per-layer path's forward with no gradient, at B=128 and, in
+    bf16 at E=2560, B=1 (one graph, one CTA); the same bits twice; its
+    shared memory a CTA, CTAs an SM and the compiler's readings."""
+    from immunostruct_tpu_torch.ops import _build
     from immunostruct_tpu_torch.ops.egnn import egnn_stack
     from immunostruct_tpu_torch.ops.mega import valid_edges
     from immunostruct_tpu_torch.ops.stack import (
-        stack_fwd, stack_fwd_reference,
+        _lib, stack_fwd, stack_fwd_reference,
     )
 
+    ptxas = _build.ptxas_readings("egnn_stack_fwd")
+    print("kernel B6 ptxas:", json.dumps(ptxas), flush=True)
     rows = []
-    for e in EDGE_COUNTS:
-        for name, dtype in DTYPES:
-            args, packed = stack_inputs(e, dtype, seed=e + 6)
-            out = stack_fwd(*args, packed)
-            torch.cuda.synchronize()
-            stats = stack_layer_errors(out, args, packed, dtype)
-            ms, plain_ms = alternate_ms(
-                lambda: stack_fwd_reference(*args, packed),
-                lambda: stack_fwd(*args, packed))
-            bare_ms = cuda_ms(lambda: stack_fwd(*args, packed,
-                                                residuals=False))
-            layers = egnn_stack(5, 20, H, generator=torch.Generator()
-                                .manual_seed(e + 6), device="cuda")
+    cases = [(B, e, name, dtype) for e in EDGE_COUNTS
+             for name, dtype in DTYPES] + [(1, EDGE_COUNTS[0], "bfloat16",
+                                            torch.bfloat16)]
+    for b, e, name, dtype in cases:
+        args, packed = stack_inputs(e, dtype, seed=e + 6, b=b)
+        out = stack_fwd(*args, packed)
+        again = stack_fwd(*args, packed)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, z) for a, z in zip(out, again))
+        del again
+        stats = stack_layer_errors(out, args, packed, dtype, own_agg=b == 1)
+        ms, plain_ms = alternate_ms(
+            lambda: stack_fwd_reference(*args, packed),
+            lambda: stack_fwd(*args, packed))
+        bare_ms = cuda_ms(lambda: stack_fwd(*args, packed,
+                                            residuals=False))
+        dev_ms = device_ms(lambda: stack_fwd(*args, packed))
+        layers = egnn_stack(5, 20, H, generator=torch.Generator()
+                            .manual_seed(e + 6), device="cuda")
 
-            def per_layer():
-                from immunostruct_tpu_torch.ops.egnn import egnn_stack_apply
+        def per_layer():
+            from immunostruct_tpu_torch.ops.egnn import egnn_stack_apply
 
-                with torch.no_grad():
-                    egnn_stack_apply(layers, args[4], args[5], *args[:2],
-                                     args[3], args[2], "mega")
+            with torch.no_grad():
+                egnn_stack_apply(layers, args[4], args[5], *args[:2],
+                                 args[3], args[2], "mega")
 
-            hybrid_ms = cuda_ms(per_layer)
-            valid = valid_edges(*args[:3], N).sum().item()
-            flops = 0
-            for weights in packed:
-                f = weights[0].shape[0] // 2
-                flops += (2 * B * N * f * 2 * H + 2 * valid * 2 * H * H
-                          + 2 * B * N * (f + H) * H + 2 * B * N * H * H)
-            work = bound(tensor_bytes(*args, *(t for w in packed for t in w),
-                                      *out), flops, dtype)
-            row = dict(E=e, F="20, then 64", dtype=name, **stats, **work,
-                       ms=ms, ms_without_residuals=bare_ms, plain_ms=plain_ms,
-                       per_layer_forward_no_grad_ms=hybrid_ms)
-            print("kernel B6:", json.dumps(row), flush=True)
-            rows.append(row)
-            del args, packed, out, layers
+        hybrid_ms = cuda_ms(per_layer)
+        valid = valid_edges(*args[:3], N).sum().item()
+        flops = 0
+        for weights in packed:
+            f = weights[0].shape[0] // 2
+            flops += (2 * b * N * f * 2 * H + 2 * valid * 2 * H * H
+                      + 2 * b * N * (f + H) * H + 2 * b * N * H * H)
+        work = bound(tensor_bytes(*args, *(t for w in packed for t in w),
+                                  *out), flops, dtype)
+        bf16 = int(dtype == torch.bfloat16)
+        kernel = ("egnn_stack_fwd_mma_kernel" if bf16
+                  else "egnn_stack_fwd_kernel<f32>")
+        row = dict(B=b, E=e, F="20, then 64", dtype=name, **stats,
+                   **work, ms=ms, device_ms=dev_ms,
+                   ms_without_residuals=bare_ms,
+                   plain_ms=plain_ms, same_bits=True,
+                   per_layer_forward_no_grad_ms=hybrid_ms,
+                   smem_per_cta=_lib().egnn_stack_fwd_smem_bytes(
+                       N, H, bf16),
+                   ctas_per_sm=_lib().egnn_stack_fwd_ctas_per_sm(
+                       N, H, bf16), ptxas=ptxas.get(kernel))
+        print("kernel B6:", json.dumps(row), flush=True)
+        rows.append(row)
+        del args, packed, out, layers
     return rows
 
 
@@ -2233,7 +2297,8 @@ def check_race() -> tuple:
 def check_variant_serving(scorer) -> list:
     """One B=128 forward with no gradient under 'stack' and 'paired' (the
     served model, a mirror-paired batch at E=2560): probabilities within
-    PROB_ATOL of 'scatter', the variant's kernel alone launched."""
+    PROB_ATOL of 'scatter', the same bits twice, the variant's kernel alone
+    launched."""
     from immunostruct_tpu_torch.data.synthetic import build_batch
     from immunostruct_tpu_torch.models.trunk import model_apply
 
@@ -2265,6 +2330,7 @@ def check_variant_serving(scorer) -> list:
         layers = 1 if variant == "stack" else 6
         assert launched == tuple(layers if i == kernel else 0
                                  for i in range(11)), (variant, launched)
+        assert torch.equal(probs("mega", variant), got), variant
         err = (got - want).abs().max().item()
         assert torch.isfinite(got).all() and err <= PROB_ATOL, (variant, err)
         row = dict(variant=variant, launches=launched,
@@ -2325,43 +2391,67 @@ def b7_errors(out, ref, dtype) -> dict:
 
 
 def check_b7_kernel() -> list:
-    """B7-check: B7 against its plain version at phase 4's shapes, the same
-    bits twice, kernel, plain and bound times."""
+    """B7-check: B7 against its plain version at phase 4's shapes and, in
+    bf16 at E=2560, F=64, at B=1 and 8 (a graph over a cluster of CTAs),
+    the same bits twice, kernel, plain and bound times; the cluster size,
+    shared memory a CTA, CTAs an SM, clusters the card holds at once and
+    the compiler's readings."""
+    from immunostruct_tpu_torch.ops import _build
     from immunostruct_tpu_torch.ops.fused_layer import (
         _lib, fused_egnn_layer, fused_egnn_layer_reference,
+        layer_cluster_size,
     )
 
+    ptxas = _build.ptxas_readings("egnn_layer_fwd")
+    print("kernel B7 ptxas:", json.dumps(ptxas), flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
+    cases = [(B, e, f, name, dtype) for e in EDGE_COUNTS for f in (20, 64)
+             for name, dtype in DTYPES] + [
+        (b, EDGE_COUNTS[0], 64, "bfloat16", torch.bfloat16) for b in (1, 8)]
     with torch.no_grad():
-        for e in EDGE_COUNTS:
-            for f in (20, 64):
-                for name, dtype in DTYPES:
-                    layer, args = b7_inputs(B, e, f, dtype, seed=e + f + 7)
-                    out = fused_egnn_layer(layer, *args)
-                    again = fused_egnn_layer(layer, *args)
-                    torch.cuda.synchronize()
-                    assert all(torch.equal(a, z) for a, z in zip(out, again))
-                    ref = fused_egnn_layer_reference(layer, *args)
-                    err = b7_errors(out, ref, dtype)
-                    ms, plain_ms = alternate_ms(
-                        lambda: fused_egnn_layer_reference(layer, *args),
-                        lambda: fused_egnn_layer(layer, *args))
-                    h, x, src, dst, mask = args
-                    summed = (mask & (dst >= 0) & (dst < N)).sum().item()
-                    # the products this run's edges need (those summed at a
-                    # dst: the others touch no output), then the node MLP
-                    flops = (2 * summed * (2 * f * H + 2 * H * H + H)
-                             + 2 * B * N * ((f + H) * H + H * H))
-                    weights = _lib().egnn_layer_fwd_weight_count(f, H)
-                    nbytes = (tensor_bytes(h, x, src, dst, mask, *out)
-                              + weights * h.element_size())
-                    row = dict(E=e, F=f, dtype=name, **err,
-                               **bound(nbytes, flops, dtype), same_bits=True,
-                               edges_summed=summed, ms=ms,
-                               plain_ms=plain_ms)
-                    print("kernel B7:", json.dumps(row), flush=True)
-                    rows.append(row)
-                    del layer, args, out, again, ref
+        for b, e, f, name, dtype in cases:
+            layer, args = b7_inputs(b, e, f, dtype, seed=e + f + 7)
+            out = fused_egnn_layer(layer, *args)
+            again = fused_egnn_layer(layer, *args)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, z) for a, z in zip(out, again))
+            ref = fused_egnn_layer_reference(layer, *args)
+            err = b7_errors(out, ref, dtype)
+            ms, plain_ms = alternate_ms(
+                lambda: fused_egnn_layer_reference(layer, *args),
+                lambda: fused_egnn_layer(layer, *args))
+            dev_ms = device_ms(lambda: fused_egnn_layer(layer, *args))
+            h, x, src, dst, mask = args
+            summed = (mask & (dst >= 0) & (dst < N)).sum().item()
+            # the products this run's edges need (those summed at a
+            # dst: the others touch no output), then the node MLP
+            flops = (2 * summed * (2 * f * H + 2 * H * H + H)
+                     + 2 * b * N * ((f + H) * H + H * H))
+            weights = _lib().egnn_layer_fwd_weight_count(f, H)
+            nbytes = (tensor_bytes(h, x, src, dst, mask, *out)
+                      + weights * h.element_size())
+            bf16 = int(dtype == torch.bfloat16)
+            cluster = layer_cluster_size(e, b, sms) if bf16 else 1
+            kernel = ("egnn_layer_fwd_mma_kernel<bf16>" if bf16
+                      else "egnn_layer_fwd_kernel<f32>")
+            occupancy = dict(
+                smem_per_cta=_lib().egnn_layer_fwd_smem_bytes(
+                    N, f, H, bf16))
+            if bf16:
+                occupancy.update(
+                    ctas_per_sm=_lib().egnn_layer_fwd_ctas_per_sm(
+                        N, f, 1),
+                    clusters_at_once=_lib()
+                    .egnn_layer_fwd_max_clusters(N, f, cluster))
+            row = dict(B=b, E=e, F=f, dtype=name, **err,
+                       **bound(nbytes, flops, dtype), same_bits=True,
+                       edges_summed=summed, ms=ms, device_ms=dev_ms,
+                       plain_ms=plain_ms, cluster=cluster,
+                       **occupancy, ptxas=ptxas.get(kernel))
+            print("kernel B7:", json.dumps(row), flush=True)
+            rows.append(row)
+            del layer, args, out, again, ref
     return rows
 
 
@@ -2372,6 +2462,54 @@ def fused_stack_scorer(scorer):
     return Scorer(scorer.model, device=scorer.device,
                   compute_dtype=scorer.compute_dtype, aggregation="auto",
                   seed=scorer.seed, fused_stack=True)
+
+
+SAME_BITS_B, SAME_BITS_STEPS = 16, 3
+
+
+def check_same_bits() -> list:
+    """Same seed, same bits: full-width HybridModelv2 (bf16 over f32 master
+    weights, Adam) from one seed, SAME_BITS_STEPS steps on one mirror-paired
+    batch (B=SAME_BITS_B, E=2560), trained twice from fresh state under
+    every aggregation ('mega' under each variant, 'fused', 'pallas',
+    'onehot', 'auto'): the losses, every parameter and every Adam moment
+    equal bit for bit. 'scatter' (index_add_, whose atomics sum in no fixed
+    order: the reference algorithm's baseline) is read, not asserted."""
+    from immunostruct_tpu_torch.data.synthetic import build_batch
+    from immunostruct_tpu_torch.ops.mega import MEGA_VARIANTS
+
+    batch = build_batch(SAME_BITS_B, N, EDGE_COUNTS[0], L, paired=True,
+                        device="cuda")
+    paths = [("mega", v) for v in MEGA_VARIANTS] + [
+        (agg, "hybrid") for agg in ("fused", "pallas", "onehot", "auto",
+                                    "scatter")]
+    rows = []
+    for agg, variant in paths:
+        runs = []
+        for _ in range(2):
+            trainer, state = make_trainer("HybridModelv2", agg,
+                                          mega_variant=variant)
+            losses = []
+            for _ in range(SAME_BITS_STEPS):
+                state, loss = trainer.train_step(state, batch, seed=0)
+                losses.append(loss.detach().clone())
+            torch.cuda.synchronize()
+            params = list(state.model.parameters())
+            runs.append((losses, [p.detach().clone() for p in params],
+                         [state.optimizer.state[p][k].clone() for p in params
+                          for k in ("exp_avg", "exp_avg_sq")]))
+            del trainer, state, params
+        differ = sum(int((a != z).sum()) for part in zip(*runs)
+                     for a, z in zip(*part))
+        row = dict(aggregation=agg, mega_variant=variant, B=SAME_BITS_B,
+                   E=EDGE_COUNTS[0], steps=SAME_BITS_STEPS,
+                   losses=[float(v) for v in runs[0][0]],
+                   entries_that_differ=differ)
+        print("same bits:", json.dumps(row), flush=True)
+        if agg != "scatter":
+            assert differ == 0, row
+        rows.append(row)
+    return rows
 
 
 def check_onehot_training() -> list:
@@ -2400,7 +2538,7 @@ def check_onehot_training() -> list:
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3
         launched = tuple(a - z for a, z in zip(read_counts(), before))
-        want = (6, 6) + (0,) * 9 if agg == "mega" else (0,) * 11
+        want = (6, 6, 0, 0, 12) + (0,) * 6 if agg == "mega" else (0,) * 11
         assert launched == want, (agg, launched)
         peak[agg] = dict(max_memory_allocated_bytes=
                          torch.cuda.max_memory_allocated(), step_ms=step_ms)
@@ -2561,8 +2699,8 @@ def profile_row(label, agg, per_name, traced, wall) -> dict:
         b5a_ms=kernel_ms("tail_bwd", ", 1>("),
         b5b_ms=kernel_ms("tail_bwd", ", 2>("),
         chunk_sum_ms=kernel_ms("reduce_node_chunks"),
-        b6_ms=kernel_ms("egnn_stack_fwd_kernel"),
-        b7_ms=kernel_ms("egnn_layer_fwd_kernel"),
+        b6_ms=kernel_ms("egnn_stack_fwd"),
+        b7_ms=kernel_ms("egnn_layer_fwd"),
         top=[[name[:90], t / 1e3 / traced, c // traced]
              for name, (t, c) in top])
     print("profile:", json.dumps(row), flush=True)
@@ -2678,6 +2816,7 @@ def main() -> int:
         b7_served, b7_counts = check_serving(fused_stack_scorer(scorer),
                                              requests, kernel=B7_INDEX)
         train_rows, train_counts = check_training()
+        same_bits_rows = check_same_bits()
         onehot_row = check_onehot_training()
         comp_row, comp_counts = check_comparative()
         fused_rows, fused_counts = check_fused_training(train_rows)
@@ -2706,10 +2845,15 @@ def main() -> int:
               f"{r7['median_forward_ms']:.3f} ms, round trip "
               f"{r7['median_http_wall_ms']:.3f} ms")
     for r in b7_rows:
-        print(f"kernel  [{card}]: B7 B={B} E={r['E']} F={r['F']} "
+        print(f"kernel  [{card}]: B7 B={r['B']} E={r['E']} F={r['F']} "
               f"{r['dtype']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']})")
+              f"({r['bound_by']}), device {r['device_ms']:.4f} ms, cluster "
+              f"{r['cluster']}, {r['smem_per_cta']} B shared memory a CTA")
+    for r in same_bits_rows:
+        print(f"repeat  [{card}]: {r['aggregation']}/{r['mega_variant']} "
+              f"B={r['B']} E={r['E']} {r['steps']} steps trained twice: "
+              f"{r['entries_that_differ']} entries differ")
     for agg, v in onehot_row["peak_memory"].items():
         print(f"memory  [{card}]: train step B=128 E=2560 bf16 {agg}: peak "
               f"{v['max_memory_allocated_bytes']} B allocated, step "
@@ -2812,7 +2956,7 @@ def main() -> int:
                      and r["dtype"] == "bfloat16")
                 for kind in ("scatter", "gather"))
     b4, b5a, b5b = pick(paired_rows), pick(db_rows), pick(nodes_rows)
-    b6 = next(r for r in stack_rows if r["E"] == 2560
+    b6 = next(r for r in stack_rows if r["E"] == 2560 and r["B"] == B
               and r["dtype"] == "bfloat16")
     b7 = pick(b7_rows)
 

@@ -10,14 +10,16 @@
 //                      the f32 forms' products: register-tiled FMA loops
 //                      over f32 tiles in shared memory (CUDA cores; f32 keeps
 //                      them, since TF32 would break the f32 bounds);
-//   node_projections   pa | pb = h @ W1ab for a graph's nodes, in f32 (B1
-//                      and B4 in both forms, B6);
+//   node_projections   pa | pb = h @ W1ab for a graph's nodes, in f32 (the
+//                      f32 forms of B1, B4 and B6; the bf16 forms take the
+//                      same arithmetic in register tiles, egnn_mega.cuh
+//                      proj_block);
 //   geometry_tile      the per-edge geometry from raw indices and the xd
-//                      residual (B1 in both forms, B6);
+//                      residual (B1 and B6 in both forms);
 //   fwd_tile_chain     the edge chain over one 64-edge tile on the CUDA
-//                      cores (a1, m, cw, the f32 aggregation with
-//                      shared-memory atomics, the a1 residual): the f32
-//                      forms of B1 and B4, and B6 in both dtypes.
+//                      cores (a1, m, cw, the f32 sums at dst in edge order,
+//                      no atomics; the a1 residual): the f32 forms of B1,
+//                      B4 and B6.
 // The tensor-core forms (B1, B2, B3, B4, B5a, B5b in bf16) build on
 // csrc/egnn_hopper.cuh, which includes this header. What bounds each
 // kernel on the card and what its design does about it is in its source.
@@ -239,11 +241,15 @@ __device__ __forceinline__ void geometry_tile(const int* srcb,
 // B1's edge chain over one tile whose geometry is in shared memory (written
 // and synchronised by the caller):
 //   a1 = pa[src] + pb[dst] + w1r*radial + w1e*ef + b1
-//   m = silu(silu(a1) @ W2 + b2) -> acc[dst][0..H-1] (shared-memory atomics)
+//   m = silu(silu(a1) @ W2 + b2) -> acc[dst][0..H-1]
 //   cw = silu(m @ Wc1 + bc1) . wc2 -> acc[dst][H..H+2] += cw * x_hat
 // pab [N][2H] holds pa | pb, rounded; w2s/wc1s [H][H] and sms [6][H] (small
 // transposed) the weights, rounded; bufA/bufB [kTile][H+1] scratch. The a1
-// residual goes to a1b[j*E + col] when a1b is not null. Ends synchronised.
+// residual goes to a1b[j*E + col] when a1b is not null. The sums at dst take
+// no atomics: after the tile's m (bufB) and coordinate messages (in x_hat's
+// place) are formed, one thread a column adds the tile's edges in edge
+// order, so with the tiles in order each (n, c) is an f32 sum from +0 in one
+// fixed order. Ends synchronised.
 template <typename T, int H>
 __device__ __forceinline__ void fwd_tile_chain(
     float* acc, const float* w2s, const float* wc1s, const float* sms,
@@ -282,27 +288,25 @@ __device__ __forceinline__ void fwd_tile_chain(
     __syncthreads();  // bufB is rewritten with m next
   }
 
-  // ---- m = silu(silu(a1) @ W2 + b2): into bufB and the accumulator ----
+  // ---- m = silu(silu(a1) @ W2 + b2) into bufB ----
   {
     float r[4][CPT];
     tile_product<H, H, false>(bufA, w2s, tg, cg, r);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int t = tg * 4 + i;
-      const bool ok = g.ok[t] != 0;
-      float* arow = acc + g.dst[t] * C;
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
         const int j = cg * CPT + c;
         const float mv = rnd<T>(silu(r[i][c] + sms[kB2 * H + j]));
         bufB[t * LD + j] = mv;
-        if (ok) atomicAdd(arow + j, mv);
       }
     }
   }
   __syncthreads();
 
-  // ---- cw = silu(m @ Wc1 + bc1) @ wc2; scatter cw * x_hat ----
+  // ---- cw = silu(m @ Wc1 + bc1) @ wc2; the coordinate message cw * x_hat
+  // in x_hat's place ----
   {
     float r[4][CPT];
     tile_product<H, H, false>(bufB, wc1s, tg, cg, r);
@@ -317,13 +321,23 @@ __device__ __forceinline__ void fwd_tile_chain(
         part += c1 * sms[kWC2 * H + j];
       }
       part = sum16(part);
-      if (cg == 0 && g.ok[t]) {
+      if (cg == 0) {
         const float cwb = rnd<T>(part);
-        float* arow = acc + g.dst[t] * C + H;
-        atomicAdd(arow + 0, rnd<T>(cwb * g.xh[t * 3 + 0]));
-        atomicAdd(arow + 1, rnd<T>(cwb * g.xh[t * 3 + 1]));
-        atomicAdd(arow + 2, rnd<T>(cwb * g.xh[t * 3 + 2]));
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          g.xh[t * 3 + k] = rnd<T>(cwb * g.xh[t * 3 + k]);
+        }
       }
+    }
+  }
+  __syncthreads();
+
+  // ---- the sums at dst: one thread a column, the tile's edges in order ----
+  if (tid < C) {
+    for (int t = 0; t < kTile; ++t) {
+      if (!g.ok[t]) continue;
+      acc[g.dst[t] * C + tid] +=
+          tid < H ? bufB[t * LD + tid] : g.xh[t * 3 + tid - H];
     }
   }
   __syncthreads();  // tile buffers and geometry are rewritten next tile

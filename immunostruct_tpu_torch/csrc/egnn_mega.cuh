@@ -1,17 +1,30 @@
 // The tensor-core form of the EGNN edge half-layer forward for Hopper
-// (sm_90a), in bf16: B1's (csrc/egnn_mega_fwd.cu) and, with another tile
-// policy, B4's (csrc/egnn_mega_paired_fwd.cu). What it computes, what bounds
-// it and what the design does about it: csrc/egnn_mega_fwd.cu.
+// (sm_90a), in bf16: B1's (csrc/egnn_mega_fwd.cu), with another tile policy
+// B4's (csrc/egnn_mega_paired_fwd.cu), and layer by layer B6's
+// (csrc/egnn_stack_fwd.cu). What it computes, what bounds it and what the
+// design does about it: csrc/egnn_mega_fwd.cu.
 //
-//   egnn_mega_proj_kernel      pa | pb = h @ W1ab for 32 nodes a CTA, with
-//                              node_projections' f32 arithmetic and order,
-//                              rounded to bf16 into the proj scratch;
-//   egnn_mega_fwd_mma_kernel   the edge chain over one CTA per (graph,
-//                              chunk), two warpgroups each on its own 64-slot
+//   proj_block                 pa | pb = h @ W1ab for up to 32 nodes, each
+//                              output an f32 sum over the features in order
+//                              from +0 (node_projections' arithmetic, in
+//                              register tiles), rounded to bf16;
+//   egnn_mega_proj_kernel      proj_block for 32 nodes a CTA into the proj
+//                              scratch;
+//   mma_edge_chunk             the edge chain over a chunk of one graph's
+//                              items, two warpgroups each on its own 64-slot
 //                              tiles; Tiles says which edge each slot of a
 //                              tile computes and forms the tile's geometry
 //                              (EdgeTiles: slot t is edge i0 + t; B4's
-//                              ArcTiles: 32 arcs and their 32 mirrors);
+//                              ArcTiles: 32 arcs and their 32 mirrors). The
+//                              sums at dst take no atomics: each tile's m and
+//                              coordinate messages wait in shared memory, and
+//                              one thread per column adds them into the node
+//                              block slot by slot, the tiles in order (the
+//                              warpgroups pass the turn: sum_tile_ordered,
+//                              turn_wait, turn_pass), so each (n, c) is an f32
+//                              sum from +0 in one fixed order: the same bits
+//                              every run;
+//   egnn_mega_fwd_mma_kernel   mma_edge_chunk over one CTA per (graph, chunk);
 //   launch_mma                 the projections, the edge kernel and, with
 //                              more than one chunk, reduce_node_chunks.
 
@@ -24,36 +37,77 @@ namespace egnn {
 constexpr int kProjNodes = 32;  // nodes per CTA of the projections
 
 // shared memory of the projections' CTA: W1ab f32 [2F][H] | the nodes' h
-// f32 [kProjNodes][F] | pa | pb f32 [kProjNodes][2H]
+// f32 [kProjNodes][F]
 inline long long proj_smem_bytes(int f) {
-  return 4LL * (2 * f * kHidden + kProjNodes * f + kProjNodes * 2 * kHidden);
+  return 4LL * (2 * f * kHidden + kProjNodes * f);
 }
 
-// pa | pb for nodes n0 .. n0+kProjNodes-1 of graph blockIdx.y, rounded to
-// the compute dtype by node_projections, into proj [B][N][2H] in that dtype
-// (h is read into shared memory first: the sums' f32 arithmetic and order
-// are node_projections' either way)
-template <typename T, int H>
+// pa | pb = h @ W1ab for nodes 0 .. nn-1 (nn <= kProjNodes) of the rows
+// hrows (stride hld, f32 or bf16, shared or device memory), rounded to bf16
+// into out [nn][2H] (device memory). Each output is an f32 sum over the F
+// features in f order from +0, one fma a feature: node_projections'
+// arithmetic, so B1's projections, B4's and B6's are the same bits. w1s
+// [2F][H] f32 holds the rounded weights in shared memory. Thread (ng, cq) of
+// the 256 takes nodes 4ng .. 4ng+3 and columns 4cq .. 4cq+3 (one float4 of
+// weights and four h values a feature).
+template <typename HT>
+__device__ __forceinline__ void proj_block(const HT* hrows, int hld,
+                                           const float* w1s, int F, int nn,
+                                           bf* out, int tid) {
+  constexpr int H = kHidden;
+  const int cq = tid % 32, ng = tid / 32;
+  const int j = cq * 4;
+  const float* wcol = w1s + (j / H) * F * H + (j % H);
+  const HT* hr[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) hr[i] = hrows + min(ng * 4 + i, nn - 1) * hld;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
+#pragma unroll 4
+  for (int f = 0; f < F; ++f) {
+    const float4 w = *reinterpret_cast<const float4*>(wcol + f * H);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float hv = to_f(hr[i][f]);
+      acc[i][0] = fmaf(hv, w.x, acc[i][0]);
+      acc[i][1] = fmaf(hv, w.y, acc[i][1]);
+      acc[i][2] = fmaf(hv, w.z, acc[i][2]);
+      acc[i][3] = fmaf(hv, w.w, acc[i][3]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int node = ng * 4 + i;
+    if (node < nn) {
+      __nv_bfloat162* o =
+          reinterpret_cast<__nv_bfloat162*>(out + node * 2 * H + j);
+      o[0] = __floats2bfloat162_rn(acc[i][0], acc[i][1]);
+      o[1] = __floats2bfloat162_rn(acc[i][2], acc[i][3]);
+    }
+  }
+}
+
+// pa | pb for nodes n0 .. n0+kProjNodes-1 of graph blockIdx.y into proj
+// [B][N][2H] in bf16 (h is read into shared memory first)
 __global__ void __launch_bounds__(kThreads)
-    egnn_mega_proj_kernel(const T* __restrict__ h,
-                          const float* __restrict__ w1ab, T* __restrict__ proj,
+    egnn_mega_proj_kernel(const bf* __restrict__ h,
+                          const float* __restrict__ w1ab, bf* __restrict__ proj,
                           int N, int F) {
+  constexpr int H = kHidden;
   extern __shared__ float smem_proj[];
   float* w1s = smem_proj;                // [2F][H]
   float* hs = w1s + 2 * F * H;           // [kProjNodes][F]
-  float* pab = hs + kProjNodes * F;      // [kProjNodes][2H]
   const int b = blockIdx.y, n0 = blockIdx.x * kProjNodes;
   const int nn = min(kProjNodes, N - n0);
   const int tid = threadIdx.x;
-  const T* hb = h + ((size_t)b * N + n0) * F;
-  for (int i = tid; i < 2 * F * H; i += kThreads) w1s[i] = rnd<T>(w1ab[i]);
+  const bf* hb = h + ((size_t)b * N + n0) * F;
+  for (int i = tid; i < 2 * F * H; i += kThreads) w1s[i] = rnd<bf>(w1ab[i]);
   for (int i = tid; i < nn * F; i += kThreads) hs[i] = to_f(hb[i]);
   __syncthreads();
-  node_projections<T, H>(hs, static_cast<const T*>(nullptr), F, w1s, nn, F,
-                         pab, tid);
-  __syncthreads();
-  T* pb = proj + ((size_t)b * N + n0) * 2 * H;
-  for (int i = tid; i < nn * 2 * H; i += kThreads) pb[i] = from_f<T>(pab[i]);
+  proj_block(hs, F, w1s, F, nn, proj + ((size_t)b * N + n0) * 2 * H, tid);
 }
 
 constexpr int kFwdThreads = 256;  // two warpgroups, each its own tiles
@@ -134,62 +188,14 @@ struct EdgeTiles {
   }
 };
 
-// Per (graph, chunk): CTA b*chunks + c takes items c*chunk_items .. of
-// graph b (B1: edges; B4: arcs, each with its mirror) and sums them into
-// its node block: the output (chunks 1) or nodes [B*chunks][N][H+3] for
-// reduce_node_chunks. proj holds pa | pb [B][N][2H] in bf16
-// (egnn_mega_proj_kernel). Tiles forms a tile's 64 slots (EdgeTiles, B4's
-// ArcTiles). The chunk's tiles alternate between the two warpgroups; each
-// loads its next tile's rows and geometry while the other computes.
-template <int H, class Tiles>
-__global__ void __launch_bounds__(kFwdThreads, 1)
-    egnn_mega_fwd_mma_kernel(const int* __restrict__ src,
-                             const int* __restrict__ dst,
-                             const uint8_t* __restrict__ mask,
-                             const bf* __restrict__ ef,
-                             const bf* __restrict__ x,
-                             const float* __restrict__ w2,
-                             const float* __restrict__ wc1,
-                             const float* __restrict__ small,
-                             const bf* __restrict__ proj,
-                             float* __restrict__ nodes, bf* __restrict__ a1_out,
-                             bf* __restrict__ xd_out, int N, int E, int chunks,
-                             int chunk_items) {
-  static_assert(H == kHidden, "the tensor-core form is written for H = 64");
-  constexpr int C = H + 3;
-  const FwdLayout L = fwd_layout(N);
-  extern __shared__ __align__(16) unsigned char smem_mma[];
-  unsigned char* sm = smem_mma;
-  float* acc = reinterpret_cast<float*>(sm);                // [N][C]
-  bf* w2s = reinterpret_cast<bf*>(sm + L.w2);               // [k][n]
-  bf* wc1s = reinterpret_cast<bf*>(sm + L.wc1);             // [k][n]
-  float* sms = reinterpret_cast<float*>(sm + L.sms);
-
-  const int b = blockIdx.x / chunks;
-  const int i_begin = (blockIdx.x % chunks) * chunk_items;
-  const int i_end = min(Tiles::items(E), i_begin + chunk_items);
-  const int tid = threadIdx.x;
-  const int wg = tid / kMmaThreads, wtid = tid % kMmaThreads;
-  const int lane = tid & 31;
-  const int fr = lane >> 2, fq = lane & 3;  // fragment row, column pair
-  const int m0 = (wtid >> 5) * 16;
-  // this warpgroup's stage: pa[src] rows, then pb[dst] rows; its geometry
-  unsigned char* st = sm + L.stage + wg * 2 * kTileBytes;
-  const bf* pas = reinterpret_cast<const bf*>(st);               // [t][j]
-  const bf* pbs = reinterpret_cast<const bf*>(st + kTileBytes);  // [t][j]
-  const TileGeometry g = carve_geometry(
-      reinterpret_cast<float*>(sm + L.geo) + wg * geometry_floats());
-  const int* srcb = src + (size_t)b * E;
-  const int* dstb = dst + (size_t)b * E;
-  const uint8_t* maskb = mask + (size_t)b * E;
-  const bf* efb = ef + (size_t)b * E;
-  const bf* xb = x + (size_t)b * N * 3;
-  const bf* pgb = proj + (size_t)b * N * 2 * H;  // [N][2H]: pa | pb
-  bf* a1b = a1_out == nullptr ? nullptr : a1_out + (size_t)b * H * E;
-  bf* xdb = xd_out == nullptr ? nullptr : xd_out + (size_t)b * 3 * E;
-
-  // ---- the node block, and the weights rounded to bf16 by their store ----
-  for (int i = tid; i < N * C; i += kFwdThreads) acc[i] = 0.0f;
+// W2 and Wc1 rounded to bf16 by their store ([k][kLdb]) and small^T, by
+// kFwdThreads threads; the caller synchronises
+__device__ __forceinline__ void stage_mma_weights(const float* w2,
+                                                  const float* wc1,
+                                                  const float* small, bf* w2s,
+                                                  bf* wc1s, float* sms,
+                                                  int tid) {
+  constexpr int H = kHidden;
   for (int i = tid; i < H * H; i += kFwdThreads) {
     const int k = i / H, j = i % H;
     w2s[k * kLdb + j] = __float2bfloat16(w2[i]);
@@ -198,6 +204,99 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   for (int i = tid; i < 6 * H; i += kFwdThreads) {
     sms[(i % 6) * H + i / 6] = small[i];
   }
+}
+
+// ---- the sums at dst, in a fixed order ----
+
+constexpr int kMRow = 72;  // floats of a slot's f32 m row in the stage (288 B)
+
+// Slot t's f32 m row in its warpgroup's stage st: the 16 slots of warp
+// t / 16 lie over that warp's own pa rows (slots 0-7 of the warp) and pb
+// rows (8-15), so a warp overwrites only rows it has read itself.
+__device__ __forceinline__ float* m_row(unsigned char* st, int t) {
+  const int w = t >> 4, r = t & 15;
+  return reinterpret_cast<float*>(st + (r >> 3) * kTileBytes +
+                                  w * 16 * kLdb * 2 + (r & 7) * kMRow * 4);
+}
+
+// node block acc [N][H+3] += the tile's messages: slot t's m (m_row) in
+// columns 0..H-1 and its coordinate message (g.xh[3t..3t+2]) in H..H+2, for
+// the computed slots (g.ok) at their row g.dst. One thread a column (wtid <
+// H+3) adds the slots in slot order; the caller orders the tiles, so each
+// (n, c) is an f32 sum from +0 in one fixed order.
+__device__ __forceinline__ void sum_tile_ordered(float* acc,
+                                                 unsigned char* st,
+                                                 TileGeometry g, int wtid) {
+  constexpr int C = kHidden + 3;
+  if (wtid >= C) return;
+  const bool is_m = wtid < kHidden;
+#pragma unroll 1
+  for (int t0 = 0; t0 < kTile; t0 += 8) {
+    int row[8];
+    float v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int t = t0 + u;
+      row[u] = g.ok[t] ? g.dst[t] : -1;
+      v[u] = is_m ? m_row(st, t)[wtid] : g.xh[t * 3 + wtid - kHidden];
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if (row[u] >= 0) acc[row[u] * C + wtid] += v[u];
+    }
+  }
+}
+
+// The two warpgroups of a CTA take a chunk's tiles in turn (wg, wg+2, ..)
+// and sum them in tile order: warpgroup wg waits on named barrier 3 + wg
+// before it sums a tile other than the first, and arrives on the other's
+// after, where a next tile exists. Each arrival meets exactly one wait.
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(3 + wg), "n"(kFwdThreads)
+               : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(4 - wg), "n"(kFwdThreads)
+               : "memory");
+}
+
+// a CTA's shared memory as mma_edge_chunk reads it: the f32 node block [N]
+// [H+3], W2 and Wc1 bf16 [H][kLdb] ([k][n]), small^T [6][H] f32, the two
+// warpgroups' stages (2 * kTileBytes each) and geometries
+struct ChunkSmem {
+  float* acc;
+  const bf* w2s;
+  const bf* wc1s;
+  const float* sms;
+  unsigned char* stage;
+  float* geo;
+};
+
+// The edge chain of items i_begin .. i_end-1 of one graph (B1: edges; B4:
+// arcs, each with its mirror), summed into S.acc in tile order. pgb holds
+// the graph's pa | pb [N][2H] in bf16 (proj_block) in device memory; xb its
+// coordinates in bf16 (device or shared memory). Writes the residuals a1
+// [H][E] and xd [3][E] where a1b / xdb are not null. The caller has zeroed
+// S.acc and staged the weights; this starts the first tiles' loads, then
+// synchronises the CTA, and ends synchronised. The chunk's tiles alternate
+// between the two warpgroups; each loads its next tile's rows and geometry
+// while the other computes.
+template <int H, class Tiles>
+__device__ __forceinline__ void mma_edge_chunk(
+    const int* srcb, const int* dstb, const uint8_t* maskb, const bf* efb,
+    const bf* xb, const bf* pgb, bf* a1b, bf* xdb, int N, int E, int i_begin,
+    int i_end, const ChunkSmem& S, int tid) {
+  static_assert(H == kHidden, "the tensor-core form is written for H = 64");
+  const int wg = tid / kMmaThreads, wtid = tid % kMmaThreads;
+  const int lane = tid & 31;
+  const int fr = lane >> 2, fq = lane & 3;  // fragment row, column pair
+  const int m0 = (wtid >> 5) * 16;
+  const float* sms = S.sms;
+  // this warpgroup's stage: pa[src] rows, then pb[dst] rows; its geometry
+  unsigned char* st = S.stage + wg * 2 * kTileBytes;
+  const bf* pas = reinterpret_cast<const bf*>(st);               // [t][j]
+  const bf* pbs = reinterpret_cast<const bf*>(st + kTileBytes);  // [t][j]
+  const TileGeometry g = carve_geometry(S.geo + wg * geometry_floats());
 
   // ---- each warpgroup's tiles: wg, wg+2, ..; the next one's indices are
   // read into registers while this one computes, its rows then arrive by
@@ -284,22 +383,31 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
           af[kk][q] = pack2(v[0], v[1]);
         }
     }
+    __syncwarp();  // the warp's pa / pb rows are read: m takes their place
 
-    // ---- m = silu(silu(a1) @ W2 + b2) -> the node block; m as the A
-    // operand of p3 ----
+    // ---- m = silu(silu(a1) @ W2 + b2) -> its f32 row (m_row) for the
+    // node sums; m as the A operand of p3 ----
     {
       float p2[8][4];
-      reg_product(af, w2s, lane, p2);
+      reg_product(af, S.w2s, lane, p2);
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const int t = m0 + fr + 8 * (i >> 1), j = nt * 8 + 2 * fq + (i & 1);
+          const int j = nt * 8 + 2 * fq + (i & 1);
           const float p = p2[nt][i] + sms[kB2 * H + j];
           const float mv = rnd<bf>(p * sigmoid_fast(p));
-          if (g.ok[t]) atomicAdd(acc + g.dst[t] * C + j, mv);
           p2[nt][i] = mv;
         }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* mr = m_row(st, m0 + fr + 8 * h);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          *reinterpret_cast<float2*>(mr + nt * 8 + 2 * fq) =
+              make_float2(p2[nt][2 * h], p2[nt][2 * h + 1]);
+        }
+      }
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         af[kk][0] = pack2(p2[2 * kk][0], p2[2 * kk][1]);
@@ -309,10 +417,11 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       }
     }
 
-    // ---- cw = silu(m @ Wc1 + bc1) . wc2 -> node block += cw * x_hat ----
+    // ---- cw = silu(m @ Wc1 + bc1) . wc2 -> the coordinate message
+    // rnd(cw) * x_hat, rounded, in x_hat's place ----
     {
       float p3[8][4];
-      reg_product(af, wc1s, lane, p3);
+      reg_product(af, S.wc1s, lane, p3);
       float part[2] = {0.0f, 0.0f};
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
@@ -327,21 +436,105 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       for (int h = 0; h < 2; ++h) {
         const float cw = sum4(part[h]);
         const int t = m0 + fr + 8 * h;
-        if (fq == 0 && g.ok[t]) {
+        if (fq == 0) {
           const float cwb = rnd<bf>(cw);
-          float* arow = acc + g.dst[t] * C + H;
 #pragma unroll
           for (int k = 0; k < 3; ++k) {
-            atomicAdd(arow + k, rnd<bf>(cwb * g.xh[t * 3 + k]));
+            g.xh[t * 3 + k] = rnd<bf>(cwb * g.xh[t * 3 + k]);
           }
         }
       }
     }
+
+    // ---- the tile's messages into the node block, after the chunk's
+    // previous tile ----
+    wg_sync(wg);  // the tile's m rows and coordinate messages
+    if (it > 0) turn_wait(wg);
+    sum_tile_ordered(S.acc, st, g, wtid);
+    if (it + 1 < ntiles) turn_pass(wg);
     wg_sync(wg);  // the stage and the geometry turn over
     if (it + 2 < ntiles) load_tile(it + 2);
   }
   cp_async_wait<0>();
   __syncthreads();
+}
+
+// ---- the node MLPs of B6 and B7: 64-row blocks on mma.sync ----
+
+// rows m0 .. m0+15, depth k0 .. k0+15 of a bf16 tile [m][k] of row stride
+// ld, as the A operand of an m16n8k16 product
+__device__ __forceinline__ void load_a_ld(unsigned (&a)[4], const bf* s,
+                                          int ld, int m0, int k0, int lane) {
+  ldsm_x4(a, s + (m0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
+}
+
+// acc[q][.] = rows m0..m0+15 of A [.][lda] . W [K][kLdb] over depth K (a
+// multiple of 16), columns n0 .. n0+31 (four n-tiles of 8)
+__device__ __forceinline__ void block_product(const bf* a, int lda,
+                                              const bf* w, int K, int m0,
+                                              int n0, int lane,
+                                              float (&acc)[4][4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[q][i] = 0.0f;
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    unsigned af[4];
+    load_a_ld(af, a, lda, m0, k0, lane);
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      unsigned bfr[4];
+      load_b<true>(bfr, w, n0 + np * 16, k0, lane);
+      mma_add(acc[2 * np], af, bfr[0], bfr[1]);
+      mma_add(acc[2 * np + 1], af, bfr[2], bfr[3]);
+    }
+  }
+}
+
+// Per (graph, chunk): CTA b*chunks + c takes items c*chunk_items .. of
+// graph b (mma_edge_chunk) and sums them into its node block: the output
+// (chunks 1) or nodes [B*chunks][N][H+3] for reduce_node_chunks. proj holds
+// pa | pb [B][N][2H] in bf16 (egnn_mega_proj_kernel).
+template <int H, class Tiles>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    egnn_mega_fwd_mma_kernel(const int* __restrict__ src,
+                             const int* __restrict__ dst,
+                             const uint8_t* __restrict__ mask,
+                             const bf* __restrict__ ef,
+                             const bf* __restrict__ x,
+                             const float* __restrict__ w2,
+                             const float* __restrict__ wc1,
+                             const float* __restrict__ small,
+                             const bf* __restrict__ proj,
+                             float* __restrict__ nodes, bf* __restrict__ a1_out,
+                             bf* __restrict__ xd_out, int N, int E, int chunks,
+                             int chunk_items) {
+  constexpr int C = H + 3;
+  const FwdLayout L = fwd_layout(N);
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  unsigned char* sm = smem_mma;
+  float* acc = reinterpret_cast<float*>(sm);                // [N][C]
+  bf* w2s = reinterpret_cast<bf*>(sm + L.w2);               // [k][n]
+  bf* wc1s = reinterpret_cast<bf*>(sm + L.wc1);             // [k][n]
+  float* sms = reinterpret_cast<float*>(sm + L.sms);
+  const ChunkSmem S{acc, w2s, wc1s, sms, sm + L.stage,
+                    reinterpret_cast<float*>(sm + L.geo)};
+
+  const int b = blockIdx.x / chunks;
+  const int i_begin = (blockIdx.x % chunks) * chunk_items;
+  const int i_end = min(Tiles::items(E), i_begin + chunk_items);
+  const int tid = threadIdx.x;
+
+  // ---- the node block, and the weights rounded to bf16 by their store ----
+  for (int i = tid; i < N * C; i += kFwdThreads) acc[i] = 0.0f;
+  stage_mma_weights(w2, wc1, small, w2s, wc1s, sms, tid);
+
+  mma_edge_chunk<H, Tiles>(
+      src + (size_t)b * E, dst + (size_t)b * E, mask + (size_t)b * E,
+      ef + (size_t)b * E, x + (size_t)b * N * 3, proj + (size_t)b * N * 2 * H,
+      a1_out == nullptr ? nullptr : a1_out + (size_t)b * H * E,
+      xd_out == nullptr ? nullptr : xd_out + (size_t)b * 3 * E, N, E, i_begin,
+      i_end, S, tid);
 
   float* nb = nodes + (size_t)blockIdx.x * N * C;
   for (int i = tid; i < N * C; i += kFwdThreads) nb[i] = acc[i];
@@ -378,7 +571,7 @@ cudaError_t launch_mma(const int* src, const int* dst, const uint8_t* mask,
                        float* node_partial, bf* a1, bf* xd, int B, int N,
                        int E, int F, int chunks, cudaStream_t stream) {
   bf* pj = reinterpret_cast<bf*>(proj);
-  auto pkernel = egnn_mega_proj_kernel<bf, H>;
+  auto pkernel = egnn_mega_proj_kernel;
   const size_t pbytes = (size_t)proj_smem_bytes(F);
   cudaError_t err = cudaFuncSetAttribute(
       pkernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pbytes);

@@ -27,16 +27,20 @@
 // What the design does about it (bf16):
 //   - the node projections pa | pb = h @ W1ab run first, in their own
 //     kernel (egnn_mega_proj_kernel: a CTA per 32 nodes of a graph), with
-//     node_projections' f32 arithmetic and order, so B4's residuals stay B1's
-//     bit for bit; rounded to bf16 (exact: they are rounded there) into the
-//     proj scratch;
+//     node_projections' f32 arithmetic and order in register tiles
+//     (proj_block), so B4's residuals and B6's layers stay B1's bit for bit;
+//     rounded to bf16 into the proj scratch;
 //   - the edges run one CTA per (graph, edge chunk), as the TPU kernel's
 //     grid runs (graph, edge tile) and revisits the output block: a B=1
 //     request reaches 20 CTAs at E=2560 (ops/mega.py fwd_chunks). Each
 //     chunk sums its edges into an f32 node block [N][H+3] of its own in
-//     shared memory (shared-memory atomics); with one chunk the block is
-//     the output, with more a second kernel sums the chunks' blocks in
-//     chunk order (reduce_node_chunks);
+//     shared memory, without atomics: a tile's m and coordinate messages
+//     wait in shared memory and one thread a column adds them slot by slot,
+//     the chunk's tiles in order (the two warpgroups pass the turn), so
+//     each (n, c) is an f32 sum from +0 in one fixed order and a forward
+//     gives the same bits every run; with one chunk the block is the
+//     output, with more a second kernel sums the chunks' blocks in chunk
+//     order (reduce_node_chunks);
 //   - the chunk's 64-edge tiles alternate between two warpgroups (256
 //     threads a CTA, one CTA an SM); in each, warp w owns edges
 //     16w..16w+15 of a tile. A warpgroup's next tile loads while the other
@@ -57,8 +61,9 @@
 //     tile's geometry) stays within the f32 form's, which ops/mega.py's
 //     admission rule (fwd_smem_bytes) reckons with.
 // The f32 form keeps the CUDA cores (one CTA of 256 threads per graph, the
-// products register-tiled FMA loops over f32 tiles), so its f32 bounds
-// hold; TF32 would break them.
+// products register-tiled FMA loops over f32 tiles, the sums at dst one
+// thread a column in edge order), so its f32 bounds hold (TF32 would break
+// them) and it too gives the same bits every run.
 //
 // Rounding points under bf16 are the TPU kernel's (pallas_mega.py:247-280,
 // pallas_edge.py:104-139): weights rounded to bf16; pa/pb rounded, summed in
@@ -68,7 +73,8 @@
 //
 // The bf16 form (egnn_mega_proj_kernel, egnn_mega_fwd_mma_kernel and their
 // launch) is in csrc/egnn_mega.cuh, shared with the variant B4 through the
-// tile policy (EdgeTiles here). The device code of the f32 form and of the
+// tile policy (EdgeTiles here) and with B6, whose layers run its chunk body
+// (mma_edge_chunk). The device code of the f32 form and of the
 // projections and geometry (stage_edge_weights, node_projections,
 // geometry_tile, fwd_tile_chain) is in csrc/egnn_common.cuh, shared with
 // the variants B4 and B6.

@@ -46,8 +46,9 @@ Aggregation strategies:
   'fused'    [h ++ x] bundles gathered by src and by dst into the transposed
              edge layout [B, F+3, E], the edge program in hand-written Hopper
              kernels (ops/edge.py: B3 forward, B3 backward recomputing the
-             chain), and the destination aggregation as an f32
-             ``index_add_`` rounded to the compute dtype. The JAX package's
+             chain), and the destination aggregation summed in f32 by B8's
+             scatter (ops/segment.py: each (n, c) in edge order, no
+             atomics) and rounded to the compute dtype. The JAX package's
              numerics: coordinates are cast to h's dtype before the gather,
              a masked edge (or an index outside [0, N)) gathers zeros on
              that side and is left out of the aggregation, and the gathers'
@@ -58,7 +59,9 @@ Aggregation strategies:
   'pallas'   gathers and the edge/coord MLP as 'scatter', then [m ++
              msg_x] in the compute dtype summed at the destination by B8's
              scatter kernel (ops/segment.py: ``SegmentScatter``, f32 sums
-             rounded once; its backward is B8's gather kernel). The JAX
+             rounded once; its backward is B8's gather kernel). The
+             gathers' backward is B8's scatter too (``_GatherRows``), so a
+             step gives the same bits every run. The JAX
              package's numerics: the gathers do not mask the index, the
              aggregation leaves out a masked edge or an index outside [0,
              N). JAX's admission rule holds: E a multiple of 128; where JAX
@@ -94,6 +97,7 @@ from immunostruct_tpu_torch.ops.mega import (
     check_paired, check_variant, edge_mega, mega_admits,
 )
 from immunostruct_tpu_torch.ops.nnp import Linear, linear_apply
+from immunostruct_tpu_torch.ops import segment as _segment
 from immunostruct_tpu_torch.ops.segment import SegmentScatter
 from immunostruct_tpu_torch.ops.stack import apply_stack
 
@@ -199,19 +203,63 @@ def _edge_mlp(p: EGNNLayer, h_src, h_dst, x_diff, edge_feat):
     return m, cw.to(x_hat.dtype) * x_hat                        # [B, E, 3]
 
 
-def _edge_messages(p: EGNNLayer, h, x, edge_src, edge_dst, edge_feat):
+class _GatherRows(torch.autograd.Function):
+    """rows [B*N, C] -> [B, E, C]: row ``idx[b, e]`` of graph b (idx int32
+    [B, E]), ``index_select``'s values, or zeros where ``ok`` [B, E] (None:
+    everywhere) is False. The backward sums the cotangent of the edges where
+    ``ok`` into the rows through B8's scatter (f32, each (n, c) in edge
+    order, rounded once to the cotangent's dtype: the transpose of the JAX
+    package's one-hot einsum with f32 accumulation); ``index_select``'s own
+    backward (``index_add_``) sums with atomics on the card, in no fixed
+    order."""
+
+    @staticmethod
+    def forward(ctx, rows, idx, ok):
+        b, e = idx.shape
+        n = rows.shape[0] // b
+        out = rows.index_select(0, _flat_index(idx, n)).reshape(b, e, -1)
+        if ok is not None:
+            out = torch.where(ok[..., None], out,
+                              torch.zeros((), dtype=out.dtype,
+                                          device=out.device))
+        ctx.save_for_backward(idx, ok)
+        ctx.nodes = n
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, ok = ctx.saved_tensors
+        if ok is None:
+            ok = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
+        acc = _segment.segment_scatter(idx, ok, g.contiguous(), ctx.nodes)
+        return acc.reshape(-1, g.shape[-1]), None, None
+
+
+def _edge_messages(p: EGNNLayer, h, x, edge_src, edge_dst, edge_feat,
+                   repeatable: bool = False):
     """The gathers (the index not masked) and the edge/coord MLP: (m [B, E,
-    H], msg_x [B, E, 3]) and the flat destination rows."""
+    H], msg_x [B, E, 3]) and the flat destination rows. ``repeatable``
+    gathers through ``_GatherRows``, whose backward gives the same bits
+    every run ('pallas'); 'scatter', the reference algorithm's baseline,
+    keeps ``index_select``."""
     b, n, f = h.shape
     e = edge_src.shape[1]
     src = _flat_index(edge_src, n)
     dst = _flat_index(edge_dst, n)
     hf = h.reshape(b * n, f)
     xf = x.reshape(b * n, 3)
-    h_src = hf.index_select(0, src).reshape(b, e, f)
-    h_dst = hf.index_select(0, dst).reshape(b, e, f)
-    x_diff = (xf.index_select(0, src) - xf.index_select(0, dst)
-              ).reshape(b, e, 3)
+    if repeatable:
+        si = edge_src.to(torch.int32).contiguous()
+        di = edge_dst.to(torch.int32).contiguous()
+        h_src = _GatherRows.apply(hf, si, None)
+        h_dst = _GatherRows.apply(hf, di, None)
+        x_diff = (_GatherRows.apply(xf, si, None)
+                  - _GatherRows.apply(xf, di, None))
+    else:
+        h_src = hf.index_select(0, src).reshape(b, e, f)
+        h_dst = hf.index_select(0, dst).reshape(b, e, f)
+        x_diff = (xf.index_select(0, src) - xf.index_select(0, dst)
+                  ).reshape(b, e, 3)
     m, msg_x = _edge_mlp(p, h_src, h_dst, x_diff, edge_feat)
     return m, msg_x, dst
 
@@ -313,55 +361,29 @@ def check_fused(edge_count: int, edge_feat_size: int) -> None:
             "'onehot' there); use 'onehot', 'mega' or 'scatter'")
 
 
-class _GatherEdges(torch.autograd.Function):
-    """rows [B*N, C] -> [B, C, E]: column (b, :, e) is row ``flat[b, e]``,
-    or zeros where ``ok`` is False. The backward sums the cotangent into
-    the rows in f32 and rounds once to the rows' dtype (the transpose of
-    the JAX package's one-hot einsum with f32 accumulation)."""
-
-    @staticmethod
-    def forward(ctx, rows, flat, ok):
-        b, e = ok.shape
-        out = rows.index_select(0, flat.reshape(-1)).reshape(b, e, -1)
-        out = torch.where(ok[..., None], out, torch.zeros((), dtype=out.dtype,
-                                                          device=out.device))
-        ctx.save_for_backward(flat, ok)
-        ctx.rows = rows.shape[0]
-        return out.transpose(1, 2).contiguous()
-
-    @staticmethod
-    def backward(ctx, g):
-        flat, ok = ctx.saved_tensors
-        gf = torch.where(ok[..., None], g.transpose(1, 2).float(), 0.0)
-        acc = torch.zeros(ctx.rows, g.shape[1], dtype=torch.float32,
-                          device=g.device)
-        acc.index_add_(0, flat.reshape(-1), gf.reshape(-1, g.shape[1]))
-        return acc.to(g.dtype), None, None
-
-
 def _egnn_apply_fused(p: EGNNLayer, h, x, edge_src, edge_dst, edge_feat,
                       edge_mask):
     b, n, f = h.shape
     e = edge_src.shape[1]
     check_fused(e, edge_feat.shape[-1])
     dt = h.dtype
-    src_ok = edge_mask & (edge_src >= 0) & (edge_src < n)
-    dst_ok = edge_mask & (edge_dst >= 0) & (edge_dst < n)
+    src_ok = (edge_mask & (edge_src >= 0) & (edge_src < n)).contiguous()
+    dst_ok = (edge_mask & (edge_dst >= 0) & (edge_dst < n)).contiguous()
     # in range before any CUDA indexing: an out-of-range index on the card
     # is a fault, not a zero
-    src = _flat_index(torch.where(src_ok, edge_src, 0), n)
-    dst = _flat_index(torch.where(dst_ok, edge_dst, 0), n)
+    src = torch.where(src_ok, edge_src, 0).to(torch.int32).contiguous()
+    dst = torch.where(dst_ok, edge_dst, 0).to(torch.int32).contiguous()
     rows = torch.cat([h, x.to(dt)], dim=-1).reshape(b * n, f + 3)
-    hsx = _GatherEdges.apply(rows, src, src_ok)               # [B, F+3, E]
-    hdx = _GatherEdges.apply(rows, dst, dst_ok)
+    hsx = _GatherRows.apply(rows, src, src_ok).transpose(1, 2).contiguous()
+    hdx = _GatherRows.apply(rows, dst, dst_ok).transpose(1, 2).contiguous()
     ef = edge_feat.to(dt).transpose(1, 2).contiguous()        # [B, 1, E]
     w1ab, w2, wc1, small = pack_params(p.edge_mlp, p.coord_mlp)
     both = edge_program(hsx, hdx, ef, w1ab, w2, wc1, small)   # [B, H+3, E]
     c = both.shape[1]
-    msgs = torch.where(dst_ok[..., None], both.transpose(1, 2).float(), 0.0)
-    agg = torch.zeros(b * n, c, dtype=torch.float32, device=h.device)
-    agg.index_add_(0, dst, msgs.reshape(b * e, c))
-    agg = agg.reshape(b, n, c).to(dt)
+    # the aggregation through B8's scatter in f32 (each (n, c) in edge
+    # order), rounded once to the compute dtype
+    msgs = both.transpose(1, 2).float().contiguous()          # [B, E, H+3]
+    agg = SegmentScatter.apply(dst, dst_ok, msgs, n).to(dt)
     return _node_update(p, h, x, agg[..., :c - 3], agg[..., c - 3:].to(x.dtype))
 
 
@@ -379,7 +401,8 @@ def check_pallas(edge_count: int) -> None:
 def _egnn_apply_pallas(p: EGNNLayer, h, x, edge_src, edge_dst, edge_feat,
                        edge_mask):
     check_pallas(edge_src.shape[1])
-    m, msg_x, _ = _edge_messages(p, h, x, edge_src, edge_dst, edge_feat)
+    m, msg_x, _ = _edge_messages(p, h, x, edge_src, edge_dst, edge_feat,
+                                 repeatable=True)
     hid = m.shape[-1]
     both = torch.cat([m, msg_x.to(m.dtype)], dim=-1)          # compute dtype
     agg = SegmentScatter.apply(edge_dst.to(torch.int32).contiguous(),

@@ -9,7 +9,10 @@ beside it:
       per graph: the gathers by src and dst, ``x_diff``, the edge and
       coordinate MLPs, the f32 sums at dst, the node MLP and ``x' = x +
       x_agg``. h' [B, N, H] in the compute dtype (h's), x' [B, N, 3] in x's
-      dtype.
+      dtype. With bf16 h every product runs on the tensor cores and a graph
+      spans a thread-block cluster of ``layer_cluster_size`` CTAs; the sums
+      take no atomics and the cluster's partial sums meet in rank order, so
+      a forward gives the same bits every run.
 
 The kernel reads no edge features: like the JAX kernel it takes them to be
 all ones and folds their weight row into the first bias, so the layer's
@@ -126,13 +129,28 @@ def _lib():
 
     lib = load_library("egnn_layer_fwd")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.egnn_layer_fwd.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
+    lib.egnn_layer_fwd.argtypes = [ptr] * 8 + [i32] * 8 + [ptr]
     lib.egnn_layer_fwd.restype = i32
+    lib.egnn_layer_fwd_ctas_per_sm.argtypes = [i32] * 3
+    lib.egnn_layer_fwd_ctas_per_sm.restype = i32
+    lib.egnn_layer_fwd_max_clusters.argtypes = [i32] * 3
+    lib.egnn_layer_fwd_max_clusters.restype = i32
     lib.egnn_layer_fwd_smem_bytes.argtypes = [i32] * 4
     lib.egnn_layer_fwd_smem_bytes.restype = ctypes.c_longlong
     lib.egnn_layer_fwd_weight_count.argtypes = [i32, i32]
     lib.egnn_layer_fwd_weight_count.restype = ctypes.c_longlong
     return lib
+
+
+MAX_CLUSTER = 8  # the portable thread-block cluster size
+
+
+def layer_cluster_size(e: int, b: int, sms: int) -> int:
+    """CTAs a graph of B7's bf16 form (a thread-block cluster a graph, one
+    CTA an SM): as many as fill the card's ``sms`` SMs in one wave, at least
+    two 64-edge tiles a CTA, at most MAX_CLUSTER."""
+    tiles = max(1, -(-e // 64))
+    return max(1, min(MAX_CLUSTER, sms // b, tiles // 2))
 
 
 def _check(layer, h, x, edge_src) -> None:
@@ -188,6 +206,8 @@ def fused_egnn_layer(layer, h, x, edge_src, edge_dst, edge_mask):
     dst = edge_dst.to(torch.int32).contiguous()
     mask = edge_mask.to(torch.bool).contiguous()
     h, x = h.contiguous(), x.contiguous()
+    if h.data_ptr() % 16:
+        h = h.clone()  # the kernel copies rows of h in 16-byte pieces
     check_cuda_args("fused_egnn_layer", {
         "h": (h, dt, (b, n, f)),
         "x": (x, x.dtype, (b, n, 3)),
@@ -208,17 +228,20 @@ def fused_egnn_layer(layer, h, x, edge_src, edge_dst, edge_mask):
         weights = torch.cat([t.detach().reshape(-1).to(h.device, dt)
                              for t in _layer_tensors(layer)])
         assert weights.numel() == lib.egnn_layer_fwd_weight_count(f, hid)
+        cluster = (layer_cluster_size(e, b, props.multi_processor_count)
+                   if bf16 else 1)
         h_new = torch.empty(b, n, hid, dtype=dt, device=h.device)
         x_new = torch.empty(b, n, 3, dtype=x.dtype, device=h.device)
         rc = lib.egnn_layer_fwd(
             src.data_ptr(), dst.data_ptr(), mask.data_ptr(), h.data_ptr(),
             x.data_ptr(), weights.data_ptr(), h_new.data_ptr(),
             x_new.data_ptr(), b, n, e, f, hid, bf16,
-            int(x.dtype == torch.bfloat16),
+            int(x.dtype == torch.bfloat16), cluster,
             torch.cuda.current_stream(h.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"egnn_layer_fwd launch failed with CUDA error "
-                           f"{rc} (B={b}, N={n}, E={e}, F={f}, H={hid})")
+                           f"{rc} (B={b}, N={n}, E={e}, F={f}, H={hid}, "
+                           f"cluster={cluster})")
     fused_egnn_layer.launches += 1
     return h_new, x_new
 

@@ -19,7 +19,9 @@ module; the kernels share their device code (csrc/egnn_common.cuh):
   B1  ``edge_mega_fwd``  -> csrc/egnn_mega_fwd.cu  (plain: ``edge_mega_fwd_reference``)
       the forward; for training it also writes the residuals a1 [B,H,E] and
       xd [B,3,E] in the compute dtype. In bf16 its products run on the
-      tensor cores and a graph's edges over ``fwd_chunks`` CTAs.
+      tensor cores and a graph's edges over ``fwd_chunks`` CTAs. Its sums
+      at dst are in a fixed order, without atomics: the same bits every
+      run.
   B2  ``tail_bwd``       -> csrc/egnn_tail_bwd.cu  (plain: ``tail_bwd_reference``)
       the backward of the edge/coordinate MLP chain from a1/xd and the
       cotangent d_both = g[dst]: d_cat = [d_a1 ; d_xd], d_ef, and the f32
@@ -36,7 +38,9 @@ The JAX package's kernel variants, each reached there through a module
 global, are per-call options here (``mega_variant``, ``MEGA_VARIANTS``):
 
   'hybrid'   B1 forward; B2 backward with PyTorch's gather of d_both and
-             two ``scatter_add_`` (the defaults).
+             the node sums by src and by dst through B8's scatter
+             (ops/segment.py ``segment_scatter``: f32, in edge order, no
+             atomics) (the defaults).
   'dboth'    B1 forward; B5a ``tail_bwd_db`` -> csrc/egnn_tail_bwd_db.cu
              (plain: ``tail_bwd_db_reference``), B2 with d_both = g[dst]
              read in the kernel (JAX ``BWD_DBOTH_INKERNEL``).
@@ -92,6 +96,7 @@ from immunostruct_tpu_torch.ops.edge import (  # noqa: F401 (pack_params re-expo
     B1, B2, BC1, HOPPER_SMEM_OPTIN, KERNEL_HIDDEN, KERNEL_MAX_F, W1E, W1R,
     WC2, check_cuda_args, chunks_per_graph, hopper, pack_params, silu_grad,
 )
+from immunostruct_tpu_torch.ops import segment as _segment
 
 
 MEGA_VARIANTS = ("hybrid", "dboth", "inkernel", "paired", "stack")
@@ -788,9 +793,9 @@ def edge_half_bwd(src, dst, valid, ef, h, x, w1ab, w2, wc1, small, a1, xd,
     """Backward of one edge half-layer from the forward's residuals and the
     cotangent g [B, N, H+3] of its output: the counterpart of
     ``_edge_half_bwd`` + ``_finish_node_grads``. ``backward`` names the
-    variant: 'hybrid' (PyTorch's gather of d_both, B2, two
-    ``scatter_add_``), 'dboth' (B5a, then the two ``scatter_add_``) or
-    'inkernel' (B5b, which returns the node sums). ``plain`` takes the
+    variant: 'hybrid' (PyTorch's gather of d_both, B2, the node sums by src
+    and by dst through B8's ``segment_scatter``), 'dboth' (B5a, then the
+    two scatters) or 'inkernel' (B5b, which returns the node sums). ``plain`` takes the
     kernels' plain versions whatever the device. Returns (d_ef [B, E, 1],
     d_h [B, N, F], d_x [B, N, 3], dw1ab [2F, H], dw2, dwc1, dsmall),
     node-level gradients in f32, d_ef in the compute dtype."""
@@ -818,13 +823,13 @@ def edge_half_bwd(src, dst, valid, ef, h, x, w1ab, w2, wc1, small, a1, xd,
                 d_both.transpose(1, 2).contiguous(), valid)
         else:
             raise ValueError(f"unknown backward '{backward}'")
-        dcf = d_cat.transpose(1, 2).to(f32)                     # [B, E, C]
-        s = torch.where(valid, src, 0).long()[..., None].expand(-1, -1, c)
-        d = torch.where(valid, dst, 0).long()[..., None].expand(-1, -1, c)
-        d_src = torch.zeros(b, n, c, dtype=f32, device=h.device)
-        d_src.scatter_add_(1, s, dcf)
-        d_dst = torch.zeros(b, n, c, dtype=f32, device=h.device)
-        d_dst.scatter_add_(1, d, dcf)
+        # the node sums through B8's scatter: f32, each (n, c) in edge
+        # order, the same bits every run
+        dcf = d_cat.transpose(1, 2).to(f32).contiguous()        # [B, E, C]
+        d_src = _segment.segment_scatter(src.to(torch.int32).contiguous(),
+                                         valid.contiguous(), dcf, n)
+        d_dst = _segment.segment_scatter(dst.to(torch.int32).contiguous(),
+                                         valid.contiguous(), dcf, n)
     d_pa = d_src[..., :hid].to(dt).to(f32)
     d_pb = d_dst[..., :hid].to(dt).to(f32)
     d_x = d_src[..., hid:] - d_dst[..., hid:]

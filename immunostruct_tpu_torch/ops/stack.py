@@ -10,7 +10,11 @@ version beside it:
       aggregate rounded to the compute dtype, the node MLP and x += agg_x,
       with h and x resident. For training it also returns, per layer, h and
       x after the layer (hs, xs), the aggregate (aggs) and the edge half's
-      residuals (a1s, xds).
+      residuals (a1s, xds). In bf16 every product runs on the tensor cores:
+      the edge half is B1's chunk body (csrc/egnn_mega.cuh), so where B1
+      runs one chunk a graph each layer is B1's bits, and the node MLP is
+      mma.sync in 64-row blocks. Every sum is in a fixed order, without
+      atomics: the same bits every run.
 
 Rounding points under bf16 are ``_stack_fwd_kernel``'s: B1's in the edge
 half; agg rounded; p1 = [h ++ agg_h] @ nm0w + nm0b summed in f32 with the
@@ -69,23 +73,33 @@ def stack_fwd_reference(src, dst, mask, ef, h0, x0, layers,
     all in the compute dtype; the last five are None unless
     ``residuals``."""
     dt = h0.dtype
-    f32 = torch.float32
     h, x = h0, x0
     kept = []
     for w1ab, w2, wc1, small, nm0w, nm0b, nm1w, nm1b in layers:
-        hid = w2.shape[1]
         out, a1, xd = edge_mega_fwd_reference(src, dst, mask, ef, h, x,
                                               w1ab, w2, wc1, small)
         agg = out.to(dt)
-        cat = torch.cat([h, agg[..., :hid]], dim=-1).to(f32)
-        p1 = torch.matmul(cat, nm0w.to(dt).to(f32)) + nm0b.to(f32)
-        hmid = (p1 * torch.sigmoid(p1)).to(dt).to(f32)
-        h = (torch.matmul(hmid, nm1w.to(dt).to(f32)) + nm1b.to(f32)).to(dt)
-        x = (x.to(f32) + agg[..., hid:].to(f32)).to(dt)
+        h, x = stack_node_update_reference(h, x, agg, nm0w, nm0b, nm1w,
+                                           nm1b)
         kept.append((h, x, agg, a1, xd))
     if not residuals:
         return h, x, None, None, None, None, None
     return (h, x, *(torch.stack(ts, dim=1) for ts in zip(*kept)))
+
+
+def stack_node_update_reference(h, x, agg, nm0w, nm0b, nm1w, nm1b):
+    """Plain PyTorch version of B6's node update from one layer's aggregate
+    agg [B, N, H+3] in the compute dtype: (h, x) after the layer, with
+    ``stack_fwd_reference``'s rounding points."""
+    dt = h.dtype
+    f32 = torch.float32
+    hid = nm1w.shape[1]
+    cat = torch.cat([h, agg[..., :hid]], dim=-1).to(f32)
+    p1 = torch.matmul(cat, nm0w.to(dt).to(f32)) + nm0b.to(f32)
+    hmid = (p1 * torch.sigmoid(p1)).to(dt).to(f32)
+    h = (torch.matmul(hmid, nm1w.to(dt).to(f32)) + nm1b.to(f32)).to(dt)
+    x = (x.to(f32) + agg[..., hid:].to(f32)).to(dt)
+    return h, x
 
 
 @functools.lru_cache(maxsize=None)
@@ -96,8 +110,10 @@ def _lib():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.egnn_stack_fwd.argtypes = [ptr] * 15 + [i32] * 7 + [ptr]
     lib.egnn_stack_fwd.restype = i32
-    lib.egnn_stack_fwd_smem_bytes.argtypes = [i32, i32]
+    lib.egnn_stack_fwd_smem_bytes.argtypes = [i32, i32, i32]
     lib.egnn_stack_fwd_smem_bytes.restype = ctypes.c_longlong
+    lib.egnn_stack_fwd_ctas_per_sm.argtypes = [i32, i32, i32]
+    lib.egnn_stack_fwd_ctas_per_sm.restype = i32
     lib.egnn_stack_fwd_weight_floats.argtypes = [i32, i32, i32]
     lib.egnn_stack_fwd_weight_floats.restype = ctypes.c_longlong
     return lib
@@ -143,8 +159,9 @@ def stack_fwd(src, dst, mask, ef, h0, x0, layers, residuals: bool = True):
                          f"{nl - 1} hidden layers of width H={hid}")
     with torch.cuda.device(h0.device):
         props = hopper(h0.device, "stack_fwd")
-        _check_smem(props, lib.egnn_stack_fwd_smem_bytes(n, hid), "stack_fwd",
-                    f"N={n}, H={hid}")
+        bf16 = int(dt == torch.bfloat16)
+        _check_smem(props, lib.egnn_stack_fwd_smem_bytes(n, hid, bf16),
+                    "stack_fwd", f"N={n}, H={hid}")
 
         def empty(*shape):
             return torch.empty(*shape, dtype=dt, device=h0.device)
@@ -160,7 +177,7 @@ def stack_fwd(src, dst, mask, ef, h0, x0, layers, residuals: bool = True):
             h0.data_ptr(), x0.data_ptr(), weights.data_ptr(),
             proj.data_ptr(), h_out.data_ptr(), x_out.data_ptr(),
             *(None if t is None else t.data_ptr() for t in res),
-            b, n, e, f0, hid, nl, int(dt == torch.bfloat16),
+            b, n, e, f0, hid, nl, bf16,
             torch.cuda.current_stream(h0.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"egnn_stack_fwd launch failed with CUDA error "

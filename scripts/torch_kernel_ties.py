@@ -43,6 +43,25 @@ seeded ones. One section per kernel (--kernel, default all of them):
             ``_assert_edge_close``, the worst row's mean and max ratio and
             the output entries that differ from the plain version, for
             kTieUlps 32 (the source's) and -1 (the recompute off).
+  stack_fwd B6's bf16 form (csrc/egnn_stack_fwd.cu; B1's tensor-core body
+            layer by layer and the node MLP on mma.sync; no near-tie
+            recompute) on the card tests' shapes and seeds and at 1..8:
+            whether each input passes ``_assert_stack_layers_close``, and
+            its worst ratios to the bounds over the layers (the aggregate's
+            column max in bf16 steps, its column mean, h's and x's column
+            means over 1e-4).
+  layer_fwd B7's bf16 form (csrc/egnn_layer_fwd.cu; a graph over a cluster
+            of CTAs, every product on mma.sync; no near-tie recompute) on
+            the card tests' shapes and seeds and at 1..8: whether each input
+            passes ``_assert_b7_close``, its worst column's max (in bf16
+            steps) and mean (over 1e-4) ratios for h' and x', and the
+            cluster size.
+  repeat    each kernel launched 10 times on one input (B=1, 8 and 128 at
+            E=2560, bf16 and f32): the entries that differ from the first
+            launch's outputs, summed over the other nine. B1, B4, B6, B7, B8
+            (the scatter), and the glue that B8's scatter now sums (the
+            'hybrid' backward's node sums, a 'fused' and a 'pallas' layer's
+            forward and backward).
   sass      per kernel library's SASS (cuobjdump): the atomic instructions
             by opcode, and the tensor-core ones (HMMA) of each tensor-core
             kernel.
@@ -85,7 +104,15 @@ forward timed (CUDA events) in the order baseline, this tree, this tree,
 baseline, at B=128, E=2560 and 1408, F=64 and 20, bf16; and the f32 forms'
 outputs against the baseline's (B3's forward bit for bit; B4's residuals
 bit for bit, its atomic sums within f32 roundoff), B3's backward's outputs
-bit for bit in both dtypes. In segment_times, the
+bit for bit in both dtypes. In mega_fwd, B1 timed likewise (B=128 and
+B=1) and its outputs against the baseline's: its residuals bit for bit in
+both dtypes, its sums (f32 atomics in the baseline) within roundoff. In
+stack_fwd and layer_fwd, B6 (with the residuals and without, B=128 and
+B=1) and B7 (B=128, 8 and 1, F=64 and 20) timed likewise, by CUDA events
+and by device time (chip_smoke.device_ms: the calls queued behind a spin
+kernel, so no host time; it includes the wrapper's own small kernels, the
+weights' packing). In repeat, the
+baseline's kernels read the same way beside this tree's. In segment_times, the
 checkout that holds it (OTHER_CSRC_DIR/..: its ops/segment.py, with its
 segment.cu), timed in the order baseline, this tree, this tree, baseline;
 every row keeps its tree and round. Every build goes to a temporary
@@ -115,8 +142,10 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 from immunostruct_tpu_torch.ops import (  # noqa: E402
-    _build, edge, mega, segment,
+    _build, edge, fused_layer, mega, segment, stack,
 )
+from immunostruct_tpu_torch.ops import egnn  # noqa: E402
+from immunostruct_tpu_torch.ops.egnn import EGNNLayer  # noqa: E402
 
 _spec = importlib.util.spec_from_file_location(
     "card_tests", ROOT / "tests" / "test_torch_port_cuda.py")
@@ -125,8 +154,9 @@ _spec.loader.exec_module(tc)
 
 TIE_ULPS = (32, -1, 64)  # the first is the source's own
 SEEDS = range(1, 9)
-KERNELS = ("tail", "edge_bwd", "mega_fwd", "paired_fwd", "edge_fwd", "sass",
-           "segment_times", "segment_phases")
+KERNELS = ("tail", "edge_bwd", "mega_fwd", "paired_fwd", "edge_fwd",
+           "stack_fwd", "layer_fwd", "repeat", "sass", "segment_times",
+           "segment_phases")
 # each library's tensor-core kernel, whose registers and spills are shown
 MMA_KERNEL = {"egnn_tail_bwd": "tail_bwd_mma_kernel",
               "egnn_tail_bwd_db": "tail_bwd_mma_kernel",
@@ -134,7 +164,9 @@ MMA_KERNEL = {"egnn_tail_bwd": "tail_bwd_mma_kernel",
               "egnn_edge_bwd": "egnn_edge_bwd_mma_kernel",
               "egnn_edge_fwd": "egnn_edge_fwd_mma_kernel",
               "egnn_mega_fwd": "egnn_mega_fwd_mma_kernel",
-              "egnn_mega_paired_fwd": "egnn_mega_fwd_mma_kernel"}
+              "egnn_mega_paired_fwd": "egnn_mega_fwd_mma_kernel",
+              "egnn_stack_fwd": "egnn_stack_fwd_mma_kernel",
+              "egnn_layer_fwd": "egnn_layer_fwd_mma_kernel"}
 REPO_CSRC, REPO_BUILD = _build.CSRC, _build.BUILD_DIR
 TAIL_FNS = {"b2": (mega.tail_bwd, mega.tail_bwd_reference),
             "db": (mega.tail_bwd_db, mega.tail_bwd_db_reference),
@@ -629,11 +661,11 @@ def baseline_module(csrc_dir: Path, name: str):
 
 
 def fwd_times(root, baseline, section):
-    """B4 (paired_fwd) or B3's forward (edge_fwd) of this tree beside the
-    baseline checkout's: times in the order baseline, this, this, baseline;
-    the f32 forms' outputs (and, for edge_fwd, B3's backward's) against
-    the baseline's."""
-    paired = section == "paired_fwd"
+    """B1 (mega_fwd), B4 (paired_fwd) or B3's forward (edge_fwd) of this
+    tree beside the baseline checkout's: times in the order baseline, this,
+    this, baseline; B1's and B4's outputs in both dtypes, the f32 forms'
+    outputs (and, for edge_fwd, B3's backward's) against the baseline's."""
+    paired = section in ("paired_fwd", "mega_fwd")
     sources = (("egnn_mega_paired_fwd", "egnn_mega_fwd") if paired
                else ("egnn_edge_fwd", "egnn_edge_bwd"))
     d = build_variants({"baseline": baseline}, sources,
@@ -641,13 +673,19 @@ def fwd_times(root, baseline, section):
     other = baseline_module(baseline, "mega" if paired else "edge")
     dev = torch.device("cuda")
     if paired:
+        b4 = section == "paired_fwd"
+        fn = "edge_mega_paired_fwd" if b4 else "edge_mega_fwd"
+
         def case(b, e, f, dtype):
-            return cs.paired_inputs(e, f, dtype, seed=e + f + 2) if b == cs.B \
-                else tc._paired_args(b, e, f, dtype, dev, seed=e + f + 2)
+            if b4:
+                return (cs.paired_inputs(e, f, dtype, seed=e + f + 2)
+                        if b == cs.B else tc._paired_args(
+                            b, e, f, dtype, dev, seed=e + f + 2))
+            return tc._args(b, e, f, 64, dtype, dev, seed=e + f + 2)
         shapes = [(cs.B, e, f) for e in cs.EDGE_COUNTS for f in (64, 20)]
         shapes.append((1, 2560, 64))
-        calls = {"with residuals": lambda m, a: m.edge_mega_paired_fwd(*a),
-                 "without residuals": lambda m, a: m.edge_mega_paired_fwd(
+        calls = {"with residuals": lambda m, a: getattr(m, fn)(*a),
+                 "without residuals": lambda m, a: getattr(m, fn)(
                      *a, residuals=False)}
     else:
         def case(b, e, f, dtype):
@@ -660,11 +698,14 @@ def fwd_times(root, baseline, section):
         a = case(b, e, f, torch.bfloat16)
         for name, call in calls.items():
             key = f"B={b} E={e} F={f} bf16 {name}"
-            times[key] = {"baseline": [], "this": []}
+            times[key] = {"baseline": [], "this": [], "baseline device": [],
+                          "this device": []}
             for label, dd, module in (trees[0], trees[1], trees[1],
                                       trees[0]):
                 use(dd)
                 times[key][label].append(cs.cuda_ms(lambda: call(module, a)))
+                times[key][f"{label} device"].append(
+                    cs.device_ms(lambda: call(module, a)))
         print(f"{section} times:", json.dumps({
             k: v for k, v in times.items() if k.startswith(f"B={b} E={e} "
                                                            f"F={f} ")}),
@@ -677,8 +718,8 @@ def fwd_times(root, baseline, section):
         got = {}
         for label, dd, module in trees:
             use(dd)
-            if paired and dtype == torch.float32:
-                got[label] = module.edge_mega_paired_fwd(*a)
+            if paired:
+                got[label] = getattr(module, fn)(*a)
             elif not paired:
                 got[label] = ((module.edge_program_fwd(*a[0]),)
                               if dtype == torch.float32 else ()) + tuple(
@@ -700,6 +741,272 @@ def fwd_times(root, baseline, section):
                          zip(names, got["this"], got["baseline"])}
     use(None)
     print(f"{section} against the baseline:", json.dumps(same), flush=True)
+
+
+# ---------------------------------------------------------------- B6
+
+def stack_cases():
+    """(B, E, seed, the tests' seed?, the last graph all masked?): the card
+    tests' B6 shapes (``test_stack_kernel_matches_plain_version``, its grid
+    edges, its mutants' and its repeat inputs) and B=128 at 1..8."""
+    for e in (2560, 1408):
+        for seed in [e + 6, *SEEDS]:
+            yield 128, e, seed, seed == e + 6, False
+        yield 8, e, e + 8, True, False
+    for b in (1, 200):
+        for e in (2560, 1000):
+            yield b, e, b + e + 46, True, True
+    for b in (1, 8, 128):
+        yield b, 2560, b + 41, True, False
+
+
+def col_steps_mean(got, want):
+    """(the worst column's max |diff| in bf16 steps at its largest |plain|,
+    its mean |diff| over 1e-4 * mean|plain|), over graphs and nodes."""
+    g, w = got.float().flatten(0, 1), want.float().flatten(0, 1)
+    diff, mag = (g - w).abs(), w.abs()
+    tiny = torch.finfo(torch.float32).tiny
+    top = mag.amax(0).clamp_min(tiny)
+    steps = diff.amax(0) / torch.exp2(torch.floor(torch.log2(top)) - 7)
+    mean = diff.mean(0) / (1e-4 * mag.mean(0)).clamp_min(tiny)
+    return round(steps.max().item(), 4), round(mean.max().item(), 4)
+
+
+def stack_ratios(out, args, packed):
+    """B6's worst ratios to its bf16 bounds over the layers, each layer
+    against the plain version run from the kernel's own previous h, x."""
+    h, x, hs, xs, aggs, a1s, xds = out
+    src, dst, mask, ef, h0, x0 = args
+    worst = dict(agg_max_steps=0.0, agg_mean=0.0, h_mean=0.0, x_mean=0.0)
+    for layer, weights in enumerate(packed):
+        h_in = h0 if layer == 0 else hs[:, layer - 1]
+        x_in = x0 if layer == 0 else xs[:, layer - 1]
+        ref = stack.stack_fwd_reference(src, dst, mask, ef, h_in, x_in,
+                                        [weights])
+        steps, mean = col_steps_mean(aggs[:, layer], ref[4][:, 0])
+        worst["agg_max_steps"] = max(worst["agg_max_steps"], steps)
+        worst["agg_mean"] = max(worst["agg_mean"], mean)
+        for key, t, r in (("h_mean", hs, ref[2]), ("x_mean", xs, ref[3])):
+            worst[key] = max(worst[key], col_steps_mean(t[:, layer],
+                                                        r[:, 0])[1])
+    return worst
+
+
+def stack_fwd(root, baseline):
+    use(None)
+    dev = torch.device("cuda")
+    n, failing, worst = 0, 0, {}
+    for b, e, seed, own, masked in stack_cases():
+        args, packed = tc._stack_args(b, e, torch.bfloat16, dev, seed=seed)
+        if masked:
+            args[2][-1] = False
+        out = stack.stack_fwd(*args, packed)
+        ok = passes(tc._assert_stack_layers_close, out, args, packed,
+                    torch.bfloat16)
+        r = stack_ratios(out, args, packed)
+        worst = {k: max(worst.get(k, 0.0), v) for k, v in r.items()}
+        failing += not ok
+        n += 1
+        print("stack_fwd:", json.dumps(dict(B=b, E=e, seed=seed,
+                                            tests_seed=own, ok=ok, **r)),
+              flush=True)
+    print("stack_fwd summary:", json.dumps(dict(failing=failing, of=n,
+                                                worst=worst)), flush=True)
+    if baseline is None:
+        return
+    d = build_variants({"baseline": baseline}, ("egnn_stack_fwd",),
+                       root / "baseline")["baseline"]
+    other = baseline_module(baseline, "stack")
+    trees = [("baseline", d, other), ("this", None, stack)]
+    times = {}
+    for b in (cs.B, 1):
+        for e in cs.EDGE_COUNTS if b == cs.B else (2560,):
+            args, packed = cs.stack_inputs(e, torch.bfloat16, seed=e + 6,
+                                           b=b)
+            for label_r, res in (("with residuals", True),
+                                 ("without residuals", False)):
+                key = f"B={b} E={e} bf16 {label_r}"
+                times[key] = {"baseline": [], "this": [],
+                              "baseline device": [], "this device": []}
+                for label, dd, module in (trees[0], trees[1], trees[1],
+                                          trees[0]):
+                    use(dd)
+
+                    def call():
+                        module.stack_fwd(*args, packed, residuals=res)
+                    times[key][label].append(cs.cuda_ms(call))
+                    times[key][f"{label} device"].append(cs.device_ms(call))
+            print("stack_fwd times:", json.dumps({
+                k: v for k, v in times.items()
+                if k.startswith(f"B={b} E={e} ")}), flush=True)
+            del args, packed
+    use(None)
+
+
+# ---------------------------------------------------------------- B7
+
+def layer_cases():
+    """(B, E, F, seed, x dtype, the tests' seed?, the last graph all
+    masked?, coordinate scale): the card tests' B7 shapes
+    (``test_fused_layer_kernel_matches_plain_version``, its grid edges, its
+    repeat and mutant inputs) and B=128 at 1..8."""
+    for e in (2560, 1408, 256):
+        for f in (20, 64):
+            for seed in [e + f + 7, *SEEDS]:
+                yield 128, e, f, seed, None, seed == e + f + 7, False, 1.0
+    for b in (1, 200):
+        for e in (2560, 1024):
+            for x_dtype in (None, torch.float32):
+                yield b, e, 64, b + e + 47, x_dtype, True, True, 1.0
+    for b in (1, 8, 128):
+        yield b, 2560, 64, b + 42, None, True, False, 1.0
+    for e, f in ((2560, 20), (1408, 64)):
+        for x_dtype, scale in ((None, 1.0), (torch.float32, 1.0),
+                               (None, 1 / 16)):
+            yield 32, e, f, e + f, x_dtype, True, False, scale
+
+
+def layer_fwd(root, baseline):
+    use(None)
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n, failing, worst = 0, 0, [0.0, 0.0]
+    for b, e, f, seed, x_dtype, own, masked, scale in layer_cases():
+        layer, args = tc._b7_args(b, e, f, torch.bfloat16, dev, seed=seed,
+                                  x_dtype=x_dtype, x_scale=scale)
+        if masked:
+            args[4][-1] = False
+        with torch.no_grad():
+            out = fused_layer.fused_egnn_layer(layer, *args)
+            ref = fused_layer.fused_egnn_layer_reference(layer, *args)
+        ok = passes(tc._assert_b7_close, out, ref, torch.bfloat16)
+        r = {name: col_steps_mean(g, w)
+             for name, g, w in zip(("h", "x"), out, ref)}
+        for name in r:
+            worst = [max(worst[0], r[name][0]), max(worst[1], r[name][1])]
+        failing += not ok
+        n += 1
+        print("layer_fwd:", json.dumps(dict(
+            B=b, E=e, F=f, seed=seed, tests_seed=own,
+            x=str(x_dtype or "bf16"), x_scale=scale, ok=ok,
+            cluster=fused_layer.layer_cluster_size(e, b, sms),
+            h_max_steps_mean=r["h"], x_max_steps_mean=r["x"])), flush=True)
+    print("layer_fwd summary:", json.dumps(dict(
+        failing=failing, of=n, worst_max_steps=worst[0],
+        worst_mean_ratio=worst[1])), flush=True)
+    if baseline is None:
+        return
+    d = build_variants({"baseline": baseline}, ("egnn_layer_fwd",),
+                       root / "baseline")["baseline"]
+    other = baseline_module(baseline, "fused_layer")
+    trees = [("baseline", d, other), ("this", None, fused_layer)]
+    times = {}
+    for b, e, f in [(cs.B, e, f) for e in cs.EDGE_COUNTS for f in (64, 20)
+                    ] + [(8, 2560, 64), (1, 2560, 64)]:
+        layer, args = cs.b7_inputs(b, e, f, torch.bfloat16, seed=e + f + 7)
+        key = f"B={b} E={e} F={f} bf16"
+        times[key] = {"baseline": [], "this": [], "baseline device": [],
+                      "this device": []}
+        with torch.no_grad():
+            for label, dd, module in (trees[0], trees[1], trees[1],
+                                      trees[0]):
+                use(dd)
+
+                def call():
+                    module.fused_egnn_layer(layer, *args)
+                times[key][label].append(cs.cuda_ms(call))
+                times[key][f"{label} device"].append(cs.device_ms(call))
+        print("layer_fwd times:", json.dumps({key: times[key]}), flush=True)
+        del layer, args
+    use(None)
+
+
+# ---------------------------------------------------------------- repeat
+
+def differ(runs):
+    """Entries of runs[1:] that differ from runs[0]'s, summed."""
+    total = 0
+    for run in runs[1:]:
+        for a, z in zip(runs[0], run):
+            if a is not None:
+                total += int((a != z).sum().item())
+    return total
+
+
+def repeat_calls(module_mega, module_stack, module_layer, module_egnn, b,
+                 dtype):
+    """{kernel: a call on one seeded input} at B=b, E=2560."""
+    dev = torch.device("cuda")
+    a1 = tc._args(b, 2560, 20, 64, dtype, dev, seed=b + 40)
+    a4 = tc._paired_args(b, 2560, 20, dtype, dev, seed=b + 40)
+    a6, packed = tc._stack_args(b, 2560, dtype, dev, seed=b + 41)
+    layer, a7 = tc._b7_args(b, 2560, 64, dtype, dev, seed=b + 42)
+    idx, mask, m, _ = tc._segment_args(b, 2560, N_SEG, 67, dtype, dev,
+                                       seed=b + 43)
+    calls = {
+        "B1": lambda: module_mega.edge_mega_fwd(*a1),
+        "B4": lambda: module_mega.edge_mega_paired_fwd(*a4),
+        "B6": lambda: module_stack.stack_fwd(*a6, packed),
+        "B8_scatter": lambda: (segment.segment_scatter(idx, mask, m, N_SEG),),
+    }
+
+    def b7():
+        with torch.no_grad():
+            return module_layer.fused_egnn_layer(layer, *a7)
+    calls["B7"] = b7
+    if dtype == torch.bfloat16:
+        src, dst, msk = a1[:3]
+        _, r1, rx = module_mega.edge_mega_fwd(*a1)
+        valid = mega.valid_edges(src, dst, msk, N_SEG)
+        g = torch.randn(b, N_SEG, 67, generator=torch.Generator()
+                        .manual_seed(b)).to(dev)
+        calls["hybrid backward"] = lambda: module_mega.edge_half_bwd(
+            src, dst, valid, *a1[3:], r1, rx, g, "hybrid")
+        gen = torch.Generator().manual_seed(b + 44)
+        lay = EGNNLayer(20, 64, 64, generator=gen, device=dev)
+        cot = torch.randn(b, N_SEG, 64, generator=gen).to(dev, dtype)
+        for agg in ("fused", "pallas"):
+            def run(agg=agg):
+                lay.zero_grad()
+                hin = a1[4].detach().clone().requires_grad_(True)
+                h2, x2 = module_egnn.egnn_apply(lay, hin, a1[5], src, dst,
+                                                a1[3], msk, agg)
+                ((h2 * cot).float().sum() + x2.float().sum()).backward()
+                return [h2.detach(), x2.detach(), hin.grad] + [
+                    p.grad.clone() for p in lay.parameters()]
+            calls[f"'{agg}' layer"] = run
+    return calls
+
+
+N_SEG = 288
+
+
+def repeat(root, baseline):
+    trees = [("this", None, (mega, stack, fused_layer, egnn))]
+    if baseline is not None:
+        d = build_variants({"baseline": baseline},
+                           ("egnn_mega_fwd", "egnn_mega_paired_fwd",
+                            "egnn_stack_fwd", "egnn_layer_fwd"),
+                           root / "baseline")["baseline"]
+        trees.insert(0, ("baseline", d, tuple(
+            baseline_module(baseline, m)
+            for m in ("mega", "stack", "fused_layer", "egnn"))))
+    for label, dd, modules in trees:
+        for dtype in (torch.bfloat16, torch.float32):
+            for b in (1, 8, 128):
+                use(dd)
+                calls = repeat_calls(*modules, b, dtype)
+                row = {}
+                for kernel, call in calls.items():
+                    runs = [call() for _ in range(10)]
+                    torch.cuda.synchronize()
+                    row[kernel] = differ(runs)
+                    del runs
+                print("repeat:", json.dumps(dict(
+                    tree=label, B=b, E=2560, dtype=str(dtype).split(".")[1],
+                    launches=10, entries_that_differ=row)), flush=True)
+                del calls
+    use(None)
 
 
 # ---------------------------------------------------------------- SASS
@@ -948,10 +1255,18 @@ def main():
                 edge_bwd(root / "edge_bwd")
             elif kernel == "mega_fwd":
                 mega_fwd()
+                if opts.baseline is not None:
+                    fwd_times(root / "mega_fwd", opts.baseline, "mega_fwd")
             elif kernel == "paired_fwd":
                 paired_fwd(root / "paired_fwd", opts.baseline)
             elif kernel == "edge_fwd":
                 edge_fwd(root / "edge_fwd", opts.baseline)
+            elif kernel == "stack_fwd":
+                stack_fwd(root / "stack_fwd", opts.baseline)
+            elif kernel == "layer_fwd":
+                layer_fwd(root / "layer_fwd", opts.baseline)
+            elif kernel == "repeat":
+                repeat(root / "repeat", opts.baseline)
             elif kernel == "sass":
                 sass()
             elif kernel == "segment_times":

@@ -11,9 +11,11 @@ There ``tests/conftest.py`` (which imports JAX) is skipped:
 The tests marked ``cuda`` skip on a host without a CUDA device. Tolerances:
 
 - B1, f32 (TF32 off; the CUDA-core form): atol=1e-5, rtol=1e-4, the
-  roundoff of a different summation order (the kernel sums with
-  shared-memory atomics). bf16 (the tensor-core form, one CTA per (graph,
-  edge chunk), the chunks' node blocks summed in chunk order), per output
+  roundoff of a different summation order (the kernel sums each node's
+  edges in edge order, the plain version with ``scatter_add_``). bf16 (the
+  tensor-core form, one CTA per (graph, edge chunk), each chunk's tiles
+  summed in tile and slot order, the chunks' node blocks in chunk order),
+  per output
   column over all graphs and nodes: max|diff| <= 4e-3 * max|plain| (one
   bf16 step at the column's largest value) and mean|diff| <= 1e-4 *
   mean|plain|. The residuals a1/xd: f32 as above; bf16 each element within
@@ -86,8 +88,11 @@ such kernels.
   (B1's 4e-3 * max is under one step where that largest value lies just
   below a power of two, which a one-step flip at E=1408 reached) and
   mean|diff| <= 1e-4 * mean|plain|, a1s/xds B1's residual rule, hs/xs per
-  column mean|diff| <= 1e-4 * mean|plain|.
-  Its sums use shared-memory atomics, as B1's do: not the same bits twice.
+  column mean|diff| <= 1e-4 * mean|plain|. Also at B=1 and 200, E=2560 and
+  1000, the last graph all masked. Its bf16 form runs B1's tensor-core body
+  layer by layer: where B1 runs one chunk a graph (B=128 on 132 SMs), each
+  layer's a1s, xds and aggs are B1's on the same h and x bit for bit
+  (``test_stack_layers_are_b1_bit_for_bit``).
 - Mutants: seven of B1's bf16 form (W1ab, xd, radial, m, c1, cw,
   cw*x_hat; the table says why W2/Wc1, silu(a1) and pa/pb have none),
   four of B3's forward (xd, radial, c1, cw; its table says why W1ab, W2,
@@ -97,11 +102,10 @@ such kernels.
   d_p3; the table says why W2/Wc1, a1s and m have none), nine of B4's bf16
   form (B1's seven on B4's tiles, the mirror's sign, and the mirror's
   geometry formed anew from the second half), two of the shared tail body
-  through B5a (d_p2, d_a1), one of B5b (d_xd before the node sums), twelve
-  of B6 (agg, hmid, h, x, the node MLP's weights, and the CUDA-core chain
-  of csrc/egnn_common.cuh it alone runs in bf16: the edge MLP's weights,
-  pa/pb, silu(a1), m, c1, cw, cw*x_hat); each fails its kernel's bf16
-  bound.
+  through B5a (d_p2, d_a1), one of B5b (d_xd before the node sums), eight
+  of B6's tensor-core form (W1ab, xd, radial, m, c1, cw, cw*x_hat, agg; its
+  table says why pa/pb, silu(a1), hmid, h and x have none), seven of B7's
+  (its table); each fails its kernel's bf16 bound.
 
 - B8 (csrc/segment.cu, behind ``segment_scatter``/``segment_gather``): the
   gather bit for bit. The scatter, f32: |diff| <= 2 * k * 2^-24 * (the sum
@@ -121,20 +125,37 @@ such kernels.
   -1 or N: h' and x' f32 atol=1e-5, rtol=1e-4; bf16 per column (over graphs
   and nodes) max|diff| within one bf16 step at the column's largest
   |plain| (B6's form: a flip at a value just above a power of two is 2^-7
-  of it, over B1's 4e-3) and mean|diff| <= 1e-4 * mean|plain| (an H100 run
-  read h' equal bit for bit, x' one flip: max 2.1e-3 of the column's
-  largest value, mean 3.2e-7). The same bits twice (no atomics). Ten
-  mutants, each without one of B7's rounding points (the bias fold, the x
-  cast, radial, silu(z1), m, c1, msg_x, agg, a, x' from x's own dtype; the
-  two on x run f32 coordinates under bf16 features), fail the bf16 bound.
-  c1 and msg_x reach x' only, through x_agg: at unit-scale coordinates x
-  carries x' and their change can stay under the mean bound, so they run
-  coordinates at 1/16 scale, where x_agg carries x'.
+  of it, over B1's 4e-3) and mean|diff| <= 1e-4 * mean|plain|. Its bf16
+  form (every product on the tensor cores, a graph over a cluster of
+  ``layer_cluster_size`` CTAs) also runs at B=1 and 200, E=2560 and 1024,
+  bf16 and f32 coordinates, the last graph all masked. Seven mutants of
+  its tensor-core form, each without one of B7's rounding points (bias1
+  summed in f32 rather than the compute dtype, the x cast, radial, m, c1,
+  msg_x, x' from x's own dtype; the two on x run f32 coordinates under
+  bf16 features), fail the bf16 bound; silu(z1), agg, a and h' reach only
+  bf16 storage and have none. c1 and msg_x reach x' only, through x_agg:
+  at unit-scale coordinates x carries x' and their change can stay under
+  the mean bound, so they run coordinates at 1/16 scale, where x_agg
+  carries x'.
+
+Repeat. Every kernel and the glue around it sums in a fixed order, without
+atomics, so the same inputs give the same bits: two launches of B1 and B4
+(both dtypes, with their residuals), B6, B7, the 'hybrid' and 'dboth'
+backward's node sums and a 'fused' and a 'pallas' layer's forward and
+backward (their sums through B8's scatter) at B=1, 8 and 128 are equal
+(``torch.equal``); and a seed trained twice from fresh state (full-width
+HybridModelv2, B=16, E=2560, bf16, three steps, the same batch) gives equal
+losses, parameters and Adam moments under every aggregation ('mega' under
+each variant, 'fused', 'pallas', 'onehot', 'auto'), and a request served
+twice equal logits, also under ``fused_stack``. 'scatter' (``index_add_``
+with atomics, the reference algorithm's baseline) is run and read, not
+held to it.
 - 'paired' forward and train step under
   ``torch.cuda.set_sync_debug_mode("error")``; 'onehot'/'onehot_remat'
   layers and ``model_apply(fused_stack=True)`` against 'scatter' in f32.
 """
 
+import functools
 import json
 import re
 
@@ -378,10 +399,9 @@ def test_train_step_launches_both_kernels_per_layer(cuda):
 # arithmetic removes; nor pa/pb, which reach the edges through a bf16
 # scratch whose store rounds them. m keeps one through its f32 consumer,
 # the node block's sum (its rounding for the product is the operand's).
-# B6's table keeps the CUDA-core chain's mutants.
 _B1_SOURCES = ("egnn_mega_fwd.cu", "egnn_mega.cuh", "egnn_common.cuh")
 _MUTANTS = {
-    "weights": [(r"(w1s\[i\] = )rnd<T>\((w1ab\[i\])\)", r"\1\2")],
+    "weights": [(r"(w1s\[i\] = )rnd<\w+>\((w1ab\[i\])\)", r"\1\2")],
     "xd": [(r"rnd<T>\((to_f\(xb\[s \* 3 \+ \d\]\) - to_f\(xb\[d \* 3 \+ "
             r"\d\]\))\)", r"(\1)")],
     "radial": [(r"(r = )rnd<T>\((d0 \* d0 \+ d1 \* d1 \+ d2 \* d2)\)",
@@ -584,7 +604,8 @@ def test_admission_covers_the_kernels_shared_memory(cuda):
     B4's forms in either dtype need no more shared memory a CTA than that.
     ``fused_admits`` takes every F <= 64 whatever the card: B3's forward
     in either dtype fits the card's opt-in limit there, and its bf16 form
-    two CTAs an SM at F=64."""
+    two CTAs an SM at F=64. B6's and B7's tensor-core layouts admit at
+    least the N their CUDA-core forms admitted."""
     lib, paired = mega._fwd_lib(), mega._paired_lib()
     n = 16
     while mega.mega_admits(n, 64, 64, 1):
@@ -603,6 +624,26 @@ def test_admission_covers_the_kernels_shared_memory(cuda):
         for bf16 in (0, 1):
             assert fwd.egnn_edge_fwd_smem_bytes(f, 64, bf16) <= optin
     assert fwd.egnn_edge_fwd_ctas_per_sm(64, 64, 1) == 2
+    # B6: the bf16 form (h and x resident in bf16) needs no more shared
+    # memory a CTA than the f32 form, whose size the wrapper admits
+    slib = stack._lib()
+    for n in range(16, N + 64):
+        assert (slib.egnn_stack_fwd_smem_bytes(n, 64, 1)
+                <= slib.egnn_stack_fwd_smem_bytes(n, 64, 0))
+    assert slib.egnn_stack_fwd_smem_bytes(N, 64, 1) <= optin
+    assert slib.egnn_stack_fwd_ctas_per_sm(N, 64, 1) == 1
+    # B7: the tensor-core form (h gathered from device memory, not held)
+    # takes, at F=20 and F=64, every N the CUDA-core form took with bf16
+    # features at F=64 (its smem formula: 408 N + 37,772 B), one CTA an SM
+    flib = fused_layer._lib()
+    n = 16
+    while 408 * n + 37772 <= optin:
+        for f in (20, 64):
+            assert flib.egnn_layer_fwd_smem_bytes(n, f, 64, 1) <= optin
+        n += 1
+    assert n > N
+    for x_bf16 in (0, 1):
+        assert flib.egnn_layer_fwd_ctas_per_sm(N, 64, x_bf16) == 1
 
 
 @pytest.mark.cuda
@@ -1232,12 +1273,14 @@ def test_segment_bf16_bound_sees_f32_accumulation(cuda, tmp_path,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pallas_layer_gradients_on_card(cuda, dtype, monkeypatch):
     """One EGNN layer through 'pallas' (B8's scatter forward, its gather in
-    the backward) against the same layer with B8's plain versions: one
-    launch of each; outputs and gradients within |diff| <= 1e-4 * max +
-    1e-3 * |plain| in f32. bf16, per tensor: mean|diff| <= 2 * (the plain
-    layer's own run-to-run mean|diff|) + 1e-4 * mean|plain|: the backward of
-    the layer's index_select gathers adds in bf16 with atomics, so h's and
-    the edge MLP's gradients move from run to run (the outputs do not)."""
+    the backward, and its scatter as the backward of the layer's four
+    gathers) against the same layer with B8's plain versions: five scatter
+    launches and one gather; outputs and gradients within |diff| <= 1e-4 *
+    max + 1e-3 * |plain| in f32. bf16, per tensor: mean|diff| <= 2 * (the
+    plain layer's own run-to-run mean|diff|) + 1e-4 * mean|plain|: the plain
+    scatter (``index_add_``) sums with atomics on the card, so h's and the
+    edge MLP's gradients move from run to run there (the outputs do
+    not)."""
     gen = torch.Generator().manual_seed(12)
     layer = EGNNLayer(20, 64, 64, generator=gen, device=cuda)
     src, dst, mask, ef, h, x = (t.to(cuda) for t in _args(
@@ -1264,7 +1307,7 @@ def test_pallas_layer_gradients_on_card(cuda, dtype, monkeypatch):
         torch.cuda.synchronize()
         launched = (segment.segment_scatter.launches - before[0],
                     segment.segment_gather.launches - before[1])
-        assert launched == ((1, 1) if kernels else (0, 0))
+        assert launched == ((5, 1) if kernels else (0, 0))
         return [h2.detach(), x2.detach(), hin.grad, xin.grad] + [
             p.grad.clone() for p in layer.parameters()]
 
@@ -1392,8 +1435,8 @@ def test_paired_kernel_at_the_grid_edges(cuda, b, e, dtype):
 # or the mirror's geometry formed anew from the second half's indices (as
 # a kernel that reads the mirror edge would) rather than the arc's negated.
 # Each runs on a batch whose second half is scrambled, which B4 never
-# reads. The CUDA-core chain B4's f32 form runs (csrc/egnn_common.cuh) has
-# its mutants in B6's table, the one kernel that runs it in bf16.
+# reads. The CUDA-core chain of B4's f32 form (csrc/egnn_common.cuh) runs
+# in f32 only, held by the f32 bounds.
 _PAIRED_SOURCES = ("egnn_mega_paired_fwd.cu", "egnn_mega.cuh")
 _PAIRED_MUTANTS = {
     "mirror_sign": [(r"g\.xh\[m \* 3 \+ (\d)\] = -h\1;",
@@ -1407,7 +1450,7 @@ _PAIRED_MUTANTS = {
             r"\d\]\))\)", r"(\1)")],
     "radial": [(r"(r = )rnd<T>\((d0 \* d0 \+ d1 \* d1 \+ d2 \* d2)\)",
                 r"\1\2")],
-    "weights": [(r"(w1s\[i\] = )rnd<T>\((w1ab\[i\])\)", r"\1\2")],
+    "weights": [(r"(w1s\[i\] = )rnd<\w+>\((w1ab\[i\])\)", r"\1\2")],
     "m": [(r"(const float mv = )rnd<bf>\((p \* sigmoid_fast\(p\))\)",
            r"\1\2")],
     "coord_hidden": [(r"(const float c1 = )rnd<bf>\((p \* sigmoid_fast\(p\))\)",
@@ -1678,31 +1721,25 @@ def test_stack_kernel_shared_memory_oversize_raises(cuda):
         stack.stack_fwd(*big, packed)
 
 
-# B6 (csrc/egnn_stack_fwd.cu, and the CUDA-core chain of
-# csrc/egnn_common.cuh that it alone runs in bf16: stage_edge_weights,
-# node_projections, fwd_tile_chain) with one bf16 rounding point left out.
-_STACK_SOURCES = ("egnn_stack_fwd.cu", "egnn_common.cuh")
+# B6's bf16 form (csrc/egnn_stack_fwd.cu, and B1's tensor-core body and
+# geometry that it runs layer by layer: csrc/egnn_mega.cuh,
+# csrc/egnn_common.cuh) with one bf16 rounding point left out. pa/pb,
+# silu(a1), hmid and h have no mutant: each reaches only bf16 storage (the
+# projections' scratch, an mma operand, the hmid tile, the resident h and
+# its residual), whose store rounds it, so no edit of the arithmetic
+# removes it; nor x (resident in bf16), nor W2, Wc1 and the node MLP's
+# weights (bf16 operands). The f32 form's CUDA-core chain runs in f32 only.
+# hmid and h have a near-tie recompute, and a test without it below.
+_STACK_SOURCES = ("egnn_stack_fwd.cu", "egnn_mega.cuh", "egnn_common.cuh")
 _STACK_MUTANTS = {
-    "edge_weights": [(r"(w2s\[i\] = )rnd<T>\((w2\[i\])\)", r"\1\2"),
-                     (r"(wc1s\[i\] = )rnd<T>\((wc1\[i\])\)", r"\1\2"),
-                     (r"(w1s\[i\] = )rnd<T>\((w1ab\[i\])\)", r"\1\2")],
-    "pa_pb": [(r"(pab\[i\] = )rnd<T>\((s)\)", r"\1\2")],
-    "silu_a1": [(r"(v = )rnd<T>\((silu\(a1\))\)", r"\1\2")],
-    "m": [(r"(mv = )rnd<T>\((silu\(r\[i\]\[c\] \+ "
-           r"sms\[kB2 \* H \+ j\]\))\)", r"\1\2")],
-    "coord_hidden": [(r"(c1 = )rnd<T>\((silu\(r\[i\]\[c\] \+ "
-                      r"sms\[kBC1 \* H \+ j\]\))\)", r"\1\2")],
-    "cw": [(r"(cwb = )rnd<T>\((part)\)", r"\1\2")],
-    "cw_xhat": [(r"rnd<T>\((cwb \* g\.xh\[t \* 3 \+ \d\])\)",
-                 r"(\1)")],
-    "agg": [(r"(const float v = )rnd<T>\((acc\[i\])\)", r"\1\2")],
-    "hmid": [(r"rnd<T>\((silu\(p\[i\]\[c\] \+ nbs\[j\]\))\)", r"\1")],
-    "h": [(r"(const float v = )rnd<T>\((q\[i\]\[c\] \+ nbs\[H \+ j\])\)",
-           r"\1\2")],
-    "x": [(r"(const float v = )rnd<T>\((xsm\[i\] \+ "
-           r"acc\[\(i / 3\) \* C \+ H \+ i % 3\])\)", r"\1\2")],
-    "node_weights": [(r"(nm0s\[i\] = )rnd<T>\((nm0w\[i\])\)", r"\1\2"),
-                     (r"(nm1s\[i\] = )rnd<T>\((nm1w\[i\])\)", r"\1\2")],
+    "w1ab": [(r"(w1s\[i\] = )rnd<bf>\((w1ab\[i\])\)", r"\1\2")],
+    "xd": _MUTANTS["xd"],
+    "radial": _MUTANTS["radial"],
+    "m": _MUTANTS["m"],
+    "coord_hidden": _MUTANTS["coord_hidden"],
+    "cw": _MUTANTS["cw"],
+    "cw_xhat": _MUTANTS["cw_xhat"],
+    "agg": [(r"(const float v = )rnd<bf>\((acc\[i\])\)", r"\1\2")],
 }
 
 
@@ -1721,10 +1758,29 @@ def test_stack_bf16_bound_sees_every_rounding_point(cuda, name, tmp_path,
             _assert_stack_layers_close(out, args, packed, torch.bfloat16)
 
 
+@pytest.mark.cuda
+def test_stack_bf16_bound_sees_the_near_tie_recompute(cuda, tmp_path,
+                                                      monkeypatch,
+                                                      restore_kernels):
+    """Without the near-tie recompute of its node MLP (csrc/egnn_hopper.cuh
+    kTieUlps), one h of ``test_stack_kernel_at_the_grid_edges``' bf16 B=1,
+    E=1000 input (the graph's edges all masked) rounds one step off the
+    plain version's in a column of small mean, past the per-column mean
+    bound (an H100 run)."""
+    args, packed = _stack_args(1, 1000, torch.bfloat16, cuda, seed=1047)
+    args[2][-1] = False
+    _mutant_kernel("egnn_hopper.cuh", _NO_TIE_RECOMPUTE, tmp_path,
+                   monkeypatch)
+    out = stack.stack_fwd(*args, packed)
+    with pytest.raises(AssertionError):
+        _assert_stack_layers_close(out, args, packed, torch.bfloat16)
+
+
 _VARIANT_LAUNCHES = {                   # per train step of six layers
-    "hybrid": dict(B1=6, B2=6), "dboth": dict(B1=6, B5a=6),
-    "inkernel": dict(B1=6, B5b=6), "paired": dict(B4=6, B2=6),
-    "stack": dict(B6=1, B2=6),
+    "hybrid": dict(B1=6, B2=6, B8_scatter=12),
+    "dboth": dict(B1=6, B5a=6, B8_scatter=12),
+    "inkernel": dict(B1=6, B5b=6), "paired": dict(B4=6, B2=6, B8_scatter=12),
+    "stack": dict(B6=1, B2=6, B8_scatter=12),
 }
 
 
@@ -1732,8 +1788,9 @@ _VARIANT_LAUNCHES = {                   # per train step of six layers
 @pytest.mark.parametrize("variant", sorted(_VARIANT_LAUNCHES))
 def test_variant_train_step_launches_its_kernels(cuda, variant):
     """One bf16 training step of full-width HybridModelv2 at B=16 on a
-    mirror-paired batch: the variant's kernels and no other, a finite loss
-    and finite gradients."""
+    mirror-paired batch: the variant's kernels and no other (B8's scatter
+    sums the node gradients of every backward but B5b's), a finite loss and
+    finite gradients."""
     from immunostruct_tpu_torch.cli.race_kernel_variants import read_counts
 
     _, model = build_model("HybridModelv2", 20 * 21,
@@ -1908,22 +1965,24 @@ def test_fused_layer_kernel_raises(cuda):
         fused_layer.fused_egnn_layer(layer, *args)
 
 
-# B7's source with one bf16 rounding point of pallas_egnn.py left out
+# B7's tensor-core form (csrc/egnn_layer_fwd.cu) with one bf16 rounding
+# point of pallas_egnn.py left out; "bias_fold" sums bias1 in f32 rather
+# than bf16. silu(z1), agg, a and h' have no mutant: each reaches only bf16
+# storage (an mma operand, the A tile, the a tile, h'), whose store rounds
+# it. The form has no near-tie recompute.
 _B7_MUTANTS = {
-    "bias_fold": [(r"rnd<T>\((to_f\(w\.be1\[j\]\) \+ to_f\(w\.w_ef\[j\]\))\)",
-                   r"(\1)")],
-    "x_cast": [(r"(xc\[i\] = )rnd<T>\((to_f\(xb\[i\]\))\)", r"\1\2")],
-    "radial": [(r"(rad\[tid\] = )rnd<T>\((r)\)", r"\1\2")],
-    "m1": [(r"rnd<T>\((silu\(z1\))\)", r"\1")],
-    "m": [(r"(const float mv = )rnd<T>\((silu\(r\[i\]\[c\] \+ "
-           r"vec\[kBe2 \* H \+ j\]\))\)", r"\1\2")],
-    "c1": [(r"(const float c1 = )rnd<T>\((silu\(r\[i\]\[c\] \+ "
-            r"vec\[kBc1 \* H \+ j\]\))\)", r"\1\2")],
-    "msg_x": [(r"rnd<T>\((__fmul_rn\(cw, xh\[t \* 3 \+ k\]\))\)", r"\1")],
-    "agg": [(r"(acc\[i\] = )rnd<T>\((acc\[i\])\)", r"\1\2")],
-    "a": [(r"rnd<T>\((silu\(zn\))\)", r"\1")],
-    "x_own_dtype": [(r"from_f<XT>\(to_f\(xb\[i\]\) \+ accx\[i\]\)",
-                     r"from_f<XT>(xc[i] + accx[i])")],
+    "bias_fold": [(r"rnd<bf>\((to_f\(w\.be1\[j\]\) \+ "
+                   r"to_f\(w\.w_ef\[j\]\))\)", r"(\1)")],
+    "x_cast": [(r"(\? )rnd<bf>\((to_f\(xb\[i\]\))\)", r"\1\2")],
+    "radial": [(r"(g\.rad\[wtid\] = )rnd<bf>\((r)\)", r"\1\2")],
+    "m": [(r"(const float mv = )rnd<bf>\((p \* sigmoid_fast\(p\))\)",
+           r"\1\2")],
+    "c1": [(r"(const float c1 = )rnd<bf>\((p \* sigmoid_fast\(p\))\)",
+            r"\1\2")],
+    "msg_x": [(r"rnd<bf>\((__fmul_rn\(cw, g\.xh\[t \* 3 \+ k\]\))\)",
+               r"\1")],
+    "x_own_dtype": [(r"from_f<XT>\(to_f\(xb\[node \* 3 \+ k\]\) \+ accx\)",
+                     r"from_f<XT>(xc[node * 3 + k] + accx)")],
 }
 
 
@@ -2050,3 +2109,231 @@ def test_onehot_layers_match_scatter_on_card(cuda, aggregation):
     for got, want in zip(res[aggregation][2:], res["scatter"][2:]):
         assert ((got - want).abs() <= 1e-4 * want.abs().max()
                 + 1e-3 * want.abs()).all()
+
+
+# --------------------------------------------------------------------------
+# Same seed, same bits: every kernel and the glue repeat on the card
+# --------------------------------------------------------------------------
+
+def _assert_same_bits(first, again, what=""):
+    assert len(first) == len(again)
+    for i, (a, b) in enumerate(zip(first, again)):
+        assert (a is None) == (b is None), (what, i)
+        if a is not None:
+            assert torch.equal(a, b), (what, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8, 128])
+@pytest.mark.parametrize("paired", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_kernels_repeat(cuda, b, paired, dtype):
+    """B1 (paired False) and B4 (True), with their residuals: two launches
+    on the same inputs give the same bits (each (n, c) an f32 sum in one
+    fixed order, no atomics; at B=1 and 8 the chunks' node blocks summed in
+    chunk order)."""
+    make = _paired_args if paired else functools.partial(_args, hid=64)
+    args = make(b, 2560, 20, dtype=dtype, device=cuda, seed=b + 40)
+    fwd = mega.edge_mega_paired_fwd if paired else mega.edge_mega_fwd
+    _assert_same_bits(fwd(*args), fwd(*args), "B4" if paired else "B1")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stack_kernel_repeats(cuda, b, dtype):
+    """B6, six layers with their residuals, twice: the same bits."""
+    args, packed = _stack_args(b, 2560, dtype, cuda, seed=b + 41)
+    _assert_same_bits(stack.stack_fwd(*args, packed),
+                      stack.stack_fwd(*args, packed), "B6")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_layer_kernel_repeats(cuda, b, dtype):
+    """B7 twice (at B=1 and 8 a graph over a cluster of CTAs, whose node
+    blocks meet in rank order): the same bits."""
+    layer, args = _b7_args(b, 2560, 64, dtype, cuda, seed=b + 42)
+    with torch.no_grad():
+        _assert_same_bits(fused_layer.fused_egnn_layer(layer, *args),
+                          fused_layer.fused_egnn_layer(layer, *args), "B7")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8, 128])
+@pytest.mark.parametrize("backward", ["hybrid", "dboth"])
+def test_edge_half_backward_glue_repeats(cuda, b, backward):
+    """The 'hybrid' and 'dboth' backward, whose node sums by src and by dst
+    go through B8's scatter: twice on the same residuals and cotangent,
+    the same bits (bf16)."""
+    args = _args(b, 2560, 20, 64, torch.bfloat16, cuda, seed=b + 43)
+    src, dst, mask, ef, h, x, w1ab, w2, wc1, small = args
+    _, a1, xd = mega.edge_mega_fwd(*args)
+    valid = mega.valid_edges(src, dst, mask, N)
+    g = torch.randn(b, N, 67, generator=torch.Generator().manual_seed(b)
+                    ).to(cuda)
+
+    def run():
+        return mega.edge_half_bwd(src, dst, valid, ef, h, x, w1ab, w2, wc1,
+                                  small, a1, xd, g, backward)
+
+    _assert_same_bits(run(), run(), backward)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8, 128])
+@pytest.mark.parametrize("aggregation", ["fused", "pallas"])
+def test_layer_glue_repeats(cuda, b, aggregation):
+    """One bf16 layer through 'fused' (its aggregation and its gathers'
+    backward through B8's scatter) or 'pallas' (its gathers' backward
+    through B8's scatter), forward and backward twice: the same bits."""
+    gen = torch.Generator().manual_seed(b + 44)
+    layer = EGNNLayer(20, 64, 64, generator=gen, device=cuda)
+    src, dst, mask, ef, h, x = (t.to(cuda) for t in _args(
+        b, 2560, 20, 64, torch.float32, "cpu", seed=b + 44)[:6])
+    cot_h = torch.randn(b, N, 64, generator=gen).to(cuda, torch.bfloat16)
+    cot_x = torch.randn(b, N, 3, generator=gen).to(cuda, torch.bfloat16)
+
+    def run():
+        layer.zero_grad()
+        hin = h.to(torch.bfloat16).requires_grad_(True)
+        xin = x.to(torch.bfloat16).requires_grad_(True)
+        h2, x2 = egnn_apply(layer, hin, xin, src, dst,
+                            ef.to(torch.bfloat16), mask, aggregation)
+        ((h2 * cot_h).float().sum() + (x2 * cot_x).float().sum()).backward()
+        return [h2.detach(), x2.detach(), hin.grad, xin.grad] + [
+            p.grad.clone() for p in layer.parameters()]
+
+    _assert_same_bits(run(), run(), aggregation)
+
+
+# every aggregation of the train step: (aggregation, mega_variant)
+_PATHS = [("mega", v) for v in mega.MEGA_VARIANTS] + [
+    ("fused", "hybrid"), ("pallas", "hybrid"), ("onehot", "hybrid"),
+    ("auto", "hybrid"), ("scatter", "hybrid")]
+
+
+def _train_three_steps(cuda, aggregation, variant, batch):
+    """Full-width HybridModelv2 from seed 0, bf16 over f32 master weights,
+    Adam: three steps on ``batch``; (losses, parameters, Adam moments)."""
+    _, model = build_model("HybridModelv2", 20 * 21,
+                           torch.Generator().manual_seed(0), device=cuda)
+    trainer = Trainer(model.spec, LossConfig(20 * 21, 1.0), binary=True,
+                      optimizer=make_optimizer("adam", constant_lr(1e-3)),
+                      aggregation=aggregation, compute_dtype=torch.bfloat16,
+                      mega_variant=variant)
+    state = trainer.init_state(model)
+    losses = []
+    for _ in range(3):
+        state, loss = trainer.train_step(state, batch, seed=0)
+        losses.append(loss.detach().clone())
+    torch.cuda.synchronize()
+    params = [p.detach().clone() for p in model.parameters()]
+    moments = [state.optimizer.state[p][k].clone()
+               for p in model.parameters() for k in ("exp_avg", "exp_avg_sq")]
+    return losses, params, moments
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aggregation,variant", _PATHS)
+def test_same_seed_trains_and_serves_the_same_bits(cuda, aggregation,
+                                                    variant):
+    """One seed trained twice from fresh state (B=16, E=2560, bf16, three
+    steps on one mirror-paired batch): the losses, every parameter and
+    every Adam moment equal bit for bit; and one request served twice
+    (B=16, E=2560, bf16, the same VAE noise): the logits equal bit for bit,
+    also through B7 (``fused_stack``) where the aggregation is 'auto'.
+    'scatter', the reference algorithm's baseline (``index_add_`` with
+    atomics on the card), is run and its reading printed, not asserted."""
+    batch = build_batch(16, N, 2560, 20, paired=True, device=cuda)
+    runs = [_train_three_steps(cuda, aggregation, variant, batch)
+            for _ in range(2)]
+    trained = all(torch.equal(a, b) for part in zip(*runs)
+                  for a, b in zip(*part))
+    _, model = build_model("HybridModelv2", 20 * 21,
+                           torch.Generator().manual_seed(1), device=cuda)
+    req = random_sample_batch(16, N, 2560, 20, seed=5, device=cuda)
+    eps = torch.randn(16, 32, generator=torch.Generator().manual_seed(5))
+    stacks = [False, True] if aggregation == "auto" else [False]
+    served = True
+    for fused in stacks:
+        logits = []
+        for _ in range(2):
+            with torch.inference_mode():
+                logits.append(model_apply(
+                    model, req.graph, req.seq_onehot, req.props,
+                    deterministic=True, aggregation=aggregation,
+                    eps=eps.to(cuda), compute_dtype=torch.bfloat16,
+                    mega_variant=variant, fused_stack=fused).logits)
+        assert torch.isfinite(logits[0]).all()
+        served = served and torch.equal(*logits)
+    print(f"repeat {aggregation}/{variant}: trained the same bits {trained},"
+          f" served the same bits {served}")
+    if aggregation != "scatter":
+        assert trained and served
+
+
+@pytest.mark.cuda
+def test_stack_layers_are_b1_bit_for_bit(cuda):
+    """Where B1 runs one chunk a graph (B=128 on 132 SMs), layer l of B6 is
+    B1 on (hs[l-1], xs[l-1]) bit for bit: a1s and xds are B1's residuals
+    and aggs B1's sums rounded (one body, csrc/egnn_mega.cuh)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert mega.fwd_chunks(2560, 128, sms) == 1
+    args, packed = _stack_args(128, 2560, torch.bfloat16, cuda, seed=45)
+    h, x, hs, xs, aggs, a1s, xds = stack.stack_fwd(*args, packed)
+    src, dst, mask, ef, h0, x0 = args
+    for layer, weights in enumerate(packed):
+        h_in = h0 if layer == 0 else hs[:, layer - 1]
+        x_in = x0 if layer == 0 else xs[:, layer - 1]
+        out, a1, xd = mega.edge_mega_fwd(src, dst, mask, ef,
+                                         h_in.contiguous(),
+                                         x_in.contiguous(), *weights[:4])
+        assert torch.equal(a1, a1s[:, layer]), layer
+        assert torch.equal(xd, xds[:, layer]), layer
+        assert torch.equal(out.to(torch.bfloat16), aggs[:, layer]), layer
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 200])
+@pytest.mark.parametrize("e", [2560, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stack_kernel_at_the_grid_edges(cuda, b, e, dtype):
+    """B6 at B=1 and 200, E=2560 and 1000 (a ragged last tile), the last
+    graph's edges all masked: each layer within its bounds."""
+    args, packed = _stack_args(b, e, dtype, cuda, seed=b + e + 46)
+    args[2][-1] = False
+    out = stack.stack_fwd(*args, packed)
+    _assert_stack_layers_close(out, args, packed, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 200])
+@pytest.mark.parametrize("e", [2560, 1024])
+@pytest.mark.parametrize("x_dtype", [None, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_layer_kernel_at_the_grid_edges(cuda, b, e, x_dtype, dtype):
+    """B7 at B=1 (a graph over a cluster of CTAs) and 200 (one CTA a
+    graph, more CTAs than SMs), E=2560 and 1024 (the wrapper takes E a
+    multiple of 128, as JAX does), bf16 or f32 coordinates, the last graph's
+    edges all masked: within its bounds."""
+    layer, args = _b7_args(b, e, 64, dtype, cuda, seed=b + e + 47,
+                           x_dtype=x_dtype)
+    args[4][-1] = False
+    with torch.no_grad():
+        out = fused_layer.fused_egnn_layer(layer, *args)
+        ref = fused_layer.fused_egnn_layer_reference(layer, *args)
+    _assert_b7_close(out, ref, dtype)
+
+
+@pytest.mark.cuda
+def test_fused_layer_cluster_reaches_more_than_one_sm(cuda):
+    """At B=1 B7's bf16 form spans a cluster of more than one CTA (one an
+    SM, ``layer_cluster_size``), and the card holds such clusters."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    k = fused_layer.layer_cluster_size(2560, 1, sms)
+    assert k > 1
+    lib = fused_layer._lib()
+    assert lib.egnn_layer_fwd_ctas_per_sm(N, 64, 1) == 1
+    assert lib.egnn_layer_fwd_max_clusters(N, 64, k) >= 1

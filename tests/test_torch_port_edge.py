@@ -40,8 +40,13 @@ import torch
 from immunostruct_tpu.ops import egnn as jax_egnn
 from immunostruct_tpu.ops.pallas_edge import edge_program as jax_edge_program
 from immunostruct_tpu.ops.pallas_edge import pack_params as jax_pack_params
-from immunostruct_tpu_torch.ops import edge
+from immunostruct_tpu_torch.data.synthetic import random_sample_batch
+from immunostruct_tpu_torch.models import build_model
+from immunostruct_tpu_torch.ops import edge, segment
 from immunostruct_tpu_torch.ops.egnn import EGNNLayer, egnn_stack_apply
+from immunostruct_tpu_torch.procedures.train import Trainer, make_optimizer
+from immunostruct_tpu_torch.utils.losses import LossConfig
+from immunostruct_tpu_torch.utils.schedule import constant_lr
 from immunostruct_tpu_torch.utils.checkpoint import load_params
 
 B, N, E, H = 2, 16, 256, 16
@@ -299,8 +304,58 @@ def test_fused_stack_matches_jax(f, dtype):
     """Two EGNN layers under 'fused', with masked edges, a self-loop and
     out-of-range indices on padded edges: outputs and ``jax.grad`` of a
     scalar for h, x and every parameter."""
-    params = _jax_stack(f, 20 + f)
-    g = _graph(f, 20 + f)
+    _check_fused_stack(f, 20 + f, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_sums_go_through_segment_scatter(dtype, monkeypatch):
+    """'fused' sums its aggregation and its two gathers' backward through
+    B8's scatter (``segment_scatter``: each (n, c) in edge order, in f32,
+    as on the card): three calls a layer, six for two layers, the
+    aggregation's on f32 messages, the gathers' on the cotangent in the
+    compute dtype; outputs and gradients held against JAX as
+    ``test_fused_stack_matches_jax`` holds them, on its inputs at F=8."""
+    calls = []
+    real = segment.segment_scatter
+
+    def counted(idx, mask, m, num_nodes):
+        calls.append(m.dtype)
+        return real(idx, mask, m, num_nodes)
+
+    monkeypatch.setattr(segment, "segment_scatter", counted)
+    _check_fused_stack(8, 28, dtype)
+    tdt = getattr(torch, dtype)
+    assert sorted(map(str, calls)) == sorted(
+        map(str, [torch.float32] * 2 + [tdt] * 4))
+
+
+def test_fused_train_step_repeats_on_the_cpu():
+    """Two trainers from the same seed take one bf16 'fused' step each on
+    the same batch: the same loss, parameters and Adam moments, bit for
+    bit."""
+    runs = []
+    for _ in range(2):
+        _, model = build_model("HybridModelv2", 8 * 21,
+                               torch.Generator().manual_seed(4),
+                               gcn_layers=2, gat_hidden_channels=H,
+                               vae_hidden_dim=32, vae_latent_dim=8)
+        trainer = Trainer(model.spec, LossConfig(8 * 21, 1.0), binary=True,
+                          optimizer=make_optimizer("adam", constant_lr(1e-3)),
+                          aggregation="fused", compute_dtype=torch.bfloat16)
+        state = trainer.init_state(model)
+        batch = random_sample_batch(B, N, E, 8, seed=4)
+        state, loss = trainer.train_step(state, batch, seed=0)
+        params = list(model.parameters())
+        runs.append([loss] + [p.detach() for p in params] + [
+            state.optimizer.state[p][k] for p in params
+            for k in ("exp_avg", "exp_avg_sq")])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def _check_fused_stack(f, seed, dtype):
+    params = _jax_stack(f, seed)
+    g = _graph(f, seed)
     want = _jax_named(params, g, dtype)
     got = _port_named(params, g, f, dtype)
     assert sorted(got) == sorted(want)

@@ -267,3 +267,24 @@ def test_model_apply_fused_stack_matches_jax(models, monkeypatch, dtype):
                     <= 1e-3 * np.abs(_f32(want)).max())
         else:
             _within_one_bf16_step(_f32(got), _f32(want), 0.01)
+
+
+@pytest.mark.parametrize("b,e,sms,cluster", [
+    (128, 2560, 132, 1), (200, 2560, 132, 1), (1, 2560, 132, 8),
+    (8, 2560, 132, 8), (16, 2560, 132, 8), (32, 2560, 132, 4),
+    (64, 2560, 132, 2), (20, 1408, 132, 6), (1, 256, 132, 2),
+    (1, 128, 132, 1), (4, 512, 132, 4), (1, 2560, 16, 8), (3, 2560, 16, 5),
+    (128, 1408, 132, 1), (66, 2560, 132, 2)])
+def test_layer_cluster_size(b, e, sms, cluster):
+    """B7's bf16 grid (a cluster of CTAs a graph, one CTA an SM): one wave
+    of CTAs on ``sms`` SMs, at least two 64-edge tiles a CTA, at most the
+    portable cluster size of 8; one CTA a graph at B=128 on 132 SMs, more
+    than one at B=1 where the graph has four tiles or more."""
+    got = fused_layer.layer_cluster_size(e, b, sms)
+    assert got == cluster
+    tiles = -(-e // 64)
+    assert 1 <= got <= fused_layer.MAX_CLUSTER
+    assert b * got <= max(sms, b)
+    assert got == 1 or tiles // got >= 2
+    if b == 1 and tiles >= 4 and sms >= 2:
+        assert got > 1

@@ -33,7 +33,7 @@ from immunostruct_tpu.ops.egnn import egnn_init
 from immunostruct_tpu.ops.pallas_edge import pack_params as jax_pack_params
 from immunostruct_tpu.ops.pallas_mega import _mega_fwd_call, _tail_bwd_call
 from immunostruct_tpu.ops.pallas_mega import edge_mega as jax_edge_mega
-from immunostruct_tpu_torch.ops import mega
+from immunostruct_tpu_torch.ops import mega, segment
 from immunostruct_tpu_torch.ops.egnn import EGNNLayer
 from immunostruct_tpu_torch.utils.checkpoint import load_params
 
@@ -284,6 +284,49 @@ def test_edge_mega_gradients_match_jax(f, dtype):
         plain = _grads(mega.edge_mega_reference, args, torch.from_numpy(cot))
         for name, g, w in zip(GRAD_NAMES, plain, want):
             assert not _bf16_grad_close(g, w), name
+
+
+@pytest.mark.parametrize("backward", ["hybrid", "dboth"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_node_sums_go_through_segment_scatter(backward, dtype, monkeypatch):
+    """The 'hybrid' and 'dboth' backward sum the edges' cotangents into node
+    space by src and by dst through B8's scatter (two f32 calls, each
+    (n, c) in edge order, as on the card): on the CPU the bits of the two
+    ``scatter_add_`` that summed them before; the gradients within
+    ``test_edge_mega_gradients_match_jax``'s bounds of JAX's."""
+    seen = []
+    real = segment.segment_scatter
+
+    def counted(idx, mask, m, num_nodes):
+        out = real(idx, mask, m, num_nodes)
+        seen.append((idx, mask, m, out))
+        return out
+
+    monkeypatch.setattr(segment, "segment_scatter", counted)
+    a = _inputs(20, 128, seed=9)
+    p = _jax_layer(20, H, seed=9)
+    cot = np.random.default_rng(9).standard_normal(
+        (B, N, H + 3)).astype(np.float32)
+    want = _jax_grads(_jax_args(a, p, jnp.dtype(dtype)), cot)
+    args = _port_args(a, _port_layer(p, 20, H), getattr(torch, dtype))
+    got = _grads(lambda *t: mega.EdgeMega.apply(*t, backward), args,
+                 torch.from_numpy(cot))
+    assert len(seen) == 2
+    for idx, mask, m, out in seen:
+        assert m.dtype == out.dtype == torch.float32
+        valid = mask & (idx >= 0) & (idx < N)
+        before = torch.zeros_like(out)
+        before.scatter_add_(
+            1, torch.where(valid, idx, 0).long()[..., None].expand_as(m),
+            torch.where(valid[..., None], m, 0.0))
+        assert torch.equal(out, before)
+    for name, g, w, t in zip(GRAD_NAMES, got, want, args[3:]):
+        assert g.dtype == t.dtype and g.shape == t.shape, name
+        if dtype == "float32":
+            np.testing.assert_allclose(_f32(g), _f32(w), atol=1e-5,
+                                       rtol=1e-4, err_msg=name)
+        else:
+            assert _bf16_grad_close(g, w), name
 
 
 def test_edge_mega_gradients_ragged_edge_count():
