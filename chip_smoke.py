@@ -84,6 +84,10 @@ Phases (none catches its own failure; any failure exits non-zero):
      F32_TOL in f32, the same bits twice; time it beside its plain version
      and print its bound, its cluster size, shared memory a CTA, CTAs an
      SM, the clusters the card holds at once and the compiler's readings;
+     then start the process that writes phase 21's and 24's clinical
+     cohort (synthetic_clinical_corpus, 4,096 rows of 70 patients,
+     275-residue HLA chains, seed 5) while phases 15-21 run, after the
+     kernel phases, whose timings its host work would disturb;
   15. serve full-width HybridModelv2 with seeded weights in bf16 over HTTP on
      127.0.0.1 (ephemeral port), POST requests (B=128 at E=2560, B=128 at
      E=1408, B=1): probabilities finite, in (0, 1), matching the same batch
@@ -140,14 +144,16 @@ Phases (none catches its own failure; any failure exits non-zero):
   21. the Cancer entry point, the fourth slice's main path: the corpus of
      phase 19 and synthetic_comparative_corpus's 256 cancer/WT pairs sharing its
      HLA table (N=288 on both twins); cli.train_Cancer_wFT.main runs
-     HybridModelv2_Comparative at full width with --aggregation pallas
-     --skip-clinical, bf16, batch 128, the contrastive term at 0.1, 2 epochs
-     per stage and the default 64 finetune batches per epoch: three stages
+     HybridModelv2_Comparative at full width with --aggregation pallas,
+     bf16, batch 128, the contrastive term at 0.1, 2 epochs
+     per stage and the default 64 finetune batches per epoch, and its
+     clinical survival validation on the clinical cohort: three stages
      in order (pretrain, comparative pretrain, comparative finetune) with
      finite losses, both checkpoints load into a fresh
-     HybridModelv2_Comparative, 15 metrics per split with the train
-     threshold reused on test, both B8 kernels in every stage and the
-     scatter alone in both inference passes, no launch of B1-B3; epoch
+     HybridModelv2_Comparative, 15 metrics on train and 17 on test (the
+     train threshold reused; OS/PFS p-values in [0, 1]), both B8 kernels in
+     every stage and the scatter alone in both inference passes and in the
+     clinical pass, no launch of B1-B3; epoch
      times and pMHC/s printed. Then B8 against its plain versions as in
      phase 9 on the operands the entry point gave it (the first of each
      kernel, shape and dtype);
@@ -156,11 +162,42 @@ Phases (none catches its own failure; any failure exits non-zero):
      batch) and onehot (no kernel): 51 test rows of three columns, the same
      rows and labels, probabilities within PROB_ATOL of each other; then
      --comparative on phase 21's checkpoint (12 B1 launches per batch);
-  22. each 'mega' variant's first full-width HybridModelv2 train step
+  22. the twelfth slice's main path, from PDBs to p-values, begins: phase
+     19's 512 graphs written back as CA PDBs (write_corpus_pdbs: named by
+     their join keys, HLA chain A numbered 1-275, the peptide chain C after
+     it, helix CAs) and one broken file; cli.featurize on the native library
+     (built from native/featurizer.cc by the host's C++ compiler) and with
+     --no-native: the same graphs file by file (name, x, coords,
+     edge_index bit for bit), the broken file in each error_log.txt,
+     structures/s printed for each; cli.validate_data on the featurized
+     graphs with the corpus's tables returns 0 at 100% join coverage;
+  23. cli.train_curriculum --stages PropIEDB,ImmunoIEDB,PropCancer,
+     ImmunoCancer --comparative --model HybridModelv2_Comparative
+     --aggregation mega at full width (6 EGNN layers, H=64), bf16, batch
+     128, 2 epochs a stage: the IEDB stages on phase 22's featurized graphs,
+     the cancer/WT stages on phase 21's pairs, the last cycled to 64
+     batches an epoch: the stages in order with finite losses, resume tags
+     stage1-stage4, both checkpoints load, 15 metrics per split with the
+     train threshold reused on test; in every stage B2 6 launches a twin a
+     step, B8's scatter twice that, B1 at least that, in inference B1 alone;
+     no other kernel; epoch time and pMHC/s per stage printed. Then B1 and
+     B2 against their plain versions as in phases 4 and 5, on the operands
+     the curriculum gave them (the first of each shape: the featurized
+     stages' N=192, the twins' N=288, full and partial batches), as it ran
+     them (bf16) and cast to f32, and B8's scatter as in phase 9 on the
+     operands it gave it;
+  24. cli.infer_clinical_only on phase 23's finetune checkpoint over the
+     clinical cohort, --aggregation mega twice and scatter, bf16, batch
+     128: the valid rows' probabilities within PROB_ATOL of 'scatter', the
+     invalid rows NaN and out of the per-patient loads, OS/PFS p-values in
+     [0, 1] and equal to clinical_pvalues of the card's probabilities, the
+     same bits on the second run, 6 B1 launches a batch under 'mega' and
+     none other; rows/s printed;
+  25. each 'mega' variant's first full-width HybridModelv2 train step
      (bf16) against 'scatter' from the same weights and noise, on
      build_batch's mirror-paired batch at E=2560 and 1408 (phase 16's
      bounds): 'dboth', 'inkernel', 'paired', 'stack';
-  23. this slice's main path, the race: cli.race_kernel_variants in-process
+  26. the fifth slice's main path, the race: cli.race_kernel_variants in-process
      at B=128, E=2560 and 1408, --paired-batch, all six variants (warm-up,
      each variant's first step, a burn-in of 3, two interleaved windows of 5
      steps ending in a value fetch): per step 'diff16' ('hybrid') 6 B1 + 6
@@ -171,18 +208,18 @@ Phases (none catches its own failure; any failure exits non-zero):
      loss that falls for each (its least over the timed steps below the
      first step's: on one fixed batch the loss spikes now and then); every
      count set to 0 before each race and read after it;
-  24. serve one B=128 forward with no gradient under 'stack' and 'paired'
+  27. serve one B=128 forward with no gradient under 'stack' and 'paired'
      (the served model, a mirror-paired batch at E=2560): probabilities
      within 5e-4 of 'scatter', the same bits twice, the variant's kernel
      alone launched;
-  24a. phase 24's 'paired' forward and one 'paired' train step under
+  27a. phase 27's 'paired' forward and one 'paired' train step under
      torch.cuda.set_sync_debug_mode("error"): no host sync;
-  25. trace forwards and train steps with torch.profiler ('mega',
+  28. trace forwards and train steps with torch.profiler ('mega',
      'scatter' and fused_stack (B7) for the forwards; for the step also
      'fused', 'pallas' and 'mega' under 'stack', 'inkernel' and 'paired')
      and print the device-busy time, the device's idle share and the
      kernels that take the most device time;
-  26. print the times beside the card's name and power limit, then the
+  29. print the times beside the card's name and power limit, then the
      kernel record (eleven kernels) as one JSON line, the card line and, last,
      the result line {"ok": true, "device": {...}}.
 """
@@ -190,8 +227,10 @@ Phases (none catches its own failure; any failure exits non-zero):
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -292,6 +331,10 @@ METRIC_KEYS = 15
 # table (N=288 on both twins), the flagship's finetune floor of 64 batches
 CANCER_PAIRS = 256
 MIN_FINETUNING_BATCHES = 64
+# the clinical cohort: the reference's 70 patients, 4,096 of its ~29K pMHC
+# rows (tests/test_real_clinical.py), 275-residue HLA chains as the corpora
+CLINICAL_ROWS = 4096
+CLINICAL_PATIENTS = 70
 # B8's scatter, bf16: within one bf16 step of the larger magnitude, or of
 # this floor below it (near a cancellation the f32 roundoff of a sum of
 # terms of size ~1 can exceed a step there); f32: within 2 * k * 2^-24 *
@@ -404,7 +447,8 @@ def residual_errors(got, ref, dtype) -> float:
 def fwd_errors(out, ref, dtype) -> tuple:
     """B1's (or B4's) aggregate against its plain version; asserts the
     bounds above. (max |diff|, the bf16 column statistics, the bound)."""
-    assert out.shape[1:] == (N, H + 3) and out.dtype == torch.float32
+    assert out.shape == ref.shape and out.shape[2] == H + 3
+    assert out.dtype == torch.float32
     assert torch.isfinite(out).all()
     err = (out - ref).abs().max().item()
     if dtype == torch.float32:
@@ -435,44 +479,54 @@ def occupancy(lib, entry: str, size: int, dtype) -> dict:
                                                                  bf16))
 
 
-def check_fwd_kernel() -> list:
+def check_fwd_case(args, where: str) -> dict:
+    """B1 on one set of operands (src, dst, mask, ef, h, x and the packed
+    weights) against its plain version: the output (fwd_errors) and the
+    a1/xd residuals (residual_errors), the output without residuals too;
+    timed with and without them beside the plain version."""
     from immunostruct_tpu_torch.ops import mega
     from immunostruct_tpu_torch.ops.mega import (
         edge_mega_fwd, edge_mega_fwd_reference, valid_edges,
     )
 
+    b, n, f = args[4].shape
+    e, dtype = args[0].shape[1], args[4].dtype
+    out, a1, xd = edge_mega_fwd(*args, residuals=True)
+    torch.cuda.synchronize()
+    ref, a1_ref, xd_ref = edge_mega_fwd_reference(*args)
+    err, rel, tol = fwd_errors(out, ref, dtype)
+    res_err = residual_errors((a1, xd), (a1_ref, xd_ref), dtype)
+    assert res_err <= 1.0, res_err
+    out_nores = edge_mega_fwd(*args, residuals=False)[0]
+    torch.testing.assert_close(out_nores, out, atol=1e-5, rtol=1e-5)
+    ms, plain_ms = alternate_ms(
+        lambda: edge_mega_fwd_reference(*args),
+        lambda: edge_mega_fwd(*args, residuals=False))
+    res_ms = cuda_ms(lambda: edge_mega_fwd(*args, residuals=True))
+    # the work of the launch with residuals: node projections and the
+    # edge chain's two HxH products on the valid edges
+    valid = valid_edges(*args[:3], n).sum().item()
+    flops = 2 * b * n * f * 2 * H + 2 * valid * 2 * H * H
+    work = bound(tensor_bytes(*args, out, a1, xd), flops, dtype)
+    # serving's launch: the same work without the a1/xd stores
+    bare = bound(tensor_bytes(*args, out), flops, dtype)
+    row = dict(shapes=where, B=b, N=n, E=e, F=f,
+               dtype=str(dtype).split(".")[1], max_abs_err=err, **work,
+               bound_ms_without_residuals=bare["bound_ms"],
+               bound_by_without_residuals=bare["bound_by"],
+               max_abs_ref=ref.abs().max().item(), **rel,
+               tolerance=tol, residual_err_in_tol=res_err,
+               ms=ms, ms_with_residuals=res_ms, plain_ms=plain_ms,
+               **occupancy(mega._fwd_lib(), "egnn_mega_fwd", n, dtype))
+    print("kernel B1:", json.dumps(row), flush=True)
+    return row
+
+
+def check_fwd_kernel() -> list:
     rows = []
-    for b, e, f, name, dtype in FWD_CASES:
-        args = kernel_inputs(b, e, f, dtype, seed=e + f)
-        out, a1, xd = edge_mega_fwd(*args, residuals=True)
-        torch.cuda.synchronize()
-        ref, a1_ref, xd_ref = edge_mega_fwd_reference(*args)
-        err, rel, tol = fwd_errors(out, ref, dtype)
-        res_err = residual_errors((a1, xd), (a1_ref, xd_ref), dtype)
-        assert res_err <= 1.0, res_err
-        out_nores = edge_mega_fwd(*args, residuals=False)[0]
-        torch.testing.assert_close(out_nores, out, atol=1e-5, rtol=1e-5)
-        ms, plain_ms = alternate_ms(
-            lambda: edge_mega_fwd_reference(*args),
-            lambda: edge_mega_fwd(*args, residuals=False))
-        res_ms = cuda_ms(lambda: edge_mega_fwd(*args, residuals=True))
-        # the work of the launch with residuals: node projections and the
-        # edge chain's two HxH products on the valid edges
-        valid = valid_edges(*args[:3], N).sum().item()
-        flops = 2 * b * N * f * 2 * H + 2 * valid * 2 * H * H
-        work = bound(tensor_bytes(*args, out, a1, xd), flops, dtype)
-        # serving's launch: the same work without the a1/xd stores
-        bare = bound(tensor_bytes(*args, out), flops, dtype)
-        row = dict(B=b, E=e, F=f, dtype=name, max_abs_err=err, **work,
-                   bound_ms_without_residuals=bare["bound_ms"],
-                   bound_by_without_residuals=bare["bound_by"],
-                   max_abs_ref=ref.abs().max().item(), **rel,
-                   tolerance=tol, residual_err_in_tol=res_err,
-                   ms=ms, ms_with_residuals=res_ms, plain_ms=plain_ms,
-                   **occupancy(mega._fwd_lib(), "egnn_mega_fwd", N, dtype))
-        print("kernel B1:", json.dumps(row), flush=True)
-        rows.append(row)
-        del args, out, ref, a1, xd, a1_ref, xd_ref
+    for b, e, f, _, dtype in FWD_CASES:
+        rows.append(check_fwd_case(kernel_inputs(b, e, f, dtype, seed=e + f),
+                                   "bench"))
     return rows
 
 
@@ -562,31 +616,40 @@ def tail_smem(entry: str, dtype) -> int:
     return getattr(lib, f"{entry}_smem_bytes")(H, int(dtype == torch.bfloat16))
 
 
-def check_tail_kernel() -> list:
+def check_tail_case(args, where: str, f=None) -> dict:
+    """B2 on one set of operands (ef, w2, wc1, small, a1, xd, d_both,
+    valid) against its plain version (tail_errors), the same bits twice;
+    timed beside the plain version. ``f``: the layer's input width, where
+    known (B2 does not read it)."""
     from immunostruct_tpu_torch.ops.mega import tail_bwd, tail_bwd_reference
 
+    b, _, e = args[4].shape
+    dtype = args[4].dtype
+    out = tail_bwd(*args)
+    torch.cuda.synchronize()
+    ref = tail_bwd_reference(*args)
+    stats = tail_errors(out, ref, dtype, args)
+    again = tail_bwd(*args)
+    assert all(torch.equal(g, h) for g, h in zip(out, again)), \
+        "B2 changed from one run to the next"
+    ms, plain_ms = alternate_ms(
+        lambda: tail_bwd_reference(*args),
+        lambda: tail_bwd(*args))
+    # six HxH products per valid edge
+    work = bound(tensor_bytes(*args, *out),
+                 2 * args[-1].sum().item() * 6 * H * H, dtype)
+    row = dict(shapes=where, B=b, E=e, F=f, dtype=str(dtype).split(".")[1],
+               **stats, **work, ms=ms, plain_ms=plain_ms,
+               smem_per_cta=tail_smem("egnn_tail_bwd", dtype))
+    print("kernel B2:", json.dumps(row), flush=True)
+    return row
+
+
+def check_tail_kernel() -> list:
     rows = []
-    for b, e, f, name, dtype in TAIL_CASES:
-        args = tail_inputs(e, f, dtype, seed=e + f + 1, b=b)
-        out = tail_bwd(*args)
-        torch.cuda.synchronize()
-        ref = tail_bwd_reference(*args)
-        stats = tail_errors(out, ref, dtype, args)
-        again = tail_bwd(*args)
-        assert all(torch.equal(g, h) for g, h in zip(out, again)), \
-            "B2 changed from one run to the next"
-        ms, plain_ms = alternate_ms(
-            lambda: tail_bwd_reference(*args),
-            lambda: tail_bwd(*args))
-        # six HxH products per valid edge
-        work = bound(tensor_bytes(*args, *out),
-                     2 * args[-1].sum().item() * 6 * H * H, dtype)
-        row = dict(B=b, E=e, F=f, dtype=name, **stats, **work, ms=ms,
-                   plain_ms=plain_ms,
-                   smem_per_cta=tail_smem("egnn_tail_bwd", dtype))
-        print("kernel B2:", json.dumps(row), flush=True)
-        rows.append(row)
-        del args, out, ref, again
+    for b, e, f, _, dtype in TAIL_CASES:
+        rows.append(check_tail_case(
+            tail_inputs(e, f, dtype, seed=e + f + 1, b=b), "bench", f))
     return rows
 
 
@@ -1377,7 +1440,7 @@ def check_entry_point(tmp: str) -> tuple:
     row = dict(save_dir=save_dir, infer_args=[
                    "--graph-dir-IEDB", graph_dir, "--property-path-IEDB",
                    props, "--hla-path", hla],
-               samples=CLI_SAMPLES, N=stages[0]["N"], E=stages[0]["E"],
+               corpus=[graph_dir, props, hla], samples=CLI_SAMPLES, N=stages[0]["N"], E=stages[0]["E"],
                edges_per_graph=stages[0]["edges_per_graph"],
                corpus_s=corpus_s, wall_s=wall_s,
                launches=counts, launches_by_stage={
@@ -1734,12 +1797,14 @@ def check_pallas_training(mega_rows) -> tuple:
     return rows, counts
 
 
-def check_cancer_entry_point(tmp: str) -> tuple:
+def check_cancer_entry_point(tmp: str, clinical: tuple) -> tuple:
     """The fourth slice's main path: the train_Cancer_wFT entry point at
-    full width under --aggregation pallas --skip-clinical, on a synthetic IEDB
-    corpus and cancer/WT pairs sharing its HLA table. Returns its row and
-    B8's operands, the first call of each (kernel, shape, dtype)."""
+    full width under --aggregation pallas, on a synthetic IEDB corpus and
+    cancer/WT pairs sharing its HLA table, with the clinical survival
+    validation on the clinical cohort. Returns its row and B8's operands,
+    the first call of each (kernel, shape, dtype)."""
     from immunostruct_tpu_torch.cli import train_Cancer_wFT as cli
+    from immunostruct_tpu_torch.procedures import infer
     from immunostruct_tpu_torch.data.synthetic import (
         synthetic_comparative_corpus, synthetic_corpus,
     )
@@ -1798,8 +1863,19 @@ def check_cancer_entry_point(tmp: str) -> tuple:
         keep("gather", args)
         return real_gather(*args)
 
+    # the clinical pass inside the test split's inference
+    real_clinical, clinical_pass = infer.inference_clinical_only, []
+
+    def inference_clinical_only(*args, **kw):
+        before = read_counts()
+        out = real_clinical(*args, **kw)
+        clinical_pass.append([a - z for a, z in zip(read_counts(), before)])
+        return out
+
     cli.train_model, cli.inference = train_model, inference
     segment._scatter_launch, segment._gather_launch = scatter, gather
+    infer.inference_clinical_only = inference_clinical_only
+    graph_clin, seq_clin, table_clin = clinical
     try:
         reset_counts()                  # every count to 0: the entry point
         t0 = time.perf_counter()
@@ -1808,12 +1884,16 @@ def check_cancer_entry_point(tmp: str) -> tuple:
             "--sequence-loss", "--aggregation", "pallas",
             "--compute-dtype", "bfloat16", "--batch-size", str(B),
             "--num-epochs", str(CLI_EPOCHS), "--coeff-contrastive", "0.1",
-            "--skip-clinical", "--device", "cuda", "--seed", "1",
+            "--device", "cuda", "--seed", "1",
             "--model-save-dir", save_dir,
             "--graph-dir-IEDB", graph_iedb, "--property-path-IEDB",
             props_iedb, "--hla-path", hla, "--graph-dir-cancer", dir_c,
             "--graph-dir-wildtype", dir_w, "--property-path-cancer", props_c,
-            "--property-path-wildtype", props_w])
+            "--property-path-wildtype", props_w,
+            "--graph-dir-clinical", graph_clin,
+            "--seq-path-clinical", seq_clin,
+            "--clinical-table-path", table_clin,
+            "--figure-save-dir", os.path.join(tmp, "cancer_figures")])
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         counts = read_counts()          # read just after the entry point
@@ -1821,6 +1901,7 @@ def check_cancer_entry_point(tmp: str) -> tuple:
         cli.train_model, cli.inference = real_train, real_infer
         segment._scatter_launch, segment._gather_launch = (real_scatter,
                                                            real_gather)
+        infer.inference_clinical_only = real_clinical
 
     assert [(s["stage"], s["comparative"], s["resume_tag"]) for s in stages] \
         == [("pretrain", False, "stage1"), ("pretrain", True, "stage2"),
@@ -1838,8 +1919,16 @@ def check_cancer_entry_point(tmp: str) -> tuple:
     for launched in inferences:
         assert launched[4] > 0 and launched.count(0) == 10, launched
     assert counts[:4] == (0, 0, 0, 0) and counts[6:] == (0,) * 5, counts
-    for stats in (train_stats, test_stats):
-        assert len(stats) == METRIC_KEYS, sorted(stats)
+    # the clinical pass: the plain forward under 'pallas', B8's scatter
+    # alone (no gradient, so no gather)
+    assert len(clinical_pass) == 1, clinical_pass
+    assert clinical_pass[0][4] > 0 and sum(clinical_pass[0]) == \
+        clinical_pass[0][4], clinical_pass
+    assert len(train_stats) == METRIC_KEYS, sorted(train_stats)
+    assert sorted(set(test_stats) - set(train_stats)) == [
+        "os_p_value", "pfs_p_value"] and len(test_stats) == METRIC_KEYS + 2
+    assert all(0.0 <= test_stats[k] <= 1.0
+               for k in ("os_p_value", "pfs_p_value")), test_stats
     assert test_stats["optimal_threshold"] == \
         train_stats["optimal_threshold"]
     ckpts = sorted(f for f in os.listdir(save_dir) if f.endswith(".ckpt"))
@@ -1874,6 +1963,9 @@ def check_cancer_entry_point(tmp: str) -> tuple:
                corpus_s=corpus_s, wall_s=wall_s, launches=counts,
                launches_by_stage=[s["launches"] for s in stages],
                launches_inference=inferences,
+               launches_clinical=clinical_pass[0],
+               os_p_value=test_stats["os_p_value"],
+               pfs_p_value=test_stats["pfs_p_value"],
                b8_shapes=sorted([k[0], *k[1:4]] for k in operands),
                epochs=epochs, train_roc_auc=train_stats["roc_auc"],
                test_roc_auc=test_stats["roc_auc"],
@@ -2262,7 +2354,7 @@ def check_variant_first_steps() -> list:
 
 
 def check_race() -> tuple:
-    """This slice's main path: cli.race_kernel_variants in-process at B=128,
+    """The fifth slice's main path: cli.race_kernel_variants in-process at B=128,
     E=2560 and 1408, --paired-batch, all six variants. Each variant's
     launches per step are the ones VARIANT_LAUNCHES names, and its loss
     falls."""
@@ -2610,8 +2702,399 @@ def check_batch_inference(entry: dict, cancer: dict, tmp: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the twelfth slice: PDBs -> featurized corpus -> curriculum -> clinical
+# --------------------------------------------------------------------------
+
+class ClinicalCorpus:
+    """synthetic_clinical_corpus built by a process of its own, started
+    (``start``) after the kernel phases, whose timings its host work would
+    disturb, so that it overlaps the serving and training phases."""
+
+    def __init__(self, root: str):
+        self.root = root
+        self.proc = None
+        self.build_s = None
+
+    def start(self) -> None:
+        code = ("import sys, time; sys.path.insert(0, sys.argv[1]); "
+                "from immunostruct_tpu_torch.data.synthetic import "
+                "synthetic_clinical_corpus as make; t0 = time.perf_counter(); "
+                "make(sys.argv[2], num_rows=int(sys.argv[3]), "
+                "num_patients=int(sys.argv[4]), hla_len=275, seed=5); "
+                "print(time.perf_counter() - t0)")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", code, ROOT, self.root, str(CLINICAL_ROWS),
+             str(CLINICAL_PATIENTS)], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+
+    def paths(self) -> tuple:
+        """(graph_dir, seq_path, clin_path), once the corpus is written."""
+        if self.build_s is None:
+            out, err = self.proc.communicate()
+            assert self.proc.returncode == 0, err
+            self.build_s = float(out.split()[-1])
+            print(f"clinical corpus: {CLINICAL_ROWS} rows, "
+                  f"{CLINICAL_PATIENTS} patients, built in "
+                  f"{self.build_s:.1f} s (in the background)", flush=True)
+        return (os.path.join(self.root, "graph_pyg_Clinical"),
+                os.path.join(self.root, "clinical_seq.tsv"),
+                os.path.join(self.root, "clinical_outcomes.tsv"))
+
+    def stop(self) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+
+
+def _captured(fn, argv) -> tuple:
+    """fn(argv)'s result and its printed lines, which are printed too."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(argv)
+    print(buf.getvalue(), end="", flush=True)
+    return result, buf.getvalue().splitlines()
+
+
+def check_featurize(tmp: str, entry: dict) -> dict:
+    """Phase 22: the IEDB corpus of phase 19 written back as CA PDBs (one a
+    graph, named by its join key; HLA chain A 1-275, the peptide chain C
+    after it; helix CAs) and one broken file, featurized by cli.featurize on
+    the native library built from native/featurizer.cc and on the numpy
+    path: the same graphs bit for bit, the broken file in each
+    error_log.txt; then cli.validate_data joins every table row."""
+    from immunostruct_tpu_torch.cli import featurize, validate_data
+    from immunostruct_tpu_torch.data.synthetic import write_corpus_pdbs
+    from immunostruct_tpu_torch.featurize import native
+
+    graph_dir, props, hla = entry["corpus"]
+    pdb_dir = os.path.join(tmp, "pdb")
+    t0 = time.perf_counter()
+    paths = write_corpus_pdbs(graph_dir, pdb_dir, hla_len=275)
+    with open(os.path.join(pdb_dir, "brokenImmunoZ.pdb"), "w") as fh:
+        fh.write("ATOM      1  CA  GLY A  ab     0.000   0.000   0.000\n")
+    write_s = time.perf_counter() - t0
+    assert len(paths) == CLI_SAMPLES
+    t0 = time.perf_counter()
+    native.build()                      # the host's C++ compiler
+    build_s = time.perf_counter() - t0
+
+    row = dict(structures=len(paths), write_pdbs_s=write_s,
+               native_build_s=build_s)
+    outs = {}
+    for label, extra in (("native", []), ("numpy", ["--no-native"])):
+        outs[label] = os.path.join(tmp, f"featurized_{label}")
+        t0 = time.perf_counter()
+        written, lines = _captured(featurize.main, [
+            "--alphafold-folder", pdb_dir, "--save-folder", outs[label],
+            *extra])
+        wall_s = time.perf_counter() - t0
+        assert len(written) == CLI_SAMPLES, len(written)
+        assert lines[-1].startswith(f"featurized {CLI_SAMPLES} structures")
+        assert lines[-1].endswith(f"native={label == 'native'})"), lines[-1]
+        with open(os.path.join(outs[label], "error_log.txt")) as fh:
+            log = fh.read().splitlines()
+        assert len(log) == 1 and "brokenImmunoZ" in log[0], log
+        row[label] = dict(wall_s=wall_s,
+                          structures_per_s=CLI_SAMPLES / wall_s,
+                          printed=lines[-1])
+    files = sorted(f for f in os.listdir(outs["native"]) if f.endswith(".npz"))
+    assert files == sorted(f for f in os.listdir(outs["numpy"])
+                           if f.endswith(".npz")) and len(files) == CLI_SAMPLES
+    nodes, arcs = [], []
+    for f in files:
+        with np.load(os.path.join(outs["native"], f)) as a, \
+                np.load(os.path.join(outs["numpy"], f)) as b:
+            assert str(a["name"]) == str(b["name"]), f
+            for k in ("x", "coords", "edge_index"):
+                assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), \
+                    (f, k)
+            nodes.append(a["x"].shape[0])
+            arcs.append(a["edge_index"].shape[1])
+    rc, lines = _captured(validate_data.main, [
+        "--graph-dir", outs["native"], "--property-path", props,
+        "--hla-path", hla])
+    assert rc == 0
+    assert any(f"join coverage: {CLI_SAMPLES}/{CLI_SAMPLES} table rows have "
+               "a graph (100.0%)" in line for line in lines), lines
+    row.update(graph_dir=outs["native"], nodes=[min(nodes), max(nodes)],
+               arcs=[min(arcs), max(arcs)])
+    print("featurize:", json.dumps(row), flush=True)
+    return row
+
+
+CURRICULUM_STAGES = ("PropIEDB", "ImmunoIEDB", "PropCancer", "ImmunoCancer")
+
+
+def check_curriculum(tmp: str, featurized: dict, entry: dict,
+                     cancer: dict) -> dict:
+    """Phase 23: cli.train_curriculum, the four comparative stages under
+    --aggregation mega at full width, bf16, batch 128, 2 epochs a stage,
+    the IEDB stages on phase 22's featurized graphs and the cancer/WT
+    stages on phase 21's pairs (the last stage cycled to 64 batches an
+    epoch). Returns its row and the operands of B1, B2 and B8's scatter,
+    the first call of each (kernel, shape, dtype)."""
+    from immunostruct_tpu_torch.cli import train_curriculum as cli
+    from immunostruct_tpu_torch.models import build_model
+    from immunostruct_tpu_torch.ops import mega, segment
+    from immunostruct_tpu_torch.utils.checkpoint import load_checkpoint
+
+    _, props, hla = entry["corpus"]
+    save_dir = os.path.join(tmp, "curriculum_ckpt")
+    stages, inferences = [], []
+    real_train, real_infer = cli.train_model, cli.inference
+
+    def train_model(config, model, train_pipe, *args, **kw):
+        before = read_counts()
+        model, history = real_train(config, model, train_pipe, *args, **kw)
+        graphs = train_pipe.ds.graphs
+        stages.append(dict(stage=kw["stage"], resume_tag=kw["resume_tag"],
+                           comparative=hasattr(train_pipe, "wt"),
+                           steps_per_epoch=len(train_pipe), history=history,
+                           launches=[a - z for a, z in zip(read_counts(),
+                                                           before)],
+                           N=graphs.max_nodes, E=graphs.max_edges))
+        return model, history
+
+    def inference(*args, **kw):
+        before = read_counts()
+        stats = real_infer(*args, **kw)
+        inferences.append([a - z for a, z in zip(read_counts(), before)])
+        return stats
+
+    # the helpers that check the operands of B1 (_fwd_operands), B2
+    # (_tail_checks) and B8's scatter (_scatter_launch) keep copies of the
+    # first operands of each shape; the wrappers that call them count the
+    # launches as before
+    operands = {}
+    real_fwd, real_tail = mega._fwd_operands, mega._tail_checks
+    real_scatter = segment._scatter_launch
+
+    def keep(key, args):
+        if key not in operands:
+            with torch.inference_mode(False):
+                operands[key] = tuple(
+                    t.detach().clone() if torch.is_tensor(t) else t
+                    for t in args)
+
+    def fwd_operands(name, args, residuals):
+        if name == "edge_mega":
+            keep(("B1", *args[4].shape, args[0].shape[1], args[4].dtype),
+                 args)
+        return real_fwd(name, args, residuals)
+
+    def tail_checks(name, lib_fn, entry, ef, w2, wc1, small, a1, xd, valid,
+                    extra):
+        if name == "tail_bwd":
+            keep(("B2", *a1.shape, a1.dtype),
+                 (ef, w2, wc1, small, a1, xd, extra["d_both"][0], valid))
+        return real_tail(name, lib_fn, entry, ef, w2, wc1, small, a1, xd,
+                         valid, extra)
+
+    def scatter(*args):
+        keep(("scatter", *args[2].shape, args[2].dtype), args)
+        return real_scatter(*args)
+
+    cli.train_model, cli.inference = train_model, inference
+    mega._fwd_operands, mega._tail_checks = fwd_operands, tail_checks
+    segment._scatter_launch = scatter
+    try:
+        reset_counts()                  # every count to 0: the curriculum
+        t0 = time.perf_counter()
+        train_stats, test_stats = cli.main([
+            "--stages", ",".join(CURRICULUM_STAGES), "--comparative",
+            "--model", "HybridModelv2_Comparative", "--full-sequence",
+            "--sequence-loss", "--aggregation", "mega",
+            "--compute-dtype", "bfloat16", "--batch-size", str(B),
+            "--num-epochs", str(CLI_EPOCHS), "--coeff-contrastive", "0.1",
+            "--min-finetuning-batches", str(MIN_FINETUNING_BATCHES),
+            "--device", "cuda", "--seed", "1", "--model-save-dir", save_dir,
+            "--graph-dir-IEDB", featurized["graph_dir"],
+            "--property-path-IEDB", props, "--hla-path", hla,
+            *cancer["infer_args"][:8]])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = read_counts()          # read just after it
+    finally:
+        cli.train_model, cli.inference = real_train, real_infer
+        mega._fwd_operands, mega._tail_checks = real_fwd, real_tail
+        segment._scatter_launch = real_scatter
+
+    assert [(s["stage"], s["comparative"], s["resume_tag"]) for s in stages] \
+        == [("pretrain", False, "stage1"), ("pretrain", False, "stage2"),
+            ("pretrain", True, "stage3"), ("finetune", True, "stage4")], stages
+    assert stages[3]["steps_per_epoch"] == MIN_FINETUNING_BATCHES, stages[3]
+    for s in stages:
+        h = s["history"]
+        assert len(h["train_loss"]) == CLI_EPOCHS, h
+        assert all(v == v and abs(v) < float("inf")
+                   for v in h["train_loss"] + h["val_loss"]), h
+        b1, b2, b8s = s["launches"][0], s["launches"][1], s["launches"][4]
+        steps = s["steps_per_epoch"] * CLI_EPOCHS
+        twins = 2 if s["comparative"] else 1
+        # a train step: B2 once a layer a twin, B8's scatter twice (the
+        # node sums of the backward), B1 once a layer a twin (and in every
+        # validation forward)
+        assert b2 == 6 * twins * steps and b8s == 2 * b2, s
+        assert b1 >= b2 and b1 % 6 == 0, s
+        assert sum(s["launches"]) == b1 + b2 + b8s, s
+    assert len(inferences) == 2, inferences
+    for launched in inferences:
+        assert launched[0] > 0 and sum(launched) == launched[0], launched
+    assert sum(counts) == counts[0] + counts[1] + counts[4], counts
+    for stats in (train_stats, test_stats):
+        assert len(stats) == METRIC_KEYS, sorted(stats)
+    assert test_stats["optimal_threshold"] == \
+        train_stats["optimal_threshold"]
+    ckpts = sorted(f for f in os.listdir(save_dir) if f.endswith(".ckpt"))
+    assert [c.rsplit("_", 1)[1] for c in ckpts] == ["finetune.ckpt",
+                                                     "pretrain.ckpt"], ckpts
+    for c in ckpts:
+        path = os.path.join(save_dir, c)
+        with np.load(path) as z:
+            vae_dim = z["['vae']['fc1']['w']"].shape[0]
+        _, fresh = build_model("HybridModelv2_Comparative", vae_dim,
+                               torch.Generator().manual_seed(0),
+                               use_wt_for_downstream=False, device="cuda")
+        load_checkpoint(path, fresh, verbose=False)
+    epochs = []
+    for name, s in zip(CURRICULUM_STAGES, stages):
+        h = s["history"]
+        per = 2 if s["comparative"] else 1      # pMHCs per sample (twins)
+        for i, (dt, n) in enumerate(zip(h["epoch_time"],
+                                        h["train_samples"])):
+            epochs.append(dict(stage=name, epoch=i + 1, epoch_s=dt,
+                               steps=s["steps_per_epoch"], train_samples=n,
+                               pmhc_per_s=per * n / dt,
+                               train_loss=h["train_loss"][i],
+                               val_loss=h["val_loss"][i]))
+    row = dict(save_dir=save_dir,
+               finetune=os.path.join(save_dir, ckpts[0]), wall_s=wall_s,
+               N_E_by_stage=[[s["N"], s["E"]] for s in stages],
+               launches=counts,
+               launches_by_stage=[s["launches"] for s in stages],
+               launches_inference=inferences, epochs=epochs,
+               train_roc_auc=train_stats["roc_auc"],
+               test_roc_auc=test_stats["roc_auc"],
+               threshold=train_stats["optimal_threshold"],
+               kernel_shapes=sorted([k[0], *k[1:-1]] for k in operands))
+    print("curriculum:", json.dumps(row), flush=True)
+    return row, operands
+
+
+def check_curriculum_kernels(operands: dict) -> tuple:
+    """B1, B2 and B8's scatter against their plain versions on the operands
+    the curriculum gave them, the first call of each (kernel, shape,
+    dtype): B1 as in phase 4 and B2 as in phase 5, each as the curriculum
+    ran it (bf16) and cast to f32; the scatter as in phase 9. Returns
+    (B1 rows, B2 rows, scatter rows)."""
+    fwd, tail, scatter = [], [], []
+    for key in sorted(operands, key=str):
+        kind, args = key[0], operands[key]
+        if kind == "scatter":
+            scatter.append(check_scatter_case(*args, "curriculum"))
+            continue
+        # the tensors in the compute dtype: B1's ef, h, x; B2's ef, a1, xd,
+        # d_both (the packed weights and the masks stay as they are)
+        cast_at = (3, 4, 5) if kind == "B1" else (0, 4, 5, 6)
+        for dtype in (torch.float32, torch.bfloat16):
+            cast = tuple(t.to(dtype) if i in cast_at else t
+                         for i, t in enumerate(args))
+            if kind == "B1":
+                fwd.append(check_fwd_case(cast, "curriculum"))
+            else:
+                tail.append(check_tail_case(cast, "curriculum"))
+    assert fwd and tail and scatter, sorted(operands, key=str)
+    return fwd, tail, scatter
+
+
+def check_clinical(tmp: str, clinical: tuple, curriculum: dict) -> dict:
+    """Phase 24: cli.infer_clinical_only on phase 23's finetune checkpoint
+    under --aggregation mega (twice) and scatter, bf16, batch 128, on the
+    clinical cohort: 6 B1 launches a batch under 'mega' and no other, the
+    same bits twice, the valid rows within PROB_ATOL of 'scatter', the
+    invalid rows NaN and out of the loads, the p-values in [0, 1] and
+    clinical_pvalues' of the card's probabilities."""
+    from immunostruct_tpu_torch.cli import infer_clinical_only as cli
+    from immunostruct_tpu_torch.data.tables import read_rows
+    from immunostruct_tpu_torch.procedures import clinical as survival
+
+    graph_dir, seq_path, clin_path = clinical
+    real_score = cli.inference_clinical_only
+    scoring = []
+
+    def inference_clinical_only(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_score(*args, **kw)
+        torch.cuda.synchronize()
+        scoring.append(time.perf_counter() - t0)
+        return out
+
+    runs = {}
+    cli.inference_clinical_only = inference_clinical_only
+    try:
+        for label, aggregation in (("mega", "mega"), ("mega again", "mega"),
+                                   ("scatter", "scatter")):
+            reset_counts()              # every count to 0: scoring starts
+            t0 = time.perf_counter()
+            out = cli.main([
+                "--checkpoint", curriculum["finetune"], "--full-sequence",
+                "--aggregation", aggregation, "--compute-dtype", "bfloat16",
+                "--batch-size", str(B), "--device", "cuda", "--seed", "1",
+                "--graph-dir-clinical", graph_dir,
+                "--seq-path-clinical", seq_path,
+                "--clinical-table-path", clin_path,
+                "--figure-save-dir", os.path.join(tmp, "figures")])
+            torch.cuda.synchronize()
+            runs[label] = dict(out=out, wall_s=time.perf_counter() - t0,
+                               scoring_s=scoring[-1], counts=read_counts())
+    finally:
+        cli.inference_clinical_only = real_score
+
+    mega_run, again, plain = (runs[k] for k in ("mega", "mega again",
+                                                "scatter"))
+    probs = mega_run["out"]["predicted_probs"]
+    valid = ~np.isnan(plain["out"]["predicted_probs"])
+    batches = -(-CLINICAL_ROWS // B)
+    assert len(probs) == CLINICAL_ROWS and 0 < valid.sum() < CLINICAL_ROWS
+    for run in (mega_run, again):
+        assert run["counts"] == (6 * batches,) + (0,) * 10, run["counts"]
+    assert plain["counts"] == (0,) * 11, plain["counts"]
+    assert np.array_equal(np.isnan(probs), ~valid)
+    assert np.array_equal(probs, again["out"]["predicted_probs"],
+                          equal_nan=True)
+    err = float(np.abs(probs[valid]
+                       - plain["out"]["predicted_probs"][valid]).max())
+    assert err <= PROB_ATOL, err
+    seq_rows, clin_rows = read_rows(seq_path), read_rows(clin_path)
+    loads = survival.patient_loads(probs, seq_rows)
+    assert len(loads) == CLINICAL_PATIENTS and all(
+        np.isfinite(v) for v in loads.values())
+    os_p, pfs_p = (mega_run["out"]["os_p_value"],
+                   mega_run["out"]["pfs_p_value"])
+    assert 0.0 <= os_p <= 1.0 and 0.0 <= pfs_p <= 1.0
+    assert survival.clinical_pvalues(probs, seq_rows, clin_rows) == \
+        (os_p, pfs_p)
+    assert (again["out"]["os_p_value"], again["out"]["pfs_p_value"]) == \
+        (os_p, pfs_p)
+    row = dict(rows=CLINICAL_ROWS, valid_rows=int(valid.sum()),
+               patients=CLINICAL_PATIENTS, batches=batches,
+               launches_mega=mega_run["counts"],
+               max_abs_prob_diff_vs_scatter=err, os_p_value=os_p,
+               pfs_p_value=pfs_p,
+               os_p_value_scatter=plain["out"]["os_p_value"],
+               pfs_p_value_scatter=plain["out"]["pfs_p_value"],
+               wall_s={k: r["wall_s"] for k, r in runs.items()},
+               scoring_s={k: r["scoring_s"] for k, r in runs.items()},
+               rows_per_s={k: CLINICAL_ROWS / r["scoring_s"]
+                           for k, r in runs.items()})
+    print("clinical:", json.dumps(row), flush=True)
+    return row
+
+
 def check_paired_no_sync(scorer) -> dict:
-    """Phase 24's 'paired' forward and one 'paired' train step under
+    """Phase 27's 'paired' forward and one 'paired' train step under
     torch.cuda.set_sync_debug_mode('error'): neither waits for the
     device."""
     from immunostruct_tpu_torch.data.synthetic import build_batch
@@ -2773,16 +3256,27 @@ def main() -> int:
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from immunostruct_tpu_torch.ops import (
-        _build, edge, fused_layer, mega, segment, stack,
-    )
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(f"card: {card}  (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} device(s))", flush=True)
+    # the clinical cohort (phases 21 and 24) is written by a process of its
+    # own while the serving and training phases run
+    clinical_root = tempfile.mkdtemp(prefix="clinical_")
+    clinical = ClinicalCorpus(clinical_root)
+    try:
+        return run_phases(card, clinical)
+    finally:
+        clinical.stop()
+        shutil.rmtree(clinical_root, ignore_errors=True)
+
+
+def run_phases(card: str, clinical: ClinicalCorpus) -> int:
+    from immunostruct_tpu_torch.ops import (
+        _build, edge, fused_layer, mega, segment, stack,
+    )
 
     t0 = time.perf_counter()
     _build.build()                      # one nvcc per source, in parallel
@@ -2809,6 +3303,7 @@ def main() -> int:
     nodes_rows = check_tail_nodes_kernel()
     stack_rows = check_stack_kernel()
     b7_rows = check_b7_kernel()
+    clinical.start()
     scorer = full_width_scorer()
     with tempfile.TemporaryDirectory() as tmp:
         requests = write_requests(tmp)
@@ -2823,9 +3318,18 @@ def main() -> int:
         entry, entry_operands = check_entry_point(tmp)
         edge_rows += check_entry_edge_kernels(entry_operands)
         pallas_rows, pallas_counts = check_pallas_training(train_rows)
-        cancer, cancer_operands = check_cancer_entry_point(tmp)
+        cancer, cancer_operands = check_cancer_entry_point(
+            tmp, clinical.paths())
         segment_rows += check_entry_segment_kernels(cancer_operands)
         inference_rows = check_batch_inference(entry, cancer, tmp)
+        featurized = check_featurize(tmp, entry)
+        curriculum, curriculum_operands = check_curriculum(
+            tmp, featurized, entry, cancer)
+        b1_b2_b8 = check_curriculum_kernels(curriculum_operands)
+        fwd_rows += b1_b2_b8[0]
+        tail_rows += b1_b2_b8[1]
+        segment_rows += b1_b2_b8[2]
+        clinical_row = check_clinical(tmp, clinical.paths(), curriculum)
         variant_firsts = check_variant_first_steps()
         race_rows, race_counts = check_race()
         variant_served = check_variant_serving(scorer)
@@ -2836,6 +3340,7 @@ def main() -> int:
     def pick(rows, **want):
         return next(r for r in rows if r["E"] == 2560 and r["F"] == 64
                     and r["dtype"] == "bfloat16" and r.get("B", B) == B
+                    and r.get("shapes", "bench") == "bench"
                     and all(r[k] == v for k, v in want.items()))
 
     for r, r7 in zip(served, b7_served):
@@ -2890,6 +3395,20 @@ def main() -> int:
               f"N={cancer['N']}, {ep['stage']} epoch {ep['epoch']} "
               f"({ep['steps']} steps): {ep['epoch_s']:.3f} s, "
               f"{ep['pmhc_per_s']:.0f} pMHC/s")
+    for label in ("native", "numpy"):
+        f = featurized[label]
+        print(f"feature [{card}]: featurize {label} (host CPU): "
+              f"{featurized['structures']} structures in {f['wall_s']:.3f} s,"
+              f" {f['structures_per_s']:.1f} structures/s")
+    for ep in curriculum["epochs"]:
+        print(f"entry   [{card}]: train_curriculum --aggregation mega, "
+              f"{ep['stage']} epoch {ep['epoch']} ({ep['steps']} steps): "
+              f"{ep['epoch_s']:.3f} s, {ep['pmhc_per_s']:.0f} pMHC/s")
+    for label, rate in clinical_row["rows_per_s"].items():
+        print(f"clinic  [{card}]: infer_clinical_only {label}: "
+              f"{CLINICAL_ROWS} rows scored in "
+              f"{clinical_row['scoring_s'][label]:.3f} s, {rate:.0f} rows/s "
+              f"(entry point {clinical_row['wall_s'][label]:.3f} s)")
     for r in segment_rows:
         print(f"kernel  [{card}]: B8 {r['kernel']} ({r['shapes']}) B={r['B']} "
               f"E={r['E']} N={r['N']} C={r['C']} {r['dtype']}: kernel "
@@ -2938,8 +3457,10 @@ def main() -> int:
                 bare += f", {r['ctas_per_sm']} CTAs an SM"
             if "device_ms" in r:
                 bare += f", device {r['device_ms']:.4f} ms"
-            print(f"kernel  [{card}]: {label} B={r.get('B', B)} E={r['E']} "
-                  f"F={r['F']} "
+            where = "" if kind == "B3" else f" ({r['shapes']})"
+            nodes = f" N={r['N']}" if "N" in r else ""
+            print(f"kernel  [{card}]: {label}{where} B={r.get('B', B)}{nodes}"
+                  f" E={r['E']} F={r['F']} "
                   f"{r['dtype']}: kernel {r['ms']:.4f} ms, plain "
                   f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']}){bare}")
@@ -2948,7 +3469,9 @@ def main() -> int:
                     train=train_counts,
                     comparative=comp_counts, train_fused=fused_counts,
                     entry_point=entry["launches"], train_pallas=pallas_counts,
-                    entry_point_cancer=cancer["launches"], race=race_counts)
+                    entry_point_cancer=cancer["launches"], race=race_counts,
+                    curriculum=curriculum["launches"],
+                    clinical=clinical_row["launches_mega"])
     b1, b2 = pick(fwd_rows), pick(tail_rows)
     b3f, b3b = pick(edge_rows, kernel="fwd"), pick(edge_rows, kernel="bwd")
     b8s, b8g = (next(r for r in segment_rows if r["kernel"] == kind

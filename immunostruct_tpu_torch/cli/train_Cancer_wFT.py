@@ -8,34 +8,41 @@ immunostruct/train_Cancer_wFT.py):
            the train split cycled up to ``min_finetuning_batches`` batches;
 
 each stage from the previous one's best checkpoint with a fresh head, then
-comparative inference on the train split (its threshold) and the test split.
+comparative inference on the train split (its threshold) and the test split,
+and the clinical survival validation: the clinical cohort scored with the
+finetuned model, the per-patient loads split at their median, OS/PFS
+log-rank p-values in the test split's stats (``--skip-clinical`` leaves it
+out). The clinical corpus is loaded before any stage, so a sequence-width
+mismatch fails before training.
 
 Usage:
   python -m immunostruct_tpu_torch.cli.train_Cancer_wFT \\
       --model HybridModelv2_Comparative --full-sequence --sequence-loss \\
-      --aggregation pallas --skip-clinical --graph-dir-IEDB ... \\
+      --aggregation pallas --graph-dir-IEDB ... \\
       --graph-dir-cancer ... --graph-dir-wildtype ... --property-path-IEDB ... \\
-      --property-path-cancer ... --property-path-wildtype ... --hla-path ...
+      --property-path-cancer ... --property-path-wildtype ... --hla-path ... \\
+      --graph-dir-clinical ... --seq-path-clinical ... \\
+      --clinical-table-path ... --figure-save-dir ...
 
-The clinical survival validation (``ClinicalDataset``, OS/PFS p-values) is
-not ported yet: without ``--skip-clinical`` the run stops before it reads
-any data. ``--device`` defaults to cuda; ``--device cpu`` runs the kernels'
-plain versions.
+``--device`` defaults to cuda; ``--device cpu`` runs the kernels' plain
+versions.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from immunostruct_tpu_torch.cli.common import (
     base_parser, check_seq_dims, to_config,
 )
 from immunostruct_tpu_torch.data.dataset import (
-    ComparativeDataset, ImmunoDataset, seeded_split,
+    ClinicalDataset, ComparativeDataset, ImmunoDataset, seeded_split,
 )
 from immunostruct_tpu_torch.data.pipeline import (
     BatchPipeline, ComparativePipeline,
 )
+from immunostruct_tpu_torch.data.tables import read_rows
 from immunostruct_tpu_torch.models import build_model, reset_head
 from immunostruct_tpu_torch.procedures.infer import inference
 from immunostruct_tpu_torch.procedures.train import derived_seed, train_model
@@ -67,13 +74,13 @@ def main(argv=None):
                    default="$ROOT/data/cedar_data_final_with_mprop1_mprop2_v2.txt", type=str)
     p.add_argument("--property-path-wildtype",
                    default="$ROOT/data/cedar_data_final_WILD_TYPE_with_mprop1_mprop2_v2.txt", type=str)
+    p.add_argument("--graph-dir-clinical", default="$ROOT/data/graph_pyg_Clinical/", type=str)
+    p.add_argument("--seq-path-clinical", default="$ROOT/data/hadrup_cancer_df_29K.txt", type=str)
+    p.add_argument("--clinical-table-path", default="$ROOT/data/All_samples_clinical.txt", type=str)
+    p.add_argument("--figure-save-dir", default="$ROOT/figures/run/", type=str)
     p.add_argument("--skip-clinical", action="store_true",
-                   help="skip the clinical survival validation (required: "
-                        "it is not ported yet)")
+                   help="skip the clinical survival validation")
     args = p.parse_args(argv)
-    if not args.skip_clinical:
-        raise ValueError("clinical validation is not ported yet "
-                         "(ROADMAP.md); pass --skip-clinical")
     config = to_config(args)
     config.derive_paths()
 
@@ -94,6 +101,10 @@ def main(argv=None):
         config, config.graph_dir_cancer, config.graph_dir_wildtype,
         config.property_path_cancer, config.property_path_wildtype,
         config.hla_path)
+    clinical_ds = None
+    if not args.skip_clinical:
+        clinical_ds = ClinicalDataset.load(config, config.graph_dir_clinical,
+                                           config.seq_path_clinical)
     tr1, va1, te1 = seeded_split(len(dataset_pt1), (0.8, 0.1, 0.1),
                                  config.seed)
     tr2, va2, te2 = seeded_split(len(dataset_pt2), (0.8, 0.1, 0.1),
@@ -103,7 +114,8 @@ def main(argv=None):
 
     vae_dim = (dataset_pt1.seq_full.shape[1] if full
                else dataset_pt1.seq_pep.shape[1]) * 21
-    check_seq_dims(vae_dim, full, IEDB=dataset_pt1, comparative=dataset_pt2)
+    check_seq_dims(vae_dim, full, IEDB=dataset_pt1, comparative=dataset_pt2,
+                   clinical=clinical_ds)
     device = torch.device(config.device)
     _, model = build_model(config.model, vae_dim, root_gen,
                            use_wt_for_downstream=config.use_wt_for_downstream,
@@ -185,12 +197,24 @@ def main(argv=None):
 
     load_checkpoint(config.model_save_path_finetune, model)
 
+    # -- evaluation, with the clinical survival validation ----------------------
+    clinical = None
+    if clinical_ds is not None:
+        clinical = {"pipe": BatchPipeline(
+                        clinical_ds, np.arange(len(clinical_ds)),
+                        split="infer", binary=True, full=full, config=config),
+                    "valid": clinical_ds.valid,
+                    "seq_rows": read_rows(config.seq_path_clinical),
+                    "clin_rows": read_rows(config.clinical_table_path)}
+
     # the threshold comes from an un-extended view of the train split (the
     # training pipe is oversampled through extend_to)
     thresh_pipe = mk2(tr2, "eval_train", True)
     train_stats = inference(config, model, thresh_pipe)
     test_stats = inference(config, model, test_pipe,
-                           optimal_threshold=train_stats["optimal_threshold"])
+                           optimal_threshold=train_stats["optimal_threshold"],
+                           clinical=clinical,
+                           fig_save_folder=config.fig_save_folder)
 
     logger.log(stats_to_wandb("Train", train_stats))
     logger.log(stats_to_wandb("Test", test_stats))

@@ -7,8 +7,10 @@ once ([G, N, ...]) and rows carry a graph index; foreignness is min-max
 normalized to [-1, 1] (immmunopred_dataloader.py:67-70). Comparative WT
 rows get label 0 and foreignness at the corpus minimum, -1.0 under the
 cancer side's normalization bounds (immmunopred_dataloader.py:182-183,
-:208-214). The clinical dataset belongs to an entry point that is not
-ported yet.
+:208-214). Clinical rows with a matching graph get the reference's
+placeholder props [0.4, 0.4]; rows without one get NaN props and a
+placeholder graph, and every clinical label is -1
+(infer_dataloader.py:216-233).
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ import torch
 from immunostruct_tpu_torch.data.encoding import one_hot_encode_batch
 from immunostruct_tpu_torch.data.graphs import GraphCorpus, load_graph_dir
 from immunostruct_tpu_torch.data.tables import (
-    expand_hla, parse_property_table, parse_property_tables_cancer_wt,
+    expand_hla, get_hash, parse_property_table,
+    parse_property_tables_cancer_wt, read_rows,
 )
 
 
@@ -106,17 +109,21 @@ class ImmunoDataset:
 
     @classmethod
     def load(cls, config, graph_directory: str, property_path: str,
-             hla_path: str, cancer: Optional[bool] = None) -> "ImmunoDataset":
+             hla_path: str, corpus: Optional[GraphCorpus] = None,
+             cancer: Optional[bool] = None) -> "ImmunoDataset":
         """The table's dialect: ``cancer``, or by default the reference's
         heuristic, the cancer dialect where the graph directory's path
-        holds 'Cancer'."""
+        holds 'Cancer'. ``corpus``: the directory's graphs, already
+        loaded."""
         if cancer is None:
             cancer = "Cancer" in graph_directory
+        corpus = corpus if corpus is not None else load_graph_dir(
+            graph_directory)
         f_dict, fp2_dict, imm_dict, pep_pairs = parse_property_table(
             property_path, cancer)
         name_mapper = expand_hla(pep_pairs, hla_path)
-        return cls.from_joined(config, load_graph_dir(graph_directory),
-                               name_mapper, f_dict, fp2_dict, imm_dict)
+        return cls.from_joined(config, corpus, name_mapper, f_dict,
+                               fp2_dict, imm_dict)
 
     @classmethod
     def from_joined(cls, config, corpus: GraphCorpus, name_mapper: dict,
@@ -241,3 +248,98 @@ class ComparativeDataset:
             norm_min = 2.0 * (wt_min - (hi + lo) / 2.0) / (hi - lo)
             wt_ds.foreign_norm = np.full_like(wt_ds.foreign_norm, norm_min)
         return cls(cancer=cancer_ds, wt=wt_ds)
+
+
+@dataclasses.dataclass
+class ClinicalDataset:
+    """Clinical scoring rows, one per row of the clinical sequence table and
+    in its order.
+
+    In the reference, rows without a matching graph carry NaN features, so
+    their predictions come out NaN and leave the per-patient load
+    (infer_dataloader.py:220-224; clinical_validation.py:196-197). Here the
+    pipeline reads the zero-filled ``props_filled`` (NaNs would poison the
+    forward) and the ``valid`` mask makes those rows' probabilities NaN
+    after the forward; ``props`` keeps the NaNs. ``immuno`` and
+    ``foreign_norm`` are the -1 placeholders (infer_dataloader.py:233)."""
+
+    seq_full: np.ndarray
+    seq_pep: np.ndarray
+    props: np.ndarray              # NaN on invalid rows
+    props_filled: np.ndarray       # the zero-filled copy the pipeline reads
+    graph_idx: np.ndarray
+    graphs: GraphArrays
+    valid: np.ndarray              # bool per row: had a real graph match
+    patients: list[str]
+    immuno: np.ndarray = None
+    foreign_norm: np.ndarray = None
+
+    def __post_init__(self):
+        if self.immuno is None:
+            self.immuno = np.full((len(self.graph_idx),), -1.0, np.float32)
+        if self.foreign_norm is None:
+            self.foreign_norm = np.full((len(self.graph_idx),), -1.0,
+                                        np.float32)
+
+    def __len__(self):
+        return len(self.graph_idx)
+
+    @classmethod
+    def load(cls, config, graph_directory: str, seq_path: str,
+             corpus: Optional[GraphCorpus] = None) -> "ClinicalDataset":
+        """Join the sequence table (tab-separated: patient, combo, mut_pep,
+        hla_seq) to the graphs: the name mapper comes from the table itself
+        (preprocess.py:302-313), a row's chain is hla_seq + mut_pep and its
+        join key ``chain[-99:] + '_' + sha1(chain)[:5]``. Raises ValueError
+        when no row matches a graph."""
+        corpus = corpus if corpus is not None else load_graph_dir(
+            graph_directory)
+        seq_rows = read_rows(seq_path)
+
+        name_mapper = {}
+        for r in seq_rows:
+            chain = r["hla_seq"] + r["mut_pep"]
+            name_mapper[r["combo"]] = (
+                chain, chain[-99:] + "_" + get_hash(chain)[:5], r["mut_pep"])
+
+        corpus_index = corpus.index()
+        valid_rows = {combo: v for combo, v in name_mapper.items()
+                      if v[1] in corpus_index}
+        if not valid_rows:
+            raise ValueError("no clinical rows matched a graph")
+
+        used_keys = sorted({v[1] for v in valid_rows.values()},
+                           key=lambda k: corpus_index[k])
+        key_to_new = {k: i for i, k in enumerate(used_keys)}
+        sub = corpus.subset([corpus_index[k] for k in used_keys])
+        graphs = GraphArrays(**sub.stack(
+            nodes_multiple=config.pad_nodes_multiple,
+            edges_multiple=config.pad_edges_multiple))
+
+        max_full = max(len(v[0]) for v in valid_rows.values())
+        max_pep = max(len(v[2]) for v in valid_rows.values())
+        placeholder_key = next(iter(valid_rows.values()))[1]
+
+        m = len(seq_rows)
+        seq_full = np.zeros((m, max_full, 21), np.float32)
+        seq_pep = np.zeros((m, max_pep, 21), np.float32)
+        props = np.full((m, 2), np.nan, np.float32)
+        graph_idx = np.full((m,), key_to_new[placeholder_key], np.int32)
+        row_combos = [r["combo"] for r in seq_rows]
+        valid = np.asarray([c in valid_rows for c in row_combos], bool)
+
+        # the matched rows encoded as one batch per modality
+        idx = np.nonzero(valid)[0]
+        matched = [valid_rows[row_combos[i]] for i in idx]
+        seq_full[idx] = one_hot_encode_batch([v[0] for v in matched],
+                                             max_full)
+        seq_pep[idx] = one_hot_encode_batch([v[2] for v in matched], max_pep)
+        props[idx] = [0.4, 0.4]     # placeholder props (infer_dataloader.py:216-217)
+        graph_idx[idx] = [key_to_new[v[1]] for v in matched]
+
+        props_filled = np.where(np.isnan(props), 0.0, props).astype(
+            np.float32)
+        return cls(seq_full=seq_full, seq_pep=seq_pep, props=props,
+                   props_filled=props_filled, graph_idx=graph_idx,
+                   graphs=graphs, valid=valid,
+                   patients=[r["patient"] for r in seq_rows])

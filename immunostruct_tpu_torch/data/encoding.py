@@ -13,6 +13,15 @@ import numpy as np
 AMINO_ACIDS = "ACDEFGHIKLMNPQRSTVWY"
 PADDING_CHAR = "J"
 ALPHABET = AMINO_ACIDS + PADDING_CHAR  # 21 channels
+RESIDUE_ONEHOT_INDEX = {c: i for i, c in enumerate(AMINO_ACIDS)}
+
+# 3-letter -> 1-letter residue codes (for the PDB featurizer)
+AA3_TO_1 = {
+    "ALA": "A", "CYS": "C", "ASP": "D", "GLU": "E", "PHE": "F",
+    "GLY": "G", "HIS": "H", "ILE": "I", "LYS": "K", "LEU": "L",
+    "MET": "M", "ASN": "N", "PRO": "P", "GLN": "Q", "ARG": "R",
+    "SER": "S", "THR": "T", "VAL": "V", "TRP": "W", "TYR": "Y",
+}
 
 
 def pad_sequence(sequence: str, max_length: int, padding_char: str = PADDING_CHAR) -> str:

@@ -10,7 +10,9 @@ Filtering parity (preprocess.py:29-42): drop graphs whose name contains
 'NXVPMVATV' or 'X'; dedup by join key keeping the first; cut the last 2 node
 feature columns (h-bond donor/acceptor), leaving the 20-dim one-hot.
 
-Not ported yet: legacy PyG ``.pt`` graphs (``convert_graphs``); they raise.
+Legacy PyG ``.pt`` graphs (the reference featurizer's ``torch.save`` of a
+``Data``) are read through ``convert_pt_graph``; a pickle that references
+``torch_geometric`` needs that package installed.
 ``GraphCorpus.stack(paired=True)`` lays the edges out mirror-paired for the
 paired mega kernel (B4, ``mega_variant='paired'``).
 """
@@ -134,23 +136,38 @@ class GraphCorpus:
         return out
 
 
+def convert_pt_graph(path: str):
+    """A legacy PyG ``.pt`` graph as (name, x, coords, edge_index), x still
+    carrying its 22 columns. The file is unpickled
+    (``torch.load(weights_only=False)``): read only files you trust."""
+    import torch
+
+    data = torch.load(path, map_location="cpu", weights_only=False)
+    return (
+        str(data.name),
+        np.asarray(data.x, np.float32),
+        np.asarray(data.coords, np.float32),
+        np.asarray(data.edge_index, np.int64).astype(np.int32),
+    )
+
+
 def load_graph_dir(directory: str, drop_hbond_cols: bool = True) -> GraphCorpus:
-    """Load every .npz graph in a directory with reference filtering."""
+    """Load every .npz and .pt graph in a directory, in file-name order,
+    with reference filtering."""
     files = sorted(f for f in os.listdir(directory)
                    if f.endswith((".npz", ".pt")))
     keys, feats, coords, edges = [], [], [], []
     seen = set()
     for fname in files:
+        path = os.path.join(directory, fname)
         if fname.endswith(".pt"):
-            raise ValueError(
-                f"{fname}: legacy PyG .pt graphs are not read by the PyTorch "
-                "port yet; convert them to .npz with the JAX package's "
-                "convert_graphs")
-        with np.load(os.path.join(directory, fname), allow_pickle=False) as z:
-            name = str(z["name"])
-            x = z["x"].astype(np.float32)
-            c = z["coords"].astype(np.float32)
-            ei = z["edge_index"].astype(np.int32)
+            name, x, c, ei = convert_pt_graph(path)
+        else:
+            with np.load(path, allow_pickle=False) as z:
+                name = str(z["name"])
+                x = z["x"].astype(np.float32)
+                c = z["coords"].astype(np.float32)
+                ei = z["edge_index"].astype(np.int32)
         # filtering parity: drop bad names, dedup by key keeping the first
         if "NXVPMVATV" in name or "X" in name:
             continue

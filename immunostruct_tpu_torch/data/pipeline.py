@@ -216,11 +216,13 @@ class BatchPipeline:
                                            self.config.sequence_pad_count)
         else:
             seq = self.ds.seq_pep[rows]
+        # a clinical dataset's props hold NaNs; its zero-filled copy runs
+        props = getattr(self.ds, "props_filled", self.ds.props)
         out = dict(
             node_feat=onehot, coords=coords, edge_src=g.edge_src[gi],
             edge_dst=g.edge_dst[gi], edge_mask=g.edge_mask[gi],
             node_mask=g.node_mask[gi], num_nodes=g.num_nodes[gi],
-            seq_onehot=seq, props=self.ds.props[rows],
+            seq_onehot=seq, props=props[rows],
             target=(self.ds.immuno[rows] if self.binary
                     else self.ds.foreign_norm[rows]))
         if self.ssl:

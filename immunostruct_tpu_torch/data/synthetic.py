@@ -1,14 +1,16 @@
 """Seeded synthetic inputs (counterpart of ``immunostruct_tpu/data/synthetic.py``
-``synthetic_corpus``/``synthetic_comparative_corpus``/``random_sample_batch``/
+``synthetic_corpus``/``synthetic_comparative_corpus``/
+``synthetic_clinical_corpus``/``random_sample_batch``/
 ``random_comparative_batch``, ``immunostruct_tpu/serving.py``
 ``write_example`` and ``scripts/perf_sweep.py`` ``build_batch``).
 
 The functions make the same ``np.random.default_rng`` calls in the same
 order as the JAX package, so one seed gives bit-identical arrays in both
-packages. ``synthetic_corpus`` writes its tables with the ``csv`` module in
-the layout pandas' ``to_csv`` gives them (header, shortest round-trip
-floats), so both packages' loaders read the same values from either's
-files.
+packages. The corpora write their tables with the ``csv`` module in the
+layout pandas' ``to_csv`` gives them (header, shortest round-trip floats),
+so for the same arguments both packages write the same files byte for
+byte. ``write_corpus_pdbs`` (no JAX counterpart) writes a corpus's graphs
+back as PDB files, the featurizer's input.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import os
 import numpy as np
 import torch
 
-from immunostruct_tpu_torch.data.encoding import AMINO_ACIDS
+from immunostruct_tpu_torch.data.encoding import AA3_TO_1, AMINO_ACIDS
 from immunostruct_tpu_torch.data.graphs import save_graph_npz
 from immunostruct_tpu_torch.data.tables import get_hash, read_rows
 from immunostruct_tpu_torch.structs import ComparativeBatch, SampleBatch
@@ -195,6 +197,88 @@ def synthetic_comparative_corpus(root: str, num_samples: int = 24,
     _write_table(props_c, rows_c, "\t")
     _write_table(props_w, rows_w, "\t")
     return dir_c, dir_w, props_c, props_w, hla_path
+
+
+def synthetic_clinical_corpus(root: str, num_rows: int = 40,
+                              num_patients: int = 8, hla_len: int = 48,
+                              match_rate: float = 0.8, seed: int = 3):
+    """Write a clinical cohort: the graph directory, the sequence table (one
+    pMHC a row: patient, combo, mut_pep, hla_seq) and the outcomes table
+    (one patient a row: Patient, RECIST, PFS/OS time and event, mut_load).
+
+    A matched row gets a graph whose join key derives from hla_seq +
+    mut_pep (the reference's clinical join, preprocess.py:302-313); the
+    rest have no graph and become NaN rows, the placeholder path. Patients
+    are ``mUC-<i>`` in the sequence table and ``BC-<i>`` in the outcomes
+    table (``convert_patient_code``). Returns (graph_dir, seq_path,
+    clin_path)."""
+    rng = np.random.default_rng(seed)
+    graph_dir = os.path.join(root, "graph_pyg_Clinical")
+    os.makedirs(graph_dir, exist_ok=True)
+    hla_seq = _random_seq(rng, hla_len)
+
+    rows = []
+    patients = [f"mUC-{i}" for i in range(num_patients)]
+    for i in range(num_rows):
+        pep = _random_seq(rng, int(rng.integers(8, 11)))
+        if rng.random() < match_rate:
+            chain = hla_seq + pep
+            key = chain[-99:] + "_" + get_hash(chain)[:5]
+            x, coords, ei = _make_graph(rng, chain)
+            save_graph_npz(os.path.join(graph_dir, f"c{i:04d}.npz"),
+                           name=f"synImmuno{key}", x=x, coords=coords,
+                           edge_index=ei)
+        rows.append({"patient": patients[i % num_patients],
+                     "combo": f"combo{i}", "mut_pep": pep, "hla_seq": hla_seq})
+
+    # the columns in the JAX package's draw order
+    pfs_time = rng.random(num_patients) * 20
+    os_time = rng.random(num_patients) * 30
+    pfs_event = rng.integers(0, 2, num_patients)
+    os_event = rng.integers(0, 2, num_patients)
+    mut_load = rng.integers(10, 2000, num_patients)
+    clin = [{"Patient": p.replace("mUC", "BC"), "RECIST": "PD",
+             "PFS.Time": float(pfs_time[j]), "OS.Time": float(os_time[j]),
+             "PFS.Event": int(pfs_event[j]), "OS.Event": int(os_event[j]),
+             "mut_load": int(mut_load[j])}
+            for j, p in enumerate(patients)]
+    seq_path = os.path.join(root, "clinical_seq.tsv")
+    clin_path = os.path.join(root, "clinical_outcomes.tsv")
+    _write_table(seq_path, rows, "\t")
+    _write_table(clin_path, clin, "\t")
+    return graph_dir, seq_path, clin_path
+
+
+def write_corpus_pdbs(graph_dir: str, pdb_dir: str, hla_len: int) -> list:
+    """Write one CA-only PDB per graph of a synthetic corpus (the graphs'
+    residues from their one-hot columns) into ``pdb_dir``; returns the
+    paths. Each file is named by its graph's name, so it carries the
+    Immuno join key and the featurized graph joins the corpus's table. Two
+    chains: the HLA's ``hla_len`` residues (chain A, numbered 1..hla_len),
+    then the peptide (chain C, numbered after them). The CAs lie on
+    tests/test_featurize.py's helix: (2 cos t, 2 sin t, 0.4 * 3.8 t)."""
+    res3 = {one: three for three, one in AA3_TO_1.items()}
+    os.makedirs(pdb_dir, exist_ok=True)
+    paths = []
+    for fname in sorted(f for f in os.listdir(graph_dir)
+                        if f.endswith(".npz")):
+        with np.load(os.path.join(graph_dir, fname)) as z:
+            name, x = str(z["name"]), z["x"]
+        n = x.shape[0]
+        t = np.arange(n)
+        coords = np.stack([np.cos(t) * 2, np.sin(t) * 2, t * 3.8 * 0.4],
+                          -1).astype(np.float32)
+        path = os.path.join(pdb_dir, name + ".pdb")
+        with open(path, "w") as f:
+            for i in range(n):
+                res = res3[AMINO_ACIDS[int(np.argmax(x[i, :20]))]]
+                chain = "A" if i < hla_len else "C"
+                f.write(f"ATOM  {i + 1:5d}  CA  {res} {chain}{i + 1:4d}    "
+                        f"{coords[i, 0]:8.3f}{coords[i, 1]:8.3f}"
+                        f"{coords[i, 2]:8.3f}  1.00  0.00           C\n")
+            f.write("END\n")
+        paths.append(path)
+    return paths
 
 
 def random_sample_arrays(batch: int, nodes: int, edges: int, seq_len: int,

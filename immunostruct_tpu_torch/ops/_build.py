@@ -13,6 +13,10 @@ compiler's report (registers, shared memory, spills per kernel) is printed
 to standard error on every build and kept beside the library (``.log``);
 ``ptxas_readings`` reads it per kernel. ``build`` starts one nvcc per
 missing library, all at once. Nothing here runs at import time.
+
+``keyed_library`` and ``compile_libraries`` are the naming and install rule
+every library of the package is built by (``featurize/native.py`` builds
+the host featurizer with them).
 """
 
 from __future__ import annotations
@@ -46,13 +50,48 @@ def _nvcc() -> str:
                        "CUDA toolkit to build")
 
 
+def keyed_library(build_dir: Path, stem: str, inputs, flags) -> Path:
+    """``build_dir/lib<stem>-<hash>.so``: the hash is of the bytes of
+    ``inputs`` (the source, then the headers it includes) and of ``flags``,
+    so an edit to any of them names a new library."""
+    text = b"".join(Path(p).read_bytes() for p in inputs)
+    digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
+    return build_dir / f"lib{stem}-{digest}.so"
+
+
+def compile_libraries(jobs) -> None:
+    """Run ``compiler *flags -o <tmp> source`` for each job (what, lib,
+    compiler, flags, source), all at once. Each library is written under a
+    name of this process's and renamed into place when its compiler
+    succeeds, with the compiler's report printed to standard error and kept
+    beside it (``.log``). Raises RuntimeError with each failed build's
+    command and output."""
+    procs = []
+    for what, lib, compiler, flags, source in jobs:
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [compiler, *flags, "-o", str(tmp), str(source)]
+        procs.append((what, lib, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for what, lib, tmp, cmd, proc in procs:
+        out, _ = proc.communicate()
+        print(out, file=sys.stderr, end="")
+        if proc.returncode != 0:
+            failed.append(f"building {what} failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{out}")
+        else:
+            lib.with_suffix(".log").write_text(out)
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def _lib_path(name: str) -> Path:
-    text = (CSRC / f"{name}.cu").read_bytes()
-    for header in sorted(CSRC.glob("*.cuh")):
-        text += header.read_bytes()
-    digest = hashlib.sha256(text
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return keyed_library(BUILD_DIR, name, [CSRC / f"{name}.cu",
+                                           *sorted(CSRC.glob("*.cuh"))],
+                         NVCC_FLAGS)
 
 
 def build(names=None) -> None:
@@ -63,27 +102,9 @@ def build(names=None) -> None:
     todo = [n for n in names if not _lib_path(n).exists()]
     if not todo:
         return
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    procs = []
-    for name in todo:
-        tmp = _lib_path(name).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    failed = []
-    for name, tmp, proc in procs:
-        out, _ = proc.communicate()
-        print(out, file=sys.stderr, end="")
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed ({proc.returncode}) building "
-                          f"{name}.cu:\n{out}")
-        else:
-            _lib_path(name).with_suffix(".log").write_text(out)
-            os.replace(tmp, _lib_path(name))
-    if failed:
-        raise RuntimeError("\n".join(failed))
+    compile_libraries([(f"{name}.cu", _lib_path(name), nvcc, NVCC_FLAGS,
+                        CSRC / f"{name}.cu") for name in todo])
 
 
 def ptxas_readings(name: str) -> dict:

@@ -1058,7 +1058,13 @@ def entry_operands():
     point gives B8 (chip_smoke.check_cancer_entry_point), once."""
     use(None)
     with tempfile.TemporaryDirectory() as tmp:
-        row, operands = cs.check_cancer_entry_point(tmp)
+        clinical = cs.ClinicalCorpus(str(Path(tmp) / "clinical"))
+        clinical.start()
+        try:
+            row, operands = cs.check_cancer_entry_point(tmp,
+                                                        clinical.paths())
+        finally:
+            clinical.stop()
     print("entry point:", json.dumps(dict(
         wall_s=row["wall_s"], b8_shapes=row["b8_shapes"])), flush=True)
     return operands

@@ -385,9 +385,3 @@ def test_train_Cancer_wFT_end_to_end(corpora, tmp_path, aggregation):
     assert stages == ["pretrain", "pretrain2", "finetune"]
     assert _counts() == before
 
-
-def test_train_Cancer_wFT_refuses_without_skip_clinical(corpora, tmp_path):
-    with pytest.raises(ValueError, match="clinical validation is not ported"):
-        train_Cancer_wFT.main(_cli_args(corpora, str(tmp_path / "ckpt"),
-                                        "pallas"))
-    assert not os.listdir(tmp_path)             # before any file is written

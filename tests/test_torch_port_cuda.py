@@ -159,6 +159,7 @@ import functools
 import json
 import re
 
+import numpy as np
 import pytest
 import torch
 
@@ -2337,3 +2338,155 @@ def test_fused_layer_cluster_reaches_more_than_one_sm(cuda):
     lib = fused_layer._lib()
     assert lib.egnn_layer_fwd_ctas_per_sm(N, 64, 1) == 1
     assert lib.egnn_layer_fwd_max_clusters(N, 64, k) >= 1
+
+
+# --------------------------------------------------------------------------
+# the twelfth slice's entry points: the curriculum under 'mega', the
+# clinical-only inference, the native featurizer
+# --------------------------------------------------------------------------
+
+def _launches():
+    from immunostruct_tpu_torch.cli.race_kernel_variants import read_counts
+    return read_counts()
+
+
+@pytest.mark.cuda
+def test_curriculum_launches_b1_b2_b8_on_the_card(cuda, tmp_path,
+                                                  monkeypatch):
+    """A two-stage curriculum (PropIEDB, ImmunoIEDB) under 'mega' at small
+    width (two EGNN layers at the kernel's H=64, a narrow VAE), bf16: per
+    train step B2 once a layer and B8's scatter twice a layer (the
+    backward's node sums), B1 at least once a layer; in inference B1 alone;
+    no other kernel."""
+    from immunostruct_tpu_torch.cli import train_curriculum
+    from immunostruct_tpu_torch.data.synthetic import synthetic_corpus
+
+    g, p, h = synthetic_corpus(str(tmp_path / "c"), num_samples=24,
+                               hla_len=20, seed=5)
+    real_build = train_curriculum.build_model
+    monkeypatch.setattr(train_curriculum, "build_model", functools.partial(
+        real_build, gcn_layers=1, vae_hidden_dim=32, vae_latent_dim=8))
+    stages, inferences = [], []
+    real_train, real_infer = (train_curriculum.train_model,
+                              train_curriculum.inference)
+
+    def train_model(config, model, train_pipe, *args, **kw):
+        before = _launches()
+        out = real_train(config, model, train_pipe, *args, **kw)
+        after = _launches()
+        stages.append(({k: after[k] - before[k] for k in after},
+                       len(train_pipe) * config.num_epochs))
+        return out
+
+    def inference(*args, **kw):
+        before = _launches()
+        out = real_infer(*args, **kw)
+        after = _launches()
+        inferences.append({k: after[k] - before[k] for k in after})
+        return out
+
+    monkeypatch.setattr(train_curriculum, "train_model", train_model)
+    monkeypatch.setattr(train_curriculum, "inference", inference)
+    train_stats, test_stats = train_curriculum.main([
+        "--stages", "PropIEDB,ImmunoIEDB", "--model", "HybridModelv2",
+        "--full-sequence", "--aggregation", "mega", "--compute-dtype",
+        "bfloat16", "--batch-size", "8", "--num-epochs", "2",
+        "--min-finetuning-batches", "4", "--seed", "1",
+        "--model-save-dir", str(tmp_path / "ckpt"), "--graph-dir-IEDB", g,
+        "--property-path-IEDB", p, "--hla-path", h])
+    assert len(train_stats) == len(test_stats) == 15
+    layers = 2
+    assert len(stages) == 2 and len(inferences) == 2
+    for counts, steps in stages:
+        assert counts["B2"] == layers * steps, counts
+        assert counts["B8_scatter"] == 2 * layers * steps, counts
+        assert counts["B1"] >= layers * steps and counts["B1"] % layers == 0
+        others = {k: v for k, v in counts.items()
+                  if k not in ("B1", "B2", "B8_scatter")}
+        assert not any(others.values()), counts
+    for counts in inferences:
+        assert counts["B1"] > 0 and counts["B1"] % layers == 0, counts
+        assert sum(counts.values()) == counts["B1"], counts
+
+
+def _small_clinical_checkpoint(path, vae_dim):
+    """Seeded small HybridModelv2_Comparative weights, the VAE's
+    log-variance head at -100: the VAE noise (drawn on each device by its
+    own generator) is multiplied by exp(-50)."""
+    from immunostruct_tpu_torch.utils.checkpoint import save_checkpoint
+
+    _, model = build_model("HybridModelv2_Comparative", vae_dim,
+                           torch.Generator().manual_seed(6),
+                           use_wt_for_downstream=False, gcn_layers=1,
+                           vae_hidden_dim=32, vae_latent_dim=8)
+    with torch.no_grad():
+        model.vae.fc22.w.zero_()
+        model.vae.fc22.b.fill_(-100.0)
+    save_checkpoint(path, model)
+
+
+@pytest.mark.cuda
+def test_infer_clinical_only_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """``cli.infer_clinical_only`` under 'mega' on the card against the same
+    checkpoint under 'scatter' on the CPU, f32 (TF32 off): the valid rows'
+    probabilities within 5e-4 (chip_smoke's PROB_ATOL), the invalid rows
+    NaN on both, the p-values equal; B1 alone launched, once a layer a
+    batch."""
+    from immunostruct_tpu_torch.cli import infer_clinical_only
+    from immunostruct_tpu_torch.data.synthetic import (
+        synthetic_clinical_corpus,
+    )
+
+    g, s, c = synthetic_clinical_corpus(str(tmp_path / "c"), num_rows=96,
+                                        num_patients=8, hla_len=20, seed=4)
+    ckpt = str(tmp_path / "m.ckpt")
+    _small_clinical_checkpoint(ckpt, 30 * 21)
+    common = ["--checkpoint", ckpt, "--full-sequence", "--compute-dtype",
+              "float32", "--batch-size", "16", "--seed", "1",
+              "--graph-dir-clinical", g, "--seq-path-clinical", s,
+              "--clinical-table-path", c, "--gcn-layers", "1",
+              "--vae-hidden-dim", "32", "--vae-latent-dim", "8",
+              "--figure-save-dir", str(tmp_path / "fig")]
+    cpu = infer_clinical_only.main(common + ["--device", "cpu",
+                                             "--aggregation", "scatter"])
+    before = _launches()
+    card = infer_clinical_only.main(common + ["--device", "cuda",
+                                              "--aggregation", "mega"])
+    after = _launches()
+    launched = {k: after[k] - before[k] for k in after}
+    assert launched["B1"] == 2 * 6 and sum(launched.values()) == 12, launched
+    a, b = card["predicted_probs"], cpu["predicted_probs"]
+    valid = ~np.isnan(b)
+    np.testing.assert_array_equal(np.isnan(a), ~valid)
+    assert 0 < valid.sum() < len(b)
+    np.testing.assert_allclose(a[valid], b[valid], atol=5e-4, rtol=0)
+    assert (card["os_p_value"], card["pfs_p_value"]) == (
+        cpu["os_p_value"], cpu["pfs_p_value"])
+
+
+def test_native_featurizer_builds_and_matches_numpy(tmp_path):
+    """The featurizer library is built from native/featurizer.cc on this
+    host (no -march=native) and writes the numpy path's graphs bit for bit
+    on a synthetic corpus written back as PDBs."""
+    from immunostruct_tpu_torch.data.synthetic import (
+        synthetic_corpus, write_corpus_pdbs,
+    )
+    from immunostruct_tpu_torch.featurize import featurize_directory, native
+
+    lib = native.build()
+    assert lib.exists() and "-march=native" not in native.CXX_FLAGS
+    g, _, _ = synthetic_corpus(str(tmp_path / "c"), num_samples=8,
+                               hla_len=275, seed=3)
+    write_corpus_pdbs(g, str(tmp_path / "pdb"), hla_len=275)
+    out = {}
+    for use_native in (True, False):
+        out[use_native] = featurize_directory(
+            str(tmp_path / "pdb"), str(tmp_path / f"g{use_native}"),
+            workers=4, use_native=use_native)
+    assert len(out[True]) == len(out[False]) == 8
+    for a_path, b_path in zip(out[True], out[False]):
+        with np.load(a_path) as a, np.load(b_path) as b:
+            assert str(a["name"]) == str(b["name"])
+            for k in ("x", "coords", "edge_index"):
+                assert a[k].dtype == b[k].dtype
+                np.testing.assert_array_equal(a[k], b[k])

@@ -50,7 +50,11 @@ def test_every_module_imports_without_jax():
                    "ops.fused_layer", "cli.serve", "cli.train_IEDB_wFT",
                    "cli.train_Cancer_wFT", "cli.race_kernel_variants",
                    "cli.infer_IEDB_or_Cancer", "data.pipeline",
-                   "procedures.infer", "utils.torch_import"):
+                   "procedures.infer", "utils.torch_import",
+                   "cli.train_curriculum", "cli.infer_clinical_only",
+                   "cli.featurize", "cli.convert_graphs", "cli.validate_data",
+                   "procedures.clinical", "data.dedupe", "featurize.pdb",
+                   "featurize.edges", "featurize.builder", "featurize.native"):
         assert f"immunostruct_tpu_torch.{module}" in names
     proc = _probe(names)
     assert proc.returncode == 0, proc.stderr
