@@ -2,6 +2,13 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
+``python3 chip_smoke.py --eager-walls DIR ...`` runs none of the phases
+below: it times the eager 'mega' forward at B=128 and B=1 and a 'pallas'
+and a 'fused' train step with the package of each checkout DIR and with
+this one's, each in a fresh process, in the order DIR ..., this, this,
+... DIR (``compare_eager``); in this one's, through the kernel ops and
+with the wrappers launching directly in turn (``eager_walls``).
+
 Phases (none catches its own failure; any failure exits non-zero):
   1. require CUDA;
   2. print the card's name and power limit (nvidia-smi);
@@ -214,8 +221,22 @@ Phases (none catches its own failure; any failure exits non-zero):
      alone launched;
   27a. phase 27's 'paired' forward and one 'paired' train step under
      torch.cuda.set_sync_debug_mode("error"): no host sync;
+  27b. export and serve an artifact: write the served model's weights as
+     a JAX-format checkpoint, export five full-width artifacts through
+     cli.export_model on the card (bf16,
+     N=288, L=284; (a) 'auto' -> 'mega' at B=128, (b) the same at B=1, (c)
+     'fused' and (d) 'pallas' at B=128, (e) (a) with --int8; E=2560), time
+     the eager server under each aggregation of (a)-(d) on the same
+     requests, then load all five in a fresh process with load_exported
+     (which must import no model module) and serve (a)-(d) there through
+     serve --artifact over HTTP (every count set to 0 before and read
+     after): each gives the eager server's bits, twice, and launches what
+     its eager forward launches per call (6 B1 under 'mega'); a request of
+     another shape is a 400; (e) is within 0.05 of (a); then
+     torch.library.opcheck on the four kernel ops with CUDA tensors;
   28. trace forwards and train steps with torch.profiler ('mega',
-     'scatter' and fused_stack (B7) for the forwards; for the step also
+     'scatter' and fused_stack (B7) for the forwards, and artifacts (a)
+     and (b); for the step also
      'fused', 'pallas' and 'mega' under 'stack', 'inkernel' and 'paired')
      and print the device-busy time, the device's idle share and the
      kernels that take the most device time;
@@ -3127,9 +3148,342 @@ def check_paired_no_sync(scorer) -> dict:
     return row
 
 
-def device_profile(fn, traced: int) -> dict:
-    """``traced`` calls of ``fn`` under torch.profiler: device time per call
-    by kernel name."""
+# --------------------------------------------------------------------------
+# phase 27b: export and serve an artifact
+# --------------------------------------------------------------------------
+
+# the artifacts of phase 27b: (label, --aggregation, request index in
+# REQUESTS, --int8); (e) is held to (a), the others to the eager server
+ARTIFACTS = (("a", "auto", 0, False), ("b", "auto", 2, False),
+             ("c", "fused", 0, False), ("d", "pallas", 0, False),
+             ("e", "auto", 0, True))
+INT8_PROB_ATOL = 0.05           # JAX's bound, tests/test_export.py
+ARTIFACT_TIMED = 10             # timed requests a server
+
+
+def http_timings(base: str, body: bytes, timed: int) -> tuple:
+    """``timed`` posts of ``body`` to ``base``/score: (the first reply's
+    probabilities, median server-side forward ms, median HTTP round trip
+    ms); every reply has the first one's bits."""
+    walls, forward, first = [], [], None
+    for _ in range(timed + 1):
+        t0 = time.perf_counter()
+        status, reply = post(base + "/score", body)
+        wall = (time.perf_counter() - t0) * 1e3
+        assert status == 200, reply
+        if first is None:
+            first = reply["probs"]
+            continue                    # the first call is not timed
+        assert reply["probs"] == first
+        walls.append(wall)
+        forward.append(reply["ms"])
+    return first, statistics.median(forward), statistics.median(walls)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def serve_artifacts(plan_path: str) -> None:
+    """Phase 27b's fresh process (``python -c`` from the repo root): load
+    every artifact with load_exported, call each on its request twice with
+    every count set to 0 before and read after, then serve each of (a)-(d)
+    over HTTP through ``serve --artifact`` (the CLI's main, in a thread) and
+    time it; a request of another shape is a 400 and the server lives on.
+    Asserts that no model module was imported and writes what it read to
+    the plan's ``out``."""
+    from immunostruct_tpu_torch import serving
+    from immunostruct_tpu_torch.utils.export import REQUEST_KEYS, load_exported
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(plan_path) as fh:
+        plan = json.load(fh)
+    t0 = time.perf_counter()
+    arts = {k: load_exported(a["path"], "cuda")
+            for k, a in plan["artifacts"].items()}
+    load_s = time.perf_counter() - t0
+    result = dict(load_s=load_s, artifacts={})
+    for k, a in plan["artifacts"].items():
+        with np.load(a["request"]) as z:
+            tensors = [torch.from_numpy(z[key]).cuda() for key in REQUEST_KEYS]
+        arts[k](*tensors)               # warm
+        torch.cuda.synchronize()
+        reset_counts()                  # every count to 0: the artifact
+        probs = [arts[k](*tensors).cpu() for _ in range(2)]
+        counts = read_counts()          # read just after it
+        assert torch.equal(probs[0], probs[1]), k
+        np.save(a["probs"], probs[0].numpy())
+        result["artifacts"][k] = dict(launches_per_call=[c // 2
+                                                         for c in counts])
+        assert all(c % 2 == 0 for c in counts), (k, counts)
+    for k, a in plan["artifacts"].items():
+        if not a["http"]:
+            continue
+        port = free_port()
+        threading.Thread(target=serving.main, daemon=True, args=([
+            "--artifact", a["path"], "--http", str(port), "--device",
+            "cuda"],)).start()
+        base = f"http://127.0.0.1:{port}"
+        for _ in range(600):            # until the server answers
+            try:
+                with urllib.request.urlopen(base + "/healthz",
+                                            timeout=30) as resp:
+                    assert json.loads(resp.read()) == {"status": "ok"}
+                break
+            except urllib.error.URLError:
+                time.sleep(0.1)
+        with open(a["request"], "rb") as fh:
+            body = fh.read()
+        reset_counts()
+        first, fwd_ms, http_ms = http_timings(base, body, ARTIFACT_TIMED)
+        counts = read_counts()
+        assert np.array_equal(np.asarray(first, np.float32),
+                              np.load(a["probs"])), k
+        with open(a["wrong"], "rb") as fh:
+            try:
+                post(base + "/score", fh.read())
+                raise AssertionError("a request of another shape was "
+                                     "answered")
+            except urllib.error.HTTPError as err:
+                assert err.code == 400, err
+        with urllib.request.urlopen(base + "/healthz", timeout=30) as resp:
+            assert resp.status == 200
+        result["artifacts"][k].update(
+            median_forward_ms=fwd_ms, median_http_ms=http_ms,
+            http_launches=counts, http_calls=ARTIFACT_TIMED + 1)
+    loaded = sorted(m for m in sys.modules
+                    if m.startswith("immunostruct_tpu_torch.models"))
+    assert not loaded, loaded
+    result["models_imported"] = loaded
+    with open(plan["out"], "w") as fh:
+        json.dump(result, fh)
+
+
+def check_ops_on_card() -> list:
+    """torch.library.opcheck on the four kernel ops with CUDA tensors at a
+    small size (B=2, E=256, N=288, F=20, H=64), f32 and bf16; and, in bf16,
+    the host time a call through the op beside the direct launch that the
+    op wraps (what registering a kernel as an op costs a call)."""
+    from immunostruct_tpu_torch.ops import edge, mega, segment
+
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        args = kernel_inputs(2, 256, 20, dtype, seed=71)
+        src, dst, mask, ef, h, x, *weights = args[:10]
+        rows_hx = torch.cat([h, x], dim=-1)
+
+        def bundle(idx):
+            return torch.gather(rows_hx, 1, idx.long()[..., None].expand(
+                -1, -1, rows_hx.shape[-1])).transpose(1, 2).contiguous()
+
+        m = torch.randn(2, 256, H + 3, device="cuda").to(dtype)
+        hc = h.contiguous()
+        mega_args = (src, dst, mask, ef, h, x, *weights)
+        edge_args = (bundle(src), bundle(dst),
+                     ef.transpose(1, 2).contiguous(), *weights)
+        ops = torch.ops.immunostruct
+        cases = (
+            ("edge_mega_fwd", ops.edge_mega_fwd.default, (*mega_args, False),
+             lambda: mega.edge_mega_fwd(*mega_args, residuals=False),
+             lambda: mega._mega_fwd_launch(mega_args, False)),
+            ("edge_mega_fwd residuals", ops.edge_mega_fwd.default,
+             (*mega_args, True), None, None),
+            ("edge_program_fwd", ops.edge_program_fwd.default, edge_args,
+             lambda: edge.edge_program_fwd(*edge_args),
+             lambda: edge._edge_fwd_launch(*edge_args)),
+            ("segment_scatter", ops.segment_scatter.default,
+             (dst, mask, m, N),
+             lambda: segment.segment_scatter(dst, mask, m, N),
+             lambda: segment._scatter_launch(dst, mask, m, N)),
+            ("segment_gather", ops.segment_gather.default, (src, mask, hc),
+             lambda: segment.segment_gather(src, mask, hc),
+             lambda: segment._gather_launch(src, mask, hc)))
+        for name, op, opargs, through_op, direct in cases:
+            t0 = time.perf_counter()
+            torch.library.opcheck(op, opargs)
+            row = dict(op=name, dtype=str(dtype).split(".")[1],
+                       opcheck_s=time.perf_counter() - t0)
+            if dtype == torch.bfloat16 and through_op is not None:
+                row.update(host_us_op=host_us(through_op),
+                           host_us_direct=host_us(direct))
+            rows.append(row)
+    print("ops on the card:", json.dumps(rows), flush=True)
+    return rows
+
+
+def check_artifacts(scorer, requests, tmp: str) -> tuple:
+    """Phase 27b: export the five artifacts through cli.export_model from a
+    JAX-format checkpoint of the served model, serve them from a fresh
+    process (``serve_artifacts``) and hold each to the eager server: the
+    same bits and the same launches per call as the eager forward with the
+    same aggregation, seed and weights ((e), int8 weights, within
+    INT8_PROB_ATOL of (a)); opcheck the four ops. Returns (rows, the
+    artifact (a) server's launch counts, the paths)."""
+    from immunostruct_tpu_torch.cli import export_model
+    from immunostruct_tpu_torch.serving import make_http_server
+    from immunostruct_tpu_torch.utils.checkpoint import save_checkpoint
+    from immunostruct_tpu_torch.utils.export import read_meta
+    from immunostruct_tpu_torch.utils.quantize import quantized_size_bytes
+
+    layers = len(scorer.model.gcn)
+    ckpt = os.path.join(tmp, "served.ckpt")
+    save_checkpoint(ckpt, scorer.model)
+    rows, plan = {}, dict(artifacts={}, out=os.path.join(tmp, "served.json"))
+    for label, agg, req, int8 in ARTIFACTS:
+        path = os.path.join(tmp, f"artifact_{label}.pt2")
+        b = REQUESTS[req][1]
+        t0 = time.perf_counter()
+        export_model.main([
+            "--model", "HybridModelv2", "--checkpoint", ckpt, "--output",
+            path, "--batch-size", str(b), "--max-nodes", str(N),
+            "--max-edges", str(REQUESTS[req][2]), "--seq-len", str(L),
+            "--compute-dtype", "bfloat16", "--aggregation", agg,
+            "--device", "cuda", "--seed", str(scorer.seed)]
+            + (["--int8"] if int8 else []))
+        export_s = time.perf_counter() - t0
+        meta = read_meta(path)
+        assert meta["aggregation"] == ("mega" if agg == "auto" else agg), meta
+        rows[label] = dict(artifact=label, aggregation=meta["aggregation"],
+                           B=b, E=REQUESTS[req][2], int8=int8,
+                           export_s=export_s, bytes=os.path.getsize(path))
+        plan["artifacts"][label] = dict(
+            path=path, request=requests[req][2], http=not int8,
+            wrong=requests[2 if req == 0 else 0][2],
+            probs=os.path.join(tmp, f"artifact_{label}.npy"))
+
+    # the eager server on the same requests, same weights and seed
+    eager = {}
+    try:
+        for label, agg, req, int8 in ARTIFACTS[:4]:
+            scorer.aggregation = agg
+            with open(requests[req][2], "rb") as fh:
+                body = fh.read()
+            reset_counts()
+            probs, _ = scorer.score_request(requests[req][2])
+            counts = read_counts()
+            server = make_http_server(scorer, "127.0.0.1", 0)
+            thread = threading.Thread(target=server.serve_forever,
+                                      daemon=True)
+            thread.start()
+            host, port = server.server_address[:2]
+            try:
+                first, fwd_ms, http_ms = http_timings(
+                    f"http://{host}:{port}", body, ARTIFACT_TIMED)
+            finally:
+                server.shutdown()
+                server.server_close()
+                thread.join(timeout=30)
+            assert np.array_equal(np.asarray(first, np.float32), probs)
+            eager[label] = dict(probs=probs, launches=counts,
+                                median_forward_ms=fwd_ms,
+                                median_http_ms=http_ms)
+    finally:
+        scorer.aggregation = "mega"
+
+    plan_path = os.path.join(tmp, "plan.json")
+    with open(plan_path, "w") as fh:
+        json.dump(plan, fh)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, chip_smoke; chip_smoke.serve_artifacts(sys.argv[1])",
+         plan_path], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=900)
+    served_s = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-8000:]
+    with open(plan["out"]) as fh:
+        served = json.load(fh)
+    assert served["models_imported"] == []
+
+    for label, agg, req, int8 in ARTIFACTS:
+        got = np.load(plan["artifacts"][label]["probs"])
+        a = served["artifacts"][label]
+        row = rows[label]
+        row.update(launches_per_call=a["launches_per_call"],
+                   load_s_all=served["load_s"], process_s=served_s)
+        assert np.isfinite(got).all() and got.shape == (row["B"],)
+        if int8:
+            err = float(np.abs(got - np.load(
+                plan["artifacts"]["a"]["probs"])).max())
+            assert err <= INT8_PROB_ATOL, err
+            f32, q8 = quantized_size_bytes(scorer.model)
+            row.update(max_abs_prob_diff_vs_a=err,
+                       quantized_size_bytes=[f32, q8])
+            assert row["launches_per_call"] == served["artifacts"]["a"][
+                "launches_per_call"]
+        else:
+            e = eager[label]
+            assert np.array_equal(got, e["probs"]), label
+            assert tuple(a["launches_per_call"]) == tuple(e["launches"]), (
+                label, a["launches_per_call"], e["launches"])
+            if agg == "auto":           # 'mega': B1 alone, once a layer
+                assert tuple(e["launches"]) == tuple(
+                    layers if i == 0 else 0 for i in range(11)), e
+            calls = a["http_calls"]
+            assert tuple(a["http_launches"]) == tuple(
+                calls * c for c in e["launches"]), (label, a)
+            row.update(same_bits_as_eager=True,
+                       median_forward_ms=a["median_forward_ms"],
+                       median_http_ms=a["median_http_ms"],
+                       eager_median_forward_ms=e["median_forward_ms"],
+                       eager_median_http_ms=e["median_http_ms"])
+        print("artifact:", json.dumps(row), flush=True)
+    rows = list(rows.values())
+    opcheck_rows = check_ops_on_card()
+    paths = {label: plan["artifacts"][label] for label in ("a", "b")}
+    return rows, tuple(served["artifacts"]["a"]["http_launches"]), paths, \
+        opcheck_rows
+
+
+def profile_artifacts(scorer, paths: dict, traced: int = 3) -> list:
+    """Phase 28's rows for artifacts (a) and (b): 20 calls each of the
+    artifact and of the eager 'mega' Scorer on the same request, in turn
+    (each ending in a copy to the host, as a served forward does; the
+    medians printed side by side), then ``traced`` artifact calls under
+    torch.profiler."""
+    from immunostruct_tpu_torch.serving import request_to_args
+    from immunostruct_tpu_torch.utils.export import REQUEST_KEYS, load_exported
+
+    rows = []
+    scorer.aggregation = "mega"
+    for label, a in paths.items():
+        art = load_exported(a["path"], "cuda")
+        with np.load(a["request"]) as z:
+            tensors = [torch.from_numpy(z[k]).cuda() for k in REQUEST_KEYS]
+        args = request_to_args(a["request"], scorer.device, scorer.model)
+        calls = (("artifact", lambda: art(*tensors).cpu()),
+                 ("eager", lambda: scorer(*args)))
+        walls = {kind: [] for kind, _ in calls}
+        for i in range(23):
+            for kind, fn in calls:
+                t0 = time.perf_counter()
+                fn()
+                if i >= 3:              # three calls each to warm
+                    walls[kind].append((time.perf_counter() - t0) * 1e3)
+        profiled = device_profile(calls[0][1], traced)
+        b = art.inputs[0][1][0]
+        rows.append(profile_row(f"artifact ({label}) B={b} E=2560",
+                                art.meta["aggregation"], profiled, traced,
+                                statistics.median(walls["artifact"])))
+        turn = dict(artifact=label, B=b,
+                    artifact_wall_ms_median=statistics.median(
+                        walls["artifact"]),
+                    eager_wall_ms_median=statistics.median(walls["eager"]))
+        print("artifact and eager in turn:", json.dumps(turn), flush=True)
+        rows[-1]["in_turn"] = turn
+    return rows
+
+
+def device_profile(fn, traced: int) -> tuple:
+    """``traced`` calls of ``fn`` under torch.profiler: (device time and
+    launches by kernel name over the ``traced`` calls, the host's ATen
+    calls per call: every ``aten::`` event, nested ones too, and those of
+    them that are ``aten::_assert_tensor_metadata``)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -3137,8 +3491,13 @@ def device_profile(fn, traced: int) -> dict:
         for _ in range(traced):
             fn()
         torch.cuda.synchronize()
-    per_name = {}
+    per_name, host = {}, {"aten": 0, "_assert_tensor_metadata": 0}
     for ev in prof.events():
+        if (ev.device_type == torch.autograd.DeviceType.CPU
+                and ev.name.startswith("aten::")):
+            host["aten"] += 1
+            if ev.name == "aten::_assert_tensor_metadata":
+                host["_assert_tensor_metadata"] += 1
         # user annotations (e.g. Optimizer.step) span device work that the
         # kernels' own events already count
         if (ev.device_type != torch.autograd.DeviceType.CUDA
@@ -3148,10 +3507,11 @@ def device_profile(fn, traced: int) -> dict:
         tot, cnt = per_name.get(ev.name, (0.0, 0))
         per_name[ev.name] = (tot + us, cnt + 1)
     assert per_name, "torch.profiler recorded no device activity"
-    return per_name
+    return per_name, {k: v / traced for k, v in host.items()}
 
 
-def profile_row(label, agg, per_name, traced, wall) -> dict:
+def profile_row(label, agg, profiled, traced, wall) -> dict:
+    per_name, host = profiled
     busy_ms = sum(t for t, _ in per_name.values()) / 1e3 / traced
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:5]
 
@@ -3170,6 +3530,8 @@ def profile_row(label, agg, per_name, traced, wall) -> dict:
         device_busy_ms=busy_ms,
         device_ops_per_call=sum(c for _, c in per_name.values()) / traced,
         idle_share=max(0.0, 1.0 - busy_ms / wall),
+        host_aten_calls=host["aten"],
+        host_assert_metadata_calls=host["_assert_tensor_metadata"],
         b1_ms=(kernel_ms("egnn_mega_fwd_kernel") + kernel_ms("EdgeTiles")
                + (0.0 if paired else proj_ms)),
         b2_ms=kernel_ms("tail_bwd", ", 0>("),
@@ -3209,8 +3571,8 @@ def profile_forwards(scorer, requests, traced: int = 3) -> list:
                 t0 = time.perf_counter()
                 scorer(*args)           # ends in a copy to the host
                 walls.append((time.perf_counter() - t0) * 1e3)
-            per_name = device_profile(lambda: scorer(*args), traced)
-            rows.append(profile_row(f"forward {label}", agg, per_name,
+            profiled = device_profile(lambda: scorer(*args), traced)
+            rows.append(profile_row(f"forward {label}", agg, profiled,
                                     traced, statistics.median(walls)))
     scorer.aggregation, scorer.fused_stack = "mega", False
     return rows
@@ -3243,21 +3605,144 @@ def profile_training(traced: int = 3) -> list:
         def step():
             trainer.train_step(state, data, seed=0)
 
-        per_name = device_profile(step, traced)
+        profiled = device_profile(step, traced)
         label = agg if variant == "hybrid" else f"{agg} / {variant}"
-        rows.append(profile_row("train step B=128 E=2560", label, per_name,
+        rows.append(profile_row("train step B=128 E=2560", label, profiled,
                                 traced, statistics.median(ms[3:])))
         del trainer, state
     return rows
+
+
+# --------------------------------------------------------------------------
+# the eager paths against other checkouts (python3 chip_smoke.py
+# --eager-walls DIR ...)
+# --------------------------------------------------------------------------
+
+EAGER_FORWARDS = (0, 2)         # REQUESTS: B=128 and B=1 at E=2560
+
+
+@contextlib.contextmanager
+def direct_launches():
+    """Within the block the four kernel wrappers (B1, B3's forward, B8's
+    scatter and gather) call their ops' CUDA implementations themselves,
+    not through the dispatcher, as the wrappers launched before they were
+    ops (counted as ever)."""
+    from immunostruct_tpu_torch.ops import edge, mega, segment
+
+    swaps = ((mega, "_MEGA_FWD_OP", mega._mega_fwd_cuda),
+             (edge, "_EDGE_FWD_OP", edge._edge_fwd_cuda),
+             (segment, "_SCATTER_OP", segment._scatter_cuda),
+             (segment, "_GATHER_OP", segment._gather_cuda))
+    ops = [getattr(module, name) for module, name, _ in swaps]
+    for module, name, direct in swaps:
+        setattr(module, name, direct)
+    try:
+        yield
+    finally:
+        for (module, name, _), op in zip(swaps, ops):
+            setattr(module, name, op)
+
+
+def eager_walls() -> dict:
+    """The eager paths' walls with the package this process imports:
+    the served 'mega' forward (``Scorer`` on ``write_example``'s request,
+    ending in the copy to the host) at B=128 and B=1, median of 30 calls
+    after 5, and a 'pallas' and a 'fused' train step at B=128, E=2560,
+    median of 17 steps after 3. Where the package's kernels are ops
+    (``direct_launches`` finds them), each is timed through the ops and
+    with ``direct_launches`` in turn: {work: {"ops" / "direct" / "as is":
+    ms}}."""
+    import immunostruct_tpu_torch
+    from immunostruct_tpu_torch.data.synthetic import random_sample_batch
+    from immunostruct_tpu_torch.ops import _build, segment
+    from immunostruct_tpu_torch.serving import request_to_args
+
+    _build.build()
+    kinds = ({"ops": contextlib.nullcontext, "direct": direct_launches}
+             if hasattr(segment, "_SCATTER_OP")
+             else {"as is": contextlib.nullcontext})
+
+    def in_turn(fn, calls, warm):
+        ms = {kind: [] for kind in kinds}
+        for k in range(warm + calls):
+            for kind, ctx in kinds.items():
+                with ctx():
+                    t0 = time.perf_counter()
+                    fn()
+                    if k >= warm:
+                        ms[kind].append((time.perf_counter() - t0) * 1e3)
+        return {kind: statistics.median(v) for kind, v in ms.items()}
+
+    walls = dict(package=os.path.dirname(immunostruct_tpu_torch.__file__))
+    tmp = tempfile.mkdtemp(prefix="eager_")
+    try:
+        requests = write_requests(tmp)
+        scorer = full_width_scorer()
+        for i in EAGER_FORWARDS:
+            label, _, path = requests[i]
+            args = request_to_args(path, scorer.device, scorer.model)
+            walls[f"forward {label} mega"] = in_turn(lambda: scorer(*args),
+                                                     30, 5)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    batch = random_sample_batch(B, N, EDGE_COUNTS[0], L, seed=0,
+                                device="cuda")
+    for agg in ("pallas", "fused"):
+        trainer, state = make_trainer("HybridModelv2", agg)
+
+        def step():
+            trainer.train_step(state, batch, seed=0)
+            torch.cuda.synchronize()
+
+        walls[f"train step B=128 E=2560 {agg}"] = in_turn(step, 17, 3)
+        del trainer, state
+    return walls
+
+
+def compare_eager(roots) -> int:
+    """``eager_walls`` of each checkout root in ``roots`` and of this one,
+    each in a fresh process, in the order roots, this, this, roots
+    reversed; prints each reading and, per checkout, the mean of its two
+    beside the card line."""
+    order = [*roots, ROOT, ROOT, *reversed(roots)]
+    readings = {}
+    for root in order:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--eager-walls-of",
+             root], cwd=root, capture_output=True, text=True, timeout=900,
+            env=dict(os.environ, PYTHONPATH=root))
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
+            return 1
+        walls = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert os.path.realpath(walls.pop("package")) == os.path.realpath(
+            os.path.join(root, "immunostruct_tpu_torch")), walls
+        print("eager walls:", json.dumps(dict(checkout=root, **walls)),
+              flush=True)
+        readings.setdefault(root, []).append(walls)
+    print("eager walls, mean of two:", json.dumps({
+        root: {work: {kind: statistics.mean(w[work][kind] for w in runs)
+                      for kind in runs[0][work]}
+               for work in runs[0]}
+        for root, runs in readings.items()}))
+    print(card_line())
+    return 0
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--eager-walls"]:
+        sys.path.insert(0, ROOT)
+        return compare_eager([os.path.abspath(d) for d in sys.argv[2:]])
+    if sys.argv[1:2] == ["--eager-walls-of"]:
+        sys.path.insert(0, sys.argv[2])     # that checkout's package
+        print(json.dumps(eager_walls()))
+        return 0
+    sys.path.insert(0, ROOT)
     card = card_line()
     print(f"card: {card}  (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
@@ -3334,7 +3819,10 @@ def run_phases(card: str, clinical: ClinicalCorpus) -> int:
         race_rows, race_counts = check_race()
         variant_served = check_variant_serving(scorer)
         paired_sync = check_paired_no_sync(scorer)
+        artifact_rows, artifact_counts, artifact_paths, op_rows = \
+            check_artifacts(scorer, requests, tmp)
         profile_forwards(scorer, requests)
+        artifact_profile = profile_artifacts(scorer, artifact_paths)
         profile_training()
 
     def pick(rows, **want):
@@ -3369,6 +3857,35 @@ def run_phases(card: str, clinical: ClinicalCorpus) -> int:
               f"{r['wall_s_onehot']:.3f} s under onehot")
     print(f"paired  [{card}]: forward and step without a host sync, "
           f"launches {list(paired_sync['launches'])}")
+    for r in artifact_profile:
+        t = r["in_turn"]
+        print(f"profile [{card}]: artifact ({t['artifact']}) B={t['B']} "
+              f"E=2560 'mega': wall {t['artifact_wall_ms_median']:.3f} ms "
+              f"(the eager Scorer in turn {t['eager_wall_ms_median']:.3f} "
+              f"ms), device busy {r['device_busy_ms']:.3f} ms, idle share "
+              f"{r['idle_share']:.3f}, {r['device_ops_per_call']:.0f} device "
+              f"ops a call")
+    for r in op_rows:
+        if "host_us_op" in r:
+            print(f"op      [{card}]: {r['op']} bf16 B=2 E=256: host "
+                  f"{r['host_us_op']:.1f} us a call through the op, "
+                  f"{r['host_us_direct']:.1f} us the direct launch")
+    for r in artifact_rows:
+        if r["int8"]:
+            print(f"export  [{card}]: artifact ({r['artifact']}) int8 "
+                  f"B={r['B']} E={r['E']} {r['aggregation']}: export "
+                  f"{r['export_s']:.3f} s, {r['bytes']} B, max |prob diff| "
+                  f"vs (a) {r['max_abs_prob_diff_vs_a']:.3e}, parameters "
+                  f"{r['quantized_size_bytes'][0]} B f32, "
+                  f"{r['quantized_size_bytes'][1]} B int8")
+            continue
+        print(f"export  [{card}]: artifact ({r['artifact']}) B={r['B']} "
+              f"E={r['E']} {r['aggregation']}: export {r['export_s']:.3f} s,"
+              f" {r['bytes']} B; median forward {r['median_forward_ms']:.3f}"
+              f" ms (eager {r['eager_median_forward_ms']:.3f} ms), median "
+              f"HTTP round trip {r['median_http_ms']:.3f} ms (eager "
+              f"{r['eager_median_http_ms']:.3f} ms), launches a call "
+              f"{r['launches_per_call']}, the eager server's bits")
     for r in train_rows:
         print(f"train   [{card}]: B=128 E={r['E']} bf16: median step "
               f"{r['median_step_ms_mega']:.3f} ms 'mega' "
@@ -3471,7 +3988,8 @@ def run_phases(card: str, clinical: ClinicalCorpus) -> int:
                     entry_point=entry["launches"], train_pallas=pallas_counts,
                     entry_point_cancer=cancer["launches"], race=race_counts,
                     curriculum=curriculum["launches"],
-                    clinical=clinical_row["launches_mega"])
+                    clinical=clinical_row["launches_mega"],
+                    artifact_serving=artifact_counts)
     b1, b2 = pick(fwd_rows), pick(tail_rows)
     b3f, b3b = pick(edge_rows, kernel="fwd"), pick(edge_rows, kernel="bwd")
     b8s, b8g = (next(r for r in segment_rows if r["kernel"] == kind

@@ -33,7 +33,9 @@ from torch import nn
 from immunostruct_tpu_torch.ops.attention import (
     MultiHeadAttention, SelfAttention, mha_apply, self_attention_apply,
 )
-from immunostruct_tpu_torch.ops.egnn import egnn_stack, egnn_stack_apply
+from immunostruct_tpu_torch.ops.egnn import (
+    egnn_stack, egnn_stack_apply, stack_aggregation,
+)
 from immunostruct_tpu_torch.ops.nnp import Linear, draw, dropout, linear_apply
 from immunostruct_tpu_torch.ops.pooling import max_pool, mean_pool
 from immunostruct_tpu_torch.structs import GraphBatch, map_tensors
@@ -181,12 +183,25 @@ def reset_head(model: ImmunoStructModel, generator: torch.Generator
     return model
 
 
+def _gcn_input(graph: GraphBatch) -> torch.Tensor:
+    """The conv stack's node features: the amino-acid one-hot columns."""
+    return graph.node_feat[..., :NUM_AMINO_ACIDS]
+
+
+def gcn_aggregation(model: ImmunoStructModel, graph: GraphBatch,
+                    aggregation: str) -> str:
+    """The aggregation ``model_apply``'s conv stack runs on ``graph`` (what
+    'auto' resolves to for its shapes and device)."""
+    return stack_aggregation(aggregation, model.gcn[0], _gcn_input(graph),
+                             graph.edge_src, graph.edge_feat)
+
+
 def _structure_branch(model: ImmunoStructModel, graph: GraphBatch,
                       aggregation: str, compute_dtype,
                       mega_variant: str = "hybrid",
                       fused_stack: bool = False):
     spec = model.spec
-    h = graph.node_feat[..., :NUM_AMINO_ACIDS].to(compute_dtype)
+    h = _gcn_input(graph).to(compute_dtype)
     x = graph.coords.to(compute_dtype)
     h, _ = egnn_stack_apply(model.gcn, h, x, graph.edge_src, graph.edge_dst,
                             graph.edge_feat, graph.edge_mask,

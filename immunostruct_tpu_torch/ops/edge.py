@@ -26,10 +26,12 @@ version beside it in this module:
          every edge.
 
 ``EdgeProgram`` is the ``torch.autograd.Function`` and ``edge_program`` the
-op. A CUDA tensor launches the kernels or raises; a CPU tensor takes the
-plain versions. The kernels compute every edge: the bundles carry no mask
-(the caller gathers zeros for a masked edge and masks its output out of
-the aggregation, ops/egnn.py).
+op. The forward is the ``torch.library`` op
+``immunostruct::edge_program_fwd``, which ``torch.export`` traces; the
+backward is a direct launch. A CUDA tensor launches the kernels or raises;
+a CPU tensor takes the plain versions. The kernels compute every edge: the
+bundles carry no mask (the caller gathers zeros for a masked edge and masks
+its output out of the aggregation, ops/egnn.py).
 
 Rounding points under bf16 are the TPU kernel's. Forward: the weights
 W1ab/W2/Wc1 are rounded to the compute dtype (``small`` stays f32); xd is
@@ -351,15 +353,31 @@ def _on_cuda(name, t) -> bool:
     return True
 
 
-def edge_program_fwd(hsx, hdx, ef, w1ab, w2, wc1, small):
-    """B3's forward: [B, H+3, E] in the compute dtype.
+# The package's ``torch.library`` namespace. B1, B3's forward and B8 are its
+# ops (``define_op``); the registrations last as long as this object.
+OPS_LIBRARY = torch.library.Library("immunostruct", "FRAGMENT")
 
-    CUDA tensors launch csrc/egnn_edge_fwd.cu (f32 on the CUDA cores, bf16
-    on the tensor cores) or raise; CPU tensors go through
-    ``edge_program_reference``. ``edge_program.launches`` counts the
-    kernel's launches."""
-    if not _on_cuda("edge_program", hsx):
-        return edge_program_reference(hsx, hdx, ef, w1ab, w2, wc1, small)
+
+def define_op(schema: str, *, cpu, cuda, fake):
+    """Define ``immunostruct::<schema>``: ``cpu`` runs on CPU tensors (the
+    plain version), ``cuda`` on CUDA tensors (the launch, counted there),
+    ``fake`` gives the output's shape and dtype for tracing. Returns the
+    op's overload, which the wrappers call. Registered on the dispatcher
+    directly, not through ``torch.library.custom_op``, whose Python layers
+    around each implementation cost the eager path tens of microseconds a
+    call."""
+    name = schema.split("(", 1)[0]
+    OPS_LIBRARY.define(schema)
+    OPS_LIBRARY.impl(name, cpu, "CPU")
+    OPS_LIBRARY.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"immunostruct::{name}", fake,
+                                lib=OPS_LIBRARY)
+    return getattr(torch.ops.immunostruct, name).default
+
+
+def _edge_fwd_launch(hsx, hdx, ef, w1ab, w2, wc1, small):
+    """Check the operands and launch B3's forward on hsx's card; raise if
+    it does not fit or does not launch. Counts nothing."""
     b, f, e, hid = _check_bundles("edge_program", hsx, hdx, ef, w1ab, w2,
                                   wc1, small)
     lib = _fwd_lib()
@@ -379,8 +397,37 @@ def edge_program_fwd(hsx, hdx, ef, w1ab, w2, wc1, small):
     if rc != 0:
         raise RuntimeError(f"egnn_edge_fwd launch failed with CUDA error "
                            f"{rc} (B={b}, E={e}, F={f}, H={hid})")
+    return out
+
+
+def _edge_fwd_cuda(hsx, hdx, ef, w1ab, w2, wc1, small):
+    out = _edge_fwd_launch(hsx, hdx, ef, w1ab, w2, wc1, small)
     edge_program.launches += 1
     return out
+
+
+def _edge_fwd_fake(hsx, hdx, ef, w1ab, w2, wc1, small):
+    return hsx.new_empty((hsx.shape[0], w2.shape[1] + 3, hsx.shape[2]))
+
+
+# B3's forward as a ``torch.library`` op (what ``torch.export`` traces): the
+# plain version on CPU tensors, the kernel on CUDA tensors, counted there.
+_EDGE_FWD_OP = define_op(
+    "edge_program_fwd(Tensor hsx, Tensor hdx, Tensor ef, Tensor w1ab, "
+    "Tensor w2, Tensor wc1, Tensor small) -> Tensor",
+    cpu=edge_program_reference, cuda=_edge_fwd_cuda, fake=_edge_fwd_fake)
+
+
+def edge_program_fwd(hsx, hdx, ef, w1ab, w2, wc1, small):
+    """B3's forward: [B, H+3, E] in the compute dtype, the op
+    ``immunostruct::edge_program_fwd``.
+
+    CUDA tensors launch csrc/egnn_edge_fwd.cu (f32 on the CUDA cores, bf16
+    on the tensor cores) or raise; CPU tensors go through
+    ``edge_program_reference``. ``edge_program.launches`` counts the
+    kernel's launches."""
+    _on_cuda("edge_program", hsx)
+    return _EDGE_FWD_OP(hsx, hdx, ef, w1ab, w2, wc1, small)
 
 
 def edge_program_bwd(hsx, hdx, ef, w1ab, w2, wc1, small, dout):

@@ -166,7 +166,10 @@ def resolve_aggregation(aggregation: str, device: torch.device, *,
     return "onehot"
 
 
-def _resolve(aggregation, p: EGNNLayer, h, edge_src, edge_feat) -> str:
+def stack_aggregation(aggregation: str, p: EGNNLayer, h, edge_src,
+                      edge_feat) -> str:
+    """The aggregation a conv stack whose first layer is ``p`` runs on
+    these operands (their shapes and device; ``resolve_aggregation``)."""
     return resolve_aggregation(
         aggregation, h.device, edges=edge_src.shape[1], nodes=h.shape[1],
         features=h.shape[-1], hidden=p.edge_mlp[1].w.shape[1],
@@ -447,7 +450,7 @@ def egnn_apply(p: EGNNLayer, h: torch.Tensor, x: torch.Tensor,
     is a per-layer variant of 'mega' ('stack' spans the whole stack:
     ``egnn_stack_apply``); under 'paired' the caller holds the batch to
     ``check_paired``."""
-    aggregation = _resolve(aggregation, p, h, edge_src, edge_feat)
+    aggregation = stack_aggregation(aggregation, p, h, edge_src, edge_feat)
     check_variant(mega_variant, aggregation)
     if mega_variant == "stack":
         raise ValueError("mega_variant='stack' runs the whole conv stack "
@@ -494,7 +497,8 @@ def egnn_stack_apply(layers: Sequence[EGNNLayer], h, x, edge_src, edge_dst,
                              "an all-ones feature into the bias), and this "
                              "batch has features other than 1")
         return fused_egnn_stack(layers, h, x, edge_src, edge_dst, edge_mask)
-    aggregation = _resolve(aggregation, layers[0], h, edge_src, edge_feat)
+    aggregation = stack_aggregation(aggregation, layers[0], h, edge_src,
+                                    edge_feat)
     check_variant(mega_variant, aggregation)
     if mega_variant == "stack":
         return apply_stack(layers, h, x, edge_src, edge_dst, edge_feat,

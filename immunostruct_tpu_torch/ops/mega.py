@@ -30,8 +30,10 @@ module; the kernels share their device code (csrc/egnn_common.cuh):
 ``edge_half_bwd`` finishes the backward at node level in PyTorch (the
 gathers' transposes by src/dst, d_h, d_x, dW1ab), as the JAX package
 leaves it to XLA einsums. ``EdgeMega`` is the ``torch.autograd.Function``
-and ``edge_mega`` the op. A CUDA tensor launches the kernels or raises; a
-CPU tensor takes the plain versions. A forward that needs no gradient
+and ``edge_mega`` the op. B1 is the ``torch.library`` op
+``immunostruct::edge_mega_fwd``, which ``torch.export`` traces; the other
+kernels are direct launches. A CUDA tensor launches the kernels or raises;
+a CPU tensor takes the plain versions. A forward that needs no gradient
 (inference) skips the residual stores.
 
 The JAX package's kernel variants, each reached there through a module
@@ -94,7 +96,8 @@ import torch
 
 from immunostruct_tpu_torch.ops.edge import (  # noqa: F401 (pack_params re-exported)
     B1, B2, BC1, HOPPER_SMEM_OPTIN, KERNEL_HIDDEN, KERNEL_MAX_F, W1E, W1R,
-    WC2, check_cuda_args, chunks_per_graph, hopper, pack_params, silu_grad,
+    WC2, _on_cuda, check_cuda_args, chunks_per_graph, define_op, hopper,
+    pack_params, silu_grad,
 )
 from immunostruct_tpu_torch.ops import segment as _segment
 
@@ -459,19 +462,11 @@ def _check_smem(props, smem: int, name: str, shape: str) -> None:
             "block")
 
 
-def edge_mega_fwd(src, dst, mask, ef, h, x, w1ab, w2, wc1, small,
-                  residuals: bool = True):
-    """B1: (out [B, N, H+3] f32, a1 [B, H, E], xd [B, 3, E]); a1 and xd are
-    None when ``residuals`` is False (the kernel then skips their stores).
-
-    CUDA tensors launch csrc/egnn_mega_fwd.cu or raise (bf16: the node
-    projections, ``fwd_chunks`` CTAs per graph and, with more than one, the
-    chunks' sum, all counted as one launch); CPU tensors go through
-    ``edge_mega_fwd_reference``. ``edge_mega.launches`` counts the kernel's
-    launches."""
-    args = (src, dst, mask, ef, h, x, w1ab, w2, wc1, small)
-    if h.device.type == "cpu":
-        return _fwd_cpu(edge_mega_fwd_reference, args, residuals)
+def _mega_fwd_launch(args, residuals):
+    """Check the operands and launch B1 on h's card: (out, a1, xd), a1 and
+    xd None without ``residuals``; raise if it does not fit or does not
+    launch. Counts nothing."""
+    h = args[4]
     out, a1, xd, proj, ptrs, sizes = _fwd_operands("edge_mega", args,
                                                    residuals)
     b, n, e, _, hid = sizes[2:]
@@ -488,8 +483,64 @@ def edge_mega_fwd(src, dst, mask, ef, h, x, w1ab, w2, wc1, small,
             *ptrs, None if nodes is None else nodes.data_ptr(), *sizes,
             chunks, bf16, torch.cuda.current_stream(h.device).cuda_stream)
     _fwd_rc("egnn_mega_fwd", rc, sizes)
-    edge_mega.launches += 1
     return out, a1, xd
+
+
+def _mega_fwd_cpu(src, dst, mask, ef, h, x, w1ab, w2, wc1, small,
+                  residuals):
+    out, a1, xd = edge_mega_fwd_reference(src, dst, mask, ef, h, x, w1ab,
+                                          w2, wc1, small)
+    if residuals:
+        return out, a1, xd
+    return out, h.new_empty(0), h.new_empty(0)
+
+
+def _mega_fwd_cuda(src, dst, mask, ef, h, x, w1ab, w2, wc1, small,
+                   residuals):
+    out, a1, xd = _mega_fwd_launch(
+        (src, dst, mask, ef, h, x, w1ab, w2, wc1, small), residuals)
+    edge_mega.launches += 1
+    if residuals:
+        return out, a1, xd
+    return out, h.new_empty(0), h.new_empty(0)
+
+
+def _mega_fwd_fake(src, dst, mask, ef, h, x, w1ab, w2, wc1, small,
+                   residuals):
+    b, n, _ = h.shape
+    e, hid = src.shape[1], w2.shape[1]
+    out = h.new_empty((b, n, hid + 3), dtype=torch.float32)
+    if residuals:
+        return out, h.new_empty((b, hid, e)), h.new_empty((b, 3, e))
+    return out, h.new_empty(0), h.new_empty(0)
+
+
+# B1 as a ``torch.library`` op (what ``torch.export`` traces): the plain
+# version on CPU tensors, the kernel on CUDA tensors, counted there. An op
+# returns tensors, so the form without residuals gives empty ones for a1
+# and xd.
+_MEGA_FWD_OP = define_op(
+    "edge_mega_fwd(Tensor src, Tensor dst, Tensor mask, Tensor ef, "
+    "Tensor h, Tensor x, Tensor w1ab, Tensor w2, Tensor wc1, Tensor small, "
+    "bool residuals) -> (Tensor, Tensor, Tensor)",
+    cpu=_mega_fwd_cpu, cuda=_mega_fwd_cuda, fake=_mega_fwd_fake)
+
+
+def edge_mega_fwd(src, dst, mask, ef, h, x, w1ab, w2, wc1, small,
+                  residuals: bool = True):
+    """B1: (out [B, N, H+3] f32, a1 [B, H, E], xd [B, 3, E]); a1 and xd are
+    None when ``residuals`` is False (the kernel then skips their stores).
+    The op ``immunostruct::edge_mega_fwd``.
+
+    CUDA tensors launch csrc/egnn_mega_fwd.cu or raise (bf16: the node
+    projections, ``fwd_chunks`` CTAs per graph and, with more than one, the
+    chunks' sum, all counted as one launch); CPU tensors go through
+    ``edge_mega_fwd_reference``. ``edge_mega.launches`` counts the kernel's
+    launches."""
+    _on_cuda("edge_mega", h)
+    out, a1, xd = _MEGA_FWD_OP(src, dst, mask, ef, h, x, w1ab, w2, wc1,
+                               small, residuals)
+    return (out, a1, xd) if residuals else (out, None, None)
 
 
 def edge_mega_paired_fwd(src, dst, mask, ef, h, x, w1ab, w2, wc1, small,

@@ -15,12 +15,15 @@ custom VJPs. An index outside [0, N) contributes nothing, masked or not: on
 the TPU no one-hot row matches it; on the card it would address memory out
 of bounds, so the kernels test it before any load or store.
 
-``segment_scatter`` and ``segment_gather`` are the launch wrappers: a CUDA
+``segment_scatter`` and ``segment_gather`` are the launch wrappers, each a
+``torch.library`` op (``immunostruct::segment_scatter``,
+``immunostruct::segment_gather``) that ``torch.export`` traces: a CUDA
 tensor launches csrc/segment.cu or raises, a CPU tensor takes the plain
 version (``segment_scatter_reference``, ``segment_gather_reference``).
-Their ``.launches`` count the kernels' launches. The JAX wrappers take E as
-a multiple of 128 (``_pick_tile``); the kernels take any E, and the EGNN
-stack keeps JAX's admission rule (``ops/egnn.py::check_pallas``).
+Their ``.launches`` count the kernels' launches, inside the ops. The JAX
+wrappers take E as a multiple of 128 (``_pick_tile``); the kernels take any
+E, and the EGNN stack keeps JAX's admission rule
+(``ops/egnn.py::check_pallas``).
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import functools
 
 import torch
 
-from immunostruct_tpu_torch.ops.edge import _on_cuda, hopper
+from immunostruct_tpu_torch.ops.edge import _on_cuda, define_op, hopper
 
 
 def _valid(idx: torch.Tensor, mask: torch.Tensor, n: int) -> torch.Tensor:
@@ -244,18 +247,49 @@ def _gather_launch(idx, mask, h) -> torch.Tensor:
     return out
 
 
+def _scatter_cuda(idx, mask, m, num_nodes):
+    out = _scatter_launch(idx, mask, m, num_nodes)
+    segment_scatter.launches += 1
+    return out
+
+
+def _scatter_fake(idx, mask, m, num_nodes):
+    return m.new_empty((m.shape[0], num_nodes, m.shape[2]))
+
+
+def _gather_cuda(idx, mask, h):
+    out = _gather_launch(idx, mask, h)
+    segment_gather.launches += 1
+    return out
+
+
+def _gather_fake(idx, mask, h):
+    return h.new_empty((h.shape[0], idx.shape[1], h.shape[2]))
+
+
+# the two kernels as ``torch.library`` ops: the plain version on CPU
+# tensors, the kernel on CUDA tensors (any other device has no kernel), a
+# fake that ``torch.export`` traces with. The counts sit in the CUDA
+# implementations, so an exported program's launches are counted too.
+_SCATTER_OP = define_op(
+    "segment_scatter(Tensor idx, Tensor mask, Tensor m, SymInt num_nodes) "
+    "-> Tensor",
+    cpu=segment_scatter_reference, cuda=_scatter_cuda, fake=_scatter_fake)
+_GATHER_OP = define_op(
+    "segment_gather(Tensor idx, Tensor mask, Tensor h) -> Tensor",
+    cpu=segment_gather_reference, cuda=_gather_cuda, fake=_gather_fake)
+
+
 def segment_scatter(idx: torch.Tensor, mask: torch.Tensor, m: torch.Tensor,
                     num_nodes: int) -> torch.Tensor:
-    """B8's scatter: [B, N, C] in m's dtype (module docstring).
+    """B8's scatter: [B, N, C] in m's dtype (module docstring), the op
+    ``immunostruct::segment_scatter``.
 
     CUDA tensors launch csrc/segment.cu or raise; CPU tensors go through
     ``segment_scatter_reference``. ``segment_scatter.launches`` counts the
     kernel's launches."""
-    if not _on_cuda("segment_scatter", m):
-        return segment_scatter_reference(idx, mask, m, num_nodes)
-    out = _scatter_launch(idx, mask, m, num_nodes)
-    segment_scatter.launches += 1
-    return out
+    _on_cuda("segment_scatter", m)
+    return _SCATTER_OP(idx, mask, m, num_nodes)
 
 
 segment_scatter.launches = 0
@@ -263,16 +297,14 @@ segment_scatter.launches = 0
 
 def segment_gather(idx: torch.Tensor, mask: torch.Tensor,
                    h: torch.Tensor) -> torch.Tensor:
-    """B8's gather: [B, E, C] in h's dtype (module docstring).
+    """B8's gather: [B, E, C] in h's dtype (module docstring), the op
+    ``immunostruct::segment_gather``.
 
     CUDA tensors launch csrc/segment.cu or raise; CPU tensors go through
     ``segment_gather_reference``. ``segment_gather.launches`` counts the
     kernel's launches."""
-    if not _on_cuda("segment_gather", h):
-        return segment_gather_reference(idx, mask, h)
-    out = _gather_launch(idx, mask, h)
-    segment_gather.launches += 1
-    return out
+    _on_cuda("segment_gather", h)
+    return _GATHER_OP(idx, mask, h)
 
 
 segment_gather.launches = 0

@@ -1,9 +1,18 @@
 """Batch scoring of ``.npz`` requests (counterpart of ``immunostruct_tpu/serving.py``).
 
-The JAX package serves an exported StableHLO artifact; PyTorch has no such
-artifact here, so this server takes what the JAX export CLI takes instead
-(``--checkpoint``, ``--model``, ``--compute-dtype``, ``--aggregation``) and
-runs the model directly: ``probs = sigmoid(model_apply(..., deterministic=True).logits)``.
+Two scorers, one interface (``score_request``), the same transports:
+
+- ``ArtifactScorer`` (``--artifact model.pt2``), as the JAX server serves
+  its StableHLO artifact: a ``torch.export`` program of the deterministic
+  forward written by ``cli/export_model.py`` (``utils/export.py``), run
+  without the model code. A process that serves an artifact imports no
+  ``immunostruct_tpu_torch.models``. Each request is held to the program's
+  shapes and dtypes on the host (400 when they differ).
+- ``Scorer`` rebuilds the model from what the JAX export CLI takes
+  (``--checkpoint``, ``--model``, ``--compute-dtype``, ``--aggregation``)
+  and runs it directly: ``probs = sigmoid(model_apply(...,
+  deterministic=True).logits)``. ``--artifact`` and ``--checkpoint`` do not
+  combine.
 
 Transports (stdlib only):
 
@@ -34,6 +43,7 @@ whatever came before it (the JAX export folds in one fixed key for the same
 purpose).
 
 Usage:
+  python -m immunostruct_tpu_torch.cli.serve --artifact model.pt2 --http 8788
   python -m immunostruct_tpu_torch.cli.serve --http 8788                 # seeded weights
   python -m immunostruct_tpu_torch.cli.serve --checkpoint ft.ckpt --oneshot req.npz
   python -m immunostruct_tpu_torch.cli.serve --checkpoint ft.ckpt --watch-dir q/
@@ -52,31 +62,31 @@ import numpy as np
 import torch
 
 from immunostruct_tpu_torch.data.synthetic import write_example
-from immunostruct_tpu_torch.models.trunk import NUM_AMINO_ACIDS, model_apply
-from immunostruct_tpu_torch.models.zoo import build_model
 from immunostruct_tpu_torch.ops.mega import check_paired
 from immunostruct_tpu_torch.structs import GraphBatch
-from immunostruct_tpu_torch.utils.checkpoint import load_jax_checkpoint
+from immunostruct_tpu_torch.utils.export import REQUEST_KEYS, load_exported
 
-__all__ = ["BadRequest", "Scorer", "request_to_args", "write_example",
-           "serve_one", "make_http_server", "main"]
+__all__ = ["BadRequest", "Scorer", "ArtifactScorer", "request_to_args",
+           "write_example", "serve_one", "make_http_server", "main"]
 
 
 class BadRequest(ValueError):
     """The request is not an ``.npz`` of the expected arrays and shapes."""
 
 
+def _load_npz(source) -> dict:
+    try:
+        with np.load(source, allow_pickle=False) as z:
+            return {k: z[k] for k in z.files}
+    except Exception as e:  # noqa: BLE001 - any unreadable body
+        raise BadRequest(f"not a readable .npz: {type(e).__name__}: {e}") from e
+
+
 def _read_request(source, model=None) -> dict:
     """The request's arrays, checked against each other and, given
     ``model``, against its input widths. Raises ``BadRequest``."""
-    try:
-        with np.load(source, allow_pickle=False) as z:
-            arrays = {k: z[k] for k in z.files}
-    except Exception as e:  # noqa: BLE001 - any unreadable body
-        raise BadRequest(f"not a readable .npz: {type(e).__name__}: {e}") from e
-    missing = sorted({"node_feat", "coords", "edge_src", "edge_dst",
-                      "edge_feat", "edge_mask", "node_mask", "num_nodes",
-                      "seq", "props"} - set(arrays))
+    arrays = _load_npz(source)
+    missing = sorted(set(REQUEST_KEYS) - set(arrays))
     if missing:
         raise BadRequest(f"missing arrays {missing}")
     if arrays["node_feat"].ndim != 3:
@@ -94,6 +104,8 @@ def _read_request(source, model=None) -> dict:
             raise BadRequest(f"{name} has shape {arrays[name].shape}, "
                              f"expected {shape}")
     if model is not None:
+        from immunostruct_tpu_torch.models.trunk import NUM_AMINO_ACIDS
+
         if (model.spec.use_structure
                 and arrays["node_feat"].shape[2] < NUM_AMINO_ACIDS):
             raise BadRequest(f"node_feat has {arrays['node_feat'].shape[2]} "
@@ -132,6 +144,19 @@ def request_to_args(source, device, model=None, *, paired: bool = False,
     return graph, seq, props
 
 
+def _timed(scorer, args):
+    """``scorer(*args)`` as (probs, ms), ms the wall time on the host; a
+    failed forward is recorded in ``scorer.failure`` (``/healthz`` then
+    answers 503) and raised."""
+    t0 = time.perf_counter()
+    try:
+        probs = scorer(*args)
+    except Exception as e:
+        scorer.failure = f"{type(e).__name__}: {e}"
+        raise
+    return probs, (time.perf_counter() - t0) * 1e3
+
+
 class Scorer:
     """The deterministic inference function ``probs = f(graph, seq, props)``.
     ``mega_variant`` and ``fused_stack`` are ``model_apply``'s; with either
@@ -155,6 +180,8 @@ class Scorer:
         return torch.Generator(device=self.device).manual_seed(self.seed)
 
     def __call__(self, graph, seq, props) -> np.ndarray:
+        from immunostruct_tpu_torch.models.trunk import model_apply
+
         with torch.inference_mode():
             out = model_apply(self.model, graph, seq, props,
                               generator=self.generator(), deterministic=True,
@@ -171,16 +198,38 @@ class Scorer:
         args = request_to_args(source, self.device, self.model,
                                paired=self.mega_variant == "paired",
                                ones_edge_feat=self.fused_stack)
-        t0 = time.perf_counter()
+        return _timed(self, args)
+
+
+class ArtifactScorer:
+    """A loaded artifact (``utils/export.py::load_exported``) with
+    ``Scorer``'s interface: ``score_request`` holds the request to the
+    program's signature on the host (``BadRequest`` when a shape or dtype
+    differs), runs it on the artifact's device and records a failed
+    forward in ``failure``."""
+
+    def __init__(self, artifact):
+        self.artifact = artifact
+        self.device = artifact.device
+        self.failure = None     # the first failed forward, as text
+
+    def __call__(self, *tensors) -> np.ndarray:
+        return self.artifact(*tensors).cpu().numpy()
+
+    def score_request(self, source):
+        """Score a request path or file-like; returns (probs, ms), where ms
+        is the wall time from parsed request to probabilities on the host."""
+        arrays = _load_npz(source)
         try:
-            probs = self(*args)
-        except Exception as e:
-            self.failure = f"{type(e).__name__}: {e}"
-            raise
-        return probs, (time.perf_counter() - t0) * 1e3
+            self.artifact.check(arrays)
+        except ValueError as e:
+            raise BadRequest(str(e)) from e
+        tensors = [torch.from_numpy(arrays[k]).to(self.device)
+                   for k in REQUEST_KEYS]
+        return _timed(self, tensors)
 
 
-def serve_one(scorer: Scorer, req_path: str) -> str:
+def serve_one(scorer, req_path: str) -> str:
     probs, ms = scorer.score_request(req_path)
     out_path = req_path[: -len(".npz")] + ".probs.npy"
     np.save(out_path, probs)
@@ -189,7 +238,7 @@ def serve_one(scorer: Scorer, req_path: str) -> str:
     return out_path
 
 
-def make_http_server(scorer: Scorer, host: str = "127.0.0.1",
+def make_http_server(scorer, host: str = "127.0.0.1",
                      port: int = 0) -> HTTPServer:
     """HTTP scoring endpoint. Returns the ``HTTPServer`` (not started);
     callers read the bound port from ``server_address`` and drive
@@ -245,12 +294,19 @@ def make_http_server(scorer: Scorer, host: str = "127.0.0.1",
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def build_scorer(args) -> Scorer:
-    """Model and Scorer from parsed command-line arguments."""
+def build_scorer(args):
+    """The scorer of parsed command-line arguments: the artifact's, or a
+    Scorer of the model rebuilt from the checkpoint (the model modules are
+    imported here, on that path only)."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but torch finds no CUDA device; "
                            "pass --device cpu to serve on the CPU")
+    if args.artifact:
+        return ArtifactScorer(load_exported(args.artifact, device))
+    from immunostruct_tpu_torch.models.zoo import build_model
+    from immunostruct_tpu_torch.utils.checkpoint import load_jax_checkpoint
+
     gen = torch.Generator().manual_seed(args.seed)
     _, model = build_model(args.model, args.seq_len * 21, gen, device=device)
     if args.checkpoint:
@@ -265,6 +321,10 @@ def build_scorer(args) -> Scorer:
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--artifact", type=str, default=None,
+                    help="a torch.export program of cli/export_model.py; "
+                         "serves it without the model code (the model "
+                         "flags and --checkpoint do not apply)")
     ap.add_argument("--checkpoint", type=str, default=None,
                     help="JAX package checkpoint (npz); without it the "
                          "weights are drawn from --seed")
@@ -308,6 +368,10 @@ def main(argv=None):
     if not (args.oneshot or args.http is not None or args.watch_dir):
         ap.error("one of --watch-dir, --oneshot, --http or --write-example "
                  "is required")
+    if args.artifact and args.checkpoint:
+        ap.error("--artifact serves an exported program; it does not take "
+                 "--checkpoint (export the checkpoint with "
+                 "cli/export_model.py)")
 
     scorer = build_scorer(args)
 

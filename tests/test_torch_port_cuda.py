@@ -153,6 +153,12 @@ held to it.
 - 'paired' forward and train step under
   ``torch.cuda.set_sync_debug_mode("error")``; 'onehot'/'onehot_remat'
   layers and ``model_apply(fused_stack=True)`` against 'scatter' in f32.
+
+The serving artifact (utils/export.py): the four kernel ops (B1, B3's
+forward, B8's scatter and gather) pass ``torch.library.opcheck`` on CUDA
+tensors in f32 and bf16; a full-width HybridModelv2 exported under 'mega'
+(bf16, B=16, E=2560) launches 6 B1 a call and no other kernel, gives the
+eager ``Scorer``'s bits, and refuses to load for the CPU.
 """
 
 import functools
@@ -2490,3 +2496,92 @@ def test_native_featurizer_builds_and_matches_numpy(tmp_path):
             for k in ("x", "coords", "edge_index"):
                 assert a[k].dtype == b[k].dtype
                 np.testing.assert_array_equal(a[k], b[k])
+
+
+# --------------------------------------------------------------------------
+# the serving artifact: the kernels as torch.library ops
+# --------------------------------------------------------------------------
+
+def _op_args(dtype, device, seed):
+    """(op, args) of the four kernel ops at a small size on ``device``."""
+    gen = torch.Generator().manual_seed(seed)
+    src, dst, mask, ef, h, x, *weights = _args(2, 256, 20, 64, dtype, device,
+                                               seed)
+    f = h.shape[2]
+
+    def bundle(idx):
+        rows = torch.cat([h, x], dim=-1)
+        return torch.gather(rows, 1, idx.long()[..., None].expand(
+            -1, -1, f + 3)).transpose(1, 2).contiguous()
+
+    m = torch.randn(2, 256, 67, generator=gen).to(device, dtype)
+    ops = torch.ops.immunostruct
+    return {
+        "edge_mega_fwd": (ops.edge_mega_fwd.default,
+                          (src, dst, mask, ef, h, x, *weights, False)),
+        "edge_mega_fwd residuals": (ops.edge_mega_fwd.default,
+                                    (src, dst, mask, ef, h, x, *weights,
+                                     True)),
+        "edge_program_fwd": (ops.edge_program_fwd.default,
+                             (bundle(src), bundle(dst),
+                              ef.transpose(1, 2).contiguous(), *weights)),
+        "segment_scatter": (ops.segment_scatter.default, (dst, mask, m, N)),
+        "segment_gather": (ops.segment_gather.default,
+                           (src, mask, h.contiguous())),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["edge_mega_fwd", "edge_mega_fwd residuals",
+                                  "edge_program_fwd", "segment_scatter",
+                                  "segment_gather"])
+def test_kernel_op_passes_opcheck_on_the_card(cuda, case, dtype):
+    op, args = _op_args(dtype, cuda, seed=61)[case]
+    counters = {"edge_mega_fwd": mega.edge_mega,
+                "edge_program_fwd": edge.edge_program,
+                "segment_scatter": segment.segment_scatter,
+                "segment_gather": segment.segment_gather}
+    counter = counters[case.split()[0]]
+    before = counter.launches
+    torch.library.opcheck(op, args)
+    assert counter.launches > before        # the kernel ran, counted in the op
+
+
+@pytest.mark.cuda
+def test_mega_artifact_launches_b1_and_gives_the_scorers_bits(cuda,
+                                                              tmp_path):
+    """A full-width HybridModelv2 exported on the card under 'mega' (bf16,
+    B=16, E=2560): 6 B1 launches a call and no other kernel, the eager
+    Scorer's bits (same weights, seed and aggregation), the same bits
+    twice; the artifact refuses to load for the CPU."""
+    from immunostruct_tpu_torch.cli.race_kernel_variants import counters
+    from immunostruct_tpu_torch.serving import Scorer
+    from immunostruct_tpu_torch.utils.export import (
+        REQUEST_KEYS, export_inference_fn, load_exported, save_exported,
+    )
+
+    _, model = build_model("HybridModelv2", 20 * 21,
+                           torch.Generator().manual_seed(1), device=cuda)
+    req = random_sample_batch(16, N, 2560, 20, seed=5, device=cuda)
+    program = export_inference_fn(
+        model, (req.graph, req.seq_onehot, req.props), aggregation="mega",
+        compute_dtype=torch.bfloat16, seed=3)
+    path = str(tmp_path / "model.pt2")
+    save_exported(program, path)
+    with pytest.raises(ValueError, match="exported on cuda"):
+        load_exported(path, "cpu")
+    artifact = load_exported(path, "cuda")
+    tensors = [getattr(req.graph, k) for k in REQUEST_KEYS[:8]] + [
+        req.seq_onehot, req.props]
+    wrappers = counters()
+    before = {k: fn.launches for k, fn in wrappers.items()}
+    probs = [artifact(*tensors) for _ in range(2)]
+    torch.cuda.synchronize()
+    launched = {k: fn.launches - before[k] for k, fn in wrappers.items()}
+    assert launched == {k: 12 if k == "B1" else 0 for k in wrappers}
+    scorer = Scorer(model, device=cuda, compute_dtype=torch.bfloat16,
+                    aggregation="mega", seed=3)
+    want = scorer(req.graph, req.seq_onehot, req.props)
+    assert torch.equal(probs[0], probs[1])
+    assert np.array_equal(probs[0].cpu().numpy(), want)

@@ -54,6 +54,7 @@ def test_every_module_imports_without_jax():
                    "cli.train_curriculum", "cli.infer_clinical_only",
                    "cli.featurize", "cli.convert_graphs", "cli.validate_data",
                    "procedures.clinical", "data.dedupe", "featurize.pdb",
+                   "utils.export", "utils.quantize", "cli.export_model",
                    "featurize.edges", "featurize.builder", "featurize.native"):
         assert f"immunostruct_tpu_torch.{module}" in names
     proc = _probe(names)
