@@ -239,7 +239,43 @@ Phases (none catches its own failure; any failure exits non-zero):
      and (b); for the step also
      'fused', 'pallas' and 'mega' under 'stack', 'inkernel' and 'paired')
      and print the device-busy time, the device's idle share and the
-     kernels that take the most device time;
+     kernels that take the most device time (each csrc kernel's time by
+     its label in utils/attribution.py);
+  28a. cli.profile_step in this process at full width (HybridModelv2,
+     B=128, N=288, L=284, E=2560, bf16, 'mega'): the train step with
+     --occupancy, --inference at B=128 and B=1, --comparative (every
+     count set to 0 before each run and read after it: 6 B1, 6 B2 and 12
+     B8 scatters a train step, 6 B1 a forward). Each run's rows name the
+     csrc kernels its path launches ([kernel:B1], [kernel:B2], [kernel:B8
+     scatter]; [kernel:B1] alone for a forward) and no other, and sum to
+     within 10% of phase 28's device-busy time for the same work; the
+     occupancy's idle share is printed beside phase 28's 1 - busy/wall;
+     the MFU of the 'mega' step from utils/flops.py (the analytic count
+     over phase 28's wall and device time, against the card's peak) beside
+     FlopCounterMode's count of the ATen ops;
+  28b. the device-resident corpus: (a) phase 19's corpus uploaded,
+     estimate_device_bytes equal to the uploaded tensors' bytes (beside
+     the growth of memory_allocated and --device-data's budget for the
+     card); (b) one epoch of DevicePipeline equal to BatchPipeline bit for
+     bit, the val split and the shuffled train split; (c) phases 19 and 21
+     ran on the device pipeline ('auto'); train_IEDB_wFT and
+     train_Cancer_wFT (with its clinical pass) again with
+     --no-device-data: the same per-epoch losses, checkpoint bits and
+     launches per stage; then auto and --no-device-data once more (one
+     epoch a stage, the Cancer run without its clinical pass), each
+     stage's epoch times printed in turn, and the device's idle share over
+     one epoch of each pipeline (IEDB finetune 'fused', Cancer stage 3
+     'pallas'); (d) train_IEDB_wFT --device-data --self-supervision
+     --sequence-pad-count 5 --structure-pad-count 5 --aggregation mega
+     twice (finite losses, the same bits), every augmented batch of one
+     epoch held on the card against the plain gather and the generator's
+     draws (pairwise CA distances kept, one all-ones row a graph with a
+     real residue and its class in aux_residue, the drawn rows zeroed but
+     the SSL row, 5 'J' positions in the HLA region), and gather_batch and
+     augment_batch under torch.cuda.set_sync_debug_mode("error"); (e)
+     27,000 rows at N=288, E=1280 uploaded (bytes, time) and a B=128
+     gather_batch timed (device and host us) beside the host pipeline's
+     assembly and copy of the same rows;
   29. print the times beside the card's name and power limit, then the
      kernel record (eleven kernels) as one JSON line, the card line and, last,
      the result line {"ok": true, "device": {...}}.
@@ -865,11 +901,11 @@ def check_serving(scorer, requests, kernel: int = 0) -> tuple:
 
 def make_trainer(name: str, aggregation: str, coeff: float = 0.0,
                  seed: int = 0, compute_dtype=torch.bfloat16,
-                 mega_variant: str = "hybrid"):
+                 mega_variant: str = "hybrid", vae_dim: int = L * 21):
     """A full-width model with seeded weights, its trainer (bf16 over f32
     master weights unless ``compute_dtype`` says otherwise, Adam at 1e-3,
     the JAX bench's loss config, ``mega_variant`` under 'mega') and
-    state."""
+    state; ``vae_dim`` the sequence width times 21."""
     from immunostruct_tpu_torch.models import build_model
     from immunostruct_tpu_torch.procedures.train import (
         Trainer, make_optimizer,
@@ -877,9 +913,9 @@ def make_trainer(name: str, aggregation: str, coeff: float = 0.0,
     from immunostruct_tpu_torch.utils.losses import LossConfig
     from immunostruct_tpu_torch.utils.schedule import constant_lr
 
-    _, model = build_model(name, L * 21, torch.Generator().manual_seed(seed),
+    _, model = build_model(name, vae_dim, torch.Generator().manual_seed(seed),
                            device="cuda")
-    trainer = Trainer(model.spec, LossConfig(L * 21, pos_weight=1.0,
+    trainer = Trainer(model.spec, LossConfig(vae_dim, pos_weight=1.0,
                                              sequence=True),
                       binary=True,
                       optimizer=make_optimizer("adam", constant_lr(1e-3)),
@@ -1372,6 +1408,7 @@ def check_entry_point(tmp: str) -> tuple:
         graphs = train_pipe.ds.graphs       # the corpus's padded shapes
         stages.append(dict(stage=kw["stage"], history=history, launches=[
             a - z for a, z in zip(read_counts(), before)],
+            pipeline=type(train_pipe).__name__,
             N=graphs.max_nodes, E=graphs.max_edges,
             edges_per_graph=[int(graphs.edge_mask.sum(1).min()),
                              int(graphs.edge_mask.sum(1).max())]))
@@ -1397,18 +1434,18 @@ def check_entry_point(tmp: str) -> tuple:
                 operands[key] = [t.detach().clone() for t in args]
         return real_fwd(*args)
 
+    argv = ["--model", "HybridModelv2", "--full-sequence", "--sequence-loss",
+            "--aggregation", "fused", "--compute-dtype", "bfloat16",
+            "--batch-size", str(B), "--num-epochs", str(CLI_EPOCHS),
+            "--device", "cuda", "--seed", "1", "--model-save-dir", save_dir,
+            "--graph-dir-IEDB", graph_dir, "--property-path-IEDB", props,
+            "--hla-path", hla]
     cli.train_model, cli.inference = train_model, inference
     edge.edge_program_fwd = edge_program_fwd
     try:
         reset_counts()                  # every count to 0: the entry point
         t0 = time.perf_counter()
-        train_stats, test_stats = cli.main([
-            "--model", "HybridModelv2", "--full-sequence", "--sequence-loss",
-            "--aggregation", "fused", "--compute-dtype", "bfloat16",
-            "--batch-size", str(B), "--num-epochs", str(CLI_EPOCHS),
-            "--device", "cuda", "--seed", "1", "--model-save-dir", save_dir,
-            "--graph-dir-IEDB", graph_dir, "--property-path-IEDB", props,
-            "--hla-path", hla])
+        train_stats, test_stats = cli.main(argv)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         counts = read_counts()          # read just after the entry point
@@ -1458,9 +1495,10 @@ def check_entry_point(tmp: str) -> tuple:
                                train_loss=h["train_loss"][i],
                                val_loss=h["val_loss"][i]))
     assert stages[0]["N"] == N and stages[0]["E"] % 128 == 0, stages[0]
-    row = dict(save_dir=save_dir, infer_args=[
+    row = dict(save_dir=save_dir, argv=argv, infer_args=[
                    "--graph-dir-IEDB", graph_dir, "--property-path-IEDB",
                    props, "--hla-path", hla],
+               pipelines=[s["pipeline"] for s in stages],
                corpus=[graph_dir, props, hla], samples=CLI_SAMPLES, N=stages[0]["N"], E=stages[0]["E"],
                edges_per_graph=stages[0]["edges_per_graph"],
                corpus_s=corpus_s, wall_s=wall_s,
@@ -1851,6 +1889,7 @@ def check_cancer_entry_point(tmp: str, clinical: tuple) -> tuple:
         graphs = train_pipe.ds.graphs
         stages.append(dict(stage=kw["stage"], resume_tag=kw.get("resume_tag"),
                            comparative=hasattr(train_pipe, "wt"),
+                           pipeline=type(train_pipe).__name__,
                            steps_per_epoch=len(train_pipe), history=history,
                            launches=[a - z for a, z in zip(read_counts(),
                                                            before)],
@@ -1897,11 +1936,7 @@ def check_cancer_entry_point(tmp: str, clinical: tuple) -> tuple:
     segment._scatter_launch, segment._gather_launch = scatter, gather
     infer.inference_clinical_only = inference_clinical_only
     graph_clin, seq_clin, table_clin = clinical
-    try:
-        reset_counts()                  # every count to 0: the entry point
-        t0 = time.perf_counter()
-        train_stats, test_stats = cli.main([
-            "--model", "HybridModelv2_Comparative", "--full-sequence",
+    argv = ["--model", "HybridModelv2_Comparative", "--full-sequence",
             "--sequence-loss", "--aggregation", "pallas",
             "--compute-dtype", "bfloat16", "--batch-size", str(B),
             "--num-epochs", str(CLI_EPOCHS), "--coeff-contrastive", "0.1",
@@ -1914,7 +1949,11 @@ def check_cancer_entry_point(tmp: str, clinical: tuple) -> tuple:
             "--graph-dir-clinical", graph_clin,
             "--seq-path-clinical", seq_clin,
             "--clinical-table-path", table_clin,
-            "--figure-save-dir", os.path.join(tmp, "cancer_figures")])
+            "--figure-save-dir", os.path.join(tmp, "cancer_figures")]
+    try:
+        reset_counts()                  # every count to 0: the entry point
+        t0 = time.perf_counter()
+        train_stats, test_stats = cli.main(argv)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         counts = read_counts()          # read just after the entry point
@@ -1975,7 +2014,8 @@ def check_cancer_entry_point(tmp: str, clinical: tuple) -> tuple:
                                train_loss=h["train_loss"][i],
                                val_loss=h["val_loss"][i]))
     assert stages[1]["N"] == N and stages[1]["E"] % 128 == 0, stages[1]
-    row = dict(save_dir=save_dir, infer_args=[
+    row = dict(save_dir=save_dir, argv=argv,
+               pipelines=[s["pipeline"] for s in stages], infer_args=[
                    "--graph-dir-cancer", dir_c, "--graph-dir-wildtype", dir_w,
                    "--property-path-cancer", props_c,
                    "--property-path-wildtype", props_w, "--hla-path", hla],
@@ -3483,7 +3523,8 @@ def device_profile(fn, traced: int) -> tuple:
     """``traced`` calls of ``fn`` under torch.profiler: (device time and
     launches by kernel name over the ``traced`` calls, the host's ATen
     calls per call: every ``aten::`` event, nested ones too, and those of
-    them that are ``aten::_assert_tensor_metadata``)."""
+    them that are ``aten::_assert_tensor_metadata``, the device events
+    [(start_us, end_us, name)] in time order)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -3492,6 +3533,7 @@ def device_profile(fn, traced: int) -> tuple:
             fn()
         torch.cuda.synchronize()
     per_name, host = {}, {"aten": 0, "_assert_tensor_metadata": 0}
+    timeline = []
     for ev in prof.events():
         if (ev.device_type == torch.autograd.DeviceType.CPU
                 and ev.name.startswith("aten::")):
@@ -3506,25 +3548,30 @@ def device_profile(fn, traced: int) -> tuple:
         us = ev.time_range.end - ev.time_range.start
         tot, cnt = per_name.get(ev.name, (0.0, 0))
         per_name[ev.name] = (tot + us, cnt + 1)
+        timeline.append((ev.time_range.start, ev.time_range.end, ev.name))
     assert per_name, "torch.profiler recorded no device activity"
-    return per_name, {k: v / traced for k, v in host.items()}
+    return per_name, {k: v / traced for k, v in host.items()}, \
+        sorted(timeline)
 
 
 def profile_row(label, agg, profiled, traced, wall) -> dict:
-    per_name, host = profiled
+    """One row of phase 28: the device's busy time and idle share, and the
+    time of each csrc kernel by its label in utils/attribution.py (its
+    helper kernels, the bf16 projection and the chunk and block sums,
+    counted with the kernel they serve)."""
+    from immunostruct_tpu_torch.utils.attribution import label_events
+
+    per_name, host, timeline = profiled
     busy_ms = sum(t for t, _ in per_name.values()) / 1e3 / traced
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:5]
+    by_label = {}
+    events = [(s, e, name, "") for s, e, name in timeline]
+    for (s, e, _, _), lab in zip(events, label_events(events)):
+        by_label[lab] = by_label.get(lab, 0.0) + (e - s) / 1e3 / traced
 
-    def kernel_ms(tag, also=""):
-        return sum(t for name, (t, _) in per_name.items()
-                   if tag in name and also in name) / 1e3 / traced
+    def kernel_ms(b):
+        return by_label.get(f"[kernel:{b}]", 0.0)
 
-    # B1 and B4: their f32 kernels, or the bf16 form's projections (one
-    # kernel for both: B4's under 'paired') and edge kernel (B1's tile
-    # policy EdgeTiles, B4's ArcTiles); the chunk sums (B1 and B4 at small
-    # B, B5b) are chunk_sum_ms
-    proj_ms = kernel_ms("egnn_mega_proj")
-    paired = "paired" in agg
     row = dict(
         work=label, aggregation=agg, wall_ms_median=wall,
         device_busy_ms=busy_ms,
@@ -3532,20 +3579,14 @@ def profile_row(label, agg, profiled, traced, wall) -> dict:
         idle_share=max(0.0, 1.0 - busy_ms / wall),
         host_aten_calls=host["aten"],
         host_assert_metadata_calls=host["_assert_tensor_metadata"],
-        b1_ms=(kernel_ms("egnn_mega_fwd_kernel") + kernel_ms("EdgeTiles")
-               + (0.0 if paired else proj_ms)),
-        b2_ms=kernel_ms("tail_bwd", ", 0>("),
-        b3_fwd_ms=kernel_ms("egnn_edge_fwd"),
-        b3_bwd_ms=kernel_ms("egnn_edge_bwd"),
-        b8_scatter_ms=kernel_ms("segment_scatter_kernel"),
-        b8_gather_ms=kernel_ms("segment_gather_kernel"),
-        b4_ms=(kernel_ms("egnn_mega_paired_fwd_kernel")
-               + kernel_ms("ArcTiles") + (proj_ms if paired else 0.0)),
-        b5a_ms=kernel_ms("tail_bwd", ", 1>("),
-        b5b_ms=kernel_ms("tail_bwd", ", 2>("),
-        chunk_sum_ms=kernel_ms("reduce_node_chunks"),
-        b6_ms=kernel_ms("egnn_stack_fwd"),
-        b7_ms=kernel_ms("egnn_layer_fwd"),
+        b1_ms=kernel_ms("B1"), b2_ms=kernel_ms("B2"),
+        b3_fwd_ms=kernel_ms("B3 fwd"), b3_bwd_ms=kernel_ms("B3 bwd"),
+        b8_scatter_ms=kernel_ms("B8 scatter"),
+        b8_gather_ms=kernel_ms("B8 gather"), b4_ms=kernel_ms("B4"),
+        b5a_ms=kernel_ms("B5a"), b5b_ms=kernel_ms("B5b"),
+        chunk_sum_ms=sum(t for name, (t, _) in per_name.items()
+                         if "reduce_node_chunks" in name) / 1e3 / traced,
+        b6_ms=kernel_ms("B6"), b7_ms=kernel_ms("B7"),
         top=[[name[:90], t / 1e3 / traced, c // traced]
              for name, (t, c) in top])
     print("profile:", json.dumps(row), flush=True)
@@ -3611,6 +3652,502 @@ def profile_training(traced: int = 3) -> list:
                                 traced, statistics.median(ms[3:])))
         del trainer, state
     return rows
+
+
+# --------------------------------------------------------------------------
+# the fourteenth slice: profile_step on the card (28a) and the
+# device-resident corpus behind --device-data (28b)
+# --------------------------------------------------------------------------
+
+PROFILE_STEPS, PROFILE_WARMUP = 5, 3
+# profile_step's runs: (label, flags, phase 28's row of the same work
+# (work, aggregation) or None, the csrc kernels each names)
+PROFILE_RUNS = (
+    ("train", ["--aggregation", "mega", "--occupancy"],
+     ("train step B=128 E=2560", "mega"), ("B1", "B2", "B8 scatter")),
+    ("inference B=128", ["--inference", "--aggregation", "mega"],
+     ("forward B=128 E=2560", "mega"), ("B1",)),
+    ("inference B=1", ["--inference", "--batch", "1", "--aggregation",
+                       "mega"], ("forward B=1 E=2560", "mega"), ("B1",)),
+    ("comparative", ["--comparative", "--aggregation", "mega"], None,
+     ("B1", "B2", "B8 scatter")),
+)
+# the reference corpus's scale (data/device_pipeline.py of the JAX
+# package: ~27K structures)
+REFERENCE_ROWS = 27000
+
+
+def check_profile_step(tmp: str, phase28: list) -> dict:
+    """Phase 28a: cli.profile_step in this process at full width
+    (HybridModelv2, B=128, N=288, L=284, E=2560, bf16, 'mega'): the train
+    step with --occupancy, --inference at B=128 and B=1, --comparative.
+    Each run names the csrc kernels its path launches and no other, and
+    its rows sum to within 10% of phase 28's device-busy time for the same
+    work; then the MFU of the 'mega' step from utils/flops.py."""
+    from immunostruct_tpu_torch.cli import profile_step
+    from immunostruct_tpu_torch.data.synthetic import random_sample_batch
+    from immunostruct_tpu_torch.models import model_map
+    from immunostruct_tpu_torch.utils import flops
+
+    rows, launches = {}, {}
+    for label, flags, same, kernels in PROFILE_RUNS:
+        reset_counts()
+        t0 = time.perf_counter()
+        out = profile_step.main(flags + [
+            "--steps", str(PROFILE_STEPS), "--warmup", str(PROFILE_WARMUP),
+            "--logdir", os.path.join(tmp, "profile_step"), "--top", "12"])
+        torch.cuda.synchronize()
+        launches[label] = read_counts()
+        named = sorted(lab[len("[kernel:"):-1] for _, lab in out["rows"]
+                       if lab.startswith("[kernel:"))
+        assert named == sorted(kernels), (label, out["rows"])
+        row = dict(run=label, wall_s=time.perf_counter() - t0,
+                   device_total_ms=out["device_total_ms"],
+                   rows=out["rows"][:15], launches=launches[label],
+                   labels_by_kind={
+                       kind: sum(1 for _, lab in out["rows"]
+                                 if lab.startswith(prefix))
+                       for kind, prefix in (("kernel", "[kernel:"),
+                                            ("file_line",
+                                             "immunostruct_tpu_torch/"),
+                                            ("aten", "[aten::"))})
+        if same is not None:
+            ref = next(r for r in phase28 if (r["work"], r["aggregation"])
+                       == same)
+            row["phase28_device_busy_ms"] = ref["device_busy_ms"]
+            row["ratio_to_phase28"] = (out["device_total_ms"]
+                                       / ref["device_busy_ms"])
+            assert abs(row["ratio_to_phase28"] - 1.0) <= 0.10, row
+        if "occupancy" in out:
+            occ = out["occupancy"]
+            row["occupancy"] = dict(occ, gaps=occ["gaps"][:3])
+        print("profile_step:", json.dumps(row), flush=True)
+        rows[label] = row
+    steps = PROFILE_STEPS + PROFILE_WARMUP
+    # per step: 6 B1, 6 B2 and 12 B8 scatters under 'mega'; 6 B1 a forward
+    assert launches["train"] == (6 * steps, 6 * steps, 0, 0, 12 * steps,
+                                 0, 0, 0, 0, 0, 0), launches
+    for label in ("inference B=128", "inference B=1"):
+        assert launches[label] == (6 * steps,) + (0,) * 10, launches
+    twin = launches["comparative"]
+    assert twin[0] == twin[1] > 0 and twin[4] == 2 * twin[0] and \
+        sum(twin) == 4 * twin[0], launches
+
+    # MFU of the 'mega' step: the analytic model FLOPs over phase 28's
+    # median wall and its device-busy time, against the card's peak
+    mega_row = next(r for r in phase28 if (r["work"], r["aggregation"])
+                    == ("train step B=128 E=2560", "mega"))
+    trainer, state = make_trainer("HybridModelv2", "mega")
+    n_params = flops.param_count(state.model)
+    analytic = flops.train_step_flops(model_map["HybridModelv2"], B, N,
+                                      EDGE_COUNTS[0], L * 21, n_params)
+    batch = random_sample_batch(B, N, EDGE_COUNTS[0], L, seed=0,
+                                device="cuda")
+    executed = flops.executed_flops(trainer.train_step, state, batch, 0)
+    peak = flops.peak_flops("cuda", "bfloat16")
+    mfu = dict(params=n_params, analytic_tflop_per_step=analytic / 1e12,
+               executed_aten_tflop_per_step=executed / 1e12,
+               peak_tflops_bf16=None if peak is None else peak / 1e12,
+               wall_ms=mega_row["wall_ms_median"],
+               device_busy_ms=mega_row["device_busy_ms"],
+               mfu_of_wall=(None if peak is None else analytic
+                            / (mega_row["wall_ms_median"] / 1e3) / peak),
+               mfu_of_device_time=(None if peak is None else analytic
+                                   / (mega_row["device_busy_ms"] / 1e3)
+                                   / peak),
+               idle_share_occupancy=rows["train"]["occupancy"]["idle_frac"],
+               idle_share_phase28=mega_row["idle_share"],
+               launches=launches)
+    del trainer, state
+    print("mfu:", json.dumps(mfu), flush=True)
+    return dict(runs=rows, mfu=mfu)
+
+
+def _tensors(batch) -> list:
+    from immunostruct_tpu_torch.structs import map_tensors
+
+    out = []
+    map_tensors(out.append, batch)
+    return out
+
+
+def _same_batches(a, b) -> bool:
+    """Every tensor of two batches equal, dtype and device included."""
+    return all(x.dtype == y.dtype and x.device == y.device
+               and torch.equal(x, y)
+               for x, y in zip(_tensors(a), _tensors(b)))
+
+
+def _checkpoints(save_dir: str) -> dict:
+    out = {}
+    for f in sorted(os.listdir(save_dir)):
+        if f.endswith(".ckpt"):
+            with np.load(os.path.join(save_dir, f)) as z:
+                out[f] = {k: z[k] for k in z.files}
+    return out
+
+
+def _same_checkpoints(a: str, b: str) -> bool:
+    ca, cb = _checkpoints(a), _checkpoints(b)
+    return ca.keys() == cb.keys() and len(ca) == 2 and all(
+        ca[f].keys() == cb[f].keys() and all(
+            ca[f][k].dtype == cb[f][k].dtype
+            and np.array_equal(ca[f][k], cb[f][k]) for k in ca[f])
+        for f in ca)
+
+
+def _with_flags(argv: list, save_dir: str, *flags) -> list:
+    out = list(argv)
+    out[out.index("--model-save-dir") + 1] = save_dir
+    return out + list(flags)
+
+
+def run_entry(cli, argv: list) -> dict:
+    """``cli.main(argv)`` with each stage's pipeline kind, history and
+    launches recorded (every count set to 0 before the entry point)."""
+    stages, real = [], cli.train_model
+
+    def train_model(config, model, train_pipe, *args, **kw):
+        before = read_counts()
+        model, history = real(config, model, train_pipe, *args, **kw)
+        stages.append(dict(stage=kw["stage"],
+                           pipeline=type(train_pipe).__name__,
+                           steps=len(train_pipe), history=history,
+                           launches=[a - z for a, z in zip(read_counts(),
+                                                           before)]))
+        return model, history
+
+    cli.train_model = train_model
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        cli.main(argv)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        cli.train_model = real
+    return dict(stages=stages, wall_s=wall_s, launches=read_counts())
+
+
+def _losses(stages) -> list:
+    return [(h["train_loss"], h["val_loss"])
+            for h in (s["history"] for s in stages)]
+
+
+def _epoch_occupancy(trainer, state, pipe) -> dict:
+    """Two steps to warm, then one epoch traced (the device's kernels,
+    copies and fills only): the device's busy time and idle share over
+    the epoch from utils/attribution.py::occupancy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from immunostruct_tpu_torch.data.pipeline import prefetch
+    from immunostruct_tpu_torch.utils.attribution import occupancy
+
+    for _, batch in zip(range(2), pipe.epoch(0)):
+        trainer.train_step(state, batch, seed=0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for batch in prefetch(pipe.epoch(1)):
+            trainer.train_step(state, batch, seed=0)
+        torch.cuda.synchronize()
+    timeline = sorted(
+        (ev.time_range.start, ev.time_range.end, ev.name)
+        for ev in prof.events()
+        if ev.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(ev, "is_user_annotation", False))
+    occ = occupancy(timeline, 1)
+    return dict(pipeline=type(pipe).__name__, steps=len(pipe),
+                idle_share=occ["idle_frac"], busy_ms=occ["busy_ms"],
+                span_ms=occ["span_ms"])
+
+
+def check_device_data(tmp: str, entry: dict, cancer: dict) -> dict:
+    """Phase 28b: the device-resident corpus on the card, (a)-(e) of the
+    module docstring."""
+    import copy
+
+    from immunostruct_tpu_torch.cli import train_Cancer_wFT, train_IEDB_wFT
+    from immunostruct_tpu_torch.cli.common import device_data_budget
+    from immunostruct_tpu_torch.config import Config
+    from immunostruct_tpu_torch.data.dataset import (
+        ComparativeDataset, GraphArrays, ImmunoDataset, seeded_split,
+    )
+    from immunostruct_tpu_torch.data.device_pipeline import (
+        ComparativeDevicePipeline, DevicePipeline, build_device_corpus,
+        estimate_device_bytes, gather_batch,
+    )
+    from immunostruct_tpu_torch.data.pipeline import (
+        BatchPipeline, ComparativePipeline,
+    )
+
+    out = {}
+    # (a) the corpus of phase 19: the estimate is the uploaded bytes
+    cfg = Config(device="cuda", batch_size=B, seed=1, full_sequence=True)
+    ds = ImmunoDataset.load(cfg, *entry["corpus"])
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    corpus = build_device_corpus(ds, binary=True, full=True, device="cuda")
+    torch.cuda.synchronize()
+    need = estimate_device_bytes(ds, full=True)
+    assert need == corpus.nbytes(), (need, corpus.nbytes())
+    out["corpus"] = dict(rows=len(ds), graphs=int(ds.graphs.num_nodes.size),
+                         estimate_bytes=need, nbytes=corpus.nbytes(),
+                         memory_allocated_growth=(
+                             torch.cuda.memory_allocated() - before),
+                         budget_bytes=device_data_budget("cuda"))
+    del corpus
+
+    # (b) one epoch of the device pipeline is the host pipeline's
+    tr, va, _ = seeded_split(len(ds), (0.8, 0.1, 0.1), cfg.seed)
+    for split, idx in (("val", va), ("train", tr)):
+        host = BatchPipeline(ds, idx, split=split, binary=True, full=True,
+                             config=cfg)
+        dev = DevicePipeline(ds, idx, split=split, binary=True, full=True,
+                             config=cfg, pad_final_batch=False)
+        pairs = list(zip(host.epoch(0), dev.epoch(0)))
+        assert len(pairs) == len(dev) and all(_same_batches(h, d)
+                                              for h, d in pairs), split
+        out[f"equal_batches_{split}"] = len(pairs)
+
+    # (c) the entry points by default (auto: the device pipeline; phases 19
+    # and 21) and with --no-device-data, in turn
+    assert entry["pipelines"] == ["DevicePipeline"] * 2, entry["pipelines"]
+    assert cancer["pipelines"] == ["DevicePipeline",
+                                   "ComparativeDevicePipeline",
+                                   "ComparativeDevicePipeline"], cancer
+    turns = {}
+    for name, cli, row in (("IEDB", train_IEDB_wFT, entry),
+                           ("Cancer", train_Cancer_wFT, cancer)):
+        runs = [("auto", dict(
+            wall_s=row["wall_s"], epochs=[e["epoch_s"] for e in row["epochs"]]))]
+        # host, auto, host: with phase 19/21 (auto) two alternations; the
+        # second at one epoch a stage and without the clinical pass (time)
+        for i, host in enumerate((True, False, True)):
+            save = os.path.join(tmp, f"{name}_turn{i}")
+            flags = ["--no-device-data"] if host else []
+            if i:
+                flags += ["--num-epochs", "1"] + (
+                    ["--skip-clinical"] if name == "Cancer" else [])
+            r = run_entry(cli, _with_flags(row["argv"], save, *flags))
+            kinds = {s["pipeline"] for s in r["stages"]}
+            assert (kinds <= {"BatchPipeline", "ComparativePipeline"}) == \
+                host, kinds
+            if i == 0:
+                # the same losses, checkpoints and launches as phase 19/21
+                assert _losses(r["stages"]) == [
+                    ([e["train_loss"] for e in row["epochs"]
+                      if e["stage"] == st][:CLI_EPOCHS],
+                     [e["val_loss"] for e in row["epochs"]
+                      if e["stage"] == st][:CLI_EPOCHS])
+                    for st in dict.fromkeys(e["stage"] for e in row["epochs"])
+                ], (name, _losses(r["stages"]))
+                assert _same_checkpoints(save, row["save_dir"]), name
+                want = (list(row["launches_by_stage"].values())
+                        if isinstance(row["launches_by_stage"], dict)
+                        else row["launches_by_stage"])
+                assert [s["launches"] for s in r["stages"]] == want, name
+            runs.append(("host" if host else "auto",
+                         dict(wall_s=r["wall_s"], epochs=[
+                             t for s in r["stages"]
+                             for t in s["history"]["epoch_time"]])))
+        turns[name] = runs
+        print(f"device data turns ({name}):", json.dumps(runs), flush=True)
+    out["turns"] = turns
+
+    # the device's idle share over one epoch, device and host pipelines:
+    # the IEDB finetune ('fused') and the Cancer stage 3 ('pallas')
+    cds = ComparativeDataset.load(
+        cfg, *[cancer["argv"][cancer["argv"].index(f) + 1] for f in (
+            "--graph-dir-cancer", "--graph-dir-wildtype",
+            "--property-path-cancer", "--property-path-wildtype",
+            "--hla-path")])
+    tr2, _, _ = seeded_split(len(cds), (0.8, 0.1, 0.1), cfg.seed)
+    occupancy_rows = []
+    vae_dim = ds.seq_full.shape[1] * 21
+    for label, model, agg, coeff, pipes in (
+            ("IEDB finetune 'fused'", "HybridModelv2", "fused", 0.0, [
+                cls(ds, tr, split="train", binary=True, full=True,
+                    config=cfg, **kw)
+                for cls, kw in ((DevicePipeline, {"pad_final_batch": False}),
+                                (BatchPipeline, {}))]),
+            ("Cancer stage 3 'pallas'", "HybridModelv2_Comparative",
+             "pallas", 0.1, [
+                 cls(cds, tr2, split="train", binary=True, full=True,
+                     config=cfg, extend_to=MIN_FINETUNING_BATCHES * B, **kw)
+                 for cls, kw in ((ComparativeDevicePipeline,
+                                  {"pad_final_batch": False}),
+                                 (ComparativePipeline, {}))])):
+        trainer, state = make_trainer(model, agg, coeff=coeff,
+                                      vae_dim=vae_dim)
+        for pipe in pipes:
+            r = dict(work=label, **_epoch_occupancy(trainer, state, pipe))
+            occupancy_rows.append(r)
+            print("epoch occupancy:", json.dumps(r), flush=True)
+        del trainer, state
+    out["epoch_occupancy"] = occupancy_rows
+
+    # (d) the augmented device pipeline: SSL, 5 sequence and 5 structure
+    # masks, under 'mega'
+    out["augmented"] = check_augmented(tmp, entry, ds)
+
+    # (e) the reference scale: 27,000 rows, one graph each
+    reps = -(-REFERENCE_ROWS // len(ds))
+
+    def tile(a):
+        return np.tile(a, (reps,) + (1,) * (a.ndim - 1))[:REFERENCE_ROWS]
+
+    big = copy.copy(ds)
+    for k in ("seq_full", "seq_pep", "props", "immuno", "foreign_norm"):
+        setattr(big, k, tile(getattr(ds, k)))
+    gi = tile(ds.graph_idx)
+    big.graphs = GraphArrays(**{
+        k: getattr(ds.graphs, k)[gi] for k in (
+            "node_onehot", "coords", "edge_src", "edge_dst", "edge_mask",
+            "node_mask", "num_nodes")})
+    big.graph_idx = np.arange(REFERENCE_ROWS, dtype=np.int32)
+    need = estimate_device_bytes(big, full=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    corpus = build_device_corpus(big, binary=True, full=True, device="cuda")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    assert corpus.nbytes() == need
+    rng = np.random.default_rng(0)
+    rows = [rng.choice(REFERENCE_ROWS, B, replace=False) for _ in range(20)]
+    on_card = [torch.from_numpy(r.astype(np.int32)).cuda() for r in rows]
+    turn = iter(range(1 << 30))
+
+    def gather():           # a new set of rows each call
+        gather_batch(corpus, on_card[next(turn) % len(on_card)])
+
+    device_us = device_ms(gather, calls=len(on_card)) * 1e3
+    gather_host_us = host_us(gather, calls=200)
+    host_pipe = BatchPipeline(big, np.arange(REFERENCE_ROWS), split="val",
+                              binary=True, full=True, config=cfg)
+    host_pipe._assemble(rng, rows[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in rows:
+        host_pipe._assemble(rng, r)
+    torch.cuda.synchronize()
+    host_pipeline_us = (time.perf_counter() - t0) / len(rows) * 1e6
+    out["reference_scale"] = dict(
+        rows=REFERENCE_ROWS, N=int(big.graphs.node_onehot.shape[1]),
+        E=int(big.graphs.edge_src.shape[1]), L=int(big.seq_full.shape[1]),
+        bytes=need, bytes_per_row=need / REFERENCE_ROWS, upload_s=upload_s,
+        gather_device_us=device_us, gather_host_us=gather_host_us,
+        host_pipeline_us=host_pipeline_us, batch=B)
+    del corpus, big
+    print("device data:", json.dumps(out), flush=True)
+    return out
+
+
+def check_augmented(tmp: str, entry: dict, ds) -> dict:
+    """Phase 28b (d): train_IEDB_wFT --device-data --self-supervision
+    --sequence-pad-count 5 --structure-pad-count 5 --aggregation mega twice
+    (finite losses, the same bits), and every augmented batch of one epoch
+    of its train pipeline held on the card against the plain gather of
+    the same rows and the draws of its generator."""
+    from immunostruct_tpu_torch.cli import train_IEDB_wFT
+    from immunostruct_tpu_torch.config import Config
+    from immunostruct_tpu_torch.data.dataset import seeded_split
+    from immunostruct_tpu_torch.data.device_augment import (
+        augment_batch, draw_batch,
+    )
+    from immunostruct_tpu_torch.data.device_pipeline import (
+        DevicePipeline, gather_batch,
+    )
+
+    pad = 5
+    argv = ["--model", "HybridModelv2_SSL", "--full-sequence",
+            "--sequence-loss", "--aggregation", "mega", "--compute-dtype",
+            "bfloat16", "--batch-size", str(B), "--num-epochs", "1",
+            "--device", "cuda", "--seed", "1", "--device-data",
+            "--self-supervision", "--sequence-pad-count", str(pad),
+            "--structure-pad-count", str(pad), "--model-save-dir", "",
+            "--graph-dir-IEDB", entry["corpus"][0],
+            "--property-path-IEDB", entry["corpus"][1],
+            "--hla-path", entry["corpus"][2]]
+    runs = []
+    for i in range(2):
+        save = os.path.join(tmp, f"ssl_{i}")
+        runs.append((save, run_entry(train_IEDB_wFT,
+                                     _with_flags(argv, save))))
+    (save0, r0), (save1, r1) = runs
+    assert [s["pipeline"] for s in r0["stages"]] == ["DevicePipeline"] * 2
+    losses = _losses(r0["stages"])
+    assert all(np.isfinite(v).all() for pair in losses for v in pair), losses
+    assert losses == _losses(r1["stages"]), (losses, _losses(r1["stages"]))
+    assert _same_checkpoints(save0, save1)
+    assert r0["launches"][0] > 0 and r0["launches"][1] > 0, r0["launches"]
+
+    # every batch of one epoch of the pipeline the entry point trains on
+    cfg = Config(device="cuda", batch_size=B, seed=1, full_sequence=True,
+                 self_supervision=True, sequence_pad_count=pad,
+                 structure_pad_count=pad)
+    tr, _, _ = seeded_split(len(ds), (0.8, 0.1, 0.1), cfg.seed)
+    pipe = DevicePipeline(ds, tr, split="train", binary=False, full=True,
+                          config=cfg, ssl=True, device_augment=True)
+    kw = pipe._augment_kw()
+    rows_of = pipe._epoch_rows(0)
+    checked = 0
+    for step, batch in enumerate(pipe.epoch(0)):
+        plain = gather_batch(pipe.corpus, rows_of[step])
+        b, n, _ = plain.graph.node_feat.shape
+        draws = draw_batch(pipe._generator(0, step), b, n, **kw)
+        c0, c1 = plain.graph.coords, batch.graph.coords
+        exact = "donot_use_mm_for_euclid_dist"
+        d0 = torch.cdist(c0, c0, compute_mode=exact)
+        d1 = torch.cdist(c1, c1, compute_mode=exact)
+        f0, f1 = plain.graph.node_feat, batch.graph.node_feat
+        real = f0.sum(-1) == 1
+        ones = f1.sum(-1) == 20
+        has_real = real.any(1)
+        ssl_pos = ones.float().argmax(1)
+        ssl_class = f0.gather(1, ssl_pos[:, None, None].expand(-1, 1, 20)
+                              )[:, 0].argmax(-1)
+        zeroed = (f1.sum(-1) == 0) & (f0.sum(-1) > 0)
+        sel_n = torch.zeros_like(real).scatter_(
+            1, torch.topk(draws["structure"], pad, dim=1).indices, True)
+        seq0, seq1 = plain.seq_onehot, batch.seq_onehot
+        sel_l = torch.zeros(seq0.shape[:2], dtype=torch.bool,
+                            device=seq0.device)
+        sel_l[:, :pipe.maskable_len] = torch.zeros_like(
+            draws["sequence"], dtype=torch.bool).scatter_(
+            1, torch.topk(draws["sequence"], pad, dim=1).indices, True)
+        j = torch.zeros(21, device=seq0.device)
+        j[20] = 1
+        checks = torch.stack([
+            # the rotation keeps every pairwise CA distance (f32 rounding)
+            (d1 - d0).abs().max() <= 1e-5 * c0.abs().max() + 1e-6,
+            # one all-ones row a graph with a real residue, none otherwise
+            (ones.sum(1) == has_real.long()).all(),
+            # its class in aux_residue (0 without a real residue)
+            (batch.aux_residue == torch.where(has_real, ssl_class, 0)).all(),
+            # the zeroed rows: the drawn positions, never the SSL row
+            (zeroed == (sel_n & (f0.sum(-1) > 0) & ~ones)).all(),
+            (zeroed.sum(1) <= pad).all(),
+            # exactly `pad` 'J' positions, drawn inside the HLA region
+            (sel_l.sum(1) == pad).all(),
+            (seq1[sel_l] == j).all(),
+            (seq1[~sel_l] == seq0[~sel_l]).all(),
+        ])
+        assert bool(checks.all()), (step, checks.tolist())
+        checked += 1
+    assert checked == len(pipe)
+    # the per-step path makes no host sync
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gen = pipe._generator(0, 0)
+        augment_batch(gather_batch(pipe.corpus, rows_of[0]), gen, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    row = dict(batches_checked=checked, losses=losses,
+               launches=r0["launches"], wall_s=[r0["wall_s"], r1["wall_s"]])
+    print("augmented device data:", json.dumps(row), flush=True)
+    return row
 
 
 # --------------------------------------------------------------------------
@@ -3776,6 +4313,12 @@ def run_phases(card: str, clinical: ClinicalCorpus) -> int:
     print(f"kernel build + load (all {sources} sources): {build_s:.1f} s",
           flush=True)
 
+    clock0 = time.perf_counter()
+
+    def clock(label):       # where the run's time goes, for PERF.md §4
+        print(f"phase clock: {label} at {time.perf_counter() - clock0:.1f} s "
+              "after the build", flush=True)
+
     fwd_rows = check_fwd_kernel()
     tail_rows = check_tail_kernel()
     check_edge_mega_grads()
@@ -3788,6 +4331,7 @@ def run_phases(card: str, clinical: ClinicalCorpus) -> int:
     nodes_rows = check_tail_nodes_kernel()
     stack_rows = check_stack_kernel()
     b7_rows = check_b7_kernel()
+    clock("kernel checks (4-14a)")
     clinical.start()
     scorer = full_width_scorer()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3796,10 +4340,12 @@ def run_phases(card: str, clinical: ClinicalCorpus) -> int:
         b7_served, b7_counts = check_serving(fused_stack_scorer(scorer),
                                              requests, kernel=B7_INDEX)
         train_rows, train_counts = check_training()
+        clock("serving and first steps (15-16)")
         same_bits_rows = check_same_bits()
         onehot_row = check_onehot_training()
         comp_row, comp_counts = check_comparative()
         fused_rows, fused_counts = check_fused_training(train_rows)
+        clock("training paths (16a-18)")
         entry, entry_operands = check_entry_point(tmp)
         edge_rows += check_entry_edge_kernels(entry_operands)
         pallas_rows, pallas_counts = check_pallas_training(train_rows)
@@ -3807,6 +4353,7 @@ def run_phases(card: str, clinical: ClinicalCorpus) -> int:
             tmp, clinical.paths())
         segment_rows += check_entry_segment_kernels(cancer_operands)
         inference_rows = check_batch_inference(entry, cancer, tmp)
+        clock("entry points (19-21a)")
         featurized = check_featurize(tmp, entry)
         curriculum, curriculum_operands = check_curriculum(
             tmp, featurized, entry, cancer)
@@ -3815,15 +4362,23 @@ def run_phases(card: str, clinical: ClinicalCorpus) -> int:
         tail_rows += b1_b2_b8[1]
         segment_rows += b1_b2_b8[2]
         clinical_row = check_clinical(tmp, clinical.paths(), curriculum)
+        clock("PDBs to p-values (22-24)")
         variant_firsts = check_variant_first_steps()
         race_rows, race_counts = check_race()
         variant_served = check_variant_serving(scorer)
         paired_sync = check_paired_no_sync(scorer)
+        clock("variants and race (25-27a)")
         artifact_rows, artifact_counts, artifact_paths, op_rows = \
             check_artifacts(scorer, requests, tmp)
-        profile_forwards(scorer, requests)
+        clock("artifacts (27b)")
+        phase28 = profile_forwards(scorer, requests)
         artifact_profile = profile_artifacts(scorer, artifact_paths)
-        profile_training()
+        phase28 += profile_training()
+        clock("profiler (28)")
+        profiled_steps = check_profile_step(tmp, phase28)
+        clock("profile_step (28a)")
+        device_data = check_device_data(tmp, entry, cancer)
+        clock("device data (28b)")
 
     def pick(rows, **want):
         return next(r for r in rows if r["E"] == 2560 and r["F"] == 64
@@ -3982,6 +4537,62 @@ def run_phases(card: str, clinical: ClinicalCorpus) -> int:
                   f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']}){bare}")
 
+    mfu = profiled_steps["mfu"]
+    for label, r in profiled_steps["runs"].items():
+        same = ("" if "ratio_to_phase28" not in r else
+                f", {r['ratio_to_phase28']:.4f} of phase 28's device-busy "
+                f"{r['phase28_device_busy_ms']:.3f} ms")
+        print(f"profile [{card}]: profile_step {label} 'mega': rows sum "
+              f"{r['device_total_ms']:.3f} ms a step{same}; top "
+              f"{[[round(ms, 3), lab] for ms, lab in r['rows'][:4]]}")
+    print(f"profile [{card}]: 'mega' train step B=128 E=2560 idle share: "
+          f"occupancy (profile_step, with_stack) "
+          f"{mfu['idle_share_occupancy']:.3f}; phase 28 (1 - busy/wall) "
+          f"{mfu['idle_share_phase28']:.3f}")
+    if mfu["peak_tflops_bf16"] is None:
+        print(f"mfu     [{card}]: the card is not in utils/flops.py's table; "
+              f"analytic {mfu['analytic_tflop_per_step']:.4f} TFLOP a step")
+    else:
+        print(f"mfu     [{card}]: 'mega' train step B=128 E=2560 bf16: "
+              f"analytic {mfu['analytic_tflop_per_step']:.4f} TFLOP a step "
+              f"({mfu['params']} parameters), ATen ops executed "
+              f"{mfu['executed_aten_tflop_per_step']:.4f} TFLOP "
+              f"(FlopCounterMode; the csrc kernels count nothing); MFU "
+              f"{mfu['mfu_of_wall']:.4%} of {mfu['peak_tflops_bf16']:.0f} "
+              f"TFLOP/s at the {mfu['wall_ms']:.3f} ms wall, "
+              f"{mfu['mfu_of_device_time']:.4%} at the "
+              f"{mfu['device_busy_ms']:.3f} ms device time")
+    dd = device_data
+    c = dd["corpus"]
+    print(f"data    [{card}]: --device-data budget "
+          f"{c['budget_bytes'][0] / (1 << 30):.2f} GiB a dataset, "
+          f"{c['budget_bytes'][1] / (1 << 30):.2f} GiB in all; phase 19's "
+          f"corpus ({c['rows']} rows, {c['graphs']} graphs): estimate "
+          f"{c['estimate_bytes']} B = uploaded nbytes, memory_allocated grew "
+          f"{c['memory_allocated_growth']} B")
+    for name, runs in dd["turns"].items():
+        for kind, r in runs:
+            print(f"data    [{card}]: {name} entry point, {kind} pipeline: "
+                  f"wall {r['wall_s']:.3f} s, epochs (s) "
+                  f"{[round(t, 4) for t in r['epochs']]}")
+    for r in dd["epoch_occupancy"]:
+        print(f"data    [{card}]: {r['work']} epoch ({r['steps']} steps) on "
+              f"the {r['pipeline']}: traced span {r['span_ms']:.3f} ms, "
+              f"device busy {r['busy_ms']:.3f} ms, idle share "
+              f"{r['idle_share']:.4f} (occupancy)")
+    ref = dd["reference_scale"]
+    print(f"data    [{card}]: reference scale {ref['rows']} rows (N={ref['N']}"
+          f", E={ref['E']}, L={ref['L']}): {ref['bytes']} B "
+          f"({ref['bytes_per_row']:.0f} B a row) uploaded in "
+          f"{ref['upload_s']:.3f} s; a B=128 gather_batch {ref['gather_device_us']:.1f}"
+          f" us on the device, {ref['gather_host_us']:.1f} us on the host; "
+          f"the host pipeline's assembly and copy {ref['host_pipeline_us']:.1f}"
+          f" us a batch")
+    aug = dd["augmented"]
+    print(f"data    [{card}]: --device-data --self-supervision, 5+5 masks, "
+          f"'mega': {aug['batches_checked']} augmented batches held, the same"
+          f" bits twice, no host sync in gather+augment")
+
     launches = dict(serving=serving_counts, serving_b7=b7_counts,
                     train=train_counts,
                     comparative=comp_counts, train_fused=fused_counts,
@@ -3989,7 +4600,9 @@ def run_phases(card: str, clinical: ClinicalCorpus) -> int:
                     entry_point_cancer=cancer["launches"], race=race_counts,
                     curriculum=curriculum["launches"],
                     clinical=clinical_row["launches_mega"],
-                    artifact_serving=artifact_counts)
+                    artifact_serving=artifact_counts,
+                    profile_step=mfu["launches"]["train"],
+                    device_data_ssl=aug["launches"])
     b1, b2 = pick(fwd_rows), pick(tail_rows)
     b3f, b3b = pick(edge_rows, kernel="fwd"), pick(edge_rows, kernel="bwd")
     b8s, b8g = (next(r for r in segment_rows if r["kernel"] == kind

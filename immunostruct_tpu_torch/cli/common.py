@@ -7,8 +7,13 @@ What the port does with the JAX package's accelerator flags:
 
 - ``--aggregation``: every name runs ('auto', 'mega', 'fused', 'pallas',
   'onehot', 'onehot_remat', 'scatter'; ``ops/egnn.py``);
-- ``--device-data`` (the HBM-resident corpus): not ported, so only the host
-  pipeline runs and ``--device-data`` fails;
+- ``--device-data`` (the device-resident corpus, ``pick_pipeline``):
+  ``--device-data`` keeps the corpus on ``--device`` and batches there
+  (``data/device_pipeline.py``, with the augmented and SSL transforms on
+  the device), ``--no-device-data`` uses the host pipeline, and left unset
+  ('auto') picks the device pipeline on a CUDA device without
+  ``--data-parallel`` when the corpus fits the budget
+  (``device_data_budget``), the host pipeline otherwise (on the CPU too);
 - ``--data-parallel``: not ported, fails when a stage starts;
 - ``--scan-layers``: a compile-time device of XLA; accepted, no effect;
 - ``--stack-twins``: the comparative twin forwards as one stacked pass
@@ -18,6 +23,7 @@ What the port does with the JAX package's accelerator flags:
 from __future__ import annotations
 
 import argparse
+import functools
 
 import torch
 
@@ -67,8 +73,14 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    help="continue an interrupted stage from its .resume snapshot")
     p.add_argument("--device-data", action=argparse.BooleanOptionalAction,
                    default=None,
-                   help="keep the corpus resident on the device (not ported: "
-                        "the host pipeline feeds every run)")
+                   help="keep the corpus resident on the device and batch "
+                        "there (augmented/SSL transforms run there too). "
+                        "Default: auto, on for a CUDA device without "
+                        "--data-parallel when the corpus fits the budget; "
+                        "--no-device-data forces the host pipeline. auto "
+                        "keeps the host pipeline's partial trailing train "
+                        "batch, an explicit --device-data pads it with "
+                        "repeated rows")
     p.add_argument("--grad-accum-steps", default=1, type=int,
                    help="microbatches per optimizer step (batch-size must "
                         "be divisible)")
@@ -102,18 +114,101 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+# The 'auto' budget of the device corpus, as shares of the device's
+# memory: one dataset's corpus, and all corpora admitted in the process
+# (the JAX package's 2.5 GiB and 8 GiB of a 16 GiB chip). The rest holds
+# the parameters, activations and the allocator's cache.
+DATASET_SHARE = 2.5 / 16
+TOTAL_SHARE = 8 / 16
+
+
+def device_data_budget(device) -> tuple:
+    """(bytes for one dataset's corpus, bytes for all admitted corpora) on
+    a CUDA ``device``: the shares of its memory."""
+    total = torch.cuda.get_device_properties(torch.device(device)).total_memory
+    return int(DATASET_SHARE * total), int(TOTAL_SHARE * total)
+
+
+def pick_pipeline(config, comparative: bool, ssl: bool):
+    """The pipeline class (or factory) of a run: the host ``BatchPipeline``
+    or the device-resident ``DevicePipeline`` (their comparative forms for
+    ``comparative``).
+
+    ``config.device_data`` True forces the device pipeline, False the host
+    one. Unset ('auto') decides per dataset when the pipeline is built: the
+    device pipeline on a CUDA device without ``data_parallel`` when the
+    corpus fits ``device_data_budget`` (one dataset, and all admitted
+    ones together; a dataset's pipelines share one upload, so it counts
+    once), else the host pipeline, saying why. Under 'auto' a trailing
+    partial train batch stays partial, as on the host. Augmented and SSL
+    configurations run their transforms on the device."""
+    from immunostruct_tpu_torch.data.pipeline import (
+        BatchPipeline, ComparativePipeline,
+    )
+
+    host_cls = ComparativePipeline if comparative else BatchPipeline
+    dd = config.device_data
+    if dd is None:
+        dd = "auto"
+    if dd != "auto":
+        dd = bool(dd)
+    if dd is False:
+        return host_cls
+
+    from immunostruct_tpu_torch.data.device_pipeline import (
+        ComparativeDevicePipeline, DevicePipeline, admitted_device_bytes,
+        estimate_device_bytes, note_admitted,
+    )
+    wants_augment = (
+        ssl or config.force_graph_augmentation
+        or (config.sequence_pad_count > 0 and config.full_sequence))
+    cls = ComparativeDevicePipeline if comparative else DevicePipeline
+    dev_factory = (functools.partial(cls, device_augment=True)
+                   if wants_augment else cls)
+    if dd is True:
+        return dev_factory
+
+    def auto_factory(dataset, indices, **kw):
+        device = torch.device(config.device)
+        if device.type != "cuda" or config.data_parallel:
+            return host_cls(dataset, indices, **kw)
+        per_dataset, total = device_data_budget(device)
+        need = estimate_device_bytes(dataset, full=kw.get("full", True))
+        admitted = admitted_device_bytes()
+        if need > per_dataset or admitted + need > total:
+            print(f"device-data auto: the corpus ({need / (1 << 30):.2f} "
+                  f"GiB, {admitted / (1 << 30):.2f} GiB already admitted) "
+                  f"exceeds the budget ({per_dataset / (1 << 30):.2f} GiB a "
+                  f"dataset, {total / (1 << 30):.2f} GiB in all); using the "
+                  "host pipeline")
+            return host_cls(dataset, indices, **kw)
+        kw.setdefault("pad_final_batch", False)
+        try:
+            pipe = dev_factory(dataset, indices, **kw)
+        except ValueError as e:
+            # a configuration the device pipeline declines falls back
+            # loudly, with the reason
+            print("device-data auto: falling back to the host pipeline "
+                  f"for this configuration ({type(e).__name__}: {e})")
+            return host_cls(dataset, indices, **kw)
+        note_admitted(dataset, need)
+        return pipe
+
+    return auto_factory
+
+
 def to_config(args: argparse.Namespace, **extra) -> Config:
-    """The Config of the parsed flags; fails on what the port does not
-    run (``--device-data``, a missing card)."""
+    """The Config of the parsed flags; fails on a missing card."""
     known = {f.name for f in Config.__dataclass_fields__.values()}
     kv = {k: v for k, v in vars(args).items() if k in known}
     kv.update(extra)
     cfg = Config(**kv)
     update_paths(cfg)
-    if cfg.device_data:
-        raise ValueError("--device-data (the device-resident corpus) is not "
-                         "ported to PyTorch yet; the host pipeline runs "
-                         "without the flag")
+    if (cfg.device_data and torch.device(cfg.device).type == "cuda"
+            and not torch.cuda.is_available()):
+        raise RuntimeError("--device-data keeps the corpus on --device cuda, "
+                           "but torch finds no CUDA device; pass --device cpu "
+                           "to keep it on the CPU")
     resolve_device(cfg.device)
     return cfg
 

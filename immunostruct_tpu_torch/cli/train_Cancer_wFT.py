@@ -25,7 +25,9 @@ Usage:
       --clinical-table-path ... --figure-save-dir ...
 
 ``--device`` defaults to cuda; ``--device cpu`` runs the kernels' plain
-versions.
+versions. The three stages' pipelines come from ``pick_pipeline``
+(``--device-data``: on a card the corpora stay on the device by default);
+the threshold pass and the clinical pass read through the host pipeline.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 from immunostruct_tpu_torch.cli.common import (
-    base_parser, check_seq_dims, to_config,
+    base_parser, check_seq_dims, pick_pipeline, to_config,
 )
 from immunostruct_tpu_torch.data.dataset import (
     ClinicalDataset, ComparativeDataset, ImmunoDataset, seeded_split,
@@ -134,9 +136,11 @@ def main(argv=None):
                           pos_weight_from_counts(dataset_pt1.class_weights),
                           sequence=config.sequence_loss, ssl=ssl)
 
+    Pipe1 = pick_pipeline(config, comparative=False, ssl=ssl)
+
     def mk1(idx, split):
-        return BatchPipeline(dataset_pt1, idx, split=split, binary=False,
-                             full=full, config=config, ssl=ssl)
+        return Pipe1(dataset_pt1, idx, split=split, binary=False, full=full,
+                     config=config, ssl=ssl)
 
     model, _ = train_model(config, model, mk1(tr1, "train"), mk1(va1, "val"),
                            loss_cfg, binary=False,
@@ -157,10 +161,11 @@ def main(argv=None):
                           pos_weight_from_counts(dataset_pt2.class_weights),
                           sequence=config.sequence_loss, ssl=ssl)
 
+    Pipe2 = pick_pipeline(config, comparative=True, ssl=ssl)
+
     def mk2(idx, split, binary, **kw):
-        return ComparativePipeline(dataset_pt2, idx, split=split,
-                                   binary=binary, full=full, config=config,
-                                   ssl=ssl, **kw)
+        return Pipe2(dataset_pt2, idx, split=split, binary=binary, full=full,
+                     config=config, ssl=ssl, **kw)
 
     model, _ = train_model(config, model, mk2(tr2, "train", False),
                            mk2(va2, "val", False), loss_cfg, binary=False,
@@ -207,9 +212,12 @@ def main(argv=None):
                     "seq_rows": read_rows(config.seq_path_clinical),
                     "clin_rows": read_rows(config.clinical_table_path)}
 
-    # the threshold comes from an un-extended view of the train split (the
-    # training pipe is oversampled through extend_to)
-    thresh_pipe = mk2(tr2, "eval_train", True)
+    # the threshold comes from an un-extended, un-padded view of the train
+    # split (the training pipe is oversampled through extend_to), on the
+    # host: one pass does not call for another device corpus
+    thresh_pipe = ComparativePipeline(dataset_pt2, tr2, split="eval_train",
+                                      binary=True, full=full, config=config,
+                                      ssl=ssl)
     train_stats = inference(config, model, thresh_pipe)
     test_stats = inference(config, model, test_pipe,
                            optimal_threshold=train_stats["optimal_threshold"],

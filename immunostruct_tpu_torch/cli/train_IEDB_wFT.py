@@ -10,7 +10,9 @@ Usage:
       --graph-dir-IEDB ... --property-path-IEDB ... --hla-path ...
 
 ``--device`` defaults to cuda; ``--device cpu`` runs the kernels' plain
-versions.
+versions. The train/val/test pipelines come from ``pick_pipeline``
+(``--device-data``: on a card the corpus stays on the device by default);
+the threshold pass reads the train split through the host pipeline.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from immunostruct_tpu_torch.cli.common import (
-    base_parser, check_seq_dims, to_config,
+    base_parser, check_seq_dims, pick_pipeline, to_config,
 )
 from immunostruct_tpu_torch.data.dataset import ImmunoDataset, seeded_split
 from immunostruct_tpu_torch.data.pipeline import BatchPipeline
@@ -69,12 +71,12 @@ def main(argv=None):
                           sequence=config.sequence_loss,
                           ssl=config.self_supervision)
     ssl = config.self_supervision
+    Pipe = pick_pipeline(config, comparative=False, ssl=ssl)
 
     def pipes(binary):
         def mk(idx, split):
-            return BatchPipeline(dataset, idx, split=split, binary=binary,
-                                 full=config.full_sequence, config=config,
-                                 ssl=ssl)
+            return Pipe(dataset, idx, split=split, binary=binary,
+                        full=config.full_sequence, config=config, ssl=ssl)
         return mk(train_idx, "train"), mk(val_idx, "val"), mk(test_idx, "test")
 
     # Stage 1: foreignness-regression pretrain (binary=False)
@@ -107,7 +109,8 @@ def main(argv=None):
 
     load_checkpoint(config.model_save_path_finetune, model)
 
-    # the threshold comes from an un-augmented view of the train split
+    # the threshold comes from an un-augmented, un-padded view of the train
+    # split, on the host: one pass does not call for another device corpus
     thresh_pipe = BatchPipeline(dataset, train_idx, split="eval_train",
                                 binary=True, full=config.full_sequence,
                                 config=config, ssl=ssl)

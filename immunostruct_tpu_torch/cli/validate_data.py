@@ -2,8 +2,11 @@
 (counterpart of ``immunostruct_tpu/cli/validate_data.py``).
 
 Prints join coverage (how many table rows find a graph and how many graphs
-are referenced), label balance, padding sizes, duplicates and the corpus's
-device-memory estimate; returns 0, or 1 when no row joins.
+are referenced), label balance, padding sizes, duplicates and the bytes of
+the corpus on the device (``estimate_device_bytes``) against the
+``--device-data`` budget of the card (``cli/common.py::
+device_data_budget``; without a card the line says so); returns 0, or 1
+when no row joins.
 
 Usage:
   python -m immunostruct_tpu_torch.cli.validate_data \\
@@ -15,11 +18,13 @@ from __future__ import annotations
 
 import argparse
 
-import numpy as np
+import torch
 
+from immunostruct_tpu_torch.cli.common import device_data_budget
 from immunostruct_tpu_torch.config import Config, update_paths
 from immunostruct_tpu_torch.data.dataset import ImmunoDataset
 from immunostruct_tpu_torch.data.dedupe import find_duplicates
+from immunostruct_tpu_torch.data.device_pipeline import estimate_device_bytes
 from immunostruct_tpu_torch.data.graphs import load_graph_dir
 from immunostruct_tpu_torch.data.tables import expand_hla, parse_property_table
 
@@ -59,9 +64,6 @@ def main(argv=None):
                             args.hla_path, corpus=corpus, cancer=args.cancer)
     dupes, removable = find_duplicates(ds)
     g = ds.graphs
-    hbm_bytes = (g.node_onehot.nbytes + g.coords.nbytes + g.edge_src.nbytes * 2
-                 + g.edge_mask.nbytes + g.node_mask.nbytes
-                 + ds.seq_full.astype(np.uint8).nbytes)
     print(f"dataset: {len(ds)} rows; padded graph shape "
           f"[{g.max_nodes} nodes x {g.max_edges} edges]; "
           f"seq lengths full={ds.seq_full.shape[1]} pep={ds.seq_pep.shape[1]}")
@@ -69,9 +71,21 @@ def main(argv=None):
           f"foreignness range [{ds.foreign_min:.3f}, {ds.foreign_max:.3f}]")
     print(f"duplicates: {dupes} (seq, props) collisions, "
           f"{len(removable)} exact graph duplicates")
-    print(f"device-corpus HBM estimate: {hbm_bytes / 1e6:.0f} MB "
-          f"(--device-data feasible: {hbm_bytes < 8e9})")
+    print(device_corpus_line(estimate_device_bytes(ds, full=True)))
     return 0
+
+
+def device_corpus_line(need: int) -> str:
+    """The corpus's device bytes judged against ``--device-data``'s
+    budget for one dataset on CUDA device 0."""
+    head = f"device-corpus estimate: {need / 1e6:.0f} MB ({need} B)"
+    if not torch.cuda.is_available():
+        return (f"{head}; no CUDA device here, so --device-data's budget "
+                "(a share of the card's memory) is not judged")
+    per_dataset, _ = device_data_budget("cuda:0")
+    return (f"{head}; --device-data budget on "
+            f"{torch.cuda.get_device_name(0)}: {per_dataset / (1 << 30):.2f} "
+            f"GiB a dataset (fits: {need <= per_dataset})")
 
 
 if __name__ == "__main__":

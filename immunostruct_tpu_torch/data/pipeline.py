@@ -16,7 +16,7 @@ Reference-parity notes (as in the JAX package):
   masking) reaches the model only on the SSL path, or with
   ``config.force_graph_augmentation``;
 - the train split is shuffled, the others are not; the last batch of an
-  epoch may be partial;
+  epoch may be partial (``pad_final_batch`` fills it);
 - ``extend_to`` (ExtendedDataset, util_dataloader.py:91-102) cycles a small
   split's indices up to a floor length.
 
@@ -170,7 +170,11 @@ class BatchPipeline:
 
     def __init__(self, dataset: ImmunoDataset, indices: np.ndarray, *,
                  split: str, binary: bool, full: bool, config,
-                 ssl: bool = False, extend_to: int = 0):
+                 ssl: bool = False, extend_to: int = 0,
+                 pad_final_batch: bool = False):
+        """``pad_final_batch`` fills a partial trailing batch with rows
+        from the start of the epoch's order (off by default, as in the
+        reference)."""
         self.ds = dataset
         self.indices = np.asarray(indices, np.int64)
         if extend_to and len(self.indices) < extend_to:
@@ -184,6 +188,7 @@ class BatchPipeline:
         self.batch_size = config.batch_size
         self.shuffle = split == "train"
         self.device = torch.device(config.device)
+        self.pad_final_batch = pad_final_batch
 
     def __len__(self):
         return int(np.ceil(len(self.indices) / self.batch_size))
@@ -265,7 +270,11 @@ class BatchPipeline:
             else np.arange(len(self.indices))
         idx = self.indices[order]
         for start in range(0, len(idx), self.batch_size):
-            yield self._assemble(rng, idx[start:start + self.batch_size])
+            rows = idx[start:start + self.batch_size]
+            if self.pad_final_batch and len(rows) < self.batch_size:
+                rows = np.concatenate(
+                    [rows, np.resize(idx, self.batch_size - len(rows))])
+            yield self._assemble(rng, rows)
 
 
 class ComparativePipeline(BatchPipeline):

@@ -226,15 +226,17 @@ def test_train_IEDB_wFT_end_to_end(corpus, tmp_path, aggregation):
 
 
 @pytest.mark.parametrize("flag,match", [
-    (["--device-data"], "device-data"),
+    (["--device-data", "--device", "cuda"], "device-data"),
     (["--data-parallel"], "not ported"),
     (["--device", "cuda"], "no CUDA device"),
 ])
 def test_train_IEDB_wFT_refuses_what_is_not_ported(corpus, tmp_path, flag,
                                                    match):
+    """--device-data keeps the corpus on --device, so with --device cuda
+    and no card it fails (it does not run on the CPU)."""
     if "cuda" in flag and torch.cuda.is_available():
-        flag = ["--device-data"]
-        match = "device-data"
+        flag = ["--data-parallel"]
+        match = "not ported"
     args = _cli_args(corpus, str(tmp_path), "fused") + flag
     with pytest.raises((ValueError, RuntimeError), match=match):
         train_IEDB_wFT.main(args)

@@ -2585,3 +2585,112 @@ def test_mega_artifact_launches_b1_and_gives_the_scorers_bits(cuda,
     want = scorer(req.graph, req.seq_onehot, req.props)
     assert torch.equal(probs[0], probs[1])
     assert np.array_equal(probs[0].cpu().numpy(), want)
+
+
+# --------------------------------------------------------------------------
+# the device-resident corpus (data/device_pipeline.py, data/device_augment.py)
+# --------------------------------------------------------------------------
+
+def _device_data_corpus(tmp_path, samples=40):
+    from immunostruct_tpu_torch.config import Config
+    from immunostruct_tpu_torch.data.dataset import ImmunoDataset
+    from immunostruct_tpu_torch.data.synthetic import synthetic_corpus
+
+    cfg = Config(device="cuda", batch_size=16, seed=3, full_sequence=True)
+    paths = synthetic_corpus(str(tmp_path / "corpus"), num_samples=samples,
+                             hla_len=40, seed=9)
+    return cfg, ImmunoDataset.load(cfg, *paths)
+
+
+def _tensors(batch) -> list:
+    from immunostruct_tpu_torch.structs import map_tensors
+
+    out = []
+    map_tensors(out.append, batch)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", ["train", "val"])
+def test_device_batches_equal_host_batches_on_the_card(cuda, tmp_path,
+                                                       split):
+    """One epoch (shuffled for train, the trailing batch partial): the
+    device pipeline's batches are the host pipeline's, bit for bit, dtype
+    and device included."""
+    from immunostruct_tpu_torch.data.device_pipeline import DevicePipeline
+    from immunostruct_tpu_torch.data.pipeline import BatchPipeline
+
+    cfg, ds = _device_data_corpus(tmp_path)
+    idx = np.arange(len(ds))
+    host = BatchPipeline(ds, idx, split=split, binary=True, full=True,
+                         config=cfg)
+    dev = DevicePipeline(ds, idx, split=split, binary=True, full=True,
+                         config=cfg, pad_final_batch=False)
+    pairs = list(zip(host.epoch(2), dev.epoch(2)))
+    assert len(pairs) == len(dev) == 3
+    for hb, db in pairs:
+        for a, b in zip(_tensors(hb), _tensors(db)):
+            assert a.dtype == b.dtype and a.device == b.device
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_gather_and_augment_make_no_host_sync(cuda, tmp_path):
+    """gather_batch, augment_batch and augment_comparative under
+    torch.cuda.set_sync_debug_mode('error'); the same bits for one seed."""
+    from immunostruct_tpu_torch.data.device_augment import (
+        augment_batch, augment_comparative,
+    )
+    from immunostruct_tpu_torch.data.device_pipeline import (
+        build_device_corpus, gather_batch,
+    )
+    from immunostruct_tpu_torch.structs import ComparativeBatch
+
+    _, ds = _device_data_corpus(tmp_path)
+    corpus = build_device_corpus(ds, binary=True, full=True, device=cuda)
+    rows = torch.arange(16, device=cuda, dtype=torch.int32)
+    kw = dict(ssl=True, structure_pad_count=5, sequence_pad_count=5,
+              maskable_len=ds.seq_full.shape[1] - ds.seq_pep.shape[1],
+              rotate=True)
+    outs = []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            batch = gather_batch(corpus, rows)
+            gen = torch.Generator(device=cuda)
+            gen.manual_seed(11)
+            outs.append((augment_batch(batch, gen, **kw),
+                         augment_comparative(
+                             ComparativeBatch(cancer=batch, wt=batch), gen,
+                             **kw)))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for a, b in zip(_tensors(outs[0][0]) + _tensors(outs[0][1]),
+                    _tensors(outs[1][0]) + _tensors(outs[1][1])):
+        assert torch.equal(a, b)
+    nf = outs[0][0].graph.node_feat
+    assert ((nf.sum(-1) == 20).sum(-1) == 1).all()
+
+
+@pytest.mark.cuda
+def test_device_corpus_estimate_equals_the_allocated_bytes(cuda, tmp_path):
+    """estimate_device_bytes is the sum of the uploaded tensors' nbytes; the
+    caching allocator's growth is that, rounded up to its blocks."""
+    from immunostruct_tpu_torch.data.device_pipeline import (
+        build_device_corpus, estimate_device_bytes,
+    )
+
+    _, ds = _device_data_corpus(tmp_path)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    corpus = build_device_corpus(ds, binary=False, full=True, device="cuda")
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    need = estimate_device_bytes(ds, full=True)
+    assert need == corpus.nbytes()
+    # the cached eleven tensors and the returned [M] target, each rounded
+    # up to the allocator's 512 B
+    assert need <= grown <= need + 4 * len(ds) + 12 * 512
+    again = build_device_corpus(ds, binary=True, full=True, device="cuda:0")
+    assert again.node_onehot is corpus.node_onehot     # 'cuda' is 'cuda:0'

@@ -55,7 +55,10 @@ def test_every_module_imports_without_jax():
                    "cli.featurize", "cli.convert_graphs", "cli.validate_data",
                    "procedures.clinical", "data.dedupe", "featurize.pdb",
                    "utils.export", "utils.quantize", "cli.export_model",
-                   "featurize.edges", "featurize.builder", "featurize.native"):
+                   "featurize.edges", "featurize.builder", "featurize.native",
+                   "data.device_pipeline", "data.device_augment",
+                   "cli.common", "utils.flops", "utils.profiling",
+                   "utils.attribution", "cli.profile_step"):
         assert f"immunostruct_tpu_torch.{module}" in names
     proc = _probe(names)
     assert proc.returncode == 0, proc.stderr
