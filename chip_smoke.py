@@ -276,7 +276,26 @@ Phases (none catches its own failure; any failure exits non-zero):
      27,000 rows at N=288, E=1280 uploaded (bytes, time) and a B=128
      gather_batch timed (device and host us) beside the host pipeline's
      assembly and copy of the same rows;
-  29. print the times beside the card's name and power limit, then the
+  29. parallelism (parallel/*; "parallel 29" lines, with the card's name
+     and power limit): (a) train_IEDB_wFT under 'mega' and train_Cancer_wFT
+     under 'pallas' on phase 19/21's corpora, one epoch a stage (Cancer
+     without its clinical pass), with --data-parallel (a group of one over
+     NCCL, joined in this process) and without: the same checkpoint bits,
+     losses and launches; the NCCL all_reduce of the flagship's flat f32
+     gradient buffer timed; (b) two ranks sharing the card over gloo
+     (parallel/dryrun.py::spawn, the kernels built here first): the
+     full-width HybridModelv2 'mega' step at a global B=128 (64 a rank,
+     E=2560) in f32 against the one-process step (loss rel 1e-5,
+     parameters rtol 2e-5, atol 2e-6), the twin step with contrastive 0.1
+     (loss rel 2e-5), the bf16 step (phase 16's first-step bounds),
+     shard_map_train_step's ring against psum (loss rel 1e-5), each rank's
+     launches (the one-process step's: 6 B1, 6 B2), step time and the
+     gloo all_reduce of the gradient buffer; (c) the full-width twin model
+     at a global B=32, f32, VAE noise pinned, against the dense step: TP
+     over 2 ranks, TP x DP on (2, 2), GPipe over 5 ranks (2 microbatches;
+     6 B1 and 6 B2 a stage): loss rtol 2e-5, gradients rtol 2e-4, atol
+     2e-4 * max|g| on every rank; the phase's time;
+  30. print the times beside the card's name and power limit, then the
      kernel record (eleven kernels) as one JSON line, the card line and, last,
      the result line {"ok": true, "device": {...}}.
 """
@@ -4042,6 +4061,233 @@ def check_device_data(tmp: str, entry: dict, cancer: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 29: parallelism (parallel/*)
+# --------------------------------------------------------------------------
+
+# 29b: the full-width 'mega' steps over two ranks sharing the card (gloo)
+DP_RANKS = 2
+# 29c: the full-width twin model at a global B=32, f32, VAE noise pinned
+MP_BATCH = 32
+# the dry run's gradient bound (``__graft_entry__.py``, JAX's): rtol 2e-4,
+# atol 2e-4 * max|g| per parameter
+MP_GRAD_RTOL = 2e-4
+# 29b's parameters after the step against the one-process step (JAX's
+# test_parallel.py): rtol 2e-5, atol 2e-6
+DP_PARAM_RTOL, DP_PARAM_ATOL = 2e-5, 2e-6
+
+
+def _grad_bound_ratio(got: dict, want: dict) -> float:
+    """Phase 16's first-step bound: the largest ||got - want|| over
+    STEP_GRAD_RTOL * ||want|| + STEP_GRAD_ATOL * (the largest ||want||)."""
+    top = max(g.norm().item() for g in want.values())
+    return max((got[k] - g).norm().item()
+               / (STEP_GRAD_RTOL * g.norm().item() + STEP_GRAD_ATOL * top)
+               for k, g in want.items())
+
+
+def check_parallel_entry_points(tmp: str, entry: dict, cancer: dict,
+                                card: str) -> dict:
+    """Phase 29a: train_IEDB_wFT under 'mega' and train_Cancer_wFT under
+    'pallas' on phase 19/21's corpora, one epoch a stage (the Cancer run
+    without its clinical pass), with --data-parallel (a group of one over
+    NCCL, joined in this process) and without: the same checkpoint bits,
+    losses and launches; then the NCCL all-reduce of the flagship's flat
+    f32 gradient buffer, timed."""
+    import torch.distributed as dist
+
+    from immunostruct_tpu_torch.cli import train_Cancer_wFT, train_IEDB_wFT
+    from immunostruct_tpu_torch.models import build_model
+    from immunostruct_tpu_torch.parallel.collectives import psum
+    from immunostruct_tpu_torch.parallel.mesh import (
+        initialize_distributed, make_mesh, shutdown_distributed,
+    )
+
+    out = {}
+    for name, cli, row, agg, extra in (
+            ("IEDB", train_IEDB_wFT, entry, "mega", []),
+            ("Cancer", train_Cancer_wFT, cancer, "pallas",
+             ["--skip-clinical"])):
+        runs = {}
+        for tag, flags in (("plain", []), ("dp", ["--data-parallel"])):
+            save = os.path.join(tmp, f"parallel_{name}_{tag}")
+            r = run_entry(cli, _with_flags(
+                row["argv"], save, "--aggregation", agg, "--num-epochs", "1",
+                *extra, *flags))
+            assert not dist.is_initialized()    # the group of one was left
+            runs[tag] = dict(save=save, losses=_losses(r["stages"]),
+                             launches=[s["launches"] for s in r["stages"]],
+                             pipelines=[s["pipeline"] for s in r["stages"]],
+                             wall_s=r["wall_s"])
+        p, d = runs["plain"], runs["dp"]
+        assert d["losses"] == p["losses"], (name, d["losses"], p["losses"])
+        assert d["launches"] == p["launches"], (name, d["launches"])
+        assert _same_checkpoints(d["save"], p["save"]), name
+        assert all(k in ("BatchPipeline", "ComparativePipeline")
+                   for k in d["pipelines"]), d["pipelines"]
+        out[name] = dict(aggregation=agg, losses=d["losses"],
+                         launches=d["launches"], wall_s_dp=d["wall_s"],
+                         wall_s_plain=p["wall_s"],
+                         pipelines_dp=d["pipelines"],
+                         pipelines_plain=p["pipelines"])
+        print(f"parallel 29a [{card}]: {name} --data-parallel (NCCL, group "
+              f"of one) under '{agg}': the run's checkpoint bits, losses "
+              f"{d['losses']} and launches by stage {d['launches']}; "
+              f"{d['wall_s']:.1f} s (without: {p['wall_s']:.1f} s)",
+              flush=True)
+
+    # the all-reduce of one step's flat gradient buffer, NCCL, one rank
+    _, model = build_model("HybridModelv2", L * 21,
+                           torch.Generator().manual_seed(0))
+    size = sum(t.numel() for t in model.parameters())
+    initialize_distributed(device="cuda", verbose=False)
+    try:
+        assert dist.get_backend() == "nccl", dist.get_backend()
+        mesh = make_mesh("data")
+        flat = torch.ones(size, device="cuda")
+        ms = cuda_ms(lambda: psum(flat, "data", mesh))
+    finally:
+        shutdown_distributed()
+    out["nccl_all_reduce"] = dict(parameters=size, bytes=4 * size, ms=ms)
+    print(f"parallel 29a [{card}]: NCCL all_reduce (world 1) of the flat "
+          f"gradient buffer, {size} f32 ({4 * size / 1e6:.1f} MB): "
+          f"{ms:.4f} ms", flush=True)
+    return out
+
+
+def check_data_parallel(card: str) -> dict:
+    """Phase 29b: two ranks share the card over gloo: the full-width
+    HybridModelv2 'mega' step at a global B=128 (64 a rank, E=2560) in f32
+    and bf16, and the twin step (contrastive 0.1), each against the
+    one-process step on the same batch; shard_map_train_step's ring
+    against psum; each rank's launches, step time and reduction time."""
+    from immunostruct_tpu_torch.parallel.dryrun import (
+        StepCase, dp_checks, excess_by_param, spawn, worst_excess,
+    )
+
+    full = dict(b=B, nodes=N, edges=EDGE_COUNTS[0], seq_len=L,
+                aggregation="mega")
+    cases = {"f32": StepCase(name="HybridModelv2", dtype="float32", **full),
+             "twin": StepCase(name="HybridModelv2_Comparative",
+                              dtype="float32", coeff=0.1, **full),
+             "bf16": StepCase(name="HybridModelv2", dtype="bfloat16",
+                              **full)}
+    t0 = time.perf_counter()
+    ranks = spawn(dp_checks, DP_RANKS, cases, cases["f32"], 5, 5,
+                  device="cuda")
+    spawn_s = time.perf_counter() - t0
+    out = {"backend": ranks[0]["f32"]["backend"], "ranks": DP_RANKS,
+           "wall_s": spawn_s}
+    assert out["backend"] == "gloo", out["backend"]
+    assert not any(r[k]["jax_loaded"] for r in ranks for k in cases)
+    for name in cases:
+        ref = ranks[0][name + "/ref"]
+        for i, r in enumerate(ranks):
+            got = r[name]
+            assert got["rows"] == B // DP_RANKS
+            assert all(np.isfinite(got["losses"]))
+            rel = abs(got["losses"][0] - ref["losses"][0]) / abs(
+                ref["losses"][0])
+            # each rank launches the one-process step's kernels, with its
+            # half of the batch: 6 B1, 6 B2 a pass
+            assert got["launches"] == ref["launches"], (got["launches"],
+                                                        ref["launches"])
+            if name == "bf16":
+                assert rel <= STEP_LOSS_RTOL, (name, rel)
+                ratio = _grad_bound_ratio(got["grads"], ref["grads"])
+                assert ratio <= 1.0, (name, ratio)
+                reading = dict(loss_rel=rel, grad_bound_ratio=ratio)
+            else:
+                assert rel <= (1e-5 if name == "f32" else 2e-5), (name, rel)
+                by_param = excess_by_param(got["params"], ref["params"],
+                                           DP_PARAM_RTOL, DP_PARAM_ATOL)
+                worst = max(by_param, key=by_param.get)
+                if name == "f32":
+                    assert by_param[worst] <= 1.0, (name, worst, by_param)
+                reading = dict(loss_rel=rel, param_excess=by_param[worst],
+                               worst_param=worst)
+            out.setdefault(name, []).append(dict(
+                rank=i, loss=got["losses"][0], ref_loss=ref["losses"][0],
+                launches={k: v for k, v in got["launches"].items() if v},
+                **reading))
+        print(f"parallel 29b [{card}]: {name}: " + json.dumps(out[name]),
+              flush=True)
+    assert ranks[0]["f32"]["launches"]["B1"] == 6
+    assert ranks[0]["f32"]["launches"]["B2"] == 6
+    for i, r in enumerate(ranks):
+        ring, ps = r["ring"]["ring"], r["ring"]["psum"]
+        rel = abs(ring["loss"] - ps["loss"]) / abs(ps["loss"])
+        assert rel <= 1e-5, rel
+        out.setdefault("ring_vs_psum", []).append(dict(
+            rank=i, loss_rel=rel,
+            param_excess=worst_excess(ring["params"], ps["params"], 1e-4,
+                                      1e-6)))
+        out.setdefault("step_ms", []).append(r["f32"]["step_ms"])
+        out.setdefault("reduce_ms", []).append(r["f32"]["reduce_ms"])
+    out["parameters"] = ranks[0]["f32"]["parameters"]
+    print(f"parallel 29b [{card}]: ring vs psum "
+          + json.dumps(out["ring_vs_psum"]), flush=True)
+    for i in range(DP_RANKS):
+        print(f"parallel 29b [{card}]: rank {i} of {DP_RANKS} (gloo, one "
+              f"card): f32 'mega' step at {B // DP_RANKS} rows, median "
+              f"{statistics.median(out['step_ms'][i]):.2f} ms "
+              f"({out['step_ms'][i]}); gloo all_reduce of the "
+              f"{out['parameters']}-f32 gradient buffer, median "
+              f"{statistics.median(out['reduce_ms'][i]):.2f} ms "
+              f"({out['reduce_ms'][i]})", flush=True)
+    return out
+
+
+def check_model_parallel(card: str) -> dict:
+    """Phase 29c: the full-width twin model at a global B=32, E=2560, f32,
+    VAE noise pinned and dropout off, against the one-process dense step:
+    TP over 2 ranks, TP x DP on (2, 2), GPipe over 5 ranks (the 5 hidden
+    convs, 2 microbatches); loss within rtol 2e-5, gradients within rtol
+    2e-4 and atol 2e-4 * max|g| on every rank; each rank's launches."""
+    from immunostruct_tpu_torch.parallel.dryrun import (
+        StepCase, mp_checks, spawn, worst_grad_excess,
+    )
+
+    case = StepCase(name="HybridModelv2_Comparative", b=MP_BATCH, nodes=N,
+                    edges=EDGE_COUNTS[0], seq_len=L, aggregation="mega")
+    plans = (("tp", 2, [("tp", case, (2,), ("model",),
+                         dict(tp_axis="model"), None)]),
+             ("tp_dp", 4, [("tp_dp", case, (2, 2), ("data", "model"),
+                            dict(tp_axis="model"), "data")]),
+             ("pp", 5, [("pp", case, (5,), ("pipe",),
+                         dict(pp_axis="pipe", pp_microbatches=2), None)]))
+    out = {}
+    for label, n, runs in plans:
+        t0 = time.perf_counter()
+        ranks = spawn(mp_checks, n, runs, 3, device="cuda")
+        want = ranks[0][label + "/ref"]
+        rows = []
+        for i, r in enumerate(ranks):
+            got = r[label]
+            rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+            excess = worst_grad_excess(got["grads"], want["grads"],
+                                       MP_GRAD_RTOL, MP_GRAD_RTOL)
+            assert rel <= 2e-5, (label, i, rel)
+            assert excess <= 1.0, (label, i, excess)
+            rows.append(dict(rank=i, coords=got["coords"], loss_rel=rel,
+                             grad_excess=excess, step_ms=got["step_ms"],
+                             launches={k: v for k, v in
+                                       got["launches"].items() if v}))
+        if label == "pp":
+            # each stage: the input conv, then its hidden conv on the 2
+            # microbatches, for each twin: 6 B1 and 6 B2
+            for row in rows:
+                assert row["launches"].get("B1") == 6, row
+                assert row["launches"].get("B2") == 6, row
+        out[label] = dict(ranks=n, wall_s=time.perf_counter() - t0,
+                          dense_launches={k: v for k, v in
+                                          want["launches"].items() if v},
+                          rows=rows)
+        print(f"parallel 29c [{card}]: {label} over {n} ranks: "
+              + json.dumps(out[label]), flush=True)
+    return out
+
+
 def check_augmented(tmp: str, entry: dict, ds) -> dict:
     """Phase 28b (d): train_IEDB_wFT --device-data --self-supervision
     --sequence-pad-count 5 --structure-pad-count 5 --aggregation mega twice
@@ -4379,6 +4625,15 @@ def run_phases(card: str, clinical: ClinicalCorpus) -> int:
         clock("profile_step (28a)")
         device_data = check_device_data(tmp, entry, cancer)
         clock("device data (28b)")
+        t29 = time.perf_counter()
+        parallel = dict(
+            entry_points=check_parallel_entry_points(tmp, entry, cancer,
+                                                     card),
+            data=check_data_parallel(card), model=check_model_parallel(card))
+        parallel["phase_s"] = time.perf_counter() - t29
+        print(f"parallel 29 [{card}]: phase 29 took "
+              f"{parallel['phase_s']:.1f} s", flush=True)
+        clock("parallelism (29)")
 
     def pick(rows, **want):
         return next(r for r in rows if r["E"] == 2560 and r["F"] == 64

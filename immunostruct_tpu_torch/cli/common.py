@@ -12,9 +12,18 @@ What the port does with the JAX package's accelerator flags:
   (``data/device_pipeline.py``, with the augmented and SSL transforms on
   the device), ``--no-device-data`` uses the host pipeline, and left unset
   ('auto') picks the device pipeline on a CUDA device without
-  ``--data-parallel`` when the corpus fits the budget
-  (``device_data_budget``), the host pipeline otherwise (on the CPU too);
-- ``--data-parallel``: not ported, fails when a stage starts;
+  ``--data-parallel`` or several processes when the corpus fits the
+  budget (``device_data_budget``), the host pipeline otherwise (on the
+  CPU too);
+- ``--data-parallel``: every stage trains on the data-parallel step over
+  all ranks of the process group (``parallel/trainer.py``): launched as
+  ``python -m torch.distributed.run --nproc_per_node=K -m
+  immunostruct_tpu_torch.cli.<entry> --data-parallel ...``, rank r runs on
+  ``cuda:(LOCAL_RANK % device_count)`` (NCCL when each rank has a card,
+  gloo when ranks share one; ``parallel/mesh.py::initialize_distributed``
+  chooses and prints it); launched plainly, the process is a group of one.
+  Each step is the one-process step on the global batch, which every
+  rank reads and splits; rank 0 writes the checkpoints and logs;
 - ``--scan-layers``: a compile-time device of XLA; accepted, no effect;
 - ``--stack-twins``: the comparative twin forwards as one stacked pass
   (``train_Cancer_wFT``); accepted, no effect on the IEDB entry point.
@@ -68,7 +77,11 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                         "PyTorch), 'auto' ('scatter' on the CPU; on CUDA "
                         "'mega', else 'fused', else 'onehot', by shape)")
     p.add_argument("--data-parallel", action="store_true",
-                   help="shard batches over all local devices (not ported)")
+                   help="split every batch over the ranks of the process "
+                        "group (torch.distributed.run's ranks; one rank "
+                        "without it): each rank a card (NCCL) or ranks "
+                        "sharing one (gloo); the step equals the "
+                        "one-process step on the global batch")
     p.add_argument("--resume", action="store_true",
                    help="continue an interrupted stage from its .resume snapshot")
     p.add_argument("--device-data", action=argparse.BooleanOptionalAction,
@@ -136,12 +149,14 @@ def pick_pipeline(config, comparative: bool, ssl: bool):
 
     ``config.device_data`` True forces the device pipeline, False the host
     one. Unset ('auto') decides per dataset when the pipeline is built: the
-    device pipeline on a CUDA device without ``data_parallel`` when the
-    corpus fits ``device_data_budget`` (one dataset, and all admitted
-    ones together; a dataset's pipelines share one upload, so it counts
-    once), else the host pipeline, saying why. Under 'auto' a trailing
-    partial train batch stays partial, as on the host. Augmented and SSL
-    configurations run their transforms on the device."""
+    device pipeline on a CUDA device without ``data_parallel`` or several
+    processes (as in the JAX package) when the corpus fits
+    ``device_data_budget`` (one dataset, and all admitted ones together; a
+    dataset's pipelines share one upload, so it counts once), else the
+    host pipeline, saying why. Under 'auto' a trailing partial train batch
+    stays partial, as on the host. Augmented and SSL configurations run
+    their transforms on the device. An explicit ``--device-data`` keeps
+    each rank's corpus on its own device."""
     from immunostruct_tpu_torch.data.pipeline import (
         BatchPipeline, ComparativePipeline,
     )
@@ -169,8 +184,11 @@ def pick_pipeline(config, comparative: bool, ssl: bool):
         return dev_factory
 
     def auto_factory(dataset, indices, **kw):
+        from immunostruct_tpu_torch.parallel.mesh import world
+
         device = torch.device(config.device)
-        if device.type != "cuda" or config.data_parallel:
+        if (device.type != "cuda" or config.data_parallel
+                or world()[1] > 1):
             return host_cls(dataset, indices, **kw)
         per_dataset, total = device_data_budget(device)
         need = estimate_device_bytes(dataset, full=kw.get("full", True))
@@ -198,7 +216,10 @@ def pick_pipeline(config, comparative: bool, ssl: bool):
 
 
 def to_config(args: argparse.Namespace, **extra) -> Config:
-    """The Config of the parsed flags; fails on a missing card."""
+    """The Config of the parsed flags; fails on a missing card. Under
+    ``--data-parallel`` it joins the process group
+    (``initialize_distributed``) and sets the config's device to the
+    rank's."""
     known = {f.name for f in Config.__dataclass_fields__.values()}
     kv = {k: v for k, v in vars(args).items() if k in known}
     kv.update(extra)
@@ -210,7 +231,37 @@ def to_config(args: argparse.Namespace, **extra) -> Config:
                            "but torch finds no CUDA device; pass --device cpu "
                            "to keep it on the CPU")
     resolve_device(cfg.device)
+    if cfg.data_parallel:
+        import torch.distributed as dist
+
+        from immunostruct_tpu_torch.parallel.mesh import (
+            initialize_distributed,
+        )
+        if not dist.is_initialized():
+            _JOINED.append(True)
+        cfg.device = str(initialize_distributed(device=cfg.device))
     return cfg
+
+
+_JOINED: list = []
+
+
+def end_run() -> None:
+    """Leave the process group that ``to_config`` joined, if it did."""
+    from immunostruct_tpu_torch.parallel.mesh import shutdown_distributed
+
+    if _JOINED:
+        _JOINED.clear()
+        shutdown_distributed()
+
+
+def metrics_path(config) -> str | None:
+    """The run's ``.metrics.jsonl``: rank 0 writes it, the other ranks of a
+    data-parallel run none."""
+    from immunostruct_tpu_torch.parallel.mesh import is_primary
+
+    return (config.model_save_path_pretrain + ".metrics.jsonl"
+            if is_primary() else None)
 
 
 def check_seq_dims(vae_dim: int, full: bool, **named_datasets) -> None:

@@ -36,7 +36,8 @@ import numpy as np
 import torch
 
 from immunostruct_tpu_torch.cli.common import (
-    base_parser, check_seq_dims, pick_pipeline, to_config,
+    base_parser, check_seq_dims, end_run, metrics_path, pick_pipeline,
+    to_config,
 )
 from immunostruct_tpu_torch.data.dataset import (
     ClinicalDataset, ComparativeDataset, ImmunoDataset, seeded_split,
@@ -46,6 +47,7 @@ from immunostruct_tpu_torch.data.pipeline import (
 )
 from immunostruct_tpu_torch.data.tables import read_rows
 from immunostruct_tpu_torch.models import build_model, reset_head
+from immunostruct_tpu_torch.parallel.mesh import is_primary
 from immunostruct_tpu_torch.procedures.infer import inference
 from immunostruct_tpu_torch.procedures.train import derived_seed, train_model
 from immunostruct_tpu_torch.utils.checkpoint import load_checkpoint
@@ -90,7 +92,7 @@ def main(argv=None):
                           entity=config.wandb_username,
                           name=f"Comparative:{config.model}-seed{config.seed}",
                           config=vars(args),
-                          jsonl_path=config.model_save_path_pretrain + ".metrics.jsonl")
+                          jsonl_path=metrics_path(config))
     root_gen = seed_everything(config.seed)
     ssl = config.self_supervision
     full = config.full_sequence
@@ -222,11 +224,13 @@ def main(argv=None):
     test_stats = inference(config, model, test_pipe,
                            optimal_threshold=train_stats["optimal_threshold"],
                            clinical=clinical,
-                           fig_save_folder=config.fig_save_folder)
+                           fig_save_folder=(config.fig_save_folder
+                                            if is_primary() else None))
 
     logger.log(stats_to_wandb("Train", train_stats))
     logger.log(stats_to_wandb("Test", test_stats))
     logger.finish()
+    end_run()
     return train_stats, test_stats
 
 

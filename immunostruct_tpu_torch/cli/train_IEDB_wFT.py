@@ -20,7 +20,8 @@ from __future__ import annotations
 import torch
 
 from immunostruct_tpu_torch.cli.common import (
-    base_parser, check_seq_dims, pick_pipeline, to_config,
+    base_parser, check_seq_dims, end_run, metrics_path, pick_pipeline,
+    to_config,
 )
 from immunostruct_tpu_torch.data.dataset import ImmunoDataset, seeded_split
 from immunostruct_tpu_torch.data.pipeline import BatchPipeline
@@ -52,7 +53,7 @@ def main(argv=None):
                           entity=config.wandb_username,
                           name=f"PropIEDB_ImmunoIEDB:{config.model}-seed{config.seed}",
                           config=vars(args),
-                          jsonl_path=config.model_save_path_pretrain + ".metrics.jsonl")
+                          jsonl_path=metrics_path(config))
     root_gen = seed_everything(config.seed)
 
     dataset = ImmunoDataset.load(config, config.graph_dir_IEDB,
@@ -121,6 +122,7 @@ def main(argv=None):
     logger.log(stats_to_wandb("Train", train_stats))
     logger.log(stats_to_wandb("Test", test_stats))
     logger.finish()
+    end_run()
     return train_stats, test_stats
 
 

@@ -40,7 +40,7 @@ from __future__ import annotations
 import torch
 
 from immunostruct_tpu_torch.cli.common import (
-    base_parser, check_seq_dims, to_config,
+    base_parser, check_seq_dims, end_run, metrics_path, to_config,
 )
 from immunostruct_tpu_torch.data.dataset import (
     ComparativeDataset, ImmunoDataset, seeded_split,
@@ -99,7 +99,7 @@ def main(argv=None):
                           entity=config.wandb_username,
                           name=f"{args.stages}:{config.model}-seed{config.seed}",
                           config=vars(args),
-                          jsonl_path=config.model_save_path_pretrain + ".metrics.jsonl")
+                          jsonl_path=metrics_path(config))
     root_gen = seed_everything(config.seed)
     ssl = config.self_supervision
     full = config.full_sequence
@@ -194,6 +194,7 @@ def main(argv=None):
     logger.log(stats_to_wandb("Train", train_stats))
     logger.log(stats_to_wandb("Test", test_stats))
     logger.finish()
+    end_run()
     return train_stats, test_stats
 
 

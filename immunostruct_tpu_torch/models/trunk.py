@@ -34,7 +34,7 @@ from immunostruct_tpu_torch.ops.attention import (
     MultiHeadAttention, SelfAttention, mha_apply, self_attention_apply,
 )
 from immunostruct_tpu_torch.ops.egnn import (
-    egnn_stack, egnn_stack_apply, stack_aggregation,
+    egnn_apply, egnn_stack, egnn_stack_apply, stack_aggregation,
 )
 from immunostruct_tpu_torch.ops.nnp import Linear, draw, dropout, linear_apply
 from immunostruct_tpu_torch.ops.pooling import max_pool, mean_pool
@@ -199,15 +199,19 @@ def gcn_aggregation(model: ImmunoStructModel, graph: GraphBatch,
 def _structure_branch(model: ImmunoStructModel, graph: GraphBatch,
                       aggregation: str, compute_dtype,
                       mega_variant: str = "hybrid",
-                      fused_stack: bool = False):
+                      fused_stack: bool = False, mp=None):
     spec = model.spec
     h = _gcn_input(graph).to(compute_dtype)
     x = graph.coords.to(compute_dtype)
-    h, _ = egnn_stack_apply(model.gcn, h, x, graph.edge_src, graph.edge_dst,
-                            graph.edge_feat, graph.edge_mask,
-                            aggregation=aggregation,
-                            mega_variant=mega_variant,
-                            fused_stack=fused_stack)
+    if mp is not None and mp.pp_axis is not None and len(model.gcn) > 1:
+        h, _ = _egnn_stack_gpipe(model.gcn, h, x, graph, aggregation, mp,
+                                 mega_variant)
+    else:
+        h, _ = egnn_stack_apply(model.gcn, h, x, graph.edge_src,
+                                graph.edge_dst, graph.edge_feat,
+                                graph.edge_mask, aggregation=aggregation,
+                                mega_variant=mega_variant,
+                                fused_stack=fused_stack)
     if spec.node_attention == "self":
         attn_out, attn_w = self_attention_apply(model.node_attn, h)
     else:
@@ -220,12 +224,57 @@ def _structure_branch(model: ImmunoStructModel, graph: GraphBatch,
     return pooled, attn_w
 
 
-def _vae_encode(vae: _VAE, seq_flat):
+def _egnn_stack_gpipe(layers, h, x, graph: GraphBatch, aggregation: str, mp,
+                      mega_variant: str = "hybrid"):
+    """The hidden convs as a GPipe pipeline over ``mp.pp_axis``
+    (``parallel/pipeline.py``), one conv a stage; the input conv (another
+    in-width) runs on every rank first. The edge data is the pipeline's
+    aux. Runs under ``with mesh:``."""
+    from immunostruct_tpu_torch.parallel.mesh import current_mesh
+    from immunostruct_tpu_torch.parallel.mp import pad_pipeline_stages
+    from immunostruct_tpu_torch.parallel.pipeline import gpipe_apply
+
+    edges = (graph.edge_src, graph.edge_dst, graph.edge_feat,
+             graph.edge_mask)
+    h, x = egnn_apply(layers[0], h, x, *edges, aggregation=aggregation,
+                      mega_variant=mega_variant)
+    stages, _ = pad_pipeline_stages(list(layers[1:]),
+                                    current_mesh().size(mp.pp_axis))
+
+    def layer_fn(stage, hx, aux_t):
+        if stage is None:                   # a pad stage passes through
+            return hx
+        h2, x2 = egnn_apply(stage, hx[..., :-3], hx[..., -3:], *aux_t,
+                            aggregation=aggregation,
+                            mega_variant=mega_variant)
+        return torch.cat([h2, x2], dim=-1)
+
+    hx = gpipe_apply(layer_fn, stages, torch.cat([h, x], dim=-1),
+                     mp.pp_microbatches, axis_name=mp.pp_axis, aux=edges)
+    return hx[..., :-3], hx[..., -3:]
+
+
+def _vae_encode(vae: _VAE, seq_flat, mp=None):
+    if mp is not None and mp.tp_axis is not None:
+        from immunostruct_tpu_torch.parallel.tensor import (
+            column_parallel_apply, row_parallel_apply,
+        )
+        h1 = torch.relu(column_parallel_apply(vae.fc1.w, vae.fc1.b,
+                                              seq_flat, mp.tp_axis))
+        return (row_parallel_apply(vae.fc21.w, vae.fc21.b, h1, mp.tp_axis),
+                row_parallel_apply(vae.fc22.w, vae.fc22.b, h1, mp.tp_axis))
     h1 = torch.relu(linear_apply(vae.fc1, seq_flat))
     return linear_apply(vae.fc21, h1), linear_apply(vae.fc22, h1)
 
 
-def _vae_decode(vae: _VAE, z):
+def _vae_decode(vae: _VAE, z, mp=None):
+    if mp is not None and mp.tp_axis is not None:
+        from immunostruct_tpu_torch.parallel.tensor import (
+            column_parallel_apply, row_parallel_apply,
+        )
+        h3 = torch.relu(column_parallel_apply(vae.fc3.w, vae.fc3.b, z,
+                                              mp.tp_axis)).to(z.dtype)
+        return row_parallel_apply(vae.fc4.w, vae.fc4.b, h3, mp.tp_axis)
     h3 = torch.relu(linear_apply(vae.fc3, z)).to(z.dtype)
     return linear_apply(vae.fc4, h3)
 
@@ -250,23 +299,26 @@ def forward_item(model: ImmunoStructModel, graph: Optional[GraphBatch],
                  deterministic: bool = False, aggregation: str = "auto",
                  compute_dtype=torch.float32,
                  eps: Optional[torch.Tensor] = None,
-                 mega_variant: str = "hybrid", fused_stack: bool = False):
+                 mega_variant: str = "hybrid", fused_stack: bool = False,
+                 mp=None):
     """Single-branch forward. Returns (embedding, recon, mu, logvar,
     attention weights); ``embedding`` is [pool | z_vae]. ``mega_variant``:
     the kernel variant of aggregation 'mega'; ``fused_stack``: the conv
-    stack through B7, forward only (both ``egnn_stack_apply``'s)."""
+    stack through B7, forward only (both ``egnn_stack_apply``'s). ``mp``:
+    a ``parallel/mp.py::MPConfig`` (the VAE's Megatron pairs, the hidden
+    convs' pipeline), run under ``with mesh:``."""
     spec = model.spec
     pooled, attn_w, recon, mu, logvar = None, None, None, None, None
     pieces = []
     if spec.use_structure:
         pooled, attn_w = _structure_branch(model, graph, aggregation,
                                            compute_dtype, mega_variant,
-                                           fused_stack)
+                                           fused_stack, mp)
         pieces.append(pooled)
     if spec.use_sequence:
         b = seq_onehot.shape[0]
         seq_flat = seq_onehot.reshape(b, -1).to(compute_dtype)
-        mu, logvar = _vae_encode(model.vae, seq_flat)
+        mu, logvar = _vae_encode(model.vae, seq_flat, mp)
         z = _reparameterize(mu, logvar, eps, generator)
         if spec.use_property:
             prop_emb = _property_branch(model.property_embedding,
@@ -276,7 +328,7 @@ def forward_item(model: ImmunoStructModel, graph: Optional[GraphBatch],
             z = torch.cat([z, prop_emb], dim=-1)
         if spec.raw_property_concat:
             z = torch.cat([z, props.to(z.dtype)], dim=-1)
-        recon = _vae_decode(model.vae, z)
+        recon = _vae_decode(model.vae, z, mp)
         pieces.append(z)
     embedding = torch.cat(pieces, dim=-1) if len(pieces) > 1 else pieces[0]
     return embedding, recon, mu, logvar, attn_w
@@ -308,16 +360,17 @@ def model_apply(model: ImmunoStructModel, graph: Optional[GraphBatch],
                 compute_dtype=torch.float32,
                 eps: Optional[torch.Tensor] = None,
                 mega_variant: str = "hybrid",
-                fused_stack: bool = False) -> ModelOutput:
+                fused_stack: bool = False, mp=None) -> ModelOutput:
     """Plain (non-comparative) forward. For comparative specs the item
     embedding is duplicated to fill the 2x-wide classifier, as in the JAX
     package's pretraining path. ``fused_stack`` runs the conv stack through
-    B7 (forward only: it raises under a gradient)."""
+    B7 (forward only: it raises under a gradient); ``mp`` as in
+    ``forward_item``."""
     embedding, recon, mu, logvar, attn_w = forward_item(
         model, graph, seq_onehot, props, generator=generator,
         deterministic=deterministic, aggregation=aggregation,
         compute_dtype=compute_dtype, eps=eps, mega_variant=mega_variant,
-        fused_stack=fused_stack)
+        fused_stack=fused_stack, mp=mp)
     combined = embedding
     if model.spec.comparative and model.spec.use_wt_for_downstream:
         combined = torch.cat([embedding, embedding], dim=-1)
@@ -346,7 +399,7 @@ def model_apply_comparative(model: ImmunoStructModel, graph_pair, seq_pair,
                             compute_dtype=torch.float32,
                             stack_twins: bool = False, eps=None,
                             mega_variant: str = "hybrid",
-                            fused_stack: bool = False):
+                            fused_stack: bool = False, mp=None):
     """Twin forward over (cancer, wt) with shared weights.
 
     Returns (ModelOutput_cancer, ModelOutput_wt, logits). The logits come
@@ -357,10 +410,11 @@ def model_apply_comparative(model: ImmunoStructModel, graph_pair, seq_pair,
     math; only the order of the noise draws differs). ``eps``: the VAE
     noise, a (cancer, wt) pair for two passes or one [2B, latent] tensor
     for the stacked pass; None draws it from ``generator``.
-    ``fused_stack``: the conv stack through B7, as in ``model_apply``."""
+    ``fused_stack``: the conv stack through B7, ``mp`` the model-parallel
+    configuration, as in ``model_apply``."""
     kw = dict(generator=generator, deterministic=deterministic,
               aggregation=aggregation, compute_dtype=compute_dtype,
-              mega_variant=mega_variant, fused_stack=fused_stack)
+              mega_variant=mega_variant, fused_stack=fused_stack, mp=mp)
     if stack_twins:
         b = (seq_pair[0] if seq_pair[0] is not None
              else graph_pair[0].node_feat).shape[0]

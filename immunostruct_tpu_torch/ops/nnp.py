@@ -22,6 +22,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from immunostruct_tpu_torch.parallel.mesh import current_batch_shard
+
 
 def _uniform(shape, bound: float, generator: torch.Generator,
              device, dtype) -> torch.Tensor:
@@ -60,11 +62,17 @@ def linear_apply(p: Linear, x: torch.Tensor) -> torch.Tensor:
 def draw(fn, shape, generator: Optional[torch.Generator], device,
          dtype=torch.float32) -> torch.Tensor:
     """Random tensor from ``fn`` (``torch.rand`` / ``torch.randn``) drawn on
-    the generator's device, then moved to ``device``."""
+    the generator's device, then moved to ``device``. Under a data-parallel
+    ``batch_shard`` (``parallel/mesh.py``) it is drawn at the global
+    batch's shape and this rank's rows are kept."""
     if generator is None:
         raise ValueError("a torch.Generator is required for random draws")
-    t = fn(shape, generator=generator, device=generator.device,
-           dtype=torch.float32)
+    shard = current_batch_shard()
+    if shard is not None:
+        t = shard.draw(fn, shape, generator)
+    else:
+        t = fn(shape, generator=generator, device=generator.device,
+               dtype=torch.float32)
     return t.to(device=device, dtype=dtype)
 
 

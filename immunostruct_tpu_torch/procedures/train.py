@@ -22,6 +22,16 @@ Parity notes, as in the JAX package:
 an optional per-epoch resume snapshot removed when the stage ends, and the
 collapse guard on the validation AUROC (median-split for soft targets).
 Its batches come from ``data/pipeline.py`` through ``prefetch``.
+
+Data parallelism (``parallel/trainer.py::make_sharded_trainer``, as
+``--data-parallel``): the Trainer holds a ``Mesh`` and ``shard_batch``;
+every rank reads the global batch, keeps its rows, and runs the step
+under ``batch_shard`` so that its draws and batch statistics are the
+global batch's; the gradients and the loss are then averaged over the
+data axis in one flat buffer. The step is the one-process step on the
+global batch. Rank 0 alone writes checkpoints and snapshots (the others
+wait at a barrier), validation gathers the logits, and every decision
+that ends a stage comes from those global values.
 """
 
 from __future__ import annotations
@@ -36,6 +46,12 @@ import torch
 
 from immunostruct_tpu_torch.models.trunk import (
     ImmunoStructModel, ModelSpec, model_apply, model_apply_comparative,
+)
+from immunostruct_tpu_torch.parallel.collectives import (
+    all_gather, mean_gradients, pmean,
+)
+from immunostruct_tpu_torch.parallel.mesh import (
+    BatchShard, barrier, batch_shard, is_primary, replicate_tree,
 )
 from immunostruct_tpu_torch.procedures.metrics import roc_auc_score
 from immunostruct_tpu_torch.structs import (
@@ -157,7 +173,14 @@ class Trainer:
                  binary: bool, optimizer: OptimizerConfig,
                  coeff_contrastive: float = 0.0, aggregation: str = "auto",
                  compute_dtype=torch.float32, grad_accum_steps: int = 1,
-                 stack_twins: bool = False, mega_variant: str = "hybrid"):
+                 stack_twins: bool = False, mega_variant: str = "hybrid",
+                 mesh=None, shard_batch=None, mp=None,
+                 data_axis: str = "data"):
+        """``mesh``/``shard_batch``: the data-parallel placement (a
+        ``parallel/mesh.py::Mesh`` and the function that keeps a rank's
+        rows of a global batch; ``make_sharded_trainer`` sets both).
+        ``mp``: a ``parallel/mp.py::MPConfig``, whose step is
+        ``parallel/trainer.py::make_mp_train_step``."""
         if coeff_contrastive > 0 and grad_accum_steps > 1:
             # the contrastive pair-similarity / cross-correlation statistics
             # are taken over the batch the loss sees: under accumulation
@@ -181,6 +204,19 @@ class Trainer:
         self.loss_fn = make_loss_fn(loss_cfg, binary)
         self.grad_accum_steps = grad_accum_steps
         self.stack_twins = stack_twins
+        self.mesh = mesh
+        self.shard_batch = shard_batch
+        self.mp = mp
+        self.data_axis = data_axis
+
+    def _data(self):
+        """(mesh, data axis) when batches are shards of a global batch."""
+        return (self.mesh, self.data_axis) if self.shard_batch else None
+
+    def _shard(self, batch):
+        if self.shard_batch is not None:
+            return self.shard_batch(batch)
+        return batch
 
     # -- state ---------------------------------------------------------------
     def init_state(self, model: ImmunoStructModel,
@@ -197,6 +233,8 @@ class Trainer:
                 self.spec.embedding_dim,
                 generator=generator or torch.Generator().manual_seed(0),
                 device=device)
+        if self.mesh is not None:
+            replicate_tree(model, self.mesh)
         return TrainState(model=model,
                           optimizer=self.optimizer.build(model.parameters()))
 
@@ -210,7 +248,7 @@ class Trainer:
         kw = dict(generator=generator, deterministic=deterministic,
                   aggregation=self.aggregation,
                   compute_dtype=self.compute_dtype, eps=eps,
-                  mega_variant=self.mega_variant)
+                  mega_variant=self.mega_variant, mp=self.mp)
         if isinstance(batch, ComparativeBatch):
             c, w = batch.cancer, batch.wt
             out_c, out_w, logits = model_apply_comparative(
@@ -239,8 +277,26 @@ class Trainer:
         return loss, (out.logits, batch.target)
 
     # -- steps ---------------------------------------------------------------
+    def _sharded_loss_aux(self, model, batch, generator, deterministic, eps,
+                          data):
+        """``_batch_loss_aux`` of a rank's shard of a global batch under
+        ``batch_shard`` (``data``: (mesh, axis); None: a whole batch).
+        ``eps``, when given, is the global batch's noise."""
+        if data is None:
+            return self._batch_loss_aux(model, batch, generator,
+                                        deterministic, eps)
+        mesh, axis = data
+        shard = BatchShard(mesh, axis, first_tensor(batch).shape[0])
+        with batch_shard(shard):
+            if eps is not None:
+                eps = (shard.take(eps) if torch.is_tensor(eps)
+                       else tuple(shard.take(e) for e in eps))
+            return self._batch_loss_aux(model, batch, generator,
+                                        deterministic, eps)
+
     def loss_and_grads(self, model: ImmunoStructModel, batch,
-                       generator: Optional[torch.Generator], eps=None
+                       generator: Optional[torch.Generator], eps=None,
+                       deterministic: bool = False, data=None
                        ) -> torch.Tensor:
         """The training-mode loss of ``batch``; its gradients are left in
         the parameters' ``.grad`` (which must be empty or zero).
@@ -249,20 +305,26 @@ class Trainer:
         along its leading axis, each forward and backward in turn, and the
         summed gradients and losses are scaled by 1/k. A batch whose size k
         does not divide (a trailing remainder batch) takes one unsplit
-        step. ``eps`` then holds one entry per microbatch."""
+        step. ``eps`` then holds one entry per microbatch. ``data``: (mesh,
+        axis) when ``batch`` is this rank's shard of a global batch (laid
+        out by ``parallel/mesh.py::shard_rows``); the split follows the
+        global batch's size. ``deterministic`` turns dropout off."""
         k = self.grad_accum_steps
-        if k <= 1 or first_tensor(batch).shape[0] % k != 0:
-            loss, _ = self._batch_loss_aux(model, batch, generator, False, eps)
+        n = first_tensor(batch).shape[0]
+        ranks = data[0].size(data[1]) if data is not None else 1
+        if k <= 1 or (n * ranks) % k != 0:
+            loss, _ = self._sharded_loss_aux(model, batch, generator,
+                                             deterministic, eps, data)
             loss.backward()
             return loss.detach()
-        size = first_tensor(batch).shape[0] // k
+        size = n // k
         total = None
         for i in range(k):
             micro = map_tensors(
                 lambda t, i=i: t[i * size:(i + 1) * size], batch)
-            loss, _ = self._batch_loss_aux(
-                model, micro, generator, False,
-                None if eps is None else eps[i])
+            loss, _ = self._sharded_loss_aux(
+                model, micro, generator, deterministic,
+                None if eps is None else eps[i], data)
             loss.backward()
             total = loss.detach() if total is None else total + loss.detach()
         with torch.no_grad():
@@ -278,7 +340,11 @@ class Trainer:
         generator = step_generator(seed, state.step,
                                    first_tensor(batch).device)
         state.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss_and_grads(state.model, batch, generator, eps)
+        loss = self.loss_and_grads(state.model, batch, generator, eps,
+                                   data=self._data())
+        if self._data() is not None:
+            loss = mean_gradients(state.model.parameters(), loss,
+                                  self.data_axis, self.mesh)
         for group in state.optimizer.param_groups:
             group["lr"] = self.optimizer.lr(state.step)
         state.optimizer.step()
@@ -288,10 +354,19 @@ class Trainer:
     def eval_step(self, model: ImmunoStructModel, batch, seed: int,
                   eps=None, index: int = 0):
         """(loss, (logits, target)) of the deterministic forward, without
-        gradients; its noise from ``step_generator(seed, index)``."""
+        gradients; its noise from ``step_generator(seed, index)``. On a
+        rank's shard the loss is the global batch's and the logits and
+        targets are gathered from every rank."""
         generator = step_generator(seed, index, first_tensor(batch).device)
+        data = self._data()
         with torch.no_grad():
-            return self._batch_loss_aux(model, batch, generator, True, eps)
+            loss, (logits, target) = self._sharded_loss_aux(
+                model, batch, generator, True, eps, data)
+        if data is not None:
+            loss = pmean(loss, self.data_axis, self.mesh)
+            logits = all_gather(logits, self.data_axis, mesh=self.mesh)
+            target = all_gather(target, self.data_axis, mesh=self.mesh)
+        return loss, (logits, target)
 
     # -- epoch loop ------------------------------------------------------------
     def fit(self, state: TrainState, train_pipe, val_pipe, num_epochs: int,
@@ -330,9 +405,10 @@ class Trainer:
             t0 = time.perf_counter()
             losses, n_samples = [], 0
             for batch in prefetch(train_pipe.epoch(epoch)):
-                state, loss = self.train_step(state, batch, seed)
-                losses.append(loss)
                 n_samples += first_tensor(batch).shape[0]
+                state, loss = self.train_step(state, self._shard(batch),
+                                              seed)
+                losses.append(loss)
             # one device-to-host read per epoch, not per step
             train_loss = (float(torch.stack(losses).float().mean())
                           if losses else 0.0)
@@ -340,7 +416,7 @@ class Trainer:
             val_losses, val_logits, val_targets = [], [], []
             for i, batch in enumerate(val_pipe.epoch(epoch)):
                 loss, (logits, target) = self.eval_step(
-                    state.model, batch, eval_seed, index=i)
+                    state.model, self._shard(batch), eval_seed, index=i)
                 val_losses.append(loss)
                 if collapse_guard is not None:
                     val_logits.append(logits.reshape(-1).float())
@@ -355,9 +431,10 @@ class Trainer:
             if val_loss < lowest_val:
                 lowest_val = val_loss
                 if ckpt_path:
-                    save_checkpoint(ckpt_path, state.model)
+                    self._write(save_checkpoint, ckpt_path, state.model)
             if resume_path:
-                save_resume_state(resume_path, state, epoch, lowest_val)
+                self._write(save_resume_state, resume_path, state, epoch,
+                            lowest_val)
 
             dt = time.perf_counter() - t0
             history["train_loss"].append(train_loss)
@@ -373,9 +450,18 @@ class Trainer:
 
         # stage finished: drop the snapshot so that a later stage with the
         # same paths starts fresh
-        if resume_path and os.path.exists(resume_path):
-            os.remove(resume_path)
+        if resume_path:
+            self._write(lambda p: os.path.exists(p) and os.remove(p),
+                        resume_path)
         return state, history
+
+    def _write(self, fn, *args) -> None:
+        """Run a file write on rank 0 alone; under a mesh the other ranks
+        wait until it is done."""
+        if is_primary():
+            fn(*args)
+        if self.mesh is not None:
+            barrier()
 
     @staticmethod
     def _observe_collapse(guard: CollapseGuard, epoch: int, logits: list,
@@ -434,12 +520,12 @@ def train_model(config, model: ImmunoStructModel, train_pipe, val_pipe,
     collapse guard fires restarts from fresh weights, up to twice. The JAX
     package's ``resolve_scan_layers`` has no counterpart: ``--scan-layers``
     rolls XLA's EGNN layers into one compiled loop, and PyTorch compiles
-    nothing."""
+    nothing. Under ``config.data_parallel`` the stage runs on
+    ``make_sharded_trainer``'s data-parallel step over every rank of the
+    process group; a batch the ranks do not divide fails before the first
+    step."""
     from immunostruct_tpu_torch.utils.schedule import constant_lr
 
-    if config.data_parallel:
-        raise ValueError("--data-parallel is not ported to PyTorch yet "
-                         "(see ROADMAP.md); train on one card")
     seed = config.seed
     schedule = (lr_schedule if lr_schedule is not None
                 else constant_lr(learning_rate))
@@ -451,13 +537,21 @@ def train_model(config, model: ImmunoStructModel, train_pipe, val_pipe,
             f"--grad-accum-steps {accum} does not divide --batch-size "
             f"{config.batch_size}; accumulation would be silently skipped on "
             "every full batch. Pick a divisible pair (e.g. batch 128, k=2).")
-    trainer = Trainer(model.spec, loss_cfg, binary=binary,
-                      optimizer=optimizer,
-                      coeff_contrastive=coeff_contrastive,
-                      aggregation=config.aggregation,
-                      compute_dtype=getattr(torch, config.compute_dtype),
-                      grad_accum_steps=accum,
-                      stack_twins=bool(config.stack_twins))
+    kw = dict(binary=binary, optimizer=optimizer,
+              coeff_contrastive=coeff_contrastive,
+              aggregation=config.aggregation,
+              compute_dtype=getattr(torch, config.compute_dtype),
+              grad_accum_steps=accum, stack_twins=bool(config.stack_twins))
+    if config.data_parallel:
+        # the global batch's step on every rank's shard of it (the group
+        # is joined by cli/common.py::to_config)
+        from immunostruct_tpu_torch.parallel.trainer import (
+            check_shardable, make_sharded_trainer,
+        )
+        trainer = make_sharded_trainer(model.spec, loss_cfg, **kw)
+        check_shardable(trainer, train_pipe=train_pipe, val_pipe=val_pipe)
+    else:
+        trainer = Trainer(model.spec, loss_cfg, **kw)
     ckpt = (config.model_save_path_pretrain if stage == "pretrain"
             else config.model_save_path_finetune)
     suffix = f".{resume_tag}.resume" if resume_tag else ".resume"

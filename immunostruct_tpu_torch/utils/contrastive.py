@@ -20,6 +20,8 @@ import torch
 from torch import nn
 
 from immunostruct_tpu_torch.ops.nnp import Linear
+from immunostruct_tpu_torch.parallel.collectives import all_gather
+from immunostruct_tpu_torch.parallel.mesh import current_batch_shard
 
 
 class PairedContrastiveProjector(nn.Module):
@@ -53,7 +55,15 @@ def paired_contrastive_loss(p: PairedContrastiveProjector,
                             embedding_cancer: torch.Tensor,
                             embedding_wt: torch.Tensor, target: torch.Tensor,
                             lambda_off_diag: float = 1e-2) -> torch.Tensor:
-    """The gated contrastive loss (0 when the batch cannot contrast)."""
+    """The gated contrastive loss (0 when the batch cannot contrast).
+    Under a data-parallel ``batch_shard`` (``parallel/mesh.py``) every rank
+    computes it on the global batch: the embeddings are gathered (their
+    gradient flows back to each rank's rows) and so are the targets."""
+    shard = current_batch_shard()
+    if shard is not None:
+        embedding_cancer = shard.gather(embedding_cancer.float())
+        embedding_wt = shard.gather(embedding_wt.float())
+        target = all_gather(target.reshape(-1), shard.axis, mesh=shard.mesh)
     y = target.reshape(-1).float()
     is_binary = torch.all((y == 0.0) | (y == 1.0))
     has_both = torch.any(y == 1.0) & torch.any(y == 0.0)

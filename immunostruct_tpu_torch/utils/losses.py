@@ -20,6 +20,8 @@ from typing import Optional
 import torch
 from torch.nn import functional as F
 
+from immunostruct_tpu_torch.parallel.mesh import current_batch_shard
+
 
 @dataclasses.dataclass(frozen=True)
 class LossConfig:
@@ -38,13 +40,20 @@ def _recon_kld(recon, x_flat, mu, logvar):
 def _ssl_term(node_logits: Optional[torch.Tensor],
               residue: Optional[torch.Tensor]):
     """Cross-entropy over the 20 amino-acid classes for the masked residue;
-    0 when either is None, and residues < 0 are left out."""
+    0 when either is None, and residues < 0 are left out. Under a
+    data-parallel ``batch_shard`` the mean is the global batch's: this
+    rank's sum, times the shard count, over the count of valid residues on
+    every shard (the ranks' terms are averaged)."""
     if node_logits is None or residue is None:
         return 0.0
     logp = torch.log_softmax(node_logits.float(), dim=-1)
     valid = residue >= 0
     residue = residue.clamp(0, logp.shape[-1] - 1).long()
     nll = -torch.gather(logp, 1, residue[:, None])[:, 0]
+    shard = current_batch_shard()
+    if shard is not None:
+        denom = shard.total(valid.sum()).clamp_min(1)
+        return torch.where(valid, nll, 0.0).sum() * shard.size / denom
     denom = valid.sum().clamp_min(1)
     return torch.where(valid, nll, 0.0).sum() / denom
 

@@ -143,12 +143,34 @@ def test_train_model_collapse_guard_records_val_auroc(corpus, tmp_path):
     assert os.path.exists(cfg.model_save_path_finetune)
 
 
-def test_train_model_rejects_what_is_not_ported(corpus, tmp_path):
+def test_train_model_rejects_what_is_not_ported(corpus, tmp_path,
+                                                monkeypatch):
+    """Under data_parallel a stage whose batches the data axis does not
+    divide (13 train rows in batches of 4 over two ranks: a trailing batch
+    of 1) fails before its first step, naming both numbers; it is never
+    padded or dropped. The two ranks are a stand-in mesh."""
+    from immunostruct_tpu_torch.parallel import trainer as parallel_trainer
+
+    class TwoRanks:
+        axis_names = ("data",)
+
+        @staticmethod
+        def size(axis):
+            return 2
+
+        @staticmethod
+        def index(axis):
+            return 0
+
+    monkeypatch.setattr(parallel_trainer, "make_mesh",
+                        lambda axis: TwoRanks)
     cfg, (train, val), vae_dim, loss_cfg = _setup(corpus, tmp_path,
                                                   data_parallel=True)
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="a batch of 1 rows does not divide "
+                                         "over 2 ranks"):
         train_model(cfg, _model(vae_dim), train, val, loss_cfg, binary=True,
                     learning_rate=1e-3)
+    assert not os.path.exists(cfg.model_save_path_pretrain)
 
 
 def test_reset_head_replaces_only_the_classifier(corpus, tmp_path):
@@ -227,16 +249,21 @@ def test_train_IEDB_wFT_end_to_end(corpus, tmp_path, aggregation):
 
 @pytest.mark.parametrize("flag,match", [
     (["--device-data", "--device", "cuda"], "device-data"),
-    (["--data-parallel"], "not ported"),
+    # --data-parallel runs (test_torch_port_parallel.py); asked for the
+    # card where there is none, it fails and does not train on the CPU
+    pytest.param(["--data-parallel", "--device", "cuda"], "no CUDA device",
+                 id="flag1-not ported"),
     (["--device", "cuda"], "no CUDA device"),
 ])
 def test_train_IEDB_wFT_refuses_what_is_not_ported(corpus, tmp_path, flag,
                                                    match):
     """--device-data keeps the corpus on --device, so with --device cuda
-    and no card it fails (it does not run on the CPU)."""
+    and no card it fails (it does not run on the CPU); so does a
+    data-parallel run on --device cuda. With a card, each case asks for
+    an accumulation the batch does not divide instead."""
     if "cuda" in flag and torch.cuda.is_available():
-        flag = ["--data-parallel"]
-        match = "not ported"
+        flag = ["--grad-accum-steps", "3"]
+        match = "does not divide"
     args = _cli_args(corpus, str(tmp_path), "fused") + flag
     with pytest.raises((ValueError, RuntimeError), match=match):
         train_IEDB_wFT.main(args)

@@ -2694,3 +2694,114 @@ def test_device_corpus_estimate_equals_the_allocated_bytes(cuda, tmp_path):
     assert need <= grown <= need + 4 * len(ds) + 12 * 512
     again = build_device_corpus(ds, binary=True, full=True, device="cuda:0")
     assert again.node_onehot is corpus.node_onehot     # 'cuda' is 'cuda:0'
+
+
+# --------------------------------------------------------------------------
+# parallelism on the card (parallel/*): ranks that share cuda:0 over gloo,
+# and the NCCL group of one
+# --------------------------------------------------------------------------
+
+def _build_for_ranks():
+    """The kernels the ranks launch, built here before they are spawned."""
+    mega._kernel_libs()
+    segment._lib()
+
+
+@pytest.mark.cuda
+def test_data_parallel_step_over_two_ranks_on_the_card(cuda):
+    """Two ranks share the card (gloo): the 'mega' step (f32, B=16,
+    E=512) with noise on equals the one-process step (loss rel 1e-5,
+    parameters rtol 2e-5, atol 2e-6; the attention key biases, whose true
+    gradient is zero, within Adam's lr) and each rank launches its
+    kernels."""
+    from immunostruct_tpu_torch.parallel.dryrun import (
+        KEY_BIASES, StepCase, dp_checks, excess_by_param, spawn,
+    )
+    _build_for_ranks()
+    case = StepCase(name="HybridModelv2", b=16, nodes=64, edges=512,
+                    seq_len=16, aggregation="mega")
+    ranks = spawn(dp_checks, 2, {"f32": case}, device="cuda")
+    ref = ranks[0]["f32/ref"]
+    for r in ranks:
+        got = r["f32"]
+        assert got["backend"] == "gloo" and got["rows"] == 8
+        assert got["losses"][0] == pytest.approx(ref["losses"][0], rel=1e-5)
+        excess = excess_by_param(got["params"], ref["params"], 2e-5, 2e-6)
+        assert max(v for k, v in excess.items()
+                   if not k.endswith(KEY_BIASES)) <= 1.0, excess
+        for k in excess:
+            if k.endswith(KEY_BIASES):
+                assert (got["params"][k] - ref["params"][k]).abs().max() \
+                    <= 1e-3, k
+        assert got["launches"]["B1"] == got["launches"]["B2"] == 6
+        assert got["launches"] == ref["launches"]
+
+
+@pytest.mark.cuda
+def test_gpipe_hop_staged_through_host_on_the_card(cuda):
+    """GPipe over two ranks sharing the card: gloo's send/recv takes no
+    CUDA tensor, so each hop goes through pinned host memory; the output
+    and the gradients equal the sequential stack's."""
+    import numpy as np
+
+    from immunostruct_tpu_torch.parallel.dryrun import (
+        gpipe_stack_run, spawn,
+    )
+
+    rng = np.random.default_rng(0)
+    stacked = {"w": rng.standard_normal((2, 12, 12)).astype(np.float32) / 4,
+               "b": rng.standard_normal((2, 12)).astype(np.float32) / 4}
+    x = rng.standard_normal((8, 12)).astype(np.float32)
+    y = rng.standard_normal((8, 12)).astype(np.float32)
+    outs = spawn(gpipe_stack_run, 2, stacked, x, y, (1, 2, 4),
+                 device="cuda")
+    params = {k: torch.from_numpy(v).requires_grad_(True)
+              for k, v in stacked.items()}
+    h = torch.from_numpy(x)
+    for s in range(2):
+        h = torch.tanh(h @ params["w"][s] + params["b"][s])
+    ((h - torch.from_numpy(y)) ** 2).mean().backward()
+    for out in outs:
+        for m in (1, 2, 4):
+            np.testing.assert_allclose(out[f"out{m}"], h.detach().numpy(),
+                                       rtol=1e-5, atol=1e-6)
+        for k, p in params.items():
+            np.testing.assert_allclose(out["grads"][k], p.grad.numpy(),
+                                       rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_nccl_group_of_one_on_the_card(cuda):
+    """Without torchrun's environment the process is a group of one over
+    NCCL; a sharded step there gives the plain step's bits."""
+    import torch.distributed as dist
+
+    from immunostruct_tpu_torch.parallel import collectives as C
+    from immunostruct_tpu_torch.parallel.dryrun import (
+        StepCase, case_batch, case_trainer, params_of,
+    )
+    from immunostruct_tpu_torch.parallel.mesh import (
+        initialize_distributed, make_mesh, shutdown_distributed,
+    )
+    _build_for_ranks()
+    assert initialize_distributed(device="cuda") == torch.device("cuda", 0)
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        mesh = make_mesh("data")
+        x = torch.randn(1000, device=cuda)
+        assert torch.equal(C.psum(x, mesh=mesh), x)
+        assert torch.equal(C.all_gather(x, mesh=mesh), x)
+        assert torch.equal(C.ring_all_reduce(x, mesh=mesh), x)
+        case = StepCase(name="HybridModelv2", b=8, nodes=64, edges=512,
+                        seq_len=16, aggregation="mega")
+        params = []
+        for kw in ({"sharded": True, "mesh": mesh}, {}):
+            trainer, state = case_trainer(case, cuda, **kw)
+            batch = trainer._shard(case_batch(case, cuda))
+            state, loss = trainer.train_step(state, batch, seed=0)
+            params.append((float(loss), params_of(state.model)))
+        (l1, p1), (l2, p2) = params
+        assert l1 == l2
+        assert all(torch.equal(p1[k], p2[k]) for k in p1)
+    finally:
+        shutdown_distributed()

@@ -58,7 +58,10 @@ def test_every_module_imports_without_jax():
                    "featurize.edges", "featurize.builder", "featurize.native",
                    "data.device_pipeline", "data.device_augment",
                    "cli.common", "utils.flops", "utils.profiling",
-                   "utils.attribution", "cli.profile_step"):
+                   "utils.attribution", "cli.profile_step",
+                   "parallel.mesh", "parallel.collectives",
+                   "parallel.trainer", "parallel.tensor",
+                   "parallel.pipeline", "parallel.mp", "parallel.dryrun"):
         assert f"immunostruct_tpu_torch.{module}" in names
     proc = _probe(names)
     assert proc.returncode == 0, proc.stderr
