@@ -287,7 +287,14 @@ Phases (none catches its own failure; any failure exits non-zero):
      full-width HybridModelv2 'mega' step at a global B=128 (64 a rank,
      E=2560) in f32 against the one-process step (loss rel 1e-5,
      parameters rtol 2e-5, atol 2e-6), the twin step with contrastive 0.1
-     (loss rel 2e-5), the bf16 step (phase 16's first-step bounds),
+     (loss rel 2e-5) and its control twin_fixed (dropout 0, VAE noise
+     pinned) at three seeds, whose one-process step is also taken on its
+     rows reversed: the twin steps and the reversed ones within
+     dryrun.twin_excess's rule (gradients: phase 29c's rule plus 1e-5 of
+     the step's largest gradient; parameters: JAX's bound but at entries
+     whose reference gradient is nonzero and below that, dropped and
+     counted), each also read against JAX's bounds alone; the bf16 step
+     (phase 16's first-step bounds),
      shard_map_train_step's ring against psum (loss rel 1e-5), each rank's
      launches (the one-process step's: 6 B1, 6 B2), step time and the
      gloo all_reduce of the gradient buffer; (c) the full-width twin model
@@ -295,7 +302,19 @@ Phases (none catches its own failure; any failure exits non-zero):
      over 2 ranks, TP x DP on (2, 2), GPipe over 5 ranks (2 microbatches;
      6 B1 and 6 B2 a stage): loss rtol 2e-5, gradients rtol 2e-4, atol
      2e-4 * max|g| on every rank; the phase's time;
-  30. print the times beside the card's name and power limit, then the
+  30. the contrastive term under gradient accumulation ("accum 30"
+     lines): (a) the full-width twin Trainer step (B=128, E=2560, 'mega',
+     contrastive 0.1) at grad_accum_steps=2, bf16 and f32: refused before
+     any launch without allow_microbatch_contrastive; with it 24 B1, 24
+     B2, 48 B8 scatters a step and, bit for bit, the two half-batch steps
+     on one generator summed then halved; its time in turn with the k=1
+     step's (bf16); (b) train_Cancer_wFT --grad-accum-steps 2
+     --allow-microbatch-contrastive under 'pallas' on phase 21's corpora,
+     one epoch a stage, with --data-parallel (a group of one) and
+     without: the same bits, losses and launches; train_IEDB_wFT
+     --wandb-username with a stand-in wandb module: every JSONL line
+     logged there;
+  31. print the times beside the card's name and power limit, then the
      kernel record (eleven kernels) as one JSON line, the card line and, last,
      the result line {"ok": true, "device": {...}}.
 """
@@ -303,8 +322,10 @@ Phases (none catches its own failure; any failure exits non-zero):
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
+import math
 import os
 import shutil
 import statistics
@@ -920,11 +941,13 @@ def check_serving(scorer, requests, kernel: int = 0) -> tuple:
 
 def make_trainer(name: str, aggregation: str, coeff: float = 0.0,
                  seed: int = 0, compute_dtype=torch.bfloat16,
-                 mega_variant: str = "hybrid", vae_dim: int = L * 21):
+                 mega_variant: str = "hybrid", vae_dim: int = L * 21,
+                 **trainer_kw):
     """A full-width model with seeded weights, its trainer (bf16 over f32
     master weights unless ``compute_dtype`` says otherwise, Adam at 1e-3,
-    the JAX bench's loss config, ``mega_variant`` under 'mega') and
-    state; ``vae_dim`` the sequence width times 21."""
+    the JAX bench's loss config, ``mega_variant`` under 'mega';
+    ``trainer_kw``: ``Trainer``'s further arguments) and state;
+    ``vae_dim`` the sequence width times 21."""
     from immunostruct_tpu_torch.models import build_model
     from immunostruct_tpu_torch.procedures.train import (
         Trainer, make_optimizer,
@@ -939,7 +962,8 @@ def make_trainer(name: str, aggregation: str, coeff: float = 0.0,
                       binary=True,
                       optimizer=make_optimizer("adam", constant_lr(1e-3)),
                       coeff_contrastive=coeff, aggregation=aggregation,
-                      compute_dtype=compute_dtype, mega_variant=mega_variant)
+                      compute_dtype=compute_dtype, mega_variant=mega_variant,
+                      **trainer_kw)
     return trainer, trainer.init_state(
         model, torch.Generator().manual_seed(seed + 1))
 
@@ -4075,6 +4099,11 @@ MP_GRAD_RTOL = 2e-4
 # 29b's parameters after the step against the one-process step (JAX's
 # test_parallel.py): rtol 2e-5, atol 2e-6
 DP_PARAM_RTOL, DP_PARAM_ATOL = 2e-5, 2e-6
+# the contrastive projector's first weight, read on its own in 29b
+PROJECTOR_W = "contrastive_projector.fc1.w"
+# 29b's twin control (dropout 0, VAE noise pinned) is read at these seeds
+# (batch and weights)
+TWIN_SEEDS = (0, 1, 2)
 
 
 def _grad_bound_ratio(got: dict, want: dict) -> float:
@@ -4155,31 +4184,81 @@ def check_parallel_entry_points(tmp: str, entry: dict, cancer: dict,
     return out
 
 
+def twin_readings(got: dict, ref: dict) -> dict:
+    """One run of the twin step against the one-process step: the worst
+    parameter excess over JAX's bound (rtol 2e-5, atol 2e-6) and the worst
+    gradient excess over phase 29c's rule, each with its parameter, the
+    projector's fc1.w gradient excess alone, and ``dryrun.twin_excess``
+    (the rule 29b holds the twin to)."""
+    from immunostruct_tpu_torch.parallel.dryrun import (
+        excess_by_param, twin_excess, worst_grad_excess,
+    )
+
+    by_param = excess_by_param(got["params"], ref["params"], DP_PARAM_RTOL,
+                               DP_PARAM_ATOL)
+    by_grad = {k: worst_grad_excess({k: got["grads"][k]}, {k: g},
+                                    MP_GRAD_RTOL, MP_GRAD_RTOL)
+               for k, g in ref["grads"].items()}
+    worst_p = max(by_param, key=by_param.get)
+    worst_g = max(by_grad, key=by_grad.get)
+    return dict(param_excess=by_param[worst_p], worst_param=worst_p,
+                grad_excess=by_grad[worst_g], worst_grad=worst_g,
+                projector_grad_excess=by_grad[PROJECTOR_W],
+                rule=twin_excess(got, ref))
+
+
 def check_data_parallel(card: str) -> dict:
     """Phase 29b: two ranks share the card over gloo: the full-width
     HybridModelv2 'mega' step at a global B=128 (64 a rank, E=2560) in f32
     and bf16, and the twin step (contrastive 0.1), each against the
-    one-process step on the same batch; shard_map_train_step's ring
-    against psum; each rank's launches, step time and reduction time."""
+    one-process step on the same batch; the twin's control (``twin_fixed``:
+    dropout 0, the VAE noise pinned) at the seeds ``TWIN_SEEDS``, whose
+    one-process step is also taken on the batch with its rows reversed;
+    shard_map_train_step's ring against psum; each rank's launches, step
+    time and reduction time.
+
+    The twin step is ill-conditioned in the order of its sums: the one
+    process parts from itself on its rows reversed by far more than JAX's
+    bounds, at entries whose gradient is rounding noise. The twin's steps
+    are held to ``dryrun.twin_excess``'s rule: gradients within phase
+    29c's rule plus 1e-5 of the step's largest gradient, parameters within
+    JAX's bound but at entries whose reference gradient is nonzero and
+    below that term (dropped and counted). The reversed steps must meet
+    the rule too: it is one the reference meets."""
     from immunostruct_tpu_torch.parallel.dryrun import (
         StepCase, dp_checks, excess_by_param, spawn, worst_excess,
     )
 
     full = dict(b=B, nodes=N, edges=EDGE_COUNTS[0], seq_len=L,
                 aggregation="mega")
+    twin = StepCase(name="HybridModelv2_Comparative", dtype="float32",
+                    coeff=0.1, **full)
+    fixed = {f"twin_fixed_s{seed}": dataclasses.replace(
+        twin, overrides=(("dropout_rate", 0.0),), pinned=True, seed=seed)
+        for seed in TWIN_SEEDS}
     cases = {"f32": StepCase(name="HybridModelv2", dtype="float32", **full),
-             "twin": StepCase(name="HybridModelv2_Comparative",
-                              dtype="float32", coeff=0.1, **full),
+             "twin": twin, **fixed,
              "bf16": StepCase(name="HybridModelv2", dtype="bfloat16",
                               **full)}
     t0 = time.perf_counter()
-    ranks = spawn(dp_checks, DP_RANKS, cases, cases["f32"], 5, 5,
-                  device="cuda")
+    ranks = spawn(dp_checks, DP_RANKS, cases, cases["f32"], 5, 5, 1,
+                  tuple(fixed), device="cuda")
     spawn_s = time.perf_counter() - t0
     out = {"backend": ranks[0]["f32"]["backend"], "ranks": DP_RANKS,
            "wall_s": spawn_s}
     assert out["backend"] == "gloo", out["backend"]
     assert not any(r[k]["jax_loaded"] for r in ranks for k in cases)
+    failures = []
+    for name in fixed:
+        ref = ranks[0][name + "/ref"]
+        rev = ranks[0][name + "/reversed"]
+        out[name + "/reversed"] = dict(loss=rev["losses"][0],
+                                       **twin_readings(rev, ref))
+        rule = out[name + "/reversed"]["rule"]
+        if max(rule["grads"], rule["params"]) > 1.0:
+            failures.append((name + "/reversed", rule))
+        print(f"parallel 29b [{card}]: {name}, one process, rows reversed: "
+              + json.dumps(out[name + "/reversed"]), flush=True)
     for name in cases:
         ref = ranks[0][name + "/ref"]
         for i, r in enumerate(ranks):
@@ -4197,13 +4276,18 @@ def check_data_parallel(card: str) -> dict:
                 ratio = _grad_bound_ratio(got["grads"], ref["grads"])
                 assert ratio <= 1.0, (name, ratio)
                 reading = dict(loss_rel=rel, grad_bound_ratio=ratio)
+            elif name.startswith("twin"):
+                assert rel <= 2e-5, (name, rel)
+                reading = dict(loss_rel=rel, **twin_readings(got, ref))
+                rule = reading["rule"]
+                if max(rule["grads"], rule["params"]) > 1.0:
+                    failures.append((name, i, rule))
             else:
-                assert rel <= (1e-5 if name == "f32" else 2e-5), (name, rel)
+                assert rel <= 1e-5, (name, rel)
                 by_param = excess_by_param(got["params"], ref["params"],
                                            DP_PARAM_RTOL, DP_PARAM_ATOL)
                 worst = max(by_param, key=by_param.get)
-                if name == "f32":
-                    assert by_param[worst] <= 1.0, (name, worst, by_param)
+                assert by_param[worst] <= 1.0, (name, worst, by_param)
                 reading = dict(loss_rel=rel, param_excess=by_param[worst],
                                worst_param=worst)
             out.setdefault(name, []).append(dict(
@@ -4212,6 +4296,7 @@ def check_data_parallel(card: str) -> dict:
                 **reading))
         print(f"parallel 29b [{card}]: {name}: " + json.dumps(out[name]),
               flush=True)
+    assert not failures, failures
     assert ranks[0]["f32"]["launches"]["B1"] == 6
     assert ranks[0]["f32"]["launches"]["B2"] == 6
     for i, r in enumerate(ranks):
@@ -4285,6 +4370,192 @@ def check_model_parallel(card: str) -> dict:
                           rows=rows)
         print(f"parallel 29c [{card}]: {label} over {n} ranks: "
               + json.dumps(out[label]), flush=True)
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 30: the contrastive term under gradient accumulation
+# --------------------------------------------------------------------------
+
+ACCUM_K = 2
+ACCUM_WINDOWS = 2               # timed windows of each step, in turn
+ACCUM_WINDOW_STEPS = 4
+# 30b's stage 3 at 8 steps an epoch (phase 21's 64 take ~10 s a run)
+ACCUM_FINETUNE_BATCHES = 8
+
+
+def half_steps(trainer, state, batch, seed: int, k: int):
+    """The accumulated step written out: the k slices of ``batch``, each
+    the k=1 ``trainer``'s loss and backward in turn, drawing from one
+    generator, the gradients and losses summed then scaled by 1/k, then
+    the optimizer's step. Returns (state, loss)."""
+    from immunostruct_tpu_torch.procedures.train import step_generator
+    from immunostruct_tpu_torch.structs import map_tensors
+
+    generator = step_generator(seed, state.step, "cuda")
+    state.optimizer.zero_grad(set_to_none=True)
+    size, total = B // k, None
+    for i in range(k):
+        part = map_tensors(lambda t, i=i: t[i * size:(i + 1) * size], batch)
+        loss, _ = trainer._batch_loss_aux(state.model, part, generator,
+                                          False)
+        loss.backward()
+        total = loss.detach() if total is None else total + loss.detach()
+    with torch.no_grad():
+        for p in state.model.parameters():
+            if p.grad is not None:
+                p.grad.mul_(1.0 / k)
+    for group in state.optimizer.param_groups:
+        group["lr"] = trainer.optimizer.lr(state.step)
+    state.optimizer.step()
+    state.step += 1
+    return state, total * (1.0 / k)
+
+
+def check_accumulated_twin(card: str) -> dict:
+    """Phase 30a: the full-width twin Trainer step (B=128, E=2560, 'mega',
+    contrastive 0.1) with grad_accum_steps=2 and
+    allow_microbatch_contrastive, in bf16 and f32: without the opt-in the
+    Trainer raises before any launch; with it one step launches twice the
+    k=1 twin step's kernels (24 B1, 24 B2, 48 B8 scatters) and equals,
+    bit for bit (loss, parameters), the two half-batch steps taken on one
+    generator, summed then halved (``half_steps``); then the k=2 and the
+    k=1 step timed in turn (bf16)."""
+    from immunostruct_tpu_torch.data.synthetic import random_comparative_batch
+
+    batch = random_comparative_batch(B, N, EDGE_COUNTS[0], L, seed=0,
+                                     device="cuda")
+    name, out = "HybridModelv2_Comparative", {}
+    for label, dtype in (("bfloat16", torch.bfloat16),
+                         ("float32", torch.float32)):
+        kw = dict(coeff=0.1, compute_dtype=dtype, grad_accum_steps=ACCUM_K)
+        reset_counts()
+        try:
+            make_trainer(name, "mega", **kw)
+            raise AssertionError("the Trainer took the contrastive term "
+                                 "under accumulation without the opt-in")
+        except ValueError as e:
+            assert "allow_microbatch_contrastive" in str(e), e
+        assert read_counts() == (0,) * 11, read_counts()
+        acc, acc_state = make_trainer(name, "mega",
+                                      allow_microbatch_contrastive=True, **kw)
+        one, one_state = make_trainer(name, "mega", coeff=0.1,
+                                      compute_dtype=dtype)
+        reset_counts()                  # every count to 0: the k=2 step
+        acc_state, loss = acc.train_step(acc_state, batch, seed=0)
+        torch.cuda.synchronize()
+        counts = read_counts()          # read just after it
+        one_state, want = half_steps(one, one_state, batch, 0, ACCUM_K)
+        torch.cuda.synchronize()
+        differ = sum(int((p != q).sum()) for p, q in zip(
+            acc_state.model.parameters(), one_state.model.parameters()))
+        assert counts == (24, 24, 0, 0, 48) + (0,) * 6, counts
+        assert torch.equal(loss, want), (float(loss), float(want))
+        assert differ == 0, differ
+        assert math.isfinite(float(loss))
+        row = dict(loss=float(loss), launches=counts,
+                   entries_that_differ=differ)
+        if dtype == torch.bfloat16:
+            ms = {"k2": [], "k1": []}
+            for _ in range(ACCUM_WINDOWS):
+                for key, (tr, st) in (("k1", (one, one_state)),
+                                      ("k2", (acc, acc_state))):
+                    ms[key] += timed_steps(tr, st, batch,
+                                           ACCUM_WINDOW_STEPS)[1][1:]
+            row.update(step_ms_k2=statistics.median(ms["k2"]),
+                       step_ms_k1=statistics.median(ms["k1"]),
+                       step_ms=ms)
+        out[label] = row
+        print(f"accum 30a [{card}]: twin step k={ACCUM_K} {label}: "
+              + json.dumps(row), flush=True)
+    return out
+
+
+class StandInWandb:
+    """A module in wandb's place that records its calls (the run needs no
+    network and the card's machine has no wandb)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def init(self, **kw):
+        self.calls.append(("init", kw))
+
+    def log(self, metrics):
+        self.calls.append(("log", dict(metrics)))
+
+    def finish(self):
+        self.calls.append(("finish", {}))
+
+
+def check_accumulated_entry_points(tmp: str, entry: dict, cancer: dict,
+                                   card: str) -> dict:
+    """Phase 30b: train_Cancer_wFT --grad-accum-steps 2 --coeff-contrastive
+    0.1 --allow-microbatch-contrastive under 'pallas' on phase 21's
+    corpora, one epoch a stage (the third of 8 steps), without its
+    clinical pass, with --data-parallel (a group of one) and without: the
+    same checkpoint bits, losses and launches (B8 alone); then
+    train_IEDB_wFT under
+    'fused' with --wandb-username and a stand-in wandb module: one init,
+    every line of the run's JSONL file logged, one finish."""
+    from immunostruct_tpu_torch.cli import train_Cancer_wFT, train_IEDB_wFT
+
+    runs = {}
+    for tag, flags in (("plain", []), ("dp", ["--data-parallel"])):
+        save = os.path.join(tmp, f"accum_Cancer_{tag}")
+        r = run_entry(train_Cancer_wFT, _with_flags(
+            cancer["argv"], save, "--num-epochs", "1", "--skip-clinical",
+            "--min-finetuning-batches", str(ACCUM_FINETUNE_BATCHES),
+            "--grad-accum-steps", str(ACCUM_K),
+            "--allow-microbatch-contrastive", *flags))
+        runs[tag] = dict(save=save, losses=_losses(r["stages"]),
+                         launches=[s["launches"] for s in r["stages"]],
+                         wall_s=r["wall_s"])
+    p, d = runs["plain"], runs["dp"]
+    assert d["losses"] == p["losses"], (d["losses"], p["losses"])
+    assert d["launches"] == p["launches"], d["launches"]
+    assert _same_checkpoints(d["save"], p["save"])
+    for stage in p["launches"]:
+        assert stage[4] > 0 and stage[5] > 0, stage
+        assert sum(stage) == stage[4] + stage[5], stage
+    assert all(math.isfinite(v) for pair in p["losses"] for h in pair
+               for v in h), p["losses"]
+    out = dict(cancer=dict(losses=p["losses"], launches=p["launches"],
+                           wall_s_dp=d["wall_s"], wall_s_plain=p["wall_s"]))
+    print(f"accum 30b [{card}]: train_Cancer_wFT --grad-accum-steps "
+          f"{ACCUM_K} --allow-microbatch-contrastive under 'pallas', with "
+          f"--data-parallel (group of one) and without: the same bits, "
+          f"losses {p['losses']}, launches by stage {p['launches']}; "
+          f"{d['wall_s']:.1f} s (without: {p['wall_s']:.1f} s)", flush=True)
+
+    wandb, save = StandInWandb(), os.path.join(tmp, "wandb_IEDB")
+    real = sys.modules.get("wandb")
+    sys.modules["wandb"] = wandb
+    try:
+        run_entry(train_IEDB_wFT, _with_flags(
+            entry["argv"], save, "--num-epochs", "1", "--wandb-username",
+            "smoke"))
+    finally:
+        if real is None:
+            del sys.modules["wandb"]
+        else:
+            sys.modules["wandb"] = real
+    names = [c[0] for c in wandb.calls]
+    assert names[0] == "init" and names[-1] == "finish", names
+    assert names.count("init") == names.count("finish") == 1, names
+    assert wandb.calls[0][1]["entity"] == "smoke", wandb.calls[0]
+    jsonl = [f for f in os.listdir(save) if f.endswith(".metrics.jsonl")]
+    with open(os.path.join(save, jsonl[0])) as fh:
+        lines = [json.loads(line) for line in fh]
+    logged = [json.loads(json.dumps({
+        k: float(v) if hasattr(v, "__float__") else v
+        for k, v in c[1].items()})) for c in wandb.calls[1:-1]]
+    assert len(lines) == len(logged) > 0, (len(lines), len(logged))
+    assert json.dumps(logged) == json.dumps(lines)
+    out["wandb"] = dict(calls=len(wandb.calls), jsonl_lines=len(lines))
+    print(f"accum 30b [{card}]: train_IEDB_wFT --wandb-username with a "
+          f"stand-in wandb: init, {len(lines)} logs (every JSONL line), "
+          "finish", flush=True)
     return out
 
 
@@ -4634,6 +4905,10 @@ def run_phases(card: str, clinical: ClinicalCorpus) -> int:
         print(f"parallel 29 [{card}]: phase 29 took "
               f"{parallel['phase_s']:.1f} s", flush=True)
         clock("parallelism (29)")
+        accumulated = check_accumulated_twin(card)
+        accumulated.update(check_accumulated_entry_points(tmp, entry, cancer,
+                                                          card))
+        clock("accumulation and wandb (30)")
 
     def pick(rows, **want):
         return next(r for r in rows if r["E"] == 2560 and r["F"] == 64
@@ -4857,7 +5132,8 @@ def run_phases(card: str, clinical: ClinicalCorpus) -> int:
                     clinical=clinical_row["launches_mega"],
                     artifact_serving=artifact_counts,
                     profile_step=mfu["launches"]["train"],
-                    device_data_ssl=aug["launches"])
+                    device_data_ssl=aug["launches"],
+                    twin_accumulated=accumulated["bfloat16"]["launches"])
     b1, b2 = pick(fwd_rows), pick(tail_rows)
     b3f, b3b = pick(edge_rows, kernel="fwd"), pick(edge_rows, kernel="bwd")
     b8s, b8g = (next(r for r in segment_rows if r["kernel"] == kind

@@ -105,6 +105,10 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    default=None,
                    help="run the comparative twin forwards as one stacked "
                         "pass (no effect on non-comparative models)")
+    p.add_argument("--allow-microbatch-contrastive", action="store_true",
+                   help="opt into per-microbatch contrastive statistics when "
+                        "combining --coeff-contrastive with "
+                        "--grad-accum-steps > 1 (otherwise an error)")
     p.add_argument("--collapse-detection", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="watch the validation AUROC and warn if the "
@@ -262,6 +266,15 @@ def metrics_path(config) -> str | None:
 
     return (config.model_save_path_pretrain + ".metrics.jsonl"
             if is_primary() else None)
+
+
+def wandb_entity(config) -> str | None:
+    """The wandb entity the run's ``MetricLogger`` takes: the user's on
+    rank 0, none on the other ranks of a data-parallel run, so that one
+    wandb run logs what rank 0 writes to the JSONL file."""
+    from immunostruct_tpu_torch.parallel.mesh import is_primary
+
+    return config.wandb_username if is_primary() else None
 
 
 def check_seq_dims(vae_dim: int, full: bool, **named_datasets) -> None:

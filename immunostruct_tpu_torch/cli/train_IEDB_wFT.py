@@ -21,7 +21,7 @@ import torch
 
 from immunostruct_tpu_torch.cli.common import (
     base_parser, check_seq_dims, end_run, metrics_path, pick_pipeline,
-    to_config,
+    to_config, wandb_entity,
 )
 from immunostruct_tpu_torch.data.dataset import ImmunoDataset, seeded_split
 from immunostruct_tpu_torch.data.pipeline import BatchPipeline
@@ -50,7 +50,7 @@ def main(argv=None):
     config.derive_paths()
 
     logger = MetricLogger(project="ImmunoPred-IEDB-MIT",
-                          entity=config.wandb_username,
+                          entity=wandb_entity(config),
                           name=f"PropIEDB_ImmunoIEDB:{config.model}-seed{config.seed}",
                           config=vars(args),
                           jsonl_path=metrics_path(config))

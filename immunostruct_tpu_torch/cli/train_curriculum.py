@@ -41,6 +41,7 @@ import torch
 
 from immunostruct_tpu_torch.cli.common import (
     base_parser, check_seq_dims, end_run, metrics_path, to_config,
+    wandb_entity,
 )
 from immunostruct_tpu_torch.data.dataset import (
     ComparativeDataset, ImmunoDataset, seeded_split,
@@ -96,7 +97,7 @@ def main(argv=None):
     config.derive_paths()
 
     logger = MetricLogger(project="ImmunoPred-Curriculum",
-                          entity=config.wandb_username,
+                          entity=wandb_entity(config),
                           name=f"{args.stages}:{config.model}-seed{config.seed}",
                           config=vars(args),
                           jsonl_path=metrics_path(config))

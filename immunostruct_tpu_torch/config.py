@@ -5,10 +5,9 @@ The same fields and defaults as the JAX package, so that one run's
 checkpoint paths (``derive_paths``) are the same in both packages. Left out
 are the JAX package's persistent compilation cache and the fields that no
 flag of the port sets and nothing reads (``param_dtype``, ``mesh_shape``,
-``donate_state``, ``allow_microbatch_contrastive``). The flags that select
-TPU-only machinery (``scan_layers``, ``stack_twins``, ``device_data``,
-``data_parallel``) keep their fields; ``cli/common.py`` says what the port
-does with each.
+``donate_state``). The flags that select TPU-only machinery
+(``scan_layers``, ``stack_twins``, ``device_data``, ``data_parallel``) keep
+their fields; ``cli/common.py`` says what the port does with each.
 """
 
 from __future__ import annotations
@@ -86,6 +85,8 @@ class Config:
     grad_accum_steps: int = 1
     scan_layers: object = None
     stack_twins: object = None
+    # explicit opt-in: contrastive statistics per microbatch under grad accum
+    allow_microbatch_contrastive: bool = False
     # pretrain-collapse guard: detection always warns; reinit_on_collapse
     # additionally restarts the stage from a fresh init (max 2 retries)
     collapse_detection: bool = True
@@ -118,6 +119,13 @@ class Config:
         self.model_save_path_finetune = os.path.join(self.model_save_dir, model_str + "_finetune.ckpt")
         self.fig_save_folder = os.path.join(self.figure_save_dir, model_str)
         return self
+
+
+def sequence_input_dim(max_full_len: int, max_pep_len: int,
+                       full_sequence: bool, alphabet_size: int = 21) -> int:
+    """The VAE's flattened one-hot width: 283*21 for the full chain, 11*21
+    for the peptide (reference: train_IEDB_wFT.py:60)."""
+    return (max_full_len if full_sequence else max_pep_len) * alphabet_size
 
 
 def update_paths(config: Config, root: str = ROOT_DIR) -> Config:

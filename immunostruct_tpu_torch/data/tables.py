@@ -203,6 +203,31 @@ def parse_property_tables_cancer_wt(path_cancer: str,
     return combined
 
 
+def find_matching_allele(peptide: str, alleles: Iterable[str],
+                         pep_pairs: set) -> object:
+    """First allele whose (peptide + allele) key exists in the table
+    (reference: data/utils.py:38-43; returns 0 when none match)."""
+    for allele in alleles:
+        combo = peptide + allele
+        if combo in pep_pairs:
+            return combo
+    return 0
+
+
+def get_z_peps(expanded_rows: list[dict], seq_rows: list[dict]) -> list:
+    """Peptides with combo2 == 0 whose table rows are all non-immunogenic
+    (reference: data/utils.py:45-52): the rows' ``immunogenicity`` sums to
+    0, NaN counted as 0, as pandas' ``sum`` does."""
+    z_peps = []
+    for pep in [r["peptide"] for r in seq_rows if r["combo2"] == 0]:
+        total = sum(float(r["immunogenicity"]) for r in expanded_rows
+                    if r["peptide"] == pep
+                    and not math.isnan(float(r["immunogenicity"])))
+        if total == 0:
+            z_peps.append(pep)
+    return z_peps
+
+
 @functools.lru_cache(maxsize=8)
 def _load_hla_seqs(hla_path: str) -> dict:
     """allele -> 274-aa sequence (the HLA csv's ``allele``/``seqs``)."""

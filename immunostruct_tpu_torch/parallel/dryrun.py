@@ -83,8 +83,9 @@ def spawn(fn, n: int, *args, device="cpu", timeout_s: float = 600.0
 @dataclasses.dataclass(frozen=True)
 class StepCase:
     """One training step's configuration: model, batch shape (B is the
-    global batch), dtype, aggregation, contrastive coefficient and the
-    model's overrides (``build_model``)."""
+    global batch), dtype, aggregation, contrastive coefficient, the
+    model's overrides (``build_model``) and ``pinned``, the VAE noise
+    fixed (``case_trainer``)."""
 
     name: str = "HybridModelv2_Comparative"
     b: int = 8
@@ -97,6 +98,7 @@ class StepCase:
     ssl: bool = False
     overrides: tuple = ()
     seed: int = 0
+    pinned: bool = False
 
 
 def case_batch(case: StepCase, device):
@@ -126,12 +128,21 @@ def case_batch(case: StepCase, device):
     return batch
 
 
+def reversed_rows(batch):
+    """``batch`` with its rows (every tensor's leading axis: both twins and
+    the target) in reverse order."""
+    from immunostruct_tpu_torch.structs import first_tensor, map_tensors
+
+    rows = torch.arange(first_tensor(batch).shape[0] - 1, -1, -1)
+    return map_tensors(lambda t: t[rows.to(t.device)], batch)
+
+
 def case_trainer(case: StepCase, device, pinned: bool = False, **kw):
     """(trainer, state) from the case's seeded weights: Adam at 1e-3, the
-    bench's loss configuration; ``pinned`` fixes the VAE noise (fc22: w 0,
-    b -80, so that z = mu). ``kw``: ``Trainer``'s (``mesh``, ``mp``,
-    ``shard_batch``), or ``make_sharded_trainer`` when ``kw`` holds
-    ``sharded=True``."""
+    bench's loss configuration; ``pinned`` (or the case's) fixes the VAE
+    noise (fc22: w 0, b -80, so that z = mu). ``kw``: ``Trainer``'s
+    (``mesh``, ``mp``, ``shard_batch``, ``grad_accum_steps``, ...), or
+    ``make_sharded_trainer`` when ``kw`` holds ``sharded=True``."""
     from immunostruct_tpu_torch.models import build_model
     from immunostruct_tpu_torch.procedures.train import (
         Trainer, make_optimizer,
@@ -143,7 +154,7 @@ def case_trainer(case: StepCase, device, pinned: bool = False, **kw):
     _, model = build_model(case.name, vae_dim,
                            torch.Generator().manual_seed(case.seed + 3),
                            device=device, **dict(case.overrides))
-    if pinned:
+    if pinned or case.pinned:
         with torch.no_grad():
             model.vae.fc22.w.zero_()
             model.vae.fc22.b.fill_(-80.0)
@@ -224,11 +235,61 @@ def worst_grad_excess(got: dict, want: dict, rtol: float = 2e-4,
                for k in want)
 
 
-def one_process_step(case: StepCase, device, steps: int = 1) -> dict:
-    """The plain step(s) on the global batch: loss(es), parameters after,
-    first-step gradients and launches."""
+# The twin step's rounding noise, as a share of the step's largest gradient
+# (test_torch_port_train.py's absolute gradient term). The step is
+# ill-conditioned in the order of its sums: the projector's batch norm
+# centres embeddings that barely vary over the batch, and some gradients
+# (the attention biases, the last node MLP's, entries of the projector's
+# fc1.w) sum to nearly nothing, so the one-process step on its rows
+# reversed parts from itself there by hundreds of JAX's bounds.
+TWIN_NOISE = 1e-5
+
+
+def twin_excess(got: dict, ref: dict, noise: float = TWIN_NOISE,
+                rtol: float = 2e-5, atol: float = 2e-6,
+                grad_rtol: float = 2e-4, grad_scale: float = 2e-4) -> dict:
+    """One step of the twin (``got``: grads and params) against the
+    one-process step ``ref``, with ``nu = noise * G``, G the largest |g| of
+    ``ref``'s step:
+
+    - gradients: |dg| <= grad_rtol |g| + grad_scale max|g| (the tensor's:
+      the model-parallel checks' rule) + nu, every entry;
+    - parameters after one Adam step: JAX's bound (rtol, atol) on every
+      entry but those whose reference gradient is nonzero and below nu.
+      Adam's first step moves an entry by lr g / (|g| + eps), a direction
+      that is rounding noise where g is; those entries are dropped and
+      counted.
+
+    Returns the worst excess of each (<= 1: within the rule), the
+    parameter it sits in, the entries dropped and the entries in all."""
+    nu = noise * max(float(g.abs().max()) for g in ref["grads"].values())
+    out = dict(grads=0.0, grads_at=None, params=0.0, params_at=None,
+               dropped=0, entries=0, nu=nu)
+    for k, g in ref["grads"].items():
+        bound = grad_rtol * g.abs() + grad_scale * float(g.abs().max()) + nu
+        excess = float(((got["grads"][k] - g).abs() / bound).max())
+        if excess > out["grads"]:
+            out.update(grads=excess, grads_at=k)
+        w = ref["params"][k]
+        kept = (g == 0) | (g.abs() >= nu)
+        excess = ((got["params"][k] - w).abs() / (atol + rtol * w.abs()))
+        excess = float(excess[kept].max()) if bool(kept.any()) else 0.0
+        if excess > out["params"]:
+            out.update(params=excess, params_at=k)
+        out["dropped"] += int(kept.numel() - kept.sum())
+        out["entries"] += kept.numel()
+    return out
+
+
+def one_process_step(case: StepCase, device, steps: int = 1,
+                     reverse: bool = False) -> dict:
+    """The plain step(s) on the global batch (``reverse``: its rows
+    reversed): loss(es), parameters after, first-step gradients and
+    launches."""
     trainer, state = case_trainer(case, device)
     batch = case_batch(case, device)
+    if reverse:
+        batch = reversed_rows(batch)
     _reset_counts()
     losses = []
     for _ in range(steps):
@@ -354,12 +415,13 @@ def mp_step_run(case: StepCase, shape: tuple, axes: tuple, mp_kw: dict,
 
 
 def dp_checks(rank: int, cases: dict, ring_case: Optional[StepCase] = None,
-              timed: int = 0, reduce_timed: int = 0, steps: int = 1
-              ) -> dict:
+              timed: int = 0, reduce_timed: int = 0, steps: int = 1,
+              reverse: tuple = ()) -> dict:
     """On every rank: ``steps`` of ``dp_step_run`` of each named case (with
     ``timed`` steps and ``reduce_timed`` reductions timed for the first),
-    and on rank 0 the one-process steps of each; then
-    ``ring_vs_psum_run`` of ``ring_case``."""
+    and on rank 0 the one-process steps of each, and for the cases named
+    in ``reverse`` also on the batch with its rows reversed
+    (``name/reversed``); then ``ring_vs_psum_run`` of ``ring_case``."""
     out, first = {"jax_loaded": "jax" in sys.modules}, True
     for name, case in cases.items():
         out[name] = dp_step_run(case, steps, timed if first else 0,
@@ -367,6 +429,9 @@ def dp_checks(rank: int, cases: dict, ring_case: Optional[StepCase] = None,
         first = False
         if rank == 0:
             out[name + "/ref"] = one_process_step(case, _device(), steps)
+            if name in reverse:
+                out[name + "/reversed"] = one_process_step(
+                    case, _device(), steps, reverse=True)
     if ring_case is not None:
         out["ring"] = ring_vs_psum_run(ring_case)
     return out

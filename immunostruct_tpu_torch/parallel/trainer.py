@@ -54,7 +54,11 @@ def make_sharded_trainer(spec, loss_cfg, *, binary: bool, optimizer,
                          **trainer_kwargs) -> Trainer:
     """A Trainer whose batches are split over the mesh's data axis (the
     whole world by default); its ``init_state`` gives every rank rank 0's
-    weights."""
+    weights. ``trainer_kwargs`` are ``Trainer``'s. With
+    ``grad_accum_steps`` k a rank's k-th local microbatch is its share of
+    the global k-th (``shard_rows``), so that a term that mixes examples
+    (the contrastive term under ``allow_microbatch_contrastive``) takes
+    the global microbatch's statistics, as JAX's GSPMD step does."""
     mesh = mesh if mesh is not None else make_mesh(axis_name)
     k = trainer_kwargs.get("grad_accum_steps", 1)
     return Trainer(spec, loss_cfg, binary=binary, optimizer=optimizer,

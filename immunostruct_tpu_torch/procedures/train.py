@@ -175,13 +175,18 @@ class Trainer:
                  compute_dtype=torch.float32, grad_accum_steps: int = 1,
                  stack_twins: bool = False, mega_variant: str = "hybrid",
                  mesh=None, shard_batch=None, mp=None,
-                 data_axis: str = "data"):
+                 data_axis: str = "data",
+                 allow_microbatch_contrastive: bool = False):
         """``mesh``/``shard_batch``: the data-parallel placement (a
         ``parallel/mesh.py::Mesh`` and the function that keeps a rank's
         rows of a global batch; ``make_sharded_trainer`` sets both).
         ``mp``: a ``parallel/mp.py::MPConfig``, whose step is
-        ``parallel/trainer.py::make_mp_train_step``."""
-        if coeff_contrastive > 0 and grad_accum_steps > 1:
+        ``parallel/trainer.py::make_mp_train_step``.
+        ``allow_microbatch_contrastive``: the opt-in that lets the
+        contrastive term run under gradient accumulation, on each
+        microbatch's statistics."""
+        if (coeff_contrastive > 0 and grad_accum_steps > 1
+                and not allow_microbatch_contrastive):
             # the contrastive pair-similarity / cross-correlation statistics
             # are taken over the batch the loss sees: under accumulation
             # that is the microbatch, not the reference's full batch
@@ -190,7 +195,9 @@ class Trainer:
                 f"grad_accum_steps={grad_accum_steps}: the contrastive "
                 "pair-similarity/cross-correlation statistics would be "
                 "computed per microbatch, not per global batch. Either set "
-                "grad_accum_steps=1 or disable the contrastive term.")
+                "grad_accum_steps=1, disable the contrastive term, or pass "
+                "allow_microbatch_contrastive=True to opt into microbatch "
+                "statistics explicitly.")
         self.spec = spec
         self.loss_cfg = loss_cfg
         self.binary = binary
@@ -305,7 +312,10 @@ class Trainer:
         along its leading axis, each forward and backward in turn, and the
         summed gradients and losses are scaled by 1/k. A batch whose size k
         does not divide (a trailing remainder batch) takes one unsplit
-        step. ``eps`` then holds one entry per microbatch. ``data``: (mesh,
+        step. ``eps`` then holds one entry per microbatch; drawn noise
+        comes from ``generator``, microbatch i+1's after microbatch i's.
+        With the contrastive term (``allow_microbatch_contrastive``) each
+        microbatch's term takes that microbatch's statistics and gate. ``data``: (mesh,
         axis) when ``batch`` is this rank's shard of a global batch (laid
         out by ``parallel/mesh.py::shard_rows``); the split follows the
         global batch's size. ``deterministic`` turns dropout off."""
@@ -541,7 +551,8 @@ def train_model(config, model: ImmunoStructModel, train_pipe, val_pipe,
               coeff_contrastive=coeff_contrastive,
               aggregation=config.aggregation,
               compute_dtype=getattr(torch, config.compute_dtype),
-              grad_accum_steps=accum, stack_twins=bool(config.stack_twins))
+              grad_accum_steps=accum, stack_twins=bool(config.stack_twins),
+              allow_microbatch_contrastive=config.allow_microbatch_contrastive)
     if config.data_parallel:
         # the global batch's step on every rank's shard of it (the group
         # is joined by cli/common.py::to_config)

@@ -1,17 +1,19 @@
-"""Metric logging to stdout and a JSONL file (counterpart of
-``immunostruct_tpu/utils/logging.py``; reference: wandb.init at
-train_IEDB_wFT.py:48-53; per-epoch and final dumps train.py:60-63,
-train_IEDB_wFT.py:131-163).
+"""Metric logging: an optional wandb sink beside stdout and a JSONL file
+(counterpart of ``immunostruct_tpu/utils/logging.py``; reference:
+wandb.init at train_IEDB_wFT.py:48-53; per-epoch and final dumps
+train.py:60-63, train_IEDB_wFT.py:131-163).
 
-The port has no wandb sink: a run asked to log to wandb warns and logs to
-the JSONL file only.
+As in the JAX package, wandb is imported only when a project and an entity
+are given, and a run whose import or ``wandb.init`` fails logs to stdout
+and the JSONL file. Under ``--data-parallel`` the entry points give the
+entity on rank 0 alone (``cli/common.py::wandb_entity``), so only rank 0
+opens a run, as only rank 0 writes the JSONL.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import warnings
 from typing import Optional
 
 
@@ -20,16 +22,22 @@ class MetricLogger:
                  entity: Optional[str] = None, name: Optional[str] = None,
                  config: Optional[dict] = None,
                  jsonl_path: Optional[str] = None):
-        if entity:
-            warnings.warn(
-                f"wandb logging (--wandb-username {entity}) is not ported "
-                "to PyTorch; metrics go to stdout and "
-                f"{jsonl_path or 'nowhere else'}", stacklevel=2)
+        self.wandb = None
+        if project and entity:
+            try:
+                import wandb
+                wandb.init(project=project, entity=entity, name=name,
+                           config=config)
+                self.wandb = wandb
+            except Exception as e:  # noqa: BLE001 - wandb absent or offline
+                print(f"wandb unavailable ({e}); logging to stdout/JSONL")
         self.jsonl_path = jsonl_path
         if jsonl_path:
             os.makedirs(os.path.dirname(jsonl_path) or ".", exist_ok=True)
 
     def log(self, metrics: dict) -> None:
+        if self.wandb is not None:
+            self.wandb.log(metrics)
         if self.jsonl_path:
             with open(self.jsonl_path, "a") as f:
                 clean = {k: (float(v) if hasattr(v, "__float__") else v)
@@ -37,7 +45,8 @@ class MetricLogger:
                 f.write(json.dumps(clean) + "\n")
 
     def finish(self) -> None:
-        pass
+        if self.wandb is not None:
+            self.wandb.finish()
 
 
 def stage_log_fn(logger: MetricLogger, stage_prefix: str):

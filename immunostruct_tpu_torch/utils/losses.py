@@ -95,3 +95,25 @@ def pos_weight_from_counts(class_counts: dict) -> float:
     """Counter({0.0: N_neg, 1.0: N_pos}) -> N_neg / N_pos."""
     return float(class_counts.get(0, class_counts.get(0.0, 1.0))) / \
         float(class_counts.get(1, class_counts.get(1.0, 1.0)))
+
+
+def plot_losses(train_losses, val_losses, save_path: Optional[str] = None):
+    """Loss-curve plot (reference: utils/loss.py:64-72), headless (Agg);
+    without matplotlib it says so and returns."""
+    try:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        print("matplotlib unavailable; skipping loss plot")
+        return
+    fig = plt.figure(figsize=(10, 5))
+    plt.plot(train_losses, label="Train Loss")
+    plt.plot(val_losses, label="Validation Loss")
+    plt.title("Training and Validation Losses")
+    plt.xlabel("Epochs")
+    plt.ylabel("Loss")
+    plt.legend()
+    if save_path:
+        fig.savefig(save_path)
+    plt.close(fig)

@@ -13,6 +13,7 @@ an uninterrupted one do the same arithmetic.
 
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -198,10 +199,15 @@ def test_inference_reuses_a_given_threshold(corpus, tmp_path):
     assert again == derived                     # noise seeded per batch
 
 
-def test_metric_logger_writes_jsonl_and_warns_for_wandb(tmp_path):
+def test_metric_logger_writes_jsonl_and_warns_for_wandb(tmp_path, capsys,
+                                                        monkeypatch):
+    """A project and an entity ask for wandb; where it cannot be imported
+    the logger says so and writes the JSONL file alone."""
+    monkeypatch.setitem(sys.modules, "wandb", None)     # import fails
     path = str(tmp_path / "run" / "m.metrics.jsonl")
-    with pytest.warns(UserWarning, match="wandb"):
-        logger = MetricLogger(entity="someone", jsonl_path=path)
+    logger = MetricLogger(project="p", entity="someone", jsonl_path=path)
+    assert "wandb unavailable" in capsys.readouterr().out
+    assert logger.wandb is None
     stage_log_fn(logger, "pretrain")({"epoch": 0, "train_loss": 1.5,
                                       "val_loss": 2.0, "epoch_time_s": 0.1})
     logger.log({"x": np.float32(0.25)})
@@ -280,9 +286,14 @@ def test_scan_layers_and_stack_twins_are_accepted(corpus, tmp_path):
 
 
 def test_flags_that_do_nothing_here_are_rejected():
-    """Only --scan-layers and --stack-twins are accepted as no-ops; a JAX
-    flag that the port would ignore is an argparse error."""
-    from immunostruct_tpu_torch.cli.common import base_parser
+    """Only --scan-layers and --stack-twins are accepted as no-ops; a flag
+    the port does not have (the JAX Config's ``param_dtype``, which no flag
+    of either package sets) is an argparse error, and every JAX flag,
+    --allow-microbatch-contrastive too, reaches the Config."""
+    from immunostruct_tpu_torch.cli.common import base_parser, to_config
 
     with pytest.raises(SystemExit):
-        base_parser("t").parse_args(["--allow-microbatch-contrastive"])
+        base_parser("t").parse_args(["--param-dtype", "float32"])
+    cfg = to_config(base_parser("t").parse_args(
+        ["--allow-microbatch-contrastive", "--device", "cpu"]))
+    assert cfg.allow_microbatch_contrastive

@@ -385,3 +385,39 @@ def test_train_Cancer_wFT_end_to_end(corpora, tmp_path, aggregation):
     assert stages == ["pretrain", "pretrain2", "finetune"]
     assert _counts() == before
 
+
+
+def test_train_Cancer_wFT_microbatch_contrastive(corpora, tmp_path,
+                                                 monkeypatch):
+    """--coeff-contrastive 0.1 with --grad-accum-steps 2 fails without
+    --allow-microbatch-contrastive where JAX fails, when the first twin
+    stage builds its Trainer, naming the opt-in; with it the three stages
+    run, the two twin stages taking the contrastive
+    term on microbatches of 2 (a trailing odd batch on its rows unsplit),
+    with finite losses."""
+    from immunostruct_tpu_torch.procedures import train as train_module
+
+    save_dir = str(tmp_path / "ckpt")
+    args = _cli_args(corpora, save_dir, "scatter") + [
+        "--skip-clinical", "--grad-accum-steps", "2"]
+    with pytest.raises(ValueError, match="allow_microbatch_contrastive"):
+        train_Cancer_wFT.main(args)
+    seen, real = [], train_module.paired_contrastive_loss
+
+    def spy(projector, emb_c, emb_w, target, **kw):
+        seen.append(target.shape[0])
+        return real(projector, emb_c, emb_w, target, **kw)
+
+    monkeypatch.setattr(train_module, "paired_contrastive_loss", spy)
+    save_dir = str(tmp_path / "ckpt_opt_in")
+    args[args.index("--model-save-dir") + 1] = save_dir
+    train_stats, test_stats = train_Cancer_wFT.main(
+        args + ["--allow-microbatch-contrastive"])
+    assert len(train_stats) == len(test_stats) == 15
+    assert seen and set(seen) <= {1, 2, 3}, seen
+    assert seen.count(2) > len(seen) // 2, seen
+    with open(os.path.join(save_dir, sorted(os.listdir(save_dir))[2])) as fh:
+        logged = [json.loads(line) for line in fh]
+    losses = [v for row in logged for k, v in row.items()
+              if k.endswith("_loss")]
+    assert losses and np.isfinite(losses).all()

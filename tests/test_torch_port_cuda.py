@@ -2738,6 +2738,47 @@ def test_data_parallel_step_over_two_ranks_on_the_card(cuda):
 
 
 @pytest.mark.cuda
+def test_twin_rule_on_the_card_holds_and_fails_planted_faults(cuda):
+    """The twin control at full width (f32, 'mega', B=128 over two ranks
+    sharing the card, N=288, E=2560, L=284, contrastive 0.1, dropout 0,
+    VAE noise pinned): the one-process step on its rows reversed and the
+    two-rank step meet ``dryrun.twin_excess``'s rule (chip_smoke.py phase
+    29b's), and the two-rank step with a fault planted in the gather of
+    the contrastive term's embeddings
+    (``tests/torch_parallel_ranks.py::GATHER_FAULTS``) fails it by far, in
+    its gradients and in its parameters."""
+    from immunostruct_tpu_torch.parallel.dryrun import (
+        StepCase, dp_checks, spawn, twin_excess,
+    )
+    # beside this file (a package named tests elsewhere may shadow ours)
+    from torch_parallel_ranks import GATHER_FAULTS, planted_faults
+
+    _build_for_ranks()
+    case = StepCase(name="HybridModelv2_Comparative", b=128, nodes=288,
+                    edges=2560, seq_len=284, aggregation="mega",
+                    dtype="float32", coeff=0.1,
+                    overrides=(("dropout_rate", 0.0),), pinned=True)
+    runs = spawn(dp_checks, 2, {"twin_fixed": case}, None, 0, 0, 1,
+                 ("twin_fixed",), device="cuda")
+    ref = runs[0]["twin_fixed/ref"]
+    readings = {"reversed": twin_excess(runs[0]["twin_fixed/reversed"],
+                                        ref)}
+    for i, r in enumerate(runs):
+        readings[f"rank {i}"] = twin_excess(r["twin_fixed"], ref)
+    faults = spawn(planted_faults, 2, case, device="cuda")
+    for name in GATHER_FAULTS:
+        for i, r in enumerate(faults):
+            readings[f"{name}, rank {i}"] = twin_excess(r[name], ref)
+    print(json.dumps(readings))
+    for label, rule in readings.items():
+        if label == "reversed" or label.startswith("rank"):
+            assert rule["grads"] <= 1.0 and rule["params"] <= 1.0, (label,
+                                                                   rule)
+        else:
+            assert rule["grads"] > 10 and rule["params"] > 10, (label, rule)
+
+
+@pytest.mark.cuda
 def test_gpipe_hop_staged_through_host_on_the_card(cuda):
     """GPipe over two ranks sharing the card: gloo's send/recv takes no
     CUDA tensor, so each hop goes through pinned host memory; the output

@@ -326,6 +326,5 @@ def test_config_paths_match_jax():
     jax_fields = {f.name for f in dataclasses.fields(JaxConfig)}
     port_fields = {f.name for f in dataclasses.fields(Config)}
     assert jax_fields - port_fields == {
-        "param_dtype", "mesh_shape", "donate_state",
-        "allow_microbatch_contrastive"}
+        "param_dtype", "mesh_shape", "donate_state"}
     assert port_fields - jax_fields == {"device"}

@@ -10,7 +10,15 @@ CPU: gloo ranks spawned once a group size for the module
   bounds; the attention key biases, whose true gradient is zero, within
   Adam's lr a step, see KEY_BIASES); the comparative step with
   contrastive 0.1, the SSL model and a step with gradient accumulation
-  (k=2) likewise;
+  (k=2) likewise, and the twin step with k=2 and
+  ``allow_microbatch_contrastive`` (each rank's microbatch its share of
+  the global one);
+- the twin step's control at the published widths (N=32, E=128, B=16):
+  the one-process step on its rows reversed parts from itself by hundreds
+  of JAX's bounds, at entries whose gradient is rounding noise; it and two
+  ranks (noise pinned and dropout off, and both on) meet
+  ``dryrun.twin_excess``'s rule, and two ranks with a fault planted in the
+  gather of the contrastive term's embeddings fail it;
 - the port's sharded step from the JAX package's weights against JAX's
   ``make_sharded_trainer`` step on a 2-device sub-mesh, with JAX's noise
   replayed: loss within rtol 1e-5, gradients and parameters to the
@@ -25,12 +33,16 @@ CPU: gloo ranks spawned once a group size for the module
 - ``shard_indices_for_process``: the three cases of JAX's
   test_multihost.py, against JAX's function;
 - ``--data-parallel`` at world 1 (a group of one) in train_IEDB_wFT,
-  train_Cancer_wFT and train_curriculum: the checkpoint bits of the run
-  without it; ``train_IEDB_wFT --data-parallel`` at world 2 within
-  tolerance of them, rank 0 alone writing files.
+  train_Cancer_wFT (also with ``--grad-accum-steps 2
+  --allow-microbatch-contrastive``) and train_curriculum: the checkpoint
+  bits of the run without it; ``train_IEDB_wFT --data-parallel`` at world
+  2 within tolerance of them, rank 0 alone writing files, and with
+  ``--wandb-username`` and a stand-in wandb module rank 0 alone opening
+  the run and logging every JSONL line.
 """
 
 import dataclasses
+import json
 import os
 
 import jax
@@ -71,6 +83,17 @@ CASES = {
     "comparative": dataclasses.replace(
         CASE, name="HybridModelv2_Comparative", coeff=0.1),
     "ssl": dataclasses.replace(CASE, name="HybridModelv2_SSL", ssl=True),
+}
+# the twin step's control at the published widths (H=64, projector
+# 104->128->128, VAE 284*21->512->32), at N=32, E=128 and a global B=16:
+# dropout 0 and the VAE noise pinned (twin_fixed), and the twin step with
+# its noise on (twin)
+CONTROL_CASE = StepCase(name="HybridModelv2_Comparative", b=16, nodes=32,
+                        edges=128, seq_len=284, coeff=0.1)
+CONTROL = {
+    "twin_fixed": dataclasses.replace(
+        CONTROL_CASE, overrides=(("dropout_rate", 0.0),), pinned=True),
+    "twin": CONTROL_CASE,
 }
 
 @pytest.fixture(autouse=True, scope="module")
@@ -123,7 +146,8 @@ def world2(corpus, tmp_path_factory):
     entry = str(tmp / "entry_dp2")
     runs = spawn(ranks.world2, 2, CASES, corpus,
                  (str(tmp / "jax.ckpt"), a, eps, SMALL, L, LR), fits,
-                 _cli_args(corpus, entry, "--data-parallel"))
+                 _cli_args(corpus, entry, "--data-parallel",
+                           "--wandb-username", "someone"), CONTROL)
     out.update(runs=runs, fits=fits, entry=entry)
     return out
 
@@ -179,6 +203,86 @@ def test_sharded_step_with_accumulation_matches_one_process(world2):
         assert got["loss"] == pytest.approx(ref["loss"], rel=1e-5)
         _assert_params_close(got["params"], ref["params"], 1e-3, 1,
                              rtol=2e-5, atol=2e-6)
+
+
+def test_sharded_twin_step_with_microbatch_contrastive_matches_one_process(
+        world2):
+    """The twin step (contrastive 0.1, noise on) with grad_accum_steps=2
+    and the opt-in: a rank's k-th microbatch is its share of the global
+    k-th, whose contrastive statistics every rank takes (the gathered
+    embeddings), so the step is the one-process step's."""
+    ref = world2["runs"][0]["accum_twin"]["ref"]
+    for r in world2["runs"]:
+        got = r["accum_twin"]
+        assert got["loss"] == pytest.approx(ref["loss"], rel=1e-5)
+        _assert_params_close(got["params"], ref["params"], 1e-3, 1,
+                             rtol=2e-5, atol=2e-6)
+
+
+def test_twin_control_stays_within_the_noise_rule(world2):
+    """The twin step at the published widths, one Adam step. The
+    one-process step parts from itself, when the batch's rows are
+    reversed, by far more than JAX's bounds (parameters: rtol 2e-5, atol
+    2e-6; gradients: the dry run's rtol 2e-4, atol 2e-4 * max|g|): the
+    step is ill-conditioned in the order of its sums. Under
+    ``dryrun.twin_excess``'s rule (an absolute gradient term of 1e-5 of
+    the step's largest gradient; parameters past JAX's bound only where
+    the reference gradient is nonzero and below that, entries it drops and
+    counts) the reversed step reads within 1, and so do two gloo ranks,
+    with the noise pinned and dropout off and with both on."""
+    runs = [r["control"] for r in world2["runs"]]
+    ref = runs[0]["twin_fixed/ref"]
+    rev = runs[0]["twin_fixed/reversed"]
+    assert rev["losses"][0] == pytest.approx(ref["losses"][0], rel=1e-6)
+    assert D.worst_excess(rev["params"], ref["params"], 2e-5, 2e-6) > 10
+    assert D.worst_grad_excess(rev["grads"], ref["grads"]) > 10
+    floor = D.twin_excess(rev, ref)
+    assert floor["grads"] <= 1.0 and floor["params"] <= 1.0, floor
+    assert 0 < floor["dropped"] < floor["entries"] // 2, floor
+    for name in CONTROL:
+        want = runs[0][name + "/ref"]
+        for r in runs:
+            got = r[name]
+            assert got["losses"][0] == pytest.approx(want["losses"][0],
+                                                     rel=2e-5)
+            rule = D.twin_excess(got, want)
+            assert rule["grads"] <= 1.0 and rule["params"] <= 1.0, (name,
+                                                                   rule)
+
+
+@pytest.mark.parametrize("fault", list(ranks.GATHER_FAULTS))
+def test_twin_rule_fails_a_fault_in_the_gather(world2, fault):
+    """The same control step with a fault planted in the gather of the
+    contrastive term's embeddings (the adjoint without the sum over the
+    ranks; the last rank's rows scaled by 1.001) parts from the
+    one-process step by far more than ``dryrun.twin_excess``'s rule, in
+    its gradients and in its parameters, on every rank."""
+    want = world2["runs"][0]["control"]["twin_fixed/ref"]
+    for r in world2["runs"]:
+        rule = D.twin_excess(r["faults"][fault], want)
+        assert rule["grads"] > 10 and rule["params"] > 10, rule
+
+
+def test_wandb_run_opens_on_rank_0_alone(world2):
+    """train_IEDB_wFT --data-parallel --wandb-username at world 2 with a
+    stand-in wandb module in each rank: rank 0 calls init once, logs every
+    line of the JSONL file it writes, then finish; rank 1 calls nothing."""
+    calls = [r["entry"]["wandb"] for r in world2["runs"]]
+    assert calls[1] == []
+    names = [c[0] for c in calls[0]]
+    assert names[0] == "init" and names[-1] == "finish"
+    assert names.count("init") == names.count("finish") == 1
+    init = calls[0][0][2]
+    assert (init["project"], init["entity"]) == ("ImmunoPred-IEDB-MIT",
+                                                 "someone")
+    logged = [{k: float(v) if hasattr(v, "__float__") else v
+               for k, v in c[1][0].items()} for c in calls[0][1:-1]]
+    jsonl = [f for f in os.listdir(world2["entry"])
+             if f.endswith(".metrics.jsonl")]
+    with open(os.path.join(world2["entry"], jsonl[0])) as fh:
+        lines = [json.loads(line) for line in fh]
+    assert len(lines) == len(logged) > 0
+    np.testing.assert_equal(logged, lines)
 
 
 def test_sharded_step_matches_jax_sharded_trainer(world2):
@@ -297,6 +401,61 @@ def test_check_shardable_fails_before_the_first_step():
         check_shardable(Trainer, val_pipe=Pipe)
 
 
+def test_check_shardable_checks_each_microbatch():
+    """Under accumulation (the contrastive term's opt-in among its users) a
+    rank keeps its share of each global microbatch, so a microbatch the
+    data axis does not divide fails before the first step: 12 rows in
+    batches of 6, k=2, over 2 ranks (microbatches of 3)."""
+    class Pipe:
+        indices, batch_size, pad_final_batch = np.arange(12), 6, False
+
+    class Trainer:
+        grad_accum_steps, data_axis = 2, "data"
+
+        class mesh:
+            @staticmethod
+            def size(axis):
+                return 2
+
+    with pytest.raises(ValueError, match="a microbatch of 3 rows"):
+        check_shardable(Trainer, train_pipe=Pipe)
+    Pipe.batch_size = 4                       # microbatches of 2
+    check_shardable(Trainer, train_pipe=Pipe)
+
+
+def test_reversed_rows_and_twin_excess():
+    """The control's tools: a batch's rows reversed alike in every tensor
+    (both twins and the target); ``twin_excess`` on made-up steps: the
+    absolute gradient term, a parameter entry dropped where the reference
+    gradient is nonzero and below it, and held where that gradient is
+    exactly zero or above it."""
+    batch = D.case_batch(CONTROL_CASE, "cpu")
+    got = D.reversed_rows(batch)
+    for t_got, t_want in ((got.cancer.props, batch.cancer.props),
+                          (got.wt.seq_onehot, batch.wt.seq_onehot),
+                          (got.cancer.target, batch.cancer.target),
+                          (got.wt.graph.edge_src, batch.wt.graph.edge_src)):
+        assert torch.equal(t_got, t_want.flip(0))
+    g = torch.tensor([1.0, 1e-6, 0.0, 1e-4], dtype=torch.float64)
+    w = torch.ones(4, dtype=torch.float64)
+    ref = {"grads": {"a": g}, "params": {"a": w}}
+
+    def rule(dg, dw):
+        return D.twin_excess({"grads": {"a": g + dg}, "params": {"a": w + dw}},
+                             ref)
+
+    out = rule(torch.zeros(4), torch.tensor([0.0, 1e-3, 0.0, 0.0]))
+    assert (out["params"], out["dropped"], out["entries"]) == (0.0, 1, 4)
+    assert out["nu"] == pytest.approx(1e-5)
+    for i in (0, 2, 3):          # held: |g| at or above nu, or exactly 0
+        dw = torch.zeros(4, dtype=torch.float64)
+        dw[i] = 2.2e-5           # (atol + rtol |w|) * 1.0
+        assert rule(torch.zeros(4), dw)["params"] == pytest.approx(1.0)
+    dg = torch.tensor([0.0, 0.0, 1e-5 + 2e-4, 0.0], dtype=torch.float64)
+    out = rule(dg, torch.zeros(4))
+    assert out["grads"] == pytest.approx(1.0) and out["grads_at"] == "a"
+
+
 @pytest.mark.parametrize("case", ["disjoint", "remainder", "tiny"])
 def test_shard_indices_for_process_matches_jax(case):
     idx = {"disjoint": np.random.default_rng(0).permutation(64),
@@ -340,20 +499,27 @@ def _entry_args(entry, corpus, comparative, save_dir, *flags):
             "--property-path-wildtype", pw, *flags]
     if entry == "Cancer":
         return argv + ["--coeff-contrastive", "0.1", "--skip-clinical"]
+    if entry == "Cancer_accumulated":
+        return argv + ["--coeff-contrastive", "0.1", "--skip-clinical",
+                       "--grad-accum-steps", "2",
+                       "--allow-microbatch-contrastive"]
     return argv + ["--stages", "PropIEDB,ImmunoCancer", "--comparative"]
 
 
-@pytest.mark.parametrize("entry", ["IEDB", "Cancer", "curriculum"])
+@pytest.mark.parametrize("entry", ["IEDB", "Cancer", "curriculum",
+                                   "Cancer_accumulated"])
 def test_entry_point_data_parallel_world1_same_bits(corpus, comparative,
                                                     tmp_path, entry):
-    """train_IEDB_wFT, train_Cancer_wFT (contrastive 0.1) and
+    """train_IEDB_wFT, train_Cancer_wFT (contrastive 0.1; also with
+    --grad-accum-steps 2 --allow-microbatch-contrastive) and
     train_curriculum with --data-parallel in a group of one (gloo on the
     CPU): the checkpoints of the run without it, bit for bit, and the
     same stats."""
     from immunostruct_tpu_torch.cli import train_Cancer_wFT, train_curriculum
 
     main = {"IEDB": train_IEDB_wFT, "Cancer": train_Cancer_wFT,
-            "curriculum": train_curriculum}[entry].main
+            "curriculum": train_curriculum,
+            "Cancer_accumulated": train_Cancer_wFT}[entry].main
     runs = {}
     for tag, flags in (("plain", ()), ("dp", ("--data-parallel",))):
         save_dir = str(tmp_path / tag)

@@ -8,7 +8,9 @@ HybridModelv2_Comparative at gcn_layers=2, gat_hidden_channels=16,
 vae_hidden_dim=32, vae_latent_dim=8, f32, ``dropout_rate=0.0``, Adam at
 1e-3. Each step's VAE noise is the one JAX draws from ``fold_in(key,
 step)`` (and ``fold_in(., i)`` per microbatch), replayed into the port as
-``eps``. The JAX mega kernels run in interpret mode.
+``eps``. The JAX mega kernels run in interpret mode. The contrastive term
+under accumulation (``allow_microbatch_contrastive``) runs on microbatches
+of 2 and of 4.
 
 Tolerances:
 - loss: rtol=1e-5 (measured: equal to 1e-7);
@@ -51,10 +53,13 @@ from immunostruct_tpu_torch.data.synthetic import (
     random_comparative_batch, random_sample_arrays,
 )
 from immunostruct_tpu_torch.models import build_model
+from immunostruct_tpu_torch.procedures import train as train_module
 from immunostruct_tpu_torch.procedures.train import (
     Trainer, make_optimizer, step_generator,
 )
-from immunostruct_tpu_torch.structs import ComparativeBatch, SampleBatch
+from immunostruct_tpu_torch.structs import (
+    ComparativeBatch, SampleBatch, map_tensors,
+)
 from immunostruct_tpu_torch.utils.checkpoint import (
     jax_keystr, jax_params, load_jax_checkpoint,
 )
@@ -117,9 +122,10 @@ def _flat(tree):
 
 
 def _setup(name, tmp_path, aggregation, coeff=0.0, accum=1,
-           stack_twins=False, optimizer=("adam", 0.0)):
+           stack_twins=False, optimizer=("adam", 0.0), microbatch=False):
     """The JAX trainer and state, and the port's from the same weights;
-    ``optimizer`` is (name, weight decay)."""
+    ``optimizer`` is (name, weight decay); ``microbatch``: both trainers'
+    ``allow_microbatch_contrastive``."""
     vae_dim = L * 21
     spec, params = jax_build_model(name, vae_dim, jax.random.key(3), **SMALL)
     jtrainer = JaxTrainer(
@@ -128,7 +134,8 @@ def _setup(name, tmp_path, aggregation, coeff=0.0, accum=1,
         optimizer=jax_make_opt(optimizer[0], jax_constant_lr(LR),
                                optimizer[1]),
         coeff_contrastive=coeff, aggregation=aggregation, donate=False,
-        grad_accum_steps=accum, stack_twins=stack_twins)
+        grad_accum_steps=accum, stack_twins=stack_twins,
+        allow_microbatch_contrastive=microbatch)
     jstate = jtrainer.init_state(params, jax.random.key(5))
     path = str(tmp_path / "init.ckpt")
     save_checkpoint(path, jstate.params)
@@ -139,7 +146,8 @@ def _setup(name, tmp_path, aggregation, coeff=0.0, accum=1,
         binary=True,
         optimizer=make_optimizer(optimizer[0], constant_lr(LR), optimizer[1]),
         coeff_contrastive=coeff, aggregation=aggregation,
-        grad_accum_steps=accum, stack_twins=stack_twins)
+        grad_accum_steps=accum, stack_twins=stack_twins,
+        allow_microbatch_contrastive=microbatch)
     state = trainer.init_state(model)
     load_jax_checkpoint(path, state.model, verbose=False)
     return jtrainer, jstate, trainer, state
@@ -179,9 +187,11 @@ def _assert_params_match(model, jparams, step_grads):
         assert (np.abs(got[key] - w) <= tol).all(), key
 
 
-def _run_steps(jtrainer, jstate, trainer, state, jbatch, batch, eps_of):
+def _run_steps(jtrainer, jstate, trainer, state, jbatch, batch, eps_of,
+               params=True):
     """Step 0's loss and gradients against jax.value_and_grad, then STEPS
-    Adam steps on both sides; parameters compared after them."""
+    Adam steps on both sides (each step's loss); parameters compared after
+    them (``params``)."""
     key = jax.random.key(7)
     jloss, jgrads = jtrainer._loss_and_grads(jstate.params, jbatch,
                                              jax.random.fold_in(key, 0))
@@ -198,7 +208,8 @@ def _run_steps(jtrainer, jstate, trainer, state, jbatch, batch, eps_of):
         np.testing.assert_allclose(float(pl), float(jl), rtol=1e-5)
         step_grads.append(_grads_of(state.model))
     assert state.step == STEPS
-    _assert_params_match(state.model, jstate.params, step_grads)
+    if params:
+        _assert_params_match(state.model, jstate.params, step_grads)
 
 
 @pytest.mark.parametrize("aggregation", ["scatter", "mega", "pallas"])
@@ -299,13 +310,91 @@ def test_contrastive_gate_is_zero_for_a_one_class_batch(tmp_path):
     torch.testing.assert_close(losses[0], losses[1], atol=0.0, rtol=0.0)
 
 
+@pytest.mark.parametrize("rows", [2, 4])
+@pytest.mark.parametrize("stack_twins", [False, True])
+def test_microbatch_contrastive_step_matches_jax(tmp_path, stack_twins,
+                                                 rows):
+    """The opt-in (allow_microbatch_contrastive): the twin step with the
+    contrastive term at 0.1 and grad_accum_steps=2 on a batch of 2 * rows,
+    each microbatch (both classes) with its own contrastive statistics and
+    its own noise (fold_in(rng, i), then model_apply_comparative's split:
+    one 2B draw for the stacked twins, one a twin otherwise), gradients
+    summed and halved, the projector trained with the model.
+
+    Microbatches of 2 are held on the loss of each step and the first
+    step's gradients; their parameters after the 3 steps are not, as the
+    twin step at 2 rows (the projector's batch norm over 2 rows) leaves
+    the parameter rule whether or not it accumulates: measured on
+    vae.fc1.w, 1.30x with the stacked twins at k=2 (within without), and
+    1.72x without them at k=1 on a batch of 2 (within with them)."""
+    jbatch, batch = _comparative_batches(2 * rows, seed=9)
+    jt, js, pt, ps = _setup("HybridModelv2_Comparative", tmp_path,
+                            "scatter", coeff=0.1, accum=2,
+                            stack_twins=stack_twins, microbatch=True)
+
+    def eps_of(rng):
+        return [_twin_eps(jax.random.fold_in(rng, i), rows, stack_twins)
+                for i in range(2)]
+
+    _run_steps(jt, js, pt, ps, jbatch, batch, eps_of, params=rows > 2)
+
+
+def test_microbatch_contrastive_takes_each_microbatch_statistics(tmp_path):
+    """With the opt-in, a step at k=2 is the mean of the two microbatches'
+    own steps: the loss and the gradients of each half of the batch taken
+    alone (k=1), drawn one after the other from one generator, summed and
+    halved, bit for bit. A microbatch of one class contributes no
+    contrastive term (its gate), as in JAX."""
+    _, batch = _comparative_batches(4, seed=10)
+    for twin in (batch.cancer, batch.wt):       # halves [1, 0] and [1, 1]
+        twin.target = torch.tensor([1.0, 0.0, 1.0, 1.0])
+    *_, acc, acc_state = _setup("HybridModelv2_Comparative", tmp_path,
+                                "scatter", coeff=0.1, accum=2,
+                                microbatch=True)
+    *_, one, one_state = _setup("HybridModelv2_Comparative", tmp_path,
+                                "scatter", coeff=0.1)
+    loss = acc.loss_and_grads(acc_state.model, batch,
+                              step_generator(0, 0, "cpu"))
+    gen, total, terms = step_generator(0, 0, "cpu"), 0.0, []
+    real = train_module.paired_contrastive_loss
+
+    def spy(*args, **kw):
+        terms.append(real(*args, **kw).detach())
+        return real(*args, **kw)
+
+    train_module.paired_contrastive_loss = spy
+    try:
+        for i in range(2):
+            half = map_tensors(lambda t, i=i: t[2 * i:2 * i + 2], batch)
+            part, _ = one._batch_loss_aux(one_state.model, half, gen, False)
+            part.backward()
+            total = total + part.detach()
+    finally:
+        train_module.paired_contrastive_loss = real
+    assert terms[0] > 0 and terms[1] == 0     # the gate shuts on [1, 1]
+    assert torch.equal(loss, total * 0.5)
+    for (name, p), q in zip(acc_state.model.named_parameters(),
+                            one_state.model.parameters()):
+        assert torch.equal(p.grad, q.grad * 0.5), name
+
+
 def test_contrastive_with_accumulation_raises():
+    """Without the opt-in the port raises where JAX raises, and names the
+    opt-in as JAX does."""
     _, model = build_model("HybridModelv2_Comparative", L * 21,
                            torch.Generator().manual_seed(0), **SMALL)
-    with pytest.raises(ValueError, match="microbatch"):
+    with pytest.raises(ValueError, match="microbatch") as port:
         Trainer(model.spec, LossConfig(L * 21, 1.0), binary=True,
                 optimizer=make_optimizer("adam", constant_lr(LR)),
                 coeff_contrastive=0.1, grad_accum_steps=2)
+    spec, _ = jax_build_model("HybridModelv2_Comparative", L * 21,
+                              jax.random.key(0), **SMALL)
+    with pytest.raises(ValueError) as jax_error:
+        JaxTrainer(spec, JaxLossConfig(L * 21, 1.0), binary=True,
+                   optimizer=jax_make_opt("adam", jax_constant_lr(LR)),
+                   coeff_contrastive=0.1, grad_accum_steps=2)
+    assert str(port.value) == str(jax_error.value)
+    assert "allow_microbatch_contrastive=True" in str(port.value)
 
 
 def test_dropout_in_train_mode_follows_seed_and_step():

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import os
 import sys
+import types
 
 import numpy as np
 import torch
@@ -77,22 +78,58 @@ def dp_cases(rank: int, cases: dict) -> dict:
     return dict(D.dp_checks(rank, cases, steps=2), jax=jax_loaded())
 
 
-def accumulated(rank: int, case, k: int) -> dict:
+def accumulated(rank: int, case, k: int, **kw) -> dict:
     """The data-parallel step with ``grad_accum_steps`` k, and on rank 0
-    the one-process step with k."""
+    the one-process step with k (``kw``: both trainers' further
+    arguments)."""
     from immunostruct_tpu_torch.parallel.mesh import make_mesh
 
     mesh = make_mesh("data")
     trainer, state = D.case_trainer(case, "cpu", sharded=True, mesh=mesh,
-                                    grad_accum_steps=k)
+                                    grad_accum_steps=k, **kw)
     batch = D.case_batch(case, "cpu")
     state, loss = trainer.train_step(state, trainer._shard(batch), case.seed)
     out = {"loss": float(loss), "params": D.params_of(state.model)}
     if rank == 0:
-        trainer, state = D.case_trainer(case, "cpu", grad_accum_steps=k)
+        trainer, state = D.case_trainer(case, "cpu", grad_accum_steps=k,
+                                        **kw)
         state, loss = trainer.train_step(state, batch, case.seed)
         out["ref"] = {"loss": float(loss),
                       "params": D.params_of(state.model)}
+    return out
+
+
+def _unsummed_adjoint(ctx, g):
+    """The gather's adjoint without the sum over the ranks: each rank keeps
+    its own loss's gradient of its rows alone."""
+    return g[ctx.index * ctx.rows:(ctx.index + 1) * ctx.rows], None, None
+
+
+def _scaled_last_rows(ctx, x, axis_name, mesh):
+    """The gather with the last rank's rows scaled by 1.001."""
+    y = _GATHER_FORWARD(ctx, x, axis_name, mesh)
+    return torch.cat([y[:-ctx.rows], y[-ctx.rows:] * 1.001])
+
+
+_GATHER_FORWARD = C._GatherRows.forward
+# faults planted in the gather of the contrastive term's embeddings
+# (collectives._GatherRows, reached through BatchShard.gather)
+GATHER_FAULTS = {"unsummed_adjoint": ("backward", _unsummed_adjoint),
+                 "scaled_last_rows": ("forward", _scaled_last_rows)}
+
+
+def planted_faults(rank: int, case) -> dict:
+    """The data-parallel step of ``case`` with each of ``GATHER_FAULTS``
+    planted in turn (the gather restored after each): its gradients and
+    parameters, to be held to the rule the faultless step meets."""
+    out = {}
+    for name, (attr, fn) in GATHER_FAULTS.items():
+        kept = getattr(C._GatherRows, attr)
+        setattr(C._GatherRows, attr, staticmethod(fn))
+        try:
+            out[name] = D.dp_step_run(case)
+        finally:
+            setattr(C._GatherRows, attr, staticmethod(kept))
     return out
 
 
@@ -148,10 +185,14 @@ def jax_weights_step(rank: int, ckpt: str, arrays: dict, eps: np.ndarray,
 
 
 def world2(rank: int, cases: dict, corpus, jax_step: tuple, fits: list,
-           argv: list) -> dict:
+           argv: list, control: dict) -> dict:
     """test_torch_port_parallel.py's checks in one group of two."""
     return {"cases": dp_cases(rank, cases),
             "accum": accumulated(rank, cases["plain"], 2),
+            "accum_twin": accumulated(rank, cases["comparative"], 2,
+                                      allow_microbatch_contrastive=True),
+            "control": D.dp_checks(rank, control, reverse=("twin_fixed",)),
+            "faults": planted_faults(rank, control["twin_fixed"]),
             "ring": ring_vs_psum(rank, cases["plain"]),
             "odd": non_divisible(rank, 3),
             "jax": jax_weights_step(rank, *jax_step),
@@ -252,16 +293,38 @@ def fit_epochs(rank: int, corpus, save_dirs: list) -> dict:
     return out
 
 
+def stand_in_wandb(fail_init: bool = False) -> types.ModuleType:
+    """A module in wandb's place that records each call as (name, args,
+    kwargs) in ``calls``; ``fail_init``: its ``init`` raises, as an
+    offline one does."""
+    mod = types.ModuleType("wandb")
+    mod.calls = []
+
+    def record(name):
+        def call(*args, **kwargs):
+            mod.calls.append((name, args, kwargs))
+            if name == "init" and fail_init:
+                raise RuntimeError("wandb.init: no network")
+        return call
+
+    mod.init, mod.log, mod.finish = (record(n)
+                                     for n in ("init", "log", "finish"))
+    return mod
+
+
 def entry_point(rank: int, argv: list) -> dict:
     """``train_IEDB_wFT.main(argv)`` on this rank (the group is the
-    spawned one): the stats, the files of the save dir, and on rank 0 the
-    checkpoints' arrays."""
+    spawned one), with a stand-in wandb module: the stats, the files of
+    the save dir, the stand-in's calls, and on rank 0 the checkpoints'
+    arrays."""
     from immunostruct_tpu_torch.cli import train_IEDB_wFT
 
+    wandb = sys.modules["wandb"] = stand_in_wandb()
     train_stats, test_stats = train_IEDB_wFT.main(argv)
     save_dir = argv[argv.index("--model-save-dir") + 1]
     out = {"train": train_stats, "test": test_stats,
-           "files": sorted(os.listdir(save_dir)), "jax": jax_loaded()}
+           "files": sorted(os.listdir(save_dir)), "jax": jax_loaded(),
+           "wandb": wandb.calls}
     if rank == 0:
         out["ckpt"] = {f: dict(np.load(os.path.join(save_dir, f)))
                        for f in out["files"] if f.endswith(".ckpt")}
