@@ -4,7 +4,7 @@
 // csrc/egnn_tail_bwd_nodes.cu (B5b), csrc/egnn_stack_fwd.cu (B6) and
 // csrc/egnn_layer_fwd.cu (B7), and csrc/egnn_edge_bwd.cu (B3's backward).
 //
-//   rnd, sigmoid, silu, silu_grad, sum16
+//   rnd, sigmoid, silu, silu_grad, silu_grad_rn, sum16
 //                      the element-wise steps and rounding points;
 //   tile_product, tile_product_k
 //                      the f32 forms' products: register-tiled FMA loops
@@ -78,6 +78,14 @@ __device__ __forceinline__ float silu(float v) { return v * sigmoid(v); }
 // d silu / dx from the pre-activation and its sigmoid
 __device__ __forceinline__ float silu_grad(float v, float s) {
   return s * (1.0f + v * (1.0f - s));
+}
+
+// silu_grad as the plain version evaluates it: each product and sum rounded
+// on its own, none fused into a multiply-add (which nvcc would otherwise
+// make of v * (1 - s) + 1). The near-tie recompute takes it, so that a value
+// within a few f32 units of a bf16 boundary rounds as there
+__device__ __forceinline__ float silu_grad_rn(float v, float s) {
+  return __fmul_rn(s, __fadd_rn(1.0f, __fmul_rn(v, __fsub_rn(1.0f, s))));
 }
 
 // sum over the 16 column groups: lanes 0-15 / 16-31 of the warp

@@ -102,7 +102,8 @@ __device__ __forceinline__ float sigmoid_fast(float v) {
 // fragment values without a branch and marks those near a tie (bit tie_bit
 // of a mask); then, only where the mask is not empty, it recomputes them on
 // the CUDA cores as the plain version computes them (the product summed in
-// k order by dot_k, the sigmoid the IEEE quotient), stores them over the
+// k order by dot_k, the sigmoid the IEEE quotient, the other element-wise
+// steps rounded op by op: a1_exact, silu_grad_rn), stores them over the
 // first ones and moves the f32 sums by the difference (c1, which is not
 // stored, is left out of its sums until then). About 2 * kTieUlps / 65536
 // of the values take that path; kTieUlps < 0 turns it off.
@@ -304,15 +305,16 @@ constexpr int kERad = 0, kEInv = 1, kEEf = 2, kECw = 3, kEDcw = 4, kEXd = 5,
 
 // a1 of tile edge t, column j, as the plain version sums it: [hs ; hd] . W1ab
 // over the 2F features in k order (xt [feature][t], w1s [feature][j]), then
-// w1r*radial, w1e*ef and b1 (radial and ef from ev)
+// w1r*radial, w1e*ef and b1 (radial and ef from ev), each product and sum
+// rounded on its own as there (no fused multiply-add)
 __device__ __forceinline__ float a1_exact(const bf* xt, const bf* w1s, int f2,
                                           const float* sms, const float* ev,
                                           int t, int j) {
   constexpr int H = kHidden;
-  float a = dot_n(xt + t, kLdb, w1s + j, kLdb, f2) +
-            sms[kW1R * H + j] * ev[kERad * kTile + t];
-  a = a + sms[kW1E * H + j] * ev[kEEf * kTile + t];
-  return a + sms[kB1 * H + j];
+  float a = __fadd_rn(dot_n(xt + t, kLdb, w1s + j, kLdb, f2),
+                      __fmul_rn(sms[kW1R * H + j], ev[kERad * kTile + t]));
+  a = __fadd_rn(a, __fmul_rn(sms[kW1E * H + j], ev[kEEf * kTile + t]));
+  return __fadd_rn(a, sms[kB1 * H + j]);
 }
 
 // a1 = [hs ; hd] @ W1ab + w1r*radial + w1e*ef + b1 over depth kp (2F padded
@@ -456,7 +458,7 @@ __device__ __forceinline__ void chain_c1(const bf* mt, const bf* wc1s,
     if constexpr (kDp3) {
       const float dcw = ev[kEDcw * kTile + t];
       const bf q =
-          __float2bfloat16(sms[kWC2 * H + j] * dcw * silu_grad(p, s));
+          __float2bfloat16(sms[kWC2 * H + j] * dcw * silu_grad_rn(p, s));
       add_at(gbc1, tie_sum(i),
              __bfloat162float(q) - __bfloat162float(dp3t[t * kLdb + j]));
       dp3t[t * kLdb + j] = q;
@@ -507,7 +509,7 @@ __device__ __forceinline__ void chain_dp2(const bf* dp3t, const bf* wc1s,
     const int i = __ffs(tie) - 1;
     const int t = tie_edge(m0, fr, i), j = tie_col(i, fq);
     const float p = dot_k(a1st + t, kLdb, w2s + j, kLdb) + sms[kB2 * H + j];
-    const float g = silu_grad(p, sigmoid(p));
+    const float g = silu_grad_rn(p, sigmoid(p));
     const float dm =
         dm_in(t, j) + dot_k(dp3t + t * kLdb, 1, wc1s + j * kLdb, 1);
     const float dp2 = rnd<bf>(dm * g);
@@ -555,7 +557,7 @@ __device__ __forceinline__ void chain_da1(const float (&da_acc)[8][4],
     const int t = tie_edge(m0, fr, i), j = tie_col(i, fq);
     const float a = a1_tie(t, j);
     const float dsum = dot_k(dp2t + t * kLdb, 1, w2s + j * kLdb, 1);
-    const float g1 = silu_grad(a, sigmoid(a));
+    const float g1 = silu_grad_rn(a, sigmoid(a));
     const float da = rnd<bf>(dsum * g1);
     const float step_da = da - __bfloat162float(a1st[t * kLdb + j]);
     a1st[t * kLdb + j] = __float2bfloat16(da);

@@ -1,61 +1,41 @@
-"""How close the PyTorch port's bf16 tensor-core kernels come to their card
-tests' bounds (tests/test_torch_port_cuda.py), read on the card as ratios
-of the bounds (1.0 is at the bound), on the tests' own inputs and on
-seeded ones. One section per kernel (--kernel, default all of them):
+"""How close the PyTorch port's hand-written kernels come to their plain
+PyTorch versions in bf16, read on the card on every input of their card
+tests (tests/test_torch_port_cuda.py) at each test's own seed and at 1..8
+(immunostruct_tpu_torch/ops/kernel_checks.py: ``cases``), each input judged
+by the checks and the rule defined there (``judge``): every unit within its
+bound where the plain version run on the CPU on the same operands meets it,
+within the bound plus twice the CPU's own statistic where it does not. A
+line per input (whether it meets the rule and the bound, its worst ratio to
+what the rule allows and to the bound, the CPU's worst ratio to the bound,
+the units restated, the units past the bound and the failing ones) and per
+kernel. One section per kernel (--kernel, default all of them):
 
-  tail      B2, B5a, B5b (csrc/egnn_tail.cuh): for each kTieUlps (the
-            reach of the near-tie recompute, csrc/egnn_hopper.cuh) in
-            TIE_ULPS, a build of a copy of csrc/ with that constant: the
-            tail tests' bf16 statistics on their inputs, the entries of
-            d_cat that differ from the plain version on the B=8, E=100,
-            F=64 input, and B2's, B5a's and B5b's times at B=128, E=2560,
-            F=64 (CUDA events, the builds interleaved three times over).
-            Also the plain version against itself with every H x H product
-            summed exactly (float64, rounded once to f32): how far its own
-            summation order moves the same bounds.
-  edge_bwd  B3's bf16 backward (csrc/egnn_edge_bwd.cu) on the card tests'
-            shapes, at the tests' seeds and at 1..8, and at chip_smoke.py's
-            B=128 with its weight-gradient bound: whether each input passes
-            the checks (``_assert_edge_bwd_close``), each output's worst row
-            mean ratio and dbc1's nearness ratio, for kTieUlps 32 (the
+  sweep     every kernel of --families (default all eleven); where B1's or
+            B4's residuals pass their bound, each such a1 entry with
+            pa[src] and pb[dst] as the plain version sums them on the card
+            and on the CPU, as the kernel sums them (f32 in feature order)
+            and in float64, and a1 from each; then each kernel again with
+            the CPU run only on the inputs past the bound (chip_smoke.py's
+            phase 14b), timed.
+  tail      B2, B5a, B5b (csrc/egnn_tail.cuh) for each kTieUlps (the reach
+            of the near-tie recompute, csrc/egnn_hopper.cuh) in TIE_ULPS, a
+            build of a copy of csrc/ with that constant, and B2's, B5a's and
+            B5b's times at B=128, E=2560, F=64 (CUDA events, the builds
+            interleaved three times over).
+  edge_bwd  B3's bf16 backward (csrc/egnn_edge_bwd.cu) for kTieUlps 32 (the
             source's), -1 (the recompute off), and for the kernel that sums
             dbc1 from d_p3 unrounded (the d_p3 mutant).
-  mega_fwd  B1's bf16 form (csrc/egnn_mega_fwd.cu; no near-tie recompute)
-            on the card tests' shapes (B=8 at E=2560, 1408, 100 and F=20,
-            64; B=1 and 200 at E=2560 and 1000, F=64, the last graph all
-            masked), at the tests' seeds and at 1..8: whether the output
-            (with the residuals and without) and the residuals pass the
-            bounds, the worst column's mean and max ratio, and the a1
-            entries more than one bf16 step off, with their edge's nodes.
+  mega_fwd  B1's bf16 form (csrc/egnn_mega_fwd.cu), with sweep's a1 flips.
   paired_fwd
             B4's bf16 form (csrc/egnn_mega_paired_fwd.cu on B1's tensor-core
-            kernel, csrc/egnn_mega.cuh; no near-tie recompute) on the card
-            tests' shapes (B=128 at E=2560, 1408 and F=20, 64; B=1 and 200
-            at E=2560 and 1000, F=64, the last graph all masked; B=8 with
-            the second half scrambled), at the tests' seeds and at 1..8:
-            whether the output (with the residuals and without) and the
-            residuals pass B1's bounds, the worst column's mean and max
-            ratio, the a1 entries more than one bf16 step off, and whether
-            the residuals are B1's bit for bit.
-  edge_fwd  B3's bf16 forward (csrc/egnn_edge_fwd.cu) on the card tests'
-            shapes at their seeds and 1..8, at B=1 and 200, and at
-            chip_smoke.py's B=128: whether each input passes
-            ``_assert_edge_close``, the worst row's mean and max ratio and
-            the output entries that differ from the plain version, for
-            kTieUlps 32 (the source's) and -1 (the recompute off).
-  stack_fwd B6's bf16 form (csrc/egnn_stack_fwd.cu; B1's tensor-core body
-            layer by layer and the node MLP on mma.sync; no near-tie
-            recompute) on the card tests' shapes and seeds and at 1..8:
-            whether each input passes ``_assert_stack_layers_close``, and
-            its worst ratios to the bounds over the layers (the aggregate's
-            column max in bf16 steps, its column mean, h's and x's column
-            means over 1e-4).
-  layer_fwd B7's bf16 form (csrc/egnn_layer_fwd.cu; a graph over a cluster
-            of CTAs, every product on mma.sync; no near-tie recompute) on
-            the card tests' shapes and seeds and at 1..8: whether each input
-            passes ``_assert_b7_close``, its worst column's max (in bf16
-            steps) and mean (over 1e-4) ratios for h' and x', and the
-            cluster size.
+            kernel, csrc/egnn_mega.cuh), with sweep's a1 flips; its
+            residuals are also held to B1's bit for bit.
+  edge_fwd  B3's bf16 forward (csrc/egnn_edge_fwd.cu) for kTieUlps 32 (the
+            source's) and -1 (the recompute off).
+  stack_fwd B6's bf16 form (csrc/egnn_stack_fwd.cu), each layer against the
+            plain version of that layer run from the kernel's own previous
+            h and x.
+  layer_fwd B7's bf16 form (csrc/egnn_layer_fwd.cu).
   repeat    each kernel launched 10 times on one input (B=1, 8 and 128 at
             E=2560, bf16 and f32): the entries that differ from the first
             launch's outputs, summed over the other nine. B1, B4, B6, B7, B8
@@ -145,6 +125,7 @@ from immunostruct_tpu_torch.ops import (  # noqa: E402
     _build, edge, fused_layer, mega, segment, stack,
 )
 from immunostruct_tpu_torch.ops import egnn  # noqa: E402
+from immunostruct_tpu_torch.ops import kernel_checks as kc  # noqa: E402
 from immunostruct_tpu_torch.ops.egnn import EGNNLayer  # noqa: E402
 
 _spec = importlib.util.spec_from_file_location(
@@ -153,8 +134,7 @@ tc = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(tc)
 
 TIE_ULPS = (32, -1, 64)  # the first is the source's own
-SEEDS = range(1, 9)
-KERNELS = ("tail", "edge_bwd", "mega_fwd", "paired_fwd", "edge_fwd",
+KERNELS = ("sweep", "b3_flips", "tail", "edge_bwd", "mega_fwd", "paired_fwd", "edge_fwd",
            "stack_fwd", "layer_fwd", "repeat", "sass", "segment_times",
            "segment_phases")
 # each library's tensor-core kernel, whose registers and spills are shown
@@ -168,10 +148,6 @@ MMA_KERNEL = {"egnn_tail_bwd": "tail_bwd_mma_kernel",
               "egnn_stack_fwd": "egnn_stack_fwd_mma_kernel",
               "egnn_layer_fwd": "egnn_layer_fwd_mma_kernel"}
 REPO_CSRC, REPO_BUILD = _build.CSRC, _build.BUILD_DIR
-TAIL_FNS = {"b2": (mega.tail_bwd, mega.tail_bwd_reference),
-            "db": (mega.tail_bwd_db, mega.tail_bwd_db_reference),
-            "nodes": (mega.tail_bwd_nodes, mega.tail_bwd_nodes_reference)}
-
 
 # ---------------------------------------------------------------- builds
 
@@ -228,117 +204,136 @@ def build_variants(variants, sources, root):
     return dirs
 
 
-def passes(check, *args):
-    try:
-        check(*args)
-        return True
-    except AssertionError:
-        return False
+# ---------------------------------------------------------------- sweep
+
+def _sweep_row(r):
+    keep = ("input", "own", "ok", "within_bound", "worst", "worst_vs_bound",
+            "cpu_worst", "restated", "over_bound", "failing", "cpu_s")
+    return {k: (round(r[k], 4) if isinstance(r[k], float) else r[k])
+            for k in keep}
+
+
+def variant_sweep(kernels, dirs, flips=False):
+    """Each kernel of ``kernels`` on every input of kc.cases under each
+    build of ``dirs`` ({name: a build_variants directory, or None for this
+    tree's}), the CPU's plain version on each input (kc.sweep, yardstick
+    "all"): a line per input and per kernel; with ``flips``, where B1's or
+    B4's residuals pass their bound, what flipped (a1_flips)."""
+    dev = torch.device("cuda")
+    cpu_cache = {}                      # the CPU's outputs, one per input
+    for name, d in dirs.items():
+        use(d)
+        for kernel in kernels:
+            def report(r, kernel=kernel):
+                print(f"{kernel} [{name}]:", json.dumps(_sweep_row(r)),
+                      flush=True)
+                if (flips and kernel in ("B1", "B4")
+                        and any(u[0].startswith(("a1", "xd"))
+                                for u in r["over_bound"])):
+                    a1_flips(kernel, r["input"], dev)
+            _, line = kc.sweep(kernel, yardstick="all", report=report,
+                               cpu_cache=cpu_cache)
+            print(f"{kernel} [{name}] summary:", json.dumps(line), flush=True)
+    use(None)
+
+
+def sweep(families, timed_failing=True):
+    """Every kernel of ``families`` on every input of kc.cases
+    (variant_sweep), and with ``timed_failing`` each again with the CPU
+    only on the inputs past the bound (chip_smoke.py's phase 14b), timed."""
+    use(None)
+    _build.build()                      # one nvcc per source, at once
+    variant_sweep(families, {"this tree": None}, flips=True)
+    if timed_failing:
+        for kernel in families:
+            _, line = kc.sweep(kernel, yardstick="failing")
+            print("sweep failing-yardstick:", json.dumps(line), flush=True)
+
+
+def _case(kernel, label):
+    return next(c for c in kc.cases(kernel) if c.label == label)
+
+
+def _seq_fma(h, w):
+    """h [..., F] @ w [F, H] as one f32 fma a feature in f order from +0
+    (B1's projections, csrc/egnn_mega.cuh proj_block), in float64 rounded
+    to f32 after every step."""
+    acc = torch.zeros(*h.shape[:-1], w.shape[1], dtype=torch.float32,
+                      device=h.device)
+    for f in range(h.shape[-1]):
+        acc = (h[..., f, None].double() * w[f].double()
+               + acc.double()).float()
+    return acc
+
+
+def a1_flips(kernel, label, dev, top=4):
+    """For an input whose a1 residual is past its bound: the elements past
+    it, with pa[src] and pb[dst] (the plain version's torch.matmul on the
+    card and on the CPU, the kernel's sequential f32 sum, the float64
+    sum) and a1 (kernel, plain on the card, plain on the CPU)."""
+    case = _case(kernel, label)
+    s = case.shape
+    if kernel == "B1":
+        args = kc.mega_args(s["b"], s["e"], s["f"], kc.HID, torch.bfloat16,
+                            dev, case.seed)
+    else:
+        args = kc.paired_args(s["b"], s["e"], s["f"], torch.bfloat16, dev,
+                              case.seed)
+    if s.get("masked"):
+        args[2] = args[2].clone()
+        args[2][-1] = False
+    if s.get("scrambled"):
+        args = kc.scrambled_mirror_half(args, seed=case.seed + 1)
+    fwd = (mega.edge_mega_fwd if kernel == "B1"
+           else mega.edge_mega_paired_fwd)
+    plain = (mega.edge_mega_fwd_reference if kernel == "B1"
+             else mega.edge_mega_paired_fwd_reference)
+    _, a1, _ = fwd(*args)
+    _, a1_ref, _ = plain(*args)
+    _, a1_cpu, _ = plain(*(t.cpu() for t in args))
+    src, dst = (args[:2] if kernel == "B1"
+                else mega.mirror_edges(*args[:3])[:2])
+    f = s["f"]
+    w1 = args[6].to(torch.bfloat16).float()
+    hf = args[4].float()
+
+    def both(fn, hh, ww):           # pa | pb [B, N, 2H]
+        return torch.cat([fn(hh, ww[:f]), fn(hh, ww[f:])], -1)
+    proj = {"card": both(torch.matmul, hf, w1),
+            "cpu": both(torch.matmul, hf.cpu(), w1.cpu()).to(dev),
+            "seq": both(_seq_fma, hf, w1),
+            "f64": both(torch.matmul, hf.double(), w1.double())}
+    g, r = a1.float(), a1_ref.float()
+    mag = torch.maximum(torch.maximum(g.abs(), r.abs()),
+                        torch.tensor(2.0 ** -10, device=g.device))
+    steps = (g - r).abs() / kc.step_of(mag)
+    idx = (steps > 1).nonzero().tolist()[:top]
+    for b_, j, e_ in idx:
+        sn, dn = int(src[b_, e_]), int(dst[b_, e_])
+        row = dict(input=label, graph=b_, col=j, edge=e_, src=sn, dst=dn,
+                   steps=round(steps[b_, j, e_].item(), 3),
+                   a1=dict(kernel=g[b_, j, e_].item(), card=r[b_, j, e_].item(),
+                           cpu=a1_cpu[b_, j, e_].float().item()))
+        for part, node, col in (("pa", sn, j), ("pb", dn, kc.HID + j)):
+            vals = {k: v[b_, node, col].item() for k, v in proj.items()}
+            row[part] = dict(f32=vals, bf16={
+                k: torch.tensor(v).to(torch.bfloat16).item()
+                for k, v in vals.items()})
+        print("sweep a1 flip:", json.dumps(row), flush=True)
+
 
 
 # ---------------------------------------------------------------- tail
 
-def tail_ratios(out, ref, node=False):
-    """{output: worst mean ratio over its rows}, and the worst max ratio,
-    as the tail tests' bf16 checks read them."""
-    names = ["cat", "ef", "dw2", "dwc1", "dsmall"]
-    if node:
-        rows = [(out[0].flatten(0, 1).T, ref[0].flatten(0, 1).T, 1.6e-2)]
-        out, ref = out[1:], ref[1:]
-        names = ["nodes"] + names[1:]
-    else:
-        rows = [(out[0].float().transpose(0, 1).flatten(1),
-                 ref[0].float().transpose(0, 1).flatten(1), 1.6e-2)]
-    rows.append((out[1].float().flatten()[None],
-                 ref[1].float().flatten()[None], 1.6e-2))
-    start = 1 if node else 2
-    rows += [(g.flatten()[None], r.flatten()[None], 1e-3)
-             for g, r in zip(out[start:], ref[start:])]
-    mean, worst_max = {}, 0.0
-    for name, (g, r, tol) in zip(names, rows):
-        diff, mag = (g - r).abs(), r.abs()
-        mean[name] = round((diff.mean(1) / (2e-5 * mag.mean(1)).clamp_min(
-            1e-30)).max().item(), 4)
-        worst_max = max(worst_max, (diff.amax(1) / (tol * mag.amax(1))
-                                    .clamp_min(1e-30)).max().item())
-    return mean, round(worst_max, 4)
-
-
-def tail_cases():
-    bf, dev = torch.bfloat16, torch.device("cuda")
-    out = []
-    for e in (2560, 1408, 100):
-        for f in (20, 64):
-            out.append((f"B2 B=8 E={e} F={f}", "b2",
-                        tc._tail_args(8, e, f, bf, dev, seed=e + f + 1)))
-    for e in (2560, 1408):
-        for f in (20, 64):
-            a = tc._tail_g_args(128, e, f, bf, dev, seed=e + f + 3)
-            out.append((f"B5a B=128 E={e} F={f}", "db", (a[1], *a[2:])))
-            a = tc._tail_g_args(128, e, f, bf, dev, seed=e + f + 4)
-            out.append((f"B5b B=128 E={e} F={f}", "nodes", a))
-    for b in (1, 200):
-        for e in (2560, 1000):
-            a = list(tc._tail_g_args(b, e, 20, bf, dev, seed=b + e))
-            if b > 1:
-                a[2] = a[2].clone()
-                a[2][-1] = False
-            out.append((f"grid B2 B={b} E={e}", "b2", tc._b2_of(*a)))
-            out.append((f"grid B5b B={b} E={e}", "nodes", tuple(a)))
-    return out
-
-
-def differing(out, ref):
-    """(graph, edge, d_cat row, kernel, plain) where d_cat differs."""
-    idx = (out[0] != ref[0]).nonzero().tolist()
-    return [(b, e, k, out[0][b, k, e].item(), ref[0][b, k, e].item())
-            for b, k, e in idx]
-
-
-def exact_products_reference(*args):
-    """tail_bwd_reference with every torch.matmul summed in float64 and
-    rounded once to f32."""
-    plain = torch.matmul
-    torch.matmul = lambda a, b: plain(a.double(), b.double()).float()
-    try:
-        return mega.tail_bwd_reference(*args)
-    finally:
-        torch.matmul = plain
+TAIL_SOURCES = ("egnn_tail_bwd", "egnn_tail_bwd_db", "egnn_tail_bwd_nodes")
 
 
 def tail(root, baseline):
     variants = {f"kTieUlps={u}": with_ulps(u) for u in TIE_ULPS}
     if baseline is not None:
         variants["baseline"] = baseline
-    dirs = build_variants(variants, ("egnn_tail_bwd", "egnn_tail_bwd_db",
-                                     "egnn_tail_bwd_nodes"), root)
-    inputs = tail_cases()
-    refs = {label: TAIL_FNS[kind][1](*args) for label, kind, args in inputs}
-    small = next(a for label, _, a in inputs if label == "B2 B=8 E=100 F=64")
-    witness = exact_products_reference(*small)
-    print("tail:", json.dumps({
-        "plain_exact_products_vs_plain B2 B=8 E=100 F=64":
-            tail_ratios(witness, refs["B2 B=8 E=100 F=64"]),
-        "differing": len(differing(witness, refs["B2 B=8 E=100 F=64"]))}),
-        flush=True)
-    for u, d in dirs.items():
-        use(d)
-        res = {}
-        for label, kind, args in inputs:
-            got = TAIL_FNS[kind][0](*args)
-            torch.cuda.synchronize()
-            res[label] = tail_ratios(got, refs[label], node=kind == "nodes")
-            if label == "B2 B=8 E=100 F=64":
-                diffs = differing(got, refs[label])
-        print("tail:", json.dumps({
-            "variant": u,
-            "worst_mean_ratio": max(max(v[0].values()) for v in res.values()),
-            "worst_max_ratio": max(v[1] for v in res.values()),
-            "differing_d_cat_B=8_E=100_F=64": diffs[:12],
-            "n_differing": len(diffs)}), flush=True)
-        for label, v in res.items():
-            print("tail:   ", u, label, max(v[0].values()), v[1], v[0],
-                  flush=True)
+    dirs = build_variants(variants, TAIL_SOURCES, root)
+    variant_sweep(("B2", "B5a", "B5b"), dirs)
     # the times, the builds interleaved three times over; the outputs of
     # each build against the first's
     use(None)
@@ -366,24 +361,6 @@ def tail(root, baseline):
 
 # ---------------------------------------------------------------- B3 bwd
 
-EDGE_SHAPES = ((8, 100, 0), (8, 256, 56), (8, 2560, 0), (26, 1280, 0),
-               (51, 1280, 0))
-
-
-def edge_cases():
-    """(B, E, tail, F, seed, weight-gradient mean bound): the card tests'
-    shapes and seeds (``test_edge_kernels_match_plain_versions``), 1..8,
-    and chip_smoke.py's B=128 with its bound (the seed of
-    ``test_edge_bwd_smoke_bound_sees_every_rounding_point`` and 1..3)."""
-    for b, e, tail_ in EDGE_SHAPES:
-        for f in (20, 64):
-            for seed in [e + f, *SEEDS]:
-                yield b, e, tail_, f, seed, 2e-5
-    for f in (20, 64):
-        for seed in (2582, 1, 2, 3):
-            yield 128, 2560, 0, f, seed, cs.EDGE_GRAD_MEAN
-
-
 def d_p3_unrounded():
     """egnn_hopper.cuh with dbc1 summed from d_p3 before its rounding (the
     card tests' d_p3 mutant)."""
@@ -394,256 +371,188 @@ def d_p3_unrounded():
     return {"egnn_hopper.cuh": text}
 
 
-def dbc1_rounding(args, dout, got, ref):
-    """mean|dbc1 - plain| / mean|dbc1 - the sum of d_p3 unrounded|
-    (``_assert_edge_bwd_close`` holds it at most 1)."""
-    k, r = got[6][:, edge.BC1], ref[6][:, edge.BC1]
-    far = (k - edge.d_p3_unrounded_sum(*args, dout)).abs().mean().item()
-    return (k - r).abs().mean().item() / max(far, 1e-30)
-
-
 def edge_bwd(root):
     variants = {f"kTieUlps={u}": with_ulps(u) for u in TIE_ULPS[:2]}
     variants["d_p3_unrounded"] = d_p3_unrounded()
-    dirs = build_variants(variants, ("egnn_edge_bwd",), root)
-    dev = torch.device("cuda")
-    fails = {u: 0 for u in dirs}
-    dbc1 = {u: [] for u in dirs}
-    n = 0
-    for b, e, tail_, f, seed, grad_mean in edge_cases():
-        args, dout = tc._edge_args(b, e, f, torch.bfloat16, dev, seed=seed,
-                                   tail=tail_)
+    variant_sweep(("B3 bwd",), build_variants(variants, ("egnn_edge_bwd",),
+                                              root))
+
+
+# ------------------------------------------------- B3 bwd: what flips
+
+def tie_ulps(v):
+    """f32 units in the last place from the nearest bf16 rounding
+    boundary."""
+    low = v.contiguous().view(torch.int32) & 0xFFFF
+    return (low - 0x8000).abs()
+
+
+def flipped_edges(got, ref):
+    """[B, E] count of B3 backward outputs (dhsx, dhdx, def) that differ."""
+    return sum((g != r).sum(1) for g, r in zip(got[:3], ref[:3]))
+
+
+
+def _edge_chain(hs, hd, eff, db, w1b, w2b, wc1b, sm, dt, flip=None):
+    """One edge of B3's backward as edge_program_bwd_reference computes it
+    (hs, hd [F+3], eff [1], db [H+3] f32), with the rounding at ``flip``
+    ((point, column)) taken to the other bf16 neighbour: (dhsx, dhdx, def)
+    in the compute dtype, and each rounding point's value before it
+    rounds."""
+    f = hs.shape[0] - 3
+    hid = w2b.shape[1]
+    pre = {}
+
+    def rnd(name, v):
+        pre[name] = v
+        r = v.to(dt).float()
+        if flip is not None and flip[0] == name:
+            j = flip[1]
+            up = r[j] < v[j]
+            here = r[j].to(dt)
+            nxt = torch.nextafter(here, torch.full_like(
+                here, float("inf") if up else float("-inf"))).float()
+            r = r.clone()
+            r[j] = nxt
+        return r
+    xd = rnd("xd", hs[f:] - hd[f:])
+    rad = rnd("rad", (xd * xd).sum(-1, keepdim=True))
+    safe = torch.where(rad > 0, rad, torch.ones_like(rad))
+    inv_s = 1.0 / (torch.sqrt(safe) + 1e-30)
+    hsd = torch.cat([hs[:f], hd[:f]])
+    a1 = (hsd @ w1b + sm[:, edge.W1R] * rad + sm[:, edge.W1E] * eff
+          + sm[:, edge.B1])
+    s1 = torch.sigmoid(a1)
+    a1s = rnd("a1s", a1 * s1)
+    p2 = a1s @ w2b + sm[:, edge.B2]
+    s2 = torch.sigmoid(p2)
+    m = rnd("m", p2 * s2)
+    p3 = m @ wc1b + sm[:, edge.BC1]
+    s3 = torch.sigmoid(p3)
+    c1 = rnd("c1", p3 * s3)
+    cw_b = rnd("cw", (c1 * sm[:, edge.WC2]).sum(-1, keepdim=True))
+    x_hat = xd * inv_s
+    d_m_in, d_msgx = db[:hid], db[hid:]
+    d_cw = (d_msgx * x_hat).sum(-1, keepdim=True)
+    d_xhat = d_msgx * cw_b
+    d_p3 = rnd("d_p3", sm[:, edge.WC2] * d_cw * edge.silu_grad(p3, s3))
+    d_m = d_m_in + d_p3 @ wc1b.T
+    d_p2 = rnd("d_p2", d_m * edge.silu_grad(p2, s2))
+    d_a1 = rnd("d_a1", (d_p2 @ w2b.T) * edge.silu_grad(a1, s1))
+    d_hsd = d_a1 @ w1b.T
+    d_rad_chain = (sm[:, edge.W1R] * d_a1).sum(-1, keepdim=True)
+    sum_dxh_xd = (d_xhat * xd).sum(-1, keepdim=True)
+    d_safe = sum_dxh_xd * (-0.5) * inv_s * inv_s / torch.sqrt(safe)
+    d_rad = d_rad_chain + torch.where(rad > 0, d_safe, 0.0)
+    d_xd = d_xhat * inv_s + 2.0 * xd * d_rad
+    d_ef = (sm[:, edge.W1E] * d_a1).sum(-1, keepdim=True)
+    out = (torch.cat([d_hsd[:f], d_xd]).to(dt),
+           torch.cat([d_hsd[f:], -d_xd]).to(dt), d_ef.to(dt))
+    return out, pre
+
+
+def which_flip(args, dout, got, b_, e_, reach=4096):
+    """The rounding of edge (b_, e_)'s chain that, taken the other way,
+    brings the plain version's outputs nearest the kernel's (of those, the
+    one whose value lies nearest its bf16 boundary): (point, column,
+    entries that still differ, entries that differ unflipped, its value's
+    distance from the boundary in f32 units)."""
+    hsx, hdx, ef, w1ab, w2, wc1, small = args
+    dt = hsx.dtype
+
+    def r(t):
+        return t.to(dt).float()
+    w1b, w2b, wc1b, sm = r(w1ab), r(w2), r(wc1), small.float()
+    inputs = (hsx[b_, :, e_].float(), hdx[b_, :, e_].float(),
+              ef[b_, :, e_].float(), dout[b_, :, e_].to(dt).float(),
+              w1b, w2b, wc1b, sm, dt)
+    want = [got[0][b_, :, e_], got[1][b_, :, e_], got[2][b_, :, e_]]
+
+    def misses(out):
+        return int(sum((o != w).sum() for o, w in zip(out, want)))
+    base, pre = _edge_chain(*inputs)
+    before = misses(base)
+    found = []                          # (entries left, distance, point, col)
+    for name, v in pre.items():
+        if name == "xd":                # one exact subtraction: no order
+            continue
+        dist = tie_ulps(v)
+        for j in (dist <= reach).nonzero().flatten().tolist():
+            n = misses(_edge_chain(*inputs, flip=(name, j))[0])
+            found.append((n, int(dist[j]), name, j))
+    if not found:
+        return None, None, before, before, None
+    # a flip needs a value near a boundary: of the replays that come
+    # nearest the kernel's, the one nearest its boundary (another one's
+    # flip can follow from it downstream)
+    n, dist, name, j = min(found)
+    return name, j, n, before, dist
+
+
+def b3_flips(labels, top=12, dev=torch.device("cuda")):
+    """For each B3 bwd input: the edges whose outputs differ from the card
+    plain version's in 3 or more entries (a flipped rounding in the chain;
+    1-2 entries: a flipped store, counted by output), for the kernel and for
+    the plain version run on the CPU; at the kernel's chain-flipped edges that the CPU does
+    not flip, which rounding the kernel took the other way (which_flip:
+    the plain chain replayed with each rounding within 4096 f32 units of a
+    bf16 boundary taken the other way; the one that leaves the fewest
+    entries differing from the kernel's)."""
+    for label in labels:
+        case = _case("B3 bwd", label)
+        s = case.shape
+        args, dout = kc.edge_args(s["b"], s["e"], s["f"], torch.bfloat16,
+                                  dev, case.seed, tail=s["tail"])
+        got = edge.edge_program_bwd(*args, dout)
         ref = edge.edge_program_bwd_reference(*args, dout)
-        row = dict(B=b, E=e, tail=tail_, F=f, seed=seed, grad_mean=grad_mean)
-        for u, d in dirs.items():
-            use(d)
-            got = edge.edge_program_bwd(*args, dout)
-            ok = passes(tc._assert_edge_bwd_close, args, dout, got, ref,
-                        torch.bfloat16, grad_mean)
-            fails[u] += not ok
-            dbc1[u].append(dbc1_rounding(args, dout, got, ref))
-            row[u] = dict(ok=ok, dbc1_rounding=round(dbc1[u][-1], 5),
-                          mean_ratio={
-                k: round(v / (grad_mean if k.startswith(("dw", "dsmall"))
-                              else 2e-5), 4)
-                for k, v in tc._mean_ratios(got, ref).items()})
-        n += 1
-        print("edge_bwd:", json.dumps(row), flush=True)
-    print("edge_bwd summary:", json.dumps(dict(
-        failing=fails, of=n,
-        dbc1_rounding={u: [min(v), max(v)] for u, v in dbc1.items()})),
-        flush=True)
-    use(None)
+        cpu = kc.on(dev, edge.edge_program_bwd_reference(
+            *kc.on("cpu", args), dout.cpu()))
+        nk, nc = flipped_edges(got, ref), flipped_edges(cpu, ref)
+        only = ((nk >= 3) & (nc < 3)).nonzero().tolist()
+        points = Counter()
+        rows = []
+        for b_, e_ in only:
+            point, col, left, before, dist = which_flip(args, dout, got, b_,
+                                                        e_)
+            points[point] += 1
+            if len(rows) < top:
+                rows.append(dict(edge=[b_, e_], entries=before, point=point,
+                                 column=col, entries_left=left, ulps=dist))
+        f = s["f"]
+        store = Counter()
+        for b_, e_ in ((nk > 0) & (nk < 3)).nonzero().tolist():
+            for t_ in (0, 1):
+                rows_ = (got[t_][b_, :, e_] != ref[t_][b_, :, e_]).nonzero()
+                for (r_,) in rows_.tolist():
+                    store["d_xd" if r_ >= f else "d_hsd"] += 1
+            store["d_ef"] += int(got[2][b_, 0, e_] != ref[2][b_, 0, e_])
+        print("b3 flips:", json.dumps(dict(kernel_store_entries=dict(store),
+            input=label, kernel_chain_flips=int((nk >= 3).sum()),
+            kernel_store_flips=int(((nk > 0) & (nk < 3)).sum()),
+            cpu_chain_flips=int((nc >= 3).sum()),
+            cpu_store_flips=int(((nc > 0) & (nc < 3)).sum()),
+            kernel_only=len(only), flipped_point=dict(points))), flush=True)
+        for r in rows:
+            print("b3 flip:", json.dumps(r), flush=True)
 
 
-# ---------------------------------------------------------------- B1
 
-def col_ratios(out, ref):
-    """The worst column's mean and max |diff| over BF16_COL_MEAN/MAX of
-    the same statistic of |plain| (``_assert_close``)."""
-    diff = (out - ref).abs().flatten(0, 1)
-    mag = ref.abs().flatten(0, 1)
-    tiny = torch.finfo(torch.float32).tiny
-    return (round((diff.mean(0) / (cs.BF16_COL_MEAN * mag.mean(0))
-                   .clamp_min(tiny)).max().item(), 4),
-            round((diff.amax(0) / (cs.BF16_COL_MAX * mag.amax(0))
-                   .clamp_min(tiny)).max().item(), 4))
-
-
-def mega_cases():
-    """(B, E, F, seed, the tests' seed?, the last graph all masked?):
-    ``test_kernel_matches_plain_version``'s and
-    ``test_kernel_at_the_grid_edges``' shapes."""
-    for e in (2560, 1408, 100):
-        for f in (20, 64):
-            for seed in [e + f, *SEEDS]:
-                yield 8, e, f, seed, seed == e + f, False
-    for b in (1, 200):
-        for e in (2560, 1000):
-            for seed in [b + e, *SEEDS]:
-                yield b, e, 64, seed, seed == b + e, b > 1
-
-
-def residual_misses(got, ref):
-    """(edge, a1 column, src, dst) where a residual is more than one bf16
-    step from the plain version's (``_assert_residuals_close``'s rule)."""
-    g, r = got.float(), ref.float()
-    mag = torch.maximum(torch.maximum(g.abs(), r.abs()),
-                        torch.tensor(2.0 ** -10, device=g.device))
-    step = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-    return ((g - r).abs() > step).nonzero().tolist()
-
+# ------------------------------------------------- B1, B4, B3 fwd
 
 def mega_fwd():
-    use(None)
-    dev = torch.device("cuda")
-    n, worst, worst_own = 0, [0.0, 0.0], [0.0, 0.0]
-    failing = dict(output=0, residuals=0)
-    for b, e, f, seed, own, masked in mega_cases():
-        args = tc._args(b, e, f, 64, torch.bfloat16, dev, seed=seed)
-        if masked:
-            args[2] = args[2].clone()
-            args[2][-1] = False
-        ref, a1_ref, xd_ref = mega.edge_mega_fwd_reference(*args)
-        out, a1, xd = mega.edge_mega_fwd(*args)
-        bare = mega.edge_mega(*args)
-        ok_out = (passes(tc._assert_close, out, ref, torch.bfloat16)
-                  and passes(tc._assert_close, bare, ref, torch.bfloat16))
-        ok_res = passes(tc._assert_residuals_close, (a1, xd),
-                        (a1_ref, xd_ref), torch.bfloat16)
-        misses = [(e_, j, int(args[0][g_, e_]), int(args[1][g_, e_]))
-                  for g_, j, e_ in residual_misses(a1, a1_ref)[:6]]
-        r = col_ratios(out, ref)
-        r_bare = col_ratios(bare, ref)
-        for i in range(2):
-            worst[i] = max(worst[i], r[i], r_bare[i])
-            if own:
-                worst_own[i] = max(worst_own[i], r[i], r_bare[i])
-        failing["output"] += not ok_out
-        failing["residuals"] += not ok_res
-        n += 1
-        print("mega_fwd:", json.dumps(dict(
-            B=b, E=e, F=f, seed=seed, tests_seed=own, ok_output=ok_out,
-            ok_residuals=ok_res, a1_misses_edge_col_src_dst=misses,
-            mean_ratio=r[0], max_ratio=r[1], bare_mean_ratio=r_bare[0],
-            bare_max_ratio=r_bare[1])), flush=True)
-    print("mega_fwd summary:", json.dumps(dict(
-        failing=failing, of=n, worst_mean_ratio=worst[0],
-        worst_max_ratio=worst[1], tests_seeds_worst_mean_ratio=worst_own[0],
-        tests_seeds_worst_max_ratio=worst_own[1])), flush=True)
-
-
-# ---------------------------------------------------------------- B4
-
-def paired_cases():
-    """(B, E, F, seed, the tests' seed?, the last graph all masked?, the
-    second half scrambled?): ``test_paired_kernel_matches_plain_version``'s,
-    ``test_paired_kernel_at_the_grid_edges``' and
-    ``test_paired_kernel_reads_only_the_arc_half``'s shapes."""
-    for e in (2560, 1408):
-        for f in (20, 64):
-            for seed in [e + f + 2, *SEEDS]:
-                yield 128, e, f, seed, seed == e + f + 2, False, False
-    for b in (1, 200):
-        for e in (2560, 1000):
-            for seed in [b + e + 3, *SEEDS]:
-                yield b, e, 64, seed, seed == b + e + 3, b > 1, False
-    for seed in [41, *SEEDS]:
-        yield 8, 2560, 20, seed, seed == 41, False, True
+    variant_sweep(("B1",), {"this tree": None}, flips=True)
 
 
 def paired_fwd(root, baseline):
-    use(None)
-    dev = torch.device("cuda")
-    n, worst, worst_own = 0, [0.0, 0.0], [0.0, 0.0]
-    failing = dict(output=0, residuals=0, residuals_not_b1=0)
-    for b, e, f, seed, own, masked, scrambled in paired_cases():
-        args = tc._paired_args(b, e, f, torch.bfloat16, dev, seed=seed)
-        if masked:
-            args[2] = args[2].clone()
-            args[2][-1] = False
-        if scrambled:
-            args = tc._scrambled_mirror_half(args, seed=seed + 1)
-        ref, a1_ref, xd_ref = mega.edge_mega_paired_fwd_reference(*args)
-        out, a1, xd = mega.edge_mega_paired_fwd(*args)
-        bare = mega.edge_mega_paired_fwd(*args, residuals=False)[0]
-        _, a1_b1, xd_b1 = mega.edge_mega_fwd(*mega.mirror_edges(*args[:3]),
-                                             *args[3:])
-        same_b1 = torch.equal(a1, a1_b1) and torch.equal(xd, xd_b1)
-        ok_out = (passes(tc._assert_close, out, ref, torch.bfloat16)
-                  and passes(tc._assert_close, bare, ref, torch.bfloat16))
-        ok_res = passes(tc._assert_residuals_close, (a1, xd),
-                        (a1_ref, xd_ref), torch.bfloat16)
-        src, dst = mega.mirror_edges(*args[:3])[:2]
-        misses = [(e_, j, int(src[g_, e_]), int(dst[g_, e_]))
-                  for g_, j, e_ in residual_misses(a1, a1_ref)[:6]]
-        r, r_bare = col_ratios(out, ref), col_ratios(bare, ref)
-        for i in range(2):
-            worst[i] = max(worst[i], r[i], r_bare[i])
-            if own:
-                worst_own[i] = max(worst_own[i], r[i], r_bare[i])
-        failing["output"] += not ok_out
-        failing["residuals"] += not ok_res
-        failing["residuals_not_b1"] += not same_b1
-        n += 1
-        print("paired_fwd:", json.dumps(dict(
-            B=b, E=e, F=f, seed=seed, tests_seed=own, scrambled=scrambled,
-            ok_output=ok_out, ok_residuals=ok_res, residuals_equal_b1=same_b1,
-            a1_misses_edge_col_src_dst=misses, mean_ratio=r[0],
-            max_ratio=r[1], bare_mean_ratio=r_bare[0],
-            bare_max_ratio=r_bare[1])), flush=True)
-    print("paired_fwd summary:", json.dumps(dict(
-        failing=failing, of=n, worst_mean_ratio=worst[0],
-        worst_max_ratio=worst[1], tests_seeds_worst_mean_ratio=worst_own[0],
-        tests_seeds_worst_max_ratio=worst_own[1])), flush=True)
+    variant_sweep(("B4",), {"this tree": None}, flips=True)
     if baseline is not None:
         fwd_times(root, baseline, "paired_fwd")
 
 
-# ---------------------------------------------------------------- B3 fwd
-
-def edge_fwd_cases():
-    """(B, E, tail, F, seed, the last graph's bundles zero?): the card
-    tests' shapes and seeds (``test_edge_kernels_match_plain_versions``,
-    ``test_edge_fwd_kernel_at_the_grid_edges``), 1..8, and chip_smoke.py's
-    B=128 (``check_edge_kernels``' seeds and 1..3)."""
-    for b, e, tail_ in EDGE_SHAPES:
-        for f in (20, 64):
-            for seed in [e + f, *SEEDS]:
-                yield b, e, tail_, f, seed, False
-    for b in (1, 200):
-        for e in (2560, 1000):
-            for seed in [b + e + 5, *SEEDS]:
-                yield b, e, 0, 64, seed, b > 1
-    for e in cs.EDGE_COUNTS:
-        for f in (20, 64):
-            for seed in (e + f + 2, 1, 2, 3):
-                yield 128, e, 0, f, seed, False
-
-
-def edge_fwd_ratios(out, ref):
-    """The worst row's mean and max |diff| over the bf16 bounds of
-    ``_assert_edge_close`` (2e-5 and 1.6e-2 of the same statistic of
-    |plain|), and the entries that differ."""
-    g, r = tc._rows(out), tc._rows(ref)
-    diff, mag = (g - r).abs(), r.abs()
-    tiny = torch.finfo(torch.float32).tiny
-    return (round((diff.mean(1) / (2e-5 * mag.mean(1)).clamp_min(tiny))
-                  .max().item(), 4),
-            round((diff.amax(1) / (1.6e-2 * mag.amax(1)).clamp_min(tiny))
-                  .max().item(), 4),
-            int((out != ref).sum().item()))
-
-
 def edge_fwd(root, baseline):
     variants = {f"kTieUlps={u}": with_ulps(u) for u in TIE_ULPS[:2]}
-    dirs = build_variants(variants, ("egnn_edge_fwd",), root / "ties")
-    dev = torch.device("cuda")
-    fails = {u: 0 for u in dirs}
-    worst = {u: [0.0, 0.0] for u in dirs}
-    n = 0
-    for b, e, tail_, f, seed, zeroed in edge_fwd_cases():
-        args, _ = tc._edge_args(b, e, f, torch.bfloat16, dev, seed=seed,
-                                tail=tail_)
-        if zeroed:
-            for t in args[:2]:
-                t[-1] = 0
-        ref = edge.edge_program_reference(*args)
-        row = dict(B=b, E=e, tail=tail_, F=f, seed=seed)
-        for u, d in dirs.items():
-            use(d)
-            got = edge.edge_program_fwd(*args)
-            ok = passes(tc._assert_edge_close, got, ref, torch.bfloat16)
-            fails[u] += not ok
-            mean, mx, differ = edge_fwd_ratios(got, ref)
-            worst[u] = [max(worst[u][0], mean), max(worst[u][1], mx)]
-            row[u] = dict(ok=ok, mean_ratio=mean, max_ratio=mx,
-                          differing=differ)
-        n += 1
-        print("edge_fwd:", json.dumps(row), flush=True)
-    print("edge_fwd summary:", json.dumps(dict(
-        failing=fails, of=n, worst_mean_max_ratio=worst)), flush=True)
-    use(None)
+    variant_sweep(("B3 fwd",), build_variants(variants, ("egnn_edge_fwd",),
+                                              root / "ties"))
     if baseline is not None:
         fwd_times(root, baseline, "edge_fwd")
 
@@ -679,9 +588,9 @@ def fwd_times(root, baseline, section):
         def case(b, e, f, dtype):
             if b4:
                 return (cs.paired_inputs(e, f, dtype, seed=e + f + 2)
-                        if b == cs.B else tc._paired_args(
+                        if b == cs.B else kc.paired_args(
                             b, e, f, dtype, dev, seed=e + f + 2))
-            return tc._args(b, e, f, 64, dtype, dev, seed=e + f + 2)
+            return kc.mega_args(b, e, f, 64, dtype, dev, seed=e + f + 2)
         shapes = [(cs.B, e, f) for e in cs.EDGE_COUNTS for f in (64, 20)]
         shapes.append((1, 2560, 64))
         calls = {"with residuals": lambda m, a: getattr(m, fn)(*a),
@@ -745,73 +654,8 @@ def fwd_times(root, baseline, section):
 
 # ---------------------------------------------------------------- B6
 
-def stack_cases():
-    """(B, E, seed, the tests' seed?, the last graph all masked?): the card
-    tests' B6 shapes (``test_stack_kernel_matches_plain_version``, its grid
-    edges, its mutants' and its repeat inputs) and B=128 at 1..8."""
-    for e in (2560, 1408):
-        for seed in [e + 6, *SEEDS]:
-            yield 128, e, seed, seed == e + 6, False
-        yield 8, e, e + 8, True, False
-    for b in (1, 200):
-        for e in (2560, 1000):
-            yield b, e, b + e + 46, True, True
-    for b in (1, 8, 128):
-        yield b, 2560, b + 41, True, False
-
-
-def col_steps_mean(got, want):
-    """(the worst column's max |diff| in bf16 steps at its largest |plain|,
-    its mean |diff| over 1e-4 * mean|plain|), over graphs and nodes."""
-    g, w = got.float().flatten(0, 1), want.float().flatten(0, 1)
-    diff, mag = (g - w).abs(), w.abs()
-    tiny = torch.finfo(torch.float32).tiny
-    top = mag.amax(0).clamp_min(tiny)
-    steps = diff.amax(0) / torch.exp2(torch.floor(torch.log2(top)) - 7)
-    mean = diff.mean(0) / (1e-4 * mag.mean(0)).clamp_min(tiny)
-    return round(steps.max().item(), 4), round(mean.max().item(), 4)
-
-
-def stack_ratios(out, args, packed):
-    """B6's worst ratios to its bf16 bounds over the layers, each layer
-    against the plain version run from the kernel's own previous h, x."""
-    h, x, hs, xs, aggs, a1s, xds = out
-    src, dst, mask, ef, h0, x0 = args
-    worst = dict(agg_max_steps=0.0, agg_mean=0.0, h_mean=0.0, x_mean=0.0)
-    for layer, weights in enumerate(packed):
-        h_in = h0 if layer == 0 else hs[:, layer - 1]
-        x_in = x0 if layer == 0 else xs[:, layer - 1]
-        ref = stack.stack_fwd_reference(src, dst, mask, ef, h_in, x_in,
-                                        [weights])
-        steps, mean = col_steps_mean(aggs[:, layer], ref[4][:, 0])
-        worst["agg_max_steps"] = max(worst["agg_max_steps"], steps)
-        worst["agg_mean"] = max(worst["agg_mean"], mean)
-        for key, t, r in (("h_mean", hs, ref[2]), ("x_mean", xs, ref[3])):
-            worst[key] = max(worst[key], col_steps_mean(t[:, layer],
-                                                        r[:, 0])[1])
-    return worst
-
-
 def stack_fwd(root, baseline):
-    use(None)
-    dev = torch.device("cuda")
-    n, failing, worst = 0, 0, {}
-    for b, e, seed, own, masked in stack_cases():
-        args, packed = tc._stack_args(b, e, torch.bfloat16, dev, seed=seed)
-        if masked:
-            args[2][-1] = False
-        out = stack.stack_fwd(*args, packed)
-        ok = passes(tc._assert_stack_layers_close, out, args, packed,
-                    torch.bfloat16)
-        r = stack_ratios(out, args, packed)
-        worst = {k: max(worst.get(k, 0.0), v) for k, v in r.items()}
-        failing += not ok
-        n += 1
-        print("stack_fwd:", json.dumps(dict(B=b, E=e, seed=seed,
-                                            tests_seed=own, ok=ok, **r)),
-              flush=True)
-    print("stack_fwd summary:", json.dumps(dict(failing=failing, of=n,
-                                                worst=worst)), flush=True)
+    variant_sweep(("B6",), {"this tree": None})
     if baseline is None:
         return
     d = build_variants({"baseline": baseline}, ("egnn_stack_fwd",),
@@ -845,55 +689,8 @@ def stack_fwd(root, baseline):
 
 # ---------------------------------------------------------------- B7
 
-def layer_cases():
-    """(B, E, F, seed, x dtype, the tests' seed?, the last graph all
-    masked?, coordinate scale): the card tests' B7 shapes
-    (``test_fused_layer_kernel_matches_plain_version``, its grid edges, its
-    repeat and mutant inputs) and B=128 at 1..8."""
-    for e in (2560, 1408, 256):
-        for f in (20, 64):
-            for seed in [e + f + 7, *SEEDS]:
-                yield 128, e, f, seed, None, seed == e + f + 7, False, 1.0
-    for b in (1, 200):
-        for e in (2560, 1024):
-            for x_dtype in (None, torch.float32):
-                yield b, e, 64, b + e + 47, x_dtype, True, True, 1.0
-    for b in (1, 8, 128):
-        yield b, 2560, 64, b + 42, None, True, False, 1.0
-    for e, f in ((2560, 20), (1408, 64)):
-        for x_dtype, scale in ((None, 1.0), (torch.float32, 1.0),
-                               (None, 1 / 16)):
-            yield 32, e, f, e + f, x_dtype, True, False, scale
-
-
 def layer_fwd(root, baseline):
-    use(None)
-    dev = torch.device("cuda")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n, failing, worst = 0, 0, [0.0, 0.0]
-    for b, e, f, seed, x_dtype, own, masked, scale in layer_cases():
-        layer, args = tc._b7_args(b, e, f, torch.bfloat16, dev, seed=seed,
-                                  x_dtype=x_dtype, x_scale=scale)
-        if masked:
-            args[4][-1] = False
-        with torch.no_grad():
-            out = fused_layer.fused_egnn_layer(layer, *args)
-            ref = fused_layer.fused_egnn_layer_reference(layer, *args)
-        ok = passes(tc._assert_b7_close, out, ref, torch.bfloat16)
-        r = {name: col_steps_mean(g, w)
-             for name, g, w in zip(("h", "x"), out, ref)}
-        for name in r:
-            worst = [max(worst[0], r[name][0]), max(worst[1], r[name][1])]
-        failing += not ok
-        n += 1
-        print("layer_fwd:", json.dumps(dict(
-            B=b, E=e, F=f, seed=seed, tests_seed=own,
-            x=str(x_dtype or "bf16"), x_scale=scale, ok=ok,
-            cluster=fused_layer.layer_cluster_size(e, b, sms),
-            h_max_steps_mean=r["h"], x_max_steps_mean=r["x"])), flush=True)
-    print("layer_fwd summary:", json.dumps(dict(
-        failing=failing, of=n, worst_max_steps=worst[0],
-        worst_mean_ratio=worst[1])), flush=True)
+    variant_sweep(("B7",), {"this tree": None})
     if baseline is None:
         return
     d = build_variants({"baseline": baseline}, ("egnn_layer_fwd",),
@@ -937,11 +734,11 @@ def repeat_calls(module_mega, module_stack, module_layer, module_egnn, b,
                  dtype):
     """{kernel: a call on one seeded input} at B=b, E=2560."""
     dev = torch.device("cuda")
-    a1 = tc._args(b, 2560, 20, 64, dtype, dev, seed=b + 40)
-    a4 = tc._paired_args(b, 2560, 20, dtype, dev, seed=b + 40)
-    a6, packed = tc._stack_args(b, 2560, dtype, dev, seed=b + 41)
-    layer, a7 = tc._b7_args(b, 2560, 64, dtype, dev, seed=b + 42)
-    idx, mask, m, _ = tc._segment_args(b, 2560, N_SEG, 67, dtype, dev,
+    a1 = kc.mega_args(b, 2560, 20, 64, dtype, dev, seed=b + 40)
+    a4 = kc.paired_args(b, 2560, 20, dtype, dev, seed=b + 40)
+    a6, packed = kc.stack_args(b, 2560, dtype, dev, seed=b + 41)
+    layer, a7 = kc.b7_args(b, 2560, 64, dtype, dev, seed=b + 42)
+    idx, mask, m, _ = kc.segment_args(b, 2560, N_SEG, 67, dtype, dev,
                                        seed=b + 43)
     calls = {
         "B1": lambda: module_mega.edge_mega_fwd(*a1),
@@ -1247,6 +1044,11 @@ def main():
     ap.add_argument("--kernel", nargs="+", choices=KERNELS,
                     default=list(KERNELS))
     ap.add_argument("--baseline", type=Path, default=None)
+    ap.add_argument("--inputs", nargs="+", default=None,
+                    help="b3_flips: the B3 bwd inputs (kc.cases labels)")
+    ap.add_argument("--families", nargs="+", choices=kc.KERNELS,
+                    default=list(kc.KERNELS),
+                    help="the kernels the sweep section reads")
     opts = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.card_line(), flush=True)
@@ -1255,7 +1057,12 @@ def main():
     root = Path(tempfile.mkdtemp(dir=_build.BUILD_DIR))
     try:
         for kernel in opts.kernel:
-            if kernel == "tail":
+            if kernel == "sweep":
+                sweep(opts.families)
+            elif kernel == "b3_flips":
+                use(None)
+                b3_flips(opts.inputs or [c.label for c in kc.cases("B3 bwd")])
+            elif kernel == "tail":
                 tail(root / "tail", opts.baseline)
             elif kernel == "edge_bwd":
                 edge_bwd(root / "edge_bwd")

@@ -50,19 +50,25 @@ The tests marked ``cuda`` skip on a host without a CUDA device. Tolerances:
   the edge outputs, 1e-3 for the weight gradients (B2's bounds: the same
   chain); and dbc1 no farther from the plain version's than from the sum
   of d_p3 unrounded (``_assert_edge_bwd_close``).
-  chip_smoke.py holds the weight gradients at B=128 to a mean of 1e-4:
-  each sums 16x the edges, and another f32 order flips other bf16
-  roundings along the chain of many more edges;
+  chip_smoke.py holds B3's backward at B=128 to the same bounds under
+  the rule below (the weight gradients' mean 2e-5);
   ``test_edge_bwd_smoke_bound_sees_every_rounding_point`` checks that
-  every backward mutant fails that bound at that shape.
+  every backward mutant fails it at that shape.
 
 The kernels and the plain versions round at the same points, so they
-differ only where a summation order flips one rounding; a kernel that
-leaves out any one rounding point fails the mean bound, which
-``test_bf16_bound_sees_every_rounding_point`` (B1),
-``test_tail_bf16_bound_sees_every_rounding_point`` (B2) and
-``test_edge_bf16_bound_sees_every_rounding_point`` (B3) check by building
-such kernels.
+differ only where a summation order flips one rounding. The bf16 checks,
+their seeded inputs and the rule that reads them are
+immunostruct_tpu_torch/ops/kernel_checks.py's: each unit of a check (row,
+column or tensor) within its bound where the plain version run on the CPU
+on the same operands meets it, within the bound plus twice the CPU's own
+statistic where it does not. A kernel that leaves out any one rounding
+point fails the rule, which ``test_bf16_bound_sees_every_rounding_point``
+(B1), ``test_tail_bf16_bound_sees_every_rounding_point`` (B2),
+``test_edge_bf16_bound_sees_every_rounding_point`` (B3) and the other
+mutant tests check by building such kernels (each prints its ratio to what
+the rule allows, ``-s``). ``test_kernel_meets_the_rule_on_every_seeded_input``
+runs each kernel on every input of its card tests at the test's own seed
+and at 1..8 (``kernel_checks.cases``).
 
 - B4 (csrc/egnn_mega_paired_fwd.cu; in bf16 B1's tensor-core kernel,
   csrc/egnn_mega.cuh, with tiles of 32 arcs and their mirrors) on
@@ -161,6 +167,7 @@ tensors in f32 and bf16; a full-width HybridModelv2 exported under 'mega'
 eager ``Scorer``'s bits, and refuses to load for the CPU.
 """
 
+import copy
 import functools
 import json
 import re
@@ -173,6 +180,14 @@ from immunostruct_tpu_torch.data.synthetic import random_sample_batch
 from immunostruct_tpu_torch.models import build_model, model_apply
 from immunostruct_tpu_torch.data.synthetic import build_batch
 from immunostruct_tpu_torch.ops import _build, edge, mega, segment, stack
+from immunostruct_tpu_torch.ops import kernel_checks as kc
+from immunostruct_tpu_torch.ops.kernel_checks import (
+    b2_of as _b2_of, b7_args as _b7_args, corpus_layout as _corpus_layout,
+    edge_args as _edge_args, mega_args as _args, paired_args as _paired_args,
+    scrambled_mirror_half as _scrambled_mirror_half, segment_args as
+    _segment_args, stack_args as _stack_args, tail_args as _tail_args,
+    tail_g_args as _tail_g_args,
+)
 from immunostruct_tpu_torch.ops.egnn import (
     EGNNLayer, egnn_apply, egnn_stack, egnn_stack_apply,
 )
@@ -183,32 +198,12 @@ from immunostruct_tpu_torch.utils.schedule import constant_lr
 N = 288
 
 
-def _args(b, e, f, hid, dtype, device, seed, mask_rate=0.1):
-    gen = torch.Generator().manual_seed(seed)
-    src = torch.randint(0, N, (b, e), generator=gen, dtype=torch.int32)
-    dst = torch.randint(0, N, (b, e), generator=gen, dtype=torch.int32)
-    src[:, :8] = dst[:, :8]                                  # self-loops
-    mask = torch.rand(b, e, generator=gen) >= mask_rate
-    ef = torch.randn(b, e, 1, generator=gen)
-    h = torch.randn(b, N, f, generator=gen)
-    x = torch.randn(b, N, 3, generator=gen)
-    layer = EGNNLayer(f, hid, hid, generator=gen, device=device)
-    weights = [w.detach().contiguous()
-               for w in mega.pack_params(layer.edge_mlp, layer.coord_mlp)]
-    return [src.to(device), dst.to(device), mask.to(device),
-            ef.to(device, dtype), h.to(device, dtype), x.to(device, dtype),
-            *weights]
-
-
 def _assert_close(out, ref, dtype):
     assert out.dtype == torch.float32 and torch.isfinite(out).all()
     if dtype == torch.float32:
         torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-4)
     else:
-        diff = (out - ref).abs().flatten(0, 1)
-        mag = ref.abs().flatten(0, 1)
-        assert (diff.amax(0) <= 4e-3 * mag.amax(0)).all()
-        assert (diff.mean(0) <= 1e-4 * mag.mean(0)).all()
+        kc.assert_rule(kc.mega_checks("out", out, ref))
 
 
 def _assert_residuals_close(got, ref, dtype):
@@ -219,26 +214,7 @@ def _assert_residuals_close(got, ref, dtype):
         else:
             # one bf16 step; below 2^-10 the f32 roundoff of a1's sum of
             # terms of size ~1 (FMA on the card) can exceed a step
-            g, r = g.float(), r.float()
-            mag = torch.maximum(torch.maximum(g.abs(), r.abs()),
-                                torch.tensor(2.0 ** -10, device=g.device))
-            step = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-            assert ((g - r).abs() <= step).all()
-
-
-def _tail_args(b, e, f, dtype, device, seed, mask_rate=0.1):
-    """B2's operands: residuals from B1 on seeded inputs, and the cotangent
-    of a seeded g gathered at dst (zero on skipped edges)."""
-    args = _args(b, e, f, 64, dtype, device, seed, mask_rate)
-    src, dst, mask, ef = args[:4]
-    _, a1, xd = mega.edge_mega_fwd(*args)
-    valid = mega.valid_edges(src, dst, mask, N)
-    g = torch.randn(b, N, 67, generator=torch.Generator().manual_seed(seed))
-    d = torch.where(valid, dst, 0).long()[..., None].expand(-1, -1, 67)
-    d_both = torch.gather(g.to(device, dtype), 1, d)
-    d_both = torch.where(valid[..., None], d_both, 0.0)
-    return (ef, *args[7:], a1, xd, d_both.transpose(1, 2).contiguous(),
-            valid)
+            kc.assert_rule([kc.elem_steps_check("residual", g, r, None)])
 
 
 def _assert_tail_close(out, ref, dtype, args=None):
@@ -261,20 +237,7 @@ def _assert_tail_close(out, ref, dtype, args=None):
             assert ((g - r).abs() <= 1e-5 * r.abs().max()
                     + 1e-4 * r.abs()).all()
         return
-    rows = [(d_cat.float().transpose(0, 1).flatten(1),
-             ref[0].float().transpose(0, 1).flatten(1), 1.6e-2),
-            (d_ef.float().flatten()[None], ref[1].float().flatten()[None],
-             1.6e-2)]
-    rows += [(g.flatten()[None], r.flatten()[None], 1e-3)
-             for g, r in zip(out[2:], ref[2:])]
-    for g, r, max_tol in rows:
-        diff, mag = (g - r).abs(), r.abs()
-        assert (diff.amax(1) <= max_tol * mag.amax(1)).all()
-        assert (diff.mean(1) <= 2e-5 * mag.mean(1)).all()
-    if args is not None:
-        k, r = out[4][:, mega.BC1], ref[4][:, mega.BC1]
-        u = mega.tail_d_p3_unrounded_sum(*args)
-        assert (k - r).abs().mean() <= (k - u).abs().mean()
+    kc.assert_rule(kc.tail_all_checks(out, ref, args))
 
 
 @pytest.fixture
@@ -458,6 +421,25 @@ def restore_kernels():
     _clear_libraries()
 
 
+def _on_cpu(plain, *args):
+    """``plain`` run on the CPU on the same operands, back on the card: the
+    rule's yardstick (ops/kernel_checks.py)."""
+    return kc.on("cuda", plain(*kc.on("cpu", args)))
+
+
+def _mutant_fails_rule(what, checks):
+    """A mutant kernel judged by the rule, the plain version on the CPU its
+    yardstick: it must fail it (if it met it, the rule would be blind
+    there). Prints its worst ratio to what the rule allows (pytest -s)."""
+    v = kc.judge(checks)
+    print(f"mutant {what}:", json.dumps(dict(
+        worst=round(v["worst"], 4), worst_vs_bound=round(v["worst_vs_bound"],
+                                                         4),
+        cpu_worst=v["cpu_worst"] and round(v["cpu_worst"], 4),
+        restated=v["restated"])), flush=True)
+    assert not v["ok"], f"{what} meets the rule: the rule is blind there"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(_MUTANTS))
 def test_bf16_bound_sees_every_rounding_point(cuda, name, tmp_path,
@@ -466,9 +448,9 @@ def test_bf16_bound_sees_every_rounding_point(cuda, name, tmp_path,
     for e, f in ((2560, 20), (1408, 64)):
         args = _args(8, e, f, 64, torch.bfloat16, cuda, seed=e + f)
         out = mega.edge_mega(*args)
-        with pytest.raises(AssertionError):
-            _assert_close(out, mega.edge_mega_reference(*args),
-                          torch.bfloat16)
+        _mutant_fails_rule(f"B1 {name} E={e} F={f}", kc.mega_checks(
+            "out", out, mega.edge_mega_reference(*args),
+            _on_cpu(mega.edge_mega_reference, *args)))
 
 
 # B2 with one bf16 rounding point left out, in the tensor-core body it
@@ -513,9 +495,10 @@ def test_tail_bf16_bound_sees_every_rounding_point(cuda, name, tmp_path,
                    monkeypatch)
     for args in inputs:
         out = mega.tail_bwd(*args)
-        with pytest.raises(AssertionError):
-            _assert_tail_close(out, mega.tail_bwd_reference(*args),
-                               torch.bfloat16, args)
+        _mutant_fails_rule(f"B2 {name} E={args[6].shape[2]}",
+                           kc.tail_all_checks(
+                               out, mega.tail_bwd_reference(*args), args,
+                               _on_cpu(mega.tail_bwd_reference, *args)))
 
 
 # the near-tie recompute of the tensor-core forms (csrc/egnn_hopper.cuh)
@@ -535,9 +518,9 @@ def test_tail_bf16_bound_sees_the_near_tie_recompute(cuda, tmp_path,
     _mutant_kernel("egnn_hopper.cuh", _NO_TIE_RECOMPUTE, tmp_path,
                    monkeypatch)
     out = mega.tail_bwd(*args)
-    with pytest.raises(AssertionError):
-        _assert_tail_close(out, mega.tail_bwd_reference(*args),
-                           torch.bfloat16)
+    _mutant_fails_rule("B2 without the near-tie recompute", kc.tail_checks(
+        out, mega.tail_bwd_reference(*args),
+        _on_cpu(mega.tail_bwd_reference, *args)))
 
 
 @pytest.mark.cuda
@@ -720,31 +703,7 @@ def test_model_mega_matches_scatter_on_card(cuda):
 # B3: the edge program over gathered bundles
 # --------------------------------------------------------------------------
 
-def _edge_args(b, e, f, dtype, device, seed, mask_rate=0.1, tail=0):
-    """B3's operands as the 'fused' path builds them: [h ++ x] bundles
-    gathered by src and dst, zeros for a masked edge (and for the last
-    ``tail`` edges), and a seeded cotangent of the output."""
-    src, dst, mask, ef, h, x, w1ab, w2, wc1, small = _args(
-        b, e, f, 64, dtype, device, seed, mask_rate)
-    if tail:
-        mask[:, e - tail:] = False
-    rows = torch.cat([h, x], dim=-1)
-
-    def bundle(idx):
-        got = torch.gather(rows, 1, idx.long()[..., None].expand(
-            -1, -1, f + 3))
-        return torch.where(mask[..., None], got, 0.0).transpose(1, 2) \
-            .contiguous()
-
-    dout = torch.randn(b, 67, e, generator=torch.Generator().manual_seed(
-        seed)).to(device, dtype)
-    return (bundle(src), bundle(dst), ef.transpose(1, 2).contiguous(),
-            w1ab, w2, wc1, small), dout
-
-
-def _rows(t):
-    """[B, C, E] -> [C, B*E]: one row per channel."""
-    return t.float().transpose(0, 1).flatten(1)
+_rows = kc.edge_rows        # [B, C, E] -> [C, B*E]: one row per channel
 
 
 def _assert_edge_close(out, ref, dtype, grad_mean=2e-5):
@@ -768,13 +727,7 @@ def _assert_edge_close(out, ref, dtype, grad_mean=2e-5):
             assert ((g - r).abs() <= 1e-5 * r.abs().max()
                     + 1e-4 * r.abs()).all()
         return
-    rows = [(_rows(g), _rows(r), 1.6e-2, 2e-5) for g, r in edge_out]
-    rows += [(g.flatten()[None], r.flatten()[None], 1e-3, grad_mean)
-             for g, r in grads]
-    for g, r, max_tol, mean_tol in rows:
-        diff, mag = (g - r).abs(), r.abs()
-        assert (diff.amax(1) <= max_tol * mag.amax(1)).all()
-        assert (diff.mean(1) <= mean_tol * mag.mean(1)).all()
+    kc.assert_rule(kc.edge_checks(out, ref, grad_mean=grad_mean))
 
 
 def _assert_edge_bwd_close(args, dout, out, ref, dtype, grad_mean=2e-5):
@@ -788,9 +741,7 @@ def _assert_edge_bwd_close(args, dout, out, ref, dtype, grad_mean=2e-5):
     0-0.011 of the way, the kernel without the rounding 138 or more."""
     _assert_edge_close(out, ref, dtype, grad_mean)
     if dtype == torch.bfloat16:
-        k, r = out[6][:, edge.BC1], ref[6][:, edge.BC1]
-        u = edge.d_p3_unrounded_sum(*args, dout)
-        assert (k - r).abs().mean() <= (k - u).abs().mean()
+        kc.assert_rule([kc.dbc1_check(args, dout, out, ref)])
 
 
 @pytest.mark.cuda
@@ -916,17 +867,18 @@ def test_edge_bf16_bound_sees_every_rounding_point(cuda, source, name,
     _mutant_kernel((source, "egnn_hopper.cuh"), table[name], tmp_path,
                    monkeypatch)
     for args, dout in inputs:
+        what = f"B3 {'fwd' if fwd else 'bwd'} {name} E={dout.shape[2]}"
         if fwd:
             out = edge.edge_program_fwd(*args)
             ref = edge.edge_program_reference(*args)
+            cpu = _on_cpu(edge.edge_program_reference, *args)
+            _mutant_fails_rule(what, kc.edge_checks(out, ref, cpu))
         else:
             out = edge.edge_program_bwd(*args, dout)
             ref = edge.edge_program_bwd_reference(*args, dout)
-        with pytest.raises(AssertionError):
-            if fwd:
-                _assert_edge_close(out, ref, torch.bfloat16)
-            else:
-                _assert_edge_bwd_close(args, dout, out, ref, torch.bfloat16)
+            cpu = _on_cpu(edge.edge_program_bwd_reference, *args, dout)
+            _mutant_fails_rule(what, kc.edge_bwd_checks(args, dout, out, ref,
+                                                        cpu))
 
 
 def _mean_ratios(out, ref):
@@ -952,9 +904,11 @@ def test_edge_bwd_bf16_bound_sees_the_near_tie_recompute(
     _mutant_kernel("egnn_hopper.cuh", _NO_TIE_RECOMPUTE, tmp_path,
                    monkeypatch)
     out = edge.edge_program_bwd(*args, dout)
-    with pytest.raises(AssertionError):
-        _assert_edge_close(out, edge.edge_program_bwd_reference(*args, dout),
-                           torch.bfloat16)
+    _mutant_fails_rule("B3 bwd without the near-tie recompute",
+                       kc.edge_checks(
+                           out, edge.edge_program_bwd_reference(*args, dout),
+                           _on_cpu(edge.edge_program_bwd_reference, *args,
+                                   dout)))
 
 
 @pytest.mark.cuda
@@ -972,8 +926,9 @@ def test_edge_fwd_bf16_bound_sees_the_near_tie_recompute(
     _mutant_kernel("egnn_hopper.cuh", _NO_TIE_RECOMPUTE, tmp_path,
                    monkeypatch)
     out = edge.edge_program_fwd(*args)
-    with pytest.raises(AssertionError):
-        _assert_edge_close(out, ref, torch.bfloat16)
+    _mutant_fails_rule("B3 fwd without the near-tie recompute",
+                       kc.edge_checks(out, ref, _on_cpu(
+                           edge.edge_program_reference, *args)))
 
 
 @pytest.mark.cuda
@@ -981,19 +936,18 @@ def test_edge_fwd_bf16_bound_sees_the_near_tie_recompute(
 def test_edge_bwd_smoke_bound_sees_every_rounding_point(
         cuda, name, tmp_path, monkeypatch, restore_kernels):
     """At chip_smoke.py's shape (B=128, E=2560, F=20, bf16) and with its
-    checks (the mean bound on the weight gradients 1e-4, five times the one
-    above: 16x the edges in each f32 sum; dbc1 as above), each backward
-    mutant still fails. The per-output mean ratios are printed (pytest
-    -s)."""
+    checks (the card tests' bounds under the rule, the plain version on the
+    CPU its yardstick; dbc1 as above), each backward mutant still fails.
+    The per-output mean ratios are printed (pytest -s)."""
     args, dout = _edge_args(128, 2560, 20, torch.bfloat16, cuda, seed=2582)
     ref = edge.edge_program_bwd_reference(*args, dout)
+    cpu = _on_cpu(edge.edge_program_bwd_reference, *args, dout)
     _mutant_kernel(("egnn_edge_bwd.cu", "egnn_hopper.cuh"),
                    _EDGE_BWD_MUTANTS[name], tmp_path, monkeypatch)
     out = edge.edge_program_bwd(*args, dout)
     print(f"B3 bwd mutant {name}:", json.dumps(_mean_ratios(out, ref)))
-    with pytest.raises(AssertionError):
-        _assert_edge_bwd_close(args, dout, out, ref, torch.bfloat16,
-                               grad_mean=1e-4)
+    _mutant_fails_rule(f"B3 bwd {name} B=128",
+                       kc.edge_bwd_checks(args, dout, out, ref, cpu))
 
 
 @pytest.mark.cuda
@@ -1072,21 +1026,6 @@ def test_fused_layer_gradients_on_card(cuda, dtype, monkeypatch):
 # B8: segment scatter and gather
 # --------------------------------------------------------------------------
 
-def _segment_args(b, e, n, c, dtype, device, seed, mask_rate=0.1):
-    """idx/mask [B, E] with indices -1 and n on masked and unmasked edges
-    and a few self-loop-like repeats; m [B, E, C], h [B, N, C]."""
-    gen = torch.Generator().manual_seed(seed)
-    idx = torch.randint(0, n, (b, e), generator=gen, dtype=torch.int32)
-    mask = torch.rand(b, e, generator=gen) >= mask_rate
-    idx[:, 0:4], idx[:, 4:8] = -1, n
-    mask[:, 0:8:2] = False
-    idx[:, 8:12] = idx[:, 12:16]
-    m = torch.randn(b, e, c, generator=gen)
-    h = torch.randn(b, n, c, generator=gen)
-    return idx.to(device), mask.to(device), m.to(device, dtype), \
-        h.to(device, dtype)
-
-
 def _assert_scatter_close(out, ref, idx, mask, m):
     """B8's scatter against its plain version (module docstring)."""
     n = out.shape[1]
@@ -1100,10 +1039,7 @@ def _assert_scatter_close(out, ref, idx, mask, m):
         allowed = 2 * count * 2.0 ** -24 * abs_sum
         assert ((got - want).abs() <= allowed).all()
     else:
-        mag = torch.maximum(torch.maximum(got.abs(), want.abs()),
-                            torch.tensor(2.0 ** -10, device=got.device))
-        step = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-        assert ((got - want).abs() <= step).all()
+        kc.assert_rule([kc.elem_steps_check("scatter", got, want, None)])
 
 
 def test_segment_plain_versions_skip_what_is_not_valid():
@@ -1179,13 +1115,6 @@ def test_segment_scatter_shared_memory_oversize_raises(cuda):
                                     6)
     with pytest.raises(ValueError, match="shared memory"):
         segment.segment_scatter(idx, mask, m, 24)
-
-
-def _corpus_layout(idx, mask, real):
-    """The corpus's padding: edges from ``real`` on name node 0, masked."""
-    idx, mask = idx.clone(), mask.clone()
-    idx[:, real:], mask[:, real:] = 0, False
-    return idx, mask
 
 
 def _cpu(*ts):
@@ -1272,8 +1201,11 @@ def test_segment_bf16_bound_sees_f32_accumulation(cuda, tmp_path,
     _mutant_kernel("segment.cu", _SEGMENT_MUTANT, tmp_path, monkeypatch)
     for (idx, mask, m, _), ref in zip(inputs, refs):
         out = segment.segment_scatter(idx, mask, m, N)
-        with pytest.raises(AssertionError):
-            _assert_scatter_close(out, ref, idx, mask, m)
+        _mutant_fails_rule(f"B8 scatter bf16 sums E={idx.shape[1]}",
+                           [kc.elem_steps_check(
+                               "scatter", out, ref,
+                               _on_cpu(segment.segment_scatter_reference,
+                                       idx, mask, m, N))])
 
 
 @pytest.mark.cuda
@@ -1334,24 +1266,6 @@ def test_pallas_layer_gradients_on_card(cuda, dtype, monkeypatch):
 # B4, B5a, B5b, B6: the 'mega' kernel variants
 # --------------------------------------------------------------------------
 
-def _paired_args(b, e, f, dtype, device, seed, mask_rate=0.1):
-    """B1's operands on a mirror-paired batch (edge k + E/2 the reverse of
-    edge k, masks mirrored), with arcs at index -1 and N, masked and not."""
-    args = _args(b, e, f, 64, dtype, "cpu", seed, mask_rate)
-    gen = torch.Generator().manual_seed(seed + 1)
-    half = e // 2
-    s0 = torch.randint(0, N, (b, half), generator=gen, dtype=torch.int32)
-    d0 = (s0 + torch.randint(1, N, (b, half), generator=gen,
-                             dtype=torch.int32)) % N
-    s0[:, 8:12] = -1                                        # out of range
-    d0[:, 12:16] = N
-    m0 = torch.rand(b, half, generator=gen) >= mask_rate
-    m0[:, 8] = m0[:, 12] = False
-    args[0], args[1] = torch.cat([s0, d0], 1), torch.cat([d0, s0], 1)
-    args[2] = torch.cat([m0, m0], 1)
-    return [t.to(device) for t in args]
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("e", [2560, 1408])
 @pytest.mark.parametrize("f", [20, 64])
@@ -1371,24 +1285,6 @@ def test_paired_kernel_matches_plain_version(cuda, e, f, dtype):
     # B1 on the same batch: the same residuals, bit for bit
     _, a1_b1, xd_b1 = mega.edge_mega_fwd(*args)
     assert torch.equal(a1, a1_b1) and torch.equal(xd, xd_b1)
-
-
-def _scrambled_mirror_half(args, seed):
-    """A paired batch whose second half's indices and mask are replaced by
-    seeded ones in [0, N): what B4 never reads (it computes on the mirror
-    the arc half implies, ``mega.mirror_edges``)."""
-    args = list(args)
-    b, e = args[0].shape
-    half = e // 2
-    gen = torch.Generator().manual_seed(seed)
-    for i in (0, 1):
-        args[i] = args[i].clone()
-        args[i][:, half:] = torch.randint(0, N, (b, half), generator=gen,
-                                          dtype=torch.int32).to(args[i].device)
-    args[2] = args[2].clone()
-    args[2][:, half:] = (torch.rand(b, half, generator=gen) >= 0.5).to(
-        args[2].device)
-    return args
 
 
 @pytest.mark.cuda
@@ -1479,30 +1375,9 @@ def test_paired_bf16_bound_sees_every_rounding_point(cuda, name, tmp_path,
             _paired_args(8, e, f, torch.bfloat16, cuda, seed=e + f),
             seed=e + f + 1)
         out = mega.edge_mega_paired_fwd(*args, residuals=False)[0]
-        with pytest.raises(AssertionError):
-            _assert_close(out, mega.edge_mega_paired_fwd_reference(*args)[0],
-                          torch.bfloat16)
-
-
-def _tail_g_args(b, e, f, dtype, device, seed, mask_rate=0.1):
-    """B5's operands: B1's residuals on seeded inputs with indices at -1 and
-    N, and a seeded node cotangent g [B, N, H+3] in the compute dtype:
-    (src, dst, valid, ef, w2, wc1, small, a1, xd, g)."""
-    args = _args(b, e, f, 64, dtype, "cpu", seed, mask_rate)
-    args[0][:, 8:12] = -1
-    args[1][:, 12:16] = N
-    args = [t.to(device) for t in args]
-    src, dst, mask, ef = args[:4]
-    _, a1, xd = mega.edge_mega_fwd(*args)
-    g = torch.randn(b, N, 67, generator=torch.Generator().manual_seed(seed))
-    return (src, dst, mega.valid_edges(src, dst, mask, N), ef, *args[7:],
-            a1, xd, g.to(device, dtype))
-
-
-def _b2_of(src, dst, valid, ef, w2, wc1, small, a1, xd, g):
-    """B2's operands from B5's: d_both = g[dst] gathered by PyTorch."""
-    d_both = mega._gather_rows(g, dst, valid).transpose(1, 2).contiguous()
-    return ef, w2, wc1, small, a1, xd, d_both, valid
+        _mutant_fails_rule(f"B4 {name} E={e} F={f}", kc.mega_checks(
+            "out", out, mega.edge_mega_paired_fwd_reference(*args)[0],
+            _on_cpu(mega.edge_mega_paired_fwd_reference, *args)[0]))
 
 
 @pytest.mark.cuda
@@ -1530,9 +1405,7 @@ def _assert_nodes_close(got, ref, dtype):
         assert ((g - r).abs() <= 1e-5 * r.abs().amax(1, keepdim=True)
                 + 1e-4 * r.abs()).all()
         return
-    diff, mag = (g - r).abs(), r.abs()
-    assert (diff.amax(1) <= TAIL_MAX_EDGE * mag.amax(1)).all()
-    assert (diff.mean(1) <= TAIL_MEAN * mag.mean(1)).all()
+    kc.assert_rule(kc.nodes_checks(got, ref))
 
 
 TAIL_MEAN, TAIL_MAX_EDGE = 2e-5, 1.6e-2
@@ -1581,18 +1454,18 @@ def test_tail_variant_bf16_bound_sees_rounding_points(cuda, kernel, name,
     table = _TAIL_G_MUTANTS if kernel == "db" else _NODES_MUTANTS
     _mutant_kernel(_TAIL_SOURCES, table[name], tmp_path, monkeypatch)
     for args in inputs:
+        what = f"B5{'a' if kernel == 'db' else 'b'} {name} E={args[3].shape[1]}"
         if kernel == "db":
             db_args = (args[1], *args[2:])
             out = mega.tail_bwd_db(*db_args)
-            with pytest.raises(AssertionError):
-                _assert_tail_close(out, mega.tail_bwd_db_reference(*db_args),
-                                   torch.bfloat16)
+            _mutant_fails_rule(what, kc.tail_checks(
+                out, mega.tail_bwd_db_reference(*db_args),
+                _on_cpu(mega.tail_bwd_db_reference, *db_args)))
         else:
             out = mega.tail_bwd_nodes(*args)
-            with pytest.raises(AssertionError):
-                _assert_nodes_close(
-                    out[0], mega.tail_bwd_nodes_reference(*args)[0],
-                    torch.bfloat16)
+            _mutant_fails_rule(what, kc.nodes_checks(
+                out[0], mega.tail_bwd_nodes_reference(*args)[0],
+                _on_cpu(mega.tail_bwd_nodes_reference, *args)[0]))
 
 
 def _tail_cases(args):
@@ -1651,35 +1524,22 @@ def test_tail_kernels_all_masked_give_zeros(cuda, dtype):
             assert torch.count_nonzero(t) == 0
 
 
-def _stack_args(b, e, dtype, device, seed, mask_rate=0.1):
-    """B6's operands: HybridModelv2's conv stack (F0=20, H=64, six layers)
-    with seeded weights, and seeded inputs with 10% of the edges masked and
-    indices at -1 and N."""
-    src, dst, mask, ef, h, x = _args(b, e, 20, 64, dtype, "cpu", seed,
-                                     mask_rate)[:6]
-    src[:, 8:12] = -1
-    dst[:, 12:16] = N
-    gen = torch.Generator().manual_seed(seed)
-    layers = egnn_stack(5, 20, 64, generator=gen, device=device)
-    packed = [tuple(t.detach() for t in stack.pack_layer(p)) for p in layers]
-    return [t.to(device) for t in (src, dst, mask, ef, h, x)], packed
-
-
 def _assert_agg_steps_close(got, ref):
     """B6's aggregate, rounded to bf16 by kernel and plain version alike:
     per column (over graphs and nodes) max|diff| <= one bf16 step at the
     column's largest |plain| and mean|diff| <= 1e-4 * mean|plain|."""
-    g, r = got.float().flatten(0, 1), ref.float().flatten(0, 1)
-    diff, mag = (g - r).abs(), r.abs()
-    top = mag.amax(0).clamp_min(torch.finfo(torch.float32).tiny)
-    assert (diff.amax(0) <= torch.exp2(torch.floor(torch.log2(top)) - 7)).all()
-    assert (diff.mean(0) <= 1e-4 * mag.mean(0)).all()
+    kc.assert_rule(kc.col_steps_checks("agg", got, ref, None))
 
 
 def _assert_stack_layers_close(out, args, packed, dtype):
     """Each layer of B6's outputs against the plain version of that layer
     run from the kernel's own previous h and x (module docstring)."""
     h, x, hs, xs, aggs, a1s, xds = out
+    if dtype == torch.bfloat16:
+        for t in (hs, xs, aggs, a1s, xds):
+            assert torch.isfinite(t).all()
+        kc.assert_rule(kc.stack_checks(out, args, packed))
+        return
     assert torch.equal(h, hs[:, -1]) and torch.equal(x, xs[:, -1])
     src, dst, mask, ef, h0, x0 = args
     for layer, weights in enumerate(packed):
@@ -1692,14 +1552,8 @@ def _assert_stack_layers_close(out, args, packed, dtype):
         for g in got:
             assert torch.isfinite(g).all()
         _assert_residuals_close(got[3:], want[3:], dtype)
-        if dtype == torch.float32:
-            for g, w in zip(got[:3], want[:3]):
-                torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-4)
-            continue
-        _assert_agg_steps_close(got[2], want[2])
-        for g, w in zip(got[:2], want[:2]):
-            g, w = g.float().flatten(0, 1), w.float().flatten(0, 1)
-            assert ((g - w).abs().mean(0) <= 1e-4 * w.abs().mean(0)).all()
+        for g, w in zip(got[:3], want[:3]):
+            torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-4)
 
 
 @pytest.mark.cuda
@@ -1761,8 +1615,8 @@ def test_stack_bf16_bound_sees_every_rounding_point(cuda, name, tmp_path,
                    monkeypatch)
     for args, packed in inputs:
         out = stack.stack_fwd(*args, packed)
-        with pytest.raises(AssertionError):
-            _assert_stack_layers_close(out, args, packed, torch.bfloat16)
+        _mutant_fails_rule(f"B6 {name} E={args[0].shape[1]}",
+                           kc.stack_checks(out, args, packed, cpu=True))
 
 
 @pytest.mark.cuda
@@ -1779,8 +1633,8 @@ def test_stack_bf16_bound_sees_the_near_tie_recompute(cuda, tmp_path,
     _mutant_kernel("egnn_hopper.cuh", _NO_TIE_RECOMPUTE, tmp_path,
                    monkeypatch)
     out = stack.stack_fwd(*args, packed)
-    with pytest.raises(AssertionError):
-        _assert_stack_layers_close(out, args, packed, torch.bfloat16)
+    _mutant_fails_rule("B6 without the near-tie recompute",
+                       kc.stack_checks(out, args, packed, cpu=True))
 
 
 _VARIANT_LAUNCHES = {                   # per train step of six layers
@@ -1875,23 +1729,6 @@ from immunostruct_tpu_torch.ops import fused_layer  # noqa: E402
 B7_BF16_COL_MEAN = 1e-4         # h', x' per column, bf16 (module docstring)
 
 
-def _b7_args(b, e, f, dtype, device, seed, x_dtype=None, mask_rate=0.1,
-             x_scale=1.0):
-    """B7's operands: a seeded EGNN layer (H=64) and seeded inputs with 10%
-    of the edges masked, self-loops and unmasked edges whose src or dst is
-    -1 or N; the coordinates times ``x_scale``."""
-    src, dst, mask, _, h, x = _args(b, e, f, 64, torch.float32, "cpu", seed,
-                                    mask_rate)[:6]
-    src[:, 8:10], src[:, 10:12] = -1, N
-    dst[:, 12:14], dst[:, 14:16] = -1, N
-    mask[:, 8:16] = True
-    layer = EGNNLayer(f, 64, 64, generator=torch.Generator().manual_seed(seed),
-                      device=device)
-    return layer, [h.to(device, dtype),
-                   (x * x_scale).to(device, x_dtype or dtype),
-                   src.to(device), dst.to(device), mask.to(device)]
-
-
 def _assert_b7_close(out, ref, dtype):
     """h' and x' against the plain version: f32 atol=1e-5, rtol=1e-4; bf16
     per column (over graphs and nodes) max|diff| within one bf16 step at
@@ -1903,12 +1740,8 @@ def _assert_b7_close(out, ref, dtype):
         if dtype == torch.float32 and got.dtype == torch.float32:
             torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
             continue
-        g, w = got.float().flatten(0, 1), want.float().flatten(0, 1)
-        diff, mag = (g - w).abs(), w.abs()
-        top = mag.amax(0).clamp_min(torch.finfo(torch.float32).tiny)
-        assert (diff.amax(0) <= torch.exp2(torch.floor(torch.log2(top))
-                                           - 7)).all()
-        assert (diff.mean(0) <= B7_BF16_COL_MEAN * mag.mean(0)).all()
+        kc.assert_rule(kc.col_steps_checks("b7", got, want, None,
+                                           B7_BF16_COL_MEAN))
 
 
 @pytest.mark.cuda
@@ -2017,16 +1850,14 @@ def test_fused_layer_bf16_bound_sees_every_rounding_point(cuda, name,
                    monkeypatch)
     fused_layer._lib.cache_clear()
     try:
-        failed = 0
         for layer, args in inputs:
             with torch.no_grad():
                 out = fused_layer.fused_egnn_layer(layer, *args)
                 ref = fused_layer.fused_egnn_layer_reference(layer, *args)
-            try:
-                _assert_b7_close(out, ref, torch.bfloat16)
-            except AssertionError:
-                failed += 1
-        assert failed == len(inputs), name
+                cpu = kc.on("cuda", fused_layer.fused_egnn_layer_reference(
+                    copy.deepcopy(layer).cpu(), *kc.on("cpu", args)))
+            _mutant_fails_rule(f"B7 {name} E={args[2].shape[1]}",
+                               kc.b7_checks(out, ref, cpu))
     finally:
         monkeypatch.undo()
         _clear_b7()
@@ -2846,3 +2677,22 @@ def test_nccl_group_of_one_on_the_card(cuda):
         assert all(torch.equal(p1[k], p2[k]) for k in p1)
     finally:
         shutdown_distributed()
+
+
+# --------------------------------------------------------------------------
+# every kernel on every seeded input, judged by the rule
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", kc.KERNELS)
+def test_kernel_meets_the_rule_on_every_seeded_input(cuda, kernel):
+    """Every bf16 input of the kernel's card tests, at the test's own seed
+    and at 1..8 (``kernel_checks.cases``), judged by the rule
+    (``kernel_checks.judge``: each unit within its bound where the plain
+    version run on the CPU meets it, within the bound plus twice the CPU's
+    own distance where it does not; the CPU runs on the inputs past the
+    bound). Names every failing input and unit."""
+    _, line = kc.sweep(kernel, yardstick="failing")
+    print("sweep:", json.dumps({k: v for k, v in line.items()
+                                if k != "failing_inputs"}))
+    assert line["failing"] == 0, line["failing_inputs"]

@@ -31,6 +31,8 @@ Tolerances:
   (measured 1.8e-4), every other entry by <= 1.3e-7.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -53,6 +55,7 @@ from immunostruct_tpu_torch.data.synthetic import (
     random_comparative_batch, random_sample_arrays,
 )
 from immunostruct_tpu_torch.models import build_model
+from immunostruct_tpu_torch.parallel.dryrun import twin_excess
 from immunostruct_tpu_torch.procedures import train as train_module
 from immunostruct_tpu_torch.procedures.train import (
     Trainer, make_optimizer, step_generator,
@@ -187,11 +190,110 @@ def _assert_params_match(model, jparams, step_grads):
         assert (np.abs(got[key] - w) <= tol).all(), key
 
 
+def _twin_steps(jtrainer, jstate, trainer, state, jbatch, batch, eps_of):
+    """STEPS Adam steps of the port, each held against one JAX step taken
+    from the port's own state before it (``_jax_state_at``: its
+    parameters, Adam moments and step), so that a step is judged alone and
+    not the ill-conditioned trajectory the steps before it led to. Per
+    step: both losses; the port's gradient against JAX's at that state by
+    the file's gradient rule (``same_point``); the gradient and the
+    parameters after the step by ``dryrun.twin_excess`` (``rule``: nu from
+    JAX's step; an entry whose JAX gradient is nonzero and below nu is
+    dropped from the parameters' bound, the rule of Adam's first step);
+    the parameters by ``_reach_excess`` (``reach``)."""
+    key = jax.random.key(7)
+    steps = []
+    for step in range(STEPS):
+        rng = jax.random.fold_in(key, step)
+        start = _jax_state_at(jstate, state)
+        _, jgrads = jtrainer._loss_and_grads(start.params, jbatch, rng)
+        jnext, jl = jtrainer._train_step(start, jbatch, key)
+        state, pl = trainer.train_step(state, batch, 0, eps=eps_of(rng))
+        grads = _grads_of(state.model)
+        ref = dict(grads=_tensors(_flat(jgrads)),
+                   params=_tensors(_flat(jnext.params)))
+        got = dict(grads=_tensors(grads),
+                   params=_tensors(jax_params(state.model)))
+        steps.append(dict(loss=float(pl), jax_loss=float(jl),
+                          same_point=_grad_excess(grads, _flat(jgrads)),
+                          rule=twin_excess(got, ref),
+                          reach=_reach_excess(jtrainer, start, jgrads,
+                                              got["params"], ref["params"])))
+    return steps
+
+
+def _reach_excess(jtrainer, start, jgrads, got, want, atol=2e-6, rtol=2e-5):
+    """The parameters after one step from ``start`` against JAX's step:
+    the worst |port - JAX| over atol + rtol |JAX| + the reach, per entry,
+    of JAX's own Adam step from ``start`` over gradients within the file's
+    gradient rule of JAX's (g + t (1e-5 max|g| + 1e-4 |g|), t on nine
+    points of [-1, 1]): what that step makes of a gradient the rule
+    admits. Adam divides each entry by its own gradient's size, so an
+    entry whose gradient is near the rule's floor may move by up to lr
+    where one far above it may not move at all; <= 1 within it."""
+    gmax = max(float(jnp.abs(g).max()) for g in jax.tree.leaves(jgrads))
+
+    def update(t):
+        g = jax.tree.map(lambda x: x + t * (1e-5 * gmax + 1e-4 * jnp.abs(x)),
+                         jgrads)
+        return _flat(jtrainer.optimizer.update(g, start.opt_state,
+                                               start.params)[0])
+    base = update(0.0)
+    reach = {k: np.zeros_like(v) for k, v in base.items()}
+    for t in np.linspace(-1.0, 1.0, 9):
+        for k, u in update(t).items():
+            reach[k] = np.maximum(reach[k], np.abs(u - base[k]))
+    return max(float(((got[k] - w).abs() / (atol + rtol * w.abs()
+                                            + torch.from_numpy(reach[k])))
+                     .max()) for k, w in want.items())
+
+
+def _jax_state_at(jstate, state):
+    """JAX's train state (optax Adam) at the port's parameters, Adam
+    moments (torch's exp_avg and exp_avg_sq, zero before a first step) and
+    step."""
+    names = {jax_keystr(n): p for n, p in state.model.named_parameters()}
+    moments = state.optimizer.state
+
+    def tree(of):
+        return jax.tree_util.tree_map_with_path(
+            lambda p, _: jnp.asarray(of(names[jax.tree_util.keystr(p)])),
+            jstate.params)
+
+    def moment(name):
+        return lambda p: (moments[p][name].numpy() if p in moments
+                          else np.zeros(p.shape, np.float32))
+    adam, schedule = jstate.opt_state
+    count = jnp.asarray(state.step, adam.count.dtype)
+    return dataclasses.replace(
+        jstate, params=tree(lambda p: p.detach().numpy()),
+        opt_state=(adam._replace(count=count, mu=tree(moment("exp_avg")),
+                                 nu=tree(moment("exp_avg_sq"))),
+                   schedule._replace(count=count)),
+        step=jnp.asarray(state.step, jstate.step.dtype))
+
+
+def _grad_excess(got, want):
+    """The worst |port - JAX| over the file's gradient rule (1e-5 * the
+    step's largest |gradient| + 1e-4 * |JAX|); <= 1 within it."""
+    gmax = max(np.abs(w).max() for w in want.values())
+    return max(float((np.abs(got[k] - w) / (1e-5 * gmax + 1e-4 * np.abs(w)))
+                     .max()) for k, w in want.items())
+
+
+def _tensors(arrays):
+    return {k: torch.from_numpy(np.array(v)) for k, v in arrays.items()}
+
+
 def _run_steps(jtrainer, jstate, trainer, state, jbatch, batch, eps_of,
-               params=True):
+               params="file"):
     """Step 0's loss and gradients against jax.value_and_grad, then STEPS
     Adam steps on both sides (each step's loss); parameters compared after
-    them (``params``)."""
+    them by the file's rule (``params="file"``), or (``"twin"``,
+    ``_twin_steps``) each step from the port's own state against JAX's
+    step from that state: its gradients by the file's gradient rule and by
+    ``dryrun.twin_excess``'s, its parameters by ``_reach_excess`` and,
+    after the first step, by ``twin_excess``'s."""
     key = jax.random.key(7)
     jloss, jgrads = jtrainer._loss_and_grads(jstate.params, jbatch,
                                              jax.random.fold_in(key, 0))
@@ -200,6 +302,17 @@ def _run_steps(jtrainer, jstate, trainer, state, jbatch, batch, eps_of,
                                   eps_of(jax.random.fold_in(key, 0)))
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
     _assert_grads_match(state.model, jgrads)
+    if params == "twin":
+        for step, r in enumerate(_twin_steps(jtrainer, jstate, trainer,
+                                             state, jbatch, batch, eps_of)):
+            print(f"twin step {step}:", r)
+            np.testing.assert_allclose(r["loss"], r["jax_loss"], rtol=1e-5)
+            assert r["same_point"] <= 1, (step, r)
+            assert r["rule"]["grads"] <= 1, (step, r)
+            assert r["reach"] <= 1, (step, r)
+            if step == 0:
+                assert r["rule"]["params"] <= 1, r
+        return
     step_grads = []
     for step in range(STEPS):
         jstate, jl = jtrainer._train_step(jstate, jbatch, key)
@@ -208,8 +321,7 @@ def _run_steps(jtrainer, jstate, trainer, state, jbatch, batch, eps_of,
         np.testing.assert_allclose(float(pl), float(jl), rtol=1e-5)
         step_grads.append(_grads_of(state.model))
     assert state.step == STEPS
-    if params:
-        _assert_params_match(state.model, jstate.params, step_grads)
+    _assert_params_match(state.model, jstate.params, step_grads)
 
 
 @pytest.mark.parametrize("aggregation", ["scatter", "mega", "pallas"])
@@ -322,11 +434,29 @@ def test_microbatch_contrastive_step_matches_jax(tmp_path, stack_twins,
     summed and halved, the projector trained with the model.
 
     Microbatches of 2 are held on the loss of each step and the first
-    step's gradients; their parameters after the 3 steps are not, as the
-    twin step at 2 rows (the projector's batch norm over 2 rows) leaves
-    the parameter rule whether or not it accumulates: measured on
-    vae.fc1.w, 1.30x with the stacked twins at k=2 (within without), and
-    1.72x without them at k=1 on a batch of 2 (within with them)."""
+    step's gradients by the file's rules, then (``_twin_steps``) each of
+    the 3 steps from the port's own state against JAX's step from that
+    state: the gradients by the file's gradient rule (0.08-0.24 of it) and
+    by ``dryrun.twin_excess``'s; the parameters by ``_reach_excess`` at
+    every step (0.10-0.99; an entry whose gradient sign the gradient rule
+    admits flipping reads up to 1 by construction, as Adam's first step
+    moves it by lr either way) and, after the first step, the one it is
+    stated for, by ``twin_excess`` (0.005). ``twin_excess``'s parameter
+    bound does not hold after later steps even from the port's own state
+    (0.68-2.26): an entry whose gradient sits a little above its nu (the
+    worst, node_attn.w_concat.b, at 1.8 nu with a 3.8% difference, inside
+    the gradient rule) is divided by a second moment its earlier noise-
+    level gradients left small, so Adam moves it by most of lr in a
+    direction that difference shifts; the port's Adam fed JAX's gradient
+    from the same state gives JAX's step to 0.0054 of that bound. The
+    twin step at 2 rows (the projector's batch norm over 2 rows) is
+    ill-conditioned: JAX's own gradient at the port's parameters after a
+    step moves by 1.2-4.9x the file's gradient rule from JAX's gradient on
+    its own trajectory, so parameters compared along two trajectories
+    after several steps (the file's rule: 1.30x, 1.72x on vae.fc1.w) read
+    how far the trajectories drift, not one step of the port. A fault
+    fails what is held:
+    ``test_microbatch_twin_rule_fails_a_planted_fault``."""
     jbatch, batch = _comparative_batches(2 * rows, seed=9)
     jt, js, pt, ps = _setup("HybridModelv2_Comparative", tmp_path,
                             "scatter", coeff=0.1, accum=2,
@@ -336,7 +466,33 @@ def test_microbatch_contrastive_step_matches_jax(tmp_path, stack_twins,
         return [_twin_eps(jax.random.fold_in(rng, i), rows, stack_twins)
                 for i in range(2)]
 
-    _run_steps(jt, js, pt, ps, jbatch, batch, eps_of, params=rows > 2)
+    _run_steps(jt, js, pt, ps, jbatch, batch, eps_of,
+               params="file" if rows > 2 else "twin")
+
+
+@pytest.mark.parametrize("stack_twins", [False, True])
+def test_microbatch_twin_rule_fails_a_planted_fault(tmp_path, stack_twins):
+    """At microbatches of 2, a port whose second microbatch draws its VAE
+    noise from the first one's key (``fold_in(rng, 0)`` twice) fails what
+    ``test_microbatch_contrastive_step_matches_jax`` holds: its gradients
+    part from JAX's at the same parameters by far, its parameters after
+    the first step leave ``dryrun.twin_excess``'s bound, and after every
+    step they leave ``_reach_excess``'s."""
+    jbatch, batch = _comparative_batches(4, seed=9)
+    jt, js, pt, ps = _setup("HybridModelv2_Comparative", tmp_path,
+                            "scatter", coeff=0.1, accum=2,
+                            stack_twins=stack_twins, microbatch=True)
+
+    def one_key(rng):
+        return [_twin_eps(jax.random.fold_in(rng, 0), 2, stack_twins)] * 2
+
+    steps = _twin_steps(jt, js, pt, ps, jbatch, batch, one_key)
+    worst = max(max(r["same_point"], r["rule"]["grads"]) for r in steps)
+    print("planted fault: worst gradient excess", worst, "parameters after"
+          " the first step", steps[0]["rule"]["params"], "parameters by the"
+          " reach", [r["reach"] for r in steps])
+    assert steps[0]["rule"]["params"] > 1
+    assert all(r["reach"] > 1 for r in steps)
 
 
 def test_microbatch_contrastive_takes_each_microbatch_statistics(tmp_path):
