@@ -80,7 +80,11 @@ Phases (none catches its own failure; any failure exits non-zero):
      path;
   14. compare B6 (six layers, F0=20, H=64) layer by layer with the plain
      version of that layer run from the kernel's own previous h and x, f32
-     and bf16, E=2560 and 1408, and in bf16 at B=1; the same bits twice;
+     and bf16, E=2560 and 1408, and in bf16 at B=1, on kernel_checks'
+     inputs (stack_args; the B=1 row is its sweep's named case), bf16
+     judged by its rule as the sweep and the card tests judge it (the
+     plain version run on the CPU its yardstick where a unit is past its
+     bound), f32 by F32_TOL; the same bits twice;
      time it with and without residuals, beside its plain version and the
      per-layer forward; print its shared memory a CTA, CTAs an SM and the
      compiler's readings;
@@ -183,10 +187,13 @@ Phases (none catches its own failure; any failure exits non-zero):
   22. the twelfth slice's main path, from PDBs to p-values, begins: phase
      19's 512 graphs written back as CA PDBs (write_corpus_pdbs: named by
      their join keys, HLA chain A numbered 1-275, the peptide chain C after
-     it, helix CAs) and one broken file; cli.featurize on the native library
-     (built from native/featurizer.cc by the host's C++ compiler) and with
-     --no-native: the same graphs file by file (name, x, coords,
-     edge_index bit for bit), the broken file in each error_log.txt,
+     it, helix CAs), one whose CAs lie outside the subgraph's positions and
+     one whose residue number does not parse; cli.featurize on the native
+     library (built from native/featurizer.cc by the host's C++ compiler)
+     and with --no-native: the same graphs file by file (name, x, coords,
+     edge_index bit for bit), a graph of no nodes for the first odd file on
+     both paths and for the second on the native path, the second in the
+     numpy path's error_log.txt alone (the JAX package's outputs),
      structures/s printed for each; cli.validate_data on the featurized
      graphs with the corpus's tables returns 0 at 100% join coverage;
   23. cli.train_curriculum --stages PropIEDB,ImmunoIEDB,PropCancer,
@@ -2130,13 +2137,12 @@ VARIANT_LAUNCHES = {
     "fused": {"B3_fwd": 6, "B3_bwd": 6, "B8_scatter": 16, "B8_gather": 6},
 }
 RACE_WINDOWS, RACE_STEPS, RACE_BURNIN = 2, 5, 3
-# B6, bf16, each layer run from the kernel's own previous h and x: aggs
-# (rounded to bf16 on both sides) per column max|diff| <= one bf16 step at
-# the column's largest |plain| and mean|diff| <= BF16_COL_MEAN * mean|plain|,
-# a1s/xds as B1's residuals, hs/xs per column mean|diff| <= BF16_COL_MEAN *
-# mean|plain|; f32 as F32_TOL.
-# tests/test_torch_port_cuda.py builds B6 mutant kernels, each without one
-# rounding point, that fail them.
+# B6, bf16, each layer run from the kernel's own previous h and x, is held
+# by kernel_checks.stack_checks under its rule (aggs per column within one
+# bf16 step at the column's largest |plain| and NODE_COL_MEAN of its mean,
+# a1s/xds by B1's residual rule, hs/xs per column NODE_COL_MEAN); f32 by
+# F32_TOL. tests/test_torch_port_cuda.py builds B6 mutant kernels, each
+# without one rounding point or one near-tie recompute, that fail them.
 
 
 def paired_inputs(e: int, f: int, dtype, seed: int, b: int = B):
@@ -2353,82 +2359,42 @@ def check_sweep(card: str) -> None:
         assert not failing, (kernel, failing)
 
 
-def stack_inputs(e: int, dtype, seed: int, b: int = B):
-    """B6's operands: HybridModelv2's six conv layers (F0=20, H=64) with
-    seeded weights, and kernel_inputs at F=20 with indices at -1 and N on a
-    few edges: ([src, dst, mask, ef, h0, x0], the layers' packed weights)."""
-    from immunostruct_tpu_torch.ops.egnn import egnn_stack
-    from immunostruct_tpu_torch.ops.stack import pack_layer
-
-    args = list(kernel_inputs(b, e, 20, dtype, seed)[:6])
-    args[0][:, 8:12] = -1
-    args[1][:, 12:16] = N
-    layers = egnn_stack(5, 20, H, generator=torch.Generator().manual_seed(
-        seed), device="cuda")
-    return args, [tuple(t.detach() for t in pack_layer(p)) for p in layers]
-
-
-def stack_layer_errors(out, args, packed, dtype, own_agg=False) -> dict:
+def stack_layer_verdict(out, args, packed, dtype) -> dict:
     """Each layer of B6 against the plain version of that layer run from
     the kernel's own previous h and x (so that a flipped rounding does not
-    carry into the next layer's check); asserts the bounds above. With
-    ``own_agg`` h and x are held to the plain node update run from the
-    kernel's own aggregate (the B=1 row: a column's mean there runs over
-    288 nodes, so one flip of the aggregate, which its bound allows, moves
-    a node's h past 1e-4 of the column's mean; an H100 run read 1.25e-4).
-    kernel_checks' rule does not hold that row directly: on the same H100
-    layer 1's h, column 0, read 1.2477 of its bound and the plain version
-    run on the CPU 0.8795 of it, so the CPU meets the bound there and the
-    row keeps the node update from the kernel's own aggregate."""
-    from immunostruct_tpu_torch.ops.stack import (
-        stack_fwd_reference, stack_node_update_reference,
-    )
+    carry into the next layer's check). bf16: kernel_checks' rule
+    (stack_checks, judge), the plain version run on the CPU as its
+    yardstick where a unit is past its bound, as the sweep and the card
+    tests judge it; f32: F32_TOL. Asserts it; returns the largest |diff|
+    and, in bf16, the verdict."""
+    from immunostruct_tpu_torch.ops import kernel_checks as kc
+    from immunostruct_tpu_torch.ops.stack import stack_fwd_reference
 
     h, x, hs, xs, aggs, a1s, xds = out
     assert torch.equal(h, hs[:, -1]) and torch.equal(x, xs[:, -1])
-    src, dst, mask, ef, h0, x0 = args
-    worst = dict(max_abs_err=0.0, residual_err_in_tol=0.0,
-                 agg_col_max_in_steps=0.0, agg_col_mean_rel=0.0,
-                 hx_col_mean_rel=0.0)
+    src, dst, mask, ef = args[:4]
+    err = 0.0
     for layer, weights in enumerate(packed):
-        h_in = h0 if layer == 0 else hs[:, layer - 1]
-        x_in = x0 if layer == 0 else xs[:, layer - 1]
-        ref = stack_fwd_reference(src, dst, mask, ef, h_in, x_in, [weights])
+        ref = stack_fwd_reference(src, dst, mask, ef,
+                                  *kc._layer_inputs(out, args, layer),
+                                  [weights])
         got = [t[:, layer] for t in (hs, xs, aggs, a1s, xds)]
         want = [t[:, 0] for t in ref[2:]]
-        if own_agg:
-            want[:2] = stack_node_update_reference(h_in, x_in, got[2],
-                                                   *weights[4:])
         assert all(torch.isfinite(g).all() for g in got)
-        worst["max_abs_err"] = max(worst["max_abs_err"], *(
-            (g.float() - w.float()).abs().max().item()
-            for g, w in zip(got, want)))
-        worst["residual_err_in_tol"] = max(
-            worst["residual_err_in_tol"],
-            residual_errors(got[3:], want[3:], dtype))
+        err = max(err, *((g.float() - w.float()).abs().max().item()
+                         for g, w in zip(got, want)))
         if dtype == torch.float32:
-            for g, w in zip(got[:3], want[:3]):
+            for g, w in zip(got, want):
                 torch.testing.assert_close(g, w, **F32_TOL)
-            continue
-        g, w = got[2].float().flatten(0, 1), want[2].float().flatten(0, 1)
-        top = w.abs().amax(0).clamp_min(torch.finfo(torch.float32).tiny)
-        steps = (g - w).abs().amax(0) / torch.exp2(
-            torch.floor(torch.log2(top)) - 7)
-        worst["agg_col_max_in_steps"] = max(worst["agg_col_max_in_steps"],
-                                            steps.max().item())
-        worst["agg_col_mean_rel"] = max(
-            worst["agg_col_mean_rel"],
-            bf16_errors(got[2].float(), want[2].float())["col_mean_rel"])
-        for g, w in zip(got[:2], want[:2]):
-            worst["hx_col_mean_rel"] = max(
-                worst["hx_col_mean_rel"],
-                bf16_errors(g.float(), w.float())["col_mean_rel"])
-    assert worst["residual_err_in_tol"] <= 1.0, worst
-    if dtype == torch.bfloat16:
-        assert worst["agg_col_max_in_steps"] <= 1.0, worst
-        assert worst["agg_col_mean_rel"] <= BF16_COL_MEAN, worst
-        assert worst["hx_col_mean_rel"] <= BF16_COL_MEAN, worst
-    return worst
+    if dtype == torch.float32:
+        return dict(max_abs_err=err)
+    verdict = kc.judge(kc.stack_checks(out, args, packed))
+    if not verdict["ok"]:               # the CPU's spread, where it is past
+        verdict = kc.judge(kc.stack_checks(out, args, packed, cpu=True))
+    assert verdict["ok"], verdict["failing"]
+    return dict(max_abs_err=err, rule_worst=verdict["worst"],
+                worst_vs_bound=verdict["worst_vs_bound"],
+                cpu_worst=verdict["cpu_worst"], restated=verdict["restated"])
 
 
 def check_stack_kernel() -> list:
@@ -2437,6 +2403,7 @@ def check_stack_kernel() -> list:
     bf16 at E=2560, B=1 (one graph, one CTA); the same bits twice; its
     shared memory a CTA, CTAs an SM and the compiler's readings."""
     from immunostruct_tpu_torch.ops import _build
+    from immunostruct_tpu_torch.ops import kernel_checks as kc
     from immunostruct_tpu_torch.ops.egnn import egnn_stack
     from immunostruct_tpu_torch.ops.mega import valid_edges
     from immunostruct_tpu_torch.ops.stack import (
@@ -2450,13 +2417,13 @@ def check_stack_kernel() -> list:
              for name, dtype in DTYPES] + [(1, EDGE_COUNTS[0], "bfloat16",
                                             torch.bfloat16)]
     for b, e, name, dtype in cases:
-        args, packed = stack_inputs(e, dtype, seed=e + 6, b=b)
+        args, packed = kc.stack_args(b, e, dtype, "cuda", seed=e + 6)
         out = stack_fwd(*args, packed)
         again = stack_fwd(*args, packed)
         torch.cuda.synchronize()
         assert all(torch.equal(a, z) for a, z in zip(out, again))
         del again
-        stats = stack_layer_errors(out, args, packed, dtype, own_agg=b == 1)
+        stats = stack_layer_verdict(out, args, packed, dtype)
         ms, plain_ms = alternate_ms(
             lambda: stack_fwd_reference(*args, packed),
             lambda: stack_fwd(*args, packed))
@@ -2922,10 +2889,14 @@ def _captured(fn, argv) -> tuple:
 def check_featurize(tmp: str, entry: dict) -> dict:
     """Phase 22: the IEDB corpus of phase 19 written back as CA PDBs (one a
     graph, named by its join key; HLA chain A 1-275, the peptide chain C
-    after it; helix CAs) and one broken file, featurized by cli.featurize on
-    the native library built from native/featurizer.cc and on the numpy
-    path: the same graphs bit for bit, the broken file in each
-    error_log.txt; then cli.validate_data joins every table row."""
+    after it; helix CAs), one with no CA in the subgraph's positions and one
+    whose residue number does not parse, featurized by cli.featurize on the
+    native library built from native/featurizer.cc and on the numpy path,
+    as the JAX package's paths treat them: the same graphs bit for bit, a
+    graph of no nodes for the first on both paths and for the second on the
+    native path (its parser reads the number as residue 0, which the
+    subgraph's filter drops), the second in the numpy path's error_log.txt
+    alone; then cli.validate_data joins every table row."""
     from immunostruct_tpu_torch.cli import featurize, validate_data
     from immunostruct_tpu_torch.data.synthetic import write_corpus_pdbs
     from immunostruct_tpu_torch.featurize import native
@@ -2935,7 +2906,12 @@ def check_featurize(tmp: str, entry: dict) -> dict:
     t0 = time.perf_counter()
     paths = write_corpus_pdbs(graph_dir, pdb_dir, hla_len=275)
     with open(os.path.join(pdb_dir, "brokenImmunoZ.pdb"), "w") as fh:
-        fh.write("ATOM      1  CA  GLY A  ab     0.000   0.000   0.000\n")
+        fh.write("ATOM      1  CA  GLY A  ab     0.000   0.000   0.000  "
+                 "1.00\n")
+    with open(os.path.join(pdb_dir, "farImmunoY.pdb"), "w") as fh:
+        fh.write("ATOM      1  CA  GLY A 200       0.000   0.000   0.000  "
+                 "1.00\nATOM      2  CA  ALA A 201       3.800   0.000   "
+                 "0.000  1.00\n")
     write_s = time.perf_counter() - t0
     assert len(paths) == CLI_SAMPLES
     t0 = time.perf_counter()
@@ -2952,18 +2928,28 @@ def check_featurize(tmp: str, entry: dict) -> dict:
             "--alphafold-folder", pdb_dir, "--save-folder", outs[label],
             *extra])
         wall_s = time.perf_counter() - t0
-        assert len(written) == CLI_SAMPLES, len(written)
-        assert lines[-1].startswith(f"featurized {CLI_SAMPLES} structures")
+        graphs = CLI_SAMPLES + (2 if label == "native" else 1)
+        assert len(written) == graphs, len(written)
+        assert lines[-1].startswith(f"featurized {graphs} structures")
         assert lines[-1].endswith(f"native={label == 'native'})"), lines[-1]
-        with open(os.path.join(outs[label], "error_log.txt")) as fh:
-            log = fh.read().splitlines()
-        assert len(log) == 1 and "brokenImmunoZ" in log[0], log
+        log_path = os.path.join(outs[label], "error_log.txt")
+        if label == "native":
+            assert not os.path.exists(log_path)
+        else:
+            with open(log_path) as fh:
+                log = fh.read().splitlines()
+            assert len(log) == 1 and "brokenImmunoZ" in log[0], log
         row[label] = dict(wall_s=wall_s,
                           structures_per_s=CLI_SAMPLES / wall_s,
                           printed=lines[-1])
-    files = sorted(f for f in os.listdir(outs["native"]) if f.endswith(".npz"))
-    assert files == sorted(f for f in os.listdir(outs["numpy"])
-                           if f.endswith(".npz")) and len(files) == CLI_SAMPLES
+    files = sorted(f for f in os.listdir(outs["numpy"]) if f.endswith(".npz"))
+    assert files == sorted(f for f in os.listdir(outs["native"])
+                           if f.endswith(".npz") and f != "brokenImmunoZ.npz")
+    assert len(files) == CLI_SAMPLES + 1
+    for out in outs.values():
+        with np.load(os.path.join(out, "farImmunoY.npz")) as a:
+            assert a["x"].shape == (0, 22) and a["edge_index"].shape == (2, 0)
+    files.remove("farImmunoY.npz")
     nodes, arcs = [], []
     for f in files:
         with np.load(os.path.join(outs["native"], f)) as a, \

@@ -15,8 +15,11 @@
 //                              tiles; Tiles says which edge each slot of a
 //                              tile computes and forms the tile's geometry
 //                              (EdgeTiles: slot t is edge i0 + t; B4's
-//                              ArcTiles: 32 arcs and their 32 mirrors). The
-//                              sums at dst take no atomics: each tile's m and
+//                              ArcTiles: 32 arcs and their 32 mirrors). a1
+//                              is summed op by op, and an a1s, m or c1 near
+//                              a bf16 tie is recomputed in the plain
+//                              version's order (near_tie). The sums at dst
+//                              take no atomics: each tile's m and
 //                              coordinate messages wait in shared memory, and
 //                              one thread per column adds them into the node
 //                              block slot by slot, the tiles in order (the
@@ -31,6 +34,15 @@
 #pragma once
 
 #include "egnn_hopper.cuh"
+
+// EDGE_TIE_PROBE(kind, ties): mma_edge_chunk's near-tie recomputes, kind 0
+// an a1s (ties 1, in the lane that recomputes it), 1 an m and 2 a c1 (ties
+// the lane's bit mask for the tile, every lane of the warp at once). Nothing
+// here; scripts/torch_kernel_ties.py --kernel ties builds a probe that
+// counts them.
+#ifndef EDGE_TIE_PROBE
+#define EDGE_TIE_PROBE(kind, ties)
+#endif
 
 namespace egnn {
 
@@ -137,6 +149,17 @@ __host__ __device__ inline FwdLayout fwd_layout(int n) {
 __device__ __forceinline__ unsigned pack2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// a1 = pa + pb + wr*rad + we*ef + b1 in the plain version's order, each
+// product and sum rounded on its own (no fused multiply-add, which nvcc
+// would otherwise make of a + w*r)
+__device__ __forceinline__ float a1_rn(float pa, float pb, float wr, float rad,
+                                       float we, float ef, float b1) {
+  float a = __fadd_rn(pa, pb);
+  a = __fadd_rn(a, __fmul_rn(wr, rad));
+  a = __fadd_rn(a, __fmul_rn(we, ef));
+  return __fadd_rn(a, b1);
 }
 
 // acc[nt][.] = rows m0..m0+15 of A . W over K = 64, A in registers as the
@@ -292,9 +315,10 @@ __device__ __forceinline__ void mma_edge_chunk(
   const int fr = lane >> 2, fq = lane & 3;  // fragment row, column pair
   const int m0 = (wtid >> 5) * 16;
   const float* sms = S.sms;
-  // this warpgroup's stage: pa[src] rows, then pb[dst] rows; its geometry
+  // this warpgroup's stage: pa[src] rows (then a1s in their place), then
+  // pb[dst] rows; its geometry
   unsigned char* st = S.stage + wg * 2 * kTileBytes;
-  const bf* pas = reinterpret_cast<const bf*>(st);               // [t][j]
+  bf* pas = reinterpret_cast<bf*>(st);                           // [t][j]
   const bf* pbs = reinterpret_cast<const bf*>(st + kTileBytes);  // [t][j]
   const TileGeometry g = carve_geometry(S.geo + wg * geometry_floats());
 
@@ -336,7 +360,10 @@ __device__ __forceinline__ void mma_edge_chunk(
     if (it + 2 < ntiles) read_edge(it + 2);
 
     // ---- a1 = pa[src] + pb[dst] + w1r*radial + w1e*ef + b1 (the a1
-    // residual) -> silu(a1) as the A operand of p2 ----
+    // residual), each product and sum rounded on its own as in the plain
+    // version -> a1s = silu(a1) (near a tie with the IEEE sigmoid) as the A
+    // operand of p2, and over the pa row it was formed from (m's recompute
+    // reads it there) ----
     unsigned af[4][4];
     {
       // this thread's two edges: rows fr and fr + 8 of the warp's 16
@@ -365,40 +392,56 @@ __device__ __forceinline__ void mma_edge_chunk(
           if (ok[h]) {
             const bf2 pa = *reinterpret_cast<const bf2*>(pas + t * kLdb + j);
             const bf2 pb = *reinterpret_cast<const bf2*>(pbs + t * kLdb + j);
-            a1[0] = __low2float(pa) + __low2float(pb);
-            a1[1] = __high2float(pa) + __high2float(pb);
-            a1[0] = a1[0] + wr.x * rad[h];
-            a1[1] = a1[1] + wr.y * rad[h];
-            a1[0] = a1[0] + we.x * efv[h];
-            a1[1] = a1[1] + we.y * efv[h];
-            a1[0] = a1[0] + wb.x;
-            a1[1] = a1[1] + wb.y;
+            a1[0] = a1_rn(__low2float(pa), __low2float(pb), wr.x, rad[h],
+                          we.x, efv[h], wb.x);
+            a1[1] = a1_rn(__high2float(pa), __high2float(pb), wr.y, rad[h],
+                          we.y, efv[h], wb.y);
 #pragma unroll
-            for (int c = 0; c < 2; ++c) v[c] = a1[c] * sigmoid_fast(a1[c]);
+            for (int c = 0; c < 2; ++c) {
+              v[c] = a1[c] * sigmoid_fast(a1[c]);
+              if (near_tie(v[c])) {
+                EDGE_TIE_PROBE(0, 1u);
+                v[c] = a1[c] * sigmoid(a1[c]);
+              }
+            }
           }
           if (col[h] >= 0) {
             a1b[(size_t)j * E + col[h]] = __float2bfloat16(a1[0]);
             a1b[(size_t)(j + 1) * E + col[h]] = __float2bfloat16(a1[1]);
           }
           af[kk][q] = pack2(v[0], v[1]);
+          *reinterpret_cast<unsigned*>(pas + t * kLdb + j) = af[kk][q];
         }
     }
-    __syncwarp();  // the warp's pa / pb rows are read: m takes their place
+    __syncwarp();  // the warp's a1s rows are in place of its pa rows
 
     // ---- m = silu(silu(a1) @ W2 + b2) -> its f32 row (m_row) for the
-    // node sums; m as the A operand of p3 ----
+    // node sums; m as the A operand of p3. An m about to round near a tie
+    // is recomputed in the plain version's order (dot_k over the a1s row,
+    // the IEEE sigmoid) ----
     {
       float p2[8][4];
       reg_product(af, S.w2s, lane, p2);
+      unsigned tie = 0;  // bit tie_bit(nt, h, c): m near a tie
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int j = nt * 8 + 2 * fq + (i & 1);
           const float p = p2[nt][i] + sms[kB2 * H + j];
-          const float mv = rnd<bf>(p * sigmoid_fast(p));
-          p2[nt][i] = mv;
+          const float mv = p * sigmoid_fast(p);
+          tie |= unsigned(near_tie(mv)) << (4 * nt + i);
+          p2[nt][i] = rnd<bf>(mv);
         }
+      EDGE_TIE_PROBE(1, tie);
+      for (; tie; tie &= tie - 1) {
+        const int i = __ffs(tie) - 1;
+        const int t = tie_edge(m0, fr, i), j = tie_col(i, fq);
+        const float p =
+            dot_k(pas + t * kLdb, 1, S.w2s + j, kLdb) + sms[kB2 * H + j];
+        set_at(p2, i, rnd<bf>(p * sigmoid(p)));
+      }
+      __syncwarp();  // the warp's a1s rows are read: m takes their place
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         float* mr = m_row(st, m0 + fr + 8 * h);
@@ -415,22 +458,52 @@ __device__ __forceinline__ void mma_edge_chunk(
         af[kk][2] = pack2(p2[2 * kk + 1][0], p2[2 * kk + 1][1]);
         af[kk][3] = pack2(p2[2 * kk + 1][2], p2[2 * kk + 1][3]);
       }
+      __syncwarp();  // the warp's m rows are complete: c1's recompute
     }
 
     // ---- cw = silu(m @ Wc1 + bc1) . wc2 -> the coordinate message
-    // rnd(cw) * x_hat, rounded, in x_hat's place ----
+    // rnd(cw) * x_hat, rounded, in x_hat's place. A c1 about to round near
+    // a tie is recomputed in the plain version's order (over the f32 m row,
+    // in k order). cw is summed in the plain version's order
+    // (ops/mega.py cw_in_order): each lane its 16 columns in column order,
+    // each product and sum rounded on its own, then sum4's (0 + 1) + (2 + 3)
+    // over the four lanes. cw_in_order copies this fragment-lane layout: a
+    // change to the one is a change to the other ----
     {
       float p3[8][4];
       reg_product(af, S.wc1s, lane, p3);
-      float part[2] = {0.0f, 0.0f};
+      unsigned tie = 0;  // bit tie_bit(nt, h, c): c1 near a tie
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int j = nt * 8 + 2 * fq + (i & 1);
           const float p = p3[nt][i] + sms[kBC1 * H + j];
-          const float c1 = rnd<bf>(p * sigmoid_fast(p));
-          part[i >> 1] += c1 * sms[kWC2 * H + j];
+          const float cv = p * sigmoid_fast(p);
+          tie |= unsigned(near_tie(cv)) << (4 * nt + i);
+          p3[nt][i] = rnd<bf>(cv);
+        }
+      EDGE_TIE_PROBE(2, tie);
+      for (; tie; tie &= tie - 1) {
+        const int i = __ffs(tie) - 1;
+        const int t = tie_edge(m0, fr, i), j = tie_col(i, fq);
+        const float* mr = m_row(st, t);
+        float p = 0.0f;
+#pragma unroll 8
+        for (int k = 0; k < H; ++k) {
+          p = fmaf(mr[k], __bfloat162float(S.wc1s[k * kLdb + j]), p);
+        }
+        p += sms[kBC1 * H + j];
+        set_at(p3, i, rnd<bf>(p * sigmoid(p)));
+      }
+      float part[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = nt * 8 + 2 * fq + (i & 1);
+          part[i >> 1] = __fadd_rn(part[i >> 1],
+                                   __fmul_rn(p3[nt][i], sms[kWC2 * H + j]));
         }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {

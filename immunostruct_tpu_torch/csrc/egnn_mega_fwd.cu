@@ -52,11 +52,16 @@
 //     from the accumulator of the first product to the A operand of the
 //     second in registers; no edge tile passes through shared memory, and a
 //     warp waits on no other warp within a tile. The sigmoids run on the
-//     special-function unit (sigmoid_fast): unlike the backward's per-row
-//     bounds, B1's per-column bounds over all graphs and nodes do not see a
-//     rounding that falls the other way now and then, so there is no
-//     near-tie recompute (scripts/torch_kernel_ties.py --kernel mega_fwd
-//     reads how near the bounds it comes on seeded inputs);
+//     special-function unit (sigmoid_fast) and the products' k order is
+//     the tensor cores', so a value about to round to bf16 lies some f32
+//     units from the plain version's. a1 is summed op by op in the plain
+//     version's order (no fused multiply-add), and an a1s, m or c1 within
+//     kTieUlps of a bf16 rounding boundary is recomputed in the plain
+//     version's order (csrc/egnn_hopper.cuh near_tie: the IEEE sigmoid;
+//     for m the a1s row, which waits in its pa row, and for c1 the f32 m
+//     row, each summed in k order): without it one B=1 graph of B6, which
+//     runs this body, flipped three a1s roundings in one layer and read
+//     its h column past the per-column mean bound (PERF.md §6);
 //   - its shared memory (the node block, W2/Wc1 bf16, two stages, one
 //     tile's geometry) stays within the f32 form's, which ops/mega.py's
 //     admission rule (fwd_smem_bytes) reckons with.

@@ -17,11 +17,11 @@ once: such a name joins no property table). ``featurize_directory`` gives
 each file its own ``try`` and appends each failure to ``error_log.txt``
 (:151-157), over a thread pool.
 
-A structure with no CA record in the subgraph's positions raises (and so
-goes to the error log) on both paths, where the JAX package writes a graph
-of no nodes: the native parser reads a record it cannot parse as residue 0,
-which the filter drops, so that garbage fails on the native path as it
-fails on the numpy path.
+A structure with no CA record in the subgraph's positions gives a graph of
+no nodes (x [0, 22], coords [0, 3], edge_index [2, 0]) on both paths, as in
+the JAX package. A residue number that does not parse raises on the numpy
+path (int()'s message, to the error log); the native parser reads it as
+residue 0, which the filter drops, as the JAX package's native path does.
 """
 
 from __future__ import annotations
@@ -131,9 +131,6 @@ def featurize_pdb(path: str, edge_config: EdgeConfig = EdgeConfig(),
     else:
         chain = _numpy_chain(path, edge_config)
     coords, resnames, resnums, _, edge_index = chain
-    if not resnames:
-        raise ValueError("no CA record in the subgraph's residue positions "
-                         "(1-179, 273-999)")
     x = node_features(resnames)
 
     if mask_percentage > 0:

@@ -193,13 +193,89 @@ def check_paired(src, dst, mask) -> None:
 # plain PyTorch versions
 # --------------------------------------------------------------------------
 
+def projection_in_order(h, w):
+    """h [B, N, F] @ w [F, H] in f32 as B1's projections sum it (csrc/
+    egnn_mega.cuh proj_block): each output an f32 sum over the features in
+    order from +0. Each step adds one product; the product of two values of
+    the compute dtype bf16 is exact in f32, so each step is that kernel's
+    one fused multiply-add, and the sum the CPU's matmul gives."""
+    acc = torch.zeros(*h.shape[:-1], w.shape[1], dtype=torch.float32,
+                      device=h.device)
+    for f in range(h.shape[-1]):
+        acc = torch.addcmul(acc, h[..., f, None], w[f])
+    return acc
+
+
+def cw_in_order(c1, wc2):
+    """cw = c1 [..., H] . wc2 [H] in f32 as B1's body sums it (csrc/
+    egnn_mega.cuh): columns j = 8n + 2q + c (c < 2) belong to lane q of four;
+    each lane sums its columns in column order from +0, each product and
+    sum rounded on its own, and the four sums are added as (0 + 1) +
+    (2 + 3). H not a multiple of 8 (no kernel takes it): column order.
+    This order is the body's fragment-lane layout: a change to the one is a
+    change to the other. On the CPU too (where ``.sum`` took another order
+    before), so the CPU's cw is the kernels' bit for bit."""
+    prod = c1 * wc2
+    hid = prod.shape[-1]
+    if hid % 8:
+        acc = torch.zeros_like(prod[..., :1])
+        for j in range(hid):
+            acc = acc + prod[..., j:j + 1]
+        return acc
+    prod = prod.unflatten(-1, (hid // 8, 4, 2))
+    part = torch.zeros_like(prod[..., 0, :, 0])
+    for n in range(hid // 8):
+        for c in range(2):
+            part = part + prod[..., n, :, c]
+    return ((part[..., 0] + part[..., 1])
+            + (part[..., 2] + part[..., 3]))[..., None]
+
+
+def sum_at_dst_in_edge_order(d, both, valid, n):
+    """[B, N, C] f32: the valid edges' rows of both [B, E, C] summed at d
+    [B, E] in edge order from +0, as the kernels sum them. On the CPU
+    scatter_add_ adds in that order; elsewhere (where it takes atomics) pass
+    k adds each node's k-th incoming edge: no two rows of a pass meet at
+    one node, so the passes add in edge order whatever order the device
+    takes each pass in."""
+    b, e, c = both.shape
+    if both.device.type == "cpu":   # scatter_add_ adds in edge order there
+        out = torch.zeros(b, n, c, dtype=torch.float32)
+        return out.scatter_add_(1, d.long()[..., None].expand(-1, -1, c),
+                                torch.where(valid[..., None], both, 0.0))
+    node = torch.arange(b, device=d.device)[:, None] * n + d.long()
+    node = torch.where(valid, node, -1).reshape(-1)
+    order = torch.argsort(node, stable=True)
+    ranked = node[order]
+    at = torch.arange(ranked.numel(), device=d.device)
+    first = torch.ones_like(ranked, dtype=torch.bool)
+    first[1:] = ranked[1:] != ranked[:-1]
+    rank = torch.empty_like(at)
+    rank[order] = at - torch.cummax(torch.where(first, at, 0), 0).values
+    v = valid.reshape(-1)
+    rank = torch.where(v, rank, -1)
+    out = torch.zeros(b * n, c, dtype=torch.float32, device=both.device)
+    rows = both.reshape(-1, c)
+    for k in range(int(rank.max()) + 1 if rank.numel() else 0):
+        sel = (rank == k).nonzero().flatten()
+        out = out.index_add(0, node[sel], rows[sel])
+    return out.view(b, n, c)
+
+
 def edge_mega_fwd_reference(src, dst, mask, ef, h, x, w1ab, w2, wc1, small):
     """Plain PyTorch version of B1, with the same rounding points.
 
     src/dst [B, E] int, mask [B, E] bool, ef [B, E, 1], h [B, N, F] and
     x [B, N, 3] in the compute dtype, weights as ``pack_params`` returns
     them. Returns (out [B, N, H+3] f32, a1 [B, H, E], xd [B, 3, E]), the
-    residuals in the compute dtype and zero on skipped edges."""
+    residuals in the compute dtype and zero on skipped edges.
+
+    pa/pb, cw and the sums at dst are taken in the order the kernels take
+    them (``projection_in_order``, ``cw_in_order``,
+    ``sum_at_dst_in_edge_order``; pa/pb and the sums in the order the CPU's
+    matmul and scatter_add_ take too). On the card cuBLAS sums pa/pb at
+    small M out of k order and scatter_add_ sums with atomics, so the
+    card's plain version was the odd one out of the three (PERF.md §6)."""
     dt = h.dtype
     f32 = torch.float32
     b, n, f = h.shape
@@ -218,8 +294,8 @@ def edge_mega_fwd_reference(src, dst, mask, ef, h, x, w1ab, w2, wc1, small):
 
     w1 = rnd(w1ab)
     hf = h.to(f32)
-    pa = rnd(torch.matmul(hf, w1[:f]))
-    pb = rnd(torch.matmul(hf, w1[f:]))
+    pa = rnd(projection_in_order(hf, w1[:f]))
+    pb = rnd(projection_in_order(hf, w1[f:]))
     xf = x.to(f32)
     xd = rnd(gather(xf, s) - gather(xf, d)) * vf                # [B, E, 3]
     rad = rnd((xd * xd).sum(-1, keepdim=True))
@@ -233,11 +309,10 @@ def edge_mega_fwd_reference(src, dst, mask, ef, h, x, w1ab, w2, wc1, small):
     m = rnd(p2 * torch.sigmoid(p2))
     p3 = torch.matmul(m, rnd(wc1)) + sm[:, BC1]
     c1 = rnd(p3 * torch.sigmoid(p3))
-    cw = (c1 * sm[:, WC2]).sum(-1, keepdim=True)
+    cw = cw_in_order(c1, sm[:, WC2])
     msgx = rnd(rnd(cw) * x_hat)
     both = torch.cat([m, msgx], dim=-1) * vf
-    out = torch.zeros(b, n, hid + 3, dtype=f32, device=h.device)
-    out.scatter_add_(1, d[..., None].expand(-1, -1, hid + 3), both)
+    out = sum_at_dst_in_edge_order(d, both, valid, n)
     return (out, (a1 * vf).to(dt).transpose(1, 2).contiguous(),
             xd.to(dt).transpose(1, 2).contiguous())
 

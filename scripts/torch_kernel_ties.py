@@ -17,6 +17,24 @@ kernel. One section per kernel (--kernel, default all of them):
             and in float64, and a1 from each; then each kernel again with
             the CPU run only on the inputs past the bound (chip_smoke.py's
             phase 14b), timed.
+  edge_recompute
+            B1's body as it is and in each form of BODY_VARIANTS (without
+            the edge chain's near-tie recompute, with parts of it): B6 and
+            B1 (--families) at B=1, E=2560 on their sweep inputs and
+            --seeds more, judged by the rule; chip_smoke.py's B=1 row of B6
+            against the plain version as it is and unordered, and per layer
+            kernel - card plain, kernel - CPU and CPU - card plain.
+  ties      how often B1's body recomputes an a1s, m or c1 near a tie (a
+            probe build that counts them, csrc/egnn_mega.cuh
+            EDGE_TIE_PROBE), in B1, B4 and B6 at B=128 and B=1.
+  times     every kernel (B1, B4, B6 at B=128 and B=1 with and without the
+            residuals; B2, B3 fwd and bwd, B5a, B5b, B7, B8 at B=128), the
+            plain versions of B1, B4 and B6 on the card, B1's and B6's
+            forward on the CPU and the 'mega' train step, each tree in a
+            process of its own (a checkout's ops modules register the same
+            torch.library ops): the checkout of --baseline, this tree, and
+            this tree with B1's body varied (--variants), in that order and
+            back; per call each tree's ms and a digest of its outputs.
   tail      B2, B5a, B5b (csrc/egnn_tail.cuh) for each kTieUlps (the reach
             of the near-tie recompute, csrc/egnn_hopper.cuh) in TIE_ULPS, a
             build of a copy of csrc/ with that constant, and B2's, B5a's and
@@ -74,32 +92,15 @@ kernel. One section per kernel (--kernel, default all of them):
             shapes pad the last 180 edges to node 0, masked), and the entry
             point's scatter operands, whose in-degrees are not uniform.
 
---baseline OTHER_CSRC_DIR adds an earlier form of the kernels (say, the
-parent commit's, from ``git archive``). In the tail section, a build of
-that csrc/ directory: B2's, B5a's and B5b's outputs against this build's,
-bit for bit, and their times beside the others. In paired_fwd and
-edge_fwd, the checkout that holds it (its ops/mega.py and ops/edge.py with
-their sources): B4 (with the residuals and without, B=128 and B=1) and B3's
-forward timed (CUDA events) in the order baseline, this tree, this tree,
-baseline, at B=128, E=2560 and 1408, F=64 and 20, bf16; and the f32 forms'
-outputs against the baseline's (B3's forward bit for bit; B4's residuals
-bit for bit, its atomic sums within f32 roundoff), B3's backward's outputs
-bit for bit in both dtypes. In mega_fwd, B1 timed likewise (B=128 and
-B=1) and its outputs against the baseline's: its residuals bit for bit in
-both dtypes, its sums (f32 atomics in the baseline) within roundoff. In
-stack_fwd and layer_fwd, B6 (with the residuals and without, B=128 and
-B=1) and B7 (B=128, 8 and 1, F=64 and 20) timed likewise, by CUDA events
-and by device time (chip_smoke.device_ms: the calls queued behind a spin
-kernel, so no host time; it includes the wrapper's own small kernels, the
-weights' packing). In repeat, the
-baseline's kernels read the same way beside this tree's. In segment_times, the
-checkout that holds it (OTHER_CSRC_DIR/..: its ops/segment.py, with its
-segment.cu), timed in the order baseline, this tree, this tree, baseline;
-every row keeps its tree and round. Every build goes to a temporary
-directory under the build directory, removed at the end.
+--baseline OTHER_CSRC_DIR (the times section) is the csrc/ directory of
+another checkout (say, the parent commit's, from ``git archive``), whose
+own ops modules and chip_smoke.py time its kernels and its train step;
+where a call's digest is the baseline's, its outputs are the same bits.
+Every build goes to a temporary directory under the build directory,
+removed at the end.
 
-    python scripts/torch_kernel_ties.py [--kernel tail edge_bwd ...]
-        [--baseline OTHER_CSRC_DIR]
+    python scripts/torch_kernel_ties.py [--kernel times ties ...]
+        [--baseline OTHER_CSRC_DIR] [--variants ...]
 """
 import argparse
 import contextlib
@@ -134,7 +135,8 @@ tc = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(tc)
 
 TIE_ULPS = (32, -1, 64)  # the first is the source's own
-KERNELS = ("sweep", "b3_flips", "tail", "edge_bwd", "mega_fwd", "paired_fwd", "edge_fwd",
+KERNELS = ("sweep", "b3_flips", "edge_recompute", "ties", "times",
+           "tail", "edge_bwd", "mega_fwd", "paired_fwd", "edge_fwd",
            "stack_fwd", "layer_fwd", "repeat", "sass", "segment_times",
            "segment_phases")
 # each library's tensor-core kernel, whose registers and spills are shown
@@ -169,8 +171,9 @@ def use(d):
 
 def build_variants(variants, sources, root):
     """{name: dir}, each dir a copy of csrc/ (with the files of
-    variants[name], {file: text}, in it; or, for a Path, that directory)
-    and each of ``sources`` built there, one nvcc each, all at once. Prints
+    variants[name], {file: text}, in it; for a Path, that directory; for a
+    (Path, {file: text}) pair, that directory with those files in it) and
+    each of ``sources`` built there, one nvcc each, all at once. Prints
     the registers and spill stores of each library's tensor-core kernel,
     where it has one."""
     dirs, procs = {}, []
@@ -178,6 +181,8 @@ def build_variants(variants, sources, root):
     for name, texts in variants.items():
         d = root / name
         base = texts if isinstance(texts, Path) else REPO_CSRC
+        if isinstance(texts, tuple):    # (a csrc/ directory, {file: text})
+            base, texts = texts
         shutil.copytree(base, d / "csrc")
         if not isinstance(texts, Path):
             for fname, text in texts.items():
@@ -251,19 +256,16 @@ def sweep(families, timed_failing=True):
 
 
 def _case(kernel, label):
-    return next(c for c in kc.cases(kernel) if c.label == label)
-
-
-def _seq_fma(h, w):
-    """h [..., F] @ w [F, H] as one f32 fma a feature in f order from +0
-    (B1's projections, csrc/egnn_mega.cuh proj_block), in float64 rounded
-    to f32 after every step."""
-    acc = torch.zeros(*h.shape[:-1], w.shape[1], dtype=torch.float32,
-                      device=h.device)
-    for f in range(h.shape[-1]):
-        acc = (h[..., f, None].double() * w[f].double()
-               + acc.double()).float()
-    return acc
+    """The sweep's input of that label, or one at another seed: "B6 b=1
+    e=2560 seed=129" (integer shape fields, True for a flag)."""
+    for c in kc.cases(kernel):
+        if c.label == label:
+            return c
+    fields = dict(f.split("=") for f in label[len(kernel) + 1:].split())
+    seed = int(fields.pop("seed"))
+    shape = {k: v == "True" if v in ("True", "False") else int(v)
+             for k, v in fields.items()}
+    return kc.Case(kernel, label, seed, False, shape)
 
 
 def a1_flips(kernel, label, dev, top=4):
@@ -301,7 +303,7 @@ def a1_flips(kernel, label, dev, top=4):
         return torch.cat([fn(hh, ww[:f]), fn(hh, ww[f:])], -1)
     proj = {"card": both(torch.matmul, hf, w1),
             "cpu": both(torch.matmul, hf.cpu(), w1.cpu()).to(dev),
-            "seq": both(_seq_fma, hf, w1),
+            "seq": both(mega.projection_in_order, hf, w1),
             "f64": both(torch.matmul, hf.double(), w1.double())}
     g, r = a1.float(), a1_ref.float()
     mag = torch.maximum(torch.maximum(g.abs(), r.abs()),
@@ -328,10 +330,8 @@ def a1_flips(kernel, label, dev, top=4):
 TAIL_SOURCES = ("egnn_tail_bwd", "egnn_tail_bwd_db", "egnn_tail_bwd_nodes")
 
 
-def tail(root, baseline):
+def tail(root):
     variants = {f"kTieUlps={u}": with_ulps(u) for u in TIE_ULPS}
-    if baseline is not None:
-        variants["baseline"] = baseline
     dirs = build_variants(variants, TAIL_SOURCES, root)
     variant_sweep(("B2", "B5a", "B5b"), dirs)
     # the times, the builds interleaved three times over; the outputs of
@@ -543,179 +543,374 @@ def mega_fwd():
     variant_sweep(("B1",), {"this tree": None}, flips=True)
 
 
-def paired_fwd(root, baseline):
+def paired_fwd():
     variant_sweep(("B4",), {"this tree": None}, flips=True)
-    if baseline is not None:
-        fwd_times(root, baseline, "paired_fwd")
 
 
-def edge_fwd(root, baseline):
+def edge_fwd(root):
     variants = {f"kTieUlps={u}": with_ulps(u) for u in TIE_ULPS[:2]}
     variant_sweep(("B3 fwd",), build_variants(variants, ("egnn_edge_fwd",),
                                               root / "ties"))
-    if baseline is not None:
-        fwd_times(root, baseline, "edge_fwd")
-
-
-# ------------------------------------------- B4 and B3 fwd beside a baseline
-
-def baseline_module(csrc_dir: Path, name: str):
-    """ops/<name>.py of the checkout that holds ``csrc_dir``, as a module of
-    its own (it imports this tree's ops.edge and ops._build)."""
-    path = csrc_dir.resolve().parent / "ops" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"baseline_{name}", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
-def fwd_times(root, baseline, section):
-    """B1 (mega_fwd), B4 (paired_fwd) or B3's forward (edge_fwd) of this
-    tree beside the baseline checkout's: times in the order baseline, this,
-    this, baseline; B1's and B4's outputs in both dtypes, the f32 forms'
-    outputs (and, for edge_fwd, B3's backward's) against the baseline's."""
-    paired = section in ("paired_fwd", "mega_fwd")
-    sources = (("egnn_mega_paired_fwd", "egnn_mega_fwd") if paired
-               else ("egnn_edge_fwd", "egnn_edge_bwd"))
-    d = build_variants({"baseline": baseline}, sources,
-                       root / "baseline")["baseline"]
-    other = baseline_module(baseline, "mega" if paired else "edge")
-    dev = torch.device("cuda")
-    if paired:
-        b4 = section == "paired_fwd"
-        fn = "edge_mega_paired_fwd" if b4 else "edge_mega_fwd"
-
-        def case(b, e, f, dtype):
-            if b4:
-                return (cs.paired_inputs(e, f, dtype, seed=e + f + 2)
-                        if b == cs.B else kc.paired_args(
-                            b, e, f, dtype, dev, seed=e + f + 2))
-            return kc.mega_args(b, e, f, 64, dtype, dev, seed=e + f + 2)
-        shapes = [(cs.B, e, f) for e in cs.EDGE_COUNTS for f in (64, 20)]
-        shapes.append((1, 2560, 64))
-        calls = {"with residuals": lambda m, a: getattr(m, fn)(*a),
-                 "without residuals": lambda m, a: getattr(m, fn)(
-                     *a, residuals=False)}
-    else:
-        def case(b, e, f, dtype):
-            return cs.edge_inputs(e, f, dtype, seed=e + f + 2)
-        shapes = [(cs.B, e, f) for e in cs.EDGE_COUNTS for f in (64, 20)]
-        calls = {"forward": lambda m, a: m.edge_program_fwd(*a[0])}
-    trees = [("baseline", d, other), ("this", None, mega if paired else edge)]
-    times = {}
-    for b, e, f in shapes:
-        a = case(b, e, f, torch.bfloat16)
-        for name, call in calls.items():
-            key = f"B={b} E={e} F={f} bf16 {name}"
-            times[key] = {"baseline": [], "this": [], "baseline device": [],
-                          "this device": []}
-            for label, dd, module in (trees[0], trees[1], trees[1],
-                                      trees[0]):
-                use(dd)
-                times[key][label].append(cs.cuda_ms(lambda: call(module, a)))
-                times[key][f"{label} device"].append(
-                    cs.device_ms(lambda: call(module, a)))
-        print(f"{section} times:", json.dumps({
-            k: v for k, v in times.items() if k.startswith(f"B={b} E={e} "
-                                                           f"F={f} ")}),
-              flush=True)
-        del a
-    # the f32 forms (and B3's backward in both dtypes) against the baseline
-    same = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        a = case(cs.B, 2560, 20, dtype)
-        got = {}
-        for label, dd, module in trees:
-            use(dd)
-            if paired:
-                got[label] = getattr(module, fn)(*a)
-            elif not paired:
-                got[label] = ((module.edge_program_fwd(*a[0]),)
-                              if dtype == torch.float32 else ()) + tuple(
-                    module.edge_program_bwd(*a[0], a[1]))
-        if not got:
-            continue
-        key = str(dtype).split(".")[1]
-        if paired:
-            (o, a1, xd), (ob, a1b, xdb) = got["this"], got["baseline"]
-            same[key] = dict(residuals_equal=torch.equal(a1, a1b)
-                             and torch.equal(xd, xdb),
-                             out_max_abs_diff=(o - ob).abs().max().item(),
-                             out_max_abs=ob.abs().max().item())
-        else:
-            names = ((("fwd",) if dtype == torch.float32 else ())
-                     + ("dhsx", "dhdx", "def", "dw1ab", "dw2", "dwc1",
-                        "dsmall"))
-            same[key] = {nm: torch.equal(x, y) for nm, x, y in
-                         zip(names, got["this"], got["baseline"])}
-    use(None)
-    print(f"{section} against the baseline:", json.dumps(same), flush=True)
 
 
 # ---------------------------------------------------------------- B6
 
-def stack_fwd(root, baseline):
+def stack_fwd():
     variant_sweep(("B6",), {"this tree": None})
-    if baseline is None:
-        return
-    d = build_variants({"baseline": baseline}, ("egnn_stack_fwd",),
-                       root / "baseline")["baseline"]
-    other = baseline_module(baseline, "stack")
-    trees = [("baseline", d, other), ("this", None, stack)]
-    times = {}
-    for b in (cs.B, 1):
-        for e in cs.EDGE_COUNTS if b == cs.B else (2560,):
-            args, packed = cs.stack_inputs(e, torch.bfloat16, seed=e + 6,
-                                           b=b)
-            for label_r, res in (("with residuals", True),
-                                 ("without residuals", False)):
-                key = f"B={b} E={e} bf16 {label_r}"
-                times[key] = {"baseline": [], "this": [],
-                              "baseline device": [], "this device": []}
-                for label, dd, module in (trees[0], trees[1], trees[1],
-                                          trees[0]):
-                    use(dd)
 
-                    def call():
-                        module.stack_fwd(*args, packed, residuals=res)
-                    times[key][label].append(cs.cuda_ms(call))
-                    times[key][f"{label} device"].append(cs.device_ms(call))
-            print("stack_fwd times:", json.dumps({
-                k: v for k, v in times.items()
-                if k.startswith(f"B={b} E={e} ")}), flush=True)
-            del args, packed
+
+# ------------------------------------- B1's body: the edge chain's recompute
+
+def body_variant(patterns, csrc=REPO_CSRC):
+    """{file: text}: csrc/egnn_mega.cuh with each (pattern, replacement)
+    applied (each matching at least once)."""
+    text = (csrc / "egnn_mega.cuh").read_text()
+    for pattern, repl in patterns:
+        text, n = re.subn(pattern, repl, text)
+        assert n >= 1, pattern
+    return {"egnn_mega.cuh": text}
+
+
+# Forms of B1's body (csrc/egnn_mega.cuh; B4 and B6 run it too) that
+# --kernel times and edge_recompute build beside this tree's: without the
+# edge chain's near-tie recompute and with a1 and cw fused as they were (the
+# card tests' _NO_EDGE_RECOMPUTE: the body before it, bit for bit); a1 and
+# cw op by op with no recompute; with the m and c1 recompute but not the
+# a1s one; and with the a1s recompute alone.
+BODY_VARIANTS = {
+    "no recompute, fused sums": tc._NO_EDGE_RECOMPUTE,
+    "no recompute": [(r"near_tie\(", r"0 && near_tie(")],
+    "no a1s recompute": [(r"if \(near_tie\(v\[c\]\)\)",
+                          r"if (0 && near_tie(v[c]))")],
+    "a1s recompute alone": [(r"near_tie\((mv|cv)\)", r"0 && near_tie(\1)")],
+}
+
+
+def layer_readings(got, ref):
+    """got, ref: (h, x, agg) of one B6 layer: {check: [the worst unit's
+    ratio to its bound, the unit]} by kernel_checks' B6 checks (agg in
+    steps and per-column mean, h and x per-column mean)."""
+    def cols(t):
+        return t.float().flatten(0, 1).T
+    checks = kc.col_steps_checks("agg", got[2], ref[2], None)
+    for name, g, r in zip(("h", "x"), got[:2], ref[:2]):
+        checks += kc.rows_checks(name, cols(g), cols(r), None,
+                                 kc.NODE_COL_MEAN, None)
+    out = {}
+    for ch in checks:
+        q = ch.got / ch.bound.clamp_min(kc.TINY)
+        i = int(q.argmax())
+        out[ch.name] = [round(q[i].item(), 4), i]
+    return out
+
+
+def layer_refs(out, args, packed, device):
+    """Per layer, B6's plain version of that layer run on ``device`` from
+    the kernel's own previous h and x: (h, x, agg, a1) on the card."""
+    src, dst, mask, ef = args[:4]
+    refs = []
+    for layer, weights in enumerate(packed):
+        ins = (src, dst, mask, ef, *kc._layer_inputs(out, args, layer))
+        ref = stack.stack_fwd_reference(*kc.on(device, ins),
+                                        [kc.on(device, weights)])
+        hs, xs, aggs, a1s = (t[:, 0].to(src.device) for t in ref[2:6])
+        refs.append((hs, xs, aggs, a1s))
+    return refs
+
+
+def b6_readings(name, out, args, packed):
+    """chip_smoke.py's B6 row at B=1 under the build ``name``: per layer the
+    kernel against the plain version on the card (in the kernels' order and
+    as it was before, unordered_plain) and on the CPU, the CPU's against
+    both card forms, and the a1 residual entries (valid edges) where the
+    kernel's differ from the CPU's."""
+    dev = args[0].device
+    cpu = layer_refs(out, args, packed, "cpu")
+    card = layer_refs(out, args, packed, dev)
+    with tc.unordered_plain():
+        old = layer_refs(out, args, packed, dev)
+    valid = mega.valid_edges(*args[:3], kc.N)[:, None, :]
+    for layer in range(len(packed)):
+        kernel = [t[:, layer] for t in out[2:6]]
+        forms = {"kernel": kernel, "card": card[layer], "old card": old[layer],
+                 "cpu": cpu[layer]}
+        reads = {f"{a}_vs_{b}".replace(" ", "_"): layer_readings(
+            forms[a][:3], forms[b][:3]) for a, b in (
+            ("kernel", "card"), ("kernel", "old card"), ("kernel", "cpu"),
+            ("cpu", "card"), ("cpu", "old card"))}
+        a1_diff = (kernel[3] != cpu[layer][3]) & valid
+        print("b6 readings:", json.dumps(dict(
+            build=name, layer=layer, **reads,
+            a1_entries_otherwise_than_cpu=int(a1_diff.sum()))), flush=True)
+
+
+def edge_recompute(root, seeds, kernels=("B6", "B1")):
+    """B1's body with and without its edge chain's near-tie recompute: B6
+    (B=1, E=2560) and B1 (B=1, E=2560, F=64) on their sweep inputs and on
+    ``seeds`` more, judged by the rule (the CPU on the inputs past the
+    bound), a line per build and kernel with the failing inputs, for this
+    tree and every form of BODY_VARIANTS (the first: the body before the
+    recompute). Then chip_smoke.py's B6 row at B=1 under each build: the
+    rule against the plain version as it is and unordered (the card tests'
+    unordered_plain), and the readings of b6_readings."""
+    dirs = build_variants({name: body_variant(patterns)
+                           for name, patterns in BODY_VARIANTS.items()},
+                          ("egnn_stack_fwd", "egnn_mega_fwd"), root)
+    dev = torch.device("cuda")
+    extra = {"B6": [kc.Case("B6", f"B6 b=1 e=2560 seed={s}", s, False,
+                            dict(b=1, e=2560)) for s in seeds],
+             "B1": [kc.Case("B1", f"B1 b=1 e=2560 f=64 seed={s}", s, False,
+                            dict(b=1, e=2560, f=64)) for s in seeds]}
+    (smoke,) = [c for c in kc.cases("B6") if c.shape.get("smoke")]
+    args, packed = kc.stack_args(1, 2560, torch.bfloat16, dev, smoke.seed)
+    for name, build in (("this tree", None), *dirs.items()):
+        use(build)
+        for kernel in kernels:
+            rows = [kc.run_case(c, dev, "failing")
+                    for c in kc.cases(kernel) + extra[kernel]]
+            print("edge recompute:", json.dumps(dict(
+                build=name, kernel=kernel, inputs=len(rows),
+                failing=[(r["input"], r["failing"][:2]) for r in rows
+                         if not r["ok"]],
+                worst=round(max(r["worst"] for r in rows), 4))), flush=True)
+        out = stack.stack_fwd(*args, packed)
+        for plain, ctx in (("as it is", contextlib.nullcontext),
+                           ("unordered", tc.unordered_plain)):
+            with ctx():
+                v = kc.judge(kc.stack_checks(out, args, packed, cpu=True))
+            print("edge recompute smoke row:", json.dumps(dict(
+                build=name, plain=plain, ok=v["ok"],
+                worst=round(v["worst"], 4), failing=v["failing"][:3],
+                over_bound=v["over_bound"][:3])), flush=True)
+        b6_readings(name, out, args, packed)
     use(None)
+
+
+# A probe of B1's body: it defines EDGE_TIE_PROBE (csrc/egnn_mega.cuh) to
+# count, per kind (a1s, m, c1), the recomputes, the warps' loop trips (a
+# warp runs the loop as often as its lane with the most ties), the warp
+# tiles with a recompute and the warp tiles (m and c1 only: an a1s is
+# counted where it is recomputed, in a lane of its own).
+TIE_PROBE = r"""
+__device__ unsigned long long g_edge_ties[3][4];
+__device__ __forceinline__ void edge_tie_probe(int kind, unsigned ties) {
+  if (kind == 0) {
+    atomicAdd(&g_edge_ties[0][0], 1ull);
+    return;
+  }
+  const unsigned n = __popc(ties);
+  const unsigned sum = __reduce_add_sync(0xffffffffu, n);
+  const unsigned most = __reduce_max_sync(0xffffffffu, n);
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(&g_edge_ties[kind][0], (unsigned long long)sum);
+    atomicAdd(&g_edge_ties[kind][1], (unsigned long long)most);
+    atomicAdd(&g_edge_ties[kind][2], most ? 1ull : 0ull);
+    atomicAdd(&g_edge_ties[kind][3], 1ull);
+  }
+}
+#define EDGE_TIE_PROBE(kind, ties) edge_tie_probe(kind, ties)
+"""
+TIE_READER = r"""
+extern "C" int edge_ties(void* host) {
+  return cudaMemcpyFromSymbol(host, g_edge_ties, sizeof(g_edge_ties));
+}
+extern "C" int edge_ties_clear() {
+  void* p;
+  if (cudaGetSymbolAddress(&p, g_edge_ties) != cudaSuccess) return 1;
+  return cudaMemset(p, 0, sizeof(g_edge_ties));
+}
+"""
+BODY_SOURCES = ("egnn_mega_fwd", "egnn_mega_paired_fwd", "egnn_stack_fwd")
+
+
+def ties(root):
+    """How often B1's body recomputes near a tie (TIE_PROBE), in B1, B4
+    and B6 at B=128 and B=1, E=2560, bf16, on --kernel times' inputs: per
+    kind the recomputes, their share of the values checked (a warp tile
+    checks 16 x 64 of each kind), the warps' loop trips a warp tile and
+    the share of warp tiles with a recompute; and whether the probe's
+    outputs are this tree's bit for bit."""
+    texts = {f"{s}.cu": TIE_PROBE + (REPO_CSRC / f"{s}.cu").read_text()
+             + TIE_READER for s in BODY_SOURCES}
+    probe = build_variants({"probe": texts}, BODY_SOURCES, root)["probe"]
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    calls = {}
+    for b in (cs.B, 1):
+        a1 = kc.mega_args(b, 2560, 64, 64, bf, dev, seed=2624)
+        a4 = kc.paired_args(b, 2560, 64, bf, dev, seed=2626)
+        a6, packed = kc.stack_args(b, 2560, bf, dev, seed=2566)
+        calls[f"B1 B={b}"] = (lambda a=a1: mega.edge_mega_fwd(*a),
+                              lambda: mega._fwd_lib())
+        calls[f"B4 B={b}"] = (lambda a=a4: mega.edge_mega_paired_fwd(*a),
+                              lambda: mega._paired_lib())
+        calls[f"B6 B={b}"] = (lambda a=a6, p=packed: stack.stack_fwd(*a, p),
+                              lambda: stack._lib())
+    for name, (fn, lib_of) in calls.items():
+        use(None)
+        want = fn()
+        use(probe)
+        lib = lib_of()
+        lib.edge_ties.argtypes = [ctypes.c_void_p]
+        assert lib.edge_ties_clear() == 0
+        got = fn()
+        torch.cuda.synchronize()
+        counts = np.zeros((3, 4), dtype=np.uint64)
+        assert lib.edge_ties(counts.ctypes.data) == 0
+        tiles = int(counts[1, 3])
+        kinds = {}
+        for k, kind in enumerate(("a1s", "m", "c1")):
+            row = dict(recomputes=int(counts[k, 0]),
+                       share=int(counts[k, 0]) / max(1, tiles * 16 * 64))
+            if k:
+                row.update(trips_a_tile=int(counts[k, 1]) / max(1, tiles),
+                           tiles_with_one=int(counts[k, 2]) / max(1, tiles))
+            kinds[kind] = row
+        print("ties:", json.dumps(dict(
+            call=name, warp_tiles=tiles, **kinds,
+            same_bits=all(torch.equal(x, y) for x, y in zip(got, want)))),
+            flush=True)
+    use(None)
+
+
+# Every kernel, three plain versions, B1's and B6's forward on the CPU and
+# the 'mega' train step, timed in a fresh process for each tree (argv[1]:
+# the checkout's root; argv[2], where given: a build directory of this
+# tree's with B1's body varied, whose csrc/ and build/ it loads): a
+# checkout's ops modules register the same torch.library ops, so two cannot
+# share a process. Inputs from kernel_checks and chip_smoke.py, E=2560,
+# bf16; CUDA events over 20 launches after 3, the median of 5 such windows
+# (the plain versions 5 launches, 3 windows); the CPU forms by the host's
+# clock, the median of 3 calls; the train step as chip_smoke.py's phase 16
+# times it (the median of 20 steps after the first 3). One JSON line:
+# {call: [ms, a digest of its outputs]}.
+_TIMES = r"""
+import hashlib, json, statistics, sys, time
+from pathlib import Path
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as cs
+from immunostruct_tpu_torch.data.synthetic import random_sample_batch
+from immunostruct_tpu_torch.ops import (_build, edge, fused_layer, mega,
+                                        segment, stack)
+from immunostruct_tpu_torch.ops import kernel_checks as kc
+assert mega.__file__.startswith(sys.argv[1]), mega.__file__
+variant = len(sys.argv) > 2
+if variant:
+    _build.CSRC = Path(sys.argv[2]) / "csrc"
+    _build.BUILD_DIR = Path(sys.argv[2]) / "build"
+_build.build()
+torch.backends.cuda.matmul.allow_tf32 = False
+bf, dev = torch.bfloat16, "cuda"
+def digest(out):
+    h = hashlib.sha256()
+    for t in out if isinstance(out, (tuple, list)) else (out,):
+        if isinstance(t, torch.Tensor):
+            h.update(t.detach().contiguous().cpu().view(torch.uint8)
+                     .numpy().tobytes())
+        else:
+            h.update(repr(t).encode())
+    return h.hexdigest()[:12]
+def ms(fn, iters=20, windows=5):
+    for _ in range(3):
+        fn()
+    out = []
+    for _ in range(windows):
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            fn()
+        z.record()
+        z.synchronize()
+        out.append(a.elapsed_time(z) / iters)
+    return [statistics.median(out), digest(fn())]
+def host_ms(fn):
+    out = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return [statistics.median(out), digest(got)]
+rows = {}
+for b in (cs.B, 1):
+    a1 = kc.mega_args(b, 2560, 64, 64, bf, dev, seed=2624)
+    rows[f"B1 B={b}"] = ms(lambda: mega.edge_mega_fwd(*a1))
+    rows[f"B1 B={b} without residuals"] = ms(
+        lambda: mega.edge_mega_fwd(*a1, residuals=False))
+    a4 = kc.paired_args(b, 2560, 64, bf, dev, seed=2626)
+    rows[f"B4 B={b}"] = ms(lambda: mega.edge_mega_paired_fwd(*a4))
+    rows[f"B4 B={b} without residuals"] = ms(
+        lambda: mega.edge_mega_paired_fwd(*a4, residuals=False))
+    a6, packed = kc.stack_args(b, 2560, bf, dev, seed=2566)
+    rows[f"B6 B={b}"] = ms(lambda: stack.stack_fwd(*a6, packed))
+    rows[f"B6 B={b} without residuals"] = ms(
+        lambda: stack.stack_fwd(*a6, packed, residuals=False))
+    if b == cs.B:
+        slow = dict(iters=5, windows=3)
+        rows["B1 plain B=128"] = ms(
+            lambda: mega.edge_mega_fwd_reference(*a1), **slow)
+        rows["B4 plain B=128"] = ms(
+            lambda: mega.edge_mega_paired_fwd_reference(*a4), **slow)
+        rows["B6 plain B=128"] = ms(
+            lambda: stack.stack_fwd_reference(*a6, packed), **slow)
+e3 = cs.edge_inputs(2560, 64, bf, seed=2626)
+rows["B3 fwd B=128"] = ms(lambda: edge.edge_program_fwd(*e3[0]))
+rows["B3 bwd B=128"] = ms(lambda: edge.edge_program_bwd(*e3[0], e3[1]))
+g = cs.tail_g_inputs(2560, 64, bf, seed=7)
+b2 = cs.b2_operands(*g)
+rows["B2 B=128"] = ms(lambda: mega.tail_bwd(*b2))
+rows["B5a B=128"] = ms(lambda: mega.tail_bwd_db(g[1], *g[2:]))
+rows["B5b B=128"] = ms(lambda: mega.tail_bwd_nodes(*g))
+layer, a7 = kc.b7_args(cs.B, 2560, 64, bf, dev, seed=2631)
+with torch.no_grad():
+    rows["B7 B=128"] = ms(lambda: fused_layer.fused_egnn_layer(layer, *a7))
+idx, mask, m, h = kc.segment_args(cs.B, 2560, cs.N, 67, bf, dev, seed=2633)
+rows["B8 scatter B=128"] = ms(lambda: segment.segment_scatter(idx, mask, m,
+                                                              cs.N))
+rows["B8 gather B=128"] = ms(lambda: segment.segment_gather(idx, mask, h))
+if not variant:
+    for b in (cs.B, 8):
+        c1 = kc.on("cpu", kc.mega_args(b, 2560, 64, 64, bf, dev, seed=2624))
+        rows[f"B1 on the CPU B={b}"] = host_ms(lambda: mega.edge_mega_fwd(*c1))
+    c6, p6 = kc.on("cpu", kc.stack_args(8, 2560, bf, dev, seed=2566))
+    rows["B6 on the CPU B=8"] = host_ms(lambda: stack.stack_fwd(*c6, p6))
+trainer, state = cs.make_trainer("HybridModelv2", "mega")
+batch = random_sample_batch(cs.B, cs.N, 2560, cs.L, seed=0, device=dev)
+losses, step_ms = cs.timed_steps(trainer, state, batch, cs.TRAIN_STEPS)
+rows["'mega' train step B=128"] = [statistics.median(step_ms[3:]),
+                                   digest(losses)]
+print(json.dumps(rows))
+"""
+
+
+def times(root, baseline, variants):
+    """_TIMES for the checkout holding ``baseline`` (its csrc/ directory),
+    this tree and this tree with each form of BODY_VARIANTS named in
+    ``variants``, each tree in a process of its own, in that order and then
+    back: a line per call with each tree's [ms, digest] readings (the same
+    digest, the same bits)."""
+    dirs = build_variants({v: body_variant(BODY_VARIANTS[v])
+                           for v in variants}, BODY_SOURCES, root)
+    trees = [("this", ROOT, None)] + [(v, ROOT, d) for v, d in dirs.items()]
+    if baseline is not None:
+        trees.insert(0, ("baseline", baseline.resolve().parents[1], None))
+    got = {name: [] for name, _, _ in trees}
+    for name, tree, d in trees + trees[::-1]:
+        run = subprocess.run([sys.executable, "-c", _TIMES, str(tree)]
+                             + ([str(d)] if d else []),
+                             capture_output=True, text=True)
+        assert run.returncode == 0, (name, run.stderr[-3000:])
+        got[name].append(json.loads(run.stdout.strip().splitlines()[-1]))
+    for key in got["this"][0]:
+        print("times:", json.dumps({"call": key, **{
+            name: [r.get(key) for r in rows] for name, rows in got.items()}}),
+            flush=True)
 
 
 # ---------------------------------------------------------------- B7
 
-def layer_fwd(root, baseline):
+def layer_fwd():
     variant_sweep(("B7",), {"this tree": None})
-    if baseline is None:
-        return
-    d = build_variants({"baseline": baseline}, ("egnn_layer_fwd",),
-                       root / "baseline")["baseline"]
-    other = baseline_module(baseline, "fused_layer")
-    trees = [("baseline", d, other), ("this", None, fused_layer)]
-    times = {}
-    for b, e, f in [(cs.B, e, f) for e in cs.EDGE_COUNTS for f in (64, 20)
-                    ] + [(8, 2560, 64), (1, 2560, 64)]:
-        layer, args = cs.b7_inputs(b, e, f, torch.bfloat16, seed=e + f + 7)
-        key = f"B={b} E={e} F={f} bf16"
-        times[key] = {"baseline": [], "this": [], "baseline device": [],
-                      "this device": []}
-        with torch.no_grad():
-            for label, dd, module in (trees[0], trees[1], trees[1],
-                                      trees[0]):
-                use(dd)
-
-                def call():
-                    module.fused_egnn_layer(layer, *args)
-                times[key][label].append(cs.cuda_ms(call))
-                times[key][f"{label} device"].append(cs.device_ms(call))
-        print("layer_fwd times:", json.dumps({key: times[key]}), flush=True)
-        del layer, args
-    use(None)
 
 
 # ---------------------------------------------------------------- repeat
@@ -730,8 +925,7 @@ def differ(runs):
     return total
 
 
-def repeat_calls(module_mega, module_stack, module_layer, module_egnn, b,
-                 dtype):
+def repeat_calls(b, dtype):
     """{kernel: a call on one seeded input} at B=b, E=2560."""
     dev = torch.device("cuda")
     a1 = kc.mega_args(b, 2560, 20, 64, dtype, dev, seed=b + 40)
@@ -741,23 +935,23 @@ def repeat_calls(module_mega, module_stack, module_layer, module_egnn, b,
     idx, mask, m, _ = kc.segment_args(b, 2560, N_SEG, 67, dtype, dev,
                                        seed=b + 43)
     calls = {
-        "B1": lambda: module_mega.edge_mega_fwd(*a1),
-        "B4": lambda: module_mega.edge_mega_paired_fwd(*a4),
-        "B6": lambda: module_stack.stack_fwd(*a6, packed),
+        "B1": lambda: mega.edge_mega_fwd(*a1),
+        "B4": lambda: mega.edge_mega_paired_fwd(*a4),
+        "B6": lambda: stack.stack_fwd(*a6, packed),
         "B8_scatter": lambda: (segment.segment_scatter(idx, mask, m, N_SEG),),
     }
 
     def b7():
         with torch.no_grad():
-            return module_layer.fused_egnn_layer(layer, *a7)
+            return fused_layer.fused_egnn_layer(layer, *a7)
     calls["B7"] = b7
     if dtype == torch.bfloat16:
         src, dst, msk = a1[:3]
-        _, r1, rx = module_mega.edge_mega_fwd(*a1)
+        _, r1, rx = mega.edge_mega_fwd(*a1)
         valid = mega.valid_edges(src, dst, msk, N_SEG)
         g = torch.randn(b, N_SEG, 67, generator=torch.Generator()
                         .manual_seed(b)).to(dev)
-        calls["hybrid backward"] = lambda: module_mega.edge_half_bwd(
+        calls["hybrid backward"] = lambda: mega.edge_half_bwd(
             src, dst, valid, *a1[3:], r1, rx, g, "hybrid")
         gen = torch.Generator().manual_seed(b + 44)
         lay = EGNNLayer(20, 64, 64, generator=gen, device=dev)
@@ -766,7 +960,7 @@ def repeat_calls(module_mega, module_stack, module_layer, module_egnn, b,
             def run(agg=agg):
                 lay.zero_grad()
                 hin = a1[4].detach().clone().requires_grad_(True)
-                h2, x2 = module_egnn.egnn_apply(lay, hin, a1[5], src, dst,
+                h2, x2 = egnn.egnn_apply(lay, hin, a1[5], src, dst,
                                                 a1[3], msk, agg)
                 ((h2 * cot).float().sum() + x2.float().sum()).backward()
                 return [h2.detach(), x2.detach(), hin.grad] + [
@@ -778,32 +972,20 @@ def repeat_calls(module_mega, module_stack, module_layer, module_egnn, b,
 N_SEG = 288
 
 
-def repeat(root, baseline):
-    trees = [("this", None, (mega, stack, fused_layer, egnn))]
-    if baseline is not None:
-        d = build_variants({"baseline": baseline},
-                           ("egnn_mega_fwd", "egnn_mega_paired_fwd",
-                            "egnn_stack_fwd", "egnn_layer_fwd"),
-                           root / "baseline")["baseline"]
-        trees.insert(0, ("baseline", d, tuple(
-            baseline_module(baseline, m)
-            for m in ("mega", "stack", "fused_layer", "egnn"))))
-    for label, dd, modules in trees:
-        for dtype in (torch.bfloat16, torch.float32):
-            for b in (1, 8, 128):
-                use(dd)
-                calls = repeat_calls(*modules, b, dtype)
-                row = {}
-                for kernel, call in calls.items():
-                    runs = [call() for _ in range(10)]
-                    torch.cuda.synchronize()
-                    row[kernel] = differ(runs)
-                    del runs
-                print("repeat:", json.dumps(dict(
-                    tree=label, B=b, E=2560, dtype=str(dtype).split(".")[1],
-                    launches=10, entries_that_differ=row)), flush=True)
-                del calls
-    use(None)
+def repeat():
+    for dtype in (torch.bfloat16, torch.float32):
+        for b in (1, 8, 128):
+            calls = repeat_calls(b, dtype)
+            row = {}
+            for kernel, call in calls.items():
+                runs = [call() for _ in range(10)]
+                torch.cuda.synchronize()
+                row[kernel] = differ(runs)
+                del runs
+            print("repeat:", json.dumps(dict(
+                B=b, E=2560, dtype=str(dtype).split(".")[1], launches=10,
+                entries_that_differ=row)), flush=True)
+            del calls
 
 
 # ---------------------------------------------------------------- SASS
@@ -867,29 +1049,6 @@ def entry_operands():
     return operands
 
 
-def segment_module(csrc_dir: Path):
-    """ops/segment.py of the checkout that holds ``csrc_dir``, as a module
-    of its own (it imports this tree's ops.edge)."""
-    path = csrc_dir.resolve().parent / "ops" / "segment.py"
-    spec = importlib.util.spec_from_file_location("baseline_segment", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
-@contextlib.contextmanager
-def segment_as(module):
-    """Within the block, ``immunostruct_tpu_torch.ops.segment`` (which
-    chip_smoke.py's B8 checks import) is ``module``."""
-    name = "immunostruct_tpu_torch.ops.segment"
-    saved = sys.modules[name]
-    sys.modules[name] = module
-    try:
-        yield
-    finally:
-        sys.modules[name] = saved
-
-
 def segment_round():
     """chip_smoke.py's B8 rows at the bench shapes and the entry point's."""
     rows = []
@@ -906,34 +1065,10 @@ def segment_round():
     return rows
 
 
-def segment_times(root, baseline):
+def segment_times():
     entry_operands()
-    trees = [("this", None, segment)]
-    if baseline is not None:
-        d = build_variants({"baseline": baseline}, ("segment",), root)
-        use(d["baseline"])
-        other = ("baseline", d["baseline"], segment_module(baseline))
-        other[2]._lib()  # its library, from its own segment.cu
-        trees = [other, trees[0], trees[0], other]
-    rows = []
-    for rnd, (label, d, module) in enumerate(trees):
-        use(d)
-        with segment_as(module):
-            for r in segment_round():
-                rows.append(dict(r, tree=label, round=rnd))
-                print("segment_times:", json.dumps(rows[-1]), flush=True)
-    use(None)
-    keys = ("ms", "device_ms", "host_us", "library_ms", "library_device_ms",
-            "library_host_us", "bound_ms")
-    shapes = {}
-    for r in rows:
-        shape = (r["kernel"], r["shapes"], r["B"], r["E"], r["dtype"])
-        shapes.setdefault(shape, {}).setdefault(r["tree"], []).append(
-            {k: r[k] for k in keys})
-    for shape, by_tree in shapes.items():
-        print("segment_times summary:", json.dumps(dict(
-            kernel=shape[0], shapes=shape[1], B=shape[2], E=shape[3],
-            dtype=shape[4], **by_tree)), flush=True)
+    for r in segment_round():
+        print("segment_times:", json.dumps(r), flush=True)
 
 
 def stamped(text: str, without_loads: bool) -> str:
@@ -1043,9 +1178,14 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", nargs="+", choices=KERNELS,
                     default=list(KERNELS))
-    ap.add_argument("--baseline", type=Path, default=None)
+    ap.add_argument("--baseline", type=Path, default=None,
+                    help="times: another checkout's csrc/ directory")
+    ap.add_argument("--variants", nargs="*", choices=list(BODY_VARIANTS),
+                    default=[], help="times: forms of B1's body to build")
     ap.add_argument("--inputs", nargs="+", default=None,
                     help="b3_flips: the B3 bwd inputs (kc.cases labels)")
+    ap.add_argument("--seeds", type=int, default=200,
+                    help="edge_recompute: extra seeds from 100 on")
     ap.add_argument("--families", nargs="+", choices=kc.KERNELS,
                     default=list(kc.KERNELS),
                     help="the kernels the sweep section reads")
@@ -1057,33 +1197,40 @@ def main():
     root = Path(tempfile.mkdtemp(dir=_build.BUILD_DIR))
     try:
         for kernel in opts.kernel:
+            use(None)
             if kernel == "sweep":
                 sweep(opts.families)
             elif kernel == "b3_flips":
-                use(None)
                 b3_flips(opts.inputs or [c.label for c in kc.cases("B3 bwd")])
+            elif kernel == "edge_recompute":
+                edge_recompute(root / "edge_recompute",
+                               range(100, 100 + opts.seeds),
+                               [k for k in ("B6", "B1")
+                                if k in opts.families])
+            elif kernel == "ties":
+                ties(root / "ties")
+            elif kernel == "times":
+                times(root / "times", opts.baseline, opts.variants)
             elif kernel == "tail":
-                tail(root / "tail", opts.baseline)
+                tail(root / "tail")
             elif kernel == "edge_bwd":
                 edge_bwd(root / "edge_bwd")
             elif kernel == "mega_fwd":
                 mega_fwd()
-                if opts.baseline is not None:
-                    fwd_times(root / "mega_fwd", opts.baseline, "mega_fwd")
             elif kernel == "paired_fwd":
-                paired_fwd(root / "paired_fwd", opts.baseline)
+                paired_fwd()
             elif kernel == "edge_fwd":
-                edge_fwd(root / "edge_fwd", opts.baseline)
+                edge_fwd(root / "edge_fwd")
             elif kernel == "stack_fwd":
-                stack_fwd(root / "stack_fwd", opts.baseline)
+                stack_fwd()
             elif kernel == "layer_fwd":
-                layer_fwd(root / "layer_fwd", opts.baseline)
+                layer_fwd()
             elif kernel == "repeat":
-                repeat(root / "repeat", opts.baseline)
+                repeat()
             elif kernel == "sass":
                 sass()
             elif kernel == "segment_times":
-                segment_times(root / "segment_times", opts.baseline)
+                segment_times()
             else:
                 segment_phases(root / "segment_phases")
     finally:

@@ -98,7 +98,14 @@ and at 1..8 (``kernel_checks.cases``).
   1000, the last graph all masked. Its bf16 form runs B1's tensor-core body
   layer by layer: where B1 runs one chunk a graph (B=128 on 132 SMs), each
   layer's a1s, xds and aggs are B1's on the same h and x bit for bit
-  (``test_stack_layers_are_b1_bit_for_bit``).
+  (``test_stack_layers_are_b1_bit_for_bit``). chip_smoke.py's B=1 row
+  (seed 2566) is a named input of kernel_checks' sweep and has a test of
+  its own.
+- B1's body (which B4 and B6 run) sums a1 and cw op by op in the plain
+  version's order and recomputes an a1s, m or c1 near a bf16 tie in it;
+  the plain version sums pa/pb, cw and the sums at dst in the kernels'
+  order (``ops/mega.py``), so on the card it is no longer the odd one out
+  of kernel, card and CPU (cuBLAS and atomics were).
 - Mutants: seven of B1's bf16 form (W1ab, xd, radial, m, c1, cw,
   cw*x_hat; the table says why W2/Wc1, silu(a1) and pa/pb have none),
   four of B3's forward (xd, radial, c1, cw; its table says why W1ab, W2,
@@ -110,8 +117,9 @@ and at 1..8 (``kernel_checks.cases``).
   geometry formed anew from the second half), two of the shared tail body
   through B5a (d_p2, d_a1), one of B5b (d_xd before the node sums), eight
   of B6's tensor-core form (W1ab, xd, radial, m, c1, cw, cw*x_hat, agg; its
-  table says why pa/pb, silu(a1), hmid, h and x have none), seven of B7's
-  (its table); each fails its kernel's bf16 bound.
+  table says why pa/pb, silu(a1), hmid, h and x have none), B1's body
+  without its edge chain's near-tie recompute (through B6 at B=1), seven
+  of B7's (its table); each fails its kernel's bf16 bound.
 
 - B8 (csrc/segment.cu, behind ``segment_scatter``/``segment_gather``): the
   gather bit for bit. The scatter, f32: |diff| <= 2 * k * 2^-24 * (the sum
@@ -167,6 +175,7 @@ tensors in f32 and bf16; a full-width HybridModelv2 exported under 'mega'
 eager ``Scorer``'s bits, and refuses to load for the CPU.
 """
 
+import contextlib
 import copy
 import functools
 import json
@@ -376,13 +385,52 @@ _MUTANTS = {
             r"\d\]\))\)", r"(\1)")],
     "radial": [(r"(r = )rnd<T>\((d0 \* d0 \+ d1 \* d1 \+ d2 \* d2)\)",
                 r"\1\2")],
-    "m": [(r"(const float mv = )rnd<bf>\((p \* sigmoid_fast\(p\))\)",
-           r"\1\2")],
-    "coord_hidden": [(r"(const float c1 = )rnd<bf>\((p \* sigmoid_fast\(p\))\)",
+    "m": [(r"(p2\[nt\]\[i\] = )rnd<bf>\((mv)\)", r"\1\2"),
+          (r"(set_at\(p2, i, )rnd<bf>\((p \* sigmoid\(p\))\)", r"\1\2")],
+    "coord_hidden": [(r"(p3\[nt\]\[i\] = )rnd<bf>\((cv)\)", r"\1\2"),
+                     (r"(set_at\(p3, i, )rnd<bf>\((p \* sigmoid\(p\))\)",
                       r"\1\2")],
     "cw": [(r"(const float cwb = )rnd<bf>\((cw)\)", r"\1\2")],
     "cw_xhat": [(r"rnd<bf>\((cwb \* g\.xh\[t \* 3 \+ k\])\)", r"(\1)")],
 }
+
+# B1's body (csrc/egnn_mega.cuh mma_edge_chunk, which B4 and B6 run too) as
+# it was before its edge chain recomputed near-tie roundings in the plain
+# version's order (a1s, m and c1) and rounded a1's and cw's sums op by op:
+# the near_tie tests of the body off (B6's node MLP keeps its own, in
+# csrc/egnn_stack_fwd.cu) and those sums as plain expressions, which nvcc
+# fuses into multiply-adds
+_NO_EDGE_RECOMPUTE = [
+    (r"near_tie\(", r"0 && near_tie("),
+    (r"__fadd_rn\(pa, pb\)", r"pa + pb"),
+    (r"__fadd_rn\(a, __fmul_rn\((\w+), (\w+)\)\)", r"a + \1 * \2"),
+    (r"__fadd_rn\(a, b1\)", r"a + b1"),
+    (r"__fadd_rn\(part\[i >> 1\],\s*__fmul_rn\((p3\[nt\]\[i\]), "
+     r"(sms\[kWC2 \* H \+ j\])\)\)", r"part[i >> 1] + \1 * \2")]
+
+
+@contextlib.contextmanager
+def unordered_plain():
+    """B1's plain version (so B4's and B6's) as it was before it took the
+    kernels' order: pa/pb by torch.matmul, cw by .sum and the sums at dst
+    by scatter_add_ (on the card cuBLAS, which sums pa/pb at M=288 out of
+    k order, and atomics)."""
+    def scatter_add(d, both, valid, n):
+        out = torch.zeros(both.shape[0], n, both.shape[2],
+                          dtype=torch.float32, device=both.device)
+        return out.scatter_add_(1, d[..., None].expand_as(both),
+                                both * valid[..., None])
+    def cw_sum(c1, wc2):
+        return (c1 * wc2).sum(-1, keepdim=True)
+    names = ("projection_in_order", "cw_in_order", "sum_at_dst_in_edge_order")
+    saved = [getattr(mega, name) for name in names]
+    for name, fn in zip(names, (torch.matmul, cw_sum, scatter_add)):
+        setattr(mega, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in zip(names, saved):
+            setattr(mega, name, fn)
 
 
 def _mutant_kernel(sources, mutants, tmp_path, monkeypatch):
@@ -1354,10 +1402,8 @@ _PAIRED_MUTANTS = {
     "radial": [(r"(r = )rnd<T>\((d0 \* d0 \+ d1 \* d1 \+ d2 \* d2)\)",
                 r"\1\2")],
     "weights": [(r"(w1s\[i\] = )rnd<\w+>\((w1ab\[i\])\)", r"\1\2")],
-    "m": [(r"(const float mv = )rnd<bf>\((p \* sigmoid_fast\(p\))\)",
-           r"\1\2")],
-    "coord_hidden": [(r"(const float c1 = )rnd<bf>\((p \* sigmoid_fast\(p\))\)",
-                      r"\1\2")],
+    "m": _MUTANTS["m"],
+    "coord_hidden": _MUTANTS["coord_hidden"],
     "cw": [(r"(const float cwb = )rnd<bf>\((cw)\)", r"\1\2")],
     "cw_xhat": [(r"rnd<bf>\((cwb \* g\.xh\[t \* 3 \+ k\])\)", r"(\1)")],
 }
@@ -1635,6 +1681,65 @@ def test_stack_bf16_bound_sees_the_near_tie_recompute(cuda, tmp_path,
     out = stack.stack_fwd(*args, packed)
     _mutant_fails_rule("B6 without the near-tie recompute",
                        kc.stack_checks(out, args, packed, cpu=True))
+
+
+def _smoke_b1_case():
+    (case,) = [c for c in kc.cases("B6") if c.shape.get("smoke")]
+    return case
+
+
+@pytest.mark.cuda
+def test_stack_kernel_meets_the_rule_on_chip_smokes_b1_row(cuda):
+    """chip_smoke.py's B6 row at B=1 (E=2560, seed 2566; kernel_checks'
+    named case) within the rule, the plain version run on the CPU on every
+    unit its yardstick. Before B1's body recomputed its edge chain's
+    near-tie roundings and the plain version summed in the kernels' order,
+    layer 1's h, column 0 read 1.2477 of its bound there and the CPU 0.8795
+    (an H100 run)."""
+    r = kc.run_case(_smoke_b1_case(), cuda, "all")
+    assert r["ok"], r["failing"]
+
+
+@pytest.mark.cuda
+def test_stack_bf16_rule_sees_the_edge_chain_recompute(cuda, tmp_path,
+                                                       monkeypatch,
+                                                       restore_kernels):
+    """Without its edge chain's near-tie recompute (B1's body as it was:
+    _NO_EDGE_RECOMPUTE), B6 on a B=1, E=2560 graph (seed 352) rounds a1s
+    and m otherwise than the plain version where they lie near a bf16 tie,
+    and layer 4's h, column 18 fails the per-column mean bound (3.595 of
+    what the rule allows, an H100 run, where 62 of 452 B=1 inputs fail)."""
+    args, packed = _stack_args(1, 2560, torch.bfloat16, cuda, seed=352)
+    _mutant_kernel("egnn_mega.cuh", _NO_EDGE_RECOMPUTE, tmp_path,
+                   monkeypatch)
+    out = stack.stack_fwd(*args, packed)
+    _mutant_fails_rule("B6 without the edge chain's near-tie recompute",
+                       kc.stack_checks(out, args, packed, cpu=True))
+
+
+@pytest.mark.cuda
+def test_stack_b1_row_fails_with_both_faults(cuda, tmp_path, monkeypatch,
+                                             restore_kernels):
+    """chip_smoke.py's B6 row at B=1 as it was judged before it was
+    repaired: B1's body without its edge chain's near-tie recompute, against
+    the plain version that summed with cuBLAS and atomics
+    (unordered_plain), fails the rule at layer 1's h, column 0, where the
+    CPU meets the bound. With either repair alone the row meets it: the
+    body's recompute against that plain version, and the body without it
+    against the plain version in the kernels' order (H100 runs)."""
+    case = _smoke_b1_case()
+    args, packed = _stack_args(1, 2560, torch.bfloat16, cuda, seed=case.seed)
+    repaired = stack.stack_fwd(*args, packed)
+    with unordered_plain():
+        assert kc.judge(kc.stack_checks(repaired, args, packed,
+                                        cpu=True))["ok"]
+    _mutant_kernel("egnn_mega.cuh", _NO_EDGE_RECOMPUTE, tmp_path,
+                   monkeypatch)
+    out = stack.stack_fwd(*args, packed)
+    assert kc.judge(kc.stack_checks(out, args, packed, cpu=True))["ok"]
+    with unordered_plain():
+        v = kc.judge(kc.stack_checks(out, args, packed, cpu=True))
+    assert not v["ok"] and v["failing"][0][:2] == ("layer 1 h mean", [0]), v
 
 
 _VARIANT_LAUNCHES = {                   # per train step of six layers

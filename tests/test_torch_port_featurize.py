@@ -232,42 +232,86 @@ def test_featurize_pdb_derived_name_matches_jax(tmp_path, capsys,
     assert "warning shown once" not in jax_out
 
 
+# A structure whose CA records all lie outside the subgraph's positions
+# (residues 200-201), and one whose residue number does not parse
+FAR_PDB = ("ATOM      1  CA  GLY A 200       0.000   0.000   0.000  1.00\n"
+           "ATOM      2  CA  ALA A 201       3.800   0.000   0.000  1.00\n")
+BROKEN_PDB = "ATOM      1  CA  GLY A  ab     0.000   0.000   0.000  1.00\n"
+
+
+def _featurize_or_error(fn, path, use_native):
+    try:
+        return fn(path, use_native=use_native)
+    except ValueError as e:
+        return f"{type(e).__name__}: {e}"
+
+
+@pytest.mark.parametrize("use_native", [False, True])
+@pytest.mark.parametrize("text", [FAR_PDB, BROKEN_PDB],
+                         ids=["no_subgraph_residue", "unparsable_residue"])
+def test_featurize_pdb_without_subgraph_residues_matches_jax(
+        tmp_path, text, use_native):
+    """No CA in positions 1-179 and 273-999: JAX's graph of no nodes on
+    both paths. A residue number that does not parse: on the numpy path
+    JAX's error, on the native path what JAX's native path writes (the
+    parser reads it as residue 0, which the filter drops)."""
+    assert jax_native.native_available()
+    path = str(tmp_path / "sImmunoQ.pdb")
+    with open(path, "w") as f:
+        f.write(text)
+    want = _featurize_or_error(jax_builder.featurize_pdb, path, use_native)
+    got = _featurize_or_error(builder.featurize_pdb, path, use_native)
+    if isinstance(want, str):
+        assert got == want
+        assert not use_native and text == BROKEN_PDB
+        return
+    _equal(got, want)
+    assert got[1].shape == (0, 22) and got[2].shape == (0, 3)
+    assert got[3].shape == (2, 0)
+
+
 @pytest.mark.parametrize("use_native", [False, True])
 def test_featurize_directory_matches_jax(tmp_path, use_native):
-    """A folder with a broken file: the same graph files and, on the numpy
-    path, the same error_log.txt; the other structures are written. The
-    native parser reads the broken residue number as 0 and the filter drops
-    it, so that path fails the structure for having no residue."""
+    """A folder with a structure of no subgraph residue and a broken one,
+    through each package's numpy or native path: the same graph files (the
+    arrays bit for bit; on the native path each edge list the same set of
+    arcs, the one documented ordering difference) and the same
+    error_log.txt, or none on both sides; the other structures are
+    written."""
+    assert jax_native.native_available()
     src = tmp_path / "pdbs"
     src.mkdir()
     rng = np.random.default_rng(5)
     for i in range(4):
         _write_complex(str(src / f"s{i}Immuno{i}.pdb"), rng)
-    (src / "brokenImmunoZ.pdb").write_text(
-        "ATOM      1  CA  GLY A  ab     0.000   0.000   0.000  1.00\n")
+    (src / "brokenImmunoZ.pdb").write_text(BROKEN_PDB)
+    (src / "farImmunoY.pdb").write_text(FAR_PDB)
     out = {}
     for tag, fn in (("jax", jax_builder.featurize_directory),
                     ("port", builder.featurize_directory)):
         dst = tmp_path / tag
-        written = fn(str(src), str(dst), workers=2,
-                     use_native=use_native if tag == "port" else False)
+        written = fn(str(src), str(dst), workers=2, use_native=use_native)
         out[tag] = (dst, sorted(os.path.basename(w) for w in written))
     (jd, jw), (pd, pw) = out["jax"], out["port"]
-    assert pw == jw and len(pw) == 4
+    assert pw == jw and len(pw) == (6 if use_native else 5)
+    assert "farImmunoY.npz" in pw
     assert sorted(os.listdir(pd)) == sorted(os.listdir(jd))
-    log = (pd / "error_log.txt").read_text()
     if use_native:
-        assert log == ("Error creating graph brokenImmunoZ. Encountered "
-                       "exception no CA record in the subgraph's residue "
-                       "positions (1-179, 273-999)\n")
+        assert not (pd / "error_log.txt").exists()
     else:
+        log = (pd / "error_log.txt").read_text()
         assert log == (jd / "error_log.txt").read_text()
         assert log.startswith("Error creating graph brokenImmunoZ.")
     for name in pw:
         with np.load(pd / name) as a, np.load(jd / name) as b:
             assert str(a["name"]) == str(b["name"])
-            for k in GRAPH_KEYS[1:]:
+            for k in ("x", "coords"):
                 np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+            if use_native:
+                assert _arc_set(a["edge_index"]) == _arc_set(b["edge_index"])
+            else:
+                np.testing.assert_array_equal(a["edge_index"],
+                                              b["edge_index"])
 
 
 def test_native_library_is_built_from_the_source(tmp_path, monkeypatch):

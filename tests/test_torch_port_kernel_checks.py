@@ -9,7 +9,8 @@
   read (the formulas they replaced, on seeded perturbations).
 - Every kernel's sweep runs on the CPU at a small shape (there the wrappers
   run the plain versions, so each input meets the rule at ratio 0), and
-  ``cases`` holds every card test's own seed and 1..8.
+  ``cases`` holds every card test's own seed and 1..8, and chip_smoke.py's
+  B6 row at B=1 as it draws it.
 - A fault planted in B1's output (one column off by 1%) fails the rule
   through ``run_case``.
 """
@@ -137,7 +138,7 @@ def test_every_kernel_meets_the_rule_on_the_cpu(kernel):
 
 @pytest.mark.parametrize("kernel,inputs", [
     ("B1", 90), ("B4", 81), ("B3 fwd", 162), ("B3 bwd", 108), ("B2", 90),
-    ("B5a", 72), ("B5b", 72), ("B6", 51), ("B7", 71), ("B8 scatter", 126),
+    ("B5a", 72), ("B5b", 72), ("B6", 52), ("B7", 71), ("B8 scatter", 126),
     ("B8 gather", 126)])
 def test_cases_hold_each_tests_seed_and_seeds_one_to_eight(kernel, inputs):
     cases = kc.cases(kernel)
@@ -151,6 +152,37 @@ def test_cases_hold_each_tests_seed_and_seeds_one_to_eight(kernel, inputs):
         assert own, shape
         assert len(cs) == len(own) or set(kc.SEEDS) <= {c.seed for c in cs}, \
             shape
+
+
+def test_cases_hold_chip_smokes_b6_row_at_b1():
+    """chip_smoke.py's B6 row at B=1 (E=2560, seed E + 6) is a named case of
+    B6's sweep, and stack_args draws it bit for bit as chip_smoke.py drew it
+    before it took its inputs from stack_args (indices, mask, ef, h0, x0,
+    then the six layers from a generator of the same seed)."""
+    from immunostruct_tpu_torch.ops.egnn import egnn_stack
+    from immunostruct_tpu_torch.ops.stack import pack_layer
+
+    (case,) = [c for c in kc.cases("B6") if c.shape.get("smoke")]
+    assert case.seed == kc.SMOKE_B1_SEED == 2566 and case.own
+    assert (case.shape["b"], case.shape["e"]) == (1, 2560)
+    assert case.label == "B6 b=1 e=2560 smoke=True seed=2566"
+    args, packed = kc.stack_args(1, 2560, torch.bfloat16, CPU, case.seed)
+    gen = torch.Generator().manual_seed(case.seed)
+    src = torch.randint(0, kc.N, (1, 2560), generator=gen, dtype=torch.int32)
+    dst = torch.randint(0, kc.N, (1, 2560), generator=gen, dtype=torch.int32)
+    src[:, :8] = dst[:, :8]
+    mask = torch.rand(1, 2560, generator=gen) >= 0.1
+    ef = torch.randn(1, 2560, 1, generator=gen)
+    h0 = torch.randn(1, kc.N, 20, generator=gen)
+    x0 = torch.randn(1, kc.N, 3, generator=gen)
+    src[:, 8:12] = -1
+    dst[:, 12:16] = kc.N
+    want = [src, dst, mask, *(t.to(torch.bfloat16) for t in (ef, h0, x0))]
+    assert all(torch.equal(a, w) for a, w in zip(args, want))
+    layers = egnn_stack(5, 20, kc.HID, generator=torch.Generator()
+                        .manual_seed(case.seed))
+    assert all(torch.equal(a, w) for p, layer in zip(packed, layers)
+               for a, w in zip(p, pack_layer(layer)))
 
 
 def test_a_fault_in_b1_fails_the_rule(monkeypatch):
