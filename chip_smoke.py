@@ -9,6 +9,11 @@ this one's, each in a fresh process, in the order DIR ..., this, this,
 ... DIR (``compare_eager``); in this one's, through the kernel ops and
 with the wrappers launching directly in turn (``eager_walls``).
 
+The Trainers' steps and the Scorers' forwards in every phase run as
+captured CUDA graphs (immunostruct_tpu_torch/utils/capture.py), as a
+user's do on the card: a key's first call eager, its second captured, later
+calls replayed. Phase 31 holds them to the eager path.
+
 Phases (none catches its own failure; any failure exits non-zero):
   1. require CUDA;
   2. print the card's name and power limit (nvidia-smi);
@@ -252,7 +257,9 @@ Phases (none catches its own failure; any failure exits non-zero):
      its eager forward launches per call (6 B1 under 'mega'); a request of
      another shape is a 400; (e) is within 0.05 of (a); then
      torch.library.opcheck on the four kernel ops with CUDA tensors;
-  28. trace forwards and train steps with torch.profiler ('mega',
+  28. trace forwards and train steps with torch.profiler (the Scorer's
+     forwards and the Trainers' steps captured graphs, as in every phase;
+     artifacts (a) and (b) called directly, eagerly; 'mega',
      'scatter' and fused_stack (B7) for the forwards, and artifacts (a)
      and (b); for the step also
      'fused', 'pallas' and 'mega' under 'stack', 'inkernel' and 'paired')
@@ -332,7 +339,28 @@ Phases (none catches its own failure; any failure exits non-zero):
      without: the same bits, losses and launches; train_IEDB_wFT
      --wandb-username with a stand-in wandb module: every JSONL line
      logged there;
-  31. print the times beside the card's name and power limit, then the
+  31. the captured programs (utils/capture.py; "captured 31" lines, with
+     the card's name and power limit): (a) 20 full-width 'mega' train
+     steps (HybridModelv2, B=128, E=2560, bf16) through a Trainer that
+     captures (the first step eager, the second captured, 18 replays) and
+     20 through one that does not (``capture=False``), from the same
+     weights and seed: the same losses, parameters and Adam moments bit for
+     bit, 6 B1 + 6 B2 + 12 B8 scatter launches a step on both (the counts
+     follow the replays); then 5 eval steps of the captured Trainer; (b)
+     20 requests at B=128 and at B=1 (E=2560) through a captured Scorer
+     and an eager one in turn, and through artifacts (a) and (b) of phase
+     27b loaded twice, one ArtifactScorer captured and one not: the same
+     bits, 6 B1 a call. Printed for each: the median walls captured and
+     eager, the device's busy time and idle share (torch.profiler over
+     traced calls: 1 - busy/wall, and utils/attribution.py's occupancy),
+     the host's ATen calls a call, the capture time, the peak device
+     memory (allocated and reserved), the replays and the launches by
+     kernel. The counts of a replay are added by the program, not by the
+     wrappers, so each traced window also counts the csrc kernels by name
+     in the profiler's trace (utils/attribution.py's labels) and asserts
+     that they equal the counters' increments over the same calls,
+     captured and eager;
+  32. print the times beside the card's name and power limit, then the
      kernel record (eleven kernels) as one JSON line, the card line and, last,
      the result line {"ok": true, "device": {...}}.
 """
@@ -341,6 +369,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -862,9 +891,9 @@ def plain_probs(scorer, path):
 
 def _counted():
     """The eleven launch wrappers, in read_counts' order."""
-    from immunostruct_tpu_torch.cli.race_kernel_variants import counters
+    from immunostruct_tpu_torch.ops import launch_counters
 
-    wrappers = counters()
+    wrappers = launch_counters()
     return tuple(wrappers[k] for k in ("B1", "B2", "B3_fwd", "B3_bwd",
                                        "B8_scatter", "B8_gather", "B4",
                                        "B5a", "B5b", "B6", "B7"))
@@ -3570,7 +3599,8 @@ def check_artifacts(scorer, requests, tmp: str) -> tuple:
 
 def profile_artifacts(scorer, paths: dict, traced: int = 3) -> list:
     """Phase 28's rows for artifacts (a) and (b): 20 calls each of the
-    artifact and of the eager 'mega' Scorer on the same request, in turn
+    artifact (called directly: eager) and of the 'mega' Scorer (captured)
+    on the same request, in turn
     (each ending in a copy to the host, as a served forward does; the
     medians printed side by side), then ``traced`` artifact calls under
     torch.profiler."""
@@ -3585,7 +3615,7 @@ def profile_artifacts(scorer, paths: dict, traced: int = 3) -> list:
             tensors = [torch.from_numpy(z[k]).cuda() for k in REQUEST_KEYS]
         args = request_to_args(a["request"], scorer.device, scorer.model)
         calls = (("artifact", lambda: art(*tensors).cpu()),
-                 ("eager", lambda: scorer(*args)))
+                 ("scorer", lambda: scorer(*args)))
         walls = {kind: [] for kind, _ in calls}
         for i in range(23):
             for kind, fn in calls:
@@ -3601,22 +3631,35 @@ def profile_artifacts(scorer, paths: dict, traced: int = 3) -> list:
         turn = dict(artifact=label, B=b,
                     artifact_wall_ms_median=statistics.median(
                         walls["artifact"]),
-                    eager_wall_ms_median=statistics.median(walls["eager"]))
+                    scorer_wall_ms_median=statistics.median(walls["scorer"]))
         print("artifact and eager in turn:", json.dumps(turn), flush=True)
         rows[-1]["in_turn"] = turn
     return rows
 
 
-def device_profile(fn, traced: int) -> tuple:
+def device_profile(fn, traced: int, warmup: int = 0,
+                   at_record=None) -> tuple:
     """``traced`` calls of ``fn`` under torch.profiler: (device time and
     launches by kernel name over the ``traced`` calls, the host's ATen
     calls per call: every ``aten::`` event, nested ones too, and those of
     them that are ``aten::_assert_tensor_metadata``, the device events
-    [(start_us, end_us, name)] in time order)."""
-    from torch.profiler import ProfilerActivity, profile
+    [(start_us, end_us, name)] in time order). ``warmup`` calls run first
+    with the tracer prepared but not recording (torch.profiler's schedule),
+    then a sync, so that the recording starts on a tracer already up;
+    ``at_record()`` is called as it starts."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    plan = (schedule(wait=0, warmup=warmup, active=traced, repeat=1)
+            if warmup else None)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=plan) as prof:
+        for _ in range(warmup):
+            fn()
+        if warmup:
+            torch.cuda.synchronize()
+            prof.step()
+        if at_record is not None:
+            at_record()
         for _ in range(traced):
             fn()
         torch.cuda.synchronize()
@@ -4450,8 +4493,7 @@ def half_steps(trainer, state, batch, seed: int, k: int):
         for p in state.model.parameters():
             if p.grad is not None:
                 p.grad.mul_(1.0 / k)
-    for group in state.optimizer.param_groups:
-        group["lr"] = trainer.optimizer.lr(state.step)
+    trainer.optimizer.apply_lr(state.optimizer, state.step)
     state.optimizer.step()
     state.step += 1
     return state, total * (1.0 / k)
@@ -4713,6 +4755,227 @@ def check_augmented(tmp: str, entry: dict, ds) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 31: the captured programs against the eager path
+# --------------------------------------------------------------------------
+
+CAPTURED_STEPS = 20             # train steps a Trainer (1 eager, 19 graph)
+CAPTURED_REQUESTS = 20          # requests a scorer
+CAPTURED_TRACED = 5             # calls under torch.profiler
+
+
+# read_counts()' kernels by their labels in utils/attribution.py
+TRACE_LABELS = ("B1", "B2", "B3 fwd", "B3 bwd", "B8 scatter", "B8 gather",
+                "B4", "B5a", "B5b", "B6", "B7")
+
+
+def _traced(fn, wall_ms: float) -> dict:
+    """``CAPTURED_TRACED`` calls of ``fn`` under torch.profiler: the
+    device's busy time a call, its idle share against ``wall_ms`` (1 -
+    busy/wall) and over the traced span (``attribution.occupancy``), the
+    host's ATen calls a call; and the csrc kernels the trace names, by
+    kernel, which must equal the launch counters' increments over the same
+    calls (a replay's counts are the program's, not the wrappers')."""
+    from immunostruct_tpu_torch.utils.attribution import (
+        csrc_kernel, occupancy,
+    )
+
+    def window():
+        start = []
+        per_name, host, timeline = device_profile(
+            fn, CAPTURED_TRACED, warmup=1,
+            at_record=lambda: start.append(read_counts()))
+        counted = tuple(a - z for a, z in zip(read_counts(), start[0]))
+        traced = dict.fromkeys(TRACE_LABELS, 0)
+        for name, (_, launches) in per_name.items():
+            label = csrc_kernel(name)
+            if label is not None:
+                traced[label] += launches
+        return per_name, host, timeline, tuple(traced.values()), counted
+
+    per_name, host, timeline, traced, counted = window()
+    retraced = None
+    if traced != counted:
+        # the tracer dropped one kernel's record (29 of 30 B1) in a long
+        # process whose recording began without a warm-up; a graph that
+        # stopped launching a kernel falls short in every window, so one
+        # window more decides
+        odd = {k: c for k, (_, c) in per_name.items()
+               if c % CAPTURED_TRACED}
+        print(f"captured 31: trace {traced} against the counters "
+              f"{counted}; kernels whose count is no multiple of "
+              f"{CAPTURED_TRACED}: {odd}", flush=True)
+        retraced = dict(traced=traced, counted=counted)
+        per_name, host, timeline, traced, counted = window()
+    assert traced == counted, (traced, counted, retraced)
+    busy = sum(t for t, _ in per_name.values()) / 1e3 / CAPTURED_TRACED
+    occ = occupancy(timeline, CAPTURED_TRACED)
+    return dict(device_busy_ms=busy, idle_share=max(0.0, 1.0 - busy / wall_ms),
+                occupancy_idle_share=occ["idle_frac"],
+                occupancy_span_ms=occ["span_ms"],
+                device_ops_per_call=sum(c for _, c in per_name.values())
+                / CAPTURED_TRACED, host_aten_calls=host["aten"],
+                traced_launches=traced, counted_launches=counted,
+                first_window=retraced)
+
+
+def _memory_window():
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+
+def _memory_peaks(base) -> dict:
+    torch.cuda.synchronize()
+    return dict(peak_allocated_bytes=torch.cuda.max_memory_allocated()
+                - base[0],
+                peak_reserved_bytes=torch.cuda.max_memory_reserved()
+                - base[1])
+
+
+def captured_training(card: str) -> dict:
+    """Phase 31a (module docstring)."""
+    from immunostruct_tpu_torch.data.synthetic import random_sample_batch
+
+    batch = random_sample_batch(B, N, EDGE_COUNTS[0], L, seed=0,
+                                device="cuda")
+    runs = {}
+    for kind, capture in (("captured", None), ("eager", False)):
+        trainer, state = make_trainer("HybridModelv2", "mega",
+                                      capture=capture)
+        base = _memory_window()
+        reset_counts()                  # every count to 0: the 20 steps
+        losses, walls = [], []
+        for _ in range(CAPTURED_STEPS):
+            t0 = time.perf_counter()
+            state, loss = trainer.train_step(state, batch, seed=0)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+        counts = read_counts()          # read just after them
+        n = 6 * CAPTURED_STEPS
+        assert counts == (n, n, 0, 0, 2 * n) + (0,) * 6, (kind, counts)
+        program = trainer.train_program
+        row = dict(launches=counts, losses=[float(v) for v in losses],
+                   first_wall_ms=walls[:2], wall_ms_median=statistics.median(
+                       walls[2:]), eager_calls=dict(program.eager_calls),
+                   captures=program.captures, replays=program.replays,
+                   capture_s=program.capture_seconds(),
+                   **_memory_peaks(base))
+        bits = dict(losses=torch.stack(losses),
+                    params=[p.detach().clone()
+                            for p in state.model.parameters()],
+                    moments=[state.optimizer.state[p][k].clone()
+                             for p in state.model.parameters()
+                             for k in ("exp_avg", "exp_avg_sq")])
+        row.update(_traced(lambda: trainer.train_step(state, batch, seed=0),
+                           row["wall_ms_median"]))
+        base = _memory_window()
+        for i in range(5):
+            trainer.eval_step(state.model, batch, 1, index=i)
+        row["eval"] = dict(trainer.eval_program.eager_calls,
+                           captures=trainer.eval_program.captures,
+                           replays=trainer.eval_program.replays,
+                           **_memory_peaks(base))
+        runs[kind] = (row, bits)
+        del trainer, state
+    (cap, cap_bits), (eag, eag_bits) = runs["captured"], runs["eager"]
+    assert (cap["captures"], cap["replays"]) == (1, CAPTURED_STEPS - 1), cap
+    assert cap["eager_calls"] == {"first call": 1}, cap
+    assert eag["eager_calls"] == {"asked": CAPTURED_STEPS}, eag
+    assert torch.equal(cap_bits["losses"], eag_bits["losses"])
+    for part in ("params", "moments"):
+        differ = sum(int((a != b).sum()) for a, b in zip(cap_bits[part],
+                                                         eag_bits[part]))
+        assert differ == 0, (part, differ)
+    assert cap["losses"][-1] < cap["losses"][0], cap["losses"]
+    for kind, row in (("captured", cap), ("eager", eag)):
+        print(f"captured 31 [{card}]: 'mega' train step B=128 E=2560 bf16, "
+              f"{kind}: " + json.dumps(row), flush=True)
+    return dict(captured=cap, eager=eag)
+
+
+def _in_turn(calls: dict, n: int) -> dict:
+    """``n`` calls of each of ``calls`` (name -> fn returning numpy) in
+    turn: their walls (ms) and results."""
+    walls = {k: [] for k in calls}
+    out = {k: [] for k in calls}
+    for _ in range(n):
+        for k, fn in calls.items():
+            t0 = time.perf_counter()
+            out[k].append(fn())
+            walls[k].append((time.perf_counter() - t0) * 1e3)
+    return walls, out
+
+
+def captured_serving(card: str, scorer, requests, artifacts: dict) -> list:
+    """Phase 31b (module docstring)."""
+    from immunostruct_tpu_torch.serving import (
+        ArtifactScorer, Scorer, request_to_args,
+    )
+    from immunostruct_tpu_torch.utils.export import REQUEST_KEYS, load_exported
+
+    rows = []
+    for label, b, path in (requests[0], requests[2]):
+        args = request_to_args(path, "cuda", scorer.model)
+        pair = {kind: Scorer(scorer.model, device="cuda",
+                             compute_dtype=scorer.compute_dtype,
+                             aggregation="mega", seed=scorer.seed,
+                             capture=capture)
+                for kind, capture in (("captured", None), ("eager", False))}
+        reset_counts()                  # every count to 0: the requests
+        walls, out = _in_turn({k: functools.partial(s, *args)
+                               for k, s in pair.items()}, CAPTURED_REQUESTS)
+        counts = read_counts()          # read just after them
+        assert counts == (12 * CAPTURED_REQUESTS,) + (0,) * 10, counts
+        rows.append(_served_row(card, f"Scorer {label}", pair, walls, out,
+                                lambda s: (lambda: s(*args))))
+    for label, a in artifacts.items():
+        with np.load(a["request"]) as z:
+            tensors = [torch.from_numpy(z[k]).cuda() for k in REQUEST_KEYS]
+        pair = {kind: ArtifactScorer(load_exported(a["path"], "cuda"),
+                                     capture)
+                for kind, capture in (("captured", None), ("eager", False))}
+        reset_counts()
+        walls, out = _in_turn({k: functools.partial(s, *tensors)
+                               for k, s in pair.items()}, CAPTURED_REQUESTS)
+        counts = read_counts()
+        assert counts == (12 * CAPTURED_REQUESTS,) + (0,) * 10, counts
+        eager_scorer = Scorer(scorer.model, device="cuda",
+                              compute_dtype=scorer.compute_dtype,
+                              aggregation="mega", seed=scorer.seed,
+                              capture=False)
+        want = eager_scorer(*request_to_args(a["request"], "cuda",
+                                             scorer.model))
+        assert np.array_equal(out["captured"][0], want), label
+        rows.append(_served_row(card, f"artifact ({label}) B="
+                                f"{tensors[0].shape[0]} E=2560", pair, walls,
+                                out,
+                                lambda s: (lambda: s(*tensors))))
+    return rows
+
+
+def _served_row(card, work, pair, walls, out, call) -> dict:
+    """Hold the captured calls to the eager ones bit for bit and print
+    phase 31b's row of ``work``."""
+    for got, want in zip(out["captured"], out["eager"]):
+        assert np.array_equal(got, want), work
+    assert np.isfinite(out["captured"][0]).all(), work
+    program = pair["captured"].program
+    assert (program.captures, program.replays) == (
+        1, CAPTURED_REQUESTS - 1), (work, program.captures, program.replays)
+    row = dict(work=work, capture_s=program.capture_seconds(),
+               replays=program.replays)
+    for kind, s in pair.items():
+        wall = statistics.median(walls[kind][2:])
+        row[kind] = dict(wall_ms_median=wall, first_wall_ms=walls[kind][:2],
+                         **_traced(call(s), wall))
+    print(f"captured 31 [{card}]: served {work} bf16: "
+          + json.dumps(row), flush=True)
+    return row
+
+
+# --------------------------------------------------------------------------
 # the eager paths against other checkouts (python3 chip_smoke.py
 # --eager-walls DIR ...)
 # --------------------------------------------------------------------------
@@ -4956,6 +5219,10 @@ def run_phases(card: str, clinical: ClinicalCorpus) -> int:
         accumulated.update(check_accumulated_entry_points(tmp, entry, cancer,
                                                           card))
         clock("accumulation and wandb (30)")
+        captured = dict(training=captured_training(card),
+                        serving=captured_serving(card, scorer, requests,
+                                                 artifact_paths))
+        clock("captured programs (31)")
 
     def pick(rows, **want):
         return next(r for r in rows if r["E"] == 2560 and r["F"] == 64
@@ -4993,8 +5260,8 @@ def run_phases(card: str, clinical: ClinicalCorpus) -> int:
         t = r["in_turn"]
         print(f"profile [{card}]: artifact ({t['artifact']}) B={t['B']} "
               f"E=2560 'mega': wall {t['artifact_wall_ms_median']:.3f} ms "
-              f"(the eager Scorer in turn {t['eager_wall_ms_median']:.3f} "
-              f"ms), device busy {r['device_busy_ms']:.3f} ms, idle share "
+              f"eager (the captured Scorer in turn "
+              f"{t['scorer_wall_ms_median']:.3f} ms), device busy {r['device_busy_ms']:.3f} ms, idle share "
               f"{r['idle_share']:.3f}, {r['device_ops_per_call']:.0f} device "
               f"ops a call")
     for r in op_rows:
@@ -5114,6 +5381,33 @@ def run_phases(card: str, clinical: ClinicalCorpus) -> int:
                   f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']}){bare}")
 
+    for kind in ("captured", "eager"):
+        r = captured["training"][kind]
+        print(f"captured 31 [{card}]: 'mega' train step B=128 E=2560 bf16 "
+              f"{kind}: median wall {r['wall_ms_median']:.3f} ms, device "
+              f"busy {r['device_busy_ms']:.3f} ms, idle share "
+              f"{r['idle_share']:.4f} (occupancy of back-to-back steps "
+              f"{r['occupancy_idle_share']:.4f}), {r['host_aten_calls']:.0f} "
+              f"host aten calls a step, capture {r['capture_s']:.3f} s, "
+              f"peak allocated {r['peak_allocated_bytes']} B, reserved "
+              f"{r['peak_reserved_bytes']} B, replays {r['replays']}, "
+              f"launches {list(r['launches'])}; over {CAPTURED_TRACED} "
+              f"traced steps the trace names {list(r['traced_launches'])}"
+              f", the counters {list(r['counted_launches'])}")
+    for r in captured["serving"]:
+        c, e = r["captured"], r["eager"]
+        print(f"captured 31 [{card}]: served {r['work']} bf16: median wall "
+              f"{c['wall_ms_median']:.3f} ms captured, {e['wall_ms_median']:.3f}"
+              f" ms eager; device busy {c['device_busy_ms']:.3f} / "
+              f"{e['device_busy_ms']:.3f} ms; idle share "
+              f"{c['idle_share']:.4f} / {e['idle_share']:.4f} (occupancy "
+              f"{c['occupancy_idle_share']:.4f} / "
+              f"{e['occupancy_idle_share']:.4f}); host aten calls "
+              f"{c['host_aten_calls']:.0f} / {e['host_aten_calls']:.0f}; "
+              f"capture {r['capture_s']:.3f} s, replays {r['replays']}; over "
+              f"{CAPTURED_TRACED} traced calls the trace names "
+              f"{list(c['traced_launches'])} captured, "
+              f"{list(e['traced_launches'])} eager, as the counters")
     mfu = profiled_steps["mfu"]
     for label, r in profiled_steps["runs"].items():
         same = ("" if "ratio_to_phase28" not in r else
@@ -5180,7 +5474,9 @@ def run_phases(card: str, clinical: ClinicalCorpus) -> int:
                     artifact_serving=artifact_counts,
                     profile_step=mfu["launches"]["train"],
                     device_data_ssl=aug["launches"],
-                    twin_accumulated=accumulated["bfloat16"]["launches"])
+                    twin_accumulated=accumulated["bfloat16"]["launches"],
+                    captured_train=captured["training"]["captured"][
+                        "launches"])
     b1, b2 = pick(fwd_rows), pick(tail_rows)
     b3f, b3b = pick(edge_rows, kernel="fwd"), pick(edge_rows, kernel="bwd")
     b8s, b8g = (next(r for r in segment_rows if r["kernel"] == kind

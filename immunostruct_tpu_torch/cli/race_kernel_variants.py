@@ -45,6 +45,10 @@ import time
 
 import torch
 
+from immunostruct_tpu_torch.ops import (  # noqa: F401  (the race's names)
+    launch_counters as counters, read_launch_counts as read_counts,
+)
+
 NODES, SEQ_LEN = 288, 284
 # variant -> (aggregation, mega_variant)
 VARIANTS = {
@@ -57,30 +61,6 @@ VARIANTS = {
 }
 _TPU_FORMS = re.compile(r"base|cast|stacked|split|concat|skipprobe|"
                         r"inner\d+|tinner\d+|combo\d+x\d+|combo\d\d")
-
-
-def counters() -> dict:
-    """The kernel wrappers whose ``launches`` a race reads, by kernel."""
-    from immunostruct_tpu_torch.ops.edge import edge_program, edge_program_bwd
-    from immunostruct_tpu_torch.ops.fused_layer import fused_egnn_layer
-    from immunostruct_tpu_torch.ops.mega import (
-        edge_mega, edge_mega_paired_fwd, tail_bwd, tail_bwd_db,
-        tail_bwd_nodes,
-    )
-    from immunostruct_tpu_torch.ops.segment import (
-        segment_gather, segment_scatter,
-    )
-    from immunostruct_tpu_torch.ops.stack import stack_fwd
-
-    return {"B1": edge_mega, "B2": tail_bwd, "B3_fwd": edge_program,
-            "B3_bwd": edge_program_bwd, "B4": edge_mega_paired_fwd,
-            "B5a": tail_bwd_db, "B5b": tail_bwd_nodes, "B6": stack_fwd,
-            "B7": fused_egnn_layer, "B8_scatter": segment_scatter,
-            "B8_gather": segment_gather}
-
-
-def read_counts() -> dict:
-    return {k: fn.launches for k, fn in counters().items()}
 
 
 def check_variants(names, paired_batch: bool) -> None:

@@ -188,13 +188,13 @@ def _sync(device) -> None:
 
 
 def _counts():
-    from immunostruct_tpu_torch.cli.race_kernel_variants import counters
-    return {k: fn.launches for k, fn in counters().items()}
+    from immunostruct_tpu_torch.ops import read_launch_counts
+    return read_launch_counts()
 
 
 def _reset_counts():
-    from immunostruct_tpu_torch.cli.race_kernel_variants import counters
-    for fn in counters().values():
+    from immunostruct_tpu_torch.ops import launch_counters
+    for fn in launch_counters().values():
         fn.launches = 0
 
 

@@ -94,8 +94,7 @@ def check_shardable(trainer: Trainer, **pipes) -> None:
 
 
 def _apply_update(trainer: Trainer, state, loss):
-    for group in state.optimizer.param_groups:
-        group["lr"] = trainer.optimizer.lr(state.step)
+    trainer.optimizer.apply_lr(state.optimizer, state.step)
     state.optimizer.step()
     state.step += 1
     return state, loss

@@ -12,6 +12,7 @@ per-patient survival analysis to ``procedures/clinical.py``.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Optional
 
@@ -19,39 +20,59 @@ import numpy as np
 import torch
 
 from immunostruct_tpu_torch.models.trunk import (
-    ImmunoStructModel, model_apply, model_apply_comparative,
+    ImmunoStructModel, gcn_aggregation, model_apply, model_apply_comparative,
 )
 from immunostruct_tpu_torch.procedures.clinical import clinical_pvalues
 from immunostruct_tpu_torch.procedures.metrics import (
     evaluate_metrics, find_optimal_threshold,
 )
-from immunostruct_tpu_torch.procedures.train import step_generator
-from immunostruct_tpu_torch.structs import ComparativeBatch, first_tensor
+from immunostruct_tpu_torch.procedures.train import derived_seed
+from immunostruct_tpu_torch.structs import ComparativeBatch
+from immunostruct_tpu_torch.utils.capture import Program, module_tensors
+
+
+def forward_logits(model: ImmunoStructModel, batch, generator, *,
+                   aggregation: str, compute_dtype):
+    """The deterministic forward's logits of a batch: the twin forward for a
+    ``ComparativeBatch``. What a batch-inference program runs or
+    captures."""
+    kw = dict(generator=generator, deterministic=True,
+              aggregation=aggregation, compute_dtype=compute_dtype)
+    if isinstance(batch, ComparativeBatch):
+        c, w = batch.cancer, batch.wt
+        return model_apply_comparative(
+            model, (c.graph, w.graph), (c.seq_onehot, w.seq_onehot),
+            (c.props, w.props), **kw)[2]
+    return model_apply(model, batch.graph, batch.seq_onehot, batch.props,
+                       **kw).logits
 
 
 def collect_probs(config, model: ImmunoStructModel, pipe, seed: int):
     """(probabilities, targets) over one pass of ``pipe``, as numpy; batch
     ``i`` draws its VAE noise from ``step_generator(seed, i)``. A
     ``ComparativeBatch`` goes through the twin forward and gives the cancer
-    side's target (infer.py:36-43 of the JAX package)."""
-    kw = dict(deterministic=True, aggregation=config.aggregation,
-              compute_dtype=getattr(torch, config.compute_dtype))
+    side's target (infer.py:36-43 of the JAX package). Each batch's
+    forward is a ``utils/capture.py`` program, the counterpart of the JAX
+    package's jitted forward: captured on the card for each batch shape,
+    eager on the CPU."""
+    compute_dtype = getattr(torch, config.compute_dtype)
+    forward = functools.partial(forward_logits, model,
+                                aggregation=config.aggregation,
+                                compute_dtype=compute_dtype)
+    program = Program("batch inference")
     probs, targets = [], []
     with torch.inference_mode():
         for i, batch in enumerate(pipe.epoch(0)):
-            gen = step_generator(seed, i, first_tensor(batch).device)
-            if isinstance(batch, ComparativeBatch):
-                c, w = batch.cancer, batch.wt
-                _, _, logits = model_apply_comparative(
-                    model, (c.graph, w.graph), (c.seq_onehot, w.seq_onehot),
-                    (c.props, w.props), generator=gen, **kw)
-                target = c.target
-            else:
-                logits = model_apply(model, batch.graph, batch.seq_onehot,
-                                     batch.props, generator=gen, **kw).logits
-                target = batch.target
+            side = (batch.cancer if isinstance(batch, ComparativeBatch)
+                    else batch)
+            agg = (gcn_aggregation(model, side.graph, config.aggregation)
+                   if model.spec.use_structure else config.aggregation)
+            logits = program(forward, batch,
+                             static=("forward", agg, compute_dtype),
+                             seed=derived_seed(seed, i),
+                             state=functools.partial(module_tensors, model))
             probs.append(torch.sigmoid(logits.reshape(-1).float()))
-            targets.append(target.reshape(-1))
+            targets.append(side.target.reshape(-1))
     return (torch.cat(probs).cpu().numpy(),
             torch.cat(targets).float().cpu().numpy())
 

@@ -3,10 +3,16 @@
 eval steps, and ``fit``, the epoch loop), the collapse guard and
 ``train_model``, the stage runner.
 
-PyTorch runs the step eagerly: the forward, the stage loss, ``backward()``
-(through the EGNN kernels' ``EdgeMega`` on the 'mega' path) and the
-optimizer update, on the parameters in place. Master weights stay in their
-dtype (f32); ``compute_dtype`` is the forward's.
+A step is the forward, the stage loss, ``backward()`` (through the EGNN
+kernels' ``EdgeMega`` on the 'mega' path) and the optimizer update, on the
+parameters in place. Master weights stay in their dtype (f32);
+``compute_dtype`` is the forward's. On the card the train and eval steps
+are captured programs (``utils/capture.py``), the counterparts of the JAX
+package's two jitted steps: each key's first step runs eagerly, its second
+is captured as a CUDA graph, and later steps replay it with the eager
+step's bits (the step's generator re-seeded, the rate a device tensor).
+They run eagerly on the CPU, under a mesh (``--data-parallel``) and with
+``Trainer(capture=False)``.
 
 Parity notes, as in the JAX package:
 - the comparative loss averages the twin losses and adds the gated
@@ -37,6 +43,7 @@ that ends a stage comes from those global values.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import time
 from typing import Callable, Optional
@@ -45,7 +52,8 @@ import numpy as np
 import torch
 
 from immunostruct_tpu_torch.models.trunk import (
-    ImmunoStructModel, ModelSpec, model_apply, model_apply_comparative,
+    ImmunoStructModel, ModelSpec, gcn_aggregation, model_apply,
+    model_apply_comparative,
 )
 from immunostruct_tpu_torch.parallel.collectives import (
     all_gather, mean_gradients, pmean,
@@ -57,6 +65,7 @@ from immunostruct_tpu_torch.procedures.metrics import roc_auc_score
 from immunostruct_tpu_torch.structs import (
     ComparativeBatch, first_tensor, map_tensors,
 )
+from immunostruct_tpu_torch.utils.capture import Program, module_tensors
 from immunostruct_tpu_torch.utils.contrastive import (
     PairedContrastiveProjector, paired_contrastive_loss,
 )
@@ -122,13 +131,24 @@ class OptimizerConfig:
     def lr(self, step: int) -> float:
         return float(self.lr_schedule(step // self.steps_per_epoch))
 
-    def build(self, params) -> torch.optim.Optimizer:
-        # the rate is set before every step (``Trainer.train_step``)
-        if self.name == "adamw":
-            return torch.optim.AdamW(params, lr=self.lr(0),
-                                     weight_decay=self.weight_decay)
-        return torch.optim.Adam(params, lr=self.lr(0),
-                                weight_decay=self.weight_decay)
+    def build(self, params, device=None) -> torch.optim.Optimizer:
+        """The optimizer over ``params``, its rate a tensor that
+        ``apply_lr`` fills before every step. On a CUDA ``device`` the rate
+        lies there (f32) and the optimizer is ``capturable``, so that a
+        captured step reads the step count and the rate from the device;
+        the card's eager step uses the same optimizer. Elsewhere the rate is
+        an f64 tensor on the CPU, whose update has a float rate's bits."""
+        cls = torch.optim.AdamW if self.name == "adamw" else torch.optim.Adam
+        cuda = device is not None and torch.device(device).type == "cuda"
+        lr = torch.tensor(self.lr(0), device=device if cuda else "cpu",
+                          dtype=torch.float32 if cuda else torch.float64)
+        return cls(params, lr=lr, weight_decay=self.weight_decay,
+                   capturable=cuda)
+
+    def apply_lr(self, optimizer: torch.optim.Optimizer, step: int) -> None:
+        """Fill the rate of ``step`` into the optimizer's rate tensors."""
+        for group in optimizer.param_groups:
+            group["lr"].fill_(self.lr(step))
 
 
 def make_optimizer(name: str, lr_schedule: Callable,
@@ -176,7 +196,8 @@ class Trainer:
                  stack_twins: bool = False, mega_variant: str = "hybrid",
                  mesh=None, shard_batch=None, mp=None,
                  data_axis: str = "data",
-                 allow_microbatch_contrastive: bool = False):
+                 allow_microbatch_contrastive: bool = False,
+                 capture: Optional[bool] = None):
         """``mesh``/``shard_batch``: the data-parallel placement (a
         ``parallel/mesh.py::Mesh`` and the function that keeps a rank's
         rows of a global batch; ``make_sharded_trainer`` sets both).
@@ -184,7 +205,11 @@ class Trainer:
         ``parallel/trainer.py::make_mp_train_step``.
         ``allow_microbatch_contrastive``: the opt-in that lets the
         contrastive term run under gradient accumulation, on each
-        microbatch's statistics."""
+        microbatch's statistics. ``capture``: the train and eval steps as
+        captured programs (``utils/capture.py``): None captures them on the
+        card, except under a mesh or ``mp``, and runs them eagerly on the
+        CPU; False runs them eagerly (the comparison); True captures or
+        raises."""
         if (coeff_contrastive > 0 and grad_accum_steps > 1
                 and not allow_microbatch_contrastive):
             # the contrastive pair-similarity / cross-correlation statistics
@@ -215,6 +240,9 @@ class Trainer:
         self.shard_batch = shard_batch
         self.mp = mp
         self.data_axis = data_axis
+        # the counterparts of the JAX package's two jitted steps
+        self.train_program = Program("train step", capture, grads=True)
+        self.eval_program = Program("eval step", capture)
 
     def _data(self):
         """(mesh, data axis) when batches are shards of a global batch."""
@@ -242,8 +270,9 @@ class Trainer:
                 device=device)
         if self.mesh is not None:
             replicate_tree(model, self.mesh)
-        return TrainState(model=model,
-                          optimizer=self.optimizer.build(model.parameters()))
+        device = next(model.parameters()).device
+        return TrainState(model=model, optimizer=self.optimizer.build(
+            model.parameters(), device))
 
     # -- loss ----------------------------------------------------------------
     def _batch_loss_aux(self, model: ImmunoStructModel, batch,
@@ -343,21 +372,62 @@ class Trainer:
                     p.grad.mul_(1.0 / k)
         return total * (1.0 / k)
 
-    def train_step(self, state: TrainState, batch, seed: int, eps=None):
-        """One optimizer step on ``batch``: (state, loss). The step's noise
-        comes from ``step_generator(seed, state.step)``; ``state`` is
-        updated in place (parameters, optimizer moments, step)."""
-        generator = step_generator(seed, state.step,
-                                   first_tensor(batch).device)
+    def _eager_rule(self) -> Optional[str]:
+        """Why this Trainer's steps run eagerly on the card, if they do:
+        gloo's hops under a mesh are staged through pinned host memory,
+        and ``mp``'s steps run collectives inside the forward."""
+        if self.mesh is not None:
+            return "data-parallel"
+        if self.mp is not None:
+            return "model-parallel"
+        return None
+
+    def _static(self, mode: str, model: ImmunoStructModel, batch) -> tuple:
+        """The static arguments of a step's key (its inputs' shapes and
+        dtypes join them in ``Program``)."""
+        agg = self.aggregation
+        if model.spec.use_structure:
+            graph = (batch.cancer.graph if isinstance(batch, ComparativeBatch)
+                     else batch.graph)
+            agg = gcn_aggregation(model, graph, self.aggregation)
+        return (mode, agg, self.mega_variant, self.compute_dtype,
+                self.grad_accum_steps, self.coeff_contrastive > 0,
+                self.stack_twins)
+
+    def _train_work(self, state: TrainState, inputs, generator):
+        """The whole step a train program runs or captures: the gradients
+        from zero, the loss and its gradients over the k microbatches, the
+        optimizer's update; its loss."""
+        batch, eps = inputs
         state.optimizer.zero_grad(set_to_none=True)
         loss = self.loss_and_grads(state.model, batch, generator, eps,
                                    data=self._data())
         if self._data() is not None:
             loss = mean_gradients(state.model.parameters(), loss,
                                   self.data_axis, self.mesh)
-        for group in state.optimizer.param_groups:
-            group["lr"] = self.optimizer.lr(state.step)
         state.optimizer.step()
+        return loss
+
+    def _eval_work(self, model: ImmunoStructModel, inputs, generator):
+        """What an eval program runs or captures: (loss, (logits, target))
+        of the deterministic forward of a (batch, eps) pair."""
+        with torch.no_grad():
+            return self._sharded_loss_aux(model, inputs[0], generator, True,
+                                          inputs[1], self._data())
+
+    def train_step(self, state: TrainState, batch, seed: int, eps=None):
+        """One optimizer step on ``batch``: (state, loss). The step's noise
+        comes from ``step_generator(seed, state.step)``; ``state`` is
+        updated in place (parameters, optimizer moments, step). On the card
+        it runs as ``train_program``'s graph for its key."""
+        self.optimizer.apply_lr(state.optimizer, state.step)
+        loss = self.train_program(
+            functools.partial(self._train_work, state), (batch, eps),
+            static=self._static("train", state.model, batch),
+            seed=derived_seed(seed, state.step),
+            state=functools.partial(module_tensors, state.model,
+                                    state.optimizer),
+            eager=self._eager_rule())
         state.step += 1
         return state, loss
 
@@ -366,12 +436,15 @@ class Trainer:
         """(loss, (logits, target)) of the deterministic forward, without
         gradients; its noise from ``step_generator(seed, index)``. On a
         rank's shard the loss is the global batch's and the logits and
-        targets are gathered from every rank."""
-        generator = step_generator(seed, index, first_tensor(batch).device)
+        targets are gathered from every rank. On the card it runs as
+        ``eval_program``'s graph for its key."""
         data = self._data()
-        with torch.no_grad():
-            loss, (logits, target) = self._sharded_loss_aux(
-                model, batch, generator, True, eps, data)
+        loss, (logits, target) = self.eval_program(
+            functools.partial(self._eval_work, model), (batch, eps),
+            static=self._static("eval", model, batch),
+            seed=derived_seed(seed, index),
+            state=functools.partial(module_tensors, model),
+            eager=self._eager_rule())
         if data is not None:
             loss = pmean(loss, self.data_axis, self.mesh)
             logits = all_gather(logits, self.data_axis, mesh=self.mesh)
@@ -574,6 +647,11 @@ def train_model(config, model: ImmunoStructModel, train_pipe, val_pipe,
     guard_on = config.collapse_detection
     max_attempts = 3 if (guard_on and reinit) else 1
 
+    if config.data_parallel and verbose and is_primary():
+        ranks = trainer.mesh.size(trainer.data_axis)
+        print(f"{stage}: data-parallel over {ranks} ranks; its steps run "
+              "eagerly, not as captured CUDA graphs (gloo's hops are "
+              "staged through pinned host memory)")
     for attempt in range(max_attempts):
         guard = (CollapseGuard(raise_on_fire=reinit and attempt < max_attempts - 1,
                                reinit_available=(stage == "pretrain"))

@@ -42,6 +42,13 @@ afresh with ``--seed``, so the same request always gets the same scores,
 whatever came before it (the JAX export folds in one fixed key for the same
 purpose).
 
+Both scorers run their forward as a ``utils/capture.py`` program, as the JAX
+server runs a compiled one: on the card a request shape's first forward
+runs eagerly, its second is captured as a CUDA graph and later ones replay
+it, with the eager forward's bits; on the CPU it runs eagerly. The
+constructors' ``capture=False`` keeps the forward eager, for comparison;
+there is no command-line flag.
+
 Usage:
   python -m immunostruct_tpu_torch.cli.serve --artifact model.pt2 --http 8788
   python -m immunostruct_tpu_torch.cli.serve --http 8788                 # seeded weights
@@ -52,11 +59,13 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import functools
 import io
 import json
 import os
 import time
 from http.server import BaseHTTPRequestHandler, HTTPServer
+from typing import Optional
 
 import numpy as np
 import torch
@@ -64,6 +73,7 @@ import torch
 from immunostruct_tpu_torch.data.synthetic import write_example
 from immunostruct_tpu_torch.ops.mega import check_paired
 from immunostruct_tpu_torch.structs import GraphBatch
+from immunostruct_tpu_torch.utils.capture import Program, module_tensors
 from immunostruct_tpu_torch.utils.export import REQUEST_KEYS, load_exported
 
 __all__ = ["BadRequest", "Scorer", "ArtifactScorer", "request_to_args",
@@ -161,11 +171,16 @@ class Scorer:
     """The deterministic inference function ``probs = f(graph, seq, props)``.
     ``mega_variant`` and ``fused_stack`` are ``model_apply``'s; with either
     set, ``score_request`` holds each request to what the path reads (the
-    mirror-paired layout; all-ones edge features) on the host."""
+    mirror-paired layout; all-ones edge features) on the host. The forward
+    is a ``utils/capture.py`` program (``program``): on the card each
+    request shape's forward is captured as a CUDA graph and replayed;
+    ``capture=False`` keeps it eager (the comparison), True captures or
+    raises."""
 
     def __init__(self, model, *, device, compute_dtype=torch.bfloat16,
                  aggregation: str = "auto", seed: int = 0,
-                 mega_variant: str = "hybrid", fused_stack: bool = False):
+                 mega_variant: str = "hybrid", fused_stack: bool = False,
+                 capture: Optional[bool] = None):
         self.model = model.eval()
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
@@ -174,23 +189,41 @@ class Scorer:
         self.mega_variant = mega_variant
         self.fused_stack = fused_stack
         self.failure = None     # the first failed forward, as text
+        self.program = Program("served forward", capture)
 
     def generator(self) -> torch.Generator:
         """The VAE noise source of one request: seeded afresh each time."""
         return torch.Generator(device=self.device).manual_seed(self.seed)
 
-    def __call__(self, graph, seq, props) -> np.ndarray:
+    def _forward(self, inputs, generator):
         from immunostruct_tpu_torch.models.trunk import model_apply
 
+        graph, seq, props = inputs
+        out = model_apply(self.model, graph, seq, props,
+                          generator=generator, deterministic=True,
+                          aggregation=self.aggregation,
+                          compute_dtype=self.compute_dtype,
+                          mega_variant=self.mega_variant,
+                          fused_stack=self.fused_stack)
+        return torch.sigmoid(out.logits.reshape(-1))
+
+    def probs(self, graph, seq, props) -> torch.Tensor:
+        """The probabilities on the device, without waiting for them."""
+        from immunostruct_tpu_torch.models.trunk import gcn_aggregation
+
+        agg = self.aggregation
+        if self.model.spec.use_structure:
+            agg = gcn_aggregation(self.model, graph, self.aggregation)
         with torch.inference_mode():
-            out = model_apply(self.model, graph, seq, props,
-                              generator=self.generator(), deterministic=True,
-                              aggregation=self.aggregation,
-                              compute_dtype=self.compute_dtype,
-                              mega_variant=self.mega_variant,
-                              fused_stack=self.fused_stack)
-            probs = torch.sigmoid(out.logits.reshape(-1))
-        return probs.cpu().numpy()
+            return self.program(
+                self._forward, (graph, seq, props),
+                static=(agg, self.compute_dtype, self.mega_variant,
+                        self.fused_stack),
+                seed=self.seed,
+                state=functools.partial(module_tensors, self.model))
+
+    def __call__(self, graph, seq, props) -> np.ndarray:
+        return self.probs(graph, seq, props).cpu().numpy()
 
     def score_request(self, source):
         """Score a request path or file-like; returns (probs, ms), where ms
@@ -208,13 +241,21 @@ class ArtifactScorer:
     differs), runs it on the artifact's device and records a failed
     forward in ``failure``."""
 
-    def __init__(self, artifact):
+    def __init__(self, artifact, capture: Optional[bool] = None):
         self.artifact = artifact
         self.device = artifact.device
         self.failure = None     # the first failed forward, as text
+        # the loaded program's forward, captured on the card as Scorer's
+        self.program = Program("artifact", capture)
+
+    def probs(self, *tensors) -> torch.Tensor:
+        """The probabilities on the device, without waiting for them."""
+        return self.program(
+            lambda inputs, _: self.artifact(*inputs), tensors, seed=0,
+            state=functools.partial(module_tensors, self.artifact.module))
 
     def __call__(self, *tensors) -> np.ndarray:
-        return self.artifact(*tensors).cpu().numpy()
+        return self.probs(*tensors).cpu().numpy()
 
     def score_request(self, source):
         """Score a request path or file-like; returns (probs, ms), where ms

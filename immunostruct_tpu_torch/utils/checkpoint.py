@@ -145,6 +145,11 @@ def load_resume_state(path: str, state):
         return None
     snap = torch.load(path, map_location="cpu", weights_only=True)
     state.model.load_state_dict(snap["model"])
+    # the rate is set before every step; keep the optimizer's own (a device
+    # tensor on the card, which a captured step reads)
+    rates = [group["lr"] for group in state.optimizer.param_groups]
     state.optimizer.load_state_dict(snap["optimizer"])
+    for group, lr in zip(state.optimizer.param_groups, rates):
+        group["lr"] = lr
     state.step = int(snap["step"])
     return state, int(snap["epoch"]) + 1, float(snap["best_val"])

@@ -2801,3 +2801,456 @@ def test_kernel_meets_the_rule_on_every_seeded_input(cuda, kernel):
     print("sweep:", json.dumps({k: v for k, v in line.items()
                                 if k != "failing_inputs"}))
     assert line["failing"] == 0, line["failing_inputs"]
+
+
+# --------------------------------------------------------------------------
+# captured programs (utils/capture.py): the train step, the eval step and
+# the served forward as CUDA graphs, against the eager path
+# --------------------------------------------------------------------------
+
+# (label, model, aggregation, mega_variant, grad_accum_steps, contrastive,
+# paired batch)
+_CAPTURED_STEPS = [
+    ("mega", "HybridModelv2", "mega", "hybrid", 1, 0.0, False),
+    ("fused", "HybridModelv2", "fused", "hybrid", 1, 0.0, False),
+    ("pallas", "HybridModelv2", "pallas", "hybrid", 1, 0.0, False),
+    ("paired", "HybridModelv2", "mega", "paired", 1, 0.0, True),
+    ("dboth", "HybridModelv2", "mega", "dboth", 1, 0.0, False),
+    ("inkernel", "HybridModelv2", "mega", "inkernel", 1, 0.0, True),
+    ("stack", "HybridModelv2", "mega", "stack", 1, 0.0, True),
+    ("twin", "HybridModelv2_Comparative", "mega", "hybrid", 1, 0.1, False),
+    ("k2", "HybridModelv2", "mega", "hybrid", 2, 0.0, False),
+]
+_CAPTURED_B = 16
+
+
+def _counts() -> tuple:
+    """The eleven kernels' launch counts, in ``counters()``' order (B1
+    first)."""
+    return tuple(_launches().values())
+
+
+def _captured_batch(cuda, name, paired, seed=0):
+    from immunostruct_tpu_torch.structs import ComparativeBatch
+
+    if name.endswith("Comparative"):
+        c = build_batch(_CAPTURED_B, N, 2560, 20, paired=paired, device=cuda)
+        w = random_sample_batch(_CAPTURED_B, N, 2560, 20, seed=seed + 1,
+                                device=cuda)
+        c.target = (torch.arange(_CAPTURED_B, device=cuda) % 2).float()
+        w.target = c.target
+        return ComparativeBatch(cancer=c, wt=w)
+    return build_batch(_CAPTURED_B, N, 2560, 20, paired=paired, device=cuda)
+
+
+def _captured_trainer(cuda, name, aggregation, variant, accum, coeff,
+                      capture):
+    """Full-width ``name`` from seed 0, bf16 over f32 master weights,
+    dropout at the spec's rate, Adam at 1e-3: a Trainer whose steps are
+    captured (``capture`` None) or eager (False), and its state."""
+    _, model = build_model(name, 20 * 21, torch.Generator().manual_seed(0),
+                           device=cuda)
+    trainer = Trainer(model.spec, LossConfig(20 * 21, 1.0, sequence=True),
+                      binary=True,
+                      optimizer=make_optimizer("adam", constant_lr(1e-3)),
+                      aggregation=aggregation, compute_dtype=torch.bfloat16,
+                      mega_variant=variant, grad_accum_steps=accum,
+                      coeff_contrastive=coeff,
+                      allow_microbatch_contrastive=coeff > 0 and accum > 1,
+                      capture=capture)
+    return trainer, trainer.init_state(model,
+                                       torch.Generator().manual_seed(1))
+
+
+def _step_readings(trainer, state, batch, steps):
+    """Per step: (loss, launches by kernel, gradients); then the
+    parameters and Adam moments."""
+    out = []
+    for _ in range(steps):
+        before = _counts()
+        state, loss = trainer.train_step(state, batch, seed=4)
+        torch.cuda.synchronize()
+        out.append((loss, tuple(a - b for a, b in zip(_counts(), before)),
+                    [None if p.grad is None else p.grad.clone()
+                     for p in state.model.parameters()]))
+    params = [p.detach().clone() for p in state.model.parameters()]
+    moments = [state.optimizer.state[p][k].clone()
+               for p in state.model.parameters()
+               for k in ("exp_avg", "exp_avg_sq")]
+    return out, params, moments
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _CAPTURED_STEPS, ids=lambda c: c[0])
+def test_captured_step_equals_the_eager_step(cuda, case):
+    """Five steps of full-width HybridModelv2 (the twin model with the
+    contrastive term at 0.1 for 'twin'), B=16, E=2560, bf16, dropout on,
+    noise drawn: the first step runs eagerly, the second is captured, the
+    rest replay. Captured and eager give the same bits in the loss, every
+    gradient, parameter and Adam moment, and each step launches the same
+    kernels the same number of times (the counts follow the replays)."""
+    label, name, agg, variant, accum, coeff, paired = case
+    batch = _captured_batch(cuda, name, paired)
+    runs = []
+    for capture in (None, False):
+        trainer, state = _captured_trainer(cuda, name, agg, variant, accum,
+                                           coeff, capture)
+        runs.append(_step_readings(trainer, state, batch, 5))
+        program = trainer.train_program
+        if capture is None:
+            assert (program.eager_calls, program.captures,
+                    program.replays) == ({"first call": 1}, 1, 4)
+        else:
+            assert program.eager_calls == {"asked": 5}
+        del trainer, state
+    (steps_c, params_c, moments_c), (steps_e, params_e, moments_e) = runs
+    for (lc, nc, gc), (le, ne, ge) in zip(steps_c, steps_e):
+        assert nc == ne
+        assert torch.equal(lc, le), label
+        assert all(a is None and b is None or torch.equal(a, b)
+                   for a, b in zip(gc, ge)), label
+    assert all(torch.equal(a, b) for a, b in zip(params_c, params_e))
+    assert all(torch.equal(a, b) for a, b in zip(moments_c, moments_e))
+    print(f"captured {label}: launches a step {steps_c[-1][1]}")
+
+
+@pytest.mark.cuda
+def test_captured_scatter_step_within_its_bounds_of_the_eager_step(cuda):
+    """'scatter' sums with atomics (``index_add_``), so two eager steps from
+    one state part in their last bits and their trajectories drift apart.
+    Each of five steps is taken from one state: before it, the eager
+    trainer's parameters, Adam moments and step count are copied into the
+    captured trainer's tensors in place (the graph's addresses stay). The
+    captured step is then held to the eager one by phase 16's first-step
+    bounds of chip_smoke.py, the bounds 'scatter' has against itself and
+    'mega': the loss within 1e-3, each gradient's difference within 0.02 of
+    its norm + 2e-4 of the largest norm; every step after the first is a
+    replay."""
+    batch = _captured_batch(cuda, "HybridModelv2", False)
+    (tc, sc), (te, se) = (
+        _captured_trainer(cuda, "HybridModelv2", "scatter", "hybrid", 1, 0.0,
+                          capture) for capture in (None, False))
+    worst = 0.0
+    for step in range(5):
+        with torch.no_grad():
+            for pc, pe in zip(sc.model.parameters(), se.model.parameters()):
+                pc.copy_(pe)
+                for k, v in se.optimizer.state.get(pe, {}).items():
+                    sc.optimizer.state[pc][k].copy_(v)
+        sc, lc = tc.train_step(sc, batch, seed=4)
+        se, le = te.train_step(se, batch, seed=4)
+        torch.cuda.synchronize()
+        assert abs(float(lc) - float(le)) <= 1e-3 * abs(float(le)), step
+        grads = [(pc.grad, pe.grad) for pc, pe in zip(
+            sc.model.parameters(), se.model.parameters())
+            if pe.grad is not None]
+        top = max(e.norm().item() for _, e in grads)
+        for c, e in grads:
+            ratio = ((c - e).norm().item()
+                     / (0.02 * e.norm().item() + 2e-4 * top))
+            worst = max(worst, ratio)
+            assert ratio <= 1.0, (step, ratio)
+    assert (tc.train_program.captures, tc.train_program.replays,
+            tc.train_program.dropped) == (1, 4, 0)
+    print(f"captured scatter: worst gradient {worst:.4f} of its bound")
+
+
+def _scorer_pair(cuda, model, **kw):
+    from immunostruct_tpu_torch.serving import Scorer
+
+    return [Scorer(model, device=cuda, compute_dtype=torch.bfloat16, seed=3,
+                   capture=capture, **kw) for capture in (None, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,fused_stack", [(1, False), (128, False),
+                                           (128, True)])
+def test_captured_forward_equals_the_eager_forward(cuda, b, fused_stack):
+    """The served forward of full-width HybridModelv2 ('mega'; with
+    ``fused_stack``, B7 under 'auto') at B=1 and 128, E=2560, bf16: five
+    requests (three of one shape; two others) through a captured Scorer and
+    an eager one give the same probabilities bit for bit; the captured one
+    warms, captures and replays each shape."""
+    _, model = build_model("HybridModelv2", 20 * 21,
+                           torch.Generator().manual_seed(1), device=cuda)
+    agg = "auto" if fused_stack else "mega"
+    captured, eager = _scorer_pair(cuda, model, aggregation=agg,
+                                   fused_stack=fused_stack)
+    for seed in (5, 6, 7):
+        req = random_sample_batch(b, N, 2560, 20, seed=seed, device=cuda)
+        args = (req.graph, req.seq_onehot, req.props)
+        assert np.array_equal(captured(*args), eager(*args)), seed
+    assert (captured.program.captures, captured.program.replays) == (1, 2)
+    assert eager.program.eager_calls == {"asked": 3}
+
+
+@pytest.mark.cuda
+def test_captured_artifact_equals_the_eager_artifact(cuda, tmp_path):
+    """A full-width 'mega' artifact (bf16, B=16, E=2560) served through a
+    captured ArtifactScorer and an eager one: the same bits over three
+    requests, 6 B1 launches a replayed call (the counts follow the
+    replays), and the eager Scorer's bits."""
+    from immunostruct_tpu_torch.serving import ArtifactScorer
+    from immunostruct_tpu_torch.utils.export import (
+        REQUEST_KEYS, export_inference_fn, load_exported, save_exported,
+    )
+
+    _, model = build_model("HybridModelv2", 20 * 21,
+                           torch.Generator().manual_seed(1), device=cuda)
+    req = random_sample_batch(16, N, 2560, 20, seed=5, device=cuda)
+    path = str(tmp_path / "model.pt2")
+    save_exported(export_inference_fn(
+        model, (req.graph, req.seq_onehot, req.props), aggregation="mega",
+        compute_dtype=torch.bfloat16, seed=3), path)
+    captured, eager = (ArtifactScorer(load_exported(path, "cuda"), capture)
+                       for capture in (None, False))
+    scorer = _scorer_pair(cuda, model, aggregation="mega")[1]
+    for seed in (5, 6, 7):
+        r = random_sample_batch(16, N, 2560, 20, seed=seed, device=cuda)
+        tensors = [getattr(r.graph, k) for k in REQUEST_KEYS[:8]] + [
+            r.seq_onehot, r.props]
+        before = _counts()
+        got = captured(*tensors)
+        launched = tuple(a - z for a, z in zip(_counts(), before))
+        assert launched == (6,) + (0,) * 10, launched
+        assert np.array_equal(got, eager(*tensors))
+        assert np.array_equal(got, scorer(r.graph, r.seq_onehot, r.props))
+    assert (captured.program.captures, captured.program.replays) == (1, 2)
+
+
+@pytest.mark.cuda
+def test_replay_makes_no_host_sync(cuda):
+    """A replayed 'mega' train step (B=16, E=2560, bf16) and a replayed
+    served forward, each to its device result, under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    batch = _captured_batch(cuda, "HybridModelv2", False)
+    trainer, state = _captured_trainer(cuda, "HybridModelv2", "mega",
+                                       "hybrid", 1, 0.0, None)
+    scorer = _scorer_pair(cuda, state.model, aggregation="mega")[0]
+    args = (batch.graph, batch.seq_onehot, batch.props)
+    for _ in range(2):                  # warm-up and capture
+        state, _ = trainer.train_step(state, batch, seed=0)
+        scorer.probs(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, loss = trainer.train_step(state, batch, seed=0)
+        probs = scorer.probs(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert trainer.train_program.replays == 2
+    assert scorer.program.replays == 2
+    assert torch.isfinite(loss) and torch.isfinite(probs).all()
+
+
+@pytest.mark.cuda
+def test_replaced_parameters_drop_the_captured_step(cuda, tmp_path):
+    """A captured 'mega' step never replays on replaced tensors: after a
+    resumed snapshot (new Adam moments), a new classifier (``reset_head``)
+    and a new optimizer (``init_state``, as ``--reinit-on-collapse``), each
+    key is dropped and warmed again, and every step equals the eager
+    trainer's through the same replacements bit for bit."""
+    from immunostruct_tpu_torch.models.trunk import reset_head
+    from immunostruct_tpu_torch.utils.checkpoint import (
+        load_resume_state, save_resume_state,
+    )
+
+    batch = _captured_batch(cuda, "HybridModelv2", False)
+    pair = [_captured_trainer(cuda, "HybridModelv2", "mega", "hybrid", 1,
+                              0.0, capture) for capture in (None, False)]
+
+    def steps(k):
+        for _ in range(k):
+            losses = []
+            for i, (trainer, state) in enumerate(pair):
+                state, loss = trainer.train_step(state, batch, seed=2)
+                losses.append(loss)
+            assert torch.equal(*losses)
+            assert all(torch.equal(a, b) for a, b in zip(
+                pair[0][1].model.parameters(), pair[1][1].model.parameters()))
+
+    program = pair[0][0].train_program
+    steps(3)
+    for i, (_, state) in enumerate(pair):
+        save_resume_state(str(tmp_path / f"{i}.resume"), state, 0, 1.0)
+    steps(1)
+    for i, (_, state) in enumerate(pair):
+        load_resume_state(str(tmp_path / f"{i}.resume"), state)
+    steps(3)
+    assert (program.dropped, program.captures) == (1, 2)
+    for _, state in pair:
+        reset_head(state.model, torch.Generator().manual_seed(4))
+    steps(3)
+    assert (program.dropped, program.captures) == (2, 3)
+    pair = [(trainer, trainer.init_state(state.model))
+            for trainer, state in pair]
+    steps(3)
+    assert (program.dropped, program.captures,
+            program.eager_calls["first call"]) == (3, 4, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,decay", [("adam", 0.0), ("adam", 0.01),
+                                        ("adamw", 0.01)])
+def test_capturable_adam_within_rounding_of_the_float_rate_adam(cuda, name,
+                                                                decay):
+    """The card's optimizer (``OptimizerConfig.build(params, 'cuda')``:
+    capturable, its rate an f32 device tensor that ``apply_lr`` fills, its
+    bias corrections computed on the card in f32) against the float-rate
+    Adam or AdamW (not capturable, the rate set as a float before each
+    step, its bias corrections in float64 on the host), from full-width
+    HybridModelv2's parameters and one set of its gradients (one eager
+    'mega' step's, B=16, E=2560, bf16), over 8 steps of a halving schedule
+    (2 steps an epoch).
+
+    Parameters: within ``test_torch_port_train.py``'s Adam rule with the
+    gradients the same, 1e-6 + 1e-5 |p|. Moments: where the update leaves
+    them alone (no decay, or AdamW's decoupled one) bit for bit; Adam's L2
+    decay puts the parted parameters into the gradient, e_k = decay * the
+    parameters' bound + 2^-23 |g + decay p|, carried through Adam's
+    averages as that file's JAX parity tests carry theirs, plus 2^-22 of
+    the moment a step for its own rounding. Printed: the largest
+    difference in the parameters against the rounding estimate sum_t
+    (1e-4 d_t + 2^-22 |p_t|), d_t the float-rate update's size and 1e-4 the
+    f32 bias corrections' reach (beta2 = 0.999 in f32 moves 1 - beta2 by
+    1.3e-5), and how many entries part."""
+    from immunostruct_tpu_torch.procedures.train import step_generator
+
+    _, model = build_model("HybridModelv2", 20 * 21,
+                           torch.Generator().manual_seed(0), device=cuda)
+    trainer = Trainer(model.spec, LossConfig(20 * 21, 1.0, sequence=True),
+                      binary=True,
+                      optimizer=make_optimizer("adam", constant_lr(1e-3)),
+                      aggregation="mega", compute_dtype=torch.bfloat16,
+                      capture=False)
+    trainer.loss_and_grads(model, _captured_batch(cuda, "HybridModelv2",
+                                                  False),
+                           step_generator(0, 0, cuda))
+    named = [(n, p) for n, p in model.named_parameters()
+             if p.grad is not None]
+    grads = [p.grad.detach().clone() for _, p in named]
+    config = make_optimizer(name, lambda e: 1e-3 * 0.5 ** e, decay,
+                            steps_per_epoch=2)
+    card = [torch.nn.Parameter(p.detach().clone()) for _, p in named]
+    plain = [torch.nn.Parameter(p.detach().clone()) for _, p in named]
+    opt = config.build(card, cuda)
+    cls = torch.optim.AdamW if name == "adamw" else torch.optim.Adam
+    ref = cls(plain, lr=config.lr(0), weight_decay=decay)
+    group = opt.param_groups[0]
+    assert group["capturable"] and group["lr"].device.type == "cuda"
+    assert not ref.param_groups[0]["capturable"]
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    n = len(card)
+    tol_p = [torch.zeros_like(p) for p in plain]
+    est = [torch.zeros_like(p) for p in plain]
+    bound_m = [torch.zeros_like(p) for p in plain]
+    bound_v = [torch.zeros_like(p) for p in plain]
+    worst = dict(param=0.0, estimate=0.0, mu=0.0, nu=0.0)
+    parted = dict(params=0, mu=0, nu=0)
+    for step in range(8):
+        config.apply_lr(opt, step)
+        for g in ref.param_groups:
+            g["lr"] = config.lr(step)
+        for ps in (card, plain):
+            for p, g in zip(ps, grads):
+                p.grad = g.clone()
+        before = [p.detach().clone() for p in plain]
+        opt.step()
+        ref.step()
+        t, lr = step + 1, config.lr(step)
+        parted = dict(params=0, mu=0, nu=0)
+        for i in range(n):
+            p, q = card[i].detach(), plain[i].detach()
+            mc, vc = (opt.state[card[i]][k] for k in ("exp_avg",
+                                                      "exp_avg_sq"))
+            mr, vr = (ref.state[plain[i]][k] for k in ("exp_avg",
+                                                       "exp_avg_sq"))
+            g_hat = grads[i] + (decay * before[i]
+                                if name == "adam" else 0.0)
+            e = (decay * tol_p[i] + 2.0 ** -23 * g_hat.abs()
+                 if name == "adam" and decay else torch.zeros_like(q))
+            bound_m[i] = b1 * bound_m[i] + (1 - b1) * e \
+                + 2.0 ** -22 * mr.abs()
+            bound_v[i] = b2 * bound_v[i] + (1 - b2) * e * (
+                2 * g_hat.abs() + e) + 2.0 ** -22 * vr
+            d = lr * (mr.abs() / (1 - b1 ** t)) / (
+                (vr / (1 - b2 ** t)).sqrt() + eps)
+            est[i] = est[i] + 1e-4 * d + 2.0 ** -22 * q.abs()
+            tol_p[i] = 1e-6 + 1e-5 * q.abs()
+            diff = (p - q).abs()
+            assert (diff <= tol_p[i]).all(), (named[i][0], step)
+            worst["param"] = max(worst["param"],
+                                 float((diff / tol_p[i]).max()))
+            worst["estimate"] = max(worst["estimate"], float(
+                (diff / est[i].clamp_min(1e-30)).max()))
+            parted["params"] += int((p != q).sum())
+            for k, (a, b, bound) in (("mu", (mc, mr, bound_m[i])),
+                                     ("nu", (vc, vr, bound_v[i]))):
+                parted[k] += int((a != b).sum())
+                if name == "adam" and decay:
+                    assert ((a - b).abs() <= bound + 1e-30).all(), (
+                        named[i][0], k, step)
+                    worst[k] = max(worst[k], float(
+                        ((a - b).abs() / (bound + 1e-30)).max()))
+                else:
+                    assert torch.equal(a, b), (named[i][0], k, step)
+    assert config.lr(7) == 1e-3 * 0.5 ** 3
+    print(f"capturable {name} decay {decay}: " + json.dumps(dict(
+        entries=sum(p.numel() for p in plain), parted=parted,
+        worst_ratio=worst,
+        max_abs_param_diff=max(float((a.detach() - b.detach()).abs().max())
+                               for a, b in zip(card, plain)))))
+
+
+@pytest.mark.cuda
+def test_captured_keys_share_one_pool_and_keep_the_eager_bits(cuda):
+    """Shapes mixed call by call, as a server meets them and as an epoch
+    ends in a partial batch: a captured 'mega' Trainer over batches of 16,
+    16 and 12 twice (two keys), and a captured Scorer over requests of
+    B=1, 4, 16 in turn three times (three keys), each against its eager
+    twin. Every step's loss, gradients, parameters and Adam moments, and
+    every request's probabilities, are the eager bits, though each key's
+    scratch may hold another key's dead outputs; every graph of a program
+    draws on the program's one memory pool."""
+    sizes = (_CAPTURED_B, _CAPTURED_B, 12)
+    batches = [random_sample_batch(b, N, 2560, 20, seed=10 + i,
+                                   device=cuda) for i, b in enumerate(sizes)]
+    runs = []
+    for capture in (None, False):
+        trainer, state = _captured_trainer(cuda, "HybridModelv2", "mega",
+                                           "hybrid", 1, 0.0, capture)
+        out = []
+        for batch in batches * 2:
+            state, loss = trainer.train_step(state, batch, seed=6)
+            out.append((loss, [None if p.grad is None else p.grad.clone()
+                               for p in state.model.parameters()],
+                        [p.detach().clone()
+                         for p in state.model.parameters()],
+                        [v.clone() for p in state.model.parameters()
+                         for v in state.optimizer.state[p].values()]))
+        runs.append((trainer.train_program, out))
+    program, got = runs[0]
+    for (lc, gc, pc, mc), (le, ge, pe, me) in zip(got, runs[1][1]):
+        assert torch.equal(lc, le)
+        assert all(a is None and b is None or torch.equal(a, b)
+                   for a, b in zip(gc, ge))
+        assert all(torch.equal(a, b) for a, b in zip(pc, pe))
+        assert all(torch.equal(a, b) for a, b in zip(mc, me))
+    graphs = [e.graph for e in program._entries.values()]
+    # the capturing call replays too: 16 warm, capture, 12 warm, 16 twice,
+    # 12 capture
+    assert (len(graphs), program.captures, program.replays) == (2, 2, 4)
+    assert len({g.pool() for g in graphs}) == 1
+    _, model = build_model("HybridModelv2", 20 * 21,
+                           torch.Generator().manual_seed(1), device=cuda)
+    captured, eager = _scorer_pair(cuda, model, aggregation="mega")
+    for rnd in range(3):
+        for b in (1, 4, 16):
+            req = random_sample_batch(b, N, 2560, 20, seed=20 + rnd,
+                                      device=cuda)
+            args = (req.graph, req.seq_onehot, req.props)
+            assert np.array_equal(captured(*args), eager(*args)), (rnd, b)
+    program = captured.program
+    graphs = [e.graph for e in program._entries.values()]
+    assert (len(graphs), program.captures, program.replays) == (3, 3, 6)
+    assert len({g.pool() for g in graphs}) == 1
