@@ -360,7 +360,38 @@ Phases (none catches its own failure; any failure exits non-zero):
      in the profiler's trace (utils/attribution.py's labels) and asserts
      that they equal the counters' increments over the same calls,
      captured and eager;
-  32. print the times beside the card's name and power limit, then the
+  32. learnability ("learn 32" lines, with the card's name and power
+     limit; scripts/torch_geometric_signal.py::run_one, imported by its
+     path): StructureModel (full width, seeded weights) trained on the
+     geometric corpus (512 samples, the label in the coordinates alone;
+     corpus seed 17), bf16, batch 32, pads 8/128, 14 epochs, Adam 1e-3,
+     the finetune stage, through each of seven paths ('scatter', 'auto',
+     'mega' under 'dboth', 'inkernel' and 'stack', 'fused', 'pallas') at
+     the script's first eight seeds 0-7 (weights, split, shuffles), then
+     scored on its train and test splits; SequenceFpModel under 'auto' at
+     each seed, the control; every count set to 0 before each run and read
+     after it. 'scatter' trains under fixed-order sums (the script's
+     fixed_order_sums), so a seed gives it one trajectory. Asserted (the
+     script's judge, the same for every path, 'scatter' included): the
+     median test AUROC over the eight seeds above 0.8 and train AUROC
+     above 0.85, the median run's last train loss below its first, every
+     run's losses finite, the seeds learned (test AUROC above 0.8) no
+     fewer than 'scatter''s less LEARNED_SLACK; each path launched the
+     kernels it exists for (the script's PATH_KERNELS), none of another
+     path alone, no B4 and no B7, 'scatter' and the control none; each
+     'auto' model's test split through the served forward with
+     fused_stack (B7) no further from its 'mega' forward and from its
+     plain 'scatter' forward than 'mega' is from 'scatter', give or take
+     PROB_ATOL, and at seeds 0-2 within PROB_ATOL of 'mega', the AUROCs
+     within 0.01; the control's median test AUROC within 0.22 of 0.5.
+     This recipe diverges at some seeds on every path, the plain one
+     included (at seeds 0-2 alone the deterministic 'scatter' reads a
+     median test AUROC of 0.7555), so three seeds cannot judge it: the
+     medians at seeds 0-2 are printed, not held. One line a run (AUROCs,
+     losses, launches, walls), one a path at seeds 0-2, one a path over
+     the eight (medians and their margins, the seeds learned, the runs
+     whose loss fell, the gap to 'scatter' at each seed);
+  33. print the times beside the card's name and power limit, then the
      kernel record (eleven kernels) as one JSON line, the card line and, last,
      the result line {"ok": true, "device": {...}}.
 """
@@ -889,14 +920,16 @@ def plain_probs(scorer, path):
         return torch.sigmoid(out.logits.reshape(-1)).double().cpu()
 
 
+COUNTER_KEYS = ("B1", "B2", "B3_fwd", "B3_bwd", "B8_scatter", "B8_gather",
+                "B4", "B5a", "B5b", "B6", "B7")   # read_counts' order
+
+
 def _counted():
     """The eleven launch wrappers, in read_counts' order."""
     from immunostruct_tpu_torch.ops import launch_counters
 
     wrappers = launch_counters()
-    return tuple(wrappers[k] for k in ("B1", "B2", "B3_fwd", "B3_bwd",
-                                       "B8_scatter", "B8_gather", "B4",
-                                       "B5a", "B5b", "B6", "B7"))
+    return tuple(wrappers[k] for k in COUNTER_KEYS)
 
 
 def reset_counts():
@@ -2618,7 +2651,7 @@ def b7_errors(out, ref, dtype) -> dict:
     column's largest |plain| (phase 14's form: one flipped rounding at a
     value just above a power of two is up to 2^-7 of it, over
     BF16_COL_MAX) and mean|diff| <= BF16_COL_MEAN * mean|plain|. The card
-    tests' ten mutant kernels, each without one of B7's rounding points,
+    tests' eleven mutant kernels, each without one of B7's rounding points,
     fail these bounds (tests/test_torch_port_cuda.py)."""
     row = dict(max_abs_err=max((o.float() - r.float()).abs().max().item()
                                for o, r in zip(out, ref)))
@@ -2681,7 +2714,7 @@ def check_b7_kernel() -> list:
                      + 2 * b * N * ((f + H) * H + H * H))
             weights = _lib().egnn_layer_fwd_weight_count(f, H)
             nbytes = (tensor_bytes(h, x, src, dst, mask, *out)
-                      + weights * h.element_size())
+                      + weights * 4)          # the packed f32 weights
             bf16 = int(dtype == torch.bfloat16)
             cluster = layer_cluster_size(e, b, sms) if bf16 else 1
             kernel = ("egnn_layer_fwd_mma_kernel<bf16>" if bf16
@@ -4975,6 +5008,112 @@ def _served_row(card, work, pair, walls, out, call) -> dict:
     return row
 
 
+# phase 32: scripts/geometric_signal.py's card settings (512 samples, 14
+# epochs, batch 32, bf16, pads 8/128), the script's first eight seeds a
+# path: its sixteen took 289-400 s of the smoke's 1,200 (PERF.md §4)
+LEARN_SAMPLES = 512
+LEARN_EPOCHS = 14
+LEARN_SEEDS = tuple(range(8))
+
+
+def learnability_script():
+    """scripts/torch_geometric_signal.py, imported by its path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_geometric_signal",
+        os.path.join(ROOT, "scripts", "torch_geometric_signal.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def served_text(served: dict) -> str:
+    """One served comparison of ``served_b7`` as text."""
+    return (f"launches {_nonzero(served['launches'])}, max |prob - 'mega'| "
+            f"{served['max_abs_prob_diff']:.3e}, max |prob - 'scatter'| "
+            f"{served['max_abs_prob_diff_scatter']:.3e} ('mega' - 'scatter' "
+            f"{served['max_abs_prob_diff_mega_scatter']:.3e}), test AUROC "
+            f"{served['test_auroc_b7']:.4f} ('mega' "
+            f"{served['test_auroc_mega']:.4f})")
+
+
+def check_learnability(card: str) -> dict:
+    """Phase 32 (module docstring). Returns the verdict, the launches
+    summed over the phase in read_counts' order and the phase's
+    seconds."""
+    signal = learnability_script()
+    t0 = time.perf_counter()
+    kw = dict(samples=LEARN_SAMPLES, epochs=LEARN_EPOCHS, device="cuda",
+              compute_dtype="bfloat16")
+    plan = [(path, "StructureModel", agg, variant)
+            for path, (agg, variant) in signal.PATHS.items()]
+    plan.append(("control", "SequenceFpModel", "auto", "hybrid"))
+    runs, control, total = [], [], [0] * len(COUNTER_KEYS)
+    with tempfile.TemporaryDirectory(prefix="geomsig_") as root:
+        for seed in LEARN_SEEDS:
+            for path, model, agg, variant in plan:
+                reset_counts()          # every count to 0: this run
+                run = signal.run_one(root, model, seed=seed, aggregation=agg,
+                                     mega_variant=variant, **kw)
+                counts = read_counts()  # read just after it
+                served = run.get("served_b7")
+                want = tuple(run["launches"][k]
+                             + (served["launches"][k] if served else 0)
+                             for k in COUNTER_KEYS)
+                assert counts == want, (path, seed, counts, want)
+                total = [a + b for a, b in zip(total, counts)]
+                (control if path == "control" else runs).append(run)
+                text = ""
+                if served:
+                    text = "; served: " + served_text(served)
+                print(f"learn 32 [{card}]: {path} ({model}, {agg}/{variant})"
+                      f" seed {seed}: test AUROC {run['test_auroc']:.4f}, "
+                      f"train AUROC {run['train_auroc']:.4f}, train loss "
+                      f"{run['train_losses'][0]:.4f} -> "
+                      f"{run['train_losses'][-1]:.4f}, val loss "
+                      f"{run['val_losses'][0]:.4f} -> "
+                      f"{run['val_losses'][-1]:.4f}, launches: training "
+                      f"{_nonzero(run['launches_train'])}, inference "
+                      f"{_nonzero(run['launches_inference'])}; wall "
+                      f"{run['wall_s']:.2f} s (training {run['train_s']:.2f}"
+                      f"){text}", flush=True)
+                print(f"learn 32 [{card}]: " + json.dumps(
+                    {"path": path, **run}), flush=True)
+    verdict = signal.judge(runs, control, kernels=True)
+    phase_s = time.perf_counter() - t0
+    first = signal.judge(
+        [r for r in runs if r["seed"] in signal.FIRST_SEEDS],
+        [r for r in control if r["seed"] in signal.FIRST_SEEDS], kernels=True)
+    for path, row in first["paths"].items():
+        print(f"learn 32 [{card}]: {path} at seeds {row['seeds']} alone: "
+              f"median test AUROC {row['median_test_auroc']:.4f}, median "
+              f"train AUROC {row['median_train_auroc']:.4f}, the last train "
+              f"loss below the first in {row['fell']} of 3 runs (printed, "
+              f"not held: this recipe diverges at some seeds on every "
+              f"path)", flush=True)
+    for path, row in verdict["paths"].items():
+        gaps = [round(g, 4) for g in row["test_gap_to_scatter"]]
+        print(f"learn 32 [{card}]: {path}: median test AUROC "
+              f"{row['median_test_auroc']:.4f} (margin "
+              f"{row['margin_test']:+.4f}), median train AUROC "
+              f"{row['median_train_auroc']:.4f} (margin "
+              f"{row['margin_train']:+.4f}) over {len(row['seeds'])} seeds, "
+              f"{row['learned']} above 0.8, the last train loss below the "
+              f"first in {row['fell']}; test AUROC minus 'scatter''s at each "
+              f"seed {gaps}", flush=True)
+    c = verdict["control"]
+    print(f"learn 32 [{card}]: control SequenceFpModel 'auto': median test "
+          f"AUROC {c['median_test_auroc']:.4f} over {len(c['seeds'])} seeds; "
+          f"phase 32 took {phase_s:.1f} s", flush=True)
+    assert not verdict["failures"], verdict["failures"]
+    return dict(verdict=verdict, launches=tuple(total), phase_s=phase_s)
+
+
 # --------------------------------------------------------------------------
 # the eager paths against other checkouts (python3 chip_smoke.py
 # --eager-walls DIR ...)
@@ -5223,6 +5362,8 @@ def run_phases(card: str, clinical: ClinicalCorpus) -> int:
                         serving=captured_serving(card, scorer, requests,
                                                  artifact_paths))
         clock("captured programs (31)")
+        learned = check_learnability(card)
+        clock("learnability (32)")
 
     def pick(rows, **want):
         return next(r for r in rows if r["E"] == 2560 and r["F"] == 64
@@ -5476,7 +5617,8 @@ def run_phases(card: str, clinical: ClinicalCorpus) -> int:
                     device_data_ssl=aug["launches"],
                     twin_accumulated=accumulated["bfloat16"]["launches"],
                     captured_train=captured["training"]["captured"][
-                        "launches"])
+                        "launches"],
+                    learnability=learned["launches"])
     b1, b2 = pick(fwd_rows), pick(tail_rows)
     b3f, b3b = pick(edge_rows, kernel="fwd"), pick(edge_rows, kernel="bwd")
     b8s, b8g = (next(r for r in segment_rows if r["kernel"] == kind

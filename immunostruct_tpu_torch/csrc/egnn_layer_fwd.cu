@@ -6,20 +6,25 @@
 // taken as all ones (their weight row folded into the bias):
 //   h_src = h[src], h_dst = h[dst]       zeros on a side whose index is
 //                                        masked or outside [0, N)
-//   x_diff = xc[src] - xc[dst]           xc: x in the compute dtype; f32
-//   radial = |x_diff|^2, x_hat = x_diff / (sqrt(radial) + 1e-30)      f32
-//   z1 = h_src @ W_src + h_dst @ W_dst + rnd(radial) * w_rad + bias1
+//   x_diff = rnd(xc[src] - xc[dst])      xc: x in the compute dtype
+//   radial = rnd(|x_diff|^2), x_hat = x_diff / (sqrt(radial) + 1e-30)
+//   z1 = rnd(h_src @ W_src) + rnd(h_dst @ W_dst) + radial * w_rad + bias1
 //   m1 = rnd(silu(z1)); m = rnd(silu(m1 @ We2 + be2))
-//   c1 = rnd(silu(m @ Wc1 + bc1)); cw = c1 . wc2 (f32, not rounded)
+//   c1 = rnd(silu(m @ Wc1 + bc1)); cw = rnd(c1 . wc2)
 //   msg_x = rnd(cw * x_hat)
 //   acc[dst] += m, accx[dst] += msg_x    f32, only where dst lies in [0, N)
 //                                        and the edge is not masked
-//   a = rnd(silu(h @ Wn1_top + rnd(acc) @ Wn1_bot + bn1))
+//   a = rnd(silu(rnd(h @ Wn1_top + rnd(acc) @ Wn1_bot + bn1)))
 //   h' = rnd(a @ Wn2 + bn2)              the compute dtype
-//   x' = x + accx                        f32 from x's own dtype, stored in it
-// These are the TPU kernel's rounding points (pallas_egnn.py:56-125): bias1 =
-// be1 + we1[2F+1] is summed in the compute dtype (the JAX wrapper casts both
-// first); the weights arrive in the compute dtype, as the JAX wrapper casts
+//   x' = x + rnd(accx)                   in x's own dtype
+// These are the rounding points of the 'mega' forward that B7 serves in
+// place of (B1's, ops/mega.py, then the node update of ops/egnn.py), not
+// those of the TPU kernel (pallas_egnn.py:56-125), which keeps the
+// projections, x_diff, cw and accx unrounded and rounds the biases: on
+// trained weights those roundings part B7's probabilities from the 'mega'
+// forward's by up to 0.085 in bf16 (PERF.md §6). The weights arrive in f32:
+// the matrices are rounded to the compute dtype where they are staged, the
+// biases, w_rad, wc2 and bias1 = be1 + we1[2F+1] stay f32, as B1 keeps
 // them; every product accumulates in f32.
 //
 // What bounds it on the H100: per computed edge four [., 64] x [64, 64]
@@ -37,13 +42,14 @@
 //     warpgroups; a warpgroup gathers its next tile's rows h[src] and
 //     h[dst] (bf16, by cp.async where the rows start on 16 bytes; a zero
 //     row for a side that is masked or out of range) into its stage and
-//     forms the geometry while the other computes. z1 is one per-edge
-//     product [h_src | h_dst] . [W_src ; W_dst] (depth 2F padded to 16) on
-//     mma.sync, by ldmatrix from the stage, in f32 with no rounding of the
-//     projections; silu(z1), m and c1 pass from accumulator to A operand in
-//     registers; We2 and Wc1 are mma.sync too. The weights are staged in
-//     shared memory in bf16 (edge phase: W1, We2, Wc1; node phase: Wn1,
-//     Wn2, in the same place). The sums at dst take no atomics: B1's
+//     forms the geometry while the other computes. The projections h_src .
+//     W_src and h_dst . W_dst (depth F padded to 16 each) run per edge on
+//     mma.sync, by ldmatrix from the stage, in f32, each rounded (the
+//     first held packed while the second accumulates); silu(z1), m and c1
+//     pass from accumulator to A operand in registers; We2 and Wc1 are
+//     mma.sync too. The weights are rounded to bf16 where they are staged
+//     in shared memory (edge phase: W1, We2, Wc1; node phase: Wn1, Wn2, in
+//     the same place). The sums at dst take no atomics: B1's
 //     scheme (csrc/egnn_mega.cuh sum_tile_ordered), each (n, c) summed in
 //     f32 from +0 in tile and slot order into the CTA's own node block;
 //   - after cluster.sync(), takes a range of nodes, sums the cluster's
@@ -53,9 +59,12 @@
 // h is gathered from device memory (L2), not held in shared memory: the f32
 // node block, the staged weights and the stages leave room for N up to 543
 // at F=64 (the CUDA-core form, h resident: 477) and 576 at F=20 (608).
-// The sigmoids run on the special-function unit (sigmoid_fast); there is no
-// near-tie recompute (scripts/torch_kernel_ties.py --kernel layer_fwd reads
-// how near the bounds it comes).
+// The sigmoids run on the special-function unit (sigmoid_fast). The node
+// MLP's zn and a are recomputed near a bf16 tie (egnn_hopper.cuh near_tie):
+// zn's rounding, the 'mega' forward's, otherwise flips often enough to
+// move a row of h' past the bound; the edge chain has no recompute
+// (scripts/torch_kernel_ties.py --kernel layer_fwd reads how near the
+// bounds it comes).
 //
 // The f32 form (egnn_layer_fwd_kernel) keeps the CUDA cores, so its f32
 // bounds hold: one CTA per graph (grid B, as the TPU kernel's grid), 256
@@ -213,9 +222,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = tid; i < N * H; i += kThreads) acc[i] = 0.0f;
   for (int i = tid; i < N * 3; i += kThreads) accx[i] = 0.0f;
   for (int j = tid; j < H; j += kThreads) {
-    // the all-ones edge feature's row folded into the bias, summed in the
-    // compute dtype
-    vec[kBias1 * H + j] = rnd<T>(to_f(w.be1[j]) + to_f(w.w_ef[j]));
+    // the all-ones edge feature's row folded into the bias, in f32
+    vec[kBias1 * H + j] = __fadd_rn(to_f(w.be1[j]), to_f(w.w_ef[j]));
     vec[kWRad * H + j] = to_f(w.w_rad[j]);
     vec[kBe2 * H + j] = to_f(w.be2[j]);
     vec[kBc1 * H + j] = to_f(w.bc1[j]);
@@ -238,23 +246,24 @@ __global__ void __launch_bounds__(kThreads)
           ok = 1;
         }
       }
-      const float d0 = __fsub_rn(xc[s * 3 + 0], xc[d * 3 + 0]);
-      const float d1 = __fsub_rn(xc[s * 3 + 1], xc[d * 3 + 1]);
-      const float d2 = __fsub_rn(xc[s * 3 + 2], xc[d * 3 + 2]);
-      const float r = __fadd_rn(__fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1)),
-                                __fmul_rn(d2, d2));
+      const float d0 = rnd<T>(__fsub_rn(xc[s * 3 + 0], xc[d * 3 + 0]));
+      const float d1 = rnd<T>(__fsub_rn(xc[s * 3 + 1], xc[d * 3 + 1]));
+      const float d2 = rnd<T>(__fsub_rn(xc[s * 3 + 2], xc[d * 3 + 2]));
+      const float r = rnd<T>(__fadd_rn(
+          __fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1)), __fmul_rn(d2, d2)));
       const float den = __fadd_rn(sqrtf(r > 0.0f ? r : 1.0f), 1e-30f);
       xh[tid * 3 + 0] = __fdiv_rn(d0, den);
       xh[tid * 3 + 1] = __fdiv_rn(d1, den);
       xh[tid * 3 + 2] = __fdiv_rn(d2, den);
-      rad[tid] = rnd<T>(r);
+      rad[tid] = r;
       srow[tid] = s;
       drow[tid] = d;
       dok[tid] = ok;
     }
     __syncthreads();
 
-    // ---- z1 = h_src @ W_src + h_dst @ W_dst + radial * w_rad + bias1 ----
+    // ---- z1 = rnd(h_src @ W_src) + rnd(h_dst @ W_dst) + radial * w_rad
+    // + bias1 ----
     {
       const T* as[4];
       const T* ad[4];
@@ -273,7 +282,7 @@ __global__ void __launch_bounds__(kThreads)
         for (int c = 0; c < CPT; ++c) {
           const int j = cg * CPT + c;
           const float z1 = __fadd_rn(
-              __fadd_rn(__fadd_rn(za[i][c], zb[i][c]),
+              __fadd_rn(__fadd_rn(rnd<T>(za[i][c]), rnd<T>(zb[i][c])),
                         __fmul_rn(rad[t], vec[kWRad * H + j])),
               vec[kBias1 * H + j]);
           bufA[t * LD + j] = rnd<T>(silu(z1));
@@ -317,7 +326,7 @@ __global__ void __launch_bounds__(kThreads)
           const float c1 = rnd<T>(silu(r[i][c] + vec[kBc1 * H + j]));
           part += c1 * vec[kWc2 * H + j];
         }
-        const float cw = sum16(part);  // f32, not rounded
+        const float cw = rnd<T>(sum16(part));
         if (cg == 0) {
 #pragma unroll
           for (int k = 0; k < 3; ++k) {
@@ -367,8 +376,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int c = 0; c < CPT; ++c) {
           const int j = cg * CPT + c;
-          const float zn =
-              __fadd_rn(__fadd_rn(za[i][c], zb[i][c]), vec[kBn1 * H + j]);
+          const float zn = rnd<T>(
+              __fadd_rn(__fadd_rn(za[i][c], zb[i][c]), vec[kBn1 * H + j]));
           bufA[t * LD + j] = rnd<T>(silu(zn));
         }
       }
@@ -395,9 +404,9 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // bufA is rewritten by the next block
   }
 
-  // ---- x' = x + accx, in f32 from x's own dtype ----
+  // ---- x' = x + rnd(accx), in x's own dtype ----
   for (int i = tid; i < N * 3; i += kThreads) {
-    x_out[(size_t)b * N * 3 + i] = from_f<XT>(to_f(xb[i]) + accx[i]);
+    x_out[(size_t)b * N * 3 + i] = from_f<XT>(to_f(xb[i]) + rnd<T>(accx[i]));
   }
 }
 
@@ -439,8 +448,8 @@ __host__ __device__ inline LayerLayout layer_layout(int n, int f) {
 
 // Per cluster of `cluster` CTAs a graph (blockIdx.x / cluster), CTA rank r:
 //   1. the edge tiles of chunk r (ceil(tiles / cluster) tiles a chunk): per
-//      tile its edges' rows h[src] and h[dst] gathered into the stage, z1 =
-//      [h_src | h_dst] . W1 on mma.sync, m1 = silu(z1), m and c1 on
+//      tile its edges' rows h[src] and h[dst] gathered into the stage, the
+//      projections on mma.sync, m1 = silu(z1), m and c1 on
 //      mma.sync, cw and the coordinate message, summed into this CTA's node
 //      block in tile and slot order (egnn_mega.cuh mma_edge_chunk's scheme);
 //   2. cluster.sync();
@@ -456,7 +465,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
                               const uint8_t* __restrict__ mask,
                               const bf* __restrict__ h,
                               const XT* __restrict__ x,
-                              const bf* __restrict__ weights,
+                              const float* __restrict__ weights,
                               bf* __restrict__ h_out, XT* __restrict__ x_out,
                               int N, int E, int F) {
   static_assert(H == kHidden, "the tensor-core form is written for H = 64");
@@ -485,7 +494,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   const int lane = tid & 31, warp = tid >> 5;
   const int fr = lane >> 2, fq = lane & 3;
   const int m0 = (wtid >> 5) * 16;
-  const Weights<bf> w = carve_weights(weights, F, H);
+  const Weights<float> w = carve_weights(weights, F, H);
   const int* srcb = src + (size_t)b * E;
   const int* dstb = dst + (size_t)b * E;
   const uint8_t* maskb = mask + (size_t)b * E;
@@ -499,9 +508,8 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     xc[i] = i < N * 3 ? rnd<bf>(to_f(xb[i])) : 0.0f;
   }
   for (int j = tid; j < H; j += kFwdThreads) {
-    // the all-ones edge feature's row folded into the bias, summed in the
-    // compute dtype
-    vec[kMBias1 * H + j] = rnd<bf>(to_f(w.be1[j]) + to_f(w.w_ef[j]));
+    // the all-ones edge feature's row folded into the bias, in f32
+    vec[kMBias1 * H + j] = __fadd_rn(to_f(w.be1[j]), to_f(w.w_ef[j]));
     vec[kMWRad * H + j] = to_f(w.w_rad[j]);
     vec[kMBe2 * H + j] = to_f(w.be2[j]);
     vec[kMBc1 * H + j] = to_f(w.bc1[j]);
@@ -510,14 +518,21 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     vec[kMBn2 * H + j] = to_f(w.bn2[j]);
   }
   const bf bf_zero = __float2bfloat16(0.0f);
-  // rows of H weights (16-byte pieces; the packed layer's matrices start on
-  // 16 bytes) into rows of kLdb, or zero rows where src is null
-  auto stage_rows = [&](bf* to, const bf* src, int rows) {
+  // rows of H f32 weights (16-byte pieces; the packed layer's matrices
+  // start on 16 bytes) rounded into bf16 rows of kLdb, or zero rows where
+  // src is null
+  auto stage_rows = [&](bf* to, const float* src, int rows) {
     for (int i = tid; i < rows * (H / 8); i += kFwdThreads) {
       const int r = i / (H / 8), c = i % (H / 8);
-      *reinterpret_cast<uint4*>(to + r * kLdb + c * 8) =
-          src == nullptr ? make_uint4(0, 0, 0, 0)
-                         : *reinterpret_cast<const uint4*>(src + r * H + c * 8);
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (src != nullptr) {
+        const float4 lo = *reinterpret_cast<const float4*>(src + r * H + c * 8);
+        const float4 hi =
+            *reinterpret_cast<const float4*>(src + r * H + c * 8 + 4);
+        v = make_uint4(pack2(lo.x, lo.y), pack2(lo.z, lo.w), pack2(hi.x, hi.y),
+                       pack2(hi.z, hi.w));
+      }
+      *reinterpret_cast<uint4*>(to + r * kLdb + c * 8) = v;
     }
   };
   stage_rows(w1s, w.w_src, F);
@@ -578,16 +593,16 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       }
       gather_row(hsrc + wtid * kLdb, s);
       gather_row(hdst + wtid * kLdb, d);
-      const float d0 = __fsub_rn(xc[s * 3 + 0], xc[d * 3 + 0]);
-      const float d1 = __fsub_rn(xc[s * 3 + 1], xc[d * 3 + 1]);
-      const float d2 = __fsub_rn(xc[s * 3 + 2], xc[d * 3 + 2]);
-      const float r = __fadd_rn(__fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1)),
-                                __fmul_rn(d2, d2));
+      const float d0 = rnd<bf>(__fsub_rn(xc[s * 3 + 0], xc[d * 3 + 0]));
+      const float d1 = rnd<bf>(__fsub_rn(xc[s * 3 + 1], xc[d * 3 + 1]));
+      const float d2 = rnd<bf>(__fsub_rn(xc[s * 3 + 2], xc[d * 3 + 2]));
+      const float r = rnd<bf>(__fadd_rn(
+          __fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1)), __fmul_rn(d2, d2)));
       const float den = __fadd_rn(sqrtf(r > 0.0f ? r : 1.0f), 1e-30f);
       g.xh[wtid * 3 + 0] = __fdiv_rn(d0, den);
       g.xh[wtid * 3 + 1] = __fdiv_rn(d1, den);
       g.xh[wtid * 3 + 2] = __fdiv_rn(d2, den);
-      g.rad[wtid] = rnd<bf>(r);
+      g.rad[wtid] = r;
       g.dst[wtid] = d;
       g.ok[wtid] = ok;
     }
@@ -599,13 +614,22 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     cp_async_wait<0>();
     wg_sync(wg);  // this tile's rows and geometry
 
-    // ---- z1 = [h_src | h_dst] . W1 + rnd(radial) * w_rad + bias1 ->
-    // m1 = silu(z1) as the A operand of We2 ----
+    // ---- z1 = rnd(h_src . W_src) + rnd(h_dst . W_dst) + radial * w_rad +
+    // bias1 -> m1 = silu(z1) as the A operand of We2 ----
     unsigned af[4][4];
     {
       float z[8][4];
+      unsigned pa[8][2];  // rnd(h_src . W_src), packed
       zero(z);
       for (int k0 = 0; k0 < 2 * Fp; k0 += 16) {
+        if (k0 == Fp) {
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            pa[nt][0] = pack2(z[nt][0], z[nt][1]);
+            pa[nt][1] = pack2(z[nt][2], z[nt][3]);
+          }
+          zero(z);
+        }
         unsigned a[4];
         load_a<false>(a, k0 < Fp ? hsrc : hdst, m0, k0 < Fp ? k0 : k0 - Fp,
                       lane);
@@ -622,8 +646,12 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int t = m0 + fr + 8 * (i >> 1), j = nt * 8 + 2 * fq + (i & 1);
+          const __nv_bfloat162 p2 =
+              *reinterpret_cast<const __nv_bfloat162*>(&pa[nt][i >> 1]);
+          const float pav = (i & 1) ? __high2float(p2) : __low2float(p2);
           const float z1 = __fadd_rn(
-              __fadd_rn(z[nt][i], __fmul_rn(g.rad[t], vec[kMWRad * H + j])),
+              __fadd_rn(__fadd_rn(pav, rnd<bf>(z[nt][i])),
+                        __fmul_rn(g.rad[t], vec[kMWRad * H + j])),
               vec[kMBias1 * H + j]);
           z[nt][i] = z1 * sigmoid_fast(z1);
         }
@@ -669,8 +697,8 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       }
     }
 
-    // ---- cw = silu(m @ Wc1 + bc1) . wc2 (f32, not rounded) -> the
-    // coordinate message rnd(cw * x_hat) in x_hat's place ----
+    // ---- cw = rnd(silu(m @ Wc1 + bc1) . wc2) -> the coordinate message
+    // rnd(cw * x_hat) in x_hat's place ----
     {
       float p3[8][4];
       reg_product(af, wc1s, lane, p3);
@@ -686,7 +714,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
         }
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
-        const float cw = sum4(part[hh]);
+        const float cw = rnd<bf>(sum4(part[hh]));
         const int t = m0 + fr + 8 * hh;
         if (fq == 0) {
 #pragma unroll
@@ -762,10 +790,15 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       if (node < n_hi) {
         const float accx = cluster_sum(node * C + H + k);
         x_out[((size_t)b * N + node) * 3 + k] =
-            from_f<XT>(to_f(xb[node * 3 + k]) + accx);
+            from_f<XT>(to_f(xb[node * 3 + k]) + rnd<bf>(accx));
       }
     }
     __syncthreads();
+    // zn = rnd([h | agg] . Wn1 + bn1) and a = rnd(silu(zn)); a zn or an a
+    // about to round near a bf16 tie is recomputed as the plain version
+    // computes it (the product summed in k order by dot_n, the IEEE
+    // sigmoid): the tensor cores sum in another order, and a zn rounded
+    // the other way moves every column of its row of h'
     {
       float p[4][4];
       block_product(atile, lda, wn1s, K1, rb, ch, lane, p);
@@ -777,9 +810,15 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
           float v[2];
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
-            const float zn =
-                __fadd_rn(p[q][2 * hh + c], vec[kMBn1 * H + j + c]);
+            float zn = __fadd_rn(p[q][2 * hh + c], vec[kMBn1 * H + j + c]);
+            if (near_tie(zn)) {
+              zn = __fadd_rn(
+                  dot_n(atile + row * lda, 1, wn1s + j + c, kLdb, K1),
+                  vec[kMBn1 * H + j + c]);
+            }
+            zn = rnd<bf>(zn);
             v[c] = zn * sigmoid_fast(zn);
+            if (near_tie(v[c])) v[c] = __fmul_rn(zn, sigmoid(zn));
           }
           store_pair(as + row * kLdb + j, v[0], v[1]);
         }
@@ -848,7 +887,7 @@ cudaError_t launch_layer_mma(const int* src, const int* dst,
   err = cudaLaunchKernelEx(&config, kernel, src, dst, mask,
                            static_cast<const bf*>(h),
                            static_cast<const XT*>(x),
-                           static_cast<const bf*>(weights),
+                           static_cast<const float*>(weights),
                            static_cast<bf*>(h_out), static_cast<XT*>(x_out),
                            N, E, F);
   if (err != cudaSuccess) return err;
@@ -923,7 +962,7 @@ long long egnn_layer_fwd_weight_count(int F, int H) {
 // One launch on `stream`. src/dst [B,E] int32, mask [B,E] bool; h [B,N,F]
 // in the compute dtype (bf16 != 0: bfloat16, else float32); x [B,N,3] in
 // bfloat16 (x_bf16 != 0) or float32; weights the packed layer
-// (weight_count elements, the compute dtype). bf16 runs B clusters of
+// (weight_count elements, float32). bf16 runs B clusters of
 // `cluster` CTAs (1 to 8) of 256 threads, f32 B CTAs (cluster 1). Writes
 // h_out [B,N,H] in the compute dtype and x_out [B,N,3] in x's dtype.
 // Returns the cudaError_t of the launch.

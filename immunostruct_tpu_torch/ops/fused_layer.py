@@ -21,21 +21,30 @@ features are ones is the caller's contract, as in JAX
 (``egnn_stack_apply(fused_stack=True)`` checks it on CPU tensors, the
 request builder on the host).
 
-Rounding points under bf16 are ``_fused_layer_kernel``'s
-(pallas_egnn.py:56-125): the weights are cast to the compute dtype, and
-bias1 = be1 + we1[2F+1] is summed in it; x is cast to the compute dtype for
-x_diff only, and x_diff, radial and x_hat stay in f32; radial is rounded
-before it multiplies w_rad; z1 = h_src @ W_src + h_dst @ W_dst + radial *
-w_rad + bias1 is an f32 sum of per-edge products; silu(z1), m and the
-coordinate MLP's hidden c1 are rounded; cw = c1 @ wc2 is not; msg_x = cw *
-x_hat is; the sums at dst are f32 and the message sum is rounded before the
-node MLP; a = silu(h @ Wn1_top + agg @ Wn1_bot + bn1) and h' are rounded;
-x' = x + x_agg is summed in f32 from x's own dtype and stored in it.
+Rounding points under bf16 are those of the 'mega' forward that B7 serves
+in place of (``edge_mega_fwd_reference``'s, then ``egnn._node_update``'s),
+not those of ``_fused_layer_kernel`` (pallas_egnn.py:56-125): on trained
+weights the TPU kernel's roundings (the projections, x_diff, cw and the
+coordinate sum kept in f32, the biases rounded) part the served
+probabilities from the 'mega' forward's by up to 0.085 in bf16 (PERF.md
+§6). The weight matrices are rounded to the compute dtype, the biases,
+w_rad, wc2 and bias1 = be1 + we1[2F+1] stay f32; x is cast to the compute
+dtype; x_diff and radial are rounded, x_hat is f32; each projection h_src @
+W_src and h_dst @ W_dst is rounded before they are summed in f32 with
+radial * w_rad and bias1; silu(z1), m and the coordinate MLP's hidden c1
+are rounded, and so are cw and msg_x = cw * x_hat; the sums at dst are f32
+and rounded before the node update; zn = [h ++ agg] @ Wn1 + bn1 (the
+product summed in k order, as ``projection_in_order`` sums it, so that the
+kernel can recompute a zn near a bf16 tie in the same order) is rounded
+before its silu, a and h' are rounded; x' = x + x_agg in x's
+dtype. In f32 every rounding is exact and B7 computes what the TPU kernel
+computes.
 
-Masking (``_fused_layer_kernel``'s, not B1's): a masked edge gathers zeros
-on both sides and is summed nowhere; an unmasked edge whose src lies
-outside [0, N) gathers zeros on that side (x_diff = -x[dst]) and is still
-summed at its dst; a dst outside [0, N) is summed nowhere.
+Masking (``_fused_layer_kernel``'s and the JAX 'mega' layer's, not the
+port's B1, which skips such an edge): a masked edge gathers zeros on both
+sides and is summed nowhere; an unmasked edge whose src lies outside [0, N)
+gathers zeros on that side (x_diff = -x[dst]) and is still summed at its
+dst; a dst outside [0, N) is summed nowhere.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version. ``fused_egnn_layer.launches`` counts the kernel's launches. The
@@ -55,6 +64,7 @@ import torch
 from immunostruct_tpu_torch.ops.edge import (
     EDGE_MULTIPLE, KERNEL_MAX_F, check_cuda_args, hopper,
 )
+from immunostruct_tpu_torch.ops.mega import projection_in_order
 
 
 def _layer_tensors(layer):
@@ -82,10 +92,11 @@ def fused_egnn_layer_reference(layer, h, x, edge_src, edge_dst, edge_mask):
     def silu(t):
         return t * torch.sigmoid(t)
 
-    we1, be1, we2, be2, wc1, bc1, wc2, wn1, bn1, wn2, bn2 = (
-        t.detach().to(dt) for t in _layer_tensors(layer))
-    bias1 = (be1 + we1[2 * f + 1]).float()          # summed in the dtype
-    we1 = we1.float()
+    raw = [t.detach().float() for t in _layer_tensors(layer)]
+    we1, be1, we2, be2, wc1, bc1, wc2, wn1, bn1, wn2, bn2 = raw
+    bias1 = be1 + we1[2 * f + 1]                     # f32
+    w_rad = we1[2 * f]
+    we1, we2, wc1, wn1, wn2 = (rnd(t) for t in (we1, we2, wc1, wn1, wn2))
     edge_mask = edge_mask.bool()
     src_ok = edge_mask & (edge_src >= 0) & (edge_src < n)
     dst_ok = edge_mask & (edge_dst >= 0) & (edge_dst < n)
@@ -98,27 +109,27 @@ def fused_egnn_layer_reference(layer, h, x, edge_src, edge_dst, edge_mask):
 
     hf = h.float()
     xc = rnd(x)
-    h_src, h_dst = gather(hf, s, src_ok), gather(hf, d, dst_ok)
-    x_diff = gather(xc, s, src_ok) - gather(xc, d, dst_ok)     # f32
-    radial = (x_diff * x_diff).sum(-1, keepdim=True)
+    x_diff = rnd(gather(xc, s, src_ok) - gather(xc, d, dst_ok))
+    radial = rnd((x_diff * x_diff).sum(-1, keepdim=True))
     safe = torch.where(radial > 0, radial, torch.ones_like(radial))
     x_hat = x_diff / (torch.sqrt(safe) + 1e-30)
-    z1 = (torch.matmul(h_src, we1[:f]) + torch.matmul(h_dst, we1[f:2 * f])
-          + rnd(radial) * we1[2 * f] + bias1)
+    pa = rnd(torch.matmul(gather(hf, s, src_ok), we1[:f]))
+    pb = rnd(torch.matmul(gather(hf, d, dst_ok), we1[f:2 * f]))
+    z1 = pa + pb + radial * w_rad + bias1
     m1 = rnd(silu(z1))
-    m = rnd(silu(torch.matmul(m1, we2.float()) + be2.float()))
-    c1 = rnd(silu(torch.matmul(m, wc1.float()) + bc1.float()))
-    cw = torch.matmul(c1, wc2.float())                          # [B, E, 1]
+    m = rnd(silu(torch.matmul(m1, we2) + be2))
+    c1 = rnd(silu(torch.matmul(m, wc1) + bc1))
+    cw = rnd(torch.matmul(c1, wc2))                             # [B, E, 1]
     msg_x = rnd(cw * x_hat)
     both = torch.where(dst_ok[..., None], torch.cat([m, msg_x], dim=-1), 0.0)
     hid = m.shape[-1]
     agg = torch.zeros(b, n, hid + 3, dtype=f32, device=h.device)
     agg.scatter_add_(1, d[..., None].expand(-1, -1, hid + 3), both)
-    wn1 = wn1.float()
-    zn = (torch.matmul(hf, wn1[:f]) + torch.matmul(rnd(agg[..., :hid]),
-                                                   wn1[f:]) + bn1.float())
+    agg = rnd(agg)
+    zn = rnd(projection_in_order(torch.cat([hf, agg[..., :hid]], dim=-1), wn1)
+             + bn1)
     a = rnd(silu(zn))
-    h_new = (torch.matmul(a, wn2.float()) + bn2.float()).to(dt)
+    h_new = (torch.matmul(a, wn2) + bn2).to(dt)
     x_new = (x.float() + agg[..., hid:]).to(x.dtype)
     return h_new, x_new
 
@@ -225,7 +236,8 @@ def fused_egnn_layer(layer, h, x, edge_src, edge_dst, edge_mask):
                 f"fused_egnn_layer kernel needs {smem} B of shared memory "
                 f"for N={n}, F={f}, H={hid} in {dt}; the card allows "
                 f"{props.shared_memory_per_block_optin} B per block")
-        weights = torch.cat([t.detach().reshape(-1).to(h.device, dt)
+        weights = torch.cat([t.detach().reshape(-1).to(h.device,
+                                                       torch.float32)
                              for t in _layer_tensors(layer)])
         assert weights.numel() == lib.egnn_layer_fwd_weight_count(f, hid)
         cluster = (layer_cluster_size(e, b, props.multi_processor_count)

@@ -142,15 +142,15 @@ and at 1..8 (``kernel_checks.cases``).
   of it, over B1's 4e-3) and mean|diff| <= 1e-4 * mean|plain|. Its bf16
   form (every product on the tensor cores, a graph over a cluster of
   ``layer_cluster_size`` CTAs) also runs at B=1 and 200, E=2560 and 1024,
-  bf16 and f32 coordinates, the last graph all masked. Seven mutants of
-  its tensor-core form, each without one of B7's rounding points (bias1
-  summed in f32 rather than the compute dtype, the x cast, radial, m, c1,
-  msg_x, x' from x's own dtype; the two on x run f32 coordinates under
-  bf16 features), fail the bf16 bound; silu(z1), agg, a and h' reach only
-  bf16 storage and have none. c1 and msg_x reach x' only, through x_agg:
-  at unit-scale coordinates x carries x' and their change can stay under
-  the mean bound, so they run coordinates at 1/16 scale, where x_agg
-  carries x'.
+  bf16 and f32 coordinates, the last graph all masked. Eleven mutants of
+  its tensor-core form, each without one of B7's rounding points (those of
+  the 'mega' forward: the x cast, x_diff, radial, the dst projection, m,
+  c1, cw, msg_x, x_agg, zn, x' from x's own dtype; the two on x run f32
+  coordinates under bf16 features), fail the bf16 bound; silu(z1), the src
+  projection, agg, a and h' reach only bf16 storage and have none. c1, cw,
+  msg_x and x_agg reach x' only, through x_agg: at unit-scale coordinates
+  x carries x' and their change can stay under the mean bound, so they run
+  coordinates at 1/16 scale, where x_agg carries x'.
 
 Repeat. Every kernel and the glue around it sums in a fixed order, without
 atomics, so the same inputs give the same bits: two launches of B1 and B4
@@ -1911,23 +1911,33 @@ def test_fused_layer_kernel_raises(cuda):
 
 
 # B7's tensor-core form (csrc/egnn_layer_fwd.cu) with one bf16 rounding
-# point of pallas_egnn.py left out; "bias_fold" sums bias1 in f32 rather
-# than bf16. silu(z1), agg, a and h' have no mutant: each reaches only bf16
-# storage (an mma operand, the A tile, the a tile, h'), whose store rounds
-# it. The form has no near-tie recompute.
+# point of the 'mega' forward (B1's, then the node update's) left out.
+# silu(z1), the src projection (held packed), agg, a and h' have no mutant:
+# each reaches only bf16 storage (an mma operand, a packed register, the A
+# tile, the a tile, h'), whose store rounds it. The form has no near-tie
+# recompute.
 _B7_MUTANTS = {
-    "bias_fold": [(r"rnd<bf>\((to_f\(w\.be1\[j\]\) \+ "
-                   r"to_f\(w\.w_ef\[j\]\))\)", r"(\1)")],
     "x_cast": [(r"(\? )rnd<bf>\((to_f\(xb\[i\]\))\)", r"\1\2")],
-    "radial": [(r"(g\.rad\[wtid\] = )rnd<bf>\((r)\)", r"\1\2")],
+    "x_diff": [(r"(const float d(\d) = )rnd<bf>\((__fsub_rn\(xc\[s \* 3 "
+                r"\+ \d\], xc\[d \* 3 \+ \d\]\))\);", r"\1\3;")],
+    "radial": [(r"(const float r = )rnd<bf>\((__fadd_rn\(\s*__fadd_rn\("
+                r"__fmul_rn\(d0, d0\), __fmul_rn\(d1, d1\)\), "
+                r"__fmul_rn\(d2, d2\)\))\);", r"\1\2;")],
+    "projection": [(r"__fadd_rn\(pav, rnd<bf>\((z\[nt\]\[i\])\)\)",
+                    r"__fadd_rn(pav, \1)")],
     "m": [(r"(const float mv = )rnd<bf>\((p \* sigmoid_fast\(p\))\)",
            r"\1\2")],
     "c1": [(r"(const float c1 = )rnd<bf>\((p \* sigmoid_fast\(p\))\)",
             r"\1\2")],
+    "cw": [(r"rnd<bf>\((sum4\(part\[hh\]\))\)", r"\1")],
     "msg_x": [(r"rnd<bf>\((__fmul_rn\(cw, g\.xh\[t \* 3 \+ k\]\))\)",
                r"\1")],
-    "x_own_dtype": [(r"from_f<XT>\(to_f\(xb\[node \* 3 \+ k\]\) \+ accx\)",
-                     r"from_f<XT>(xc[node * 3 + k] + accx)")],
+    "x_agg": [(r"(to_f\(xb\[node \* 3 \+ k\]\) \+ )rnd<bf>\((accx)\)",
+               r"\1\2")],
+    "zn": [(r"\n\s*zn = rnd<bf>\(zn\);", "")],
+    "x_own_dtype": [(r"from_f<XT>\(to_f\(xb\[node \* 3 \+ k\]\) \+ "
+                     r"(rnd<bf>\(accx\))\)",
+                     r"from_f<XT>(xc[node * 3 + k] + \1)")],
 }
 
 
@@ -1943,11 +1953,11 @@ def test_fused_layer_bf16_bound_sees_every_rounding_point(cuda, name,
                                                           monkeypatch):
     """Each mutant fails the bf16 bound. The x cast and x' from x's own
     dtype only show with coordinates that are not already bf16: those two
-    run bf16 features over f32 coordinates. c1 and msg_x reach x' only
-    through x_agg: those two run coordinates at 1/16 scale (module
+    run bf16 features over f32 coordinates. c1, cw, msg_x and x_agg reach
+    x' only through x_agg: those run coordinates at 1/16 scale (module
     docstring)."""
     x_dtype = torch.float32 if name in ("x_cast", "x_own_dtype") else None
-    x_scale = 1 / 16 if name in ("c1", "msg_x") else 1.0
+    x_scale = 1 / 16 if name in ("c1", "cw", "msg_x", "x_agg") else 1.0
     inputs = [_b7_args(32, e, f, torch.bfloat16, cuda, seed=e + f,
                        x_dtype=x_dtype, x_scale=x_scale)
               for e, f in ((2560, 20), (1408, 64))]

@@ -1,8 +1,13 @@
 """B7's plain version (immunostruct_tpu_torch/ops/fused_layer.py) and the
-served forward with ``fused_stack=True`` against the JAX package's
-``ops/experimental/pallas_egnn.py`` (``fused_egnn_layer`` and
+served forward with ``fused_stack=True`` against the JAX package: in f32
+against ``ops/experimental/pallas_egnn.py`` (``fused_egnn_layer`` and
 ``fused_egnn_stack`` in interpret mode, as tests/test_pallas_egnn.py runs
-them on the CPU).
+them on the CPU); in bf16 against the JAX 'mega' layer
+(``ops/egnn.py::_egnn_apply_mega``: pallas_mega's kernel in interpret mode,
+then the node update), whose rounding points B7 takes, since it serves in
+place of the 'mega' forward (ops/fused_layer.py; the TPU kernel's own bf16
+roundings part a trained model's served probabilities from the 'mega'
+forward's by up to 0.085).
 
 The same numpy inputs, made from a seed, go through both: B=2, N=16, E=128
 and 256, F=20 and 16, H=16, 30% of the edges masked, self-loops, and
@@ -13,20 +18,22 @@ in the TPU kernel. Tolerances:
 - f32: atol=1e-5, rtol=1e-4 (JAX's own test allows 2e-5/2e-4); measured
   1.2e-7 at most.
 - bf16 (and bf16 features over f32 coordinates): every element of h' and
-  x' within one bf16 step of JAX's, at most 1% of them different; the two
-  round at the same points, so only an f32 sum in another order can flip
-  one (measured: equal bit for bit).
-- Three layers (``fused_egnn_stack``): f32 atol=1e-5, rtol=1e-4; bf16 as
-  one layer.
+  x' within one bf16 step of the JAX 'mega' layer's, at most 1% of them
+  different, with JAX's node-MLP silu rounding once as the port's does
+  (``jax.nn.silu`` in bf16 rounds four times: ROADMAP §C,
+  tests/test_torch_port_edge.py); the two round at the same points, so
+  only an f32 sum in another order can flip one.
+- Three layers (``fused_egnn_stack``): f32 atol=1e-5, rtol=1e-4 of
+  ``fused_egnn_stack``; bf16 as one layer, against the 'mega' layer three
+  times.
 - The slice as a whole, HybridModelv2 at small width with all-ones edge
   features: ``model_apply(fused_stack=True)`` in f32 against JAX's
   ``model_apply`` under 'onehot' (B7 equals it in f32, as JAX's test
-  shows) within atol=1e-5, rtol=1e-4; in bf16 against JAX's trunk with its
-  stack call replaced by ``fused_egnn_stack(..., interpret=True)`` (a
-  monkeypatch here; the JAX package is not edited): logits, mu, logvar,
-  recon and the attention weights within one bf16 step element by element,
-  at most 1% different, the embedding within 1e-3 * max|JAX| (the bounds
-  of tests/test_torch_port_model.py's bf16 forward).
+  shows) within atol=1e-5, rtol=1e-4; in bf16 against JAX's ``model_apply``
+  under 'mega': logits, mu, logvar, recon and the attention weights within
+  one bf16 step element by element, at most 1% different, the embedding
+  within 1e-3 * max|JAX| (the bounds of tests/test_torch_port_model.py's
+  bf16 forward, which holds the port's 'mega' forward to the same).
 """
 
 import jax
@@ -94,6 +101,23 @@ def _compare(got, want, dtype):
             _within_one_bf16_step(_f32(g), _f32(w), 0.01)
 
 
+def _jax_mega_layers(params, h, x, src, dst, mask, monkeypatch):
+    """The JAX 'mega' layer over ``params`` (a list: one layer each), as
+    B7's bf16 reference: XLA without excess precision, the node MLP's silu
+    rounded once (a monkeypatch here; the JAX package is not edited)."""
+    silu = jax.nn.silu
+    monkeypatch.setattr(jax.nn, "silu",
+                        lambda z: silu(z.astype(jnp.float32)).astype(z.dtype))
+    ef = jnp.ones(src.shape + (1,), jnp.float32)
+
+    def stack(ps, h, x, *a):
+        for p in ps:
+            h, x = jax_egnn._egnn_apply_mega(p, h, x, *a)
+        return h, x
+    return _rounding(stack, params, h, x, jnp.asarray(src), jnp.asarray(dst),
+                     ef, jnp.asarray(mask))
+
+
 def _both_sides(h, x, dtype, x_dtype):
     jx = (jnp.asarray(h).astype(getattr(jnp, dtype)),
           jnp.asarray(x).astype(getattr(jnp, x_dtype)))
@@ -107,13 +131,17 @@ def _both_sides(h, x, dtype, x_dtype):
     (128, 20, "bfloat16", "bfloat16"), (256, 16, "bfloat16", "bfloat16"),
     (256, 20, "bfloat16", "float32"),
 ])
-def test_plain_version_matches_jax_kernel(e, f, dtype, x_dtype):
+def test_plain_version_matches_jax_kernel(e, f, dtype, x_dtype, monkeypatch):
     h, x, src, dst, mask = _graph(e, f, seed=e + f)
     params = jax_egnn.egnn_init(jax.random.key(e + f), f, H, H)
     (jh, jx), (th, tx) = _both_sides(h, x, dtype, x_dtype)
-    want = _rounding(lambda p, *a: jax_fused_layer(p, *a, interpret=True),
-                     params, jh, jx, jnp.asarray(src), jnp.asarray(dst),
-                     jnp.asarray(mask))
+    if dtype == "float32":
+        want = _rounding(
+            lambda p, *a: jax_fused_layer(p, *a, interpret=True), params,
+            jh, jx, jnp.asarray(src), jnp.asarray(dst), jnp.asarray(mask))
+    else:
+        want = _jax_mega_layers([params], jh, jx, src, dst, mask,
+                                monkeypatch)
     layer = _port_layer(params, f)
     with torch.no_grad():
         got = fused_layer.fused_egnn_layer(
@@ -124,13 +152,16 @@ def test_plain_version_matches_jax_kernel(e, f, dtype, x_dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_fused_stack_matches_jax_over_three_layers(dtype):
+def test_fused_stack_matches_jax_over_three_layers(dtype, monkeypatch):
     h, x, src, dst, mask = _graph(128, 20, seed=3)
     params = jax_egnn.egnn_stack_init(jax.random.key(7), 2, 20, H)
     (jh, jx), (th, tx) = _both_sides(h, x, dtype, dtype)
-    want = _rounding(lambda p, *a: jax_fused_stack(p, *a, interpret=True),
-                     params, jh, jx, jnp.asarray(src), jnp.asarray(dst),
-                     jnp.asarray(mask))
+    if dtype == "float32":
+        want = _rounding(
+            lambda p, *a: jax_fused_stack(p, *a, interpret=True), params,
+            jh, jx, jnp.asarray(src), jnp.asarray(dst), jnp.asarray(mask))
+    else:
+        want = _jax_mega_layers(params, jh, jx, src, dst, mask, monkeypatch)
     layers = [_port_layer(p, 20 if i == 0 else H)
               for i, p in enumerate(params)]
     with torch.no_grad():
@@ -231,23 +262,20 @@ def _arrays():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_model_apply_fused_stack_matches_jax(models, monkeypatch, dtype):
+def test_model_apply_fused_stack_matches_jax(models, dtype):
     spec, params, model = models
     a = _arrays()
     key = jax.random.key(11)
     jdt = getattr(jnp, dtype)
-    if dtype == "bfloat16":
-        def stack_by_b7(layers, h, x, src, dst, ef, mask, **_):
-            return jax_fused_stack(layers, h, x, src, dst, mask,
-                                   interpret=True)
-        monkeypatch.setattr(jax_trunk, "egnn_stack_apply", stack_by_b7)
     graph = JaxGraphBatch(**{k: jnp.asarray(a[k]) for k in (
         "node_feat", "coords", "edge_src", "edge_dst", "edge_feat",
         "edge_mask", "node_mask", "num_nodes")})
     ref = jax_trunk.model_apply(params, spec, graph,
                                 jnp.asarray(a["seq_onehot"]),
                                 jnp.asarray(a["props"]), key,
-                                deterministic=True, aggregation="onehot",
+                                deterministic=True,
+                                aggregation=("onehot" if dtype == "float32"
+                                             else "mega"),
                                 compute_dtype=jdt)
     eps = _jax_eps(key, (3, SMALL["vae_latent_dim"]), jdt)
     with torch.no_grad():

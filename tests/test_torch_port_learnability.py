@@ -1,0 +1,592 @@
+"""Learnability of the PyTorch port (counterpart of tests/test_learnability.py
+and scripts/geometric_signal.py), on the CPU.
+
+(a) One whole finetune stage held against the JAX package: the JAX package
+writes one geometric corpus (64 samples, 20-residue HLA chains); both read
+it. StructureModel at two EGNN layers of 16 channels gets JAX's
+``build_model`` weights (``params_from_jax``), f32, 'scatter',
+``dropout_rate=0.0`` (dropout masks cannot be carried across;
+StructureModel has no VAE, so nothing else is drawn), batch 16, 3 epochs,
+Adam at 1e-3, then inference on the train split and on the test split at
+the train split's threshold. Tolerances:
+- each epoch's train and val loss: rel 1e-4 (measured: 1.3e-7 train,
+  7.7e-8 val; at the full width 4.2e-7 and 1.6e-6);
+- the test probabilities: atol 1e-5 (measured: 6.0e-8; at the full width
+  7.6e-6, with 1 and with 3 torch threads);
+- the AUROCs: atol 1e-6 (measured: equal).
+Parameters are not compared: Adam divides each gradient by its own size, so
+entries whose true gradient is zero (the attention key biases) move by
+rounding noise on each side; they change no output.
+
+(b) The three JAX learnability tests at JAX's sizes, seeds and bounds
+(the structure test marked slow, as the JAX file is: ``-m slow`` runs it;
+on the card chip_smoke.py's phase 32 trains the same model at 512 samples),
+trained and scored by the port alone from the JAX test's own initial
+weights (``jax.random.key(0)``, through ``params_from_jax``); the VAE noise
+and the dropout masks are the port's own draws. With the port's own weights
+(``torch.Generator().manual_seed(0)``) the planted-signal test reads a test
+AUROC of 0.673 on its 26 test rows, under the 0.7 bound; with the JAX
+weights the port reads 0.718 (the JAX package 0.782: the noise draws
+differ). ``test_planted_signal_over_weight_seeds`` (slow) trains the
+planted-signal recipe from each package's own weights at seeds 0-7, the
+port from ``torch.Generator().manual_seed(s)``, the JAX package from
+``jax.random.key(s)``: test AUROCs 0.673, 0.724, 0.750, 0.712, 0.776,
+0.756, 0.782, 0.724 (median 0.737) against 0.782, 0.731, 0.737, 0.782,
+0.763, 0.724, 0.712, 0.705 (median 0.734), train AUROC 1.0 on both: the
+same spread, the port's seed 0 its lowest draw. It holds each median to
+the JAX test's bounds.
+
+(c) scripts/torch_geometric_signal.py: ``run_one`` on the CPU returns every
+key; a 'mega' variant's run (a Trainer built beside ``train_model``) follows
+``train_model``'s 'hybrid' run; the served B7 forward against 'mega' and
+'scatter', at random weights and on models the script's recipe trained on
+the card (tests/data/geomsig_auto_seed*.npz); the verdict's bounds, held on
+every path, and its launch rules.
+"""
+
+import importlib.util
+import math
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from immunostruct_tpu.config import Config as JaxConfig
+from immunostruct_tpu.data import BatchPipeline as JaxPipeline
+from immunostruct_tpu.data import ImmunoDataset as JaxDataset
+from immunostruct_tpu.data import seeded_split as jax_seeded_split
+from immunostruct_tpu.data import synthetic_corpus as jax_synthetic_corpus
+from immunostruct_tpu.models import build_model as jax_build_model
+from immunostruct_tpu.procedures.infer import inference as jax_inference
+from immunostruct_tpu.procedures.train import train_model as jax_train_model
+from immunostruct_tpu.utils.losses import LossConfig as JaxLossConfig
+from immunostruct_tpu.utils.losses import (
+    pos_weight_from_counts as jax_pos_weight,
+)
+from immunostruct_tpu_torch.config import Config
+from immunostruct_tpu_torch.data.dataset import ImmunoDataset, seeded_split
+from immunostruct_tpu_torch.data.pipeline import BatchPipeline
+from immunostruct_tpu_torch.data.synthetic import synthetic_corpus
+from immunostruct_tpu_torch.models import build_model
+from immunostruct_tpu_torch.procedures.infer import inference
+from immunostruct_tpu_torch.procedures.train import train_model
+from immunostruct_tpu_torch.utils.checkpoint import (
+    load_jax_checkpoint, load_params, params_from_jax,
+)
+from immunostruct_tpu_torch.utils.losses import (
+    LossConfig, pos_weight_from_counts,
+)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _script():
+    spec = importlib.util.spec_from_file_location(
+        "torch_geometric_signal",
+        os.path.join(REPO, "scripts", "torch_geometric_signal.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+signal = _script()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads while this file trains: its runs give the same
+    bits at 1, 2 and 8 threads, and under the suite's parallel workers
+    fewer threads contend less."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
+# ---------------------------------------------------------------------------
+# (a) one whole stage against the JAX package
+# ---------------------------------------------------------------------------
+
+SMALL = dict(gcn_layers=2, gat_hidden_channels=16, dropout_rate=0.0)
+
+
+def _stage_config(cls, tmp_path, side, **kw):
+    cfg = cls(batch_size=16, num_epochs=3, pad_nodes_multiple=4,
+              pad_edges_multiple=16, compute_dtype="float32",
+              aggregation="scatter", model="StructureModel",
+              sequence_loss=False, full_sequence=False,
+              model_save_dir=str(tmp_path / f"ckpt_{side}"), **kw)
+    cfg.derive_paths()
+    return cfg
+
+
+def _jax_flat(params) -> dict:
+    flat, _ = jax.tree_util.tree_flatten_with_path(params)
+    return {jax.tree_util.keystr(path): np.asarray(leaf)
+            for path, leaf in flat}
+
+
+def test_one_stage_matches_jax(tmp_path):
+    paths = jax_synthetic_corpus(str(tmp_path), num_samples=64, hla_len=20,
+                                 seed=17, geometric_signal=True)
+
+    jcfg = _stage_config(JaxConfig, tmp_path, "jax")
+    jds = JaxDataset.load(jcfg, *paths)
+    jsplit = jax_seeded_split(len(jds), (0.7, 0.1, 0.2), jcfg.seed)
+    vae_dim = jds.seq_pep.shape[1] * 21
+    spec, params = jax_build_model("StructureModel", vae_dim,
+                                   jax.random.key(0), **SMALL)
+    initial = _jax_flat(params)     # the JAX step donates its parameters
+    jmk = lambda idx, split: JaxPipeline(jds, idx, split=split, binary=True,
+                                         full=False, config=jcfg)
+    jloss = JaxLossConfig(vae_dim, jax_pos_weight(jds.class_weights),
+                          sequence=False)
+    trained, jhist = jax_train_model(
+        jcfg, spec, params, jmk(jsplit[0], "train"), jmk(jsplit[1], "val"),
+        jloss, binary=True, learning_rate=1e-3, stage="finetune",
+        verbose=False)
+    jtrain = jax_inference(jcfg, spec, trained, jmk(jsplit[0], "train"),
+                           verbose=False)
+    jtest = jax_inference(jcfg, spec, trained, jmk(jsplit[2], "test"),
+                          optimal_threshold=jtrain["optimal_threshold"],
+                          return_raw_preds=True, verbose=False)
+
+    cfg = _stage_config(Config, tmp_path, "torch", device="cpu")
+    ds = ImmunoDataset.load(cfg, *paths)
+    split = seeded_split(len(ds), (0.7, 0.1, 0.2), cfg.seed)
+    for got, want in zip(split, jsplit):
+        np.testing.assert_array_equal(got, want)
+    _, model = build_model("StructureModel", vae_dim,
+                           torch.Generator().manual_seed(0), device="cpu",
+                           **SMALL)
+    load_params(model, params_from_jax(initial), verbose=False)
+    mk = lambda idx, split: BatchPipeline(ds, idx, split=split, binary=True,
+                                          full=False, config=cfg)
+    loss_cfg = LossConfig(vae_dim, pos_weight_from_counts(ds.class_weights),
+                          sequence=False)
+    model, hist = train_model(cfg, model, mk(split[0], "train"),
+                              mk(split[1], "val"), loss_cfg, binary=True,
+                              learning_rate=1e-3, stage="finetune",
+                              verbose=False)
+    train = inference(cfg, model, mk(split[0], "train"), verbose=False)
+    test = inference(cfg, model, mk(split[2], "test"),
+                     optimal_threshold=train["optimal_threshold"],
+                     return_raw_preds=True, verbose=False)
+
+    for key in ("train_loss", "val_loss"):
+        assert len(hist[key]) == 3
+        np.testing.assert_allclose(hist[key], jhist[key], rtol=1e-4,
+                                   atol=0, err_msg=key)
+    np.testing.assert_array_equal(test["true_targets"],
+                                  np.asarray(jtest["true_targets"]))
+    np.testing.assert_allclose(test["predicted_probs"],
+                               np.asarray(jtest["predicted_probs"]),
+                               rtol=0, atol=1e-5)
+    assert abs(train["roc_auc"] - jtrain["roc_auc"]) <= 1e-6
+    assert abs(test["roc_auc"] - jtest["roc_auc"]) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# (b) tests/test_learnability.py through the port
+# ---------------------------------------------------------------------------
+
+def _pipes(cfg, corpus_paths, fractions):
+    ds = ImmunoDataset.load(cfg, *corpus_paths)
+    tr, va, te = seeded_split(len(ds), fractions, cfg.seed)
+    vae_dim = ds.seq_pep.shape[1] * 21
+    # the JAX test's own weights (jax.random.key(0)), trained by the port
+    _, params = jax_build_model(cfg.model, vae_dim, jax.random.key(0))
+    _, model = build_model(cfg.model, vae_dim,
+                           torch.Generator().manual_seed(0), device="cpu")
+    load_params(model, params_from_jax(_jax_flat(params)), verbose=False)
+    loss_cfg = LossConfig(vae_dim, pos_weight_from_counts(ds.class_weights),
+                          sequence=False)
+    mk = lambda idx, split: BatchPipeline(ds, idx, split=split, binary=True,
+                                          full=False, config=cfg)
+    return ds, model, loss_cfg, mk, (tr, va, te)
+
+
+def _config(tmp_path, model_name, epochs):
+    cfg = Config(device="cpu", batch_size=32, num_epochs=epochs,
+                 pad_nodes_multiple=4, pad_edges_multiple=16,
+                 compute_dtype="float32", aggregation="scatter",
+                 model=model_name, sequence_loss=False, full_sequence=False,
+                 model_save_dir=str(tmp_path / f"ckpt_{model_name}"))
+    cfg.derive_paths()
+    return cfg
+
+
+def test_sequence_model_learns_planted_signal(tmp_path):
+    cfg = _config(tmp_path, "SequenceFpModel", 12)
+    corpus_paths = synthetic_corpus(str(tmp_path), num_samples=256, seed=61,
+                                    planted_signal=True)
+    ds, model, loss_cfg, mk, (tr, va, te) = _pipes(cfg, corpus_paths,
+                                                   (0.8, 0.1, 0.1))
+    rate = float(np.mean(ds.immuno))
+    assert 0.15 < rate < 0.85
+    model, hist = train_model(cfg, model, mk(tr, "train"), mk(va, "val"),
+                              loss_cfg, binary=True, learning_rate=1e-3,
+                              stage="finetune", verbose=False)
+    assert hist["train_loss"][-1] < hist["train_loss"][0]
+    stats = inference(cfg, model, mk(tr, "train"), verbose=False)
+    assert stats["roc_auc"] > 0.85, f"train AUROC {stats['roc_auc']:.3f}"
+    test_stats = inference(cfg, model, mk(te, "test"),
+                           optimal_threshold=stats["optimal_threshold"],
+                           verbose=False)
+    assert test_stats["roc_auc"] > 0.7, \
+        f"test AUROC {test_stats['roc_auc']:.3f}"
+
+
+def _run_on_geometric_corpus(tmp_path, model_name, *, epochs, lr):
+    cfg = _config(tmp_path, model_name, epochs)
+    corpus_paths = synthetic_corpus(str(tmp_path), num_samples=288, seed=17,
+                                    geometric_signal=True)
+    ds, model, loss_cfg, mk, (tr, va, te) = _pipes(cfg, corpus_paths,
+                                                   (0.7, 0.1, 0.2))
+    rate = float(np.mean(ds.immuno))
+    assert 0.3 < rate < 0.7, f"geometric labels should be ~balanced, got {rate}"
+    model, _ = train_model(cfg, model, mk(tr, "train"), mk(va, "val"),
+                           loss_cfg, binary=True, learning_rate=lr,
+                           stage="finetune", verbose=False)
+    stats = inference(cfg, model, mk(tr, "train"), verbose=False)
+    test_stats = inference(cfg, model, mk(te, "test"),
+                           optimal_threshold=stats["optimal_threshold"],
+                           verbose=False)
+    return stats, test_stats
+
+
+@pytest.mark.slow       # 9-21 s alone, ~70 s beside other xdist workers
+def test_structure_model_learns_geometric_signal(tmp_path):
+    """Coordinates -> EGNN -> pooling recovers a label no node statistic
+    carries."""
+    stats, test_stats = _run_on_geometric_corpus(
+        tmp_path, "StructureModel", epochs=14, lr=1e-3)
+    assert stats["roc_auc"] > 0.85, f"train AUROC {stats['roc_auc']:.3f}"
+    assert test_stats["roc_auc"] > 0.8, f"test AUROC {test_stats['roc_auc']:.3f}"
+
+
+def test_sequence_model_blind_to_geometric_signal(tmp_path):
+    """The negative control: held-out AUROC stays at chance."""
+    _, test_stats = _run_on_geometric_corpus(
+        tmp_path, "SequenceFpModel", epochs=14, lr=1e-3)
+    assert 0.25 < test_stats["roc_auc"] < 0.72, \
+        f"sequence model should be at chance, got {test_stats['roc_auc']:.3f}"
+
+
+def _planted_auroc(tmp_path, side, seed, corpus_paths):
+    """The planted-signal recipe trained and scored by one package from
+    its own initial weights at ``seed``: (train AUROC, test AUROC)."""
+    if side == "port":
+        cfg = _config(tmp_path, "SequenceFpModel", 12)
+        ds = ImmunoDataset.load(cfg, *corpus_paths)
+        tr, va, te = seeded_split(len(ds), (0.8, 0.1, 0.1), cfg.seed)
+        vae_dim = ds.seq_pep.shape[1] * 21
+        _, model = build_model(cfg.model, vae_dim,
+                               torch.Generator().manual_seed(seed),
+                               device="cpu")
+        loss_cfg = LossConfig(vae_dim, pos_weight_from_counts(
+            ds.class_weights), sequence=False)
+        mk = lambda idx, split: BatchPipeline(ds, idx, split=split,
+                                              binary=True, full=False,
+                                              config=cfg)
+        model, _ = train_model(cfg, model, mk(tr, "train"), mk(va, "val"),
+                               loss_cfg, binary=True, learning_rate=1e-3,
+                               stage="finetune", verbose=False)
+        train = inference(cfg, model, mk(tr, "train"), verbose=False)
+        test = inference(cfg, model, mk(te, "test"),
+                         optimal_threshold=train["optimal_threshold"],
+                         verbose=False)
+        return train["roc_auc"], test["roc_auc"]
+    cfg = JaxConfig(batch_size=32, num_epochs=12, pad_nodes_multiple=4,
+                    pad_edges_multiple=16, compute_dtype="float32",
+                    aggregation="scatter", model="SequenceFpModel",
+                    sequence_loss=False, full_sequence=False,
+                    model_save_dir=str(tmp_path / f"ckpt_jax{seed}"))
+    cfg.derive_paths()
+    ds = JaxDataset.load(cfg, *corpus_paths)
+    tr, va, te = jax_seeded_split(len(ds), (0.8, 0.1, 0.1), cfg.seed)
+    vae_dim = ds.seq_pep.shape[1] * 21
+    spec, params = jax_build_model(cfg.model, vae_dim, jax.random.key(seed))
+    loss_cfg = JaxLossConfig(vae_dim, jax_pos_weight(ds.class_weights),
+                             sequence=False)
+    mk = lambda idx, split: JaxPipeline(ds, idx, split=split, binary=True,
+                                        full=False, config=cfg)
+    params, _ = jax_train_model(cfg, spec, params, mk(tr, "train"),
+                                mk(va, "val"), loss_cfg, binary=True,
+                                learning_rate=1e-3, stage="finetune",
+                                verbose=False)
+    train = jax_inference(cfg, spec, params, mk(tr, "train"), verbose=False)
+    test = jax_inference(cfg, spec, params, mk(te, "test"),
+                         optimal_threshold=train["optimal_threshold"],
+                         verbose=False)
+    return train["roc_auc"], test["roc_auc"]
+
+
+@pytest.mark.slow       # 16 trainings, ~30 s
+def test_planted_signal_over_weight_seeds(tmp_path):
+    """The planted-signal recipe from each package's own initial weights
+    at seeds 0-7: the median test AUROC above the JAX test's 0.7 and the
+    median train AUROC above its 0.85, for the port as for the JAX
+    package (module docstring: the readings)."""
+    corpus_paths = synthetic_corpus(str(tmp_path), num_samples=256, seed=61,
+                                    planted_signal=True)
+    for side in ("port", "jax"):
+        aurocs = [_planted_auroc(tmp_path, side, seed, corpus_paths)
+                  for seed in range(8)]
+        print(side, [(round(a, 4), round(b, 4)) for a, b in aurocs])
+        assert np.median([a for a, _ in aurocs]) > 0.85, (side, aurocs)
+        assert np.median([b for _, b in aurocs]) > 0.7, (side, aurocs)
+
+
+# ---------------------------------------------------------------------------
+# (c) scripts/torch_geometric_signal.py
+# ---------------------------------------------------------------------------
+
+KEYS = {"model", "label_rate", "train_auroc", "test_auroc",
+        "final_train_loss", "aggregation", "compute_dtype", "mega_variant",
+        "seed", "device", "train_losses", "val_losses", "train_s",
+        "inference_s", "wall_s", "launches_train", "launches_inference",
+        "launches"}
+COUNTERS = {"B1", "B2", "B3_fwd", "B3_bwd", "B4", "B5a", "B5b", "B6", "B7",
+            "B8_scatter", "B8_gather"}
+
+
+@pytest.mark.parametrize("model_name", ["StructureModel", "SequenceFpModel"])
+def test_run_one_returns_every_key(tmp_path, model_name):
+    run = signal.run_one(str(tmp_path), model_name, samples=32, epochs=1,
+                         seed=0, device="cpu", aggregation="scatter",
+                         compute_dtype="float32")
+    assert set(run) == KEYS
+    assert run["model"] == model_name
+    assert len(run["train_losses"]) == len(run["val_losses"]) == 1
+    assert run["final_train_loss"] == run["train_losses"][-1]
+    assert all(math.isfinite(run[k]) for k in ("train_auroc", "test_auroc"))
+    for key in ("launches_train", "launches_inference", "launches"):
+        assert set(run[key]) == COUNTERS
+        assert not any(run[key].values())       # plain versions on the CPU
+    # the corpus is written once under the root and read again
+    again = signal.run_one(str(tmp_path), model_name, samples=32, epochs=1,
+                           seed=0, device="cpu", aggregation="scatter",
+                           compute_dtype="float32")
+    assert again["train_losses"] == run["train_losses"]
+    assert again["test_auroc"] == run["test_auroc"]
+
+
+def test_a_variant_run_follows_train_model(tmp_path):
+    """``fit`` builds the Trainer of a 'mega' variant as ``train_model``
+    builds its own: on the CPU (the kernels' plain versions) a 'dboth' run
+    follows the 'hybrid' run, which goes through ``train_model``."""
+    kw = dict(samples=32, epochs=2, seed=3, device="cpu",
+              aggregation="mega", compute_dtype="float32")
+    hybrid = signal.run_one(str(tmp_path), "StructureModel", **kw)
+    dboth = signal.run_one(str(tmp_path), "StructureModel",
+                           mega_variant="dboth", **kw)
+    for key in ("train_losses", "val_losses"):
+        np.testing.assert_allclose(dboth[key], hybrid[key], rtol=1e-5)
+    assert abs(dboth["test_auroc"] - hybrid["test_auroc"]) <= 1e-6
+
+
+def test_served_b7_against_mega_on_the_cpu(tmp_path):
+    """``served_b7`` on the CPU, the plain versions, f32, on a corpus padded
+    to 128 edges as on the card: B7's forward and 'mega''s within the
+    served bound of each other and of 'scatter', the same AUROC, no
+    launch."""
+    paths = synthetic_corpus(str(tmp_path), num_samples=24, hla_len=20,
+                             seed=17, geometric_signal=True)
+    cfg = Config(device="cpu", batch_size=8, compute_dtype="float32",
+                 pad_nodes_multiple=8, pad_edges_multiple=128,
+                 model="StructureModel", sequence_loss=False,
+                 full_sequence=False, model_save_dir=str(tmp_path))
+    ds = ImmunoDataset.load(cfg, *paths)
+    _, model = build_model("StructureModel", ds.seq_pep.shape[1] * 21,
+                           torch.Generator().manual_seed(0), device="cpu",
+                           gcn_layers=1, gat_hidden_channels=64)
+    pipe = BatchPipeline(ds, np.arange(24), split="test", binary=True,
+                         full=False, config=cfg)
+    got = signal.served_b7(cfg, model, pipe)
+    for key in ("max_abs_prob_diff", "max_abs_prob_diff_scatter",
+                "max_abs_prob_diff_mega_scatter"):
+        assert got[key] <= signal.PROB_ATOL / 100, key
+    assert got["test_auroc_b7"] == got["test_auroc_mega"]
+    assert got["launches_b7"] == 0
+    assert set(got["launches"]) == COUNTERS
+    assert not any(got["launches"].values())
+
+
+@pytest.fixture(scope="module")
+def corpus_root(tmp_path_factory):
+    """One directory for the trained models' corpus (written once)."""
+    return str(tmp_path_factory.mktemp("geomsig"))
+
+
+def _served_trained(root, checkpoint, seed):
+    """``served_b7`` on the CPU in bf16 (pads 8/128: the card's) for a
+    StructureModel checkpoint that the script's recipe trained at ``seed``,
+    over that seed's test split of its 512-sample corpus."""
+    cfg = Config(device="cpu", batch_size=32, pad_nodes_multiple=8,
+                 pad_edges_multiple=128, compute_dtype="bfloat16",
+                 model="StructureModel", sequence_loss=False,
+                 full_sequence=False, seed=seed, model_save_dir=root)
+    ds = ImmunoDataset.load(cfg, *signal.corpus(root, 512))
+    test = seeded_split(len(ds), (0.7, 0.1, 0.2), seed)[2]
+    _, model = build_model("StructureModel", ds.seq_pep.shape[1] * 21,
+                           torch.Generator().manual_seed(seed), device="cpu")
+    load_jax_checkpoint(checkpoint, model, verbose=False)
+    return signal.served_b7(cfg, model, BatchPipeline(
+        ds, test, split="test", binary=True, full=False, config=cfg))
+
+
+@pytest.mark.parametrize("seed", [4, 13, 14])
+def test_served_b7_on_trained_weights(corpus_root, seed):
+    """B7 on StructureModels that the script's recipe trained on the card
+    ('auto', bf16, seeds 4, 13, 14: tests/data/geomsig_auto_seed*.npz,
+    written by ``utils/checkpoint.save_checkpoint`` from ``run_one``'s
+    model), through the plain versions in bf16 over each seed's test
+    split: no further from 'mega' and from 'scatter' than 'mega' is from
+    'scatter', give or take the served bound (``b7_faults`` outside
+    FIRST_SEEDS). With the TPU kernel's rounding points B7 read 0.0851,
+    0.0042 and 0.0177 from 'mega' and 0.0960, 0.0042, 0.0219 from
+    'scatter' here, as on the card ('mega' - 'scatter' 0.0109, 6.0e-6,
+    0.0042); at the 'mega' forward's it reads 0, 2.7e-7 and 3.0e-4 from
+    'mega'."""
+    path = os.path.join(REPO, "tests", "data", f"geomsig_auto_seed{seed}.npz")
+    got = _served_trained(corpus_root, path, seed)
+    run = {"seed": seed, "served_b7": got}
+    assert signal.b7_faults("trained", run, kernels=False) == []
+    assert got["launches_b7"] == 0
+
+
+def _run(path, seed, test=0.9, train=0.95, losses=(0.7, 0.5), launches=None,
+         inference=None):
+    agg, variant = signal.PATHS[path]
+    train_launches = dict.fromkeys(COUNTERS, 0)
+    for k in (signal.PATH_KERNELS[path] if launches is None else launches):
+        train_launches[k] += 6
+    infer = dict.fromkeys(COUNTERS, 0)
+    infer.update(inference or {})
+    return {"aggregation": agg, "mega_variant": variant, "seed": seed,
+            "test_auroc": test, "train_auroc": train,
+            "train_losses": list(losses), "val_losses": [0.6, 0.6],
+            "launches_train": train_launches, "launches_inference": infer,
+            "launches": {k: train_launches[k] + infer[k] for k in COUNTERS}}
+
+
+def _control(seed, test=0.5):
+    run = _run("scatter", seed, test=test, launches=())
+    return {**run, "aggregation": "auto"}
+
+
+def test_judge_passes_runs_within_the_bounds():
+    runs = [_run(p, s) for s in (0, 1, 2) for p in signal.PATHS]
+    verdict = signal.judge(runs, [_control(s) for s in (0, 1, 2)],
+                           kernels=True)
+    assert verdict["failures"] == []
+    assert set(verdict["paths"]) == set(signal.PATHS)
+    assert verdict["paths"]["auto"]["test_gap_to_scatter"] == [0.0] * 3
+    # the exclusive kernels: B3 to 'fused', B5a, B5b, B6 to their variants
+    assert {p: signal.exclusive_kernels(p) for p in signal.PATHS} == {
+        "scatter": set(), "auto": set(), "dboth": {"B5a"},
+        "inkernel": {"B5b"}, "stack": {"B6"},
+        "fused": {"B3_fwd", "B3_bwd"}, "pallas": set()}
+
+
+@pytest.mark.parametrize("fault, runs, control, needle", [
+    ("median test AUROC", [_run("auto", s, test=t)
+                           for s, t in ((0, 0.95), (1, 0.75), (2, 0.79))],
+     [], "auto: median test AUROC"),
+    ("median train AUROC", [_run("fused", s, train=0.85) for s in (0, 1)],
+     [], "fused: median train AUROC"),
+    ("loss not falling", [_run("pallas", s, losses=(0.5, l))
+                          for s, l in ((0, 0.5), (1, 0.4), (2, 0.6))], [],
+     "last train loss below the first in 1 of 3 runs"),
+    ("loss not finite", [_run("stack", 0, losses=(0.7, float("nan")))], [],
+     "not finite"),
+    ("listed kernel missing", [_run("dboth", 0, launches=("B1",))], [],
+     "B5a not launched"),
+    ("another path's kernel", [_run("auto", 0, launches=("B1", "B2",
+                                                         "B8_scatter",
+                                                         "B5b"))], [],
+     "B5b launched"),
+    ("B7 in training", [_run("inkernel", 0, inference={"B7": 1})], [],
+     "B7 launched"),
+    ("scatter launches", [_run("scatter", 0, inference={"B1": 6})], [],
+     "B1 launched"),
+    ("control off chance", [], [_control(s, 0.75) for s in (0, 1, 2)],
+     "control: median test AUROC"),
+])
+def test_judge_names_each_fault(fault, runs, control, needle):
+    verdict = signal.judge(runs, control, kernels=True)
+    assert any(needle in f for f in verdict["failures"]), \
+        (fault, verdict["failures"])
+
+
+@pytest.mark.parametrize("kernels", [True, False])
+def test_judge_holds_scatter_to_every_bound(kernels):
+    """'scatter' (on the card under fixed-order sums, ``run_one``) is held
+    to every bound as the kernel paths are, on the card and on the CPU;
+    a row counts the seeds that learned and gives the medians' margins."""
+    missed = [_run("scatter", s, test=0.6, train=0.6, losses=(0.7, 0.8))
+              for s in (0, 1, 2)]
+    verdict = signal.judge(missed, [], kernels=kernels)
+    failures = verdict["failures"]
+    assert len(failures) == 3 and "median test AUROC" in failures[0]
+    assert "in 0 of 3 runs" in failures[-1]
+    row = verdict["paths"]["scatter"]
+    assert row["learned"] == 0
+    assert row["margin_test"] == pytest.approx(-0.2)
+    assert row["margin_train"] == pytest.approx(-0.25)
+    nan = [_run("scatter", 0, losses=(0.7, float("nan")))]
+    assert signal.judge(nan, [], kernels=kernels)["failures"]
+
+
+@pytest.mark.parametrize("learned, fails", [(13, True), (14, False)])
+def test_judge_holds_each_path_to_the_plain_paths_share(learned, fails):
+    """Over sixteen seeds a path learns (test AUROC above 0.8) at no fewer
+    than LEARNED_SLACK seeds fewer than 'scatter', whose medians may pass
+    meanwhile."""
+    runs = [_run("scatter", s) for s in signal.SEEDS]
+    runs += [_run("fused", s, test=0.9 if s < learned else 0.5)
+             for s in signal.SEEDS]
+    failures = signal.judge(runs, [], kernels=True)["failures"]
+    assert bool(failures) == fails, failures
+    if fails:
+        assert failures == ["fused: learned at 13 of 16 seeds, 'scatter' "
+                            "at 16"]
+
+
+def test_judge_holds_b7_to_the_plain_path_beyond_the_served_seeds():
+    """Outside FIRST_SEEDS (a trained model's larger features) B7 is held
+    to 'mega''s spread from 'scatter' plus the served bound, against both;
+    within them also to the served bound itself."""
+    served = {"max_abs_prob_diff": 1.4e-3, "max_abs_prob_diff_scatter": 2.8e-3,
+              "max_abs_prob_diff_mega_scatter": 4.2e-3,
+              "test_auroc_b7": 0.95, "test_auroc_mega": 0.97,
+              "launches_b7": 24}
+    run = {"seed": 14, "served_b7": served}
+    assert signal.b7_faults("trained", run, kernels=True) == []
+    run["served_b7"] = {**served, "max_abs_prob_diff": 4.8e-3}
+    failures = signal.b7_faults("trained", run, kernels=True)
+    assert len(failures) == 1 and "from 'mega'" in failures[0]
+    run = {"seed": 2, "served_b7": served}
+    failures = signal.b7_faults("auto", run, kernels=True)
+    assert len(failures) == 2, failures
+    assert "over 0.0005" in failures[0] and "B7's AUROC" in failures[1]
+
+
+def test_judge_holds_b7_to_the_served_bound():
+    run = _run("auto", 0)
+    run["served_b7"] = {"max_abs_prob_diff": 6e-4, "test_auroc_b7": 0.9,
+                        "max_abs_prob_diff_scatter": 2e-3,
+                        "max_abs_prob_diff_mega_scatter": 1.5e-3,
+                        "test_auroc_mega": 0.895, "launches_b7": 24}
+    failures = signal.judge([run], [], kernels=True)["failures"]
+    assert len(failures) == 1 and "B7's probabilities" in failures[0]
+    run["served_b7"].update(max_abs_prob_diff=1e-4, test_auroc_b7=0.88,
+                            max_abs_prob_diff_scatter=2.1e-3,
+                            launches_b7=0)
+    failures = signal.judge([run], [], kernels=True)["failures"]
+    assert len(failures) == 3, failures
+    assert "from 'scatter'" in failures[0]
+    assert "B7's AUROC" in failures[1] and "no B7 launch" in failures[2]

@@ -68,6 +68,24 @@ def test_every_module_imports_without_jax():
     assert f"imported {len(names)}" in proc.stdout
 
 
+def test_the_learnability_script_runs_without_jax():
+    """scripts/torch_geometric_signal.py, which chip_smoke.py imports by
+    path on the card's machine: loaded and run on the CPU (its imports sit
+    in its functions) with ``import jax`` and ``import pandas`` failing."""
+    script = os.path.join(REPO, "scripts", "torch_geometric_signal.py")
+    proc = _probe([], "import importlib.util, sys",
+                  'sys.modules["jax"] = sys.modules["pandas"] = None',
+                  f"spec = importlib.util.spec_from_file_location("
+                  f"'torch_geometric_signal', {script!r})",
+                  "module = importlib.util.module_from_spec(spec)",
+                  "spec.loader.exec_module(module)",
+                  "module.main(['--cpu', '--samples', '32', '--epochs', '1',"
+                  " '--seeds', '0'])")
+    assert proc.returncode == 0, proc.stderr
+    assert "imported 0" in proc.stdout
+    assert '"geometric_signal_recovered_by_structure_only"' in proc.stdout
+
+
 def test_the_probe_refuses_a_pandas_import(tmp_path):
     """The probe fails a module that imports pandas."""
     (tmp_path / "uses_pandas.py").write_text("import pandas\n")
