@@ -370,8 +370,13 @@ Phases (none catches its own failure; any failure exits non-zero):
      the script's first eight seeds 0-7 (weights, split, shuffles), then
      scored on its train and test splits; SequenceFpModel under 'auto' at
      each seed, the control; every count set to 0 before each run and read
-     after it. 'scatter' trains under fixed-order sums (the script's
-     fixed_order_sums), so a seed gives it one trajectory. Asserted (the
+     after it. 'scatter' sums at a node in bf16 in edge order, as the JAX
+     package does (its steps run eagerly: the passes are counted on the
+     host), so a seed gives it one trajectory. Then 'auto' and 'scatter'
+     from the JAX package's own start (tests/data/geomsig_init_key0.npz,
+     its weights at jax.random.key(0); seed 1 for the split and the
+     shuffles, as its TPU run), held to finite losses and the launch rules
+     and printed (with B7's served readings). Asserted (the
      script's judge, the same for every path, 'scatter' included): the
      median test AUROC over the eight seeds above 0.8 and train AUROC
      above 0.85, the median run's last train loss below its first, every
@@ -385,9 +390,9 @@ Phases (none catches its own failure; any failure exits non-zero):
      PROB_ATOL, and at seeds 0-2 within PROB_ATOL of 'mega', the AUROCs
      within 0.01; the control's median test AUROC within 0.22 of 0.5.
      This recipe diverges at some seeds on every path, the plain one
-     included (at seeds 0-2 alone the deterministic 'scatter' reads a
-     median test AUROC of 0.7555), so three seeds cannot judge it: the
-     medians at seeds 0-2 are printed, not held. One line a run (AUROCs,
+     included, and in the JAX package as in the port (PERF.md §6), so
+     three seeds cannot judge it: the medians at seeds 0-2 are printed,
+     not held. One line a run (AUROCs,
      losses, launches, walls), one a path at seeds 0-2, one a path over
      the eight (medians and their margins, the seeds learned, the runs
      whose loss fell, the gap to 'scatter' at each seed);
@@ -1861,15 +1866,62 @@ def check_gather_case(idx, mask, h, where: str) -> dict:
     return row
 
 
+def check_rounded_scatter_case(idx, mask, m, n: int, where: str) -> dict:
+    """B8's scatter with each add rounded to m's dtype (the backward of
+    'pallas''s gathers) on one set of operands: bit for bit its plain
+    version on the card and on the CPU (both add in edge order, each add
+    rounded), the same bits twice, in f32 the bits of the plain scatter;
+    timed beside its plain version (no library call rounds each add: its
+    library_ms is null)."""
+    from immunostruct_tpu_torch.ops.segment import (
+        segment_scatter, segment_scatter_rounded,
+        segment_scatter_rounded_reference,
+    )
+
+    b, e, c = m.shape
+    before = read_counts()
+    out = segment_scatter_rounded(idx, mask, m, n)
+    torch.cuda.synchronize()
+    launched = tuple(a - z for a, z in zip(read_counts(), before))
+    assert launched == (0, 0, 0, 0, 1) + (0,) * 6, launched
+    ref = segment_scatter_rounded_reference(idx, mask, m, n)
+    assert out.dtype == m.dtype and torch.equal(out, ref), \
+        "B8 rounded scatter is not its plain version's bits"
+    assert torch.equal(out, segment_scatter_rounded(idx, mask, m, n)), \
+        "B8 rounded scatter changed from one run to the next"
+    assert torch.equal(out.cpu(), segment_scatter_rounded_reference(
+        idx.cpu(), mask.cpu(), m.cpu(), n)), \
+        "B8 rounded scatter is not the CPU plain version's bits"
+    if m.dtype == torch.float32:
+        assert torch.equal(out, segment_scatter(idx, mask, m, n))
+    ms, plain_ms = alternate_ms(
+        lambda: segment_scatter_rounded_reference(idx, mask, m, n),
+        lambda: segment_scatter_rounded(idx, mask, m, n))
+    valid, _ = _valid_rows(idx, mask, n)
+    n_valid = int(valid.sum().item())
+    work = bound(tensor_bytes(idx, mask, out) + n_valid * c * m.element_size(),
+                 n_valid * c, torch.float32)
+    row = dict(kernel="scatter_rounded", shapes=where, B=b, E=e, N=n, C=c,
+               dtype=str(m.dtype).split(".")[1], valid_edges=n_valid,
+               max_abs_err=(out.float() - ref.float()).abs().max().item(),
+               ms=ms, plain_ms=plain_ms, library_ms=None, **work)
+    print("kernel B8 scatter rounded:", json.dumps(row), flush=True)
+    return row
+
+
 def check_segment_kernels() -> list:
     """B8 against its plain versions at the main path's shapes, f32 (TF32
-    off) and bf16, timed."""
+    off) and bf16, timed; the rounded scatter on cotangents as 'pallas''s
+    gathers give it ([B, E, F] of h, [B, E, 3] of x)."""
     rows = []
     for e in EDGE_COUNTS:
         for dtype in (torch.float32, torch.bfloat16):
             idx, mask, m, h = segment_inputs(e, dtype, seed=e + 3)
             rows.append(check_scatter_case(idx, mask, m, N, "bench"))
             rows.append(check_gather_case(idx, mask, h, "bench"))
+            for c in (H, 3):
+                rows.append(check_rounded_scatter_case(
+                    idx, mask, m[..., :c].contiguous(), N, "bench"))
             del idx, mask, m, h
     return rows
 
@@ -1882,6 +1934,8 @@ def check_entry_segment_kernels(operands: dict) -> list:
         kind, args = key[0], operands[key]
         if kind == "scatter":
             rows.append(check_scatter_case(*args, "entry point"))
+        elif kind == "scatter_rounded":
+            rows.append(check_rounded_scatter_case(*args, "entry point"))
         else:
             rows.append(check_gather_case(*args, "entry point"))
     return rows
@@ -1889,17 +1943,20 @@ def check_entry_segment_kernels(operands: dict) -> list:
 
 @contextlib.contextmanager
 def plain_b8():
-    """Within the block, SegmentScatter and SegmentGather run B8's plain
-    versions on CUDA tensors, forward and backward."""
+    """Within the block, SegmentScatter, SegmentGather and the rounded
+    scatter of 'pallas''s gathers run B8's plain versions on CUDA tensors,
+    forward and backward."""
     from immunostruct_tpu_torch.ops import segment
 
-    saved = segment.segment_scatter, segment.segment_gather
-    segment.segment_scatter = segment.segment_scatter_reference
-    segment.segment_gather = segment.segment_gather_reference
+    names = ("segment_scatter", "segment_gather", "segment_scatter_rounded")
+    saved = [getattr(segment, name) for name in names]
+    for name in names:
+        setattr(segment, name, getattr(segment, f"{name}_reference"))
     try:
         yield
     finally:
-        segment.segment_scatter, segment.segment_gather = saved
+        for name, fn in zip(names, saved):
+            setattr(segment, name, fn)
 
 
 def check_pallas_layer_grads() -> list:
@@ -2064,9 +2121,9 @@ def check_cancer_entry_point(tmp: str, clinical: tuple) -> tuple:
                     t.detach().clone() if torch.is_tensor(t) else t
                     for t in args)
 
-    def scatter(*args):
-        keep("scatter", args)
-        return real_scatter(*args)
+    def scatter(*args, rounded=False):
+        keep("scatter_rounded" if rounded else "scatter", args)
+        return real_scatter(*args, rounded=rounded)
 
     def gather(*args):
         keep("gather", args)
@@ -3102,9 +3159,10 @@ def check_curriculum(tmp: str, featurized: dict, entry: dict,
         return real_tail(name, lib_fn, entry, ef, w2, wc1, small, a1, xd,
                          valid, extra)
 
-    def scatter(*args):
-        keep(("scatter", *args[2].shape, args[2].dtype), args)
-        return real_scatter(*args)
+    def scatter(*args, rounded=False):
+        if not rounded:
+            keep(("scatter", *args[2].shape, args[2].dtype), args)
+        return real_scatter(*args, rounded=rounded)
 
     cli.train_model, cli.inference = train_model, inference
     mega._fwd_operands, mega._tail_checks = fwd_operands, tail_checks
@@ -5084,6 +5142,42 @@ def check_learnability(card: str) -> dict:
                       f"){text}", flush=True)
                 print(f"learn 32 [{card}]: " + json.dumps(
                     {"path": path, **run}), flush=True)
+        # the JAX package's own start: its weights at jax.random.key(0),
+        # split and shuffles from seed 1, as its TPU run; held to finite
+        # losses and the launch rules, printed beside the medians (B7's
+        # served readings too)
+        jax_start = []
+        for path in ("auto", "scatter"):
+            agg, variant = signal.PATHS[path]
+            reset_counts()
+            run = signal.run_one(root, "StructureModel",
+                                 seed=signal.JAX_START_SEED, aggregation=agg,
+                                 mega_variant=variant, init=signal.INIT_KEY0,
+                                 **kw)
+            counts = read_counts()
+            served = run.get("served_b7")
+            want = tuple(run["launches"][k]
+                         + (served["launches"][k] if served else 0)
+                         for k in COUNTER_KEYS)
+            assert counts == want, (path, counts, want)
+            total = [a + b for a, b in zip(total, counts)]
+            faults = signal.finite_faults(run) + signal.kernel_faults(path,
+                                                                      run)
+            assert not faults, (path, faults)
+            jax_start.append(run)
+            served = run.get("served_b7")
+            print(f"learn 32 [{card}]: {path} from the JAX package's start "
+                  f"({run['init']}, seed {run['seed']}): test AUROC "
+                  f"{run['test_auroc']:.4f}, train AUROC "
+                  f"{run['train_auroc']:.4f}, train loss "
+                  f"{run['train_losses'][0]:.4f} -> "
+                  f"{run['train_losses'][-1]:.4f}, launches: training "
+                  f"{_nonzero(run['launches_train'])}; wall "
+                  f"{run['wall_s']:.2f} s"
+                  + ("; served: " + served_text(served) if served else ""),
+                  flush=True)
+            print(f"learn 32 [{card}]: " + json.dumps(
+                {"path": path, "start": "jax", **run}), flush=True)
     verdict = signal.judge(runs, control, kernels=True)
     phase_s = time.perf_counter() - t0
     first = signal.judge(
@@ -5111,7 +5205,8 @@ def check_learnability(card: str) -> dict:
           f"AUROC {c['median_test_auroc']:.4f} over {len(c['seeds'])} seeds; "
           f"phase 32 took {phase_s:.1f} s", flush=True)
     assert not verdict["failures"], verdict["failures"]
-    return dict(verdict=verdict, launches=tuple(total), phase_s=phase_s)
+    return dict(verdict=verdict, launches=tuple(total), phase_s=phase_s,
+                jax_start=jax_start)
 
 
 # --------------------------------------------------------------------------
@@ -5278,10 +5373,13 @@ def run_phases(card: str, clinical: ClinicalCorpus) -> int:
           flush=True)
 
     clock0 = time.perf_counter()
+    last = [clock0]
 
     def clock(label):       # where the run's time goes, for PERF.md §4
-        print(f"phase clock: {label} at {time.perf_counter() - clock0:.1f} s "
-              "after the build", flush=True)
+        now = time.perf_counter()
+        print(f"phase clock: {label} at {now - clock0:.1f} s after the "
+              f"build ({now - last[0]:.1f} s)", flush=True)
+        last[0] = now
 
     fwd_rows = check_fwd_kernel()
     tail_rows = check_tail_kernel()
@@ -5467,6 +5565,13 @@ def run_phases(card: str, clinical: ClinicalCorpus) -> int:
               f"{clinical_row['scoring_s'][label]:.3f} s, {rate:.0f} rows/s "
               f"(entry point {clinical_row['wall_s'][label]:.3f} s)")
     for r in segment_rows:
+        if r["kernel"] == "scatter_rounded":
+            print(f"kernel  [{card}]: B8 scatter, each add rounded "
+                  f"({r['shapes']}) B={r['B']} E={r['E']} N={r['N']} "
+                  f"C={r['C']} {r['dtype']}: kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']})")
+            continue
         print(f"kernel  [{card}]: B8 {r['kernel']} ({r['shapes']}) B={r['B']} "
               f"E={r['E']} N={r['N']} C={r['C']} {r['dtype']}: kernel "
               f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}, host "
@@ -5665,7 +5770,8 @@ def run_phases(card: str, clinical: ClinicalCorpus) -> int:
         kernel_record("segment_scatter", "segment.cu",
                       "immunostruct_tpu/ops/experimental/pallas_segment.py:60",
                       4, cancer["launches"][4], b8s,
-                      [r for r in segment_rows if r["kernel"] == "scatter"]),
+                      [r for r in segment_rows
+                       if r["kernel"] in ("scatter", "scatter_rounded")]),
         kernel_record("segment_gather", "segment.cu",
                       "immunostruct_tpu/ops/experimental/pallas_segment.py:79",
                       5, cancer["launches"][5], b8g,

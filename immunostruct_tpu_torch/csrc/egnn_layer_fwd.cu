@@ -8,13 +8,15 @@
 //                                        masked or outside [0, N)
 //   x_diff = rnd(xc[src] - xc[dst])      xc: x in the compute dtype
 //   radial = rnd(|x_diff|^2), x_hat = x_diff / (sqrt(radial) + 1e-30)
-//   z1 = rnd(h_src @ W_src) + rnd(h_dst @ W_dst) + radial * w_rad + bias1
+//   z1 = rnd(h_src @ W_src) + rnd(h_dst @ W_dst) + radial * w_rad + w_ef
+//        + be1
 //   m1 = rnd(silu(z1)); m = rnd(silu(m1 @ We2 + be2))
 //   c1 = rnd(silu(m @ Wc1 + bc1)); cw = rnd(c1 . wc2)
 //   msg_x = rnd(cw * x_hat)
 //   acc[dst] += m, accx[dst] += msg_x    f32, only where dst lies in [0, N)
 //                                        and the edge is not masked
-//   a = rnd(silu(rnd(h @ Wn1_top + rnd(acc) @ Wn1_bot + bn1)))
+//   a = node_silu(rnd(h @ Wn1_top + rnd(acc) @ Wn1_bot + bn1))  (each step
+//       of silu rounded: 1 / (1 + exp(-z)), then the product)
 //   h' = rnd(a @ Wn2 + bn2)              the compute dtype
 //   x' = x + rnd(accx)                   in x's own dtype
 // These are the rounding points of the 'mega' forward that B7 serves in
@@ -24,8 +26,9 @@
 // trained weights those roundings part B7's probabilities from the 'mega'
 // forward's by up to 0.085 in bf16 (PERF.md §6). The weights arrive in f32:
 // the matrices are rounded to the compute dtype where they are staged, the
-// biases, w_rad, wc2 and bias1 = be1 + we1[2F+1] stay f32, as B1 keeps
-// them; every product accumulates in f32.
+// biases, w_rad, wc2 and w_ef = we1[2F+1] stay f32, as B1 keeps them, and
+// w_ef (the all-ones edge feature's row) then be1 are added to z1 in B1's
+// order; every product accumulates in f32.
 //
 // What bounds it on the H100: per computed edge four [., 64] x [64, 64]
 // products (the edge MLP's first layer per edge, not projection-first as
@@ -59,12 +62,20 @@
 // h is gathered from device memory (L2), not held in shared memory: the f32
 // node block, the staged weights and the stages leave room for N up to 543
 // at F=64 (the CUDA-core form, h resident: 477) and 576 at F=20 (608).
-// The sigmoids run on the special-function unit (sigmoid_fast). The node
-// MLP's zn and a are recomputed near a bf16 tie (egnn_hopper.cuh near_tie):
-// zn's rounding, the 'mega' forward's, otherwise flips often enough to
-// move a row of h' past the bound; the edge chain has no recompute
-// (scripts/torch_kernel_ties.py --kernel layer_fwd reads how near the
-// bounds it comes).
+// Every value the plain version rounds is rounded as it rounds it, in its
+// order where it lies near a bf16 tie, by B1's scheme (egnn_hopper.cuh
+// near_tie): the edge chain's sigmoids run on the special-function unit
+// (sigmoid_fast, a few units in the last place from the IEEE quotient),
+// and a projection, m1, m or c1 within kTieUlps of a tie is recomputed on
+// the CUDA cores as the plain version computes it (redo_ties: dot_n over
+// the staged row, dot_row over m1's or m's f32 row in the stage, in k
+// order, as projection_in_order sums it; the IEEE sigmoid); cw sums its
+// products op by op in B1's lane order; zn is recomputed within
+// kZnTieUlps. The node MLP's silu (node_silu, four roundings) turns one
+// flipped rounding upstream into up to two bf16 steps of a, so on trained
+// weights a flip moves a served probability past the 'mega' forward's
+// (1.3e-3 with the edge chain unrecomputed). scripts/torch_kernel_ties.py
+// --kernel layer_fwd reads how near the bounds it comes.
 //
 // The f32 form (egnn_layer_fwd_kernel) keeps the CUDA cores, so its f32
 // bounds hold: one CTA per graph (grid B, as the TPU kernel's grid), 256
@@ -88,6 +99,63 @@
 namespace {
 
 using namespace egnn;
+
+// zn within kZnTieUlps f32 units in the last place of a bf16 rounding
+// boundary (egnn_hopper.cuh's near_tie with a wider window): the tensor
+// cores' sum of zn's F + H products can lie that far from the plain
+// version's sum in k order where the products cancel, and a zn rounded the
+// other way moves a by up to two bf16 steps through the node MLP's silu
+// (node_silu rounds four times), so more than a step of h'
+constexpr int kZnTieUlps = 1024;
+
+__device__ __forceinline__ bool near_zn_tie(float v) {
+  return ((__float_as_uint(v) + unsigned(kZnTieUlps - 0x8000)) & 0xffffu) <=
+         unsigned(2 * kZnTieUlps);
+}
+
+// a row of f32 values that are bf16 numbers (m1's or m's, in the stage)
+// times column j of a staged bf16 matrix, summed in k order as the plain
+// version's projection_in_order sums it (each product exact in f32)
+__device__ __forceinline__ float dot_row(const float* a, const bf* b, int K) {
+  float acc = 0.0f;
+#pragma unroll 8
+  for (int k = 0; k < K; ++k) {
+    acc = fmaf(a[k], __bfloat162float(b[k * kLdb]), acc);
+  }
+  return acc;
+}
+
+// B1's near-tie recompute (egnn_hopper.cuh) on a warp's fragment v: the
+// values within kTieUlps of a bf16 rounding boundary are marked without a
+// branch (bit 4 * nt + i), then, only where the mask is not empty, each is
+// replaced by redo(t, j), its tile edge t and column j computed in the
+// plain version's order
+template <typename Redo>
+__device__ __forceinline__ void redo_ties(float (&v)[8][4], int m0, int fr,
+                                          int fq, Redo redo) {
+  unsigned tie = 0;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      tie |= unsigned(near_tie(v[nt][i])) << (4 * nt + i);
+    }
+  for (; tie; tie &= tie - 1) {
+    const int i = __ffs(tie) - 1;
+    set_at(v, i, redo(tie_edge(m0, fr, i), tie_col(i, fq)));
+  }
+}
+
+// the node MLP's silu as the 'mega' forward's node update computes it
+// (ops/nnp.py::silu, jax.nn.silu's rounding points): a = v * s with s =
+// 1 / (1 + exp(-v)), each of exp, the sum, the quotient and the product
+// rounded to T (in f32: v * sigmoid(v))
+template <typename T>
+__device__ __forceinline__ float node_silu(float v) {
+  const float e = rnd<T>(expf(-v));
+  const float s = rnd<T>(__frcp_rn(rnd<T>(__fadd_rn(1.0f, e))));
+  return rnd<T>(__fmul_rn(v, s));
+}
 
 // the packed weights (the compute dtype), in order: we1 [2F+2][H], be1 [H],
 // we2 [H][H], be2 [H], wc1 [H][H], bc1 [H], wc2 [H], wn1 [F+H][H], bn1 [H],
@@ -138,8 +206,8 @@ __device__ __forceinline__ Weights<T> carve_weights(const T* w, int F, int H) {
 }
 
 // rows of the per-graph vectors in shared memory (f32, [7][H])
-constexpr int kBias1 = 0, kWRad = 1, kBe2 = 2, kBc1 = 3, kWc2 = 4, kBn1 = 5,
-              kBn2 = 6, kVecs = 7;
+constexpr int kWEf = 0, kWRad = 1, kBe2 = 2, kBc1 = 3, kWc2 = 4, kBn1 = 5,
+              kBn2 = 6, kBe1 = 7, kVecs = 8;
 
 __host__ __device__ inline long long smem_bytes(int n, int f, int hid,
                                                 int tsize) {
@@ -222,8 +290,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = tid; i < N * H; i += kThreads) acc[i] = 0.0f;
   for (int i = tid; i < N * 3; i += kThreads) accx[i] = 0.0f;
   for (int j = tid; j < H; j += kThreads) {
-    // the all-ones edge feature's row folded into the bias, in f32
-    vec[kBias1 * H + j] = __fadd_rn(to_f(w.be1[j]), to_f(w.w_ef[j]));
+    // the all-ones edge feature's row and the bias, added in B1's order
+    vec[kWEf * H + j] = to_f(w.w_ef[j]);
+    vec[kBe1 * H + j] = to_f(w.be1[j]);
     vec[kWRad * H + j] = to_f(w.w_rad[j]);
     vec[kBe2 * H + j] = to_f(w.be2[j]);
     vec[kBc1 * H + j] = to_f(w.bc1[j]);
@@ -263,7 +332,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 
     // ---- z1 = rnd(h_src @ W_src) + rnd(h_dst @ W_dst) + radial * w_rad
-    // + bias1 ----
+    // + w_ef + be1 ----
     {
       const T* as[4];
       const T* ad[4];
@@ -282,9 +351,11 @@ __global__ void __launch_bounds__(kThreads)
         for (int c = 0; c < CPT; ++c) {
           const int j = cg * CPT + c;
           const float z1 = __fadd_rn(
-              __fadd_rn(__fadd_rn(rnd<T>(za[i][c]), rnd<T>(zb[i][c])),
-                        __fmul_rn(rad[t], vec[kWRad * H + j])),
-              vec[kBias1 * H + j]);
+              __fadd_rn(
+                  __fadd_rn(__fadd_rn(rnd<T>(za[i][c]), rnd<T>(zb[i][c])),
+                            __fmul_rn(rad[t], vec[kWRad * H + j])),
+                  vec[kWEf * H + j]),
+              vec[kBe1 * H + j]);
           bufA[t * LD + j] = rnd<T>(silu(z1));
         }
       }
@@ -378,7 +449,7 @@ __global__ void __launch_bounds__(kThreads)
           const int j = cg * CPT + c;
           const float zn = rnd<T>(
               __fadd_rn(__fadd_rn(za[i][c], zb[i][c]), vec[kBn1 * H + j]));
-          bufA[t * LD + j] = rnd<T>(silu(zn));
+          bufA[t * LD + j] = node_silu<T>(zn);
         }
       }
     }
@@ -415,8 +486,8 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 
 // rows of the per-graph vectors of the tensor-core form (f32, [kMVecs][H])
-constexpr int kMBias1 = 0, kMWRad = 1, kMBe2 = 2, kMBc1 = 3, kMWc2 = 4,
-              kMBn1 = 5, kMBn2 = 6, kMVecs = 7;
+constexpr int kMWEf = 0, kMWRad = 1, kMBe2 = 2, kMBc1 = 3, kMWc2 = 4,
+              kMBn1 = 5, kMBn2 = 6, kMBe1 = 7, kMVecs = 8;
 
 __host__ __device__ inline int pad16(int f) { return (f + 15) / 16 * 16; }
 
@@ -508,8 +579,9 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     xc[i] = i < N * 3 ? rnd<bf>(to_f(xb[i])) : 0.0f;
   }
   for (int j = tid; j < H; j += kFwdThreads) {
-    // the all-ones edge feature's row folded into the bias, in f32
-    vec[kMBias1 * H + j] = __fadd_rn(to_f(w.be1[j]), to_f(w.w_ef[j]));
+    // the all-ones edge feature's row and the bias, added in B1's order
+    vec[kMWEf * H + j] = to_f(w.w_ef[j]);
+    vec[kMBe1 * H + j] = to_f(w.be1[j]);
     vec[kMWRad * H + j] = to_f(w.w_rad[j]);
     vec[kMBe2 * H + j] = to_f(w.be2[j]);
     vec[kMBc1 * H + j] = to_f(w.bc1[j]);
@@ -615,7 +687,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     wg_sync(wg);  // this tile's rows and geometry
 
     // ---- z1 = rnd(h_src . W_src) + rnd(h_dst . W_dst) + radial * w_rad +
-    // bias1 -> m1 = silu(z1) as the A operand of We2 ----
+    // w_ef + be1 -> m1 = silu(z1) as the A operand of We2 ----
     unsigned af[4][4];
     {
       float z[8][4];
@@ -623,6 +695,10 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       zero(z);
       for (int k0 = 0; k0 < 2 * Fp; k0 += 16) {
         if (k0 == Fp) {
+          // a src projection about to round near a bf16 tie: in k order
+          redo_ties(z, m0, fr, fq, [&](int t, int j) {
+            return dot_n(hsrc + t * kLdb, 1, w1s + j, kLdb, F);
+          });
 #pragma unroll
           for (int nt = 0; nt < 8; ++nt) {
             pa[nt][0] = pack2(z[nt][0], z[nt][1]);
@@ -641,6 +717,10 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
           mma_add(z[2 * np + 1], a, bfr[2], bfr[3]);
         }
       }
+      // a dst projection about to round near a bf16 tie: in k order
+      redo_ties(z, m0, fr, fq, [&](int t, int j) {
+        return dot_n(hdst + t * kLdb, 1, w1s + Fp * kLdb + j, kLdb, F);
+      });
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
@@ -649,11 +729,16 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
           const __nv_bfloat162 p2 =
               *reinterpret_cast<const __nv_bfloat162*>(&pa[nt][i >> 1]);
           const float pav = (i & 1) ? __high2float(p2) : __low2float(p2);
+          const float pbv = z[nt][i];
           const float z1 = __fadd_rn(
-              __fadd_rn(__fadd_rn(pav, rnd<bf>(z[nt][i])),
-                        __fmul_rn(g.rad[t], vec[kMWRad * H + j])),
-              vec[kMBias1 * H + j]);
-          z[nt][i] = z1 * sigmoid_fast(z1);
+              __fadd_rn(
+                  __fadd_rn(__fadd_rn(pav, rnd<bf>(pbv)),
+                            __fmul_rn(g.rad[t], vec[kMWRad * H + j])),
+                  vec[kMWEf * H + j]),
+              vec[kMBe1 * H + j]);
+          float v = z1 * sigmoid_fast(z1);
+          if (near_tie(v)) v = z1 * sigmoid(z1);  // the IEEE quotient
+          z[nt][i] = v;
         }
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
@@ -662,23 +747,43 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
         af[kk][2] = pack2(z[2 * kk + 1][0], z[2 * kk + 1][1]);
         af[kk][3] = pack2(z[2 * kk + 1][2], z[2 * kk + 1][3]);
       }
+      __syncwarp();  // the warp's gathered rows are read: m1 takes their place
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          m_row(st, m0 + fr + 8 * (i >> 1))[nt * 8 + 2 * fq + (i & 1)] =
+              rnd<bf>(z[nt][i]);
+        }
     }
-    __syncwarp();  // the warp's gathered rows are read: m takes their place
+    __syncwarp();  // m1's rows, for m's recompute; then m takes their place
 
     // ---- m = silu(m1 @ We2 + be2) -> its f32 row (m_row) for the node
-    // sums; m as the A operand of Wc1 ----
+    // sums; m as the A operand of Wc1. An m about to round near a tie is
+    // recomputed in the plain version's order (over m1's row, in k order,
+    // the IEEE sigmoid) ----
     {
       float p2[8][4];
       reg_product(af, we2s, lane, p2);
+      unsigned tie = 0;  // bit 4 * nt + i: m near a tie
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int j = nt * 8 + 2 * fq + (i & 1);
           const float p = p2[nt][i] + vec[kMBe2 * H + j];
-          const float mv = rnd<bf>(p * sigmoid_fast(p));
+          const float v = p * sigmoid_fast(p);
+          tie |= unsigned(near_tie(v)) << (4 * nt + i);
+          const float mv = rnd<bf>(v);
           p2[nt][i] = mv;
         }
+      for (; tie; tie &= tie - 1) {
+        const int i = __ffs(tie) - 1, j = tie_col(i, fq);
+        const float p = dot_row(m_row(st, tie_edge(m0, fr, i)), we2s + j, H) +
+                        vec[kMBe2 * H + j];
+        set_at(p2, i, rnd<bf>(p * sigmoid(p)));
+      }
+      __syncwarp();  // every lane has read m1's rows
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         float* mr = m_row(st, m0 + fr + 8 * hh);
@@ -698,19 +803,41 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     }
 
     // ---- cw = rnd(silu(m @ Wc1 + bc1) . wc2) -> the coordinate message
-    // rnd(cw * x_hat) in x_hat's place ----
+    // rnd(cw * x_hat) in x_hat's place. A c1 about to round near a tie is
+    // recomputed in the plain version's order (over m's row, in k order,
+    // the IEEE sigmoid) ----
     {
       float p3[8][4];
       reg_product(af, wc1s, lane, p3);
-      float part[2] = {0.0f, 0.0f};
+      __syncwarp();  // m's rows complete, for c1's recompute
+      unsigned tie = 0;  // bit 4 * nt + i: c1 near a tie
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int j = nt * 8 + 2 * fq + (i & 1);
           const float p = p3[nt][i] + vec[kMBc1 * H + j];
-          const float c1 = rnd<bf>(p * sigmoid_fast(p));
-          part[i >> 1] += c1 * vec[kMWc2 * H + j];
+          const float v = p * sigmoid_fast(p);
+          tie |= unsigned(near_tie(v)) << (4 * nt + i);
+          const float c1 = rnd<bf>(v);
+          p3[nt][i] = c1;
+        }
+      for (; tie; tie &= tie - 1) {
+        const int i = __ffs(tie) - 1, j = tie_col(i, fq);
+        const float p = dot_row(m_row(st, tie_edge(m0, fr, i)), wc1s + j, H) +
+                        vec[kMBc1 * H + j];
+        set_at(p3, i, rnd<bf>(p * sigmoid(p)));
+      }
+      // cw = c1 . wc2 in B1's order (egnn_mega.cuh): each product and sum
+      // rounded on its own, a lane's columns in column order, then sum4
+      float part[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = nt * 8 + 2 * fq + (i & 1);
+          part[i >> 1] =
+              __fadd_rn(part[i >> 1], __fmul_rn(p3[nt][i], vec[kMWc2 * H + j]));
         }
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
@@ -794,11 +921,13 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       }
     }
     __syncthreads();
-    // zn = rnd([h | agg] . Wn1 + bn1) and a = rnd(silu(zn)); a zn or an a
-    // about to round near a bf16 tie is recomputed as the plain version
-    // computes it (the product summed in k order by dot_n, the IEEE
-    // sigmoid): the tensor cores sum in another order, and a zn rounded
-    // the other way moves every column of its row of h'
+    // zn = rnd([h | agg] . Wn1 + bn1) and a = node_silu(zn); a zn about
+    // to round near a bf16 tie (near_zn_tie) is recomputed as the plain
+    // version computes
+    // it (the product summed in k order by dot_n): the tensor cores sum in
+    // another order, and a zn rounded the other way moves every column of
+    // its row of h'. a's steps are IEEE, each rounded, as the plain
+    // version's
     {
       float p[4][4];
       block_product(atile, lda, wn1s, K1, rb, ch, lane, p);
@@ -811,14 +940,13 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
             float zn = __fadd_rn(p[q][2 * hh + c], vec[kMBn1 * H + j + c]);
-            if (near_tie(zn)) {
+            if (near_zn_tie(zn)) {
               zn = __fadd_rn(
                   dot_n(atile + row * lda, 1, wn1s + j + c, kLdb, K1),
                   vec[kMBn1 * H + j + c]);
             }
             zn = rnd<bf>(zn);
-            v[c] = zn * sigmoid_fast(zn);
-            if (near_tie(v[c])) v[c] = __fmul_rn(zn, sigmoid(zn));
+            v[c] = node_silu<bf>(zn);
           }
           store_pair(as + row * kLdb + j, v[0], v[1]);
         }

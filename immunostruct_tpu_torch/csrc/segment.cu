@@ -9,6 +9,10 @@
 //
 //   scatter: out[b,n,c] = sum over valid e with idx[b,e] == n of m[b,e,c]
 //            [B,E,C] -> [B,N,C]; f32 sums, one rounding to m's dtype
+//            (segment_scatter_rounded: each add rounded to m's dtype, the
+//            sum XLA's scatter-add takes in that dtype: the transpose of a
+//            row gather, take_along_axis, in the JAX package's 'pallas'
+//            layer; in f32 the same bits as segment_scatter)
 //   gather:  out[b,e,c] = valid(b,e) ? h[b,idx[b,e],c] : 0
 //            [B,N,C] -> [B,E,C]; exact (one non-zero term)
 //
@@ -129,8 +133,9 @@ __device__ __forceinline__ void store_node(T* orow, int c0, int lane, int C,
   }
 }
 
-// grid: B * ranges CTAs; CTA x takes nodes [lo, lo + R) of graph x / ranges
-template <typename T>
+// grid: B * ranges CTAs; CTA x takes nodes [lo, lo + R) of graph x / ranges;
+// kRoundEach: each add rounded to T
+template <typename T, bool kRoundEach>
 __global__ void __launch_bounds__(kThreads)
     segment_scatter_kernel(const int* __restrict__ idx,
                            const uint8_t* __restrict__ mask,
@@ -268,7 +273,10 @@ __global__ void __launch_bounds__(kThreads)
             store_node(og + (size_t)cur * C, c0, lane, C, acc);
           }
 #pragma unroll
-          for (int v = 0; v < kV; ++v) acc[v] += val[u][v];
+          for (int v = 0; v < kV; ++v) {
+            acc[v] += val[u][v];
+            if constexpr (kRoundEach) acc[v] = to_f(from_f<T>(acc[v]));
+          }
         }
       }
     }
@@ -339,13 +347,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename T, bool kRoundEach>
 cudaError_t launch_scatter(const int* idx, const uint8_t* mask, const void* m,
                            void* out, int B, int E, int N, int C, int R,
                            cudaStream_t stream) {
   const size_t bytes = (size_t)scatter_smem_ints(E, R) * sizeof(int);
   const int ranges = (N + R - 1) / R;
-  segment_scatter_kernel<T><<<B * ranges, kThreads, bytes, stream>>>(
+  segment_scatter_kernel<T, kRoundEach>
+      <<<B * ranges, kThreads, bytes, stream>>>(
       idx, mask, static_cast<const T*>(m), static_cast<T*>(out), E, N, C, R,
       ranges);
   return cudaGetLastError();
@@ -379,19 +388,24 @@ int segment_scatter_ctas_per_sm(int E, int R, int bf16) {
   int n = 0;
   const cudaError_t err =
       bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                 &n, segment_scatter_kernel<__nv_bfloat16>, kThreads, bytes)
+                 &n, segment_scatter_kernel<__nv_bfloat16, false>, kThreads,
+                 bytes)
            : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                 &n, segment_scatter_kernel<float>, kThreads, bytes);
+                 &n, segment_scatter_kernel<float, false>, kThreads, bytes);
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
-// Lets both scatter kernels take up to `bytes` of dynamic shared memory a
+// Lets every scatter kernel take up to `bytes` of dynamic shared memory a
 // CTA on the current device: once per device, before the first launch.
 // Returns the cudaError_t (0 on success).
 int segment_set_smem_limit(int bytes) {
   const void* kernels[] = {
-      reinterpret_cast<const void*>(segment_scatter_kernel<float>),
-      reinterpret_cast<const void*>(segment_scatter_kernel<__nv_bfloat16>)};
+      reinterpret_cast<const void*>(segment_scatter_kernel<float, false>),
+      reinterpret_cast<const void*>(
+          segment_scatter_kernel<__nv_bfloat16, false>),
+      reinterpret_cast<const void*>(segment_scatter_kernel<float, true>),
+      reinterpret_cast<const void*>(
+          segment_scatter_kernel<__nv_bfloat16, true>)};
   for (const void* k : kernels) {
     const cudaError_t err = cudaFuncSetAttribute(
         k, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -406,9 +420,9 @@ int segment_set_smem_limit(int bytes) {
 // dtype (bf16 != 0: bfloat16, else float32). Writes
 // every element of out [B,N,C] (zeros where no valid edge lands). Returns
 // the cudaError_t of the launch (0 on success).
-int segment_scatter(const void* idx, const void* mask, const void* m,
-                    void* out, int B, int E, int N, int C, int R, int bf16,
-                    void* stream) {
+static int scatter_entry(const void* idx, const void* mask, const void* m,
+                         void* out, int B, int E, int N, int C, int R,
+                         int bf16, int round_each, void* stream) {
   if (B < 1 || E < 0 || N < 1 || C < 1 || R < 1 || R > kMaxRange ||
       E >= (1 << (31 - kKeyBits - kWarpBits)) * kWarps) {
     return cudaErrorInvalidValue;
@@ -417,9 +431,28 @@ int segment_scatter(const void* idx, const void* mask, const void* m,
   const uint8_t* pm = static_cast<const uint8_t*>(mask);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    return launch_scatter<__nv_bfloat16>(pi, pm, m, out, B, E, N, C, R, st);
+    return round_each ? launch_scatter<__nv_bfloat16, true>(
+                            pi, pm, m, out, B, E, N, C, R, st)
+                      : launch_scatter<__nv_bfloat16, false>(
+                            pi, pm, m, out, B, E, N, C, R, st);
   }
-  return launch_scatter<float>(pi, pm, m, out, B, E, N, C, R, st);
+  return round_each
+             ? launch_scatter<float, true>(pi, pm, m, out, B, E, N, C, R, st)
+             : launch_scatter<float, false>(pi, pm, m, out, B, E, N, C, R,
+                                            st);
+}
+
+int segment_scatter(const void* idx, const void* mask, const void* m,
+                    void* out, int B, int E, int N, int C, int R, int bf16,
+                    void* stream) {
+  return scatter_entry(idx, mask, m, out, B, E, N, C, R, bf16, 0, stream);
+}
+
+// segment_scatter with each add rounded to m's dtype (the header).
+int segment_scatter_rounded(const void* idx, const void* mask, const void* m,
+                            void* out, int B, int E, int N, int C, int R,
+                            int bf16, void* stream) {
+  return scatter_entry(idx, mask, m, out, B, E, N, C, R, bf16, 1, stream);
 }
 
 // One gather launch on `stream`: B*ceil(E/chunk) CTAs of 256 threads,

@@ -34,7 +34,8 @@ from immunostruct_tpu_torch.ops.attention import (
     MultiHeadAttention, SelfAttention, mha_apply, self_attention_apply,
 )
 from immunostruct_tpu_torch.ops.egnn import (
-    egnn_apply, egnn_stack, egnn_stack_apply, stack_aggregation,
+    egnn_apply, egnn_stack, egnn_stack_apply, host_counted_sums,
+    stack_aggregation,
 )
 from immunostruct_tpu_torch.ops.nnp import Linear, draw, dropout, linear_apply
 from immunostruct_tpu_torch.ops.pooling import max_pool, mean_pool
@@ -194,6 +195,19 @@ def gcn_aggregation(model: ImmunoStructModel, graph: GraphBatch,
     'auto' resolves to for its shapes and device)."""
     return stack_aggregation(aggregation, model.gcn[0], _gcn_input(graph),
                              graph.edge_src, graph.edge_feat)
+
+
+def program_aggregation(model: ImmunoStructModel, graph: GraphBatch,
+                        aggregation: str, compute_dtype
+                        ) -> tuple[str, Optional[str]]:
+    """For a program (``utils/capture.py``) of ``model``'s forward on
+    ``graph``: (the aggregation of its key, ``gcn_aggregation``'s, or
+    ``aggregation`` as given where the model has no structure branch; why
+    it runs eagerly on the card, if it must: ``host_counted_sums``)."""
+    if not model.spec.use_structure:
+        return aggregation, None
+    agg = gcn_aggregation(model, graph, aggregation)
+    return agg, host_counted_sums(agg, compute_dtype)
 
 
 def _structure_branch(model: ImmunoStructModel, graph: GraphBatch,

@@ -7,12 +7,21 @@ destination; padded edges contribute nothing; padded nodes still flow
 through the node MLP.
 
 Every strategy is differentiable: gradients flow through the node update
-and the coordinate update to every layer's parameters.
+and the coordinate update to every layer's parameters. The glue rounds
+where the JAX package's XLA program rounds, forward and backward, in bf16
+as in f32: its silu (``nnp.silu``), the radial, x_hat and msg_x chain
+(``_Geometry``, ``_CoordMessage``) and, under 'scatter' and 'pallas', the
+order in which h's and x's three cotangents are added (``_Fanout``).
 
 Aggregation strategies:
-  'scatter'  ``index_select`` gathers and ``index_add_`` aggregation (sums
-             in f32) with the radial guard of the JAX package. The CPU path
-             and the plain reference for the kernel path.
+  'scatter'  ``index_select`` gathers and sums at dst with the radial guard
+             of the JAX package. The CPU path and the plain reference for
+             the kernel path. In f32 the sums run in f32 (``index_add_``);
+             in a narrow dtype (bf16) as JAX's ``.at[].add`` and the
+             transpose of its ``take_along_axis`` run: in that dtype, in
+             edge order, each add rounded (``sum_rows_in_order``; the rows
+             are counted on the host, so on the card such a step runs
+             eagerly: ``host_counted_sums``).
   'onehot'   gathers and aggregation as batched products with masked
              [B, N, E] one-hot matrices (JAX ``build_scatter_matrix``; an
              index outside [0, N) gives a zero column, a masked edge a zero
@@ -60,12 +69,14 @@ Aggregation strategies:
              msg_x] in the compute dtype summed at the destination by B8's
              scatter kernel (ops/segment.py: ``SegmentScatter``, f32 sums
              rounded once; its backward is B8's gather kernel). The
-             gathers' backward is B8's scatter too (``_GatherRows``), so a
-             step gives the same bits every run. The JAX
-             package's numerics: the gathers do not mask the index, the
-             aggregation leaves out a masked edge or an index outside [0,
-             N). JAX's admission rule holds: E a multiple of 128; where JAX
-             would fall back to 'onehot', this raises and names it.
+             gathers' backward is B8's scatter too, each add rounded to the
+             compute dtype as XLA transposes JAX's ``take_along_axis``
+             (``segment_scatter_rounded``), so a step gives the same bits
+             every run. The JAX package's numerics: the gathers do not
+             mask the index, the aggregation leaves out a masked edge or an
+             index outside [0, N). JAX's admission rule holds: E a multiple
+             of 128; where JAX would fall back to 'onehot', this raises and
+             names it.
   'auto'     'scatter' for CPU tensors. For CUDA tensors the JAX package's
              chain (``_mega_or_fallback``, ``_fused_or_fallback``), decided
              from the shapes before any launch, with its warnings: 'mega'
@@ -83,7 +94,7 @@ batch builders check it on the host), as it is the JAX wrapper's.
 from __future__ import annotations
 
 import warnings
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -96,9 +107,11 @@ from immunostruct_tpu_torch.ops.fused_layer import fused_egnn_stack
 from immunostruct_tpu_torch.ops.mega import (
     check_paired, check_variant, edge_mega, mega_admits,
 )
-from immunostruct_tpu_torch.ops.nnp import Linear, linear_apply
+from immunostruct_tpu_torch.ops.nnp import Linear, linear_apply, silu
 from immunostruct_tpu_torch.ops import segment as _segment
-from immunostruct_tpu_torch.ops.segment import SegmentScatter
+from immunostruct_tpu_torch.ops.segment import (
+    SegmentScatter, narrow, row_passes, sum_rows_in_order,
+)
 from immunostruct_tpu_torch.ops.stack import apply_stack
 
 AGGREGATIONS = ("auto", "scatter", "onehot", "onehot_remat", "mega", "fused",
@@ -177,9 +190,10 @@ def stack_aggregation(aggregation: str, p: EGNNLayer, h, edge_src,
 
 
 def _node_update(p: EGNNLayer, h, x, h_agg, x_agg):
-    """h' = node_mlp([h ++ h_agg]); x' = x + x_agg."""
+    """h' = node_mlp([h ++ h_agg]); x' = x + x_agg. The silu is
+    ``jax.nn.silu``'s (``ops/nnp.py::silu``)."""
     hn = linear_apply(p.node_mlp[0], torch.cat([h, h_agg], dim=-1))
-    hn = linear_apply(p.node_mlp[1], nn.functional.silu(hn))
+    hn = linear_apply(p.node_mlp[1], silu(hn))
     return hn, x + x_agg
 
 
@@ -189,21 +203,156 @@ def _flat_index(idx: torch.Tensor, n: int) -> torch.Tensor:
     return (idx.long() + offs).reshape(-1)
 
 
+def _sum_last(t):
+    """t [..., 3] summed over its last axis in order, each add rounded to
+    t's dtype ([..., 1]): XLA's reduce_sum in that dtype, as JAX's
+    transposes of a broadcast sum."""
+    return (t[..., 0:1] + t[..., 1:2]) + t[..., 2:3]
+
+
+class _Geometry(torch.autograd.Function):
+    """x_diff [B, E, 3] -> (radial [B, E, 1], x_hat [B, E, 3]) with the JAX
+    package's radial guard: radial = |x_diff|^2 (the products rounded, the
+    sum as ``jnp.sum`` takes it, in f32 rounded once); x_hat = x_diff /
+    (sqrt(radial, or 1 where it is 0) + 1e-30). Each op rounds in x_diff's
+    dtype. The backward is JAX's transpose of that chain, at its rounding
+    points and in its order of sums: sqrt's derivative as g * (0.5 / root),
+    the quotient's as g / den and -g * den^-2 * x_diff (den^-2 = 1 / (den *
+    den)), the broadcast sums over the three components in order, and the
+    three terms of x_diff's cotangent added as ((g / den + x_diff * c) + c
+    * x_diff), c the radial's whole cotangent. Autograd rounds each of
+    these at other points."""
+
+    @staticmethod
+    def forward(ctx, xd):
+        radial = (xd * xd).sum(-1, keepdim=True)
+        positive = radial > 0
+        root = torch.sqrt(torch.where(positive, radial,
+                                      torch.ones_like(radial)))
+        den = root + 1e-30
+        ctx.save_for_backward(xd, positive, root, den)
+        return radial, xd / den
+
+    @staticmethod
+    def backward(ctx, g_radial, g_hat):
+        xd, positive, root, den = ctx.saved_tensors
+        zero = torch.zeros((), dtype=xd.dtype, device=xd.device)
+        if g_hat is None:
+            g_hat = torch.zeros_like(xd)
+        d_root = -_sum_last((g_hat * torch.reciprocal(den * den)) * xd)
+        c = torch.where(positive, d_root * (0.5 / root), zero)
+        if g_radial is not None:
+            c = g_radial + c
+        return (g_hat / den + xd * c) + c * xd
+
+
+class _CoordMessage(torch.autograd.Function):
+    """msg_x = cw [B, E, 1] * x_hat [B, E, 3] in x_hat's dtype; the backward
+    as JAX's: cw's cotangent the sum of g * x_hat over the three components
+    in order, each add rounded (autograd sums them in f32 and rounds
+    once)."""
+
+    @staticmethod
+    def forward(ctx, cw, x_hat):
+        ctx.save_for_backward(cw, x_hat)
+        return cw * x_hat
+
+    @staticmethod
+    def backward(ctx, g):
+        cw, x_hat = ctx.saved_tensors
+        return _sum_last(g * x_hat), cw * g
+
+
 def _edge_mlp(p: EGNNLayer, h_src, h_dst, x_diff, edge_feat):
     """The edge/coord MLP on gathered values: (m [B, E, H], msg_x [B, E, 3]
-    in x_diff's dtype), with the JAX package's radial guard."""
-    radial = (x_diff * x_diff).sum(-1, keepdim=True)
-    # radial = 0 (self-loops) keeps x_hat = 0 and the sqrt finite
-    radial_safe = torch.where(radial > 0, radial, torch.ones_like(radial))
-    x_hat = x_diff / (torch.sqrt(radial_safe) + 1e-30)
+    in x_diff's dtype), with the JAX package's radial guard, rounding
+    points and silu (``_Geometry``, ``_CoordMessage``, ``nnp.silu``)."""
+    radial, x_hat = _Geometry.apply(x_diff)
     dt = h_src.dtype
     feat = torch.cat([h_src, h_dst, radial.to(dt), edge_feat.to(dt)], dim=-1)
-    silu = nn.functional.silu
     m = silu(linear_apply(p.edge_mlp[0], feat))
     m = silu(linear_apply(p.edge_mlp[1], m))                    # [B, E, H]
     cw = silu(linear_apply(p.coord_mlp[0], m))
     cw = linear_apply(p.coord_mlp[1], cw)                       # [B, E, 1]
-    return m, cw.to(x_hat.dtype) * x_hat                        # [B, E, 3]
+    return m, _CoordMessage.apply(cw.to(x_hat.dtype), x_hat)    # [B, E, 3]
+
+
+def ordered_scatter(h, x) -> bool:
+    """Whether 'scatter' sums in the compute dtype in edge order
+    (``_egnn_apply_scatter_narrow``): h and x in one narrow dtype."""
+    return narrow(h.dtype) and h.dtype == x.dtype
+
+
+def host_counted_sums(aggregation: str, dtype: torch.dtype
+                      ) -> Optional[str]:
+    """Why a program whose conv stack runs ``aggregation`` (resolved) in
+    ``dtype`` runs eagerly on the card, if it must: 'scatter' in a narrow
+    dtype counts the rows of its ordered sums on the host
+    (``sum_rows_in_order``), which a CUDA graph cannot hold."""
+    if aggregation == "scatter" and narrow(dtype):
+        return "ordered sums"
+    return None
+
+
+def _edge_rows(idx, ok, n):
+    """[B*E] rows of a [B*N, C] view, -1 where ``ok`` [B, E] is False."""
+    return torch.where(ok.reshape(-1), _flat_index(idx, n), -1)
+
+
+def scatter_passes(edge_src, edge_dst, edge_mask, n: int) -> dict:
+    """The ordered sums' passes (``row_passes``) of a graph batch's src and
+    dst rows, masked edges left out: computed once for a conv stack under
+    'scatter' in a narrow dtype, two host syncs a forward."""
+    ok = edge_mask.bool()
+    b = edge_src.shape[0]
+    return {"src": row_passes(_edge_rows(edge_src, ok, n), b * n),
+            "dst": row_passes(_edge_rows(edge_dst, ok, n), b * n)}
+
+
+def _ordered_sums(idx, ok, g, n, passes=None):
+    """g [B, E, C] summed at idx [B, E] into [B, N, C] by
+    ``sum_rows_in_order``, the rows where ``ok`` [B, E] is False left out."""
+    b, e, c = g.shape
+    return sum_rows_in_order(_edge_rows(idx, ok, n), g.reshape(b * e, c),
+                             b * n, passes).reshape(b, n, c)
+
+
+def _rounded_sums(idx, ok, g, n):
+    """``_ordered_sums``'s values through B8's rounded scatter."""
+    return _segment.segment_scatter_rounded(
+        idx.to(torch.int32).contiguous(), ok.contiguous(), g.contiguous(), n)
+
+
+class _Fanout(torch.autograd.Function):
+    """t [B, N, C] -> (t, t at src, t at dst) (src, dst [B, E]): a layer's
+    three uses of h (or x) under 'scatter' and 'pallas', the node update's
+    and the two gathers'. The backward is JAX's transpose of the three:
+    ((g + sum_dst(the dst rows' cotangent)) + sum_src(the src rows')), each
+    add rounded; ``sum_src`` and ``sum_dst`` map a cotangent [B, E, C] to
+    its sums at src or dst [B, N, C] (XLA's transpose of
+    ``take_along_axis``: in the cotangent's dtype, in edge order, each add
+    rounded, by ``_ordered_sums`` or ``_rounded_sums``). Autograd would add
+    the three in another order."""
+
+    @staticmethod
+    def forward(ctx, t, src, dst, sum_src, sum_dst):
+        b, n, c = t.shape
+        ctx.sums = (sum_dst, sum_src)
+        rows = t.reshape(b * n, c)
+
+        def take(idx):
+            return rows.index_select(0, _flat_index(idx, n)).reshape(
+                b, idx.shape[1], c)
+        return t.clone(), take(src), take(dst)
+
+    @staticmethod
+    def backward(ctx, g, g_src, g_dst):
+        out = g
+        for sums, rows in zip(ctx.sums, (g_dst, g_src)):
+            if rows is not None:
+                part = sums(rows)
+                out = part if out is None else out + part
+        return out, None, None, None, None
 
 
 class _GatherRows(torch.autograd.Function):
@@ -238,37 +387,67 @@ class _GatherRows(torch.autograd.Function):
         return acc.reshape(-1, g.shape[-1]), None, None
 
 
-def _edge_messages(p: EGNNLayer, h, x, edge_src, edge_dst, edge_feat,
-                   repeatable: bool = False):
-    """The gathers (the index not masked) and the edge/coord MLP: (m [B, E,
-    H], msg_x [B, E, 3]) and the flat destination rows. ``repeatable``
-    gathers through ``_GatherRows``, whose backward gives the same bits
-    every run ('pallas'); 'scatter', the reference algorithm's baseline,
-    keeps ``index_select``."""
+def _edge_messages(p: EGNNLayer, h, x, edge_src, edge_dst, edge_feat):
+    """'scatter''s gathers in f32 (``index_select``, the index not masked)
+    and the edge/coord MLP: (m [B, E, H], msg_x [B, E, 3]) and the flat
+    destination rows."""
     b, n, f = h.shape
     e = edge_src.shape[1]
     src = _flat_index(edge_src, n)
     dst = _flat_index(edge_dst, n)
     hf = h.reshape(b * n, f)
     xf = x.reshape(b * n, 3)
-    if repeatable:
-        si = edge_src.to(torch.int32).contiguous()
-        di = edge_dst.to(torch.int32).contiguous()
-        h_src = _GatherRows.apply(hf, si, None)
-        h_dst = _GatherRows.apply(hf, di, None)
-        x_diff = (_GatherRows.apply(xf, si, None)
-                  - _GatherRows.apply(xf, di, None))
-    else:
-        h_src = hf.index_select(0, src).reshape(b, e, f)
-        h_dst = hf.index_select(0, dst).reshape(b, e, f)
-        x_diff = (xf.index_select(0, src) - xf.index_select(0, dst)
-                  ).reshape(b, e, 3)
+    h_src = hf.index_select(0, src).reshape(b, e, f)
+    h_dst = hf.index_select(0, dst).reshape(b, e, f)
+    x_diff = (xf.index_select(0, src) - xf.index_select(0, dst)
+              ).reshape(b, e, 3)
     m, msg_x = _edge_mlp(p, h_src, h_dst, x_diff, edge_feat)
     return m, msg_x, dst
 
 
+def _fanned_messages(p: EGNNLayer, h, x, edge_src, edge_dst, edge_feat,
+                     sum_src, sum_dst):
+    """The gathers through ``_Fanout`` (the index not masked; the
+    cotangents summed by ``sum_src`` and ``sum_dst``) and the edge/coord
+    MLP: (h and x for the node update, m [B, E, H], msg_x [B, E, 3]). h and
+    x fan out apart: under 'pallas' each of their four sums is one launch of
+    B8's rounded scatter. The sums may leave out a masked edge's rows: the
+    aggregation drops its message, so its cotangents are zero."""
+    h, h_src, h_dst = _Fanout.apply(h, edge_src, edge_dst, sum_src, sum_dst)
+    x, x_src, x_dst = _Fanout.apply(x, edge_src, edge_dst, sum_src, sum_dst)
+    m, msg_x = _edge_mlp(p, h_src, h_dst, x_src - x_dst, edge_feat)
+    return h, x, m, msg_x
+
+
+def _egnn_apply_scatter_narrow(p: EGNNLayer, h, x, edge_src, edge_dst,
+                               edge_feat, edge_mask, passes=None):
+    """'scatter' in a narrow dtype, as the JAX package's runs: the gathers'
+    backward and the sums at dst in that dtype, in edge order, each add
+    rounded (``_fanned_messages`` with ``_ordered_sums``); the rows of
+    masked edges, zero in JAX's sum, left out. ``passes``: the stack's
+    ``scatter_passes``."""
+    n = h.shape[1]
+    passes = passes or scatter_passes(edge_src, edge_dst, edge_mask, n)
+    ok = edge_mask.bool()
+    h, x, m, msg_x = _fanned_messages(
+        p, h, x, edge_src, edge_dst, edge_feat,
+        lambda g: _ordered_sums(edge_src, ok, g, n, passes["src"]),
+        lambda g: _ordered_sums(edge_dst, ok, g, n, passes["dst"]))
+    hid = m.shape[-1]
+    agg = _ordered_sums(edge_dst, ok, torch.cat([m, msg_x], dim=-1), n,
+                        passes["dst"])
+    return _node_update(p, h, x, agg[..., :hid], agg[..., hid:])
+
+
 def _egnn_apply_scatter(p: EGNNLayer, h, x, edge_src, edge_dst, edge_feat,
-                        edge_mask):
+                        edge_mask, passes=None):
+    """'scatter'. In f32 the sums at dst run in f32 (``index_add_``: in edge
+    order on the CPU, by atomics on the card unless torch's deterministic
+    algorithms are on); in a narrow dtype (h and x alike) as the JAX
+    package's do (``_egnn_apply_scatter_narrow``)."""
+    if ordered_scatter(h, x):
+        return _egnn_apply_scatter_narrow(p, h, x, edge_src, edge_dst,
+                                          edge_feat, edge_mask, passes)
     b, n, _ = h.shape
     e = edge_src.shape[1]
     m, msg_x, dst = _edge_messages(p, h, x, edge_src, edge_dst, edge_feat)
@@ -404,8 +583,12 @@ def check_pallas(edge_count: int) -> None:
 def _egnn_apply_pallas(p: EGNNLayer, h, x, edge_src, edge_dst, edge_feat,
                        edge_mask):
     check_pallas(edge_src.shape[1])
-    m, msg_x, _ = _edge_messages(p, h, x, edge_src, edge_dst, edge_feat,
-                                 repeatable=True)
+    n = h.shape[1]
+    ok = edge_mask.bool()
+    h, x, m, msg_x = _fanned_messages(
+        p, h, x, edge_src, edge_dst, edge_feat,
+        lambda g: _rounded_sums(edge_src, ok, g, n),
+        lambda g: _rounded_sums(edge_dst, ok, g, n))
     hid = m.shape[-1]
     both = torch.cat([m, msg_x.to(m.dtype)], dim=-1)          # compute dtype
     agg = SegmentScatter.apply(edge_dst.to(torch.int32).contiguous(),
@@ -418,7 +601,8 @@ def _apply_layer(p: EGNNLayer, h, x, edge_src, edge_dst, edge_feat,
                  edge_mask, aggregation: str, mega_variant: str,
                  matrices=None):
     """One layer under a resolved aggregation; ``matrices``: the stack's
-    shared ``one_hot_matrices`` under 'onehot' (None: built here)."""
+    shared ``one_hot_matrices`` under 'onehot', its ``scatter_passes``
+    under 'scatter' in a narrow dtype (None: built here)."""
     if aggregation == "mega":
         return _egnn_apply_mega(p, h, x, edge_src, edge_dst, edge_feat,
                                 edge_mask, mega_variant)
@@ -437,7 +621,7 @@ def _apply_layer(p: EGNNLayer, h, x, edge_src, edge_dst, edge_feat,
         return _egnn_apply_onehot_remat(p, h, x, edge_src, edge_dst,
                                         edge_feat, edge_mask)
     return _egnn_apply_scatter(p, h, x, edge_src, edge_dst, edge_feat,
-                               edge_mask)
+                               edge_mask, matrices)
 
 
 def egnn_apply(p: EGNNLayer, h: torch.Tensor, x: torch.Tensor,
@@ -484,7 +668,8 @@ def egnn_stack_apply(layers: Sequence[EGNNLayer], h, x, edge_src, edge_dst,
     'paired' holds the batch to ``check_paired`` here on CPU tensors (on
     CUDA tensors, where that would stall the host, B4 computes on the
     mirror its arc half implies); the others pick each layer's kernels.
-    'onehot' builds its matrices once for every layer. ``fused_stack``
+    'onehot' builds its matrices once for every layer, 'scatter' in a
+    narrow dtype its sums' passes. ``fused_stack``
     (forward only, aggregation 'auto', variant 'hybrid') runs every layer
     in B7 (``fused_egnn_stack``); edge features must be all ones, which is
     checked on CPU tensors."""
@@ -509,6 +694,8 @@ def egnn_stack_apply(layers: Sequence[EGNNLayer], h, x, edge_src, edge_dst,
     if aggregation == "onehot":
         matrices = one_hot_matrices(edge_src, edge_dst, edge_mask,
                                     h.shape[1])
+    elif aggregation == "scatter" and ordered_scatter(h, x):
+        matrices = scatter_passes(edge_src, edge_dst, edge_mask, h.shape[1])
     for p in layers:
         h, x = _apply_layer(p, h, x, edge_src, edge_dst, edge_feat,
                             edge_mask, aggregation, mega_variant, matrices)

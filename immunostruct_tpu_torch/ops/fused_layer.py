@@ -28,16 +28,23 @@ weights the TPU kernel's roundings (the projections, x_diff, cw and the
 coordinate sum kept in f32, the biases rounded) part the served
 probabilities from the 'mega' forward's by up to 0.085 in bf16 (PERF.md
 §6). The weight matrices are rounded to the compute dtype, the biases,
-w_rad, wc2 and bias1 = be1 + we1[2F+1] stay f32; x is cast to the compute
-dtype; x_diff and radial are rounded, x_hat is f32; each projection h_src @
-W_src and h_dst @ W_dst is rounded before they are summed in f32 with
-radial * w_rad and bias1; silu(z1), m and the coordinate MLP's hidden c1
-are rounded, and so are cw and msg_x = cw * x_hat; the sums at dst are f32
+w_rad, wc2 and w_ef = we1[2F+1] stay f32; x is cast to the compute dtype;
+x_diff and radial are rounded, x_hat is f32; each projection h_src @ W_src
+and h_dst @ W_dst is rounded before they are summed in f32 with radial *
+w_rad, then w_ef (the all-ones feature's row), then be1, in B1's order (a
+bias folded as be1 + w_ef moved trained models' served probabilities by up
+to 1.4e-3 from 'mega''s); silu(z1), m and the coordinate MLP's hidden c1
+are rounded, and so are cw and msg_x = cw * x_hat; every product of the
+edge chain is summed in k order (``projection_in_order``: the kernel
+recomputes a projection, m or c1 near a bf16 tie in that order) and cw in
+B1's order (``cw_in_order``); the sums at dst are f32
 and rounded before the node update; zn = [h ++ agg] @ Wn1 + bn1 (the
 product summed in k order, as ``projection_in_order`` sums it, so that the
 kernel can recompute a zn near a bf16 tie in the same order) is rounded
-before its silu, a and h' are rounded; x' = x + x_agg in x's
-dtype. In f32 every rounding is exact and B7 computes what the TPU kernel
+before its silu; the node MLP's silu a = zn * s, s = 1 / (1 + exp(-zn)),
+rounds exp, the sum, the quotient and the product, as the node update's
+(``nnp.silu``, ``jax.nn.silu``'s points); h' is rounded; x' = x + x_agg in
+x's dtype. In f32 every rounding is exact and B7 computes what the TPU kernel
 computes.
 
 Masking (``_fused_layer_kernel``'s and the JAX 'mega' layer's, not the
@@ -64,7 +71,7 @@ import torch
 from immunostruct_tpu_torch.ops.edge import (
     EDGE_MULTIPLE, KERNEL_MAX_F, check_cuda_args, hopper,
 )
-from immunostruct_tpu_torch.ops.mega import projection_in_order
+from immunostruct_tpu_torch.ops.mega import cw_in_order, projection_in_order
 
 
 def _layer_tensors(layer):
@@ -94,7 +101,7 @@ def fused_egnn_layer_reference(layer, h, x, edge_src, edge_dst, edge_mask):
 
     raw = [t.detach().float() for t in _layer_tensors(layer)]
     we1, be1, we2, be2, wc1, bc1, wc2, wn1, bn1, wn2, bn2 = raw
-    bias1 = be1 + we1[2 * f + 1]                     # f32
+    w_ef = we1[2 * f + 1]                            # f32
     w_rad = we1[2 * f]
     we1, we2, wc1, wn1, wn2 = (rnd(t) for t in (we1, we2, wc1, wn1, wn2))
     edge_mask = edge_mask.bool()
@@ -113,13 +120,13 @@ def fused_egnn_layer_reference(layer, h, x, edge_src, edge_dst, edge_mask):
     radial = rnd((x_diff * x_diff).sum(-1, keepdim=True))
     safe = torch.where(radial > 0, radial, torch.ones_like(radial))
     x_hat = x_diff / (torch.sqrt(safe) + 1e-30)
-    pa = rnd(torch.matmul(gather(hf, s, src_ok), we1[:f]))
-    pb = rnd(torch.matmul(gather(hf, d, dst_ok), we1[f:2 * f]))
-    z1 = pa + pb + radial * w_rad + bias1
+    pa = rnd(projection_in_order(gather(hf, s, src_ok), we1[:f]))
+    pb = rnd(projection_in_order(gather(hf, d, dst_ok), we1[f:2 * f]))
+    z1 = pa + pb + radial * w_rad + w_ef + be1       # B1's order
     m1 = rnd(silu(z1))
-    m = rnd(silu(torch.matmul(m1, we2) + be2))
-    c1 = rnd(silu(torch.matmul(m, wc1) + bc1))
-    cw = rnd(torch.matmul(c1, wc2))                             # [B, E, 1]
+    m = rnd(silu(projection_in_order(m1, we2) + be2))
+    c1 = rnd(silu(projection_in_order(m, wc1) + bc1))
+    cw = rnd(cw_in_order(c1, wc2[:, 0]))                        # [B, E, 1]
     msg_x = rnd(cw * x_hat)
     both = torch.where(dst_ok[..., None], torch.cat([m, msg_x], dim=-1), 0.0)
     hid = m.shape[-1]
@@ -128,7 +135,7 @@ def fused_egnn_layer_reference(layer, h, x, edge_src, edge_dst, edge_mask):
     agg = rnd(agg)
     zn = rnd(projection_in_order(torch.cat([hf, agg[..., :hid]], dim=-1), wn1)
              + bn1)
-    a = rnd(silu(zn))
+    a = rnd(zn * rnd(torch.reciprocal(rnd(1 + rnd(torch.exp(-zn))))))
     h_new = (torch.matmul(a, wn2) + bn2).to(dt)
     x_new = (x.float() + agg[..., hid:]).to(x.dtype)
     return h_new, x_new

@@ -6,7 +6,8 @@ and ``b`` is ``[out]``, so a checkpoint's arrays copy over unchanged.
 input's dtype, the product accumulates in f32, the bias is added in f32 and
 the result is cast back to the input's dtype. Under bf16 the product runs
 on f32 copies of the bf16 operands, which gives exactly that single
-rounding at the end.
+rounding at the end. ``silu`` is ``jax.nn.silu``'s, with its rounding points
+in bf16.
 
 Initialisation is torch ``nn.Linear``-style, U(-1/sqrt(in), 1/sqrt(in)) for
 weight and bias, drawn on the CPU from an explicit ``torch.Generator`` (so a
@@ -57,6 +58,35 @@ def linear_apply(p: Linear, x: torch.Tensor) -> torch.Tensor:
     if p.b is not None:
         y = y + p.b.float()
     return y.to(x.dtype)
+
+
+class _Silu(torch.autograd.Function):
+    """silu in a floating dtype narrower than f32, op by op in that dtype as
+    ``jax.nn.silu`` runs there: x * s with s = 1 / (1 + exp(-x)) (XLA's
+    logistic), each of exp, the sum, the reciprocal and the product rounded
+    (four roundings, where ``torch.nn.functional.silu`` rounds once); the
+    backward as JAX's transpose of its JVP: g * s + (x * g) * (s * (1 - s)),
+    each product, the difference and the sum rounded."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = torch.reciprocal(1 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * s + (x * g) * (s * (1 - s))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``'s values and gradients: in f32 (and f64) torch's silu,
+    which agrees with JAX's to f32 rounding; in a narrower dtype JAX's
+    rounding points (``_Silu``), forward and backward."""
+    if x.dtype in (torch.float32, torch.float64):
+        return nn.functional.silu(x)
+    return _Silu.apply(x)
 
 
 def draw(fn, shape, generator: Optional[torch.Generator], device,

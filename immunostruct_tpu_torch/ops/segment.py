@@ -6,6 +6,9 @@ With ``valid[b, e] = mask[b, e] and 0 <= idx[b, e] < N``:
 
     scatter  out[b, n] = sum of m[b, e] over the valid e with idx[b, e] == n
              [B, E, C] -> [B, N, C]; summed in f32, rounded once to m's dtype
+             (``segment_scatter_rounded``: in edge order, each add rounded
+             to m's dtype, as XLA sums the transpose of a row gather; the
+             backward of 'pallas''s gathers, ops/egnn.py)
     gather   out[b, e] = h[b, idx[b, e]] where valid, else 0
              [B, N, C] -> [B, E, C]; exact (one non-zero term)
 
@@ -30,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -47,6 +51,54 @@ def _rows(idx: torch.Tensor, valid: torch.Tensor, n: int) -> torch.Tensor:
     return (torch.where(valid, idx, 0).long() + offs).reshape(-1)
 
 
+def narrow(dtype: torch.dtype) -> bool:
+    """A floating dtype narrower than f32 (bf16, f16): one in which the JAX
+    package's scatter sums round at every add."""
+    return dtype not in (torch.float32, torch.float64)
+
+
+def row_passes(idx: torch.Tensor, num: int) -> tuple:
+    """The passes of ``sum_rows_in_order`` for idx [R] (a row with idx < 0
+    left out): (the rows in pass order, the rows of each pass, left-out
+    rows first). Pass k holds each index's k-th row in row order. The
+    counts are read on the host (one sync)."""
+    r = idx.shape[0]
+    key = torch.where(idx >= 0, idx, num)        # left-out rows sort last
+    order = torch.argsort(key, stable=True)
+    ranked = key[order]
+    at = torch.arange(r, device=idx.device)
+    first = torch.ones_like(ranked, dtype=torch.bool)
+    first[1:] = ranked[1:] != ranked[:-1]
+    rank = torch.empty_like(at)
+    rank[order] = at - torch.cummax(torch.where(first, at, 0), 0).values
+    rank = torch.where(idx >= 0, rank, -1)
+    return torch.argsort(rank, stable=True), torch.bincount(rank + 1).tolist()
+
+
+def sum_rows_in_order(idx: torch.Tensor, rows: torch.Tensor, num: int,
+                      passes: Optional[tuple] = None) -> torch.Tensor:
+    """[num, C]: rows [R, C] summed at idx [R] (a row with idx < 0 left
+    out) in row order from +0, each add rounded to rows' dtype: XLA's
+    scatter-add on the CPU (JAX's ``.at[].add`` and the transpose of
+    ``take_along_axis``). torch's ``index_add_`` in bf16 sums in f32 on the
+    CPU and by atomics on the card. Pass k adds each index's k-th row: no
+    two rows of a pass meet at one index, so each add is one rounding and
+    the passes keep row order on any device. ``passes``: ``row_passes(idx,
+    num)``, computed here where not given; its counts are read on the host,
+    so a CUDA graph cannot hold this (``ops/egnn.py::host_counted_sums``)."""
+    r, c = rows.shape
+    out = torch.zeros(num, c, dtype=rows.dtype, device=rows.device)
+    if r == 0:
+        return out
+    by_pass, sizes = passes if passes is not None else row_passes(idx, num)
+    idx, rows = idx[by_pass], rows[by_pass]
+    start = sizes[0]
+    for size in sizes[1:]:
+        out.index_add_(0, idx[start:start + size], rows[start:start + size])
+        start += size
+    return out
+
+
 # --------------------------------------------------------------------------
 # plain PyTorch versions
 # --------------------------------------------------------------------------
@@ -62,6 +114,24 @@ def segment_scatter_reference(idx: torch.Tensor, mask: torch.Tensor,
     acc = torch.zeros(b * num_nodes, c, dtype=torch.float32, device=m.device)
     acc.index_add_(0, _rows(idx, valid, num_nodes), msgs.reshape(b * e, c))
     return acc.reshape(b, num_nodes, c).to(m.dtype)
+
+
+def segment_scatter_rounded_reference(idx: torch.Tensor, mask: torch.Tensor,
+                                      m: torch.Tensor,
+                                      num_nodes: int) -> torch.Tensor:
+    """Plain PyTorch version of the rounded scatter: [B, N, C] in m's dtype,
+    the valid edges' rows summed in edge order from +0, each add rounded to
+    m's dtype (``sum_rows_in_order``). In f32 on the CPU that is
+    ``segment_scatter_reference``'s sum (``index_add_`` adds in edge order
+    there), which it takes."""
+    if m.device.type == "cpu" and not narrow(m.dtype):
+        return segment_scatter_reference(idx, mask, m, num_nodes)
+    b, e, c = m.shape
+    valid = _valid(idx, mask, num_nodes)
+    rows = torch.where(valid, _rows(idx, valid, num_nodes).reshape(b, e),
+                       -1).reshape(-1)
+    return sum_rows_in_order(rows, m.reshape(b * e, c),
+                             b * num_nodes).reshape(b, num_nodes, c)
 
 
 def segment_gather_reference(idx: torch.Tensor, mask: torch.Tensor,
@@ -113,7 +183,8 @@ def _lib():
 
     lib = load_library("segment")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.segment_scatter, lib.segment_gather):
+    for fn in (lib.segment_scatter, lib.segment_scatter_rounded,
+               lib.segment_gather):
         fn.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
         fn.restype = i32
     lib.segment_scatter_smem_bytes.argtypes = [i32, i32]
@@ -191,9 +262,11 @@ def _check(name: str, idx, mask, data, rows: int):
         raise ValueError(f"{name}: empty batch or channels")
 
 
-def _scatter_launch(idx, mask, m, num_nodes: int) -> torch.Tensor:
-    """Check the operands and launch the scatter kernel on m's card; raise
-    if it does not fit or does not launch. Counts nothing."""
+def _scatter_launch(idx, mask, m, num_nodes: int,
+                    rounded: bool = False) -> torch.Tensor:
+    """Check the operands and launch the scatter kernel (``rounded``: each
+    add rounded to m's dtype) on m's card; raise if it does not fit or
+    does not launch. Counts nothing."""
     _check("segment_scatter", idx, mask, m, idx.shape[1])
     b, e, c = m.shape
     lib = _lib()
@@ -217,9 +290,10 @@ def _scatter_launch(idx, mask, m, num_nodes: int) -> torch.Tensor:
                 f"E={e} (R={r} nodes a CTA); the card allows {optin} B per "
                 "block")
         out = m.new_empty((b, num_nodes, c))
-        rc = lib.segment_scatter(
-            idx.data_ptr(), mask.data_ptr(), m.data_ptr(), out.data_ptr(), b,
-            e, num_nodes, c, r, bf16, _stream(card))
+        entry = (lib.segment_scatter_rounded if rounded
+                 else lib.segment_scatter)
+        rc = entry(idx.data_ptr(), mask.data_ptr(), m.data_ptr(),
+                   out.data_ptr(), b, e, num_nodes, c, r, bf16, _stream(card))
     if rc != 0:
         raise RuntimeError(f"segment_scatter launch failed with CUDA error "
                            f"{rc} (B={b}, E={e}, N={num_nodes}, C={c})")
@@ -247,9 +321,15 @@ def _gather_launch(idx, mask, h) -> torch.Tensor:
     return out
 
 
+def _count_scatter_launch() -> None:
+    """One more launch of B8's scatter kernel, either instance (the op's
+    and ``segment_scatter_rounded``'s): ``segment_scatter.launches``."""
+    segment_scatter.launches += 1
+
+
 def _scatter_cuda(idx, mask, m, num_nodes):
     out = _scatter_launch(idx, mask, m, num_nodes)
-    segment_scatter.launches += 1
+    _count_scatter_launch()
     return out
 
 
@@ -293,6 +373,21 @@ def segment_scatter(idx: torch.Tensor, mask: torch.Tensor, m: torch.Tensor,
 
 
 segment_scatter.launches = 0
+
+
+def segment_scatter_rounded(idx: torch.Tensor, mask: torch.Tensor,
+                            m: torch.Tensor, num_nodes: int) -> torch.Tensor:
+    """B8's scatter with each add rounded to m's dtype (module docstring).
+    CUDA tensors launch csrc/segment.cu's ``segment_scatter_rounded`` (the
+    scatter kernel's other instance: counted in
+    ``segment_scatter.launches``) or raise; CPU tensors go through
+    ``segment_scatter_rounded_reference``. Not an op: only the backward of
+    'pallas''s gathers calls it."""
+    if not _on_cuda("segment_scatter_rounded", m):
+        return segment_scatter_rounded_reference(idx, mask, m, num_nodes)
+    out = _scatter_launch(idx, mask, m, num_nodes, rounded=True)
+    _count_scatter_launch()
+    return out
 
 
 def segment_gather(idx: torch.Tensor, mask: torch.Tensor,

@@ -20,7 +20,8 @@ import numpy as np
 import torch
 
 from immunostruct_tpu_torch.models.trunk import (
-    ImmunoStructModel, gcn_aggregation, model_apply, model_apply_comparative,
+    ImmunoStructModel, model_apply, model_apply_comparative,
+    program_aggregation,
 )
 from immunostruct_tpu_torch.procedures.clinical import clinical_pvalues
 from immunostruct_tpu_torch.procedures.metrics import (
@@ -53,8 +54,8 @@ def collect_probs(config, model: ImmunoStructModel, pipe, seed: int):
     ``ComparativeBatch`` goes through the twin forward and gives the cancer
     side's target (infer.py:36-43 of the JAX package). Each batch's
     forward is a ``utils/capture.py`` program, the counterpart of the JAX
-    package's jitted forward: captured on the card for each batch shape,
-    eager on the CPU."""
+    package's jitted forward: captured on the card for each batch shape
+    (eager where ``program_aggregation`` says so), eager on the CPU."""
     compute_dtype = getattr(torch, config.compute_dtype)
     forward = functools.partial(forward_logits, model,
                                 aggregation=config.aggregation,
@@ -65,12 +66,14 @@ def collect_probs(config, model: ImmunoStructModel, pipe, seed: int):
         for i, batch in enumerate(pipe.epoch(0)):
             side = (batch.cancer if isinstance(batch, ComparativeBatch)
                     else batch)
-            agg = (gcn_aggregation(model, side.graph, config.aggregation)
-                   if model.spec.use_structure else config.aggregation)
+            agg, eager = program_aggregation(model, side.graph,
+                                             config.aggregation,
+                                             compute_dtype)
             logits = program(forward, batch,
                              static=("forward", agg, compute_dtype),
                              seed=derived_seed(seed, i),
-                             state=functools.partial(module_tensors, model))
+                             state=functools.partial(module_tensors, model),
+                             eager=eager)
             probs.append(torch.sigmoid(logits.reshape(-1).float()))
             targets.append(side.target.reshape(-1))
     return (torch.cat(probs).cpu().numpy(),

@@ -52,8 +52,8 @@ import numpy as np
 import torch
 
 from immunostruct_tpu_torch.models.trunk import (
-    ImmunoStructModel, ModelSpec, gcn_aggregation, model_apply,
-    model_apply_comparative,
+    ImmunoStructModel, ModelSpec, model_apply, model_apply_comparative,
+    program_aggregation,
 )
 from immunostruct_tpu_torch.parallel.collectives import (
     all_gather, mean_gradients, pmean,
@@ -372,27 +372,32 @@ class Trainer:
                     p.grad.mul_(1.0 / k)
         return total * (1.0 / k)
 
-    def _eager_rule(self) -> Optional[str]:
+    def _eager_rule(self, model: ImmunoStructModel, batch) -> Optional[str]:
         """Why this Trainer's steps run eagerly on the card, if they do:
         gloo's hops under a mesh are staged through pinned host memory,
-        and ``mp``'s steps run collectives inside the forward."""
+        ``mp``'s steps run collectives inside the forward, and 'scatter' in
+        a narrow dtype counts its ordered sums on the host
+        (``program_aggregation``)."""
         if self.mesh is not None:
             return "data-parallel"
         if self.mp is not None:
             return "model-parallel"
-        return None
+        return self._aggregation(model, batch)[1]
+
+    def _aggregation(self, model: ImmunoStructModel, batch) -> tuple:
+        """``program_aggregation`` of a step on ``batch`` (of a comparative
+        batch's cancer graph)."""
+        graph = (batch.cancer.graph if isinstance(batch, ComparativeBatch)
+                 else batch.graph)
+        return program_aggregation(model, graph, self.aggregation,
+                                   self.compute_dtype)
 
     def _static(self, mode: str, model: ImmunoStructModel, batch) -> tuple:
         """The static arguments of a step's key (its inputs' shapes and
         dtypes join them in ``Program``)."""
-        agg = self.aggregation
-        if model.spec.use_structure:
-            graph = (batch.cancer.graph if isinstance(batch, ComparativeBatch)
-                     else batch.graph)
-            agg = gcn_aggregation(model, graph, self.aggregation)
-        return (mode, agg, self.mega_variant, self.compute_dtype,
-                self.grad_accum_steps, self.coeff_contrastive > 0,
-                self.stack_twins)
+        return (mode, self._aggregation(model, batch)[0], self.mega_variant,
+                self.compute_dtype, self.grad_accum_steps,
+                self.coeff_contrastive > 0, self.stack_twins)
 
     def _train_work(self, state: TrainState, inputs, generator):
         """The whole step a train program runs or captures: the gradients
@@ -427,7 +432,7 @@ class Trainer:
             seed=derived_seed(seed, state.step),
             state=functools.partial(module_tensors, state.model,
                                     state.optimizer),
-            eager=self._eager_rule())
+            eager=self._eager_rule(state.model, batch))
         state.step += 1
         return state, loss
 
@@ -444,7 +449,7 @@ class Trainer:
             static=self._static("eval", model, batch),
             seed=derived_seed(seed, index),
             state=functools.partial(module_tensors, model),
-            eager=self._eager_rule())
+            eager=self._eager_rule(model, batch))
         if data is not None:
             loss = pmean(loss, self.data_axis, self.mesh)
             logits = all_gather(logits, self.data_axis, mesh=self.mesh)

@@ -209,18 +209,18 @@ class Scorer:
 
     def probs(self, graph, seq, props) -> torch.Tensor:
         """The probabilities on the device, without waiting for them."""
-        from immunostruct_tpu_torch.models.trunk import gcn_aggregation
+        from immunostruct_tpu_torch.models.trunk import program_aggregation
 
-        agg = self.aggregation
-        if self.model.spec.use_structure:
-            agg = gcn_aggregation(self.model, graph, self.aggregation)
+        agg, eager = program_aggregation(self.model, graph, self.aggregation,
+                                         self.compute_dtype)
         with torch.inference_mode():
             return self.program(
                 self._forward, (graph, seq, props),
                 static=(agg, self.compute_dtype, self.mega_variant,
                         self.fused_stack),
                 seed=self.seed,
-                state=functools.partial(module_tensors, self.model))
+                state=functools.partial(module_tensors, self.model),
+                eager=eager)
 
     def __call__(self, graph, seq, props) -> np.ndarray:
         return self.probs(graph, seq, props).cpu().numpy()

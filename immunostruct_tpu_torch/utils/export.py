@@ -101,8 +101,11 @@ def export_inference_fn(model, example_batch, *, aggregation: str = "onehot",
     (module docstring). Traced under ``torch.no_grad()`` with the model in
     eval mode, so ``'mega'`` takes B1's form without residuals. The
     aggregation that ran is kept on the program as ``.immunostruct`` and
-    written beside it by ``save_exported``."""
-    from immunostruct_tpu_torch.models.trunk import gcn_aggregation
+    written beside it by ``save_exported``. A forward that must run eagerly
+    (``program_aggregation``: 'scatter' in a narrow dtype, whose ordered
+    sums read their passes from the data on the host) is refused: a traced
+    program would hold the example batch's passes."""
+    from immunostruct_tpu_torch.models.trunk import program_aggregation
     from immunostruct_tpu_torch.structs import GraphBatch
 
     graph, seq, props = example_batch
@@ -116,9 +119,14 @@ def export_inference_fn(model, example_batch, *, aggregation: str = "onehot",
         eps = _noise(model, b, device, compute_dtype, seed)
     else:
         eps = eps.to(device=device, dtype=compute_dtype)
-    ran = aggregation
-    if model.spec.use_structure:
-        ran = gcn_aggregation(model, GraphBatch(*args[:8]), aggregation)
+    ran, eager = program_aggregation(model, GraphBatch(*args[:8]),
+                                     aggregation, compute_dtype)
+    if eager is not None:
+        raise ValueError(
+            f"aggregation {aggregation!r} runs {ran!r} in {compute_dtype}, "
+            f"which cannot be exported ({eager}: the passes of its sums in "
+            "edge order are read from the data on the host); export in "
+            "float32 or under another aggregation")
     model.eval()
     with torch.no_grad():
         program = torch.export.export(

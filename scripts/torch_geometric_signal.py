@@ -20,13 +20,13 @@ launched the kernels it exists for (PATH_KERNELS) and none that belongs to
 another path alone; the control passes when its median test AUROC is
 within 0.22 of 0.5 and its losses are finite. Every path, 'scatter'
 included, is held to all of it. This recipe (Adam at 1e-3, no clipping, an
-EGNN without normalisation) diverges at some seeds on every path, so the
-bounds are held on many seeds (sixteen here, chip_smoke.py's phase 32
-eight), not on three: the deterministic 'scatter' misses them at seeds 0-2
-alone (PERF.md §6). On the card 'scatter' runs
-under ``torch.use_deterministic_algorithms``, so that its sums at a node
-take a fixed order (a sort) rather than atomics and a seed gives one
-trajectory, as every kernel path does. The 'auto' runs also score the test
+EGNN without normalisation) diverges at some seeds on every path, in the
+JAX package as in the port, so the bounds are held on many seeds (sixteen
+here, chip_smoke.py's phase 32 eight), not on three (PERF.md §6). In bf16
+'scatter' sums at a node in edge order, each add rounded, as JAX's does; in
+f32 on the card it runs under ``torch.use_deterministic_algorithms``, so
+that its sums take a fixed order (a sort) rather than atomics: either way a
+seed gives one trajectory, as every kernel path does. The 'auto' runs also score the test
 split through the served forward with ``fused_stack=True`` (B7): no
 further from the 'mega' forward and from the plain 'scatter' forward than
 'mega' is from 'scatter', give or take PROB_ATOL; at FIRST_SEEDS also
@@ -35,6 +35,9 @@ within PROB_ATOL of 'mega' and its AUROC within AUROC_ATOL.
   python scripts/torch_geometric_signal.py                # the card, every path, seeds 0-15
   python scripts/torch_geometric_signal.py --cpu          # 'scatter' on the CPU
   python scripts/torch_geometric_signal.py --paths auto fused --seeds 0
+  python scripts/torch_geometric_signal.py --paths auto scatter --seeds 1 \
+      --init tests/data/geomsig_init_key0.npz  # from the JAX package's start
+  python scripts/torch_geometric_signal.py --compute-dtype float32 --paths scatter --seeds 0 1
 
 The last line of the output is one JSON object; the exit code is 1 when a
 bound is missed.
@@ -53,6 +56,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -98,6 +102,12 @@ SEEDS = tuple(range(16))
 # rate (13 of 16, PERF.md §6)
 LEARNED_SLACK = 2
 CORPUS_SEED = 17
+# the JAX package's own start (scripts/geometric_signal.py:52-55): its
+# StructureModel at jax.random.key(0), trained with split and shuffle seed
+# 1 (immunostruct_tpu/config.py:70), as its TPU run did
+INIT_KEY0 = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "tests", "data", "geomsig_init_key0.npz")
+JAX_START_SEED = 1
 
 
 def card_line() -> str:
@@ -210,8 +220,10 @@ def served_b7(config, model, test_pipe) -> dict:
 def fixed_order_sums(on: bool):
     """With ``on``, ``torch.use_deterministic_algorithms(True)`` while the
     block runs (and the cuBLAS workspace setting it asks for, where none is
-    set): 'scatter''s ``index_add_`` then sums each node in a fixed order
-    rather than by atomics, so a seed gives one trajectory on the card.
+    set): 'scatter''s ``index_add_`` in f32 then sums each node in a fixed
+    order rather than by atomics, so a seed gives one trajectory on the
+    card. In bf16 'scatter' sums in edge order already
+    (``ops/segment.py::sum_rows_in_order``), so ``run_one`` leaves it off.
     The previous state is restored."""
     if not on:
         yield
@@ -231,13 +243,20 @@ def fixed_order_sums(on: bool):
 
 def run_one(root: str, model_name: str, *, samples: int, epochs: int,
             seed: int, device: str, aggregation: str,
-            mega_variant: str = "hybrid", compute_dtype: str) -> dict:
+            mega_variant: str = "hybrid", compute_dtype: str,
+            init: Optional[str] = None, overrides: Optional[dict] = None
+            ) -> dict:
     """Train ``model_name`` on the geometric corpus (scripts/geometric_
     signal.py::run_one): the split, the weights and the shuffles from
-    ``seed``, the corpus from seed 17. Returns JAX's keys, the per-epoch
-    losses, the wall seconds and each kernel's launches over training and
-    over inference (the 'auto' runs on the card also ``served_b7``: B7
-    takes E a multiple of 128, the card's pad)."""
+    ``seed``, the corpus from seed 17. ``init``: the initial weights from a
+    checkpoint npz of the JAX package (``save_checkpoint``, e.g. JAX's
+    ``build_model`` at ``jax.random.key(0)``, its own start: INIT_KEY0) in
+    place of the ``torch.Generator`` draw; the split and the shuffles still
+    come from ``seed``. ``overrides``: fields of the model's spec (its
+    widths, ``dropout_rate``) in place of the registry's. Returns JAX's keys, the per-epoch losses, the wall seconds and
+    each kernel's launches over training and over inference (the 'auto'
+    runs on the card also ``served_b7``: B7 takes E a multiple of 128, the
+    card's pad)."""
     from immunostruct_tpu_torch.config import Config
     from immunostruct_tpu_torch.data.dataset import (
         ImmunoDataset, seeded_split,
@@ -246,12 +265,14 @@ def run_one(root: str, model_name: str, *, samples: int, epochs: int,
     from immunostruct_tpu_torch.models import build_model
     from immunostruct_tpu_torch.ops import read_launch_counts
     from immunostruct_tpu_torch.procedures.infer import inference
+    from immunostruct_tpu_torch.utils.checkpoint import load_jax_checkpoint
     from immunostruct_tpu_torch.utils.losses import (
         LossConfig, pos_weight_from_counts,
     )
 
     on_card = torch.device(device).type == "cuda"
-    tag = f"{model_name}_{aggregation}_{mega_variant}_{seed}"
+    tag = (f"{model_name}_{aggregation}_{mega_variant}_{seed}_"
+           f"{compute_dtype}_{os.path.basename(init or 'seed')}")
     config = Config(device=device, batch_size=32, num_epochs=epochs,
                     pad_nodes_multiple=8 if on_card else 4,
                     pad_edges_multiple=128 if on_card else 16,
@@ -267,7 +288,9 @@ def run_one(root: str, model_name: str, *, samples: int, epochs: int,
     vae_dim = ds.seq_pep.shape[1] * 21
     _, model = build_model(model_name, vae_dim,
                            torch.Generator().manual_seed(seed),
-                           device=device)
+                           device=device, **(overrides or {}))
+    if init is not None:
+        load_jax_checkpoint(init, model, verbose=False)
     loss_cfg = LossConfig(vae_dim, pos_weight_from_counts(ds.class_weights),
                           sequence=False)
 
@@ -277,7 +300,8 @@ def run_one(root: str, model_name: str, *, samples: int, epochs: int,
 
     counts0 = read_launch_counts()
     t1 = time.perf_counter()
-    with fixed_order_sums(on_card and aggregation == "scatter"):
+    with fixed_order_sums(on_card and aggregation == "scatter"
+                          and compute_dtype == "float32"):
         model, hist = fit(config, model, pipe(tr, "train"), pipe(va, "val"),
                           loss_cfg, learning_rate=1e-3,
                           mega_variant=mega_variant)
@@ -298,6 +322,7 @@ def run_one(root: str, model_name: str, *, samples: int, epochs: int,
         "aggregation": aggregation,
         "compute_dtype": compute_dtype,
         "mega_variant": mega_variant, "seed": seed, "device": device,
+        "init": None if init is None else os.path.basename(init),
         "train_losses": [float(v) for v in hist["train_loss"]],
         "val_losses": [float(v) for v in hist["val_loss"]],
         "train_s": t2 - t1, "inference_s": t3 - t2, "wall_s": t3 - t0,
@@ -464,6 +489,14 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--cpu", action="store_true",
                     help="f32, 'scatter', pads 4/16 (the JAX CPU settings)")
+    ap.add_argument("--compute-dtype", choices=("bfloat16", "float32"),
+                    help="the runs' dtype (default: bfloat16 on the card, "
+                    "float32 on the CPU)")
+    ap.add_argument("--init", metavar="PATH",
+                    help="every StructureModel run starts from this JAX "
+                    "package checkpoint npz in place of its seed's draw "
+                    "(tests/data/geomsig_init_key0.npz with --seeds 1: "
+                    "the JAX package's own start)")
     args = ap.parse_args(argv)
 
     device = "cpu" if args.cpu else args.device
@@ -472,7 +505,7 @@ def main(argv=None) -> int:
         print("torch finds no CUDA device", file=sys.stderr)
         return 2
     paths = ["scatter"] if args.cpu else args.paths
-    dtype = "bfloat16" if on_card else "float32"
+    dtype = args.compute_dtype or ("bfloat16" if on_card else "float32")
     card = card_line() if on_card else None
     if card:
         print(f"card: {card}", flush=True)
@@ -485,7 +518,7 @@ def main(argv=None) -> int:
                 agg, variant = PATHS[path]
                 runs.append(run_one(root, "StructureModel", seed=seed,
                                     aggregation=agg, mega_variant=variant,
-                                    **kw))
+                                    init=args.init, **kw))
                 print(json.dumps({"path": path, **runs[-1]}), flush=True)
             control.append(run_one(root, "SequenceFpModel", seed=seed,
                                    aggregation="scatter" if args.cpu
@@ -497,7 +530,7 @@ def main(argv=None) -> int:
     print(json.dumps({"device": torch.cuda.get_device_name(0) if on_card
                       else "cpu", "card": card, "samples": args.samples,
                       "epochs": args.epochs, "compute_dtype": dtype,
-                      **verdict,
+                      "init": args.init, **verdict,
                       "geometric_signal_recovered_by_structure_only":
                           not verdict["failures"]}))
     return 1 if verdict["failures"] else 0

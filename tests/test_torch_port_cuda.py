@@ -1205,6 +1205,37 @@ def test_segment_kernels_on_their_grids(cuda, b, e, n, c, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,e,n,c", _SEGMENT_GRIDS + [(128, 2560, N, 64),
+                                                      (128, 2560, N, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rounded_scatter_is_its_plain_version(cuda, b, e, n, c, dtype):
+    """B8's scatter with each add rounded (the backward of 'pallas''s
+    gathers), on the grids' edges and on the cotangents of a full-width
+    'pallas' layer (C=64 of h, 3 of x): bit for bit its plain version on
+    the card and on the CPU (both add in edge order, rounding each add),
+    the same bits twice, one launch counted as B8's scatter; in f32 the
+    plain scatter's bits. In bf16 the scatter that rounds once (the
+    kernel without its per-add rounding) parts from it."""
+    idx, mask, m, _ = _segment_args(b, e, n, c, dtype, cuda, seed=b + e + c)
+    last_i, last_m = _corpus_layout(idx[-1:], mask[-1:], e - 2 * e // 5)
+    idx[-1:], mask[-1:] = last_i, last_m
+    before = segment.segment_scatter.launches
+    out = segment.segment_scatter_rounded(idx, mask, m, n)
+    torch.cuda.synchronize()
+    assert segment.segment_scatter.launches - before == 1
+    want = segment.segment_scatter_rounded_reference(idx, mask, m, n)
+    assert out.dtype == dtype and torch.equal(out, want)
+    assert torch.equal(out.cpu(), segment.segment_scatter_rounded_reference(
+        *_cpu(idx, mask, m), n))
+    assert torch.equal(out, segment.segment_scatter_rounded(idx, mask, m, n))
+    once = segment.segment_scatter(idx, mask, m, n)
+    if dtype == torch.float32:
+        assert torch.equal(out, once)
+    elif e >= 256:
+        assert not torch.equal(out, once)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_segment_scatter_on_the_corpus_layout(cuda, dtype):
     """chip_smoke.py's B=128, E=2560 with 1408 real edges, the rest padded
@@ -1260,9 +1291,9 @@ def test_segment_bf16_bound_sees_f32_accumulation(cuda, tmp_path,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pallas_layer_gradients_on_card(cuda, dtype, monkeypatch):
     """One EGNN layer through 'pallas' (B8's scatter forward, its gather in
-    the backward, and its scatter as the backward of the layer's four
-    gathers) against the same layer with B8's plain versions: five scatter
-    launches and one gather; outputs and gradients within |diff| <= 1e-4 *
+    the backward, and its scatter, each add rounded, as the backward of the
+    layer's four gathers) against the same layer with B8's plain versions:
+    five scatter launches and one gather; outputs and gradients within |diff| <= 1e-4 *
     max + 1e-3 * |plain| in f32. bf16, per tensor: mean|diff| <= 2 * (the
     plain layer's own run-to-run mean|diff|) + 1e-4 * mean|plain|: the plain
     scatter (``index_add_``) sums with atomics on the card, so h's and the
@@ -1287,6 +1318,8 @@ def test_pallas_layer_gradients_on_card(cuda, dtype, monkeypatch):
                            segment.segment_scatter_reference)
                 mp.setattr(segment, "segment_gather",
                            segment.segment_gather_reference)
+                mp.setattr(segment, "segment_scatter_rounded",
+                           segment.segment_scatter_rounded_reference)
             h2, x2 = egnn_apply(layer, hin, xin, src, dst, ef, mask,
                                 "pallas")
             ((h2 * cot_h).float().sum()
@@ -1914,8 +1947,8 @@ def test_fused_layer_kernel_raises(cuda):
 # point of the 'mega' forward (B1's, then the node update's) left out.
 # silu(z1), the src projection (held packed), agg, a and h' have no mutant:
 # each reaches only bf16 storage (an mma operand, a packed register, the A
-# tile, the a tile, h'), whose store rounds it. The form has no near-tie
-# recompute.
+# tile, the a tile, h'), whose store rounds it. m and c1 drop their
+# rounding where no near-tie recompute takes them (all but ~0.1%).
 _B7_MUTANTS = {
     "x_cast": [(r"(\? )rnd<bf>\((to_f\(xb\[i\]\))\)", r"\1\2")],
     "x_diff": [(r"(const float d(\d) = )rnd<bf>\((__fsub_rn\(xc\[s \* 3 "
@@ -1923,18 +1956,17 @@ _B7_MUTANTS = {
     "radial": [(r"(const float r = )rnd<bf>\((__fadd_rn\(\s*__fadd_rn\("
                 r"__fmul_rn\(d0, d0\), __fmul_rn\(d1, d1\)\), "
                 r"__fmul_rn\(d2, d2\)\))\);", r"\1\2;")],
-    "projection": [(r"__fadd_rn\(pav, rnd<bf>\((z\[nt\]\[i\])\)\)",
+    "projection": [(r"__fadd_rn\(pav, rnd<bf>\((pbv)\)\)",
                     r"__fadd_rn(pav, \1)")],
-    "m": [(r"(const float mv = )rnd<bf>\((p \* sigmoid_fast\(p\))\)",
-           r"\1\2")],
-    "c1": [(r"(const float c1 = )rnd<bf>\((p \* sigmoid_fast\(p\))\)",
-            r"\1\2")],
+    "m": [(r"(const float mv = )rnd<bf>\((v)\)", r"\1\2")],
+    "c1": [(r"(const float c1 = )rnd<bf>\((v)\)", r"\1\2")],
     "cw": [(r"rnd<bf>\((sum4\(part\[hh\]\))\)", r"\1")],
     "msg_x": [(r"rnd<bf>\((__fmul_rn\(cw, g\.xh\[t \* 3 \+ k\]\))\)",
                r"\1")],
     "x_agg": [(r"(to_f\(xb\[node \* 3 \+ k\]\) \+ )rnd<bf>\((accx)\)",
                r"\1\2")],
     "zn": [(r"\n\s*zn = rnd<bf>\(zn\);", "")],
+    "a": [(r"rnd<T>\(expf\(-v\)\)", "expf(-v)")],
     "x_own_dtype": [(r"from_f<XT>\(to_f\(xb\[node \* 3 \+ k\]\) \+ "
                      r"(rnd<bf>\(accx\))\)",
                      r"from_f<XT>(xc[node * 3 + k] + \1)")],
@@ -2854,16 +2886,17 @@ def _captured_batch(cuda, name, paired, seed=0):
 
 
 def _captured_trainer(cuda, name, aggregation, variant, accum, coeff,
-                      capture):
-    """Full-width ``name`` from seed 0, bf16 over f32 master weights,
-    dropout at the spec's rate, Adam at 1e-3: a Trainer whose steps are
-    captured (``capture`` None) or eager (False), and its state."""
+                      capture, dtype=torch.bfloat16):
+    """Full-width ``name`` from seed 0, ``dtype`` (bf16) over f32 master
+    weights, dropout at the spec's rate, Adam at 1e-3: a Trainer whose
+    steps are captured (``capture`` None) or eager (False), and its
+    state."""
     _, model = build_model(name, 20 * 21, torch.Generator().manual_seed(0),
                            device=cuda)
     trainer = Trainer(model.spec, LossConfig(20 * 21, 1.0, sequence=True),
                       binary=True,
                       optimizer=make_optimizer("adam", constant_lr(1e-3)),
-                      aggregation=aggregation, compute_dtype=torch.bfloat16,
+                      aggregation=aggregation, compute_dtype=dtype,
                       mega_variant=variant, grad_accum_steps=accum,
                       coeff_contrastive=coeff,
                       allow_microbatch_contrastive=coeff > 0 and accum > 1,
@@ -2926,20 +2959,24 @@ def test_captured_step_equals_the_eager_step(cuda, case):
 
 @pytest.mark.cuda
 def test_captured_scatter_step_within_its_bounds_of_the_eager_step(cuda):
-    """'scatter' sums with atomics (``index_add_``), so two eager steps from
-    one state part in their last bits and their trajectories drift apart.
-    Each of five steps is taken from one state: before it, the eager
-    trainer's parameters, Adam moments and step count are copied into the
-    captured trainer's tensors in place (the graph's addresses stay). The
-    captured step is then held to the eager one by phase 16's first-step
-    bounds of chip_smoke.py, the bounds 'scatter' has against itself and
-    'mega': the loss within 1e-3, each gradient's difference within 0.02 of
-    its norm + 2e-4 of the largest norm; every step after the first is a
-    replay."""
+    """'scatter' in f32 sums with atomics (``index_add_``), so two eager
+    steps from one state part in their last bits and their trajectories
+    drift apart. Each of five steps is taken from one state: before it, the
+    eager trainer's parameters, Adam moments and step count are copied into
+    the captured trainer's tensors in place (the graph's addresses stay).
+    The captured step is then held to the eager one by phase 16's
+    first-step bounds of chip_smoke.py, the bounds 'scatter' has against
+    itself and 'mega': the loss within 1e-3, each gradient's difference
+    within 0.02 of its norm + 2e-4 of the largest norm; every step after
+    the first is a replay. In bf16 'scatter' sums in edge order with its
+    passes counted on the host (``ops/egnn.py::host_counted_sums``): its
+    steps run eagerly under that rule, and two steps from one state give
+    the same bits."""
     batch = _captured_batch(cuda, "HybridModelv2", False)
     (tc, sc), (te, se) = (
         _captured_trainer(cuda, "HybridModelv2", "scatter", "hybrid", 1, 0.0,
-                          capture) for capture in (None, False))
+                          capture, torch.float32)
+        for capture in (None, False))
     worst = 0.0
     for step in range(5):
         with torch.no_grad():
@@ -2963,6 +3000,19 @@ def test_captured_scatter_step_within_its_bounds_of_the_eager_step(cuda):
     assert (tc.train_program.captures, tc.train_program.replays,
             tc.train_program.dropped) == (1, 4, 0)
     print(f"captured scatter: worst gradient {worst:.4f} of its bound")
+
+    runs = []
+    for _ in range(2):
+        trainer, state = _captured_trainer(cuda, "HybridModelv2", "scatter",
+                                           "hybrid", 1, 0.0, None)
+        state, loss = trainer.train_step(state, batch, seed=4)
+        state, loss = trainer.train_step(state, batch, seed=4)
+        assert trainer.train_program.captures == 0
+        assert trainer.train_program.eager_calls == {"ordered sums": 2}
+        runs.append((loss, [p.detach().clone()
+                            for p in state.model.parameters()]))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
 
 
 def _scorer_pair(cuda, model, **kw):

@@ -260,6 +260,18 @@ def test_artifact_calls_the_ops_and_gives_the_scorers_bits(tmp_path,
                           want)
 
 
+@pytest.mark.parametrize("aggregation", ["scatter", "auto"])
+def test_bf16_scatter_is_refused_at_export(aggregation):
+    """'scatter' in bf16 ('auto' on the CPU resolves to it) sums in edge
+    order with its passes read from the data on the host
+    (``ops/segment.py::sum_rows_in_order``): a traced program would hold
+    the example batch's passes, so the export raises and names why."""
+    with pytest.raises(ValueError, match="ordered sums"):
+        export_inference_fn(_model(), _batch(_request_arrays(seed=1)),
+                            aggregation=aggregation,
+                            compute_dtype=torch.bfloat16, seed=5)
+
+
 def test_auto_resolves_at_export_and_other_devices_are_refused(tmp_path):
     """'auto' is traced as 'scatter' on the CPU and says so; the artifact
     refuses another device type before it loads anything, and a file that

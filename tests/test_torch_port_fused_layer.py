@@ -19,10 +19,9 @@ in the TPU kernel. Tolerances:
   1.2e-7 at most.
 - bf16 (and bf16 features over f32 coordinates): every element of h' and
   x' within one bf16 step of the JAX 'mega' layer's, at most 1% of them
-  different, with JAX's node-MLP silu rounding once as the port's does
-  (``jax.nn.silu`` in bf16 rounds four times: ROADMAP §C,
-  tests/test_torch_port_edge.py); the two round at the same points, so
-  only an f32 sum in another order can flip one.
+  different; the two round at the same points (the node MLP's silu at
+  ``jax.nn.silu``'s four, as the port's node update), so only
+  an f32 sum in another order can flip one.
 - Three layers (``fused_egnn_stack``): f32 atol=1e-5, rtol=1e-4 of
   ``fused_egnn_stack``; bf16 as one layer, against the 'mega' layer three
   times.
@@ -101,13 +100,9 @@ def _compare(got, want, dtype):
             _within_one_bf16_step(_f32(g), _f32(w), 0.01)
 
 
-def _jax_mega_layers(params, h, x, src, dst, mask, monkeypatch):
+def _jax_mega_layers(params, h, x, src, dst, mask):
     """The JAX 'mega' layer over ``params`` (a list: one layer each), as
-    B7's bf16 reference: XLA without excess precision, the node MLP's silu
-    rounded once (a monkeypatch here; the JAX package is not edited)."""
-    silu = jax.nn.silu
-    monkeypatch.setattr(jax.nn, "silu",
-                        lambda z: silu(z.astype(jnp.float32)).astype(z.dtype))
+    B7's bf16 reference: XLA without excess precision."""
     ef = jnp.ones(src.shape + (1,), jnp.float32)
 
     def stack(ps, h, x, *a):
@@ -131,7 +126,7 @@ def _both_sides(h, x, dtype, x_dtype):
     (128, 20, "bfloat16", "bfloat16"), (256, 16, "bfloat16", "bfloat16"),
     (256, 20, "bfloat16", "float32"),
 ])
-def test_plain_version_matches_jax_kernel(e, f, dtype, x_dtype, monkeypatch):
+def test_plain_version_matches_jax_kernel(e, f, dtype, x_dtype):
     h, x, src, dst, mask = _graph(e, f, seed=e + f)
     params = jax_egnn.egnn_init(jax.random.key(e + f), f, H, H)
     (jh, jx), (th, tx) = _both_sides(h, x, dtype, x_dtype)
@@ -140,8 +135,7 @@ def test_plain_version_matches_jax_kernel(e, f, dtype, x_dtype, monkeypatch):
             lambda p, *a: jax_fused_layer(p, *a, interpret=True), params,
             jh, jx, jnp.asarray(src), jnp.asarray(dst), jnp.asarray(mask))
     else:
-        want = _jax_mega_layers([params], jh, jx, src, dst, mask,
-                                monkeypatch)
+        want = _jax_mega_layers([params], jh, jx, src, dst, mask)
     layer = _port_layer(params, f)
     with torch.no_grad():
         got = fused_layer.fused_egnn_layer(
@@ -152,7 +146,7 @@ def test_plain_version_matches_jax_kernel(e, f, dtype, x_dtype, monkeypatch):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_fused_stack_matches_jax_over_three_layers(dtype, monkeypatch):
+def test_fused_stack_matches_jax_over_three_layers(dtype):
     h, x, src, dst, mask = _graph(128, 20, seed=3)
     params = jax_egnn.egnn_stack_init(jax.random.key(7), 2, 20, H)
     (jh, jx), (th, tx) = _both_sides(h, x, dtype, dtype)
@@ -161,7 +155,7 @@ def test_fused_stack_matches_jax_over_three_layers(dtype, monkeypatch):
             lambda p, *a: jax_fused_stack(p, *a, interpret=True), params,
             jh, jx, jnp.asarray(src), jnp.asarray(dst), jnp.asarray(mask))
     else:
-        want = _jax_mega_layers(params, jh, jx, src, dst, mask, monkeypatch)
+        want = _jax_mega_layers(params, jh, jx, src, dst, mask)
     layers = [_port_layer(p, 20 if i == 0 else H)
               for i, p in enumerate(params)]
     with torch.no_grad():
