@@ -11,7 +11,12 @@ noise is JAX's own draw, in bf16 as JAX draws it there
 Models: StructureModel and HybridModelv2 at two EGNN layers of 16 (every
 aggregation the CPU runs: 'scatter', 'onehot', 'onehot_remat', 'mega' with
 each ``mega_variant``, 'fused', 'pallas'), and StructureModel at its full
-width (six layers of 64) under 'scatter', 'mega' and 'fused'.
+width (six layers of 64) under 'scatter', 'mega' and 'fused'. This file
+holds StructureModel's cases at two layers and the helpers;
+``test_torch_port_bf16_hybrid.py`` (HybridModelv2 but 'mega'),
+``test_torch_port_bf16_hybrid_mega.py`` (HybridModelv2 under 'mega') and
+``test_torch_port_bf16_full_width.py`` hold the others, so that the
+suite's workers share the cases.
 
 The JAX side is compiled by XLA without excess precision
 (``xla_allow_excess_precision`` off, as ``test_torch_port_edge.py``'s
@@ -104,6 +109,7 @@ from immunostruct_tpu_torch.utils.losses import LossConfig
 from immunostruct_tpu_torch.utils.schedule import constant_lr
 from tests.test_torch_port_train import L, LATENT, _arrays, _flat, _jax_batch
 from tests.test_torch_port_variants import FLAGS, _paired_arrays, jax_flag
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 LR = 1e-3
 STEPS = 3
@@ -352,15 +358,11 @@ AGGREGATIONS = [("scatter", "hybrid"), ("onehot", "hybrid"),
                 ("onehot_remat", "hybrid"), ("mega", "hybrid"),
                 ("mega", "dboth"), ("mega", "inkernel"), ("mega", "paired"),
                 ("mega", "stack"), ("fused", "hybrid"), ("pallas", "hybrid")]
+MEGA = [a for a in AGGREGATIONS if a[0] == "mega"]
+NOT_MEGA = [a for a in AGGREGATIONS if a[0] != "mega"]
 
 
 @pytest.mark.parametrize("aggregation,variant", AGGREGATIONS)
-@pytest.mark.parametrize("name", ["StructureModel", "HybridModelv2"])
+@pytest.mark.parametrize("name", ["StructureModel"])
 def test_bf16_step_matches_jax(tmp_path, name, aggregation, variant):
     _check(_step_readings(name, tmp_path, aggregation, variant))
-
-
-@pytest.mark.parametrize("aggregation", ["scatter", "mega", "fused"])
-def test_bf16_step_matches_jax_at_full_width(tmp_path, aggregation):
-    _check(_step_readings("StructureModel", tmp_path, aggregation,
-                          width="full"))

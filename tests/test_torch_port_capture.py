@@ -47,6 +47,7 @@ from immunostruct_tpu_torch.utils.checkpoint import (
 )
 from immunostruct_tpu_torch.utils.losses import LossConfig
 from tests import test_torch_port_train as t
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 N, E, L = 16, 128, 6
 SMALL = dict(gcn_layers=2, gat_hidden_channels=16, vae_hidden_dim=32,

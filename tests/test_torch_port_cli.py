@@ -34,6 +34,7 @@ from immunostruct_tpu_torch.utils.checkpoint import jax_params
 from immunostruct_tpu_torch.utils.logging import MetricLogger, stage_log_fn
 from immunostruct_tpu_torch.utils.losses import LossConfig
 from immunostruct_tpu_torch.utils.schedule import constant_lr
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(gcn_layers=1, gat_hidden_channels=16, vae_hidden_dim=32,
              vae_latent_dim=8)

@@ -52,6 +52,7 @@ from immunostruct_tpu_torch.procedures import clinical
 from immunostruct_tpu_torch.utils.checkpoint import (
     load_jax_checkpoint, save_checkpoint,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CLINICAL_ARRAYS = ("seq_full", "seq_pep", "props", "props_filled",
                    "graph_idx", "valid", "immuno", "foreign_norm")
@@ -59,16 +60,6 @@ GRAPH_FIELDS = ("node_onehot", "coords", "edge_src", "edge_dst", "edge_mask",
                 "node_mask", "num_nodes")
 SMALL = ["--gcn-layers", "1", "--gat-hidden-channels", "16",
          "--vae-hidden-dim", "32", "--vae-latent-dim", "8"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this file's small models: under the suite's
-    workers, more threads a process only contend for the host's cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _read(path):

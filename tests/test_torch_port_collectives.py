@@ -29,6 +29,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 from immunostruct_tpu.parallel import collectives as jc
 from immunostruct_tpu_torch.parallel.dryrun import spawn
 from tests import torch_parallel_ranks as ranks
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SHAPES = [(), (5,), (8,), (3, 7), (16, 9)]
 

@@ -49,6 +49,7 @@ from immunostruct_tpu_torch.ops import edge, mega, segment
 from immunostruct_tpu_torch.procedures.train import train_model
 from immunostruct_tpu_torch.structs import ComparativeBatch
 from immunostruct_tpu_torch.utils.losses import LossConfig
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 DATASET_ARRAYS = ("seq_full", "seq_pep", "props", "immuno", "foreign_norm",
                   "graph_idx", "pep_len")

@@ -207,6 +207,18 @@ from immunostruct_tpu_torch.utils.schedule import constant_lr
 N = 288
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread_without_a_card():
+    """One torch thread where this file runs on the CPU beside the suite's
+    other workers; on a machine with a card it runs alone, and its plain
+    versions keep torch's threads."""
+    threads = torch.get_num_threads()
+    if not torch.cuda.is_available():
+        torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _assert_close(out, ref, dtype):
     assert out.dtype == torch.float32 and torch.isfinite(out).all()
     if dtype == torch.float32:

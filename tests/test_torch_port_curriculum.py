@@ -28,18 +28,9 @@ from immunostruct_tpu.data.synthetic import (
 from immunostruct_tpu_torch.cli import train_curriculum
 from immunostruct_tpu_torch.ops import edge, mega, segment
 from immunostruct_tpu_torch.utils.checkpoint import load_checkpoint
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 EPOCHS = 4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this file's small models: under the suite's
-    workers, more threads a process only contend for the host's cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -40,6 +40,7 @@ from immunostruct_tpu_torch.procedures import metrics
 from immunostruct_tpu_torch.procedures.train import CollapseGuard
 from immunostruct_tpu_torch.utils import checkpoint
 from immunostruct_tpu_torch.utils.checkpoint import jax_params
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(gcn_layers=1, gat_hidden_channels=16, vae_hidden_dim=32,
              vae_latent_dim=8)

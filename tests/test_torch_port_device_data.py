@@ -57,6 +57,7 @@ from immunostruct_tpu_torch.data.pipeline import (
     BatchPipeline, ComparativePipeline,
 )
 from immunostruct_tpu_torch.structs import ComparativeBatch, SampleBatch
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 GRAPH = ("node_feat", "coords", "edge_src", "edge_dst", "edge_feat",
          "edge_mask", "node_mask", "num_nodes")

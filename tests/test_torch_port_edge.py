@@ -48,6 +48,7 @@ from immunostruct_tpu_torch.procedures.train import Trainer, make_optimizer
 from immunostruct_tpu_torch.utils.losses import LossConfig
 from immunostruct_tpu_torch.utils.schedule import constant_lr
 from immunostruct_tpu_torch.utils.checkpoint import load_params
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 B, N, E, H = 2, 16, 256, 16
 BF16_MEAN = 1e-4              # edge program, bf16: per-row mean ratio

@@ -61,6 +61,7 @@ from immunostruct_tpu_torch.utils.export import (
     REQUEST_KEYS, export_inference_fn, load_exported, read_meta,
     save_exported,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, N, E, L = 4, 16, 128, 12
@@ -342,6 +343,7 @@ def test_a_fresh_process_loads_the_artifact_without_the_models(tmp_path):
     out = str(tmp_path / "probs.npy")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
+    env["OMP_NUM_THREADS"] = "1"     # one torch thread, as in the workers
     proc = subprocess.run([sys.executable, "-c", _LOADER, path, req, out],
                           capture_output=True, text=True, cwd=REPO, env=env,
                           timeout=300)
@@ -550,6 +552,7 @@ def test_artifact_server_imports_no_model_and_no_jax(artifact_path,
     req = _write_request(str(tmp_path / "req.npz"), seed=8)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
+    env["OMP_NUM_THREADS"] = "1"     # one torch thread, as in the workers
     proc = subprocess.run(
         [sys.executable, "-c", _SERVER, "--artifact", path, "--device", "cpu",
          "--oneshot", req], capture_output=True, text=True, cwd=REPO,

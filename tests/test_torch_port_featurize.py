@@ -43,6 +43,7 @@ from immunostruct_tpu_torch.data.dataset import GraphArrays, ImmunoDataset
 from immunostruct_tpu_torch.data.graphs import convert_pt_graph, load_graph_dir
 from immunostruct_tpu_torch.featurize import builder, edges, native, pdb
 from tests.test_featurize import RES3, helix_coords, write_pdb
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 GRAPH_KEYS = ("name", "x", "coords", "edge_index")
 

@@ -60,6 +60,7 @@ from immunostruct_tpu_torch.structs import GraphBatch
 from immunostruct_tpu_torch.utils.checkpoint import load_jax_checkpoint
 from tests.test_torch_port_edge import H, _port_layer, _rounding
 from tests.test_torch_port_model import _jax_eps, _within_one_bf16_step
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 B, N = 2, 16
 F32_TOL = dict(atol=1e-5, rtol=1e-4)

@@ -26,6 +26,7 @@ from immunostruct_tpu_torch.data import tables
 from immunostruct_tpu_torch.utils.logging import MetricLogger
 from immunostruct_tpu_torch.utils.losses import plot_losses
 from tests.torch_parallel_ranks import stand_in_wandb
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 PAYLOADS = [{"pretrain_train_loss": np.float32(1.5),
              "pretrain_val_loss": 2.0},

@@ -47,6 +47,7 @@ from immunostruct_tpu_torch.utils.checkpoint import (
 )
 from immunostruct_tpu_torch.utils.logging import stats_to_wandb
 from tests.test_torch_import import fake_state_dict
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 VAE_DIM = 12 * 21
 

@@ -20,6 +20,7 @@ import torch
 
 from immunostruct_tpu_torch.ops import kernel_checks as kc
 from immunostruct_tpu_torch.ops import mega
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -94,6 +94,7 @@ from immunostruct_tpu_torch.utils.checkpoint import (
 from immunostruct_tpu_torch.utils.losses import (
     LossConfig, pos_weight_from_counts,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -108,17 +109,6 @@ def _script():
 
 
 signal = _script()
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """Two torch threads while this file trains: its runs give the same
-    bits at 1, 2 and 8 threads, and under the suite's parallel workers
-    fewer threads contend less."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 # ---------------------------------------------------------------------------

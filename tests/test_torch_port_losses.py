@@ -27,6 +27,7 @@ from immunostruct_tpu_torch.procedures.train import make_optimizer
 from immunostruct_tpu_torch.utils import contrastive, losses, schedule
 from immunostruct_tpu_torch.utils.checkpoint import load_params, params_from_jax
 from immunostruct_tpu_torch.utils.seeding import seed_everything
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 B, L = 6, 5
 VAE = L * 21

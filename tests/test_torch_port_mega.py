@@ -36,6 +36,7 @@ from immunostruct_tpu.ops.pallas_mega import edge_mega as jax_edge_mega
 from immunostruct_tpu_torch.ops import mega, segment
 from immunostruct_tpu_torch.ops.egnn import EGNNLayer
 from immunostruct_tpu_torch.utils.checkpoint import load_params
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 B, N, H = 3, 16, 16
 BF16_GRAD_TOL = 1e-4          # mean|diff| / mean|JAX| per gradient, bf16

@@ -44,6 +44,7 @@ from immunostruct_tpu_torch.structs import GraphBatch
 from immunostruct_tpu_torch.utils.checkpoint import (
     jax_name, load_jax_checkpoint, params_from_jax,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 B, N, E, L = 3, 16, 128, 6
 SMALL = dict(gcn_layers=2, gat_hidden_channels=16, vae_hidden_dim=32,

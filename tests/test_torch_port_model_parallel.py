@@ -47,21 +47,11 @@ from immunostruct_tpu_torch.parallel.dryrun import (
 )
 from immunostruct_tpu_torch.parallel.mp import pad_pipeline_stages
 from tests import torch_parallel_ranks as ranks
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 B, N, E, L = 8, 24, 64, 12
 CASE = StepCase(name="HybridModelv2_Comparative", b=B, nodes=N, edges=E,
                 seq_len=L)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this file's small models (the spawned ranks
-    take one each too): under the suite's workers, more threads a process
-    only contend for the host's cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _mlp(key, sizes):

@@ -9,6 +9,7 @@ import subprocess
 import sys
 
 import immunostruct_tpu_torch
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -38,6 +39,7 @@ def _modules():
 def _probe(names, *setup):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
+    env["OMP_NUM_THREADS"] = "1"     # one torch thread, as in the workers
     code = "\n".join([*setup, _PROBE])
     return subprocess.run([sys.executable, "-c", code, *names],
                           capture_output=True, text=True, cwd=REPO, env=env,

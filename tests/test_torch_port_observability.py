@@ -30,6 +30,7 @@ from immunostruct_tpu_torch.models import build_model, model_apply, model_map
 from immunostruct_tpu_torch.utils import attribution, flops
 from immunostruct_tpu_torch.utils.checkpoint import load_jax_checkpoint
 from immunostruct_tpu_torch.utils.profiling import StepTimer, trace
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 B, N, E, L = 2, 16, 64, 12
 VAE_DIM = L * 21

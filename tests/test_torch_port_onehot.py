@@ -40,6 +40,7 @@ from tests.test_torch_port_edge import H, _port_layer
 from tests.test_torch_port_train import (
     _arrays, _jax_batch, _plain_eps, _run_steps, _setup,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 B, N, E, F = 2, 16, 128, 20
 NOISE = 3.0

@@ -73,6 +73,7 @@ from tests.test_torch_port_train import (
     LR, SMALL, L, _arrays, _assert_params_match, _jax_batch, _plain_eps,
     _setup,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CASE = StepCase(name="HybridModelv2", b=8, nodes=16, edges=64, seq_len=8,
                 overrides=tuple(dict(gcn_layers=2, gat_hidden_channels=16,
@@ -95,16 +96,6 @@ CONTROL = {
         CONTROL_CASE, overrides=(("dropout_rate", 0.0),), pinned=True),
     "twin": CONTROL_CASE,
 }
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this file's small models (the spawned ranks
-    take one each too): under the suite's workers, more threads a process
-    only contend for the host's cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -35,6 +35,7 @@ from immunostruct_tpu_torch.utils.export import REQUEST_KEYS, load_exported
 from immunostruct_tpu_torch.utils.quantize import (
     dequantize_int8, fake_quant_int8, quantize_int8, quantized_size_bytes,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 L = 12
 

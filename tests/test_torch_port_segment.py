@@ -44,6 +44,7 @@ from immunostruct_tpu_torch.ops.egnn import (
     EGNNLayer, egnn_apply, egnn_stack_apply,
 )
 from immunostruct_tpu_torch.utils.checkpoint import load_params
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 B, N, C, H = 2, 24, 16, 16
 LAYER_BF16_NOISE = 2.0

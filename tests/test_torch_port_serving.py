@@ -17,6 +17,7 @@ import torch
 from immunostruct_tpu_torch import serving
 from immunostruct_tpu_torch.data.synthetic import write_example
 from immunostruct_tpu_torch.models import build_model, model_apply
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 L = 5
 TINY = dict(gcn_layers=1, gat_hidden_channels=16, vae_hidden_dim=16,

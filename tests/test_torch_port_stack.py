@@ -47,6 +47,7 @@ from tests.test_torch_port_variants import (
     H, N, _graph, _jax_stack, assert_stack_matches, jax_flag, jax_named,
     port_named,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 STACK_BF16_NOISE = 5.0        # the stack's gradients, bf16: x JAX's noise
 

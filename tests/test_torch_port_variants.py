@@ -64,6 +64,7 @@ from tests.test_torch_port_mega import (
 from tests.test_torch_port_train import (
     _jax_batch, _plain_eps, _run_steps, _setup,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 B, N, E, H = 3, 16, 256, 16
 LAYER_BF16_NOISE = 2.0        # whole layers, bf16: x JAX's own bf16 noise
